@@ -3,16 +3,26 @@
 Port of ``deepspeed_tpu/__init__.py``.  The package mirrors the JAX
 package's module paths (``deepspeed_tpu_torch/<path>`` ports
 ``deepspeed_tpu/<path>``) and imports neither ``jax`` nor anything of
-``deepspeed_tpu``.  This slice carries serving: ``InferenceEngine``
-serves the GPT-2 family through a paged KV cache, and prefill attention
-runs on a hand-written CUDA flash-attention forward kernel
-(``csrc/transformer/flash_attention_fwd.cu``).  The training API comes
-with a later slice.
+``deepspeed_tpu``.  It serves and trains: ``InferenceEngine`` serves the
+GPT-2 family through a paged KV cache, and ``initialize`` builds the
+training engine (flat fp32 master, Adam/AdamW or Lamb, ZeRO stages 0–2
+at one rank, bf16 or fp32).  Attention runs on hand-written CUDA
+flash-attention kernels (``csrc/transformer/``): the forward, the dq and
+dk/dv backward kernels, the fused single-tile backward and in-kernel
+dropout.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["InferenceEngine", "__version__"]
+__all__ = ["InferenceEngine", "initialize", "__version__"]
+
+
+def initialize(*args, **kwargs):
+    """Engine factory: ``(engine, optimizer, training_dataloader,
+    lr_scheduler)`` (:func:`deepspeed_tpu_torch.runtime.engine.initialize`)."""
+    from .runtime.engine import initialize as _initialize
+
+    return _initialize(*args, **kwargs)
 
 
 def __getattr__(name):

@@ -1,0 +1,655 @@
+// Flash-attention backward for NVIDIA Hopper (built for sm_90a): three
+// kernels, each with in-kernel dropout (B4, flash_dropout.cuh).
+//
+// Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py:
+//   B2a `_bwd_dq_kernel`    (:263, launched at :691)  -> flash_bwd_dq_kernel
+//   B2b `_bwd_dkv_kernel`   (:311, launched at :718)  -> flash_bwd_dkv_kernel
+//   B3  `_bwd_fused_kernel` (:378, launched at :660)  -> flash_bwd_fused_kernel
+// They compute what those kernels compute: P = exp(S − lse) recomputed
+// from the forward's logsumexp, with S scaled and masked to NEG_INF as in
+// the forward (so masked keys and fully masked rows give P = 0 and
+// exactly zero gradients); dP = dO·Vᵀ; under dropout the kept P and dP
+// scaled by 1/keep and the dropped ones zero, with the mask regenerated
+// from the forward's seed; dS = P∘(dP − Δ) rounded to the storage dtype;
+// dq = dS·K·(1/√d), dk = dSᵀ·Q·(1/√d), dv = P_keptᵀ·dO with P_kept
+// rounded to the storage dtype.  Δ = rowsum(dO∘O) comes in precomputed,
+// as the JAX package computes it outside Pallas (:638-639).  Accumulation
+// is fp32; no atomics touch a value, so two runs give bitwise-equal
+// gradients.
+//
+// Design.  The TPU grids run their third axis in order and carry dq (or
+// dk, dv) in VMEM scratch.  Here a block owns its output tile and loops
+// over the other axis itself:
+// - B2a: one block per (b·h, 64 query rows); it walks the 32-key K/V
+//   tiles the rows can see (under `causal` it stops at the diagonal, the
+//   JAX `needed` test at :300) and keeps q, dO and the dq accumulator of
+//   its row in registers.
+// - B2b: one block per (b·h, 64 keys); it walks the 32-row Q/dO tiles
+//   (under `causal` from the first row that can see its first key) and
+//   keeps k, v and the dk, dv accumulators in registers.  The tile's
+//   keep bits are drawn cooperatively into shared memory first.
+// - B3: one block per b·h holds Q, dO, K, V and one [s, kv_len] fp32
+//   score tile in shared memory: P is computed once into the tile, dv
+//   read off it, then dP once and dS written over P, then dq and dk read
+//   off dS.  Dispatch to it only where that fits the 227 KB of shared
+//   memory a block can have (the wrapper computes the same size as
+//   `ds_flash_attention_bwd_fused_smem` below).
+// In B2a and B2b D/16 neighbouring threads share a row (or key), 16
+// elements of head_dim each, and close every dot product with a
+// butterfly of warp shuffles, so all of them hold the same bits.
+//
+// Bound.  At GPT-2-medium's training shape (b=8, h=16, s=1024, d=64,
+// causal, bf16) B2a moves q, k, v, dO, dq (+ lse, Δ) = 84 MB (25 µs at
+// 3.35 TB/s) and does 6·d flops per visible pair = 26 GFLOP (26 µs at
+// 989 TFLOP/s); B2b moves 84 MB too and does 8·d per pair (35 µs).
+//
+// What this simple design leaves on the table: every multiply-add is a
+// scalar fp32 FMA on the CUDA cores (67 TFLOP/s peak), tiles come in by
+// plain loads with no copy/compute overlap, and B3 runs one block per
+// b·h.  Tensor cores (mma.sync, then wgmma), cp.async/TMA double
+// buffering and larger tiles are the work of a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+#include "flash_dropout.cuh"
+
+namespace {
+
+using ds_flash::from_float;
+using ds_flash::kNegInf;
+using ds_flash::keep_bits4;
+using ds_flash::lane_or;
+using ds_flash::lane_sum;
+using ds_flash::round_to;
+using ds_flash::to_float;
+
+constexpr int kEpt = 16;        // head_dim elements each thread owns
+constexpr int kSeg = kEpt + 4;  // padded segment: neighbours in other banks
+
+// element strides (batch, seq, head) of every tensor the kernels touch;
+// the last dimension is contiguous
+struct Strides {
+  int64_t q[3], k[3], v[3], o[3], dq[3], dkv[3];
+};
+
+struct Dropout {
+  uint32_t k0, k1;  // seed words
+  uint32_t thresh;
+  float inv_keep;
+  bool on;
+};
+
+__device__ __forceinline__ Dropout read_dropout(const int* seed,
+                                                uint32_t thresh,
+                                                float inv_keep) {
+  Dropout dr;
+  dr.on = seed != nullptr;
+  dr.k0 = dr.on ? static_cast<uint32_t>(seed[0]) : 0u;
+  dr.k1 = dr.on ? static_cast<uint32_t>(seed[1]) : 0u;
+  dr.thresh = thresh;
+  dr.inv_keep = inv_keep;
+  return dr;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_seg(float* dst, const T* src,
+                                         bool valid) {
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e) dst[e] = valid ? to_float(src[e]) : 0.f;
+}
+
+// ------------------------------------------------------------------ B2a
+constexpr int kDqRows = 64;  // query rows per block
+constexpr int kDqKeys = 32;  // keys per K/V tile
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDqRows * (D / kEpt))
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ kv_mask,
+                        T* __restrict__ dq, int heads, int s, int kv_len,
+                        Strides st, float scale, int causal,
+                        const int* __restrict__ seed, uint32_t thresh,
+                        float inv_keep) {
+  constexpr int TPR = D / kEpt;  // threads per query row
+  constexpr int THREADS = kDqRows * TPR;
+  constexpr int ROW = TPR * kSeg;
+  __shared__ __align__(16) float k_s[kDqKeys * ROW];
+  __shared__ __align__(16) float v_s[kDqKeys * ROW];
+  __shared__ float mask_s[kDqKeys];
+
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int part = tid % TPR;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = blockIdx.x * kDqRows;
+  const int qi = q0 + row;
+  const bool q_valid = qi < s;
+  const int qr_i = q_valid ? qi : 0;
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+
+  float qr[kEpt], dor[kEpt], acc[kEpt];
+  load_seg(qr, q + b * st.q[0] + qr_i * st.q[1] + h * st.q[2] + part * kEpt,
+           q_valid);
+  load_seg(dor,
+           dout + b * st.o[0] + qr_i * st.o[1] + h * st.o[2] + part * kEpt,
+           q_valid);
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e) acc[e] = 0.f;
+  const float lse_i = q_valid ? lse[(int64_t)bh * s + qi] : 0.f;
+  const float delta_i = q_valid ? delta[(int64_t)bh * s + qi] : 0.f;
+
+  const T* kbase = k + b * st.k[0] + h * st.k[2];
+  const T* vbase = v + b * st.v[0] + h * st.v[2];
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+  // causal: rows q0 .. q0+kDqRows-1 see no key past q0+kDqRows-1
+  const int k_end = causal ? min(kv_len, q0 + kDqRows) : kv_len;
+
+  for (int k0 = 0; k0 < k_end; k0 += kDqKeys) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < kDqKeys * D; e += THREADS) {
+      const int j = e / D;
+      const int d = e - j * D;
+      const int kj = k0 + j;
+      const int dst = j * ROW + (d / kEpt) * kSeg + (d % kEpt);
+      float kx = 0.f, vx = 0.f;
+      if (kj < kv_len) {
+        kx = to_float(kbase[(int64_t)kj * st.k[1] + d]);
+        vx = to_float(vbase[(int64_t)kj * st.v[1] + d]);
+      }
+      k_s[dst] = kx;
+      v_s[dst] = vx;
+    }
+    if (tid < kDqKeys) {
+      const int kj = k0 + tid;
+      mask_s[tid] = kj < kv_len ? (mrow ? mrow[kj] : 1.f) : 0.f;
+    }
+    __syncthreads();
+
+    // keep bits of this row's 32 keys, drawn by the row's TPR threads
+    uint32_t keep = 0xffffffffu;
+    if (dr.on) {
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int u = 0; u < kDqKeys / 4 / TPR; ++u) {
+        const int g = part * (kDqKeys / 4 / TPR) + u;
+        bits |= keep_bits4(dr.k0, dr.k1, bh, qi, (k0 >> 2) + g, dr.thresh)
+                << (4 * g);
+      }
+      keep = lane_or<TPR>(bits);
+    }
+
+#pragma unroll 4
+    for (int j = 0; j < kDqKeys; ++j) {
+      const float4* kr =
+          reinterpret_cast<const float4*>(k_s + j * ROW + part * kSeg);
+      const float4* vr =
+          reinterpret_cast<const float4*>(v_s + j * ROW + part * kSeg);
+      float sp = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < kEpt / 4; ++d4) {
+        const float4 kk = kr[d4];
+        const float4 vv = vr[d4];
+        sp = fmaf(qr[4 * d4 + 0], kk.x, sp);
+        sp = fmaf(qr[4 * d4 + 1], kk.y, sp);
+        sp = fmaf(qr[4 * d4 + 2], kk.z, sp);
+        sp = fmaf(qr[4 * d4 + 3], kk.w, sp);
+        dp = fmaf(dor[4 * d4 + 0], vv.x, dp);
+        dp = fmaf(dor[4 * d4 + 1], vv.y, dp);
+        dp = fmaf(dor[4 * d4 + 2], vv.z, dp);
+        dp = fmaf(dor[4 * d4 + 3], vv.w, dp);
+      }
+      sp = lane_sum<TPR>(sp);
+      dp = lane_sum<TPR>(dp);
+      const bool visible = mask_s[j] > 0.f && (!causal || qi >= k0 + j);
+      const float p = expf((visible ? sp * scale : kNegInf) - lse_i);
+      if (dr.on) dp = (keep >> j) & 1u ? dp * dr.inv_keep : 0.f;
+      const float ds = round_to<T>(p * (dp - delta_i));
+#pragma unroll
+      for (int d4 = 0; d4 < kEpt / 4; ++d4) {
+        const float4 kk = kr[d4];
+        acc[4 * d4 + 0] = fmaf(ds, kk.x, acc[4 * d4 + 0]);
+        acc[4 * d4 + 1] = fmaf(ds, kk.y, acc[4 * d4 + 1]);
+        acc[4 * d4 + 2] = fmaf(ds, kk.z, acc[4 * d4 + 2]);
+        acc[4 * d4 + 3] = fmaf(ds, kk.w, acc[4 * d4 + 3]);
+      }
+    }
+  }
+
+  if (q_valid) {
+    T* out = dq + b * st.dq[0] + qi * st.dq[1] + h * st.dq[2] + part * kEpt;
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e) out[e] = from_float<T>(acc[e] * scale);
+  }
+}
+
+// ------------------------------------------------------------------ B2b
+constexpr int kKvKeys = 64;  // keys per block
+constexpr int kKvRows = 32;  // query rows per Q/dO tile
+constexpr int kKvWords = kKvKeys / 32;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kKvKeys * (D / kEpt))
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ kv_mask,
+                         T* __restrict__ dk, T* __restrict__ dv, int heads,
+                         int s, int kv_len, Strides st, float scale,
+                         int causal, const int* __restrict__ seed,
+                         uint32_t thresh, float inv_keep) {
+  constexpr int TPR = D / kEpt;  // threads per key
+  constexpr int THREADS = kKvKeys * TPR;
+  constexpr int ROW = TPR * kSeg;
+  __shared__ __align__(16) float q_s[kKvRows * ROW];
+  __shared__ __align__(16) float o_s[kKvRows * ROW];
+  __shared__ float lse_s[kKvRows];
+  __shared__ float delta_s[kKvRows];
+  __shared__ uint32_t keep_s[kKvRows * kKvWords];
+
+  const int tid = threadIdx.x;
+  const int key = tid / TPR;
+  const int part = tid % TPR;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * kKvKeys;
+  const int kj = k0 + key;
+  const bool k_valid = kj < kv_len;
+  const int kj_i = k_valid ? kj : 0;
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+  const bool key_visible = k_valid && (!mrow || mrow[kj_i] > 0.f);
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+
+  float kr[kEpt], vr[kEpt], dka[kEpt], dva[kEpt];
+  load_seg(kr, k + b * st.k[0] + kj_i * st.k[1] + h * st.k[2] + part * kEpt,
+           k_valid);
+  load_seg(vr, v + b * st.v[0] + kj_i * st.v[1] + h * st.v[2] + part * kEpt,
+           k_valid);
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e) dka[e] = dva[e] = 0.f;
+
+  const T* qbase = q + b * st.q[0] + h * st.q[2];
+  const T* obase = dout + b * st.o[0] + h * st.o[2];
+  // causal: rows before k0 see none of this block's keys
+  const int i_begin = causal ? min(k0, s) : 0;
+
+  for (int i0 = i_begin; i0 < s; i0 += kKvRows) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = tid; e < kKvRows * D; e += THREADS) {
+      const int r = e / D;
+      const int d = e - r * D;
+      const int i = i0 + r;
+      const int dst = r * ROW + (d / kEpt) * kSeg + (d % kEpt);
+      float qx = 0.f, ox = 0.f;
+      if (i < s) {
+        qx = to_float(qbase[(int64_t)i * st.q[1] + d]);
+        ox = to_float(obase[(int64_t)i * st.o[1] + d]);
+      }
+      q_s[dst] = qx;
+      o_s[dst] = ox;
+    }
+    if (tid < kKvRows) {
+      const int i = i0 + tid;
+      lse_s[tid] = i < s ? lse[(int64_t)bh * s + i] : 0.f;
+      delta_s[tid] = i < s ? delta[(int64_t)bh * s + i] : 0.f;
+    }
+    if (dr.on) {
+      for (int e = tid; e < kKvRows * kKvWords; e += THREADS) keep_s[e] = 0u;
+      __syncthreads();
+      // the tile's keep bits: one Philox draw per (row, 4 keys)
+      for (int e = tid; e < kKvRows * (kKvKeys / 4); e += THREADS) {
+        const int r = e / (kKvKeys / 4);
+        const int g = e - r * (kKvKeys / 4);
+        const uint32_t bits = keep_bits4(dr.k0, dr.k1, bh, i0 + r,
+                                         (k0 >> 2) + g, dr.thresh);
+        atomicOr(&keep_s[r * kKvWords + (g >> 3)], bits << (4 * (g & 7)));
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int r = 0; r < kKvRows; ++r) {
+      const int i = i0 + r;
+      const float4* qv =
+          reinterpret_cast<const float4*>(q_s + r * ROW + part * kSeg);
+      const float4* ov =
+          reinterpret_cast<const float4*>(o_s + r * ROW + part * kSeg);
+      float sp = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < kEpt / 4; ++d4) {
+        const float4 qq = qv[d4];
+        const float4 oo = ov[d4];
+        sp = fmaf(kr[4 * d4 + 0], qq.x, sp);
+        sp = fmaf(kr[4 * d4 + 1], qq.y, sp);
+        sp = fmaf(kr[4 * d4 + 2], qq.z, sp);
+        sp = fmaf(kr[4 * d4 + 3], qq.w, sp);
+        dp = fmaf(vr[4 * d4 + 0], oo.x, dp);
+        dp = fmaf(vr[4 * d4 + 1], oo.y, dp);
+        dp = fmaf(vr[4 * d4 + 2], oo.z, dp);
+        dp = fmaf(vr[4 * d4 + 3], oo.w, dp);
+      }
+      sp = lane_sum<TPR>(sp);
+      dp = lane_sum<TPR>(dp);
+      const bool visible = key_visible && i < s && (!causal || i >= kj);
+      const float p = expf((visible ? sp * scale : kNegInf) - lse_s[r]);
+      float pv = p;
+      if (dr.on) {
+        const bool kept = (keep_s[r * kKvWords + (key >> 5)] >> (key & 31)) & 1u;
+        pv = kept ? p * dr.inv_keep : 0.f;
+        dp = kept ? dp * dr.inv_keep : 0.f;
+      }
+      const float ds = round_to<T>(p * (dp - delta_s[r]));
+      const float pvr = round_to<T>(pv);
+#pragma unroll
+      for (int d4 = 0; d4 < kEpt / 4; ++d4) {
+        const float4 qq = qv[d4];
+        const float4 oo = ov[d4];
+        dka[4 * d4 + 0] = fmaf(ds, qq.x, dka[4 * d4 + 0]);
+        dka[4 * d4 + 1] = fmaf(ds, qq.y, dka[4 * d4 + 1]);
+        dka[4 * d4 + 2] = fmaf(ds, qq.z, dka[4 * d4 + 2]);
+        dka[4 * d4 + 3] = fmaf(ds, qq.w, dka[4 * d4 + 3]);
+        dva[4 * d4 + 0] = fmaf(pvr, oo.x, dva[4 * d4 + 0]);
+        dva[4 * d4 + 1] = fmaf(pvr, oo.y, dva[4 * d4 + 1]);
+        dva[4 * d4 + 2] = fmaf(pvr, oo.z, dva[4 * d4 + 2]);
+        dva[4 * d4 + 3] = fmaf(pvr, oo.w, dva[4 * d4 + 3]);
+      }
+    }
+  }
+
+  if (k_valid) {
+    const int64_t off =
+        b * st.dkv[0] + kj * st.dkv[1] + h * st.dkv[2] + part * kEpt;
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e) {
+      dk[off + e] = from_float<T>(dka[e] * scale);
+      dv[off + e] = from_float<T>(dva[e]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- B3
+constexpr int kFusedThreads = 1024;
+
+// shared-memory floats of the fused kernel: Q and dO [s, D], K and V
+// [kv_len, D+1] (padded rows), the [s, kv_len] score tile, lse and Δ [s],
+// the key mask [kv_len] and the keep bits [s, ceil(kv_len/32)]
+__host__ __device__ inline int64_t fused_smem_floats(int d, int s,
+                                                     int kv_len) {
+  const int64_t words = (kv_len + 31) / 32;
+  return 2LL * s * d + 2LL * kv_len * (d + 1) + (int64_t)s * kv_len +
+         2LL * s + kv_len + (int64_t)s * words;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kFusedThreads)
+    flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const float* __restrict__ kv_mask,
+                           T* __restrict__ dq, T* __restrict__ dk,
+                           T* __restrict__ dv, int heads, int s, int kv_len,
+                           Strides st, float scale, int causal,
+                           const int* __restrict__ seed, uint32_t thresh,
+                           float inv_keep) {
+  constexpr int KROW = D + 1;  // padded: threads walking keys hit all banks
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* o_s = q_s + s * D;
+  float* k_s = o_s + s * D;
+  float* v_s = k_s + kv_len * KROW;
+  float* t_s = v_s + kv_len * KROW;  // P, then dS
+  float* lse_s = t_s + s * kv_len;
+  float* delta_s = lse_s + s;
+  float* mask_s = delta_s + s;
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(mask_s + kv_len);
+  const int words = (kv_len + 31) / 32;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+
+  for (int e = tid; e < s * D; e += kFusedThreads) {
+    const int i = e / D;
+    const int d = e - i * D;
+    q_s[e] = to_float(q[b * st.q[0] + i * st.q[1] + h * st.q[2] + d]);
+    o_s[e] = to_float(dout[b * st.o[0] + i * st.o[1] + h * st.o[2] + d]);
+  }
+  for (int e = tid; e < kv_len * D; e += kFusedThreads) {
+    const int j = e / D;
+    const int d = e - j * D;
+    k_s[j * KROW + d] =
+        to_float(k[b * st.k[0] + j * st.k[1] + h * st.k[2] + d]);
+    v_s[j * KROW + d] =
+        to_float(v[b * st.v[0] + j * st.v[1] + h * st.v[2] + d]);
+  }
+  for (int i = tid; i < s; i += kFusedThreads) {
+    lse_s[i] = lse[(int64_t)bh * s + i];
+    delta_s[i] = delta[(int64_t)bh * s + i];
+  }
+  for (int j = tid; j < kv_len; j += kFusedThreads)
+    mask_s[j] = mrow ? mrow[j] : 1.f;
+  if (dr.on)
+    for (int e = tid; e < s * words; e += kFusedThreads) keep_s[e] = 0u;
+  __syncthreads();
+
+  if (dr.on) {
+    const int groups = (kv_len + 3) / 4;
+    for (int e = tid; e < s * groups; e += kFusedThreads) {
+      const int i = e / groups;
+      const int g = e - i * groups;
+      const uint32_t bits = keep_bits4(dr.k0, dr.k1, bh, i, g, dr.thresh);
+      atomicOr(&keep_s[i * words + (g >> 3)], bits << (4 * (g & 7)));
+    }
+  }
+
+  // pass 1: P = exp(S - lse) into the tile
+  for (int e = tid; e < s * kv_len; e += kFusedThreads) {
+    const int i = e / kv_len;
+    const int j = e - i * kv_len;
+    const float* qr = q_s + i * D;
+    const float* kr = k_s + j * KROW;
+    float sp = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < D; ++d) sp = fmaf(qr[d], kr[d], sp);
+    const bool visible = mask_s[j] > 0.f && (!causal || i >= j);
+    t_s[e] = expf((visible ? sp * scale : kNegInf) - lse_s[i]);
+  }
+  __syncthreads();
+
+  // dv = P_keptᵀ·dO, P_kept in the storage dtype
+  for (int e = tid; e < kv_len * D; e += kFusedThreads) {
+    const int j = e / D;
+    const int d = e - j * D;
+    float acc = 0.f;
+    for (int i = 0; i < s; ++i) {
+      float p = t_s[i * kv_len + j];
+      if (dr.on)
+        p = (keep_s[i * words + (j >> 5)] >> (j & 31)) & 1u
+                ? p * dr.inv_keep
+                : 0.f;
+      acc = fmaf(round_to<T>(p), o_s[i * D + d], acc);
+    }
+    dv[b * st.dkv[0] + j * st.dkv[1] + h * st.dkv[2] + d] = from_float<T>(acc);
+  }
+  __syncthreads();
+
+  // pass 2: dS = P∘(dP − Δ) over the tile
+  for (int e = tid; e < s * kv_len; e += kFusedThreads) {
+    const int i = e / kv_len;
+    const int j = e - i * kv_len;
+    const float* orow = o_s + i * D;
+    const float* vr = v_s + j * KROW;
+    float dp = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < D; ++d) dp = fmaf(orow[d], vr[d], dp);
+    if (dr.on)
+      dp = (keep_s[i * words + (j >> 5)] >> (j & 31)) & 1u ? dp * dr.inv_keep
+                                                            : 0.f;
+    t_s[e] = round_to<T>(t_s[e] * (dp - delta_s[i]));
+  }
+  __syncthreads();
+
+  // dq = dS·K/√d and dk = dSᵀ·Q/√d
+  for (int e = tid; e < s * D; e += kFusedThreads) {
+    const int i = e / D;
+    const int d = e - i * D;
+    float acc = 0.f;
+    for (int j = 0; j < kv_len; ++j)
+      acc = fmaf(t_s[i * kv_len + j], k_s[j * KROW + d], acc);
+    dq[b * st.dq[0] + i * st.dq[1] + h * st.dq[2] + d] =
+        from_float<T>(acc * scale);
+  }
+  for (int e = tid; e < kv_len * D; e += kFusedThreads) {
+    const int j = e / D;
+    const int d = e - j * D;
+    float acc = 0.f;
+    for (int i = 0; i < s; ++i)
+      acc = fmaf(t_s[i * kv_len + j], q_s[i * D + d], acc);
+    dk[b * st.dkv[0] + j * st.dkv[1] + h * st.dkv[2] + d] =
+        from_float<T>(acc * scale);
+  }
+}
+
+// ------------------------------------------------------------ launchers
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta, *kv_mask;
+  void *dq, *dk, *dv;
+  int batch, heads, s, kv_len;
+  Strides st;
+  float scale;
+  int causal;
+  const int* seed;
+  uint32_t thresh;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  const dim3 grid((a.s + kDqRows - 1) / kDqRows, a.batch * a.heads);
+  flash_bwd_dq_kernel<T, D><<<grid, kDqRows * (D / kEpt), 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq), a.heads,
+      a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  const dim3 grid((a.kv_len + kKvKeys - 1) / kKvKeys, a.batch * a.heads);
+  flash_bwd_dkv_kernel<T, D><<<grid, kKvKeys * (D / kEpt), 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale, a.causal,
+      a.seed, a.thresh, a.inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_fused(const Args& a) {
+  const size_t bytes = sizeof(float) * fused_smem_floats(D, a.s, a.kv_len);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_fused_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_fused_kernel<T, D><<<a.batch * a.heads, kFusedThreads, bytes,
+                                 a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s, a.kv_len,
+      a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Which { kDq = 0, kDkv = 1, kFused = 2 };
+
+template <typename T, int D>
+int launch(int which, const Args& a) {
+  if (which == kDq) return launch_dq<T, D>(a);
+  if (which == kDkv) return launch_dkv<T, D>(a);
+  return launch_fused<T, D>(a);
+}
+
+}  // namespace
+
+// Shared memory (bytes) the fused kernel B3 needs for one b·h at these
+// sizes; the wrapper dispatches to B3 only when it is at most the
+// 232,448 bytes a Hopper block may have.
+extern "C" int64_t ds_flash_attention_bwd_fused_smem(int head_dim, int s,
+                                                     int kv_len) {
+  return static_cast<int64_t>(sizeof(float)) *
+         fused_smem_floats(head_dim, s, kv_len);
+}
+
+// which: 0 = B2a (writes dq), 1 = B2b (writes dk, dv), 2 = B3 (all three).
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout are [b, s|kv_len, h, d]
+// of that dtype with the last dim contiguous; `strides` points to 18
+// host int64 element strides: (batch, seq, head) of q, k, v, dout, dq and
+// of dk/dv (which share them).  lse and delta are contiguous fp32
+// [b·h, s]; kv_mask is [batch, kv_len] fp32 or null; `seed` null (no
+// dropout) or two int32 words in device memory, with `thresh` and
+// `inv_keep` the dropout threshold and scale.  Launches on `stream`,
+// does not synchronise, allocates nothing, and returns the CUDA error.
+extern "C" int ds_flash_attention_bwd(
+    int which, int dtype, int head_dim, const void* q, const void* k,
+    const void* v, const void* dout, const void* lse, const void* delta,
+    const void* kv_mask, void* dq, void* dk, void* dv, int batch, int heads,
+    int s, int kv_len, const int64_t* strides, float scale, int causal,
+    const void* seed, uint32_t thresh, float inv_keep, void* stream) {
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.delta = delta;
+  a.kv_mask = kv_mask;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.batch = batch;
+  a.heads = heads;
+  a.s = s;
+  a.kv_len = kv_len;
+  for (int i = 0; i < 3; ++i) {
+    a.st.q[i] = strides[i];
+    a.st.k[i] = strides[3 + i];
+    a.st.v[i] = strides[6 + i];
+    a.st.o[i] = strides[9 + i];
+    a.st.dq[i] = strides[12 + i];
+    a.st.dkv[i] = strides[15 + i];
+  }
+  a.scale = scale;
+  a.causal = causal;
+  a.seed = static_cast<const int*>(seed);
+  a.thresh = thresh;
+  a.inv_keep = inv_keep;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (which < kDq || which > kFused) return cudaErrorInvalidValue;
+  if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a);
+  if (dtype == 0 && head_dim == 128) return launch<float, 128>(which, a);
+  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(which, a);
+  if (dtype == 1 && head_dim == 128)
+    return launch<__nv_bfloat16, 128>(which, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -2,12 +2,14 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deepspeed_tpu/ops/transformer/flash_attention.py (:183, launched by
-// `_flash_fwd` at :580).  It computes what that kernel computes, without
-// dropout: scaled Q·Kᵀ, causal and key-padding masking to NEG_INF, an
-// online softmax with fp32 running max, sum and accumulator, the running
-// max floored at MAX_FLOOR (a row whose every key is masked gives out = 0
-// and lse = MAX_FLOOR), P cast to the storage dtype before the P·V
-// product, and out in the storage dtype plus an fp32 logsumexp.
+// `_flash_fwd` at :580).  It computes what that kernel computes: scaled
+// Q·Kᵀ, causal and key-padding masking to NEG_INF, an online softmax with
+// fp32 running max, sum and accumulator, the running max floored at
+// MAX_FLOOR (a row whose every key is masked gives out = 0 and lse =
+// MAX_FLOOR), P cast to the storage dtype before the P·V product, and out
+// in the storage dtype plus an fp32 logsumexp.  With a seed it applies
+// attention dropout in the kernel (B4, flash_dropout.cuh): l sums the
+// undropped P, and the P·V product takes the kept P scaled by 1/keep.
 //
 // Design.  The TPU runs a grid (b·h, q blocks, k blocks) whose third
 // dimension is sequential and carries m, l and acc in VMEM scratch.  Here
@@ -39,29 +41,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "flash_dropout.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;    // masked score (NEG_INF on the TPU)
-constexpr float kMaxFloor = -1e20f;  // running-max floor (MAX_FLOOR)
+using ds_flash::from_float;
+using ds_flash::kMaxFloor;
+using ds_flash::kNegInf;
+using ds_flash::to_float;
+
 constexpr int kBlockQ = 64;          // query rows per thread block
 constexpr int kBlockK = 32;          // keys per K/V tile
 constexpr int kThreads = 2 * kBlockQ;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -71,7 +63,9 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, int heads, int s, int kv_len,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                     int64_t v_sh, float scale, int causal) {
+                     int64_t v_sh, float scale, int causal,
+                     const int* __restrict__ seed, uint32_t thresh,
+                     float inv_keep) {
   constexpr int DH = D / 2;       // head_dim elements each thread owns
   constexpr int HALF = DH + 4;    // padded half row: halves in other banks
   constexpr int ROW = 2 * HALF;   // padded K/V row in shared memory
@@ -88,6 +82,9 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBlockQ;
   const int qi = q0 + row;
   const bool q_valid = qi < s;
+  // dropout seed words (B4); no seed means every key is kept
+  const uint32_t sk0 = seed ? static_cast<uint32_t>(seed[0]) : 0u;
+  const uint32_t sk1 = seed ? static_cast<uint32_t>(seed[1]) : 0u;
 
   float qr[DH];
   float acc[DH];
@@ -148,10 +145,24 @@ __global__ void __launch_bounds__(kThreads)
       }
       // a + b == b + a exactly, so both threads of the row get one score
       part += __shfl_xor_sync(0xffffffffu, part, 1);
-      const bool keep = mask_s[j] > 0.f && (!causal || qi >= k0 + j);
-      const float x = keep ? part * scale : kNegInf;
+      const bool visible = mask_s[j] > 0.f && (!causal || qi >= k0 + j);
+      const float x = visible ? part * scale : kNegInf;
       sc[j] = x;
       tile_max = fmaxf(tile_max, x);
+    }
+
+    // keep bits of this row's 32 keys: each thread of the pair draws the
+    // Philox words of its 16 columns, the pair ORs them together
+    uint32_t keep = 0xffffffffu;
+    if (seed) {
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int u = 0; u < kBlockK / 8; ++u) {
+        const int g = half * (kBlockK / 8) + u;
+        bits |= ds_flash::keep_bits4(sk0, sk1, bh, qi, (k0 >> 2) + g, thresh)
+                << (4 * g);
+      }
+      keep = ds_flash::lane_or<2>(bits);
     }
 
     const float m_new = fmaxf(fmaxf(m, tile_max), kMaxFloor);
@@ -161,8 +172,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kBlockK; ++j) {
       const float p = expf(sc[j] - m_new);
       p_sum += p;
-      // l sums the fp32 P; the P·V product takes P in the storage dtype
-      sc[j] = to_float(from_float<T>(p));
+      // l sums the fp32 undropped P; the P·V product takes the kept P,
+      // scaled, in the storage dtype (inv_keep is 1 without dropout)
+      const float pd = (keep >> j) & 1u ? p * inv_keep : 0.f;
+      sc[j] = ds_flash::round_to<T>(pd);
     }
     l = l * corr + p_sum;
     m = m_new;
@@ -198,13 +211,15 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* out, void* lse, int batch, int heads, int s, int kv_len,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-           int64_t v_sh, float scale, int causal, cudaStream_t stream) {
+           int64_t v_sh, float scale, int causal, const int* seed,
+           uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, seed,
+      thresh, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -213,19 +228,23 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // dimension of q, k and v must be contiguous.  kv_mask is [batch, kv_len]
 // fp32 (1 keeps a key) or null; out is a contiguous [b, s, h, d] of the
-// input dtype and lse a contiguous fp32 [b·h, s].  Launches on `stream`,
+// input dtype and lse a contiguous fp32 [b·h, s].  `seed` is null (no
+// dropout) or two int32 seed words in device memory; `thresh` and
+// `inv_keep` are the dropout threshold and scale.  Launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int ds_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const void* kv_mask, void* out, void* lse, int batch, int heads, int s,
     int kv_len, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    float scale, int causal, void* stream) {
+    float scale, int causal, const void* seed, uint32_t thresh,
+    float inv_keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_FLASH_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, kv_mask, out, lse, batch, heads, s, kv_len,   \
                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
-                      scale, causal, st)
+                      scale, causal, static_cast<const int*>(seed), thresh,  \
+                      inv_keep, st)
   if (dtype == 0 && head_dim == 64) DS_FLASH_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) DS_FLASH_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) DS_FLASH_LAUNCH(__nv_bfloat16, 64);

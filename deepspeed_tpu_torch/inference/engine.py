@@ -24,6 +24,7 @@ import torch
 
 from ..ops.transformer.flash_attention import flash_attention_fwd
 from ..runtime import constants as C
+from ..utils.device import resolve_device
 from ..utils.params import params_from_numpy
 from .config import DeepSpeedInferenceConfig
 from .kv_cache import BlockAllocator, init_kv_cache
@@ -31,18 +32,6 @@ from .model import build_decode, build_prefill
 from .scheduler import ContinuousBatchScheduler, Request
 
 logger = logging.getLogger(__name__)
-
-
-def resolve_device(device):
-    """``None`` means the card: ``cuda``, or an error when there is none.
-    The engine never drops to the CPU on its own; pass ``"cpu"`` to ask."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "InferenceEngine runs on CUDA by default and no CUDA device "
-                "is available; pass device='cpu' to serve on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def drain_deadline_secs():
@@ -79,7 +68,7 @@ class InferenceEngine:
         self.inference_config = DeepSpeedInferenceConfig(param_dict)
         icfg = self.inference_config
         self._validate_config(param_dict, icfg)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "InferenceEngine")
         self.model = model
         mc = model.config
         if mc.max_position_embeddings < icfg.max_seq_len:

@@ -1,4 +1,5 @@
-"""Port of ``deepspeed_tpu/models`` (the GPT-2 eval forward)."""
+"""Port of ``deepspeed_tpu/models``: GPT-2 (training loss and forward)
+and the transformer building blocks."""
 
 from .gpt2 import GPT2Config, GPT2LMHead, random_params
 from .layers import dense, gelu, layer_norm

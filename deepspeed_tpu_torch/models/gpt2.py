@@ -1,38 +1,60 @@
-"""GPT-2 model family, eval forward (port of ``deepspeed_tpu/models/gpt2.py``).
+"""GPT-2 model family (port of ``deepspeed_tpu/models/gpt2.py``).
 
 Decoder-only transformer with pre-layernorm blocks, causal attention and
-a weight-tied LM head, computing what ``GPT2LMHeadTPU.hidden`` and
-``.logits`` compute with dropout off.  Parameters are a dict with the
-JAX package's keys (``wte``, ``wpe``, ``blocks/layer_i/{qkv, attn_out,
-fc1, fc2, ln_attn, ln_mlp}``, ``ln_f``), so a JAX tree carried across by
+a weight-tied LM head.  ``apply(params, batch, rng, train)`` is the
+training loss of ``GPT2LMHeadTPU.apply`` (shifted labels with -100,
+embedding dropout, a generator per layer, the tied head and the mean
+token cross entropy); ``hidden`` and ``logits`` are its forward.
+Serving and training share one block, :class:`TransformerLayer`.
+Parameters are a dict with the JAX package's keys (``wte``, ``wpe``,
+``blocks/layer_i/{qkv, attn_out, fc1, fc2, ln_attn, ln_mlp}``, ``ln_f``),
+so a JAX tree carried across by
 :func:`~deepspeed_tpu_torch.utils.params.params_from_numpy` drops in.
-Training (dropout, remat, MoE, the chunked loss) comes with the training
-slice.
+Not ported yet, and refused: ``remat`` (ROADMAP A7), ``loss_chunk``
+(A3), MoE blocks (A10) and the ring and sparse attention cores
+(A10/A11).
 """
 
 import numpy as np
+import torch
 from torch import nn
 
-from ..ops.transformer.attention import dot_product_attention
-from .layers import dense, gelu, layer_norm
+from .layers import (TransformerLayer, cross_entropy_with_logits, dropout,
+                     generator, layer_norm)
 
 
 class GPT2Config:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_position_embeddings=1024,
                  embd_dropout=0.1, attn_dropout=0.1, resid_dropout=0.1,
-                 initializer_range=0.02, layer_norm_eps=1e-5):
+                 initializer_range=0.02, layer_norm_eps=1e-5, remat=False,
+                 attn_impl="auto", sparsity_config=None,
+                 gelu_checkpoint=False, attn_dropout_checkpoint=False,
+                 normalize_invertible=False, moe_experts=0, moe_every=2,
+                 moe_k=2, moe_capacity_factor=1.25, moe_aux_coef=0.01,
+                 loss_chunk=0):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_position_embeddings = max_position_embeddings
-        # read by training; the eval forward here applies no dropout
         self.embd_dropout = embd_dropout
         self.attn_dropout = attn_dropout
         self.resid_dropout = resid_dropout
         self.initializer_range = initializer_range
         self.layer_norm_eps = layer_norm_eps
+        self.remat = remat
+        self.attn_impl = attn_impl
+        self.sparsity_config = sparsity_config
+        self.gelu_checkpoint = gelu_checkpoint
+        self.attn_dropout_checkpoint = attn_dropout_checkpoint
+        self.normalize_invertible = normalize_invertible
+        self.moe_experts = moe_experts
+        self.moe_every = moe_every
+        self.moe_k = moe_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_aux_coef = moe_aux_coef
+        self.loss_chunk = loss_chunk
 
     @staticmethod
     def gpt2_small(**kw):
@@ -88,45 +110,95 @@ def random_params(config, seed):
 
 
 class GPT2LMHead(nn.Module):
-    """GPT-2 LM head over a param dict (eval only).
+    """GPT-2 LM head over a param dict.
 
-    ``hidden(params, input_ids)`` and ``logits(params, input_ids)`` take
-    the param dict as the JAX model's methods do; ``forward(input_ids)``
-    uses the dict given at construction.  Attention goes through
-    :func:`dot_product_attention`, so prompts on CUDA run the flash
-    kernel."""
+    ``apply(params, batch, rng, train)`` gives the training loss (or the
+    logits, for an eval batch without labels); ``hidden(params,
+    input_ids)`` and ``logits(params, input_ids)`` take the param dict
+    as the JAX model's methods do; ``forward(input_ids)`` uses the dict
+    given at construction.  Attention goes through
+    :func:`~deepspeed_tpu_torch.ops.transformer.attention.dot_product_attention`,
+    so on CUDA it runs the flash kernels, forward and backward."""
 
     def __init__(self, config, params=None):
         super().__init__()
+        c = config
+        if c.remat:
+            raise NotImplementedError("remat (activation checkpointing) is "
+                                      "not ported yet (ROADMAP A7)")
+        if c.loss_chunk:
+            raise NotImplementedError("loss_chunk (the chunked LM-head "
+                                      "loss) is not ported yet (ROADMAP A3)")
+        if c.moe_experts:
+            raise NotImplementedError("MoE blocks are not ported yet "
+                                      "(ROADMAP A10)")
         self.config = config
         self.params = params
+        self.layer = TransformerLayer(
+            hidden_size=c.hidden_size, heads=c.num_heads, causal=True,
+            attn_dropout_ratio=c.attn_dropout,
+            hidden_dropout_ratio=c.resid_dropout, pre_layer_norm=True,
+            initializer_range=c.initializer_range,
+            layer_norm_eps=c.layer_norm_eps, attn_impl=c.attn_impl,
+            sparsity_config=c.sparsity_config,
+            gelu_checkpoint=c.gelu_checkpoint,
+            attn_dropout_checkpoint=c.attn_dropout_checkpoint,
+            normalize_invertible=c.normalize_invertible)
 
-    def block(self, lp, x):
+    def init(self, seed):
+        """Random numpy params (:func:`random_params`)."""
+        return random_params(self.config, seed)
+
+    def block(self, lp, x, rng=None, deterministic=True):
         """One pre-LN transformer block (``TransformerLayer.apply``)."""
-        c = self.config
-        b, s, hid = x.shape
-        heads = c.num_heads
-        y = layer_norm(lp["ln_attn"], x, c.layer_norm_eps)
-        qkv = dense(lp["qkv"], y).reshape(b, s, 3, heads, hid // heads)
-        ctx = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                    causal=True)
-        x = x + dense(lp["attn_out"], ctx.reshape(b, s, hid))
-        z = layer_norm(lp["ln_mlp"], x, c.layer_norm_eps)
-        return x + dense(lp["fc2"], gelu(dense(lp["fc1"], z)))
+        return self.layer.apply(lp, x, rng=rng, deterministic=deterministic)
 
-    def hidden(self, params, input_ids):
-        """Trunk + final layernorm -> [b, s, hidden]."""
+    def hidden(self, params, input_ids, rng=None, deterministic=True):
+        """Trunk + final layernorm -> [b, s, hidden].  ``rng`` is an
+        integer seed: stream 0 drops the embeddings and stream i+1 is
+        layer i's generator."""
         c = self.config
         s = input_ids.shape[1]
         x = params["wte"][input_ids] + params["wpe"][None, :s]
+        train = rng is not None and not deterministic
+        if train:
+            x = dropout(generator(rng, 0, x.device), x, c.embd_dropout,
+                        deterministic)
         for i in range(c.num_layers):
-            x = self.block(params["blocks"][f"layer_{i}"], x)
+            layer_rng = generator(rng, i + 1, x.device) if train else None
+            x = self.block(params["blocks"][f"layer_{i}"], x, layer_rng,
+                           deterministic)
         return layer_norm(params["ln_f"], x, c.layer_norm_eps)
 
-    def logits(self, params, input_ids):
-        x = self.hidden(params, input_ids)
+    @staticmethod
+    def _lm_head(params, x):
         # tied LM head
         return x @ params["wte"].T.to(x.dtype)
+
+    def logits(self, params, input_ids, rng=None, deterministic=True):
+        return self._lm_head(params, self.hidden(params, input_ids, rng,
+                                                 deterministic))
+
+    def apply(self, params, batch, rng=None, train=True):
+        """Training loss of ``batch`` (``{"input_ids"[, "labels"]}`` or
+        the ids alone); labels default to the ids shifted left with -100
+        at the end.  An eval call (``train=False``) without labels returns
+        the logits."""
+        input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        has_labels = isinstance(batch, dict) and "labels" in batch
+        x = self.hidden(params, input_ids, rng=rng, deterministic=not train)
+        if not train and not has_labels:
+            return self._lm_head(params, x)
+        if has_labels:
+            labels = batch["labels"]
+        else:
+            labels = torch.cat(
+                [input_ids[:, 1:], torch.full((input_ids.shape[0], 1), -100,
+                                              dtype=input_ids.dtype,
+                                              device=input_ids.device)],
+                dim=1)
+        return cross_entropy_with_logits(self._lm_head(params, x), labels,
+                                         ignore_index=-100)
 
     def forward(self, input_ids):
         return self.logits(self.params, input_ids)

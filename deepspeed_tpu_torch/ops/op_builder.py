@@ -7,8 +7,8 @@ interface, built for Hopper (``sm_90a``), and loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds.
 
 Libraries land in ``build/deepspeed_tpu_torch/`` beside the package,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  A failed build raises
+named by a hash of the source, its headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  A failed build raises
 with nvcc's stderr; there is no fallback.
 """
 
@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel library name -> source under csrc/
 SOURCES = {
     "flash_attention_fwd": "transformer/flash_attention_fwd.cu",
+    "flash_attention_bwd": "transformer/flash_attention_bwd.cu",
 }
 
 _lock = threading.Lock()
@@ -54,9 +55,11 @@ def find_nvcc():
 
 def library_path(name):
     """Where ``name``'s library is (or will be) built: keyed by a hash
-    of its source and the compiler flags."""
+    of its source, the headers beside it and the compiler flags."""
     src = CSRC_DIR / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,19 +1,31 @@
-"""Attention dispatch: the Hopper flash kernel on CUDA, dense PyTorch
+"""Attention dispatch: the Hopper flash kernels on CUDA, dense PyTorch
 elsewhere (port of ``deepspeed_tpu/ops/transformer/attention.py``).
 
-``dot_product_attention`` takes the flash kernel when the tensors are on
-CUDA, no additive ``mask`` is given and there is more than one query row
-— every prefill bucket.  CPU tensors (as the JAX package does on CPU) and
-decode's single query row (as it does on the TPU) take
-:func:`reference_attention`.  The JAX package's v5e dispatch thresholds
-are not carried over; an H100 threshold comes from H100 measurement.
+``dot_product_attention`` takes :class:`FlashAttention` (B1 forward,
+B3 or B2a+B2b backward) when no additive ``mask`` is given and either
+the tensors are on CUDA with more than one query row — every prefill
+bucket and every training step — or attention dropout is on.  With
+dropout the seed is two int32 words drawn on the tensors' device from
+the caller's generator, and the kernels drop inside (the JAX TPU path,
+``attention.py:106-120``).  On the CPU the same autograd function runs
+the plain versions with the same Philox keep mask, so a CPU run and a
+card run given one seed drop the same entries (the JAX CPU path drops
+probs with ``random_keep`` bytes instead; with an additive ``mask`` this
+module does that too).  Otherwise — CPU without dropout, as the JAX
+package on CPU, and decode's single query row, as on the TPU —
+:func:`reference_attention` computes it densely.  The JAX package's v5e
+dispatch thresholds are not carried over.
 """
 
 import math
 
 import torch
 
-from .flash_attention import flash_attention_fwd
+from ..op_common import random_keep
+from .flash_attention import FlashAttention
+
+# rates below the byte-mask quantum pass through (layers.dropout)
+MIN_DROPOUT = 1.0 / 512.0
 
 
 def key_padding_to_additive(key_padding_mask):
@@ -21,8 +33,16 @@ def key_padding_to_additive(key_padding_mask):
     return (1.0 - key_padding_mask.float()) * -1e9
 
 
-def reference_attention(q, k, v, mask=None, causal=False):
-    """Dense attention on [b, s, h, d] inputs, fp32 softmax (no dropout)."""
+def dropout_active(rate, generator, deterministic):
+    return (not deterministic and rate >= MIN_DROPOUT
+            and generator is not None)
+
+
+def reference_attention(q, k, v, mask=None, causal=False, dropout_rate=0.0,
+                        dropout_rng=None, deterministic=True):
+    """Dense attention on [b, s, h, d] inputs, fp32 softmax; dropout on the
+    probabilities from ``random_keep`` bytes of the ``dropout_rng``
+    generator."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
@@ -33,28 +53,42 @@ def reference_attention(q, k, v, mask=None, causal=False):
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout_active(dropout_rate, dropout_rng, deterministic):
+        keep, inv_keep = random_keep(dropout_rng, probs.shape, dropout_rate,
+                                     probs.device)
+        probs = torch.where(keep, probs * inv_keep, 0.0).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def dropout_seed(generator, device):
+    """Two int32 seed words for the in-kernel dropout, drawn on
+    ``device`` from ``generator`` (no host round trip)."""
+    return torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                         generator=generator, device=device)
+
+
 def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
-                          causal=False, dropout_rate=0.0):
+                          causal=False, dropout_rate=0.0, dropout_rng=None,
+                          deterministic=True):
     """Multi-head attention on [batch, seq, heads, head_dim] tensors.
 
     ``mask`` is an additive bias broadcastable to [b, h, q, k];
     ``key_padding_mask`` is [b, kv_len] with 1 at visible keys, the form
-    the flash kernel fuses.  Pass one or the other, not both.  Attention
-    dropout is not ported yet, so ``dropout_rate > 0`` raises."""
+    the flash kernels fuse.  Pass one or the other, not both.
+    ``dropout_rng`` is a ``torch.Generator`` on the tensors' device; the
+    probabilities are dropped at ``dropout_rate`` when it is given and
+    ``deterministic`` is false."""
     if mask is not None and key_padding_mask is not None:
         raise ValueError(
             "pass either an additive mask or a key_padding_mask, not both")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet; it comes with the "
-            "training slice")
-    if q.is_cuda and mask is None and q.shape[1] > 1:
-        out, _ = flash_attention_fwd(q, k, v, kv_mask=key_padding_mask,
-                                     causal=causal)
-        return out
+    drop = dropout_active(dropout_rate, dropout_rng, deterministic)
+    if mask is None and (drop or (q.is_cuda and q.shape[1] > 1)):
+        seed = dropout_seed(dropout_rng, q.device) if drop else None
+        return FlashAttention.apply(q, k, v, key_padding_mask, seed, causal,
+                                    float(dropout_rate) if drop else 0.0)
     if key_padding_mask is not None:
         mask = key_padding_to_additive(key_padding_mask)[:, None, None, :]
-    return reference_attention(q, k, v, mask=mask, causal=causal)
+    return reference_attention(q, k, v, mask=mask, causal=causal,
+                               dropout_rate=dropout_rate,
+                               dropout_rng=dropout_rng,
+                               deterministic=deterministic)

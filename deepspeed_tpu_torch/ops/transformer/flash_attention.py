@@ -1,23 +1,38 @@
-"""Flash-attention forward: the Hopper kernel's wrapper and its plain version.
+"""Flash attention: the Hopper kernels' wrappers, their plain versions and
+the autograd function that joins them.
 
-Port of ``deepspeed_tpu/ops/transformer/flash_attention.py`` (forward
-only; the backward kernels and in-kernel dropout come with the training
-slice).  ``flash_attention_fwd`` launches the CUDA kernel
-``csrc/transformer/flash_attention_fwd.cu`` for CUDA tensors and runs
-``flash_attention_reference`` for CPU tensors; on a CUDA tensor it
-launches the kernel or raises, never falling back.
+Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
+(``csrc/transformer/``):
+
+- B1 ``flash_attention_fwd.cu``: forward, out and the fp32 logsumexp;
+- B2a and B2b ``flash_attention_bwd.cu``: dq over K/V tiles, and dk, dv
+  over Q tiles;
+- B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
+  shapes whose score tile fits a block's shared memory;
+- B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
+  mask regenerated from a counter-based Philox keyed on two seed words
+  and counting ELEMENTS (b·h, q row, k col >> 2), so every kernel draws
+  the same bits whatever its tiling.
+
+Each wrapper launches its kernel for CUDA tensors or raises, and runs the
+plain version (:func:`flash_attention_reference`,
+:func:`flash_attention_bwd_reference`, :func:`philox_keep_mask`) for CPU
+tensors; a CPU run and a card run with one seed drop the same entries.
+:class:`FlashAttention` is the ``torch.autograd.Function``: its forward
+runs B1 and its backward B3 or B2a+B2b.
 
 Layout is the JAX package's: q ``[b, s, h, d]``, k and v
 ``[b, kv_len, h, d]``, ``kv_mask`` ``[b, kv_len]`` with 1 at visible keys.
-The kernel reads q, k and v through their strides (only the last dim
+The kernels read q, k, v and dO through their strides (only the last dim
 must be contiguous), so slices of a fused QKV projection go in as they
-are.  It returns out ``[b, s, h, d]`` in the input dtype and the fp32
-logsumexp ``[b·h, s]`` (the TPU kernel's ``[b·h, 1, s]`` without the
-singleton axis).
+are.  lse is fp32 ``[b·h, s]`` (the TPU kernel's ``[b·h, 1, s]`` without
+the singleton axis).  Not carried over: the v5e block picker
+``_auto_blocks``, ``kernel_tuner`` and ``DS_FLASH_EXP2``.
 """
 
 import ctypes
 import math
+import types
 
 import torch
 
@@ -31,49 +46,199 @@ MAX_FLOOR = -1e20
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+# shared memory one Hopper block may use (232,448 bytes of the SM's 256 KB)
+SMEM_PER_BLOCK = 232448
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+# launches of B1, B2a, B2b or B3 that drew the B4 keep mask
+in_kernel_dropout = types.SimpleNamespace(launches=0)
 
 
-def flash_attention_reference(q, k, v, kv_mask=None, causal=False):
-    """Dense plain-PyTorch version of the kernel, with its exact masking
-    semantics (port of ``_jnp_flash_reference``): scores in fp32, masked
-    scores ``NEG_INF``, the row max floored at ``MAX_FLOOR``, P cast to the
-    storage dtype before the fp32-accumulated P·V, normalized after, as
-    the TPU and Hopper kernels do.  O(s·kv_len) memory.  Returns
-    ``(out [b, s, h, d], lse [b·h, s])``."""
-    b, s, h, d = q.shape
-    kv_len = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+# ---------------------------------------------------------------- dropout
+def dropout_thresh(rate):
+    """``(thresh, inv_keep)`` of ``_dropout_thresh``: a key is dropped iff
+    its 32 random bits are below ``thresh`` = round(rate·2³²) clamped to
+    [1, 2³²−1], and a kept P is scaled by 1 / (1 − thresh/2³²)."""
+    thresh = int(round(float(rate) * float(1 << 32)))
+    thresh = min((1 << 32) - 1, max(1, thresh))
+    return thresh, 1.0 / (1.0 - thresh / float(1 << 32))
+
+
+def _mulhilo(a, b):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant ``a``
+    and the int64 tensor ``b`` (both below 2³²), in int64 ops that never
+    overflow: b is split into 16-bit halves."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _M32
+
+
+def philox_bits(seed, heads, rows, c_lo, c_hi):
+    """The 32 random bits the kernels draw for every element of the block
+    ``heads`` (b·h indices) × ``rows`` (int64 index tensors) × columns
+    ``c_lo .. c_hi-1``, as int64 ``[len(heads), len(rows), c_hi-c_lo]`` on
+    the seed's device.  Philox4x32-10 keyed on the two seed words, counter
+    (b·h, row, col >> 2, 0); column ``col`` takes output word ``col & 3``.
+    int64 ops only, so it runs on any device."""
+    dev = seed.device
+    key = seed.to(torch.int64) & _M32
+    k0, k1 = key[0], key[1]
+    groups = torch.arange(c_lo >> 2, ((c_hi - 1) >> 2) + 1, device=dev)
+    shape = (len(heads), len(rows), len(groups))
+    c0 = heads.to(dev).view(-1, 1, 1).expand(shape)
+    c1 = rows.to(dev).view(1, -1, 1).expand(shape)
+    c2 = groups.view(1, 1, -1).expand(shape)
+    c3 = torch.zeros(shape, dtype=torch.int64, device=dev)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    words = torch.stack((c0, c1, c2, c3), dim=-1).reshape(
+        shape[0], shape[1], 4 * shape[2])
+    first = c_lo - 4 * (c_lo >> 2)
+    return words[..., first:first + c_hi - c_lo]
+
+
+def philox_keep_mask(seed, bh, s, kv_len, rate):
+    """Plain version of B4: the bool keep mask ``[bh, s, kv_len]`` the
+    kernels draw for seed words ``seed`` (two int32, on any device; the
+    mask comes back on that device): an element is kept iff its
+    :func:`philox_bits` are at least ``thresh``."""
+    thresh, _ = dropout_thresh(rate)
+    dev = seed.device
+    return philox_bits(seed, torch.arange(bh, device=dev),
+                       torch.arange(s, device=dev), 0, kv_len) >= thresh
+
+
+def _keep_and_scale(seed, dropout_rate, b, h, s, kv_len):
+    if not dropout_rate:
+        return None, 1.0
+    return (philox_keep_mask(seed, b * h, s, kv_len, dropout_rate)
+            .view(b, h, s, kv_len), dropout_thresh(dropout_rate)[1])
+
+
+# ----------------------------------------------------------- plain versions
+def _scores(q, k, kv_mask, causal):
+    """Scaled fp32 [b, h, s, kv_len] scores, masked to NEG_INF."""
+    s, kv_len, d = q.shape[1], k.shape[1], q.shape[-1]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(d))
     if causal:
-        keep = (torch.arange(s, device=q.device)[:, None]
-                >= torch.arange(kv_len, device=q.device)[None, :])
-        sc = torch.where(keep[None, None], sc, NEG_INF)
+        visible = (torch.arange(s, device=q.device)[:, None]
+                   >= torch.arange(kv_len, device=q.device)[None, :])
+        sc = torch.where(visible[None, None], sc, NEG_INF)
     if kv_mask is not None:
         sc = torch.where(kv_mask.float()[:, None, None, :] > 0.0, sc, NEG_INF)
+    return sc
+
+
+def flash_attention_reference(q, k, v, kv_mask=None, causal=False,
+                              keep=None, inv_keep=1.0):
+    """Dense plain-PyTorch version of B1, with its exact masking
+    semantics (port of ``_jnp_flash_reference``): scores in fp32, masked
+    scores ``NEG_INF``, the row max floored at ``MAX_FLOOR``, l summing
+    the undropped P, the kept P (``keep`` ``[b, h, s, kv_len]``, scaled by
+    ``inv_keep``) cast to the storage dtype before the fp32-accumulated
+    P·V, normalized after, as the TPU and Hopper kernels do.
+    O(s·kv_len) memory.  Returns ``(out [b, s, h, d], lse [b·h, s])``."""
+    b, s, h, _ = q.shape
+    sc = _scores(q, k, kv_mask, causal)
     m = sc.amax(dim=-1, keepdim=True).clamp_min(MAX_FLOOR)
     p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
+    if keep is not None:
+        p = torch.where(keep, p * inv_keep, 0.0)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = acc / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0].reshape(b * h, s)
     return out.to(q.dtype), lse
 
 
-def _kernel():
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
+                                  causal=False, keep=None, inv_keep=1.0):
+    """Dense plain-PyTorch version of B2a/B2b and B3: P = exp(S − lse)
+    from the forward's lse, dP = dO·Vᵀ, both masked and scaled by the
+    keep mask under dropout, Δ = rowsum(dO∘O), dS = P∘(dP − Δ) in the
+    storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv = P_keptᵀ·dO with
+    P_kept in the storage dtype.  Returns ``(dq, dk, dv)`` in the input
+    dtype."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    p = torch.exp(_scores(q, k, kv_mask, causal)
+                  - lse.view(b, h, s, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    p_v = p
+    if keep is not None:
+        p_v = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(v.dtype).float(),
+                      dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------- kernels
+def _fwd_kernel():
     lib = op_builder.load("flash_attention_fwd")
     fn = lib.ds_flash_attention_fwd
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 4 + [i64] * 9
-                       + [ctypes.c_float, i32, ptr])
+                       + [ctypes.c_float, i32, ptr, ctypes.c_uint32,
+                          ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _bwd_kernel():
+    lib = op_builder.load("flash_attention_bwd")
+    fn = lib.ds_flash_attention_bwd
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([i32] * 3 + [ptr] * 10 + [i32] * 4
+                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                          i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        smem = lib.ds_flash_attention_bwd_fused_smem
+        smem.argtypes = [i32, i32, i32]
+        smem.restype = ctypes.c_int64
+    return fn
+
+
+def fused_smem_bytes(head_dim, s, kv_len):
+    """Shared memory B3 needs for one b·h, as the CUDA source counts it
+    (``ds_flash_attention_bwd_fused_smem``: fp32 Q and dO ``[s, d]``, K
+    and V ``[kv_len, d+1]``, the ``[s, kv_len]`` score tile, lse and Δ,
+    the key mask and the keep bits).  Builds the backward library."""
+    _bwd_kernel()
+    return op_builder.load("flash_attention_bwd") \
+        .ds_flash_attention_bwd_fused_smem(head_dim, s, kv_len)
+
+
+def use_fused_backward(head_dim, s, kv_len):
+    """B3 or B2a+B2b, for CUDA tensors.  B3 computes P and dP once where
+    B2a and B2b each recompute both, but it needs the whole score tile
+    in one block's shared memory; it runs wherever that fits (s = kv_len
+    ≤ 142 at head_dim 64, ≤ 94 at 128), B2a+B2b everywhere else.  The
+    v5e rule "one tile up to s=1024" is TPU-only.  H100 times behind the
+    choice: PERF.md, kernel table."""
+    return fused_smem_bytes(head_dim, s, kv_len) <= SMEM_PER_BLOCK
+
+
 def _check(q, k, v, kv_mask):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_fwd takes [b, s, h, d] q, k, v")
+        raise ValueError("flash attention takes [b, s, h, d] q, k, v")
     b, s, h, d = q.shape
     kv_len = k.shape[1]
     if k.shape != (b, kv_len, h, d) or v.shape != k.shape:
@@ -81,7 +246,7 @@ def _check(q, k, v, kv_mask):
                          f"{tuple(q.shape)}; got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if s == 0 or kv_len == 0:
-        raise ValueError("flash_attention_fwd needs s > 0 and kv_len > 0")
+        raise ValueError("flash attention needs s > 0 and kv_len > 0")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, kv_len):
         raise ValueError(f"kv_mask must be [batch, kv_len]={b, kv_len}, "
                          f"got {tuple(kv_mask.shape)}")
@@ -90,45 +255,89 @@ def _check(q, k, v, kv_mask):
                          f"{v.dtype}")
 
 
-def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
-                        dropout_rate=0.0):
-    """Flash-attention forward; returns ``(out, lse)``.
+def _check_seed(seed, dropout_rate, device):
+    if not dropout_rate:
+        return
+    if not 0.0 < dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if seed is None:
+        raise ValueError("dropout_rate > 0 needs a dropout seed (two int32 "
+                         "words)")
+    if (seed.dtype != torch.int32 or seed.numel() != 2
+            or seed.device != device):
+        raise ValueError(f"the dropout seed must be two int32 words on "
+                         f"{device}, got {seed.dtype} {tuple(seed.shape)} "
+                         f"on {seed.device}")
 
-    CPU tensors take :func:`flash_attention_reference`.  CUDA tensors
-    launch the Hopper kernel (bf16 or fp32, head_dim 64 or 128) or raise.
-    Every launch adds one to ``flash_attention_fwd.launches``."""
-    if dropout_rate:
-        raise NotImplementedError(
-            "in-kernel attention dropout is not ported yet; it comes with "
-            "the backward kernels")
-    _check(q, k, v, kv_mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask, causal)
+
+def _check_cuda(q, k, v, kv_mask, extra=()):
+    """The kernels' limits, for CUDA tensors: raises on what they do not
+    take, never falls back."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
     b, s, h, d = q.shape
-    kv_len = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the flash kernel takes float32 or bfloat16, "
+        raise ValueError(f"the flash kernels take float32 or bfloat16, "
                          f"got {q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS}, "
+        raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
                          f"got {d}")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"batch*heads={b * h} exceeds the kernel grid "
                          f"({_MAX_GRID_Y})")
-    tensors = (q, k, v) if kv_mask is None else (q, k, v, kv_mask)
+    tensors = (q, k, v) + tuple(extra) + (
+        () if kv_mask is None else (kv_mask,))
     if any(t.device != q.device for t in tensors):
-        raise ValueError("q, k, v and kv_mask must be on one device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the flash kernel needs the last dim of q, k and v "
-                         "contiguous")
-    mask = (None if kv_mask is None
-            else kv_mask.to(torch.float32).contiguous())
+        raise ValueError("flash attention tensors must be on one device")
+    if any(t.stride(-1) != 1 for t in (q, k, v) + tuple(extra)):
+        raise ValueError("the flash kernels need the last dim of q, k, v "
+                         "and dO contiguous")
+
+
+def _mask_arg(kv_mask):
+    return None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+
+
+def _dropout_args(seed, dropout_rate):
+    if not dropout_rate:
+        return None, 0, 1.0
+    thresh, inv_keep = dropout_thresh(dropout_rate)
+    return seed.data_ptr(), thresh, inv_keep
+
+
+def _count_launch(wrapper, dropout_rate):
+    """One more launch of ``wrapper``'s kernel, and of B4 inside it under
+    dropout; called only after the launch succeeded."""
+    wrapper.launches += 1
+    if dropout_rate:
+        in_kernel_dropout.launches += 1
+
+
+def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
+                        dropout_rate=0.0, seed=None):
+    """Flash-attention forward (B1, with B4 when ``dropout_rate`` > 0 and
+    ``seed`` holds the two int32 seed words); returns ``(out, lse)``.
+
+    CPU tensors take :func:`flash_attention_reference` with the
+    :func:`philox_keep_mask` mask.  CUDA tensors launch the Hopper kernel
+    (bf16 or fp32, head_dim 64 or 128) or raise.  Every launch adds one
+    to ``flash_attention_fwd.launches``."""
+    _check(q, k, v, kv_mask)
+    _check_seed(seed, dropout_rate, q.device)
+    b, s, h, d = q.shape
+    kv_len = k.shape[1]
+    if q.device.type == "cpu":
+        keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, kv_len)
+        return flash_attention_reference(q, k, v, kv_mask, causal, keep,
+                                         inv_keep)
+    _check_cuda(q, k, v, kv_mask)
+    mask = _mask_arg(kv_mask)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    fn = _fwd_kernel()
+    seed_ptr, thresh, inv_keep = _dropout_args(seed, dropout_rate)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
@@ -137,12 +346,179 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                1.0 / math.sqrt(d), int(bool(causal)), stream)
+                1.0 / math.sqrt(d), int(bool(causal)), seed_ptr, thresh,
+                inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention_fwd.launches += 1
+    _count_launch(flash_attention_fwd, dropout_rate)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+_WHICH = {"dq": 0, "dkv": 1, "fused": 2}
+
+
+def _launch_bwd(which, q, k, v, out, lse, dout, kv_mask, causal,
+                dropout_rate, seed, dq, dk, dv):
+    b, s, h, d = q.shape
+    kv_len = k.shape[1]
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(b * h, s).contiguous()
+    mask = _mask_arg(kv_mask)
+    grads_q = dq if dq is not None else q
+    grads_kv = dk if dk is not None else k
+    if dv is not None and dv.stride() != grads_kv.stride():
+        raise ValueError("dk and dv must share their strides")
+    strides = (ctypes.c_int64 * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], *grads_q.stride()[:3], *grads_kv.stride()[:3])
+    fn = _bwd_kernel()
+    seed_ptr, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_WHICH[which], _DTYPE_CODES[q.dtype], d, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), ptr(mask), ptr(dq), ptr(dk), ptr(dv), b, h,
+                s, kv_len, strides, 1.0 / math.sqrt(d), int(bool(causal)),
+                seed_ptr, thresh, inv_keep, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward ({which}) kernel "
+                           f"launch failed: CUDA error {rc}")
+
+
+def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate, seed):
+    _check(q, k, v, kv_mask)
+    _check_seed(seed, dropout_rate, q.device)
+    b, s, h, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dO must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if tuple(lse.shape) != (b * h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [b·h, s]={(b * h, s)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if dout.dtype != q.dtype:
+        dout = dout.to(q.dtype)
+    if q.device.type != "cpu":
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        _check_cuda(q, k, v, kv_mask, extra=(dout, out))
+        lse = lse.contiguous()
+    return dout, lse
+
+
+def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed):
+    b, s, h, _ = q.shape
+    keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, k.shape[1])
+    return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask,
+                                         causal, keep, inv_keep)
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
+                           causal=False, dropout_rate=0.0, seed=None):
+    """B2a: dq ``[b, s, h, d]``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``)
+    or raise."""
+    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
+                            seed)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
+                          dropout_rate, seed)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dq", q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
+                seed, dq, None, None)
+    _count_launch(flash_attention_bwd_dq, dropout_rate)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
+                            causal=False, dropout_rate=0.0, seed=None):
+    """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]``.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel
+    (``flash_attention_bwd_dkv.launches``) or raise."""
+    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
+                            seed)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
+                          dropout_rate, seed)[1:]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("dkv", q, k, v, out, lse, dout, kv_mask, causal,
+                dropout_rate, seed, None, dk, dv)
+    _count_launch(flash_attention_bwd_dkv, dropout_rate)
+    return dk, dv
+
+
+def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
+                              causal=False, dropout_rate=0.0, seed=None):
+    """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel
+    (``flash_attention_bwd_fused.launches``) or raise, also when the
+    shape does not fit (:func:`use_fused_backward`)."""
+    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
+                            seed)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
+                          dropout_rate, seed)
+    d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
+    if not use_fused_backward(d, s, kv_len):
+        raise ValueError(f"the fused backward needs "
+                         f"{fused_smem_bytes(d, s, kv_len)} bytes of shared "
+                         f"memory at s={s}, kv_len={kv_len}, d={d}; a block "
+                         f"has {SMEM_PER_BLOCK}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("fused", q, k, v, out, lse, dout, kv_mask, causal,
+                dropout_rate, seed, dq, dk, dv)
+    _count_launch(flash_attention_bwd_fused, dropout_rate)
+    return dq, dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_fused.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
+                        dropout_rate=0.0, seed=None):
+    """Flash-attention backward: ``(dq, dk, dv)`` from the forward's out
+    and lse.  CUDA tensors run B3 where :func:`use_fused_backward` says
+    the shape fits, else B2a then B2b; CPU tensors run the plain
+    version."""
+    if q.device.type == "cuda" and not use_fused_backward(
+            q.shape[-1], q.shape[1], k.shape[1]):
+        dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask, causal,
+                                    dropout_rate, seed)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask,
+                                         causal, dropout_rate, seed)
+        return dq, dk, dv
+    return flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask,
+                                     causal, dropout_rate, seed)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, kv_mask, seed, causal,
+    dropout_rate)`` -> out ``[b, s, h, d]``.  The forward runs B1 (with
+    B4 under dropout) and saves q, k, v, out, lse and the seed; the
+    backward runs B3 or B2a+B2b, regenerating the keep mask from the
+    seed.  kv_mask and the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask=None, seed=None, causal=False,
+                dropout_rate=0.0):
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal,
+                                       dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask, seed)
+        ctx.causal = causal
+        ctx.dropout_rate = dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_mask, seed = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask,
+                                         ctx.causal, ctx.dropout_rate, seed)
+        return dq, dk, dv, None, None, None, None

@@ -1,10 +1,174 @@
-"""Config keys serving reads (port of ``deepspeed_tpu/runtime/constants.py``:
-``STEPS_PER_PRINT``, the ``inference`` block at ``:517-586`` and
-``STRICT_CONFIG``).  Key strings and defaults are the JAX package's, so
-one config dict drives either engine."""
+"""Config keys and defaults (port of ``deepspeed_tpu/runtime/constants.py``:
+the batch triple, optimizer, scheduler, precision, clipping, logging and
+ZeRO keys the training engine reads, the ``inference`` block at
+``:517-586`` and ``STRICT_CONFIG``).  Key strings and defaults are the
+JAX package's, so one config dict drives either engine.  ``KNOWN_KEYS``
+and ``SECTION_KEYS`` list every key the JAX package's schema knows
+(``deepspeed_tpu/tools/dslint/schema.py``), for the unknown-key check;
+``UNPORTED_SECTIONS`` names the blocks the port parses but does not
+implement yet, with the ROADMAP item that ports each."""
 
+#############################################
+# Batch
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer / scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+LEGACY_FUSION = "legacy_fusion"
+LEGACY_FUSION_DEFAULT = False
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+MAX_GRAD_NORM = "max_grad_norm"
+ADAM_OPTIMIZER = "adam"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER]
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+
+#############################################
+# Precision and clipping
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+BF16 = "bf16"
+BF16_ENABLED = "enabled"
+BF16_ENABLED_DEFAULT = False
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+# engine rng seed (dropout streams)
+SEED = "seed"
+SEED_DEFAULT = 0
+
+#############################################
+# Logging
+#############################################
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+#############################################
+# ZeRO (reference runtime/zero/constants.py)
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_OPTIMIZATION_DISABLED = 0
+ZERO_OPTIMIZATION_OPTIMIZER_STATES = 1
+ZERO_OPTIMIZATION_GRADIENTS = 2
+ZERO_OPTIMIZATION_WEIGHTS = 3
+MAX_STAGE_ZERO_OPTIMIZATION = ZERO_OPTIMIZATION_WEIGHTS
+ZERO_STAGE = "stage"
+ZERO_STAGE_DEFAULT = ZERO_OPTIMIZATION_DISABLED
+ZERO_REDUCE_SCATTER = "reduce_scatter"
+ZERO_REDUCE_SCATTER_DEFAULT = True
+ZERO_REDUCE_BUCKET_SIZE = "reduce_bucket_size"
+ZERO_REDUCE_BUCKET_SIZE_DEFAULT = 500000000
+ZERO_ALLGATHER_BUCKET_SIZE = "allgather_bucket_size"
+ZERO_ALLGATHER_BUCKET_SIZE_DEFAULT = 500000000
+ZERO_OVERLAP_COMM = "overlap_comm"
+ZERO_OVERLAP_COMM_DEFAULT = "auto"
+ZERO_CONTIGUOUS_GRADIENTS = "contiguous_gradients"
+ZERO_CONTIGUOUS_GRADIENTS_DEFAULT = False
+ZERO_CPU_OFFLOAD = "cpu_offload"
+ZERO_CPU_OFFLOAD_DEFAULT = False
+ZERO_OFFLOAD_CHUNK_MB = "offload_chunk_mb"
+ZERO_OFFLOAD_CHUNK_MB_DEFAULT = 512
+ZERO_OFFLOAD_GRADIENTS = "offload_gradients"
+ZERO_OFFLOAD_GRADIENTS_DEFAULT = False
+ZERO_ELASTIC_CHECKPOINT = "elastic_checkpoint"
+ZERO_ELASTIC_CHECKPOINT_DEFAULT = True
+
+#############################################
+# Schema: every key the JAX package knows
+#############################################
+KNOWN_KEYS = frozenset((
+    "activation_checkpointing", "allgather_size", AMP, BF16, "checkpoint",
+    "compilation", "disable_allgather", "dump_state", "elasticity",
+    "flops_profiler", FP16, "fp32_allreduce", GRADIENT_ACCUMULATION_STEPS,
+    GRADIENT_CLIPPING, "gradient_predivide_factor", "inference",
+    "memory_breakdown", "mesh", OPTIMIZER, "pipeline", "prescale_gradients",
+    "prng_impl", "profiling", "progressive_layer_drop", "resilience",
+    "ring_attention", SCHEDULER, SEED, "sparse_attention", "sparse_gradients",
+    STEPS_PER_PRINT, "strict_config", "telemetry", "tensorboard",
+    TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, "vocabulary_size",
+    WALL_CLOCK_BREAKDOWN, ZERO_ALLOW_UNTESTED_OPTIMIZER, ZERO_OPTIMIZATION))
+SECTION_KEYS = {
+    AMP: ("enabled",),
+    BF16: ("enabled",),
+    FP16: ("enabled", "hysteresis", "initial_scale_power", "loss_scale",
+           "loss_scale_window", "min_loss_scale"),
+    OPTIMIZER: ("legacy_fusion", "max_grad_norm", "params", "type"),
+    SCHEDULER: ("params", "type"),
+    ZERO_OPTIMIZATION: (
+        "allgather_bucket_size", "contiguous_gradients", "cpu_offload",
+        "elastic_checkpoint", "offload_chunk_mb", "offload_gradients",
+        "offload_group_mb", "offload_overlap", "offload_prefetch_depth",
+        "offload_state_dtype", "offload_uniform_chunks", "overlap_comm",
+        "reduce_bucket_size", "reduce_scatter", "stage"),
+    "activation_checkpointing": (
+        "contiguous_memory_optimization", "cpu_checkpointing",
+        "number_checkpoints", "partition_activations", "profile",
+        "synchronize_checkpoint_boundary"),
+    "checkpoint": ("async_save", "keep_every_n_steps", "keep_last_n",
+                   "retry_backoff_secs", "save_on_preemption",
+                   "save_retries", "verify_on_load"),
+    "compilation": ("cache", "cache_dir", "min_compile_secs",
+                    "min_entry_size_bytes"),
+    "elasticity": ("enabled", "ignore_non_elastic_batch_info", "max_gpus",
+                   "max_train_batch_size", "micro_batch_sizes", "min_gpus",
+                   "min_time", "prefer_larger_batch", "version"),
+    "flops_profiler": ("detailed", "enabled", "module_depth", "profile_step",
+                       "top_modules"),
+    "mesh": ("data", "model", "pipe", "seq"),
+    "pipeline": ("activation_checkpoint_interval", "partition",
+                 "seed_layers", "stages"),
+    "profiling": ("comm_ledger", "memory_ledger", "memory_watermarks",
+                  "program_dump"),
+    "progressive_layer_drop": ("enabled", "gamma", "theta"),
+    "resilience": ("checkpoint_dir", "divergence_patience", "enabled",
+                   "floor_scale_patience", "hang_timeout_secs", "integrity",
+                   "integrity_action", "integrity_peer_timeout_secs",
+                   "integrity_window", "max_rollbacks", "policy",
+                   "rollback_cooldown_steps", "spike_window", "spike_zscore",
+                   "straggler_factor"),
+    "ring_attention": ("enabled",),
+    "sparse_attention": (
+        "attention", "block", "different_layout_per_head",
+        "global_block_end_indices", "global_block_indices",
+        "horizontal_global_attention", "local_window_blocks", "mode",
+        "num_different_global_patterns", "num_global_blocks",
+        "num_local_blocks", "num_random_blocks",
+        "num_sliding_window_blocks"),
+    "telemetry": ("device_trace_secs", "device_trace_trigger", "enabled",
+                  "events", "run_dir", "trace", "trace_max_events"),
+    "tensorboard": ("enabled", "job_name", "output_path"),
+}
+# blocks the port parses but does not implement yet -> ROADMAP item
+UNPORTED_SECTIONS = {
+    "activation_checkpointing": "A7", "checkpoint": "A6",
+    "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
+    "mesh": "A5/A10", "pipeline": "A13", "profiling": "A12/A16",
+    "progressive_layer_drop": "A3", "resilience": "A15",
+    "ring_attention": "A10", "sparse_attention": "A11",
+    "telemetry": "A12", "tensorboard": "A12",
+}
+SPARSE_MODES = ("dense", "fixed", "variable", "bigbird", "bslongformer")
 
 #############################################
 # Inference / serving (deepspeed_tpu_torch/inference): continuous

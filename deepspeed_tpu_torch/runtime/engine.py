@@ -1,0 +1,370 @@
+"""The training engine, the subset on the slice's path (port of
+``deepspeed_tpu/runtime/engine.py``: ``initialize`` ``:122-185``,
+``forward``/``backward``/``step`` ``:3588-3748``, ``train_batch`` and
+``eval_batch`` ``:3808-4071``).
+
+State and dtype flow follow the JAX engine:
+
+- the master is one flat fp32 ``(rows, 1024)`` buffer in the row-aligned
+  layout (:class:`~deepspeed_tpu_torch.runtime.zero.coordinator.FlatParamCoordinator`);
+  the optimizer state is two more buffers of that shape;
+- the compute params are one flat buffer in the compute dtype (bf16 under
+  ``bf16.enabled``, else fp32), cast from the master after every step;
+  the param dict the model sees is views of it, each a leaf of autograd;
+- gradients are taken with respect to those compute params, and every
+  leaf's ``.grad`` is preset to a view of one flat gradient buffer, so
+  autograd accumulates straight into the flat layout: no flatten, no
+  per-leaf grads.  That buffer stays in the compute dtype when nothing
+  sums into it across micro-batches (one data-parallel rank, no
+  accumulation, the JAX engine's rule at ``:1899-1913``); with
+  accumulation a fp32 buffer sums the micro-batches;
+- clipping by global norm (``:3186-3189``), then the optimizer in fp32
+  on the master, in place.
+
+A step reads nothing back from the card: the loss comes back as a device
+tensor, the LR and step count are host numbers, and the only host sync
+is the loss fetch at the ``steps_per_print`` cadence (``:3705-3718``).
+Not in this slice (each refused where asked for, with its ROADMAP item):
+fp16 and the loss scaler (A4), data parallelism over
+``torch.distributed`` (A5), checkpoints (A6), ZeRO-3 (A8), host offload
+(A9), 1-bit Adam (A14), telemetry and resilience (A12, A15).
+"""
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..models.layers import mix_seed
+from ..ops.adam.fused_adam import FusedAdam
+from ..ops.lamb.fused_lamb import FusedLamb
+from ..utils.device import resolve_device
+from . import constants as C
+from .config import DeepSpeedConfig
+from .dataloader import DeepSpeedDataLoader, RepeatingLoader
+from .lr_schedules import SCHEDULE_CLASSES
+from .zero.coordinator import FlatParamCoordinator
+
+logger = logging.getLogger(__name__)
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, device=None):
+    """Build the training engine.  Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``, as the JAX package does.
+    ``model_parameters`` is the param tree (numpy or tensor leaves); the
+    model's ``init(seed)`` makes one when it is None.  ``device=None``
+    trains on CUDA and raises without it."""
+    engine = DeepSpeedEngine(
+        args=args, model=model, optimizer=optimizer,
+        model_parameters=model_parameters, training_data=training_data,
+        lr_scheduler=lr_scheduler, mpu=mpu,
+        dist_init_required=dist_init_required, collate_fn=collate_fn,
+        config=config, config_params=config_params, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
+
+
+class DeepSpeedEngine:
+    """The training engine at one data-parallel rank."""
+
+    def __init__(self, args=None, model=None, optimizer=None,
+                 model_parameters=None, training_data=None,
+                 lr_scheduler=None, mpu=None, dist_init_required=None,
+                 collate_fn=None, config=None, config_params=None,
+                 device=None):
+        if model is None:
+            raise ValueError("initialize requires a model")
+        config = config if config is not None else config_params
+        if config is None and args is not None:
+            config = getattr(args, "deepspeed_config", None)
+        if config is None:
+            raise ValueError("DeepSpeed requires --deepspeed_config, a config "
+                             "dict, or config_params")
+        if mpu is not None and mpu.get_data_parallel_world_size() != 1:
+            raise NotImplementedError(
+                "data parallelism over torch.distributed is not ported yet "
+                "(ROADMAP A5)")
+        self._config = DeepSpeedConfig(config)
+        if self._config.zero_config.cpu_offload:
+            raise NotImplementedError("zero_optimization.cpu_offload is not "
+                                      "ported yet (ROADMAP A9)")
+        self.device = resolve_device(device, "DeepSpeedEngine")
+        self.compute_dtype = (torch.bfloat16 if self._config.bf16_enabled
+                              else torch.float32)
+        self.module = model
+        self._loss_fn = model.apply
+
+        params0 = (model_parameters if model_parameters is not None
+                   else model.init(self._config.seed))
+        self.flat = FlatParamCoordinator(
+            params0, stage=self._config.zero_optimization_stage)
+        self.segments = self.flat.segments
+        self.master = self.flat.flatten_to_master(params0, self.device)
+        del params0
+        self.optimizer = self._configure_basic_optimizer(optimizer)
+        self.opt_state = self.optimizer.init_state(self.master)
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+
+        # compute params: one flat buffer; the param dict is its views,
+        # each an autograd leaf whose .grad is a view of one flat buffer
+        self._compute = torch.empty(self.flat.flat_shape,
+                                    dtype=self.compute_dtype,
+                                    device=self.device)
+        self._grad = torch.zeros_like(self._compute)
+        self.params = self.flat.unflatten_params(self._compute)
+        grads = self.flat.unflatten_params(self._grad)
+        _attach_grads(self.params, grads)
+        acc = self.gradient_accumulation_steps()
+        self._acc = (torch.zeros(self.flat.flat_shape, dtype=torch.float32,
+                                 device=self.device)
+                     if acc > 1 and self.compute_dtype != torch.float32
+                     else None)
+        self._refresh_params()
+
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data, self.train_micro_batch_size_per_gpu(),
+                collate_fn=collate_fn, seed=self._config.seed)
+        self._train_iter = None
+        self.global_steps = 0
+        self.micro_steps = 0
+        self.global_samples = 0
+        self._losses = []
+        self._step_seconds = []
+        logger.info("engine on %s: %d parameters in %d tensors, flat %s, "
+                    "compute %s, optimizer %s, ZeRO stage %d", self.device,
+                    sum(self.segments.sizes), self.segments.num_segments,
+                    self.flat.flat_shape, self.compute_dtype,
+                    type(self.optimizer).__name__,
+                    self._config.zero_optimization_stage)
+
+    # ------------------------------------------------------------ config
+    def train_batch_size(self):
+        return self._config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self._config.gradient_accumulation_steps
+
+    def steps_per_print(self):
+        return self._config.steps_per_print
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization_stage
+
+    def gradient_clipping(self):
+        return self._config.gradient_clipping
+
+    def bfloat16_enabled(self):
+        return self._config.bf16_enabled
+
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
+    def get_lr(self):
+        return [g["lr"] for g in self.optimizer.param_groups]
+
+    def _configure_basic_optimizer(self, client_optimizer):
+        if client_optimizer is not None:
+            if not all(hasattr(client_optimizer, attr)
+                       for attr in ("init_state", "update", "hyperparams")):
+                raise TypeError("client optimizer must implement init_state/"
+                                "update/hyperparams (flat-optimizer "
+                                "protocol)")
+            if (self._config.zero_enabled
+                    and not self._config.zero_allow_untested_optimizer
+                    and type(client_optimizer).__name__ not in (
+                        "FusedAdam", "FusedLamb")):
+                raise ValueError("ZeRO with a client optimizer requires "
+                                 '"zero_allow_untested_optimizer": true')
+            return client_optimizer
+        name = (self._config.optimizer_name or C.ADAM_OPTIMIZER).lower()
+        params = dict(self._config.optimizer_params or {})
+        params.pop(C.MAX_GRAD_NORM, None)
+        if name in (C.ADAM_OPTIMIZER, "adamw"):
+            return FusedAdam(adam_w_mode=(name == "adamw"
+                                          or params.pop("adam_w_mode", True)),
+                             **params)
+        if name == C.LAMB_OPTIMIZER:
+            return FusedLamb(**params)
+        if name in ("cpuadam", "cpu_adam", "deepspeedcpuadam"):
+            raise NotImplementedError("DeepSpeedCPUAdam is not ported yet "
+                                      "(ROADMAP A9)")
+        if name == C.ONEBIT_ADAM_OPTIMIZER:
+            raise NotImplementedError("1-bit Adam is not ported yet (ROADMAP "
+                                      "A14)")
+        raise ValueError(f"Unknown optimizer {name!r}")
+
+    def _configure_lr_scheduler(self, client_scheduler):
+        if client_scheduler is not None:
+            return client_scheduler
+        name = self._config.scheduler_name
+        if name is None:
+            return None
+        if name not in SCHEDULE_CLASSES:
+            raise ValueError(f"Unknown lr schedule {name!r}")
+        return SCHEDULE_CLASSES[name](self.optimizer,
+                                      **(self._config.scheduler_params or {}))
+
+    # ------------------------------------------------------------- state
+    def _refresh_params(self):
+        """Cast the master into the compute params (in place: the param
+        dict's views see it)."""
+        with torch.no_grad():
+            self._compute.copy_(self.master)
+
+    def _to_device(self, batch):
+        """A host batch (numpy or tensor leaves) on the engine's device:
+        integer arrays as int64, copied through pinned memory without a
+        sync on CUDA."""
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._to_device(v) for v in batch)
+        t = batch if isinstance(batch, torch.Tensor) else \
+            torch.from_numpy(np.asarray(batch))
+        if not t.is_floating_point() and t.dtype != torch.bool:
+            t = t.long()
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    # ------------------------------------------------------------- steps
+    def forward(self, batch):
+        """The training loss of one micro-batch, with its graph (call
+        :meth:`backward` on it).  Dropout draws from streams seeded by the
+        config ``seed`` and the micro-step count."""
+        rng = mix_seed(self._config.seed, self.micro_steps)
+        return self._loss_fn(self.params, self._to_device(batch), rng=rng,
+                             train=True)
+
+    __call__ = forward
+
+    def backward(self, loss):
+        """Gradients of ``loss`` / accumulation steps into the flat
+        gradient buffer (fp32-accumulated across micro-batches under bf16
+        with accumulation)."""
+        (loss.float() / self.gradient_accumulation_steps()).backward()
+        if self._acc is not None:
+            self._acc.add_(self._grad)
+            self._grad.zero_()
+        self._losses.append(loss.detach())
+        self.micro_steps += 1
+        self.global_samples += self.train_micro_batch_size_per_gpu()
+        return loss
+
+    def is_gradient_accumulation_boundary(self):
+        return self.micro_steps % self.gradient_accumulation_steps() == 0
+
+    def step(self):
+        """At the accumulation boundary: clip by global norm, update the
+        master in fp32, cast it into the compute params, step the LR
+        schedule."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        g = self._acc if self._acc is not None else self._grad
+        clip = float(self.gradient_clipping() or 0.0)
+        with torch.no_grad():
+            if clip > 0.0:
+                gnorm = torch.linalg.vector_norm(g, dtype=torch.float32)
+                coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+                g = g * coef.to(g.dtype)
+            self.optimizer.update(self.opt_state, self.master, g,
+                                  self.optimizer.hyperparams(),
+                                  segments=self.segments)
+            self._refresh_params()
+            self._grad.zero_()
+            if self._acc is not None:
+                self._acc.zero_()
+        self.global_steps += 1
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        if self.global_steps % self.steps_per_print() == 0:
+            # the print cadence's one host sync
+            mean_loss = float(torch.stack(self._losses).float().mean())
+            msg = (f"step={self.global_steps}, lr={self.get_lr()[0]:.6g}, "
+                   f"loss={mean_loss:.5f}")
+            if self._step_seconds:
+                msg += (f", train_batch ms (synchronized)="
+                        f"{1e3 * np.mean(self._step_seconds):.2f}")
+                self._step_seconds = []
+            logger.info(msg)
+        self._losses = []
+
+    def train_batch(self, data_iter=None):
+        """One optimizer step over ``gradient_accumulation_steps``
+        micro-batches drawn from ``data_iter`` (default: the training
+        dataloader, repeated).  Returns the mean loss as a device tensor;
+        it fetches nothing from the card.  Under
+        ``wall_clock_breakdown`` the step is timed between two
+        synchronizations, which the log reports at the print cadence."""
+        if data_iter is None:
+            if self.training_dataloader is None:
+                raise ValueError("train_batch() without an iterator needs "
+                                 "initialize(training_data=...)")
+            if self._train_iter is None:
+                self._train_iter = iter(RepeatingLoader(
+                    self.training_dataloader))
+            data_iter = self._train_iter
+        if self.micro_steps % self.gradient_accumulation_steps():
+            raise RuntimeError("train_batch() cannot run with un-stepped "
+                               "forward()/backward() micro-batches pending")
+        timed = self.wall_clock_breakdown() and self.device.type == "cuda"
+        if timed:
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+        losses = []
+        for _ in range(self.gradient_accumulation_steps()):
+            loss = self.forward(next(data_iter))
+            self.backward(loss)
+            losses.append(loss.detach())
+        if timed:
+            torch.cuda.synchronize(self.device)
+            self._step_seconds.append(time.perf_counter() - t0)
+        self.step()
+        return torch.stack(losses).float().mean()
+
+    def eval_batch(self, batch):
+        """Loss with ``train=False`` on one batch, or the mean over
+        ``gradient_accumulation_steps`` batches drawn from an iterator."""
+        with torch.no_grad():
+            if not hasattr(batch, "__next__"):
+                return self._loss_fn(self.params, self._to_device(batch),
+                                     rng=None, train=False)
+            losses = []
+            for _ in range(max(1, self.gradient_accumulation_steps())):
+                try:
+                    item = next(batch)
+                except StopIteration:
+                    break
+                losses.append(self._loss_fn(self.params,
+                                            self._to_device(item), rng=None,
+                                            train=False))
+            if not losses:
+                raise ValueError("eval_batch received an exhausted iterator")
+            return torch.stack(losses).mean(dim=0)
+
+    def get_master_params(self):
+        """The fp32 master as a param dict (views of the flat buffer)."""
+        return self.flat.unflatten_params(self.master)
+
+
+def _attach_grads(params, grads):
+    """Make every param an autograd leaf whose ``.grad`` is preset to its
+    view of the flat gradient buffer: autograd then adds into it in
+    place."""
+    for key, p in params.items():
+        if isinstance(p, dict):
+            _attach_grads(p, grads[key])
+        else:
+            p.requires_grad_(True)
+            p.grad = grads[key]

@@ -17,6 +17,31 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree):
+    """``(paths, leaves)`` of a nested-dict tree, keys sorted at every
+    level: the order of ``jax.tree_util.tree_leaves``, which fixes where
+    each tensor sits in the flat parameter buffer."""
+    if not isinstance(tree, dict):
+        return [()], [tree]
+    paths, leaves = [], []
+    for key in sorted(tree):
+        sub_paths, sub_leaves = tree_leaves(tree[key])
+        paths += [(key,) + sp for sp in sub_paths]
+        leaves += sub_leaves
+    return paths, leaves
+
+
+def tree_from_leaves(paths, leaves):
+    """Inverse of :func:`tree_leaves`."""
+    tree = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 def _to_tensor(leaf):
     if isinstance(leaf, torch.Tensor):
         return leaf

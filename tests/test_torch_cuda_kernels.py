@@ -6,10 +6,11 @@ the repo's conftest (which loads JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 
-Tolerances: fp32 2e-5 (matmuls in full fp32, TF32 off; only the
-summation order differs); bf16 2e-2 (both round P to bf16 before P·V and
-the output to bf16, at different points of a different summation
-order).
+Tolerances: the forward fp32 2e-5 (matmuls in full fp32, TF32 off; only
+the summation order differs), bf16 2e-2 (both round P to bf16 before P·V
+and the output to bf16, at different points of a different summation
+order); the backward fp32 5e-4 (the flash tests' grad tolerance), bf16
+1e-2 (dS and P rounded to bf16 after fp32 sums in another order).
 """
 
 import warnings
@@ -18,11 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
+from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    flash_attention_fwd, flash_attention_reference)
+    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_bwd_fused, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_reference, philox_keep_mask)
+
+GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -119,3 +126,122 @@ def test_engine_syncs_once_per_prefill_and_decode_iteration(cuda_device):
     # step 1: two prefills and a decode; steps 2 and 3: a decode each
     assert counts == [3, 1, 1]
     assert engine.decode_iterations == 3 + 3
+
+
+def backward_by_kernels(path, q, k, v, out, lse, dout, mask, causal, rate,
+                        seed):
+    if path == "b3":
+        return flash_attention_bwd_fused(q, k, v, out, lse, dout, mask,
+                                         causal, rate, seed)
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal, rate,
+                                seed)
+    return (dq,) + flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask,
+                                           causal, rate, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("path,s,kv_len,d,causal,rate", [
+    ("b2", 256, 256, 64, True, 0.0), ("b2", 300, 200, 64, False, 0.0),
+    ("b2", 128, 128, 128, True, 0.0), ("b2", 256, 256, 64, True, 0.1),
+    ("b3", 128, 128, 64, True, 0.0), ("b3", 64, 64, 128, False, 0.1)])
+def test_backward_kernels_match_plain(cuda_device, dtype, path, s, kv_len, d,
+                                      causal, rate):
+    """B2a+B2b or B3, with B4 under dropout, against
+    ``flash_attention_bwd_reference`` fed the kernel's own out and lse;
+    the masked batch row gets exactly zero grads, and a second run is
+    bitwise equal."""
+    q, k, v, mask = make_inputs(s + kv_len + d, 2, s, kv_len, 4, d)
+    t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    dout = torch.randn(2, s, 4, d, generator=torch.Generator()
+                       .manual_seed(s)).to(cuda_device, dtype)
+    seed = (torch.tensor([s, d], dtype=torch.int32, device=cuda_device)
+            if rate else None)
+    out, lse = flash_attention_fwd(*t, m, causal, rate, seed)
+    counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv,
+                flash_attention_bwd_fused, fa.in_kernel_dropout)
+    before = [c.launches for c in counters]
+    grads = backward_by_kernels(path, *t, out, lse, dout, m, causal, rate,
+                                seed)
+    again = backward_by_kernels(path, *t, out, lse, dout, m, causal, rate,
+                                seed)
+    torch.cuda.synchronize()
+    bwd_launches = [0, 0, 2] if path == "b3" else [2, 2, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        bwd_launches + [sum(bwd_launches) if rate else 0])
+    keep, inv_keep = None, 1.0
+    if rate:
+        keep = philox_keep_mask(seed, 8, s, kv_len, rate).view(2, 4, s,
+                                                                 kv_len)
+        inv_keep = fa.dropout_thresh(rate)[1]
+    ref = flash_attention_bwd_reference(*t, out, lse, dout, m, causal, keep,
+                                        inv_keep)
+    tol = GRAD_TOLS[dtype]
+    for g, g2, r in zip(grads, again, ref):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+        assert bool((g[-1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_fused_backward_threshold(cuda_device):
+    """B3 runs where Q, dO, K, V and the score tile fit one block's
+    232,448 bytes of shared memory, as the CUDA source counts them:
+    s = kv_len <= 142 at d=64, <= 94 at d=128."""
+    assert fa.use_fused_backward(64, 128, 128)
+    assert fa.use_fused_backward(64, 142, 142)
+    assert not fa.use_fused_backward(64, 143, 143)
+    assert not fa.use_fused_backward(64, 256, 256)
+    assert fa.use_fused_backward(128, 94, 94)
+    assert not fa.use_fused_backward(128, 95, 95)
+
+
+@pytest.mark.cuda
+def test_keep_mask_drawn_by_b1_equals_plain(cuda_device):
+    """With q = 0 and V the identity over kv_len = head_dim keys, B1's
+    output is keep · inv_keep / kv_len: its mask is the plain one."""
+    q = torch.zeros(1, 512, 4, 64, device=cuda_device)
+    k = torch.randn(1, 64, 4, 64, device=cuda_device)
+    v = torch.eye(64, device=cuda_device)[None, :, None, :].expand(
+        1, 64, 4, 64).contiguous()
+    seed = torch.tensor([3, 4], dtype=torch.int32, device=cuda_device)
+    out, _ = flash_attention_fwd(q, k, v, None, False, 0.3, seed)
+    kept = out.permute(0, 2, 1, 3).reshape(4, 512, 64) > 0
+    assert torch.equal(kept, philox_keep_mask(seed, 4, 512, 64, 0.3))
+
+
+@pytest.mark.cuda
+def test_train_batch_syncs_only_at_the_print_cadence(cuda_device):
+    """``train_batch`` fetches nothing from the card between prints: no
+    synchronizing call (CUDA sync debug mode warns at each) except the
+    loss fetch of the step that prints."""
+    config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=128)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(config), model_parameters=random_params(config, 0),
+        config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                "steps_per_print": 3, "gradient_clipping": 1.0,
+                "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+                "bf16": {"enabled": True}}, device=cuda_device)
+    rng = np.random.RandomState(0)
+    batches = [{"input_ids": rng.randint(0, 512, size=(2, 128))}
+               for _ in range(8)]
+    it = iter(batches)
+    engine.train_batch(it)   # warm-up: kernels, cuBLAS, allocator
+    torch.cuda.synchronize()
+    counts = []
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(3):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                engine.train_batch(it)
+            counts.append(sum("synchroniz" in str(w.message)
+                              for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    # global steps 2, 3, 4: step 3 prints
+    assert counts == [0, 1, 0]

@@ -1,23 +1,37 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention against the JAX package's.
 
-On the CPU the port's wrapper runs its plain version; it is held against
-the real Pallas kernel ``_fwd_kernel`` run in interpret mode
-(``_flash_fwd(..., interpret=True)``) on the same numpy inputs, out and
-lse at fp32 2e-5 (the tolerance of ``tests/unit/test_flash_attention.py``
-for the forward: the two sum in different orders).  The Hopper kernel
-itself runs only on the card: ``tests/test_torch_cuda_kernels.py``.
+On the CPU the port's wrappers run their plain versions; they are held
+against the real Pallas kernels run in interpret mode on the same numpy
+inputs: the forward ``_fwd_kernel`` (``_flash_fwd(..., interpret=True)``)
+for out and lse, and the backward through ``jax.vjp`` of
+``flash_attention(..., interpret=True)`` — with blocks that stream
+(``_bwd_dq_kernel`` + ``_bwd_dkv_kernel``) and with one tile
+(``_bwd_fused_kernel``).  Tolerances are those of
+``tests/unit/test_flash_attention.py``: forward 2e-5, grads 5e-4, fp32
+(the two sum in different orders).  The in-kernel dropout (B4) has no
+interpret mode in the JAX package (it needs the TPU's PRNG); its plain
+version ``philox_keep_mask`` is checked for the properties the kernels
+rely on, and the dropout autograd path against torch autograd through a
+dense softmax with the same mask.  The Hopper kernels themselves run
+only on the card: ``tests/test_torch_cuda_kernels.py``.
 """
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from deepspeed_tpu.ops.transformer import flash_attention as jfa
+from deepspeed_tpu_torch.ops.transformer import flash_attention as tfa
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    MAX_FLOOR, NEG_INF, flash_attention_fwd, flash_attention_reference)
+    MAX_FLOOR, NEG_INF, FlashAttention, dropout_thresh, flash_attention_fwd,
+    flash_attention_reference, philox_bits, philox_keep_mask)
 
 FWD_TOL = 2e-5
+GRAD_TOL = 5e-4
 
 
 def make_inputs(seed, b, s, kv_len, h, d, masked, masked_rows=()):
@@ -90,13 +104,6 @@ def test_ragged_matches_jnp_reference(kv_len, causal):
                                atol=FWD_TOL, rtol=FWD_TOL)
 
 
-@pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_dropout_raises_on_any_device(device):
-    q = torch.zeros((1, 128, 2, 64), device=device)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash_attention_fwd(q, q, q, dropout_rate=0.1)
-
-
 def test_neg_inf_and_floor_match_jax():
     assert NEG_INF == jfa.NEG_INF and MAX_FLOOR == jfa.MAX_FLOOR
 
@@ -114,3 +121,213 @@ def test_bf16_plain_rounds_p_before_pv():
     assert out16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
     torch.testing.assert_close(out16.float(), out32, atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse16, lse32, atol=2e-2, rtol=2e-2)
+
+
+# ----------------------------------------------------------------- backward
+def torch_grads(q, k, v, mask, causal, dout, seed=None, rate=0.0):
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = FlashAttention.apply(*t, None if mask is None
+                               else torch.from_numpy(mask), seed, causal,
+                               rate)
+    out.backward(torch.from_numpy(dout))
+    return out.detach().numpy(), [x.grad.numpy() for x in t]
+
+
+def pallas_grads(q, k, v, mask, causal, dout, block):
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def f(q_, k_, v_):
+        return jfa.flash_attention(q_, k_, v_, jm, None, causal, block,
+                                   block, True, 0.0)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("s,kv_len", [(128, 128), (256, 256), (128, 256)],
+                         ids=["single_tile_B3", "streamed_B2", "kv_len_ne_s"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "kv_mask"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_backward_matches_pallas_interpret(s, kv_len, masked, causal):
+    """The port's backward (B3 / B2a+B2b plain versions behind
+    ``FlashAttention``) against the Pallas backward kernels: 128 blocks
+    make s=256 stream through ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+    and s=128 run ``_bwd_fused_kernel``."""
+    q, k, v, mask = make_inputs(3 * s + kv_len + masked + 5 * causal, 2, s,
+                                kv_len, 2, 64, masked)
+    dout = np.random.RandomState(s + 1).randn(*q.shape).astype(np.float32)
+    out_j, grads_j = pallas_grads(q, k, v, mask, causal, dout, 128)
+    out_t, grads_t = torch_grads(q, k, v, mask, causal, dout)
+    np.testing.assert_allclose(out_t, out_j, atol=FWD_TOL, rtol=FWD_TOL)
+    for name, gt, gj in zip("qkv", grads_t, grads_j):
+        np.testing.assert_allclose(gt, gj, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("s", [128, 256], ids=["B3", "B2"])
+def test_backward_fully_masked_row_and_masked_keys_get_zero_grads(s):
+    q, k, v, mask = make_inputs(s + 2, 2, s, s, 2, 64, True,
+                                masked_rows=(1,))
+    dout = np.random.RandomState(s).randn(*q.shape).astype(np.float32)
+    _, grads_j = pallas_grads(q, k, v, mask, False, dout, 128)
+    _, grads_t = torch_grads(q, k, v, mask, False, dout)
+    for name, gt, gj in zip("qkv", grads_t, grads_j):
+        np.testing.assert_allclose(gt, gj, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+        assert np.all(gt[1] == 0.0), f"d{name} on the masked batch row"
+    hidden = mask[0] == 0.0
+    assert np.all(grads_t[1][0][hidden] == 0.0)
+    assert np.all(grads_t[2][0][hidden] == 0.0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_ragged_matches_jnp_reference(causal):
+    """s=100 and kv_len=77 divide into no Pallas block; the dense twin
+    ``_jnp_flash_reference`` states the semantics."""
+    q, k, v, mask = make_inputs(11, 2, 100, 77, 2, 64, True)
+    dout = np.random.RandomState(12).randn(*q.shape).astype(np.float32)
+    jm = jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda *a: jfa._jnp_flash_reference(*a, jm, causal)[0],
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    grads_j = vjp(jnp.asarray(dout))
+    _, grads_t = torch_grads(q, k, v, mask, causal, dout)
+    for name, gt, gj in zip("qkv", grads_t, grads_j):
+        np.testing.assert_allclose(gt, np.asarray(gj), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_cpu_wrappers_count_no_launch():
+    """The launch counters of B1, B2a, B2b, B3 and B4 move only where a
+    kernel launched: the CPU path, dropout included, runs the plain
+    versions and leaves every count as it was."""
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_fused,
+                tfa.in_kernel_dropout)
+    before = [c.launches for c in counters]
+    q, k, v, mask = (None if x is None else torch.from_numpy(x)
+                     for x in make_inputs(5, 2, 64, 64, 2, 64, True))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = FlashAttention.apply(q, k, v, mask, seed_words(1, 2), True, 0.1)
+    out.sum().backward()
+    assert [c.launches for c in counters] == before
+
+
+# ------------------------------------------------------------------ dropout
+def seed_words(a, b):
+    return torch.tensor([a, b], dtype=torch.int32)
+
+
+def test_philox_bits_match_the_random123_known_answers():
+    """Philox4x32-10 of counter (0x243f6a88, 0x85a308d3, 0x13198a2e,
+    0x03707344) and key (0xa4093822, 0x299f31d0) is Random123's
+    d16cfe09 94fdcceb 5001e420 24126ea1: the counter is (b·h, row,
+    col >> 2, 0), so columns 4g..4g+3 of that (b·h, row) read it."""
+    seed = torch.tensor([0xa4093822 - (1 << 32), 0x299f31d0],
+                        dtype=torch.int32)
+    bits = philox_bits(seed, torch.tensor([0x243f6a88]),
+                       torch.tensor([0x85a308d3]), 4 * 0x13198a2e,
+                       4 * 0x13198a2e + 4)
+    # the fourth counter word is 0 in the kernels, so this vector takes
+    # c3 = 0x03707344 through the same rounds only in Random123; check
+    # the c3 = 0 form against the known answer for c = 0, key = 0
+    zero = philox_bits(seed_words(0, 0), torch.tensor([0]),
+                       torch.tensor([0]), 0, 4)
+    assert [int(x) for x in zero.reshape(-1)] == [
+        0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8]
+    assert bits.shape == (1, 1, 4)
+
+
+def test_keep_mask_is_tiling_independent():
+    """A sub-block drawn on its own equals the slice of the full mask: the
+    counter names the element, so every kernel's tiling draws the same
+    bits."""
+    seed = seed_words(5, -7)
+    full = philox_bits(seed, torch.arange(4), torch.arange(64), 0, 100)
+    sub = philox_bits(seed, torch.tensor([1, 3]), torch.arange(17, 41),
+                      33, 91)
+    assert torch.equal(sub, full[[1, 3]][:, 17:41, 33:91])
+    mask = philox_keep_mask(seed, 4, 64, 100, 0.1)
+    assert torch.equal(mask, full >= dropout_thresh(0.1)[0])
+
+
+def test_keep_mask_follows_the_seed():
+    a = philox_keep_mask(seed_words(1, 2), 2, 32, 40, 0.3)
+    b = philox_keep_mask(seed_words(1, 2), 2, 32, 40, 0.3)
+    c = philox_keep_mask(seed_words(1, 3), 2, 32, 40, 0.3)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_dropout_thresh_matches_jax():
+    for rate in (1e-12, 0.1, 0.3, 0.5, 1 - 1e-12):
+        assert dropout_thresh(rate) == jfa._dropout_thresh(rate)
+
+
+def test_keep_rate_is_binomial_and_unbiased():
+    """Over 262,144 draws the keep rate lies within 5 sigma of
+    1 - thresh/2**32, and keep * inv_keep averages 1 within 5 sigma."""
+    rate = 0.1
+    mask = philox_keep_mask(seed_words(123, 456), 8, 256, 128, rate)
+    thresh, inv_keep = dropout_thresh(rate)
+    p = 1.0 - thresh / 2.0 ** 32
+    n = mask.numel()
+    sigma = math.sqrt(p * (1 - p) / n)
+    assert abs(float(mask.double().mean()) - p) < 5 * sigma
+    assert abs(float((mask.double() * inv_keep).mean()) - 1.0) \
+        < 5 * sigma * inv_keep
+
+
+def test_zero_rate_is_the_no_dropout_program():
+    q, k, v, mask = make_inputs(21, 2, 128, 128, 2, 64, True)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    base = FlashAttention.apply(*t, torch.from_numpy(mask), None, True, 0.0)
+    seeded = FlashAttention.apply(*t, torch.from_numpy(mask),
+                                  seed_words(5, 6), True, 0.0)
+    assert torch.equal(base, seeded)
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_dropout_grads_match_dense_autograd_with_the_same_mask(causal,
+                                                               masked):
+    """Forward and grads of the dropout autograd path equal torch autograd
+    through a dense softmax with the ``philox_keep_mask`` mask applied
+    (fwd 2e-5, grads 5e-4)."""
+    rate, seed = 0.2, seed_words(9, 10)
+    b, s, h, d = 2, 96, 2, 64
+    q, k, v, mask = make_inputs(31 + causal, b, s, s, h, d, masked)
+    dout = np.random.RandomState(32).randn(b, s, h, d).astype(np.float32)
+    out_t, grads_t = torch_grads(q, k, v, mask, causal, dout, seed, rate)
+
+    keep = philox_keep_mask(seed, b * h, s, s, rate).view(b, h, s, s)
+    inv_keep = dropout_thresh(rate)[1]
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    sc = torch.einsum("bqhd,bkhd->bhqk", t[0], t[1]) / math.sqrt(d)
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                            NEG_INF)
+    if masked:
+        sc = sc.masked_fill(torch.from_numpy(mask)[:, None, None, :] == 0,
+                            NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       torch.where(keep, p * inv_keep, 0.0), t[2])
+    out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(out_t, out.detach().numpy(), atol=FWD_TOL,
+                               rtol=FWD_TOL)
+    for name, gt, x in zip("qkv", grads_t, t):
+        np.testing.assert_allclose(gt, x.grad.numpy(), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_cuda_wrappers_refuse_other_devices_and_bad_seeds():
+    q = torch.zeros((1, 128, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfa.flash_attention_bwd(q, q, q, q, torch.zeros((2, 128),
+                                                        device="meta"), q)
+    c = torch.zeros((1, 128, 2, 64))
+    with pytest.raises(ValueError, match="seed"):
+        flash_attention_fwd(c, c, c, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="seed"):
+        flash_attention_fwd(c, c, c, dropout_rate=0.1,
+                            seed=torch.zeros(2, dtype=torch.int64))

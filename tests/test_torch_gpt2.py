@@ -140,3 +140,86 @@ def test_cast_weights_matches_jax():
     np.testing.assert_array_equal(got["ids"].numpy(), want["ids"])
     got_np = trm.cast_weights(tree, np.float16)
     assert got_np["w"].dtype == np.float16 and got_np["ids"].dtype == np.int32
+
+
+def torch_params(params):
+    return {k: (torch_params(v) if isinstance(v, dict)
+                else torch.from_numpy(np.array(v)).requires_grad_())
+            for k, v in params.items()}
+
+
+def grad_leaves(tree, prefix=""):
+    for path, t in leaves(tree, prefix):
+        yield path, t.grad.numpy()
+
+
+@pytest.mark.parametrize("labels", [False, True], ids=["shifted", "labels"])
+def test_training_loss_and_all_grads_match_jax(jax_model_and_params, labels):
+    """``apply(params, batch, train=True)`` with dropout off, fp32: the
+    loss at 2e-5 and every gradient at 5e-4 against
+    ``jax.value_and_grad`` of ``GPT2LMHeadTPU.apply`` (the flash tests'
+    tolerances)."""
+    jmodel, params = jax_model_and_params
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 256, size=(2, 24))
+    batch = {"input_ids": ids}
+    if labels:
+        lab = rng.randint(0, 256, size=(2, 24))
+        lab[:, :5] = -100
+        batch["labels"] = lab
+    jbatch = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodel.apply(p, jbatch, rng=None, train=True))(
+            jax.tree_util.tree_map(jnp.asarray, params))
+    tp = torch_params(params)
+    model = GPT2LMHead(GPT2Config(**TINY))
+    loss = model.apply(tp, {k: torch.from_numpy(v) for k, v in
+                            batch.items()}, rng=None, train=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=2e-5,
+                               rtol=2e-5)
+    want = dict(leaves(np_tree(jgrads)))
+    got = dict(grad_leaves(tp))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        np.testing.assert_allclose(g, want[path], atol=5e-4, rtol=5e-4,
+                                   err_msg=path)
+
+
+def test_eval_apply_without_labels_returns_logits(jax_model_and_params):
+    jmodel, params = jax_model_and_params
+    ids = np.random.RandomState(4).randint(0, 256, size=(1, 9))
+    want = np.asarray(jmodel.apply(params, {"input_ids": jnp.asarray(ids)},
+                                   train=False))
+    got = GPT2LMHead(GPT2Config(**TINY)).apply(
+        params_from_numpy(params, "cpu"),
+        {"input_ids": torch.from_numpy(ids)}, train=False)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("remat", True, "A7"), ("loss_chunk", 8, "A3"), ("moe_experts", 4, "A10"),
+    ("attn_impl", "ring", "A10"), ("attn_impl", "sparse", "A11"),
+    ("gelu_checkpoint", True, "A7")])
+def test_unported_knobs_raise_naming_their_roadmap_item(knob, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        GPT2LMHead(GPT2Config(**dict(TINY, **{knob: value})))
+
+
+def test_training_dropout_is_seeded_and_active():
+    """With dropout on, one seed gives one loss and another seed another;
+    eval (train=False) ignores the seed."""
+    cfg = GPT2Config(**dict(TINY, embd_dropout=0.1, attn_dropout=0.1,
+                            resid_dropout=0.1))
+    params = params_from_numpy(random_params(cfg, seed=1), "cpu")
+    model = GPT2LMHead(cfg)
+    ids = {"input_ids": torch.from_numpy(
+        np.random.RandomState(5).randint(0, 256, size=(2, 16)))}
+    a, b, c = (float(model.apply(params, ids, rng=r, train=True))
+               for r in (7, 7, 8))
+    assert a == b and a != c
+    e1 = float(model.apply(params, dict(ids, labels=ids["input_ids"]),
+                           rng=7, train=False))
+    e2 = float(model.apply(params, dict(ids, labels=ids["input_ids"]),
+                           rng=None, train=False))
+    assert e1 == e2

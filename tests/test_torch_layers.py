@@ -1,7 +1,13 @@
 """The port's layer math and dense attention against the JAX package's,
 on the same numpy inputs, fp32 at 1e-6 (the same ops in the same
-dtype; only the summation order differs)."""
+dtype; only the summation order differs); ``TransformerLayer`` forward
+and every gradient at the flash tests' 2e-5 / 5e-4; the dropouts by
+rate and unbiasedness (torch generators and ``jax.random`` draw
+different bits)."""
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,10 +117,172 @@ def test_dot_product_attention_on_cpu_takes_the_dense_path():
     np.testing.assert_allclose(got, want, atol=TOL, rtol=1e-5)
 
 
-def test_dot_product_attention_rejects_dropout_and_two_masks():
+def test_dot_product_attention_rejects_two_masks():
     x = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ta.dot_product_attention(x, x, x, dropout_rate=0.1)
     with pytest.raises(ValueError, match="not both"):
         ta.dot_product_attention(x, x, x, mask=torch.zeros(1, 1, 1, 4),
                                  key_padding_mask=torch.ones(1, 4))
+
+
+def layer_params(rng, h, inter):
+    def dense_p(i, o):
+        return {"kernel": rand(rng, i, o, scale=0.05),
+                "bias": rand(rng, o, scale=0.05)}
+
+    def ln_p():
+        return {"scale": rand(rng, h, scale=0.1) + 1.0,
+                "bias": rand(rng, h, scale=0.1)}
+
+    return {"qkv": dense_p(h, 3 * h), "attn_out": dense_p(h, h),
+            "fc1": dense_p(h, inter), "fc2": dense_p(inter, h),
+            "ln_attn": ln_p(), "ln_mlp": ln_p()}
+
+
+def nested(tree, fn):
+    return {k: nested(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def flat_items(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_items(tree[k], f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", tree[k]
+
+
+@pytest.mark.parametrize("pre_ln,causal,masked", [
+    (True, True, False), (False, False, True), (True, False, True)],
+    ids=["gpt_pre_ln_causal", "bert_post_ln_kv_mask", "pre_ln_kv_mask"])
+def test_transformer_layer_forward_and_grads_match_jax(pre_ln, causal,
+                                                       masked):
+    """``TransformerLayer.apply`` (dropout off, fp32) and the grads of
+    sum(out * w) w.r.t. x and every param, against ``jax.grad`` of the
+    JAX layer: forward 2e-5, grads 5e-4."""
+    from deepspeed_tpu.models.layers import TransformerLayer as JLayer
+    from deepspeed_tpu_torch.models.layers import TransformerLayer
+
+    h, heads, b, s = 64, 4, 2, 12
+    rng = np.random.RandomState(int(pre_ln) + 2 * causal + 4 * masked)
+    params = layer_params(rng, h, 4 * h)
+    x = rand(rng, b, s, h)
+    w = rand(rng, b, s, h)
+    kpm = None
+    if masked:
+        kpm = np.ones((b, s), np.float32)
+        kpm[1, 8:] = 0.0
+    kw = dict(hidden_size=h, heads=heads, causal=causal,
+              attn_dropout_ratio=0.0, hidden_dropout_ratio=0.0,
+              pre_layer_norm=pre_ln, layer_norm_eps=1e-5)
+    jlayer = JLayer(**kw)
+
+    def jloss(p, x_):
+        out = jlayer.apply(p, x_, key_padding_mask=None if kpm is None
+                           else jnp.asarray(kpm))
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(nested(params, jnp.asarray),
+                                              jnp.asarray(x))
+    tp = nested(params, lambda a: torch.from_numpy(a).requires_grad_())
+    tx = torch.from_numpy(x).requires_grad_()
+    out = TransformerLayer(**kw).apply(
+        tp, tx, key_padding_mask=None if kpm is None
+        else torch.from_numpy(kpm))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=5e-4,
+                               rtol=5e-4)
+    want = dict(flat_items(nested(jgp, np.asarray)))
+    for path, t in flat_items(tp):
+        np.testing.assert_allclose(t.grad.numpy(), want[path], atol=5e-4,
+                                   rtol=5e-4, err_msg=path)
+
+
+@pytest.mark.parametrize("ignored", [0, 7])
+def test_cross_entropy_matches_jax(ignored):
+    from deepspeed_tpu.models.layers import cross_entropy_with_logits as jce
+    from deepspeed_tpu_torch.models.layers import cross_entropy_with_logits
+
+    rng = np.random.RandomState(ignored)
+    logits = rand(rng, 2, 9, 33, scale=3.0)
+    labels = rng.randint(0, 33, size=(2, 9))
+    labels.reshape(-1)[:ignored] = -100
+    np.testing.assert_allclose(
+        float(cross_entropy_with_logits(torch.from_numpy(logits),
+                                        torch.from_numpy(labels))),
+        float(jce(jnp.asarray(logits), jnp.asarray(labels))),
+        atol=TOL, rtol=TOL)
+
+
+def test_dropout_rate_and_unbiasedness():
+    """``layers.dropout`` keeps round(256(1-rate))/256 of the elements
+    within 5 sigma, and its scale makes keep * scale average 1 (the JAX
+    byte-mask contract; the bits differ, so the law is what is held);
+    deterministic, rate 0 and no generator are the identity."""
+    from deepspeed_tpu_torch.models.layers import dropout, generator
+
+    x = torch.ones(256, 1024)
+    y = dropout(generator(3, 0, "cpu"), x, 0.1, deterministic=False)
+    thresh = round(0.1 * 256)
+    p = 1 - thresh / 256
+    n = x.numel()
+    kept = float((y != 0).double().mean())
+    assert abs(kept - p) < 5 * math.sqrt(p * (1 - p) / n)
+    assert float(y[y != 0][0]) == pytest.approx(256 / (256 - thresh))
+    assert abs(float(y.double().mean()) - 1.0) \
+        < 5 * math.sqrt(p * (1 - p) / n) / p
+    for args in ((generator(3, 0, "cpu"), x, 0.1, True),
+                 (None, x, 0.1, False),
+                 (generator(3, 0, "cpu"), x, 0.0, False)):
+        assert dropout(*args) is x
+
+
+def test_generators_are_reproducible_and_independent():
+    from deepspeed_tpu_torch.models.layers import generator
+
+    a = torch.rand(8, generator=generator(5, 1, "cpu"))
+    b = torch.rand(8, generator=generator(5, 1, "cpu"))
+    c = torch.rand(8, generator=generator(5, 2, "cpu"))
+    d = torch.rand(8, generator=generator(6, 1, "cpu"))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, d)
+
+
+def test_attention_dropout_on_cpu_takes_the_flash_function():
+    """With dropout on, CPU tensors go through ``FlashAttention`` with
+    the Philox mask, so one seed gives the card's dropped entries; a
+    fixed generator gives a fixed output, and the mean over the dropped
+    softmax stays the undropped one in expectation."""
+    from deepspeed_tpu_torch.models.layers import generator
+
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rand(rng, 2, 16, 2, 8)) for _ in range(3))
+    outs = [ta.dot_product_attention(q, k, v, causal=True, dropout_rate=0.25,
+                                     dropout_rng=generator(1, i % 2, "cpu"),
+                                     deterministic=False)
+            for i in range(3)]
+    assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0],
+                                                             outs[1])
+    plain = ta.dot_product_attention(q, k, v, causal=True)
+    assert not torch.equal(outs[0], plain)
+    same = ta.dot_product_attention(q, k, v, causal=True, dropout_rate=0.25,
+                                    dropout_rng=generator(1, 0, "cpu"),
+                                    deterministic=True)
+    assert torch.equal(same, plain)
+
+
+def test_reference_attention_dropout_with_an_additive_mask():
+    """An additive mask keeps the dense path, dropping probs by
+    ``random_keep`` bytes as the JAX CPU path does."""
+    from deepspeed_tpu_torch.models.layers import generator
+
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(rand(rng, 1, 6, 2, 8)) for _ in range(3))
+    mask = torch.zeros(1, 1, 1, 6)
+    a = ta.dot_product_attention(q, k, v, mask=mask, dropout_rate=0.5,
+                                 dropout_rng=generator(2, 0, "cpu"),
+                                 deterministic=False)
+    b = ta.dot_product_attention(q, k, v, mask=mask)
+    assert a.shape == b.shape and not torch.equal(a, b)

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``deepspeed_tpu_torch/``, and not
-``chip_smoke.py`` or the port's example, imports ``jax`` or anything of
-``deepspeed_tpu``, and importing the port loads neither."""
+``chip_smoke.py`` or the port's examples, imports ``jax`` or anything of
+``deepspeed_tpu``, and importing any module of the port (the training
+engine included) loads neither."""
 
 import ast
 import os
@@ -12,7 +13,12 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py", REPO / "examples" / "profile_torch_serve.py"]
+    + [REPO / "chip_smoke.py", REPO / "examples" / "profile_torch_serve.py",
+       REPO / "examples" / "profile_torch_train.py"]
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (REPO / "deepspeed_tpu_torch").rglob("*.py"))
 
 
 def forbidden(module):
@@ -44,12 +50,13 @@ def test_port_file_imports_no_jax(path):
 
 
 def test_importing_the_port_loads_no_jax():
+    """Every module of the port, ``runtime.engine`` among them."""
+    assert "deepspeed_tpu_torch.runtime.engine" in PORT_MODULES
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "before = set(sys.modules)\n"
-        "import deepspeed_tpu_torch, deepspeed_tpu_torch.inference, "
-        "deepspeed_tpu_torch.models, deepspeed_tpu_torch.module_inject, "
-        "deepspeed_tpu_torch.ops.transformer, deepspeed_tpu_torch.utils\n"
+        f"for name in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
