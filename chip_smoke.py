@@ -11,8 +11,10 @@ each against its plain PyTorch version on the card, serves GPT-2-medium
 at full width through the port's ``InferenceEngine``, checks greedy
 tokens on the card against a CPU serve of the same weights, trains
 GPT-2-medium at full width and depth through ``initialize`` and
-``train_batch``, and checks a short training run on the card against the
-CPU.  Phases, in order; any failure raises, so the script exits non-zero:
+``train_batch``, checks a short training run on the card against the
+CPU, and does the same two things again at seq 4096 with block-sparse
+attention.  Phases, in order; any failure raises, so the script exits
+non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
               build (one nvcc per source, all started together);
@@ -48,7 +50,36 @@ CPU.  Phases, in order; any failure raises, so the script exits non-zero:
               samples/s, tokens/s, MFU, peak memory;
 7. train parity — 2 layers at GPT-2-medium width, fp32, seq 128, Adam +
               WarmupLR, accumulation 2, clipping 1.0: 3 steps on the card
-              (through B3) and on the CPU agree to rtol 1e-3.
+              (through B3) and on the CPU agree to rtol 1e-3;
+8. sparse kernel — B5a and B5b (block-sparse flash forward and backward)
+              vs ``flash_block_sparse_reference`` and
+              ``flash_block_sparse_bwd_reference``, fp32 (TF32 off) and
+              bf16, on fused-QKV views: the train layout (Fixed
+              unidirectional, 256-row blocks, seq 4096) and the
+              parity phase's (256-row blocks, seq 1024), the same
+              pattern in 128-row blocks, BigBird with
+              64-row blocks and with 512-row blocks at seq 16384, a
+              random per-head layout with empty rows (exactly zero out
+              and dq), 16- and 24-row blocks, d=128, causal and not;
+              two runs bitwise equal; device
+              times at the sparse training attention (b=2, h=16, s=4096,
+              d=64, bf16) beside the plain versions', SDPA's with the
+              layout as a boolean mask and the bound, and dense B1 and
+              B2a+B2b at the same shape;
+9. sparse train — GPT-2-medium with ``attn_impl="sparse"`` and that
+              Fixed unidirectional layout, 4096 positions, seq 4096,
+              micro-batch 2, dropout 0.1, Lamb, ZeRO-2, bf16: 2 warm-up
+              and 3 timed steps; finite, falling losses, one B5a and one
+              B5b launch per layer per step and no dense flash launch;
+10. sparse train parity — 2 layers at GPT-2-medium width, fp32, seq 1024,
+              256-row blocks, dropout 0: 3 steps on the card (B5a, B5b)
+              and on the CPU (the gather path) agree to rtol 1e-3.
+
+Phases 9 and 10 go through the layer, whose ``q_agg="auto"`` follows the
+JAX package: at 256-row layout blocks that is G = 1, the work-list
+kernels B5a/B5b replace.  At blocks of up to 128 rows the JAX package
+runs its super-tile kernels (B6), which are not ported yet, and the
+port's layer raises there; phase 8 checks that too.
 
 Then one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.  With ``--out PATH``
@@ -59,6 +90,7 @@ network; imports nothing of JAX.
 import argparse
 import json
 import math
+import random
 import statistics
 import subprocess
 import sys
@@ -73,6 +105,10 @@ from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.sparse_attention import \
+    flash_block_sparse as fbs
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+    BigBirdSparsityConfig, FixedSparsityConfig)
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
@@ -99,6 +135,17 @@ GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
 # GPT-2-medium's training attention: b=8, h=16, s=1024, d=64, causal
 TRAIN_ATTN = (8, 16, 1024, 64)
 DROPOUT = 0.1
+# the sparse training attention: b=2, h=16, s=4096, d=64 (the 8192 tokens
+# a step of the dense train phase), under SPARSE_LAYOUT
+SPARSE_ATTN = (2, 16, 4096, 64)
+SPARSE_LAYOUT = dict(num_heads=16, block=256, num_local_blocks=4,
+                     num_global_blocks=1, attention="unidirectional")
+# the sparse train-parity phase's: seq 1024 in four such blocks
+PARITY_LAYOUT = dict(SPARSE_LAYOUT, num_local_blocks=2)
+PARITY_SEQ = 1024
+SPARSE_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention/" \
+    "flash_block_sparse.cu"
+SPARSE_REF = "deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py"
 # ~10 ms of spinning at the H100's clock, doubled where the host needs
 # longer to queue a timed run
 SPIN_CYCLES = 20_000_000
@@ -697,7 +744,9 @@ def phase_parity(model, params, results):
 KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
                    "B2b": flash_attention_bwd_dkv,
                    "B3": flash_attention_bwd_fused,
-                   "B4": fa.in_kernel_dropout}
+                   "B4": fa.in_kernel_dropout,
+                   "B5a": fbs.flash_block_sparse_fwd,
+                   "B5b": fbs.flash_block_sparse_bwd}
 
 
 def reset_launches():
@@ -746,32 +795,41 @@ def train_setup():
     return engine, cfg, {"input_ids": ids}
 
 
+def run_steps(label, engine, batch, warmup, timed):
+    """``warmup`` then ``timed`` ``train_batch`` steps on one fixed batch,
+    with the launch counts set to 0 just before and read just after;
+    checks finite, falling losses.  Returns ``(losses, seconds per timed
+    step, launches)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [engine.train_batch(iter([batch])) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch(iter([batch])) for _ in range(timed)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: the last loss {losses[-1]} is "
+          f"not below the first {losses[0]}")
+    return losses, seconds / timed, launches
+
+
 def phase_train(card, results):
     """Trains :func:`train_setup`'s GPT-2-medium: 2 warm-up steps and 5
     timed steps on one fixed batch."""
     b, _, s, _ = TRAIN_ATTN
     engine, cfg, batch = train_setup()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses = [engine.train_batch(iter([batch])) for _ in range(2)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [engine.train_batch(iter([batch])) for _ in range(5)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
-    losses = [float(x) for x in losses]
+    losses, step_s, launches = run_steps("train", engine, batch, 2, 5)
     steps, layers = 7, cfg.num_layers
-    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
-    check(losses[-1] < losses[0], f"train: the last loss {losses[-1]} is "
-          f"not below the first {losses[0]}")
     check(launches["B1"] == launches["B2a"] == launches["B2b"]
           == layers * steps and launches["B3"] == 0
-          and launches["B4"] == 3 * layers * steps,
+          and launches["B4"] == 3 * layers * steps
+          and launches["B5a"] == launches["B5b"] == 0,
           f"train: launches {launches}, expected {layers * steps} of "
           f"B1/B2a/B2b (s={s} takes B2, not B3) and 3x that of B4")
-    step_s = seconds / 5
     samples_s = b / step_s
     flops = gpt2_model_flops_per_sample(cfg, s)
     receipt = {
@@ -802,18 +860,17 @@ PARITY_CONFIG = {
                              "warmup_num_steps": 3}}}
 
 
-def phase_train_parity(results):
-    """Card against CPU: 2 layers at GPT-2-medium width, fp32 with TF32
-    off, dropout 0, seq 128, micro-batch 2, accumulation 2, clipping 1.0,
-    Adam under WarmupLR, 3 steps: the loss trajectories agree to rtol
-    1e-3.  At seq 128 the backward takes B3."""
+def card_vs_cpu(label, cfg, seq, seed):
+    """3 steps of ``PARITY_CONFIG`` (micro-batch 2, accumulation 2,
+    clipping 1.0, Adam under WarmupLR) of ``cfg``'s model in fp32 with
+    TF32 off, on the card and on the CPU from the same weights and
+    batches: the loss trajectories must agree to rtol 1e-3.  Returns
+    ``(card losses, cpu losses, the card run's launches)``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
-                     embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
     params = random_params(cfg, SEED)
-    rng = np.random.default_rng(SEED + 2)
-    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(2, 128))}
+    rng = np.random.default_rng(seed)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(2, seq))}
                for _ in range(6)]
     trajectories, launches = {}, None
     for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
@@ -832,18 +889,339 @@ def phase_train_parity(results):
         del engine
     card, cpu = trajectories["card"], trajectories["cpu"]
     check(np.allclose(card, cpu, rtol=1e-3, atol=0.0),
-          f"train parity: card {card} vs cpu {cpu}")
+          f"{label}: card {card} vs cpu {cpu}")
+    return card, cpu, launches
+
+
+def only_launched(launches, names, expected):
+    """Whether every kernel of ``names`` launched ``expected`` times and
+    no other kernel launched at all."""
+    return all(n == (expected if name in names else 0)
+               for name, n in launches.items())
+
+
+def phase_train_parity(results):
+    """Card against CPU (:func:`card_vs_cpu`): 2 layers at GPT-2-medium
+    width, dropout 0, seq 128.  At seq 128 the backward takes B3."""
+    cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
+                     embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+    card, cpu, launches = card_vs_cpu("train parity", cfg, 128, SEED + 2)
     expected = cfg.num_layers * 2 * 3
-    check(launches["B3"] == launches["B1"] == expected
-          and launches["B2a"] == launches["B2b"] == 0,
+    check(only_launched(launches, ("B1", "B3"), expected),
           f"train parity: launches {launches}, expected {expected} of B1 "
-          f"and B3")
+          f"and B3 only")
     print(f"train parity (2 layers, hidden 1024, seq 128, fp32, Adam + "
           f"WarmupLR, accumulation 2, clip 1.0): card {card}, cpu {cpu}, "
           f"max rel diff "
           f"{max(abs(a - b) / abs(b) for a, b in zip(card, cpu)):.3g}")
     results["train_parity"] = {"card": card, "cpu": cpu,
                                "launches": launches}
+    return launches
+
+
+# ------------------------------------------------------------------ sparse
+def sparse_pairs(layout, s, heads, causal):
+    """(query, key) pairs inside the active tiles of ``layout`` that the
+    causal mask leaves visible, over ``heads`` heads of one batch row:
+    the work this layout needs."""
+    active = np.asarray(layout) != 0
+    nb = active.shape[1]
+    blk = s // nb
+    if causal:
+        below = np.tril(np.ones((nb, nb), bool), -1)
+        pairs = (active & below).sum() * blk * blk \
+            + (active & np.eye(nb, dtype=bool)).sum() * (blk * (blk + 1) // 2)
+    else:
+        pairs = active.sum() * blk * blk
+    return float(pairs) * heads / active.shape[0]
+
+
+def sparse_bound(kind, q, layout, causal):
+    """The bound of one B5a ("fwd") or B5b ("bwd") call: q, k, v (and dO,
+    lse, Δ) read once, out and lse (or dq, dk, dv) written once, against
+    4·d (forward) or 10·d (backward) flops per visible pair of the
+    active tiles."""
+    b, s, h, d = q.shape
+    tensor = b * s * h * d * q.element_size()
+    rows = b * h * s * 4
+    nbytes, per_pair = ((4 * tensor + rows, 4) if kind == "fwd"
+                        else (7 * tensor + 2 * rows, 10))
+    return bound_ms(nbytes, per_pair * d * b * sparse_pairs(layout, s, h,
+                                                            causal),
+                    q.dtype)
+
+
+def sparse_cases():
+    """(label, layout, b, h, s, d, causal); q, k, v are fused-QKV views."""
+    random.seed(SEED)
+    rs = np.random.RandomState(SEED)
+    per_head = (rs.rand(8, 16, 16) < 0.3).astype(np.int64)
+    per_head[1, 3] = 0          # head 1, q block 3 attends nothing
+    per_head[:, 5] = 0          # q block 5 attends nothing in any head
+    b, h, s, d = SPARSE_ATTN
+    return [
+        ("train_layout", FixedSparsityConfig(**SPARSE_LAYOUT).make_layout(s),
+         b, h, s, d, True),
+        # the sparse train-parity phase's attention
+        ("parity_layout", FixedSparsityConfig(**PARITY_LAYOUT)
+         .make_layout(PARITY_SEQ), 2, h, PARITY_SEQ, d, True),
+        ("fixed_blk128", FixedSparsityConfig(
+            **dict(SPARSE_LAYOUT, block=128)).make_layout(2048),
+         1, h, 2048, d, True),
+        ("bigbird_blk64", BigBirdSparsityConfig(
+            num_heads=8, block=64, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1)
+            .make_layout(2048)[:1], 1, 8, 2048, 64, False),
+        ("bigbird_blk512_s16384", BigBirdSparsityConfig(
+            num_heads=2, block=512, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1,
+            different_layout_per_head=True).make_layout(16384),
+         1, 2, 16384, 64, False),
+        ("per_head_empty_rows_causal", per_head, 2, 8, 1024, 64, True),
+        ("per_head_empty_rows", per_head, 2, 8, 1024, 64, False),
+        ("blk16", FixedSparsityConfig(
+            num_heads=8, block=16, num_local_blocks=4,
+            attention="unidirectional").make_layout(1024)[:1],
+         2, 8, 1024, 64, True),
+        ("blk24_upper_triangle", np.triu(np.ones((1, 8, 8), np.int64)),
+         1, 4, 192, 64, True),
+        ("d128", per_head, 1, 8, 512, 128, True),
+    ]
+
+
+def sparse_chain(q, k, v, dout, layout, causal):
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    return (out, lse) + tuple(fbs.flash_block_sparse_bwd(
+        q, k, v, out, lse, dout, layout, causal))
+
+
+def phase_sparse_kernel(card, results):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("sparse kernel: B5a out/lse to fp32 2e-5, bf16 2e-2; B5b grads "
+          "to 5e-4 / 1e-2 from the kernel's own out and lse (the bounds of "
+          "B1-B3)")
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    rows = []
+    for i, (label, layout, b, h, s, d, causal) in enumerate(sparse_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, _ = make_case(b, h, s, s, d, "none", True, dtype,
+                                   SEED + 400 + i)
+            dout = torch.randn(b, s, h, d, generator=torch.Generator()
+                               .manual_seed(SEED + 500 + i)).to(DEVICE, dtype)
+            got = sparse_chain(q, k, v, dout, layout, causal)
+            torch.cuda.synchronize()
+            again = sparse_chain(q, k, v, dout, layout, causal)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                  f"sparse {label}: two runs are not bitwise equal")
+            out, lse, dq, dk, dv = got
+            ref_out, ref_lse = fbs.flash_block_sparse_reference(
+                q, k, v, layout, causal)
+            tol, gtol = TOLS[dtype], GRAD_TOLS[dtype]
+            torch.testing.assert_close(out.float(), ref_out.float(),
+                                       atol=tol, rtol=tol)
+            torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+            errs = {"out": float((out.float() - ref_out.float()).abs().max())}
+            del ref_out, ref_lse
+            ref = fbs.flash_block_sparse_bwd_reference(
+                q, k, v, out, lse, dout, layout, causal)
+            for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"sparse {label}: non-finite {name}")
+                torch.testing.assert_close(
+                    g.float(), r.float(), atol=gtol, rtol=gtol,
+                    msg=lambda m: f"sparse {label} {name}: {m}")
+                errs[name] = float((g.float() - r.float()).abs().max())
+            del ref
+            if label.startswith("per_head"):
+                blk = s // layout.shape[1]
+                check(not bool(out[:, 3 * blk:4 * blk, 1].any())
+                      and not bool(dq[:, 3 * blk:4 * blk, 1].any())
+                      and not bool(out[:, 5 * blk:6 * blk].any())
+                      and not bool(dq[:, 5 * blk:6 * blk].any()),
+                      f"sparse {label}: a row with no active block has "
+                      f"non-zero out or dq")
+            max_err["fwd"] = max(max_err["fwd"], errs["out"])
+            max_err["bwd"] = max(max_err["bwd"], errs["dq"], errs["dk"],
+                                 errs["dv"])
+            rows.append(dict(errs, case=label,
+                             dtype=str(dtype).split(".")[-1], b=b, h=h, s=s,
+                             d=d, causal=causal,
+                             block=s // layout.shape[1],
+                             layout_heads=int(layout.shape[0])))
+            print(f"sparse kernel {label} {rows[-1]['dtype']} (blk "
+                  f"{rows[-1]['block']}, H={layout.shape[0]}): max "
+                  f"|out-plain| {errs['out']:.3g}, |grad-plain| dq "
+                  f"{errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g}"
+                  f", bitwise-repeatable ok")
+    results["sparse_kernel"] = rows
+    check_aggregation_raises()
+    return max_err, time_sparse(card, results)
+
+
+def check_aggregation_raises():
+    """Where the JAX package runs its G×G super-tile kernels ("auto" at
+    layout blocks of up to 128 rows, or an explicit factor), the entry
+    point raises and launches nothing: B5 never stands in for them."""
+    q = torch.zeros(1, 1024, 2, 64, device=DEVICE)
+    before = read_launches()
+    for blk, q_agg in ((128, "auto"), (16, "auto"), (256, 2)):
+        layout = np.tril(np.ones((1, 1024 // blk, 1024 // blk), np.int64))
+        try:
+            fbs.flash_block_sparse_attention(q, q, q, layout, causal=True,
+                                             q_agg=q_agg)
+        except NotImplementedError as e:
+            check("B6" in str(e), f"blk {blk} q_agg {q_agg}: {e}")
+        else:
+            check(False, f"blk {blk} q_agg={q_agg!r} ran, where the JAX "
+                         f"package runs super-tile kernels")
+    check(read_launches() == before, "a refused call launched a kernel")
+    print("sparse kernel: q_agg='auto' at blk 128 and 16 and q_agg=2 at blk "
+          "256 raise, naming B6; nothing launched")
+
+
+def time_sparse(card, results):
+    """Device times at the sparse training attention (b=2, h=16, s=4096,
+    d=64, bf16, fused-QKV views, the train layout): B5a and B5b beside
+    their plain versions, SDPA with the layout expanded to a boolean mask
+    (forward, and its whole backward; a yardstick the port never calls)
+    and the bound; then dense B1 and B2a+B2b at the same shape."""
+    b, h, s, d = SPARSE_ATTN
+    layout = FixedSparsityConfig(**SPARSE_LAYOUT).make_layout(s)
+    q, k, v, _ = make_case(b, h, s, s, d, "none", True, torch.bfloat16,
+                           SEED + 600)
+    dout = torch.randn(b, s, h, d, generator=torch.Generator()
+                       .manual_seed(SEED + 601)).to(DEVICE, torch.bfloat16)
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, True)
+    timings = {}
+    visible, _ = fbs.expand_layout(layout, s, True, DEVICE)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible)
+    dot = dout.transpose(1, 2)
+    for kind, kernel, plain, library in (
+            ("fwd",
+             lambda: fbs.flash_block_sparse_fwd(q, k, v, layout, True),
+             lambda: fbs.flash_block_sparse_reference(q, k, v, layout, True),
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=visible)),
+            ("bwd",
+             lambda: fbs.flash_block_sparse_bwd(q, k, v, out, lse, dout,
+                                                layout, True),
+             lambda: fbs.flash_block_sparse_bwd_reference(
+                 q, k, v, out, lse, dout, layout, True),
+             lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
+                                         retain_graph=True))):
+        bound, by = sparse_bound(kind, q, layout, True)
+        timings[kind] = {
+            "kernel_ms": device_ms(kernel),
+            "plain_ms": device_ms(plain, calls=1, repeats=3, warmup=1),
+            "library_ms": device_ms(library, calls=2, repeats=5, warmup=1),
+            "bound_ms": bound, "bound_by": by}
+        print(f"sparse timing {kind} (b={b} h={h} s={s} d={d} causal bf16, "
+              f"fused QKV views, Fixed unidirectional blk "
+              f"{SPARSE_LAYOUT['block']}): " + " ".join(
+                  f"{key}={val:.5f}" if isinstance(val, float) else
+                  f"{key}={val}" for key, val in timings[kind].items())
+              + f" [{card}]")
+    del o_sdpa, visible
+    # the dense kernels at the same shape
+    d_out, d_lse = flash_attention_fwd(q, k, v, None, True)
+    args = (q, k, v, d_out, d_lse, dout, None, True)
+    pairs = sparse_pairs(layout, s, h, True)
+    dense = {
+        "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, None, True)),
+        "b2_ms": device_ms(lambda: (flash_attention_bwd_dq(*args),
+                                    flash_attention_bwd_dkv(*args))),
+        "layout_density": float(np.mean(layout != 0)),
+        "causal_density": pairs / (h * s * (s + 1) / 2)}
+    print(f"sparse vs dense (same shape, causal): B5a "
+          f"{timings['fwd']['kernel_ms']:.4f} ms vs B1 {dense['b1_ms']:.4f}; "
+          f"B5b {timings['bwd']['kernel_ms']:.4f} ms vs B2a+B2b "
+          f"{dense['b2_ms']:.4f}; active blocks {dense['layout_density']:.4f}"
+          f" of the layout, visible pairs {dense['causal_density']:.4f} of "
+          f"the causal triangle [{card}]")
+    timings["dense"] = dense
+    results["sparse_timing"] = timings
+    return timings
+
+
+def sparse_train_setup():
+    """The sparse train phase's engine, model config and fixed batch on
+    the card: GPT-2-medium at full width and depth with 4096 positions
+    and ``attn_impl="sparse"`` under the Fixed unidirectional layout of
+    "Generative Modeling with Sparse Transformers" (256-row blocks, 4
+    local blocks, 1 global block: a block size at which the JAX layer
+    runs the work-list kernels), seq 4096, micro-batch 2, dropout 0.1,
+    Lamb lr 1e-4, ZeRO-2, bf16.  ``examples/profile_torch_train.py
+    --sparse`` profiles this same set-up."""
+    b, _, s, _ = SPARSE_ATTN
+    cfg = GPT2Config.gpt2_medium(
+        max_position_embeddings=s, embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+        resid_dropout=DROPOUT, attn_impl="sparse",
+        sparsity_config=FixedSparsityConfig(**SPARSE_LAYOUT))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
+        config=dict(TRAIN_CONFIG, train_batch_size=b))
+    ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
+                                                   size=(b, s))
+    return engine, cfg, {"input_ids": ids}
+
+
+def phase_sparse_train(card, results):
+    """Trains :func:`sparse_train_setup`'s model: 2 warm-up steps and 3
+    timed steps on one fixed batch."""
+    b, _, s, _ = SPARSE_ATTN
+    engine, cfg, batch = sparse_train_setup()
+    losses, step_s, launches = run_steps("sparse train", engine, batch, 2, 3)
+    steps, layers = 5, cfg.num_layers
+    check(only_launched(launches, ("B5a", "B5b"), layers * steps),
+          f"sparse train: launches {launches}, expected {layers * steps} of "
+          f"B5a and B5b and no dense flash launch")
+    layout = engine.module.layer._sparse_layout(s)
+    receipt = {
+        "card": card, "layers": layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_heads, "vocab": cfg.vocab_size, "seq": s,
+        "micro_batch": b, "dropout": DROPOUT, "layout": SPARSE_LAYOUT,
+        "layout_density": float(np.mean(layout != 0)),
+        "causal_density": sparse_pairs(layout, s, 1, True)
+        / (s * (s + 1) / 2),
+        "losses": losses, "step_ms": 1e3 * step_s,
+        "samples_per_s": b / step_s, "tokens_per_s": b * s / step_s,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    print("sparse train receipt (GPT-2-medium, 24 layers, seq 4096, batch "
+          "2, bf16, Lamb, ZeRO-2, dropout 0.1, Fixed unidirectional sparse "
+          "attention):", json.dumps(receipt))
+    results["sparse_train"] = receipt
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sparse_parity(results):
+    """Card against CPU (:func:`card_vs_cpu`) with the sparse core: 2
+    layers at GPT-2-medium width, dropout 0, seq 1024 in 256-row blocks
+    (Fixed unidirectional).  The card runs B5a and B5b, the CPU the
+    gather path."""
+    cfg = GPT2Config(
+        hidden_size=1024, num_heads=16, num_layers=2, embd_dropout=0.0,
+        attn_dropout=0.0, resid_dropout=0.0, attn_impl="sparse",
+        sparsity_config=FixedSparsityConfig(**PARITY_LAYOUT))
+    card, cpu, launches = card_vs_cpu("sparse train parity", cfg, PARITY_SEQ,
+                                      SEED + 3)
+    expected = cfg.num_layers * 2 * 3
+    check(only_launched(launches, ("B5a", "B5b"), expected),
+          f"sparse train parity: launches {launches}, expected {expected} "
+          f"of B5a and B5b only")
+    print(f"sparse train parity (2 layers, hidden 1024, seq {PARITY_SEQ}, "
+          f"blk {PARITY_LAYOUT['block']}, "
+          f"fp32, Adam + WarmupLR, accumulation 2, clip 1.0): card {card}, "
+          f"cpu {cpu}, max rel diff "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(card, cpu)):.3g}")
+    results["sparse_train_parity"] = {"card": card, "cpu": cpu,
+                                      "launches": launches}
     return launches
 
 
@@ -895,12 +1273,23 @@ def main(argv=None):
     train_launches = phase_train(card, results)
     # 7. train parity, card against CPU
     parity_launches = phase_train_parity(results)
+
+    # 8. sparse kernel: B5a and B5b against their plain versions
+    sparse_err, sparse_timings = phase_sparse_kernel(card, results)
+    # 9. sparse train, GPT-2-medium at seq 4096
+    sparse_launches = phase_sparse_train(card, results)
+    # 10. sparse train parity, card against CPU
+    sparse_parity_launches = phase_sparse_parity(results)
+
     launches = {name: train_launches[name] + parity_launches[name]
+                + sparse_launches[name] + sparse_parity_launches[name]
                 for name in KERNEL_COUNTERS}
     launches["B1"] += serve_launches
     results["launches"] = {"serve": {"B1": serve_launches},
                            "train": train_launches,
-                           "train_parity": parity_launches}
+                           "train_parity": parity_launches,
+                           "sparse_train": sparse_launches,
+                           "sparse_train_parity": sparse_parity_launches}
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
 
@@ -922,7 +1311,13 @@ def main(argv=None):
                      launches["B3"], bwd_err["b3"], b3),
         kernel_entry("in-kernel dropout (B4)", CSRC + "flash_dropout.cuh",
                      REF + ":145", launches["B4"], bwd_err["dropout"],
-                     bwd_timings["dropout"])]
+                     bwd_timings["dropout"]),
+        kernel_entry("flash_block_sparse_fwd (B5a)", SPARSE_SOURCE,
+                     SPARSE_REF + ":213", launches["B5a"], sparse_err["fwd"],
+                     sparse_timings["fwd"]),
+        kernel_entry("flash_block_sparse_bwd (B5b)", SPARSE_SOURCE,
+                     SPARSE_REF + ":253", launches["B5b"], sparse_err["bwd"],
+                     sparse_timings["bwd"])]
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

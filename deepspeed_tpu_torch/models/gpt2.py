@@ -10,9 +10,11 @@ Parameters are a dict with the JAX package's keys (``wte``, ``wpe``,
 ``blocks/layer_i/{qkv, attn_out, fc1, fc2, ln_attn, ln_mlp}``, ``ln_f``),
 so a JAX tree carried across by
 :func:`~deepspeed_tpu_torch.utils.params.params_from_numpy` drops in.
-Not ported yet, and refused: ``remat`` (ROADMAP A7), ``loss_chunk``
-(A3), MoE blocks (A10) and the ring and sparse attention cores
-(A10/A11).
+``attn_impl="sparse"`` with a ``sparsity_config`` runs the block-sparse
+attention core (``ops/sparse_attention``) in every block, for sequences
+as long as ``max_position_embeddings`` allows.  Not ported yet, and
+refused: ``remat`` (ROADMAP A7), ``loss_chunk`` (A3), MoE blocks (A10)
+and the ring attention core (A10).
 """
 
 import numpy as np
@@ -117,8 +119,9 @@ class GPT2LMHead(nn.Module):
     input_ids)`` and ``logits(params, input_ids)`` take the param dict
     as the JAX model's methods do; ``forward(input_ids)`` uses the dict
     given at construction.  Attention goes through
-    :func:`~deepspeed_tpu_torch.ops.transformer.attention.dot_product_attention`,
-    so on CUDA it runs the flash kernels, forward and backward."""
+    :func:`~deepspeed_tpu_torch.ops.transformer.attention.dot_product_attention`
+    (or, under ``attn_impl="sparse"``, the block-sparse core), so on CUDA
+    it runs the flash kernels, forward and backward."""
 
     def __init__(self, config, params=None):
         super().__init__()

@@ -12,13 +12,19 @@ draw from its own generator in a fixed order (attention, attention
 output, MLP output).
 """
 
+import functools
 import logging
+import os
 
 import torch
 
 from ..ops.op_common import random_keep
+from ..ops.sparse_attention.block_sparse import block_sparse_attention
+from ..ops.sparse_attention.flash_block_sparse import (
+    flash_block_sparse_attention, kernel_takes)
 from ..ops.transformer.attention import (MIN_DROPOUT,
-                                         dot_product_attention)
+                                         dot_product_attention,
+                                         key_padding_to_additive)
 
 logger = logging.getLogger(__name__)
 
@@ -71,13 +77,47 @@ def dropout(rng, x, rate, deterministic):
     return torch.where(keep, x * scale, torch.zeros_like(x))
 
 
+def sparse_core(q, has_key_padding):
+    """Which sparse attention core takes a call, "kernel" or "gather":
+    the JAX layer's own dispatch in the port's terms.  The gather path,
+    which is the general one, takes a call with a key-padding mask (the
+    flash kernels have no mask operand) and a call on the CPU.  Every
+    other call is the block-sparse flash kernels' (B5a/B5b): it launches
+    them or raises, here for a type or head_dim they do not take, and in
+    ``flash_block_sparse_attention`` for a layout block at which the JAX
+    package runs its super-tile kernels, which are not ported yet.
+    ``DS_SPARSE_FLASH=never`` (read at call time) sends such a call to
+    the gather path instead, and says so once.  The JAX test
+    ``blk % 128 == 0`` is a TPU tile rule and is not carried over."""
+    if has_key_padding or not q.is_cuda:
+        return "gather"
+    if os.environ.get("DS_SPARSE_FLASH", "auto") == "never":
+        _log_gather_once()
+        return "gather"
+    if not kernel_takes(q):
+        raise NotImplementedError(
+            f"the block-sparse flash kernels take fp32 or bf16 at head_dim "
+            f"64 or 128, not {q.dtype} at head_dim {q.shape[-1]}; "
+            f"DS_SPARSE_FLASH=never takes the gather path instead")
+    return "kernel"
+
+
+@functools.lru_cache(maxsize=None)
+def _log_gather_once():
+    logger.warning("DS_SPARSE_FLASH=never: sparse attention on the card "
+                   "takes the gather path, not the block-sparse flash "
+                   "kernels")
+
+
 class TransformerLayer:
-    """One encoder/decoder layer with the dense attention core.
+    """One encoder/decoder layer with the dense (``attn_impl="auto"``)
+    or the block-sparse (``"sparse"``, with a ``sparsity_config``)
+    attention core.
 
     The config mirrors the JAX ``TransformerLayer`` (``pre_layer_norm``,
     ``attn_dropout_ratio``, ``hidden_dropout_ratio``, ``causal``).  Not
-    ported yet, and refused: the ring and sparse cores (``attn_impl``
-    'ring'/'sparse', ROADMAP A10/A11), the memory knobs
+    ported yet, and refused: the ring core (``attn_impl`` 'ring',
+    ROADMAP A10), the memory knobs
     (``gelu_checkpoint``, ``attn_dropout_checkpoint``,
     ``normalize_invertible``, ROADMAP A7) and query-gathered ``positions``
     (BERT's MLM gather, ROADMAP A3)."""
@@ -92,12 +132,13 @@ class TransformerLayer:
         if hidden_size % heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of heads {heads}")
-        if attn_impl in ("ring", "sparse"):
+        if attn_impl == "ring":
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (ROADMAP "
-                f"{'A10' if attn_impl == 'ring' else 'A11'})")
-        if attn_impl != "auto":
+                "attn_impl='ring' is not ported yet (ROADMAP A10)")
+        if attn_impl not in ("auto", "sparse"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if attn_impl == "sparse" and sparsity_config is None:
+            raise ValueError("attn_impl='sparse' requires a SparsityConfig")
         if gelu_checkpoint or attn_dropout_checkpoint or normalize_invertible:
             raise NotImplementedError(
                 "gelu_checkpoint, attn_dropout_checkpoint and "
@@ -106,9 +147,9 @@ class TransformerLayer:
             logger.warning("stochastic_mode=True is accepted for config "
                            "parity and has no effect: the port's kernels "
                            "are deterministic")
-        # intermediate_size, initializer_range and sparsity_config size
-        # and draw params in the JAX layer; here the param dict carries
-        # its shapes, so they are accepted for the JAX signature only
+        # intermediate_size and initializer_range size and draw params
+        # in the JAX layer; here the param dict carries its shapes, so
+        # they are accepted for the JAX signature only
         self.hidden_size = hidden_size
         self.heads = heads
         self.head_dim = hidden_size // heads
@@ -117,6 +158,49 @@ class TransformerLayer:
         self.hidden_dropout_ratio = hidden_dropout_ratio
         self.pre_layer_norm = pre_layer_norm
         self.layer_norm_eps = layer_norm_eps
+        self.attn_impl = attn_impl
+        self.sparsity_config = sparsity_config
+        self._layout_cache = {}  # seq_len -> layout
+
+    def _sparse_layout(self, seq_len):
+        """Layout cached per sequence length: randomized configs (BigBird,
+        Variable) must give the same pattern in every call, and the
+        kernels' device tables are cached on the array's identity."""
+        if seq_len not in self._layout_cache:
+            self._layout_cache[seq_len] = \
+                self.sparsity_config.make_layout(seq_len)
+        return self._layout_cache[seq_len]
+
+    def _sparse_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
+                          deterministic):
+        """The sparse core on [b, s, heads, head_dim] views, and the
+        attention dropout on its context: the sparse cores have none
+        inside."""
+        b, s = q.shape[:2]
+        kpm_add = None  # additive [b, s] form
+        if key_padding_mask is not None:
+            kpm_add = key_padding_to_additive(key_padding_mask)
+        elif mask is not None:
+            # the general additive [b, 1, 1, s] broadcast collapses
+            if mask.numel() != b * s:
+                raise ValueError(
+                    f"attn_impl='sparse' supports key-padding masks "
+                    f"([b,1,1,s]), got mask shape {tuple(mask.shape)}")
+            kpm_add = mask.reshape(b, s)
+        layout = self._sparse_layout(s)
+        causal_sp = self.causal or getattr(
+            self.sparsity_config, "attention",
+            "bidirectional") == "unidirectional"
+        if sparse_core(q, kpm_add is not None) == "kernel":
+            ctx = flash_block_sparse_attention(q, k, v, layout,
+                                               causal=causal_sp)
+        else:
+            ctx = block_sparse_attention(q, k, v, layout, causal=causal_sp,
+                                         key_padding_mask=kpm_add)
+        if attn_rng is not None and self.attn_dropout_ratio > 0.0:
+            ctx = dropout(attn_rng, ctx, self.attn_dropout_ratio,
+                          deterministic)
+        return ctx
 
     def attention_core(self, params, y, mask=None, key_padding_mask=None,
                        attn_rng=None, deterministic=True):
@@ -126,6 +210,10 @@ class TransformerLayer:
         b, s, h = y.shape
         qkv = dense(params["qkv"], y).reshape(b, s, 3, self.heads,
                                               self.head_dim)
+        if self.attn_impl == "sparse":
+            return self._sparse_attention(
+                qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
+                key_padding_mask, attn_rng, deterministic).reshape(b, s, h)
         ctx = dot_product_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask=mask,
             key_padding_mask=key_padding_mask, causal=self.causal,

@@ -7,8 +7,8 @@ interface, built for Hopper (``sm_90a``), and loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds.
 
 Libraries land in ``build/deepspeed_tpu_torch/`` beside the package,
-named by a hash of the source, its headers and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  A failed build raises
+named by a hash of the source, the headers under ``csrc/`` (which is on
+the include path) and the flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  A failed build raises
 with nvcc's stderr; there is no fallback.
 """
 
@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "flash_attention_fwd": "transformer/flash_attention_fwd.cu",
     "flash_attention_bwd": "transformer/flash_attention_bwd.cu",
+    "flash_block_sparse": "sparse_attention/flash_block_sparse.cu",
 }
 
 _lock = threading.Lock()
@@ -55,10 +56,13 @@ def find_nvcc():
 
 def library_path(name):
     """Where ``name``'s library is (or will be) built: keyed by a hash
-    of its source, the headers beside it and the compiler flags."""
+    of its source, every header it could include (all ``*.cuh`` under
+    ``csrc/``, since a source may share a header of another directory)
+    and the compiler flags."""
     src = CSRC_DIR / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in sorted(CSRC_DIR.rglob("*.cuh")):
+        digest.update(str(header.relative_to(CSRC_DIR)).encode())
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -78,7 +82,8 @@ def build(names=None):
     procs = []
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / SOURCES[name])]
         procs.append((name, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []

@@ -5,8 +5,10 @@ One JSON file or dict, parsed once: the batch triple
 ``train_batch_size = micro_batch × gradient_accumulation_steps ×
 data_parallel_size`` solved and checked as in the JAX package
 (``:406-453``); ``optimizer``, ``scheduler``, ``bf16``, ``fp16``,
-``zero_optimization``, ``gradient_clipping``, ``steps_per_print`` and
-``wall_clock_breakdown``.  Unknown keys warn with a "did you mean" hint
+``zero_optimization``, ``gradient_clipping``, ``steps_per_print``,
+``wall_clock_breakdown`` and ``sparse_attention`` (one of the five layout
+modes, resolved with its defaults by :func:`get_sparse_attention` into
+the kwargs ``build_sparsity_config`` takes).  Unknown keys warn with a "did you mean" hint
 and raise under ``"strict_config": true`` (the JAX package checks them in
 ``tools/dslint/schema.py``).  Blocks the port does not implement yet warn
 when set, naming their ROADMAP item; ``fp16.enabled`` raises, since the
@@ -55,6 +57,45 @@ def config_issues(param_dict):
                           f"port does not implement it yet (ROADMAP "
                           f"{C.UNPORTED_SECTIONS[key]}); it has no effect")
     return issues
+
+
+def get_sparse_attention(param_dict):
+    """The ``sparse_attention`` block as a kwargs dict for its mode, every
+    key the mode reads filled with its default; None without the block
+    (port of ``get_sparse_attention``, ``config.py:124-194``)."""
+    if C.SPARSE_ATTENTION not in param_dict:
+        return None
+    sparsity = param_dict[C.SPARSE_ATTENTION]
+
+    def read(*names):
+        return {getattr(C, f"SPARSE_{n}"): get_scalar_param(
+            sparsity, getattr(C, f"SPARSE_{n}"),
+            getattr(C, f"SPARSE_{n}_DEFAULT")) for n in names}
+
+    mode = get_scalar_param(sparsity, C.SPARSE_MODE, C.SPARSE_MODE_DEFAULT)
+    common = {C.SPARSE_MODE: mode,
+              **read("BLOCK", "DIFFERENT_LAYOUT_PER_HEAD")}
+    if mode == C.SPARSE_DENSE_MODE:
+        return common
+    if mode == C.SPARSE_FIXED_MODE:
+        extra = read("NUM_LOCAL_BLOCKS", "NUM_GLOBAL_BLOCKS",
+                     "ATTENTION_TYPE", "HORIZONTAL_GLOBAL_ATTENTION",
+                     "NUM_DIFFERENT_GLOBAL_PATTERNS")
+    elif mode == C.SPARSE_VARIABLE_MODE:
+        extra = read("NUM_RANDOM_BLOCKS", "LOCAL_WINDOW_BLOCKS",
+                     "GLOBAL_BLOCK_INDICES", "GLOBAL_BLOCK_END_INDICES",
+                     "ATTENTION_TYPE", "HORIZONTAL_GLOBAL_ATTENTION")
+    elif mode == C.SPARSE_BIGBIRD_MODE:
+        extra = read("NUM_RANDOM_BLOCKS", "NUM_SLIDING_WINDOW_BLOCKS",
+                     "NUM_GLOBAL_BLOCKS")
+    elif mode == C.SPARSE_BSLONGFORMER_MODE:
+        extra = read("NUM_SLIDING_WINDOW_BLOCKS", "GLOBAL_BLOCK_INDICES",
+                     "GLOBAL_BLOCK_END_INDICES")
+    else:
+        raise NotImplementedError(
+            f"Given sparsity mode, {mode!r}, has not been implemented yet!")
+    common.update(extra)
+    return common
 
 
 class DeepSpeedConfig:
@@ -127,13 +168,7 @@ class DeepSpeedConfig:
                                  if self.scheduler_name is not None
                                  else None)
 
-        sparse = param_dict.get("sparse_attention")
-        if sparse is not None:
-            mode = sparse.get("mode", "fixed")
-            if mode not in C.SPARSE_MODES:
-                raise NotImplementedError(
-                    f"Given sparsity mode, {mode!r}, has not been "
-                    f"implemented yet!")
+        self.sparse_attention = get_sparse_attention(param_dict)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triple from any subset of it."""

@@ -165,10 +165,45 @@ UNPORTED_SECTIONS = {
     "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
     "mesh": "A5/A10", "pipeline": "A13", "profiling": "A12/A16",
     "progressive_layer_drop": "A3", "resilience": "A15",
-    "ring_attention": "A10", "sparse_attention": "A11",
-    "telemetry": "A12", "tensorboard": "A12",
+    "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
 }
-SPARSE_MODES = ("dense", "fixed", "variable", "bigbird", "bslongformer")
+
+#############################################
+# Sparse attention: the "sparse_attention" block, one mode of
+# ops/sparse_attention/sparsity_config.py with that class's defaults
+#############################################
+SPARSE_ATTENTION = "sparse_attention"
+SPARSE_MODE = "mode"
+SPARSE_MODE_DEFAULT = "fixed"
+SPARSE_DENSE_MODE = "dense"
+SPARSE_FIXED_MODE = "fixed"
+SPARSE_VARIABLE_MODE = "variable"
+SPARSE_BIGBIRD_MODE = "bigbird"
+SPARSE_BSLONGFORMER_MODE = "bslongformer"
+SPARSE_BLOCK = "block"
+SPARSE_BLOCK_DEFAULT = 16
+SPARSE_DIFFERENT_LAYOUT_PER_HEAD = "different_layout_per_head"
+SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT = False
+SPARSE_NUM_LOCAL_BLOCKS = "num_local_blocks"
+SPARSE_NUM_LOCAL_BLOCKS_DEFAULT = 4
+SPARSE_NUM_GLOBAL_BLOCKS = "num_global_blocks"
+SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT = 1
+SPARSE_ATTENTION_TYPE = "attention"
+SPARSE_ATTENTION_TYPE_DEFAULT = "bidirectional"
+SPARSE_HORIZONTAL_GLOBAL_ATTENTION = "horizontal_global_attention"
+SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT = False
+SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS = "num_different_global_patterns"
+SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT = 1
+SPARSE_NUM_RANDOM_BLOCKS = "num_random_blocks"
+SPARSE_NUM_RANDOM_BLOCKS_DEFAULT = 0
+SPARSE_LOCAL_WINDOW_BLOCKS = "local_window_blocks"
+SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT = [4]
+SPARSE_GLOBAL_BLOCK_INDICES = "global_block_indices"
+SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT = [0]
+SPARSE_GLOBAL_BLOCK_END_INDICES = "global_block_end_indices"
+SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT = None
+SPARSE_NUM_SLIDING_WINDOW_BLOCKS = "num_sliding_window_blocks"
+SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
 
 #############################################
 # Inference / serving (deepspeed_tpu_torch/inference): continuous

@@ -10,8 +10,12 @@ import logging
 import pytest
 
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
+from deepspeed_tpu.runtime.config import \
+    get_sparse_attention as j_get_sparse_attention
+from deepspeed_tpu_torch.ops.sparse_attention import build_sparsity_config
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
-                                                DeepSpeedConfigError)
+                                                DeepSpeedConfigError,
+                                                get_sparse_attention)
 
 # every config dict of tests/unit/test_config.py, with its world size
 UNIT_CONFIGS = [
@@ -103,6 +107,41 @@ def test_both_parsers_resolve_equal_values(d, world_size):
     for field in RESOLVED:
         assert getattr(ours, field) == getattr(theirs, field), field
     assert ours.zero_config.cpu_offload == theirs.zero_config.cpu_offload
+
+
+@pytest.mark.parametrize("section", [
+    {"mode": "dense"},
+    {"mode": "dense", "block": 64, "different_layout_per_head": True},
+    {},
+    {"mode": "fixed", "block": 128, "num_local_blocks": 4,
+     "num_global_blocks": 1, "attention": "unidirectional"},
+    {"mode": "variable"},
+    {"mode": "variable", "num_random_blocks": 2,
+     "local_window_blocks": [2, 4], "global_block_indices": [0, 3],
+     "global_block_end_indices": [1, 4]},
+    {"mode": "bigbird"},
+    {"mode": "bigbird", "num_sliding_window_blocks": 5, "block": 32},
+    {"mode": "bslongformer"},
+    {"mode": "bslongformer", "global_block_indices": [0, 2]},
+], ids=["dense", "dense_set", "fixed_default", "fixed_set", "variable",
+        "variable_set", "bigbird", "bigbird_set", "bslongformer",
+        "bslongformer_set"])
+def test_get_sparse_attention_resolves_the_jax_defaults(section, caplog):
+    """All five modes: the block resolves, defaults filled, to the dict
+    the JAX parser gives; it is stored as ``config.sparse_attention``,
+    builds a sparsity config, and no longer warns as unported."""
+    d = {"train_batch_size": 8, "sparse_attention": section}
+    want = j_get_sparse_attention(d)
+    assert get_sparse_attention(d) == want
+    with caplog.at_level(logging.WARNING):
+        cfg = DeepSpeedConfig(dict(d))
+    assert cfg.sparse_attention == want
+    assert cfg.sparse_attention == JConfig(dict(d)).sparse_attention
+    assert "sparse_attention" not in caplog.text
+    built = build_sparsity_config(cfg.sparse_attention, num_heads=4)
+    assert built.block == want["block"]
+    assert get_sparse_attention({"train_batch_size": 8}) is None
+    assert DeepSpeedConfig({"train_batch_size": 8}).sparse_attention is None
 
 
 def test_unknown_keys_warn_with_a_hint_and_raise_under_strict(caplog):

@@ -76,6 +76,35 @@ def test_ten_step_trajectory_matches_the_jax_engine(opt, acc, clip):
     np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL, atol=0)
 
 
+def test_sparse_trajectory_matches_the_jax_engine():
+    """Six steps with ``attn_impl="sparse"`` (Fixed unidirectional, block
+    16, seq 64), Lamb with clipping, on both engines: rtol 1e-5 as for
+    the dense model."""
+    from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig as J
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        FixedSparsityConfig as T
+
+    skw = dict(num_heads=4, block=16, num_local_blocks=2,
+               num_global_blocks=1, attention="unidirectional")
+    params = random_params(GPT2Config(**TINY), seed=0)
+    batches = make_batches(6, seq=64)
+    mesh = make_mesh({"data": 1}, devices=jax.devices("cpu")[:1])
+    jengine, *_ = jds.initialize(
+        model=GPT2LMHeadTPU(JConfig(**dict(TINY, attn_impl="sparse",
+                                           sparsity_config=J(**skw)))),
+        model_parameters=jax.tree_util.tree_map(jax.numpy.asarray, params),
+        config=ds_config("Lamb", 1, 1.0), mesh=mesh)
+    engine, *_ = tds.initialize(
+        model=GPT2LMHead(GPT2Config(**dict(TINY, attn_impl="sparse",
+                                           sparsity_config=T(**skw)))),
+        model_parameters=params, config=ds_config("Lamb", 1, 1.0),
+        device="cpu")
+    it_j, it_t = iter(batches), iter(batches)
+    want = [float(jengine.train_batch(it_j)) for _ in range(6)]
+    got = [float(engine.train_batch(it_t)) for _ in range(6)]
+    np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL, atol=0)
+
+
 def test_stepwise_api_equals_train_batch():
     config = ds_config("Adam", 2, 1.0)
     batches = make_batches(6)

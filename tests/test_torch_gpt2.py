@@ -1,7 +1,8 @@
 """The port's GPT-2 and weight plumbing against the JAX package's: params
 carried across bit-exactly, logits on the same weights at fp32 1e-5
-(the tiny model of ``tests/unit/test_inference.py``), and the GPT-2
-injection/cast surgery."""
+(the tiny model of ``tests/unit/test_inference.py``), the GPT-2
+injection/cast surgery, and the training loss and gradients with the
+dense and the block-sparse attention core."""
 
 import importlib
 
@@ -186,6 +187,70 @@ def test_training_loss_and_all_grads_match_jax(jax_model_and_params, labels):
                                    err_msg=path)
 
 
+def test_sparse_training_loss_and_all_grads_match_jax():
+    """A 2-layer GPT-2 with ``attn_impl="sparse"`` and a Fixed
+    unidirectional layout (block 16, seq 64), dropout off, fp32: the loss
+    at 2e-5 and every gradient at 5e-4 against ``jax.value_and_grad`` of
+    ``GPT2LMHeadTPU.apply``."""
+    from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig as J
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        FixedSparsityConfig as T
+
+    skw = dict(num_heads=4, block=16, num_local_blocks=2,
+               num_global_blocks=1, attention="unidirectional")
+    jmodel = GPT2LMHeadTPU(JConfig(**dict(TINY, attn_impl="sparse",
+                                          sparsity_config=J(**skw))))
+    params = np_tree(jmodel.init(jax.random.PRNGKey(1)))
+    ids = np.random.RandomState(6).randint(0, 256, size=(2, 64))
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodel.apply(p, {"input_ids": jnp.asarray(ids, jnp.int32)},
+                               rng=None, train=True))(
+            jax.tree_util.tree_map(jnp.asarray, params))
+    tp = torch_params(params)
+    model = GPT2LMHead(GPT2Config(**dict(TINY, attn_impl="sparse",
+                                         sparsity_config=T(**skw))))
+    loss = model.apply(tp, {"input_ids": torch.from_numpy(ids)}, rng=None,
+                       train=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=2e-5,
+                               rtol=2e-5)
+    want = dict(leaves(np_tree(jgrads)))
+    got = dict(grad_leaves(tp))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        np.testing.assert_allclose(g, want[path], atol=5e-4, rtol=5e-4,
+                                   err_msg=path)
+    # sparse and dense attention differ on these inputs
+    dense = GPT2LMHead(GPT2Config(**TINY)).apply(
+        params_from_numpy(params, "cpu"), {"input_ids": torch.from_numpy(ids)},
+        rng=None, train=True)
+    assert abs(float(dense) - float(loss.detach())) > 1e-6
+
+
+def test_4096_positions_size_wpe_and_carry_across():
+    """``max_position_embeddings=4096`` sizes ``wpe`` in both packages'
+    trees; a JAX tree with the long table drops into the port, and a
+    sequence past 1024 tokens reads its rows."""
+    kw = dict(TINY, max_position_embeddings=4096, num_layers=1)
+    ours = random_params(GPT2Config(**kw), seed=0)
+    theirs = np_tree(GPT2LMHeadTPU(JConfig(**kw)).init(jax.random.PRNGKey(0)))
+    assert ours["wpe"].shape == theirs["wpe"].shape == (4096, 64)
+    assert [(p, x.shape) for p, x in leaves(ours)] == \
+        [(p, x.shape) for p, x in leaves(theirs)]
+    medium = GPT2Config.gpt2_medium(max_position_embeddings=4096)
+    assert (medium.max_position_embeddings, medium.hidden_size,
+            medium.num_layers) == (4096, 1024, 24)
+    tp = params_from_numpy(theirs, "cpu")
+    model = GPT2LMHead(GPT2Config(**kw))
+    ids = np.random.RandomState(7).randint(0, 256, size=(1, 1040))
+    hidden = model.hidden(tp, torch.from_numpy(ids))
+    assert hidden.shape == (1, 1040, 64) and bool(torch.isfinite(hidden).all())
+    moved = dict(tp, wpe=tp["wpe"].clone())
+    moved["wpe"][1030:] += 1.0
+    assert not torch.equal(model.hidden(moved, torch.from_numpy(ids))[:, 1030:],
+                           hidden[:, 1030:])
+
+
 def test_eval_apply_without_labels_returns_logits(jax_model_and_params):
     jmodel, params = jax_model_and_params
     ids = np.random.RandomState(4).randint(0, 256, size=(1, 9))
@@ -199,7 +264,7 @@ def test_eval_apply_without_labels_returns_logits(jax_model_and_params):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("remat", True, "A7"), ("loss_chunk", 8, "A3"), ("moe_experts", 4, "A10"),
-    ("attn_impl", "ring", "A10"), ("attn_impl", "sparse", "A11"),
+    ("attn_impl", "ring", "A10"), ("normalize_invertible", True, "A7"),
     ("gelu_checkpoint", True, "A7")])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, value, item):
     with pytest.raises(NotImplementedError, match=item):

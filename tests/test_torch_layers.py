@@ -1,7 +1,8 @@
 """The port's layer math and dense attention against the JAX package's,
 on the same numpy inputs, fp32 at 1e-6 (the same ops in the same
 dtype; only the summation order differs); ``TransformerLayer`` forward
-and every gradient at the flash tests' 2e-5 / 5e-4; the dropouts by
+and every gradient at the flash tests' 2e-5 / 5e-4, with the dense and
+the block-sparse attention core; the dropouts by
 rate and unbiasedness (torch generators and ``jax.random`` draw
 different bits)."""
 
@@ -198,6 +199,162 @@ def test_transformer_layer_forward_and_grads_match_jax(pre_ln, causal,
     for path, t in flat_items(tp):
         np.testing.assert_allclose(t.grad.numpy(), want[path], atol=5e-4,
                                    rtol=5e-4, err_msg=path)
+
+
+def sparse_configs(heads, attention):
+    kw = dict(num_heads=heads, block=16, num_local_blocks=2,
+              num_global_blocks=1, attention=attention)
+    from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig as J
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        FixedSparsityConfig as T
+    return J(**kw), T(**kw)
+
+
+@pytest.mark.parametrize("attention,causal,masked", [
+    ("unidirectional", True, False), ("bidirectional", False, False),
+    ("bidirectional", False, True), ("unidirectional", False, True)],
+    ids=["gpt_uni", "bert_bi", "bert_bi_kv_mask", "uni_kv_mask"])
+def test_sparse_transformer_layer_forward_and_grads_match_jax(attention,
+                                                              causal, masked):
+    """``attn_impl="sparse"``, dropout off, fp32, with and without a
+    key-padding mask (the mask takes the gather path in both packages;
+    without it the port's CPU path is the gather path too and the JAX
+    layer's, on CPU, as well): forward 2e-5, grads 5e-4."""
+    from deepspeed_tpu.models.layers import TransformerLayer as JLayer
+    from deepspeed_tpu_torch.models.layers import TransformerLayer
+
+    h, heads, b, s = 64, 4, 2, 64
+    rng = np.random.RandomState(11 + 2 * causal + 4 * masked)
+    params = layer_params(rng, h, 4 * h)
+    x, w = rand(rng, b, s, h), rand(rng, b, s, h)
+    kpm = None
+    if masked:
+        kpm = np.ones((b, s), np.float32)
+        kpm[1, 40:] = 0.0
+    jcfg, tcfg = sparse_configs(heads, attention)
+    kw = dict(hidden_size=h, heads=heads, causal=causal,
+              attn_dropout_ratio=0.0, hidden_dropout_ratio=0.0,
+              pre_layer_norm=True, layer_norm_eps=1e-5, attn_impl="sparse")
+    jlayer = JLayer(sparsity_config=jcfg, **kw)
+
+    def jloss(p, x_):
+        out = jlayer.apply(p, x_, key_padding_mask=None if kpm is None
+                           else jnp.asarray(kpm))
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(nested(params, jnp.asarray),
+                                              jnp.asarray(x))
+    tp = nested(params, lambda a: torch.from_numpy(a).requires_grad_())
+    tx = torch.from_numpy(x).requires_grad_()
+    layer = TransformerLayer(sparsity_config=tcfg, **kw)
+    out = layer.apply(tp, tx, key_padding_mask=None if kpm is None
+                      else torch.from_numpy(kpm))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=5e-4,
+                               rtol=5e-4)
+    want = dict(flat_items(nested(jgp, np.asarray)))
+    for path, t in flat_items(tp):
+        np.testing.assert_allclose(t.grad.numpy(), want[path], atol=5e-4,
+                                   rtol=5e-4, err_msg=path)
+    assert layer._sparse_layout(s) is layer._sparse_layout(s)
+    # the additive [b, 1, 1, s] mask form collapses to the same call
+    if masked:
+        add = ta.key_padding_to_additive(torch.from_numpy(kpm))
+        again = layer.apply(nested(params, torch.from_numpy),
+                            torch.from_numpy(x), mask=add[:, None, None, :])
+        assert torch.equal(again, out.detach())
+        with pytest.raises(ValueError, match="key-padding masks"):
+            layer.apply(nested(params, torch.from_numpy), torch.from_numpy(x),
+                        mask=torch.zeros(b, 1, s, s))
+
+
+class _FakeCudaTensor:
+    """Shape, dtype and device flags of a tensor, for the dispatch rule
+    (there is no card where the tests run)."""
+
+    def __init__(self, head_dim=64, dtype=torch.bfloat16, is_cuda=True):
+        self.shape = (2, 128, 4, head_dim)
+        self.dtype = dtype
+        self.is_cuda = is_cuda
+
+
+@pytest.mark.parametrize("tensor,kpm,env,want", [
+    (_FakeCudaTensor(), False, None, "kernel"),
+    (_FakeCudaTensor(128, torch.float32), False, "auto", "kernel"),
+    (_FakeCudaTensor(), True, None, "gather"),
+    (_FakeCudaTensor(), False, "never", "gather"),
+    (_FakeCudaTensor(head_dim=32), False, None, "raises"),
+    (_FakeCudaTensor(dtype=torch.float16), False, None, "raises"),
+    (_FakeCudaTensor(head_dim=32), False, "never", "gather"),
+    (_FakeCudaTensor(head_dim=32), True, None, "gather"),
+    (_FakeCudaTensor(is_cuda=False), False, None, "gather")],
+    ids=["card", "card_d128_fp32", "key_padding", "env_never", "head_dim_32",
+         "fp16", "head_dim_32_env_never", "head_dim_32_key_padding", "cpu"])
+def test_sparse_core_dispatch(monkeypatch, caplog, tensor, kpm, env, want):
+    """The JAX layer's rule in the port's terms: the gather path takes a
+    call with a key-padding mask or on the CPU; any other call is the
+    kernels', which launch or raise (a type or head_dim they do not
+    take), unless ``DS_SPARSE_FLASH=never`` (read at call time) diverts
+    it to the gather path, with one warning."""
+    if env is None:
+        monkeypatch.delenv("DS_SPARSE_FLASH", raising=False)
+    else:
+        monkeypatch.setenv("DS_SPARSE_FLASH", env)
+    if want == "raises":
+        with pytest.raises(NotImplementedError, match="DS_SPARSE_FLASH"):
+            tl.sparse_core(tensor, kpm)
+        return
+    tl._log_gather_once.cache_clear()
+    with caplog.at_level("WARNING", logger=tl.logger.name):
+        assert tl.sparse_core(tensor, kpm) == want
+        assert tl.sparse_core(tensor, kpm) == want
+    diverted = env == "never" and not kpm
+    assert len(caplog.records) == (1 if diverted else 0)
+
+
+def test_sparse_layer_needs_a_config_and_ring_still_raises():
+    from deepspeed_tpu_torch.models.layers import TransformerLayer
+
+    with pytest.raises(ValueError, match="SparsityConfig"):
+        TransformerLayer(64, 4, attn_impl="sparse")
+    with pytest.raises(NotImplementedError, match="A10"):
+        TransformerLayer(64, 4, attn_impl="ring")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        TransformerLayer(64, 4, attn_impl="flash")
+
+
+def test_sparse_attention_dropout_is_applied_to_the_context():
+    """The sparse cores drop nothing inside, so the layer drops the
+    context with the layer's generator, first of its three sites: the
+    kept share is the byte-mask rate, kept values are scaled, and the
+    draw order (attention, attention output, MLP) is the dense layer's."""
+    from deepspeed_tpu_torch.models.layers import TransformerLayer, generator
+
+    _, tcfg = sparse_configs(4, "unidirectional")
+    layer = TransformerLayer(64, 4, causal=True, attn_dropout_ratio=0.25,
+                             hidden_dropout_ratio=0.0, pre_layer_norm=True,
+                             attn_impl="sparse", sparsity_config=tcfg)
+    rng = np.random.RandomState(12)
+    params = nested(layer_params(rng, 64, 256), torch.from_numpy)
+    y = torch.from_numpy(rand(rng, 2, 64, 64))
+    plain = layer.attention_core(params, y)
+    dropped = layer.attention_core(params, y, attn_rng=generator(1, 0, "cpu"),
+                                   deterministic=False)
+    kept = dropped != 0
+    assert abs(float(kept.float().mean()) - 0.75) < 0.03
+    np.testing.assert_allclose(dropped[kept].numpy(),
+                               (plain[kept] * (256 / 192)).numpy(), rtol=1e-6)
+    same = layer.attention_core(params, y, attn_rng=generator(1, 0, "cpu"),
+                                deterministic=True)
+    assert torch.equal(same, plain)
+    # the context's draw is the generator's first
+    g = generator(1, 0, "cpu")
+    first = torch.randint(0, 256, (2, 64, 4, 16), dtype=torch.uint8,
+                          generator=g)
+    assert torch.equal(first.reshape(2, 64, 64) >= 64, kept)
 
 
 @pytest.mark.parametrize("ignored", [0, 7])

@@ -49,6 +49,46 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_sparse_subpackage_imports_with_jax_blocked():
+    """``deepspeed_tpu_torch.ops.sparse_attention`` and the layer that
+    uses it import, and run one block-sparse call, in an interpreter
+    where importing ``jax``, ``jaxlib`` or ``deepspeed_tpu`` raises."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deepspeed_tpu')]:\n"
+        "    del sys.modules[m]\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention as sa\n"
+        "import deepspeed_tpu_torch.models.layers\n"
+        "names = ['BertSparseSelfAttention', 'SparseSelfAttention', "
+        "'SparseAttentionUtils', 'FixedSparsityConfig', "
+        "'build_sparsity_config', 'build_block_luts', "
+        "'flash_block_sparse_attention', 'block_sparse_attention', "
+        "'layout_gather_indices']\n"
+        "assert all(hasattr(sa, n) for n in names)\n"
+        "lay = sa.FixedSparsityConfig(num_heads=2, block=16)"
+        ".make_layout(64)\n"
+        "q = torch.ones(1, 64, 2, 8)\n"
+        "out = sa.flash_block_sparse_attention(q, q, q, lay, "
+        "q_agg='never')\n"
+        "assert out.shape == q.shape\n"
+        "try:\n"
+        "    import jax\n"
+        "except ImportError:\n"
+        "    sys.exit(0)\n"
+        "sys.exit(2)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_importing_the_port_loads_no_jax():
     """Every module of the port, ``runtime.engine`` among them."""
     assert "deepspeed_tpu_torch.runtime.engine" in PORT_MODULES
