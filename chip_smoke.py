@@ -12,9 +12,10 @@ at full width through the port's ``InferenceEngine``, checks greedy
 tokens on the card against a CPU serve of the same weights, trains
 GPT-2-medium at full width and depth through ``initialize`` and
 ``train_batch``, checks a short training run on the card against the
-CPU, and does the same two things again at seq 4096 with block-sparse
-attention.  Phases, in order; any failure raises, so the script exits
-non-zero:
+CPU, does the same two things again at seq 4096 with block-sparse
+attention, and then pretrains BERT-large, dense at seq 128 and
+block-sparse at seq 4096 through the super-tile kernels.  Phases, in
+order; any failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
               build (one nvcc per source, all started together);
@@ -35,9 +36,11 @@ non-zero:
               runs bitwise equal; B4's mask read back from B1 equal to
               the plain version's with a binomial keep rate; B1+B4, B2a
               and B2b again at GPT-2-medium's training attention (b=8,
-              s=1024, bf16, dropout 0.1), and B3 at the train-parity
-              phase's; device times at the training attention beside
-              the plain version's, SDPA's backward and the bound;
+              s=1024, bf16, dropout 0.1), B3 at the train-parity phase's,
+              and B1+B3 at the BERT train phase's (b=64, s=128, and its
+              last layer's 21 gathered rows against 128 keys); device
+              times at the training attentions beside the plain
+              version's, SDPA's backward and the bound;
 4. serve    — GPT-2-medium, bf16, random weights from a fixed numpy seed,
               16 staggered requests; every request gets its 32 tokens and
               B1 runs once per layer per prefill;
@@ -54,32 +57,56 @@ non-zero:
 8. sparse kernel — B5a and B5b (block-sparse flash forward and backward)
               vs ``flash_block_sparse_reference`` and
               ``flash_block_sparse_bwd_reference``, fp32 (TF32 off) and
-              bf16, on fused-QKV views: the train layout (Fixed
-              unidirectional, 256-row blocks, seq 4096) and the
-              parity phase's (256-row blocks, seq 1024), the same
-              pattern in 128-row blocks, BigBird with
-              64-row blocks and with 512-row blocks at seq 16384, a
-              random per-head layout with empty rows (exactly zero out
-              and dq), 16- and 24-row blocks, d=128, causal and not;
-              two runs bitwise equal; device
-              times at the sparse training attention (b=2, h=16, s=4096,
-              d=64, bf16) beside the plain versions', SDPA's with the
-              layout as a boolean mask and the bound, and dense B1 and
-              B2a+B2b at the same shape;
-9. sparse train — GPT-2-medium with ``attn_impl="sparse"`` and that
-              Fixed unidirectional layout, 4096 positions, seq 4096,
+              bf16, on fused-QKV views, over ten layouts; two runs
+              bitwise equal; device times at the sparse training
+              attention (b=2, h=16, s=4096, d=64, bf16) beside the plain
+              versions', SDPA's with the layout as a boolean mask and
+              the bound, and dense B1 and B2a+B2b at the same shape; and
+              "auto" at 128- and 16-row blocks and q_agg=2 at 256 launch
+              B6, not B5;
+9. sparse train — GPT-2-medium with ``attn_impl="sparse"`` (Fixed
+              unidirectional, 256-row blocks), 4096 positions, seq 4096,
               micro-batch 2, dropout 0.1, Lamb, ZeRO-2, bf16: 2 warm-up
               and 3 timed steps; finite, falling losses, one B5a and one
-              B5b launch per layer per step and no dense flash launch;
+              B5b launch per layer per step and no other;
 10. sparse train parity — 2 layers at GPT-2-medium width, fp32, seq 1024,
               256-row blocks, dropout 0: 3 steps on the card (B5a, B5b)
-              and on the CPU (the gather path) agree to rtol 1e-3.
+              and on the CPU (the gather path) agree to rtol 1e-3;
+11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels) vs
+              ``flash_block_sparse_agg_reference`` and
+              ``flash_block_sparse_agg_bwd_reference`` and vs B5 on the
+              same inputs, fp32 (TF32 off) and bf16, fused-QKV views:
+              the BERT train and parity layouts, BigBird at blk 64,
+              Fixed at blk 16, blk 24 at G=3, blk 256 at G=2, a per-head
+              layout with an empty super-row (out and dq exactly 0, lse
+              NEG_INF) and an empty row inside an active one (lse
+              MAX_FLOOR), d=128, causal and not; two runs bitwise equal;
+              device times at the BERT sparse attention (b=2, h=16,
+              s=4096, d=64, bf16) beside the plain versions', SDPA's
+              with the layout as a boolean mask, the bound, and B6
+              against B5 at 128-, 64- and 16-row blocks;
+12. bert train — BERT-large (24 layers, hidden 1024, 16 heads, vocab
+              30528), seq 128, micro-batch 64, attention mask of ones,
+              MLM gather of 20 + NSP, dropout 0.1, Lamb, ZeRO-2, bf16: 2
+              warm-up and 5 timed steps; finite, falling losses, B1 and
+              one backward (B3, or B2a+B2b) per layer per step; step ms,
+              samples/s, MFU, peak memory;
+13. bert sparse train — the same model with 4096 positions and
+              ``attn_impl="sparse"`` (Fixed bidirectional, 128-row
+              blocks: G = 4), seq 4096, micro-batch 2, no attention mask,
+              MLM 640 + NSP: 2 warm-up and 3 timed steps; finite, falling
+              losses, exactly one B6a, B6b and B6c per layer per step and
+              no other kernel; tokens/s, peak memory;
+14. bert parity — 2 layers at BERT-large width, fp32, dropout 0: dense
+              at seq 128 with padding and the MLM gather (B1, B3), and
+              sparse at seq 1024 in 128-row blocks (B6 on the card, the
+              gather path on the CPU); 3 steps on the card and on the CPU
+              agree to rtol 1e-3.
 
-Phases 9 and 10 go through the layer, whose ``q_agg="auto"`` follows the
-JAX package: at 256-row layout blocks that is G = 1, the work-list
-kernels B5a/B5b replace.  At blocks of up to 128 rows the JAX package
-runs its super-tile kernels (B6), which are not ported yet, and the
-port's layer raises there; phase 8 checks that too.
+Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
+follows the JAX package: G = 1 at 256-row layout blocks (the work-list
+kernels B5a/B5b replace) and G = 4 at 128 (the super-tile kernels B6a,
+B6b, B6c replace).
 
 Then one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.  With ``--out PATH``
@@ -102,6 +129,8 @@ import torch.nn.functional as F
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import InferenceEngine
+from deepspeed_tpu_torch.models.bert import BertConfig, BertForPreTraining
+from deepspeed_tpu_torch.models.bert import random_params as bert_params
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
 from deepspeed_tpu_torch.ops import op_builder
@@ -146,6 +175,24 @@ PARITY_SEQ = 1024
 SPARSE_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention/" \
     "flash_block_sparse.cu"
 SPARSE_REF = "deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py"
+AGG_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention/" \
+    "flash_block_sparse_agg.cu"
+# BERT-large pretraining, bench.py's headline leg (bench.py:249-347):
+# seq 128, bing_bert's max_predictions_per_seq 20 (bench.py:291), the
+# vocab padded to 30528; micro-batch 64 (8192 tokens, as the other train
+# phases)
+BERT_SEQ, BERT_BATCH, BERT_PRED, BERT_VOCAB = 128, 64, 20, 30528
+# the sparse BERT phase: seq 4096, micro-batch 2 (8192 tokens), the
+# bing_bert 20/128 label ratio, and the reference tutorial's Fixed BERT
+# layout with its block moved from 16 to 128 rows, where the JAX layer's
+# q_agg="auto" takes G = 4 and runs the super-tile kernels B6
+BERT_SPARSE_PRED = 640
+BERT_SPARSE_LAYOUT = dict(num_heads=16, block=128,
+                          different_layout_per_head=True,
+                          num_local_blocks=4, num_global_blocks=1,
+                          attention="bidirectional",
+                          num_different_global_patterns=4)
+BERT_PARITY_SEQ = 1024
 # ~10 ms of spinning at the H100's clock, doubled where the host needs
 # longer to queue a timed run
 SPIN_CYCLES = 20_000_000
@@ -615,6 +662,67 @@ def time_backward(card, results, max_err):
     return timings
 
 
+def check_b3_bert_scale(card, results, max_err):
+    """B1 and B3 at the BERT train phase's attention (b=64, h=16, s=128,
+    d=64, bf16, not causal, a key mask of ones, dropout 0.1), and at its
+    last layer's gathered queries (21 rows against 128 keys), against
+    their plain versions with the same Philox mask; B3's device time at
+    the first shape beside its plain version, SDPA's backward and the
+    bound."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    b, h, d = BERT_BATCH, 16, 64
+    mask = torch.ones(b, BERT_SEQ, device=DEVICE)
+    seed = seed_words(SEED + 8)
+    errs, row = {}, {}
+    for label, s in (("s128", BERT_SEQ), ("gathered_s21", BERT_PRED + 1)):
+        q = torch.randn(b, s, h, d, generator=g).to(DEVICE, torch.bfloat16)
+        k, v = (torch.randn(b, BERT_SEQ, h, d, generator=g)
+                .to(DEVICE, torch.bfloat16) for _ in range(2))
+        dout = torch.randn(b, s, h, d, generator=g).to(DEVICE,
+                                                       torch.bfloat16)
+        check(fa.use_fused_backward(d, s, BERT_SEQ),
+              f"B3 does not take s={s} kv_len={BERT_SEQ}")
+        out, lse, *grads = kernel_chain(q, k, v, dout, mask, False, DROPOUT,
+                                        seed, True)
+        keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
+        ref_out, _ = flash_attention_reference(q, k, v, mask, False, keep,
+                                               inv_keep)
+        ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
+                                            False, keep, inv_keep)
+        tol, gtol = TOLS[torch.bfloat16], GRAD_TOLS[torch.bfloat16]
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                                   rtol=tol)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            torch.testing.assert_close(got.float(), want.float(), atol=gtol,
+                                       rtol=gtol, msg=lambda m: f"B3 bert "
+                                       f"{label} {name}: {m}")
+            errs[f"{label}_{name}"] = float((got.float() - want.float())
+                                            .abs().max())
+        if label == "s128":
+            args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = dout.transpose(1, 2)
+            bound, by = backward_bound("fused", q, k, mask, False)
+            row = {"kernel_ms": device_ms(
+                       lambda: flash_attention_bwd_fused(*args)),
+                   "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
+                       q, k, v, out, lse, dout, mask, False, keep, inv_keep),
+                       calls=2, repeats=5),
+                   "library_ms": device_ms(lambda: torch.autograd.grad(
+                       o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
+                   "bound_ms": bound, "bound_by": by}
+    max_err["b3"] = max(max_err["b3"], *errs.values())
+    max_err["dropout"] = max(max_err["dropout"], *errs.values())
+    print(f"backward B3 at BERT scale (b=64 h=16 d=64 bf16, key mask, "
+          f"dropout 0.1; s=128 and the gathered 21 rows against 128 keys): "
+          f"max |grad-plain| {max(errs.values()):.3g}; " + " ".join(
+              f"{key}={val:.5f}" if isinstance(val, float) else
+              f"{key}={val}" for key, val in row.items()) + f" [{card}]")
+    results["b3_bert"] = dict(row, errors=errs)
+
+
 def phase_backward(card, results):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -644,7 +752,9 @@ def phase_backward(card, results):
                     max_err["dropout"] = max(max_err["dropout"], err)
             results["backward"].append(row)
     check_keep_mask(card, results)
-    return max_err, time_backward(card, results, max_err)
+    timings = time_backward(card, results, max_err)
+    check_b3_bert_scale(card, results, max_err)
+    return max_err, timings
 
 
 # ------------------------------------------------------------------- serve
@@ -746,7 +856,10 @@ KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
                    "B3": flash_attention_bwd_fused,
                    "B4": fa.in_kernel_dropout,
                    "B5a": fbs.flash_block_sparse_fwd,
-                   "B5b": fbs.flash_block_sparse_bwd}
+                   "B5b": fbs.flash_block_sparse_bwd,
+                   "B6a": fbs.flash_block_sparse_agg_fwd,
+                   "B6b": fbs.flash_block_sparse_agg_bwd_dq,
+                   "B6c": fbs.flash_block_sparse_agg_bwd_dkv}
 
 
 def reset_launches():
@@ -825,9 +938,8 @@ def phase_train(card, results):
     losses, step_s, launches = run_steps("train", engine, batch, 2, 5)
     steps, layers = 7, cfg.num_layers
     check(launches["B1"] == launches["B2a"] == launches["B2b"]
-          == layers * steps and launches["B3"] == 0
-          and launches["B4"] == 3 * layers * steps
-          and launches["B5a"] == launches["B5b"] == 0,
+          == layers * steps and launches["B4"] == 3 * layers * steps
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
           f"train: launches {launches}, expected {layers * steps} of "
           f"B1/B2a/B2b (s={s} takes B2, not B3) and 3x that of B4")
     samples_s = b / step_s
@@ -860,22 +972,18 @@ PARITY_CONFIG = {
                              "warmup_num_steps": 3}}}
 
 
-def card_vs_cpu(label, cfg, seq, seed):
+def card_vs_cpu(label, make_model, params, batches):
     """3 steps of ``PARITY_CONFIG`` (micro-batch 2, accumulation 2,
-    clipping 1.0, Adam under WarmupLR) of ``cfg``'s model in fp32 with
-    TF32 off, on the card and on the CPU from the same weights and
-    batches: the loss trajectories must agree to rtol 1e-3.  Returns
-    ``(card losses, cpu losses, the card run's launches)``."""
+    clipping 1.0, Adam under WarmupLR) of ``make_model()`` in fp32 with
+    TF32 off, on the card and on the CPU from the same weights and the
+    same 6 batches: the loss trajectories must agree to rtol 1e-3.
+    Returns ``(card losses, cpu losses, the card run's launches)``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = random_params(cfg, SEED)
-    rng = np.random.default_rng(seed)
-    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(2, seq))}
-               for _ in range(6)]
     trajectories, launches = {}, None
     for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
         engine, *_ = deepspeed_tpu_torch.initialize(
-            model=GPT2LMHead(cfg), model_parameters=params,
+            model=make_model(), model_parameters=params,
             config=dict(PARITY_CONFIG), device=device)
         if where == "card":
             torch.cuda.synchronize()
@@ -893,10 +1001,20 @@ def card_vs_cpu(label, cfg, seq, seed):
     return card, cpu, launches
 
 
-def only_launched(launches, names, expected):
-    """Whether every kernel of ``names`` launched ``expected`` times and
-    no other kernel launched at all."""
-    return all(n == (expected if name in names else 0)
+def gpt2_parity_run(label, cfg, seq, seed):
+    """:func:`card_vs_cpu` of GPT-2 ``cfg`` on random token ids."""
+    rng = np.random.default_rng(seed)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(2, seq))}
+               for _ in range(6)]
+    return card_vs_cpu(label, lambda: GPT2LMHead(cfg),
+                       random_params(cfg, SEED), batches)
+
+
+def only_launched(launches, names, expected=None):
+    """Whether no kernel outside ``names`` launched and, unless
+    ``expected`` is None, each of ``names`` launched ``expected``
+    times."""
+    return all(n == 0 if name not in names else expected in (None, n)
                for name, n in launches.items())
 
 
@@ -905,7 +1023,7 @@ def phase_train_parity(results):
     width, dropout 0, seq 128.  At seq 128 the backward takes B3."""
     cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
                      embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
-    card, cpu, launches = card_vs_cpu("train parity", cfg, 128, SEED + 2)
+    card, cpu, launches = gpt2_parity_run("train parity", cfg, 128, SEED + 2)
     expected = cfg.num_layers * 2 * 3
     check(only_launched(launches, ("B1", "B3"), expected),
           f"train parity: launches {launches}, expected {expected} of B1 "
@@ -937,17 +1055,18 @@ def sparse_pairs(layout, s, heads, causal):
 
 
 def sparse_bound(kind, q, layout, causal):
-    """The bound of one B5a ("fwd") or B5b ("bwd") call: q, k, v (and dO,
-    lse, Δ) read once, out and lse (or dq, dk, dv) written once, against
-    4·d (forward) or 10·d (backward) flops per visible pair of the
-    active tiles."""
+    """The bound of one block-sparse call over ``layout``'s visible
+    pairs: "fwd" (B5a, B6a) reads q, k, v and writes out and lse, 4·d
+    flops a pair; "bwd" (B5b) reads q, k, v, dO, lse, Δ and writes dq,
+    dk, dv, 10·d; "dq" (B6b) writes dq, 6·d; "dkv" (B6c) writes dk and
+    dv, 8·d."""
     b, s, h, d = q.shape
     tensor = b * s * h * d * q.element_size()
     rows = b * h * s * 4
-    nbytes, per_pair = ((4 * tensor + rows, 4) if kind == "fwd"
-                        else (7 * tensor + 2 * rows, 10))
-    return bound_ms(nbytes, per_pair * d * b * sparse_pairs(layout, s, h,
-                                                            causal),
+    n_tensors, n_rows, per_pair = {"fwd": (4, 1, 4), "bwd": (7, 2, 10),
+                                   "dq": (5, 2, 6), "dkv": (6, 2, 8)}[kind]
+    return bound_ms(n_tensors * tensor + n_rows * rows,
+                    per_pair * d * b * sparse_pairs(layout, s, h, causal),
                     q.dtype)
 
 
@@ -1056,29 +1175,33 @@ def phase_sparse_kernel(card, results):
                   f"{errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g}"
                   f", bitwise-repeatable ok")
     results["sparse_kernel"] = rows
-    check_aggregation_raises()
+    check_aggregation_launches_b6()
     return max_err, time_sparse(card, results)
 
 
-def check_aggregation_raises():
+def check_aggregation_launches_b6():
     """Where the JAX package runs its G×G super-tile kernels ("auto" at
-    layout blocks of up to 128 rows, or an explicit factor), the entry
-    point raises and launches nothing: B5 never stands in for them."""
-    q = torch.zeros(1, 1024, 2, 64, device=DEVICE)
-    before = read_launches()
+    layout blocks of up to 128 rows, or an explicit factor), a forward
+    and backward through the entry point launches B6a, B6b and B6c once
+    each and no other kernel: B5 never stands in for them."""
+    g = torch.Generator().manual_seed(SEED + 700)
     for blk, q_agg in ((128, "auto"), (16, "auto"), (256, 2)):
         layout = np.tril(np.ones((1, 1024 // blk, 1024 // blk), np.int64))
-        try:
-            fbs.flash_block_sparse_attention(q, q, q, layout, causal=True,
-                                             q_agg=q_agg)
-        except NotImplementedError as e:
-            check("B6" in str(e), f"blk {blk} q_agg {q_agg}: {e}")
-        else:
-            check(False, f"blk {blk} q_agg={q_agg!r} ran, where the JAX "
-                         f"package runs super-tile kernels")
-    check(read_launches() == before, "a refused call launched a kernel")
+        q = torch.randn(1, 1024, 2, 64, generator=g).to(DEVICE) \
+            .requires_grad_()
+        torch.cuda.synchronize()
+        before = read_launches()
+        out = fbs.flash_block_sparse_attention(q, q, q, layout, causal=True,
+                                               q_agg=q_agg)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        delta = {k: n - before[k] for k, n in read_launches().items()}
+        check(only_launched(delta, ("B6a", "B6b", "B6c"), 1),
+              f"blk {blk} q_agg={q_agg!r}: launches {delta}, expected one "
+              f"each of B6a, B6b, B6c and nothing else")
+        check(bool(torch.isfinite(q.grad).all()), f"blk {blk}: grads")
     print("sparse kernel: q_agg='auto' at blk 128 and 16 and q_agg=2 at blk "
-          "256 raise, naming B6; nothing launched")
+          "256 launch B6a, B6b and B6c once each and no B5")
 
 
 def time_sparse(card, results):
@@ -1209,8 +1332,8 @@ def phase_sparse_parity(results):
         hidden_size=1024, num_heads=16, num_layers=2, embd_dropout=0.0,
         attn_dropout=0.0, resid_dropout=0.0, attn_impl="sparse",
         sparsity_config=FixedSparsityConfig(**PARITY_LAYOUT))
-    card, cpu, launches = card_vs_cpu("sparse train parity", cfg, PARITY_SEQ,
-                                      SEED + 3)
+    card, cpu, launches = gpt2_parity_run("sparse train parity", cfg,
+                                          PARITY_SEQ, SEED + 3)
     expected = cfg.num_layers * 2 * 3
     check(only_launched(launches, ("B5a", "B5b"), expected),
           f"sparse train parity: launches {launches}, expected {expected} "
@@ -1223,6 +1346,429 @@ def phase_sparse_parity(results):
     results["sparse_train_parity"] = {"card": card, "cpu": cpu,
                                       "launches": launches}
     return launches
+
+
+# -------------------------------------------------------------- super-tile
+def agg_cases():
+    """(label, layout, b, h, s, d, G, causal); q, k, v are fused-QKV views.
+    ``per_head``: head 1's super-row 1 (layout rows 4-7 at G = 4) has no
+    active tile, so its rows get out 0, dq 0 and lse NEG_INF; head 2's
+    layout row 9 has none inside an active super-row, so its lse is
+    MAX_FLOOR."""
+    random.seed(SEED)
+    rs = np.random.RandomState(SEED + 1)
+    per_head = (rs.rand(8, 16, 16) < 0.3).astype(np.int64)
+    per_head[:, :, 0] = 1
+    per_head[1, 4:8] = 0
+    per_head[2, 9] = 0
+    b, h, s, d = SPARSE_ATTN
+    return [
+        ("bert_train_layout", FixedSparsityConfig(**BERT_SPARSE_LAYOUT)
+         .make_layout(s), b, h, s, d, 4, False),
+        ("bert_parity_layout", FixedSparsityConfig(**BERT_SPARSE_LAYOUT)
+         .make_layout(BERT_PARITY_SEQ), 2, h, BERT_PARITY_SEQ, d, 4, False),
+        ("bigbird_blk64", BigBirdSparsityConfig(
+            num_heads=8, block=64, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1)
+            .make_layout(2048)[:1], 1, 8, 2048, 64, 4, False),
+        ("fixed_blk16", FixedSparsityConfig(
+            num_heads=8, block=16, num_local_blocks=4,
+            attention="bidirectional").make_layout(1024)[:1],
+         2, 8, 1024, 64, 4, False),
+        ("blk24_q_agg3_causal", np.tril(np.ones((1, 6, 6), np.int64)),
+         1, 4, 144, 64, 3, True),
+        ("blk256_q_agg2_causal", np.tril(np.ones((1, 4, 4), np.int64)),
+         1, 4, 1024, 64, 2, True),
+        ("per_head_empty_causal", per_head, 2, 8, 256, 64, 4, True),
+        ("per_head_empty", per_head, 2, 8, 256, 64, 4, False),
+        ("d128_causal", per_head, 1, 8, 512, 128, 4, True),
+    ]
+
+
+def agg_chain(q, k, v, dout, layout, G, causal):
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    return (out, lse) + tuple(fbs.flash_block_sparse_agg_bwd(
+        q, k, v, out, lse, dout, layout, G, causal))
+
+
+def check_agg_case(label, layout, G, causal, q, k, v, dout, dtype):
+    """B6a, B6b, B6c on one case: two runs bitwise equal, against the
+    plain versions (and the MAX_FLOOR and NEG_INF rows equal), and
+    against B5 on the same inputs; returns the max errors."""
+    got = agg_chain(q, k, v, dout, layout, G, causal)
+    torch.cuda.synchronize()
+    again = agg_chain(q, k, v, dout, layout, G, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          f"agg {label}: two runs are not bitwise equal")
+    out, lse, dq, dk, dv = got
+    tol, gtol = TOLS[dtype], GRAD_TOLS[dtype]
+    ref_out, ref_lse = fbs.flash_block_sparse_agg_reference(q, k, v, layout,
+                                                            G, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    for special in (fbs.MAX_FLOOR, fbs.NEG_INF):
+        check(torch.equal(lse == special, ref_lse == special),
+              f"agg {label}: the rows with lse {special} differ")
+    errs = {"out": float((out.float() - ref_out.float()).abs().max())}
+    del ref_out, ref_lse
+    ref = fbs.flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout,
+                                                   layout, G, causal)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"agg {label}: non-finite {name}")
+        torch.testing.assert_close(g.float(), r.float(), atol=gtol,
+                                   rtol=gtol, msg=lambda m: f"agg {label} "
+                                   f"{name}: {m}")
+        errs[name] = float((g.float() - r.float()).abs().max())
+    del ref
+    # B5 computes the same function on the same inputs
+    b5 = sparse_chain(q, k, v, dout, layout, causal)
+    torch.testing.assert_close(out.float(), b5[0].float(), atol=tol,
+                               rtol=tol)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), b5[2:]):
+        torch.testing.assert_close(g.float(), r.float(), atol=gtol,
+                                   rtol=gtol, msg=lambda m: f"agg {label} "
+                                   f"{name} vs B5: {m}")
+    errs["vs_b5"] = max(float((a.float() - r.float()).abs().max())
+                        for a, r in zip((out, dq, dk, dv),
+                                        (b5[0],) + tuple(b5[2:])))
+    del b5
+    if label.startswith("per_head"):
+        s, h = q.shape[1], q.shape[2]
+        blk = s // layout.shape[1]
+        lse_h = lse.view(-1, h, s)
+        rows = slice(4 * blk, 8 * blk)
+        check(not bool(out[:, rows, 1].any()) and not bool(dq[:, rows, 1]
+                                                            .any())
+              and bool((lse_h[:, 1, rows] == fbs.NEG_INF).all()),
+              f"agg {label}: the empty super-row is not out 0, dq 0, lse "
+              f"NEG_INF")
+        check(bool((lse_h[:, 2, 9 * blk:10 * blk] == fbs.MAX_FLOOR).all()),
+              f"agg {label}: the empty row of an active super-row has not "
+              f"lse MAX_FLOOR")
+    return errs
+
+
+def phase_agg_kernel(card, results):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("agg kernel: B6a out/lse to fp32 2e-5, bf16 2e-2 (MAX_FLOOR and "
+          "NEG_INF rows equal); B6b, B6c grads to 5e-4 / 1e-2 from the "
+          "kernel's own out and lse; and against B5 at the same bounds")
+    max_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rows = []
+    for i, (label, layout, b, h, s, d, G, causal) in enumerate(agg_cases()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, _ = make_case(b, h, s, s, d, "none", True, dtype,
+                                   SEED + 800 + i)
+            dout = torch.randn(b, s, h, d, generator=torch.Generator()
+                               .manual_seed(SEED + 900 + i)).to(DEVICE, dtype)
+            errs = check_agg_case(label, layout, G, causal, q, k, v, dout,
+                                  dtype)
+            max_err["fwd"] = max(max_err["fwd"], errs["out"])
+            max_err["dq"] = max(max_err["dq"], errs["dq"])
+            max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
+            rows.append(dict(errs, case=label, dtype=str(dtype).split(".")[-1],
+                             b=b, h=h, s=s, d=d, G=G, causal=causal,
+                             block=s // layout.shape[1],
+                             layout_heads=int(layout.shape[0])))
+            print(f"agg kernel {label} {rows[-1]['dtype']} (blk "
+                  f"{rows[-1]['block']}, G={G}, H={layout.shape[0]}): max "
+                  f"|out-plain| {errs['out']:.3g}, |grad-plain| dq "
+                  f"{errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g}"
+                  f", vs B5 {errs['vs_b5']:.3g}, bitwise-repeatable ok")
+    results["agg_kernel"] = rows
+    return max_err, time_agg(card, results)
+
+
+def time_agg(card, results):
+    """Device times at the BERT sparse attention (b=2, h=16, s=4096,
+    d=64, bf16, fused-QKV views, the train layout, not causal): B6a, B6b
+    and B6c beside their plain versions, SDPA with the layout expanded to
+    a boolean mask (forward, and its whole backward; a yardstick the port
+    never calls), the bound, and B5a/B5b on the same layout; then B6
+    against B5 on the same layout in 16- and 64-row blocks."""
+    b, h, s, d = SPARSE_ATTN
+    layout = FixedSparsityConfig(**BERT_SPARSE_LAYOUT).make_layout(s)
+    G = 4
+    q, k, v, _ = make_case(b, h, s, s, d, "none", True, torch.bfloat16,
+                           SEED + 1000)
+    dout = torch.randn(b, s, h, d, generator=torch.Generator()
+                       .manual_seed(SEED + 1001)).to(DEVICE, torch.bfloat16)
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G)
+    delta = fbs._delta(out, dout)
+    visible, _ = fbs.expand_layout(layout, s, False, DEVICE)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible)
+    dot = dout.transpose(1, 2)
+    sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=visible), calls=2, repeats=5, warmup=1)
+    sdpa_bwd = device_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True), calls=2, repeats=5,
+        warmup=1)
+    del o_sdpa
+    plain_bwd = device_ms(lambda: fbs.flash_block_sparse_agg_bwd_reference(
+        q, k, v, out, lse, dout, layout, G), calls=1, repeats=3, warmup=1)
+    timings = {}
+    for kind, kernel, plain, library in (
+            ("fwd", lambda: fbs.flash_block_sparse_agg_fwd(q, k, v, layout,
+                                                           G),
+             device_ms(lambda: fbs.flash_block_sparse_agg_reference(
+                 q, k, v, layout, G), calls=1, repeats=3, warmup=1),
+             sdpa_fwd),
+            ("dq", lambda: fbs.flash_block_sparse_agg_bwd_dq(
+                q, k, v, out, lse, dout, layout, G, False, delta),
+             plain_bwd, sdpa_bwd),
+            ("dkv", lambda: fbs.flash_block_sparse_agg_bwd_dkv(
+                q, k, v, out, lse, dout, layout, G, False, delta),
+             plain_bwd, sdpa_bwd)):
+        bound, by = sparse_bound(kind, q, layout, False)
+        timings[kind] = {"kernel_ms": device_ms(kernel), "plain_ms": plain,
+                         "library_ms": library, "bound_ms": bound,
+                         "bound_by": by}
+        print(f"agg timing {kind} (b={b} h={h} s={s} d={d} bf16, fused QKV "
+              f"views, Fixed bidirectional blk 128, G=4): " + " ".join(
+                  f"{key}={val:.5f}" if isinstance(val, float) else
+                  f"{key}={val}" for key, val in timings[kind].items())
+              + f" [{card}]")
+    del visible
+    versus = {}
+    for blk in (128, 64, 16):
+        lay = (layout if blk == 128 else FixedSparsityConfig(
+            **dict(BERT_SPARSE_LAYOUT, block=blk)).make_layout(s))
+        g_blk = fbs._pick_q_agg(blk, s // blk, "auto")
+        o5, l5 = fbs.flash_block_sparse_fwd(q, k, v, lay)
+        o6, l6 = fbs.flash_block_sparse_agg_fwd(q, k, v, lay, g_blk)
+        row = {"G": g_blk, "layout_density": float(np.mean(lay != 0)),
+               "b5_fwd_ms": device_ms(lambda: fbs.flash_block_sparse_fwd(
+                   q, k, v, lay)),
+               "b6_fwd_ms": device_ms(lambda: fbs.flash_block_sparse_agg_fwd(
+                   q, k, v, lay, g_blk)),
+               "b5_bwd_ms": device_ms(lambda: fbs.flash_block_sparse_bwd(
+                   q, k, v, o5, l5, dout, lay), calls=5, repeats=10),
+               "b6_bwd_ms": device_ms(lambda: fbs.flash_block_sparse_agg_bwd(
+                   q, k, v, o6, l6, dout, lay, g_blk), calls=5, repeats=10),
+               "fwd_bound_ms": sparse_bound("fwd", q, lay, False)[0],
+               "bwd_bound_ms": sparse_bound("bwd", q, lay, False)[0]}
+        versus[blk] = row
+        print(f"B6 vs B5 at blk {blk} (G={g_blk}, layout density "
+              f"{row['layout_density']:.4f}, b={b} h={h} s={s} bf16): fwd "
+              f"B6a {row['b6_fwd_ms']:.4f} ms vs B5a {row['b5_fwd_ms']:.4f};"
+              f" bwd B6b+B6c {row['b6_bwd_ms']:.4f} vs B5b "
+              f"{row['b5_bwd_ms']:.4f} [{card}]")
+    timings["versus_b5"] = versus
+    results["agg_timing"] = timings
+    return timings
+
+
+def bert_flops_per_sample(cfg, seq):
+    """BERT fwd+bwd model flops per sample, as ``bench.py:42-67`` counts
+    them: with the MLM gather the last layer runs its queries at the
+    n_pred label positions and CLS only, and the head projects those."""
+    h, i, L, v = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_hidden_layers, cfg.vocab_size)
+
+    def layer_flops(q_len):
+        return (2 * q_len * h * h + 2 * seq * h * 2 * h  # Q; K and V
+                + 2 * q_len * seq * h * 2                # scores, context
+                + 2 * q_len * h * h                      # attention out
+                + 2 * q_len * h * i * 2)                 # FC1, FC2
+
+    n_pred = min(cfg.max_predictions_per_seq or seq, seq)
+    n_last = seq if n_pred == seq else n_pred + 1
+    head = 2 * n_pred * h * h + 2 * n_pred * h * v
+    return 3 * ((L - 1) * layer_flops(seq) + layer_flops(n_last) + head)
+
+
+def exact_count_mlm_labels(rng, ids, n_pred):
+    """Labels with exactly ``n_pred`` masked positions a row, -100
+    elsewhere: the bing_bert data contract (``bench.py:85``)."""
+    b, s = ids.shape
+    labels = np.full((b, s), -100, np.int32)
+    for r in range(b):
+        pos = rng.permutation(s)[:n_pred]
+        labels[r, pos] = ids[r, pos]
+    return labels
+
+
+def bert_batch(rng, vocab, b, s, n_pred, attention_mask):
+    """A bing_bert batch: token ids, token types 0 then 1 by halves,
+    ``n_pred`` MLM labels a row, NSP labels, and ``attention_mask`` (an
+    array, or None for packed sequences without padding)."""
+    ids = rng.integers(0, vocab, size=(b, s))
+    batch = {"input_ids": ids,
+             "token_type_ids": np.repeat((np.arange(s) >= s // 2)[None],
+                                         b, 0).astype(np.int64),
+             "masked_lm_labels": exact_count_mlm_labels(rng, ids, n_pred),
+             "next_sentence_labels": rng.integers(0, 2, size=(b,))}
+    if attention_mask is not None:
+        batch["attention_mask"] = attention_mask
+    return batch
+
+
+def bert_train_setup():
+    """The BERT train phase's engine, model config and fixed batch on the
+    card: BERT-large at full width and depth (24 layers, hidden 1024, 16
+    heads, vocab 30528), bench.py's headline leg: seq 128, micro-batch
+    64, an attention mask of ones, ``max_predictions_per_seq`` 20 with
+    exactly 20 labels a row, NSP labels, dropout 0.1 at every site, Lamb
+    lr 1e-4, ZeRO-2, bf16, random weights from ``SEED``.
+    ``examples/profile_torch_train.py --bert`` profiles this set-up."""
+    cfg = BertConfig.bert_large(
+        vocab_size=BERT_VOCAB, hidden_dropout_prob=DROPOUT,
+        attention_probs_dropout_prob=DROPOUT,
+        max_predictions_per_seq=BERT_PRED)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
+        config=dict(TRAIN_CONFIG, train_batch_size=BERT_BATCH))
+    batch = bert_batch(np.random.default_rng(SEED + 1), cfg.vocab_size,
+                       BERT_BATCH, BERT_SEQ, BERT_PRED,
+                       np.ones((BERT_BATCH, BERT_SEQ), np.int64))
+    return engine, cfg, batch
+
+
+def phase_bert_train(card, results):
+    """Trains :func:`bert_train_setup`'s BERT-large: 2 warm-up and 5
+    timed steps.  Each step launches B1 in every layer (the last at the
+    21 gathered rows against 128 keys) and one backward a layer, B3
+    where ``use_fused_backward`` takes it, else B2a+B2b; B4 inside every
+    one of those launches."""
+    engine, cfg, batch = bert_train_setup()
+    losses, step_s, launches = run_steps("bert train", engine, batch, 2, 5)
+    steps, layers = 7, cfg.num_hidden_layers
+    fused = ((layers - 1) * fa.use_fused_backward(64, BERT_SEQ, BERT_SEQ)
+             + fa.use_fused_backward(64, BERT_PRED + 1, BERT_SEQ))
+    want = {"B1": layers, "B3": fused, "B2a": layers - fused,
+            "B2b": layers - fused, "B4": 2 * layers + (layers - fused)}
+    check(all(launches[name] == n * steps for name, n in want.items())
+          and only_launched(launches, tuple(want)),
+          f"bert train: launches {launches}, expected {want} a step")
+    samples_s = BERT_BATCH / step_s
+    flops = bert_flops_per_sample(cfg, BERT_SEQ)
+    receipt = {
+        "card": card, "layers": layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+        "seq": BERT_SEQ, "micro_batch": BERT_BATCH,
+        "max_predictions_per_seq": BERT_PRED, "dropout": DROPOUT,
+        "losses": losses, "step_ms": 1e3 * step_s,
+        "samples_per_s": samples_s, "tokens_per_s": samples_s * BERT_SEQ,
+        "mfu": samples_s * flops / PEAK_FLOPS[torch.bfloat16],
+        "model_flops_per_sample": flops,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    print("bert train receipt (BERT-large, 24 layers, seq 128, batch 64, "
+          "MLM gather 20 + NSP, bf16, Lamb, ZeRO-2, dropout 0.1):",
+          json.dumps(receipt))
+    results["bert_train"] = receipt
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_sparse_train_setup():
+    """The sparse BERT train phase's engine, config and fixed batch:
+    BERT-large with 4096 positions and ``attn_impl="sparse"`` under
+    ``BERT_SPARSE_LAYOUT`` (128-row blocks: the JAX layer runs B6 with
+    G = 4), seq 4096, micro-batch 2, no attention mask (packed documents,
+    no padding, so every layer takes the kernels), token types 0 then 1
+    by halves, ``max_predictions_per_seq`` 640, NSP, dropout 0.1, Lamb,
+    ZeRO-2, bf16.  ``examples/profile_torch_train.py --bert-sparse``
+    profiles this set-up."""
+    b, _, s, _ = SPARSE_ATTN
+    cfg = BertConfig.bert_large(
+        vocab_size=BERT_VOCAB, max_position_embeddings=s,
+        hidden_dropout_prob=DROPOUT, attention_probs_dropout_prob=DROPOUT,
+        max_predictions_per_seq=BERT_SPARSE_PRED, attn_impl="sparse",
+        sparsity_config=FixedSparsityConfig(**BERT_SPARSE_LAYOUT))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
+        config=dict(TRAIN_CONFIG, train_batch_size=b))
+    batch = bert_batch(np.random.default_rng(SEED + 1), cfg.vocab_size, b, s,
+                       BERT_SPARSE_PRED, None)
+    return engine, cfg, batch
+
+
+def phase_bert_sparse_train(card, results):
+    """Trains :func:`bert_sparse_train_setup`'s model: 2 warm-up and 3
+    timed steps, exactly one B6a, B6b and B6c launch per layer and step
+    and no other kernel."""
+    b, _, s, _ = SPARSE_ATTN
+    engine, cfg, batch = bert_sparse_train_setup()
+    losses, step_s, launches = run_steps("bert sparse train", engine, batch,
+                                         2, 3)
+    steps, layers = 5, cfg.num_hidden_layers
+    check(only_launched(launches, ("B6a", "B6b", "B6c"), layers * steps),
+          f"bert sparse train: launches {launches}, expected {layers * steps}"
+          f" of B6a, B6b and B6c and nothing else")
+    layout = engine.module.bert.layer._sparse_layout(s)
+    super_counts = fbs.build_super_luts(layout, 4)[1]
+    receipt = {
+        "card": card, "layers": layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size, "seq": s,
+        "micro_batch": b, "max_predictions_per_seq": BERT_SPARSE_PRED,
+        "dropout": DROPOUT, "layout": BERT_SPARSE_LAYOUT,
+        "layout_density": float(np.mean(layout != 0)),
+        "super_tile_density": float(super_counts.mean())
+        / super_counts.shape[1],
+        "losses": losses, "step_ms": 1e3 * step_s,
+        "samples_per_s": b / step_s, "tokens_per_s": b * s / step_s,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    print("bert sparse train receipt (BERT-large, 24 layers, seq 4096, batch "
+          "2, MLM 640 + NSP, bf16, Lamb, ZeRO-2, dropout 0.1, Fixed "
+          "bidirectional blk 128 sparse attention):", json.dumps(receipt))
+    results["bert_sparse_train"] = receipt
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bert_parity(results):
+    """Card against CPU (:func:`card_vs_cpu`): 2 layers at BERT-large
+    width, fp32, dropout 0.  Dense at seq 128 with padding in the mask
+    and ``max_predictions_per_seq`` 20 (the last layer's query gather:
+    B1 and B3 on the card); and sparse at seq 1024 under the train
+    layout's config (128-row blocks, G = 4, two super-rows: B6a, B6b,
+    B6c on the card, the gather path on the CPU)."""
+    width = dict(vocab_size=BERT_VOCAB, hidden_size=1024,
+                 num_hidden_layers=2, num_attention_heads=16,
+                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    runs = {}
+    rng = np.random.default_rng(SEED + 4)
+    mask = np.ones((2, BERT_SEQ), np.int64)
+    mask[1, BERT_SEQ - 40:] = 0
+    dense = BertConfig(max_predictions_per_seq=BERT_PRED, **width)
+    runs["dense"] = (dense, ("B1", "B3"), [
+        bert_batch(rng, BERT_VOCAB, 2, BERT_SEQ, BERT_PRED, mask)
+        for _ in range(6)])
+    sparse = BertConfig(
+        max_position_embeddings=BERT_PARITY_SEQ, attn_impl="sparse",
+        sparsity_config=FixedSparsityConfig(**BERT_SPARSE_LAYOUT),
+        max_predictions_per_seq=BERT_PARITY_SEQ * BERT_PRED // BERT_SEQ,
+        **width)
+    runs["sparse"] = (sparse, ("B6a", "B6b", "B6c"), [
+        bert_batch(rng, BERT_VOCAB, 2, BERT_PARITY_SEQ,
+                   sparse.max_predictions_per_seq, None) for _ in range(6)])
+    total = {}
+    for name, (cfg, kernels, batches) in runs.items():
+        card, cpu, launches = card_vs_cpu(
+            f"bert parity {name}", lambda: BertForPreTraining(cfg),
+            bert_params(cfg, SEED), batches)
+        expected = cfg.num_hidden_layers * 2 * 3
+        check(only_launched(launches, kernels, expected),
+              f"bert parity {name}: launches {launches}, expected {expected} "
+              f"of {kernels} only")
+        print(f"bert parity {name} (2 layers, hidden 1024, fp32, Adam + "
+              f"WarmupLR, accumulation 2, clip 1.0): card {card}, cpu {cpu}, "
+              f"max rel diff "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(card, cpu)):.3g}")
+        results[f"bert_parity_{name}"] = {"card": card, "cpu": cpu,
+                                          "launches": launches}
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    return total
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row):
@@ -1281,15 +1827,25 @@ def main(argv=None):
     # 10. sparse train parity, card against CPU
     sparse_parity_launches = phase_sparse_parity(results)
 
-    launches = {name: train_launches[name] + parity_launches[name]
-                + sparse_launches[name] + sparse_parity_launches[name]
+    # 11. agg kernel: B6a, B6b and B6c against their plain versions and B5
+    agg_err, agg_timings = phase_agg_kernel(card, results)
+    # 12. bert train, BERT-large at seq 128
+    bert_launches = phase_bert_train(card, results)
+    # 13. bert sparse train, BERT-large at seq 4096 through B6
+    bert_sparse_launches = phase_bert_sparse_train(card, results)
+    # 14. bert parity, card against CPU, dense and sparse
+    bert_parity_launches = phase_bert_parity(results)
+
+    paths = {"train": train_launches, "train_parity": parity_launches,
+             "sparse_train": sparse_launches,
+             "sparse_train_parity": sparse_parity_launches,
+             "bert_train": bert_launches,
+             "bert_sparse_train": bert_sparse_launches,
+             "bert_parity": bert_parity_launches}
+    launches = {name: sum(path[name] for path in paths.values())
                 for name in KERNEL_COUNTERS}
     launches["B1"] += serve_launches
-    results["launches"] = {"serve": {"B1": serve_launches},
-                           "train": train_launches,
-                           "train_parity": parity_launches,
-                           "sparse_train": sparse_launches,
-                           "sparse_train_parity": sparse_parity_launches}
+    results["launches"] = dict(paths, serve={"B1": serve_launches})
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
 
@@ -1317,7 +1873,16 @@ def main(argv=None):
                      sparse_timings["fwd"]),
         kernel_entry("flash_block_sparse_bwd (B5b)", SPARSE_SOURCE,
                      SPARSE_REF + ":253", launches["B5b"], sparse_err["bwd"],
-                     sparse_timings["bwd"])]
+                     sparse_timings["bwd"]),
+        kernel_entry("flash_block_sparse_agg_fwd (B6a)", AGG_SOURCE,
+                     SPARSE_REF + ":333", launches["B6a"], agg_err["fwd"],
+                     agg_timings["fwd"]),
+        kernel_entry("flash_block_sparse_agg_bwd_dq (B6b)", AGG_SOURCE,
+                     SPARSE_REF + ":373", launches["B6b"], agg_err["dq"],
+                     agg_timings["dq"]),
+        kernel_entry("flash_block_sparse_agg_bwd_dkv (B6c)", AGG_SOURCE,
+                     SPARSE_REF + ":402", launches["B6c"], agg_err["dkv"],
+                     agg_timings["dkv"])]
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

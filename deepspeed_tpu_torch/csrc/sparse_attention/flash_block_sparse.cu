@@ -34,12 +34,13 @@
 //   part of one), walking tlut[lh, kb, :tcnt], the transposed look-up
 //   table, in 32-row Q/dO tiles.
 // The layout head is lh = 0 for a shared layout, else the head index.
-// Inside a tile the arithmetic is that of the dense kernels
-// (../transformer/flash_attention_fwd.cu, flash_attention_bwd.cu): the
-// threads that share a row each hold a slice of head_dim in registers and
-// close every dot product with warp shuffles.  Layout blocks of any size
-// run; one under 64 rows leaves the rest of the block's threads idle
-// (the G×G super-tile kernels B6 are the answer to that).
+// Inside a tile the arithmetic is that of the dense kernels: the threads
+// that share a row each hold a slice of head_dim in registers and close
+// every dot product with warp shuffles; its steps are shared with the
+// super-tile kernels B6 (flash_block_sparse_agg.cu) through
+// ../transformer/flash_common.cuh.  Layout blocks of any size run; one
+// under 64 rows leaves the rest of the block's threads idle (B6 fills
+// them with a super-row of several layout blocks).
 //
 // Bound.  At the sparse training shape (b=2, h=16, s=4096, d=64, bf16,
 // Fixed unidirectional layout of 256-row blocks: 3.7e6 visible pairs a
@@ -51,9 +52,8 @@
 // What this simple design leaves on the table: every multiply-add is a
 // scalar fp32 FMA on the CUDA cores (67 TFLOP/s peak), tiles come in by
 // plain loads with no copy/compute overlap, and the backward recomputes
-// S and dP in both of its kernels.  Tensor cores (mma.sync, then wgmma),
-// cp.async/TMA double buffering and super-tiles for small layout blocks
-// are the work of a later change.
+// S and dP in both of its kernels.  Tensor cores (mma.sync, then wgmma)
+// and cp.async/TMA double buffering are the work of a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,12 +66,14 @@ namespace {
 using ds_flash::from_float;
 using ds_flash::kMaxFloor;
 using ds_flash::kNegInf;
-using ds_flash::lane_sum;
-using ds_flash::round_to;
-using ds_flash::to_float;
+using ds_flash::kSpTile;
+using ds_flash::load_row_stats;
+using ds_flash::load_seg;
+using ds_flash::load_tile_pair;
+using ds_flash::SpTile;
 
 constexpr int kRows = 64;  // output rows (queries, or keys) per block
-constexpr int kTile = 32;  // rows of the streamed tile (keys, or queries)
+constexpr int kEpt = 16;   // head_dim elements a backward thread owns
 
 // element strides (batch, seq, head) of every tensor the kernels touch;
 // the last dimension is contiguous
@@ -96,16 +98,15 @@ __global__ void __launch_bounds__(2 * kRows)
                    const T* __restrict__ v, T* __restrict__ out,
                    float* __restrict__ lse, Layout lay, int heads, int s,
                    Strides st, float scale, int causal) {
-  constexpr int THREADS = 2 * kRows;
-  constexpr int DH = D / 2;       // head_dim elements each thread owns
-  constexpr int HALF = DH + 4;    // padded half row: halves in other banks
-  constexpr int ROW = 2 * HALF;   // padded K/V row in shared memory
-  __shared__ __align__(16) float k_s[kTile * ROW];
-  __shared__ __align__(16) float v_s[kTile * ROW];
+  constexpr int TPR = 2;          // threads per query row
+  constexpr int SEG = D / TPR;    // head_dim elements each thread owns
+  constexpr int THREADS = TPR * kRows;
+  __shared__ __align__(16) float k_s[SpTile<TPR, SEG>::kFloats];
+  __shared__ __align__(16) float v_s[SpTile<TPR, SEG>::kFloats];
 
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
+  const int row = tid / TPR;
+  const int seg = tid % TPR;
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
@@ -116,17 +117,12 @@ __global__ void __launch_bounds__(2 * kRows)
   const int qi = q0 + row;
   const bool q_valid = qi < q_end;
 
-  float qr[DH];
-  float acc[DH];
-  {
-    const T* qrow = q + b * st.q[0] + (int64_t)(q_valid ? qi : 0) * st.q[1] +
-                    h * st.q[2] + half * DH;
+  float qr[SEG], acc[SEG];
+  load_seg(qr, q + b * st.q[0] + (int64_t)(q_valid ? qi : 0) * st.q[1] +
+                   h * st.q[2] + seg * SEG,
+           q_valid);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qr[d] = q_valid ? to_float(qrow[d]) : 0.f;
-      acc[d] = 0.f;
-    }
-  }
+  for (int d = 0; d < SEG; ++d) acc[d] = 0.f;
   const int n_active = lay.cnt[lh * lay.nb + qb];
   const int* row_lut = lay.lut + ((int64_t)lh * lay.nb + qb) * lay.kmax;
   // a row with an active tile has its max floored (also when the causal
@@ -142,95 +138,26 @@ __global__ void __launch_bounds__(2 * kRows)
     const int key_lim = kb0 + lay.blk;
     // causal: rows q0 .. q_end-1 see no key past q_end-1
     const int k_end = causal ? min(key_lim, q_end) : key_lim;
-    for (int k0 = kb0; k0 < k_end; k0 += kTile) {
+    for (int k0 = kb0; k0 < k_end; k0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
-      for (int e = tid; e < kTile * D; e += THREADS) {
-        const int j = e / D;
-        const int d = e - j * D;
-        const int kj = k0 + j;
-        const int dst = j * ROW + (d / DH) * HALF + (d % DH);
-        float kx = 0.f, vx = 0.f;
-        if (kj < key_lim) {
-          kx = to_float(kbase[(int64_t)kj * st.k[1] + d]);
-          vx = to_float(vbase[(int64_t)kj * st.v[1] + d]);
-        }
-        k_s[dst] = kx;
-        v_s[dst] = vx;
-      }
+      load_tile_pair<T, TPR, SEG>(k_s, v_s, kbase, st.k[1], vbase, st.v[1],
+                                  k0, key_lim, tid, THREADS);
       __syncthreads();
-
-      float sc[kTile];
-      float tile_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        const float4* kr =
-            reinterpret_cast<const float4*>(k_s + j * ROW + half * HALF);
-        float part = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 kk = kr[d4];
-          part = fmaf(qr[4 * d4 + 0], kk.x, part);
-          part = fmaf(qr[4 * d4 + 1], kk.y, part);
-          part = fmaf(qr[4 * d4 + 2], kk.z, part);
-          part = fmaf(qr[4 * d4 + 3], kk.w, part);
-        }
-        // a + b == b + a exactly, so both threads of the row get one score
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        // keys past the layout block's end belong to another tile
-        const bool visible = k0 + j < key_lim && (!causal || qi >= k0 + j);
-        const float x = visible ? part * scale : kNegInf;
-        sc[j] = x;
-        tile_max = fmaxf(tile_max, x);
-      }
-
-      const float m_new = fmaxf(fmaxf(m, tile_max), kMaxFloor);
-      const float corr = expf(m - m_new);
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        const float p = expf(sc[j] - m_new);
-        p_sum += p;
-        sc[j] = round_to<T>(p);  // P in the storage type for P·V
-      }
-      l = l * corr + p_sum;
-      m = m_new;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        const float4* vr =
-            reinterpret_cast<const float4*>(v_s + j * ROW + half * HALF);
-        const float p = sc[j];
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
+      // keys past the layout block's end belong to another tile
+      ds_flash::sparse_fwd_tile<T, TPR, SEG>(
+          k_s, v_s, seg, qr, acc, m, l, scale, [&](int j) {
+            return k0 + j < key_lim && (!causal || qi >= k0 + j);
+          });
     }
   }
 
   if (q_valid) {
     const float l_safe = l == 0.f ? 1.f : l;
-    T* orow = out + (((int64_t)b * s + qi) * heads + h) * D + half * DH;
+    T* orow = out + (((int64_t)b * s + qi) * heads + h) * D + seg * SEG;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) orow[d] = from_float<T>(acc[d] / l_safe);
-    if (half == 0) lse[(int64_t)bh * s + qi] = m + logf(l_safe);
+    for (int d = 0; d < SEG; ++d) orow[d] = from_float<T>(acc[d] / l_safe);
+    if (seg == 0) lse[(int64_t)bh * s + qi] = m + logf(l_safe);
   }
-}
-
-// ------------------------------------------------------------ B5b, shared
-constexpr int kEpt = 16;        // head_dim elements each thread owns
-constexpr int kSeg = kEpt + 4;  // padded segment: neighbours in other banks
-
-template <typename T>
-__device__ __forceinline__ void load_seg(float* dst, const T* src,
-                                         bool valid) {
-#pragma unroll
-  for (int e = 0; e < kEpt; ++e) dst[e] = valid ? to_float(src[e]) : 0.f;
 }
 
 // ---------------------------------------------------------------- B5b: dq
@@ -244,9 +171,8 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                       int causal) {
   constexpr int TPR = D / kEpt;  // threads per query row
   constexpr int THREADS = kRows * TPR;
-  constexpr int ROW = TPR * kSeg;
-  __shared__ __align__(16) float k_s[kTile * ROW];
-  __shared__ __align__(16) float v_s[kTile * ROW];
+  __shared__ __align__(16) float k_s[SpTile<TPR, kEpt>::kFloats];
+  __shared__ __align__(16) float v_s[SpTile<TPR, kEpt>::kFloats];
 
   const int tid = threadIdx.x;
   const int row = tid / TPR;
@@ -282,57 +208,15 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
     const int kb0 = row_lut[t] * lay.blk;
     const int key_lim = kb0 + lay.blk;
     const int k_end = causal ? min(key_lim, q_end) : key_lim;
-    for (int k0 = kb0; k0 < k_end; k0 += kTile) {
+    for (int k0 = kb0; k0 < k_end; k0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
-      for (int e = tid; e < kTile * D; e += THREADS) {
-        const int j = e / D;
-        const int d = e - j * D;
-        const int kj = k0 + j;
-        const int dst = j * ROW + (d / kEpt) * kSeg + (d % kEpt);
-        float kx = 0.f, vx = 0.f;
-        if (kj < key_lim) {
-          kx = to_float(kbase[(int64_t)kj * st.k[1] + d]);
-          vx = to_float(vbase[(int64_t)kj * st.v[1] + d]);
-        }
-        k_s[dst] = kx;
-        v_s[dst] = vx;
-      }
+      load_tile_pair<T, TPR, kEpt>(k_s, v_s, kbase, st.k[1], vbase,
+                                   st.v[1], k0, key_lim, tid, THREADS);
       __syncthreads();
-
-#pragma unroll 4
-      for (int j = 0; j < kTile; ++j) {
-        const float4* kr =
-            reinterpret_cast<const float4*>(k_s + j * ROW + part * kSeg);
-        const float4* vr =
-            reinterpret_cast<const float4*>(v_s + j * ROW + part * kSeg);
-        float sp = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < kEpt / 4; ++d4) {
-          const float4 kk = kr[d4];
-          const float4 vv = vr[d4];
-          sp = fmaf(qr[4 * d4 + 0], kk.x, sp);
-          sp = fmaf(qr[4 * d4 + 1], kk.y, sp);
-          sp = fmaf(qr[4 * d4 + 2], kk.z, sp);
-          sp = fmaf(qr[4 * d4 + 3], kk.w, sp);
-          dp = fmaf(dor[4 * d4 + 0], vv.x, dp);
-          dp = fmaf(dor[4 * d4 + 1], vv.y, dp);
-          dp = fmaf(dor[4 * d4 + 2], vv.z, dp);
-          dp = fmaf(dor[4 * d4 + 3], vv.w, dp);
-        }
-        sp = lane_sum<TPR>(sp);
-        dp = lane_sum<TPR>(dp);
-        const bool visible = k0 + j < key_lim && (!causal || qi >= k0 + j);
-        const float p = expf((visible ? sp * scale : kNegInf) - lse_i);
-        const float ds = round_to<T>(p * (dp - delta_i));
-#pragma unroll
-        for (int d4 = 0; d4 < kEpt / 4; ++d4) {
-          const float4 kk = kr[d4];
-          acc[4 * d4 + 0] = fmaf(ds, kk.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(ds, kk.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(ds, kk.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(ds, kk.w, acc[4 * d4 + 3]);
-        }
-      }
+      ds_flash::sparse_dq_tile<T, TPR, kEpt>(
+          k_s, v_s, part, qr, dor, acc, lse_i, delta_i, scale, [&](int j) {
+            return k0 + j < key_lim && (!causal || qi >= k0 + j);
+          });
     }
   }
 
@@ -354,11 +238,10 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                        Strides st, float scale, int causal) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kRows * TPR;
-  constexpr int ROW = TPR * kSeg;
-  __shared__ __align__(16) float q_s[kTile * ROW];
-  __shared__ __align__(16) float o_s[kTile * ROW];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  __shared__ __align__(16) float q_s[SpTile<TPR, kEpt>::kFloats];
+  __shared__ __align__(16) float o_s[SpTile<TPR, kEpt>::kFloats];
+  __shared__ float lse_s[kSpTile];
+  __shared__ float delta_s[kSpTile];
 
   const int tid = threadIdx.x;
   const int key = tid / TPR;
@@ -392,69 +275,19 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
     const int i_end = qb0 + lay.blk;
     // causal: rows before k0 see none of this block's keys
     const int i_begin = causal ? max(qb0, k0) : qb0;
-    for (int i0 = i_begin; i0 < i_end; i0 += kTile) {
+    for (int i0 = i_begin; i0 < i_end; i0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
-      for (int e = tid; e < kTile * D; e += THREADS) {
-        const int r = e / D;
-        const int d = e - r * D;
-        const int i = i0 + r;
-        const int dst = r * ROW + (d / kEpt) * kSeg + (d % kEpt);
-        float qx = 0.f, ox = 0.f;
-        if (i < i_end) {
-          qx = to_float(qbase[(int64_t)i * st.q[1] + d]);
-          ox = to_float(obase[(int64_t)i * st.o[1] + d]);
-        }
-        q_s[dst] = qx;
-        o_s[dst] = ox;
-      }
-      if (tid < kTile) {
-        const int i = i0 + tid;
-        lse_s[tid] = i < i_end ? lse[(int64_t)bh * s + i] : 0.f;
-        delta_s[tid] = i < i_end ? delta[(int64_t)bh * s + i] : 0.f;
-      }
+      load_tile_pair<T, TPR, kEpt>(q_s, o_s, qbase, st.q[1], obase, st.o[1],
+                                   i0, i_end, tid, THREADS);
+      load_row_stats(lse_s, delta_s, lse, delta, (int64_t)bh * s, i0, i_end,
+                     tid);
       __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        const int i = i0 + r;
-        const float4* qv =
-            reinterpret_cast<const float4*>(q_s + r * ROW + part * kSeg);
-        const float4* ov =
-            reinterpret_cast<const float4*>(o_s + r * ROW + part * kSeg);
-        float sp = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < kEpt / 4; ++d4) {
-          const float4 qq = qv[d4];
-          const float4 oo = ov[d4];
-          sp = fmaf(kr[4 * d4 + 0], qq.x, sp);
-          sp = fmaf(kr[4 * d4 + 1], qq.y, sp);
-          sp = fmaf(kr[4 * d4 + 2], qq.z, sp);
-          sp = fmaf(kr[4 * d4 + 3], qq.w, sp);
-          dp = fmaf(vr[4 * d4 + 0], oo.x, dp);
-          dp = fmaf(vr[4 * d4 + 1], oo.y, dp);
-          dp = fmaf(vr[4 * d4 + 2], oo.z, dp);
-          dp = fmaf(vr[4 * d4 + 3], oo.w, dp);
-        }
-        sp = lane_sum<TPR>(sp);
-        dp = lane_sum<TPR>(dp);
-        const bool visible = k_valid && i < i_end && (!causal || i >= kj);
-        const float p = expf((visible ? sp * scale : kNegInf) - lse_s[r]);
-        const float ds = round_to<T>(p * (dp - delta_s[r]));
-        const float pr = round_to<T>(p);
-#pragma unroll
-        for (int d4 = 0; d4 < kEpt / 4; ++d4) {
-          const float4 qq = qv[d4];
-          const float4 oo = ov[d4];
-          dka[4 * d4 + 0] = fmaf(ds, qq.x, dka[4 * d4 + 0]);
-          dka[4 * d4 + 1] = fmaf(ds, qq.y, dka[4 * d4 + 1]);
-          dka[4 * d4 + 2] = fmaf(ds, qq.z, dka[4 * d4 + 2]);
-          dka[4 * d4 + 3] = fmaf(ds, qq.w, dka[4 * d4 + 3]);
-          dva[4 * d4 + 0] = fmaf(pr, oo.x, dva[4 * d4 + 0]);
-          dva[4 * d4 + 1] = fmaf(pr, oo.y, dva[4 * d4 + 1]);
-          dva[4 * d4 + 2] = fmaf(pr, oo.z, dva[4 * d4 + 2]);
-          dva[4 * d4 + 3] = fmaf(pr, oo.w, dva[4 * d4 + 3]);
-        }
-      }
+      ds_flash::sparse_dkv_tile<T, TPR, kEpt>(
+          q_s, o_s, lse_s, delta_s, part, kr, vr, dka, dva, scale,
+          [&](int r) {
+            const int i = i0 + r;
+            return k_valid && i < i_end && (!causal || i >= kj);
+          });
     }
   }
 

@@ -82,13 +82,16 @@ def sparse_core(q, has_key_padding):
     the JAX layer's own dispatch in the port's terms.  The gather path,
     which is the general one, takes a call with a key-padding mask (the
     flash kernels have no mask operand) and a call on the CPU.  Every
-    other call is the block-sparse flash kernels' (B5a/B5b): it launches
-    them or raises, here for a type or head_dim they do not take, and in
-    ``flash_block_sparse_attention`` for a layout block at which the JAX
-    package runs its super-tile kernels, which are not ported yet.
+    other call is the block-sparse flash kernels': it launches them or
+    raises, here for a type or head_dim they do not take.
+    ``flash_block_sparse_attention`` then resolves the aggregation factor
+    G as the JAX package does and launches B5a/B5b (G = 1, layout blocks
+    above 128 rows) or the super-tile kernels B6a/B6b/B6c (G > 1).
     ``DS_SPARSE_FLASH=never`` (read at call time) sends such a call to
     the gather path instead, and says so once.  The JAX test
-    ``blk % 128 == 0`` is a TPU tile rule and is not carried over."""
+    ``blk % 128 == 0`` is a TPU tile rule and is not carried over: on the
+    card the port runs B6 at 16- and 64-row blocks too, where the JAX
+    layer takes the gather path; the function is the same."""
     if has_key_padding or not q.is_cuda:
         return "gather"
     if os.environ.get("DS_SPARSE_FLASH", "auto") == "never":
@@ -117,10 +120,10 @@ class TransformerLayer:
     The config mirrors the JAX ``TransformerLayer`` (``pre_layer_norm``,
     ``attn_dropout_ratio``, ``hidden_dropout_ratio``, ``causal``).  Not
     ported yet, and refused: the ring core (``attn_impl`` 'ring',
-    ROADMAP A10), the memory knobs
-    (``gelu_checkpoint``, ``attn_dropout_checkpoint``,
-    ``normalize_invertible``, ROADMAP A7) and query-gathered ``positions``
-    (BERT's MLM gather, ROADMAP A3)."""
+    ROADMAP A10) and the memory knobs (``gelu_checkpoint``,
+    ``attn_dropout_checkpoint``, ``normalize_invertible``, ROADMAP A7).
+    ``apply(..., positions=...)`` computes the layer at a few gathered
+    rows only (BERT's last layer under the MLM gather)."""
 
     def __init__(self, hidden_size, heads, intermediate_size=None,
                  causal=False, attn_dropout_ratio=0.1,
@@ -203,11 +206,33 @@ class TransformerLayer:
         return ctx
 
     def attention_core(self, params, y, mask=None, key_padding_mask=None,
-                       attn_rng=None, deterministic=True):
+                       attn_rng=None, deterministic=True, positions=None):
         """Fused-QKV attention -> [b, s, h] context.  q, k and v are
         strided views of the one [b, s, 3, heads, head_dim] projection,
-        which the flash kernels read as they are."""
+        which the flash kernels read as they are.
+
+        ``positions`` [b, K] (int64): queries, and so output rows, only at
+        those positions, with keys and values over the whole sequence;
+        the dense bidirectional core only.  Returns [b, K, h]."""
         b, s, h = y.shape
+        if positions is not None:
+            if self.attn_impl != "auto" or self.causal:
+                raise ValueError("query-gathered attention supports the "
+                                 "dense bidirectional core only")
+            n = positions.shape[1]
+            w = params["qkv"]["kernel"].to(y.dtype)
+            bias = params["qkv"]["bias"].to(y.dtype)
+            y_sel = torch.take_along_dim(y, positions[..., None], dim=1)
+            q = (y_sel @ w[:, :h] + bias[:h]).reshape(b, n, self.heads,
+                                                      self.head_dim)
+            kv = (y @ w[:, h:] + bias[h:]).reshape(b, s, 2, self.heads,
+                                                   self.head_dim)
+            ctx = dot_product_attention(
+                q, kv[:, :, 0], kv[:, :, 1], mask=mask,
+                key_padding_mask=key_padding_mask, causal=False,
+                dropout_rate=self.attn_dropout_ratio, dropout_rng=attn_rng,
+                deterministic=deterministic)
+            return ctx.reshape(b, n, h)
         qkv = dense(params["qkv"], y).reshape(b, s, 3, self.heads,
                                               self.head_dim)
         if self.attn_impl == "sparse":
@@ -227,11 +252,11 @@ class TransformerLayer:
         or ``key_padding_mask`` [batch, seq] with 1 at visible tokens (the
         flash kernels' fused form); ``rng`` a ``torch.Generator`` on
         x's device, drawn by the attention, attention-output and MLP
-        dropouts in that order."""
-        if positions is not None:
-            raise NotImplementedError(
-                "query-gathered positions (the MLM gather) are not ported "
-                "yet (ROADMAP A3)")
+        dropouts in that order.  ``positions`` [b, K]: outputs only at
+        those rows (queries gathered, keys and values over the whole
+        sequence, the residuals, MLP and layernorms on the K rows), for a
+        last layer whose head reads few positions; returns [b, K,
+        hidden]."""
         if mask is not None and key_padding_mask is not None:
             raise ValueError(
                 "pass either an additive mask or a key_padding_mask, not both")
@@ -241,7 +266,8 @@ class TransformerLayer:
             ctx = self.attention_core(params, y, mask=mask,
                                       key_padding_mask=key_padding_mask,
                                       attn_rng=rng,
-                                      deterministic=deterministic)
+                                      deterministic=deterministic,
+                                      positions=positions)
             return dropout(rng, dense(params["attn_out"], ctx), rate,
                            deterministic)
 
@@ -252,10 +278,15 @@ class TransformerLayer:
         def ln(p, y):
             return layer_norm(p, y, self.layer_norm_eps)
 
+        def sel(t):   # the residual's rows where the queries are
+            if positions is None:
+                return t
+            return torch.take_along_dim(t, positions[..., None], dim=1)
+
         if self.pre_layer_norm:
-            x = x + attention_block(ln(params["ln_attn"], x))
+            x = sel(x) + attention_block(ln(params["ln_attn"], x))
             return x + mlp_block(ln(params["ln_mlp"], x))
-        x = ln(params["ln_attn"], x + attention_block(x))
+        x = ln(params["ln_attn"], sel(x) + attention_block(x))
         return ln(params["ln_mlp"], x + mlp_block(x))
 
 

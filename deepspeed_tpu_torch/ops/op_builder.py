@@ -31,6 +31,7 @@ SOURCES = {
     "flash_attention_fwd": "transformer/flash_attention_fwd.cu",
     "flash_attention_bwd": "transformer/flash_attention_bwd.cu",
     "flash_block_sparse": "sparse_attention/flash_block_sparse.cu",
+    "flash_block_sparse_agg": "sparse_attention/flash_block_sparse_agg.cu",
 }
 
 _lock = threading.Lock()

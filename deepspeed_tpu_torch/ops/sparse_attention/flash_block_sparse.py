@@ -1,46 +1,54 @@
 """Block-sparse flash attention: the Hopper kernels' wrappers, their plain
-versions, the look-up-table builders and the autograd function.
+versions, the look-up-table builders and the autograd functions.
 
 Port of ``deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py``.
-Kernels (``csrc/sparse_attention/flash_block_sparse.cu``):
+Kernels:
 
-- B5a: the forward over the ACTIVE ``[blk, blk]`` tiles of a
-  ``[H, nb, nb]`` layout (``H`` is 1 or the head count), out and the fp32
-  logsumexp; replaces the TPU's work-list ``_fwd_kernel``;
-- B5b: dq, dk and dv over the same tiles, as a dq kernel in row-major
-  order and a dk/dv kernel in key-major order over the transposed
-  look-up table, launched together by one wrapper; replaces the TPU's
-  ``_bwd_fused_kernel``, whose full-sequence dk/dv accumulators no Hopper
-  block can hold.
+- B5a (``csrc/sparse_attention/flash_block_sparse.cu``): the forward over
+  the ACTIVE ``[blk, blk]`` tiles of a ``[H, nb, nb]`` layout (``H`` is 1
+  or the head count), out and the fp32 logsumexp; replaces the TPU's
+  work-list ``_fwd_kernel``;
+- B5b (same source): dq, dk and dv over the same tiles, as a dq kernel in
+  row-major order and a dk/dv kernel in key-major order over the
+  transposed look-up table, launched together by one wrapper; replaces
+  the TPU's ``_bwd_fused_kernel``, whose full-sequence dk/dv accumulators
+  no Hopper block can hold;
+- B6a, B6b, B6c (``csrc/sparse_attention/flash_block_sparse_agg.cu``):
+  the forward, the dq kernel and the dk/dv kernel over ``G×G``
+  super-tiles of ``[G·blk, G·blk]`` with a ``G·G``-bit mask each
+  (:func:`build_super_luts`); replace the TPU's ``_fwd_kernel_agg``,
+  ``_bwd_dq_kernel_agg`` and ``_bwd_dkv_kernel_agg``, and count their
+  launches separately, as the TPU backward is two calls.
 
-The TPU's G×G super-tile kernels (B6: ``_fwd_kernel_agg``,
-``_bwd_dq_kernel_agg``, ``_bwd_dkv_kernel_agg``) are not ported yet.
 ``q_agg`` resolves to the aggregation factor G exactly as in the JAX
 package (:func:`_pick_q_agg`: "auto" takes super-tiles for layout blocks
-of up to 128 rows), and a call that resolves to ``G > 1`` raises, naming
-them: B5 runs only where the JAX package runs its work-list kernels,
-that is for blocks above 128 rows, for ``q_agg="never"``, and where the
-layout admits no factor above 1.
+of up to 128 rows, G = 4 at 128).  ``G == 1`` runs B5 and ``G > 1`` runs
+B6, as the JAX package runs its work-list or its super-tile kernels; on
+the card neither stands in for the other.  The two compute the same
+out and gradients; they differ only in the lse of a row that sees no
+pair, which B6 gives as the TPU's super-tile kernels do (MAX_FLOOR in a
+super-row with an active tile, NEG_INF in one without).
 
 Each wrapper launches its kernel for CUDA tensors or raises, and runs the
-plain version (:func:`flash_block_sparse_reference`,
-:func:`flash_block_sparse_bwd_reference`) for CPU tensors.  Layout is the
-JAX package's: q, k, v ``[b, s, h, d]``, read through their strides, so
-views of a fused QKV projection go in as they are.  lse is fp32
-``[b·h, s]`` (the TPU kernel's ``[b·h, 1, s]`` without the singleton
-axis).  No dropout and no key mask inside, as on the TPU: the gather path
-``block_sparse.py`` is the general one.
+plain version (:func:`flash_block_sparse_reference` and
+:func:`flash_block_sparse_bwd_reference`, or their ``_agg`` forms) for
+CPU tensors.  Layout is the JAX package's: q, k, v ``[b, s, h, d]``, read
+through their strides, so views of a fused QKV projection go in as they
+are.  lse is fp32 ``[b·h, s]`` (the TPU kernel's ``[b·h, 1, s]`` without
+the singleton axis).  No dropout and no key mask inside, as on the TPU:
+the gather path ``block_sparse.py`` is the general one.
 
-The host tables (:func:`build_block_luts`) are numpy and equal the JAX
-package's entry for entry; the kernels read its four arrays, copied to
-the device once per (layout, device) by :func:`device_luts`.  The JAX
-package's flattened work list and super-tile tables feed schedules that
-this package does not have, and are not carried.
+The host tables (:func:`build_block_luts`, :func:`build_super_luts`) are
+numpy and equal the JAX package's entry for entry; :func:`device_luts`
+copies them to the device once per (layout, device), and the super-tile
+tables once per G as well.  The JAX package's flattened work list feeds a
+schedule this package does not have, and is not carried.
 """
 
 import ctypes
 import logging
 import math
+import types
 import weakref
 
 import numpy as np
@@ -84,6 +92,50 @@ def build_block_luts(layout):
     return lut, cnt, tlut, tcnt
 
 
+def build_super_luts(layout, G):
+    """Host-side tables of the ``G×G`` super-tiles of a ``[H, nb, nb]``
+    layout: a super-tile covers a ``G×G`` patch of layout blocks, and its
+    mask has bit ``row_g·G + col_g`` set where sub-block (row_g, col_g)
+    is active.
+
+    Returns ``(slut, scnt, smask, stlut, stcnt, stmask)``, int32:
+      - ``slut[h, sq, t]``: t-th active super key column of super q-row
+        ``sq`` (``scnt[h, sq]`` valid entries, zero-padded);
+      - ``smask[h, sq, t]``: that super-tile's ``G·G`` bits;
+      - ``stlut/stcnt/stmask``: the transpose, the active super q-rows of
+        each super key column (for dk/dv), with the same bit convention.
+    """
+    layout = np.asarray(layout) != 0
+    h, nb, nb2 = layout.shape
+    assert nb == nb2 and nb % G == 0 and G * G <= 32
+    ns = nb // G
+    patch = layout.reshape(h, ns, G, ns, G)          # [h, sq, rg, sk, cg]
+    active = patch.any(axis=(2, 4))                  # [h, ns, ns]
+    bitval = (1 << (np.arange(G)[:, None] * G
+                    + np.arange(G)[None, :])).astype(np.int64)
+    bits = (patch.transpose(0, 1, 3, 2, 4) * bitval).sum((-1, -2))
+    tmax = max(1, int(active.sum(-1).max()))
+    qmax = max(1, int(active.sum(-2).max()))
+    slut = np.zeros((h, ns, tmax), np.int32)
+    scnt = np.zeros((h, ns), np.int32)
+    smask = np.zeros((h, ns, tmax), np.int32)
+    stlut = np.zeros((h, ns, qmax), np.int32)
+    stcnt = np.zeros((h, ns), np.int32)
+    stmask = np.zeros((h, ns, qmax), np.int32)
+    for hi in range(h):
+        for sq in range(ns):
+            cols = np.nonzero(active[hi, sq])[0]
+            slut[hi, sq, :len(cols)] = cols
+            scnt[hi, sq] = len(cols)
+            smask[hi, sq, :len(cols)] = bits[hi, sq, cols]
+        for sk in range(ns):
+            rows = np.nonzero(active[hi, :, sk])[0]
+            stlut[hi, sk, :len(rows)] = rows
+            stcnt[hi, sk] = len(rows)
+            stmask[hi, sk, :len(rows)] = bits[hi, rows, sk]
+    return slut, scnt, smask, stlut, stcnt, stmask
+
+
 def _pick_q_agg(blk, nb, q_agg):
     """The JAX package's aggregation factor G for ``q_agg``: "never" is
     1; "auto" is 1 for blocks above 128 rows and grows super-tiles toward
@@ -114,8 +166,9 @@ def _pick_q_agg(blk, nb, q_agg):
 # ------------------------------------------------------------ device tables
 class _DeviceLuts:
     """One layout on one device: ``build_block_luts``' four tables for
-    the kernels, and the ``[H, nb, nb]`` bool layout itself for the plain
-    versions."""
+    B5, ``build_super_luts``' six for B6 at each G asked for
+    (:meth:`super_tables`), and the ``[H, nb, nb]`` bool layout itself
+    for the plain versions."""
 
     def __init__(self, layout, device):
         arrays = build_block_luts(layout)
@@ -124,6 +177,23 @@ class _DeviceLuts:
         self.active = torch.from_numpy(np.asarray(layout) != 0).to(device)
         self.layout_heads, self.nb, self.kmax = arrays[0].shape
         self.qmax = arrays[2].shape[-1]
+        self._layout = np.asarray(layout) != 0   # a copy: the cache holds
+        self._device = device                    # no reference to the key
+        self._super = {}
+
+    def super_tables(self, G):
+        """The super-tile tables at factor ``G`` on this device, built
+        and copied at the first call for that G."""
+        tables = self._super.get(G)
+        if tables is None:
+            arrays = build_super_luts(self._layout, G)
+            slut, scnt, smask, stlut, stcnt, stmask = (
+                torch.from_numpy(a).to(self._device) for a in arrays)
+            tables = self._super[G] = types.SimpleNamespace(
+                slut=slut, scnt=scnt, smask=smask, stlut=stlut, stcnt=stcnt,
+                stmask=stmask, ns=arrays[0].shape[1],
+                tmax=arrays[0].shape[2], qmax=arrays[3].shape[2])
+        return tables
 
 
 # id(layout) -> (weak reference to the layout, {device: _DeviceLuts})
@@ -154,20 +224,23 @@ def device_luts(layout, device):
 
 
 # ----------------------------------------------------------- plain versions
-def expand_layout(layout, s, causal, device):
+def expand_layout(layout, s, causal, device, G=1):
     """``(visible [H, s, s], row_active [H, s])`` bool tensors: the
     element pairs inside active tiles (under the causal mask), and the
-    query rows whose layout block has any active tile.  The layout
-    comes from :func:`device_luts`, so a repeated call copies nothing to
-    the device."""
+    query rows whose softmax state a kernel opens: for B5 (``G`` 1) the
+    rows whose layout block has an active tile, for B6 the rows whose
+    super-row of ``G`` layout blocks has one.  The layout comes from
+    :func:`device_luts`, so a repeated call copies nothing to the
+    device."""
     active = device_luts(layout, device).active
-    nb = active.shape[1]
+    H, nb = active.shape[:2]
     blk = s // nb
     visible = active.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
     if causal:
         pos = torch.arange(s, device=device)
         visible = visible & (pos[:, None] >= pos[None, :])
-    row_active = active.any(-1).repeat_interleave(blk, 1)
+    row_active = active.reshape(H, nb // G, G * nb).any(-1) \
+        .repeat_interleave(G * blk, 1)
     return visible, row_active
 
 
@@ -176,6 +249,21 @@ def _masked_scores(q, k, visible):
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / math.sqrt(q.shape[-1]))
     return torch.where(visible[None], sc, NEG_INF)
+
+
+def _reference(q, k, v, layout, causal, G):
+    b, s, h, _ = q.shape
+    visible, row_active = expand_layout(layout, s, causal, q.device, G)
+    sc = _masked_scores(q, k, visible)
+    m = sc.amax(dim=-1, keepdim=True).clamp_min(MAX_FLOOR)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = acc / l_safe.permute(0, 2, 1, 3)
+    lse = torch.where(row_active[None], (m + torch.log(l_safe))[..., 0],
+                      NEG_INF)
+    return out.to(q.dtype), lse.expand(b, h, s).reshape(b * h, s)
 
 
 def flash_block_sparse_reference(q, k, v, layout, causal=False):
@@ -187,18 +275,18 @@ def flash_block_sparse_reference(q, k, v, layout, causal=False):
     block with no active tile gives out = 0 and lse = NEG_INF (the
     kernel's untouched running max).  O(s²) memory.  Returns
     ``(out [b, s, h, d], lse [b·h, s])``."""
-    b, s, h, _ = q.shape
-    visible, row_active = expand_layout(layout, s, causal, q.device)
-    sc = _masked_scores(q, k, visible)
-    m = sc.amax(dim=-1, keepdim=True).clamp_min(MAX_FLOOR)
-    p = torch.exp(sc - m)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    out = acc / l_safe.permute(0, 2, 1, 3)
-    lse = torch.where(row_active[None], (m + torch.log(l_safe))[..., 0],
-                      NEG_INF)
-    return out.to(q.dtype), lse.expand(b, h, s).reshape(b * h, s)
+    return _reference(q, k, v, layout, causal, 1)
+
+
+def flash_block_sparse_agg_reference(q, k, v, layout, G, causal=False):
+    """Dense plain-PyTorch version of B6a, what the TPU's
+    ``_fbs_attention_agg`` computes at aggregation factor ``G``: B5a's
+    rules, except for the lse of a row that sees no pair.  The TPU's
+    super-tile kernel floors the running max of every row of a super-row
+    that has an active super-tile, so such a row has lse = MAX_FLOOR
+    even where its own layout block has no active tile; only the rows of
+    a super-row with none keep NEG_INF.  Out is 0 for both."""
+    return _reference(q, k, v, layout, causal, G)
 
 
 def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
@@ -225,6 +313,17 @@ def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout, layout,
+                                         G, causal=False):
+    """Dense plain-PyTorch version of B6b (dq) and B6c (dk, dv), what
+    the TPU's ``_fbs_bwd_agg`` computes: B5b's arithmetic, since P is 0
+    outside the visible pairs whatever lse a pairless row holds, so the
+    factor ``G`` changes no gradient.  Returns ``(dq, dk, dv)``."""
+    _check_factor(np.asarray(layout).shape[1], G)
+    return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
+                                            causal)
+
+
 # ----------------------------------------------------------------- kernels
 def _kernels():
     lib = op_builder.load("flash_block_sparse")
@@ -238,6 +337,20 @@ def _kernels():
                         + [strides, ctypes.c_float, i32, ptr])
         fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+def _agg_kernels():
+    lib = op_builder.load("flash_block_sparse_agg")
+    fwd, dq, dkv = (lib.ds_fbs_agg_fwd, lib.ds_fbs_agg_bwd_dq,
+                    lib.ds_fbs_agg_bwd_dkv)
+    if fwd.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
+        fwd.argtypes = [i32, i32] + [ptr] * 8 + [i32] * 7 + tail
+        dq.argtypes = [i32, i32] + [ptr] * 10 + [i32] * 7 + tail
+        dkv.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 + tail
+        fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+    return fwd, dq, dkv
 
 
 def _check(q, k, v, layout):
@@ -267,9 +380,50 @@ def _check(q, k, v, layout):
     return layout
 
 
+def _check_factor(nb, G):
+    """The super-tile factors the TPU's tables take: G divides the
+    layout's nb blocks and a tile's G·G bits fit 32."""
+    if not (isinstance(G, int) and G >= 1 and nb % G == 0 and G * G <= 32):
+        raise ValueError(f"aggregation factor G={G!r} must be an int >= 1 "
+                         f"dividing the layout's {nb} blocks, with G*G <= 32")
+
+
+def _check_bwd(q, out, lse, dout):
+    """The backward's own inputs; returns ``(dout, lse)`` in the forms
+    the kernels read (dO in q's dtype, last dim contiguous on the card;
+    lse contiguous)."""
+    b, s, h, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dO must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if tuple(lse.shape) != (b * h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [b·h, s]={(b * h, s)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if dout.dtype != q.dtype:
+        dout = dout.to(q.dtype)
+    if q.device.type != "cpu":
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        lse = lse.contiguous()
+    return dout, lse
+
+
+def _delta(out, dout):
+    """Δ = rowsum(dO∘O) as fp32 ``[b·h, s]``, computed outside the
+    kernels as the JAX package computes it outside Pallas."""
+    b, s, h, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(b * h, s).contiguous()
+
+
+def _launched(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def kernel_takes(q):
-    """Whether the B5 kernels take tensors like ``q`` ``[b, s, h, d]``:
-    on the card, fp32 or bf16, head_dim 64 or 128."""
+    """Whether the B5 and B6 kernels take tensors like ``q`` ``[b, s, h,
+    d]``: on the card, fp32 or bf16, head_dim 64 or 128."""
     return (q.is_cuda and q.dtype in _DTYPE_CODES
             and q.shape[-1] in HEAD_DIMS)
 
@@ -298,9 +452,7 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
                  luts.lut.data_ptr(), luts.cnt.data_ptr(), b, h, s, luts.nb,
                  luts.layout_heads, luts.kmax, strides, 1.0 / math.sqrt(d),
                  int(bool(causal)), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_block_sparse_fwd kernel launch failed: "
-                           f"CUDA error {rc}")
+    _launched(rc, "flash_block_sparse_fwd")
     flash_block_sparse_fwd.launches += 1
     return out, lse
 
@@ -317,25 +469,14 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
     ``flash_block_sparse_bwd.launches`` goes up by one) or raise.  No
     atomics: two runs give bitwise-equal gradients."""
     layout = _check(q, k, v, layout)
-    b, s, h, d = q.shape
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"out and dO must be {tuple(q.shape)}, got "
-                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
-    if tuple(lse.shape) != (b * h, s) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be fp32 [b·h, s]={(b * h, s)}, got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
-    if dout.dtype != q.dtype:
-        dout = dout.to(q.dtype)
+    dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
                                                 layout, causal)
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
     _check_cuda(q, k, v, None, extra=(dout, out))
-    lse = lse.contiguous()
+    b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-        .reshape(b * h, s).contiguous()
+    delta = _delta(out, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -352,9 +493,7 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
                  luts.tlut.data_ptr(), luts.tcnt.data_ptr(), b, h, s,
                  luts.nb, luts.layout_heads, luts.kmax, luts.qmax, strides,
                  1.0 / math.sqrt(d), int(bool(causal)), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_block_sparse_bwd kernel launch failed: "
-                           f"CUDA error {rc}")
+    _launched(rc, "flash_block_sparse_bwd")
     flash_block_sparse_bwd.launches += 1
     return dq, dk, dv
 
@@ -384,6 +523,165 @@ class FlashBlockSparse(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# ------------------------------------------------------ super-tile kernels
+def _agg_setup(q, k, v, layout, G):
+    """The checks every super-tile wrapper makes; returns the layout as
+    a numpy array."""
+    layout = _check(q, k, v, layout)
+    _check_factor(layout.shape[1], G)
+    return layout
+
+
+def _agg_common(q, tables, G):
+    """The arguments the three super-tile kernels share after their
+    tensors: batch, heads, s, super-rows, layout heads, G."""
+    b, s, h, _ = q.shape
+    return b, h, s, tables.ns, tables.slut.shape[0], G
+
+
+def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
+    """Super-tile flash forward (B6a) at aggregation factor ``G``;
+    returns ``(out, lse)``.
+
+    CPU tensors take :func:`flash_block_sparse_agg_reference`.  CUDA
+    tensors launch the Hopper kernel (bf16 or fp32, head_dim 64 or 128)
+    or raise.  Every launch adds one to
+    ``flash_block_sparse_agg_fwd.launches``."""
+    layout = _agg_setup(q, k, v, layout, G)
+    if q.device.type == "cpu":
+        return flash_block_sparse_agg_reference(q, k, v, layout, G, causal)
+    _check_cuda(q, k, v, None)
+    b, s, h, d = q.shape
+    st = device_luts(layout, q.device).super_tables(G)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 9)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    fwd, _, _ = _agg_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fwd(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 st.slut.data_ptr(), st.scnt.data_ptr(), st.smask.data_ptr(),
+                 *_agg_common(q, st, G), st.tmax, strides,
+                 1.0 / math.sqrt(d), int(bool(causal)), stream)
+    _launched(rc, "flash_block_sparse_agg_fwd")
+    flash_block_sparse_agg_fwd.launches += 1
+    return out, lse
+
+
+def _agg_bwd_strides(q, k, v, dout, grad):
+    return (ctypes.c_int64 * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *dout.stride()[:3], *grad.stride()[:3])
+
+
+def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
+                                  causal=False, delta=None):
+    """Super-tile dq (B6b) from the forward's out and lse; ``delta``,
+    Δ as fp32 ``[b·h, s]``, is computed when not given.
+
+    CPU tensors take :func:`flash_block_sparse_agg_bwd_reference`.  CUDA
+    tensors launch the Hopper kernel or raise; every launch adds one to
+    ``flash_block_sparse_agg_bwd_dq.launches``."""
+    layout = _agg_setup(q, k, v, layout, G)
+    dout, lse = _check_bwd(q, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_block_sparse_agg_bwd_reference(
+            q, k, v, out, lse, dout, layout, G, causal)[0]
+    _check_cuda(q, k, v, None, extra=(dout, out))
+    d = q.shape[-1]
+    st = device_luts(layout, q.device).super_tables(G)
+    delta = _delta(out, dout) if delta is None else delta
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, fn, _ = _agg_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), st.slut.data_ptr(),
+                st.scnt.data_ptr(), st.smask.data_ptr(),
+                *_agg_common(q, st, G), st.tmax,
+                _agg_bwd_strides(q, k, v, dout, dq), 1.0 / math.sqrt(d),
+                int(bool(causal)), stream)
+    _launched(rc, "flash_block_sparse_agg_bwd_dq")
+    flash_block_sparse_agg_bwd_dq.launches += 1
+    return dq
+
+
+def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
+                                   causal=False, delta=None):
+    """Super-tile dk and dv (B6c) over the transposed super-tile table;
+    returns ``(dk, dv)``.  As :func:`flash_block_sparse_agg_bwd_dq`, with
+    ``flash_block_sparse_agg_bwd_dkv.launches``."""
+    layout = _agg_setup(q, k, v, layout, G)
+    dout, lse = _check_bwd(q, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_block_sparse_agg_bwd_reference(
+            q, k, v, out, lse, dout, layout, G, causal)[1:]
+    _check_cuda(q, k, v, None, extra=(dout, out))
+    d = q.shape[-1]
+    st = device_luts(layout, q.device).super_tables(G)
+    delta = _delta(out, dout) if delta is None else delta
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, _, fn = _agg_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                st.stlut.data_ptr(), st.stcnt.data_ptr(),
+                st.stmask.data_ptr(), *_agg_common(q, st, G), st.qmax,
+                _agg_bwd_strides(q, k, v, dout, dk), 1.0 / math.sqrt(d),
+                int(bool(causal)), stream)
+    _launched(rc, "flash_block_sparse_agg_bwd_dkv")
+    flash_block_sparse_agg_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_block_sparse_agg_fwd.launches = 0
+flash_block_sparse_agg_bwd_dq.launches = 0
+flash_block_sparse_agg_bwd_dkv.launches = 0
+
+
+def flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout, G,
+                               causal=False):
+    """``(dq, dk, dv)`` by B6b then B6c, with Δ computed once for both;
+    the plain version once for CPU tensors."""
+    layout = _agg_setup(q, k, v, layout, G)
+    dout, lse = _check_bwd(q, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout,
+                                                    layout, G, causal)
+    delta = _delta(out, dout)
+    dq = flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
+                                       causal, delta)
+    return (dq,) + flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout,
+                                                  layout, G, causal, delta)
+
+
+class FlashBlockSparseAgg(torch.autograd.Function):
+    """``FlashBlockSparseAgg.apply(q, k, v, layout, G, causal)`` -> out
+    ``[b, s, h, d]``: B6a forward, B6b and B6c backward.  The layout and
+    G get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, G, causal=False):
+        out, lse = flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.layout, ctx.G, ctx.causal = layout, G, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_block_sparse_agg_bwd(q, k, v, out, lse, dout,
+                                                ctx.layout, ctx.G,
+                                                ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_block_sparse_attention(q, k, v, layout, causal=False,
                                  q_agg="auto"):
     """Block-sparse flash attention on ``[b, s, h, d]`` inputs,
@@ -394,16 +692,11 @@ def flash_block_sparse_attention(q, k, v, layout, causal=False,
     array every call and its device tables are built once.  ``q_agg``
     ("auto", "never" or an explicit factor) resolves to G as in the JAX
     package.  ``G == 1`` runs the B5 kernels on bare ``[blk, blk]``
-    tiles.  ``G > 1`` is where the JAX package runs its G×G super-tile
-    kernels, which are not ported yet: that raises, on any device, and
-    does not quietly run B5."""
+    tiles, ``G > 1`` the B6 kernels on G×G super-tiles; on the card a
+    call launches the kernels it resolves to or raises."""
     layout = _check(q, k, v, layout)
     nb = layout.shape[1]
     G = _pick_q_agg(q.shape[1] // nb, nb, q_agg)
     if G > 1:
-        raise NotImplementedError(
-            f"q_agg={q_agg!r} at layout block {q.shape[1] // nb} resolves "
-            f"to G={G} super-tiles, whose kernels are not ported yet "
-            f"(ROADMAP B6); q_agg='never' runs the bare-tile kernels, and "
-            f"so does 'auto' for layout blocks above 128 rows")
+        return FlashBlockSparseAgg.apply(q, k, v, layout, G, bool(causal))
     return FlashBlockSparse.apply(q, k, v, layout, bool(causal))

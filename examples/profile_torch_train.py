@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on the card, for the PyTorch/CUDA port.
 
-Trains GPT-2-medium at full width and depth on one CUDA card, set up by
-``chip_smoke.train_setup`` exactly as ``chip_smoke.py``'s train phase
-(bench.py's GPT-2 leg: seq 1024, micro-batch 8, dropout 0.1, Lamb lr
-1e-4, ZeRO-2, bf16, random weights from a numpy seed), or, with
-``--sparse``, by ``chip_smoke.sparse_train_setup`` as its sparse train
-phase (4096 positions, seq 4096, micro-batch 2, block-sparse attention
-under the Fixed unidirectional layout of 256-row blocks):
+Trains one of ``chip_smoke.py``'s train set-ups on one CUDA card, at
+full width and depth, exactly as that script's phase does:
 
-    python3 examples/profile_torch_train.py [--sparse] [--out PATH]
+- default: GPT-2-medium, ``chip_smoke.train_setup`` (bench.py's GPT-2
+  leg: seq 1024, micro-batch 8, dropout 0.1, Lamb lr 1e-4, ZeRO-2, bf16,
+  random weights from a numpy seed);
+- ``--sparse``: ``chip_smoke.sparse_train_setup`` (GPT-2-medium, seq
+  4096, micro-batch 2, block-sparse attention under the Fixed
+  unidirectional layout of 256-row blocks: B5);
+- ``--bert``: ``chip_smoke.bert_train_setup`` (BERT-large pretraining,
+  seq 128, micro-batch 64, MLM gather of 20 + NSP);
+- ``--bert-sparse``: ``chip_smoke.bert_sparse_train_setup`` (BERT-large,
+  seq 4096, micro-batch 2, Fixed bidirectional layout of 128-row blocks:
+  the super-tile kernels B6).
+
+    python3 examples/profile_torch_train.py [--sparse | --bert |
+        --bert-sparse] [--out PATH]
 
 Step wall time is a host clock around ``train_batch`` calls that end in
 ``torch.cuda.synchronize()``, median of 5 after 2 warm-up steps.  Device
 busy time is the sum of the card's kernel and copy times that
 ``torch.profiler`` records over 2 more steps; idle share is
 1 - busy / wall.  Busy time is split by kernel family: the flash kernels
-B1 (forward), B2a and B2b (backward), the block-sparse kernels B5a
-(forward) and B5b (its dq and its dk/dv kernel), matrix products
-(cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies, the optimizer).
+B1 (forward), B2a and B2b (backward), B3 (fused backward), the
+block-sparse kernels B5a (forward) and B5b (its dq and its dk/dv
+kernel), the super-tile kernels B6a, B6b and B6c, matrix products
+(cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies,
+the optimizer).
 Prints one JSON object (also written to ``--out PATH``) with the card's
 name and power limit beside the numbers.
 """
@@ -37,12 +47,27 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (SPARSE_ATTN, TRAIN_ATTN,  # noqa: E402
-                        sparse_train_setup, train_setup)
+import chip_smoke  # noqa: E402
+
+# --mode -> (set-up, model name, (batch, seq))
+SETUPS = {
+    "gpt2": (chip_smoke.train_setup, "gpt2-medium",
+             chip_smoke.TRAIN_ATTN[0::2]),
+    "sparse": (chip_smoke.sparse_train_setup, "gpt2-medium",
+               chip_smoke.SPARSE_ATTN[0::2]),
+    "bert": (chip_smoke.bert_train_setup, "bert-large",
+             (chip_smoke.BERT_BATCH, chip_smoke.BERT_SEQ)),
+    "bert-sparse": (chip_smoke.bert_sparse_train_setup, "bert-large",
+                    chip_smoke.SPARSE_ATTN[0::2]),
+}
 
 FAMILIES = (("B1 flash forward", ("flash_fwd",)),
             ("B2a flash dq", ("flash_bwd_dq",)),
             ("B2b flash dk/dv", ("flash_bwd_dkv",)),
+            ("B3 flash fused backward", ("flash_bwd_fused",)),
+            ("B6a super-tile forward", ("agg_fwd",)),
+            ("B6b super-tile dq", ("agg_bwd_dq",)),
+            ("B6c super-tile dk/dv", ("agg_bwd_dkv",)),
             ("B5a sparse flash forward", ("fbs_fwd",)),
             ("B5b sparse flash dq", ("fbs_bwd_dq",)),
             ("B5b sparse flash dk/dv", ("fbs_bwd_dkv",)),
@@ -62,9 +87,12 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the result to this "
                         "JSON file")
-    parser.add_argument("--sparse", action="store_true", help="profile the "
-                        "sparse train set-up (seq 4096, block-sparse "
-                        "attention) instead of the dense one")
+    modes = parser.add_mutually_exclusive_group()
+    for mode in ("sparse", "bert", "bert-sparse"):
+        modes.add_argument(f"--{mode}", dest="mode", action="store_const",
+                           const=mode, help=f"profile the {mode} train "
+                           f"set-up of chip_smoke.py instead of GPT-2's")
+    parser.set_defaults(mode="gpt2")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
@@ -73,9 +101,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    engine, cfg, batch = (sparse_train_setup if args.sparse
-                          else train_setup)()
-    b, _, s, _ = SPARSE_ATTN if args.sparse else TRAIN_ATTN
+    setup, model_name, (b, s) = SETUPS[args.mode]
+    engine, cfg, batch = setup()
 
     def step():
         return engine.train_batch(iter([batch]))
@@ -107,8 +134,9 @@ def main():
         by_family[family(name)] += us
     busy = sum(by_name.values()) / 1e3 / steps if events else None
     result = {
-        "card": card, "model": "gpt2-medium", "layers": cfg.num_layers,
-        "attn_impl": cfg.attn_impl,
+        "card": card, "model": model_name, "mode": args.mode,
+        "layers": getattr(cfg, "num_layers", None)
+        or cfg.num_hidden_layers, "attn_impl": cfg.attn_impl,
         "seq": s, "micro_batch": b, "dtype": "bfloat16",
         "torch": torch.__version__, "step_wall_ms": wall,
         "step_wall_ms_all": walls,

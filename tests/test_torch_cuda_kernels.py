@@ -11,7 +11,8 @@ the summation order differs), bf16 2e-2 (both round P to bf16 before P·V
 and the output to bf16, at different points of a different summation
 order); the backward fp32 5e-4 (the flash tests' grad tolerance), bf16
 1e-2 (dS and P rounded to bf16 after fp32 sums in another order).  The
-block-sparse kernels B5a and B5b are held to the same four bounds.
+block-sparse kernels B5a and B5b and the super-tile kernels B6a, B6b and
+B6c are held to the same four bounds.
 """
 
 import warnings
@@ -328,6 +329,95 @@ def test_block_sparse_kernels_match_plain(cuda_device, dtype, name):
         assert bool((lse.view(2, h, s)[:, 1, rows] == fbs.NEG_INF).all())
 
 
+def agg_layouts():
+    """name -> (layout, s, heads, d, G, causal)."""
+    import random
+    random.seed(1)
+    rs = np.random.RandomState(1)
+    per_head = (rs.rand(4, 16, 16) < 0.3).astype(np.int64)
+    per_head[:, :, 0] = 1
+    per_head[1, 4:8] = 0        # head 1: super-row 1 of 4 blocks is empty
+    per_head[2, 9] = 0          # head 2: an empty row in an active super-row
+    return {
+        "bert_fixed_blk128_G4": (FixedSparsityConfig(
+            num_heads=4, block=128, num_local_blocks=4, num_global_blocks=1,
+            attention="bidirectional", different_layout_per_head=True,
+            num_different_global_patterns=4).make_layout(1024), 1024, 4, 64,
+            4, False),
+        "bigbird_blk64_G4": (BigBirdSparsityConfig(
+            num_heads=4, block=64, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1)
+            .make_layout(1024)[:1], 1024, 4, 64, 4, False),
+        "per_head_blk16_G4_causal": (per_head, 256, 4, 64, 4, True),
+        "per_head_blk32_G2_d128": (per_head, 512, 4, 128, 2, False),
+        "blk24_G3_causal": (np.tril(np.ones((1, 6, 6), np.int64)), 144, 2,
+                            64, 3, True),
+        "blk256_G2": (np.tril(np.ones((1, 4, 4), np.int64)), 1024, 2, 64, 2,
+                      True),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", sorted(agg_layouts()))
+def test_super_tile_kernels_match_plain_and_b5(cuda_device, dtype, name):
+    """B6a, B6b and B6c against their plain versions on fused-QKV views
+    (out and lse at 2e-5 / 2e-2 with the MAX_FLOOR and NEG_INF rows
+    equal, grads at 5e-4 / 1e-2 from the kernel's own out and lse),
+    against B5 on the same inputs (the same function: out and grads at
+    the same bounds), a second run bitwise equal, one launch per call of
+    each wrapper."""
+    layout, s, h, d, G, causal = agg_layouts()[name]
+    g = torch.Generator().manual_seed(len(name))
+    qkv = torch.randn(2, s, 3, h, d, generator=g).to(cuda_device, dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(2, s, h, d, generator=g).to(cuda_device, dtype)
+    counters = (fbs.flash_block_sparse_agg_fwd,
+                fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    grads = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout,
+                                           G, causal)
+    again = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout,
+                                           G, causal)
+    out2, lse2 = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    gtol = GRAD_TOLS[dtype]
+    ref_out, ref_lse = fbs.flash_block_sparse_agg_reference(q, k, v, layout,
+                                                            G, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    for special in (fbs.MAX_FLOOR, fbs.NEG_INF):
+        assert torch.equal(lse == special, ref_lse == special)
+    ref = fbs.flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout,
+                                                   layout, G, causal)
+    for a, a2, r in zip(grads, again, ref):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a.float(), r.float(), atol=gtol,
+                                   rtol=gtol)
+    b5_out, b5_lse = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    b5_grads = fbs.flash_block_sparse_bwd(q, k, v, b5_out, b5_lse, dout,
+                                          layout, causal)
+    torch.testing.assert_close(out.float(), b5_out.float(), atol=tol,
+                               rtol=tol)
+    for a, r in zip(grads, b5_grads):
+        torch.testing.assert_close(a.float(), r.float(), atol=gtol,
+                                   rtol=gtol)
+    if name.startswith("per_head_blk16"):
+        blk = s // layout.shape[1]
+        rows = slice(4 * blk, 8 * blk)       # head 1's empty super-row
+        assert not out[:, rows, 1].any() and not grads[0][:, rows, 1].any()
+        assert bool((lse.view(2, h, s)[:, 1, rows] == fbs.NEG_INF).all())
+        empty = slice(9 * blk, 10 * blk)     # head 2's empty row
+        assert bool((lse.view(2, h, s)[:, 2, empty] == fbs.MAX_FLOOR).all())
+
+
 @pytest.mark.cuda
 def test_block_sparse_wrappers_raise_on_what_the_kernels_do_not_take(
         cuda_device):
@@ -339,9 +429,14 @@ def test_block_sparse_wrappers_raise_on_what_the_kernels_do_not_take(
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fbs.flash_block_sparse_fwd(q, q, q, layout)
     q = torch.zeros(1, 64, 2, 64, device=cuda_device)
-    for q_agg in (2, "auto"):     # blk 16: the JAX package aggregates
-        with pytest.raises(NotImplementedError, match="B6"):
-            fbs.flash_block_sparse_attention(q, q, q, layout, q_agg=q_agg)
+    for G in (3, 0):              # does not divide the 4 blocks, or < 1
+        with pytest.raises(ValueError, match="aggregation factor"):
+            fbs.flash_block_sparse_agg_fwd(q, q, q, layout, G)
+    counters = (fbs.flash_block_sparse_fwd, fbs.flash_block_sparse_agg_fwd)
+    for q_agg, G in ((2, 2), ("auto", 4)):   # blk 16: the JAX package
+        before = [c.launches for c in counters]   # aggregates
+        fbs.flash_block_sparse_attention(q, q, q, layout, q_agg=q_agg)
+        assert [c.launches - b for c, b in zip(counters, before)] == [0, 1]
 
 
 @pytest.mark.cuda
@@ -349,9 +444,9 @@ def test_sparse_layer_on_the_card_launches_or_raises(cuda_device,
                                                      monkeypatch):
     """The layer's sparse core on CUDA tensors: at a layout block where
     the JAX package runs its work-list kernels (256 rows) it launches
-    B5a; where the JAX package runs super-tiles (32 rows) it raises,
-    naming them, and takes the gather path only when
-    ``DS_SPARSE_FLASH=never`` asks for it."""
+    B5a, where it runs super-tiles (32 rows) B6a, and it takes the gather
+    path only when ``DS_SPARSE_FLASH=never`` asks for it; all three
+    agree."""
     from deepspeed_tpu_torch.models.layers import TransformerLayer
 
     monkeypatch.delenv("DS_SPARSE_FLASH", raising=False)
@@ -366,14 +461,18 @@ def test_sparse_layer_on_the_card_launches_or_raises(cuda_device,
         return layer._sparse_attention(q, q, q, None, None, None, True)
 
     before = fbs.flash_block_sparse_fwd.launches
+    before_agg = fbs.flash_block_sparse_agg_fwd.launches
     out = core(256)
     assert fbs.flash_block_sparse_fwd.launches == before + 1
-    with pytest.raises(NotImplementedError, match="B6"):
-        core(32)
+    out32 = core(32)
+    assert fbs.flash_block_sparse_agg_fwd.launches == before_agg + 1
     monkeypatch.setenv("DS_SPARSE_FLASH", "never")
     gathered = core(256)
+    gathered32 = core(32)
     assert fbs.flash_block_sparse_fwd.launches == before + 1
+    assert fbs.flash_block_sparse_agg_fwd.launches == before_agg + 1
     assert float((gathered - out).abs().max()) < 1e-4
+    assert float((gathered32 - out32).abs().max()) < 1e-4
 
 
 @pytest.mark.cuda

@@ -105,6 +105,61 @@ def test_sparse_trajectory_matches_the_jax_engine():
     np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL, atol=0)
 
 
+BERT_TINY = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                 num_attention_heads=4, max_position_embeddings=64,
+                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 max_predictions_per_seq=5)
+
+
+def bert_batches(n, micro=2, seq=32, seed=2):
+    """bing_bert batches: ids, a padded attention mask, token types,
+    exactly 4 MLM labels a row (-100 elsewhere) and NSP labels."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, 128, size=(micro, seq)).astype(np.int32)
+        labels = np.full((micro, seq), -100, np.int32)
+        for r in range(micro):
+            pos = rng.permutation(seq)[:4]
+            labels[r, pos] = ids[r, pos]
+        mask = np.ones((micro, seq), np.int32)
+        mask[-1, seq - 5:] = 0
+        out.append({"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": (np.arange(seq)[None] >= seq // 2)
+                    .repeat(micro, 0).astype(np.int32),
+                    "masked_lm_labels": labels,
+                    "next_sentence_labels": rng.integers(0, 2, size=micro)
+                    .astype(np.int32)})
+    return out
+
+
+def test_bert_trajectory_matches_the_jax_engine():
+    """Ten steps of BERT pretraining (MLM gather + NSP, a padded mask),
+    Lamb with accumulation 2 and clipping 1.0, on both engines: rtol 1e-5
+    as for GPT-2."""
+    from deepspeed_tpu.models.bert import BertConfig as JBert
+    from deepspeed_tpu.models.bert import BertForPreTrainingTPU
+    from deepspeed_tpu_torch.models.bert import BertConfig as TBert
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining, \
+        random_params as bert_params
+
+    params = bert_params(TBert(**BERT_TINY), seed=3)
+    batches = bert_batches(20)
+    mesh = make_mesh({"data": 1}, devices=jax.devices("cpu")[:1])
+    config = ds_config("Lamb", 2, 1.0)
+    jengine, *_ = jds.initialize(
+        model=BertForPreTrainingTPU(JBert(**BERT_TINY)),
+        model_parameters=jax.tree_util.tree_map(jax.numpy.asarray, params),
+        config=dict(config), mesh=mesh)
+    engine, *_ = tds.initialize(model=BertForPreTraining(TBert(**BERT_TINY)),
+                                model_parameters=params, config=dict(config),
+                                device="cpu")
+    it_j, it_t = iter(batches), iter(batches)
+    want = [float(jengine.train_batch(it_j)) for _ in range(10)]
+    got = [float(engine.train_batch(it_t)) for _ in range(10)]
+    np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL, atol=0)
+
+
 def test_stepwise_api_equals_train_batch():
     config = ds_config("Adam", 2, 1.0)
     batches = make_batches(6)

@@ -1,17 +1,17 @@
 """The port's block-sparse flash attention against the JAX package's.
 
-The host tables (``build_block_luts``) and ``_pick_q_agg`` are EQUAL, entry
-for entry.  The
-plain versions of B5a and B5b, which the wrappers run for CPU tensors,
-match the Pallas kernels in interpret mode on the same numpy inputs: out
-and lse at 2e-5, the gradients at 5e-4 (fp32: the same operations, another
+The host tables (``build_block_luts``, ``build_super_luts``) and
+``_pick_q_agg`` are EQUAL, entry for entry.  The plain versions of B5a
+and B5b, and of the super-tile kernels B6a, B6b and B6c, which the
+wrappers run for CPU tensors, match the Pallas kernels in interpret mode
+on the same numpy inputs: out and lse at 2e-5 (the MAX_FLOOR and NEG_INF
+rows exactly), the gradients at 5e-4 (fp32: the same operations, another
 summation order), over random irregular, BigBird, Fixed-unidirectional and
 empty-row layouts, blocks of 16 to 128 rows, causal and not, shared and
-per-head layouts.  The autograd function on the CPU equals autograd
+per-head layouts.  The autograd functions on the CPU equal autograd
 through the gather path, and a call that the JAX package resolves to an
 aggregation factor above 1 ("auto" at blocks of up to 128 rows, or an
-explicit factor) raises, naming the roadmap item of the kernels that are
-still to be ported."""
+explicit factor) goes through the super-tile functions."""
 
 import functools
 import random
@@ -198,24 +198,154 @@ def test_bf16_plain_versions_round_where_the_kernels_do():
 
 
 # ---------------------------------------------------------------- checks
-@pytest.mark.parametrize("blk,nb,q_agg,runs", [
-    (16, 8, "auto", False), (16, 8, None, False), (16, 8, 2, False),
-    (128, 4, "auto", False), (256, 4, 2, False), (16, 8, "never", True),
-    (16, 8, 1, True), (16, 1, "auto", True), (256, 4, "auto", True),
-    (512, 2, None, True)])
-def test_aggregation_above_one_raises_naming_the_roadmap_item(blk, nb, q_agg,
-                                                              runs):
-    """The entry point runs where the JAX one runs its work-list kernels
-    (G == 1) and raises where it runs the super-tile kernels (G > 1)."""
-    assert (jfbs._pick_q_agg(blk, nb, q_agg) == 1) == runs
-    q = torch.zeros(1, blk * nb, 2, 8)
+# ------------------------------------------------------ super-tile (B6)
+def super_layouts():
+    """name -> (layout, G): the JAX test's 4x4 example, and layouts at
+    G = 2, 3, 4, shared and per-head, one with an empty super-row."""
+    example = np.zeros((1, 4, 4), np.int64)
+    example[0, 0, [0, 2]] = 1
+    example[0, 1, [1]] = 1
+    example[0, 2, [2, 3]] = 1
+    example[0, 3, [3]] = 1
+    rs = np.random.RandomState(7)
+    per_head = (rs.rand(3, 12, 12) < 0.3).astype(np.int64)
+    per_head[1, 4:8] = 0                     # head 1: super-row 1 empty at G=4
+    return {"jax_example_G2": (example, 2),
+            "irregular_perhead_G2": (LAYOUTS["irregular_perhead_blk16"][0], 2),
+            "irregular_perhead_G4": (LAYOUTS["irregular_perhead_blk16"][0], 4),
+            "bigbird_shared_G4": (LAYOUTS["bigbird_blk16"][0], 4),
+            "perhead_empty_super_row_G3": (per_head, 3),
+            "perhead_empty_super_row_G4": (per_head, 4)}
+
+
+SUPER = super_layouts()
+
+
+@pytest.mark.parametrize("name", sorted(SUPER))
+def test_super_luts_equal(name):
+    layout, G = SUPER[name]
+    got = tfbs.build_super_luts(layout, G)
+    want = jfbs.build_super_luts(layout, G)
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int32 and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    if name == "jax_example_G2":             # bit row_g·G + col_g
+        assert got[2][0, 0, :2].tolist() == [0b1001, 0b0001]
+    if name == "perhead_empty_super_row_G4":
+        assert got[1][1, 1] == 0
+
+
+def agg_cases():
+    """name -> (layout, b, s, h, G).  An empty row inside an active
+    super-row (lse MAX_FLOOR) and an empty super-row (NEG_INF) in
+    ``perhead_blk32``, whose heads have a layout each."""
+    rs = np.random.RandomState(8)
+    per_head = (rs.rand(2, 8, 8) < 0.4).astype(np.int64)
+    per_head[:, :, 0] = 1
+    per_head[0, 5] = 0              # row 5 empty, super-row 1 active
+    per_head[1, 4:8] = 0            # head 1: super-row 1 empty
+    return {"perhead_blk32_G4": (per_head, 1, 256, 2, 4),
+            "bigbird_blk16_G4": (LAYOUTS["bigbird_blk16"][0], 1, 128, 2, 4),
+            "triangle_nb6_G3": (np.tril(np.ones((1, 6, 6), np.int64)), 1,
+                                192, 2, 3)}
+
+
+AGG = agg_cases()
+
+
+def jax_agg_forward(q, k, v, layout, G, causal):
+    luts = [jnp.asarray(a) for a in jfbs.build_super_luts(layout, G)]
+    out, res = jfbs._fbs_fwd_agg(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), *luts, causal, True, G)
+    return np.asarray(out), np.asarray(res[-1])[:, 0]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("name", sorted(AGG))
+def test_plain_agg_versions_match_the_pallas_agg_kernels(name, causal):
+    """``flash_block_sparse_agg_fwd`` and ``_agg_bwd`` on CPU tensors (the
+    plain versions of B6a, B6b, B6c) against ``_fwd_kernel_agg`` and
+    ``jax.grad`` of ``flash_block_sparse_attention(q_agg=G)``, both in
+    interpret mode: out and lse at 2e-5 with the rows that see no pair
+    equal exactly (MAX_FLOOR inside an active super-row, NEG_INF in an
+    empty one), dq, dk, dv at 5e-4."""
+    layout, b, s, h, G = AGG[name]
+    q, k, v, w = inputs(9, b, s, h, d=64)
+    want_out, want_lse = jax_agg_forward(q, k, v, layout, G, causal)
+    want = jax.grad(
+        lambda q_, k_, v_: jnp.sum(jfbs.flash_block_sparse_attention(
+            q_, k_, v_, layout, causal=causal, interpret=True, q_agg=G)
+            * jnp.asarray(w)), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv, tw = (torch.from_numpy(x) for x in (q, k, v, w))
+    out, lse = tfbs.flash_block_sparse_agg_fwd(tq, tk, tv, layout, G, causal)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    for special in (tfbs.MAX_FLOOR, tfbs.NEG_INF):
+        np.testing.assert_array_equal(lse.numpy() == special,
+                                      want_lse == special)
+    got = tfbs.flash_block_sparse_agg_bwd(tq, tk, tv, out, lse, tw, layout,
+                                          G, causal)
+    for g, j, nm in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=nm)
+    if name == "perhead_blk32_G4":
+        lse_h = lse.numpy().reshape(b, h, s)
+        assert (lse_h[:, 0, 160:192] == tfbs.MAX_FLOOR).all()
+        assert (lse_h[:, 1, 128:] == tfbs.NEG_INF).all()
+        assert not out.numpy()[:, 160:192, 0].any()
+        assert not got[0].numpy()[:, 128:, 1].any()     # zero dq
+
+
+@pytest.mark.parametrize("blk,nb,q_agg,G", [
+    (16, 8, "auto", 4), (16, 8, None, 4), (16, 8, 2, 2),
+    (128, 4, "auto", 4), (256, 4, 2, 2), (16, 8, "never", 1),
+    (16, 8, 1, 1), (16, 1, "auto", 1), (256, 4, "auto", 1),
+    (512, 2, None, 1)])
+def test_aggregation_above_one_raises_naming_the_roadmap_item(
+        monkeypatch, blk, nb, q_agg, G):
+    """(The name is the one this test had while the super-tile kernels
+    were not ported and ``G > 1`` raised.)  The entry point resolves G as
+    the JAX one does: ``G > 1`` goes
+    through the super-tile functions (the plain version of B6a here) and
+    ``G == 1`` through B5's; either way the result and the gradients
+    equal the gather path's."""
+    assert jfbs._pick_q_agg(blk, nb, q_agg) == G
+    calls = []
+    for name in ("flash_block_sparse_agg_reference",
+                 "flash_block_sparse_reference"):
+        real = getattr(tfbs, name)
+        monkeypatch.setattr(tfbs, name, lambda *a, _n=name, _r=real, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    rng = np.random.RandomState(blk + nb)
+    qkv = rng.randn(1, blk * nb, 3, 2, 8).astype(np.float32)
     layout = np.tril(np.ones((1, nb, nb), np.int64))
-    if runs:
-        out = tfbs.flash_block_sparse_attention(q, q, q, layout, q_agg=q_agg)
-        assert out.shape == q.shape
-    else:
-        with pytest.raises(NotImplementedError, match="B6"):
-            tfbs.flash_block_sparse_attention(q, q, q, layout, q_agg=q_agg)
+    results = []
+    for fn in (lambda *a: tfbs.flash_block_sparse_attention(*a, q_agg=q_agg),
+               tbs.block_sparse_attention):
+        t = torch.from_numpy(qkv.copy()).requires_grad_()
+        out = fn(t[:, :, 0], t[:, :, 1], t[:, :, 2], layout)
+        out.square().sum().backward()
+        results.append((out.detach().numpy(), t.grad.numpy()))
+    assert calls == ["flash_block_sparse_agg_reference" if G > 1
+                     else "flash_block_sparse_reference"]
+    np.testing.assert_allclose(results[0][0], results[1][0], atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    np.testing.assert_allclose(results[0][1], results[1][1], atol=GRAD_TOL,
+                               rtol=GRAD_TOL)
+
+
+def test_super_tile_wrappers_check_the_factor():
+    q = torch.zeros(1, 96, 2, 64)
+    layout = np.ones((1, 6, 6), np.int64)
+    for G in (4, 0, 6, 2.0):
+        with pytest.raises(ValueError, match="aggregation factor"):
+            tfbs.flash_block_sparse_agg_fwd(q, q, q, layout, G)
+    out, lse = tfbs.flash_block_sparse_agg_fwd(q, q, q, layout, 3)
+    assert out.shape == q.shape and lse.shape == (2, 96)
 
 
 def test_entry_point_checks_shapes_like_the_jax_one():
@@ -256,3 +386,9 @@ def test_device_luts_are_built_once_per_layout_and_device(monkeypatch):
     assert key not in tfbs._lut_cache
     tfbs.device_luts(layout.tolist(), "cpu")     # not cacheable: rebuilt
     assert len(calls) == 3
+    st = a.super_tables(4)
+    assert a.super_tables(4) is st and a.super_tables(2) is not st
+    for got, want in zip((st.slut, st.scnt, st.smask, st.stlut, st.stcnt,
+                          st.stmask), tfbs.build_super_luts(layout, 4)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -201,6 +201,63 @@ def test_transformer_layer_forward_and_grads_match_jax(pre_ln, causal,
                                    rtol=5e-4, err_msg=path)
 
 
+@pytest.mark.parametrize("pre_ln", [False, True], ids=["post_ln", "pre_ln"])
+def test_query_gathered_positions_match_jax(pre_ln):
+    """``TransformerLayer.apply(positions=...)`` (BERT's last layer under
+    the MLM gather: queries at K rows, keys and values over the whole
+    sequence, a key-padding mask), dropout off, fp32: the [b, K, h]
+    output at 2e-5 and the grads of x and every param at 5e-4 against
+    the JAX layer; the rows equal the full layer's at those positions."""
+    from deepspeed_tpu.models.layers import TransformerLayer as JLayer
+    from deepspeed_tpu_torch.models.layers import TransformerLayer
+
+    h, heads, b, s = 64, 4, 2, 16
+    rng = np.random.RandomState(20 + pre_ln)
+    params = layer_params(rng, h, 4 * h)
+    x = rand(rng, b, s, h)
+    positions = np.array([[0, 3, 7, 12, 2], [0, 15, 1, 9, 4]], np.int64)
+    w = rand(rng, b, positions.shape[1], h)
+    kpm = np.ones((b, s), np.float32)
+    kpm[1, 11:] = 0.0
+    kw = dict(hidden_size=h, heads=heads, attn_dropout_ratio=0.0,
+              hidden_dropout_ratio=0.0, pre_layer_norm=pre_ln,
+              layer_norm_eps=1e-12)
+    jlayer = JLayer(**kw)
+
+    def jloss(p, x_):
+        out = jlayer.apply(p, x_, key_padding_mask=jnp.asarray(kpm),
+                           positions=jnp.asarray(positions, jnp.int32))
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(nested(params, jnp.asarray),
+                                              jnp.asarray(x))
+    tp = nested(params, lambda a: torch.from_numpy(a).requires_grad_())
+    tx = torch.from_numpy(x).requires_grad_()
+    layer = TransformerLayer(**kw)
+    out = layer.apply(tp, tx, key_padding_mask=torch.from_numpy(kpm),
+                      positions=torch.from_numpy(positions))
+    (out * torch.from_numpy(w)).sum().backward()
+    assert out.shape == (b, positions.shape[1], h)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=5e-4,
+                               rtol=5e-4)
+    want = dict(flat_items(nested(jgp, np.asarray)))
+    for path, t in flat_items(tp):
+        np.testing.assert_allclose(t.grad.numpy(), want[path], atol=5e-4,
+                                   rtol=5e-4, err_msg=path)
+    full = layer.apply(nested(params, torch.from_numpy), torch.from_numpy(x),
+                       key_padding_mask=torch.from_numpy(kpm))
+    rows = torch.take_along_dim(full, torch.from_numpy(positions)[..., None],
+                                dim=1)
+    np.testing.assert_allclose(out.detach().numpy(), rows.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="dense bidirectional"):
+        TransformerLayer(**dict(kw, causal=True)).apply(
+            tp, tx, positions=torch.from_numpy(positions))
+
+
 def sparse_configs(heads, attention):
     kw = dict(num_heads=heads, block=16, num_local_blocks=2,
               num_global_blocks=1, attention=attention)

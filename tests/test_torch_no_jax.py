@@ -90,8 +90,10 @@ def test_sparse_subpackage_imports_with_jax_blocked():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port, ``runtime.engine`` among them."""
-    assert "deepspeed_tpu_torch.runtime.engine" in PORT_MODULES
+    """Every module of the port, ``runtime.engine`` and ``models.bert``
+    among them."""
+    assert {"deepspeed_tpu_torch.runtime.engine",
+            "deepspeed_tpu_torch.models.bert"} <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
