@@ -31,16 +31,22 @@ order; any failure raises, so the script exits non-zero:
               dropout) vs ``flash_attention_bwd_reference`` with the
               ``philox_keep_mask`` mask, fp32 (TF32 off) and bf16: the
               buckets on fused-QKV views, causal and not, a fully masked
-              batch row (exactly zero grads), masked keys (exactly zero
-              dk, dv), ragged s, kv_len != s, d=128, dropout 0.1; two
-              runs bitwise equal; B4's mask read back from B1 equal to
-              the plain version's with a binomial keep rate; B1+B4, B2a
-              and B2b again at GPT-2-medium's training attention (b=8,
-              s=1024, bf16, dropout 0.1), B3 at the train-parity phase's,
-              and B1+B3 at the BERT train phase's (b=64, s=128, and its
-              last layer's 21 gathered rows against 128 keys); device
-              times at the training attentions beside the plain
-              version's, SDPA's backward and the bound;
+              batch row (exactly zero grads, also at s=1024), masked keys
+              (exactly zero dk, dv), ragged s (65: one row past a 64-row
+              tile), kv_len != s, causal with kv_len > s, kv_len 201
+              under dropout, d=128 (at s=1024 on fused-QKV views),
+              dropout 0.1; two runs bitwise equal; B4's mask read back
+              from B1 equal to the plain version's with a binomial keep
+              rate; B1+B4, B2a and B2b again at GPT-2-medium's training
+              attention (b=8, s=1024, bf16, dropout 0.1), B3 at the
+              train-parity phase's, and B1+B3 at the BERT train phase's
+              (b=64 and b=8, s=128, and its last layer's 21 gathered rows
+              against 128 keys); device times at the training attentions
+              beside the plain version's, SDPA's (forward and backward,
+              with and without dropout) and the bound, B2a+B2b with and
+              without dropout with the spread of their 20 repeats and the
+              SM clock and power draw before and after, and B3 against
+              B2a+B2b at BERT's shapes, behind ``use_fused_backward``;
 4. serve    — GPT-2-medium, bf16, random weights from a fixed numpy seed,
               16 staggered requests; every request gets its 32 tokens and
               B1 runs once per layer per prefill;
@@ -89,7 +95,8 @@ order; any failure raises, so the script exits non-zero:
               30528), seq 128, micro-batch 64, attention mask of ones,
               MLM gather of 20 + NSP, dropout 0.1, Lamb, ZeRO-2, bf16: 2
               warm-up and 5 timed steps; finite, falling losses, B1 and
-              one backward (B3, or B2a+B2b) per layer per step; step ms,
+              one backward per layer per step (B3 or B2a+B2b, as
+              ``use_fused_backward`` picks for bf16); step ms,
               samples/s, MFU, peak memory;
 13. bert sparse train — the same model with 4096 positions and
               ``attn_impl="sparse"`` (Fixed bidirectional, 128-row
@@ -211,13 +218,12 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, calls=10, repeats=20, warmup=3):
-    """Device time per call, in ms: the median over ``repeats`` runs of
-    ``calls`` back-to-back calls between two CUDA events, each run's
-    time over ``calls``.  A spin kernel holds the stream until the host
-    has queued the whole run, so no host time is in it; a run whose
-    start event already fired when its last call was queued is retried
-    with a longer spin."""
+def device_times(fn, calls=10, repeats=20, warmup=3):
+    """Device time per call, in ms, of each of ``repeats`` runs of
+    ``calls`` back-to-back calls between two CUDA events.  A spin kernel
+    holds the stream until the host has queued the whole run, so no host
+    time is in it; a run whose start event already fired when its last
+    call was queued is retried with a longer spin."""
     for _ in range(warmup):
         fn()
     spin = SPIN_CYCLES
@@ -239,7 +245,22 @@ def device_ms(fn, calls=10, repeats=20, warmup=3):
             spin *= 2
             check(spin <= 64 * SPIN_CYCLES, "the host cannot queue a "
                   "timed run within the spin")
-    return statistics.median(times)
+    return times
+
+
+def device_ms(fn, calls=10, repeats=20, warmup=3):
+    """The median of :func:`device_times`."""
+    return statistics.median(device_times(fn, calls, repeats, warmup))
+
+
+def clocks_line():
+    """The card's SM clock, its maximum and the power draw, as
+    ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def visible_pairs(q, k, mask, causal):
@@ -441,7 +462,15 @@ def backward_cases():
         ("dropout_s1024", 1, 16, 1024, 1024, 64, True, "none", True, DROPOUT),
         ("dropout_s128", 2, 16, 128, 128, 64, True, "tail", True, DROPOUT),
         ("dropout_kv_ne_s", 1, 8, 200, 320, 64, False, "tail", False,
-         DROPOUT)]
+         DROPOUT),
+        # edges of the bf16 kernels' 64-row tiles
+        ("s65", 1, 16, 65, 65, 64, True, "tail", False, 0.0),
+        ("dropout_kv201", 1, 8, 100, 201, 64, False, "tail", False,
+         DROPOUT),
+        ("causal_kv_gt_s", 1, 8, 128, 256, 64, True, "none", False, 0.0),
+        ("d128_s1024", 1, 16, 1024, 1024, 128, True, "none", True, 0.0),
+        ("full_masked_row_s1024", 2, 16, 1024, 1024, 64, False, "row",
+         False, 0.0)]
     return cases
 
 
@@ -569,9 +598,10 @@ def time_backward(card, results, max_err):
     h=16, s=1024, d=64, causal, bf16, fused QKV views, dropout 0.1)
     against their plain versions, then takes device times at the shapes
     the main paths give the kernels: B1, B2a, B2b and B4 at that
-    attention, B3 at the train-parity phase's (b=2, h=16, s=128, fp32, no
-    dropout), and B3 against B2a+B2b at s=128 for the dispatch
-    threshold."""
+    attention (B2a and B2b with and without dropout, the spread of their
+    repeats, SDPA's forward and backward with and without dropout, the
+    SM clock and power draw before and after), and B3 at the
+    train-parity phase's (b=2, h=16, s=128, fp32, no dropout)."""
     b, h, s, d = TRAIN_ATTN
     g = torch.Generator().manual_seed(SEED + 5)
     qkv = torch.randn(b, s, 3, h, d, generator=g).to(DEVICE, torch.bfloat16)
@@ -588,24 +618,49 @@ def time_backward(card, results, max_err):
 
     results["train_shape_check"] = check_train_shape(
         card, q, k, v, out, lse, dout, seed, plain_bwd, max_err)
+    clocks = {"before": clocks_line()}
+    print(f"backward timing: clocks.sm, clocks.max.sm, power.draw before: "
+          f"{clocks['before']} [{card}]")
     timings = {}
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = dout.transpose(1, 2)
-    sdpa_bwd = device_ms(lambda: torch.autograd.grad(
-        o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+    sdpa = {}
+    for rate in (0.0, DROPOUT):
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                dropout_p=rate)
+        sdpa[rate] = device_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+        del o_sdpa
     plain_ms = device_ms(plain_bwd, calls=1, repeats=3, warmup=1)
+    # the kernels alone: Δ once, outside the timed runs, as
+    # flash_attention_bwd computes it once for both
+    delta = fa._delta(out, dout)
+    out0, lse0 = flash_attention_fwd(q, k, v, None, True)
+    no_drop = (q, k, v, out0, lse0, dout, None, True, 0.0, None)
+    delta0 = fa._delta(out0, dout)
     for kind, fn in (("dq", flash_attention_bwd_dq),
                      ("dkv", flash_attention_bwd_dkv)):
         bound, by = backward_bound(kind, q, k, None, True)
-        timings[kind] = {"kernel_ms": device_ms(lambda: fn(*args)),
-                         "plain_ms": plain_ms, "library_ms": sdpa_bwd,
+        times = device_times(lambda: fn(*args, delta=delta))
+        timings[kind] = {"kernel_ms": statistics.median(times),
+                         "kernel_ms_min": min(times),
+                         "kernel_ms_max": max(times),
+                         "kernel_ms_no_dropout": device_ms(
+                             lambda: fn(*no_drop, delta=delta0)),
+                         "plain_ms": plain_ms, "library_ms": sdpa[0.0],
+                         "library_ms_dropout": sdpa[DROPOUT],
                          "bound_ms": bound, "bound_by": by}
     fwd_bound, fwd_by = attention_bound(q, k, None, True)
     timings["fwd_train"] = {
         "kernel_ms": device_ms(lambda: flash_attention_fwd(
             q, k, v, None, True, DROPOUT, seed)),
+        "kernel_ms_no_dropout": device_ms(lambda: flash_attention_fwd(
+            q, k, v, None, True)),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "library_ms_dropout": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, dropout_p=DROPOUT)),
         "bound_ms": fwd_bound, "bound_by": fwd_by}
 
     def chain(rate):
@@ -624,64 +679,86 @@ def time_backward(card, results, max_err):
         "plain_ms": device_ms(lambda: philox_keep_mask(
             seed, b * h, s, s, DROPOUT), calls=1, repeats=3, warmup=1),
         "bound_ms": b4_bound, "bound_by": "operations", "library_ms": None}
+    clocks["after"] = clocks_line()
+    timings["clocks"] = clocks
     for name, row in timings.items():
         print(f"backward timing {name} (b=8 h=16 s=1024 d=64 causal bf16, "
               f"dropout 0.1): " + " ".join(
                   f"{key}={val:.5f}" if isinstance(val, float) else
                   f"{key}={val}" for key, val in row.items()) + f" [{card}]")
-
-    # B3 at the parity phase's shape, and B3 against B2a+B2b at s=128
-    for label, shape, dtype in (("parity_fp32", (2, 16, 128, 64),
-                                 torch.float32),
-                                ("train_s128_bf16", (8, 16, 128, 64),
-                                 torch.bfloat16)):
-        b3, h3, s3, d3 = shape
-        q3, k3, v3, do3 = (torch.randn(b3, s3, h3, d3, generator=g)
-                           .to(DEVICE, dtype) for _ in range(4))
-        o3, l3 = flash_attention_fwd(q3, k3, v3, None, True)
-        a3 = (q3, k3, v3, o3, l3, do3, None, True)
-        bound, by = backward_bound("fused", q3, k3, None, True)
-        row = {"fused_ms": device_ms(lambda: flash_attention_bwd_fused(*a3)),
-               "b2_ms": device_ms(lambda: (flash_attention_bwd_dq(*a3),
-                                           flash_attention_bwd_dkv(*a3))),
-               "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
-                   *a3), calls=2, repeats=5),
-               "bound_ms": bound, "bound_by": by}
-        qt3, kt3, vt3 = (x.transpose(1, 2).detach().requires_grad_()
-                         for x in (q3, k3, v3))
-        os3 = F.scaled_dot_product_attention(qt3, kt3, vt3, is_causal=True)
-        dot3 = do3.transpose(1, 2)
-        row["library_ms"] = device_ms(lambda: torch.autograd.grad(
-            os3, (qt3, kt3, vt3), dot3, retain_graph=True))
-        timings["b3_" + label] = row
-        print(f"backward timing B3 vs B2a+B2b {label} (b={b3} h={h3} "
-              f"s={s3} d={d3} causal): " + " ".join(
-                  f"{key}={val:.5f}" if isinstance(val, float) else
-                  f"{key}={val}" for key, val in row.items()) + f" [{card}]")
+    dq_row, dkv_row = timings["dq"], timings["dkv"]
+    no_drop_ms = (dq_row["kernel_ms_no_dropout"]
+                  + dkv_row["kernel_ms_no_dropout"])
+    print(f"backward timing B2a+B2b (b=8 h=16 s=1024 d=64 causal bf16, fused "
+          f"QKV views): dropout 0.1 "
+          f"{dq_row['kernel_ms'] + dkv_row['kernel_ms']:.5f} ms, no dropout "
+          f"{no_drop_ms:.5f} ms; SDPA backward {sdpa[0.0]:.5f} ms, with dropout_p=0.1 "
+          f"{sdpa[DROPOUT]:.5f} ms; plain {plain_ms:.5f} ms; bound "
+          f"{dq_row['bound_ms'] + dkv_row['bound_ms']:.5f} ms; 20 repeats "
+          f"B2a {dq_row['kernel_ms_min']:.5f}-{dq_row['kernel_ms_max']:.5f}, "
+          f"B2b {dkv_row['kernel_ms_min']:.5f}-{dkv_row['kernel_ms_max']:.5f};"
+          f" clocks.sm, clocks.max.sm, power.draw after: {clocks['after']} "
+          f"[{card}]")
+    # B3 at the train-parity phase's shape, the one main path (fp32) that
+    # takes it; B3 against B2a+B2b in bf16: check_b3_bert_scale
+    b3, h3, s3, d3 = 2, 16, 128, 64
+    q3, k3, v3, do3 = (torch.randn(b3, s3, h3, d3, generator=g)
+                       .to(DEVICE, torch.float32) for _ in range(4))
+    o3, l3 = flash_attention_fwd(q3, k3, v3, None, True)
+    a3 = (q3, k3, v3, o3, l3, do3, None, True)
+    bound, by = backward_bound("fused", q3, k3, None, True)
+    row = {"fused_ms": device_ms(lambda: flash_attention_bwd_fused(*a3)),
+           "b2_ms": device_ms(lambda: b2_pair(*a3, 0.0, None)),
+           "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*a3),
+                                 calls=2, repeats=5),
+           "bound_ms": bound, "bound_by": by}
+    qt3, kt3, vt3 = (x.transpose(1, 2).detach().requires_grad_()
+                     for x in (q3, k3, v3))
+    os3 = F.scaled_dot_product_attention(qt3, kt3, vt3, is_causal=True)
+    dot3 = do3.transpose(1, 2)
+    row["library_ms"] = device_ms(lambda: torch.autograd.grad(
+        os3, (qt3, kt3, vt3), dot3, retain_graph=True))
+    timings["b3_parity_fp32"] = row
+    print(f"backward timing B3 vs B2a+B2b parity_fp32 (b={b3} h={h3} s={s3} "
+          f"d={d3} causal fp32): " + " ".join(
+              f"{key}={val:.5f}" if isinstance(val, float) else
+              f"{key}={val}" for key, val in row.items()) + f" [{card}]")
     results["backward_timing"] = timings
     return timings
 
 
+def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed):
+    """B2a then B2b on one Δ, as ``flash_attention_bwd`` runs them."""
+    delta = fa._delta(out, dout)
+    return (flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal,
+                                   rate, seed, delta),
+            flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask, causal,
+                                    rate, seed, delta))
+
+
 def check_b3_bert_scale(card, results, max_err):
     """B1 and B3 at the BERT train phase's attention (b=64, h=16, s=128,
-    d=64, bf16, not causal, a key mask of ones, dropout 0.1), and at its
-    last layer's gathered queries (21 rows against 128 keys), against
-    their plain versions with the same Philox mask; B3's device time at
-    the first shape beside its plain version, SDPA's backward and the
-    bound."""
+    d=64, bf16, not causal, a key mask of ones, dropout 0.1), at its last
+    layer's gathered queries (21 rows against 128 keys) and at b=8,
+    against their plain versions with the same Philox mask; B3's device
+    time at the first shape beside its plain version, SDPA's backward and
+    the bound; and at all three B3 against B2a+B2b, the times behind
+    ``use_fused_backward``'s bf16 rule."""
     g = torch.Generator().manual_seed(SEED + 7)
-    b, h, d = BERT_BATCH, 16, 64
-    mask = torch.ones(b, BERT_SEQ, device=DEVICE)
+    h, d = 16, 64
     seed = seed_words(SEED + 8)
-    errs, row = {}, {}
-    for label, s in (("s128", BERT_SEQ), ("gathered_s21", BERT_PRED + 1)):
+    errs, row, dispatch = {}, {}, {}
+    for label, b, s in (("s128", BERT_BATCH, BERT_SEQ),
+                        ("gathered_s21", BERT_BATCH, BERT_PRED + 1),
+                        ("s128_b8", 8, BERT_SEQ)):
+        mask = torch.ones(b, BERT_SEQ, device=DEVICE)
         q = torch.randn(b, s, h, d, generator=g).to(DEVICE, torch.bfloat16)
         k, v = (torch.randn(b, BERT_SEQ, h, d, generator=g)
                 .to(DEVICE, torch.bfloat16) for _ in range(2))
         dout = torch.randn(b, s, h, d, generator=g).to(DEVICE,
                                                        torch.bfloat16)
-        check(fa.use_fused_backward(d, s, BERT_SEQ),
-              f"B3 does not take s={s} kv_len={BERT_SEQ}")
+        check(fa.fused_backward_fits(d, s, BERT_SEQ),
+              f"B3 does not fit s={s} kv_len={BERT_SEQ}")
         out, lse, *grads = kernel_chain(q, k, v, dout, mask, False, DROPOUT,
                                         seed, True)
         keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
@@ -698,15 +775,20 @@ def check_b3_bert_scale(card, results, max_err):
                                        f"{label} {name}: {m}")
             errs[f"{label}_{name}"] = float((got.float() - want.float())
                                             .abs().max())
+        args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+        dispatch[label] = {
+            "b": b, "s": s, "kv_len": BERT_SEQ,
+            "b3_ms": device_ms(lambda: flash_attention_bwd_fused(*args)),
+            "b2_ms": device_ms(lambda: b2_pair(*args)),
+            "rule_takes_b3": fa.use_fused_backward(d, s, BERT_SEQ,
+                                                   torch.bfloat16)}
         if label == "s128":
-            args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
             o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
             dot = dout.transpose(1, 2)
             bound, by = backward_bound("fused", q, k, mask, False)
-            row = {"kernel_ms": device_ms(
-                       lambda: flash_attention_bwd_fused(*args)),
+            row = {"kernel_ms": dispatch[label]["b3_ms"],
                    "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
                        q, k, v, out, lse, dout, mask, False, keep, inv_keep),
                        calls=2, repeats=5),
@@ -715,12 +797,20 @@ def check_b3_bert_scale(card, results, max_err):
                    "bound_ms": bound, "bound_by": by}
     max_err["b3"] = max(max_err["b3"], *errs.values())
     max_err["dropout"] = max(max_err["dropout"], *errs.values())
-    print(f"backward B3 at BERT scale (b=64 h=16 d=64 bf16, key mask, "
-          f"dropout 0.1; s=128 and the gathered 21 rows against 128 keys): "
+    print(f"backward B3 at BERT scale (h=16 d=64 bf16, key mask, dropout "
+          f"0.1; s=128 at b=64 and b=8, and the gathered 21 rows against 128 "
+          f"keys at b=64; times at b=64 s=128): "
           f"max |grad-plain| {max(errs.values()):.3g}; " + " ".join(
               f"{key}={val:.5f}" if isinstance(val, float) else
               f"{key}={val}" for key, val in row.items()) + f" [{card}]")
+    for label, t in dispatch.items():
+        print(f"backward dispatch {label} (b={t['b']} h=16 s={t['s']} "
+              f"kv_len={t['kv_len']} d=64 bf16, key mask, dropout 0.1): B3 "
+              f"{t['b3_ms']:.5f} ms, B2a+B2b {t['b2_ms']:.5f} ms; "
+              f"use_fused_backward takes "
+              f"{'B3' if t['rule_takes_b3'] else 'B2a+B2b'} [{card}]")
     results["b3_bert"] = dict(row, errors=errs)
+    results["dispatch"] = dispatch
 
 
 def phase_backward(card, results):
@@ -741,7 +831,7 @@ def phase_backward(card, results):
             row = {"case": label, "dtype": str(dtype).split(".")[-1],
                    "b": b, "h": h, "s": s, "kv_len": kv_len, "d": d,
                    "causal": causal, "dropout": rate}
-            paths = ["b2"] + (["b3"] if fa.use_fused_backward(d, s, kv_len)
+            paths = ["b2"] + (["b3"] if fa.fused_backward_fits(d, s, kv_len)
                               else [])
             for path in paths:
                 err = check_backward_case(row, label, path, dtype, q, k, v,
@@ -1639,8 +1729,10 @@ def phase_bert_train(card, results):
     engine, cfg, batch = bert_train_setup()
     losses, step_s, launches = run_steps("bert train", engine, batch, 2, 5)
     steps, layers = 7, cfg.num_hidden_layers
-    fused = ((layers - 1) * fa.use_fused_backward(64, BERT_SEQ, BERT_SEQ)
-             + fa.use_fused_backward(64, BERT_PRED + 1, BERT_SEQ))
+    fused = ((layers - 1) * fa.use_fused_backward(64, BERT_SEQ, BERT_SEQ,
+                                                  torch.bfloat16)
+             + fa.use_fused_backward(64, BERT_PRED + 1, BERT_SEQ,
+                                     torch.bfloat16))
     want = {"B1": layers, "B3": fused, "B2a": layers - fused,
             "B2b": layers - fused, "B4": 2 * layers + (layers - fused)}
     check(all(launches[name] == n * steps for name, n in want.items())

@@ -2,9 +2,12 @@
 // kernels, each with in-kernel dropout (B4, flash_dropout.cuh).
 //
 // Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py:
-//   B2a `_bwd_dq_kernel`    (:263, launched at :691)  -> flash_bwd_dq_kernel
-//   B2b `_bwd_dkv_kernel`   (:311, launched at :718)  -> flash_bwd_dkv_kernel
-//   B3  `_bwd_fused_kernel` (:378, launched at :660)  -> flash_bwd_fused_kernel
+//   B2a `_bwd_dq_kernel`    (:263, launched at :691)
+//       -> flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//   B2b `_bwd_dkv_kernel`   (:311, launched at :718)
+//       -> flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (fp32)
+//   B3  `_bwd_fused_kernel` (:378, launched at :660)
+//       -> flash_bwd_fused_kernel
 // They compute what those kernels compute: P = exp(S − lse) recomputed
 // from the forward's logsumexp, with S scaled and masked to NEG_INF as in
 // the forward (so masked keys and fully masked rows give P = 0 and
@@ -14,47 +17,78 @@
 // dq = dS·K·(1/√d), dk = dSᵀ·Q·(1/√d), dv = P_keptᵀ·dO with P_kept
 // rounded to the storage dtype.  Δ = rowsum(dO∘O) comes in precomputed,
 // as the JAX package computes it outside Pallas (:638-639).  Accumulation
-// is fp32; no atomics touch a value, so two runs give bitwise-equal
-// gradients.
+// is fp32; a block owns its output tile and no atomics touch a value, so
+// two runs give bitwise-equal gradients (which is why dq and dk/dv are
+// two kernels, as in the JAX package, and not one kernel adding dq
+// atomically).
 //
-// Design.  The TPU grids run their third axis in order and carry dq (or
-// dk, dv) in VMEM scratch.  Here a block owns its output tile and loops
-// over the other axis itself:
-// - B2a: one block per (b·h, 64 query rows); it walks the 32-key K/V
-//   tiles the rows can see (under `causal` it stops at the diagonal, the
-//   JAX `needed` test at :300) and keeps q, dO and the dq accumulator of
-//   its row in registers.
-// - B2b: one block per (b·h, 64 keys); it walks the 32-row Q/dO tiles
-//   (under `causal` from the first row that can see its first key) and
-//   keeps k, v and the dk, dv accumulators in registers.  The tile's
-//   keep bits are drawn cooperatively into shared memory first.
+// Design of the bf16 B2a and B2b (tensor cores, flash_mma.cuh).  The TPU
+// grids run their third axis in order and carry dq (or dk, dv) in VMEM
+// scratch.  Here a block of 4 warps owns 64 output rows, each warp 16 of
+// them, and walks 64-row tiles of the other side, which cp.async brings
+// into padded shared-memory tiles two stages deep (tile j+1 in flight
+// while tile j is computed); every product is a warp-level
+// `mma.sync.m16n8k16` on bf16 operands with fp32 accumulators, its
+// operands read by ldmatrix:
+// - B2a: one block per (b·h, 64 query rows).  Each warp holds its Q and
+//   dO rows as A fragments; per 64-key K/V tile (under `causal` only up
+//   to the diagonal, the JAX `needed` test at :300) it computes S = Q·Kᵀ
+//   and dP = dO·Vᵀ as 16x64 fp32 C fragments, applies scale, masks, exp,
+//   dropout and dS = P∘(dP − Δ) on them in registers, repacks dS as bf16
+//   A fragments (the C layout of two m16n8 tiles is the A layout of one
+//   m16n8k16) and adds dS·K into its 16xD dq accumulators, K read by
+//   ldmatrix.trans.
+// - B2b: one block per (b·h, 64 keys); per 64-row Q/dO tile (under
+//   `causal` from the first row that can see the block's first key, JAX
+//   :363) each warp computes the transposes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+//   with its 16 keys as fragment rows, so P_keptᵀ and dSᵀ are A operands
+//   as they stand: dv += P_keptᵀ·dO and dk += dSᵀ·Q, with dO and Q read
+//   by ldmatrix.trans.  lse and Δ are per column here and come in with
+//   the tile.
+// - Dropout: the keep bits of the next 64x64 tile are drawn into a
+//   shared-memory bitmask before the products of the current one, one
+//   thread per (row, 32-key word) (8 draws, one store); each fragment
+//   element reads its bit (B2b transposed).  One draw per 4 elements per
+//   kernel, with B1's counter.
+// - A tile is computed in two 32-row chunks; at head_dim 128 the block's
+//   own A fragments are re-read from shared memory by ldmatrix for every
+//   use, to keep the accumulators in registers.
+// Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): B2a 168 a
+// thread at d=64 (no spill; three blocks an SM), 244 at d=128 (no
+// spill); B2b 168 at d=64 with 72 bytes spilled (bounded to three blocks
+// an SM, which measured 5% faster than 251 registers without a spill),
+// 255 at d=128 with 16 bytes spilled.
+//
+// The fp32 B2a and B2b keep the earlier scalar design: the only
+// tensor-core product for fp32 operands is TF32, which misses the fp32
+// gradient tolerance (5e-4) the checks hold.  fp32 runs only in the
+// parity and kernel checks.  There D/16 neighbouring threads share a row
+// (or key), 16 elements of head_dim each, and close every dot product
+// with a butterfly of warp shuffles.
 // - B3: one block per b·h holds Q, dO, K, V and one [s, kv_len] fp32
 //   score tile in shared memory: P is computed once into the tile, dv
 //   read off it, then dP once and dS written over P, then dq and dk read
-//   off dS.  Dispatch to it only where that fits the 227 KB of shared
-//   memory a block can have (the wrapper computes the same size as
-//   `ds_flash_attention_bwd_fused_smem` below).
-// In B2a and B2b D/16 neighbouring threads share a row (or key), 16
-// elements of head_dim each, and close every dot product with a
-// butterfly of warp shuffles, so all of them hold the same bits.
+//   off dS.  It runs only where that fits the 227 KB of shared memory a
+//   block can have (the wrapper computes the same size as
+//   `ds_flash_attention_bwd_fused_smem` below), and where the wrapper's
+//   measured dispatch rule picks it.
 //
 // Bound.  At GPT-2-medium's training shape (b=8, h=16, s=1024, d=64,
 // causal, bf16) B2a moves q, k, v, dO, dq (+ lse, Δ) = 84 MB (25 µs at
 // 3.35 TB/s) and does 6·d flops per visible pair = 26 GFLOP (26 µs at
-// 989 TFLOP/s); B2b moves 84 MB too and does 8·d per pair (35 µs).
-//
-// What this simple design leaves on the table: every multiply-add is a
-// scalar fp32 FMA on the CUDA cores (67 TFLOP/s peak), tiles come in by
-// plain loads with no copy/compute overlap, and B3 runs one block per
-// b·h.  Tensor cores (mma.sync, then wgmma), cp.async/TMA double
-// buffering and larger tiles are the work of a later change.
+// 989 TFLOP/s); B2b moves 84 MB too and does 8·d per pair (35 µs).  Both
+// kernels compute S and dP, so the pair costs 14·d flops in all, where a
+// backward that computed them once would spend 10·d.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -376,6 +410,456 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
   }
 }
 
+// ------------------------------------------------ B2a and B2b, bf16 (mma)
+using bf16 = __nv_bfloat16;
+using ds_flash::c_to_a;
+using ds_flash::cp_async_commit;
+using ds_flash::cp_async_wait;
+using ds_flash::draw_keep_tile;
+using ds_flash::ex2_approx;
+using ds_flash::kMmaThreads;
+using ds_flash::kMmaTileRows;
+using ds_flash::ldsm_a;
+using ds_flash::ldsm_b;
+using ds_flash::ldsm_bt;
+using ds_flash::load_row_async;
+using ds_flash::load_tile_async;
+using ds_flash::mma_bf16;
+using ds_flash::MmaTile;
+using ds_flash::pack_bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBitWords = 2 * kMmaTileRows;  // keep bits of a 64x64 tile
+// rows of the streamed tile computed at once: 32 of the 64 keep the score
+// fragments at 32 registers a thread (at 64 the dq kernel needs 232
+// registers a thread, at 32 168, which lets three blocks share an SM)
+constexpr int kMmaChunk = 32;
+// Both kernels ask for three blocks an SM at head_dim 64 (168 registers a
+// thread); at 128 the accumulators alone take 128 registers, so one.
+
+// The A fragments of a warp's 16 rows of a block-owned padded tile:
+// held in registers at head_dim 64, re-read by ldmatrix at every use at
+// head_dim 128, where the registers go to the accumulators.
+template <int D>
+struct OwnRows {
+  static constexpr bool kInRegs = D == 64;
+  uint32_t r[kInRegs ? D / 16 : 1][4];
+  const bf16* tile;
+  int r0, lane;
+
+  __device__ __forceinline__ void init(const bf16* t, int row0, int ln) {
+    tile = t;
+    r0 = row0;
+    lane = ln;
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_a<D>(r[kk], tile, r0, 16 * kk, lane);
+    }
+  }
+
+  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) a[x] = r[kk][x];
+    } else {
+      ldsm_a<D>(a, tile, r0, 16 * kk, lane);
+    }
+  }
+};
+
+// shared memory of either kernel: six padded tiles (the block's own two,
+// two stages of the streamed two), four rows of 64 fp32 values (B2a: the
+// key mask in two stages, B2b: lse and Δ in two stages each) and two
+// stages of keep bits
+template <int D>
+constexpr int mma_smem_bytes() {
+  return 6 * MmaTile<D>::kElems * static_cast<int>(sizeof(bf16)) +
+         4 * kMmaTileRows * static_cast<int>(sizeof(float)) +
+         2 * kBitWords * static_cast<int>(sizeof(uint32_t));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const float* __restrict__ kv_mask,
+                            bf16* __restrict__ dq, int heads, int s,
+                            int kv_len, Strides st, float scale, int causal,
+                            const int* __restrict__ seed, uint32_t thresh,
+                            float inv_keep) {
+  using Tile = MmaTile<D>;
+  constexpr int KC = kMmaChunk;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);
+  bf16* o_s = q_s + Tile::kElems;
+  bf16* k_s = o_s + Tile::kElems;      // two stages
+  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  float* mask_s = reinterpret_cast<float*>(v_s + 2 * Tile::kElems);
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + 4 * kMmaTileRows);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (tid >> 5) * 16;  // the warp's first row in the block
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // the last query blocks first: under `causal` they walk the most
+  // tiles, and the card starts blocks in grid order
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+
+  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
+  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+  // causal: rows q0 .. q0+63 see no key past q0+63
+  const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
+  const int n_tiles = (k_end + kMmaTileRows - 1) / kMmaTileRows;
+
+  auto issue = [&](int j) {
+    const int stage = j & 1;
+    const int kt = j * kMmaTileRows;
+    load_tile_async<D>(k_s + stage * Tile::kElems, kbase, st.k[1], kt,
+                       kv_len, tid);
+    load_tile_async<D>(v_s + stage * Tile::kElems, vbase, st.v[1], kt,
+                       kv_len, tid);
+    // the tile's key mask: 0 past kv_len, 1 where no mask is given
+    if (mrow)
+      load_row_async(mask_s + stage * kMmaTileRows, mrow, kt, kv_len, tid);
+    else if (tid < kMmaTileRows)
+      mask_s[stage * kMmaTileRows + tid] = kt + tid < kv_len ? 1.f : 0.f;
+  };
+  load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], q0, s,
+                     tid);
+  load_tile_async<D>(o_s, dout + b * st.o[0] + h * st.o[2], st.o[1], q0, s,
+                     tid);
+  issue(0);
+  cp_async_commit();
+  if (dr.on) draw_keep_tile(bits_s, tid, dr.k0, dr.k1, bh, q0, 0, dr.thresh);
+
+  // lse (in log2 units) and Δ of the thread's rows g and g+8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + wr + g + 8 * hh;
+    lse2[hh] = i < s ? lse[(int64_t)bh * s + i] * kLog2e : 0.f;
+    dlt[hh] = i < s ? delta[(int64_t)bh * s + i] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  OwnRows<D> qf, of;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    if (dr.on && j + 1 < n_tiles)
+      draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
+                     bh, q0, (j + 1) * kMmaTileRows, dr.thresh);
+    cp_async_wait<1>();  // tile j (and at j = 0 the block's Q, dO) is in
+    __syncthreads();
+    if (j == 0) {
+      qf.init(q_s, wr, lane);
+      of.init(o_s, wr, lane);
+    }
+    const bf16* kt_s = k_s + (j & 1) * Tile::kElems;
+    const bf16* vt_s = v_s + (j & 1) * Tile::kElems;
+    const float* mt = mask_s + (j & 1) * kMmaTileRows;
+    const int kt0 = j * kMmaTileRows;
+    // keep bits of the thread's rows g and g+8: one word per 32 keys
+    uint32_t keep[2][2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        keep[hh][w] = dr.on ? bits_s[(j & 1) * kBitWords +
+                                     2 * (wr + g + 8 * hh) + w]
+                            : 0u;
+
+#pragma unroll
+    for (int c = 0; c < kMmaTileRows; c += KC) {
+      float sc[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // S = Q·Kᵀ and dP = dO·Vᵀ over the chunk's KC keys
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        qf.get(aq, kk);
+        of.get(ao, kk);
+#pragma unroll
+        for (int nn = 0; nn < KC / 16; ++nn) {
+          uint32_t bk[4], bv[4];
+          ldsm_b<D>(bk, kt_s, c + 16 * nn, 16 * kk, lane);
+          ldsm_b<D>(bv, vt_s, c + 16 * nn, 16 * kk, lane);
+          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
+          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
+          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // dS = P∘(dP − Δ) in place of S; the thread's keys are
+      // kt0 + c + 8n + 2t + {0, 1}, its rows q0 + wr + g + {0, 8}
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int kl = c + 8 * n + 2 * t;  // key in the tile
+        const float2 mk = *reinterpret_cast<const float2*>(mt + kl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int jj = kt0 + kl + (e & 1);
+          const bool vis = ((e & 1) ? mk.y : mk.x) > 0.f &&
+                           (!causal || q0 + wr + g + 8 * hh >= jj);
+          const float p =
+              vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
+          float d = dp[n][e];
+          if (dr.on)
+            d = (keep[hh][(c + 8 * n) >> 5] >> ((kl + (e & 1)) & 31)) & 1u
+                    ? d * dr.inv_keep
+                    : 0.f;
+          sc[n][e] = p * (d - dlt[hh]);
+        }
+      }
+      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bk[4];
+          ldsm_bt<D>(bk, kt_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
+          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + wr + g + 8 * hh;
+    if (i < s) {
+      bf16* out = dq + b * st.dq[0] + (int64_t)i * st.dq[1] + h * st.dq[2];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack_bf16(
+            acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const float* __restrict__ kv_mask,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int heads, int s, int kv_len, Strides st,
+                             float scale, int causal,
+                             const int* __restrict__ seed, uint32_t thresh,
+                             float inv_keep) {
+  using Tile = MmaTile<D>;
+  constexpr int KC = kMmaChunk;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);
+  bf16* v_s = k_s + Tile::kElems;
+  bf16* q_s = v_s + Tile::kElems;      // two stages
+  bf16* o_s = q_s + 2 * Tile::kElems;  // two stages
+  float* lse_s = reinterpret_cast<float*>(o_s + 2 * Tile::kElems);
+  float* dlt_s = lse_s + 2 * kMmaTileRows;
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(dlt_s + 2 * kMmaTileRows);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wk = (tid >> 5) * 16;  // the warp's first key in the block
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * kMmaTileRows;
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+
+  const bf16* qbase = q + b * st.q[0] + h * st.q[2];
+  const bf16* obase = dout + b * st.o[0] + h * st.o[2];
+  const float* lrow = lse + (int64_t)bh * s;
+  const float* drow = delta + (int64_t)bh * s;
+  // causal: rows before k0 see none of this block's keys
+  const int i_begin = causal ? min(k0, s) : 0;
+  const int n_tiles = (s - i_begin + kMmaTileRows - 1) / kMmaTileRows;
+
+  auto issue = [&](int j) {
+    const int stage = j & 1;
+    const int i0 = i_begin + j * kMmaTileRows;
+    load_tile_async<D>(q_s + stage * Tile::kElems, qbase, st.q[1], i0, s,
+                       tid);
+    load_tile_async<D>(o_s + stage * Tile::kElems, obase, st.o[1], i0, s,
+                       tid);
+    load_row_async(lse_s + stage * kMmaTileRows, lrow, i0, s, tid);
+    load_row_async(dlt_s + stage * kMmaTileRows, drow, i0, s, tid);
+  };
+  load_tile_async<D>(k_s, k + b * st.k[0] + h * st.k[2], st.k[1], k0, kv_len,
+                     tid);
+  load_tile_async<D>(v_s, v + b * st.v[0] + h * st.v[2], st.v[1], k0, kv_len,
+                     tid);
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+  if (dr.on && n_tiles > 0)
+    draw_keep_tile(bits_s, tid, dr.k0, dr.k1, bh, i_begin, k0, dr.thresh);
+
+  // whether the thread's keys g and g+8 are visible at all
+  bool key_vis[2];
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j = k0 + wk + g + 8 * hh;
+    key_vis[hh] = j < kv_len && (!mrow || mrow[j] > 0.f);
+  }
+  const float scale2 = scale * kLog2e;
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  OwnRows<D> kf, vf;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    if (dr.on && j + 1 < n_tiles)
+      draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
+                     bh, i_begin + (j + 1) * kMmaTileRows, k0, dr.thresh);
+    cp_async_wait<1>();  // tile j (and at j = 0 the block's K, V) is in
+    __syncthreads();
+    if (j == 0) {
+      kf.init(k_s, wk, lane);
+      vf.init(v_s, wk, lane);
+    }
+    const bf16* qt_s = q_s + (j & 1) * Tile::kElems;
+    const bf16* ot_s = o_s + (j & 1) * Tile::kElems;
+    const float* lt = lse_s + (j & 1) * kMmaTileRows;
+    const float* dt = dlt_s + (j & 1) * kMmaTileRows;
+    const uint32_t* bt = bits_s + (j & 1) * kBitWords;
+    const int i0 = i_begin + j * kMmaTileRows;
+
+#pragma unroll
+    for (int c = 0; c < kMmaTileRows; c += KC) {
+      float sc[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over the chunk's KC query rows
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        kf.get(ak, kk);
+        vf.get(av, kk);
+#pragma unroll
+        for (int nn = 0; nn < KC / 16; ++nn) {
+          uint32_t bq[4], bo[4];
+          ldsm_b<D>(bq, qt_s, c + 16 * nn, 16 * kk, lane);
+          ldsm_b<D>(bo, ot_s, c + 16 * nn, 16 * kk, lane);
+          mma_bf16(sc[2 * nn], ak, bq[0], bq[1]);
+          mma_bf16(sc[2 * nn + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[2 * nn], av, bo[0], bo[1]);
+          mma_bf16(dp[2 * nn + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P_keptᵀ in place of Sᵀ, dSᵀ in place of dPᵀ; the thread's keys
+      // are k0 + wk + g + {0, 8}, its rows i0 + c + 8n + 2t + {0, 1}
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int rl = c + 8 * n + 2 * t;  // row in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + rl);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + rl);
+        const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+        const float dl[2] = {d2.x, d2.y};
+        uint32_t keep[2] = {0u, 0u};
+        if (dr.on) {
+          keep[0] = bt[2 * rl + (wk >> 5)];
+          keep[1] = bt[2 * (rl + 1) + (wk >> 5)];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int col = e & 1;
+          const int kl = wk + g + 8 * hh;  // key in the block
+          const int i = i0 + rl + col;
+          const bool vis =
+              key_vis[hh] && i < s && (!causal || i >= k0 + kl);
+          const float p =
+              vis ? ex2_approx(fmaf(sc[n][e], scale2, nl[col])) : 0.f;
+          float d = dp[n][e];
+          float pv = p;
+          if (dr.on) {
+            const bool kept = (keep[col] >> (kl & 31)) & 1u;
+            pv = kept ? p * dr.inv_keep : 0.f;
+            d = kept ? d * dr.inv_keep : 0.f;
+          }
+          sc[n][e] = pv;
+          dp[n][e] = p * (d - dl[col]);
+        }
+      }
+      // dv += P_keptᵀ·dO and dk += dSᵀ·Q
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t ap[4], as[4];
+        c_to_a(ap, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bo[4], bq[4];
+          ldsm_bt<D>(bo, ot_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
+          mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+          ldsm_bt<D>(bq, qt_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
+          mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j = k0 + wk + g + 8 * hh;
+    if (j < kv_len) {
+      const int64_t off = b * st.dkv[0] + (int64_t)j * st.dkv[1] +
+                          h * st.dkv[2] + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(
+            dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
+            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------- B3
 constexpr int kFusedThreads = 1024;
 
@@ -538,29 +1022,71 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int D, typename Kernel>
+int set_mma_smem(Kernel kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mma_smem_bytes<D>()));
+}
+
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  const dim3 grid((a.s + kDqRows - 1) / kDqRows, a.batch * a.heads);
-  flash_bwd_dq_kernel<T, D><<<grid, kDqRows * (D / kEpt), 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq), a.heads,
-      a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 grid((a.s + kMmaTileRows - 1) / kMmaTileRows,
+                    a.batch * a.heads);
+    const int err = set_mma_smem<D>(flash_bwd_dq_mma_kernel<D>);
+    if (err != 0) return err;
+    flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
+                                 a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dq),
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
+        a.inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    // fp32: the scalar design
+    const dim3 grid((a.s + kDqRows - 1) / kDqRows, a.batch * a.heads);
+    flash_bwd_dq_kernel<T, D><<<grid, kDqRows * (D / kEpt), 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
+        a.inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  const dim3 grid((a.kv_len + kKvKeys - 1) / kKvKeys, a.batch * a.heads);
-  flash_bwd_dkv_kernel<T, D><<<grid, kKvKeys * (D / kEpt), 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale, a.causal,
-      a.seed, a.thresh, a.inv_keep);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 grid((a.kv_len + kMmaTileRows - 1) / kMmaTileRows,
+                    a.batch * a.heads);
+    const int err = set_mma_smem<D>(flash_bwd_dkv_mma_kernel<D>);
+    if (err != 0) return err;
+    flash_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
+                                  a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
+        a.causal, a.seed, a.thresh, a.inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    // fp32: the scalar design
+    const dim3 grid((a.kv_len + kKvKeys - 1) / kKvKeys, a.batch * a.heads);
+    flash_bwd_dkv_kernel<T, D><<<grid, kKvKeys * (D / kEpt), 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
+        a.causal, a.seed, a.thresh, a.inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

@@ -6,7 +6,7 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 
 - B1 ``flash_attention_fwd.cu``: forward, out and the fp32 logsumexp;
 - B2a and B2b ``flash_attention_bwd.cu``: dq over K/V tiles, and dk, dv
-  over Q tiles;
+  over Q tiles (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
 - B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
   shapes whose score tile fits a block's shared memory;
 - B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
@@ -226,14 +226,43 @@ def fused_smem_bytes(head_dim, s, kv_len):
         .ds_flash_attention_bwd_fused_smem(head_dim, s, kv_len)
 
 
-def use_fused_backward(head_dim, s, kv_len):
-    """B3 or B2a+B2b, for CUDA tensors.  B3 computes P and dP once where
-    B2a and B2b each recompute both, but it needs the whole score tile
-    in one block's shared memory; it runs wherever that fits (s = kv_len
-    ≤ 142 at head_dim 64, ≤ 94 at 128), B2a+B2b everywhere else.  The
-    v5e rule "one tile up to s=1024" is TPU-only.  H100 times behind the
-    choice: PERF.md, kernel table."""
+def fused_backward_fits(head_dim, s, kv_len):
+    """Whether B3's Q, dO, K, V and ``[s, kv_len]`` score tile fit one
+    block's shared memory (s = kv_len ≤ 142 at head_dim 64, ≤ 94 at
+    128).  The v5e rule "one tile up to s=1024" is TPU-only."""
     return fused_smem_bytes(head_dim, s, kv_len) <= SMEM_PER_BLOCK
+
+
+# bf16 query rows up to which B3 runs in place of B2a+B2b where it fits:
+# none.  On the H100 the tensor-core B2a+B2b beat B3 at every main-path
+# shape that fits (PERF.md §5, BERT-large: s=128 at b=64 and b=8, and
+# BERT's 21 gathered rows against 128 keys: 2.8-5.7x faster).
+BF16_FUSED_MAX_ROWS = 0
+
+
+def use_fused_backward(head_dim, s, kv_len, dtype):
+    """B3 (True) or B2a+B2b (False) for CUDA tensors of ``dtype``.  B3
+    computes P and dP once where B2a and B2b each recompute both, but
+    holds the whole score tile in one block per b·h, so it runs only where
+    :func:`fused_backward_fits`.  fp32 takes it wherever it fits (B2a and
+    B2b are scalar-FMA kernels in fp32); bf16 takes it only up to
+    ``BF16_FUSED_MAX_ROWS`` query rows, the crossover measured against
+    the tensor-core B2a+B2b."""
+    if dtype == torch.bfloat16 and s > BF16_FUSED_MAX_ROWS:
+        return False
+    return fused_backward_fits(head_dim, s, kv_len)
+
+
+def mma_aligned(*tensors):
+    """Whether the bf16 B2a and B2b can read these ``[b, n, h, d]``
+    tensors with 16-byte ``cp.async`` copies: each base pointer 16-byte
+    aligned and each batch, sequence and head stride (of a dim longer
+    than 1) a multiple of 8 elements.  Slices of a fused QKV projection,
+    the gathered ``positions`` queries and a contiguous dO all are."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st, n in zip(t.stride()[:3],
+                                                   t.shape[:3]) if n > 1)
+               for t in tensors)
 
 
 def _check(q, k, v, kv_mask):
@@ -360,12 +389,29 @@ flash_attention_fwd.launches = 0
 _WHICH = {"dq": 0, "dkv": 1, "fused": 2}
 
 
-def _launch_bwd(which, q, k, v, out, lse, dout, kv_mask, causal,
-                dropout_rate, seed, dq, dk, dv):
+def _delta(out, dout):
+    """Δ = rowsum(dO∘O) in fp32, ``[b·h, s]`` contiguous, as the JAX
+    package computes it outside Pallas."""
+    b, s, h, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(b * h, s).contiguous()
+
+
+def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
+                seed, delta, dq, dk, dv):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-        .reshape(b * h, s).contiguous()
+    if (q.dtype == torch.bfloat16 and which != "fused"
+            and not mma_aligned(q, k, v, dout)):
+        raise ValueError(
+            "the bf16 B2a/B2b kernels need q, k, v and dO 16-byte aligned "
+            "with batch, seq and head strides that are multiples of 8 "
+            f"elements; got strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}, {dout.stride()}")
+    if tuple(delta.shape) != (b * h, s) or delta.dtype != torch.float32 \
+            or not delta.is_contiguous() or delta.device != q.device:
+        raise ValueError(f"delta must be contiguous fp32 [b·h, s]="
+                         f"{(b * h, s)} on {q.device}")
     mask = _mask_arg(kv_mask)
     grads_q = dq if dq is not None else q
     grads_kv = dk if dk is not None else k
@@ -417,27 +463,33 @@ def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed):
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
-                           causal=False, dropout_rate=0.0, seed=None):
+                           causal=False, dropout_rate=0.0, seed=None,
+                           delta=None):
     """B2a: dq ``[b, s, h, d]``.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``)
-    or raise."""
+    or raise.  ``delta``, Δ = rowsum(dO∘O) as fp32 ``[b·h, s]``, is
+    computed from out and dO when not given (:func:`flash_attention_bwd`
+    computes it once for B2a and B2b)."""
     dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
                           dropout_rate, seed)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dq", q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
-                seed, dq, None, None)
+    _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
+                seed, _delta(out, dout) if delta is None else delta, dq,
+                None, None)
     _count_launch(flash_attention_bwd_dq, dropout_rate)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
-                            causal=False, dropout_rate=0.0, seed=None):
+                            causal=False, dropout_rate=0.0, seed=None,
+                            delta=None):
     """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]``.  CPU tensors take
     the plain version; CUDA tensors launch the kernel
-    (``flash_attention_bwd_dkv.launches``) or raise."""
+    (``flash_attention_bwd_dkv.launches``) or raise.  ``delta`` as for
+    :func:`flash_attention_bwd_dq`."""
     dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
                             seed)
     if q.device.type == "cpu":
@@ -445,8 +497,9 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
                           dropout_rate, seed)[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("dkv", q, k, v, out, lse, dout, kv_mask, causal,
-                dropout_rate, seed, None, dk, dv)
+    _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
+                seed, _delta(out, dout) if delta is None else delta, None,
+                dk, dv)
     _count_launch(flash_attention_bwd_dkv, dropout_rate)
     return dk, dv
 
@@ -456,14 +509,14 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
     (``flash_attention_bwd_fused.launches``) or raise, also when the
-    shape does not fit (:func:`use_fused_backward`)."""
+    shape does not fit (:func:`fused_backward_fits`)."""
     dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
                           dropout_rate, seed)
     d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
-    if not use_fused_backward(d, s, kv_len):
+    if not fused_backward_fits(d, s, kv_len):
         raise ValueError(f"the fused backward needs "
                          f"{fused_smem_bytes(d, s, kv_len)} bytes of shared "
                          f"memory at s={s}, kv_len={kv_len}, d={d}; a block "
@@ -471,8 +524,8 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("fused", q, k, v, out, lse, dout, kv_mask, causal,
-                dropout_rate, seed, dq, dk, dv)
+    _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
+                seed, _delta(out, dout), dq, dk, dv)
     _count_launch(flash_attention_bwd_fused, dropout_rate)
     return dq, dk, dv
 
@@ -485,15 +538,19 @@ flash_attention_bwd_fused.launches = 0
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
                         dropout_rate=0.0, seed=None):
     """Flash-attention backward: ``(dq, dk, dv)`` from the forward's out
-    and lse.  CUDA tensors run B3 where :func:`use_fused_backward` says
-    the shape fits, else B2a then B2b; CPU tensors run the plain
-    version."""
+    and lse.  CUDA tensors run B3 where :func:`use_fused_backward` takes
+    it, else B2a then B2b, which share one Δ and one fp32 key mask; CPU
+    tensors run the plain version."""
+    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
+                            seed)
     if q.device.type == "cuda" and not use_fused_backward(
-            q.shape[-1], q.shape[1], k.shape[1]):
+            q.shape[-1], q.shape[1], k.shape[1], q.dtype):
+        kv_mask = _mask_arg(kv_mask)
+        delta = _delta(out, dout)
         dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask, causal,
-                                    dropout_rate, seed)
+                                    dropout_rate, seed, delta)
         dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask,
-                                         causal, dropout_rate, seed)
+                                         causal, dropout_rate, seed, delta)
         return dq, dk, dv
     return flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask,
                                      causal, dropout_rate, seed)

@@ -151,7 +151,12 @@ def backward_by_kernels(path, q, k, v, out, lse, dout, mask, causal, rate,
 @pytest.mark.parametrize("path,s,kv_len,d,causal,rate", [
     ("b2", 256, 256, 64, True, 0.0), ("b2", 300, 200, 64, False, 0.0),
     ("b2", 128, 128, 128, True, 0.0), ("b2", 256, 256, 64, True, 0.1),
-    ("b3", 128, 128, 64, True, 0.0), ("b3", 64, 64, 128, False, 0.1)])
+    ("b3", 128, 128, 64, True, 0.0), ("b3", 64, 64, 128, False, 0.1),
+    # edges of the bf16 kernels' 64-row tiles: one row past a tile,
+    # kv_len not a multiple of 4 under dropout, causal with kv_len > s,
+    # head_dim 128 with dropout over ragged tiles
+    ("b2", 65, 65, 64, True, 0.0), ("b2", 100, 201, 64, False, 0.1),
+    ("b2", 128, 256, 64, True, 0.0), ("b2", 200, 200, 128, False, 0.1)])
 def test_backward_kernels_match_plain(cuda_device, dtype, path, s, kv_len, d,
                                       causal, rate):
     """B2a+B2b or B3, with B4 under dropout, against
@@ -192,16 +197,53 @@ def test_backward_kernels_match_plain(cuda_device, dtype, path, s, kv_len, d,
 
 
 @pytest.mark.cuda
-def test_fused_backward_threshold(cuda_device):
-    """B3 runs where Q, dO, K, V and the score tile fit one block's
+def test_fused_backward_fits(cuda_device):
+    """B3 fits where Q, dO, K, V and the score tile fit one block's
     232,448 bytes of shared memory, as the CUDA source counts them:
     s = kv_len <= 142 at d=64, <= 94 at d=128."""
-    assert fa.use_fused_backward(64, 128, 128)
-    assert fa.use_fused_backward(64, 142, 142)
-    assert not fa.use_fused_backward(64, 143, 143)
-    assert not fa.use_fused_backward(64, 256, 256)
-    assert fa.use_fused_backward(128, 94, 94)
-    assert not fa.use_fused_backward(128, 95, 95)
+    assert fa.fused_backward_fits(64, 128, 128)
+    assert fa.fused_backward_fits(64, 142, 142)
+    assert not fa.fused_backward_fits(64, 143, 143)
+    assert not fa.fused_backward_fits(64, 256, 256)
+    assert fa.fused_backward_fits(128, 94, 94)
+    assert not fa.fused_backward_fits(128, 95, 95)
+
+
+@pytest.mark.cuda
+def test_fused_backward_choice_follows_dtype(cuda_device):
+    """fp32 takes B3 wherever it fits; bf16 only up to
+    ``BF16_FUSED_MAX_ROWS`` query rows (the measured crossover), and
+    never where B3 does not fit."""
+    for s, kv_len in ((128, 128), (21, 128), (142, 142)):
+        assert fa.use_fused_backward(64, s, kv_len, torch.float32)
+        assert fa.use_fused_backward(64, s, kv_len, torch.bfloat16) == (
+            s <= fa.BF16_FUSED_MAX_ROWS)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not fa.use_fused_backward(64, 143, 143, dtype)
+        assert not fa.use_fused_backward(128, 95, 95, dtype)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_wrappers_raise_on_misaligned_views(cuda_device):
+    """The bf16 B2a and B2b copy 16-byte chunks with cp.async: a q whose
+    base is not 16-byte aligned, or whose head stride is not a multiple
+    of 8 elements, is refused, never copied or sent elsewhere."""
+    b, s, h, d = 1, 64, 2, 64
+    g = torch.Generator().manual_seed(0)
+    k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                  .to(cuda_device, torch.bfloat16) for _ in range(3))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    for q in (shifted, wide):
+        assert not fa.mma_aligned(q)
+        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(q, k, v, out, lse, dout, None, True)
+    assert fa.mma_aligned(k, v, dout)
 
 
 @pytest.mark.cuda

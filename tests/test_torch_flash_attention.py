@@ -331,3 +331,80 @@ def test_cuda_wrappers_refuse_other_devices_and_bad_seeds():
     with pytest.raises(ValueError, match="seed"):
         flash_attention_fwd(c, c, c, dropout_rate=0.1,
                             seed=torch.zeros(2, dtype=torch.int64))
+
+
+# ------------------------------------------------- backward dispatch (pure)
+def test_mma_aligned_takes_the_main_path_views():
+    """The bf16 B2a/B2b read q, k, v and dO by 16-byte cp.async: slices of
+    a fused [b, s, 3, h, d] projection, the gathered ``positions`` queries
+    with the [b, s, 2, h, d] key/value projection, and a contiguous dO
+    all qualify at head_dim 64 and 128."""
+    for d in tfa.HEAD_DIMS:
+        qkv = torch.zeros(2, 130, 3, 4, d, dtype=torch.bfloat16)
+        kv = torch.zeros(2, 128, 2, 4, d, dtype=torch.bfloat16)
+        gathered = torch.zeros(2, 21, 4 * d, dtype=torch.bfloat16) \
+            .reshape(2, 21, 4, d)
+        dout = torch.zeros(2, 130, 4, d, dtype=torch.bfloat16)
+        assert tfa.mma_aligned(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout)
+        assert tfa.mma_aligned(gathered, kv[:, :, 0], kv[:, :, 1])
+
+
+def test_mma_aligned_refuses_what_cp_async_cannot_copy():
+    """A base pointer off 16 bytes, or a batch, seq or head stride that is
+    not a multiple of 8 elements, is refused; a stride of a dim of
+    length 1 does not count."""
+    base = torch.zeros(2 * 64 * 4 * 64 + 8, dtype=torch.bfloat16)
+    assert tfa.mma_aligned(base[8:].view(2, 64, 4, 64))
+    assert not tfa.mma_aligned(base[4:4 + 2 * 64 * 4 * 64].view(2, 64, 4, 64))
+    padded = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16)
+    assert not tfa.mma_aligned(padded[..., :64])            # head stride 68
+    rows = torch.zeros(2, 64 * 4 * 64 + 4, dtype=torch.bfloat16)
+    assert not tfa.mma_aligned(rows[:, :64 * 4 * 64].view(2, 64, 4, 64))
+    one = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)
+    assert tfa.mma_aligned(one.as_strided(one.shape, (3, 256, 64, 1)))
+
+
+@pytest.mark.parametrize("rows", [0, 21, 128])
+def test_use_fused_backward_rule(monkeypatch, rows):
+    """With B3's shared-memory size stubbed (the CUDA source's formula,
+    ``fused_smem_floats``): fp32 takes B3 wherever it fits, bf16 only up
+    to ``BF16_FUSED_MAX_ROWS`` query rows, and neither where it does not
+    fit."""
+    def smem(d, s, kv_len):
+        words = (kv_len + 31) // 32
+        return 4 * (2 * s * d + 2 * kv_len * (d + 1) + s * kv_len + 2 * s
+                    + kv_len + s * words)
+    monkeypatch.setattr(tfa, "fused_smem_bytes", smem)
+    monkeypatch.setattr(tfa, "BF16_FUSED_MAX_ROWS", rows)
+    assert tfa.fused_backward_fits(64, 142, 142)
+    assert not tfa.fused_backward_fits(64, 143, 143)
+    assert tfa.fused_backward_fits(128, 94, 94)
+    assert not tfa.fused_backward_fits(128, 95, 95)
+    for s, kv_len in ((21, 128), (128, 128), (142, 142)):
+        assert tfa.use_fused_backward(64, s, kv_len, torch.float32)
+        assert tfa.use_fused_backward(64, s, kv_len, torch.bfloat16) == (
+            s <= rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not tfa.use_fused_backward(64, 143, 143, dtype)
+        assert not tfa.use_fused_backward(128, 95, 95, dtype)
+
+
+def test_backward_wrappers_take_a_shared_delta():
+    """``flash_attention_bwd_dq`` / ``_dkv`` accept the Δ that
+    ``flash_attention_bwd`` computes once; on the CPU the plain version
+    gives the same grads with and without it, and Δ is rowsum(dO∘O)."""
+    q, k, v, mask = (None if x is None else torch.from_numpy(x)
+                     for x in make_inputs(3, 2, 70, 90, 2, 64, True))
+    dout = torch.from_numpy(
+        np.random.RandomState(4).randn(2, 70, 2, 64).astype(np.float32))
+    out, lse = flash_attention_fwd(q, k, v, mask)
+    delta = tfa._delta(out, dout)
+    assert delta.shape == (4, 70) and delta.is_contiguous()
+    torch.testing.assert_close(
+        delta, (dout * out).sum(-1).transpose(1, 2).reshape(4, 70))
+    args = (q, k, v, out, lse, dout, mask, False)
+    torch.testing.assert_close(tfa.flash_attention_bwd_dq(*args, delta=delta),
+                               tfa.flash_attention_bwd_dq(*args))
+    for a, b in zip(tfa.flash_attention_bwd_dkv(*args, delta=delta),
+                    tfa.flash_attention_bwd(*args)[1:]):
+        torch.testing.assert_close(a, b)
