@@ -19,14 +19,21 @@ order; any failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
               build (one nvcc per source, all started together);
-2. kernel   — B1, the flash-attention forward, vs
-              ``flash_attention_reference`` in fp32 and bf16, out and lse
-              (at each prefill bucket on strided views of a fused QKV
-              projection, as the prefill passes them), and its device
-              time per launch at each bucket (median of 20 runs of 10
-              back-to-back launches between CUDA events) beside the
-              plain version's, ``scaled_dot_product_attention``'s (a
-              yardstick the port never calls) and the card's bound;
+2. kernel   — B1, the flash-attention forward (bf16 on the tensor
+              cores, fp32 scalar), vs ``flash_attention_reference`` in
+              fp32 and bf16, out and lse (bf16 lse also to 1e-4), two
+              runs bitwise equal: at each prefill bucket on strided
+              views of a fused QKV projection, as the prefill passes
+              them, and at the edges of the 64-row tiles (s=65, kv_len
+              201 under dropout, causal kv_len > s, d=128 at s=1024 on
+              fused-QKV views, a fully masked row at s=1024: out 0 and
+              lse MAX_FLOOR, BERT's 21 gathered rows with a key mask
+              and dropout); its device time per launch at each bucket
+              (median of 20 runs of 10 back-to-back launches between
+              CUDA events) beside the plain version's,
+              ``reference_attention``'s (the dispatch's other path,
+              behind ``FLASH_MIN_ROWS``), ``scaled_dot_product_attention``'s
+              (a yardstick the port never calls) and the card's bound;
 3. backward — B2a+B2b and B3 (the backward kernels) and B4 (in-kernel
               dropout) vs ``flash_attention_bwd_reference`` with the
               ``philox_keep_mask`` mask, fp32 (TF32 off) and bf16: the
@@ -36,16 +43,18 @@ order; any failure raises, so the script exits non-zero:
               tile), kv_len != s, causal with kv_len > s, kv_len 201
               under dropout, d=128 (at s=1024 on fused-QKV views),
               dropout 0.1; two runs bitwise equal; B4's mask read back
-              from B1 equal to the plain version's with a binomial keep
-              rate; B1+B4, B2a and B2b again at GPT-2-medium's training
+              from the fp32 and the bf16 B1 equal to the plain version's
+              with a binomial keep rate; B1+B4 (two runs bitwise
+              equal), B2a and B2b again at GPT-2-medium's training
               attention (b=8, s=1024, bf16, dropout 0.1), B3 at the
               train-parity phase's, and B1+B3 at the BERT train phase's
               (b=64 and b=8, s=128, and its last layer's 21 gathered rows
               against 128 keys); device times at the training attentions
               beside the plain version's, SDPA's (forward and backward,
-              with and without dropout) and the bound, B2a+B2b with and
-              without dropout with the spread of their 20 repeats and the
-              SM clock and power draw before and after, and B3 against
+              with and without dropout) and the bound, B1 and B2a+B2b
+              with and without dropout with the spread of their 20
+              repeats and the SM clock and power draw before and after,
+              B1 at BERT's b=64 beside SDPA's forward, and B3 against
               B2a+B2b at BERT's shapes, behind ``use_fused_backward``;
 4. serve    — GPT-2-medium, bf16, random weights from a fixed numpy seed,
               16 staggered requests; every request gets its 32 tokens and
@@ -146,6 +155,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import \
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
     BigBirdSparsityConfig, FixedSparsityConfig)
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+from deepspeed_tpu_torch.ops.transformer.attention import (
+    FLASH_MIN_ROWS, key_padding_to_additive, reference_attention,
+    takes_flash)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_fused, flash_attention_bwd_reference,
@@ -157,6 +169,11 @@ DEVICE = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 B1's lse against the plain version's, absolute plus relative: both
+# take fp32 scores of the same bf16 operands, so only the summation order
+# and the exponential differ; a base-2 slip or a wrong running max would
+# pass 2e-2 but not this
+BF16_LSE_TOL = 1e-4
 BUCKETS = (128, 256, 512, 1024)
 SEED = 0
 CSRC = "deepspeed_tpu_torch/csrc/transformer/"
@@ -319,18 +336,32 @@ def backward_bound(kind, q, k, mask, causal):
 
 # ------------------------------------------------------------------ kernel
 def kernel_cases():
-    """(label, b, h, s, kv_len, d, causal, mask kind, fused).  The bucket
-    cases are the prefill's: q, k and v are strided views of one fused
-    [b, s, 3, h, d] projection, as ``inference/model.py`` passes them."""
-    cases = [(f"bucket{s}", 1, 16, s, s, 64, True, "tail", True)
+    """(label, b, h, s, kv_len, d, causal, mask kind, fused, dropout rate).
+    The bucket cases are the prefill's: q, k and v are strided views of
+    one fused [b, s, 3, h, d] projection, as ``inference/model.py`` passes
+    them."""
+    cases = [(f"bucket{s}", 1, 16, s, s, 64, True, "tail", True, 0.0)
              for s in BUCKETS]
     cases += [("b2_full_masked_row", 2, 16, 256, 256, 64, False, "row",
-               False),
-              ("ragged_s300", 1, 16, 300, 300, 64, True, "tail", False),
-              ("kv_len_ne_s", 2, 8, 256, 384, 64, False, "tail", False),
+               False, 0.0),
+              ("ragged_s300", 1, 16, 300, 300, 64, True, "tail", False, 0.0),
+              ("kv_len_ne_s", 2, 8, 256, 384, 64, False, "tail", False, 0.0),
               ("kv_len_ne_s_causal", 1, 8, 200, 320, 64, True, "none",
-               False),
-              ("d128", 1, 8, 512, 512, 128, True, "tail", False)]
+               False, 0.0),
+              ("d128", 1, 8, 512, 512, 128, True, "tail", False, 0.0),
+              # edges of the bf16 kernel's 64-row tiles
+              ("s65", 1, 16, 65, 65, 64, True, "tail", False, 0.0),
+              ("dropout_kv201", 1, 8, 100, 201, 64, False, "tail", False,
+               DROPOUT),
+              ("causal_kv_gt_s", 1, 8, 128, 256, 64, True, "none", False,
+               0.0),
+              ("d128_s1024", 1, 16, 1024, 1024, 128, True, "none", True,
+               0.0),
+              ("full_masked_row_s1024", 2, 16, 1024, 1024, 64, False, "row",
+               False, 0.0),
+              # BERT's last layer: its 21 gathered rows against 128 keys
+              ("bert_gathered_s21", BERT_BATCH, 16, BERT_PRED + 1, BERT_SEQ,
+               64, False, "tail", False, DROPOUT)]
     return cases
 
 
@@ -360,18 +391,25 @@ def phase_kernel(card, results):
     torch.backends.cudnn.allow_tf32 = False
     print("kernel: fp32 matmuls in full fp32 (allow_tf32 False for "
           "matmul and cuDNN); tolerances fp32 2e-5, bf16 2e-2 (P is "
-          "rounded to bf16 before P·V, as on the TPU)")
+          "rounded to bf16 before P·V, as on the TPU), bf16 lse 1e-4")
     max_err = 0.0
     timings = {}
-    for i, (label, b, h, s, kv_len, d, causal, kind, fused) in \
+    for i, (label, b, h, s, kv_len, d, causal, kind, fused, rate) in \
             enumerate(kernel_cases()):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask = make_case(b, h, s, kv_len, d, kind, fused,
                                       dtype, SEED + i)
-            out, lse = flash_attention_fwd(q, k, v, mask, causal=causal)
+            seed = seed_words(SEED + 400 + i) if rate else None
+            out, lse = flash_attention_fwd(q, k, v, mask, causal, rate, seed)
+            again = flash_attention_fwd(q, k, v, mask, causal, rate, seed)
             torch.cuda.synchronize()
+            check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                  f"{label}: two runs are not bitwise equal")
+            keep, inv_keep = plain_keep(q, k, rate, seed)
             ref_out, ref_lse = flash_attention_reference(q, k, v, mask,
-                                                         causal)
+                                                         causal, keep,
+                                                         inv_keep)
+            del keep
             check(out.shape == ref_out.shape and lse.shape == ref_lse.shape,
                   f"{label}: shapes {out.shape}/{lse.shape}")
             check(bool(torch.isfinite(out.float()).all()),
@@ -380,37 +418,56 @@ def phase_kernel(card, results):
             torch.testing.assert_close(out.float(), ref_out.float(),
                                        atol=tol, rtol=tol)
             torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(
+                    lse, ref_lse, atol=BF16_LSE_TOL, rtol=BF16_LSE_TOL,
+                    msg=lambda m: f"{label} bf16 lse: {m}")
             err_out = float((out.float() - ref_out.float()).abs().max())
             err_lse = float((lse - ref_lse).abs().max())
             max_err = max(max_err, err_out)
-            if kind == "row":
+            if kind == "row":   # batch row 1 sees no key at all
                 check(bool((out[1] == 0).all()), "masked row is not zero")
+                check(bool((lse.view(b, h, s)[1] == fa.MAX_FLOOR).all()),
+                      "masked row's lse is not MAX_FLOOR")
             row = {"case": label, "dtype": str(dtype).split(".")[-1],
                    "b": b, "h": h, "s": s, "kv_len": kv_len, "d": d,
                    "causal": causal, "fused_qkv_views": fused,
-                   "max_abs_err_out": err_out,
+                   "dropout": rate, "max_abs_err_out": err_out,
                    "max_abs_err_lse": err_lse}
             print(f"kernel {label} {row['dtype']}: max |out-plain| "
-                  f"{err_out:.3g}, max |lse-plain| {err_lse:.3g} ok")
+                  f"{err_out:.3g}, max |lse-plain| {err_lse:.3g}, "
+                  f"bitwise-repeatable ok")
             if dtype == torch.bfloat16 and label.startswith("bucket"):
                 bound, bound_by = attention_bound(q, k, mask, causal)
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                # the dispatch's other path for a prefill:
+                # reference_attention over the padding as an additive mask
+                additive = key_padding_to_additive(mask)[:, None, None, :]
                 row.update(
                     kernel_ms=device_ms(lambda: flash_attention_fwd(
                         q, k, v, mask, causal=causal)),
                     plain_ms=device_ms(lambda: flash_attention_reference(
                         q, k, v, mask, causal)),
+                    reference_attention_ms=device_ms(
+                        lambda: reference_attention(q, k, v, mask=additive,
+                                                    causal=causal)),
                     library_ms=device_ms(
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=True)),
-                    bound_ms=bound, bound_by=bound_by)
+                    bound_ms=bound, bound_by=bound_by,
+                    takes_flash=takes_flash("cuda", s, False, False))
                 timings[s] = row
                 print(f"bucket s={s} (b=1 h=16 d=64 causal bf16, fused "
                       f"QKV views): "
                       f"kernel_ms={row['kernel_ms']:.4f} "
                       f"plain_ms={row['plain_ms']:.4f} "
+                      f"reference_attention_ms="
+                      f"{row['reference_attention_ms']:.4f} "
                       f"library_ms={row['library_ms']:.4f} "
-                      f"bound_ms={bound:.5f} ({bound_by}) [{card}]")
+                      f"bound_ms={bound:.5f} ({bound_by}); the dispatch "
+                      f"(FLASH_MIN_ROWS={FLASH_MIN_ROWS}) takes "
+                      f"{'B1' if row['takes_flash'] else 'reference_attention'}"
+                      f" [{card}]")
             results["kernel"].append(row)
     return max_err, timings
 
@@ -520,40 +577,44 @@ def check_backward_case(row, label, path, dtype, q, k, v, dout, mask,
 
 
 def check_keep_mask(card, results):
-    """B4's keep mask read back from B1 itself: with q = 0 every score is
-    0, and with V the identity over kv_len = head_dim keys each output
-    element is keep·inv_keep/kv_len.  The mask must equal the plain
-    version's, keep the binomial rate within 5 sigma, and change with the
-    seed."""
+    """B4's keep mask read back from B1 itself, from the fp32 kernel and
+    from the bf16 one: with q = 0 every score is 0, and with V the
+    identity over kv_len = head_dim keys each output element is
+    keep·inv_keep/kv_len.  The mask must equal the plain version's, keep
+    the binomial rate within 5 sigma, and change with the seed."""
     b, h, s, d = 1, 16, 4096, 64
-    q = torch.zeros(b, s, h, d, device=DEVICE)
-    k = torch.randn(b, d, h, d, device=DEVICE)
-    v = torch.eye(d, device=DEVICE)[None, :, None, :].expand(
-        b, d, h, d).contiguous()
-    masks = []
-    for seed in (11, 12):
-        out, _ = flash_attention_fwd(q, k, v, None, False, DROPOUT,
-                                     seed_words(seed))
-        kept = out.permute(0, 2, 1, 3).reshape(b * h, s, d) > 0
-        check(torch.equal(kept, philox_keep_mask(seed_words(seed), b * h, s,
-                                                 d, DROPOUT)),
-              "B4: the kernel's keep mask differs from philox_keep_mask")
-        masks.append(kept)
-    check(not torch.equal(masks[0], masks[1]), "B4: another seed gives the "
-          "same mask")
     thresh, _ = fa.dropout_thresh(DROPOUT)
     p_keep = 1.0 - thresh / 2.0 ** 32
-    n = masks[0].numel()
-    rate = float(masks[0].float().mean())
-    sigma = math.sqrt(p_keep * (1 - p_keep) / n)
-    check(abs(rate - p_keep) <= 5 * sigma, f"B4: keep rate {rate} is "
-          f"{abs(rate - p_keep) / sigma:.1f} sigma from {p_keep}")
-    print(f"B4 keep mask from B1 ({n} elements): equals the plain version "
-          f"for two seeds, keep rate {rate:.6f} vs {p_keep:.6f} "
-          f"({abs(rate - p_keep) / sigma:.2f} sigma) [{card}]")
-    results["keep_mask"] = {"elements": n, "keep_rate": rate,
-                            "expected": p_keep,
-                            "sigmas": abs(rate - p_keep) / sigma}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q = torch.zeros(b, s, h, d, device=DEVICE, dtype=dtype)
+        k = torch.randn(b, d, h, d, device=DEVICE).to(dtype)
+        v = torch.eye(d, device=DEVICE)[None, :, None, :].expand(
+            b, d, h, d).contiguous().to(dtype)
+        masks = []
+        for seed in (11, 12):
+            out, _ = flash_attention_fwd(q, k, v, None, False, DROPOUT,
+                                         seed_words(seed))
+            kept = out.permute(0, 2, 1, 3).reshape(b * h, s, d) > 0
+            check(torch.equal(kept, philox_keep_mask(seed_words(seed), b * h,
+                                                     s, d, DROPOUT)),
+                  f"B4: the {name} kernel's keep mask differs from "
+                  f"philox_keep_mask")
+            masks.append(kept)
+        check(not torch.equal(masks[0], masks[1]), "B4: another seed gives "
+              "the same mask")
+        n = masks[0].numel()
+        rate = float(masks[0].float().mean())
+        sigma = math.sqrt(p_keep * (1 - p_keep) / n)
+        check(abs(rate - p_keep) <= 5 * sigma, f"B4: keep rate {rate} is "
+              f"{abs(rate - p_keep) / sigma:.1f} sigma from {p_keep}")
+        print(f"B4 keep mask from {name} B1 ({n} elements): equals the plain "
+              f"version for two seeds, keep rate {rate:.6f} vs {p_keep:.6f} "
+              f"({abs(rate - p_keep) / sigma:.2f} sigma) [{card}]")
+        results["keep_mask" if dtype == torch.float32
+                else f"keep_mask_{name}"] = {
+            "elements": n, "keep_rate": rate, "expected": p_keep,
+            "sigmas": abs(rate - p_keep) / sigma}
 
 
 def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
@@ -561,6 +622,10 @@ def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
     """B1 with B4, then B2a and B2b, at the train phase's attention
     against their plain versions with the same Philox mask, at the bf16
     tolerances of the backward phase; the errors join ``max_err``."""
+    again = flash_attention_fwd(q, k, v, None, True, DROPOUT, seed)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          "train shape: two B1 runs with dropout are not bitwise equal")
+    del again
     keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
     ref_out, ref_lse = flash_attention_reference(q, k, v, None, True, keep,
                                                  inv_keep)
@@ -569,6 +634,8 @@ def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=BF16_LSE_TOL,
+                               rtol=BF16_LSE_TOL)
     errs = {"out": float((out.float() - ref_out.float()).abs().max()),
             "lse": float((lse - ref_lse).abs().max())}
     del ref_out, ref_lse
@@ -587,7 +654,8 @@ def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
     max_err["dropout"] = max(max_err["dropout"], grad_err, errs["out"])
     print(f"backward train shape (b=8 h=16 s=1024 d=64 causal bf16, fused "
           f"QKV views, dropout 0.1): B1+B4 max |out-plain| {errs['out']:.3g}"
-          f" |lse-plain| {errs['lse']:.3g}; B2a+B2b max |grad-plain| dq "
+          f" |lse-plain| {errs['lse']:.3g}, two runs bitwise equal; B2a+B2b "
+          f"max |grad-plain| dq "
           f"{errs['dq']:.3g} dk {errs['dk']:.3g} dv {errs['dv']:.3g} ok "
           f"[{card}]")
     return errs
@@ -652,16 +720,26 @@ def time_backward(card, results, max_err):
                          "library_ms_dropout": sdpa[DROPOUT],
                          "bound_ms": bound, "bound_by": by}
     fwd_bound, fwd_by = attention_bound(q, k, None, True)
+    fwd_clocks = {"before": clocks_line()}
+    fwd_times = device_times(lambda: flash_attention_fwd(
+        q, k, v, None, True, DROPOUT, seed))
+    fwd_times0 = device_times(lambda: flash_attention_fwd(q, k, v, None,
+                                                          True))
+    fwd_clocks["after"] = clocks_line()
     timings["fwd_train"] = {
-        "kernel_ms": device_ms(lambda: flash_attention_fwd(
-            q, k, v, None, True, DROPOUT, seed)),
-        "kernel_ms_no_dropout": device_ms(lambda: flash_attention_fwd(
-            q, k, v, None, True)),
+        "kernel_ms": statistics.median(fwd_times),
+        "kernel_ms_min": min(fwd_times), "kernel_ms_max": max(fwd_times),
+        "kernel_ms_no_dropout": statistics.median(fwd_times0),
+        "kernel_ms_no_dropout_min": min(fwd_times0),
+        "kernel_ms_no_dropout_max": max(fwd_times0),
+        "plain_ms": device_ms(lambda: flash_attention_reference(
+            q, k, v, None, True, *plain_keep(q, k, DROPOUT, seed)),
+            calls=1, repeats=3, warmup=1),
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         "library_ms_dropout": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, dropout_p=DROPOUT)),
-        "bound_ms": fwd_bound, "bound_by": fwd_by}
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "clocks": fwd_clocks}
 
     def chain(rate):
         return lambda: kernel_chain(q, k, v, dout, None, True, rate, seed,
@@ -795,6 +873,24 @@ def check_b3_bert_scale(card, results, max_err):
                    "library_ms": device_ms(lambda: torch.autograd.grad(
                        o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
                    "bound_ms": bound, "bound_by": by}
+            # B1 at the BERT train phase's attention, beside SDPA's forward
+            # with the same dropout rate (a key mask of ones is no mask)
+            fwd_bound, fwd_by = attention_bound(q, k, mask, False)
+            b1_row = {
+                "kernel_ms": device_ms(lambda: flash_attention_fwd(
+                    q, k, v, mask, False, DROPOUT, seed)),
+                "plain_ms": device_ms(lambda: flash_attention_reference(
+                    q, k, v, mask, False, keep, inv_keep), calls=2,
+                    repeats=5),
+                "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, dropout_p=DROPOUT)),
+                "bound_ms": fwd_bound, "bound_by": fwd_by}
+            print(f"B1 timing BERT (b={b} h=16 s={s} d=64 bf16, key mask, "
+                  f"dropout 0.1): kernel_ms={b1_row['kernel_ms']:.5f} "
+                  f"plain_ms={b1_row['plain_ms']:.5f} SDPA forward with "
+                  f"dropout_p=0.1 {b1_row['library_ms']:.5f} "
+                  f"bound_ms={fwd_bound:.5f} ({fwd_by}) [{card}]")
+            results["b1_bert"] = b1_row
     max_err["b3"] = max(max_err["b3"], *errs.values())
     max_err["dropout"] = max(max_err["dropout"], *errs.values())
     print(f"backward B3 at BERT scale (h=16 d=64 bf16, key mask, dropout "

@@ -10,39 +10,85 @@
 // in the storage dtype plus an fp32 logsumexp.  With a seed it applies
 // attention dropout in the kernel (B4, flash_dropout.cuh): l sums the
 // undropped P, and the P·V product takes the kept P scaled by 1/keep.
+// The kernel reads q, k and v ([b, s, h, d], last dim contiguous) through
+// their strides, so the caller's fused-QKV views need no transpose copy,
+// and it masks ragged s and kv_len itself (no divisibility requirement).
 //
-// Design.  The TPU runs a grid (b·h, q blocks, k blocks) whose third
-// dimension is sequential and carries m, l and acc in VMEM scratch.  Here
-// one thread block owns one (b·h, 64-row q tile) and loops over 32-key K/V
-// tiles itself; under `causal` the loop stops at the diagonal tile.  Two
-// threads share a query row, each holding half of head_dim for q and the
-// accumulator in registers; the dot product is completed with one warp
-// shuffle, so both threads see the same scores and keep identical m and l.
-// K/V tiles are converted to fp32 in shared memory, rows padded so the two
-// halves sit in different banks.  The kernel reads q, k and v
-// ([b, s, h, d], last dim contiguous) through their strides, so the
-// caller's fused-QKV views need no transpose copy, and it masks ragged
-// s and kv_len itself (no divisibility requirement).
+// Bound.  At GPT-2-medium's training attention (b=8, h=16, s=1024, d=64,
+// causal, bf16) q, k, v and out are 67 MB and lse 0.5 MB: 20 µs at
+// 3.35 TB/s; the causal work is 4·d flops per visible pair, 17 GFLOP:
+// 17 µs at 989 TFLOP/s.  At the largest prefill bucket (b=1, s=1024) the
+// same is 8.4 MB (2.5 µs) against 2.2 GFLOP (2.2 µs).  So one launch is
+// memory-bound, 0.020 ms at the training shape and 0.0025 ms at the
+// serve shape, with the products close behind.
 //
-// Bound.  At GPT-2-medium's largest prefill bucket (b=1, h=16, s=1024,
-// d=64, causal, bf16) q, k, v and o are 8.4 MB: 2.5 us at 3.35 TB/s.  The
-// causal work is 2.15 GFLOP: 2.2 us at 989 TFLOP/s (bf16 tensor cores).
-// So one launch is memory-bound at about 2.5 us.
+// Design of the bf16 kernel, flash_fwd_mma_kernel (tensor cores,
+// flash_mma.cuh).  The TPU runs a grid (b·h, q blocks, k blocks) whose
+// third dimension is sequential and carries m, l and acc in VMEM scratch.
+// Here one block of 4 warps owns one (b·h, 64 query rows), each warp 16
+// of them, and walks 64-key K/V tiles itself:
+// - Q: the block's Q tile comes in by cp.async with the first K/V tile;
+//   each warp reads its 16 rows once by ldmatrix as A fragments and keeps
+//   them in registers for the whole key loop.
+// - K/V: cp.async brings each 64-key tile into padded shared-memory tiles
+//   two stages deep (tile j+1 in flight while tile j is computed), with
+//   the tile's key mask beside it.  Under `causal` the loop stops at the
+//   diagonal tile (the JAX `needed` test at :228).
+// - Scores: per tile each warp computes S = Q·Kᵀ as 16x64 fp32 C
+//   fragments with `mma.sync.m16n8k16` (bf16 operands, fp32
+//   accumulators), K read by ldmatrix.  The per-element causal, kv_len
+//   and key-mask test runs only on the tiles that need it: the diagonal
+//   tile, the tile that crosses kv_len, or every tile when a key mask is
+//   given.
+// - Softmax on the fragments: a thread holds 16 scores of two rows; a row
+//   max is closed over the four lanes that share the row by two
+//   `shfl.xor`.  The running max, in log2 units, is floored at MAX_FLOOR;
+//   P = 2^(S·scale·log2 e − m) by `ex2.approx`; l sums the fp32 undropped
+//   P per thread and the four lanes' sums are added once at the end; lse
+//   goes back in natural-log units.
+// - P·V: the kept P times 1/keep is rounded to bf16 and repacked from
+//   the C fragments into the A fragments of the next product (c_to_a),
+//   never through shared memory; O += P·V with V read by ldmatrix.trans.
+// - Dropout: the keep bits of the next tile are drawn into a shared
+//   bitmask before the products of this one (one thread per (row, 32-key
+//   word), no atomics), and only for the groups of 4 keys that hold a
+//   visible one: one draw per 4 visible elements, B4's counter unchanged.
+// - Epilogue: out = acc / l (l = 0 divides by 1) is staged in the warp's
+//   own rows of the Q tile and written with 16-byte stores; lse is
+//   m + log l, or exactly MAX_FLOOR for a row that saw no key.
+// - Launch order: the last query tiles first, since under `causal` they
+//   walk the most key tiles and the card starts blocks in grid order.
+// - Shared memory: Q, two stages of K and V, the key mask and the keep
+//   bits: 47,616 bytes at head_dim 64 and 88,576 at 128, dynamic above
+//   48 KB.  A block owns its rows and no atomics touch a value, so two
+//   runs are bitwise equal.
+// - The kernel is instantiated with and without dropout, so a call
+//   without a seed draws and tests no keep bits.
+// Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): at head_dim
+// 64 163 a thread without dropout (three blocks an SM) and 128 with it
+// (four blocks), at 128 209 and 231 (two blocks), no spill.
+// `examples/profile_torch_b1.py` prints these counts and times the
+// bound at other block counts side by side (PERF.md §6).
 //
-// What this simple design leaves on the table.  Every multiply-add runs
-// as a scalar fp32 FMA on the CUDA cores (67 TFLOP/s peak, so at least
-// 32 us for that shape, before shared-memory traffic), K/V come in by plain
-// loads with no overlap of copy and compute, and with 128 threads a block
-// the card holds few warps per SM.  Tensor cores (mma.sync, then wgmma),
-// TMA or cp.async double buffering and a larger q tile per block are the
-// work of a later change.
+// The fp32 kernel keeps the earlier scalar design: the only tensor-core
+// product for fp32 operands is TF32, which misses the fp32 forward
+// tolerance (2e-5) the checks hold, and fp32 runs only in the parity and
+// kernel checks.  There two threads share a query row, each holding half
+// of head_dim for q and the accumulator in registers; the dot product is
+// completed with one warp shuffle, so both threads see the same scores
+// and keep identical m and l.  K/V tiles of 32 keys are converted to
+// fp32 in shared memory, rows padded so the two halves sit in different
+// banks.  Every multiply-add there is a scalar FMA on the CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -51,6 +97,7 @@ using ds_flash::kMaxFloor;
 using ds_flash::kNegInf;
 using ds_flash::to_float;
 
+// ---------------------------------------------------------- B1, fp32
 constexpr int kBlockQ = 64;          // query rows per thread block
 constexpr int kBlockK = 32;          // keys per K/V tile
 constexpr int kThreads = 2 * kBlockQ;
@@ -206,6 +253,276 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---------------------------------------------------------- B1, bf16 (mma)
+using bf16 = __nv_bfloat16;
+using ds_flash::c_to_a;
+using ds_flash::cp_async_commit;
+using ds_flash::cp_async_wait;
+using ds_flash::draw_keep_tile_visible;
+using ds_flash::ex2_approx;
+using ds_flash::kMmaThreads;
+using ds_flash::kMmaTileRows;
+using ds_flash::ldsm_a;
+using ds_flash::ldsm_b;
+using ds_flash::ldsm_bt;
+using ds_flash::load_row_async;
+using ds_flash::load_tile_async;
+using ds_flash::mma_bf16;
+using ds_flash::MmaTile;
+using ds_flash::pack_bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kKeys = kMmaTileRows;       // keys per K/V tile
+constexpr int kBitWords = 2 * kMmaTileRows;  // keep bits of a 64x64 tile
+
+// the block's Q tile, two stages of K and of V, two stages of the key
+// mask and two of the keep bits
+template <int D>
+constexpr int fwd_mma_smem_bytes() {
+  return 5 * MmaTile<D>::kElems * static_cast<int>(sizeof(bf16)) +
+         2 * kKeys * static_cast<int>(sizeof(float)) +
+         2 * kBitWords * static_cast<int>(sizeof(uint32_t));
+}
+
+// Blocks an SM the launch bound asks for at head_dim 64, without and with
+// dropout (two at 128).  With dropout four blocks (128 registers a
+// thread) hide the Philox draws best; without, the products and
+// exponentials run faster at 163 registers, three blocks
+// (`examples/profile_torch_b1.py` times both at each count).
+constexpr int kMinBlocks64 = 3;
+constexpr int kMinBlocks64Dropout = 4;
+
+// kDrop: dropout on (a seed is given); without it the kernel draws and
+// tests no keep bits.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(
+    kMmaThreads, D == 64 ? (kDrop ? kMinBlocks64Dropout : kMinBlocks64) : 2)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ kv_mask,
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         int heads, int s, int kv_len, int64_t q_sb,
+                         int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                         int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                         int64_t v_ss, int64_t v_sh, float scale, int causal,
+                         const int* __restrict__ seed, uint32_t thresh,
+                         float inv_keep) {
+  using Tile = MmaTile<D>;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(fwd_smem);
+  bf16* k_s = q_s + Tile::kElems;      // two stages
+  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  float* mask_s = reinterpret_cast<float*>(v_s + 2 * Tile::kElems);
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + 2 * kKeys);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (tid >> 5) * 16;  // the warp's first row in the block
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // the last query tiles first: under `causal` they walk the most key
+  // tiles, and the card starts blocks in grid order
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
+  const int wq0 = q0 + wr;  // the warp's first row
+  const uint32_t sk0 = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
+  const uint32_t sk1 = kDrop ? static_cast<uint32_t>(seed[1]) : 0u;
+
+  const bf16* kbase = k + b * k_sb + h * k_sh;
+  const bf16* vbase = v + b * v_sb + h * v_sh;
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+  // causal: rows q0 .. q0+63 see no key past q0+63
+  const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+
+  auto issue = [&](int j) {
+    const int stage = j & 1;
+    const int kt = j * kKeys;
+    load_tile_async<D>(k_s + stage * Tile::kElems, kbase, k_ss, kt, kv_len,
+                       tid);
+    load_tile_async<D>(v_s + stage * Tile::kElems, vbase, v_ss, kt, kv_len,
+                       tid);
+    // the tile's key mask, 0 past kv_len
+    if (mrow) load_row_async(mask_s + stage * kKeys, mrow, kt, kv_len, tid);
+  };
+  auto draw = [&](int j) {
+    draw_keep_tile_visible(bits_s + (j & 1) * kBitWords, tid, sk0, sk1, bh,
+                           q0, j * kKeys, thresh, s, kv_len, causal);
+  };
+  load_tile_async<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, s, tid);
+  issue(0);
+  cp_async_commit();
+  if (kDrop) draw(0);
+
+  const float scale2 = scale * kLog2e;
+  // the thread's rows are wq0 + g (hh = 0) and wq0 + g + 8 (hh = 1); m in
+  // log2 units, l the thread's part of the row sum
+  float m[2] = {kMaxFloor, kMaxFloor};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qa[D / 16][4];  // the warp's Q rows as A fragments
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    if (kDrop && j + 1 < n_tiles) draw(j + 1);
+    cp_async_wait<1>();  // tile j (and at j = 0 the block's Q) is in
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_a<D>(qa[kk], q_s, wr, 16 * kk, lane);
+    }
+    const bf16* kt_s = k_s + (j & 1) * Tile::kElems;
+    const bf16* vt_s = v_s + (j & 1) * Tile::kElems;
+    const int kt0 = j * kKeys;
+
+    // S = Q·Kᵀ over the tile's 64 keys; the thread's keys are
+    // kt0 + 8n + 2t + {0, 1}
+    float sc[kKeys / 8][4];
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < kKeys / 16; ++nn) {
+        uint32_t bk[4];
+        ldsm_b<D>(bk, kt_s, 16 * nn, 16 * kk, lane);
+        mma_bf16(sc[2 * nn], qa[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+    // the element test only where the tile holds a key hidden from one of
+    // the warp's rows: the diagonal tile, the tile that crosses kv_len,
+    // every tile under a key mask
+    if (mrow || kt0 + kKeys > kv_len || (causal && kt0 + kKeys - 1 > wq0)) {
+      const float* mt = mask_s + (j & 1) * kKeys;
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = 8 * n + 2 * t + (e & 1);
+          const int key = kt0 + kl;
+          const int row = wq0 + g + 8 * (e >> 1);
+          const bool vis = (mrow ? mt[kl] > 0.f : key < kv_len) &&
+                           (!causal || row >= key);
+          if (!vis) sc[n][e] = kNegInf;
+        }
+      }
+    }
+
+    // the rows' new running max, over the four lanes that share a row
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(fmaxf(m[hh], mx[hh] * scale2), kMaxFloor);
+      corr[hh] = ex2_approx(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // keep bits of the thread's rows, one word per 32 keys, shifted so
+    // that key 8n + 2t + x of a word is bit 8n + x
+    uint32_t keep[2][2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        keep[hh][w] = kDrop ? bits_s[(j & 1) * kBitWords +
+                                     2 * (wr + g + 8 * hh) + w] >>
+                                  (2 * t)
+                            : 0u;
+
+    // P, l and O += P·V, 16 keys at a time: l sums the fp32 undropped P,
+    // the product takes the kept P times 1/keep rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+      for (int n = 2 * kk; n < 2 * kk + 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const float p = ex2_approx(fmaf(sc[n][e], scale2, -m[hh]));
+          l[hh] += p;
+          if (kDrop)
+            sc[n][e] = keep[hh][n >> 2] & (1u << (8 * (n & 3) + (e & 1)))
+                           ? p * inv_keep
+                           : 0.f;
+          else
+            sc[n][e] = p;
+        }
+      }
+      uint32_t a[4];
+      c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        ldsm_bt<D>(bv, vt_s, 16 * kk, 16 * nd, lane);
+        mma_bf16(acc[2 * nd], a, bv[0], bv[1]);
+        mma_bf16(acc[2 * nd + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage j & 1
+  }
+  cp_async_wait<0>();
+
+  // out = acc / l into the warp's own 16 rows of the Q tile (only this
+  // warp read them), then 16-byte stores of those rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
+    const int r = wr + g + 8 * hh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(q_s + r * Tile::kRow + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
+    // a row that saw no key keeps m = MAX_FLOOR and l = 0
+    if (t == 0 && q0 + r < s)
+      lse[(int64_t)bh * s + q0 + r] =
+          l[hh] == 0.f ? kMaxFloor : m[hh] * kLn2 + logf(l[hh]);
+  }
+  __syncwarp();
+  constexpr int CH = Tile::kChunks;
+#pragma unroll
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH;
+    const int ch = e - r * CH;
+    const int i = wq0 + r;
+    if (i < s)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * s + i) * heads + h) * D +
+                                8 * ch) =
+          *reinterpret_cast<const uint4*>(q_s + (wr + r) * Tile::kRow +
+                                          8 * ch);
+  }
+}
+
+// ----------------------------------------------------------- launchers
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* out, void* lse, int batch, int heads, int s, int kv_len,
@@ -213,20 +530,39 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
            int64_t v_sh, float scale, int causal, const int* seed,
            uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(kv_mask),
-      static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len, q_sb,
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, seed,
-      thresh, inv_keep);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int kSmem = fwd_mma_smem_bytes<D>();
+    auto kernel = seed ? flash_fwd_mma_kernel<D, true>
+                       : flash_fwd_mma_kernel<D, false>;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((s + kMmaTileRows - 1) / kMmaTileRows, batch * heads);
+    kernel<<<grid, kMmaThreads, kSmem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const float*>(kv_mask),
+        static_cast<bf16*>(out), static_cast<float*>(lse), heads, s, kv_len,
+        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+        seed, thresh, inv_keep);
+  } else {
+    // fp32: the scalar design
+    const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
+    flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(kv_mask),
+        static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
+        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+        seed, thresh, inv_keep);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension of q, k and v must be contiguous.  kv_mask is [batch, kv_len]
+// dimension of q, k and v must be contiguous, and in bf16 each base
+// 16-byte aligned with batch, seq and head strides multiples of 8 (the
+// 16-byte cp.async copies).  kv_mask is [batch, kv_len]
 // fp32 (1 keeps a key) or null; out is a contiguous [b, s, h, d] of the
 // input dtype and lse a contiguous fp32 [b·h, s].  `seed` is null (no
 // dropout) or two int32 seed words in device memory; `thresh` and

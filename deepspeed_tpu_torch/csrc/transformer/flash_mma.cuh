@@ -1,6 +1,6 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
-// (sm_90a): the bf16 B2a and B2b of flash_attention_bwd.cu use them, and
-// B1, B3, B5 and B6 are to follow.
+// (sm_90a): the bf16 B1 of flash_attention_fwd.cu and B2a and B2b of
+// flash_attention_bwd.cu use them, and B3, B5 and B6 are to follow.
 //
 // - PTX wrappers: `mma.sync` m16n8k16 (bf16 operands, fp32 accumulators),
 //   `ldmatrix` x4 and x4.trans, `ex2.approx`, `cp.async` of 16 bytes
@@ -15,9 +15,9 @@
 //   an `ldmatrix` phase reads start in 8 different 16-byte bank groups
 //   and the loads are free of bank conflicts; `ldsm_a`, `ldsm_b` and
 //   `ldsm_bt` give each lane its fragment of such a tile.
-// - The keep-bit drawer of the in-kernel dropout (B4): the 64x64 keep
+// - The keep-bit drawers of the in-kernel dropout (B4): the 64x64 keep
 //   bits of a score tile into a shared-memory bitmask, one thread per
-//   (row, 32-column word), 8 Philox draws and one plain store each.
+//   (row, 32-column word), up to 8 Philox draws and one plain store each.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -217,6 +217,29 @@ __device__ __forceinline__ void draw_keep_tile(uint32_t* bits, int tid,
 #pragma unroll
     for (int g = 0; g < 8; ++g)
       word |= keep_bits4(k0, k1, bh, row0 + r, g0 + g, thresh) << (4 * g);
+    bits[tid] = word;
+  }
+}
+
+// The same bits where a row sees only some keys (the forward, B1): row
+// row0 + r draws only the groups of 4 columns that hold a column below
+// its limit, which is 0 for a row at or past `rows`, else `cols`, and
+// under `causal` at most the row's own index + 1.  A skipped group's
+// bits are 0, and its P is 0 whatever they are: one draw per 4 visible
+// elements, none for a group with no visible element.
+__device__ __forceinline__ void draw_keep_tile_visible(
+    uint32_t* bits, int tid, uint32_t k0, uint32_t k1, uint32_t bh,
+    int row0, int col0, uint32_t thresh, int rows, int cols, bool causal) {
+  if (tid < 2 * kMmaTileRows) {
+    const int row = row0 + (tid >> 1);
+    const int c0 = col0 + 32 * (tid & 1);
+    const int lim = row >= rows ? 0 : causal ? min(cols, row + 1) : cols;
+    const uint32_t g0 = static_cast<uint32_t>(c0) >> 2;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+      if (c0 + 4 * g < lim)
+        word |= keep_bits4(k0, k1, bh, row, g0 + g, thresh) << (4 * g);
     bits[tid] = word;
   }
 }

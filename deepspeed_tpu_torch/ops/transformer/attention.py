@@ -3,8 +3,9 @@ elsewhere (port of ``deepspeed_tpu/ops/transformer/attention.py``).
 
 ``dot_product_attention`` takes :class:`FlashAttention` (B1 forward,
 B3 or B2a+B2b backward) when no additive ``mask`` is given and either
-the tensors are on CUDA with more than one query row — every prefill
-bucket and every training step — or attention dropout is on.  With
+the tensors are on CUDA with at least ``FLASH_MIN_ROWS`` (two) query
+rows — every prefill bucket and every training step — or attention
+dropout is on (:func:`takes_flash`).  With
 dropout the seed is two int32 words drawn on the tensors' device from
 the caller's generator, and the kernels drop inside (the JAX TPU path,
 ``attention.py:106-120``).  On the CPU the same autograd function runs
@@ -26,6 +27,12 @@ from .flash_attention import FlashAttention
 
 # rates below the byte-mask quantum pass through (layers.dropout)
 MIN_DROPOUT = 1.0 / 512.0
+# CUDA query rows from which a call without dropout takes B1 in place of
+# reference_attention: more than one.  On the H100 B1 is faster than
+# reference_attention at every prefill bucket, 128 to 1024 rows
+# (`chip_smoke.py`'s bucket rows, PERF.md §6); decode's single row stays
+# dense.
+FLASH_MIN_ROWS = 2
 
 
 def key_padding_to_additive(key_padding_mask):
@@ -60,6 +67,17 @@ def reference_attention(q, k, v, mask=None, causal=False, dropout_rate=0.0,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def takes_flash(device_type, rows, additive_mask, dropout):
+    """Whether :func:`dot_product_attention` runs :class:`FlashAttention`
+    for ``rows`` query rows on ``device_type``: never under an additive
+    ``mask``; always under dropout (the kernels drop inside, the plain
+    versions with the same mask); else on CUDA from ``FLASH_MIN_ROWS``
+    rows."""
+    if additive_mask:
+        return False
+    return dropout or (device_type == "cuda" and rows >= FLASH_MIN_ROWS)
+
+
 def dropout_seed(generator, device):
     """Two int32 seed words for the in-kernel dropout, drawn on
     ``device`` from ``generator`` (no host round trip)."""
@@ -82,7 +100,7 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
         raise ValueError(
             "pass either an additive mask or a key_padding_mask, not both")
     drop = dropout_active(dropout_rate, dropout_rng, deterministic)
-    if mask is None and (drop or (q.is_cuda and q.shape[1] > 1)):
+    if takes_flash(q.device.type, q.shape[1], mask is not None, drop):
         seed = dropout_seed(dropout_rng, q.device) if drop else None
         return FlashAttention.apply(q, k, v, key_padding_mask, seed, causal,
                                     float(dropout_rate) if drop else 0.0)

@@ -4,7 +4,8 @@ the autograd function that joins them.
 Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 (``csrc/transformer/``):
 
-- B1 ``flash_attention_fwd.cu``: forward, out and the fp32 logsumexp;
+- B1 ``flash_attention_fwd.cu``: forward, out and the fp32 logsumexp
+  (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
 - B2a and B2b ``flash_attention_bwd.cu``: dq over K/V tiles, and dk, dv
   over Q tiles (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
 - B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
@@ -254,15 +255,29 @@ def use_fused_backward(head_dim, s, kv_len, dtype):
 
 
 def mma_aligned(*tensors):
-    """Whether the bf16 B2a and B2b can read these ``[b, n, h, d]``
+    """Whether the bf16 B1, B2a and B2b can read these ``[b, n, h, d]``
     tensors with 16-byte ``cp.async`` copies: each base pointer 16-byte
     aligned and each batch, sequence and head stride (of a dim longer
-    than 1) a multiple of 8 elements.  Slices of a fused QKV projection,
-    the gathered ``positions`` queries and a contiguous dO all are."""
+    than 1) a multiple of 8 elements.  Slices of a fused QKV projection
+    (training and the serving prefill), the gathered ``positions``
+    queries and contiguous tensors all are."""
     return all(t.data_ptr() % 16 == 0
                and all(st % 8 == 0 for st, n in zip(t.stride()[:3],
                                                    t.shape[:3]) if n > 1)
                for t in tensors)
+
+
+def check_fwd_views(q, k, v):
+    """The forward wrapper's rule for the views it is given: bf16 q, k
+    and v go to B1 on the tensor cores, which copies them in 16-byte
+    ``cp.async`` chunks, so it raises a ValueError naming B1 where
+    :func:`mma_aligned` refuses them (never copies or sends them
+    elsewhere); fp32 takes any view whose last dim is contiguous."""
+    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v):
+        raise ValueError(
+            "the bf16 B1 kernel needs q, k and v 16-byte aligned with "
+            "batch, seq and head strides that are multiples of 8 elements; "
+            f"got strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
 def _check(q, k, v, kv_mask):
@@ -351,8 +366,9 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
 
     CPU tensors take :func:`flash_attention_reference` with the
     :func:`philox_keep_mask` mask.  CUDA tensors launch the Hopper kernel
-    (bf16 or fp32, head_dim 64 or 128) or raise.  Every launch adds one
-    to ``flash_attention_fwd.launches``."""
+    (bf16 on the tensor cores, fp32 scalar; head_dim 64 or 128) or raise,
+    also on bf16 views that :func:`mma_aligned` refuses.  Every launch
+    adds one to ``flash_attention_fwd.launches``."""
     _check(q, k, v, kv_mask)
     _check_seed(seed, dropout_rate, q.device)
     b, s, h, d = q.shape
@@ -362,6 +378,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
         return flash_attention_reference(q, k, v, kv_mask, causal, keep,
                                          inv_keep)
     _check_cuda(q, k, v, kv_mask)
+    check_fwd_views(q, k, v)
     mask = _mask_arg(kv_mask)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)

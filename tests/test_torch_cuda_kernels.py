@@ -62,23 +62,49 @@ def make_inputs(seed, b, s, kv_len, h, d):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("s,kv_len,d,causal", [
-    (128, 128, 64, True), (300, 300, 64, True), (256, 200, 64, False),
-    (200, 320, 64, True), (128, 128, 128, True)])
-def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, tol, s, kv_len,
-                                        d, causal):
-    q, k, v, mask = make_inputs(s + d, 2, s, kv_len, 4, d)
-    t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+@pytest.mark.parametrize("b,s,kv_len,d,causal,rate,fused", [
+    (2, 128, 128, 64, True, 0.0, False), (2, 300, 300, 64, True, 0.0, False),
+    (2, 256, 200, 64, False, 0.0, False), (2, 200, 320, 64, True, 0.0, False),
+    (2, 128, 128, 128, True, 0.0, False),
+    # edges of the bf16 kernel's 64-row tiles
+    (2, 65, 65, 64, True, 0.0, False),        # one row past a tile
+    (2, 100, 201, 64, False, 0.1, False),     # kv_len 201 under dropout
+    (2, 128, 256, 64, True, 0.0, False),      # causal, kv_len > s
+    (2, 1024, 1024, 128, True, 0.0, True),    # d=128 on fused-QKV views
+    (2, 1024, 1024, 64, False, 0.0, False),   # a fully masked row at 1024
+    (8, 21, 128, 64, False, 0.1, False)])     # BERT's 21 gathered rows
+def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, tol, b, s,
+                                        kv_len, d, causal, rate, fused):
+    """B1 against its plain version with the same Philox mask; bf16 lse
+    also to 1e-4 (both take fp32 scores of the same bf16 operands); the
+    last batch row sees no key: out exactly 0 and lse MAX_FLOOR."""
+    q, k, v, mask = make_inputs(s + d, b, s, kv_len, 4, d)
+    if fused:
+        qkv = torch.from_numpy(np.stack((q, k, v), 2)).to(cuda_device, dtype)
+        t = [qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]]
+    else:
+        t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
     m = torch.from_numpy(mask).to(cuda_device)
+    seed = torch.tensor([s, d], dtype=torch.int32, device=cuda_device) \
+        if rate else None
     before = flash_attention_fwd.launches
-    out, lse = flash_attention_fwd(*t, m, causal=causal)
+    out, lse = flash_attention_fwd(*t, m, causal, rate, seed)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 1
-    ref_out, ref_lse = flash_attention_reference(*t, m, causal=causal)
+    keep, inv_keep = None, 1.0
+    if rate:
+        keep = philox_keep_mask(seed, b * 4, s, kv_len, rate).view(
+            b, 4, s, kv_len)
+        inv_keep = fa.dropout_thresh(rate)[1]
+    ref_out, ref_lse = flash_attention_reference(*t, m, causal, keep,
+                                                 inv_keep)
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
     assert bool((out[-1] == 0).all())
+    assert bool((lse.view(b, 4, s)[-1] == fa.MAX_FLOOR).all())
 
 
 @pytest.mark.cuda
@@ -239,7 +265,7 @@ def test_bf16_backward_wrappers_raise_on_misaligned_views(cuda_device):
         cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
     for q in (shifted, wide):
         assert not fa.mma_aligned(q)
-        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        out, lse = flash_attention_fwd(q.clone(), k, v, causal=True)
         for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
             with pytest.raises(ValueError, match="16-byte aligned"):
                 fn(q, k, v, out, lse, dout, None, True)
@@ -247,13 +273,42 @@ def test_bf16_backward_wrappers_raise_on_misaligned_views(cuda_device):
 
 
 @pytest.mark.cuda
-def test_keep_mask_drawn_by_b1_equals_plain(cuda_device):
+def test_bf16_forward_raises_on_misaligned_views(cuda_device):
+    """The bf16 B1 copies q, k and v in 16-byte chunks with cp.async: a
+    tensor whose base is not 16-byte aligned, or whose head stride is not
+    a multiple of 8 elements, is refused with a ValueError naming B1 and
+    nothing is launched; the aligned views and fp32 go through."""
+    b, s, h, d = 1, 64, 2, 64
+    g = torch.Generator().manual_seed(0)
+    k, v = (torch.randn(b, s, h, d, generator=g)
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    before = flash_attention_fwd.launches
+    for bad in (shifted, wide):
+        for args in ((bad, k, v), (k, bad, v), (k, v, bad)):
+            with pytest.raises(ValueError, match="bf16 B1"):
+                flash_attention_fwd(*args, causal=True)
+    assert flash_attention_fwd.launches == before
+    flash_attention_fwd(shifted.clone(), k, v, causal=True)
+    flash_attention_fwd(wide.float(), k.float(), v.float(), causal=True)
+    assert flash_attention_fwd.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_keep_mask_drawn_by_b1_equals_plain(cuda_device, dtype):
     """With q = 0 and V the identity over kv_len = head_dim keys, B1's
-    output is keep · inv_keep / kv_len: its mask is the plain one."""
-    q = torch.zeros(1, 512, 4, 64, device=cuda_device)
-    k = torch.randn(1, 64, 4, 64, device=cuda_device)
+    output is keep · inv_keep / kv_len: its mask is the plain one, from
+    the fp32 kernel and from the bf16 one."""
+    q = torch.zeros(1, 512, 4, 64, device=cuda_device, dtype=dtype)
+    k = torch.randn(1, 64, 4, 64, device=cuda_device).to(dtype)
     v = torch.eye(64, device=cuda_device)[None, :, None, :].expand(
-        1, 64, 4, 64).contiguous()
+        1, 64, 4, 64).contiguous().to(dtype)
     seed = torch.tensor([3, 4], dtype=torch.int32, device=cuda_device)
     out, _ = flash_attention_fwd(q, k, v, None, False, 0.3, seed)
     kept = out.permute(0, 2, 1, 3).reshape(4, 512, 64) > 0

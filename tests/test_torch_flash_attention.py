@@ -34,6 +34,19 @@ FWD_TOL = 2e-5
 GRAD_TOL = 5e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions run on one intra-op thread: torch's CPU exp,
+    made by two threads at once as a process's first such call under CPU
+    contention, can come out of a reduced-accuracy path up to 1.5e-4 off
+    on one thread's half (``tests/test_torch_flash_block_sparse.py``).
+    Set here and restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_inputs(seed, b, s, kv_len, h, d, masked, masked_rows=()):
     rng = np.random.RandomState(seed)
     q = rng.randn(b, s, h, d).astype(np.float32)
@@ -362,6 +375,37 @@ def test_mma_aligned_refuses_what_cp_async_cannot_copy():
     assert not tfa.mma_aligned(rows[:, :64 * 4 * 64].view(2, 64, 4, 64))
     one = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)
     assert tfa.mma_aligned(one.as_strided(one.shape, (3, 256, 64, 1)))
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_forward_view_rule_takes_main_path_views_and_refuses_the_rest(d):
+    """The forward wrapper's rule (``check_fwd_views``), with no card:
+    bf16 B1 takes the training and prefill fused-QKV slices, BERT's
+    gathered ``positions`` queries with its key/value slices and
+    contiguous tensors; it refuses, naming B1, a base off 16 bytes and
+    a head or seq stride that is not a multiple of 8 elements.  fp32
+    (the scalar B1) takes every view whose last dim is contiguous."""
+    qkv = torch.zeros(2, 130, 3, 4, d, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 128, 2, 4, d, dtype=torch.bfloat16)
+    gathered = torch.zeros(2, 21, 4 * d, dtype=torch.bfloat16) \
+        .reshape(2, 21, 4, d)
+    contiguous = torch.zeros(2, 130, 4, d, dtype=torch.bfloat16)
+    tfa.check_fwd_views(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    tfa.check_fwd_views(gathered, kv[:, :, 0], kv[:, :, 1])
+    tfa.check_fwd_views(contiguous, contiguous, contiguous)
+    base = torch.zeros(2 * 130 * 4 * d + 4, dtype=torch.bfloat16)
+    shifted = base[4:].view(2, 130, 4, d)              # 8 bytes off
+    wide = torch.zeros(2, 130, 4, d + 4, dtype=torch.bfloat16)[..., :d]
+    rows = torch.zeros(2, 130, 4 * d + 4, dtype=torch.bfloat16)[
+        ..., :4 * d].unflatten(-1, (4, d))             # seq stride 4d + 4
+    for bad in (shifted, wide, rows):
+        for args in ((bad, contiguous, contiguous),
+                     (contiguous, bad, contiguous),
+                     (contiguous, contiguous, bad)):
+            with pytest.raises(ValueError, match="bf16 B1"):
+                tfa.check_fwd_views(*args)
+    odd = torch.zeros(2 * 130 * 4 * d + 1)[1:].view(2, 130, 4, d)
+    tfa.check_fwd_views(odd, torch.zeros(2, 130, 4, d + 4)[..., :d], odd)
 
 
 @pytest.mark.parametrize("rows", [0, 21, 128])

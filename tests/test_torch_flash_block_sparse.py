@@ -32,9 +32,16 @@ OUT_TOL, GRAD_TOL = 2e-5, 5e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
-def few_torch_threads():
+def one_torch_thread():
+    """The plain versions run on one intra-op thread.  torch's CPU exp
+    goes through MKL's vector math; when two intra-op threads make a
+    process's first such call at once under CPU contention (an xdist
+    worker beside five others), the second thread's half of the tensor
+    can come out of a reduced-accuracy path, up to 1.5e-4 relative,
+    which sends out and lse past the 2e-5 tolerance.  One thread never
+    makes that call concurrently.  Set here and restored after."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -97,6 +104,22 @@ def test_pick_q_agg_equal(blk, nb, q_agg):
 def inputs(seed, b, s, h, d=32):
     rng = np.random.RandomState(seed)
     return [rng.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+
+
+def test_plain_versions_run_on_one_thread_with_an_exact_exp():
+    """Regression for the flake of the plain forward at bigbird_blk16:
+    the module runs on one intra-op thread, and torch's exp of the first
+    forward's shifted scores is within two ulps of float64 exp (the
+    reduced-accuracy path it came out of was up to 1.5e-4 off)."""
+    assert torch.get_num_threads() == 1
+    layout, s, h = LAYOUTS["bigbird_blk16"]
+    q, k, _, _ = (torch.from_numpy(x) for x in inputs(1, 2, s, h))
+    visible, _ = tfbs.expand_layout(layout, s, False, torch.device("cpu"))
+    sc = tfbs._masked_scores(q, k, visible)
+    x = (sc - sc.amax(-1, keepdim=True))[visible.expand_as(sc)]
+    np.testing.assert_allclose(torch.exp(x).numpy(),
+                               np.exp(x.numpy().astype(np.float64)),
+                               rtol=2.0 ** -22, atol=0)
 
 
 def jax_forward(q, k, v, layout, causal):

@@ -118,6 +118,47 @@ def test_dot_product_attention_on_cpu_takes_the_dense_path():
     np.testing.assert_allclose(got, want, atol=TOL, rtol=1e-5)
 
 
+@pytest.mark.parametrize("device,rows,additive,dropout,want", [
+    ("cuda", 1, False, False, False),     # decode: one row, dense
+    ("cuda", 2, False, False, True),      # FLASH_MIN_ROWS
+    ("cuda", 21, False, False, True),     # BERT's gathered rows
+    ("cuda", 128, False, False, True),    # the smallest prefill bucket
+    ("cuda", 1024, False, False, True),   # the largest
+    ("cuda", 1024, True, False, False),   # an additive mask: dense
+    ("cuda", 1, False, True, True),       # dropout: in the kernels
+    ("cpu", 1024, False, False, False),   # CPU without dropout: dense
+    ("cpu", 128, False, True, True),      # CPU dropout: the plain B1/B2
+    ("cpu", 128, True, True, False)])
+def test_flash_dispatch_rule(device, rows, additive, dropout, want):
+    """The prefill threshold: CUDA calls without dropout take B1 from
+    ``FLASH_MIN_ROWS`` = 2 query rows, set from the H100 times of B1
+    against ``reference_attention`` at every prefill bucket."""
+    assert ta.FLASH_MIN_ROWS == 2
+    assert ta.takes_flash(device, rows, additive, dropout) is want
+
+
+def test_dot_product_attention_follows_the_dispatch_rule(monkeypatch):
+    """``dot_product_attention`` asks ``takes_flash`` with the tensors'
+    device, their query rows, whether an additive mask came, and whether
+    dropout is active, and runs ``FlashAttention`` exactly when it says
+    so."""
+    asked = []
+
+    def rule(device, rows, additive, dropout):
+        asked.append((device, rows, additive, dropout))
+        return dropout
+
+    monkeypatch.setattr(ta, "takes_flash", rule)
+    x = torch.zeros((1, 5, 2, 8))
+    gen = torch.Generator().manual_seed(0)
+    ta.dot_product_attention(x, x, x, causal=True)
+    ta.dot_product_attention(x, x, x, dropout_rate=0.1, dropout_rng=gen,
+                             deterministic=False)
+    ta.dot_product_attention(x, x, x, mask=torch.zeros(1, 1, 1, 5))
+    assert asked == [("cpu", 5, False, False), ("cpu", 5, False, True),
+                     ("cpu", 5, True, False)]
+
+
 def test_dot_product_attention_rejects_two_masks():
     x = torch.zeros((1, 4, 2, 8))
     with pytest.raises(ValueError, match="not both"):

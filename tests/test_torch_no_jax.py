@@ -13,8 +13,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py", REPO / "examples" / "profile_torch_serve.py",
-       REPO / "examples" / "profile_torch_train.py"]
+    + [REPO / "chip_smoke.py"] \
+    + sorted((REPO / "examples").glob("profile_torch_*.py"))
 PORT_MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
         ".__init__")
