@@ -87,7 +87,8 @@ order; any failure raises, so the script exits non-zero:
 10. sparse train parity — 2 layers at GPT-2-medium width, fp32, seq 1024,
               256-row blocks, dropout 0: 3 steps on the card (B5a, B5b)
               and on the CPU (the gather path) agree to rtol 1e-3;
-11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels) vs
+11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels; the
+              bf16 B6b and B6c on the tensor cores, fp32 scalar) vs
               ``flash_block_sparse_agg_reference`` and
               ``flash_block_sparse_agg_bwd_reference`` and vs B5 on the
               same inputs, fp32 (TF32 off) and bf16, fused-QKV views:
@@ -95,11 +96,16 @@ order; any failure raises, so the script exits non-zero:
               Fixed at blk 16, blk 24 at G=3, blk 256 at G=2, a per-head
               layout with an empty super-row (out and dq exactly 0, lse
               NEG_INF) and an empty row inside an active one (lse
-              MAX_FLOOR), d=128, causal and not; two runs bitwise equal;
+              MAX_FLOOR), d=128, G=5, causal and not; dq, dk and dv
+              exactly 0 where no pair is seen; two runs bitwise equal;
               device times at the BERT sparse attention (b=2, h=16,
               s=4096, d=64, bf16) beside the plain versions', SDPA's
-              with the layout as a boolean mask, the bound, and B6
-              against B5 at 128-, 64- and 16-row blocks;
+              with the layout as a boolean mask and the bound, with the
+              spread of the 20 repeats and the SM clock and power draw
+              before and after; B6b and B6c in their launch order
+              (longest blocks first) against grid order, in turns, with
+              bitwise-equal grads; and B6 against B5 at 128-, 64- and
+              16-row blocks;
 12. bert train — BERT-large (24 layers, hidden 1024, 16 heads, vocab
               30528), seq 128, micro-batch 64, attention mask of ones,
               MLM gather of 20 + NSP, dropout 0.1, Lamb, ZeRO-2, bf16: 2
@@ -1568,6 +1574,8 @@ def agg_cases():
         ("per_head_empty_causal", per_head, 2, 8, 256, 64, 4, True),
         ("per_head_empty", per_head, 2, 8, 256, 64, 4, False),
         ("d128_causal", per_head, 1, 8, 512, 128, 4, True),
+        ("blk16_q_agg5", (rs.rand(2, 10, 10) < 0.35).astype(np.int64), 1,
+         2, 160, 64, 5, False),
     ]
 
 
@@ -1621,8 +1629,17 @@ def check_agg_case(label, layout, G, causal, q, k, v, dout, dtype):
                         for a, r in zip((out, dq, dk, dv),
                                         (b5[0],) + tuple(b5[2:])))
     del b5
+    # exactly 0 where no pair is seen: dq of a row that sees no key, dk
+    # and dv of a key that no row sees
+    s, h = q.shape[1], q.shape[2]
+    visible, _ = fbs.expand_layout(layout, s, causal, q.device)
+    visible = visible.expand(h, s, s)
+    no_key, no_row = ~visible.any(-1).T, ~visible.any(-2).T
+    del visible
+    check(not bool(dq[:, no_key].any()) and not bool(dk[:, no_row].any())
+          and not bool(dv[:, no_row].any()),
+          f"agg {label}: a gradient where no pair is seen is not 0")
     if label.startswith("per_head"):
-        s, h = q.shape[1], q.shape[2]
         blk = s // layout.shape[1]
         lse_h = lse.view(-1, h, s)
         rows = slice(4 * blk, 8 * blk)
@@ -1698,6 +1715,7 @@ def time_agg(card, results):
     del o_sdpa
     plain_bwd = device_ms(lambda: fbs.flash_block_sparse_agg_bwd_reference(
         q, k, v, out, lse, dout, layout, G), calls=1, repeats=3, warmup=1)
+    clocks = {"before": clocks_line()}
     timings = {}
     for kind, kernel, plain, library in (
             ("fwd", lambda: fbs.flash_block_sparse_agg_fwd(q, k, v, layout,
@@ -1712,14 +1730,30 @@ def time_agg(card, results):
                 q, k, v, out, lse, dout, layout, G, False, delta),
              plain_bwd, sdpa_bwd)):
         bound, by = sparse_bound(kind, q, layout, False)
-        timings[kind] = {"kernel_ms": device_ms(kernel), "plain_ms": plain,
+        times = device_times(kernel)
+        timings[kind] = {"kernel_ms": statistics.median(times),
+                         "kernel_ms_min": min(times),
+                         "kernel_ms_max": max(times), "plain_ms": plain,
                          "library_ms": library, "bound_ms": bound,
                          "bound_by": by}
+    timings.update(time_agg_orders(q, k, v, out, lse, dout, delta, layout, G))
+    clocks["after"] = clocks_line()
+    timings["clocks"] = clocks
+    for kind in ("fwd", "dq", "dkv", "launch_order"):
         print(f"agg timing {kind} (b={b} h={h} s={s} d={d} bf16, fused QKV "
               f"views, Fixed bidirectional blk 128, G=4): " + " ".join(
                   f"{key}={val:.5f}" if isinstance(val, float) else
                   f"{key}={val}" for key, val in timings[kind].items())
               + f" [{card}]")
+    dq_row, dkv_row = timings["dq"], timings["dkv"]
+    print(f"agg timing B6b+B6c {dq_row['kernel_ms'] + dkv_row['kernel_ms']:.5f}"
+          f" ms (20 repeats B6b {dq_row['kernel_ms_min']:.5f}-"
+          f"{dq_row['kernel_ms_max']:.5f}, B6c {dkv_row['kernel_ms_min']:.5f}-"
+          f"{dkv_row['kernel_ms_max']:.5f}; B6c/B6b "
+          f"{dkv_row['kernel_ms'] / dq_row['kernel_ms']:.3f}) against SDPA's "
+          f"masked backward {sdpa_bwd:.5f} ms; clocks.sm, clocks.max.sm, "
+          f"power.draw before {clocks['before']}, after {clocks['after']} "
+          f"[{card}]")
     del visible
     versus = {}
     for blk in (128, 64, 16):
@@ -1748,6 +1782,53 @@ def time_agg(card, results):
     timings["versus_b5"] = versus
     results["agg_timing"] = timings
     return timings
+
+
+def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G):
+    """The bf16 B6b and B6c in the launch order they use (their blocks
+    by visited tiles, the most first) against grid order (the units in
+    index order), timed in turns, with the gradients of both orders
+    bitwise equal; and the order itself: the tiles of the first and last
+    blocks launched and the mean."""
+    s = q.shape[1]
+    blk = s // layout.shape[1]
+    luts = fbs.device_luts(layout, q.device)
+    key = (G, blk, False)
+    orders = luts.launch_order(*key)
+    grid = tuple(torch.arange(o.numel(), dtype=torch.int32, device=q.device)
+                 for o in orders)
+    visits = fbs.super_tile_visits(layout, G, blk, False)
+    tiles = (visits.sum(axis=(2, 4)).ravel(), visits.sum(axis=(1, 3)).ravel())
+
+    def run(kind):
+        if kind == "dq":
+            return (fbs.flash_block_sparse_agg_bwd_dq(
+                q, k, v, out, lse, dout, layout, G, False, delta),)
+        return fbs.flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout,
+                                                  layout, G, False, delta)
+
+    row = {}
+    try:
+        for kind, i in (("dq", 0), ("dkv", 1)):
+            got = {}
+            for turn, use in (("sorted", orders), ("grid", grid),
+                              ("grid", grid), ("sorted", orders)):
+                luts._orders[key] = use
+                row.setdefault(f"{kind}_{turn}_ms", []).append(
+                    device_ms(lambda: run(kind)))
+                got[turn] = run(kind)
+            check(all(torch.equal(a, b_) for a, b_ in zip(got["sorted"],
+                                                          got["grid"])),
+                  f"agg launch order: B6{'bc'[i]} differs between orders")
+            order = orders[i].cpu().numpy()
+            row[f"{kind}_tiles_first"] = int(tiles[i][order[0]])
+            row[f"{kind}_tiles_last"] = int(tiles[i][order[-1]])
+            row[f"{kind}_tiles_mean"] = float(tiles[i].mean())
+    finally:
+        luts._orders[key] = orders
+    for name in [n for n in row if n.endswith("_ms")]:
+        row[name] = statistics.mean(row[name])
+    return {"launch_order": row}
 
 
 def bert_flops_per_sample(cfg, seq):

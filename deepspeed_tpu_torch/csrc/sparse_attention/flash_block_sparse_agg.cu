@@ -3,8 +3,10 @@
 //
 // Replaces, in deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py:
 //   B6a `_fwd_kernel_agg`     (:333, launched at :598) -> agg_fwd_kernel
-//   B6b `_bwd_dq_kernel_agg`  (:373, launched at :650) -> agg_bwd_dq_kernel
-//   B6c `_bwd_dkv_kernel_agg` (:402, launched at :682) -> agg_bwd_dkv_kernel
+//   B6b `_bwd_dq_kernel_agg`  (:373, launched at :650)
+//       -> agg_bwd_dq_mma_kernel (bf16), agg_bwd_dq_kernel (fp32)
+//   B6c `_bwd_dkv_kernel_agg` (:402, launched at :682)
+//       -> agg_bwd_dkv_mma_kernel (bf16), agg_bwd_dkv_kernel (fp32)
 // They compute what those kernels compute.  A super-tile covers a G×G
 // patch of [blk, blk] layout blocks, n = G·blk rows by n keys; its int32
 // mask (build_super_luts) has bit row_g·G + col_g set where sub-block
@@ -24,44 +26,69 @@
 // has no active tile; a row of a super-row with none keeps NEG_INF.  Here
 // the running max starts at MAX_FLOOR for the rows of a super-row with
 // scnt > 0, which gives that rule whatever tiles are skipped below.
-// Out and dq of such rows are exactly 0.
+// Out and dq of such rows are exactly 0, and so are dk and dv of a key
+// that no row sees.
 //
 // Design.  The TPU kernels run one (b·h, super-row) per grid row and
 // stream its active super-tiles on a sequential grid axis, because the
 // MXU wants 512-wide tiles.  On Hopper the reason for super-tiles is the
 // block's rows: a layout block under 64 rows fills only part of a B5
 // block (flash_block_sparse.cu), and a super-row of several layout
-// blocks fills it.  So:
-// - B6a and B6b: one block per (b·h, super q-row, or a 64-row part of
-//   one).  It reads scnt/slut/smask[lh, sq] itself and walks the active
-//   super key columns in 32-key tiles.
-// - B6c: one block per (b·h, super key column, or a 64-key part of
-//   one), over the transposed tables stlut/stmask, in 32-row Q/dO tiles.
-// Each block owns its output rows, so no atomic touches a value and two
-// runs are bitwise equal.  A block skips a 32-wide tile whose mask bits
-// are all zero for its own rows (or keys): exact, since masked scores
-// never raise the floored max and add exp(NEG_INF − m) = 0.  That is
-// where the Hopper kernels do less work than the TPU's, which compute
-// every element of an active super-tile: at the BERT train layout (Fixed
-// bidirectional, blk 128, G = 4, s = 4096) every super-tile is active and
-// they cover 2.9× the layout's pairs, while at blk 128 a 64-row part and
-// a 32-key tile each lie inside one layout block, so the skip leaves
-// exactly the layout's pairs.  Inside a tile the arithmetic is B5's, from
-// the shared steps in ../transformer/flash_common.cuh.
+// blocks fills it.  Every kernel gives a block 64 output rows (or keys)
+// of a super-tile row (or column), and each block owns them, so no
+// atomic touches a value and two runs are bitwise equal.
+// - B6a (both types) and the fp32 B6b, B6c keep the first, scalar
+//   design: one block per (b·h, 64-row part of a super q-row) or (b·h,
+//   64-key part of a super key column, over the transposed tables
+//   stlut/stmask), walking the other side in 32-wide tiles and skipping
+//   a tile whose mask bits are all zero for its own rows; fp32 FMAs on
+//   the CUDA cores with the shared steps of ../transformer/
+//   flash_common.cuh, plain loads and no copy/compute overlap.  The
+//   fp32 kernels serve the parity checks (TF32 would miss their 5e-4).
+// - The bf16 B6b and B6c run on the tensor cores, in the shape of B2a
+//   and B2b (../transformer/flash_attention_bwd.cu, with
+//   ../transformer/flash_mma.cuh): 4 warps of 16 rows (keys) hold Q and
+//   dO (K and V) as A fragments; the other side streams in 64-wide
+//   tiles by cp.async, two stages deep (zero-filled past the
+//   super-tile's end, so n = 72 at blk 24 is cut 64 + 8); S and dP (Sᵀ
+//   and dPᵀ) on mma.sync m16n8k16 in 32-wide chunks; dS (and Pᵀ, dSᵀ)
+//   repacked C→A as bf16 in registers; dq += dS·K (dv += Pᵀ·dO, dk +=
+//   dSᵀ·Q) with ldmatrix.trans.  No dropout: B6 has none.
+// - The mask, per 64×64 tile and for the whole block at once
+//   (TileWalk): a tile with no visible element for the block's 64 is
+//   skipped (exact, causal included); a *full* tile (every row group ×
+//   column group bit set, 64 by 64 inside the super-tile and, under
+//   `causal`, wholly below the diagonal) runs no per-element test; a
+//   *partial* one tests each C-fragment element (row group, column
+//   group, causal, the super-tile's end) before ex2, so a masked
+//   element is 0 even in a row whose lse is MAX_FLOOR.  At the BERT
+//   layout (blk 128) every visited tile is full; blk 16, 24, 32 and the
+//   causal cases take the partial path.
+// - Launch order.  A block's work is its visited tiles, which differ:
+//   at the BERT layout a B6c block of a global key column walks 64, the
+//   others 8 (mean 22; B6b's walk 22 each).  The wrapper passes an
+//   int32 order of the blocks, the most tiles first (build_launch_order,
+//   counted on the host by the same rule as TileWalk), and grid y is
+//   the rank in it, so the card, which starts blocks in grid order,
+//   starts the longest first and fills in behind them with the short
+//   ones.  The order changes when a block runs, not what it writes.
 //
 // Bound.  At the BERT sparse training attention (b=2, h=16, s=4096,
 // d=64, bf16, the layout above: 5.77e6 visible pairs a head) q, k, v and
 // out are 67 MB (20 µs at 3.35 TB/s), against 1.85e8 pairs · 4·d flops =
 // 47 GFLOP (48 µs at 989 TFLOP/s): bound by operations.  B6b does 6·d
-// and B6c 8·d per pair.  The kernels spend them as scalar fp32 FMAs on
-// the CUDA cores, with plain loads and no copy/compute overlap, like B5;
-// tensor cores and TMA are the work of a later change.
+// and B6c 8·d per pair (72 and 96 µs).  The bf16 kernels' mma.sync runs
+// well below the wgmma peak that bound assumes, and both recompute S
+// and dP; wgmma with TMA is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "transformer/flash_common.cuh"
+#include "transformer/flash_mma.cuh"
 
 namespace {
 
@@ -384,12 +411,525 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
   }
 }
 
+// ------------------------------------------------ B6b and B6c, bf16 (mma)
+using bf16 = __nv_bfloat16;
+using ds_flash::c_to_a;
+using ds_flash::cp_async_commit;
+using ds_flash::cp_async_wait;
+using ds_flash::ex2_approx;
+using ds_flash::kMmaThreads;
+using ds_flash::kMmaTileRows;
+using ds_flash::ldsm_b;
+using ds_flash::ldsm_bt;
+using ds_flash::load_row_async;
+using ds_flash::load_tile_async;
+using ds_flash::mma_bf16;
+using ds_flash::MmaTile;
+using ds_flash::OwnRows;
+using ds_flash::pack_bf16;
+
+static_assert(kRows == kMmaTileRows, "a part is one 64-row mma tile");
+constexpr float kLog2e = 1.4426950408889634f;
+// rows of the streamed tile computed at once, as in B2a and B2b: 32 keep
+// the score fragments at 32 registers a thread
+constexpr int kMmaChunk = 32;
+// Blocks an SM the bf16 kernels ask for at head_dim 64 (at 128 the
+// accumulators alone take 128 registers a thread, so one), chosen by
+// examples/profile_torch_b6.py's side-by-side times at the BERT shape
+// (PERF.md): B6b at four (128 registers, 72 bytes spilled) ran 12%
+// faster than at three (168, 8 bytes); B6c at three (168, 148 bytes)
+// 12% faster than at two (251, none) and 24% faster than at four (860
+// bytes spilled).
+constexpr int kAggMinBlocks64Dq = 4;
+constexpr int kAggMinBlocks64Dkv = 3;
+
+// shared memory of either kernel: six padded tiles (the block's own two,
+// two stages of the streamed two) and four rows of 64 fp32 values (B6c:
+// lse and Δ of the streamed rows, two stages each)
+template <int D>
+constexpr int agg_mma_smem_bytes() {
+  return 6 * MmaTile<D>::kElems * static_cast<int>(sizeof(bf16)) +
+         4 * kMmaTileRows * static_cast<int>(sizeof(float));
+}
+
+// The (b·h, super-tile, part) a block of the bf16 backward owns.  Grid y
+// is the block's rank in the launch order `order`, whose entries are
+// units lh·ns·parts + tile·parts + part, the most tiles first; grid x
+// runs over the copies of one layout head: every b·h for a shared
+// layout, every batch row for one layout per head.  The card starts
+// blocks in grid order, x fastest, so the longest blocks start first.
+struct Owner {
+  int bh, lh, tile, part;
+  __device__ Owner(const SuperLayout& lay, const int* order, int heads) {
+    const int per_head = lay.ns * lay.parts;
+    const int unit = order[blockIdx.y];
+    lh = unit / per_head;
+    const int u = unit - lh * per_head;
+    tile = u / lay.parts;
+    part = u - tile * lay.parts;
+    bh = lay.layout_heads == 1 ? static_cast<int>(blockIdx.x)
+                               : static_cast<int>(blockIdx.x) * heads + lh;
+  }
+};
+
+// One 64-wide tile of the other side of an active super-tile: rows (B6c)
+// or keys (B6b) x0 .. x0+63 of the super-tile that starts at `ob` and
+// ends before `x_lim`, its G·G mask bits, and whether every element of
+// the block's 64 by the tile's 64 is visible.
+struct OtherTile {
+  int x0, ob, x_lim;
+  uint32_t bits;
+  bool full;
+};
+
+// The tiles a block visits, in order: its row of the super-tile table
+// (kDq: the active super key columns of its super q-row; else the active
+// super q-rows of its super key column), each super-tile cut into
+// 64-wide tiles from its first row or key, and of those only the tiles
+// that hold a visible element for the block's own 64.  The rule is
+// exact, causal included, and build_launch_order counts the same tiles
+// on the host.  Every thread of the block walks alike.
+template <bool kDq>
+struct TileWalk {
+  const int* lut;   // the block's row of slut (stlut)
+  const int* mask;  // and of smask (stmask)
+  int n_active;
+  const SuperLayout& lay;
+  const Part& p;
+  int causal;
+  int t = 0, j = 0;  // the next candidate: super-tile t, tile j
+
+  // Whether the tile [x0, x_end) of the super-tile at `ob` holds an
+  // element visible to the block, and whether all of them are.  Bit
+  // rg·G + cg of `bits` is (query group rg, key group cg); the block's
+  // own groups are p.g_lo .. p.g_hi, the tile's o_lo .. o_hi.
+  __device__ __forceinline__ bool classify(uint32_t bits, int ob, int x0,
+                                           int x_end, bool& full) const {
+    const int G = lay.G;
+    const int blk = lay.blk;
+    const uint32_t want = span((x0 - ob) / blk, (x_end - 1 - ob) / blk);
+    bool vis = false;
+    full = p.r_end - p.r0 == kMmaTileRows && x_end - x0 == kMmaTileRows &&
+           (!causal || (kDq ? p.r0 >= x_end - 1 : x0 >= p.r_end - 1));
+    for (int a = p.g_lo; a <= p.g_hi; ++a) {
+      // the other side's groups that own group a pairs with
+      const uint32_t pairs = kDq ? (bits >> (a * G)) & ((1u << G) - 1u)
+                                 : rows_of_cols(bits, G, a, a);
+      uint32_t hit = pairs & want;
+      full = full && hit == want;
+      if (causal && hit) {
+        if (kDq) {
+          // a key of group cg is visible to the group's last row
+          const int own_hi = min(p.r_end, p.base + (a + 1) * blk) - 1;
+          hit = own_hi < x0 ? 0u
+                            : hit & span(0, min(G - 1, (own_hi - ob) / blk));
+        } else {
+          // a row of group cg sees the group's first key
+          const int own_lo = max(p.r0, p.base + a * blk);
+          const int c_min = own_lo > ob ? min(G, (own_lo - ob) / blk) : 0;
+          hit = x_end - 1 < own_lo ? 0u : hit & ~((1u << c_min) - 1u);
+        }
+      }
+      vis = vis || hit != 0u;
+    }
+    return vis;
+  }
+
+  __device__ __forceinline__ bool next(OtherTile& o) {
+    for (; t < n_active; ++t, j = 0) {
+      const int ob = lut[t] * lay.n;
+      const uint32_t bits = static_cast<uint32_t>(mask[t]);
+      for (; j < lay.parts; ++j) {
+        const int x0 = ob + j * kMmaTileRows;
+        const int x_end = min(x0 + kMmaTileRows, ob + lay.n);
+        bool full;
+        if (classify(bits, ob, x0, x_end, full)) {
+          o = OtherTile{x0, ob, ob + lay.n, bits, full};
+          ++j;
+          return true;
+        }
+      }
+    }
+    return false;
+  }
+};
+
+// B6b: one block per (b·h, 64-row part of a super q-row), 4 warps of 16
+// rows.  Q and dO are the warps' A fragments; the visited 64-key K/V
+// tiles stream in by cp.async two stages deep; per tile S = Q·Kᵀ and
+// dP = dO·Vᵀ on mma.sync in 32-key chunks, dS = P∘(dP − Δ) on the C
+// fragments, repacked C→A as bf16, and dq += dS·K.  The per-tile body is
+// B2a's (flash_attention_bwd.cu) without dropout and with the
+// super-tile mask: a copy, not a shared function, so that B2a's code is
+// left as it was measured.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
+    agg_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, SuperLayout lay,
+                          const int* __restrict__ order, int heads, int s,
+                          Strides st, float scale, int causal) {
+  using Tile = MmaTile<D>;
+  constexpr int KC = kMmaChunk;
+  extern __shared__ __align__(16) unsigned char agg_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(agg_smem);
+  bf16* o_s = q_s + Tile::kElems;
+  bf16* k_s = o_s + Tile::kElems;      // two stages
+  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (tid >> 5) * 16;  // the warp's first row in the block
+  const Owner own(lay, order, heads);
+  const int bh = own.bh;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const Part p(lay, own.tile, own.part);
+  const int64_t row_off = (int64_t)own.lh * lay.ns + own.tile;
+  TileWalk<true> walk{lay.lut + row_off * lay.width,
+                      lay.mask + row_off * lay.width, lay.cnt[row_off], lay,
+                      p, causal};
+
+  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
+  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  auto issue = [&](const OtherTile& o, int stage) {
+    load_tile_async<D>(k_s + stage * Tile::kElems, kbase, st.k[1], o.x0,
+                       o.x_lim, tid);
+    load_tile_async<D>(v_s + stage * Tile::kElems, vbase, st.v[1], o.x0,
+                       o.x_lim, tid);
+  };
+  OtherTile cur, nxt;
+  bool have = walk.next(cur);
+  if (have) {
+    load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], p.r0,
+                       p.r_end, tid);
+    load_tile_async<D>(o_s, dout + b * st.o[0] + h * st.o[2], st.o[1],
+                       p.r0, p.r_end, tid);
+    issue(cur, 0);
+  }
+  cp_async_commit();
+
+  // the thread's rows g and g+8: index, row group (-1 past the part),
+  // lse in log2 units and Δ
+  int row[2], grp[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = p.r0 + wr + g + 8 * hh;
+    const bool ok = i < p.r_end;
+    row[hh] = i;
+    grp[hh] = ok ? (i - p.base) / lay.blk : -1;
+    lse2[hh] = ok ? lse[(int64_t)bh * s + i] * kLog2e : 0.f;
+    dlt[hh] = ok ? delta[(int64_t)bh * s + i] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  const uint32_t g_mask = (1u << lay.G) - 1u;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  OwnRows<D> qf, of;
+
+  for (int stage = 0, first = 1; have; stage ^= 1, first = 0) {
+    const bool more = walk.next(nxt);
+    if (more) issue(nxt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the first time Q, dO) is in
+    __syncthreads();
+    if (first) {
+      qf.init(q_s, wr, lane);
+      of.init(o_s, wr, lane);
+    }
+    const bf16* kt_s = k_s + stage * Tile::kElems;
+    const bf16* vt_s = v_s + stage * Tile::kElems;
+    // the key groups each of the thread's rows sees in this super-tile
+    uint32_t sel[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      sel[hh] = grp[hh] < 0 ? 0u : (cur.bits >> (grp[hh] * lay.G)) & g_mask;
+
+#pragma unroll
+    for (int c = 0; c < kMmaTileRows; c += KC) {
+      float sc[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // S = Q·Kᵀ and dP = dO·Vᵀ over the chunk's KC keys
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        qf.get(aq, kk);
+        of.get(ao, kk);
+#pragma unroll
+        for (int nn = 0; nn < KC / 16; ++nn) {
+          uint32_t bk[4], bv[4];
+          ldsm_b<D>(bk, kt_s, c + 16 * nn, 16 * kk, lane);
+          ldsm_b<D>(bv, vt_s, c + 16 * nn, 16 * kk, lane);
+          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
+          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
+          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // dS = P∘(dP − Δ) in place of S; the thread's keys are
+      // x0 + c + 8n + 2t + {0, 1}.  The mask is tested before ex2, so a
+      // masked element is 0 even in a row whose lse is MAX_FLOOR.
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int x = cur.x0 + c + 8 * n + 2 * t + (e & 1);
+          const bool vis =
+              cur.full ||
+              (x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
+               (!causal || row[hh] >= x));
+          const float pr =
+              vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
+          sc[n][e] = pr * (dp[n][e] - dlt[hh]);
+        }
+      }
+      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bk[4];
+          ldsm_bt<D>(bk, kt_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
+          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (grp[hh] >= 0) {
+      bf16* o = dq + b * st.grad[0] + (int64_t)row[hh] * st.grad[1] +
+                h * st.grad[2];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) = pack_bf16(
+            acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+    }
+  }
+}
+
+// B6c: one block per (b·h, 64-key part of a super key column), 4 warps
+// of 16 keys, over the transposed tables.  K and V are the warps' A
+// fragments; the visited 64-row Q/dO tiles stream in with their lse and
+// Δ; per tile Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so Pᵀ and dSᵀ are A operands as
+// they stand: dv += Pᵀ·dO and dk += dSᵀ·Q.  The per-tile body is B2b's
+// without dropout and with the super-tile mask (a copy, as for B6b).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
+    agg_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           SuperLayout lay, const int* __restrict__ order,
+                           int heads, int s, Strides st, float scale,
+                           int causal) {
+  using Tile = MmaTile<D>;
+  constexpr int KC = kMmaChunk;
+  extern __shared__ __align__(16) unsigned char agg_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(agg_smem);
+  bf16* v_s = k_s + Tile::kElems;
+  bf16* q_s = v_s + Tile::kElems;      // two stages
+  bf16* o_s = q_s + 2 * Tile::kElems;  // two stages
+  float* lse_s = reinterpret_cast<float*>(o_s + 2 * Tile::kElems);
+  float* dlt_s = lse_s + 2 * kMmaTileRows;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wk = (tid >> 5) * 16;  // the warp's first key in the block
+  const Owner own(lay, order, heads);
+  const int bh = own.bh;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const Part p(lay, own.tile, own.part);
+  const int64_t col_off = (int64_t)own.lh * lay.ns + own.tile;
+  TileWalk<false> walk{lay.lut + col_off * lay.width,
+                       lay.mask + col_off * lay.width, lay.cnt[col_off], lay,
+                       p, causal};
+
+  const bf16* qbase = q + b * st.q[0] + h * st.q[2];
+  const bf16* obase = dout + b * st.o[0] + h * st.o[2];
+  const float* lrow = lse + (int64_t)bh * s;
+  const float* drow = delta + (int64_t)bh * s;
+  auto issue = [&](const OtherTile& o, int stage) {
+    load_tile_async<D>(q_s + stage * Tile::kElems, qbase, st.q[1], o.x0,
+                       o.x_lim, tid);
+    load_tile_async<D>(o_s + stage * Tile::kElems, obase, st.o[1], o.x0,
+                       o.x_lim, tid);
+    load_row_async(lse_s + stage * kMmaTileRows, lrow, o.x0, o.x_lim, tid);
+    load_row_async(dlt_s + stage * kMmaTileRows, drow, o.x0, o.x_lim, tid);
+  };
+  OtherTile cur, nxt;
+  bool have = walk.next(cur);
+  if (have) {
+    load_tile_async<D>(k_s, k + b * st.k[0] + h * st.k[2], st.k[1], p.r0,
+                       p.r_end, tid);
+    load_tile_async<D>(v_s, v + b * st.v[0] + h * st.v[2], st.v[1], p.r0,
+                       p.r_end, tid);
+    issue(cur, 0);
+  }
+  cp_async_commit();
+
+  // the thread's keys g and g+8: index and key group (-1 past the part)
+  int key[2], grp[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = p.r0 + wk + g + 8 * hh;
+    grp[hh] = key[hh] < p.r_end ? (key[hh] - p.base) / lay.blk : -1;
+  }
+  const float scale2 = scale * kLog2e;
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  OwnRows<D> kf, vf;
+
+  for (int stage = 0, first = 1; have; stage ^= 1, first = 0) {
+    const bool more = walk.next(nxt);
+    if (more) issue(nxt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the first time K, V) is in
+    __syncthreads();
+    if (first) {
+      kf.init(k_s, wk, lane);
+      vf.init(v_s, wk, lane);
+    }
+    const bf16* qt_s = q_s + stage * Tile::kElems;
+    const bf16* ot_s = o_s + stage * Tile::kElems;
+    const float* lt = lse_s + stage * kMmaTileRows;
+    const float* dt = dlt_s + stage * kMmaTileRows;
+    // the row groups that see each of the thread's keys in this
+    // super-tile
+    uint32_t sel[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      sel[hh] = grp[hh] < 0 ? 0u
+                            : rows_of_cols(cur.bits, lay.G, grp[hh], grp[hh]);
+
+#pragma unroll
+    for (int c = 0; c < kMmaTileRows; c += KC) {
+      float sc[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over the chunk's KC query rows
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        kf.get(ak, kk);
+        vf.get(av, kk);
+#pragma unroll
+        for (int nn = 0; nn < KC / 16; ++nn) {
+          uint32_t bq[4], bo[4];
+          ldsm_b<D>(bq, qt_s, c + 16 * nn, 16 * kk, lane);
+          ldsm_b<D>(bo, ot_s, c + 16 * nn, 16 * kk, lane);
+          mma_bf16(sc[2 * nn], ak, bq[0], bq[1]);
+          mma_bf16(sc[2 * nn + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[2 * nn], av, bo[0], bo[1]);
+          mma_bf16(dp[2 * nn + 1], av, bo[2], bo[3]);
+        }
+      }
+      // Pᵀ in place of Sᵀ, dSᵀ in place of dPᵀ; the thread's rows are
+      // x0 + c + 8n + 2t + {0, 1}.  The mask is tested before ex2.
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int rl = c + 8 * n + 2 * t;  // row in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + rl);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + rl);
+        const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+        const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int col = e & 1;
+          const int x = cur.x0 + rl + col;
+          const bool vis =
+              cur.full ||
+              (x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
+               (!causal || x >= key[hh]));
+          const float pr =
+              vis ? ex2_approx(fmaf(sc[n][e], scale2, nl[col])) : 0.f;
+          sc[n][e] = pr;
+          dp[n][e] = pr * (dp[n][e] - dl[col]);
+        }
+      }
+      // dv += Pᵀ·dO and dk += dSᵀ·Q
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t ap[4], as[4];
+        c_to_a(ap, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bo[4], bq[4];
+          ldsm_bt<D>(bo, ot_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
+          mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+          ldsm_bt<D>(bq, qt_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
+          mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (grp[hh] >= 0) {
+      const int64_t off = b * st.grad[0] + (int64_t)key[hh] * st.grad[1] +
+                          h * st.grad[2] + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(
+            dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
+            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out, *lse_out, *grad, *dv;
+  const int* order;  // the bf16 backward's launch order
   SuperLayout lay;
   int batch, heads, s;
   Strides st;
@@ -398,8 +938,51 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The bf16 B6b and B6c, on the tensor cores: grid x the copies of a
+// layout head, grid y the rank in the launch order.
+template <int D>
+int launch_mma(Kind kind, const Args& a) {
+  const SuperLayout& l = a.lay;
+  const int units = l.layout_heads * l.ns * l.parts;
+  if (a.order == nullptr || units > 65535 ||
+      (l.layout_heads != 1 && l.layout_heads != a.heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(l.layout_heads == 1 ? a.batch * a.heads : a.batch, units);
+  constexpr int bytes = agg_mma_smem_bytes<D>();
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  cudaError_t err;
+  if (kind == kDq) {
+    err = cudaFuncSetAttribute(agg_bwd_dq_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    agg_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.grad), l, a.order,
+        a.heads, a.s, a.st, a.scale, a.causal);
+  } else {
+    err = cudaFuncSetAttribute(agg_bwd_dkv_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    agg_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.grad),
+        static_cast<bf16*>(a.dv), l, a.order, a.heads, a.s, a.st, a.scale,
+        a.causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(Kind kind, const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (kind != kFwd) return launch_mma<D>(kind, a);
+  }
+  // B6a, and the fp32 B6b and B6c: the scalar design
   const dim3 grid(a.lay.ns * a.lay.parts, a.batch * a.heads);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -497,19 +1080,25 @@ extern "C" int ds_fbs_agg_fwd(int dtype, int head_dim, const void* q,
 // B6b: dq [b, s, h, d] (last dim contiguous) from dout [b, s, h, d], lse
 // and delta (contiguous fp32 [b·h, s]) over slut/scnt/smask; `strides`
 // is 15 host int64 element strides: (batch, seq, head) of q, k, v, dout
-// and dq.  Otherwise as ds_fbs_agg_fwd.
+// and dq.  `order` is the int32 launch order in device memory
+// (build_launch_order: the H·ns·parts units, the most tiles first); the
+// bf16 kernel reads it, the fp32 one launches in grid order.  bf16 rows
+// must be 16-byte aligned with strides that are multiples of 8 elements
+// (the wrapper checks).  Otherwise as ds_fbs_agg_fwd.
 extern "C" int ds_fbs_agg_bwd_dq(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq,
                                  const void* slut, const void* scnt,
-                                 const void* smask, int batch, int heads,
-                                 int s, int ns, int layout_heads, int G,
-                                 int tmax, const int64_t* strides,
-                                 float scale, int causal, void* stream) {
+                                 const void* smask, const void* order,
+                                 int batch, int heads, int s, int ns,
+                                 int layout_heads, int G, int tmax,
+                                 const int64_t* strides, float scale,
+                                 int causal, void* stream) {
   Args a = make_args(q, k, v, slut, scnt, smask, batch, heads, s, ns,
                      layout_heads, G, tmax, strides, 15, scale, causal,
                      stream);
+  a.order = static_cast<const int*>(order);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
@@ -519,19 +1108,22 @@ extern "C" int ds_fbs_agg_bwd_dq(int dtype, int head_dim, const void* q,
 
 // B6c: dk and dv [b, s, h, d] (sharing the strides given as the fifth
 // triple) over the transposed tables stlut/stcnt/stmask ([H, ns, qmax],
-// [H, ns], [H, ns, qmax]).  Otherwise as ds_fbs_agg_bwd_dq.
+// [H, ns], [H, ns, qmax]) and their own launch order.  Otherwise as
+// ds_fbs_agg_bwd_dq.
 extern "C" int ds_fbs_agg_bwd_dkv(int dtype, int head_dim, const void* q,
                                   const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
                                   const void* stlut, const void* stcnt,
-                                  const void* stmask, int batch, int heads,
-                                  int s, int ns, int layout_heads, int G,
-                                  int qmax, const int64_t* strides,
-                                  float scale, int causal, void* stream) {
+                                  const void* stmask, const void* order,
+                                  int batch, int heads, int s, int ns,
+                                  int layout_heads, int G, int qmax,
+                                  const int64_t* strides, float scale,
+                                  int causal, void* stream) {
   Args a = make_args(q, k, v, stlut, stcnt, stmask, batch, heads, s, ns,
                      layout_heads, G, qmax, strides, 15, scale, causal,
                      stream);
+  a.order = static_cast<const int*>(order);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;

@@ -419,13 +419,13 @@ using ds_flash::draw_keep_tile;
 using ds_flash::ex2_approx;
 using ds_flash::kMmaThreads;
 using ds_flash::kMmaTileRows;
-using ds_flash::ldsm_a;
 using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
 using ds_flash::mma_bf16;
 using ds_flash::MmaTile;
+using ds_flash::OwnRows;
 using ds_flash::pack_bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -436,37 +436,6 @@ constexpr int kBitWords = 2 * kMmaTileRows;  // keep bits of a 64x64 tile
 constexpr int kMmaChunk = 32;
 // Both kernels ask for three blocks an SM at head_dim 64 (168 registers a
 // thread); at 128 the accumulators alone take 128 registers, so one.
-
-// The A fragments of a warp's 16 rows of a block-owned padded tile:
-// held in registers at head_dim 64, re-read by ldmatrix at every use at
-// head_dim 128, where the registers go to the accumulators.
-template <int D>
-struct OwnRows {
-  static constexpr bool kInRegs = D == 64;
-  uint32_t r[kInRegs ? D / 16 : 1][4];
-  const bf16* tile;
-  int r0, lane;
-
-  __device__ __forceinline__ void init(const bf16* t, int row0, int ln) {
-    tile = t;
-    r0 = row0;
-    lane = ln;
-    if constexpr (kInRegs) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_a<D>(r[kk], tile, r0, 16 * kk, lane);
-    }
-  }
-
-  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
-    if constexpr (kInRegs) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x) a[x] = r[kk][x];
-    } else {
-      ldsm_a<D>(a, tile, r0, 16 * kk, lane);
-    }
-  }
-};
 
 // shared memory of either kernel: six padded tiles (the block's own two,
 // two stages of the streamed two), four rows of 64 fp32 values (B2a: the

@@ -1,6 +1,8 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
-// (sm_90a): the bf16 B1 of flash_attention_fwd.cu and B2a and B2b of
-// flash_attention_bwd.cu use them, and B3, B5 and B6 are to follow.
+// (sm_90a): the bf16 B1 of flash_attention_fwd.cu, B2a and B2b of
+// flash_attention_bwd.cu, and B6b and B6c of
+// ../sparse_attention/flash_block_sparse_agg.cu use them; B3, B5 and B6a
+// keep their scalar designs for now.
 //
 // - PTX wrappers: `mma.sync` m16n8k16 (bf16 operands, fp32 accumulators),
 //   `ldmatrix` x4 and x4.trans, `ex2.approx`, `cp.async` of 16 bytes
@@ -14,7 +16,8 @@
 //   memory with rows of D + 8 values (16 bytes of padding), so the 8 rows
 //   an `ldmatrix` phase reads start in 8 different 16-byte bank groups
 //   and the loads are free of bank conflicts; `ldsm_a`, `ldsm_b` and
-//   `ldsm_bt` give each lane its fragment of such a tile.
+//   `ldsm_bt` give each lane its fragment of such a tile, and `OwnRows`
+//   holds a warp's A fragments of the 16 rows of a block-owned tile.
 // - The keep-bit drawers of the in-kernel dropout (B4): the 64x64 keep
 //   bits of a score tile into a shared-memory bitmask, one thread per
 //   (row, 32-column word), up to 8 Philox draws and one plain store each.
@@ -198,6 +201,38 @@ __device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4],
                                   MmaTile<D>::kRow +
                            n0 + (lane >> 4) * 8);
 }
+
+// The A fragments of a warp's 16 rows of a block-owned padded tile:
+// held in registers at head_dim 64, re-read by ldmatrix at every use at
+// head_dim 128, where the registers go to the accumulators.
+template <int D>
+struct OwnRows {
+  static constexpr bool kInRegs = D == 64;
+  uint32_t r[kInRegs ? D / 16 : 1][4];
+  const __nv_bfloat16* tile;
+  int r0, lane;
+
+  __device__ __forceinline__ void init(const __nv_bfloat16* t, int row0,
+                                       int ln) {
+    tile = t;
+    r0 = row0;
+    lane = ln;
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_a<D>(r[kk], tile, r0, 16 * kk, lane);
+    }
+  }
+
+  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) a[x] = r[kk][x];
+    } else {
+      ldsm_a<D>(a, tile, r0, 16 * kk, lane);
+    }
+  }
+};
 
 // ------------------------------------------------------------ keep bits
 // The keep bits of score rows row0 .. row0+63 and columns col0 ..

@@ -18,7 +18,9 @@ Kernels:
   super-tiles of ``[G·blk, G·blk]`` with a ``G·G``-bit mask each
   (:func:`build_super_luts`); replace the TPU's ``_fwd_kernel_agg``,
   ``_bwd_dq_kernel_agg`` and ``_bwd_dkv_kernel_agg``, and count their
-  launches separately, as the TPU backward is two calls.
+  launches separately, as the TPU backward is two calls.  The bf16 B6b
+  and B6c run on the tensor cores and launch their blocks in
+  :func:`build_launch_order`'s order, the most tiles first.
 
 ``q_agg`` resolves to the aggregation factor G exactly as in the JAX
 package (:func:`_pick_q_agg`: "auto" takes super-tiles for layout blocks
@@ -40,8 +42,9 @@ the gather path ``block_sparse.py`` is the general one.
 
 The host tables (:func:`build_block_luts`, :func:`build_super_luts`) are
 numpy and equal the JAX package's entry for entry; :func:`device_luts`
-copies them to the device once per (layout, device), and the super-tile
-tables once per G as well.  The JAX package's flattened work list feeds a
+copies them to the device once per (layout, device), the super-tile
+tables once per G as well, and the launch orders once per (G, block
+rows, causal).  The JAX package's flattened work list feeds a
 schedule this package does not have, and is not carried.
 """
 
@@ -56,7 +59,8 @@ import torch
 
 from .. import op_builder
 from ..transformer.flash_attention import (_DTYPE_CODES, HEAD_DIMS,
-                                           MAX_FLOOR, NEG_INF, _check_cuda)
+                                           MAX_FLOOR, NEG_INF, _check_cuda,
+                                           mma_aligned)
 
 logger = logging.getLogger(__name__)
 
@@ -136,6 +140,60 @@ def build_super_luts(layout, G):
     return slut, scnt, smask, stlut, stcnt, stmask
 
 
+MMA_TILE = 64   # rows (or keys) of a part and of a streamed tile, bf16 B6b/B6c
+
+
+def super_tile_visits(layout, G, blk, causal):
+    """The 64-wide tiles the bf16 B6b and B6c visit, as a bool array
+    ``[H, ns, ns, parts, parts]``: entry ``[h, sq, sk, p, j]`` is whether
+    rows ``64p .. 64p+63`` of super q-row ``sq`` and keys ``64j ..
+    64j+63`` of super key column ``sk`` (each cut at the super-tile's
+    ``n = G·blk``) hold a visible pair, causal included.  B6b's block
+    (sq, p) walks the tiles j of its active super-tiles that this marks,
+    B6c's block (sk, j) the tiles p; a tile marked False is skipped, and
+    a super-tile with no active sub-block has none marked."""
+    active = np.asarray(layout) != 0
+    H, nb = active.shape[:2]
+    _check_factor(nb, G)
+    ns, n = nb // G, G * blk
+    parts = -(-n // MMA_TILE)
+    # [H, sq, sk, rg, cg]: sub-block (rg, cg) of super-tile (sq, sk)
+    bits = active.reshape(H, ns, G, ns, G).transpose(0, 1, 3, 2, 4)
+    lo = MMA_TILE * np.arange(parts)
+    hi = np.minimum(lo + MMA_TILE, n) - 1
+    g_lo = blk * np.arange(G)
+    # [part, group]: the first and last row of the part inside the group
+    first = np.maximum(lo[:, None], g_lo[None, :])
+    last = np.minimum(hi[:, None], g_lo[None, :] + blk - 1)
+    overlap = first <= last
+    # [H, sq, sk, p, j, rg, cg]
+    vis = (bits[:, :, :, None, None, :, :]
+           & overlap[:, None, :, None] & overlap[None, :, None, :])
+    if causal:
+        # the part's last row in group rg at or past the tile's first key
+        # in group cg: (sq − sk)·n + last[p, rg] − first[j, cg] >= 0
+        step = (np.arange(ns)[:, None] - np.arange(ns)[None, :]) * n
+        vis &= (step[:, :, None, None, None, None]
+                + last[:, None, :, None] - first[None, :, None, :]) >= 0
+    return vis.any(axis=(-1, -2))
+
+
+def build_launch_order(layout, G, blk, causal):
+    """The launch orders of the bf16 B6b and B6c: ``(dq_order,
+    dkv_order)``, int32 permutations of the ``H·ns·parts`` units ``lh·
+    ns·parts + tile·parts + part`` (a 64-row part of a super q-row for
+    B6b, a 64-key part of a super key column for B6c), sorted by the
+    number of 64-wide tiles the unit's block visits
+    (:func:`super_tile_visits`), the most first, ties by unit.  The card
+    starts blocks in grid order, so the longest start first and the
+    short ones fill in behind them."""
+    visits = super_tile_visits(layout, G, blk, causal)
+    dq_tiles = visits.sum(axis=(2, 4))     # [H, sq, p]
+    dkv_tiles = visits.sum(axis=(1, 3))    # [H, sk, j]
+    return tuple(np.argsort(-tiles.ravel(), kind="stable").astype(np.int32)
+                 for tiles in (dq_tiles, dkv_tiles))
+
+
 def _pick_q_agg(blk, nb, q_agg):
     """The JAX package's aggregation factor G for ``q_agg``: "never" is
     1; "auto" is 1 for blocks above 128 rows and grows super-tiles toward
@@ -167,8 +225,9 @@ def _pick_q_agg(blk, nb, q_agg):
 class _DeviceLuts:
     """One layout on one device: ``build_block_luts``' four tables for
     B5, ``build_super_luts``' six for B6 at each G asked for
-    (:meth:`super_tables`), and the ``[H, nb, nb]`` bool layout itself
-    for the plain versions."""
+    (:meth:`super_tables`), the bf16 B6b/B6c launch orders at each (G,
+    block rows, causal) asked for (:meth:`launch_order`), and the
+    ``[H, nb, nb]`` bool layout itself for the plain versions."""
 
     def __init__(self, layout, device):
         arrays = build_block_luts(layout)
@@ -180,6 +239,7 @@ class _DeviceLuts:
         self._layout = np.asarray(layout) != 0   # a copy: the cache holds
         self._device = device                    # no reference to the key
         self._super = {}
+        self._orders = {}
 
     def super_tables(self, G):
         """The super-tile tables at factor ``G`` on this device, built
@@ -194,6 +254,18 @@ class _DeviceLuts:
                 stmask=stmask, ns=arrays[0].shape[1],
                 tmax=arrays[0].shape[2], qmax=arrays[3].shape[2])
         return tables
+
+    def launch_order(self, G, blk, causal):
+        """``(dq_order, dkv_order)`` of :func:`build_launch_order` on this
+        device, built and copied at the first call for (G, blk, causal):
+        the tile counts depend on the block rows as well as the layout."""
+        key = (G, blk, bool(causal))
+        orders = self._orders.get(key)
+        if orders is None:
+            orders = self._orders[key] = tuple(
+                torch.from_numpy(a).to(self._device)
+                for a in build_launch_order(self._layout, G, blk, causal))
+        return orders
 
 
 # id(layout) -> (weak reference to the layout, {device: _DeviceLuts})
@@ -347,8 +419,8 @@ def _agg_kernels():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
         fwd.argtypes = [i32, i32] + [ptr] * 8 + [i32] * 7 + tail
-        dq.argtypes = [i32, i32] + [ptr] * 10 + [i32] * 7 + tail
-        dkv.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 + tail
+        dq.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 + tail
+        dkv.argtypes = [i32, i32] + [ptr] * 12 + [i32] * 7 + tail
         fwd.restype = dq.restype = dkv.restype = ctypes.c_int
     return fwd, dq, dkv
 
@@ -576,22 +648,45 @@ def _agg_bwd_strides(q, k, v, dout, grad):
         *dout.stride()[:3], *grad.stride()[:3])
 
 
+def _agg_bwd_views(name, q, k, v, dout):
+    """The bf16 B6b and B6c copy q, k, v and dO in 16-byte ``cp.async``
+    chunks: a ValueError naming the kernel where ``mma_aligned`` refuses
+    the views (nothing is copied or sent elsewhere)."""
+    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v, dout):
+        raise ValueError(
+            f"the bf16 {name} kernel needs q, k, v and dO 16-byte aligned "
+            f"with batch, seq and head strides that are multiples of 8 "
+            f"elements; got strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}, {dout.stride()}")
+
+
+def _agg_order(layout, q, G, causal):
+    """The launch orders for ``q``'s block rows on ``q``'s device
+    (``layout`` as :func:`_agg_setup` returns it)."""
+    return device_luts(layout, q.device).launch_order(
+        G, q.shape[1] // layout.shape[1], causal)
+
+
 def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
                                   causal=False, delta=None):
     """Super-tile dq (B6b) from the forward's out and lse; ``delta``,
     Δ as fp32 ``[b·h, s]``, is computed when not given.
 
     CPU tensors take :func:`flash_block_sparse_agg_bwd_reference`.  CUDA
-    tensors launch the Hopper kernel or raise; every launch adds one to
-    ``flash_block_sparse_agg_bwd_dq.launches``."""
+    tensors launch the Hopper kernel or raise: bf16 the tensor-core
+    kernel in :func:`build_launch_order`'s order (and a ValueError naming
+    B6b on views ``mma_aligned`` refuses), fp32 the scalar one.  Every
+    launch adds one to ``flash_block_sparse_agg_bwd_dq.launches``."""
     layout = _agg_setup(q, k, v, layout, G)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_bwd_reference(
             q, k, v, out, lse, dout, layout, G, causal)[0]
     _check_cuda(q, k, v, None, extra=(dout, out))
+    _agg_bwd_views("B6b", q, k, v, dout)
     d = q.shape[-1]
     st = device_luts(layout, q.device).super_tables(G)
+    order = _agg_order(layout, q, G, causal)[0]
     delta = _delta(out, dout) if delta is None else delta
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _, fn, _ = _agg_kernels()
@@ -600,7 +695,7 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), st.slut.data_ptr(),
-                st.scnt.data_ptr(), st.smask.data_ptr(),
+                st.scnt.data_ptr(), st.smask.data_ptr(), order.data_ptr(),
                 *_agg_common(q, st, G), st.tmax,
                 _agg_bwd_strides(q, k, v, dout, dq), 1.0 / math.sqrt(d),
                 int(bool(causal)), stream)
@@ -612,16 +707,18 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
 def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
                                    causal=False, delta=None):
     """Super-tile dk and dv (B6c) over the transposed super-tile table;
-    returns ``(dk, dv)``.  As :func:`flash_block_sparse_agg_bwd_dq`, with
-    ``flash_block_sparse_agg_bwd_dkv.launches``."""
+    returns ``(dk, dv)``.  As :func:`flash_block_sparse_agg_bwd_dq` (the
+    ValueError names B6c), with ``flash_block_sparse_agg_bwd_dkv.launches``."""
     layout = _agg_setup(q, k, v, layout, G)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_bwd_reference(
             q, k, v, out, lse, dout, layout, G, causal)[1:]
     _check_cuda(q, k, v, None, extra=(dout, out))
+    _agg_bwd_views("B6c", q, k, v, dout)
     d = q.shape[-1]
     st = device_luts(layout, q.device).super_tables(G)
+    order = _agg_order(layout, q, G, causal)[1]
     delta = _delta(out, dout) if delta is None else delta
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -632,7 +729,8 @@ def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
                 v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 st.stlut.data_ptr(), st.stcnt.data_ptr(),
-                st.stmask.data_ptr(), *_agg_common(q, st, G), st.qmax,
+                st.stmask.data_ptr(), order.data_ptr(),
+                *_agg_common(q, st, G), st.qmax,
                 _agg_bwd_strides(q, k, v, dout, dk), 1.0 / math.sqrt(d),
                 int(bool(causal)), stream)
     _launched(rc, "flash_block_sparse_agg_bwd_dkv")

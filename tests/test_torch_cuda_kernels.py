@@ -515,6 +515,143 @@ def test_super_tile_kernels_match_plain_and_b5(cuda_device, dtype, name):
         assert bool((lse.view(2, h, s)[:, 2, empty] == fbs.MAX_FLOOR).all())
 
 
+def agg_edges():
+    """name -> (layout, b, s, heads, d, G, causal): the bf16 B6b and B6c
+    edges of the tensor-core kernels.  blk 24 with G = 3 (n = 72: the
+    64-wide tiles straddle groups and the super-tile's edge); blk 16 with
+    G = 4, causal, an empty super-row and an empty row inside an active
+    super-row (lse MAX_FLOOR); head_dim 128; G = 5 (25 mask bits); the
+    BERT layout at s=1024 with all 16 heads (every visited tile full)."""
+    rs = np.random.RandomState(7)
+    per_head = (rs.rand(4, 16, 16) < 0.3).astype(np.int64)
+    per_head[:, :, 0] = 1
+    per_head[1, 4:8] = 0
+    per_head[2, 9] = 0
+    g5 = (rs.rand(2, 10, 10) < 0.35).astype(np.int64)
+    return {
+        "blk24_G3_causal": (np.tril(np.ones((1, 6, 6), np.int64)), 2, 144,
+                            4, 64, 3, True),
+        "blk16_G4_causal_empty_rows": (per_head, 2, 256, 4, 64, 4, True),
+        "blk32_G2_d128_causal": (per_head, 1, 512, 4, 128, 2, True),
+        "blk16_G5": (g5, 1, 160, 2, 64, 5, False),
+        "bert_layout_s1024": (FixedSparsityConfig(
+            num_heads=16, block=128, num_local_blocks=4,
+            num_global_blocks=1, attention="bidirectional",
+            different_layout_per_head=True,
+            num_different_global_patterns=4).make_layout(1024), 2, 1024, 16,
+            64, 4, False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(agg_edges()))
+def test_bf16_super_tile_backward_edges(cuda_device, name):
+    """The bf16 B6b and B6c (tensor cores) on fused-QKV views against
+    the plain version at 1e-2, one launch each per call, two runs
+    bitwise equal, and exactly 0 where no pair is seen: dq of a row that
+    sees no key, dk and dv of a key that no row sees."""
+    layout, b, s, h, d, G, causal = agg_edges()[name]
+    g = torch.Generator().manual_seed(len(name))
+    qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    counters = (fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    before = [c.launches for c in counters]
+    grads = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout,
+                                           G, causal)
+    again = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout,
+                                           G, causal)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2]
+    ref = fbs.flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout,
+                                                   layout, G, causal)
+    for a, a2, r in zip(grads, again, ref):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a.float(), r.float(), atol=1e-2,
+                                   rtol=1e-2)
+    visible, _ = fbs.expand_layout(layout, s, causal, cuda_device)
+    visible = visible.expand(h, s, s)
+    no_key = ~visible.any(-1).T          # [s, h]: rows that see no key
+    no_row = ~visible.any(-2).T          # [s, h]: keys no row sees
+    assert not grads[0][:, no_key].any()
+    assert not grads[1][:, no_row].any() and not grads[2][:, no_row].any()
+    if name.startswith("blk16_G4"):
+        assert bool(no_key[4 * 16:8 * 16, 1].all())   # the empty super-row
+        assert bool((lse.view(b, h, s)[:, 2, 9 * 16:10 * 16]
+                     == fbs.MAX_FLOOR).all())
+
+
+@pytest.mark.cuda
+def test_bf16_super_tile_backward_does_not_depend_on_the_launch_order(
+        cuda_device):
+    """Each block of B6b and B6c owns its output rows, so the launch
+    order changes when a block runs, not what it writes: grid order and
+    the longest-first order give bitwise-equal gradients."""
+    layout = FixedSparsityConfig(
+        num_heads=4, block=128, num_local_blocks=4, num_global_blocks=1,
+        attention="bidirectional", different_layout_per_head=True,
+        num_different_global_patterns=4).make_layout(2048)
+    b, s, h, d, G = 1, 2048, 4, 64, 4
+    g = torch.Generator().manual_seed(3)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                     .to(cuda_device, torch.bfloat16) for _ in range(4))
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G)
+    sorted_grads = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout,
+                                                  layout, G)
+    luts = fbs.device_luts(layout, cuda_device)
+    key = (G, s // layout.shape[1], False)
+    orders = luts.launch_order(*key)
+    assert not torch.equal(orders[1], torch.arange(
+        orders[1].numel(), dtype=torch.int32, device=cuda_device))
+    luts._orders[key] = tuple(torch.arange(o.numel(), dtype=torch.int32,
+                                           device=cuda_device)
+                              for o in orders)
+    try:
+        grid_grads = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout,
+                                                    layout, G)
+    finally:
+        luts._orders[key] = orders
+    for a, r in zip(sorted_grads, grid_grads):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_bf16_super_tile_backward_raises_on_misaligned_views(cuda_device):
+    """The bf16 B6b and B6c copy q, k, v and dO in 16-byte chunks: a
+    view whose base is not 16-byte aligned, or whose head stride is not
+    a multiple of 8 elements, is refused with a ValueError naming the
+    kernel and nothing is launched; aligned copies go through."""
+    layout = np.ones((1, 4, 4), np.int64)
+    b, s, h, d, G = 1, 128, 2, 64, 2
+    g = torch.Generator().manual_seed(0)
+    k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                  .to(cuda_device, torch.bfloat16) for _ in range(3))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    counters = (fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    for bad in (shifted, wide):
+        out, lse = fbs.flash_block_sparse_agg_fwd(bad.clone(), k, v, layout,
+                                                  G)
+        before = [c.launches for c in counters]
+        for args in ((bad, k, v, dout), (k, bad, v, dout), (k, v, bad, dout),
+                     (k, v, dout, bad)):
+            for fn, name in zip(counters, ("B6b", "B6c")):
+                with pytest.raises(ValueError, match=f"bf16 {name}"):
+                    fn(*args[:3], out, lse, args[3], layout, G)
+        assert [c.launches for c in counters] == before
+        fbs.flash_block_sparse_agg_bwd(bad.clone(), k, v, out, lse, dout,
+                                       layout, G)
+        assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+
+
 @pytest.mark.cuda
 def test_block_sparse_wrappers_raise_on_what_the_kernels_do_not_take(
         cuda_device):

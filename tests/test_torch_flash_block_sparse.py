@@ -415,3 +415,124 @@ def test_device_luts_are_built_once_per_layout_and_device(monkeypatch):
                           st.stmask), tfbs.build_super_luts(layout, 4)):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------- launch order of bf16 B6b/B6c
+def element_tile_counts(layout, G, s, causal):
+    """The 64-wide tiles each block of B6b (per 64-row part of a super
+    q-row) and of B6c (per 64-key part of a super key column) has to
+    visit, counted from the element-level layout: a tile of a super-tile
+    counts where one of its pairs is visible (under ``causal`` too).
+    Returns ``(dq_tiles, dkv_tiles)``, each ``[H, ns, parts]``."""
+    active = np.asarray(layout) != 0
+    H, nb = active.shape[:2]
+    blk, n = s // nb, G * (s // nb)
+    ns, parts = nb // G, -(-n // 64)
+    dq, dkv = (np.zeros((H, ns, parts), np.int64) for _ in range(2))
+    pos = np.arange(s)
+    for h in range(H):
+        vis = active[h].repeat(blk, 0).repeat(blk, 1)
+        if causal:
+            vis &= pos[:, None] >= pos[None, :]
+        for sq in range(ns):
+            for sk in range(ns):
+                sub = np.zeros((64 * parts, 64 * parts), bool)
+                sub[:n, :n] = vis[sq * n:(sq + 1) * n, sk * n:(sk + 1) * n]
+                tiles = sub.reshape(parts, 64, parts, 64).any(axis=(1, 3))
+                dq[h, sq] += tiles.sum(1)
+                dkv[h, sk] += tiles.sum(0)
+    return dq, dkv
+
+
+def order_layouts():
+    """name -> (layout, G, s, causal): the sparse BERT layout at its
+    training length, a random per-head layout with an empty super-row,
+    causal and not, and a causal one whose 72-row super-tiles are cut
+    into 64 + 8."""
+    rs = np.random.RandomState(11)
+    per_head = (rs.rand(4, 16, 16) < 0.3).astype(np.int64)
+    per_head[:, :, 0] = 1
+    per_head[1, 4:8] = 0
+    bert = jsc.FixedSparsityConfig(
+        num_heads=16, block=128, num_local_blocks=4, num_global_blocks=1,
+        attention="bidirectional", different_layout_per_head=True,
+        num_different_global_patterns=4).make_layout(4096)
+    return {"bert_s4096_G4": (np.asarray(bert), 4, 4096, False),
+            "perhead_blk16_G4": (per_head, 4, 256, False),
+            "perhead_blk16_G4_causal": (per_head, 4, 256, True),
+            "triangle_blk24_G3_causal": (np.tril(np.ones((1, 6, 6),
+                                                         np.int64)), 3,
+                                         144, True)}
+
+
+ORDERS = order_layouts()
+
+
+@pytest.mark.parametrize("name", sorted(ORDERS))
+def test_launch_order_is_a_permutation_sorted_by_tiles(name):
+    """Each launch order is a permutation of the grid's units, sorted by
+    the tiles its block visits (counted here from the element-level
+    layout), the most first and ties by unit, and two builds give the
+    same order; the device copy is built once per (G, blk, causal)."""
+    layout, G, s, causal = ORDERS[name]
+    blk = s // layout.shape[1]
+    orders = tfbs.build_launch_order(layout, G, blk, causal)
+    again = tfbs.build_launch_order(layout.copy(), G, blk, causal)
+    for order, tiles, other in zip(orders, element_tile_counts(
+            layout, G, s, causal), again):
+        flat = tiles.ravel()
+        assert order.dtype == np.int32
+        np.testing.assert_array_equal(np.sort(order), np.arange(flat.size))
+        key = np.stack([-flat[order], order])
+        assert (np.diff(key[0]) >= 0).all()
+        ties = np.diff(key[0]) == 0
+        assert (np.diff(key[1])[ties] > 0).all()
+        np.testing.assert_array_equal(order, other)
+    luts = tfbs.device_luts(layout, "cpu")
+    cached = luts.launch_order(G, blk, causal)
+    assert luts.launch_order(G, blk, causal) is cached
+    for got, want in zip(cached, orders):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    if name == "bert_s4096_G4":
+        dq_tiles, dkv_tiles = element_tile_counts(layout, G, s, causal)
+        # every layout row sees 11 of 32 key blocks: even dq blocks; the
+        # global key columns are seen by all 32 query blocks, the rest by 4
+        assert set(dq_tiles.ravel()) == {22}
+        assert sorted(set(dkv_tiles.ravel())) == [8, 64]
+        assert dkv_tiles.ravel()[orders[1][:256]].min() == 64
+
+
+def test_super_tile_visits_match_the_element_level_count():
+    """:func:`super_tile_visits` (from the G×G group bits) marks exactly
+    the tiles that hold a visible pair, at G = 2..5 and blocks whose
+    super-tiles are not a multiple of 64 rows."""
+    rs = np.random.RandomState(12)
+    for G, nb, s, causal in ((2, 8, 256, True), (3, 6, 144, False),
+                             (5, 10, 160, True), (4, 8, 1024, True)):
+        layout = (rs.rand(2, nb, nb) < 0.35).astype(np.int64)
+        visits = tfbs.super_tile_visits(layout, G, s // nb, causal)
+        dq, dkv = element_tile_counts(layout, G, s, causal)
+        np.testing.assert_array_equal(visits.sum(axis=(2, 4)), dq)
+        np.testing.assert_array_equal(visits.sum(axis=(1, 3)), dkv)
+
+
+def test_bf16_super_tile_backward_names_the_kernel_on_misaligned_views():
+    """The rule the bf16 B6b/B6c wrappers apply on the card before a
+    launch: fused-QKV slices and contiguous tensors pass, a view off
+    16-byte alignment or with a head stride that is not a multiple of 8
+    elements raises a ValueError naming the kernel; fp32 is not held to
+    it."""
+    qkv = torch.zeros(2, 64, 3, 2, 64, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.zeros(2, 64, 2, 64, dtype=torch.bfloat16)
+    base = torch.zeros(2 * 64 * 2 * 64 + 4, dtype=torch.bfloat16)
+    shifted = base[4:].view(2, 64, 2, 64)
+    wide = torch.zeros(2, 64, 2, 68, dtype=torch.bfloat16)[..., :64]
+    for name in ("B6b", "B6c"):
+        tfbs._agg_bwd_views(name, q, k, v, dout)
+        for bad in (shifted, wide):
+            with pytest.raises(ValueError, match=f"bf16 {name} kernel"):
+                tfbs._agg_bwd_views(name, q, k, bad, dout)
+            tfbs._agg_bwd_views(name, q.float(), k.float(), bad.float(),
+                                dout.float())
