@@ -69,16 +69,19 @@ order; any failure raises, so the script exits non-zero:
 7. train parity — 2 layers at GPT-2-medium width, fp32, seq 128, Adam +
               WarmupLR, accumulation 2, clipping 1.0: 3 steps on the card
               (through B3) and on the CPU agree to rtol 1e-3;
-8. sparse kernel — B5a and B5b (block-sparse flash forward and backward)
-              vs ``flash_block_sparse_reference`` and
-              ``flash_block_sparse_bwd_reference``, fp32 (TF32 off) and
-              bf16, on fused-QKV views, over ten layouts; two runs
+8. sparse kernel — B5a and B5b (block-sparse flash forward and backward;
+              the bf16 B5b on B6b's and B6c's tensor-core kernels at
+              G = 1, the rest scalar) vs ``flash_block_sparse_reference``
+              and ``flash_block_sparse_bwd_reference``, fp32 (TF32 off)
+              and bf16, on fused-QKV views, over ten layouts; two runs
               bitwise equal; device times at the sparse training
               attention (b=2, h=16, s=4096, d=64, bf16) beside the plain
               versions', SDPA's with the layout as a boolean mask and
-              the bound, and dense B1 and B2a+B2b at the same shape; and
-              "auto" at 128- and 16-row blocks and q_agg=2 at 256 launch
-              B6, not B5;
+              the bound, and dense B1 and B2a+B2b at the same shape;
+              B5b's two kernels in their launch order (longest blocks
+              first) against grid order, in turns, with bitwise-equal
+              grads; and "auto" at 128- and 16-row blocks and q_agg=2 at
+              256 launch B6, not B5;
 9. sparse train — GPT-2-medium with ``attn_impl="sparse"`` (Fixed
               unidirectional, 256-row blocks), 4096 positions, seq 4096,
               micro-batch 2, dropout 0.1, Lamb, ZeRO-2, bf16: 2 warm-up
@@ -87,8 +90,8 @@ order; any failure raises, so the script exits non-zero:
 10. sparse train parity — 2 layers at GPT-2-medium width, fp32, seq 1024,
               256-row blocks, dropout 0: 3 steps on the card (B5a, B5b)
               and on the CPU (the gather path) agree to rtol 1e-3;
-11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels; the
-              bf16 B6b and B6c on the tensor cores, fp32 scalar) vs
+11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels; bf16
+              on the tensor cores, fp32 scalar) vs
               ``flash_block_sparse_agg_reference`` and
               ``flash_block_sparse_agg_bwd_reference`` and vs B5 on the
               same inputs, fp32 (TF32 off) and bf16, fused-QKV views:
@@ -128,7 +131,8 @@ order; any failure raises, so the script exits non-zero:
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
 kernels B5a/B5b replace) and G = 4 at 128 (the super-tile kernels B6a,
-B6b, B6c replace).
+B6b, B6c replace).  The bf16 B5b launches the super-tile backward
+kernels at G = 1 through its own wrapper and counter.
 
 Then one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.  With ``--out PATH``
@@ -1441,6 +1445,12 @@ def time_sparse(card, results):
                   f"{key}={val}" for key, val in timings[kind].items())
               + f" [{card}]")
     del o_sdpa, visible
+    timings.update(time_agg_orders(q, k, v, out, lse, dout, fbs._delta(
+        out, dout), layout, 1, True))
+    print(f"sparse timing launch_order (B5b's dq and dk/dv kernels at G = "
+          f"1): " + " ".join(f"{key}={val:.5f}" if isinstance(val, float)
+                             else f"{key}={val}" for key, val in
+                             timings["launch_order"].items()) + f" [{card}]")
     # the dense kernels at the same shape
     d_out, d_lse = flash_attention_fwd(q, k, v, None, True)
     args = (q, k, v, d_out, d_lse, dout, None, True)
@@ -1784,28 +1794,31 @@ def time_agg(card, results):
     return timings
 
 
-def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G):
-    """The bf16 B6b and B6c in the launch order they use (their blocks
-    by visited tiles, the most first) against grid order (the units in
-    index order), timed in turns, with the gradients of both orders
-    bitwise equal; and the order itself: the tiles of the first and last
-    blocks launched and the mean."""
+def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
+                    causal=False):
+    """The bf16 B6b and B6c kernels (at G = 1 the bf16 B5b's) in the
+    launch order they use (their blocks by visited tiles, the most
+    first) against grid order (the units in index order), timed in
+    turns, with the gradients of both orders bitwise equal; and the
+    order itself: the tiles of the first and last blocks launched and
+    the mean, and the dk/dv kernel's time over the dq kernel's in launch
+    order beside their work ratio, 8·d against 6·d a pair."""
     s = q.shape[1]
     blk = s // layout.shape[1]
     luts = fbs.device_luts(layout, q.device)
-    key = (G, blk, False)
+    key = (G, blk, bool(causal))
     orders = luts.launch_order(*key)
     grid = tuple(torch.arange(o.numel(), dtype=torch.int32, device=q.device)
                  for o in orders)
-    visits = fbs.super_tile_visits(layout, G, blk, False)
+    visits = fbs.super_tile_visits(layout, G, blk, causal)
     tiles = (visits.sum(axis=(2, 4)).ravel(), visits.sum(axis=(1, 3)).ravel())
 
     def run(kind):
         if kind == "dq":
             return (fbs.flash_block_sparse_agg_bwd_dq(
-                q, k, v, out, lse, dout, layout, G, False, delta),)
+                q, k, v, out, lse, dout, layout, G, causal, delta),)
         return fbs.flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout,
-                                                  layout, G, False, delta)
+                                                  layout, G, causal, delta)
 
     row = {}
     try:
@@ -1828,6 +1841,8 @@ def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G):
         luts._orders[key] = orders
     for name in [n for n in row if n.endswith("_ms")]:
         row[name] = statistics.mean(row[name])
+    row["dkv_over_dq_sorted"] = row["dkv_sorted_ms"] / row["dq_sorted_ms"]
+    row["work_ratio"] = 8 / 6
     return {"launch_order": row}
 
 
@@ -2140,7 +2155,7 @@ def main(argv=None):
         kernel_entry("flash_block_sparse_fwd (B5a)", SPARSE_SOURCE,
                      SPARSE_REF + ":213", launches["B5a"], sparse_err["fwd"],
                      sparse_timings["fwd"]),
-        kernel_entry("flash_block_sparse_bwd (B5b)", SPARSE_SOURCE,
+        kernel_entry("flash_block_sparse_bwd (B5b)", AGG_SOURCE,
                      SPARSE_REF + ":253", launches["B5b"], sparse_err["bwd"],
                      sparse_timings["bwd"]),
         kernel_entry("flash_block_sparse_agg_fwd (B6a)", AGG_SOURCE,

@@ -1,10 +1,14 @@
-// Block-sparse flash attention for NVIDIA Hopper (built for sm_90a):
-// forward, and a backward of two kernels.
+// Block-sparse flash attention for NVIDIA Hopper (built for sm_90a): the
+// forward in both types, and the fp32 backward as two kernels.
 //
 // Replaces, in deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py:
 //   B5a `_fwd_kernel`       (:213, launched at :478) -> fbs_fwd_kernel
-//   B5b `_bwd_fused_kernel` (:253, launched at :538) -> fbs_bwd_dq_kernel
-//                                                     + fbs_bwd_dkv_kernel
+//                                                       (fp32 and bf16)
+//   B5b `_bwd_fused_kernel` (:253, launched at :538) -> fp32:
+//       fbs_bwd_dq_kernel + fbs_bwd_dkv_kernel; bf16: the tensor-core
+//       agg_bwd_dq_mma_kernel + agg_bwd_dkv_mma_kernel of
+//       flash_block_sparse_agg.cu at G = 1 (the wrapper launches them;
+//       the C entry here refuses a bf16 backward)
 // They compute what those kernels compute, over the ACTIVE [blk, blk]
 // tiles of a [H, nb, nb] block layout (H is 1, shared, or the head count):
 // scaled Q·Kᵀ, an optional causal mask inside tiles (masked scores are
@@ -18,6 +22,15 @@
 // Pᵀ·dO with P in the storage type, 1/√d folded into dq and dk at the end.
 // Δ = rowsum(dO∘O) comes in precomputed, as the JAX package computes it
 // outside Pallas (:531-532).  No dropout and no key mask, as on the TPU.
+//
+// Why the bf16 backward lives in the super-tile source: at G = 1 a
+// super-tile is one layout block with one mask bit, and the super-tile
+// lse rule is this one (MAX_FLOOR for a row of a block row with an active
+// block, NEG_INF for one without), so the B6 kernels compute B5b's
+// function: the same visible pairs, rounding points and 1/√d folding.
+// They also carry the launch order B5b's unequal dk/dv columns need (a
+// global key column of the sparse GPT-2 layout walks 12 query blocks,
+// the others 4).
 //
 // Design.  The TPU kernels walk one flattened list of (q block, k block)
 // jobs per head on a sequential grid axis, open and close the softmax
@@ -49,11 +62,13 @@
 // TFLOP/s.  The backward moves 118 MB (35 µs) and does 10·d per pair
 // (76 µs).  So both are bound by operations.
 //
-// What this simple design leaves on the table: every multiply-add is a
-// scalar fp32 FMA on the CUDA cores (67 TFLOP/s peak), tiles come in by
-// plain loads with no copy/compute overlap, and the backward recomputes
-// S and dP in both of its kernels.  Tensor cores (mma.sync, then wgmma)
-// and cp.async/TMA double buffering are the work of a later change.
+// What this simple design leaves on the table: B5a (both types) and the
+// fp32 backward are still scalar: every multiply-add is an fp32 FMA on
+// the CUDA cores (67 TFLOP/s peak), tiles come in by plain loads with no
+// copy/compute overlap, and the fp32 backward recomputes S and dP in both
+// of its kernels.  The fp32 kernels serve the parity checks (TF32 would
+// miss their 2e-5 / 5e-4); the bf16 B5a's next step is the tensor-core
+// agg_fwd_mma_kernel at G = 1, as its backward took the B6 kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,16 +365,19 @@ int launch(bool backward, const Args& a) {
   return backward ? launch_bwd<T, D>(a) : launch_fwd<T, D>(a);
 }
 
+// B5a in both types, B5b in fp32 only: the bf16 B5b runs on the
+// tensor-core kernels of flash_block_sparse_agg.cu at G = 1, so a bf16
+// backward here is refused
 int dispatch(bool backward, int dtype, int head_dim, const Args& a) {
   if (a.lay.blk <= 0 || a.lay.nb <= 0 || a.lay.nb * a.lay.blk != a.s ||
       a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(backward, a);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(backward, a);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(backward, a);
-  if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(backward, a);
+  if (dtype == 1 && !backward && head_dim == 64)
+    return launch_fwd<__nv_bfloat16, 64>(a);
+  if (dtype == 1 && !backward && head_dim == 128)
+    return launch_fwd<__nv_bfloat16, 128>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -417,7 +435,9 @@ extern "C" int ds_flash_block_sparse_fwd(
   return dispatch(false, dtype, head_dim, a);
 }
 
-// B5b: the dq kernel, then the dk/dv kernel, on `stream`.  As above, with
+// B5b in fp32: the dq kernel, then the dk/dv kernel, on `stream`; a bf16
+// call returns cudaErrorInvalidValue (it runs on ds_fbs_agg_bwd_dq and
+// ds_fbs_agg_bwd_dkv at G = 1).  As above, with
 // dout [b, s, h, d] (last dim contiguous), lse and delta contiguous fp32
 // [b·h, s], tlut [H, nb, qmax] and tcnt [H, nb] the transposed look-up
 // table, and `strides` 18 host int64 element strides: (batch, seq, head)

@@ -2,11 +2,16 @@
 // (built for sm_90a): forward, dq and dk/dv kernels.
 //
 // Replaces, in deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py:
-//   B6a `_fwd_kernel_agg`     (:333, launched at :598) -> agg_fwd_kernel
+//   B6a `_fwd_kernel_agg`     (:333, launched at :598)
+//       -> agg_fwd_mma_kernel (bf16), agg_fwd_kernel (fp32)
 //   B6b `_bwd_dq_kernel_agg`  (:373, launched at :650)
 //       -> agg_bwd_dq_mma_kernel (bf16), agg_bwd_dq_kernel (fp32)
 //   B6c `_bwd_dkv_kernel_agg` (:402, launched at :682)
 //       -> agg_bwd_dkv_mma_kernel (bf16), agg_bwd_dkv_kernel (fp32)
+// and, at G = 1, the bf16 half of B5b `_bwd_fused_kernel` (:253): the
+// bf16 B5b wrapper launches agg_bwd_dq_mma_kernel and
+// agg_bwd_dkv_mma_kernel with the G = 1 tables, where a super-tile is one
+// layout block with one mask bit and the lse rule below is B5's.
 // They compute what those kernels compute.  A super-tile covers a G×G
 // patch of [blk, blk] layout blocks, n = G·blk rows by n keys; its int32
 // mask (build_super_luts) has bit row_g·G + col_g set where sub-block
@@ -37,23 +42,27 @@
 // blocks fills it.  Every kernel gives a block 64 output rows (or keys)
 // of a super-tile row (or column), and each block owns them, so no
 // atomic touches a value and two runs are bitwise equal.
-// - B6a (both types) and the fp32 B6b, B6c keep the first, scalar
-//   design: one block per (b·h, 64-row part of a super q-row) or (b·h,
-//   64-key part of a super key column, over the transposed tables
-//   stlut/stmask), walking the other side in 32-wide tiles and skipping
-//   a tile whose mask bits are all zero for its own rows; fp32 FMAs on
-//   the CUDA cores with the shared steps of ../transformer/
-//   flash_common.cuh, plain loads and no copy/compute overlap.  The
-//   fp32 kernels serve the parity checks (TF32 would miss their 5e-4).
-// - The bf16 B6b and B6c run on the tensor cores, in the shape of B2a
-//   and B2b (../transformer/flash_attention_bwd.cu, with
-//   ../transformer/flash_mma.cuh): 4 warps of 16 rows (keys) hold Q and
-//   dO (K and V) as A fragments; the other side streams in 64-wide
-//   tiles by cp.async, two stages deep (zero-filled past the
-//   super-tile's end, so n = 72 at blk 24 is cut 64 + 8); S and dP (Sᵀ
-//   and dPᵀ) on mma.sync m16n8k16 in 32-wide chunks; dS (and Pᵀ, dSᵀ)
-//   repacked C→A as bf16 in registers; dq += dS·K (dv += Pᵀ·dO, dk +=
-//   dSᵀ·Q) with ldmatrix.trans.  No dropout: B6 has none.
+// - The fp32 B6a, B6b and B6c keep the first, scalar design: one block
+//   per (b·h, 64-row part of a super q-row) or (b·h, 64-key part of a
+//   super key column, over the transposed tables stlut/stmask), walking
+//   the other side in 32-wide tiles and skipping a tile whose mask bits
+//   are all zero for its own rows; fp32 FMAs on the CUDA cores with the
+//   shared steps of ../transformer/flash_common.cuh, plain loads and no
+//   copy/compute overlap.  They serve the parity checks (TF32 would miss
+//   their 2e-5 / 5e-4).
+// - The bf16 B6a, B6b and B6c run on the tensor cores, in the shape of
+//   B1, B2a and B2b (../transformer/flash_attention_fwd.cu and
+//   flash_attention_bwd.cu, with ../transformer/flash_mma.cuh): 4 warps
+//   of 16 rows (keys) hold Q (and dO; B6c K and V) as A fragments; the
+//   other side streams in 64-wide tiles by cp.async, two stages deep
+//   (zero-filled past the super-tile's end, so n = 72 at blk 24 is cut
+//   64 + 8).  B6a: S = Q·Kᵀ on mma.sync m16n8k16 over the 64 keys, the
+//   online softmax on the C fragments in log2 units (ex2), P repacked
+//   C→A as bf16 in registers, O += P·V with ldmatrix.trans, out staged
+//   in the block's Q tile and stored in 16-byte chunks.  B6b and B6c: S
+//   and dP (Sᵀ and dPᵀ) in 32-wide chunks; dS (and Pᵀ, dSᵀ) repacked
+//   C→A; dq += dS·K (dv += Pᵀ·dO, dk += dSᵀ·Q).  No dropout: B6 has
+//   none.
 // - The mask, per 64×64 tile and for the whole block at once
 //   (TileWalk): a tile with no visible element for the block's 64 is
 //   skipped (exact, causal included); a *full* tile (every row group ×
@@ -66,26 +75,27 @@
 //   causal cases take the partial path.
 // - Launch order.  A block's work is its visited tiles, which differ:
 //   at the BERT layout a B6c block of a global key column walks 64, the
-//   others 8 (mean 22; B6b's walk 22 each).  The wrapper passes an
-//   int32 order of the blocks, the most tiles first (build_launch_order,
-//   counted on the host by the same rule as TileWalk), and grid y is
-//   the rank in it, so the card, which starts blocks in grid order,
-//   starts the longest first and fills in behind them with the short
-//   ones.  The order changes when a block runs, not what it writes.
+//   others 8 (mean 22; B6a's and B6b's walk 22 each); at the sparse
+//   GPT-2 layout (G = 1, the bf16 B5b) a dk/dv block of a global key
+//   column walks up to 52, the others 16 or fewer.  The wrapper passes
+//   an int32 order of the blocks, the most tiles first
+//   (build_launch_order, counted on the host by the same rule as
+//   TileWalk; B6a takes B6b's), and grid y is the rank in it, so the
+//   card, which starts blocks in grid order, starts the longest first
+//   and fills in behind them with the short ones.  The order changes
+//   when a block runs, not what it writes.
 //
 // Bound.  At the BERT sparse training attention (b=2, h=16, s=4096,
 // d=64, bf16, the layout above: 5.77e6 visible pairs a head) q, k, v and
 // out are 67 MB (20 µs at 3.35 TB/s), against 1.85e8 pairs · 4·d flops =
 // 47 GFLOP (48 µs at 989 TFLOP/s): bound by operations.  B6b does 6·d
 // and B6c 8·d per pair (72 and 96 µs).  The bf16 kernels' mma.sync runs
-// well below the wgmma peak that bound assumes, and both recompute S
-// and dP; wgmma with TMA is the next step.
+// well below the wgmma peak that bound assumes, and the backward
+// recomputes S and dP in both kernels; wgmma with TMA is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "transformer/flash_common.cuh"
 #include "transformer/flash_mma.cuh"
@@ -419,6 +429,7 @@ using ds_flash::cp_async_wait;
 using ds_flash::ex2_approx;
 using ds_flash::kMmaThreads;
 using ds_flash::kMmaTileRows;
+using ds_flash::ldsm_a;
 using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
 using ds_flash::load_row_async;
@@ -442,14 +453,25 @@ constexpr int kMmaChunk = 32;
 // bytes spilled).
 constexpr int kAggMinBlocks64Dq = 4;
 constexpr int kAggMinBlocks64Dkv = 3;
+// The same for the bf16 B6a at head_dim 64 (two at 128, as B1): at four
+// (128 registers, 36 bytes spilled) it ran 9% faster than at three (168,
+// 16 bytes) and 20% faster than at two (179, none).
+constexpr int kAggMinBlocks64Fwd = 4;
 
-// shared memory of either kernel: six padded tiles (the block's own two,
-// two stages of the streamed two) and four rows of 64 fp32 values (B6c:
-// lse and Δ of the streamed rows, two stages each)
+// shared memory of either backward kernel: six padded tiles (the block's
+// own two, two stages of the streamed two) and four rows of 64 fp32
+// values (B6c: lse and Δ of the streamed rows, two stages each)
 template <int D>
 constexpr int agg_mma_smem_bytes() {
   return 6 * MmaTile<D>::kElems * static_cast<int>(sizeof(bf16)) +
          4 * kMmaTileRows * static_cast<int>(sizeof(float));
+}
+
+// shared memory of the bf16 B6a: the block's Q tile and two stages of K
+// and of V
+template <int D>
+constexpr int agg_fwd_mma_smem_bytes() {
+  return 5 * MmaTile<D>::kElems * static_cast<int>(sizeof(bf16));
 }
 
 // The (b·h, super-tile, part) a block of the bf16 backward owns.  Grid y
@@ -553,6 +575,223 @@ struct TileWalk {
     return false;
   }
 };
+
+// B6a: one block per (b·h, 64-row part of a super q-row), 4 warps of 16
+// rows, its unit from B6b's launch order (the two visit the same tiles).
+// Q is the warps' A fragments; the visited 64-key K/V tiles stream in by
+// cp.async two stages deep; per tile S = Q·Kᵀ on mma.sync, the online
+// softmax on the C fragments in log2 units, P repacked C→A as bf16 and
+// O += P·V.  The per-tile body is B1's (flash_attention_fwd.cu) without
+// dropout and with the super-tile mask: a copy, as for B6b.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  D == 64 ? kAggMinBlocks64Fwd : 2)
+    agg_fwd_mma_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       float* __restrict__ lse, SuperLayout lay,
+                       const int* __restrict__ order, int heads, int s,
+                       Strides st, float scale, int causal) {
+  using Tile = MmaTile<D>;
+  constexpr int KN = kMmaTileRows;  // keys per streamed tile
+  constexpr float kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char agg_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(agg_smem);
+  bf16* k_s = q_s + Tile::kElems;      // two stages
+  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (tid >> 5) * 16;  // the warp's first row in the block
+  const Owner own(lay, order, heads);
+  const int bh = own.bh;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const Part p(lay, own.tile, own.part);
+  const int64_t row_off = (int64_t)own.lh * lay.ns + own.tile;
+  const int n_active = lay.cnt[row_off];
+  TileWalk<true> walk{lay.lut + row_off * lay.width,
+                      lay.mask + row_off * lay.width, n_active, lay, p,
+                      causal};
+
+  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
+  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  auto issue = [&](const OtherTile& o, int stage) {
+    load_tile_async<D>(k_s + stage * Tile::kElems, kbase, st.k[1], o.x0,
+                       o.x_lim, tid);
+    load_tile_async<D>(v_s + stage * Tile::kElems, vbase, st.v[1], o.x0,
+                       o.x_lim, tid);
+  };
+  OtherTile cur, nxt;
+  bool have = walk.next(cur);
+  if (have) {
+    load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], p.r0,
+                       p.r_end, tid);
+    issue(cur, 0);
+  }
+  cp_async_commit();
+
+  // the thread's rows g and g+8: index and row group (-1 past the part)
+  int row[2], grp[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = p.r0 + wr + g + 8 * hh;
+    grp[hh] = row[hh] < p.r_end ? (row[hh] - p.base) / lay.blk : -1;
+  }
+  const float scale2 = scale * kLog2e;
+  const uint32_t g_mask = (1u << lay.G) - 1u;
+  // m in log2 units, floored at MAX_FLOOR; l the thread's part of the
+  // row sum
+  float m[2] = {kMaxFloor, kMaxFloor};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qa[D / 16][4];  // the warp's Q rows as A fragments
+
+  for (int stage = 0, first = 1; have; stage ^= 1, first = 0) {
+    const bool more = walk.next(nxt);
+    if (more) issue(nxt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the first time Q) is in
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_a<D>(qa[kk], q_s, wr, 16 * kk, lane);
+    }
+    const bf16* kt_s = k_s + stage * Tile::kElems;
+    const bf16* vt_s = v_s + stage * Tile::kElems;
+
+    // S = Q·Kᵀ over the tile's 64 keys; the thread's keys are
+    // x0 + 8n + 2t + {0, 1}
+    float sc[KN / 8][4];
+#pragma unroll
+    for (int n = 0; n < KN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < KN / 16; ++nn) {
+        uint32_t bk[4];
+        ldsm_b<D>(bk, kt_s, 16 * nn, 16 * kk, lane);
+        mma_bf16(sc[2 * nn], qa[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+    // a partial tile: each element's row group, column group, causal
+    // and the super-tile's end, before the max and ex2, so a masked
+    // element is P = 0 even in a row whose max stays at MAX_FLOOR
+    if (!cur.full) {
+      uint32_t sel[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        sel[hh] =
+            grp[hh] < 0 ? 0u : (cur.bits >> (grp[hh] * lay.G)) & g_mask;
+#pragma unroll
+      for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int x = cur.x0 + 8 * n + 2 * t + (e & 1);
+          const bool vis =
+              x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
+              (!causal || row[hh] >= x);
+          if (!vis) sc[n][e] = kNegInf;
+        }
+      }
+    }
+
+    // the rows' new running max, over the four lanes that share a row
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < KN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(fmaxf(m[hh], mx[hh] * scale2), kMaxFloor);
+      corr[hh] = ex2_approx(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // P, l and O += P·V, 16 keys at a time: l sums the fp32 P, the
+    // product takes P rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+#pragma unroll
+      for (int n = 2 * kk; n < 2 * kk + 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = ex2_approx(fmaf(sc[n][e], scale2, -m[e >> 1]));
+          l[e >> 1] += pr;
+          sc[n][e] = pr;
+        }
+      }
+      uint32_t a[4];
+      c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        ldsm_bt<D>(bv, vt_s, 16 * kk, 16 * nd, lane);
+        mma_bf16(acc[2 * nd], a, bv[0], bv[1]);
+        mma_bf16(acc[2 * nd + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+
+  // out = acc / l into the warp's own 16 rows of the Q tile (only this
+  // warp read them), then 16-byte stores of the part's rows.  A row
+  // that saw no pair has l = 0: out 0, and lse exactly MAX_FLOOR in a
+  // super-row with an active super-tile, NEG_INF in one without.
+  const float lse_empty = n_active > 0 ? kMaxFloor : kNegInf;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
+    const int r = wr + g + 8 * hh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(q_s + r * Tile::kRow + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
+    if (t == 0 && grp[hh] >= 0)
+      lse[(int64_t)bh * s + row[hh]] =
+          l[hh] == 0.f ? lse_empty : m[hh] * kLn2 + logf(l[hh]);
+  }
+  __syncwarp();
+  constexpr int CH = Tile::kChunks;
+#pragma unroll
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH;
+    const int ch = e - r * CH;
+    const int i = p.r0 + wr + r;
+    if (i < p.r_end)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * s + i) * heads + h) * D +
+                                8 * ch) =
+          *reinterpret_cast<const uint4*>(q_s + (wr + r) * Tile::kRow +
+                                          8 * ch);
+  }
+}
 
 // B6b: one block per (b·h, 64-row part of a super q-row), 4 warps of 16
 // rows.  Q and dO are the warps' A fragments; the visited 64-key K/V
@@ -938,8 +1177,8 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The bf16 B6b and B6c, on the tensor cores: grid x the copies of a
-// layout head, grid y the rank in the launch order.
+// The bf16 B6a, B6b and B6c, on the tensor cores: grid x the copies of
+// a layout head, grid y the rank in the launch order (B6a takes B6b's).
 template <int D>
 int launch_mma(Kind kind, const Args& a) {
   const SuperLayout& l = a.lay;
@@ -956,7 +1195,16 @@ int launch_mma(Kind kind, const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
-  if (kind == kDq) {
+  if (kind == kFwd) {
+    constexpr int fwd_bytes = agg_fwd_mma_smem_bytes<D>();
+    err = cudaFuncSetAttribute(agg_fwd_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    agg_fwd_mma_kernel<D><<<grid, kMmaThreads, fwd_bytes, a.stream>>>(
+        q, k, v, static_cast<bf16*>(a.out), static_cast<float*>(a.lse_out),
+        l, a.order, a.heads, a.s, a.st, a.scale, a.causal);
+  } else if (kind == kDq) {
     err = cudaFuncSetAttribute(agg_bwd_dq_mma_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
@@ -977,32 +1225,29 @@ int launch_mma(Kind kind, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch(Kind kind, const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (kind != kFwd) return launch_mma<D>(kind, a);
-  }
-  // B6a, and the fp32 B6b and B6c: the scalar design
+// fp32 B6a, B6b and B6c: the scalar design, grid order
+template <int D>
+int launch_scalar(Kind kind, const Args& a) {
   const dim3 grid(a.lay.ns * a.lay.parts, a.batch * a.heads);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   if (kind == kFwd) {
-    agg_fwd_kernel<T, D><<<grid, 2 * kRows, 0, a.stream>>>(
-        q, k, v, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
+    agg_fwd_kernel<float, D><<<grid, 2 * kRows, 0, a.stream>>>(
+        q, k, v, static_cast<float*>(a.out), static_cast<float*>(a.lse_out),
         a.lay, a.heads, a.s, a.st, a.scale, a.causal);
   } else if (kind == kDq) {
-    agg_bwd_dq_kernel<T, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
-        q, k, v, static_cast<const T*>(a.dout),
+    agg_bwd_dq_kernel<float, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
+        q, k, v, static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<T*>(a.grad), a.lay, a.heads, a.s, a.st, a.scale,
+        static_cast<float*>(a.grad), a.lay, a.heads, a.s, a.st, a.scale,
         a.causal);
   } else {
-    agg_bwd_dkv_kernel<T, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
-        q, k, v, static_cast<const T*>(a.dout),
+    agg_bwd_dkv_kernel<float, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
+        q, k, v, static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<T*>(a.grad), static_cast<T*>(a.dv), a.lay, a.heads, a.s,
-        a.st, a.scale, a.causal);
+        static_cast<float*>(a.grad), static_cast<float*>(a.dv), a.lay,
+        a.heads, a.s, a.st, a.scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1012,11 +1257,10 @@ int dispatch(Kind kind, int dtype, int head_dim, const Args& a) {
   if (l.G < 1 || l.G * l.G > 32 || l.blk <= 0 || l.ns <= 0 ||
       l.ns * l.n != a.s || a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(kind, a);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(kind, a);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(kind, a);
-  if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(kind, a);
+  if (dtype == 0 && head_dim == 64) return launch_scalar<64>(kind, a);
+  if (dtype == 0 && head_dim == 128) return launch_scalar<128>(kind, a);
+  if (dtype == 1 && head_dim == 64) return launch_mma<64>(kind, a);
+  if (dtype == 1 && head_dim == 128) return launch_mma<128>(kind, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1060,18 +1304,24 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
 // contiguous [b, s, h, d] of the input dtype and lse a contiguous fp32
 // [b·h, s].  slut, scnt, smask are build_super_luts' [H, ns, tmax],
 // [H, ns] and [H, ns, tmax] int32 tables in device memory; H =
-// layout_heads is 1 or `heads`; s = ns·G·blk.  Launches on `stream`, does
-// not synchronise, allocates nothing, and returns cudaGetLastError().
+// layout_heads is 1 or `heads`; s = ns·G·blk.  `order` is B6b's int32
+// launch order in device memory (build_launch_order's dq order); the
+// bf16 kernel reads it, the fp32 one launches in grid order.  bf16 rows
+// must be 16-byte aligned with strides that are multiples of 8 elements
+// (the wrapper checks).  Launches on `stream`, does not synchronise,
+// allocates nothing, and returns cudaGetLastError().
 extern "C" int ds_fbs_agg_fwd(int dtype, int head_dim, const void* q,
                               const void* k, const void* v, void* out,
                               void* lse, const void* slut, const void* scnt,
-                              const void* smask, int batch, int heads, int s,
-                              int ns, int layout_heads, int G, int tmax,
+                              const void* smask, const void* order,
+                              int batch, int heads, int s, int ns,
+                              int layout_heads, int G, int tmax,
                               const int64_t* strides, float scale, int causal,
                               void* stream) {
   Args a = make_args(q, k, v, slut, scnt, smask, batch, heads, s, ns,
                      layout_heads, G, tmax, strides, 9, scale, causal,
                      stream);
+  a.order = static_cast<const int*>(order);
   a.out = out;
   a.lse_out = lse;
   return dispatch(kFwd, dtype, head_dim, a);

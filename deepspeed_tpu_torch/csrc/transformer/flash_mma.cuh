@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
 // (sm_90a): the bf16 B1 of flash_attention_fwd.cu, B2a and B2b of
-// flash_attention_bwd.cu, and B6b and B6c of
-// ../sparse_attention/flash_block_sparse_agg.cu use them; B3, B5 and B6a
+// flash_attention_bwd.cu, and B6a, B6b and B6c of
+// ../sparse_attention/flash_block_sparse_agg.cu (whose B6b and B6c also
+// run the bf16 B5b, at G = 1) use them; B3, B5a and the fp32 kernels
 // keep their scalar designs for now.
 //
 // - PTX wrappers: `mma.sync` m16n8k16 (bf16 operands, fp32 accumulators),

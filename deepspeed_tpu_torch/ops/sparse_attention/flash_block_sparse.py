@@ -8,28 +8,32 @@ Kernels:
   the ACTIVE ``[blk, blk]`` tiles of a ``[H, nb, nb]`` layout (``H`` is 1
   or the head count), out and the fp32 logsumexp; replaces the TPU's
   work-list ``_fwd_kernel``;
-- B5b (same source): dq, dk and dv over the same tiles, as a dq kernel in
-  row-major order and a dk/dv kernel in key-major order over the
-  transposed look-up table, launched together by one wrapper; replaces
-  the TPU's ``_bwd_fused_kernel``, whose full-sequence dk/dv accumulators
-  no Hopper block can hold;
+- B5b: dq, dk and dv over the same tiles, as a dq kernel in row-major
+  order and a dk/dv kernel in key-major order over the transposed
+  look-up table, launched together by one wrapper; replaces the TPU's
+  ``_bwd_fused_kernel``, whose full-sequence dk/dv accumulators no Hopper
+  block can hold.  fp32 runs the scalar kernels of the same source; bf16
+  runs B6b's and B6c's tensor-core kernels at G = 1, where a super-tile
+  is one layout block and the super-tile lse rule is B5's;
 - B6a, B6b, B6c (``csrc/sparse_attention/flash_block_sparse_agg.cu``):
   the forward, the dq kernel and the dk/dv kernel over ``G×G``
   super-tiles of ``[G·blk, G·blk]`` with a ``G·G``-bit mask each
   (:func:`build_super_luts`); replace the TPU's ``_fwd_kernel_agg``,
   ``_bwd_dq_kernel_agg`` and ``_bwd_dkv_kernel_agg``, and count their
-  launches separately, as the TPU backward is two calls.  The bf16 B6b
-  and B6c run on the tensor cores and launch their blocks in
-  :func:`build_launch_order`'s order, the most tiles first.
+  launches separately, as the TPU backward is two calls.  In bf16 all
+  three run on the tensor cores and launch their blocks in
+  :func:`build_launch_order`'s order, the most tiles first (B6a in
+  B6b's); fp32 keeps scalar kernels for the parity checks.
 
 ``q_agg`` resolves to the aggregation factor G exactly as in the JAX
 package (:func:`_pick_q_agg`: "auto" takes super-tiles for layout blocks
 of up to 128 rows, G = 4 at 128).  ``G == 1`` runs B5 and ``G > 1`` runs
 B6, as the JAX package runs its work-list or its super-tile kernels; on
-the card neither stands in for the other.  The two compute the same
-out and gradients; they differ only in the lse of a row that sees no
-pair, which B6 gives as the TPU's super-tile kernels do (MAX_FLOOR in a
-super-row with an active tile, NEG_INF in one without).
+the card neither wrapper stands in for the other (the bf16 B5b shares
+B6b's and B6c's kernels, not their wrappers or counters).  The two
+compute the same out and gradients; they differ only in the lse of a row
+that sees no pair, which B6 gives as the TPU's super-tile kernels do
+(MAX_FLOOR in a super-row with an active tile, NEG_INF in one without).
 
 Each wrapper launches its kernel for CUDA tensors or raises, and runs the
 plain version (:func:`flash_block_sparse_reference` and
@@ -418,7 +422,7 @@ def _agg_kernels():
     if fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
-        fwd.argtypes = [i32, i32] + [ptr] * 8 + [i32] * 7 + tail
+        fwd.argtypes = [i32, i32] + [ptr] * 9 + [i32] * 7 + tail
         dq.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 + tail
         dkv.argtypes = [i32, i32] + [ptr] * 12 + [i32] * 7 + tail
         fwd.restype = dq.restype = dkv.restype = ctypes.c_int
@@ -537,15 +541,29 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
     forward's out and lse.
 
     CPU tensors take :func:`flash_block_sparse_bwd_reference`.  CUDA
-    tensors launch the dq kernel and the dk/dv kernel (one launch of B5b:
-    ``flash_block_sparse_bwd.launches`` goes up by one) or raise.  No
-    atomics: two runs give bitwise-equal gradients."""
+    tensors launch a dq kernel and a dk/dv kernel (one launch of B5b:
+    ``flash_block_sparse_bwd.launches`` goes up by one, and no B6 counter
+    moves) or raise.  bf16 runs on the tensor cores through the
+    super-tile kernels at G = 1 (a super-tile is one layout block, whose
+    lse rule is B5's), in :func:`build_launch_order`'s order, with a
+    ValueError naming B5b on views ``mma_aligned`` refuses; fp32 runs the
+    scalar kernels of ``flash_block_sparse.cu``.  No atomics: two runs
+    give bitwise-equal gradients."""
     layout = _check(q, k, v, layout)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
                                                 layout, causal)
     _check_cuda(q, k, v, None, extra=(dout, out))
+    if q.dtype == torch.bfloat16:
+        _mma_views("B5b", q, k, v, dout)
+        delta = _delta(out, dout)
+        name = "flash_block_sparse_bwd"
+        dq = _agg_dq(q, k, v, lse, dout, delta, layout, 1, causal, name)
+        dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, 1, causal,
+                          name)
+        flash_block_sparse_bwd.launches += 1
+        return dq, dk, dv
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
     delta = _delta(out, dout)
@@ -611,20 +629,45 @@ def _agg_common(q, tables, G):
     return b, h, s, tables.ns, tables.slut.shape[0], G
 
 
+def _mma_views(name, q, k, v, dout=None):
+    """The bf16 tensor-core kernels (B5b, B6a, B6b, B6c) copy q, k, v
+    (and dO) in 16-byte ``cp.async`` chunks: a ValueError naming the
+    kernel where ``mma_aligned`` refuses the views (nothing is copied or
+    sent elsewhere)."""
+    tensors = (q, k, v) if dout is None else (q, k, v, dout)
+    if q.dtype == torch.bfloat16 and not mma_aligned(*tensors):
+        names = "q, k and v" if dout is None else "q, k, v and dO"
+        raise ValueError(
+            f"the bf16 {name} kernel needs {names} 16-byte aligned with "
+            f"batch, seq and head strides that are multiples of 8 "
+            f"elements; got strides {[t.stride() for t in tensors]}")
+
+
+def _agg_order(layout, q, G, causal):
+    """The launch orders for ``q``'s block rows on ``q``'s device
+    (``layout`` as :func:`_agg_setup` returns it)."""
+    return device_luts(layout, q.device).launch_order(
+        G, q.shape[1] // layout.shape[1], causal)
+
+
 def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
     """Super-tile flash forward (B6a) at aggregation factor ``G``;
     returns ``(out, lse)``.
 
     CPU tensors take :func:`flash_block_sparse_agg_reference`.  CUDA
-    tensors launch the Hopper kernel (bf16 or fp32, head_dim 64 or 128)
-    or raise.  Every launch adds one to
-    ``flash_block_sparse_agg_fwd.launches``."""
+    tensors launch the Hopper kernel (head_dim 64 or 128) or raise: bf16
+    the tensor-core kernel in B6b's launch order (:func:`build_launch_order`;
+    the two visit the same tiles), with a ValueError naming B6a on views
+    ``mma_aligned`` refuses; fp32 the scalar one.  Every launch adds one
+    to ``flash_block_sparse_agg_fwd.launches``."""
     layout = _agg_setup(q, k, v, layout, G)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_reference(q, k, v, layout, G, causal)
     _check_cuda(q, k, v, None)
+    _mma_views("B6a", q, k, v)
     b, s, h, d = q.shape
     st = device_luts(layout, q.device).super_tables(G)
+    order = _agg_order(layout, q, G, causal)[0]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(
@@ -635,7 +678,7 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
         rc = fwd(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  st.slut.data_ptr(), st.scnt.data_ptr(), st.smask.data_ptr(),
-                 *_agg_common(q, st, G), st.tmax, strides,
+                 order.data_ptr(), *_agg_common(q, st, G), st.tmax, strides,
                  1.0 / math.sqrt(d), int(bool(causal)), stream)
     _launched(rc, "flash_block_sparse_agg_fwd")
     flash_block_sparse_agg_fwd.launches += 1
@@ -648,23 +691,50 @@ def _agg_bwd_strides(q, k, v, dout, grad):
         *dout.stride()[:3], *grad.stride()[:3])
 
 
-def _agg_bwd_views(name, q, k, v, dout):
-    """The bf16 B6b and B6c copy q, k, v and dO in 16-byte ``cp.async``
-    chunks: a ValueError naming the kernel where ``mma_aligned`` refuses
-    the views (nothing is copied or sent elsewhere)."""
-    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v, dout):
-        raise ValueError(
-            f"the bf16 {name} kernel needs q, k, v and dO 16-byte aligned "
-            f"with batch, seq and head strides that are multiples of 8 "
-            f"elements; got strides {q.stride()}, {k.stride()}, "
-            f"{v.stride()}, {dout.stride()}")
+def _agg_dq(q, k, v, lse, dout, delta, layout, G, causal, name):
+    """Launches the super-tile dq kernel at factor ``G`` (B6b's, and the
+    bf16 B5b's at G = 1) on checked CUDA tensors; returns dq.  Counts
+    nothing: the caller's wrapper does."""
+    d = q.shape[-1]
+    st = device_luts(layout, q.device).super_tables(G)
+    order = _agg_order(layout, q, G, causal)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, fn, _ = _agg_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), st.slut.data_ptr(),
+                st.scnt.data_ptr(), st.smask.data_ptr(), order.data_ptr(),
+                *_agg_common(q, st, G), st.tmax,
+                _agg_bwd_strides(q, k, v, dout, dq), 1.0 / math.sqrt(d),
+                int(bool(causal)), stream)
+    _launched(rc, name)
+    return dq
 
 
-def _agg_order(layout, q, G, causal):
-    """The launch orders for ``q``'s block rows on ``q``'s device
-    (``layout`` as :func:`_agg_setup` returns it)."""
-    return device_luts(layout, q.device).launch_order(
-        G, q.shape[1] // layout.shape[1], causal)
+def _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal, name):
+    """Launches the super-tile dk/dv kernel at factor ``G`` (B6c's, and
+    the bf16 B5b's at G = 1) over the transposed tables; returns
+    ``(dk, dv)``.  Counts nothing."""
+    d = q.shape[-1]
+    st = device_luts(layout, q.device).super_tables(G)
+    order = _agg_order(layout, q, G, causal)[1]
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, _, fn = _agg_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                st.stlut.data_ptr(), st.stcnt.data_ptr(),
+                st.stmask.data_ptr(), order.data_ptr(),
+                *_agg_common(q, st, G), st.qmax,
+                _agg_bwd_strides(q, k, v, dout, dk), 1.0 / math.sqrt(d),
+                int(bool(causal)), stream)
+    _launched(rc, name)
+    return dk, dv
 
 
 def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
@@ -683,23 +753,10 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
         return flash_block_sparse_agg_bwd_reference(
             q, k, v, out, lse, dout, layout, G, causal)[0]
     _check_cuda(q, k, v, None, extra=(dout, out))
-    _agg_bwd_views("B6b", q, k, v, dout)
-    d = q.shape[-1]
-    st = device_luts(layout, q.device).super_tables(G)
-    order = _agg_order(layout, q, G, causal)[0]
+    _mma_views("B6b", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _, fn, _ = _agg_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), st.slut.data_ptr(),
-                st.scnt.data_ptr(), st.smask.data_ptr(), order.data_ptr(),
-                *_agg_common(q, st, G), st.tmax,
-                _agg_bwd_strides(q, k, v, dout, dq), 1.0 / math.sqrt(d),
-                int(bool(causal)), stream)
-    _launched(rc, "flash_block_sparse_agg_bwd_dq")
+    dq = _agg_dq(q, k, v, lse, dout, delta, layout, G, causal,
+                 "flash_block_sparse_agg_bwd_dq")
     flash_block_sparse_agg_bwd_dq.launches += 1
     return dq
 
@@ -715,25 +772,10 @@ def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
         return flash_block_sparse_agg_bwd_reference(
             q, k, v, out, lse, dout, layout, G, causal)[1:]
     _check_cuda(q, k, v, None, extra=(dout, out))
-    _agg_bwd_views("B6c", q, k, v, dout)
-    d = q.shape[-1]
-    st = device_luts(layout, q.device).super_tables(G)
-    order = _agg_order(layout, q, G, causal)[1]
+    _mma_views("B6c", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _, _, fn = _agg_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                st.stlut.data_ptr(), st.stcnt.data_ptr(),
-                st.stmask.data_ptr(), order.data_ptr(),
-                *_agg_common(q, st, G), st.qmax,
-                _agg_bwd_strides(q, k, v, dout, dk), 1.0 / math.sqrt(d),
-                int(bool(causal)), stream)
-    _launched(rc, "flash_block_sparse_agg_bwd_dkv")
+    dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal,
+                      "flash_block_sparse_agg_bwd_dkv")
     flash_block_sparse_agg_bwd_dkv.launches += 1
     return dk, dv
 

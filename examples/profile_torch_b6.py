@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""B6b and B6c (the super-tile block-sparse backward) on the card, for
-the PyTorch/CUDA port.
+"""B6a, B6b and B6c (the super-tile block-sparse kernels) on the card,
+for the PyTorch/CUDA port.
 
 Builds ``csrc/sparse_attention/flash_block_sparse_agg.cu`` with
 ``-Xptxas -v`` and reports each kernel's registers and spills.  Then
 builds copies of the source in which the bf16 kernels' bound of blocks
-an SM at head_dim 64 (``kAggMinBlocks64Dq`` and ``kAggMinBlocks64Dkv``,
-both at once) takes each value of ``--min-blocks``, holds the source and each copy against the plain
-version (the bf16 grads to 1e-2 at a causal blk 24 layout and the BERT
-layout), and times them side by side on one card, in turns (forward
-order, then backward), at the sparse BERT attention the main path gives
-them (b=2, h=16, s=4096, d=64, Fixed bidirectional blk 128, G=4,
-fused-QKV views), in their launch order and in grid order, beside SDPA's
+an SM at head_dim 64 (``kAggMinBlocks64Fwd``, ``kAggMinBlocks64Dq`` and
+``kAggMinBlocks64Dkv``, all at once) takes each value of
+``--min-blocks``, holds the source and each copy against the plain
+versions (the bf16 out and lse to 2e-2, grads to 1e-2, at a causal blk
+24 layout and the BERT layout), and times them side by side on one
+card, in turns (forward order, then backward): B6a, B6b and B6c at the
+sparse BERT attention the main path gives them (b=2, h=16, s=4096,
+d=64, Fixed bidirectional blk 128, G=4, fused-QKV views), and B6b's and
+B6c's kernels at G = 1 at the sparse GPT-2 attention (Fixed
+unidirectional blk 256, causal), where the bf16 B5b runs them; then
+B6b and B6c in their launch order and in grid order, beside SDPA's
 masked backward.
 
     python3 examples/profile_torch_b6.py [--min-blocks 2 3 4] [--out PATH]
@@ -43,7 +47,8 @@ from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
     FixedSparsityConfig  # noqa: E402
 
 SOURCE = op_builder.CSRC_DIR / op_builder.SOURCES["flash_block_sparse_agg"]
-BOUNDS = re.compile(r"constexpr int (kAggMinBlocks64(?:Dq|Dkv)) = (\d+);")
+BOUNDS = re.compile(r"constexpr int (kAggMinBlocks64(?:Fwd|Dq|Dkv)) = "
+                    r"(\d+);")
 
 
 def nvcc(src, out):
@@ -80,14 +85,14 @@ def use(lib_path):
     fns = (lib.ds_fbs_agg_fwd, lib.ds_fbs_agg_bwd_dq, lib.ds_fbs_agg_bwd_dkv)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
-    for fn, n_ptr in zip(fns, (8, 11, 12)):
+    for fn, n_ptr in zip(fns, (9, 11, 12)):
         fn.argtypes = [i32, i32] + [ptr] * n_ptr + [i32] * 7 + tail
         fn.restype = ctypes.c_int
     fbs._agg_kernels = lambda: fns
 
 
 def check(label):
-    """The copy's bf16 B6b and B6c against the plain version."""
+    """The copy's bf16 B6a, B6b and B6c against the plain versions."""
     for i, (layout, b, h, s, G, causal) in enumerate((
             (np.tril(np.ones((1, 6, 6), np.int64)), 1, 4, 144, 3, True),
             (FixedSparsityConfig(**cs.BERT_SPARSE_LAYOUT).make_layout(1024),
@@ -97,6 +102,12 @@ def check(label):
         dout = torch.randn(b, s, h, 64, generator=torch.Generator()
                            .manual_seed(i)).to(cs.DEVICE, torch.bfloat16)
         out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+        ref_out, ref_lse = fbs.flash_block_sparse_agg_reference(
+            q, k, v, layout, G, causal)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                                   rtol=2e-2, msg=lambda m: f"{label} "
+                                   f"case {i} out: {m}")
+        torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
         got = fbs.flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout,
                                              G, causal)
         ref = fbs.flash_block_sparse_agg_bwd_reference(
@@ -146,11 +157,23 @@ def main():
     use(libs["source"])
     out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G)
     delta = fbs._delta(out, dout)
+    # the sparse GPT-2 attention, where the bf16 B5b runs the same two
+    # backward kernels at G = 1
+    gpt = FixedSparsityConfig(**cs.SPARSE_LAYOUT).make_layout(s)
+    g_q, g_k, g_v, _ = cs.make_case(b, h, s, s, d, "none", True,
+                                    torch.bfloat16, cs.SEED + 600)
+    g_out, g_lse = fbs.flash_block_sparse_fwd(g_q, g_k, g_v, gpt, True)
+    g_delta = fbs._delta(g_out, dout)
     shapes = {
+        "fwd": lambda: fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G),
         "dq": lambda: fbs.flash_block_sparse_agg_bwd_dq(
             q, k, v, out, lse, dout, layout, G, False, delta),
         "dkv": lambda: fbs.flash_block_sparse_agg_bwd_dkv(
-            q, k, v, out, lse, dout, layout, G, False, delta)}
+            q, k, v, out, lse, dout, layout, G, False, delta),
+        "b5b_dq": lambda: fbs.flash_block_sparse_agg_bwd_dq(
+            g_q, g_k, g_v, g_out, g_lse, dout, gpt, 1, True, g_delta),
+        "b5b_dkv": lambda: fbs.flash_block_sparse_agg_bwd_dkv(
+            g_q, g_k, g_v, g_out, g_lse, dout, gpt, 1, True, g_delta)}
     result["clocks_before"] = cs.clocks_line()
     for name in list(libs) + list(libs)[::-1]:
         use(libs[name])

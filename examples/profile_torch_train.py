@@ -26,7 +26,9 @@ busy time is the sum of the card's kernel and copy times that
 1 - busy / wall.  Busy time is split by kernel family: the flash kernels
 B1 (forward), B2a and B2b (backward), B3 (fused backward), the
 block-sparse kernels B5a (forward) and B5b (its dq and its dk/dv
-kernel), the super-tile kernels B6a, B6b and B6c, matrix products
+kernel; in bf16 these are B6b's and B6c's tensor-core kernels at G = 1,
+counted as B5b's in the ``--sparse`` step, which launches no B6), the
+super-tile kernels B6a, B6b and B6c, matrix products
 (cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies,
 the optimizer).
 Prints one JSON object (also written to ``--out PATH``) with the card's
@@ -75,11 +77,16 @@ FAMILIES = (("B1 flash forward", ("flash_fwd",)),
                                  "nvjet")))
 
 
-def family(name):
+# the bf16 B5b runs B6b's and B6c's kernels at G = 1
+B5B_AT_G1 = {"B6b super-tile dq": "B5b sparse flash dq",
+             "B6c super-tile dk/dv": "B5b sparse flash dk/dv"}
+
+
+def family(name, mode):
     lowered = name.lower()
     for label, keys in FAMILIES:
         if any(key in lowered for key in keys):
-            return label
+            return B5B_AT_G1.get(label, label) if mode == "sparse" else label
     return "other"
 
 
@@ -131,7 +138,7 @@ def main():
         by_name[e.name] += e.time_range.elapsed_us()
     by_family = collections.Counter()
     for name, us in by_name.items():
-        by_family[family(name)] += us
+        by_family[family(name, args.mode)] += us
     busy = sum(by_name.values()) / 1e3 / steps if events else None
     result = {
         "card": card, "model": model_name, "mode": args.mode,

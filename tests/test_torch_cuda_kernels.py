@@ -652,6 +652,179 @@ def test_bf16_super_tile_backward_raises_on_misaligned_views(cuda_device):
         assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
 
 
+def b5b_edges():
+    """name -> (layout, b, s, heads, d, causal): the bf16 B5b on the
+    super-tile backward kernels at G = 1.  16- and 24-row blocks (one
+    64-row part cut to the block), 256-row blocks (the sparse GPT-2
+    layout: four parts, the global key columns walk the most tiles),
+    512-row per-head BigBird (eight parts), block rows with no active
+    block in a per-head layout, head_dim 128; causal and not."""
+    rs = np.random.RandomState(5)
+    per_head = (rs.rand(4, 16, 16) < 0.3).astype(np.int64)
+    per_head[1, 3] = 0          # head 1, q block 3 attends nothing
+    per_head[:, 5] = 0          # q block 5 attends nothing in any head
+    return {
+        "blk16_fixed_uni_causal": (FixedSparsityConfig(
+            num_heads=4, block=16, num_local_blocks=4,
+            attention="unidirectional").make_layout(512), 2, 512, 4, 64,
+            True),
+        "blk24_upper_causal": (np.triu(np.ones((1, 8, 8), np.int64)), 1,
+                               192, 2, 64, True),
+        "blk256_gpt2_layout_causal": (FixedSparsityConfig(
+            num_heads=4, block=256, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional").make_layout(4096), 1, 4096, 4, 64,
+            True),
+        "blk512_bigbird_per_head": (BigBirdSparsityConfig(
+            num_heads=2, block=512, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1,
+            different_layout_per_head=True).make_layout(4096), 1, 4096, 2,
+            64, False),
+        "blk32_per_head_empty_rows": (per_head, 2, 512, 4, 64, False),
+        "blk32_per_head_empty_rows_d128_causal": (per_head, 1, 512, 4, 128,
+                                                  True),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(b5b_edges()))
+def test_bf16_b5b_on_the_tensor_cores_matches_plain(cuda_device, name):
+    """The bf16 B5b (B6b's and B6c's tensor-core kernels at G = 1) on
+    fused-QKV views against its plain version at 1e-2, from B5a's own out
+    and lse (NEG_INF rows included); exactly 0 where no pair is seen; two
+    runs bitwise equal and equal to a run in grid order; each call moves
+    ``flash_block_sparse_bwd.launches`` by one and no B6 counter."""
+    layout, b, s, h, d, causal = b5b_edges()[name]
+    g = torch.Generator().manual_seed(len(name))
+    qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    counters = (fbs.flash_block_sparse_bwd, fbs.flash_block_sparse_agg_fwd,
+                fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    before = [c.launches for c in counters]
+    grads = fbs.flash_block_sparse_bwd(q, k, v, out, lse, dout, layout,
+                                       causal)
+    again = fbs.flash_block_sparse_bwd(q, k, v, out, lse, dout, layout,
+                                       causal)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 0, 0, 0]
+    luts = fbs.device_luts(layout, cuda_device)
+    key = (1, s // layout.shape[1], causal)
+    orders = luts.launch_order(*key)
+    luts._orders[key] = tuple(torch.arange(o.numel(), dtype=torch.int32,
+                                           device=cuda_device)
+                              for o in orders)
+    try:
+        grid = fbs.flash_block_sparse_bwd(q, k, v, out, lse, dout, layout,
+                                          causal)
+    finally:
+        luts._orders[key] = orders
+    ref = fbs.flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
+                                               layout, causal)
+    for a, a2, a3, r in zip(grads, again, grid, ref):
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+        torch.testing.assert_close(a.float(), r.float(), atol=1e-2,
+                                   rtol=1e-2)
+    visible, _ = fbs.expand_layout(layout, s, causal, cuda_device)
+    visible = visible.expand(h, s, s)
+    no_key, no_row = ~visible.any(-1).T, ~visible.any(-2).T
+    assert not grads[0][:, no_key].any()
+    assert not grads[1][:, no_row].any() and not grads[2][:, no_row].any()
+    if name.startswith("blk32_per_head"):
+        assert bool((lse.view(b, h, s)[:, 1, 3 * 32:4 * 32]
+                     == fbs.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(agg_edges()))
+def test_bf16_b6a_on_the_tensor_cores_matches_plain_and_b5a(cuda_device,
+                                                            name):
+    """The bf16 B6a (``agg_fwd_mma_kernel``) on fused-QKV views against
+    its plain version (out and lse at 2e-2; the MAX_FLOOR and NEG_INF
+    rows exactly, out 0 there) and against B5a on the same inputs (out
+    at 2e-2, lse at 2e-2 where a row sees a pair); two runs bitwise
+    equal and equal to a run in grid order; one launch per call."""
+    layout, b, s, h, d, G, causal = agg_edges()[name]
+    g = torch.Generator().manual_seed(len(name))
+    qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = fbs.flash_block_sparse_agg_fwd.launches
+    out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    out2, lse2 = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal)
+    torch.cuda.synchronize()
+    assert fbs.flash_block_sparse_agg_fwd.launches == before + 2
+    luts = fbs.device_luts(layout, cuda_device)
+    key = (G, s // layout.shape[1], causal)
+    orders = luts.launch_order(*key)
+    luts._orders[key] = tuple(torch.arange(o.numel(), dtype=torch.int32,
+                                           device=cuda_device)
+                              for o in orders)
+    try:
+        out3, lse3 = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G,
+                                                    causal)
+    finally:
+        luts._orders[key] = orders
+    for a, a2, a3 in ((out, out2, out3), (lse, lse2, lse3)):
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+    ref_out, ref_lse = fbs.flash_block_sparse_agg_reference(q, k, v, layout,
+                                                            G, causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+    for special in (fbs.MAX_FLOOR, fbs.NEG_INF):
+        assert torch.equal(lse == special, ref_lse == special)
+    seen = (lse > fbs.MAX_FLOOR).view(b, h, s).transpose(1, 2)
+    assert not out[~seen].any()
+    b5_out, b5_lse = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    torch.testing.assert_close(out.float(), b5_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    both = (lse > fbs.MAX_FLOOR) & (b5_lse > fbs.MAX_FLOOR)
+    assert torch.equal(lse > fbs.MAX_FLOOR, b5_lse > fbs.MAX_FLOOR)
+    torch.testing.assert_close(lse[both], b5_lse[both], atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_b5b_and_b6a_raise_on_misaligned_views(cuda_device):
+    """The bf16 B5b and B6a copy their inputs in 16-byte chunks: a view
+    off 16-byte alignment, or with a head stride that is not a multiple
+    of 8 elements, is refused with a ValueError naming the kernel and
+    nothing is launched; aligned copies go through."""
+    layout = np.ones((1, 2, 2), np.int64)
+    b, s, h, d = 1, 512, 2, 64
+    g = torch.Generator().manual_seed(0)
+    k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                  .to(cuda_device, torch.bfloat16) for _ in range(3))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    counters = (fbs.flash_block_sparse_bwd, fbs.flash_block_sparse_agg_fwd,
+                fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    for bad in (shifted, wide):
+        out, lse = fbs.flash_block_sparse_fwd(bad.clone(), k, v, layout)
+        before = [c.launches for c in counters]
+        for args in ((bad, k, v, dout), (k, bad, v, dout), (k, v, bad, dout),
+                     (k, v, dout, bad)):
+            with pytest.raises(ValueError, match="bf16 B5b"):
+                fbs.flash_block_sparse_bwd(*args[:3], out, lse, args[3],
+                                           layout)
+        for args in ((bad, k, v), (k, bad, v), (k, v, bad)):
+            with pytest.raises(ValueError, match="bf16 B6a"):
+                fbs.flash_block_sparse_agg_fwd(*args, layout, 2)
+        assert [c.launches for c in counters] == before
+        fbs.flash_block_sparse_bwd(bad.clone(), k, v, out, lse, dout, layout)
+        fbs.flash_block_sparse_agg_fwd(bad.clone(), k, v, layout, 2)
+        assert [c.launches - n for c, n in zip(counters, before)] == \
+            [1, 1, 0, 0]
+
+
 @pytest.mark.cuda
 def test_block_sparse_wrappers_raise_on_what_the_kernels_do_not_take(
         cuda_device):

@@ -518,21 +518,150 @@ def test_super_tile_visits_match_the_element_level_count():
 
 
 def test_bf16_super_tile_backward_names_the_kernel_on_misaligned_views():
-    """The rule the bf16 B6b/B6c wrappers apply on the card before a
-    launch: fused-QKV slices and contiguous tensors pass, a view off
-    16-byte alignment or with a head stride that is not a multiple of 8
-    elements raises a ValueError naming the kernel; fp32 is not held to
-    it."""
+    """The rule the bf16 tensor-core wrappers (B5b, B6a, B6b, B6c) apply
+    on the card before a launch: fused-QKV slices and contiguous tensors
+    pass, a view off 16-byte alignment or with a head stride that is not
+    a multiple of 8 elements raises a ValueError naming the kernel; fp32
+    is not held to it."""
     qkv = torch.zeros(2, 64, 3, 2, 64, dtype=torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     dout = torch.zeros(2, 64, 2, 64, dtype=torch.bfloat16)
     base = torch.zeros(2 * 64 * 2 * 64 + 4, dtype=torch.bfloat16)
     shifted = base[4:].view(2, 64, 2, 64)
     wide = torch.zeros(2, 64, 2, 68, dtype=torch.bfloat16)[..., :64]
-    for name in ("B6b", "B6c"):
-        tfbs._agg_bwd_views(name, q, k, v, dout)
+    for name, grads in (("B5b", True), ("B6a", False), ("B6b", True),
+                        ("B6c", True)):
+        extra = (dout,) if grads else ()
+        tfbs._mma_views(name, q, k, v, *extra)
         for bad in (shifted, wide):
             with pytest.raises(ValueError, match=f"bf16 {name} kernel"):
-                tfbs._agg_bwd_views(name, q, k, bad, dout)
-            tfbs._agg_bwd_views(name, q.float(), k.float(), bad.float(),
-                                dout.float())
+                tfbs._mma_views(name, q, k, bad, *extra)
+            tfbs._mma_views(name, q.float(), k.float(), bad.float(),
+                            *(t.float() for t in extra))
+        if grads:
+            with pytest.raises(ValueError, match=f"bf16 {name} kernel"):
+                tfbs._mma_views(name, q, k, v, shifted)
+
+
+# ------------------------------------------------- the bf16 B5b at G = 1
+def g1_layouts():
+    """name -> layout: the Fixed unidirectional layout of the sparse
+    GPT-2 run in 256-row blocks, BigBird, and a per-head layout with
+    empty block rows."""
+    rs = np.random.RandomState(13)
+    per_head = (rs.rand(4, 12, 12) < 0.3).astype(np.int64)
+    per_head[1, 3] = 0                       # head 1, q block 3 empty
+    per_head[:, 5] = 0                       # q block 5 empty everywhere
+    return {"fixed_uni_blk256": jsc.FixedSparsityConfig(
+                num_heads=16, block=256, num_local_blocks=4,
+                num_global_blocks=1, attention="unidirectional")
+            .make_layout(4096),
+            "bigbird_blk64": jsc.BigBirdSparsityConfig(
+                num_heads=2, block=64, num_random_blocks=1,
+                num_sliding_window_blocks=3, num_global_blocks=1)
+            .make_layout(1024),
+            "perhead_empty_rows": per_head}
+
+
+G1 = g1_layouts()
+
+
+@pytest.mark.parametrize("name", sorted(G1))
+def test_super_luts_at_g1_express_the_block_luts(name):
+    """At G = 1 a super-tile is one layout block: ``build_super_luts``
+    lists per row the same active blocks as ``build_block_luts`` (and per
+    key column the same query blocks), with ``scnt == cnt`` and exactly
+    one mask bit (bit 0) on each active entry, 0 past the count."""
+    layout = np.asarray(G1[name])
+    lut, cnt, tlut, tcnt = tfbs.build_block_luts(layout)
+    slut, scnt, smask, stlut, stcnt, stmask = tfbs.build_super_luts(layout, 1)
+    for a, b in ((scnt, cnt), (stcnt, tcnt)):
+        np.testing.assert_array_equal(a, b)
+    for table, count, mask, want in ((slut, scnt, smask, lut),
+                                     (stlut, stcnt, stmask, tlut)):
+        valid = np.arange(table.shape[-1]) < count[..., None]
+        np.testing.assert_array_equal(np.where(valid, table, -1),
+                                      np.where(valid, want[..., :table.shape[
+                                          -1]], -1))
+        np.testing.assert_array_equal(mask, valid.astype(np.int32))
+    if name == "perhead_empty_rows":
+        assert scnt[1, 3] == 0 and (scnt[:, 5] == 0).all()
+
+
+G1_CASES = [("irregular_perhead_blk16", False), ("irregular_perhead_blk16",
+                                                 True),
+            ("empty_row_blk32", False), ("empty_row_blk32", True),
+            ("fixed_uni_blk128", True), ("upper_triangle_blk32", True)]
+
+
+@pytest.mark.parametrize("name,causal", G1_CASES)
+def test_agg_plain_versions_at_g1_equal_b5s_and_the_pallas_kernels(name,
+                                                                   causal):
+    """The bf16 B5b runs the super-tile kernels at G = 1, so the
+    super-tile plain versions at G = 1 must be B5's function: out, lse
+    (NEG_INF for a block row with no active block, MAX_FLOOR for a row
+    the causal mask empties) and dq, dk, dv EQUAL to the plain B5a and
+    B5b, and within 2e-5 / 5e-4 of the Pallas ``_fbs_fwd`` and
+    ``jax.grad`` of the work-list kernels in interpret mode."""
+    layout, s, h = LAYOUTS[name]
+    q, k, v, w = inputs(14, 2, s, h)
+    tq, tk, tv, tw = (torch.from_numpy(x) for x in (q, k, v, w))
+    out, lse = tfbs.flash_block_sparse_agg_reference(tq, tk, tv, layout, 1,
+                                                     causal)
+    b5_out, b5_lse = tfbs.flash_block_sparse_reference(tq, tk, tv, layout,
+                                                       causal)
+    assert torch.equal(out, b5_out) and torch.equal(lse, b5_lse)
+    want_out, want_lse = jax_forward(q, k, v, layout, causal)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=OUT_TOL,
+                               rtol=OUT_TOL)
+    for special in (tfbs.MAX_FLOOR, tfbs.NEG_INF):
+        np.testing.assert_array_equal(lse.numpy() == special,
+                                      want_lse == special)
+    got = tfbs.flash_block_sparse_agg_bwd_reference(tq, tk, tv, out, lse, tw,
+                                                    layout, 1, causal)
+    b5 = tfbs.flash_block_sparse_bwd_reference(tq, tk, tv, out, lse, tw,
+                                               layout, causal)
+    want = jax.grad(
+        lambda q_, k_, v_: jnp.sum(jfbs.flash_block_sparse_attention(
+            q_, k_, v_, layout, causal=causal, interpret=True,
+            q_agg="never") * jnp.asarray(w)), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, r, j, nm in zip(got, b5, want, ("dq", "dk", "dv")):
+        assert torch.equal(g, r), nm
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=nm)
+    if name == "empty_row_blk32":
+        assert (lse.numpy()[:, 32:64] == tfbs.NEG_INF).all()
+        assert not got[0].numpy()[:, 32:64].any()
+
+
+def test_launch_order_at_g1_puts_the_global_key_columns_first():
+    """The bf16 B5b's launch order (G = 1) at the sparse GPT-2 layout
+    shrunk to s=1024 in 256-row blocks (two local blocks a window, one
+    global): each order is a permutation of the H·nb·parts units, and
+    the dk/dv kernel starts with every 64-key part of each head's global
+    key column, the one the most query blocks see."""
+    layout = np.asarray(jsc.FixedSparsityConfig(
+        num_heads=16, block=256, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional").make_layout(1024))
+    H, nb = layout.shape[:2]
+    parts = 256 // 64
+    dq_order, dkv_order = tfbs.build_launch_order(layout, 1, 256, True)
+    for order in (dq_order, dkv_order):
+        assert order.dtype == np.int32
+        np.testing.assert_array_equal(np.sort(order),
+                                      np.arange(H * nb * parts))
+    seen = layout.sum(axis=1)                # [H, nb]: query blocks a column
+    glob = seen.argmax(axis=1)
+    assert (seen.max(axis=1) > seen.min(axis=1)).all()
+    first = dkv_order[:H * parts]
+    heads, cols = first // (nb * parts), first // parts % nb
+    np.testing.assert_array_equal(np.sort(heads), np.repeat(np.arange(H),
+                                                            parts))
+    np.testing.assert_array_equal(cols, glob[heads])
+    # the order counts the same tiles as the element-level layout
+    dq_tiles, dkv_tiles = element_tile_counts(layout, 1, 1024, True)
+    assert dkv_tiles.ravel()[dkv_order[0]] == dkv_tiles.max()
+    assert dq_tiles.ravel()[dq_order[0]] == dq_tiles.max()
