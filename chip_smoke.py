@@ -54,8 +54,11 @@ order; any failure raises, so the script exits non-zero:
               with and without dropout) and the bound, B1 and B2a+B2b
               with and without dropout with the spread of their 20
               repeats and the SM clock and power draw before and after,
-              B1 at BERT's b=64 beside SDPA's forward, and B3 against
-              B2a+B2b at BERT's shapes, behind ``use_fused_backward``;
+              B1 at BERT's b=64 beside SDPA's forward, and B3 (bf16 on
+              the tensor cores) against B2a+B2b at BERT's shapes on one
+              precomputed Δ and with Δ, beside SDPA's backward and the
+              bound: ``use_fused_backward``'s bf16 rule must take B3
+              exactly where it measured faster;
 4. serve    — GPT-2-medium, bf16, random weights from a fixed numpy seed,
               16 staggered requests; every request gets its 32 tokens and
               B1 runs once per layer per prefill;
@@ -70,18 +73,18 @@ order; any failure raises, so the script exits non-zero:
               WarmupLR, accumulation 2, clipping 1.0: 3 steps on the card
               (through B3) and on the CPU agree to rtol 1e-3;
 8. sparse kernel — B5a and B5b (block-sparse flash forward and backward;
-              the bf16 B5b on B6b's and B6c's tensor-core kernels at
-              G = 1, the rest scalar) vs ``flash_block_sparse_reference``
+              in bf16 on B6's tensor-core kernels at G = 1, in fp32
+              scalar) vs ``flash_block_sparse_reference``
               and ``flash_block_sparse_bwd_reference``, fp32 (TF32 off)
               and bf16, on fused-QKV views, over ten layouts; two runs
               bitwise equal; device times at the sparse training
               attention (b=2, h=16, s=4096, d=64, bf16) beside the plain
               versions', SDPA's with the layout as a boolean mask and
               the bound, and dense B1 and B2a+B2b at the same shape;
-              B5b's two kernels in their launch order (longest blocks
-              first) against grid order, in turns, with bitwise-equal
-              grads; and "auto" at 128- and 16-row blocks and q_agg=2 at
-              256 launch B6, not B5;
+              B5a's kernel and B5b's two in their launch order
+              (longest blocks first) against grid order, in turns, with
+              bitwise-equal outputs; and "auto" at 128- and 16-row
+              blocks and q_agg=2 at 256 launch B6, not B5;
 9. sparse train — GPT-2-medium with ``attn_impl="sparse"`` (Fixed
               unidirectional, 256-row blocks), 4096 positions, seq 4096,
               micro-batch 2, dropout 0.1, Lamb, ZeRO-2, bf16: 2 warm-up
@@ -206,8 +209,6 @@ SPARSE_LAYOUT = dict(num_heads=16, block=256, num_local_blocks=4,
 # the sparse train-parity phase's: seq 1024 in four such blocks
 PARITY_LAYOUT = dict(SPARSE_LAYOUT, num_local_blocks=2)
 PARITY_SEQ = 1024
-SPARSE_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention/" \
-    "flash_block_sparse.cu"
 SPARSE_REF = "deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py"
 AGG_SOURCE = "deepspeed_tpu_torch/csrc/sparse_attention/" \
     "flash_block_sparse_agg.cu"
@@ -815,9 +816,10 @@ def time_backward(card, results, max_err):
     return timings
 
 
-def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed):
-    """B2a then B2b on one Δ, as ``flash_attention_bwd`` runs them."""
-    delta = fa._delta(out, dout)
+def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed, delta=None):
+    """B2a then B2b on one Δ, as ``flash_attention_bwd`` runs them (Δ
+    computed here when not given)."""
+    delta = fa._delta(out, dout) if delta is None else delta
     return (flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal,
                                    rate, seed, delta),
             flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask, causal,
@@ -828,10 +830,12 @@ def check_b3_bert_scale(card, results, max_err):
     """B1 and B3 at the BERT train phase's attention (b=64, h=16, s=128,
     d=64, bf16, not causal, a key mask of ones, dropout 0.1), at its last
     layer's gathered queries (21 rows against 128 keys) and at b=8,
-    against their plain versions with the same Philox mask; B3's device
-    time at the first shape beside its plain version, SDPA's backward and
-    the bound; and at all three B3 against B2a+B2b, the times behind
-    ``use_fused_backward``'s bf16 rule."""
+    against their plain versions with the same Philox mask; at all three
+    B3's and B2a+B2b's device times on one precomputed Δ (the kernels
+    alone) and with Δ computed inside the call, beside SDPA's backward
+    (no dropout) and B3's bound: the times behind
+    ``use_fused_backward``'s bf16 rule, which must take B3 exactly where
+    it measured faster than B2a+B2b on the same Δ."""
     g = torch.Generator().manual_seed(SEED + 7)
     h, d = 16, 64
     seed = seed_words(SEED + 8)
@@ -845,7 +849,7 @@ def check_b3_bert_scale(card, results, max_err):
                 .to(DEVICE, torch.bfloat16) for _ in range(2))
         dout = torch.randn(b, s, h, d, generator=g).to(DEVICE,
                                                        torch.bfloat16)
-        check(fa.fused_backward_fits(d, s, BERT_SEQ),
+        check(fa.fused_backward_fits(d, s, BERT_SEQ, torch.bfloat16),
               f"B3 does not fit s={s} kv_len={BERT_SEQ}")
         out, lse, *grads = kernel_chain(q, k, v, dout, mask, False, DROPOUT,
                                         seed, True)
@@ -864,25 +868,35 @@ def check_b3_bert_scale(card, results, max_err):
             errs[f"{label}_{name}"] = float((got.float() - want.float())
                                             .abs().max())
         args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+        delta = fa._delta(out, dout)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = dout.transpose(1, 2)
+        bound, by = backward_bound("fused", q, k, mask, False)
         dispatch[label] = {
             "b": b, "s": s, "kv_len": BERT_SEQ,
-            "b3_ms": device_ms(lambda: flash_attention_bwd_fused(*args)),
-            "b2_ms": device_ms(lambda: b2_pair(*args)),
+            "b3_ms": device_ms(lambda: flash_attention_bwd_fused(
+                *args, delta=delta)),
+            "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta)),
+            "b3_ms_with_delta": device_ms(lambda: flash_attention_bwd_fused(
+                *args)),
+            "b2_ms_with_delta": device_ms(lambda: b2_pair(*args)),
+            "library_ms": device_ms(lambda: torch.autograd.grad(
+                o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
+            "bound_ms": bound, "bound_by": by,
             "rule_takes_b3": fa.use_fused_backward(d, s, BERT_SEQ,
                                                    torch.bfloat16)}
+        del o_sdpa
         if label == "s128":
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
-            dot = dout.transpose(1, 2)
-            bound, by = backward_bound("fused", q, k, mask, False)
-            row = {"kernel_ms": dispatch[label]["b3_ms"],
+            t = dispatch[label]
+            row = {"kernel_ms": t["b3_ms"],
+                   "kernel_ms_with_delta": t["b3_ms_with_delta"],
                    "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
                        q, k, v, out, lse, dout, mask, False, keep, inv_keep),
                        calls=2, repeats=5),
-                   "library_ms": device_ms(lambda: torch.autograd.grad(
-                       o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
-                   "bound_ms": bound, "bound_by": by}
+                   "library_ms": t["library_ms"], "bound_ms": bound,
+                   "bound_by": by}
             # B1 at the BERT train phase's attention, beside SDPA's forward
             # with the same dropout rate (a key mask of ones is no mask)
             fwd_bound, fwd_by = attention_bound(q, k, mask, False)
@@ -905,16 +919,24 @@ def check_b3_bert_scale(card, results, max_err):
     max_err["dropout"] = max(max_err["dropout"], *errs.values())
     print(f"backward B3 at BERT scale (h=16 d=64 bf16, key mask, dropout "
           f"0.1; s=128 at b=64 and b=8, and the gathered 21 rows against 128 "
-          f"keys at b=64; times at b=64 s=128): "
+          f"keys at b=64; times at b=64 s=128, on one precomputed Δ): "
           f"max |grad-plain| {max(errs.values()):.3g}; " + " ".join(
               f"{key}={val:.5f}" if isinstance(val, float) else
               f"{key}={val}" for key, val in row.items()) + f" [{card}]")
     for label, t in dispatch.items():
         print(f"backward dispatch {label} (b={t['b']} h=16 s={t['s']} "
-              f"kv_len={t['kv_len']} d=64 bf16, key mask, dropout 0.1): B3 "
-              f"{t['b3_ms']:.5f} ms, B2a+B2b {t['b2_ms']:.5f} ms; "
-              f"use_fused_backward takes "
+              f"kv_len={t['kv_len']} d=64 bf16, key mask, dropout 0.1): on "
+              f"one precomputed Δ B3 {t['b3_ms']:.5f} ms, B2a+B2b "
+              f"{t['b2_ms']:.5f} ms; with Δ B3 {t['b3_ms_with_delta']:.5f} "
+              f"ms, B2a+B2b {t['b2_ms_with_delta']:.5f} ms; SDPA backward "
+              f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}); use_fused_backward takes "
               f"{'B3' if t['rule_takes_b3'] else 'B2a+B2b'} [{card}]")
+        check(t["rule_takes_b3"] == (t["b3_ms"] < t["b2_ms"]),
+              f"the bf16 backward rule takes "
+              f"{'B3' if t['rule_takes_b3'] else 'B2a+B2b'} at {label}, "
+              f"where B3 measured {t['b3_ms']:.5f} ms and B2a+B2b "
+              f"{t['b2_ms']:.5f} ms")
     results["b3_bert"] = dict(row, errors=errs)
     results["dispatch"] = dispatch
 
@@ -937,7 +959,8 @@ def phase_backward(card, results):
             row = {"case": label, "dtype": str(dtype).split(".")[-1],
                    "b": b, "h": h, "s": s, "kv_len": kv_len, "d": d,
                    "causal": causal, "dropout": rate}
-            paths = ["b2"] + (["b3"] if fa.fused_backward_fits(d, s, kv_len)
+            paths = ["b2"] + (["b3"] if fa.fused_backward_fits(d, s, kv_len,
+                                                                dtype)
                               else [])
             for path in paths:
                 err = check_backward_case(row, label, path, dtype, q, k, v,
@@ -1447,10 +1470,11 @@ def time_sparse(card, results):
     del o_sdpa, visible
     timings.update(time_agg_orders(q, k, v, out, lse, dout, fbs._delta(
         out, dout), layout, 1, True))
-    print(f"sparse timing launch_order (B5b's dq and dk/dv kernels at G = "
-          f"1): " + " ".join(f"{key}={val:.5f}" if isinstance(val, float)
-                             else f"{key}={val}" for key, val in
-                             timings["launch_order"].items()) + f" [{card}]")
+    print("sparse timing launch_order (B5a's forward and B5b's dq and "
+          "dk/dv kernels at G = 1): " + " ".join(
+              f"{key}={val:.5f}" if isinstance(val, float) else
+              f"{key}={val}" for key, val in
+              timings["launch_order"].items()) + f" [{card}]")
     # the dense kernels at the same shape
     d_out, d_lse = flash_attention_fwd(q, k, v, None, True)
     args = (q, k, v, d_out, d_lse, dout, None, True)
@@ -1796,13 +1820,14 @@ def time_agg(card, results):
 
 def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
                     causal=False):
-    """The bf16 B6b and B6c kernels (at G = 1 the bf16 B5b's) in the
-    launch order they use (their blocks by visited tiles, the most
-    first) against grid order (the units in index order), timed in
-    turns, with the gradients of both orders bitwise equal; and the
-    order itself: the tiles of the first and last blocks launched and
-    the mean, and the dk/dv kernel's time over the dq kernel's in launch
-    order beside their work ratio, 8·d against 6·d a pair."""
+    """The bf16 B6a, B6b and B6c kernels (at G = 1 the bf16 B5a's and
+    B5b's) in the launch order they use (their blocks by visited tiles,
+    the most first; the forward takes the dq order) against grid order
+    (the units in index order), timed in turns, with the outputs of both
+    orders bitwise equal; and the order itself: the tiles of the first
+    and last blocks launched and the mean, and the dk/dv kernel's time
+    over the dq kernel's in launch order beside their work ratio, 8·d
+    against 6·d a pair."""
     s = q.shape[1]
     blk = s // layout.shape[1]
     luts = fbs.device_luts(layout, q.device)
@@ -1814,6 +1839,10 @@ def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
     tiles = (visits.sum(axis=(2, 4)).ravel(), visits.sum(axis=(1, 3)).ravel())
 
     def run(kind):
+        if kind == "fwd":
+            return (fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+                    if G == 1 else
+                    fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G, causal))
         if kind == "dq":
             return (fbs.flash_block_sparse_agg_bwd_dq(
                 q, k, v, out, lse, dout, layout, G, causal, delta),)
@@ -1822,7 +1851,7 @@ def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
 
     row = {}
     try:
-        for kind, i in (("dq", 0), ("dkv", 1)):
+        for kind, i in (("fwd", 0), ("dq", 0), ("dkv", 1)):
             got = {}
             for turn, use in (("sorted", orders), ("grid", grid),
                               ("grid", grid), ("sorted", orders)):
@@ -1832,7 +1861,8 @@ def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
                 got[turn] = run(kind)
             check(all(torch.equal(a, b_) for a, b_ in zip(got["sorted"],
                                                           got["grid"])),
-                  f"agg launch order: B6{'bc'[i]} differs between orders")
+                  f"agg launch order at G={G}: the {kind} kernel's output "
+                  f"differs between orders")
             order = orders[i].cpu().numpy()
             row[f"{kind}_tiles_first"] = int(tiles[i][order[0]])
             row[f"{kind}_tiles_last"] = int(tiles[i][order[-1]])
@@ -2134,8 +2164,10 @@ def main(argv=None):
           f"a kernel of the main paths never launched: {launches}")
 
     main_shape = timings[BUCKETS[-1]]
-    b3 = dict(bwd_timings["b3_parity_fp32"],
-              kernel_ms=bwd_timings["b3_parity_fp32"]["fused_ms"])
+    # B3 at the BERT train attention, bf16 on the tensor cores, on one
+    # precomputed Δ (its fp32 time at the train-parity attention is in
+    # the backward timing lines)
+    b3 = results["b3_bert"]
     kernels = [
         kernel_entry("flash_attention_fwd (B1)", FLASH_SOURCE,
                      FLASH_REPLACES, launches["B1"],
@@ -2152,7 +2184,7 @@ def main(argv=None):
         kernel_entry("in-kernel dropout (B4)", CSRC + "flash_dropout.cuh",
                      REF + ":145", launches["B4"], bwd_err["dropout"],
                      bwd_timings["dropout"]),
-        kernel_entry("flash_block_sparse_fwd (B5a)", SPARSE_SOURCE,
+        kernel_entry("flash_block_sparse_fwd (B5a)", AGG_SOURCE,
                      SPARSE_REF + ":213", launches["B5a"], sparse_err["fwd"],
                      sparse_timings["fwd"]),
         kernel_entry("flash_block_sparse_bwd (B5b)", AGG_SOURCE,

@@ -1,14 +1,16 @@
 // Block-sparse flash attention for NVIDIA Hopper (built for sm_90a): the
-// forward in both types, and the fp32 backward as two kernels.
+// fp32 forward, and the fp32 backward as two kernels.
 //
 // Replaces, in deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py:
-//   B5a `_fwd_kernel`       (:213, launched at :478) -> fbs_fwd_kernel
-//                                                       (fp32 and bf16)
+//   B5a `_fwd_kernel`       (:213, launched at :478) -> fp32:
+//       fbs_fwd_kernel; bf16: the tensor-core agg_fwd_mma_kernel of
+//       flash_block_sparse_agg.cu at G = 1
 //   B5b `_bwd_fused_kernel` (:253, launched at :538) -> fp32:
 //       fbs_bwd_dq_kernel + fbs_bwd_dkv_kernel; bf16: the tensor-core
 //       agg_bwd_dq_mma_kernel + agg_bwd_dkv_mma_kernel of
-//       flash_block_sparse_agg.cu at G = 1 (the wrapper launches them;
-//       the C entry here refuses a bf16 backward)
+//       flash_block_sparse_agg.cu at G = 1
+// (the wrappers launch the bf16 kernels; both C entries here refuse
+// bf16)
 // They compute what those kernels compute, over the ACTIVE [blk, blk]
 // tiles of a [H, nb, nb] block layout (H is 1, shared, or the head count):
 // scaled Q·Kᵀ, an optional causal mask inside tiles (masked scores are
@@ -23,14 +25,14 @@
 // Δ = rowsum(dO∘O) comes in precomputed, as the JAX package computes it
 // outside Pallas (:531-532).  No dropout and no key mask, as on the TPU.
 //
-// Why the bf16 backward lives in the super-tile source: at G = 1 a
+// Why the bf16 kernels live in the super-tile source: at G = 1 a
 // super-tile is one layout block with one mask bit, and the super-tile
 // lse rule is this one (MAX_FLOOR for a row of a block row with an active
-// block, NEG_INF for one without), so the B6 kernels compute B5b's
+// block, NEG_INF for one without), so the B6 kernels compute B5's
 // function: the same visible pairs, rounding points and 1/√d folding.
-// They also carry the launch order B5b's unequal dk/dv columns need (a
-// global key column of the sparse GPT-2 layout walks 12 query blocks,
-// the others 4).
+// They also carry the launch order B5's unequal blocks need (a causal
+// block row of the sparse GPT-2 layout walks 1 to 28 64-key tiles, a
+// global key column 12 query blocks, the others 4).
 //
 // Design.  The TPU kernels walk one flattened list of (q block, k block)
 // jobs per head on a sequential grid axis, open and close the softmax
@@ -62,13 +64,11 @@
 // TFLOP/s.  The backward moves 118 MB (35 µs) and does 10·d per pair
 // (76 µs).  So both are bound by operations.
 //
-// What this simple design leaves on the table: B5a (both types) and the
-// fp32 backward are still scalar: every multiply-add is an fp32 FMA on
-// the CUDA cores (67 TFLOP/s peak), tiles come in by plain loads with no
-// copy/compute overlap, and the fp32 backward recomputes S and dP in both
-// of its kernels.  The fp32 kernels serve the parity checks (TF32 would
-// miss their 2e-5 / 5e-4); the bf16 B5a's next step is the tensor-core
-// agg_fwd_mma_kernel at G = 1, as its backward took the B6 kernels.
+// What this simple design leaves on the table: every multiply-add is an
+// fp32 FMA on the CUDA cores (67 TFLOP/s peak), tiles come in by plain
+// loads with no copy/compute overlap, and the backward recomputes S and
+// dP in both of its kernels.  These kernels serve the fp32 parity checks
+// (TF32 would miss their 2e-5 / 5e-4); bf16 runs on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -365,19 +365,14 @@ int launch(bool backward, const Args& a) {
   return backward ? launch_bwd<T, D>(a) : launch_fwd<T, D>(a);
 }
 
-// B5a in both types, B5b in fp32 only: the bf16 B5b runs on the
-// tensor-core kernels of flash_block_sparse_agg.cu at G = 1, so a bf16
-// backward here is refused
+// fp32 only: the bf16 B5a and B5b run on the tensor-core kernels of
+// flash_block_sparse_agg.cu at G = 1, so bf16 here is refused
 int dispatch(bool backward, int dtype, int head_dim, const Args& a) {
   if (a.lay.blk <= 0 || a.lay.nb <= 0 || a.lay.nb * a.lay.blk != a.s ||
       a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(backward, a);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(backward, a);
-  if (dtype == 1 && !backward && head_dim == 64)
-    return launch_fwd<__nv_bfloat16, 64>(a);
-  if (dtype == 1 && !backward && head_dim == 128)
-    return launch_fwd<__nv_bfloat16, 128>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -400,12 +395,14 @@ Layout make_layout(const void* lut, const void* cnt, const void* tlut,
 
 }  // namespace
 
-// B5a.  dtype: 0 = float32, 1 = bfloat16.  q, k, v are [b, s, h, d] of
-// that dtype with the last dim contiguous; `strides` points to 9 host
-// int64 element strides: (batch, seq, head) of q, k and v.  out is a
-// contiguous [b, s, h, d] of the input dtype and lse a contiguous fp32
-// [b·h, s].  lut [H, nb, kmax] and cnt [H, nb] are int32 in device memory
-// (build_block_luts); H = layout_heads is 1 or `heads`; s = nb·blk.
+// B5a in fp32; a bf16 call (dtype 1) returns cudaErrorInvalidValue (it
+// runs on ds_fbs_agg_fwd at G = 1).  dtype: 0 = float32.  q, k, v are
+// [b, s, h, d] of that dtype with the last dim contiguous; `strides`
+// points to 9 host int64 element strides: (batch, seq, head) of q, k and
+// v.  out is a contiguous [b, s, h, d] of the input dtype and lse a
+// contiguous fp32 [b·h, s].  lut [H, nb, kmax] and cnt [H, nb] are int32
+// in device memory (build_block_luts); H = layout_heads is 1 or `heads`;
+// s = nb·blk.
 // Launches on `stream`, does not synchronise, allocates nothing, and
 // returns cudaGetLastError().
 extern "C" int ds_flash_block_sparse_fwd(

@@ -8,8 +8,9 @@
 //       -> agg_bwd_dq_mma_kernel (bf16), agg_bwd_dq_kernel (fp32)
 //   B6c `_bwd_dkv_kernel_agg` (:402, launched at :682)
 //       -> agg_bwd_dkv_mma_kernel (bf16), agg_bwd_dkv_kernel (fp32)
-// and, at G = 1, the bf16 half of B5b `_bwd_fused_kernel` (:253): the
-// bf16 B5b wrapper launches agg_bwd_dq_mma_kernel and
+// and, at G = 1, the bf16 halves of B5a `_fwd_kernel` (:213) and B5b
+// `_bwd_fused_kernel` (:253): the bf16 B5a wrapper launches
+// agg_fwd_mma_kernel and the bf16 B5b wrapper agg_bwd_dq_mma_kernel and
 // agg_bwd_dkv_mma_kernel with the G = 1 tables, where a super-tile is one
 // layout block with one mask bit and the lse rule below is B5's.
 // They compute what those kernels compute.  A super-tile covers a G×G
@@ -76,11 +77,12 @@
 // - Launch order.  A block's work is its visited tiles, which differ:
 //   at the BERT layout a B6c block of a global key column walks 64, the
 //   others 8 (mean 22; B6a's and B6b's walk 22 each); at the sparse
-//   GPT-2 layout (G = 1, the bf16 B5b) a dk/dv block of a global key
-//   column walks up to 52, the others 16 or fewer.  The wrapper passes
-//   an int32 order of the blocks, the most tiles first
-//   (build_launch_order, counted on the host by the same rule as
-//   TileWalk; B6a takes B6b's), and grid y is the rank in it, so the
+//   GPT-2 layout (G = 1, the bf16 B5a and B5b) a dk/dv block of a
+//   global key column walks up to 52, the others 16 or fewer, and a
+//   forward or dq block 1 to 28.  The wrapper passes an int32 order of
+//   the blocks, the most tiles first (build_launch_order, counted on the
+//   host by the same rule as TileWalk; B6a and B5a take the dq order),
+//   and grid y is the rank in it, so the
 //   card, which starts blocks in grid order, starts the longest first
 //   and fills in behind them with the short ones.  The order changes
 //   when a block runs, not what it writes.

@@ -7,7 +7,7 @@
 //   B2b `_bwd_dkv_kernel`   (:311, launched at :718)
 //       -> flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (fp32)
 //   B3  `_bwd_fused_kernel` (:378, launched at :660)
-//       -> flash_bwd_fused_kernel
+//       -> flash_bwd_fused_mma_kernel (bf16), flash_bwd_fused_kernel (fp32)
 // They compute what those kernels compute: P = exp(S − lse) recomputed
 // from the forward's logsumexp, with S scaled and masked to NEG_INF as in
 // the forward (so masked keys and fully masked rows give P = 0 and
@@ -65,20 +65,48 @@
 // parity and kernel checks.  There D/16 neighbouring threads share a row
 // (or key), 16 elements of head_dim each, and close every dot product
 // with a butterfly of warp shuffles.
-// - B3: one block per b·h holds Q, dO, K, V and one [s, kv_len] fp32
-//   score tile in shared memory: P is computed once into the tile, dv
-//   read off it, then dP once and dS written over P, then dq and dk read
-//   off dS.  It runs only where that fits the 227 KB of shared memory a
-//   block can have (the wrapper computes the same size as
-//   `ds_flash_attention_bwd_fused_smem` below), and where the wrapper's
-//   measured dispatch rule picks it.
+// - The fp32 B3: one block per b·h holds Q, dO, K, V and one [s, kv_len]
+//   fp32 score tile in shared memory: P is computed once into the tile,
+//   dv read off it, then dP once and dS written over P, then dq and dk
+//   read off dS.
+//
+// Design of the bf16 B3 (tensor cores, flash_mma.cuh).  The TPU runs
+// `_bwd_fused_kernel` where the whole sequence is one tile (BERT's s =
+// 128), so S and dP are computed once, 10·d flops a pair where B2a and
+// B2b spend 14·d.  Here one block of 8 warps (4 up to 64 query rows) per
+// b·h holds the whole sequence, so no reduction leaves the block and no
+// atomic touches a value:
+// - Q, dO, K and V come in once by cp.async into padded bf16 tiles (rows
+//   past s and kv_len zero), the key mask and, under dropout, the keep
+//   bits of every (row, 32-key word) beside them (one Philox draw per 4
+//   keys, B1's counter).
+// - Score pass, warps owning 16 query rows each: S = Q·Kᵀ and dP = dO·Vᵀ
+//   on mma.sync in 32-key chunks; on the C fragments the element test
+//   (key mask, causal, the kv_len and s edges: P = 0 there, also in a
+//   fully masked row), P = 2^(S·scale·log2e − lse·log2e), the keep bits,
+//   dS = P∘(dP − Δ); dS repacked C→A as bf16 for dq += dS·K (K read by
+//   ldmatrix.trans), and P_kept and dS stored to shared memory as bf16.
+//   The warp stores its dq rows.
+// - `__syncthreads`, then the key pass, warps owning 16 keys each: dv =
+//   P_keptᵀ·dO and dk = dSᵀ·Q over every query row of the block in
+//   order, P_kept and dS read transposed by ldmatrix.trans as A
+//   fragments; dk and dv staged in the warp's own K and V rows (no warp
+//   reads K or V after the score pass) and stored in 16-byte chunks.
+// - Shared memory at s = kv_len = 128, d = 64: 142.5 KB, so one block an
+//   SM; `fused_mma_smem_bytes` below counts it and the wrapper's fit rule
+//   reads it through `ds_flash_attention_bwd_fused_smem`.
+// Either B3 runs only where its tiles fit the 227 KB of shared memory a
+// block can have, and where the wrapper's measured dispatch rule picks it.
 //
 // Bound.  At GPT-2-medium's training shape (b=8, h=16, s=1024, d=64,
 // causal, bf16) B2a moves q, k, v, dO, dq (+ lse, Δ) = 84 MB (25 µs at
 // 3.35 TB/s) and does 6·d flops per visible pair = 26 GFLOP (26 µs at
 // 989 TFLOP/s); B2b moves 84 MB too and does 8·d per pair (35 µs).  Both
 // kernels compute S and dP, so the pair costs 14·d flops in all, where a
-// backward that computed them once would spend 10·d.
+// backward that computed them once would spend 10·d.  B3 at BERT's shape
+// (b=64, h=16, s=128, d=64, bf16) moves q, k, v, dO in and dq, dk, dv out
+// (+ lse, Δ, mask): 118 MB, 35 µs, against 10·d per pair = 10.7 GFLOP,
+// 11 µs: bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -829,7 +857,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   }
 }
 
-// ------------------------------------------------------------------- B3
+// ------------------------------------------------------------- B3, fp32
 constexpr int kFusedThreads = 1024;
 
 // shared-memory floats of the fused kernel: Q and dO [s, D], K and V
@@ -977,6 +1005,286 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
+// ------------------------------------------------------------- B3, bf16
+// Warps of the bf16 B3: above kFusedNarrowRows query rows 8, which hold
+// BERT's 128 rows (and keys) at 16 a warp, one block an SM (its 142.5 KB
+// of shared memory leave no room for a second); at or below it 4, whose
+// blocks are small enough for three an SM at head_dim 64 (registers and
+// shared memory), where 8 warps of 172 registers allow one.  Chosen by
+// examples/profile_torch_b3.py's times on an H100 (PERF.md): at b=64, 8
+// warps against 4 took 0.119 / 0.164 ms at s=128, 0.084 / 0.050 at 21
+// rows against 128 keys and 0.064 / 0.040 at s=64.
+constexpr int kFusedNarrowRows = 64;
+
+// The bf16 B3's tiles hold the query rows rounded up to 16 (a warp's
+// rows) and the keys rounded up to 32 (a chunk of the score pass).
+__host__ __device__ inline int fused_rows(int s) { return (s + 15) / 16 * 16; }
+__host__ __device__ inline int fused_keys(int kv_len) {
+  return (kv_len + 31) / 32 * 32;
+}
+
+// Shared-memory bytes of the bf16 B3: Q and dO [rows, d+8] and K and V
+// [keys, d+8] in bf16, P_kept and dS [rows, keys+8] in bf16 (8 values of
+// padding a row, as MmaTile), the key mask [keys] in fp32 and the keep
+// bits [rows, keys/32].  Largest s = kv_len that fits 232,448 bytes: 160
+// at d = 64, 128 at d = 128.
+__host__ __device__ inline int64_t fused_mma_smem_bytes(int d, int s,
+                                                        int kv_len) {
+  const int64_t rows = fused_rows(s), keys = fused_keys(kv_len);
+  return 2 * (2 * (rows + keys) * (d + 8) + 2 * rows * (keys + 8)) +
+         4 * keys + 4 * rows * (keys / 32);
+}
+
+// A fragment of the 16x16 block (rows m0 .., columns k0 ..) of tileᵀ,
+// where `tile` is a bf16 tile with rows of `row` values whose rows are
+// the k index and its columns the m index (P_kept and dS, whose rows are
+// queries, as the A operand of a product over queries): ldmatrix.trans
+__device__ __forceinline__ void ldsm_at(uint32_t (&a)[4], const bf16* tile,
+                                        int row, int k0, int m0, int lane) {
+  ds_flash::ldmatrix_x4_trans(
+      a, tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * row + m0 +
+             ((lane >> 3) & 1) * 8);
+}
+
+// The design is described at the top of this file.  NW warps.
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
+    flash_bwd_fused_mma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const float* __restrict__ kv_mask,
+                               bf16* __restrict__ dq, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int heads, int s,
+                               int kv_len, Strides st, float scale,
+                               int causal, const int* __restrict__ seed,
+                               uint32_t thresh, float inv_keep) {
+  constexpr int ROW = MmaTile<D>::kRow;
+  constexpr int CH = MmaTile<D>::kChunks;
+  constexpr int KC = kMmaChunk;
+  constexpr int THREADS = 32 * NW;
+  extern __shared__ __align__(16) unsigned char fused_smem[];
+  const int rows = fused_rows(s);
+  const int keys = fused_keys(kv_len);
+  const int prow = keys + 8;  // padded row of P_kept and dS
+  const int words = keys / 32;
+  bf16* q_s = reinterpret_cast<bf16*>(fused_smem);
+  bf16* o_s = q_s + rows * ROW;
+  bf16* k_s = o_s + rows * ROW;
+  bf16* v_s = k_s + keys * ROW;
+  bf16* p_s = v_s + keys * ROW;    // P_kept
+  bf16* ds_s = p_s + rows * prow;  // dS
+  float* mask_s = reinterpret_cast<float*>(ds_s + rows * prow);
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + keys);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const Dropout dr = read_dropout(seed, thresh, inv_keep);
+
+  // Q, dO, K and V by cp.async, zero past s and kv_len
+  auto load = [&](bf16* dst, const bf16* src, int64_t stride, int n,
+                  int lim) {
+    for (int e = tid; e < n * CH; e += THREADS) {
+      const int r = e / CH;
+      const int ch = e - r * CH;
+      const bool ok = r < lim;
+      ds_flash::cp_async16(dst + r * ROW + ch * 8,
+                           src + (ok ? r * stride : 0) + ch * 8, ok);
+    }
+  };
+  load(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], rows, s);
+  load(o_s, dout + b * st.o[0] + h * st.o[2], st.o[1], rows, s);
+  load(k_s, k + b * st.k[0] + h * st.k[2], st.k[1], keys, kv_len);
+  load(v_s, v + b * st.v[0] + h * st.v[2], st.v[1], keys, kv_len);
+  cp_async_commit();
+  const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
+  for (int j = tid; j < keys; j += THREADS)
+    mask_s[j] = j < kv_len ? (mrow ? mrow[j] : 1.f) : 0.f;
+  if (dr.on) {
+    // one thread per (row, 32-key word): a draw per 4 keys below kv_len
+    for (int e = tid; e < s * words; e += THREADS) {
+      const int i = e / words;
+      const int w = e - i * words;
+      uint32_t word = 0u;
+#pragma unroll
+      for (int gq = 0; gq < 8; ++gq)
+        if (32 * w + 4 * gq < kv_len)
+          word |= keep_bits4(dr.k0, dr.k1, bh, i, 8 * w + gq, dr.thresh)
+                  << (4 * gq);
+      bits_s[e] = word;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // score pass: the warp's query rows r0 .. r0+15
+  const float scale2 = scale * kLog2e;
+  for (int r0 = 16 * warp; r0 < rows; r0 += 16 * NW) {
+    int row[2];
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      row[hh] = r0 + g + 8 * hh;
+      const bool ok = row[hh] < s;
+      lse2[hh] = ok ? lse[(int64_t)bh * s + row[hh]] * kLog2e : 0.f;
+      dlt[hh] = ok ? delta[(int64_t)bh * s + row[hh]] : 0.f;
+    }
+    OwnRows<D> qf, of;
+    qf.init(q_s, r0, lane);
+    of.init(o_s, r0, lane);
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int c = 0; c < keys; c += KC) {
+      float sc[KC / 8][4], dp[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      // S = Q·Kᵀ and dP = dO·Vᵀ over the chunk's KC keys
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        qf.get(aq, kk);
+        of.get(ao, kk);
+#pragma unroll
+        for (int nn = 0; nn < KC / 16; ++nn) {
+          uint32_t bk[4], bv[4];
+          ldsm_b<D>(bk, k_s, c + 16 * nn, 16 * kk, lane);
+          ldsm_b<D>(bv, v_s, c + 16 * nn, 16 * kk, lane);
+          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
+          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
+          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // P_kept in place of S, dS in place of dP; the thread's keys are
+      // c + 8n + 2t + {0, 1}, its rows r0 + g + {0, 8}
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int kl = c + 8 * n + 2 * t;
+        const float2 mk = *reinterpret_cast<const float2*>(mask_s + kl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int j = kl + (e & 1);
+          const bool vis = ((e & 1) ? mk.y : mk.x) > 0.f && row[hh] < s &&
+                           (!causal || row[hh] >= j);
+          const float p =
+              vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
+          float d = dp[n][e];
+          float pk = p;
+          if (dr.on) {
+            const bool kept =
+                vis && (bits_s[row[hh] * words + (j >> 5)] >> (j & 31)) & 1u;
+            pk = kept ? p * dr.inv_keep : 0.f;
+            d = kept ? d * dr.inv_keep : 0.f;
+          }
+          sc[n][e] = pk;
+          dp[n][e] = p * (d - dlt[hh]);
+        }
+      }
+      // P_kept and dS into shared memory as bf16
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int off = (r0 + g + 8 * hh) * prow + c + 8 * n + 2 * t;
+          *reinterpret_cast<uint32_t*>(p_s + off) =
+              pack_bf16(sc[n][2 * hh], sc[n][2 * hh + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + off) =
+              pack_bf16(dp[n][2 * hh], dp[n][2 * hh + 1]);
+        }
+      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bk[4];
+          ldsm_bt<D>(bk, k_s, c + 16 * kk, 16 * nd, lane);
+          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
+          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (row[hh] < s) {
+        bf16* out =
+            dq + b * st.dq[0] + (int64_t)row[hh] * st.dq[1] + h * st.dq[2];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack_bf16(
+              acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+      }
+    }
+  }
+  __syncthreads();  // every row's P_kept and dS is in
+
+  // key pass: the warp's keys c0 .. c0+15, over every query row in order
+  const int key_end = (kv_len + 15) / 16 * 16;
+  for (int c0 = 16 * warp; c0 < key_end; c0 += 16 * NW) {
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int i0 = 0; i0 < rows; i0 += 16) {
+      uint32_t ap[4], as[4];
+      ldsm_at(ap, p_s, prow, i0, c0, lane);
+      ldsm_at(as, ds_s, prow, i0, c0, lane);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bo[4], bq[4];
+        ldsm_bt<D>(bo, o_s, i0, 16 * nd, lane);
+        mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
+        mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+        ldsm_bt<D>(bq, q_s, i0, 16 * nd, lane);
+        mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
+        mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+      }
+    }
+    // dk and dv into the warp's own K and V rows, then 16-byte stores
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = c0 + g + 8 * hh;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(k_s + r * ROW + 8 * n + 2 * t) =
+            pack_bf16(dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
+        *reinterpret_cast<uint32_t*>(v_s + r * ROW + 8 * n + 2 * t) =
+            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < 16 * CH; e += 32) {
+      const int j = c0 + e / CH;
+      const int ch = e % CH;
+      if (j < kv_len) {
+        const int64_t off =
+            b * st.dkv[0] + (int64_t)j * st.dkv[1] + h * st.dkv[2] + 8 * ch;
+        *reinterpret_cast<uint4*>(dk + off) =
+            *reinterpret_cast<const uint4*>(k_s + j * ROW + 8 * ch);
+        *reinterpret_cast<uint4*>(dv + off) =
+            *reinterpret_cast<const uint4*>(v_s + j * ROW + 8 * ch);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *kv_mask;
@@ -1058,22 +1366,46 @@ int launch_dkv(const Args& a) {
   }
 }
 
+template <int D, int NW>
+int launch_fused_mma(const Args& a) {
+  const int bytes = static_cast<int>(fused_mma_smem_bytes(D, a.s, a.kv_len));
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_fused_mma_kernel<D, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_fused_mma_kernel<D, NW><<<a.batch * a.heads, 32 * NW, bytes,
+                                      a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dq),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.heads, a.s,
+      a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_fused(const Args& a) {
-  const size_t bytes = sizeof(float) * fused_smem_floats(D, a.s, a.kv_len);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_fused_kernel<T, D><<<a.batch * a.heads, kFusedThreads, bytes,
-                                 a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s, a.kv_len,
-      a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return fused_rows(a.s) > kFusedNarrowRows ? launch_fused_mma<D, 8>(a)
+                                               : launch_fused_mma<D, 4>(a);
+  } else {
+    // fp32: the scalar design
+    const size_t bytes = sizeof(float) * fused_smem_floats(D, a.s, a.kv_len);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_fused_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_fused_kernel<T, D><<<a.batch * a.heads, kFusedThreads, bytes,
+                                   a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
+        a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 enum Which { kDq = 0, kDkv = 1, kFused = 2 };
@@ -1087,11 +1419,13 @@ int launch(int which, const Args& a) {
 
 }  // namespace
 
-// Shared memory (bytes) the fused kernel B3 needs for one b·h at these
-// sizes; the wrapper dispatches to B3 only when it is at most the
-// 232,448 bytes a Hopper block may have.
-extern "C" int64_t ds_flash_attention_bwd_fused_smem(int head_dim, int s,
-                                                     int kv_len) {
+// Shared memory (bytes) B3 needs for one b·h at these sizes, for dtype
+// 0 = float32 (the scalar kernel) or 1 = bfloat16 (the tensor-core one);
+// the wrapper dispatches to B3 only when it is at most the 232,448 bytes
+// a Hopper block may have.
+extern "C" int64_t ds_flash_attention_bwd_fused_smem(int dtype, int head_dim,
+                                                     int s, int kv_len) {
+  if (dtype == 1) return fused_mma_smem_bytes(head_dim, s, kv_len);
   return static_cast<int64_t>(sizeof(float)) *
          fused_smem_floats(head_dim, s, kv_len);
 }

@@ -1,9 +1,9 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
-// (sm_90a): the bf16 B1 of flash_attention_fwd.cu, B2a and B2b of
+// (sm_90a): the bf16 B1 of flash_attention_fwd.cu, B2a, B2b and B3 of
 // flash_attention_bwd.cu, and B6a, B6b and B6c of
-// ../sparse_attention/flash_block_sparse_agg.cu (whose B6b and B6c also
-// run the bf16 B5b, at G = 1) use them; B3, B5a and the fp32 kernels
-// keep their scalar designs for now.
+// ../sparse_attention/flash_block_sparse_agg.cu (which also run the bf16
+// B5a and B5b, at G = 1) use them; the fp32 kernels keep their scalar
+// designs.
 //
 // - PTX wrappers: `mma.sync` m16n8k16 (bf16 operands, fp32 accumulators),
 //   `ldmatrix` x4 and x4.trans, `ex2.approx`, `cp.async` of 16 bytes

@@ -15,6 +15,7 @@ with nvcc's stderr; there is no fallback.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -108,3 +109,43 @@ def load(name):
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def kernel_name(mangled):
+    """A short name for a mangled kernel of the port: the kernel's own
+    name, the storage type of a scalar kernel, the head_dim, and the
+    bf16 B3's warps a block or B1's dropout instantiation."""
+    end = mangled.index("_kernel") + len("_kernel")
+    start = max(mangled.rfind(prefix, 0, end)
+                for prefix in ("agg_", "fbs_", "flash_fwd", "flash_bwd"))
+    name = mangled[start:end]
+    dtype = "" if "mma" in name else (
+        "_bf16" if "bfloat16" in mangled else "_fp32")
+    warps = re.search(r"Li\d+ELi(\d+)E", mangled)
+    return (name + dtype + ("_d128" if "Li128E" in mangled else "_d64")
+            + (f"_w{warps.group(1)}" if warps else "")
+            + ("_dropout" if "Lb1E" in mangled else ""))
+
+
+def ptxas_usage(src, out):
+    """Builds ``src`` (a CUDA source, or an edited copy of one) into
+    ``out`` as :func:`build` does, with ``-Xptxas -v``; returns
+    ``{kernel_name: [registers, spill bytes stored]}`` from ptxas's
+    report.  For the profiling scripts."""
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC_DIR),
+           "-I", str(CSRC_DIR / "transformer"), "-o", str(out), str(src)]
+    err = subprocess.run(cmd, capture_output=True, text=True,
+                         check=True).stderr
+    kernels, name = {}, None
+    for line in err.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+            kernels[name] = [0, 0]
+        elif spill and name:
+            kernels[name][1] = int(spill.group(1))
+        elif regs and name:
+            kernels[name][0] = int(regs.group(1))
+    return kernels

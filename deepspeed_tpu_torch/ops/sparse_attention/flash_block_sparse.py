@@ -4,10 +4,11 @@ versions, the look-up-table builders and the autograd functions.
 Port of ``deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py``.
 Kernels:
 
-- B5a (``csrc/sparse_attention/flash_block_sparse.cu``): the forward over
-  the ACTIVE ``[blk, blk]`` tiles of a ``[H, nb, nb]`` layout (``H`` is 1
-  or the head count), out and the fp32 logsumexp; replaces the TPU's
-  work-list ``_fwd_kernel``;
+- B5a: the forward over the ACTIVE ``[blk, blk]`` tiles of a ``[H, nb,
+  nb]`` layout (``H`` is 1 or the head count), out and the fp32
+  logsumexp; replaces the TPU's work-list ``_fwd_kernel``.  fp32 runs
+  the scalar kernel of ``csrc/sparse_attention/flash_block_sparse.cu``;
+  bf16 runs B6a's tensor-core kernel at G = 1;
 - B5b: dq, dk and dv over the same tiles, as a dq kernel in row-major
   order and a dk/dv kernel in key-major order over the transposed
   look-up table, launched together by one wrapper; replaces the TPU's
@@ -29,8 +30,8 @@ Kernels:
 package (:func:`_pick_q_agg`: "auto" takes super-tiles for layout blocks
 of up to 128 rows, G = 4 at 128).  ``G == 1`` runs B5 and ``G > 1`` runs
 B6, as the JAX package runs its work-list or its super-tile kernels; on
-the card neither wrapper stands in for the other (the bf16 B5b shares
-B6b's and B6c's kernels, not their wrappers or counters).  The two
+the card neither wrapper stands in for the other (the bf16 B5a and B5b
+share B6's kernels, not their wrappers or counters).  The two
 compute the same out and gradients; they differ only in the lse of a row
 that sees no pair, which B6 gives as the TPU's super-tile kernels do
 (MAX_FLOOR in a super-row with an active tile, NEG_INF in one without).
@@ -508,12 +509,23 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
     """Block-sparse flash forward (B5a); returns ``(out, lse)``.
 
     CPU tensors take :func:`flash_block_sparse_reference`.  CUDA tensors
-    launch the Hopper kernel (bf16 or fp32, head_dim 64 or 128) or raise.
-    Every launch adds one to ``flash_block_sparse_fwd.launches``."""
+    launch a Hopper kernel (head_dim 64 or 128) or raise: bf16 the
+    tensor-core super-tile forward at G = 1 (a super-tile is one layout
+    block, whose lse rule is B5's) in :func:`build_launch_order`'s dq
+    order, with a ValueError naming B5a on views ``mma_aligned`` refuses;
+    fp32 the scalar kernel of ``flash_block_sparse.cu``.  Every launch
+    adds one to ``flash_block_sparse_fwd.launches`` and moves no B6
+    counter."""
     layout = _check(q, k, v, layout)
     if q.device.type == "cpu":
         return flash_block_sparse_reference(q, k, v, layout, causal)
     _check_cuda(q, k, v, None)
+    if q.dtype == torch.bfloat16:
+        _mma_views("B5a", q, k, v)
+        out, lse = _agg_fwd(q, k, v, layout, 1, causal,
+                            "flash_block_sparse_fwd")
+        flash_block_sparse_fwd.launches += 1
+        return out, lse
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -630,7 +642,7 @@ def _agg_common(q, tables, G):
 
 
 def _mma_views(name, q, k, v, dout=None):
-    """The bf16 tensor-core kernels (B5b, B6a, B6b, B6c) copy q, k, v
+    """The bf16 tensor-core kernels (B5a, B5b, B6a, B6b, B6c) copy q, k, v
     (and dO) in 16-byte ``cp.async`` chunks: a ValueError naming the
     kernel where ``mma_aligned`` refuses the views (nothing is copied or
     sent elsewhere)."""
@@ -650,21 +662,11 @@ def _agg_order(layout, q, G, causal):
         G, q.shape[1] // layout.shape[1], causal)
 
 
-def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
-    """Super-tile flash forward (B6a) at aggregation factor ``G``;
-    returns ``(out, lse)``.
-
-    CPU tensors take :func:`flash_block_sparse_agg_reference`.  CUDA
-    tensors launch the Hopper kernel (head_dim 64 or 128) or raise: bf16
-    the tensor-core kernel in B6b's launch order (:func:`build_launch_order`;
-    the two visit the same tiles), with a ValueError naming B6a on views
-    ``mma_aligned`` refuses; fp32 the scalar one.  Every launch adds one
-    to ``flash_block_sparse_agg_fwd.launches``."""
-    layout = _agg_setup(q, k, v, layout, G)
-    if q.device.type == "cpu":
-        return flash_block_sparse_agg_reference(q, k, v, layout, G, causal)
-    _check_cuda(q, k, v, None)
-    _mma_views("B6a", q, k, v)
+def _agg_fwd(q, k, v, layout, G, causal, name):
+    """Launches the super-tile forward kernel at factor ``G`` (B6a's, and
+    the bf16 B5a's at G = 1) on checked CUDA tensors, in B6b's launch
+    order (the two visit the same tiles); returns ``(out, lse)``.  Counts
+    nothing: the caller's wrapper does."""
     b, s, h, d = q.shape
     st = device_luts(layout, q.device).super_tables(G)
     order = _agg_order(layout, q, G, causal)[0]
@@ -680,7 +682,27 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
                  st.slut.data_ptr(), st.scnt.data_ptr(), st.smask.data_ptr(),
                  order.data_ptr(), *_agg_common(q, st, G), st.tmax, strides,
                  1.0 / math.sqrt(d), int(bool(causal)), stream)
-    _launched(rc, "flash_block_sparse_agg_fwd")
+    _launched(rc, name)
+    return out, lse
+
+
+def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
+    """Super-tile flash forward (B6a) at aggregation factor ``G``;
+    returns ``(out, lse)``.
+
+    CPU tensors take :func:`flash_block_sparse_agg_reference`.  CUDA
+    tensors launch the Hopper kernel (head_dim 64 or 128) or raise: bf16
+    the tensor-core kernel in B6b's launch order (:func:`build_launch_order`;
+    the two visit the same tiles), with a ValueError naming B6a on views
+    ``mma_aligned`` refuses; fp32 the scalar one.  Every launch adds one
+    to ``flash_block_sparse_agg_fwd.launches``."""
+    layout = _agg_setup(q, k, v, layout, G)
+    if q.device.type == "cpu":
+        return flash_block_sparse_agg_reference(q, k, v, layout, G, causal)
+    _check_cuda(q, k, v, None)
+    _mma_views("B6a", q, k, v)
+    out, lse = _agg_fwd(q, k, v, layout, G, causal,
+                        "flash_block_sparse_agg_fwd")
     flash_block_sparse_agg_fwd.launches += 1
     return out, lse
 

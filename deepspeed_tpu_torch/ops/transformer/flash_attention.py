@@ -9,7 +9,8 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 - B2a and B2b ``flash_attention_bwd.cu``: dq over K/V tiles, and dk, dv
   over Q tiles (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
 - B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
-  shapes whose score tile fits a block's shared memory;
+  shapes whose whole sequence fits a block's shared memory (bf16 on the
+  tensor cores, ``mma.sync``; fp32 scalar);
 - B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
   mask regenerated from a counter-based Philox keyed on two seed words
   and counting ELEMENTS (b·h, q row, k col >> 2), so every kernel draws
@@ -212,50 +213,61 @@ def _bwd_kernel():
                           i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
         smem = lib.ds_flash_attention_bwd_fused_smem
-        smem.argtypes = [i32, i32, i32]
+        smem.argtypes = [i32, i32, i32, i32]
         smem.restype = ctypes.c_int64
     return fn
 
 
-def fused_smem_bytes(head_dim, s, kv_len):
+def fused_smem_bytes(head_dim, s, kv_len, dtype):
     """Shared memory B3 needs for one b·h, as the CUDA source counts it
-    (``ds_flash_attention_bwd_fused_smem``: fp32 Q and dO ``[s, d]``, K
-    and V ``[kv_len, d+1]``, the ``[s, kv_len]`` score tile, lse and Δ,
-    the key mask and the keep bits).  Builds the backward library."""
+    (``ds_flash_attention_bwd_fused_smem``).  fp32, the scalar kernel:
+    Q and dO ``[s, d]``, K and V ``[kv_len, d+1]`` and the ``[s, kv_len]``
+    score tile in fp32, lse and Δ, the key mask and the keep bits.  bf16,
+    the tensor-core kernel: Q and dO ``[s16, d+8]``, K and V ``[kv32,
+    d+8]``, P_kept and dS ``[s16, kv32+8]`` in bf16, the key mask and the
+    keep bits, with s rounded up to 16 (s16) and kv_len to 32 (kv32).
+    Builds the backward library."""
     _bwd_kernel()
     return op_builder.load("flash_attention_bwd") \
-        .ds_flash_attention_bwd_fused_smem(head_dim, s, kv_len)
+        .ds_flash_attention_bwd_fused_smem(_DTYPE_CODES[dtype], head_dim, s,
+                                           kv_len)
 
 
-def fused_backward_fits(head_dim, s, kv_len):
-    """Whether B3's Q, dO, K, V and ``[s, kv_len]`` score tile fit one
-    block's shared memory (s = kv_len ≤ 142 at head_dim 64, ≤ 94 at
-    128).  The v5e rule "one tile up to s=1024" is TPU-only."""
-    return fused_smem_bytes(head_dim, s, kv_len) <= SMEM_PER_BLOCK
+def fused_backward_fits(head_dim, s, kv_len, dtype):
+    """Whether B3's tiles for ``dtype`` fit one block's shared memory:
+    fp32 s = kv_len ≤ 142 at head_dim 64, ≤ 94 at 128; bf16 s = kv_len ≤
+    160 at 64, ≤ 128 at 128 (BERT's 21 gathered rows against up to 512
+    keys at 64).  The v5e rule "one tile up to s=1024" is TPU-only."""
+    return fused_smem_bytes(head_dim, s, kv_len, dtype) <= SMEM_PER_BLOCK
 
 
-# bf16 query rows up to which B3 runs in place of B2a+B2b where it fits:
-# none.  On the H100 the tensor-core B2a+B2b beat B3 at every main-path
-# shape that fits (PERF.md §5, BERT-large: s=128 at b=64 and b=8, and
-# BERT's 21 gathered rows against 128 keys: 2.8-5.7x faster).
-BF16_FUSED_MAX_ROWS = 0
+# The bf16 crossover between B3 and B2a+B2b, each on one precomputed Δ,
+# with a key mask of ones and dropout 0.1 at h=16: B3 measured faster at
+# every shape up to the 160 query rows and keys its bf16 tiles fit at
+# d=64 (examples/profile_torch_b3.py and chip_smoke.py's
+# check_b3_bert_scale on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md),
+# B3 against B2a+B2b in ms: b=64 s=128 0.120 / 0.147, BERT's 21 gathered
+# rows against 128 keys 0.050 / 0.090, b=8 s=128 0.016 / 0.028, b=64 s=64
+# 0.040 / 0.064, s=160 0.206 / 0.256, s=128 at d=128 0.180 / 0.259.
+# Unmeasured beyond 160, so B2a+B2b there.
+BF16_FUSED_MAX_LEN = 160
 
 
 def use_fused_backward(head_dim, s, kv_len, dtype):
     """B3 (True) or B2a+B2b (False) for CUDA tensors of ``dtype``.  B3
     computes P and dP once where B2a and B2b each recompute both, but
-    holds the whole score tile in one block per b·h, so it runs only where
+    holds the whole sequence in one block per b·h, so it runs only where
     :func:`fused_backward_fits`.  fp32 takes it wherever it fits (B2a and
-    B2b are scalar-FMA kernels in fp32); bf16 takes it only up to
-    ``BF16_FUSED_MAX_ROWS`` query rows, the crossover measured against
-    the tensor-core B2a+B2b."""
-    if dtype == torch.bfloat16 and s > BF16_FUSED_MAX_ROWS:
+    B2b are scalar-FMA kernels in fp32); bf16 up to
+    ``BF16_FUSED_MAX_LEN`` query rows and keys, where it measured faster
+    than the tensor-core B2a+B2b."""
+    if dtype == torch.bfloat16 and max(s, kv_len) > BF16_FUSED_MAX_LEN:
         return False
-    return fused_backward_fits(head_dim, s, kv_len)
+    return fused_backward_fits(head_dim, s, kv_len, dtype)
 
 
 def mma_aligned(*tensors):
-    """Whether the bf16 B1, B2a and B2b can read these ``[b, n, h, d]``
+    """Whether the bf16 B1, B2a, B2b and B3 can read these ``[b, n, h, d]``
     tensors with 16-byte ``cp.async`` copies: each base pointer 16-byte
     aligned and each batch, sequence and head stride (of a dim longer
     than 1) a multiple of 8 elements.  Slices of a fused QKV projection
@@ -418,11 +430,12 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, delta, dq, dk, dv):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
-    if (q.dtype == torch.bfloat16 and which != "fused"
-            and not mma_aligned(q, k, v, dout)):
+    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v, dout):
+        kernels = "B3 kernel needs" if which == "fused" else \
+            "B2a/B2b kernels need"
         raise ValueError(
-            "the bf16 B2a/B2b kernels need q, k, v and dO 16-byte aligned "
-            "with batch, seq and head strides that are multiples of 8 "
+            f"the bf16 {kernels} q, k, v and dO 16-byte aligned with "
+            "batch, seq and head strides that are multiples of 8 "
             f"elements; got strides {q.stride()}, {k.stride()}, "
             f"{v.stride()}, {dout.stride()}")
     if tuple(delta.shape) != (b * h, s) or delta.dtype != torch.float32 \
@@ -522,27 +535,32 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
 
 
 def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
-                              causal=False, dropout_rate=0.0, seed=None):
+                              causal=False, dropout_rate=0.0, seed=None,
+                              delta=None):
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
-    (``flash_attention_bwd_fused.launches``) or raise, also when the
-    shape does not fit (:func:`fused_backward_fits`)."""
+    (``flash_attention_bwd_fused.launches``: bf16 on the tensor cores,
+    with a ValueError naming B3 on views :func:`mma_aligned` refuses;
+    fp32 scalar) or raise, also when the shape does not fit
+    (:func:`fused_backward_fits`).  ``delta`` as for
+    :func:`flash_attention_bwd_dq`."""
     dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
                           dropout_rate, seed)
     d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
-    if not fused_backward_fits(d, s, kv_len):
+    if not fused_backward_fits(d, s, kv_len, q.dtype):
         raise ValueError(f"the fused backward needs "
-                         f"{fused_smem_bytes(d, s, kv_len)} bytes of shared "
-                         f"memory at s={s}, kv_len={kv_len}, d={d}; a block "
-                         f"has {SMEM_PER_BLOCK}")
+                         f"{fused_smem_bytes(d, s, kv_len, q.dtype)} bytes "
+                         f"of shared memory at s={s}, kv_len={kv_len}, "
+                         f"d={d}, {q.dtype}; a block has {SMEM_PER_BLOCK}")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, _delta(out, dout), dq, dk, dv)
+                seed, _delta(out, dout) if delta is None else delta, dq, dk,
+                dv)
     _count_launch(flash_attention_bwd_fused, dropout_rate)
     return dq, dk, dv
 

@@ -24,7 +24,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,32 +38,6 @@ from deepspeed_tpu_torch.ops.transformer import \
 
 SOURCE = op_builder.CSRC_DIR / op_builder.SOURCES["flash_attention_fwd"]
 BOUNDS = re.compile(r"constexpr int (kMinBlocks64(?:Dropout)?) = (\d+);")
-
-
-def nvcc(src, out):
-    """Builds ``src`` as the op builder does, with ``-Xptxas -v``;
-    returns {kernel: (registers, spill bytes stored)}."""
-    cmd = [op_builder.find_nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v",
-           "-I", str(op_builder.CSRC_DIR), "-I", str(SOURCE.parent),
-           "-o", str(out), str(src)]
-    err = subprocess.run(cmd, capture_output=True, text=True,
-                         check=True).stderr
-    kernels, name = {}, None
-    for line in err.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        regs = re.search(r"Used (\d+) registers", line)
-        if entry:
-            name = entry.group(1)
-            name = ("mma" if "mma" in name else "scalar") + \
-                ("_d128" if "ILi128" in name else "_d64") + \
-                ("_dropout" if "Lb1E" in name else "")
-            kernels[name] = [0, 0]
-        elif spill and name:
-            kernels[name][1] = int(spill.group(1))
-        elif regs and name:
-            kernels[name][0] = int(regs.group(1))
-    return kernels
 
 
 def use(lib_path):
@@ -117,12 +90,14 @@ def main():
     result = {"card": card, "torch": torch.__version__,
               "source_min_blocks": dict(BOUNDS.findall(text)),
               "variants": {"source": {
-                  "registers_spills": nvcc(SOURCE, libs["source"])}}}
+                  "registers_spills": op_builder.ptxas_usage(
+                      SOURCE, libs["source"])}}}
     for n in args.min_blocks:
         src = build / f"min_blocks_{n}.cu"
         src.write_text(BOUNDS.sub(rf"constexpr int \1 = {n};", text))
         libs[n] = build / f"min_blocks_{n}.so"
-        result["variants"][n] = {"registers_spills": nvcc(src, libs[n])}
+        result["variants"][n] = {
+            "registers_spills": op_builder.ptxas_usage(src, libs[n])}
     for name, lib in libs.items():
         use(lib)
         check(f"min_blocks {name}")

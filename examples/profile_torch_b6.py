@@ -12,11 +12,11 @@ versions (the bf16 out and lse to 2e-2, grads to 1e-2, at a causal blk
 24 layout and the BERT layout), and times them side by side on one
 card, in turns (forward order, then backward): B6a, B6b and B6c at the
 sparse BERT attention the main path gives them (b=2, h=16, s=4096,
-d=64, Fixed bidirectional blk 128, G=4, fused-QKV views), and B6b's and
-B6c's kernels at G = 1 at the sparse GPT-2 attention (Fixed
-unidirectional blk 256, causal), where the bf16 B5b runs them; then
-B6b and B6c in their launch order and in grid order, beside SDPA's
-masked backward.
+d=64, Fixed bidirectional blk 128, G=4, fused-QKV views), and the three
+kernels at G = 1 at the sparse GPT-2 attention (Fixed unidirectional
+blk 256, causal), where the bf16 B5a and B5b run them; then B6b and
+B6c in their launch order and in grid order, beside SDPA's masked
+backward.
 
     python3 examples/profile_torch_b6.py [--min-blocks 2 3 4] [--out PATH]
 
@@ -29,7 +29,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -51,34 +50,6 @@ BOUNDS = re.compile(r"constexpr int (kAggMinBlocks64(?:Fwd|Dq|Dkv)) = "
                     r"(\d+);")
 
 
-def nvcc(src, out):
-    """Builds ``src`` as the op builder does, with ``-Xptxas -v``;
-    returns {kernel: (registers, spill bytes stored)}."""
-    cmd = [op_builder.find_nvcc(), *op_builder.NVCC_FLAGS, "-Xptxas", "-v",
-           "-I", str(op_builder.CSRC_DIR), "-o", str(out), str(src)]
-    err = subprocess.run(cmd, capture_output=True, text=True,
-                         check=True).stderr
-    kernels, name = {}, None
-    for line in err.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        regs = re.search(r"Used (\d+) registers", line)
-        if entry:
-            mangled = entry.group(1)
-            kind = re.search(r"agg_(?:fwd|bwd_dq|bwd_dkv)(?:_mma)?_kernel",
-                             mangled).group(0)
-            dtype = ("" if "mma" in kind else
-                     "_bf16" if "bfloat16" in mangled else "_fp32")
-            name = kind + dtype + ("_d128" if "Li128E" in mangled
-                                   else "_d64")
-            kernels[name] = [0, 0]
-        elif spill and name:
-            kernels[name][1] = int(spill.group(1))
-        elif regs and name:
-            kernels[name][0] = int(regs.group(1))
-    return kernels
-
-
 def use(lib_path):
     """Points the super-tile wrappers at ``lib_path``'s kernels."""
     lib = ctypes.CDLL(str(lib_path))
@@ -92,7 +63,8 @@ def use(lib_path):
 
 
 def check(label):
-    """The copy's bf16 B6a, B6b and B6c against the plain versions."""
+    """The copy's bf16 B6a, B6b and B6c against the plain versions, and
+    its bf16 B5a (the forward at G = 1) at a causal 256-row layout."""
     for i, (layout, b, h, s, G, causal) in enumerate((
             (np.tril(np.ones((1, 6, 6), np.int64)), 1, 4, 144, 3, True),
             (FixedSparsityConfig(**cs.BERT_SPARSE_LAYOUT).make_layout(1024),
@@ -116,6 +88,15 @@ def check(label):
             torch.testing.assert_close(
                 a.float(), r.float(), atol=1e-2, rtol=1e-2,
                 msg=lambda m: f"{label} case {i} {name}: {m}")
+    layout = FixedSparsityConfig(**cs.SPARSE_LAYOUT).make_layout(2048)
+    q, k, v, _ = cs.make_case(1, 16, 2048, 2048, 64, "none", True,
+                              torch.bfloat16, 2)
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, True)
+    ref_out, ref_lse = fbs.flash_block_sparse_reference(q, k, v, layout,
+                                                        True)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2, msg=lambda m: f"{label} B5a: {m}")
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
 
 
 def main():
@@ -136,12 +117,14 @@ def main():
     result = {"card": card, "torch": torch.__version__,
               "source_min_blocks": dict(BOUNDS.findall(text)),
               "variants": {"source": {
-                  "registers_spills": nvcc(SOURCE, libs["source"])}}}
+                  "registers_spills": op_builder.ptxas_usage(
+                      SOURCE, libs["source"])}}}
     for n in args.min_blocks:
         src = build / f"min_blocks_{n}.cu"
         src.write_text(BOUNDS.sub(rf"constexpr int \1 = {n};", text))
         libs[n] = build / f"min_blocks_{n}.so"
-        result["variants"][n] = {"registers_spills": nvcc(src, libs[n])}
+        result["variants"][n] = {
+            "registers_spills": op_builder.ptxas_usage(src, libs[n])}
     for name, lib in libs.items():
         use(lib)
         check(f"min_blocks {name}")
@@ -166,6 +149,8 @@ def main():
     g_delta = fbs._delta(g_out, dout)
     shapes = {
         "fwd": lambda: fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G),
+        "b5a_fwd": lambda: fbs.flash_block_sparse_fwd(g_q, g_k, g_v, gpt,
+                                                      True),
         "dq": lambda: fbs.flash_block_sparse_agg_bwd_dq(
             q, k, v, out, lse, dout, layout, G, False, delta),
         "dkv": lambda: fbs.flash_block_sparse_agg_bwd_dkv(

@@ -26,11 +26,13 @@ busy time is the sum of the card's kernel and copy times that
 1 - busy / wall.  Busy time is split by kernel family: the flash kernels
 B1 (forward), B2a and B2b (backward), B3 (fused backward), the
 block-sparse kernels B5a (forward) and B5b (its dq and its dk/dv
-kernel; in bf16 these are B6b's and B6c's tensor-core kernels at G = 1,
-counted as B5b's in the ``--sparse`` step, which launches no B6), the
-super-tile kernels B6a, B6b and B6c, matrix products
+kernel; in bf16 these are B6a's, B6b's and B6c's tensor-core kernels at
+G = 1, counted as B5's in the ``--sparse`` step, which launches no B6),
+the super-tile kernels B6a, B6b and B6c, matrix products
 (cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies,
-the optimizer).
+the optimizer).  Beside them, the registers and spills (``nvcc -Xptxas
+-v``) of every kernel in the sources of the attention kernels the step
+runs.
 Prints one JSON object (also written to ``--out PATH``) with the card's
 name and power limit beside the numbers.
 """
@@ -50,6 +52,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from deepspeed_tpu_torch.ops import op_builder  # noqa: E402
 
 # --mode -> (set-up, model name, (batch, seq))
 SETUPS = {
@@ -77,17 +80,37 @@ FAMILIES = (("B1 flash forward", ("flash_fwd",)),
                                  "nvjet")))
 
 
-# the bf16 B5b runs B6b's and B6c's kernels at G = 1
-B5B_AT_G1 = {"B6b super-tile dq": "B5b sparse flash dq",
-             "B6c super-tile dk/dv": "B5b sparse flash dk/dv"}
+# the bf16 B5a and B5b run B6a's, B6b's and B6c's kernels at G = 1
+B5_AT_G1 = {"B6a super-tile forward": "B5a sparse flash forward",
+            "B6b super-tile dq": "B5b sparse flash dq",
+            "B6c super-tile dk/dv": "B5b sparse flash dk/dv"}
+
+# --mode -> the kernel libraries of its attention
+LIBRARIES = {"gpt2": ("flash_attention_fwd", "flash_attention_bwd"),
+             "sparse": ("flash_block_sparse_agg",),
+             "bert": ("flash_attention_fwd", "flash_attention_bwd"),
+             "bert-sparse": ("flash_block_sparse_agg",)}
 
 
 def family(name, mode):
     lowered = name.lower()
     for label, keys in FAMILIES:
         if any(key in lowered for key in keys):
-            return B5B_AT_G1.get(label, label) if mode == "sparse" else label
+            return B5_AT_G1.get(label, label) if mode == "sparse" else label
     return "other"
+
+
+def registers_spills(mode):
+    """{kernel: [registers, spill bytes stored]} of the sources of
+    ``mode``'s attention kernels, from a ``-Xptxas -v`` build."""
+    out_dir = op_builder.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    usage = {}
+    for lib in LIBRARIES[mode]:
+        usage.update(op_builder.ptxas_usage(
+            op_builder.CSRC_DIR / op_builder.SOURCES[lib],
+            out_dir / f"{lib}.so"))
+    return usage
 
 
 def main():
@@ -155,7 +178,8 @@ def main():
         "top_kernels_ms_per_step": [
             [name[:80], us / 1e3 / steps]
             for name, us in by_name.most_common(12)],
-        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "registers_spills": registers_spills(args.mode)}
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

@@ -15,6 +15,7 @@ block-sparse kernels B5a and B5b and the super-tile kernels B6a, B6b and
 B6c are held to the same four bounds.
 """
 
+import ctypes
 import warnings
 
 import numpy as np
@@ -224,29 +225,150 @@ def test_backward_kernels_match_plain(cuda_device, dtype, path, s, kv_len, d,
 
 @pytest.mark.cuda
 def test_fused_backward_fits(cuda_device):
-    """B3 fits where Q, dO, K, V and the score tile fit one block's
-    232,448 bytes of shared memory, as the CUDA source counts them:
-    s = kv_len <= 142 at d=64, <= 94 at d=128."""
-    assert fa.fused_backward_fits(64, 128, 128)
-    assert fa.fused_backward_fits(64, 142, 142)
-    assert not fa.fused_backward_fits(64, 143, 143)
-    assert not fa.fused_backward_fits(64, 256, 256)
-    assert fa.fused_backward_fits(128, 94, 94)
-    assert not fa.fused_backward_fits(128, 95, 95)
+    """B3 fits where its tiles fit one block's 232,448 bytes of shared
+    memory, as the CUDA source counts them per dtype: fp32 (Q, dO, K, V
+    and the score tile in fp32) s = kv_len <= 142 at d=64, <= 94 at
+    d=128; bf16 (Q, dO, K, V, P_kept and dS in bf16) <= 160 at d=64,
+    <= 128 at d=128, and BERT's 21 gathered rows against up to 512 keys
+    at d=64."""
+    f32, b16 = torch.float32, torch.bfloat16
+    assert fa.fused_backward_fits(64, 128, 128, f32)
+    assert fa.fused_backward_fits(64, 142, 142, f32)
+    assert not fa.fused_backward_fits(64, 143, 143, f32)
+    assert not fa.fused_backward_fits(64, 256, 256, f32)
+    assert fa.fused_backward_fits(128, 94, 94, f32)
+    assert not fa.fused_backward_fits(128, 95, 95, f32)
+    assert fa.fused_backward_fits(64, 128, 128, b16)
+    assert fa.fused_backward_fits(64, 21, 128, b16)
+    assert fa.fused_backward_fits(64, 160, 160, b16)
+    assert not fa.fused_backward_fits(64, 161, 161, b16)
+    assert fa.fused_backward_fits(128, 128, 128, b16)
+    assert not fa.fused_backward_fits(128, 129, 129, b16)
+    assert fa.fused_backward_fits(64, 21, 512, b16)
+    assert not fa.fused_backward_fits(64, 21, 513, b16)
 
 
 @pytest.mark.cuda
 def test_fused_backward_choice_follows_dtype(cuda_device):
-    """fp32 takes B3 wherever it fits; bf16 only up to
-    ``BF16_FUSED_MAX_ROWS`` query rows (the measured crossover), and
-    never where B3 does not fit."""
+    """fp32 takes B3 wherever it fits; bf16 up to
+    ``BF16_FUSED_MAX_LEN`` query rows and keys, where it measured faster
+    than B2a+B2b (BERT's 128 x 128 and 21 x 128 among them), and neither
+    where B3 does not fit."""
     for s, kv_len in ((128, 128), (21, 128), (142, 142)):
         assert fa.use_fused_backward(64, s, kv_len, torch.float32)
-        assert fa.use_fused_backward(64, s, kv_len, torch.bfloat16) == (
-            s <= fa.BF16_FUSED_MAX_ROWS)
+    for s, kv_len in ((128, 128), (21, 128), (160, 160), (64, 64)):
+        assert fa.use_fused_backward(64, s, kv_len, torch.bfloat16)
+    assert not fa.use_fused_backward(64, 21, 512, torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
-        assert not fa.use_fused_backward(64, 143, 143, dtype)
-        assert not fa.use_fused_backward(128, 95, 95, dtype)
+        assert not fa.use_fused_backward(64, 161, 161, dtype)
+        assert not fa.use_fused_backward(128, 129, 129, dtype)
+
+
+def b3_cases():
+    """name -> (b, h, s, kv_len, d, causal, dropout, mask kind, fused QKV
+    views): the bf16 B3 at BERT's three main-path shapes (b=64 and b=8 at
+    s=128, the last layer's 21 gathered rows at b=64) with a key mask and
+    dropout 0.1, and at the edges of its 16-row and 32-key tiles."""
+    return {
+        "bert_b64_s128": (64, 16, 128, 128, 64, False, 0.1, "ones", False),
+        "bert_b64_gathered_s21": (64, 16, 21, 128, 64, False, 0.1, "ones",
+                                  False),
+        "bert_b8_s128": (8, 16, 128, 128, 64, False, 0.1, "ones", False),
+        "causal_fused_views": (2, 4, 128, 128, 64, True, 0.0, "none", True),
+        "padded_and_fully_masked_row": (2, 4, 128, 128, 64, False, 0.1,
+                                        "pad", False),
+        "s65": (2, 4, 65, 65, 64, True, 0.1, "pad", False),
+        "s17": (2, 4, 17, 17, 64, False, 0.0, "pad", False),
+        "d128_fused_views": (2, 4, 128, 128, 128, False, 0.1, "none", True),
+        "kv_gt_s_causal": (2, 4, 33, 200, 64, True, 0.1, "pad", False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(b3_cases()))
+def test_bf16_b3_on_the_tensor_cores_matches_plain(cuda_device, name):
+    """The bf16 B3 (``flash_bwd_fused_mma_kernel``) with B4 under dropout
+    against ``flash_attention_bwd_reference`` fed the kernel's own out
+    and lse and the same Philox mask, at 1e-2; a batch row whose keys are
+    all masked gets exactly zero grads; two runs are bitwise equal; each
+    call counts one B3 launch (and one B4 under dropout) and no B2."""
+    b, h, s, kv_len, d, causal, rate, mask_kind, fused = b3_cases()[name]
+    g = torch.Generator().manual_seed(len(name))
+    if fused:
+        qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+        k, v = (torch.randn(b, kv_len, h, d, generator=g)
+                .to(cuda_device, torch.bfloat16) for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    mask = None
+    if mask_kind == "ones":
+        mask = torch.ones(b, kv_len, device=cuda_device)
+    elif mask_kind == "pad":
+        mask = (torch.rand(b, kv_len, generator=g) > 0.3).float()
+        mask[:, 0] = 1.0
+        mask[-1] = 0.0          # the last batch row sees no key at all
+        mask = mask.to(cuda_device)
+    seed = (torch.tensor([s, kv_len], dtype=torch.int32, device=cuda_device)
+            if rate else None)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal, rate, seed)
+    counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv,
+                flash_attention_bwd_fused, fa.in_kernel_dropout)
+    before = [c.launches for c in counters]
+    grads = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
+                                      rate, seed)
+    again = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
+                                      rate, seed)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        0, 0, 2, 2 if rate else 0]
+    keep, inv_keep = None, 1.0
+    if rate:
+        keep = philox_keep_mask(seed, b * h, s, kv_len, rate).view(
+            b, h, s, kv_len)
+        inv_keep = fa.dropout_thresh(rate)[1]
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
+                                        causal, keep, inv_keep)
+    for a, a2, r in zip(grads, again, ref):
+        assert torch.equal(a, a2)
+        assert bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), r.float(), atol=1e-2,
+                                   rtol=1e-2)
+        if mask_kind == "pad":
+            assert bool((a[-1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_bf16_b3_raises_on_misaligned_views(cuda_device):
+    """The bf16 B3 copies q, k, v and dO in 16-byte chunks with cp.async:
+    a view off 16-byte alignment, or with a head stride that is not a
+    multiple of 8 elements, is refused with a ValueError naming B3 and
+    nothing is launched; an aligned copy goes through."""
+    b, s, h, d = 1, 64, 2, 64
+    g = torch.Generator().manual_seed(0)
+    k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                  .to(cuda_device, torch.bfloat16) for _ in range(3))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    for bad in (shifted, wide):
+        out, lse = flash_attention_fwd(bad.clone(), k, v, causal=True)
+        before = flash_attention_bwd_fused.launches
+        for args in ((bad, k, v, dout), (k, bad, v, dout), (k, v, bad, dout),
+                     (k, v, dout, bad)):
+            with pytest.raises(ValueError, match="bf16 B3"):
+                flash_attention_bwd_fused(*args[:3], out, lse, args[3], None,
+                                          True)
+        assert flash_attention_bwd_fused.launches == before
+        flash_attention_bwd_fused(bad.clone(), k, v, out, lse, dout, None,
+                                  True)
+        assert flash_attention_bwd_fused.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -786,6 +908,114 @@ def test_bf16_b6a_on_the_tensor_cores_matches_plain_and_b5a(cuda_device,
     assert torch.equal(lse > fbs.MAX_FLOOR, b5_lse > fbs.MAX_FLOOR)
     torch.testing.assert_close(lse[both], b5_lse[both], atol=2e-2,
                                rtol=2e-2)
+
+
+def b5a_edges():
+    """name -> (layout, b, s, heads, d, causal): the bf16 B5a on the
+    super-tile forward kernel at G = 1, over the edges of b5b_edges() and
+    a block row whose active blocks all lie above the diagonal (under
+    causal its rows see nothing: lse MAX_FLOOR)."""
+    above = np.tril(np.ones((1, 8, 8), np.int64))
+    above[0, 2] = 0
+    above[0, 2, 5] = 1          # block row 2: only block 5, above the diagonal
+    return dict(b5b_edges(), blk64_row_above_diagonal_causal=(
+        above, 2, 512, 2, 64, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(b5a_edges()))
+def test_bf16_b5a_on_the_tensor_cores_matches_plain(cuda_device, name,
+                                                    monkeypatch):
+    """The bf16 B5a (B6a's tensor-core kernel at G = 1) on fused-QKV
+    views against its plain version at 2e-2, its outputs allocated
+    filled with NaN: the MAX_FLOOR and NEG_INF lse rows equal the plain
+    version's exactly and out is 0 there; two runs bitwise equal and
+    equal to a run in grid order; each call moves
+    ``flash_block_sparse_fwd.launches`` by one and no B6 counter."""
+    layout, b, s, h, d, causal = b5a_edges()[name]
+    g = torch.Generator().manual_seed(len(name))
+    qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    luts = fbs.device_luts(layout, cuda_device)
+    key = (1, s // layout.shape[1], causal)
+    orders = luts.launch_order(*key)
+    empty = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    counters = (fbs.flash_block_sparse_fwd, fbs.flash_block_sparse_agg_fwd,
+                fbs.flash_block_sparse_agg_bwd_dq,
+                fbs.flash_block_sparse_agg_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    out2, lse2 = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    luts._orders[key] = tuple(torch.arange(o.numel(), dtype=torch.int32,
+                                           device=cuda_device)
+                              for o in orders)
+    try:
+        out3, lse3 = fbs.flash_block_sparse_fwd(q, k, v, layout, causal)
+    finally:
+        luts._orders[key] = orders
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert [c.launches - n for c, n in zip(counters, before)] == [3, 0, 0, 0]
+    for a, a2, a3 in ((out, out2, out3), (lse, lse2, lse3)):
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+    ref_out, ref_lse = fbs.flash_block_sparse_reference(q, k, v, layout,
+                                                        causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+    for special in (fbs.MAX_FLOOR, fbs.NEG_INF):
+        assert torch.equal(lse == special, ref_lse == special)
+    seen = (lse > fbs.MAX_FLOOR).view(b, h, s).transpose(1, 2)
+    assert not out[~seen].any()
+    if name == "blk64_row_above_diagonal_causal":
+        assert bool((lse.view(b, h, s)[:, :, 128:192] == fbs.MAX_FLOOR)
+                    .all())
+
+
+@pytest.mark.cuda
+def test_bf16_b5a_raises_on_misaligned_views_and_the_scalar_entry_refuses_bf16(
+        cuda_device):
+    """The bf16 B5a copies q, k and v in 16-byte chunks: a misaligned
+    view is refused with a ValueError naming B5a and nothing is
+    launched; an aligned copy goes through.  The scalar C entry
+    ``ds_flash_block_sparse_fwd`` returns cudaErrorInvalidValue (1) for
+    bf16 and launches nothing."""
+    layout = np.ones((1, 2, 2), np.int64)
+    b, s, h, d = 1, 512, 2, 64
+    g = torch.Generator().manual_seed(0)
+    k, v = (torch.randn(b, s, h, d, generator=g)
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    base = torch.randn(b * s * h * d + 4, generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    shifted = base[4:].view(b, s, h, d)        # 8 bytes past alignment
+    wide = torch.randn(b, s, h, d + 4, generator=g).to(
+        cuda_device, torch.bfloat16)[..., :d]  # head stride d + 4
+    before = fbs.flash_block_sparse_fwd.launches
+    for bad in (shifted, wide):
+        for args in ((bad, k, v), (k, bad, v), (k, v, bad)):
+            with pytest.raises(ValueError, match="bf16 B5a"):
+                fbs.flash_block_sparse_fwd(*args, layout)
+    assert fbs.flash_block_sparse_fwd.launches == before
+    fbs.flash_block_sparse_fwd(shifted.clone(), k, v, layout)
+    assert fbs.flash_block_sparse_fwd.launches == before + 1
+    luts = fbs.device_luts(layout, cuda_device)
+    out = torch.empty(b, s, h, d, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.empty(b * h, s, device=cuda_device)
+    strides = (ctypes.c_int64 * 9)(*k.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    fwd, _ = fbs._kernels()
+    rc = fwd(1, d, k.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), luts.lut.data_ptr(), luts.cnt.data_ptr(), b, h,
+             s, luts.nb, luts.layout_heads, luts.kmax, strides, 0.125, 0,
+             torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
 
 
 @pytest.mark.cuda

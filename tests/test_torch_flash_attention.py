@@ -408,29 +408,79 @@ def test_forward_view_rule_takes_main_path_views_and_refuses_the_rest(d):
     tfa.check_fwd_views(odd, torch.zeros(2, 130, 4, d + 4)[..., :d], odd)
 
 
-@pytest.mark.parametrize("rows", [0, 21, 128])
-def test_use_fused_backward_rule(monkeypatch, rows):
-    """With B3's shared-memory size stubbed (the CUDA source's formula,
-    ``fused_smem_floats``): fp32 takes B3 wherever it fits, bf16 only up
-    to ``BF16_FUSED_MAX_ROWS`` query rows, and neither where it does not
-    fit."""
-    def smem(d, s, kv_len):
+def fused_smem(d, s, kv_len, dtype):
+    """B3's shared memory for one b·h, mirrored from the CUDA source:
+    ``fused_smem_floats`` (fp32) and ``fused_mma_smem_bytes`` (bf16)."""
+    if dtype == torch.float32:
         words = (kv_len + 31) // 32
         return 4 * (2 * s * d + 2 * kv_len * (d + 1) + s * kv_len + 2 * s
                     + kv_len + s * words)
-    monkeypatch.setattr(tfa, "fused_smem_bytes", smem)
-    monkeypatch.setattr(tfa, "BF16_FUSED_MAX_ROWS", rows)
-    assert tfa.fused_backward_fits(64, 142, 142)
-    assert not tfa.fused_backward_fits(64, 143, 143)
-    assert tfa.fused_backward_fits(128, 94, 94)
-    assert not tfa.fused_backward_fits(128, 95, 95)
-    for s, kv_len in ((21, 128), (128, 128), (142, 142)):
-        assert tfa.use_fused_backward(64, s, kv_len, torch.float32)
-        assert tfa.use_fused_backward(64, s, kv_len, torch.bfloat16) == (
-            s <= rows)
-    for dtype in (torch.float32, torch.bfloat16):
-        assert not tfa.use_fused_backward(64, 143, 143, dtype)
-        assert not tfa.use_fused_backward(128, 95, 95, dtype)
+    rows, keys = (s + 15) // 16 * 16, (kv_len + 31) // 32 * 32
+    return (2 * (2 * (rows + keys) * (d + 8) + 2 * rows * (keys + 8))
+            + 4 * keys + 4 * rows * (keys // 32))
+
+
+@pytest.mark.parametrize("rows", [0, 21, 128, None])
+def test_use_fused_backward_rule(monkeypatch, rows):
+    """With B3's shared-memory sizes stubbed by both formulas of the CUDA
+    source: the fp32 tiles fit up to s = kv_len = 142 at d=64 and 94 at
+    d=128, the bf16 ones up to 160 and 128 (the 21 gathered rows against
+    up to 512 keys at d=64); fp32 takes B3 wherever it fits, bf16 up to
+    ``BF16_FUSED_MAX_LEN`` query rows and keys (set to ``rows`` here, or
+    the module's own measured constant for ``None``), and neither where
+    it does not fit."""
+    monkeypatch.setattr(tfa, "fused_smem_bytes", fused_smem)
+    if rows is not None:
+        monkeypatch.setattr(tfa, "BF16_FUSED_MAX_LEN", rows)
+    f32, b16 = torch.float32, torch.bfloat16
+    assert tfa.fused_backward_fits(64, 142, 142, f32)
+    assert not tfa.fused_backward_fits(64, 143, 143, f32)
+    assert tfa.fused_backward_fits(128, 94, 94, f32)
+    assert not tfa.fused_backward_fits(128, 95, 95, f32)
+    for s, kv_len in ((128, 128), (21, 128), (160, 160), (21, 512)):
+        assert tfa.fused_backward_fits(64, s, kv_len, b16)
+    for s, kv_len in ((161, 161), (21, 513)):
+        assert not tfa.fused_backward_fits(64, s, kv_len, b16)
+    assert tfa.fused_backward_fits(128, 128, 128, b16)
+    assert not tfa.fused_backward_fits(128, 129, 129, b16)
+    for s, kv_len in ((21, 128), (128, 128), (142, 142), (160, 160),
+                      (21, 512)):
+        assert tfa.use_fused_backward(64, s, kv_len, f32) == (
+            tfa.fused_backward_fits(64, s, kv_len, f32))
+        assert tfa.use_fused_backward(64, s, kv_len, b16) == (
+            max(s, kv_len) <= tfa.BF16_FUSED_MAX_LEN)
+    for dtype in (f32, b16):
+        assert not tfa.use_fused_backward(64, 161, 161, dtype)
+        assert not tfa.use_fused_backward(128, 129, 129, dtype)
+
+
+@pytest.mark.parametrize("s", [128, 21], ids=["s128", "gathered_s21"])
+def test_bf16_plain_backward_matches_pallas_fused_interpret(s):
+    """The bf16 plain backward, which the card holds the tensor-core B3
+    to, against the Pallas ``_bwd_fused_kernel`` in interpret mode (one
+    tile: block_q = s, block_k = 128) on the same bf16 inputs with a key
+    mask holding padding, fed the Pallas forward's out and lse; at BERT's
+    s=128 and its last layer's 21 gathered rows against 128 keys.  No
+    dropout: the TPU's PRNG has no interpret mode.  Tolerance 1e-2, the
+    card's bf16 grad tolerance: both round dS and P_kept to bf16 after
+    fp32 sums that can differ in the last bits."""
+    q, k, v, mask = make_inputs(s + 31, 2, s, 128, 2, 64, True)
+    dout = np.random.RandomState(s).randn(*q.shape).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+    jm = jnp.asarray(mask)
+    out_j, res = jfa._flash_fwd(jq, jk, jv, jm, None, False, s, 128, True,
+                                0.0)
+    grads_j = jfa._flash_bwd_rule(False, s, 128, True, 0.0, res, jdo)[:3]
+    t = [torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+         for x in (jq, jk, jv, out_j, jdo)]
+    lse = torch.from_numpy(np.array(res[-1])).reshape(4, s)
+    grads_t = tfa.flash_attention_bwd_reference(*t[:4], lse, t[4],
+                                                torch.from_numpy(mask))
+    for name, gt, gj in zip("qkv", grads_t, grads_j):
+        assert gt.dtype == torch.bfloat16
+        np.testing.assert_allclose(gt.float().numpy(),
+                                   np.asarray(gj.astype(jnp.float32)),
+                                   atol=1e-2, rtol=1e-2, err_msg=f"d{name}")
 
 
 def test_backward_wrappers_take_a_shared_delta():
