@@ -13,9 +13,10 @@ tokens on the card against a CPU serve of the same weights, trains
 GPT-2-medium at full width and depth through ``initialize`` and
 ``train_batch``, checks a short training run on the card against the
 CPU, does the same two things again at seq 4096 with block-sparse
-attention, and then pretrains BERT-large, dense at seq 128 and
-block-sparse at seq 4096 through the super-tile kernels.  Phases, in
-order; any failure raises, so the script exits non-zero:
+attention, pretrains BERT-large, dense at seq 128 and block-sparse at
+seq 4096 through the super-tile kernels, and last saves GPT-2-medium
+between steps and resumes it bitwise.  Phases, in order; any failure
+raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
               build (one nvcc per source, all started together);
@@ -129,7 +130,21 @@ order; any failure raises, so the script exits non-zero:
               at seq 128 with padding and the MLM gather (B1, B3), and
               sparse at seq 1024 in 128-row blocks (B6 on the card, the
               gather path on the CPU); 3 steps on the card and on the CPU
-              agree to rtol 1e-3.
+              agree to rtol 1e-3;
+15. checkpoint — GPT-2-medium at full width and depth on phase 6's
+              config plus WarmupLR and a dataloader over 6 distinct
+              micro-batches (numpy seed 0): run A takes 3 steps, saves
+              asynchronously (4.97 GB, under ``build/`` in the
+              checkout, which needs 12 GB free; deleted at the end) and
+              takes 3 more while the commit runs; run B, a fresh engine
+              from other weights, loads it strictly and takes 3 steps.
+              ``verify_checkpoint`` ok, the JAX package's keys and byte
+              sizes, the model states decoding to run A's step-3 bf16
+              params bitwise, run B's losses and final master bitwise
+              run A's, one B1, B2a and B2b a layer a step in both runs;
+              the file sizes, the blocking snapshot ms, the commit s,
+              the checksum algorithm, the load s and the step ms with
+              the commit in flight beside phase 6's.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -144,12 +159,16 @@ network; imports nothing of JAX.
 """
 
 import argparse
+import gc
 import json
 import math
+import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,6 +176,7 @@ import torch
 import torch.nn.functional as F
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch import checkpoint as ckpt
 from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from deepspeed_tpu_torch.models.bert import random_params as bert_params
@@ -175,7 +195,7 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
-from deepspeed_tpu_torch.utils.params import params_from_numpy
+from deepspeed_tpu_torch.utils.params import params_from_numpy, tree_leaves
 
 DEVICE = torch.device("cuda")
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -2085,6 +2105,187 @@ def phase_bert_parity(results):
     return total
 
 
+# -------------------------------------------------------------- checkpoint
+# phase 15: GPT-2-medium (4.97 GB of checkpoint) saved between steps and
+# resumed; the files go under build/ in the checkout, which must have
+# this much free space
+CKPT_MIN_FREE_BYTES = 12 * 10 ** 9
+CKPT_MICRO_BATCHES = 6
+CKPT_CONFIG = dict(TRAIN_CONFIG, scheduler={
+    "type": "WarmupLR", "params": {"warmup_min_lr": 0.0,
+                                   "warmup_max_lr": 1e-4,
+                                   "warmup_num_steps": 10}})
+
+
+def checkpoint_setup(seed):
+    """Phase 15's engine: :func:`train_setup`'s GPT-2-medium and config
+    (bf16, Lamb lr 1e-4, ZeRO-2, seq 1024, micro-batch 8, dropout 0.1)
+    with a WarmupLR schedule and a dataloader over
+    ``CKPT_MICRO_BATCHES`` distinct micro-batches of random tokens from
+    numpy seed 0; the weights from ``seed``."""
+    b, _, s, _ = TRAIN_ATTN
+    cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+                                 resid_dropout=DROPOUT)
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(CKPT_MICRO_BATCHES * b, s))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, seed),
+        config=dict(CKPT_CONFIG),
+        training_data=[{"input_ids": row} for row in ids])
+    return engine, cfg
+
+
+def timed_steps(engine, n):
+    """``n`` ``train_batch`` steps from the engine's dataloader, each
+    between two synchronizations; the launch counts set to 0 just before
+    and read just after.  Returns ``(losses, step seconds, step end
+    times on the wall clock, launches)``."""
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, seconds, ends = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        ends.append(time.time())
+    return [float(x) for x in losses], seconds, ends, read_launches()
+
+
+def check_step_launches(label, launches, steps, layers):
+    n = layers * steps
+    check(launches["B1"] == launches["B2a"] == launches["B2b"] == n
+          and launches["B4"] == 3 * n
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
+          f"{label}: launches {launches}, expected {n} of B1/B2a/B2b and "
+          f"{3 * n} of B4")
+
+
+def check_checkpoint_files(tag_dir, engine, params_at_save):
+    """The committed files: manifest-verified, the JAX package's keys,
+    byte sizes of the payloads, and the model states decoding to the
+    step's bf16 params bitwise.  Returns ``{file: bytes}``."""
+    status, problems = ckpt.verify_checkpoint(tag_dir)
+    check(status == "ok", f"checkpoint: verify_checkpoint {status} "
+          f"{problems}")
+    n = int(sum(engine.segments.sizes))
+    paths, leaves = tree_leaves(engine.flat.unflatten_params(params_at_save))
+    keys = ["/".join(path) for path in paths]
+    with np.load(os.path.join(tag_dir, ckpt.OPTIM_STATES_NPZ)) as npz:
+        check(sorted(npz.files) == ["master", "opt/.exp_avg",
+                                    "opt/.exp_avg_sq", "opt/.step"],
+              f"checkpoint: optimizer keys {npz.files}")
+        check(npz["opt/.step"].dtype == np.int32
+              and int(npz["opt/.step"]) == 3, "checkpoint: opt/.step")
+    sizes = {name: os.path.getsize(os.path.join(tag_dir, name))
+             for name in sorted(os.listdir(tag_dir))}
+    # payload bytes, plus at most 1 MB of npz headers and the zip index
+    for name, payload in ((ckpt.MODEL_STATES_NPZ, 2 * n),
+                          (ckpt.OPTIM_STATES_NPZ, 12 * n + 4)):
+        check(payload <= sizes[name] <= payload + 2 ** 20,
+              f"checkpoint: {name} holds {sizes[name]} bytes for "
+              f"{payload} of payload")
+    states = ckpt.load_model_states(tag_dir)
+    check(sorted(states) == sorted(keys), "checkpoint: model-state keys")
+    for key, leaf in zip(keys, leaves):
+        check(states[key].dtype == torch.bfloat16
+              and torch.equal(states[key].view(torch.int16),
+                              leaf.view(torch.int16)),
+              f"checkpoint: model state {key} is not the saved bf16 param")
+    return sizes
+
+
+def phase_checkpoint(card, results, train_step_ms):
+    """Run A trains :func:`checkpoint_setup`'s GPT-2-medium 3 steps,
+    saves asynchronously (the config default) and takes 3 more steps
+    while the commit runs.  Run B, a fresh engine from other weights,
+    loads the checkpoint strictly and takes 3 steps: its losses and
+    final master must equal run A's last three and final master BITWISE
+    (dropout 0.1: its streams follow the restored micro-step count; the
+    dataloader resumes at its 4th micro-batch, the LR schedule at its
+    4th step)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    check(free >= CKPT_MIN_FREE_BYTES,
+          f"checkpoint: {free} bytes free under {root}, the phase needs "
+          f"{CKPT_MIN_FREE_BYTES}")
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_", dir=root)
+    try:
+        engine, cfg = checkpoint_setup(SEED)
+        layers = cfg.num_layers
+        first, _, _, launches_a = timed_steps(engine, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        snapshot_s = time.perf_counter() - t0
+        saved_wall = time.time()
+        params_at_save = engine._compute.detach().to("cpu", copy=True)
+        losses_a, inflight_s, ends, more = timed_steps(engine, 3)
+        launches_a = {k: v + more[k] for k, v in launches_a.items()}
+        check_step_launches("checkpoint run A", launches_a, 6, layers)
+        engine.wait_checkpoint(save_dir)
+        committed_wall = os.path.getmtime(
+            os.path.join(save_dir, ckpt.LATEST_FILE))
+        commit_s = committed_wall - saved_wall
+        overlapped = sum(end < committed_wall for end in ends)
+        tag_dir = os.path.join(save_dir, "global_step3")
+        algorithm = ckpt.read_manifest(tag_dir)["checksum_algorithm"]
+        sizes = check_checkpoint_files(tag_dir, engine, params_at_save)
+        del params_at_save
+        master_a = engine.master.to("cpu", copy=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        engine, _ = checkpoint_setup(SEED + 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, _ = engine.load_checkpoint(save_dir, strict=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(path == tag_dir and engine.global_steps == 3
+              and engine.micro_steps == 3, f"checkpoint: loaded {path} at "
+              f"step {engine.global_steps}")
+        losses_b, resumed_s, _, launches_b = timed_steps(engine, 3)
+        check_step_launches("checkpoint run B", launches_b, 3, layers)
+        check(all(math.isfinite(x) for x in first + losses_a),
+              f"checkpoint: losses {first + losses_a}")
+        check(losses_b == losses_a, f"checkpoint: run B's losses "
+              f"{losses_b} differ from run A's {losses_a}")
+        check(torch.equal(engine.master.cpu(), master_a),
+              "checkpoint: run B's final master differs from run A's")
+        del engine, master_a
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    receipt = {
+        "card": card, "file_bytes": sizes,
+        "checkpoint_bytes": sum(sizes.values()),
+        "snapshot_ms": 1e3 * snapshot_s, "commit_s": commit_s,
+        "checksum_algorithm": algorithm, "load_s": load_s,
+        "losses_a": first + losses_a, "losses_b": losses_b,
+        "steps_overlapping_commit": overlapped,
+        "inflight_step_ms": [1e3 * x for x in inflight_s],
+        "inflight_step_ms_median": 1e3 * statistics.median(inflight_s),
+        "resumed_step_ms": [1e3 * x for x in resumed_s],
+        "resumed_step_ms_median": 1e3 * statistics.median(resumed_s),
+        "train_phase_step_ms": train_step_ms}
+    print(f"checkpoint (GPT-2-medium, bf16, Lamb, ZeRO-2, dropout 0.1; "
+          f"{card}): files {sizes}; snapshot {receipt['snapshot_ms']:.1f} "
+          f"ms (device to host), commit {commit_s:.2f} s ({algorithm}), "
+          f"load {load_s:.2f} s; step ms with the commit in flight "
+          f"{receipt['inflight_step_ms_median']:.2f} (median of 3, "
+          f"{overlapped} overlapping it), after the resume "
+          f"{receipt['resumed_step_ms_median']:.2f}, phase 6 "
+          f"{train_step_ms:.2f}; run B's losses and master equal run A's "
+          f"bitwise")
+    print("checkpoint receipt:", json.dumps(receipt))
+    results["checkpoint"] = receipt
+    return {k: v + launches_b[k] for k, v in launches_a.items()}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2149,13 +2350,17 @@ def main(argv=None):
     bert_sparse_launches = phase_bert_sparse_train(card, results)
     # 14. bert parity, card against CPU, dense and sparse
     bert_parity_launches = phase_bert_parity(results)
+    # 15. checkpoint: save GPT-2-medium between steps, resume bitwise
+    checkpoint_launches = phase_checkpoint(card, results,
+                                           results["train"]["step_ms"])
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
              "sparse_train_parity": sparse_parity_launches,
              "bert_train": bert_launches,
              "bert_sparse_train": bert_sparse_launches,
-             "bert_parity": bert_parity_launches}
+             "bert_parity": bert_parity_launches,
+             "checkpoint": checkpoint_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in KERNEL_COUNTERS}
     launches["B1"] += serve_launches

@@ -9,12 +9,15 @@ training engine (flat fp32 master, Adam/AdamW or Lamb, ZeRO stages 0–2
 at one rank, bf16 or fp32).  Attention runs on hand-written CUDA
 flash-attention kernels (``csrc/transformer/``): the forward, the dq and
 dk/dv backward kernels, the fused single-tile backward and in-kernel
-dropout.
+dropout.  ``checkpoint`` saves and resumes a run in the JAX package's
+checkpoint files, so a run moves between the two packages.
 """
+
+from . import checkpoint  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["InferenceEngine", "initialize", "__version__"]
+__all__ = ["InferenceEngine", "checkpoint", "initialize", "__version__"]
 
 
 def initialize(*args, **kwargs):

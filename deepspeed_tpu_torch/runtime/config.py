@@ -6,10 +6,12 @@ One JSON file or dict, parsed once: the batch triple
 data_parallel_size`` solved and checked as in the JAX package
 (``:406-453``); ``optimizer``, ``scheduler``, ``bf16``, ``fp16``,
 ``zero_optimization``, ``gradient_clipping``, ``steps_per_print``,
-``wall_clock_breakdown`` and ``sparse_attention`` (one of the five layout
+``wall_clock_breakdown``, ``sparse_attention`` (one of the five layout
 modes, resolved with its defaults by :func:`get_sparse_attention` into
-the kwargs ``build_sparsity_config`` takes).  Unknown keys warn with a "did you mean" hint
-and raise under ``"strict_config": true`` (the JAX package checks them in
+the kwargs ``build_sparsity_config`` takes) and ``checkpoint``
+(:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`).
+Unknown keys warn with a "did you mean" hint and raise under
+``"strict_config": true`` (the JAX package checks them in
 ``tools/dslint/schema.py``).  Blocks the port does not implement yet warn
 when set, naming their ROADMAP item; ``fp16.enabled`` raises, since the
 loss scaler is ROADMAP A4.
@@ -17,6 +19,7 @@ loss scaler is ROADMAP A4.
 
 import logging
 
+from ..checkpoint.config import DeepSpeedCheckpointConfig
 from . import constants as C
 from .config_utils import (did_you_mean, get_scalar_param,
                            load_config_json)
@@ -169,6 +172,7 @@ class DeepSpeedConfig:
                                  else None)
 
         self.sparse_attention = get_sparse_attention(param_dict)
+        self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triple from any subset of it."""

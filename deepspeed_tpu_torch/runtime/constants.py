@@ -1,7 +1,8 @@
 """Config keys and defaults (port of ``deepspeed_tpu/runtime/constants.py``:
 the batch triple, optimizer, scheduler, precision, clipping, logging and
-ZeRO keys the training engine reads, the ``inference`` block at
-``:517-586`` and ``STRICT_CONFIG``).  Key strings and defaults are the
+ZeRO keys the training engine reads, the ``checkpoint`` block at
+``:313-335``, the ``inference`` block at ``:517-586`` and
+``STRICT_CONFIG``).  Key strings and defaults are the
 JAX package's, so one config dict drives either engine.  ``KNOWN_KEYS``
 and ``SECTION_KEYS`` list every key the JAX package's schema knows
 (``deepspeed_tpu/tools/dslint/schema.py``), for the unknown-key check;
@@ -161,12 +162,40 @@ SECTION_KEYS = {
 }
 # blocks the port parses but does not implement yet -> ROADMAP item
 UNPORTED_SECTIONS = {
-    "activation_checkpointing": "A7", "checkpoint": "A6",
-    "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
-    "mesh": "A5/A10", "pipeline": "A13", "profiling": "A12/A16",
+    "activation_checkpointing": "A7", "compilation": "A16",
+    "elasticity": "A15", "flops_profiler": "A16", "mesh": "A5/A10",
+    "pipeline": "A13", "profiling": "A12/A16",
     "progressive_layer_drop": "A3", "resilience": "A15",
     "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
 }
+
+#############################################
+# Checkpoint subsystem (deepspeed_tpu_torch/checkpoint): the
+# "checkpoint" block, keys and defaults of the JAX package's (:313-335)
+#############################################
+CHECKPOINT = "checkpoint"
+# hand the host-side snapshot to a background writer thread so
+# train_batch resumes immediately; commits stay atomic either way
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = True
+# retention: keep the newest N committed checkpoints (0 = keep all) ...
+CHECKPOINT_KEEP_LAST_N = "keep_last_n"
+CHECKPOINT_KEEP_LAST_N_DEFAULT = 0
+# ... plus every checkpoint whose step is a multiple of this (0 = none)
+CHECKPOINT_KEEP_EVERY_N_STEPS = "keep_every_n_steps"
+CHECKPOINT_KEEP_EVERY_N_STEPS_DEFAULT = 0
+# re-checksum payload files against the manifest before restoring
+CHECKPOINT_VERIFY_ON_LOAD = "verify_on_load"
+CHECKPOINT_VERIFY_ON_LOAD_DEFAULT = True
+# retries (beyond the first attempt) for a failed commit, with
+# exponential backoff starting at retry_backoff_secs
+CHECKPOINT_SAVE_RETRIES = "save_retries"
+CHECKPOINT_SAVE_RETRIES_DEFAULT = 2
+CHECKPOINT_RETRY_BACKOFF_SECS = "retry_backoff_secs"
+CHECKPOINT_RETRY_BACKOFF_SECS_DEFAULT = 0.5
+# drain in-flight saves and take one final synchronous save on SIGTERM
+CHECKPOINT_SAVE_ON_PREEMPTION = "save_on_preemption"
+CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT = False
 
 #############################################
 # Sparse attention: the "sparse_attention" block, one mode of

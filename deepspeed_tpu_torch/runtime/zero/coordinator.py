@@ -1,6 +1,7 @@
 """The flat fp32 master and its views (port of
 ``deepspeed_tpu/runtime/zero/coordinator.py``: ``flatten_to_master``,
-``unflatten_params``, ``gather_master_unpadded``).
+``unflatten_params``, ``gather_master_unpadded`` and its inverses
+``repad_unpadded`` / ``scatter_master_from_unpadded``, ``:512``, ``:528``).
 
 Every parameter lives in one ``(rows, LANES)`` fp32 buffer in the
 row-aligned layout of :func:`~deepspeed_tpu_torch.ops.op_common.build_segments`,
@@ -70,9 +71,39 @@ class FlatParamCoordinator:
 
     def gather_master_unpadded(self, master):
         """Concatenated true-sized 1-D fp32 host copy (checkpoint
-        format)."""
-        host = master.detach().float().cpu().numpy().reshape(-1)
-        return np.concatenate(
-            [host[ro * LANES:ro * LANES + n] for ro, n in
-             zip(self.segments.row_offsets, self.segments.sizes)]
-            or [np.zeros((0,), np.float32)])
+        format) of ``master`` or any buffer in its layout: the segments
+        are gathered on the buffer's device, then copied to the host
+        once.  The array owns its memory: no later step writes it."""
+        view = master.detach().reshape(-1)
+        parts = [view[ro * LANES:ro * LANES + n] for ro, n in
+                 zip(self.segments.row_offsets, self.segments.sizes)]
+        if not parts:
+            return np.zeros((0,), np.float32)
+        return torch.cat(parts).float().cpu().numpy()
+
+    def repad_unpadded(self, unpadded):
+        """Inverse of :meth:`gather_master_unpadded` on the host: the
+        ``(rows, LANES)`` fp32 array, padding zero.  The unpadded form
+        does not depend on the ZeRO stage or the data-parallel degree
+        that wrote it."""
+        unpadded = np.asarray(unpadded, np.float32).reshape(-1)
+        total = sum(self.segments.sizes)
+        if unpadded.size != total:
+            raise ValueError(f"unpadded buffer holds {unpadded.size} "
+                             f"values but the model has {total} "
+                             f"parameters")
+        host = np.zeros(self.segments.total, np.float32)
+        start = 0
+        for ro, n in zip(self.segments.row_offsets, self.segments.sizes):
+            host[ro * LANES:ro * LANES + n] = unpadded[start:start + n]
+            start += n
+        return host.reshape(self.segments.shape)
+
+    def scatter_master_from_unpadded(self, unpadded, out):
+        """Write the 1-D unpadded fp32 ``unpadded`` into ``out``, a
+        buffer in this layout on the engine's device, padding zero (the
+        JAX coordinator's ``scatter_master_from_unpadded``, in place).
+        Returns ``out``."""
+        with torch.no_grad():
+            out.copy_(torch.from_numpy(self.repad_unpadded(unpadded)))
+        return out

@@ -169,6 +169,26 @@ def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     assert "tensorboard" not in caplog.text   # set but off
 
 
+def test_checkpoint_block_parses_as_the_jax_package_does(caplog):
+    """The ``checkpoint`` block is ported: it parses into the same values
+    as the JAX package's config, no longer warns, and passes
+    ``strict_config``."""
+    block = {"async_save": False, "keep_last_n": 3,
+             "keep_every_n_steps": 100, "verify_on_load": False,
+             "save_retries": 1, "retry_backoff_secs": 0.25,
+             "save_on_preemption": True}
+    with caplog.at_level(logging.WARNING):
+        cfg = DeepSpeedConfig({"train_batch_size": 8, "checkpoint": block,
+                               "strict_config": True})
+    assert "checkpoint" not in caplog.text
+    want = JConfig({"train_batch_size": 8,
+                    "checkpoint": block}).checkpoint_config
+    assert vars(cfg.checkpoint_config) == vars(want)
+    assert vars(DeepSpeedConfig({"train_batch_size": 8})
+                .checkpoint_config) == vars(
+        JConfig({"train_batch_size": 8}).checkpoint_config)
+
+
 def test_config_from_a_json_file_rejects_duplicate_keys(tmp_path):
     path = tmp_path / "dup.json"
     path.write_text('{"train_batch_size": 8, "train_batch_size": 16}')

@@ -472,6 +472,55 @@ def test_train_batch_syncs_only_at_the_print_cadence(cuda_device):
     assert counts == [0, 1, 0]
 
 
+@pytest.mark.cuda
+def test_checkpoint_resume_is_bitwise_through_the_kernels(cuda_device,
+                                                           tmp_path):
+    """Tiny GPT-2 in bf16 with dropout 0.1 at all three sites, seq 256
+    (B1 and B2a+B2b, B4 inside them), Lamb under WarmupLR, the
+    dataloader: 2 steps, an async save, 2 more steps; a fresh engine
+    from other weights loads and takes 2 steps.  Losses and the final
+    master are bitwise run A's, and both runs launch one B1, B2a and B2b
+    per layer per step: the kernels' results do not move across a
+    checkpoint."""
+    config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=256,
+                        embd_dropout=0.1, attn_dropout=0.1,
+                        resid_dropout=0.1)
+    rng = np.random.RandomState(0)
+    data = [{"input_ids": row} for row in rng.randint(0, 512, (8, 256))]
+    ds_config = {"train_batch_size": 2, "steps_per_print": 10 ** 9,
+                 "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+                 "scheduler": {"type": "WarmupLR",
+                               "params": {"warmup_num_steps": 4}},
+                 "zero_optimization": {"stage": 2},
+                 "bf16": {"enabled": True}}
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+
+    def engine(seed):
+        return deepspeed_tpu_torch.initialize(
+            model=GPT2LMHead(config),
+            model_parameters=random_params(config, seed),
+            config=dict(ds_config), device=cuda_device,
+            training_data=data)[0]
+
+    def steps(e, n):
+        for counter in counters:
+            counter.launches = 0
+        losses = [float(e.train_batch()) for _ in range(n)]
+        assert [c.launches for c in counters] == [2 * n] * 3
+        return losses
+
+    a = engine(0)
+    steps(a, 2)
+    a.save_checkpoint(str(tmp_path))
+    want = steps(a, 2)
+    a.wait_checkpoint(str(tmp_path))
+    b = engine(1)
+    b.load_checkpoint(str(tmp_path), strict=True)
+    assert steps(b, 2) == want
+    assert torch.equal(a.master, b.master)
+
 def sparse_layouts():
     """name -> (layout, s, heads, d, causal)."""
     import random

@@ -90,10 +90,14 @@ def test_sparse_subpackage_imports_with_jax_blocked():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port, ``runtime.engine`` and ``models.bert``
-    among them."""
+    """Every module of the port, ``runtime.engine``, ``models.bert`` and
+    the ``checkpoint`` package among them."""
     assert {"deepspeed_tpu_torch.runtime.engine",
-            "deepspeed_tpu_torch.models.bert"} <= set(PORT_MODULES)
+            "deepspeed_tpu_torch.models.bert",
+            "deepspeed_tpu_torch.checkpoint",
+            "deepspeed_tpu_torch.checkpoint.manager",
+            "deepspeed_tpu_torch.checkpoint.snapshot",
+            "deepspeed_tpu_torch.checkpoint.writer"} <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
