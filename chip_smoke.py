@@ -14,8 +14,10 @@ GPT-2-medium at full width and depth through ``initialize`` and
 ``train_batch``, checks a short training run on the card against the
 CPU, does the same two things again at seq 4096 with block-sparse
 attention, pretrains BERT-large, dense at seq 128 and block-sparse at
-seq 4096 through the super-tile kernels, and last saves GPT-2-medium
-between steps and resumes it bitwise.  Phases, in order; any failure
+seq 4096 through the super-tile kernels, saves GPT-2-medium between
+steps and resumes it bitwise, then trains GPT-2-medium and BERT-large in
+fp16 under the dynamic loss scaler and rolls GPT-2-medium back to its
+checkpoint after a forced divergence.  Phases, in order; any failure
 raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
@@ -144,7 +146,40 @@ raises, so the script exits non-zero:
               run A's, one B1, B2a and B2b a layer a step in both runs;
               the file sizes, the blocking snapshot ms, the commit s,
               the checksum algorithm, the load s and the step ms with
-              the commit in flight beside phase 6's.
+              the commit in flight beside phase 6's; the directory stays
+              for phase 20;
+
+16. fp16 kernel — B1, B2a, B2b and B3 in fp16 (the tensor-core kernels'
+              fp16 instantiations), B4 through dropout 0.1, against their
+              plain versions: B1+B2a+B2b at GPT-2-medium's training
+              attention (fused QKV views) and B1+B3 at BERT's (b=64,
+              s=128, key mask), at bf16's tolerances; device times beside
+              the bf16 kernels' of phase 3, the bound (989 TFLOP/s fp16),
+              the plain versions' and SDPA's in fp16; B3 against B2a+B2b
+              at BERT's shape (``use_fused_backward``'s fp16 rule must
+              take B3 exactly where it measured faster); an inf in dO
+              and a NaN in q give non-finite grads, out and lse in
+              exactly the plain version's (batch, head) slices;
+17. fp16 train — phase 6's GPT-2-medium in fp16 under DeepSpeed's
+              default dynamic scaler (scale 2^32, window 1000, hysteresis
+              2, min 1): steps until the scale settles (3 applied in a
+              row), the scale trace, then 2 warm-up and 5 timed steps;
+              finite, falling losses, one fp16 B1, B2a, B2b a layer a
+              step and no other attention launch; step ms, MFU and peak
+              memory beside phase 6's;
+18. fp16 bert train — phase 12's BERT-large the same way: one fp16 B1
+              and B3 a layer a step; beside phase 12's;
+19. fp16 parity — 2 layers at GPT-2-medium width (vocab cut to 4096,
+              one 32-token sequence a step: the host's fp16 matmuls are
+              slow), fp16 from scale 2^16, an inf in one compute
+              parameter before step 3:
+              card and CPU skip the same step with the same scale trace,
+              applied losses to rtol 1e-2;
+20. rollback — a fresh GPT-2-medium (bf16, resilience policy rollback,
+              patience 2, phase 15's checkpoint dir) with one master
+              element set to inf: two skipped steps, a rollback to
+              global_step3 (its wall time beside phase 15's load), then
+              3 steps bitwise equal to phase 15's run A.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -200,8 +235,11 @@ from deepspeed_tpu_torch.utils.params import params_from_numpy, tree_leaves
 DEVICE = torch.device("cuda")
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
+# fp16 rounds where bf16 does (P before P·V, the outputs), with three
+# more mantissa bits: held to bf16's bounds
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 # bf16 B1's lse against the plain version's, absolute plus relative: both
 # take fp32 scores of the same bf16 operands, so only the summation order
 # and the exponential differ; a base-2 slip or a wrong running max would
@@ -217,7 +255,8 @@ FLASH_REPLACES = REF + ":183"
 # (tests/unit/test_flash_attention.py); in bf16 kernel and plain version
 # round dS and P to bf16 at the same points, but after fp32 sums taken in
 # another order, which can flip one rounding (2^-8 relative) of a term
-GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2,
+             torch.float16: 1e-2}
 # GPT-2-medium's training attention: b=8, h=16, s=1024, d=64, causal
 TRAIN_ATTN = (8, 16, 1024, 64)
 DROPOUT = 0.1
@@ -1101,14 +1140,19 @@ KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
                    "B6c": fbs.flash_block_sparse_agg_bwd_dkv}
 
 
+# the fp16 launches of B1-B4, counted again beside their all-dtype counts
+FP16_COUNTERS = {f"{name} fp16": KERNEL_COUNTERS[name].fp16
+                 for name in ("B1", "B2a", "B2b", "B3", "B4")}
+
+
 def reset_launches():
-    for counter in KERNEL_COUNTERS.values():
+    for counter in (*KERNEL_COUNTERS.values(), *FP16_COUNTERS.values()):
         counter.launches = 0
 
 
 def read_launches():
-    return {name: counter.launches
-            for name, counter in KERNEL_COUNTERS.items()}
+    counters = dict(KERNEL_COUNTERS, **FP16_COUNTERS)
+    return {name: counter.launches for name, counter in counters.items()}
 
 
 def gpt2_model_flops_per_sample(cfg, seq):
@@ -1129,19 +1173,19 @@ TRAIN_CONFIG = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
                 "bf16": {"enabled": True}}
 
 
-def train_setup():
+def train_setup(config=TRAIN_CONFIG):
     """The train phase's engine, model config and fixed batch on the
     card: GPT-2-medium at full width and depth, bench.py's GPT-2 leg
     (``bench.py:806-816``): seq 1024, micro-batch 8, dropout 0.1 at all
-    three sites, Lamb lr 1e-4, ZeRO-2, bf16, random weights from
-    ``SEED`` and token ids from ``SEED + 1``.
-    ``examples/profile_torch_train.py`` profiles this same set-up."""
+    three sites, Lamb lr 1e-4, ZeRO-2, bf16 (``config``: phase 17 swaps
+    in fp16), random weights from ``SEED`` and token ids from ``SEED +
+    1``.  ``examples/profile_torch_train.py`` profiles this same set-up."""
     b, _, s, _ = TRAIN_ATTN
     cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
                                  resid_dropout=DROPOUT)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
-        config=dict(TRAIN_CONFIG))
+        config=dict(config))
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                    size=(b, s))
     return engine, cfg, {"input_ids": ids}
@@ -1251,8 +1295,9 @@ def gpt2_parity_run(label, cfg, seq, seed):
 
 def only_launched(launches, names, expected=None):
     """Whether no kernel outside ``names`` launched and, unless
-    ``expected`` is None, each of ``names`` launched ``expected``
-    times."""
+    ``expected`` is None, each of ``names`` launched ``expected`` times.
+    A kernel's fp16 count is one of its launches: it must be 0 unless
+    ``names`` holds it."""
     return all(n == 0 if name not in names else expected in (None, n)
                for name, n in launches.items())
 
@@ -1941,21 +1986,22 @@ def bert_batch(rng, vocab, b, s, n_pred, attention_mask):
     return batch
 
 
-def bert_train_setup():
+def bert_train_setup(config=TRAIN_CONFIG):
     """The BERT train phase's engine, model config and fixed batch on the
     card: BERT-large at full width and depth (24 layers, hidden 1024, 16
     heads, vocab 30528), bench.py's headline leg: seq 128, micro-batch
     64, an attention mask of ones, ``max_predictions_per_seq`` 20 with
     exactly 20 labels a row, NSP labels, dropout 0.1 at every site, Lamb
-    lr 1e-4, ZeRO-2, bf16, random weights from ``SEED``.
-    ``examples/profile_torch_train.py --bert`` profiles this set-up."""
+    lr 1e-4, ZeRO-2, bf16 (``config``: phase 18 swaps in fp16), random
+    weights from ``SEED``.  ``examples/profile_torch_train.py --bert``
+    profiles this set-up."""
     cfg = BertConfig.bert_large(
         vocab_size=BERT_VOCAB, hidden_dropout_prob=DROPOUT,
         attention_probs_dropout_prob=DROPOUT,
         max_predictions_per_seq=BERT_PRED)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
-        config=dict(TRAIN_CONFIG, train_batch_size=BERT_BATCH))
+        config=dict(config, train_batch_size=BERT_BATCH))
     batch = bert_batch(np.random.default_rng(SEED + 1), cfg.vocab_size,
                        BERT_BATCH, BERT_SEQ, BERT_PRED,
                        np.ones((BERT_BATCH, BERT_SEQ), np.int64))
@@ -2117,12 +2163,13 @@ CKPT_CONFIG = dict(TRAIN_CONFIG, scheduler={
                                    "warmup_num_steps": 10}})
 
 
-def checkpoint_setup(seed):
+def checkpoint_setup(seed, config=CKPT_CONFIG):
     """Phase 15's engine: :func:`train_setup`'s GPT-2-medium and config
     (bf16, Lamb lr 1e-4, ZeRO-2, seq 1024, micro-batch 8, dropout 0.1)
     with a WarmupLR schedule and a dataloader over
     ``CKPT_MICRO_BATCHES`` distinct micro-batches of random tokens from
-    numpy seed 0; the weights from ``seed``."""
+    numpy seed 0; the weights from ``seed``.  Phase 20 adds a
+    ``resilience`` block to ``config``."""
     b, _, s, _ = TRAIN_ATTN
     cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
                                  resid_dropout=DROPOUT)
@@ -2130,7 +2177,7 @@ def checkpoint_setup(seed):
         0, cfg.vocab_size, size=(CKPT_MICRO_BATCHES * b, s))
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=GPT2LMHead(cfg), model_parameters=random_params(cfg, seed),
-        config=dict(CKPT_CONFIG),
+        config=dict(config),
         training_data=[{"input_ids": row} for row in ids])
     return engine, cfg
 
@@ -2195,71 +2242,75 @@ def check_checkpoint_files(tag_dir, engine, params_at_save):
     return sizes
 
 
-def phase_checkpoint(card, results, train_step_ms):
-    """Run A trains :func:`checkpoint_setup`'s GPT-2-medium 3 steps,
-    saves asynchronously (the config default) and takes 3 more steps
-    while the commit runs.  Run B, a fresh engine from other weights,
-    loads the checkpoint strictly and takes 3 steps: its losses and
-    final master must equal run A's last three and final master BITWISE
-    (dropout 0.1: its streams follow the restored micro-step count; the
-    dataloader resumes at its 4th micro-batch, the LR schedule at its
-    4th step)."""
+def checkpoint_dir():
+    """A fresh directory for phase 15's checkpoint under ``build/`` in
+    the checkout, which must have ``CKPT_MIN_FREE_BYTES`` free; ``main``
+    deletes it after phase 20 has rolled back to it."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     free = shutil.disk_usage(root).free
     check(free >= CKPT_MIN_FREE_BYTES,
           f"checkpoint: {free} bytes free under {root}, the phase needs "
           f"{CKPT_MIN_FREE_BYTES}")
-    save_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_", dir=root)
-    try:
-        engine, cfg = checkpoint_setup(SEED)
-        layers = cfg.num_layers
-        first, _, _, launches_a = timed_steps(engine, 3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.save_checkpoint(save_dir)
-        snapshot_s = time.perf_counter() - t0
-        saved_wall = time.time()
-        params_at_save = engine._compute.detach().to("cpu", copy=True)
-        losses_a, inflight_s, ends, more = timed_steps(engine, 3)
-        launches_a = {k: v + more[k] for k, v in launches_a.items()}
-        check_step_launches("checkpoint run A", launches_a, 6, layers)
-        engine.wait_checkpoint(save_dir)
-        committed_wall = os.path.getmtime(
-            os.path.join(save_dir, ckpt.LATEST_FILE))
-        commit_s = committed_wall - saved_wall
-        overlapped = sum(end < committed_wall for end in ends)
-        tag_dir = os.path.join(save_dir, "global_step3")
-        algorithm = ckpt.read_manifest(tag_dir)["checksum_algorithm"]
-        sizes = check_checkpoint_files(tag_dir, engine, params_at_save)
-        del params_at_save
-        master_a = engine.master.to("cpu", copy=True)
-        del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+    return tempfile.mkdtemp(prefix="chip_smoke_checkpoint_", dir=root)
 
-        engine, _ = checkpoint_setup(SEED + 7)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path, _ = engine.load_checkpoint(save_dir, strict=True)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        check(path == tag_dir and engine.global_steps == 3
-              and engine.micro_steps == 3, f"checkpoint: loaded {path} at "
-              f"step {engine.global_steps}")
-        losses_b, resumed_s, _, launches_b = timed_steps(engine, 3)
-        check_step_launches("checkpoint run B", launches_b, 3, layers)
-        check(all(math.isfinite(x) for x in first + losses_a),
-              f"checkpoint: losses {first + losses_a}")
-        check(losses_b == losses_a, f"checkpoint: run B's losses "
-              f"{losses_b} differ from run A's {losses_a}")
-        check(torch.equal(engine.master.cpu(), master_a),
-              "checkpoint: run B's final master differs from run A's")
-        del engine, master_a
-        gc.collect()
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(save_dir, ignore_errors=True)
+
+def phase_checkpoint(card, results, train_step_ms, save_dir):
+    """Run A trains :func:`checkpoint_setup`'s GPT-2-medium 3 steps,
+    saves asynchronously (the config default) into ``save_dir`` and takes
+    3 more steps while the commit runs.  Run B, a fresh engine from other
+    weights, loads the checkpoint strictly and takes 3 steps: its losses
+    and final master must equal run A's last three and final master
+    BITWISE (dropout 0.1: its streams follow the restored micro-step
+    count; the dataloader resumes at its 4th micro-batch, the LR schedule
+    at its 4th step).  Returns the launches and run A's last three losses
+    and final master, which phase 20 holds its rollback to."""
+    engine, cfg = checkpoint_setup(SEED)
+    layers = cfg.num_layers
+    first, _, _, launches_a = timed_steps(engine, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(save_dir)
+    snapshot_s = time.perf_counter() - t0
+    saved_wall = time.time()
+    params_at_save = engine._compute.detach().to("cpu", copy=True)
+    losses_a, inflight_s, ends, more = timed_steps(engine, 3)
+    launches_a = {k: v + more[k] for k, v in launches_a.items()}
+    check_step_launches("checkpoint run A", launches_a, 6, layers)
+    engine.wait_checkpoint(save_dir)
+    committed_wall = os.path.getmtime(
+        os.path.join(save_dir, ckpt.LATEST_FILE))
+    commit_s = committed_wall - saved_wall
+    overlapped = sum(end < committed_wall for end in ends)
+    tag_dir = os.path.join(save_dir, "global_step3")
+    algorithm = ckpt.read_manifest(tag_dir)["checksum_algorithm"]
+    sizes = check_checkpoint_files(tag_dir, engine, params_at_save)
+    del params_at_save
+    master_a = engine.master.to("cpu", copy=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine, _ = checkpoint_setup(SEED + 7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, _ = engine.load_checkpoint(save_dir, strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(path == tag_dir and engine.global_steps == 3
+          and engine.micro_steps == 3, f"checkpoint: loaded {path} at "
+          f"step {engine.global_steps}")
+    losses_b, resumed_s, _, launches_b = timed_steps(engine, 3)
+    check_step_launches("checkpoint run B", launches_b, 3, layers)
+    check(all(math.isfinite(x) for x in first + losses_a),
+          f"checkpoint: losses {first + losses_a}")
+    check(losses_b == losses_a, f"checkpoint: run B's losses "
+          f"{losses_b} differ from run A's {losses_a}")
+    check(torch.equal(engine.master.cpu(), master_a),
+          "checkpoint: run B's final master differs from run A's")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     receipt = {
         "card": card, "file_bytes": sizes,
         "checkpoint_bytes": sum(sizes.values()),
@@ -2283,7 +2334,482 @@ def phase_checkpoint(card, results, train_step_ms):
           f"bitwise")
     print("checkpoint receipt:", json.dumps(receipt))
     results["checkpoint"] = receipt
-    return {k: v + launches_b[k] for k, v in launches_a.items()}
+    run_a = {"losses": losses_a, "master": master_a, "load_s": load_s}
+    return {k: v + launches_b[k] for k, v in launches_a.items()}, run_a
+
+
+# -------------------------------------------------------------------- fp16
+# DeepSpeed's fp16 defaults (deepspeed_tpu/runtime/constants.py:57-67),
+# which a config that sets only "enabled": true gets in the reference
+FP16_SCALER = {"enabled": True, "loss_scale": 0, "initial_scale_power": 32,
+               "loss_scale_window": 1000, "hysteresis": 2,
+               "min_loss_scale": 1}
+FP16_TRAIN_CONFIG = dict({k: v for k, v in TRAIN_CONFIG.items()
+                          if k != "bf16"}, fp16=FP16_SCALER)
+# the scale has settled when this many steps in a row apply
+SETTLE_GOOD_STEPS = 3
+SETTLE_MAX_STEPS = 40
+
+
+def nonfinite_by_head(t):
+    """[b, h] bool: whether each (batch, head) slice of a ``[b, n, h, d]``
+    tensor holds a non-finite value."""
+    return ~torch.isfinite(t.float()).all(dim=3).all(dim=1)
+
+
+def check_fp16_nonfinite(label, q, k, v, mask, causal, dout, seed, fused):
+    """An inf in dO gives non-finite dq, dk and dv from the kernels in
+    exactly the (batch, head) slices where the plain version's are, and
+    a NaN in q a non-finite out and lse where the plain forward's are."""
+    keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal, DROPOUT, seed)
+    bad = dout.clone()
+    bad[0, q.shape[1] // 3, 1, 5] = float("inf")
+    grads = kernel_chain(q, k, v, bad, mask, causal, DROPOUT, seed,
+                         fused)[2:]
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, bad, mask, causal,
+                                        keep, inv_keep)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        check(bool(nonfinite_by_head(want)[0, 1]) and torch.equal(
+            nonfinite_by_head(got), nonfinite_by_head(want)),
+            f"fp16 {label}: inf in dO: the kernel's non-finite {name} "
+            f"slices differ from the plain version's")
+    qn = q.clone()
+    qn[0, q.shape[1] // 2, 2, 7] = float("nan")
+    out, lse = flash_attention_fwd(qn, k, v, mask, causal, DROPOUT, seed)
+    ref_out, ref_lse = flash_attention_reference(qn, k, v, mask, causal,
+                                                 keep, inv_keep)
+    check(bool(nonfinite_by_head(ref_out)[0, 2]) and torch.equal(
+        nonfinite_by_head(out), nonfinite_by_head(ref_out)) and torch.equal(
+        torch.isfinite(lse), torch.isfinite(ref_lse)),
+        f"fp16 {label}: NaN in q: the kernel's non-finite out or lse "
+        f"differs from the plain version's")
+
+
+def fp16_compare(label, got, want, tol, errs, key):
+    """``got`` against ``want`` at ``tol``; the max error joins
+    ``errs[key]``."""
+    check(bool(torch.isfinite(got.float()).all()),
+          f"fp16 {label}: non-finite output")
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"fp16 {label}: {m}")
+    err = float((got.float() - want.float()).abs().max())
+    errs[key] = max(errs.get(key, 0.0), err)
+    return err
+
+
+def phase_fp16_kernel(card, results):
+    """16. B1, B2a, B2b and B3 in fp16, with B4 through dropout 0.1,
+    against their plain versions on the same inputs: B1+B2a+B2b at
+    GPT-2-medium's training attention (b=8, h=16, s=1024, d=64, causal,
+    fused-QKV views) and B1+B3 at BERT's (b=64, h=16, s=128, a key mask
+    of ones).  Device times per launch beside the bf16 kernels' of
+    phases 3 (same shapes, same call), the bound (989 TFLOP/s fp16),
+    the plain versions' and SDPA's in fp16; B2a+B2b at BERT's shape
+    beside B3, on one precomputed Δ: ``use_fused_backward`` must take B3
+    for fp16 exactly where it measured faster.  Then an inf in dO and a
+    NaN in q at both shapes (:func:`check_fp16_nonfinite`).  Returns
+    the max errors per kernel and the timings."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f16 = torch.float16
+    tol, gtol = TOLS[f16], GRAD_TOLS[f16]
+    errs, timing = {}, {}
+    bf16_times = results["backward_timing"]
+
+    # GPT-2-medium's training attention: B1, B2a, B2b (B4 inside)
+    b, h, s, d = TRAIN_ATTN
+    g = torch.Generator().manual_seed(SEED + 30)
+    qkv = torch.randn(b, s, 3, h, d, generator=g).to(DEVICE, f16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(b, s, h, d, generator=g).to(DEVICE, f16)
+    seed = seed_words(SEED + 31)
+    out, lse = flash_attention_fwd(q, k, v, None, True, DROPOUT, seed)
+    keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, None, True, keep,
+                                                 inv_keep)
+    fp16_compare("train B1 out", out, ref_out, tol, errs, "B1")
+    torch.testing.assert_close(lse, ref_lse, atol=BF16_LSE_TOL,
+                               rtol=BF16_LSE_TOL)
+    del ref_out, ref_lse
+    args = (q, k, v, out, lse, dout, None, True, DROPOUT, seed)
+    delta = fa._delta(out, dout)
+    grads = (flash_attention_bwd_dq(*args, delta=delta),) \
+        + flash_attention_bwd_dkv(*args, delta=delta)
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, None, True,
+                                        keep, inv_keep)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        fp16_compare(f"train {name}", got, want, gtol, errs,
+                     "B2a" if name == "dq" else "B2b")
+    del ref, grads, keep
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2)
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            dropout_p=DROPOUT)
+    sdpa_bwd = device_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+    del o_sdpa
+
+    def plain_bwd():
+        kp, ik = plain_keep(q, k, DROPOUT, seed)
+        return flash_attention_bwd_reference(q, k, v, out, lse, dout, None,
+                                             True, kp, ik)
+
+    bwd_plain = device_ms(plain_bwd, calls=1, repeats=3, warmup=1)
+    b1_bound, b1_by = attention_bound(q, k, None, True)
+    timing["B1"] = {
+        "shape": "b=8 h=16 s=1024 d=64 causal, dropout 0.1",
+        "kernel_ms": device_ms(lambda: flash_attention_fwd(
+            q, k, v, None, True, DROPOUT, seed)),
+        "bf16_kernel_ms": bf16_times["fwd_train"]["kernel_ms"],
+        "plain_ms": device_ms(lambda: flash_attention_reference(
+            q, k, v, None, True, *plain_keep(q, k, DROPOUT, seed)),
+            calls=1, repeats=3, warmup=1),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, dropout_p=DROPOUT)),
+        "bound_ms": b1_bound, "bound_by": b1_by}
+    for name, kind, fn in (("B2a", "dq", flash_attention_bwd_dq),
+                           ("B2b", "dkv", flash_attention_bwd_dkv)):
+        bound, by = backward_bound(kind, q, k, None, True)
+        timing[name] = {
+            "shape": "b=8 h=16 s=1024 d=64 causal, dropout 0.1, one Δ",
+            "kernel_ms": device_ms(lambda: fn(*args, delta=delta)),
+            "bf16_kernel_ms": bf16_times[kind]["kernel_ms"],
+            "plain_ms": bwd_plain, "library_ms": sdpa_bwd,
+            "bound_ms": bound, "bound_by": by}
+
+    def chain(rate):
+        return lambda: kernel_chain(q, k, v, dout, None, True, rate, seed,
+                                    False)
+
+    with_dropout = device_ms(chain(DROPOUT), calls=5, repeats=10)
+    without = device_ms(chain(0.0), calls=5, repeats=10)
+    timing["B4"] = {
+        "shape": "B1+B2a+B2b with dropout 0.1 less without",
+        "kernel_ms": with_dropout - without,
+        "bf16_kernel_ms": bf16_times["dropout"]["kernel_ms"],
+        "plain_ms": bf16_times["dropout"]["plain_ms"],
+        "library_ms": None, "bound_ms": bf16_times["dropout"]["bound_ms"],
+        "bound_by": "operations"}
+    check_fp16_nonfinite("train", q, k, v, None, True, dout, seed, False)
+    del qkv, q, k, v, dout, out, lse, qt, kt, vt, dot, delta
+
+    # BERT's attention: B1 and B3 (B4 inside); B2a+B2b beside B3
+    bb, bs = BERT_BATCH, BERT_SEQ
+    mask = torch.ones(bb, bs, device=DEVICE)
+    q, k, v, dout = (torch.randn(bb, bs, h, d, generator=g).to(DEVICE, f16)
+                     for _ in range(4))
+    seed = seed_words(SEED + 32)
+    check(fa.fused_backward_fits(d, bs, bs, f16),
+          "the fp16 B3 does not fit BERT's s=128")
+    out, lse, *grads = kernel_chain(q, k, v, dout, mask, False, DROPOUT,
+                                    seed, True)
+    keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
+    ref_out, _ = flash_attention_reference(q, k, v, mask, False, keep,
+                                           inv_keep)
+    fp16_compare("bert B1 out", out, ref_out, tol, errs, "B1")
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, mask, False,
+                                        keep, inv_keep)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        fp16_compare(f"bert B3 {name}", got, want, gtol, errs, "B3")
+    del ref, ref_out
+    args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+    delta = fa._delta(out, dout)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = dout.transpose(1, 2)
+    b3_bound, b3_by = backward_bound("fused", q, k, mask, False)
+    bert_b1_bound, bert_b1_by = attention_bound(q, k, mask, False)
+    timing["B3"] = {
+        "shape": "b=64 h=16 s=128 d=64, key mask, dropout 0.1, one Δ",
+        "kernel_ms": device_ms(lambda: flash_attention_bwd_fused(
+            *args, delta=delta)),
+        "bf16_kernel_ms": results["b3_bert"]["kernel_ms"],
+        "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta)),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, mask, False, keep, inv_keep),
+            calls=2, repeats=5),
+        "library_ms": device_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
+        "bound_ms": b3_bound, "bound_by": b3_by,
+        "rule_takes_b3": fa.use_fused_backward(d, bs, bs, f16)}
+    del o_sdpa
+    timing["B1_bert"] = {
+        "shape": "b=64 h=16 s=128 d=64, key mask, dropout 0.1",
+        "kernel_ms": device_ms(lambda: flash_attention_fwd(
+            q, k, v, mask, False, DROPOUT, seed)),
+        "bf16_kernel_ms": results["b1_bert"]["kernel_ms"],
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, dropout_p=DROPOUT)),
+        "bound_ms": bert_b1_bound, "bound_by": bert_b1_by}
+    t = timing["B3"]
+    check(t["rule_takes_b3"] == (t["kernel_ms"] < t["b2_ms"]),
+          f"the fp16 backward rule takes "
+          f"{'B3' if t['rule_takes_b3'] else 'B2a+B2b'} at BERT's s=128, "
+          f"where B3 measured {t['kernel_ms']:.5f} ms and B2a+B2b "
+          f"{t['b2_ms']:.5f} ms")
+    check_fp16_nonfinite("bert", q, k, v, mask, False, dout, seed, True)
+    errs["B4"] = max(errs.values())
+    print(f"fp16 kernels: tolerances out {tol}, lse {BF16_LSE_TOL}, grads "
+          f"{gtol}; max |kernel-plain| " + " ".join(
+              f"{k_}={v_:.3g}" for k_, v_ in errs.items())
+          + f"; an inf in dO and a NaN in q stay non-finite in exactly the "
+          f"plain version's (batch, head) slices at both shapes [{card}]")
+    for name, row in timing.items():
+        print(f"fp16 timing {name} ({row['shape']}): " + " ".join(
+            f"{key}={val:.5f}" if isinstance(val, float) else
+            f"{key}={val}" for key, val in row.items() if key != "shape")
+            + f" [{card}]")
+    results["fp16_kernel"] = {"errors": errs, "timing": timing}
+    return errs, timing
+
+
+def settle_scale(label, engine, batch):
+    """fp16 steps on ``batch`` until ``SETTLE_GOOD_STEPS`` in a row apply
+    (the dynamic scale comes down from 2^32 by halving, after one step of
+    hysteresis); returns the trace of (loss scale, skipped steps)."""
+    trace, good = [], 0
+    for _ in range(SETTLE_MAX_STEPS):
+        skipped = engine.skipped_steps
+        engine.train_batch(iter([batch]))
+        trace.append((engine.loss_scale, engine.skipped_steps))
+        good = good + 1 if engine.skipped_steps == skipped else 0
+        if good >= SETTLE_GOOD_STEPS:
+            return trace
+    check(False, f"{label}: the loss scale did not settle in "
+          f"{SETTLE_MAX_STEPS} steps: {trace}")
+
+
+def fp16_receipt(card, label, engine, trace, losses, step_s, launches,
+                 steps, samples, flops, bf16):
+    samples_s = samples / step_s
+    receipt = {
+        "card": card, "scale_trace": trace, "settle_steps": len(trace),
+        "skipped_steps": engine.skipped_steps,
+        "loss_scale": engine.loss_scale, "losses": losses,
+        "step_ms": 1e3 * step_s, "samples_per_s": samples_s,
+        "mfu": samples_s * flops / PEAK_FLOPS[torch.float16],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "bf16_step_ms": bf16["step_ms"], "bf16_mfu": bf16["mfu"],
+        "bf16_peak_memory_bytes": bf16["peak_memory_bytes"]}
+    print(f"{label}: scale settled after {len(trace)} steps, "
+          f"{engine.skipped_steps} skipped, trace {trace}; step "
+          f"{receipt['step_ms']:.2f} ms (bf16 {bf16['step_ms']:.2f}), MFU "
+          f"{receipt['mfu']:.4f} (bf16 {bf16['mfu']:.4f}), peak memory "
+          f"{receipt['peak_memory_bytes'] / 1e9:.2f} GB (bf16 "
+          f"{bf16['peak_memory_bytes'] / 1e9:.2f}) [{card}]")
+    print(f"{label} receipt:", json.dumps(receipt))
+    return receipt
+
+
+def check_all_fp16(label, launches, want):
+    """Every attention launch in ``want`` ({name: count}) came to that
+    count, all of them fp16, and nothing else launched."""
+    names = tuple(want) + tuple(f"{n} fp16" for n in want)
+    check(all(launches[n] == c and launches[f"{n} fp16"] == c
+              for n, c in want.items())
+          and only_launched(launches, names),
+          f"{label}: launches {launches}, expected {want}, all fp16")
+
+
+def phase_fp16_train(card, results):
+    """17. :func:`train_setup`'s GPT-2-medium (phase 6's configuration) in
+    fp16 under ``FP16_SCALER``: steps until the scale settles, then 2
+    warm-up and 5 timed steps; finite, falling losses, one fp16 B1, B2a
+    and B2b (and three B4) a layer a step and no bf16 or fp32 attention
+    launch; step ms, MFU and peak memory beside phase 6's."""
+    b, _, s, _ = TRAIN_ATTN
+    engine, cfg, batch = train_setup(FP16_TRAIN_CONFIG)
+    check(engine.compute_dtype == torch.float16, "fp16 train: not fp16")
+    trace = settle_scale("fp16 train", engine, batch)
+    losses, step_s, launches = run_steps("fp16 train", engine, batch, 2, 5)
+    steps, layers = 7, cfg.num_layers
+    n = layers * steps
+    check_all_fp16("fp16 train", launches,
+                   {"B1": n, "B2a": n, "B2b": n, "B4": 3 * n})
+    results["fp16_train"] = fp16_receipt(
+        card, "fp16 train (GPT-2-medium, 24 layers, seq 1024, batch 8, "
+        "fp16, Lamb, ZeRO-2, dropout 0.1)", engine, trace, losses, step_s,
+        launches, steps, b, gpt2_model_flops_per_sample(cfg, s),
+        results["train"])
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fp16_bert_train(card, results):
+    """18. :func:`bert_train_setup`'s BERT-large (phase 12's
+    configuration) in fp16 under ``FP16_SCALER``: steps until the scale
+    settles, then 2 warm-up and 5 timed steps; finite, falling losses,
+    one fp16 B1 and one fp16 B3 (B4 in both) a layer a step and no other
+    attention launch; step ms, MFU and peak memory beside phase 12's."""
+    engine, cfg, batch = bert_train_setup(FP16_TRAIN_CONFIG)
+    check(engine.compute_dtype == torch.float16, "fp16 bert: not fp16")
+    trace = settle_scale("fp16 bert train", engine, batch)
+    losses, step_s, launches = run_steps("fp16 bert train", engine, batch,
+                                         2, 5)
+    steps, layers = 7, cfg.num_hidden_layers
+    check(fa.use_fused_backward(64, BERT_SEQ, BERT_SEQ, torch.float16)
+          and fa.use_fused_backward(64, BERT_PRED + 1, BERT_SEQ,
+                                    torch.float16),
+          "fp16 bert train: the fp16 rule does not take B3 at BERT's shapes")
+    n = layers * steps
+    check_all_fp16("fp16 bert train", launches,
+                   {"B1": n, "B3": n, "B4": 2 * n})
+    results["fp16_bert_train"] = fp16_receipt(
+        card, "fp16 bert train (BERT-large, 24 layers, seq 128, batch 64, "
+        "MLM gather 20 + NSP, fp16, Lamb, ZeRO-2, dropout 0.1)", engine,
+        trace, losses, step_s, launches, steps, BERT_BATCH,
+        bert_flops_per_sample(cfg, BERT_SEQ), results["bert_train"])
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+FP16_PARITY_CONFIG = {
+    "train_batch_size": 1, "steps_per_print": 10 ** 9,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+    "fp16": {"enabled": True, "initial_scale_power": 16,
+             "loss_scale_window": 1000, "hysteresis": 2,
+             "min_loss_scale": 1}}
+FP16_PARITY_RTOL = 1e-2
+FP16_POISON_STEP = 2
+# The CPU side runs torch's fp16 matmuls, which on the card machine's host
+# are far slower than its fp32 ones, at a cost that follows the weights
+# more than the rows: this phase took 120.7 s on an H100 host at vocab
+# 50304 with 32 tokens a step (PERF.md).  So the vocab is cut to 4096 and
+# the tokens to one sequence of 32; the layers keep GPT-2-medium's width.
+FP16_PARITY_SEQ = 32
+FP16_PARITY_VOCAB = 4096
+
+
+def phase_fp16_parity(results):
+    """19. 2 layers at GPT-2-medium width (hidden 1024, 16 heads), vocab
+    ``FP16_PARITY_VOCAB``, one sequence of ``FP16_PARITY_SEQ`` tokens a
+    step, dropout 0,
+    fp16 with a dynamic scale from 2^16 (where 1/scale is exact in fp16):
+    4 steps on the card and on the CPU from the same weights and batches,
+    with an inf written into one compute parameter (layer 0's ``fc1``
+    bias) before step 3.  The skip pattern and the scale trace are
+    equal; the applied steps' losses agree to rtol 1e-2 (fp16 products
+    round at other places on the card and the CPU).  On the card: fp16
+    B1 and B3 only."""
+    cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
+                     vocab_size=FP16_PARITY_VOCAB, embd_dropout=0.0,
+                     attn_dropout=0.0, resid_dropout=0.0)
+    params = random_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 33)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          size=(1, FP16_PARITY_SEQ))}
+               for _ in range(4)]
+    runs, launches = {}, None
+    for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2LMHead(cfg), model_parameters=params,
+            config=dict(FP16_PARITY_CONFIG), device=device)
+        if where == "card":
+            torch.cuda.synchronize()
+            reset_launches()
+        it = iter(batches)
+        trace = []
+        for step in range(len(batches)):
+            if step == FP16_POISON_STEP:
+                with torch.no_grad():
+                    engine.params["blocks"]["layer_0"]["fc1"]["bias"][0] = \
+                        float("inf")
+            loss = float(engine.train_batch(it))
+            trace.append((loss, engine.loss_scale, engine.skipped_steps))
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        runs[where] = trace
+        del engine
+    card, cpu = runs["card"], runs["cpu"]
+    check([t[1:] for t in card] == [t[1:] for t in cpu]
+          and card[-1][2] == 1,
+          f"fp16 parity: skip pattern and scale trace differ: card "
+          f"{card}, cpu {cpu}")
+    applied = [i for i in range(len(batches)) if i != FP16_POISON_STEP]
+    got = [card[i][0] for i in applied]
+    want = [cpu[i][0] for i in applied]
+    check(np.allclose(got, want, rtol=FP16_PARITY_RTOL, atol=0.0),
+          f"fp16 parity: applied losses card {got} vs cpu {want}")
+    n = cfg.num_layers * len(batches)
+    check_all_fp16("fp16 parity", launches, {"B1": n, "B3": n})
+    print(f"fp16 parity (2 layers, hidden 1024, vocab {FP16_PARITY_VOCAB}, "
+          f"1 x {FP16_PARITY_SEQ} tokens, fp16 from scale "
+          f"2^16, Adam, inf in a compute param before step "
+          f"{FP16_POISON_STEP + 1}): card (loss, scale, skipped) {card}, "
+          f"cpu {cpu}; applied losses within rtol {FP16_PARITY_RTOL} (max "
+          f"rel diff {max(abs(a - b) / abs(b) for a, b in zip(got, want)):.3g})")
+    results["fp16_parity"] = {"card": card, "cpu": cpu,
+                              "launches": launches}
+    return launches
+
+
+ROLLBACK_RESILIENCE = {"enabled": True, "policy": "rollback",
+                       "divergence_patience": 2}
+
+
+def phase_rollback(card, results, save_dir, run_a):
+    """20. A fresh :func:`checkpoint_setup` GPT-2-medium (bf16, other
+    weights) with ``resilience`` ``ROLLBACK_RESILIENCE`` rolling back to
+    ``save_dir`` (phase 15's committed step-3 checkpoint): one element of
+    its fp32 master is set to inf and cast into the compute params, so
+    its first two steps have non-finite gradients (a compute-parameter
+    poison alone would heal at the step's cast from the master, as in
+    the JAX engine), are skipped, and the second rolls back.  The next
+    three steps equal phase 15's run A, steps 4-6, bitwise in losses and
+    in the final master.  Prints the rollback's wall time (the load
+    included) beside phase 15's load."""
+    config = dict(CKPT_CONFIG, resilience=dict(ROLLBACK_RESILIENCE,
+                                               checkpoint_dir=save_dir))
+    engine, cfg = checkpoint_setup(SEED + 9, config)
+    manager, rollback_s = engine._rollback_mgr, []
+    restore = manager.rollback
+
+    def timed_rollback(reason=""):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = restore(reason=reason)
+        torch.cuda.synchronize()
+        rollback_s.append(time.perf_counter() - t0)
+        return path
+
+    manager.rollback = timed_rollback
+    with torch.no_grad():
+        engine.master.view(-1)[0] = float("inf")
+        engine._refresh_params()
+    bad = [float(engine.train_batch()) for _ in range(2)]
+    check(not any(math.isfinite(x) for x in bad)
+          and manager.rollbacks_used == 1 and len(rollback_s) == 1
+          and engine.global_steps == 3 and engine.micro_steps == 3,
+          f"rollback: losses {bad}, {manager.rollbacks_used} rollbacks, at "
+          f"step {engine.global_steps}")
+    losses, step_s, _, launches = timed_steps(engine, 3)
+    check_step_launches("rollback", launches, 3, cfg.num_layers)
+    check(losses == run_a["losses"], f"rollback: losses {losses} after the "
+          f"rollback differ from run A's {run_a['losses']}")
+    check(torch.equal(engine.master.cpu(), run_a["master"]),
+          "rollback: the final master differs from run A's")
+    receipt = {"card": card, "poisoned_losses": bad,
+               "rollback_s": rollback_s[0],
+               "checkpoint_load_s": run_a["load_s"],
+               "losses": losses, "step_ms": [1e3 * x for x in step_s],
+               "skipped_steps": engine.skipped_steps}
+    print(f"rollback (GPT-2-medium, bf16, resilience policy rollback, "
+          f"patience 2; {card}): two poisoned steps skipped, the guard "
+          f"rolled back to global_step3 in {rollback_s[0]:.2f} s (phase 15's "
+          f"load {run_a['load_s']:.2f} s); the next 3 steps equal run A's "
+          f"bitwise in losses and master")
+    print("rollback receipt:", json.dumps(receipt))
+    results["rollback"] = receipt
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row):
@@ -2314,11 +2840,20 @@ def main(argv=None):
     print(f"env: kernels built in {build_s:.1f} s ({list(op_builder.SOURCES)})")
     results["env"] = {"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda, "build_seconds": build_s}
+    # wall seconds of each phase, for the run's time limit
+    phase_s, clock = {}, [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
 
     # 2. kernel: B1 against its plain version
     max_err, timings = phase_kernel(card, results)
+    lap("kernel")
     # 3. backward: B2a+B2b, B3 and B4 against their plain versions
     bwd_err, bwd_timings = phase_backward(card, results)
+    lap("backward")
 
     # 4. serve, at the full width of GPT-2-medium
     config = GPT2Config.gpt2_medium()
@@ -2326,33 +2861,64 @@ def main(argv=None):
     params = random_params(config, seed=SEED)
     serve_launches = phase_serve(card, model, params, results)
     check(serve_launches > 0, "the serve path never launched B1")
+    lap("serve")
     # 5. parity, fp32 on the card against the CPU
     phase_parity(model, params, results)
+    lap("parity")
     del model, params
 
     # 6. train, GPT-2-medium at full width and depth
     train_launches = phase_train(card, results)
+    lap("train")
     # 7. train parity, card against CPU
     parity_launches = phase_train_parity(results)
+    lap("train_parity")
 
     # 8. sparse kernel: B5a and B5b against their plain versions
     sparse_err, sparse_timings = phase_sparse_kernel(card, results)
+    lap("sparse_kernel")
     # 9. sparse train, GPT-2-medium at seq 4096
     sparse_launches = phase_sparse_train(card, results)
+    lap("sparse_train")
     # 10. sparse train parity, card against CPU
     sparse_parity_launches = phase_sparse_parity(results)
+    lap("sparse_train_parity")
 
     # 11. agg kernel: B6a, B6b and B6c against their plain versions and B5
     agg_err, agg_timings = phase_agg_kernel(card, results)
+    lap("agg_kernel")
     # 12. bert train, BERT-large at seq 128
     bert_launches = phase_bert_train(card, results)
+    lap("bert_train")
     # 13. bert sparse train, BERT-large at seq 4096 through B6
     bert_sparse_launches = phase_bert_sparse_train(card, results)
+    lap("bert_sparse_train")
     # 14. bert parity, card against CPU, dense and sparse
     bert_parity_launches = phase_bert_parity(results)
-    # 15. checkpoint: save GPT-2-medium between steps, resume bitwise
-    checkpoint_launches = phase_checkpoint(card, results,
-                                           results["train"]["step_ms"])
+    lap("bert_parity")
+    save_dir = checkpoint_dir()
+    try:
+        # 15. checkpoint: save GPT-2-medium between steps, resume bitwise
+        checkpoint_launches, run_a = phase_checkpoint(
+            card, results, results["train"]["step_ms"], save_dir)
+        lap("checkpoint")
+        # 16. fp16 kernels: B1, B2a, B2b, B3 (B4 inside) against plain
+        fp16_err, fp16_timing = phase_fp16_kernel(card, results)
+        lap("fp16_kernel")
+        # 17. fp16 train, GPT-2-medium under the dynamic loss scaler
+        fp16_launches = phase_fp16_train(card, results)
+        lap("fp16_train")
+        # 18. fp16 train, BERT-large
+        fp16_bert_launches = phase_fp16_bert_train(card, results)
+        lap("fp16_bert_train")
+        # 19. fp16 parity, card against CPU, with a forced overflow
+        fp16_parity_launches = phase_fp16_parity(results)
+        lap("fp16_parity")
+        # 20. rollback to phase 15's checkpoint at full width
+        rollback_launches = phase_rollback(card, results, save_dir, run_a)
+        lap("rollback")
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -2360,9 +2926,13 @@ def main(argv=None):
              "bert_train": bert_launches,
              "bert_sparse_train": bert_sparse_launches,
              "bert_parity": bert_parity_launches,
-             "checkpoint": checkpoint_launches}
+             "checkpoint": checkpoint_launches,
+             "fp16_train": fp16_launches,
+             "fp16_bert_train": fp16_bert_launches,
+             "fp16_parity": fp16_parity_launches,
+             "rollback": rollback_launches}
     launches = {name: sum(path[name] for path in paths.values())
-                for name in KERNEL_COUNTERS}
+                for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches
     results["launches"] = dict(paths, serve={"B1": serve_launches})
     check(all(n > 0 for n in launches.values()),
@@ -2404,7 +2974,20 @@ def main(argv=None):
         kernel_entry("flash_block_sparse_agg_bwd_dkv (B6c)", AGG_SOURCE,
                      SPARSE_REF + ":402", launches["B6c"], agg_err["dkv"],
                      agg_timings["dkv"])]
+    # B1-B4's fp16 instantiations: their main-path launches, errors
+    # against the plain versions and times (phase 16)
+    for entry, name in zip(kernels, ("B1", "B2a", "B2b", "B3", "B4")):
+        row = fp16_timing[name]
+        entry.update(fp16_launches=launches[f"{name} fp16"],
+                     fp16_max_abs_err=fp16_err[name],
+                     fp16_ms=row["kernel_ms"],
+                     fp16_plain_ms=row["plain_ms"],
+                     fp16_bound_ms=row["bound_ms"],
+                     fp16_library_ms=row["library_ms"])
     results["kernels"] = kernels
+    results["phase_seconds"] = phase_s
+    print("phase seconds:", json.dumps({k: round(v, 1)
+                                        for k, v in phase_s.items()}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

@@ -6,11 +6,14 @@ package's module paths (``deepspeed_tpu_torch/<path>`` ports
 ``deepspeed_tpu``.  It serves and trains: ``InferenceEngine`` serves the
 GPT-2 family through a paged KV cache, and ``initialize`` builds the
 training engine (flat fp32 master, Adam/AdamW or Lamb, ZeRO stages 0–2
-at one rank, bf16 or fp32).  Attention runs on hand-written CUDA
-flash-attention kernels (``csrc/transformer/``): the forward, the dq and
-dk/dv backward kernels, the fused single-tile backward and in-kernel
-dropout.  ``checkpoint`` saves and resumes a run in the JAX package's
-checkpoint files, so a run moves between the two packages.
+at one rank, bf16, fp16 under the dynamic loss scaler, or fp32).
+Attention runs on hand-written CUDA flash-attention kernels
+(``csrc/transformer/``): the forward, the dq and dk/dv backward kernels,
+the fused single-tile backward and in-kernel dropout.  ``checkpoint``
+saves and resumes a run in the JAX package's checkpoint files, so a run
+moves between the two packages; ``resilience`` skips non-finite steps,
+rolls back to the last checkpoint on divergence and watches for hung
+steps.
 """
 
 from . import checkpoint  # noqa: F401

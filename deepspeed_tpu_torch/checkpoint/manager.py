@@ -24,15 +24,11 @@ import threading
 import time
 import weakref
 
+from ..resilience.constants import EXIT_STEP_HANG
 from . import writer
 from .constants import META_JSON, OLD_SUFFIX, TMP_SUFFIX
 
 logger = logging.getLogger(__name__)
-
-# the exit code of a hung step, ``EXIT_STEP_HANG`` of the JAX package's
-# ``resilience/constants.py`` (ROADMAP A15 ports that module): the drain
-# watchdog exits with it so a supervisor reads lost capacity, not a crash
-EXIT_STEP_HANG = 85
 
 # RLocks throughout: the preemption handler runs ON the main thread and
 # may interrupt a sync commit that already holds the dir/registry lock —

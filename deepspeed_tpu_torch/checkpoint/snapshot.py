@@ -8,7 +8,8 @@ and JSON-able metadata that a background writer thread serializes
 without touching live engine state or any CUDA tensor.  Client state is
 pickled eagerly for the same reason.
 
-The files are the JAX package's, key for key: model states in their
+The files are the JAX package's, key for key (``meta.json`` with the
+loss scaler's state and the skipped-step count): model states in their
 NATIVE dtype, keyed by the ``/``-joined tree path; the flat fp32 master
 and the optimizer's moments unpadded (so a checkpoint loads at another
 ZeRO stage or data-parallel degree); the optimizer's step as a 0-d
@@ -29,13 +30,6 @@ import torch
 
 from .constants import (CLIENT_STATE_PKL, META_JSON, MODEL_STATES_NPZ,
                         OPTIM_STATES_NPZ)
-
-# The loss-scale state of a run without fp16: the JAX engine writes its
-# scaler's initial state (static scale 1.0), which a bf16 or fp32 step
-# never updates.  The port has no loss scaler (ROADMAP A4).
-STATIC_SCALE_STATE = {"cur_scale": 1.0, "cur_iter": 0,
-                      "last_overflow_iter": -1, "cur_hysteresis": 1}
-
 
 def encode_array(t):
     """A CPU tensor -> (npz-safe numpy array, recorded dtype name or
@@ -130,9 +124,11 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
         "global_steps": engine.global_steps,
         "micro_steps": engine.micro_steps,
         "global_samples": engine.global_samples,
-        # no step is skipped without fp16's overflow check
-        "skipped_steps": 0,
-        "scale_state": dict(STATIC_SCALE_STATE),
+        "skipped_steps": engine.skipped_steps,
+        # the loss scaler's state (a run without fp16 keeps its initial
+        # static scale 1.0, as the JAX engine's does): a float and three
+        # ints, in the JAX package's key order
+        "scale_state": engine._scale_state._asdict(),
         # the JAX engine's count of optimizer updates (its dropout-stream
         # counter), one per global step here
         "ustep": engine.global_steps,

@@ -3,11 +3,13 @@
 //
 // Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py:
 //   B2a `_bwd_dq_kernel`    (:263, launched at :691)
-//       -> flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//       -> flash_bwd_dq_mma_kernel (bf16, fp16), flash_bwd_dq_kernel (fp32)
 //   B2b `_bwd_dkv_kernel`   (:311, launched at :718)
-//       -> flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (fp32)
+//       -> flash_bwd_dkv_mma_kernel (bf16, fp16), flash_bwd_dkv_kernel
+//          (fp32)
 //   B3  `_bwd_fused_kernel` (:378, launched at :660)
-//       -> flash_bwd_fused_mma_kernel (bf16), flash_bwd_fused_kernel (fp32)
+//       -> flash_bwd_fused_mma_kernel (bf16, fp16), flash_bwd_fused_kernel
+//          (fp32)
 // They compute what those kernels compute: P = exp(S − lse) recomputed
 // from the forward's logsumexp, with S scaled and masked to NEG_INF as in
 // the forward (so masked keys and fully masked rows give P = 0 and
@@ -21,6 +23,17 @@
 // two runs give bitwise-equal gradients (which is why dq and dk/dv are
 // two kernels, as in the JAX package, and not one kernel adding dq
 // atomically).
+//
+// fp16.  The tensor-core kernels are templates on their 16-bit element
+// type: the fp16 instantiations run the bf16 design with the `.f16`
+// form of `mma.sync` and round to fp16 where the bf16 ones round to bf16
+// (P_kept, dS, the outputs).  Under a dynamic loss scale dO carries the
+// scale, so dS = P∘(dP − Δ) can pass fp16's 65504 and round to inf, as
+// the JAX kernel's `ds.astype(q.dtype)` does: that inf is the overflow
+// the scaler skips.  Nothing here swallows a non-finite value: P of a
+// visible score is ex2 of it (NaN and inf stay non-finite), masked P is
+// exactly 0 and 0·inf = NaN as in the plain version, and no max or
+// guard sits between dP and the products.
 //
 // Design of the bf16 B2a and B2b (tensor cores, flash_mma.cuh).  The TPU
 // grids run their third axis in order and carry dq (or dk, dv) in VMEM
@@ -109,6 +122,7 @@
 // 11 µs: bound by bytes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -438,7 +452,7 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
   }
 }
 
-// ------------------------------------------------ B2a and B2b, bf16 (mma)
+// ----------------------------------------- B2a and B2b, bf16 and fp16 (mma)
 using bf16 = __nv_bfloat16;
 using ds_flash::c_to_a;
 using ds_flash::cp_async_commit;
@@ -451,10 +465,10 @@ using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
-using ds_flash::mma_bf16;
+using ds_flash::mma16;
 using ds_flash::MmaTile;
 using ds_flash::OwnRows;
-using ds_flash::pack_bf16;
+using ds_flash::pack16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBitWords = 2 * kMmaTileRows;  // keep bits of a 64x64 tile
@@ -476,26 +490,26 @@ constexpr int mma_smem_bytes() {
          2 * kBitWords * static_cast<int>(sizeof(uint32_t));
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
+    flash_bwd_dq_mma_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             const float* __restrict__ kv_mask,
-                            bf16* __restrict__ dq, int heads, int s,
+                            T* __restrict__ dq, int heads, int s,
                             int kv_len, Strides st, float scale, int causal,
                             const int* __restrict__ seed, uint32_t thresh,
                             float inv_keep) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);
-  bf16* o_s = q_s + Tile::kElems;
-  bf16* k_s = o_s + Tile::kElems;      // two stages
-  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  T* q_s = reinterpret_cast<T*>(mma_smem);
+  T* o_s = q_s + Tile::kElems;
+  T* k_s = o_s + Tile::kElems;      // two stages
+  T* v_s = k_s + 2 * Tile::kElems;  // two stages
   float* mask_s = reinterpret_cast<float*>(v_s + 2 * Tile::kElems);
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + 4 * kMmaTileRows);
 
@@ -512,8 +526,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
 
-  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
-  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  const T* kbase = k + b * st.k[0] + h * st.k[2];
+  const T* vbase = v + b * st.v[0] + h * st.v[2];
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
   // causal: rows q0 .. q0+63 see no key past q0+63
   const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
@@ -555,7 +569,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  OwnRows<D> qf, of;
+  OwnRows<D, T> qf, of;
 
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) issue(j + 1);
@@ -569,8 +583,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
       qf.init(q_s, wr, lane);
       of.init(o_s, wr, lane);
     }
-    const bf16* kt_s = k_s + (j & 1) * Tile::kElems;
-    const bf16* vt_s = v_s + (j & 1) * Tile::kElems;
+    const T* kt_s = k_s + (j & 1) * Tile::kElems;
+    const T* vt_s = v_s + (j & 1) * Tile::kElems;
     const float* mt = mask_s + (j & 1) * kMmaTileRows;
     const int kt0 = j * kMmaTileRows;
     // keep bits of the thread's rows g and g+8: one word per 32 keys
@@ -601,10 +615,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
           uint32_t bk[4], bv[4];
           ldsm_b<D>(bk, kt_s, c + 16 * nn, 16 * kk, lane);
           ldsm_b<D>(bv, vt_s, c + 16 * nn, 16 * kk, lane);
-          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
-          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
-          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
-          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+          mma16<T>(sc[2 * nn], aq, bk[0], bk[1]);
+          mma16<T>(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma16<T>(dp[2 * nn], ao, bv[0], bv[1]);
+          mma16<T>(dp[2 * nn + 1], ao, bv[2], bv[3]);
         }
       }
       // dS = P∘(dP − Δ) in place of S; the thread's keys are
@@ -629,17 +643,17 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
           sc[n][e] = p * (d - dlt[hh]);
         }
       }
-      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+      // dq += dS·K, dS as T A fragments straight from the C fragments
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t a[4];
-        c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a<T>(a, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
         for (int nd = 0; nd < D / 16; ++nd) {
           uint32_t bk[4];
           ldsm_bt<D>(bk, kt_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
-          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+          mma16<T>(acc[2 * nd], a, bk[0], bk[1]);
+          mma16<T>(acc[2 * nd + 1], a, bk[2], bk[3]);
         }
       }
     }
@@ -651,25 +665,25 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int i = q0 + wr + g + 8 * hh;
     if (i < s) {
-      bf16* out = dq + b * st.dq[0] + (int64_t)i * st.dq[1] + h * st.dq[2];
+      T* out = dq + b * st.dq[0] + (int64_t)i * st.dq[1] + h * st.dq[2];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack16<T>(
             acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
-    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
+    flash_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const float* __restrict__ kv_mask,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             T* __restrict__ dk, T* __restrict__ dv,
                              int heads, int s, int kv_len, Strides st,
                              float scale, int causal,
                              const int* __restrict__ seed, uint32_t thresh,
@@ -677,10 +691,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);
-  bf16* v_s = k_s + Tile::kElems;
-  bf16* q_s = v_s + Tile::kElems;      // two stages
-  bf16* o_s = q_s + 2 * Tile::kElems;  // two stages
+  T* k_s = reinterpret_cast<T*>(mma_smem);
+  T* v_s = k_s + Tile::kElems;
+  T* q_s = v_s + Tile::kElems;      // two stages
+  T* o_s = q_s + 2 * Tile::kElems;  // two stages
   float* lse_s = reinterpret_cast<float*>(o_s + 2 * Tile::kElems);
   float* dlt_s = lse_s + 2 * kMmaTileRows;
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(dlt_s + 2 * kMmaTileRows);
@@ -696,8 +710,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const int k0 = blockIdx.x * kMmaTileRows;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
 
-  const bf16* qbase = q + b * st.q[0] + h * st.q[2];
-  const bf16* obase = dout + b * st.o[0] + h * st.o[2];
+  const T* qbase = q + b * st.q[0] + h * st.q[2];
+  const T* obase = dout + b * st.o[0] + h * st.o[2];
   const float* lrow = lse + (int64_t)bh * s;
   const float* drow = delta + (int64_t)bh * s;
   // causal: rows before k0 see none of this block's keys
@@ -738,7 +752,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  OwnRows<D> kf, vf;
+  OwnRows<D, T> kf, vf;
 
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) issue(j + 1);
@@ -752,8 +766,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
       kf.init(k_s, wk, lane);
       vf.init(v_s, wk, lane);
     }
-    const bf16* qt_s = q_s + (j & 1) * Tile::kElems;
-    const bf16* ot_s = o_s + (j & 1) * Tile::kElems;
+    const T* qt_s = q_s + (j & 1) * Tile::kElems;
+    const T* ot_s = o_s + (j & 1) * Tile::kElems;
     const float* lt = lse_s + (j & 1) * kMmaTileRows;
     const float* dt = dlt_s + (j & 1) * kMmaTileRows;
     const uint32_t* bt = bits_s + (j & 1) * kBitWords;
@@ -777,10 +791,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
           uint32_t bq[4], bo[4];
           ldsm_b<D>(bq, qt_s, c + 16 * nn, 16 * kk, lane);
           ldsm_b<D>(bo, ot_s, c + 16 * nn, 16 * kk, lane);
-          mma_bf16(sc[2 * nn], ak, bq[0], bq[1]);
-          mma_bf16(sc[2 * nn + 1], ak, bq[2], bq[3]);
-          mma_bf16(dp[2 * nn], av, bo[0], bo[1]);
-          mma_bf16(dp[2 * nn + 1], av, bo[2], bo[3]);
+          mma16<T>(sc[2 * nn], ak, bq[0], bq[1]);
+          mma16<T>(sc[2 * nn + 1], ak, bq[2], bq[3]);
+          mma16<T>(dp[2 * nn], av, bo[0], bo[1]);
+          mma16<T>(dp[2 * nn + 1], av, bo[2], bo[3]);
         }
       }
       // P_keptᵀ in place of Sᵀ, dSᵀ in place of dPᵀ; the thread's keys
@@ -822,17 +836,17 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t ap[4], as[4];
-        c_to_a(ap, sc[2 * kk], sc[2 * kk + 1]);
-        c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<T>(ap, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a<T>(as, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int nd = 0; nd < D / 16; ++nd) {
           uint32_t bo[4], bq[4];
           ldsm_bt<D>(bo, ot_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
-          mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+          mma16<T>(dva[2 * nd], ap, bo[0], bo[1]);
+          mma16<T>(dva[2 * nd + 1], ap, bo[2], bo[3]);
           ldsm_bt<D>(bq, qt_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
-          mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+          mma16<T>(dka[2 * nd], as, bq[0], bq[1]);
+          mma16<T>(dka[2 * nd + 1], as, bq[2], bq[3]);
         }
       }
     }
@@ -848,10 +862,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                           h * st.dkv[2] + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack16<T>(
             dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+            pack16<T>(dva[n][2 * hh], dva[n][2 * hh + 1]);
       }
     }
   }
@@ -1005,8 +1019,8 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
-// ------------------------------------------------------------- B3, bf16
-// Warps of the bf16 B3: above kFusedNarrowRows query rows 8, which hold
+// ----------------------------------------------------- B3, bf16 and fp16
+// Warps of the bf16 (and fp16) B3: above kFusedNarrowRows query rows 8, which hold
 // BERT's 128 rows (and keys) at 16 a warp, one block an SM (its 142.5 KB
 // of shared memory leave no room for a second); at or below it 4, whose
 // blocks are small enough for three an SM at head_dim 64 (registers and
@@ -1023,8 +1037,8 @@ __host__ __device__ inline int fused_keys(int kv_len) {
   return (kv_len + 31) / 32 * 32;
 }
 
-// Shared-memory bytes of the bf16 B3: Q and dO [rows, d+8] and K and V
-// [keys, d+8] in bf16, P_kept and dS [rows, keys+8] in bf16 (8 values of
+// Shared-memory bytes of the bf16 or fp16 B3: Q and dO [rows, d+8] and K
+// and V [keys, d+8], P_kept and dS [rows, keys+8], 16-bit (8 values of
 // padding a row, as MmaTile), the key mask [keys] in fp32 and the keep
 // bits [rows, keys/32].  Largest s = kv_len that fits 232,448 bytes: 160
 // at d = 64, 128 at d = 128.
@@ -1036,10 +1050,11 @@ __host__ __device__ inline int64_t fused_mma_smem_bytes(int d, int s,
 }
 
 // A fragment of the 16x16 block (rows m0 .., columns k0 ..) of tileᵀ,
-// where `tile` is a bf16 tile with rows of `row` values whose rows are
+// where `tile` is a 16-bit tile with rows of `row` values whose rows are
 // the k index and its columns the m index (P_kept and dS, whose rows are
 // queries, as the A operand of a product over queries): ldmatrix.trans
-__device__ __forceinline__ void ldsm_at(uint32_t (&a)[4], const bf16* tile,
+template <typename T>
+__device__ __forceinline__ void ldsm_at(uint32_t (&a)[4], const T* tile,
                                         int row, int k0, int m0, int lane) {
   ds_flash::ldmatrix_x4_trans(
       a, tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * row + m0 +
@@ -1047,17 +1062,17 @@ __device__ __forceinline__ void ldsm_at(uint32_t (&a)[4], const bf16* tile,
 }
 
 // The design is described at the top of this file.  NW warps.
-template <int D, int NW>
+template <typename T, int D, int NW>
 __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
-    flash_bwd_fused_mma_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               const bf16* __restrict__ dout,
+    flash_bwd_fused_mma_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                const float* __restrict__ kv_mask,
-                               bf16* __restrict__ dq, bf16* __restrict__ dk,
-                               bf16* __restrict__ dv, int heads, int s,
+                               T* __restrict__ dq, T* __restrict__ dk,
+                               T* __restrict__ dv, int heads, int s,
                                int kv_len, Strides st, float scale,
                                int causal, const int* __restrict__ seed,
                                uint32_t thresh, float inv_keep) {
@@ -1070,12 +1085,12 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
   const int keys = fused_keys(kv_len);
   const int prow = keys + 8;  // padded row of P_kept and dS
   const int words = keys / 32;
-  bf16* q_s = reinterpret_cast<bf16*>(fused_smem);
-  bf16* o_s = q_s + rows * ROW;
-  bf16* k_s = o_s + rows * ROW;
-  bf16* v_s = k_s + keys * ROW;
-  bf16* p_s = v_s + keys * ROW;    // P_kept
-  bf16* ds_s = p_s + rows * prow;  // dS
+  T* q_s = reinterpret_cast<T*>(fused_smem);
+  T* o_s = q_s + rows * ROW;
+  T* k_s = o_s + rows * ROW;
+  T* v_s = k_s + keys * ROW;
+  T* p_s = v_s + keys * ROW;    // P_kept
+  T* ds_s = p_s + rows * prow;  // dS
   float* mask_s = reinterpret_cast<float*>(ds_s + rows * prow);
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + keys);
 
@@ -1090,7 +1105,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
 
   // Q, dO, K and V by cp.async, zero past s and kv_len
-  auto load = [&](bf16* dst, const bf16* src, int64_t stride, int n,
+  auto load = [&](T* dst, const T* src, int64_t stride, int n,
                   int lim) {
     for (int e = tid; e < n * CH; e += THREADS) {
       const int r = e / CH;
@@ -1137,7 +1152,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
       lse2[hh] = ok ? lse[(int64_t)bh * s + row[hh]] * kLog2e : 0.f;
       dlt[hh] = ok ? delta[(int64_t)bh * s + row[hh]] : 0.f;
     }
-    OwnRows<D> qf, of;
+    OwnRows<D, T> qf, of;
     qf.init(q_s, r0, lane);
     of.init(o_s, r0, lane);
     float acc[D / 8][4];
@@ -1163,10 +1178,10 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
           uint32_t bk[4], bv[4];
           ldsm_b<D>(bk, k_s, c + 16 * nn, 16 * kk, lane);
           ldsm_b<D>(bv, v_s, c + 16 * nn, 16 * kk, lane);
-          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
-          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
-          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
-          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+          mma16<T>(sc[2 * nn], aq, bk[0], bk[1]);
+          mma16<T>(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma16<T>(dp[2 * nn], ao, bv[0], bv[1]);
+          mma16<T>(dp[2 * nn + 1], ao, bv[2], bv[3]);
         }
       }
       // P_kept in place of S, dS in place of dP; the thread's keys are
@@ -1195,39 +1210,39 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
           dp[n][e] = p * (d - dlt[hh]);
         }
       }
-      // P_kept and dS into shared memory as bf16
+      // P_kept and dS into shared memory as T
 #pragma unroll
       for (int n = 0; n < KC / 8; ++n)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int off = (r0 + g + 8 * hh) * prow + c + 8 * n + 2 * t;
           *reinterpret_cast<uint32_t*>(p_s + off) =
-              pack_bf16(sc[n][2 * hh], sc[n][2 * hh + 1]);
+              pack16<T>(sc[n][2 * hh], sc[n][2 * hh + 1]);
           *reinterpret_cast<uint32_t*>(ds_s + off) =
-              pack_bf16(dp[n][2 * hh], dp[n][2 * hh + 1]);
+              pack16<T>(dp[n][2 * hh], dp[n][2 * hh + 1]);
         }
-      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+      // dq += dS·K, dS as T A fragments straight from the C fragments
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t a[4];
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int nd = 0; nd < D / 16; ++nd) {
           uint32_t bk[4];
           ldsm_bt<D>(bk, k_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
-          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+          mma16<T>(acc[2 * nd], a, bk[0], bk[1]);
+          mma16<T>(acc[2 * nd + 1], a, bk[2], bk[3]);
         }
       }
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (row[hh] < s) {
-        bf16* out =
+        T* out =
             dq + b * st.dq[0] + (int64_t)row[hh] * st.dq[1] + h * st.dq[2];
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack_bf16(
+          *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) = pack16<T>(
               acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
       }
     }
@@ -1250,11 +1265,11 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
       for (int nd = 0; nd < D / 16; ++nd) {
         uint32_t bo[4], bq[4];
         ldsm_bt<D>(bo, o_s, i0, 16 * nd, lane);
-        mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
-        mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+        mma16<T>(dva[2 * nd], ap, bo[0], bo[1]);
+        mma16<T>(dva[2 * nd + 1], ap, bo[2], bo[3]);
         ldsm_bt<D>(bq, q_s, i0, 16 * nd, lane);
-        mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
-        mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+        mma16<T>(dka[2 * nd], as, bq[0], bq[1]);
+        mma16<T>(dka[2 * nd + 1], as, bq[2], bq[3]);
       }
     }
     // dk and dv into the warp's own K and V rows, then 16-byte stores
@@ -1264,9 +1279,9 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         *reinterpret_cast<uint32_t*>(k_s + r * ROW + 8 * n + 2 * t) =
-            pack_bf16(dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
+            pack16<T>(dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
         *reinterpret_cast<uint32_t*>(v_s + r * ROW + 8 * n + 2 * t) =
-            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+            pack16<T>(dva[n][2 * hh], dva[n][2 * hh + 1]);
       }
     }
     __syncwarp();
@@ -1299,6 +1314,11 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the 16-bit types the tensor-core kernels take
+template <typename T>
+constexpr bool kMmaType =
+    std::is_same<T, bf16>::value || std::is_same<T, __half>::value;
+
 template <int D, typename Kernel>
 int set_mma_smem(Kernel kernel) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -1308,17 +1328,17 @@ int set_mma_smem(Kernel kernel) {
 
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kMmaType<T>) {
     const dim3 grid((a.s + kMmaTileRows - 1) / kMmaTileRows,
                     a.batch * a.heads);
-    const int err = set_mma_smem<D>(flash_bwd_dq_mma_kernel<D>);
+    const int err = set_mma_smem<D>(flash_bwd_dq_mma_kernel<T, D>);
     if (err != 0) return err;
-    flash_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
+    flash_bwd_dq_mma_kernel<T, D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
                                  a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dq),
+        static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
         a.inv_keep);
     return static_cast<int>(cudaGetLastError());
@@ -1338,18 +1358,18 @@ int launch_dq(const Args& a) {
 
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kMmaType<T>) {
     const dim3 grid((a.kv_len + kMmaTileRows - 1) / kMmaTileRows,
                     a.batch * a.heads);
-    const int err = set_mma_smem<D>(flash_bwd_dkv_mma_kernel<D>);
+    const int err = set_mma_smem<D>(flash_bwd_dkv_mma_kernel<T, D>);
     if (err != 0) return err;
-    flash_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
+    flash_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, mma_smem_bytes<D>(),
                                   a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
+        static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
         a.causal, a.seed, a.thresh, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   } else {
@@ -1366,29 +1386,29 @@ int launch_dkv(const Args& a) {
   }
 }
 
-template <int D, int NW>
+template <typename T, int D, int NW>
 int launch_fused_mma(const Args& a) {
   const int bytes = static_cast<int>(fused_mma_smem_bytes(D, a.s, a.kv_len));
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused_mma_kernel<D, NW>,
+      flash_bwd_fused_mma_kernel<T, D, NW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_fused_mma_kernel<D, NW><<<a.batch * a.heads, 32 * NW, bytes,
+  flash_bwd_fused_mma_kernel<T, D, NW><<<a.batch * a.heads, 32 * NW, bytes,
                                       a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.kv_mask), static_cast<bf16*>(a.dq),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.heads, a.s,
+      static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
       a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch_fused(const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return fused_rows(a.s) > kFusedNarrowRows ? launch_fused_mma<D, 8>(a)
-                                               : launch_fused_mma<D, 4>(a);
+  if constexpr (kMmaType<T>) {
+    return fused_rows(a.s) > kFusedNarrowRows ? launch_fused_mma<T, D, 8>(a)
+                                               : launch_fused_mma<T, D, 4>(a);
   } else {
     // fp32: the scalar design
     const size_t bytes = sizeof(float) * fused_smem_floats(D, a.s, a.kv_len);
@@ -1420,18 +1440,21 @@ int launch(int which, const Args& a) {
 }  // namespace
 
 // Shared memory (bytes) B3 needs for one b·h at these sizes, for dtype
-// 0 = float32 (the scalar kernel) or 1 = bfloat16 (the tensor-core one);
+// 0 = float32 (the scalar kernel), 1 = bfloat16 or 2 = float16 (the
+// tensor-core one);
 // the wrapper dispatches to B3 only when it is at most the 232,448 bytes
 // a Hopper block may have.
 extern "C" int64_t ds_flash_attention_bwd_fused_smem(int dtype, int head_dim,
                                                      int s, int kv_len) {
-  if (dtype == 1) return fused_mma_smem_bytes(head_dim, s, kv_len);
+  if (dtype == 1 || dtype == 2)
+    return fused_mma_smem_bytes(head_dim, s, kv_len);
   return static_cast<int64_t>(sizeof(float)) *
          fused_smem_floats(head_dim, s, kv_len);
 }
 
 // which: 0 = B2a (writes dq), 1 = B2b (writes dk, dv), 2 = B3 (all three).
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout are [b, s|kv_len, h, d]
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, k, v, dout are
+// [b, s|kv_len, h, d]
 // of that dtype with the last dim contiguous; `strides` points to 18
 // host int64 element strides: (batch, seq, head) of q, k, v, dout, dq and
 // of dk/dv (which share them).  lse and delta are contiguous fp32
@@ -1480,5 +1503,7 @@ extern "C" int ds_flash_attention_bwd(
   if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(which, a);
   if (dtype == 1 && head_dim == 128)
     return launch<__nv_bfloat16, 128>(which, a);
+  if (dtype == 2 && head_dim == 64) return launch<__half, 64>(which, a);
+  if (dtype == 2 && head_dim == 128) return launch<__half, 128>(which, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -70,6 +70,13 @@
 // `examples/profile_torch_b1.py` prints these counts and times the
 // bound at other block counts side by side (PERF.md §6).
 //
+// fp16.  flash_fwd_mma_kernel is a template on its 16-bit element type;
+// the fp16 instantiation is the same design with the `.f16` form of
+// `mma.sync` and P and out rounded to fp16.  A non-finite score or value
+// stays non-finite: the running max drops a NaN (fmaxf), but that
+// element's P is ex2(NaN) = NaN, so l, out and lse are NaN, as the plain
+// version's; a score of +inf gives m = inf and P = ex2(inf − inf) = NaN.
+//
 // The fp32 kernel keeps the earlier scalar design: the only tensor-core
 // product for fp32 operands is TF32, which misses the fp32 forward
 // tolerance (2e-5) the checks hold, and fp32 runs only in the parity and
@@ -81,6 +88,7 @@
 // banks.  Every multiply-add there is a scalar FMA on the CUDA cores.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -254,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 
-// ---------------------------------------------------------- B1, bf16 (mma)
+// ------------------------------------------------ B1, bf16 and fp16 (mma)
 using bf16 = __nv_bfloat16;
 using ds_flash::c_to_a;
 using ds_flash::cp_async_commit;
@@ -268,9 +276,9 @@ using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
-using ds_flash::mma_bf16;
+using ds_flash::mma16;
 using ds_flash::MmaTile;
-using ds_flash::pack_bf16;
+using ds_flash::pack16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -294,16 +302,16 @@ constexpr int fwd_mma_smem_bytes() {
 constexpr int kMinBlocks64 = 3;
 constexpr int kMinBlocks64Dropout = 4;
 
-// kDrop: dropout on (a seed is given); without it the kernel draws and
-// tests no keep bits.
-template <int D, bool kDrop>
+// T: the 16-bit element type, bf16 or fp16 (the same design; only the
+// `mma.sync` form and the roundings to T differ).  kDrop: dropout on (a
+// seed is given); without it the kernel draws and tests no keep bits.
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(
     kMmaThreads, D == 64 ? (kDrop ? kMinBlocks64Dropout : kMinBlocks64) : 2)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
+    flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const float* __restrict__ kv_mask,
-                         bf16* __restrict__ out, float* __restrict__ lse,
+                         T* __restrict__ out, float* __restrict__ lse,
                          int heads, int s, int kv_len, int64_t q_sb,
                          int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_ss, int64_t k_sh, int64_t v_sb,
@@ -312,9 +320,9 @@ __global__ void __launch_bounds__(
                          float inv_keep) {
   using Tile = MmaTile<D>;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(fwd_smem);
-  bf16* k_s = q_s + Tile::kElems;      // two stages
-  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  T* q_s = reinterpret_cast<T*>(fwd_smem);
+  T* k_s = q_s + Tile::kElems;      // two stages
+  T* v_s = k_s + 2 * Tile::kElems;  // two stages
   float* mask_s = reinterpret_cast<float*>(v_s + 2 * Tile::kElems);
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(mask_s + 2 * kKeys);
 
@@ -333,8 +341,8 @@ __global__ void __launch_bounds__(
   const uint32_t sk0 = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
   const uint32_t sk1 = kDrop ? static_cast<uint32_t>(seed[1]) : 0u;
 
-  const bf16* kbase = k + b * k_sb + h * k_sh;
-  const bf16* vbase = v + b * v_sb + h * v_sh;
+  const T* kbase = k + b * k_sb + h * k_sh;
+  const T* vbase = v + b * v_sb + h * v_sh;
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
   // causal: rows q0 .. q0+63 see no key past q0+63
   const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
@@ -382,8 +390,8 @@ __global__ void __launch_bounds__(
       for (int kk = 0; kk < D / 16; ++kk)
         ldsm_a<D>(qa[kk], q_s, wr, 16 * kk, lane);
     }
-    const bf16* kt_s = k_s + (j & 1) * Tile::kElems;
-    const bf16* vt_s = v_s + (j & 1) * Tile::kElems;
+    const T* kt_s = k_s + (j & 1) * Tile::kElems;
+    const T* vt_s = v_s + (j & 1) * Tile::kElems;
     const int kt0 = j * kKeys;
 
     // S = Q·Kᵀ over the tile's 64 keys; the thread's keys are
@@ -399,8 +407,8 @@ __global__ void __launch_bounds__(
       for (int nn = 0; nn < kKeys / 16; ++nn) {
         uint32_t bk[4];
         ldsm_b<D>(bk, kt_s, 16 * nn, 16 * kk, lane);
-        mma_bf16(sc[2 * nn], qa[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
+        mma16<T>(sc[2 * nn], qa[kk], bk[0], bk[1]);
+        mma16<T>(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
       }
     }
     // the element test only where the tile holds a key hidden from one of
@@ -458,7 +466,7 @@ __global__ void __launch_bounds__(
                             : 0u;
 
     // P, l and O += P·V, 16 keys at a time: l sums the fp32 undropped P,
-    // the product takes the kept P times 1/keep rounded to bf16
+    // the product takes the kept P times 1/keep rounded to T
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
@@ -477,13 +485,13 @@ __global__ void __launch_bounds__(
         }
       }
       uint32_t a[4];
-      c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+      c_to_a<T>(a, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int nd = 0; nd < D / 16; ++nd) {
         uint32_t bv[4];
         ldsm_bt<D>(bv, vt_s, 16 * kk, 16 * nd, lane);
-        mma_bf16(acc[2 * nd], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * nd + 1], a, bv[2], bv[3]);
+        mma16<T>(acc[2 * nd], a, bv[0], bv[1]);
+        mma16<T>(acc[2 * nd + 1], a, bv[2], bv[3]);
       }
     }
     __syncthreads();  // every warp is done with stage j & 1
@@ -501,7 +509,7 @@ __global__ void __launch_bounds__(
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(q_s + r * Tile::kRow + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
+          pack16<T>(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
     // a row that saw no key keeps m = MAX_FLOOR and l = 0
     if (t == 0 && q0 + r < s)
       lse[(int64_t)bh * s + q0 + r] =
@@ -530,18 +538,19 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
            int64_t v_sh, float scale, int causal, const int* seed,
            uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value ||
+                std::is_same<T, __half>::value) {
     constexpr int kSmem = fwd_mma_smem_bytes<D>();
-    auto kernel = seed ? flash_fwd_mma_kernel<D, true>
-                       : flash_fwd_mma_kernel<D, false>;
+    auto kernel = seed ? flash_fwd_mma_kernel<T, D, true>
+                       : flash_fwd_mma_kernel<T, D, false>;
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((s + kMmaTileRows - 1) / kMmaTileRows, batch * heads);
     kernel<<<grid, kMmaThreads, kSmem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const float*>(kv_mask),
-        static_cast<bf16*>(out), static_cast<float*>(lse), heads, s, kv_len,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(kv_mask),
+        static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
         seed, thresh, inv_keep);
   } else {
@@ -559,8 +568,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension of q, k and v must be contiguous, and in bf16 each base
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides are in elements;
+// the last dimension of q, k and v must be contiguous, and in bf16 and
+// fp16 each base
 // 16-byte aligned with batch, seq and head strides multiples of 8 (the
 // 16-byte cp.async copies).  kv_mask is [batch, kv_len]
 // fp32 (1 keeps a key) or null; out is a contiguous [b, s, h, d] of the
@@ -585,6 +595,8 @@ extern "C" int ds_flash_attention_fwd(
   if (dtype == 0 && head_dim == 128) DS_FLASH_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) DS_FLASH_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && head_dim == 128) DS_FLASH_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == 2 && head_dim == 64) DS_FLASH_LAUNCH(__half, 64);
+  if (dtype == 2 && head_dim == 128) DS_FLASH_LAUNCH(__half, 128);
 #undef DS_FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

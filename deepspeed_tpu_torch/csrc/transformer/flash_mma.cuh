@@ -1,11 +1,15 @@
 // Warp-level tensor-core building blocks for the flash kernels on Hopper
-// (sm_90a): the bf16 B1 of flash_attention_fwd.cu, B2a, B2b and B3 of
-// flash_attention_bwd.cu, and B6a, B6b and B6c of
+// (sm_90a): the bf16 and fp16 B1 of flash_attention_fwd.cu, B2a, B2b and
+// B3 of flash_attention_bwd.cu, and the bf16 B6a, B6b and B6c of
 // ../sparse_attention/flash_block_sparse_agg.cu (which also run the bf16
 // B5a and B5b, at G = 1) use them; the fp32 kernels keep their scalar
-// designs.
+// designs.  Every helper that touches a 16-bit operand takes its element
+// type T, `__nv_bfloat16` (the default) or `__half`: the two differ only
+// in the `mma.sync` form and the fp32 -> operand rounding (`ldmatrix` and
+// `cp.async` move 16-bit words either way).
 //
-// - PTX wrappers: `mma.sync` m16n8k16 (bf16 operands, fp32 accumulators),
+// - PTX wrappers: `mma.sync` m16n8k16 (bf16 or fp16 operands, fp32
+//   accumulators),
 //   `ldmatrix` x4 and x4.trans, `ex2.approx`, `cp.async` of 16 bytes
 //   (zero-filled past the end of a tensor) and of 4 bytes, and the commit
 //   / wait steps of a cp.async pipeline.
@@ -34,7 +38,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_dropout.cuh"
 
@@ -57,7 +64,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8,
+// the same with fp16 operands
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 matrices of 16-bit values; lane l gives the row address of matrix l / 8,
 // row l % 8, and receives in r[i] its two values of matrix i
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -112,6 +130,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 // ------------------------------------------------------ end of PTX wrappers
 
+// d += a·b with operands of element type T
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
+
 // two fp32 values as one register of two bf16 (round to nearest even),
 // `lo` in the low half: the lower column of an A-fragment pair
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -119,14 +147,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the same as two fp16 (round to nearest even; above 65504 in magnitude
+// inf, as `.astype(float16)` rounds)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
 // A fragment of the 16 columns covered by the C fragments of two
-// neighbouring m16n8 tiles (c0: columns 0-7, c1: columns 8-15)
+// neighbouring m16n8 tiles (c0: columns 0-7, c1: columns 8-15), rounded
+// to T
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
                                        const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = pack16<T>(c0[0], c0[1]);
+  a[1] = pack16<T>(c0[2], c0[3]);
+  a[2] = pack16<T>(c1[0], c1[1]);
+  a[3] = pack16<T>(c1[2], c1[3]);
 }
 
 // ------------------------------------------------------------ padded tiles
@@ -135,17 +180,17 @@ constexpr int kMmaThreads = 128;  // 4 warps, 16 rows each
 
 template <int D>
 struct MmaTile {
-  static constexpr int kRow = D + 8;  // padded row, bf16 values
+  static constexpr int kRow = D + 8;  // padded row, 16-bit values
   static constexpr int kElems = kMmaTileRows * kRow;
   static constexpr int kChunks = D / 8;  // 16-byte chunks a row
 };
 
-// Rows row0 .. row0+63 of a [*, D] bf16 tensor (row stride `stride`
-// values, 16-byte aligned rows) into the padded tile `dst` by cp.async;
-// rows at or past `lim` are zero.  All kMmaThreads threads take part.
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
+// Rows row0 .. row0+63 of a [*, D] tensor of 16-bit T (row stride
+// `stride` values, 16-byte aligned rows) into the padded tile `dst` by
+// cp.async; rows at or past `lim` are zero.  All kMmaThreads threads take
+// part.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 int64_t stride, int row0,
                                                 int lim, int tid) {
   constexpr int CH = MmaTile<D>::kChunks;
@@ -155,7 +200,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
     const int r = e / CH;
     const int ch = e - r * CH;
     const bool ok = row0 + r < lim;
-    const __nv_bfloat16* g = src + (ok ? (int64_t)(row0 + r) * stride : 0);
+    const T* g = src + (ok ? (int64_t)(row0 + r) * stride : 0);
     cp_async16(dst + r * MmaTile<D>::kRow + ch * 8, g + ch * 8, ok);
   }
 }
@@ -171,9 +216,8 @@ __device__ __forceinline__ void load_row_async(float* dst, const float* src,
 }
 
 // A fragment of the 16x16 block of a padded tile at (row r0, column k0)
-template <int D>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const T* tile, int r0,
                                        int k0, int lane) {
   ldmatrix_x4(a, tile + (r0 + (lane & 15)) * MmaTile<D>::kRow + k0 +
                      (lane >> 4) * 8);
@@ -183,9 +227,8 @@ __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4],
 // where the tile's ROWS are the n index and its columns the k index
 // (B = tileᵀ, as K in Q·Kᵀ): b[0], b[1] for n0 .. n0+7, b[2], b[3] for
 // n0+8 .. n0+15
-template <int D>
-__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* tile, int n0,
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const T* tile, int n0,
                                        int k0, int lane) {
   ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
                             MmaTile<D>::kRow +
@@ -194,9 +237,8 @@ __device__ __forceinline__ void ldsm_b(uint32_t (&b)[4],
 
 // The same where the tile's rows are the k index and its columns the n
 // index (B = tile, as V in P·V), read with ldmatrix.trans
-template <int D>
-__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4],
-                                        const __nv_bfloat16* tile, int k0,
+template <int D, typename T>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const T* tile, int k0,
                                         int n0, int lane) {
   ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                   MmaTile<D>::kRow +
@@ -206,14 +248,14 @@ __device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4],
 // The A fragments of a warp's 16 rows of a block-owned padded tile:
 // held in registers at head_dim 64, re-read by ldmatrix at every use at
 // head_dim 128, where the registers go to the accumulators.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 struct OwnRows {
   static constexpr bool kInRegs = D == 64;
   uint32_t r[kInRegs ? D / 16 : 1][4];
-  const __nv_bfloat16* tile;
+  const T* tile;
   int r0, lane;
 
-  __device__ __forceinline__ void init(const __nv_bfloat16* t, int row0,
+  __device__ __forceinline__ void init(const T* t, int row0,
                                        int ln) {
     tile = t;
     r0 = row0;

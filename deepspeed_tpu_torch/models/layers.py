@@ -21,7 +21,7 @@ import torch
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
 from ..ops.sparse_attention.flash_block_sparse import (
-    flash_block_sparse_attention, kernel_takes)
+    FP16_ITEM, flash_block_sparse_attention, kernel_takes)
 from ..ops.transformer.attention import (MIN_DROPOUT,
                                          dot_product_attention,
                                          key_padding_to_additive)
@@ -100,8 +100,9 @@ def sparse_core(q, has_key_padding):
     if not kernel_takes(q):
         raise NotImplementedError(
             f"the block-sparse flash kernels take fp32 or bf16 at head_dim "
-            f"64 or 128, not {q.dtype} at head_dim {q.shape[-1]}; "
-            f"DS_SPARSE_FLASH=never takes the gather path instead")
+            f"64 or 128, not {q.dtype} at head_dim {q.shape[-1]} (fp16 "
+            f"B5/B6 is {FP16_ITEM}); DS_SPARSE_FLASH=never takes the gather "
+            f"path instead")
     return "kernel"
 
 

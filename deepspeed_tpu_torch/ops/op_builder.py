@@ -113,14 +113,17 @@ def load(name):
 
 def kernel_name(mangled):
     """A short name for a mangled kernel of the port: the kernel's own
-    name, the storage type of a scalar kernel, the head_dim, and the
-    bf16 B3's warps a block or B1's dropout instantiation."""
+    name, the storage type of a scalar kernel (and ``_fp16`` for a
+    tensor-core kernel's fp16 instantiation; its bf16 one has none), the
+    head_dim, and the B3's warps a block or B1's dropout instantiation."""
     end = mangled.index("_kernel") + len("_kernel")
     start = max(mangled.rfind(prefix, 0, end)
                 for prefix in ("agg_", "fbs_", "flash_fwd", "flash_bwd"))
     name = mangled[start:end]
-    dtype = "" if "mma" in name else (
-        "_bf16" if "bfloat16" in mangled else "_fp32")
+    if "mma" in name:
+        dtype = "_fp16" if "6__half" in mangled else ""
+    else:
+        dtype = "_bf16" if "bfloat16" in mangled else "_fp32"
     warps = re.search(r"Li\d+ELi(\d+)E", mangled)
     return (name + dtype + ("_d128" if "Li128E" in mangled else "_d64")
             + (f"_w{warps.group(1)}" if warps else "")

@@ -63,11 +63,26 @@ import numpy as np
 import torch
 
 from .. import op_builder
-from ..transformer.flash_attention import (_DTYPE_CODES, HEAD_DIMS,
-                                           MAX_FLOOR, NEG_INF, _check_cuda,
-                                           mma_aligned)
+from ..transformer.flash_attention import HEAD_DIMS, MAX_FLOOR, NEG_INF
+from ..transformer.flash_attention import _check_cuda as _check_dense_cuda
+from ..transformer.flash_attention import mma_aligned
 
 logger = logging.getLogger(__name__)
+
+# The types the B5 and B6 kernels take, their own set: the dense kernels
+# also take fp16, which the sparse sources have no code for (fp16 B5/B6 is
+# ROADMAP B item 10).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+FP16_ITEM = "ROADMAP B item 10"
+
+
+def _check_cuda(q, k, v, kv_mask, extra=()):
+    """The dense kernels' limits, and the sparse kernels' own types."""
+    _check_dense_cuda(q, k, v, kv_mask, extra)
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the block-sparse flash kernels take float32 or "
+                         f"bfloat16, not {q.dtype} (fp16 B5/B6 is "
+                         f"{FP16_ITEM})")
 
 
 # -------------------------------------------------------------- host tables
@@ -500,7 +515,8 @@ def _launched(rc, name):
 
 def kernel_takes(q):
     """Whether the B5 and B6 kernels take tensors like ``q`` ``[b, s, h,
-    d]``: on the card, fp32 or bf16, head_dim 64 or 128."""
+    d]``: on the card, fp32 or bf16 (not fp16: ``FP16_ITEM``), head_dim 64
+    or 128."""
     return (q.is_cuda and q.dtype in _DTYPE_CODES
             and q.shape[-1] in HEAD_DIMS)
 

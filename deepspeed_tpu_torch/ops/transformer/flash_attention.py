@@ -5,12 +5,13 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 (``csrc/transformer/``):
 
 - B1 ``flash_attention_fwd.cu``: forward, out and the fp32 logsumexp
-  (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
+  (bf16 and fp16 on the tensor cores, ``mma.sync``; fp32 scalar);
 - B2a and B2b ``flash_attention_bwd.cu``: dq over K/V tiles, and dk, dv
-  over Q tiles (bf16 on the tensor cores, ``mma.sync``; fp32 scalar);
+  over Q tiles (bf16 and fp16 on the tensor cores, ``mma.sync``; fp32
+  scalar);
 - B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
-  shapes whose whole sequence fits a block's shared memory (bf16 on the
-  tensor cores, ``mma.sync``; fp32 scalar);
+  shapes whose whole sequence fits a block's shared memory (bf16 and fp16
+  on the tensor cores, ``mma.sync``; fp32 scalar);
 - B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
   mask regenerated from a counter-based Philox keyed on two seed words
   and counting ELEMENTS (b·h, q row, k col >> 2), so every kernel draws
@@ -20,6 +21,9 @@ Each wrapper launches its kernel for CUDA tensors or raises, and runs the
 plain version (:func:`flash_attention_reference`,
 :func:`flash_attention_bwd_reference`, :func:`philox_keep_mask`) for CPU
 tensors; a CPU run and a card run with one seed drop the same entries.
+Each wrapper counts its launches in ``.launches``, and its fp16 launches
+again in ``.fp16.launches`` (B4: ``in_kernel_dropout.fp16``), so a run
+can show that an fp16 path took the fp16 kernels.
 :class:`FlashAttention` is the ``torch.autograd.Function``: its forward
 runs B1 and its backward B3 or B2a+B2b.
 
@@ -46,7 +50,10 @@ NEG_INF = -1e30
 MAX_FLOOR = -1e20
 
 HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the types the tensor-core kernels take (16-byte cp.async copies)
+MMA_DTYPES = (torch.bfloat16, torch.float16)
+_NAMES = {torch.bfloat16: "bf16", torch.float16: "fp16"}
 _MAX_GRID_Y = 65535
 # shared memory one Hopper block may use (232,448 bytes of the SM's 256 KB)
 SMEM_PER_BLOCK = 232448
@@ -55,8 +62,10 @@ _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# launches of B1, B2a, B2b or B3 that drew the B4 keep mask
-in_kernel_dropout = types.SimpleNamespace(launches=0)
+# launches of B1, B2a, B2b or B3 that drew the B4 keep mask (and of
+# those, the fp16 ones)
+in_kernel_dropout = types.SimpleNamespace(
+    launches=0, fp16=types.SimpleNamespace(launches=0))
 
 
 # ---------------------------------------------------------------- dropout
@@ -260,17 +269,18 @@ def use_fused_backward(head_dim, s, kv_len, dtype):
     :func:`fused_backward_fits`.  fp32 takes it wherever it fits (B2a and
     B2b are scalar-FMA kernels in fp32); bf16 up to
     ``BF16_FUSED_MAX_LEN`` query rows and keys, where it measured faster
-    than the tensor-core B2a+B2b."""
-    if dtype == torch.bfloat16 and max(s, kv_len) > BF16_FUSED_MAX_LEN:
+    than the tensor-core B2a+B2b, and fp16, whose kernels are the same
+    design with the fp16 ``mma.sync``, by the same rule."""
+    if dtype in MMA_DTYPES and max(s, kv_len) > BF16_FUSED_MAX_LEN:
         return False
     return fused_backward_fits(head_dim, s, kv_len, dtype)
 
 
 def mma_aligned(*tensors):
-    """Whether the bf16 B1, B2a, B2b and B3 can read these ``[b, n, h, d]``
-    tensors with 16-byte ``cp.async`` copies: each base pointer 16-byte
-    aligned and each batch, sequence and head stride (of a dim longer
-    than 1) a multiple of 8 elements.  Slices of a fused QKV projection
+    """Whether the bf16 and fp16 B1, B2a, B2b and B3 can read these
+    ``[b, n, h, d]`` tensors with 16-byte ``cp.async`` copies: each base
+    pointer 16-byte aligned and each batch, sequence and head stride (of
+    a dim longer than 1) a multiple of 8 elements.  Slices of a fused QKV projection
     (training and the serving prefill), the gathered ``positions``
     queries and contiguous tensors all are."""
     return all(t.data_ptr() % 16 == 0
@@ -280,15 +290,16 @@ def mma_aligned(*tensors):
 
 
 def check_fwd_views(q, k, v):
-    """The forward wrapper's rule for the views it is given: bf16 q, k
-    and v go to B1 on the tensor cores, which copies them in 16-byte
-    ``cp.async`` chunks, so it raises a ValueError naming B1 where
+    """The forward wrapper's rule for the views it is given: bf16 and
+    fp16 q, k and v go to B1 on the tensor cores, which copies them in
+    16-byte ``cp.async`` chunks, so it raises a ValueError naming B1 where
     :func:`mma_aligned` refuses them (never copies or sends them
     elsewhere); fp32 takes any view whose last dim is contiguous."""
-    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v):
+    if q.dtype in MMA_DTYPES and not mma_aligned(q, k, v):
         raise ValueError(
-            "the bf16 B1 kernel needs q, k and v 16-byte aligned with "
-            "batch, seq and head strides that are multiples of 8 elements; "
+            f"the {_NAMES[q.dtype]} B1 kernel needs q, k and v 16-byte "
+            "aligned with batch, seq and head strides that are multiples "
+            "of 8 elements; "
             f"got strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
@@ -335,8 +346,8 @@ def _check_cuda(q, k, v, kv_mask, extra=()):
                          f"got {q.device}")
     b, s, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the flash kernels take float32 or bfloat16, "
-                         f"got {q.dtype}")
+        raise ValueError(f"the flash kernels take float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
                          f"got {d}")
@@ -363,12 +374,15 @@ def _dropout_args(seed, dropout_rate):
     return seed.data_ptr(), thresh, inv_keep
 
 
-def _count_launch(wrapper, dropout_rate):
+def _count_launch(wrapper, dropout_rate, dtype):
     """One more launch of ``wrapper``'s kernel, and of B4 inside it under
-    dropout; called only after the launch succeeded."""
-    wrapper.launches += 1
-    if dropout_rate:
-        in_kernel_dropout.launches += 1
+    dropout, each counted again under ``.fp16`` for an fp16 launch;
+    called only after the launch succeeded."""
+    counters = [wrapper] + ([in_kernel_dropout] if dropout_rate else [])
+    for counter in counters:
+        counter.launches += 1
+        if dtype == torch.float16:
+            counter.fp16.launches += 1
 
 
 def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
@@ -378,9 +392,10 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
 
     CPU tensors take :func:`flash_attention_reference` with the
     :func:`philox_keep_mask` mask.  CUDA tensors launch the Hopper kernel
-    (bf16 on the tensor cores, fp32 scalar; head_dim 64 or 128) or raise,
-    also on bf16 views that :func:`mma_aligned` refuses.  Every launch
-    adds one to ``flash_attention_fwd.launches``."""
+    (bf16 and fp16 on the tensor cores, fp32 scalar; head_dim 64 or 128)
+    or raise, also on bf16 or fp16 views that :func:`mma_aligned`
+    refuses.  Every launch adds one to ``flash_attention_fwd.launches``
+    (an fp16 one also to ``flash_attention_fwd.fp16.launches``)."""
     _check(q, k, v, kv_mask)
     _check_seed(seed, dropout_rate, q.device)
     b, s, h, d = q.shape
@@ -409,11 +424,8 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
-    _count_launch(flash_attention_fwd, dropout_rate)
+    _count_launch(flash_attention_fwd, dropout_rate, q.dtype)
     return out, lse
-
-
-flash_attention_fwd.launches = 0
 
 _WHICH = {"dq": 0, "dkv": 1, "fused": 2}
 
@@ -430,13 +442,13 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, delta, dq, dk, dv):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
-    if q.dtype == torch.bfloat16 and not mma_aligned(q, k, v, dout):
+    if q.dtype in MMA_DTYPES and not mma_aligned(q, k, v, dout):
         kernels = "B3 kernel needs" if which == "fused" else \
             "B2a/B2b kernels need"
         raise ValueError(
-            f"the bf16 {kernels} q, k, v and dO 16-byte aligned with "
-            "batch, seq and head strides that are multiples of 8 "
-            f"elements; got strides {q.stride()}, {k.stride()}, "
+            f"the {_NAMES[q.dtype]} {kernels} q, k, v and dO 16-byte "
+            "aligned with batch, seq and head strides that are multiples "
+            f"of 8 elements; got strides {q.stride()}, {k.stride()}, "
             f"{v.stride()}, {dout.stride()}")
     if tuple(delta.shape) != (b * h, s) or delta.dtype != torch.float32 \
             or not delta.is_contiguous() or delta.device != q.device:
@@ -509,7 +521,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
     _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, dq,
                 None, None)
-    _count_launch(flash_attention_bwd_dq, dropout_rate)
+    _count_launch(flash_attention_bwd_dq, dropout_rate, q.dtype)
     return dq
 
 
@@ -530,7 +542,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
     _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, None,
                 dk, dv)
-    _count_launch(flash_attention_bwd_dkv, dropout_rate)
+    _count_launch(flash_attention_bwd_dkv, dropout_rate, q.dtype)
     return dk, dv
 
 
@@ -539,8 +551,9 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
                               delta=None):
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
-    (``flash_attention_bwd_fused.launches``: bf16 on the tensor cores,
-    with a ValueError naming B3 on views :func:`mma_aligned` refuses;
+    (``flash_attention_bwd_fused.launches``: bf16 and fp16 on the tensor
+    cores, with a ValueError naming B3 on views :func:`mma_aligned`
+    refuses;
     fp32 scalar) or raise, also when the shape does not fit
     (:func:`fused_backward_fits`).  ``delta`` as for
     :func:`flash_attention_bwd_dq`."""
@@ -561,13 +574,14 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, dq, dk,
                 dv)
-    _count_launch(flash_attention_bwd_fused, dropout_rate)
+    _count_launch(flash_attention_bwd_fused, dropout_rate, q.dtype)
     return dq, dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_fused.launches = 0
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
+                 flash_attention_bwd_dkv, flash_attention_bwd_fused):
+    _wrapper.launches = 0
+    _wrapper.fp16 = types.SimpleNamespace(launches=0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,

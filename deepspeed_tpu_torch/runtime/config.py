@@ -8,18 +8,22 @@ data_parallel_size`` solved and checked as in the JAX package
 ``zero_optimization``, ``gradient_clipping``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``sparse_attention`` (one of the five layout
 modes, resolved with its defaults by :func:`get_sparse_attention` into
-the kwargs ``build_sparsity_config`` takes) and ``checkpoint``
-(:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`).
+the kwargs ``build_sparsity_config`` takes), ``checkpoint``
+(:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
+and ``resilience``
+(:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`).
+``fp16`` gives ``loss_scale``, ``initial_dynamic_scale`` and
+``dynamic_loss_scale_args`` as the JAX config does (``:40-97``).
 Unknown keys warn with a "did you mean" hint and raise under
 ``"strict_config": true`` (the JAX package checks them in
 ``tools/dslint/schema.py``).  Blocks the port does not implement yet warn
-when set, naming their ROADMAP item; ``fp16.enabled`` raises, since the
-loss scaler is ROADMAP A4.
+when set, naming their ROADMAP item.
 """
 
 import logging
 
 from ..checkpoint.config import DeepSpeedCheckpointConfig
+from ..resilience.config import DeepSpeedResilienceConfig
 from . import constants as C
 from .config_utils import (did_you_mean, get_scalar_param,
                            load_config_json)
@@ -60,6 +64,55 @@ def config_issues(param_dict):
                           f"port does not implement it yet (ROADMAP "
                           f"{C.UNPORTED_SECTIONS[key]}); it has no effect")
     return issues
+
+
+def get_fp16_enabled(param_dict):
+    if C.FP16 in param_dict:
+        return get_scalar_param(param_dict[C.FP16], C.FP16_ENABLED,
+                                C.FP16_ENABLED_DEFAULT)
+    return C.FP16_ENABLED_DEFAULT
+
+
+def get_loss_scale(param_dict):
+    """``fp16.loss_scale``: 0 (dynamic) or a static scale."""
+    if get_fp16_enabled(param_dict):
+        return get_scalar_param(param_dict[C.FP16], C.FP16_LOSS_SCALE,
+                                C.FP16_LOSS_SCALE_DEFAULT)
+    return C.FP16_LOSS_SCALE_DEFAULT
+
+
+def get_initial_dynamic_scale(param_dict):
+    """2 ** ``fp16.initial_scale_power``."""
+    power = C.FP16_INITIAL_SCALE_POWER_DEFAULT
+    if get_fp16_enabled(param_dict):
+        power = get_scalar_param(param_dict[C.FP16],
+                                 C.FP16_INITIAL_SCALE_POWER, power)
+    return 2 ** power
+
+
+def get_dynamic_loss_scale_args(param_dict):
+    """The dynamic scaler's settings when the fp16 block sets any of
+    them (then every one, defaults filled in), else None: the JAX
+    package's rule, under which the scaler falls back to a window of
+    1000, min scale 1 and no hysteresis (``delayed_shift`` 1)."""
+    if not get_fp16_enabled(param_dict):
+        return None
+    fp16 = param_dict[C.FP16]
+    props = (C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
+             C.FP16_MIN_LOSS_SCALE, C.FP16_HYSTERESIS)
+    if not any(prop in fp16 for prop in props):
+        return None
+    return {
+        "init_scale": 2 ** get_scalar_param(
+            fp16, C.FP16_INITIAL_SCALE_POWER,
+            C.FP16_INITIAL_SCALE_POWER_DEFAULT),
+        "scale_window": get_scalar_param(fp16, C.FP16_LOSS_SCALE_WINDOW,
+                                         C.FP16_LOSS_SCALE_WINDOW_DEFAULT),
+        "delayed_shift": get_scalar_param(fp16, C.FP16_HYSTERESIS,
+                                          C.FP16_HYSTERESIS_DEFAULT),
+        "min_scale": get_scalar_param(fp16, C.FP16_MIN_LOSS_SCALE,
+                                      C.FP16_MIN_LOSS_SCALE_DEFAULT),
+    }
 
 
 def get_sparse_attention(param_dict):
@@ -145,9 +198,11 @@ class DeepSpeedConfig:
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
 
-        self.fp16_enabled = bool(get_scalar_param(
-            param_dict.get(C.FP16, {}), C.FP16_ENABLED,
-            C.FP16_ENABLED_DEFAULT))
+        self.fp16_enabled = bool(get_fp16_enabled(param_dict))
+        self.loss_scale = get_loss_scale(param_dict)
+        self.initial_dynamic_scale = get_initial_dynamic_scale(param_dict)
+        self.dynamic_loss_scale_args = get_dynamic_loss_scale_args(
+            param_dict)
         self.bf16_enabled = bool(get_scalar_param(
             param_dict.get(C.BF16, {}), C.BF16_ENABLED,
             C.BF16_ENABLED_DEFAULT))
@@ -173,6 +228,7 @@ class DeepSpeedConfig:
 
         self.sparse_attention = get_sparse_attention(param_dict)
         self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
+        self.resilience_config = DeepSpeedResilienceConfig(param_dict)
 
     def _set_batch_related_parameters(self):
         """Solve the batch triple from any subset of it."""
@@ -235,8 +291,4 @@ class DeepSpeedConfig:
                                       C.AMP_ENABLED_DEFAULT)):
             raise DeepSpeedConfigError(
                 "amp is a torch/apex mixed-precision mode the JAX package "
-                "has no analog of; use bf16")
-        if self.fp16_enabled:
-            raise NotImplementedError(
-                "fp16 training needs the dynamic loss scaler, which the "
-                "PyTorch port does not have yet (ROADMAP A4); use bf16")
+                "has no analog of; use bf16 or fp16")

@@ -45,6 +45,17 @@ ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
 FP16 = "fp16"
 FP16_ENABLED = "enabled"
 FP16_ENABLED_DEFAULT = False
+# 0 selects dynamic loss scaling; any other value is a static scale
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
 BF16 = "bf16"
 BF16_ENABLED = "enabled"
 BF16_ENABLED_DEFAULT = False
@@ -148,6 +159,13 @@ SECTION_KEYS = {
                    "integrity_window", "max_rollbacks", "policy",
                    "rollback_cooldown_steps", "spike_window", "spike_zscore",
                    "straggler_factor"),
+    "resilience": (
+        "checkpoint_dir", "divergence_patience", "enabled",
+        "floor_scale_patience", "hang_timeout_secs", "integrity",
+        "integrity_action", "integrity_peer_timeout_secs",
+        "integrity_window", "max_rollbacks", "policy",
+        "rollback_cooldown_steps", "spike_window", "spike_zscore",
+        "straggler_factor"),
     "ring_attention": ("enabled",),
     "sparse_attention": (
         "attention", "block", "different_layout_per_head",
@@ -165,8 +183,8 @@ UNPORTED_SECTIONS = {
     "activation_checkpointing": "A7", "compilation": "A16",
     "elasticity": "A15", "flops_profiler": "A16", "mesh": "A5/A10",
     "pipeline": "A13", "profiling": "A12/A16",
-    "progressive_layer_drop": "A3", "resilience": "A15",
-    "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
+    "progressive_layer_drop": "A3", "ring_attention": "A10",
+    "telemetry": "A12", "tensorboard": "A12",
 }
 
 #############################################
@@ -196,6 +214,77 @@ CHECKPOINT_RETRY_BACKOFF_SECS_DEFAULT = 0.5
 # drain in-flight saves and take one final synchronous save on SIGTERM
 CHECKPOINT_SAVE_ON_PREEMPTION = "save_on_preemption"
 CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT = False
+
+#############################################
+# Resilience subsystem (deepspeed_tpu_torch/resilience): the "resilience"
+# block, keys and defaults of the JAX package's (:336-404).  The
+# integrity keys are parsed and refused when on: the fleet integrity
+# plane needs data parallelism (ROADMAP A5, A15's second half)
+#############################################
+RESILIENCE = "resilience"
+RESILIENCE_ENABLED = "enabled"
+RESILIENCE_ENABLED_DEFAULT = False
+# what to do about anomalous steps beyond the always-on skip of
+# non-finite updates: skip | rescale | rollback | abort
+RESILIENCE_POLICY = "policy"
+RESILIENCE_POLICY_DEFAULT = "skip"
+# rolling window (in steps) for the loss-spike z-score; 0 disables
+# spike detection (non-finite detection stays on)
+RESILIENCE_SPIKE_WINDOW = "spike_window"
+RESILIENCE_SPIKE_WINDOW_DEFAULT = 64
+RESILIENCE_SPIKE_ZSCORE = "spike_zscore"
+RESILIENCE_SPIKE_ZSCORE_DEFAULT = 6.0
+# consecutive anomalous steps before rollback/abort policies escalate
+RESILIENCE_DIVERGENCE_PATIENCE = "divergence_patience"
+RESILIENCE_DIVERGENCE_PATIENCE_DEFAULT = 3
+# rollback budget per run; exhausting it aborts with the poison code
+RESILIENCE_MAX_ROLLBACKS = "max_rollbacks"
+RESILIENCE_MAX_ROLLBACKS_DEFAULT = 2
+# re-diverging within this many steps of the restored step = thrashing
+RESILIENCE_ROLLBACK_COOLDOWN_STEPS = "rollback_cooldown_steps"
+RESILIENCE_ROLLBACK_COOLDOWN_STEPS_DEFAULT = 0
+# step watchdog: heartbeat stall (seconds) before the all-thread stack
+# dump + respawnable exit; 0 disables the watchdog
+RESILIENCE_HANG_TIMEOUT_SECS = "hang_timeout_secs"
+RESILIENCE_HANG_TIMEOUT_SECS_DEFAULT = 0.0
+# consecutive overflows with the fp16 loss scale pinned at min_scale
+# before the guard declares the scaler stuck (loud error + anomaly event)
+RESILIENCE_FLOOR_SCALE_PATIENCE = "floor_scale_patience"
+RESILIENCE_FLOOR_SCALE_PATIENCE_DEFAULT = 8
+# where rollback + auto_resume look for the latest committed checkpoint;
+# default: the last directory this engine saved to or loaded from
+RESILIENCE_CHECKPOINT_DIR = "checkpoint_dir"
+RESILIENCE_CHECKPOINT_DIR_DEFAULT = None
+# straggler detection: a rank whose p50 step latency exceeds this
+# multiple of the fleet median (per-rank latency exchange, sampled at
+# the steps_per_print cadence) raises a "straggler" anomaly event.
+# 0 disables; needs telemetry (the run dir is the exchange medium)
+RESILIENCE_STRAGGLER_FACTOR = "straggler_factor"
+RESILIENCE_STRAGGLER_FACTOR_DEFAULT = 0.0
+# fleet integrity plane (resilience/integrity.py): per-rank state
+# fingerprints (a cheap on-device checksum over the flat master +
+# optimizer state, riding the existing batched steps_per_print fetch)
+# cross-checked by majority vote over run-dir artifacts — an SDC/desync
+# suspect is named, reported to the supervisor, and evicted on resize.
+# Needs telemetry (the run dir is the exchange medium)
+RESILIENCE_INTEGRITY = "integrity"
+RESILIENCE_INTEGRITY_DEFAULT = False
+# fingerprint history steps each rank publishes (voting scans the
+# window, so ranks whose publishes lag the fleet head are still judged)
+RESILIENCE_INTEGRITY_WINDOW = "integrity_window"
+RESILIENCE_INTEGRITY_WINDOW_DEFAULT = 8
+# evict: verdict file + FleetIntegrityError (exit 87, the supervisor
+# resizes around the suspect); warn: telemetry events only (use on
+# meshes that shard state across processes, where per-process
+# fingerprints legitimately differ)
+RESILIENCE_INTEGRITY_ACTION = "integrity_action"
+RESILIENCE_INTEGRITY_ACTION_DEFAULT = "evict"
+# fleet heartbeat + hang quorum: a peer whose step-entry beat lags the
+# fleet head and goes stale by this many seconds is the hang suspect
+# (healthy ranks exit with ONE respawnable eviction instead of N local
+# watchdog timeouts).  0 disables the heartbeat thread
+RESILIENCE_INTEGRITY_PEER_TIMEOUT_SECS = "integrity_peer_timeout_secs"
+RESILIENCE_INTEGRITY_PEER_TIMEOUT_SECS_DEFAULT = 0.0
 
 #############################################
 # Sparse attention: the "sparse_attention" block, one mode of

@@ -10,7 +10,8 @@ State and dtype flow follow the JAX engine:
   layout (:class:`~deepspeed_tpu_torch.runtime.zero.coordinator.FlatParamCoordinator`);
   the optimizer state is two more buffers of that shape;
 - the compute params are one flat buffer in the compute dtype (bf16 under
-  ``bf16.enabled``, else fp32), cast from the master after every step;
+  ``bf16.enabled``, fp16 under ``fp16.enabled``, else fp32), cast from
+  the master after every step;
   the param dict the model sees is views of it, each a leaf of autograd;
 - gradients are taken with respect to those compute params, and every
   leaf's ``.grad`` is preset to a view of one flat gradient buffer, so
@@ -22,9 +23,31 @@ State and dtype flow follow the JAX engine:
 - clipping by global norm (``:3186-3189``), then the optimizer in fp32
   on the master, in place.
 
-A step reads nothing back from the card: the loss comes back as a device
-tensor, the LR and step count are host numbers, and the only host sync
-is the loss fetch at the ``steps_per_print`` cadence (``:3705-3718``).
+fp16 (``:245-256``, ``:1896-1913``, ``:3176-3257``): ``backward`` scales
+the fp32 loss by the current loss scale; ``step`` checks the flat
+gradient for a non-finite value, skips the update on one (master and
+moments untouched, the LR schedule not stepped, ``skipped_steps`` + 1),
+else unscales, clips and updates; a dynamic scale then moves by
+:func:`~deepspeed_tpu_torch.runtime.fp16.loss_scaler.update_scale_state`
+(halved on overflow after the hysteresis, doubled after
+``loss_scale_window`` good steps).  The unscale multiplies in the
+gradient's dtype, as the JAX engine does, wherever 1/scale is exact in
+it; above a scale of 2^24 it is not in fp16 (the JAX engine's fp16
+1/scale rounds to 0 there, so a finite step applies a zero gradient:
+ROADMAP C), and the port multiplies in fp32.
+
+Resilience (``resilience`` block, ``:805-840``, ``:3750-3805``): the same
+non-finite skip in every precision, the anomaly guard on each step's
+loss, overflow and scale, with a rollback to the latest committed
+checkpoint or an abort (:mod:`deepspeed_tpu_torch.resilience`), the step
+watchdog, and ``initialize(auto_resume=True)``.
+
+Host syncs.  With fp16 and resilience off a step reads nothing back from
+the card: the loss comes back as a device tensor, the LR and step count
+are host numbers, and the only host sync is the loss fetch at the
+``steps_per_print`` cadence (``:3705-3718``).  With either on, each step
+makes ONE batched device-to-host copy before its update, as the JAX
+engine does (``:3670-3690``): the overflow flag and the mean loss.
 
 Checkpoints are the JAX package's files
 (:mod:`deepspeed_tpu_torch.checkpoint`): ``save_checkpoint`` gathers the
@@ -35,9 +58,9 @@ data-parallel degree, and resumes the step counters (so the dropout
 streams), the LR schedule and the dataloader's cursor.
 
 Not in this slice (each refused where asked for, with its ROADMAP item):
-fp16 and the loss scaler (A4), data parallelism over
-``torch.distributed`` (A5), ZeRO-3 (A8), host offload (A9), 1-bit Adam
-(A14), telemetry and resilience (A12, A15).
+data parallelism over ``torch.distributed`` (A5), ZeRO-3 (A8), host
+offload (A9), 1-bit Adam (A14), telemetry (A12), and resilience's fleet
+integrity plane and elastic supervisor (A15's second half).
 """
 
 import json
@@ -58,11 +81,18 @@ from ..checkpoint.writer import CheckpointCorruptionError, CheckpointError
 from ..models.layers import mix_seed
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
+from ..profiling.step_profiler import StepLatencyRing
+from ..resilience.constants import TrainingDivergedError
+from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
+                                AnomalyGuard)
+from ..resilience.rollback import RollbackManager
+from ..resilience.watchdog import StepWatchdog
 from ..utils.device import resolve_device
 from ..utils.params import tree_leaves
 from . import constants as C
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
+from .fp16.loss_scaler import DynamicScaleState, update_scale_state
 from .lr_schedules import SCHEDULE_CLASSES
 from .zero.coordinator import FlatParamCoordinator
 
@@ -72,18 +102,37 @@ logger = logging.getLogger(__name__)
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None, device=None):
+               config_params=None, device=None, auto_resume=False):
     """Build the training engine.  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``, as the JAX package does.
     ``model_parameters`` is the param tree (numpy or tensor leaves); the
     model's ``init(seed)`` makes one when it is None.  ``device=None``
-    trains on CUDA and raises without it."""
+    trains on CUDA and raises without it.
+
+    With ``auto_resume=True`` the engine restores the latest committed
+    checkpoint under ``resilience.checkpoint_dir`` through its ``latest``
+    pointer, and starts fresh (with a warning) when there is none: a
+    respawned job lands on its last good step (JAX ``engine.py:130-185``).
+    """
     engine = DeepSpeedEngine(
         args=args, model=model, optimizer=optimizer,
         model_parameters=model_parameters, training_data=training_data,
         lr_scheduler=lr_scheduler, mpu=mpu,
         dist_init_required=dist_init_required, collate_fn=collate_fn,
         config=config, config_params=config_params, device=device)
+    if auto_resume:
+        load_dir = engine.resilience_config.checkpoint_dir
+        if load_dir is None:
+            logger.warning(
+                "auto_resume: resilience.checkpoint_dir is not configured; "
+                "starting fresh (set it so respawned jobs resume)")
+        else:
+            path, _ = engine.load_checkpoint(load_dir)
+            if path is None:
+                logger.info(f"auto_resume: no committed checkpoint under "
+                            f"{load_dir}; starting fresh")
+            else:
+                logger.info(f"auto_resume: resumed from {path}")
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 
@@ -113,8 +162,28 @@ class DeepSpeedEngine:
             raise NotImplementedError("zero_optimization.cpu_offload is not "
                                       "ported yet (ROADMAP A9)")
         self.device = resolve_device(device, "DeepSpeedEngine")
-        self.compute_dtype = (torch.bfloat16 if self._config.bf16_enabled
-                              else torch.float32)
+        if self._config.fp16_enabled:
+            self.compute_dtype = torch.float16
+        elif self._config.bf16_enabled:
+            self.compute_dtype = torch.bfloat16
+        else:
+            self.compute_dtype = torch.float32
+        cfg = self._config
+        self.dynamic_loss_scale_enabled = (cfg.fp16_enabled
+                                           and cfg.loss_scale == 0)
+        self.static_loss_scale = (cfg.loss_scale if cfg.fp16_enabled
+                                  and cfg.loss_scale != 0 else 1.0)
+        self._scale_args = cfg.dynamic_loss_scale_args or {}
+        self._scale_state = DynamicScaleState.create(
+            init_scale=(cfg.initial_dynamic_scale
+                        if self.dynamic_loss_scale_enabled
+                        else self.static_loss_scale),
+            delayed_shift=self._scale_args.get("delayed_shift", 1))
+        self._skipped = 0
+        self.resilience_config = cfg.resilience_config
+        # the JAX step's `skip_bad`: check the flat gradient for a
+        # non-finite value and skip the update on one
+        self._skip_bad = cfg.fp16_enabled or self.resilience_config.enabled
         self.module = model
         self._loss_fn = model.apply
 
@@ -166,6 +235,7 @@ class DeepSpeedEngine:
         if self.checkpoint_config.save_on_preemption:
             self._ckpt_manager.install_preemption_handler(
                 self._preemption_save)
+        self._build_resilience()
         logger.info("engine on %s: %d parameters in %d tensors, flat %s, "
                     "compute %s, optimizer %s, ZeRO stage %d", self.device,
                     sum(self.segments.sizes), self.segments.num_segments,
@@ -194,6 +264,20 @@ class DeepSpeedEngine:
 
     def bfloat16_enabled(self):
         return self._config.bf16_enabled
+
+    def fp16_enabled(self):
+        return self._config.fp16_enabled
+
+    def dynamic_loss_scale(self):
+        return self.dynamic_loss_scale_enabled
+
+    @property
+    def loss_scale(self):
+        return self._scale_state.cur_scale
+
+    @property
+    def skipped_steps(self):
+        return self._skipped
 
     def wall_clock_breakdown(self):
         return self._config.wall_clock_breakdown
@@ -243,6 +327,84 @@ class DeepSpeedEngine:
         return SCHEDULE_CLASSES[name](self.optimizer,
                                       **(self._config.scheduler_params or {}))
 
+    # -------------------------------------------------------- resilience
+    def _build_resilience(self):
+        """The anomaly guard, the rollback manager and the step watchdog
+        of an enabled ``resilience`` block (JAX ``engine.py:805-840``);
+        the telemetry sinks stay unset until ROADMAP A12."""
+        rcfg = self.resilience_config
+        self._guard = None
+        self._rollback_mgr = None
+        self._watchdog = None
+        self._step_latencies = None
+        if not rcfg.enabled:
+            return
+        self._guard = AnomalyGuard(
+            policy=rcfg.policy, spike_window=rcfg.spike_window,
+            spike_zscore=rcfg.spike_zscore,
+            divergence_patience=rcfg.divergence_patience,
+            floor_scale_patience=rcfg.floor_scale_patience,
+            min_scale=float(self._scale_args.get("min_scale", 1.0)),
+            fp16=self._config.fp16_enabled)
+        self._rollback_mgr = RollbackManager(
+            self, max_rollbacks=rcfg.max_rollbacks,
+            cooldown_steps=rcfg.rollback_cooldown_steps,
+            checkpoint_dir=rcfg.checkpoint_dir)
+        if rcfg.hang_timeout_secs > 0:
+            self._step_latencies = StepLatencyRing()
+            self._watchdog = StepWatchdog(
+                rcfg.hang_timeout_secs, latency_ring=self._step_latencies,
+                describe=lambda: (f"global_step={self.global_steps} "
+                                  f"micro_steps={self.micro_steps}")).start()
+        logger.info(f"resilience enabled: {rcfg}")
+
+    def _step_beat(self):
+        """One completed step: the watchdog's heartbeat (which feeds the
+        latency ring), or the ring alone.  Host work only."""
+        if self._watchdog is not None:
+            self._watchdog.beat()
+        elif self._step_latencies is not None:
+            self._step_latencies.beat()
+
+    def _step_beat_pause(self):
+        """Forget the last beat across a known-long gap (a rollback's
+        restore, a synchronous final save)."""
+        if self._watchdog is not None:
+            self._watchdog.pause()
+        if self._step_latencies is not None:
+            self._step_latencies.pause()
+
+    def _apply_guard_action(self, action):
+        """Escalate an anomaly-guard verdict (JAX ``engine.py:3750-3805``).
+        Returns True when a rollback restored earlier state; raises
+        :class:`~deepspeed_tpu_torch.resilience.constants.TrainingDivergedError`
+        on abort, or when a rollback is impossible."""
+        if action == ACTION_ROLLBACK:
+            # the restore can outlast the hang timeout: disarm until the
+            # caller's beat after it
+            self._step_beat_pause()
+            reason = (f"{self._guard.consecutive_anomalies} consecutive "
+                      f"anomalous step(s)")
+            try:
+                self._rollback_mgr.rollback(reason=reason)
+            except TrainingDivergedError:
+                if self._watchdog is not None:
+                    self._watchdog.stop()
+                raise
+            self._guard.notify_rollback()
+            return True
+        if action == ACTION_ABORT:
+            if self._watchdog is not None:
+                # the abort's teardown must not race the watchdog's
+                # respawnable exit
+                self._watchdog.stop()
+            raise TrainingDivergedError(
+                f"training diverged at step {self.global_steps}: "
+                f"{self._guard.consecutive_anomalies} consecutive anomalous "
+                f"step(s) under policy={self._guard.policy}; recent "
+                f"anomalies: {self._guard.recent_events()[-5:]}")
+        return False
+
     # ------------------------------------------------------------- state
     def _refresh_params(self):
         """Cast the master into the compute params (in place: the param
@@ -280,10 +442,14 @@ class DeepSpeedEngine:
     __call__ = forward
 
     def backward(self, loss):
-        """Gradients of ``loss`` / accumulation steps into the flat
-        gradient buffer (fp32-accumulated across micro-batches under bf16
-        with accumulation)."""
-        (loss.float() / self.gradient_accumulation_steps()).backward()
+        """Gradients of ``loss`` × the loss scale / accumulation steps
+        into the flat gradient buffer (fp32-accumulated across
+        micro-batches under bf16 or fp16 with accumulation).  The scale is
+        1 without fp16, and then no multiply is made."""
+        scaled = loss.float()
+        if self._config.fp16_enabled:
+            scaled = scaled * self._scale_state.cur_scale
+        (scaled / self.gradient_accumulation_steps()).backward()
         if self._acc is not None:
             self._acc.add_(self._grad)
             self._grad.zero_()
@@ -298,43 +464,97 @@ class DeepSpeedEngine:
     def step(self):
         """At the accumulation boundary: clip by global norm, update the
         master in fp32, cast it into the compute params, step the LR
-        schedule."""
+        schedule.  Under fp16 or resilience the flat gradient is checked
+        first, in the step's one batched fetch, and a non-finite one skips
+        the update (and the LR step); fp16 unscales before clipping and
+        moves a dynamic scale after; the anomaly guard then sees the
+        step."""
         if not self.is_gradient_accumulation_boundary():
             return
         g = self._acc if self._acc is not None else self._grad
-        clip = float(self.gradient_clipping() or 0.0)
+        overflow, mean_loss = False, None
+        if self._skip_bad:
+            # the one host sync of the step: the overflow flag and the
+            # mean loss in one copy
+            flag = torch.logical_not(torch.isfinite(g).all()).float()
+            fetched = torch.stack(
+                [flag, torch.stack(self._losses).float().mean()]).tolist()
+            overflow, mean_loss = bool(fetched[0]), fetched[1]
         with torch.no_grad():
-            if clip > 0.0:
-                gnorm = torch.linalg.vector_norm(g, dtype=torch.float32)
-                coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-                g = g * coef.to(g.dtype)
-            self.optimizer.update(self.opt_state, self.master, g,
-                                  self.optimizer.hyperparams(),
-                                  segments=self.segments)
+            if not overflow:
+                g = self._unscale(g)
+                clip = float(self.gradient_clipping() or 0.0)
+                if clip > 0.0:
+                    gnorm = torch.linalg.vector_norm(g, dtype=torch.float32)
+                    coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+                    g = g * coef.to(g.dtype)
+                self.optimizer.update(self.opt_state, self.master, g,
+                                      self.optimizer.hyperparams(),
+                                      segments=self.segments)
+            # after a skipped step too: the compute params are the
+            # master's cast, whatever wrote into them
             self._refresh_params()
             self._grad.zero_()
             if self._acc is not None:
                 self._acc.zero_()
+        if self.dynamic_loss_scale_enabled:
+            args = self._scale_args
+            self._scale_state = update_scale_state(
+                self._scale_state, overflow,
+                scale_window=args.get("scale_window", 1000),
+                min_scale=args.get("min_scale", 1.0),
+                delayed_shift=args.get("delayed_shift", 1))
+        self._skipped += int(overflow)
         self.global_steps += 1
-        if self.lr_scheduler is not None:
+        if self._guard is not None:
+            action = self._guard.observe(
+                mean_loss, overflow, scale=self._scale_state.cur_scale,
+                step=self.global_steps)
+            if self._apply_guard_action(action):
+                # rolled back: counters, schedule and scale state are the
+                # checkpoint's; this step's bookkeeping is void
+                self._losses = []
+                self._step_beat()
+                return
+        if self.lr_scheduler is not None and not overflow:
             self.lr_scheduler.step()
         if self.global_steps % self.steps_per_print() == 0:
-            # the print cadence's one host sync
-            mean_loss = float(torch.stack(self._losses).float().mean())
-            msg = (f"step={self.global_steps}, lr={self.get_lr()[0]:.6g}, "
-                   f"loss={mean_loss:.5f}")
+            if mean_loss is None:
+                # the print cadence's one host sync
+                mean_loss = float(torch.stack(self._losses).float().mean())
+            msg = (f"step={self.global_steps}, skipped={self._skipped}, "
+                   f"lr={self.get_lr()[0]:.6g}, loss={mean_loss:.5f}, "
+                   f"loss_scale={self.loss_scale}")
             if self._step_seconds:
                 msg += (f", train_batch ms (synchronized)="
                         f"{1e3 * np.mean(self._step_seconds):.2f}")
                 self._step_seconds = []
             logger.info(msg)
         self._losses = []
+        self._step_beat()
+
+    def _unscale(self, g):
+        """The flat gradient divided by the loss scale (itself when the
+        scale is 1): in the gradient's dtype where 1/scale is exact in it,
+        as the JAX engine multiplies (``:3178-3180``), else in fp32.  In
+        fp16 1/scale is exact up to a scale of 2^24; above it the JAX
+        engine's fp16 1/scale is 0 and a finite step applies a zero
+        gradient (ROADMAP C), which the fp32 multiply avoids."""
+        scale = self._scale_state.cur_scale
+        if scale == 1.0:
+            return g
+        inv = float(np.float32(1.0) / np.float32(scale))
+        exact = float(torch.tensor(inv, dtype=g.dtype)) == inv
+        if exact:
+            return g.mul_(inv)
+        return g.float().mul_(inv)
 
     def train_batch(self, data_iter=None):
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches drawn from ``data_iter`` (default: the training
         dataloader, repeated).  Returns the mean loss as a device tensor;
-        it fetches nothing from the card.  Under
+        without fp16 and resilience it fetches nothing from the card
+        (see :meth:`step`).  Under
         ``wall_clock_breakdown`` the step is timed between two
         synchronizations, which the log reports at the print cadence."""
         if data_iter is None:
@@ -433,6 +653,7 @@ class DeepSpeedEngine:
             logger.warning("preemption save skipped: no checkpoint dir seen "
                            "yet (call save_checkpoint once to set it)")
             return
+        self._step_beat_pause()
         self.save_checkpoint(self._last_ckpt_dir,
                              tag=f"global_step{self.global_steps}", sync=True)
 
@@ -511,6 +732,12 @@ class DeepSpeedEngine:
                 self._acc.zero_()
         self._losses = []
 
+        ss = meta["scale_state"]
+        self._scale_state = DynamicScaleState(
+            cur_scale=float(ss["cur_scale"]), cur_iter=int(ss["cur_iter"]),
+            last_overflow_iter=int(ss["last_overflow_iter"]),
+            cur_hysteresis=int(ss["cur_hysteresis"]))
+        self._skipped = int(meta["skipped_steps"])
         self.global_steps = meta["global_steps"]
         self.micro_steps = meta["micro_steps"]
         self.global_samples = meta["global_samples"]

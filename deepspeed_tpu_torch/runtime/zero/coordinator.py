@@ -7,6 +7,10 @@ Every parameter lives in one ``(rows, LANES)`` fp32 buffer in the
 row-aligned layout of :func:`~deepspeed_tpu_torch.ops.op_common.build_segments`,
 leaves in the JAX package's order (dict keys sorted), so a flat buffer,
 and the unpadded 1-D checkpoint form, mean the same in both packages.
+The engine's flat compute and gradient buffers take the same layout in
+the compute dtype (bf16, fp16 or fp32): :meth:`unflatten_params` gives
+the param dict's views of any of them, and the compute buffer is the
+master's cast, one copy.
 This slice runs ZeRO stages 0, 1 and 2 at one data-parallel rank, where
 master, optimizer state and gradients are all one unsharded buffer each;
 sharding them over ``torch.distributed`` ranks is ROADMAP A5, stage 3 is

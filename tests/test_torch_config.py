@@ -1,9 +1,10 @@
 """The port's ``DeepSpeedConfig`` against the JAX package's: both parsers
 read every config dict of ``tests/unit/test_config.py`` and resolve the
-keys the port reads to equal values, or both reject the dict.  Unknown
-keys warn with a "did you mean" hint and raise under ``strict_config``;
-blocks the port does not implement warn; ``fp16.enabled`` raises
-``NotImplementedError`` naming ROADMAP A4."""
+keys the port reads to equal values (the fp16 loss-scale values among
+them), or both reject the dict.  Unknown keys warn with a "did you mean"
+hint and raise under ``strict_config``; blocks the port does not
+implement warn; the ``checkpoint`` and ``resilience`` blocks parse as
+the JAX package's."""
 
 import logging
 
@@ -72,7 +73,8 @@ RESOLVED = ("train_batch_size", "train_micro_batch_size_per_gpu",
             "zero_optimization_stage", "zero_enabled", "bf16_enabled",
             "fp16_enabled", "gradient_clipping", "optimizer_name",
             "optimizer_params", "scheduler_name", "scheduler_params",
-            "wall_clock_breakdown", "zero_allow_untested_optimizer")
+            "wall_clock_breakdown", "zero_allow_untested_optimizer",
+            "loss_scale", "initial_dynamic_scale", "dynamic_loss_scale_args")
 
 
 def parse(cls, d, world_size):
@@ -90,12 +92,6 @@ def parse(cls, d, world_size):
                          ids=[f"cfg{i}" for i in range(len(UNIT_CONFIGS))])
 def test_both_parsers_resolve_equal_values(d, world_size):
     theirs, their_error = parse(JConfig, d, world_size)
-    if d.get("fp16", {}).get("enabled") and their_error is None:
-        # the JAX package trains fp16 with its loss scaler; the port
-        # names the missing piece
-        with pytest.raises(NotImplementedError, match="A4"):
-            DeepSpeedConfig(dict(d), world_size=world_size)
-        return
     ours, our_error = parse(DeepSpeedConfig, d, world_size)
     if their_error is not None:
         assert our_error is not None, f"the port accepts {d}"
@@ -196,3 +192,32 @@ def test_config_from_a_json_file_rejects_duplicate_keys(tmp_path):
         DeepSpeedConfig(str(path))
     path.write_text('{"train_batch_size": 8, "steps_per_print": 3}')
     assert DeepSpeedConfig(str(path)).steps_per_print == 3
+
+
+def test_resilience_block_parses_as_the_jax_package_does(caplog):
+    """The ``resilience`` block is ported (ROADMAP A15's one-rank half):
+    it parses into the same values as the JAX package's config, no
+    longer warns, and passes ``strict_config``; ``integrity`` (the fleet
+    integrity plane) raises, naming A5."""
+    block = {"enabled": True, "policy": "rollback", "spike_window": 16,
+             "spike_zscore": 5.0, "divergence_patience": 2,
+             "max_rollbacks": 1, "rollback_cooldown_steps": 4,
+             "hang_timeout_secs": 30.0, "floor_scale_patience": 3,
+             "checkpoint_dir": "/ckpt"}
+    with caplog.at_level(logging.WARNING):
+        cfg = DeepSpeedConfig({"train_batch_size": 8, "resilience": block,
+                               "strict_config": True})
+    assert "resilience" not in caplog.text
+    want = JConfig({"train_batch_size": 8,
+                    "resilience": block}).resilience_config
+    got = cfg.resilience_config
+    for field in ("enabled", "policy", "spike_window", "spike_zscore",
+                  "divergence_patience", "max_rollbacks",
+                  "rollback_cooldown_steps", "hang_timeout_secs",
+                  "floor_scale_patience", "checkpoint_dir",
+                  "straggler_factor", "integrity", "integrity_window",
+                  "integrity_action", "integrity_peer_timeout_secs"):
+        assert getattr(got, field) == getattr(want, field), field
+    with pytest.raises(NotImplementedError, match="A5"):
+        DeepSpeedConfig({"train_batch_size": 8,
+                         "resilience": {"enabled": True, "integrity": True}})

@@ -10,7 +10,9 @@ Tolerances: the forward fp32 2e-5 (matmuls in full fp32, TF32 off; only
 the summation order differs), bf16 2e-2 (both round P to bf16 before P·V
 and the output to bf16, at different points of a different summation
 order); the backward fp32 5e-4 (the flash tests' grad tolerance), bf16
-1e-2 (dS and P rounded to bf16 after fp32 sums in another order).  The
+1e-2 (dS and P rounded to bf16 after fp32 sums in another order).  fp16
+is held to bf16's bounds: it rounds at the same points, with three more
+bits.  The
 block-sparse kernels B5a and B5b and the super-tile kernels B6a, B6b and
 B6c are held to the same four bounds.
 """
@@ -36,7 +38,8 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
 
-GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+GRAD_TOLS = {torch.float32: 5e-4, torch.bfloat16: 1e-2,
+             torch.float16: 1e-2}
 
 
 @pytest.fixture
@@ -61,8 +64,9 @@ def make_inputs(seed, b, s, kv_len, h, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["fp32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("b,s,kv_len,d,causal,rate,fused", [
     (2, 128, 128, 64, True, 0.0, False), (2, 300, 300, 64, True, 0.0, False),
     (2, 256, 200, 64, False, 0.0, False), (2, 200, 320, 64, True, 0.0, False),
@@ -102,7 +106,7 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, dtype, tol, b, s,
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
     assert bool((out[-1] == 0).all())
     assert bool((lse.view(b, 4, s)[-1] == fa.MAX_FLOOR).all())
@@ -173,8 +177,9 @@ def backward_by_kernels(path, q, k, v, out, lse, dout, mask, causal, rate,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("path,s,kv_len,d,causal,rate", [
     ("b2", 256, 256, 64, True, 0.0), ("b2", 300, 200, 64, False, 0.0),
     ("b2", 128, 128, 128, True, 0.0), ("b2", 256, 256, 64, True, 0.1),
@@ -284,27 +289,19 @@ def b3_cases():
     }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(b3_cases()))
-def test_bf16_b3_on_the_tensor_cores_matches_plain(cuda_device, name):
-    """The bf16 B3 (``flash_bwd_fused_mma_kernel``) with B4 under dropout
-    against ``flash_attention_bwd_reference`` fed the kernel's own out
-    and lse and the same Philox mask, at 1e-2; a batch row whose keys are
-    all masked gets exactly zero grads; two runs are bitwise equal; each
-    call counts one B3 launch (and one B4 under dropout) and no B2."""
+def check_b3_case(cuda_device, name, dtype):
+    """B3 on the tensor cores at ``b3_cases()[name]`` in ``dtype``
+    against the plain version (see the two tests below)."""
     b, h, s, kv_len, d, causal, rate, mask_kind, fused = b3_cases()[name]
     g = torch.Generator().manual_seed(len(name))
     if fused:
-        qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device,
-                                                         torch.bfloat16)
+        qkv = torch.randn(b, s, 3, h, d, generator=g).to(cuda_device, dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
-        q = torch.randn(b, s, h, d, generator=g).to(cuda_device,
-                                                    torch.bfloat16)
+        q = torch.randn(b, s, h, d, generator=g).to(cuda_device, dtype)
         k, v = (torch.randn(b, kv_len, h, d, generator=g)
-                .to(cuda_device, torch.bfloat16) for _ in range(2))
-    dout = torch.randn(b, s, h, d, generator=g).to(cuda_device,
-                                                   torch.bfloat16)
+                .to(cuda_device, dtype) for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=g).to(cuda_device, dtype)
     mask = None
     if mask_kind == "ones":
         mask = torch.ones(b, kv_len, device=cuda_device)
@@ -340,6 +337,105 @@ def test_bf16_b3_on_the_tensor_cores_matches_plain(cuda_device, name):
                                    rtol=1e-2)
         if mask_kind == "pad":
             assert bool((a[-1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(b3_cases()))
+def test_bf16_b3_on_the_tensor_cores_matches_plain(cuda_device, name):
+    """The bf16 B3 (``flash_bwd_fused_mma_kernel``) with B4 under dropout
+    against ``flash_attention_bwd_reference`` fed the kernel's own out
+    and lse and the same Philox mask, at 1e-2; a batch row whose keys are
+    all masked gets exactly zero grads; two runs are bitwise equal; each
+    call counts one B3 launch (and one B4 under dropout) and no B2."""
+    check_b3_case(cuda_device, name, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(b3_cases()))
+def test_fp16_b3_on_the_tensor_cores_matches_plain(cuda_device, name):
+    """The fp16 instantiation of the same kernel, held the same way at
+    the same shapes (BERT's among them), its launches also counted under
+    ``flash_attention_bwd_fused.fp16``."""
+    before = flash_attention_bwd_fused.fp16.launches
+    check_b3_case(cuda_device, name, torch.float16)
+    assert flash_attention_bwd_fused.fp16.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_fp16_fits_and_choice_follow_bf16(cuda_device):
+    """The fp16 B3 is the bf16 design with 16-bit tiles of the same size:
+    the same shared memory at every shape, and the same dispatch rule."""
+    for d, s, kv_len in ((64, 128, 128), (64, 21, 512), (64, 161, 161),
+                         (128, 128, 128), (128, 129, 129)):
+        assert fa.fused_smem_bytes(d, s, kv_len, torch.float16) == \
+            fa.fused_smem_bytes(d, s, kv_len, torch.bfloat16)
+        assert fa.use_fused_backward(d, s, kv_len, torch.float16) == \
+            fa.use_fused_backward(d, s, kv_len, torch.bfloat16)
+
+
+def nonfinite_by_head(t):
+    """[b, h] bool: whether each (batch, head) slice of a ``[b, n, h, d]``
+    tensor holds a non-finite value."""
+    return ~torch.isfinite(t.float()).all(dim=3).all(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,s,causal,rate", [
+    ("b2", 256, True, 0.0), ("b2", 200, False, 0.1), ("b3", 128, False, 0.1),
+    ("b3", 65, True, 0.0)])
+def test_fp16_kernels_propagate_non_finite_values(cuda_device, path, s,
+                                                  causal, rate):
+    """An inf in dO (the overflow a loss scale makes) gives non-finite
+    dq, dk and dv from the kernels in exactly the (batch, head) slices
+    where the plain version's are, and a NaN in q gives a non-finite out
+    and lse in exactly the slices where the plain forward's are: no
+    running max, masking guard or ex2 turns them finite, so the engine's
+    overflow check sees what the plain path would."""
+    dtype = torch.float16
+    q, k, v, mask = make_inputs(s + 7, 2, s, s, 4, 64)
+    t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    seed = (torch.tensor([s, 3], dtype=torch.int32, device=cuda_device)
+            if rate else None)
+    keep, inv_keep = None, 1.0
+    if rate:
+        keep = philox_keep_mask(seed, 8, s, s, rate).view(2, 4, s, s)
+        inv_keep = fa.dropout_thresh(rate)[1]
+    out, lse = flash_attention_fwd(*t, m, causal, rate, seed)
+    dout = torch.randn(2, s, 4, 64, generator=torch.Generator()
+                       .manual_seed(s)).to(cuda_device, dtype)
+    dout[0, s // 3, 1, 5] = float("inf")
+    grads = backward_by_kernels(path, *t, out, lse, dout, m, causal, rate,
+                                seed)
+    ref = flash_attention_bwd_reference(*t, out, lse, dout, m, causal, keep,
+                                        inv_keep)
+    for g, r in zip(grads, ref):
+        assert bool(nonfinite_by_head(r)[0, 1])
+        assert torch.equal(nonfinite_by_head(g), nonfinite_by_head(r))
+
+    qn = t[0].clone()
+    qn[0, s // 2, 2, 7] = float("nan")
+    out, lse = flash_attention_fwd(qn, t[1], t[2], m, causal, rate, seed)
+    ref_out, ref_lse = flash_attention_reference(qn, t[1], t[2], m, causal,
+                                                 keep, inv_keep)
+    assert bool(nonfinite_by_head(ref_out)[0, 2])
+    assert torch.equal(nonfinite_by_head(out), nonfinite_by_head(ref_out))
+    assert torch.equal(~torch.isfinite(lse), ~torch.isfinite(ref_lse))
+
+
+@pytest.mark.cuda
+def test_fp16_launches_are_counted_per_dtype(cuda_device):
+    """An fp16 launch adds one to the wrapper's count and to its fp16
+    count (and B4's under dropout); a bf16 launch only to the first."""
+    q, k, v, mask = make_inputs(3, 2, 128, 128, 4, 64)
+    counters = (flash_attention_fwd, fa.in_kernel_dropout)
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=cuda_device)
+    for dtype, fp16 in ((torch.bfloat16, 0), (torch.float16, 1)):
+        t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+        before = [(c.launches, c.fp16.launches) for c in counters]
+        flash_attention_fwd(*t, None, True, 0.1, seed)
+        assert [(c.launches - a, c.fp16.launches - b) for c, (a, b)
+                in zip(counters, before)] == [(1, fp16)] * 2
 
 
 @pytest.mark.cuda
@@ -470,6 +566,74 @@ def test_train_batch_syncs_only_at_the_print_cadence(cuda_device):
         torch.cuda.set_sync_debug_mode(previous)
     # global steps 2, 3, 4: step 3 prints
     assert counts == [0, 1, 0]
+
+
+@pytest.mark.cuda
+def test_fp16_engine_skips_a_forced_overflow_through_the_fp16_kernels(
+        cuda_device):
+    """Tiny GPT-2 in fp16 (dropout 0.1, seq 256: B1, B2a+B2b and B4, all
+    in fp16) under a dynamic loss scale: an inf written into one compute
+    parameter makes the next step's gradients non-finite on the card, so
+    that step is skipped with the master and both moments bitwise
+    unchanged and the LR schedule not stepped; the steps around it apply.
+    Every attention launch is an fp16 one, and each step makes exactly
+    one synchronizing copy (the overflow flag and the loss)."""
+    config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=256,
+                        embd_dropout=0.1, attn_dropout=0.1,
+                        resid_dropout=0.1)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(config), model_parameters=random_params(config, 0),
+        config={"train_batch_size": 2, "steps_per_print": 10 ** 9,
+                "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+                "scheduler": {"type": "WarmupLR",
+                              "params": {"warmup_num_steps": 10}},
+                "zero_optimization": {"stage": 2},
+                "fp16": {"enabled": True, "initial_scale_power": 16,
+                         "hysteresis": 1}}, device=cuda_device)
+    rng = np.random.RandomState(0)
+    batches = [{"input_ids": rng.randint(0, 512, size=(2, 256))}
+               for _ in range(5)]
+    engine.train_batch(iter(batches[:1]))   # warm-up
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, fa.in_kernel_dropout)
+    for c in counters:
+        c.launches = c.fp16.launches = 0
+    torch.cuda.synchronize()
+    syncs = []
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i, batch in enumerate(batches[1:]):
+            if i == 1:
+                before = [engine.master.clone(),
+                          engine.opt_state.exp_avg.clone(),
+                          engine.opt_state.exp_avg_sq.clone()]
+                lr = engine.get_lr()[0]
+                scale, skipped = engine.loss_scale, engine.skipped_steps
+                with torch.no_grad():
+                    engine.params["blocks"]["layer_0"]["fc1"]["bias"][0] = \
+                        float("inf")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                engine.train_batch(iter([batch]))
+            syncs.append(sum("synchroniz" in str(w.message)
+                             for w in caught))
+            if i == 1:
+                assert engine.skipped_steps == skipped + 1
+                assert all(torch.equal(a, b) for a, b in zip(before, (
+                    engine.master, engine.opt_state.exp_avg,
+                    engine.opt_state.exp_avg_sq)))
+                assert engine.get_lr()[0] == lr
+                assert engine.loss_scale == scale / 2
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    assert syncs == [1, 1, 1, 1]
+    assert engine.skipped_steps == skipped + 1
+    assert bool(torch.isfinite(engine.master).all())
+    assert engine.get_lr()[0] != lr
+    assert [c.launches for c in counters] == [8, 8, 8, 24]
+    assert [c.fp16.launches for c in counters] == [8, 8, 8, 24]
 
 
 @pytest.mark.cuda

@@ -236,7 +236,7 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"fp16": {"enabled": True}}, NotImplementedError, "A4"),
+    ({"fp16": {"enabled": True}}, None, "float16"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}},
      NotImplementedError, "A9"),
     ({"zero_optimization": {"stage": 3}}, NotImplementedError, "A8"),
@@ -244,8 +244,19 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
      NotImplementedError, "A14"),
     ({"optimizer": {"type": "Sgd", "params": {}}}, ValueError, "sgd")])
 def test_unported_options_raise(change, error, match):
+    """Options the port does not have raise, naming their ROADMAP item;
+    fp16 (ROADMAP A4, ported) builds an engine whose compute params and
+    flat gradient are fp16, with the JAX package's dynamic scale."""
+    config = dict(ds_config("Adam", 1, 0.0), **change)
+    if error is None:
+        engine, *_ = torch_engine(config)
+        assert str(engine.compute_dtype) == f"torch.{match}"
+        assert engine._compute.dtype == engine._grad.dtype == torch.float16
+        assert engine.fp16_enabled() and engine.dynamic_loss_scale()
+        assert engine.loss_scale == 2.0 ** 32 and engine.skipped_steps == 0
+        return
     with pytest.raises(error, match=match):
-        torch_engine(dict(ds_config("Adam", 1, 0.0), **change))
+        torch_engine(config)
 
 
 def test_default_device_is_the_card():

@@ -413,6 +413,22 @@ def test_sparse_core_dispatch(monkeypatch, caplog, tensor, kpm, env, want):
     assert len(caplog.records) == (1 if diverted else 0)
 
 
+def test_sparse_core_fp16_names_its_roadmap_item(monkeypatch):
+    """The dense kernels take fp16, the sparse ones do not: fp16 on the
+    card never reaches B5/B6, and the refusal names the ROADMAP item for
+    fp16 B5/B6."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        flash_block_sparse as fbs
+
+    monkeypatch.delenv("DS_SPARSE_FLASH", raising=False)
+    fp16 = _FakeCudaTensor(dtype=torch.float16)
+    assert not fbs.kernel_takes(fp16)
+    assert fbs.kernel_takes(_FakeCudaTensor(dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match=fbs.FP16_ITEM):
+        tl.sparse_core(fp16, False)
+    assert torch.float16 not in fbs._DTYPE_CODES
+
+
 def test_sparse_layer_needs_a_config_and_ring_still_raises():
     from deepspeed_tpu_torch.models.layers import TransformerLayer
 

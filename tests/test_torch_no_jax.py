@@ -90,14 +90,25 @@ def test_sparse_subpackage_imports_with_jax_blocked():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port, ``runtime.engine``, ``models.bert`` and
-    the ``checkpoint`` package among them."""
+    """Every module of the port, ``runtime.engine``, ``models.bert``, the
+    ``checkpoint`` and ``resilience`` packages and the fp16 loss scaler
+    among them."""
     assert {"deepspeed_tpu_torch.runtime.engine",
             "deepspeed_tpu_torch.models.bert",
             "deepspeed_tpu_torch.checkpoint",
             "deepspeed_tpu_torch.checkpoint.manager",
             "deepspeed_tpu_torch.checkpoint.snapshot",
-            "deepspeed_tpu_torch.checkpoint.writer"} <= set(PORT_MODULES)
+            "deepspeed_tpu_torch.checkpoint.writer",
+            "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
+            "deepspeed_tpu_torch.resilience",
+            "deepspeed_tpu_torch.resilience.chaos",
+            "deepspeed_tpu_torch.resilience.config",
+            "deepspeed_tpu_torch.resilience.constants",
+            "deepspeed_tpu_torch.resilience.guard",
+            "deepspeed_tpu_torch.resilience.rollback",
+            "deepspeed_tpu_torch.resilience.watchdog",
+            "deepspeed_tpu_torch.profiling.step_profiler"} \
+        <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"

@@ -60,6 +60,15 @@ def test_every_mode_names_the_libraries_of_its_attention():
      "flash_fwd_mma_kernelILi64ELb1EEEvPK13__nv_bfloat16",
      "flash_fwd_mma_kernel_d64_dropout"),
     ("_ZN35_INTERNAL_e_18_flash_block_sparse_cu_f14"
-     "fbs_fwd_kernelIfLi64EEEvPKT_", "fbs_fwd_kernel_fp32_d64")])
+     "fbs_fwd_kernelIfLi64EEEvPKT_", "fbs_fwd_kernel_fp32_d64"),
+    # the fp16 instantiation of a tensor-core kernel template, beside its
+    # bf16 one (which keeps the name it had before the element type
+    # became a template argument)
+    ("_ZN35_INTERNAL_d09a935d_22_flash_attention_bwd_cu_a6d4ba1f26"
+     "flash_bwd_fused_mma_kernelI6__halfLi64ELi8EEEvPKT_",
+     "flash_bwd_fused_mma_kernel_fp16_d64_w8"),
+    ("_ZN35_INTERNAL_b0bd14b_22_flash_attention_fwd_cu_ba3050c620"
+     "flash_fwd_mma_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_",
+     "flash_fwd_mma_kernel_d64_dropout")])
 def test_kernel_name_keeps_the_kernels_own_name(mangled, name):
     assert op_builder.kernel_name(mangled) == name
