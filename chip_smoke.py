@@ -16,9 +16,12 @@ CPU, does the same two things again at seq 4096 with block-sparse
 attention, pretrains BERT-large, dense at seq 128 and block-sparse at
 seq 4096 through the super-tile kernels, saves GPT-2-medium between
 steps and resumes it bitwise, then trains GPT-2-medium and BERT-large in
-fp16 under the dynamic loss scaler and rolls GPT-2-medium back to its
-checkpoint after a forced divergence.  Phases, in order; any failure
-raises, so the script exits non-zero:
+fp16 under the dynamic loss scaler, rolls GPT-2-medium back to its
+checkpoint after a forced divergence, trains GPT-2-medium under
+activation checkpointing and the chunked LM loss (up to micro-batch 32),
+BERT-large under remat and Progressive Layer Drop, and fine-tunes
+BERT-large on SQuAD- and MNLI-shaped batches.  Phases, in order; any
+failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
               build (one nvcc per source, all started together);
@@ -179,7 +182,39 @@ raises, so the script exits non-zero:
               patience 2, phase 15's checkpoint dir) with one master
               element set to inf: two skipped steps, a rollback to
               global_step3 (its wall time beside phase 15's load), then
-              3 steps bitwise equal to phase 15's run A.
+              3 steps bitwise equal to phase 15's run A;
+21. remat    — phase 6's GPT-2-medium under the
+              ``activation_checkpointing`` config block, 5 steps each on
+              one batch: (a) remat alone, losses and the master after
+              every step bitwise the run without it, B1 (B4 inside)
+              twice a layer a step (forward and recompute); (b) with
+              ``loss_chunk`` 128, the first loss within rtol 1e-5 of the
+              full-logits one; (c) with ``cpu_checkpointing`` too,
+              losses bitwise (b)'s; (d) micro-batch 32 (which the step
+              without remat cannot hold in 80 GB), 2 warm-up and 3 timed
+              steps; step ms, tokens/s, MFU (recompute not counted) and
+              peak memory of each beside the run without remat;
+22. bert pld — phase 12's BERT-large under remat and Progressive Layer
+              Drop (θ̄ 0.5, γ 0.001, DeepSpeed's bing_bert tutorial): 2
+              warm-up and 5 timed steps, θ on its schedule after each,
+              B1 twice a layer a step at 128 rows (PLD turns the MLM
+              query gather off); without the gather, PLD at θ = 1 is
+              bitwise the run without PLD over 3 steps;
+23. squad    — BERT-large SQuAD fine-tuning (``BertForQuestionAnsweringTPU``,
+              BingBertSquad's seq 384, batch 24, Adam lr 3e-5, bf16,
+              dropout 0.1), prompts padded from random lengths in
+              [128, 384] (ragged key padding through B1, B2a, B2b), 2
+              rows with answers past the window, which the loss ignores:
+              2 warm-up and 5 timed steps;
+24. mnli     — BERT-large sequence classification (3 labels, seq 128,
+              batch 32, padded from random lengths in [32, 128]) through
+              B1 and B3: 2 warm-up and 3 timed steps;
+25. remat parity — 2 layers at BERT-large width, fp32, seq 128 with
+              padding and the MLM gather: remat, each memory knob, PLD
+              at θ 0 and 1, and the QA and MNLI heads under remat: the
+              card against the CPU (loss rtol 1e-3, each gradient to
+              1e-3 of its largest element), and, with dropout 0.1 on the
+              card, each bitwise the model without it.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -213,7 +248,9 @@ import torch.nn.functional as F
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import checkpoint as ckpt
 from deepspeed_tpu_torch.inference import InferenceEngine
-from deepspeed_tpu_torch.models.bert import BertConfig, BertForPreTraining
+from deepspeed_tpu_torch.models.bert import (
+    BertConfig, BertForPreTraining, BertForQuestionAnsweringTPU,
+    BertForSequenceClassificationTPU)
 from deepspeed_tpu_torch.models.bert import random_params as bert_params
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
@@ -1173,19 +1210,22 @@ TRAIN_CONFIG = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
                 "bf16": {"enabled": True}}
 
 
-def train_setup(config=TRAIN_CONFIG):
+def train_setup(config=TRAIN_CONFIG, micro_batch=None, **model_kw):
     """The train phase's engine, model config and fixed batch on the
     card: GPT-2-medium at full width and depth, bench.py's GPT-2 leg
     (``bench.py:806-816``): seq 1024, micro-batch 8, dropout 0.1 at all
     three sites, Lamb lr 1e-4, ZeRO-2, bf16 (``config``: phase 17 swaps
-    in fp16), random weights from ``SEED`` and token ids from ``SEED +
-    1``.  ``examples/profile_torch_train.py`` profiles this same set-up."""
-    b, _, s, _ = TRAIN_ATTN
+    in fp16, phase 21 adds ``activation_checkpointing``), random weights
+    from ``SEED`` and token ids from ``SEED + 1``.  ``micro_batch`` and
+    ``model_kw`` (``loss_chunk``) are phase 21's changes.
+    ``examples/profile_torch_train.py`` profiles this same set-up."""
+    b = micro_batch or TRAIN_ATTN[0]
+    s = TRAIN_ATTN[2]
     cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
-                                 resid_dropout=DROPOUT)
+                                 resid_dropout=DROPOUT, **model_kw)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
-        config=dict(config))
+        config=dict(config, train_batch_size=b))
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                    size=(b, s))
     return engine, cfg, {"input_ids": ids}
@@ -1941,23 +1981,28 @@ def time_agg_orders(q, k, v, out, lse, dout, delta, layout, G,
     return {"launch_order": row}
 
 
-def bert_flops_per_sample(cfg, seq):
+def bert_layer_flops(cfg, seq, q_len):
+    """One BERT layer's forward flops with ``q_len`` query rows against
+    ``seq`` keys (``bench.py:42-67``)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    return (2 * q_len * h * h + 2 * seq * h * 2 * h  # Q; K and V
+            + 2 * q_len * seq * h * 2                # scores, context
+            + 2 * q_len * h * h                      # attention out
+            + 2 * q_len * h * i * 2)                 # FC1, FC2
+
+
+def bert_flops_per_sample(cfg, seq, full_last_layer=False):
     """BERT fwd+bwd model flops per sample, as ``bench.py:42-67`` counts
     them: with the MLM gather the last layer runs its queries at the
-    n_pred label positions and CLS only, and the head projects those."""
-    h, i, L, v = (cfg.hidden_size, cfg.intermediate_size,
-                  cfg.num_hidden_layers, cfg.vocab_size)
-
-    def layer_flops(q_len):
-        return (2 * q_len * h * h + 2 * seq * h * 2 * h  # Q; K and V
-                + 2 * q_len * seq * h * 2                # scores, context
-                + 2 * q_len * h * h                      # attention out
-                + 2 * q_len * h * i * 2)                 # FC1, FC2
-
+    n_pred label positions and CLS only (unless ``full_last_layer``:
+    Progressive Layer Drop turns that gather off), and the head projects
+    those.  A recompute is not counted."""
+    h, L, v = cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size
     n_pred = min(cfg.max_predictions_per_seq or seq, seq)
-    n_last = seq if n_pred == seq else n_pred + 1
+    n_last = seq if n_pred == seq or full_last_layer else n_pred + 1
     head = 2 * n_pred * h * h + 2 * n_pred * h * v
-    return 3 * ((L - 1) * layer_flops(seq) + layer_flops(n_last) + head)
+    return 3 * ((L - 1) * bert_layer_flops(cfg, seq, seq)
+                + bert_layer_flops(cfg, seq, n_last) + head)
 
 
 def exact_count_mlm_labels(rng, ids, n_pred):
@@ -1986,19 +2031,20 @@ def bert_batch(rng, vocab, b, s, n_pred, attention_mask):
     return batch
 
 
-def bert_train_setup(config=TRAIN_CONFIG):
+def bert_train_setup(config=TRAIN_CONFIG, **model_kw):
     """The BERT train phase's engine, model config and fixed batch on the
     card: BERT-large at full width and depth (24 layers, hidden 1024, 16
     heads, vocab 30528), bench.py's headline leg: seq 128, micro-batch
     64, an attention mask of ones, ``max_predictions_per_seq`` 20 with
     exactly 20 labels a row, NSP labels, dropout 0.1 at every site, Lamb
     lr 1e-4, ZeRO-2, bf16 (``config``: phase 18 swaps in fp16), random
-    weights from ``SEED``.  ``examples/profile_torch_train.py --bert``
-    profiles this set-up."""
-    cfg = BertConfig.bert_large(
-        vocab_size=BERT_VOCAB, hidden_dropout_prob=DROPOUT,
-        attention_probs_dropout_prob=DROPOUT,
-        max_predictions_per_seq=BERT_PRED)
+    weights from ``SEED``; ``model_kw`` changes the model config (phase
+    22).  ``examples/profile_torch_train.py --bert`` profiles this
+    set-up."""
+    cfg = BertConfig.bert_large(**dict(
+        dict(vocab_size=BERT_VOCAB, hidden_dropout_prob=DROPOUT,
+             attention_probs_dropout_prob=DROPOUT,
+             max_predictions_per_seq=BERT_PRED), **model_kw))
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
         config=dict(config, train_batch_size=BERT_BATCH))
@@ -2812,6 +2858,482 @@ def phase_rollback(card, results, save_dir, run_a):
     return launches
 
 
+# ------------------------------------------------------------------- remat
+# phases 21-25: activation checkpointing (the config block), the chunked
+# LM loss, Progressive Layer Drop and the BERT fine-tuning heads
+ACT_CKPT_CONFIG = dict(TRAIN_CONFIG, activation_checkpointing={})
+REMAT_STEPS = 5
+REMAT_CHUNK = 128
+REMAT_BIG_BATCH = 32
+# the first step's loss, on the same weights, with and without loss_chunk
+CHUNK_RTOL = 1e-5
+# DeepSpeed's Progressive Layer Drop tutorial for bing_bert
+PLD_CONFIG = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+# BingBertSquad: seq 384, batch 24, Adam lr 3e-5; prompts padded from
+# random lengths in [128, 384]; 2 rows with answers past the window
+SQUAD_SEQ, SQUAD_BATCH, SQUAD_MIN_LEN, SQUAD_TRUNCATED = 384, 24, 128, 2
+# GLUE MNLI: 3 labels, seq 128, batch 32, Adam lr 3e-5
+MNLI_SEQ, MNLI_BATCH, MNLI_LABELS, MNLI_MIN_LEN = 128, 32, 3, 32
+FINETUNE_CONFIG = {"steps_per_print": 10 ** 9,
+                   "optimizer": {"type": "Adam", "params": {"lr": 3e-5}},
+                   "bf16": {"enabled": True}}
+
+
+def stepped(label, engine, batch, steps, after=None, falling=True):
+    """``steps`` ``train_batch`` steps on one batch, each between two
+    synchronizations, with the peak memory and the launch counts set to
+    0 just before; ``after(engine)`` runs after each step, outside its
+    time.  Checks finite losses, and unless ``falling`` is false (the
+    fine-tuning phases read their eval loss instead) the last below the
+    first.  Returns ``(losses, step seconds, launches, peak
+    bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(iter([batch]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if after is not None:
+            after(engine)
+    launches, peak = read_launches(), torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    check(not falling or losses[-1] < losses[0], f"{label}: the last loss "
+          f"{losses[-1]} is not below the first {losses[0]}")
+    return losses, seconds, launches, peak
+
+
+def fwd_bwd_peak(engine, batch):
+    """One more step on ``batch``, outside any counted window: the peak
+    memory of its forward and backward alone (the activations at their
+    most), then its update."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.backward(engine.forward(batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    engine.step()
+    return peak
+
+
+def train_receipt(card, label, run, warmup, samples, seq, flops, **extra):
+    """A phase's numbers: step ms over the steps after ``warmup``,
+    samples/s, tokens/s, MFU by model flops (``flops`` a sample, a
+    recompute not counted), peak memory, launches a step."""
+    losses, seconds, launches, peak = run
+    step_s = statistics.mean(seconds[warmup:])
+    samples_s = samples / step_s
+    receipt = dict({
+        "card": card, "losses": losses, "step_ms": 1e3 * step_s,
+        "samples_per_s": samples_s, "tokens_per_s": samples_s * seq,
+        "mfu": samples_s * flops / PEAK_FLOPS[torch.bfloat16],
+        "model_flops_per_sample": flops, "peak_memory_bytes": peak,
+        "launches_per_step": {k: v / len(losses)
+                              for k, v in launches.items()}}, **extra)
+    print(f"{label}: step {receipt['step_ms']:.2f} ms, "
+          f"{receipt['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{receipt['mfu']:.4f}, peak memory {peak / 1e9:.2f} GB [{card}]")
+    print(f"{label} receipt:", json.dumps(receipt))
+    return receipt
+
+
+def expect_launches(label, launches, want):
+    check(all(launches[name] == n for name, n in want.items())
+          and only_launched(launches, tuple(want)),
+          f"{label}: launches {launches}, expected {want}")
+
+
+def release(engine):
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_remat(card, results):
+    """21. :func:`train_setup`'s GPT-2-medium (phase 6's configuration)
+    under the ``activation_checkpointing`` config block, ``REMAT_STEPS``
+    steps each on one batch: first the run without it, keeping a host
+    copy of the master after each step; then (a) remat alone: losses and
+    the master after every step bitwise the run without it, B1 (B4
+    inside) twice a layer a step, forward and recompute; (b) with
+    ``loss_chunk`` 128: the first step's loss (the same weights) within
+    rtol ``CHUNK_RTOL`` of the full-logits one; (c) with
+    ``cpu_checkpointing`` too: losses bitwise (b)'s, the layer inputs in
+    pinned host memory; (d) remat and ``loss_chunk`` at micro-batch 32,
+    which the step without remat cannot hold in 80 GB: 2 warm-up and 3
+    timed steps, finite and falling.  Step ms, tokens/s, MFU (recompute
+    not counted) and peak memory for each, and the peak of one more
+    step's forward and backward alone (:func:`fwd_bwd_peak`)."""
+    s = TRAIN_ATTN[2]
+    # what earlier phases left for the collector would count in this
+    # phase's peaks (5.7 GB of an engine once, measured on one H100)
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    engine, cfg, batch = train_setup()
+    layers = cfg.num_layers
+    flops = gpt2_model_flops_per_sample(cfg, s)
+    masters = []
+    base = stepped("remat: the run without it", engine, batch, REMAT_STEPS,
+                   lambda e: masters.append(e.master.to("cpu", copy=True)))
+    base_peak = fwd_bwd_peak(engine, batch)
+    release(engine)
+    # seq 1024 takes B2a+B2b; B4 is inside B1, B2a and B2b
+    remat_launches = {name: k * layers * REMAT_STEPS for name, k in
+                      (("B1", 2), ("B2a", 1), ("B2b", 1), ("B4", 4))}
+    receipts, total = {}, {}
+    b = TRAIN_ATTN[0]
+    receipts["none"] = train_receipt(card, "remat: none (batch 8)", base, 1,
+                                     b, s, flops,
+                                     fwd_bwd_peak_bytes=base_peak)
+    runs = (("remat", {}, {}, "remat (batch 8)"),
+            ("chunk", {}, {"loss_chunk": REMAT_CHUNK},
+             f"remat + loss_chunk {REMAT_CHUNK} (batch 8)"),
+            ("cpu", {"cpu_checkpointing": True},
+             {"loss_chunk": REMAT_CHUNK},
+             f"remat + loss_chunk {REMAT_CHUNK} + cpu_checkpointing "
+             f"(batch 8)"))
+    out = {}
+    for name, block, model_kw, label in runs:
+        engine, cfg, batch = train_setup(
+            dict(TRAIN_CONFIG, activation_checkpointing=block), **model_kw)
+        check(cfg.remat, f"{label}: the config block did not turn remat on")
+        step = iter(range(REMAT_STEPS))
+
+        def same_master(e, label=label):
+            i = next(step)
+            check(name != "remat" or torch.equal(e.master.to("cpu"),
+                                                 masters[i]),
+                  f"{label}: the master after step {i + 1} differs from the "
+                  f"run without remat")
+
+        out[name] = stepped(label, engine, batch, REMAT_STEPS, same_master)
+        extra = {"fwd_bwd_peak_bytes": fwd_bwd_peak(engine, batch)}
+        release(engine)
+        expect_launches(label, out[name][2], remat_launches)
+        total = {k: total.get(k, 0) + v for k, v in out[name][2].items()}
+        if name == "chunk":
+            rel = [abs(x - y) / abs(y) for x, y in zip(out[name][0],
+                                                        base[0])]
+            check(rel[0] <= CHUNK_RTOL, f"{label}: the first loss "
+                  f"{out[name][0][0]} vs the full-logits {base[0][0]}")
+            extra["rel_diff_to_full_logits"] = rel
+        if name == "cpu":
+            extra["host_bytes"] = layers * b * s * cfg.hidden_size * 2
+        receipts[name] = train_receipt(card, label, out[name], 1, b, s,
+                                       flops, **extra)
+    check(out["remat"][0] == base[0], f"remat: losses {out['remat'][0]} "
+          f"differ from the run without remat {base[0]}")
+    check(out["cpu"][0] == out["chunk"][0], f"remat + cpu_checkpointing: "
+          f"losses {out['cpu'][0]} differ from {out['chunk'][0]}")
+    engine, cfg, batch = train_setup(ACT_CKPT_CONFIG,
+                                     micro_batch=REMAT_BIG_BATCH,
+                                     loss_chunk=REMAT_CHUNK)
+    label = (f"remat + loss_chunk {REMAT_CHUNK} (batch {REMAT_BIG_BATCH})")
+    big = stepped(label, engine, batch, REMAT_STEPS)
+    big_peak = fwd_bwd_peak(engine, batch)
+    release(engine)
+    expect_launches(label, big[2], remat_launches)
+    total = {k: total.get(k, 0) + v for k, v in big[2].items()}
+    receipts["batch32"] = train_receipt(card, label, big, 2,
+                                        REMAT_BIG_BATCH, s, flops,
+                                        fwd_bwd_peak_bytes=big_peak)
+    receipts["allocated_at_start_bytes"] = start_bytes
+    results["remat"] = receipts
+    return total
+
+
+def bert_pld_setup(pld, **model_kw):
+    config = dict(ACT_CKPT_CONFIG)
+    if pld is not None:
+        config["progressive_layer_drop"] = pld
+    return bert_train_setup(config, **model_kw)
+
+
+def phase_bert_pld(card, results):
+    """22. :func:`bert_train_setup`'s BERT-large (phase 12's
+    configuration) under remat and Progressive Layer Drop (``PLD_CONFIG``):
+    2 warm-up and 5 timed steps; θ after each step on its schedule; PLD
+    turns the MLM query gather of the last layer off, so B1 runs at 128
+    rows in every layer, twice (forward and recompute), and the backward
+    once.  Then without the MLM gather, 3 steps under PLD with θ̄ = 1
+    (θ stays 1) are bitwise 3 steps without PLD, losses and master."""
+    engine, cfg, batch = bert_pld_setup(PLD_CONFIG)
+    thetas = []
+    run = stepped("bert pld", engine, batch, 7, lambda e: thetas.append(
+        e.progressive_layer_drop.get_theta()))
+    pld_peak = fwd_bwd_peak(engine, batch)
+    release(engine)
+    want = [(1.0 - PLD_CONFIG["theta"]) * math.exp(-PLD_CONFIG["gamma"] * t)
+            + PLD_CONFIG["theta"] for t in range(1, 8)]
+    check(np.allclose(thetas, want, rtol=1e-12, atol=0.0),
+          f"bert pld: theta {thetas}, the schedule gives {want}")
+    layers = cfg.num_hidden_layers
+    fused = fa.use_fused_backward(64, BERT_SEQ, BERT_SEQ, torch.bfloat16)
+    n = layers * 7
+    bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
+    expect_launches("bert pld", run[2],
+                    dict(bwd, B1=2 * n, B4=2 * n + n * (1 if fused else 2)))
+    total = dict(run[2])
+    receipt = train_receipt(
+        card, "bert pld (BERT-large, remat, PLD theta 0.5 gamma 0.001)", run,
+        2, BERT_BATCH, BERT_SEQ,
+        bert_flops_per_sample(cfg, BERT_SEQ, full_last_layer=True),
+        thetas=thetas, fwd_bwd_peak_bytes=pld_peak)
+    same = []
+    for pld in ({"enabled": True, "theta": 1.0, "gamma": 0.001}, None):
+        engine, cfg, batch = bert_pld_setup(pld, max_predictions_per_seq=None)
+        losses, _, launches, _ = stepped("bert pld theta 1", engine, batch, 3)
+        same.append((losses, engine.master.to("cpu")))
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        release(engine)
+    check(same[0][0] == same[1][0] and torch.equal(same[0][1], same[1][1]),
+          f"bert pld: at theta 1 the losses {same[0][0]} or the master "
+          f"differ from the run without PLD {same[1][0]}")
+    receipt["theta_one_losses"] = same[0][0]
+    results["bert_pld"] = receipt
+    return total
+
+
+def padded(rng, b, s, min_len):
+    """Token ids padded (id 0, mask 0) from random lengths in
+    ``[min_len, s]``, token types 1 from a random split on; returns
+    ``(batch, lengths)``."""
+    lengths = rng.integers(min_len, s + 1, size=b)
+    visible = np.arange(s)[None] < lengths[:, None]
+    ids = np.where(visible, rng.integers(1, BERT_VOCAB, size=(b, s)), 0)
+    split = rng.integers(min_len // 4, min_len // 2 + 1, size=b)
+    types = (visible & (np.arange(s)[None] >= split[:, None]))
+    return {"input_ids": ids, "attention_mask": visible.astype(np.int64),
+            "token_type_ids": types.astype(np.int64)}, lengths
+
+
+def finetune_engine(model, batch_size):
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=model.init(SEED),
+        config=dict(FINETUNE_CONFIG, train_batch_size=batch_size))
+    return engine
+
+
+def phase_squad(card, results):
+    """23. BERT-large SQuAD fine-tuning (``BertForQuestionAnsweringTPU``,
+    the BingBertSquad flow): seq 384, batch 24, Adam lr 3e-5, bf16,
+    dropout 0.1, prompts padded from random lengths in [128, 384] (the
+    key mask: ragged key padding through B1, B2a and B2b), answers inside
+    each prompt, and ``SQUAD_TRUNCATED`` rows whose answer lies past the
+    window (position 384): the eval loss equals the one with those rows'
+    positions at -100.  2 warm-up and 5 timed steps, finite, and the eval
+    loss (no dropout) after them below the one before; one B1, B2a and
+    B2b (B4 in each) a layer a step."""
+    cfg = BertConfig.bert_large(vocab_size=BERT_VOCAB,
+                                hidden_dropout_prob=DROPOUT,
+                                attention_probs_dropout_prob=DROPOUT)
+    model = BertForQuestionAnsweringTPU(cfg)
+    engine = finetune_engine(model, SQUAD_BATCH)
+    rng = np.random.default_rng(SEED + 5)
+    batch, lengths = padded(rng, SQUAD_BATCH, SQUAD_SEQ, SQUAD_MIN_LEN)
+    start = rng.integers(SQUAD_MIN_LEN // 2, lengths)
+    end = np.minimum(start + rng.integers(0, 30, size=SQUAD_BATCH),
+                     lengths - 1)
+    start[:SQUAD_TRUNCATED] = end[:SQUAD_TRUNCATED] = SQUAD_SEQ
+    batch.update(start_positions=start, end_positions=end)
+    ignored = dict(batch, start_positions=np.where(start >= SQUAD_SEQ, -100,
+                                                   start),
+                   end_positions=np.where(end >= SQUAD_SEQ, -100, end))
+    before = engine.eval_batch(batch)
+    check(torch.equal(before, engine.eval_batch(ignored)),
+          "squad: answers past the window are not ignored")
+    run = stepped("squad", engine, batch, 7, falling=False)
+    after = float(engine.eval_batch(batch))
+    check(after < float(before), f"squad: the eval loss {after} after the "
+          f"steps is not below {float(before)} before them")
+    release(engine)
+    layers, n = cfg.num_hidden_layers, cfg.num_hidden_layers * 7
+    fused = fa.use_fused_backward(64, SQUAD_SEQ, SQUAD_SEQ, torch.bfloat16)
+    bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
+    expect_launches("squad", run[2],
+                    dict(bwd, B1=n, B4=n * (2 if fused else 3)))
+    flops = 3 * (layers * bert_layer_flops(cfg, SQUAD_SEQ, SQUAD_SEQ)
+                 + 2 * SQUAD_SEQ * cfg.hidden_size * 2)
+    results["squad"] = train_receipt(
+        card, "squad (BERT-large, seq 384, batch 24, Adam, bf16)", run, 2,
+        SQUAD_BATCH, SQUAD_SEQ, flops, eval_loss=[float(before), after],
+        lengths=lengths.tolist(),
+        visible_token_share=float(lengths.sum()) / (SQUAD_BATCH * SQUAD_SEQ))
+    return run[2]
+
+
+def phase_mnli(card, results):
+    """24. BERT-large sequence classification
+    (``BertForSequenceClassificationTPU``, 3 labels, MNLI-style): seq
+    128, batch 32, Adam lr 3e-5, bf16, dropout 0.1, padded from random
+    lengths in [32, 128], random labels; 2 warm-up and 3 timed steps,
+    finite; one B1 and one backward (B3 where ``use_fused_backward``
+    takes it) a layer a step.  The eval loss before and after the steps
+    is reported, not held to fall: from random weights, five Adam steps
+    at lr 3e-5 on random labels raised it (1.1263 to 1.1514, PERF.md);
+    phase 25 holds this head's loss and gradients, card against CPU."""
+    cfg = BertConfig.bert_large(vocab_size=BERT_VOCAB,
+                                hidden_dropout_prob=DROPOUT,
+                                attention_probs_dropout_prob=DROPOUT)
+    model = BertForSequenceClassificationTPU(cfg, num_labels=MNLI_LABELS)
+    engine = finetune_engine(model, MNLI_BATCH)
+    rng = np.random.default_rng(SEED + 6)
+    batch, lengths = padded(rng, MNLI_BATCH, MNLI_SEQ, MNLI_MIN_LEN)
+    batch["labels"] = rng.integers(0, MNLI_LABELS, size=MNLI_BATCH)
+    before = float(engine.eval_batch(batch))
+    run = stepped("mnli", engine, batch, 5, falling=False)
+    after = float(engine.eval_batch(batch))
+    check(math.isfinite(after), f"mnli: the eval loss {after}")
+    release(engine)
+    layers, n = cfg.num_hidden_layers, cfg.num_hidden_layers * 5
+    fused = fa.use_fused_backward(64, MNLI_SEQ, MNLI_SEQ, torch.bfloat16)
+    bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
+    expect_launches("mnli", run[2],
+                    dict(bwd, B1=n, B4=n * (2 if fused else 3)))
+    h = cfg.hidden_size
+    flops = 3 * (layers * bert_layer_flops(cfg, MNLI_SEQ, MNLI_SEQ)
+                 + 2 * h * h + 2 * h * MNLI_LABELS)
+    results["mnli"] = train_receipt(
+        card, "mnli (BERT-large, seq 128, batch 32, 3 labels, Adam, bf16)",
+        run, 2, MNLI_BATCH, MNLI_SEQ, flops, eval_loss=[before, after],
+        lengths=lengths.tolist())
+    return run[2]
+
+
+REMAT_PARITY_CASES = {
+    # name: (head, config changes, pld_theta)
+    "remat": ("pretrain", {"remat": True}, None),
+    "gelu_checkpoint": ("pretrain", {"gelu_checkpoint": True}, None),
+    "attn_dropout_checkpoint": ("pretrain",
+                                {"attn_dropout_checkpoint": True}, None),
+    "normalize_invertible": ("pretrain", {"normalize_invertible": True},
+                             None),
+    "pld_theta_0": ("pretrain", {"remat": True}, 0.0),
+    "pld_theta_1": ("pretrain", {"remat": True}, 1.0),
+    "qa_remat": ("qa", {"remat": True}, None),
+    "mnli_remat": ("mnli", {"remat": True}, None),
+}
+
+
+def parity_head(head, cfg):
+    if head == "qa":
+        return BertForQuestionAnsweringTPU(cfg)
+    if head == "mnli":
+        return BertForSequenceClassificationTPU(cfg, num_labels=MNLI_LABELS)
+    return BertForPreTraining(cfg)
+
+
+def parity_batches(rng):
+    """The parity phase's batch of each head: 2 rows at seq 128, the
+    second padded (pretraining: its last 40 keys; the heads: random
+    lengths), 20 MLM labels and NSP; span positions, one of them past
+    the window; 3-way labels."""
+    mask = np.ones((2, BERT_SEQ), np.int64)
+    mask[1, BERT_SEQ - 40:] = 0
+    batches = {"pretrain": bert_batch(rng, BERT_VOCAB, 2, BERT_SEQ,
+                                      BERT_PRED, mask)}
+    qa, lengths = padded(rng, 2, BERT_SEQ, MNLI_MIN_LEN)
+    qa.update(start_positions=np.array([lengths[0] // 2, BERT_SEQ]),
+              end_positions=np.array([lengths[0] - 1, lengths[1] - 1]))
+    mnli, _ = padded(rng, 2, BERT_SEQ, MNLI_MIN_LEN)
+    mnli["labels"] = rng.integers(0, MNLI_LABELS, size=2)
+    batches.update(qa=qa, mnli=mnli)
+    return batches
+
+
+def loss_and_grads(model, params, batch, device, pld_theta, seed):
+    """One training forward and backward of ``model`` on ``device``:
+    ``(loss, [grads])`` on the host."""
+    tp = params_from_numpy(params, device)
+    _, leaves = tree_leaves(tp)
+    for leaf in leaves:
+        leaf.requires_grad_()
+    kw = {} if pld_theta is None else {
+        "pld_theta": torch.tensor(pld_theta, device=device)}
+    loss = model.apply(tp, {k: torch.from_numpy(v).to(device)
+                            for k, v in batch.items()}, rng=seed,
+                       train=True, **kw)
+    loss.backward()
+    return loss.detach().cpu(), [torch.zeros(leaf.shape) if leaf.grad is None
+                                 else leaf.grad.cpu() for leaf in leaves]
+
+
+def phase_remat_parity(results):
+    """25. 2 layers at BERT-large width, fp32 (TF32 off), seq 128 with
+    padding: pretraining (the MLM gather of 20) under remat, each memory
+    knob, and PLD at θ 0 and 1 under remat; the QA and MNLI heads under
+    remat.  Dropout 0: one forward and backward on the card (B1, B3) and
+    on the CPU agree, the loss to rtol 1e-3 and each gradient to 1e-3 of
+    its largest element (of a thousandth of the model's largest, where
+    the leaf's is smaller).  Dropout 0.1 on the card: each gives the
+    loss and gradients of the same model without it, bit for bit (PLD
+    at θ 1 without the MLM gather, which PLD turns off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    width = dict(vocab_size=BERT_VOCAB, hidden_size=1024,
+                 num_hidden_layers=2, num_attention_heads=16)
+    batches = parity_batches(np.random.default_rng(SEED + 7))
+    off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+               max_predictions_per_seq=BERT_PRED)
+    params = {head: parity_head(head, BertConfig(**width, **off)).init(SEED)
+              for head in batches}
+    torch.cuda.synchronize()
+    reset_launches()
+    report = {}
+    for name, (head, changes, theta) in REMAT_PARITY_CASES.items():
+        cfg = BertConfig(**width, **off, **changes)
+        batch = batches[head]
+        card = loss_and_grads(parity_head(head, cfg), params[head], batch,
+                              DEVICE, theta, SEED)
+        cpu = loss_and_grads(parity_head(head, cfg), params[head], batch,
+                             torch.device("cpu"), theta, SEED)
+        loss_rel = abs(float(card[0] - cpu[0])) / abs(float(cpu[0]))
+        # a leaf is held to its own largest element, or to a thousandth
+        # of the model's largest where its own is smaller: a gradient
+        # that is 0 in exact arithmetic (the QA head's bias: each row's
+        # softmax sums to 1) is rounding noise on both sides
+        floor = 1e-3 * max(float(w.abs().max()) for w in cpu[1])
+        grad_rel = max(float((g - w).abs().max())
+                       / max(float(w.abs().max()), floor)
+                       for g, w in zip(card[1], cpu[1]))
+        check(loss_rel <= 1e-3 and grad_rel <= 1e-3,
+              f"remat parity {name}: loss rel {loss_rel}, grad rel "
+              f"{grad_rel}")
+        on = dict(width, hidden_dropout_prob=DROPOUT,
+                  attention_probs_dropout_prob=DROPOUT,
+                  max_predictions_per_seq=None if theta == 1.0
+                  else BERT_PRED)
+        if theta == 0.0:
+            same = None   # every layer passes through: nothing to compare
+        else:
+            knob = loss_and_grads(parity_head(head, BertConfig(
+                **on, **changes)), params[head], batch, DEVICE, theta, SEED)
+            plain = loss_and_grads(parity_head(head, BertConfig(**on)),
+                                   params[head], batch, DEVICE, None, SEED)
+            same = (torch.equal(knob[0], plain[0])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(knob[1], plain[1])))
+            check(same, f"remat parity {name}: with dropout, the card's "
+                  f"loss or gradients differ from the run without it")
+        report[name] = {"card_loss": float(card[0]),
+                        "cpu_loss": float(cpu[0]), "loss_rel": loss_rel,
+                        "grad_rel": grad_rel, "bitwise_with_dropout": same}
+        print(f"remat parity {name} (2 layers, hidden 1024, seq 128, "
+              f"fp32): card {float(card[0]):.6f} cpu {float(cpu[0]):.6f}, "
+              f"loss rel {loss_rel:.3g}, grad rel {grad_rel:.3g}; with "
+              f"dropout bitwise the run without it: {same}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(only_launched(launches, ("B1", "B3", "B4"))
+          and launches["B1"] > 0 and launches["B3"] > 0,
+          f"remat parity: launches {launches}, expected B1 and B3 only")
+    results["remat_parity"] = dict(report, launches=launches)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2919,6 +3441,21 @@ def main(argv=None):
         lap("rollback")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
+    # 21. remat and the chunked LM loss, GPT-2-medium
+    remat_launches = phase_remat(card, results)
+    lap("remat")
+    # 22. BERT-large under remat and Progressive Layer Drop
+    bert_pld_launches = phase_bert_pld(card, results)
+    lap("bert_pld")
+    # 23. BERT-large SQuAD fine-tuning, seq 384 with ragged key padding
+    squad_launches = phase_squad(card, results)
+    lap("squad")
+    # 24. BERT-large MNLI-style sequence classification
+    mnli_launches = phase_mnli(card, results)
+    lap("mnli")
+    # 25. remat, the memory knobs and PLD: card against CPU, and bitwise
+    remat_parity_launches = phase_remat_parity(results)
+    lap("remat_parity")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -2930,7 +3467,9 @@ def main(argv=None):
              "fp16_train": fp16_launches,
              "fp16_bert_train": fp16_bert_launches,
              "fp16_parity": fp16_parity_launches,
-             "rollback": rollback_launches}
+             "rollback": rollback_launches, "remat": remat_launches,
+             "bert_pld": bert_pld_launches, "squad": squad_launches,
+             "mnli": mnli_launches, "remat_parity": remat_parity_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

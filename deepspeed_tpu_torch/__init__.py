@@ -13,14 +13,17 @@ the fused single-tile backward and in-kernel dropout.  ``checkpoint``
 saves and resumes a run in the JAX package's checkpoint files, so a run
 moves between the two packages; ``resilience`` skips non-finite steps,
 rolls back to the last checkpoint on divergence and watches for hung
-steps.
+steps.  ``checkpointing`` is activation checkpointing, the reference's
+``deepspeed.checkpointing`` (``configure``, ``checkpoint``).
 """
 
 from . import checkpoint  # noqa: F401
+from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["InferenceEngine", "checkpoint", "initialize", "__version__"]
+__all__ = ["InferenceEngine", "checkpoint", "checkpointing", "initialize",
+           "__version__"]
 
 
 def initialize(*args, **kwargs):

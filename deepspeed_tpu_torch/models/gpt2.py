@@ -12,17 +12,27 @@ so a JAX tree carried across by
 :func:`~deepspeed_tpu_torch.utils.params.params_from_numpy` drops in.
 ``attn_impl="sparse"`` with a ``sparsity_config`` runs the block-sparse
 attention core (``ops/sparse_attention``) in every block, for sequences
-as long as ``max_position_embeddings`` allows.  Not ported yet, and
-refused: ``remat`` (ROADMAP A7), ``loss_chunk`` (A3), MoE blocks (A10)
-and the ring attention core (A10).
+as long as ``max_position_embeddings`` allows.  ``remat`` recomputes
+each block (or ``number_checkpoints`` of them, from the
+``activation_checkpointing`` config) in backward, and ``loss_chunk``
+computes the LM-head loss over sequence chunks whose logits are
+recomputed in backward, so the ``[b, s, vocab]`` logits are never held
+whole.  Not ported yet, and refused: MoE blocks (ROADMAP A10) and the
+ring attention core (A10).
 """
+
+import logging
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from .layers import (TransformerLayer, cross_entropy_with_logits, dropout,
                      generator, layer_norm)
+
+logger = logging.getLogger(__name__)
 
 
 class GPT2Config:
@@ -126,12 +136,6 @@ class GPT2LMHead(nn.Module):
     def __init__(self, config, params=None):
         super().__init__()
         c = config
-        if c.remat:
-            raise NotImplementedError("remat (activation checkpointing) is "
-                                      "not ported yet (ROADMAP A7)")
-        if c.loss_chunk:
-            raise NotImplementedError("loss_chunk (the chunked LM-head "
-                                      "loss) is not ported yet (ROADMAP A3)")
         if c.moe_experts:
             raise NotImplementedError("MoE blocks are not ported yet "
                                       "(ROADMAP A10)")
@@ -159,7 +163,8 @@ class GPT2LMHead(nn.Module):
     def hidden(self, params, input_ids, rng=None, deterministic=True):
         """Trunk + final layernorm -> [b, s, hidden].  ``rng`` is an
         integer seed: stream 0 drops the embeddings and stream i+1 is
-        layer i's generator."""
+        layer i's generator, built inside the (possibly recomputed)
+        layer so a recompute draws the forward's masks."""
         c = self.config
         s = input_ids.shape[1]
         x = params["wte"][input_ids] + params["wpe"][None, :s]
@@ -167,10 +172,18 @@ class GPT2LMHead(nn.Module):
         if train:
             x = dropout(generator(rng, 0, x.device), x, c.embd_dropout,
                         deterministic)
-        for i in range(c.num_layers):
+
+        def run_layer(lp, x, i):
             layer_rng = generator(rng, i + 1, x.device) if train else None
-            x = self.block(params["blocks"][f"layer_{i}"], x, layer_rng,
-                           deterministic)
+            return self.block(lp, x, layer_rng, deterministic)
+
+        ck_layer = ds_ckpt.checkpoint_wrapper(run_layer) if c.remat else None
+        for i in range(c.num_layers):
+            fn = run_layer
+            if ck_layer is not None and ds_ckpt.should_checkpoint_layer(
+                    i, c.num_layers):
+                fn = ck_layer
+            x = fn(params["blocks"][f"layer_{i}"], x, i)
         return layer_norm(params["ln_f"], x, c.layer_norm_eps)
 
     @staticmethod
@@ -182,15 +195,53 @@ class GPT2LMHead(nn.Module):
         return self._lm_head(params, self.hidden(params, input_ids, rng,
                                                  deterministic))
 
-    def apply(self, params, batch, rng=None, train=True):
+    @staticmethod
+    def _chunked_lm_loss(params, x, labels, chunk):
+        """The tied LM head and the mean token cross entropy over
+        sequence chunks of ``chunk`` positions (the JAX model's
+        ``_chunked_lm_loss``, ``gpt2.py:229-258``).  Each chunk's
+        ``[b, chunk, vocab]`` logits live only inside one checkpointed
+        piece, which backward recomputes, so the full logits and their
+        fp32 copy are never held: the largest tensors of the step."""
+        w = params["wte"]
+
+        def one(xc, lc):
+            logits = (xc @ w.T.to(xc.dtype)).float()
+            mask = lc != -100
+            lse = torch.logsumexp(logits, dim=-1)
+            safe = torch.where(mask, lc, 0).long()
+            gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+            return ((lse - gold) * mask).sum()
+
+        total = sum(checkpoint(one, xc, lc, use_reentrant=False)
+                    for xc, lc in zip(x.split(chunk, dim=1),
+                                      labels.split(chunk, dim=1)))
+        return total / (labels != -100).sum().clamp_min(1)
+
+    def apply(self, params, batch, rng=None, train=True, pld_theta=None):
         """Training loss of ``batch`` (``{"input_ids"[, "labels"]}`` or
         the ids alone); labels default to the ids shifted left with -100
         at the end.  An eval call (``train=False``) without labels returns
-        the logits."""
+        the logits.  Under ``loss_chunk`` the loss is the chunked head's,
+        where the chunk divides the sequence; where it does not, the
+        full-logits loss, with a warning, as in the JAX model.
+        ``pld_theta`` (the engine's Progressive Layer Drop) is accepted
+        and unused, as the JAX model ignores it."""
+        c = self.config
         input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
         has_labels = isinstance(batch, dict) and "labels" in batch
+        want_logits = not train and not has_labels
+        chunk = c.loss_chunk
+        use_chunked = bool(not want_logits and chunk
+                           and input_ids.shape[1] % chunk == 0)
+        if chunk and not want_logits and not use_chunked:
+            logger.warning(
+                "loss_chunk=%s does not divide seq %s: falling back to the "
+                "FULL-logits loss (the [b, s, vocab] tensor this knob exists "
+                "to avoid WILL be materialized); pick a divisor",
+                chunk, input_ids.shape[1])
         x = self.hidden(params, input_ids, rng=rng, deterministic=not train)
-        if not train and not has_labels:
+        if want_logits:
             return self._lm_head(params, x)
         if has_labels:
             labels = batch["labels"]
@@ -200,6 +251,8 @@ class GPT2LMHead(nn.Module):
                                               dtype=input_ids.dtype,
                                               device=input_ids.device)],
                 dim=1)
+        if use_chunked:
+            return self._chunked_lm_loss(params, x, labels, int(chunk))
         return cross_entropy_with_logits(self._lm_head(params, x), labels,
                                          ignore_index=-100)
 

@@ -9,7 +9,9 @@ Randomness: where the JAX package splits ``jax.random`` keys, the port
 draws from ``torch.Generator`` objects on the activations' device, made
 from integer seeds by :func:`generator`; a layer's three dropout sites
 draw from its own generator in a fixed order (attention, attention
-output, MLP output).
+output, MLP output).  A sub-block recomputed in backward (the layer's
+memory knobs) replays its generator from the state its forward started
+from (:func:`recomputed`), so the recompute draws the forward's masks.
 """
 
 import functools
@@ -17,6 +19,7 @@ import logging
 import os
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
@@ -44,6 +47,26 @@ def generator(seed, index, device):
     """A ``torch.Generator`` on ``device`` seeded with stream ``index``
     of ``seed``; the JAX package's ``jax.random.split`` in torch form."""
     return torch.Generator(device=device).manual_seed(mix_seed(seed, index))
+
+
+def recomputed(block, rng=None):
+    """``block`` recomputed in backward (``torch.utils.checkpoint``,
+    non-reentrant) instead of keeping its activations.  Its draws from the
+    generator ``rng`` are replayed: each call notes the generator's state
+    before the forward runs the block, and the recompute starts from that
+    state, so it draws the same dropout masks and B4 seed words
+    (``torch.utils.checkpoint`` restores only the global RNG states)."""
+    def call(*args):
+        state = None if rng is None else rng.get_state()
+
+        def replay(*a):
+            if state is not None:
+                rng.set_state(state)
+            return block(*a)
+
+        return checkpoint(replay, *args, use_reentrant=False)
+
+    return call
 
 
 def dense(params, x):
@@ -119,12 +142,16 @@ class TransformerLayer:
     attention core.
 
     The config mirrors the JAX ``TransformerLayer`` (``pre_layer_norm``,
-    ``attn_dropout_ratio``, ``hidden_dropout_ratio``, ``causal``).  Not
-    ported yet, and refused: the ring core (``attn_impl`` 'ring',
-    ROADMAP A10) and the memory knobs (``gelu_checkpoint``,
-    ``attn_dropout_checkpoint``, ``normalize_invertible``, ROADMAP A7).
-    ``apply(..., positions=...)`` computes the layer at a few gathered
-    rows only (BERT's last layer under the MLM gather)."""
+    ``attn_dropout_ratio``, ``hidden_dropout_ratio``, ``causal``) and its
+    memory knobs, each of which recomputes a sub-block in backward instead
+    of keeping its activations (the JAX layer's ``jax.checkpoint``
+    regions, ``layers.py:291-305``): ``attn_dropout_checkpoint`` the
+    attention block (QKV, B1, attention output and its dropout),
+    ``gelu_checkpoint`` the MLP block, ``normalize_invertible`` each
+    layernorm.  Not ported yet, and refused: the ring core (``attn_impl``
+    'ring', ROADMAP A10).  ``apply(..., positions=...)`` computes the
+    layer at a few gathered rows only (BERT's last layer under the MLM
+    gather)."""
 
     def __init__(self, hidden_size, heads, intermediate_size=None,
                  causal=False, attn_dropout_ratio=0.1,
@@ -143,10 +170,6 @@ class TransformerLayer:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if attn_impl == "sparse" and sparsity_config is None:
             raise ValueError("attn_impl='sparse' requires a SparsityConfig")
-        if gelu_checkpoint or attn_dropout_checkpoint or normalize_invertible:
-            raise NotImplementedError(
-                "gelu_checkpoint, attn_dropout_checkpoint and "
-                "normalize_invertible are not ported yet (ROADMAP A7)")
         if stochastic_mode:
             logger.warning("stochastic_mode=True is accepted for config "
                            "parity and has no effect: the port's kernels "
@@ -162,6 +185,9 @@ class TransformerLayer:
         self.hidden_dropout_ratio = hidden_dropout_ratio
         self.pre_layer_norm = pre_layer_norm
         self.layer_norm_eps = layer_norm_eps
+        self.gelu_checkpoint = gelu_checkpoint
+        self.attn_dropout_checkpoint = attn_dropout_checkpoint
+        self.normalize_invertible = normalize_invertible
         self.attn_impl = attn_impl
         self.sparsity_config = sparsity_config
         self._layout_cache = {}  # seq_len -> layout
@@ -278,6 +304,13 @@ class TransformerLayer:
 
         def ln(p, y):
             return layer_norm(p, y, self.layer_norm_eps)
+
+        if self.attn_dropout_checkpoint:
+            attention_block = recomputed(attention_block, rng)
+        if self.gelu_checkpoint:
+            mlp_block = recomputed(mlp_block, rng)
+        if self.normalize_invertible:
+            ln = recomputed(ln)
 
         def sel(t):   # the residual's rows where the queries are
             if positions is None:

@@ -8,7 +8,9 @@ data_parallel_size`` solved and checked as in the JAX package
 ``zero_optimization``, ``gradient_clipping``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``sparse_attention`` (one of the five layout
 modes, resolved with its defaults by :func:`get_sparse_attention` into
-the kwargs ``build_sparsity_config`` takes), ``checkpoint``
+the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
+(``DeepSpeedActivationCheckpointingConfig``), ``progressive_layer_drop``
+(:func:`get_progressive_layer_drop`), ``checkpoint``
 (:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
 and ``resilience``
 (:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`).
@@ -25,6 +27,8 @@ import logging
 from ..checkpoint.config import DeepSpeedCheckpointConfig
 from ..resilience.config import DeepSpeedResilienceConfig
 from . import constants as C
+from .activation_checkpointing.config import \
+    DeepSpeedActivationCheckpointingConfig
 from .config_utils import (did_you_mean, get_scalar_param,
                            load_config_json)
 from .zero.config import DeepSpeedZeroConfig
@@ -64,6 +68,16 @@ def config_issues(param_dict):
                           f"port does not implement it yet (ROADMAP "
                           f"{C.UNPORTED_SECTIONS[key]}); it has no effect")
     return issues
+
+
+def get_progressive_layer_drop(param_dict):
+    pld = param_dict.get(C.PROGRESSIVE_LAYER_DROP, {})
+    return {
+        "enabled": get_scalar_param(pld, C.PLD_ENABLED,
+                                    C.PLD_ENABLED_DEFAULT),
+        "theta": get_scalar_param(pld, C.PLD_THETA, C.PLD_THETA_DEFAULT),
+        "gamma": get_scalar_param(pld, C.PLD_GAMMA, C.PLD_GAMMA_DEFAULT),
+    }
 
 
 def get_fp16_enabled(param_dict):
@@ -227,6 +241,10 @@ class DeepSpeedConfig:
                                  else None)
 
         self.sparse_attention = get_sparse_attention(param_dict)
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(param_dict)
+        self.pld_params = get_progressive_layer_drop(param_dict)
+        self.pld_enabled = self.pld_params["enabled"]
         self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
         self.resilience_config = DeepSpeedResilienceConfig(param_dict)
 

@@ -180,12 +180,21 @@ SECTION_KEYS = {
 }
 # blocks the port parses but does not implement yet -> ROADMAP item
 UNPORTED_SECTIONS = {
-    "activation_checkpointing": "A7", "compilation": "A16",
-    "elasticity": "A15", "flops_profiler": "A16", "mesh": "A5/A10",
-    "pipeline": "A13", "profiling": "A12/A16",
-    "progressive_layer_drop": "A3", "ring_attention": "A10",
-    "telemetry": "A12", "tensorboard": "A12",
+    "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
+    "mesh": "A5/A10", "pipeline": "A13", "profiling": "A12/A16",
+    "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
 }
+
+#############################################
+# Progressive Layer Drop (the JAX package's :254-262)
+#############################################
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
 
 #############################################
 # Checkpoint subsystem (deepspeed_tpu_torch/checkpoint): the

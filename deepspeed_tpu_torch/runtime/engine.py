@@ -49,6 +49,14 @@ are host numbers, and the only host sync is the loss fetch at the
 makes ONE batched device-to-host copy before its update, as the JAX
 engine does (``:3670-3690``): the overflow flag and the mean loss.
 
+Activation checkpointing and Progressive Layer Drop (``:262-274``,
+``:668-672``): an ``activation_checkpointing`` block configures
+:mod:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing`
+and turns on the model's ``remat``; a ``progressive_layer_drop`` block
+makes the engine hand the keep probability θ to the model's ``apply``
+as ``pld_theta``, a 0-d tensor copied to the device without a sync, and
+move θ along its schedule after every step.
+
 Checkpoints are the JAX package's files
 (:mod:`deepspeed_tpu_torch.checkpoint`): ``save_checkpoint`` gathers the
 state to the host once and commits it on a background writer thread
@@ -93,7 +101,10 @@ from . import constants as C
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import DynamicScaleState, update_scale_state
+from .activation_checkpointing import checkpointing as ds_checkpointing
+from .activation_checkpointing.config import ACT_CHKPT
 from .lr_schedules import SCHEDULE_CLASSES
+from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero.coordinator import FlatParamCoordinator
 
 logger = logging.getLogger(__name__)
@@ -186,6 +197,15 @@ class DeepSpeedEngine:
         self._skip_bad = cfg.fp16_enabled or self.resilience_config.enabled
         self.module = model
         self._loss_fn = model.apply
+        if ACT_CHKPT in cfg._param_dict:
+            # the config drives remat, as the reference's
+            # checkpointing.configure does
+            ds_checkpointing.configure(
+                act_config=cfg.activation_checkpointing_config)
+            mcfg = getattr(model, "config", None)
+            if hasattr(mcfg, "remat") and not mcfg.remat:
+                mcfg.remat = True
+                logger.info("activation checkpointing enabled from config")
 
         params0 = (model_parameters if model_parameters is not None
                    else model.init(self._config.seed))
@@ -197,6 +217,9 @@ class DeepSpeedEngine:
         self.optimizer = self._configure_basic_optimizer(optimizer)
         self.opt_state = self.optimizer.init_state(self.master)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.progressive_layer_drop = (ProgressiveLayerDrop(
+            theta=cfg.pld_params["theta"], gamma=cfg.pld_params["gamma"])
+            if cfg.pld_enabled else None)
 
         # compute params: one flat buffer; the param dict is its views,
         # each an autograd leaf whose .grad is a view of one flat buffer
@@ -281,6 +304,9 @@ class DeepSpeedEngine:
 
     def wall_clock_breakdown(self):
         return self._config.wall_clock_breakdown
+
+    def progressive_layer_drop_enabled(self):
+        return self._config.pld_enabled
 
     def get_lr(self):
         return [g["lr"] for g in self.optimizer.param_groups]
@@ -434,10 +460,17 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """The training loss of one micro-batch, with its graph (call
         :meth:`backward` on it).  Dropout draws from streams seeded by the
-        config ``seed`` and the micro-step count."""
+        config ``seed`` and the micro-step count.  Under Progressive
+        Layer Drop the model also gets ``pld_theta``, θ as a 0-d fp32
+        tensor on the device."""
         rng = mix_seed(self._config.seed, self.micro_steps)
+        kwargs = {}
+        if self.progressive_layer_drop is not None:
+            kwargs["pld_theta"] = self._to_device(torch.tensor(
+                self.progressive_layer_drop.get_theta(),
+                dtype=torch.float32))
         return self._loss_fn(self.params, self._to_device(batch), rng=rng,
-                             train=True)
+                             train=True, **kwargs)
 
     __call__ = forward
 
@@ -518,6 +551,8 @@ class DeepSpeedEngine:
                 return
         if self.lr_scheduler is not None and not overflow:
             self.lr_scheduler.step()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         if self.global_steps % self.steps_per_print() == 0:
             if mean_loss is None:
                 # the print cadence's one host sync

@@ -211,21 +211,59 @@ def test_dropout_is_seeded_by_stream():
     assert e1 == e2
 
 
-@pytest.mark.parametrize("knob,value,item", [
-    ("remat", True, "A7"), ("gelu_checkpoint", True, "A7"),
-    ("attn_dropout_checkpoint", True, "A7"),
-    ("normalize_invertible", True, "A7")])
-def test_unported_knobs_raise_naming_their_roadmap_item(knob, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        BertForPreTraining(BertConfig(**dict(TINY, **{knob: value})))
+@pytest.mark.parametrize("knob", ["remat", "gelu_checkpoint",
+                                  "attn_dropout_checkpoint",
+                                  "normalize_invertible"])
+def test_memory_knobs_match_the_model_without_them(knob):
+    """Each memory knob builds the model, and with dropout on (padding,
+    the MLM gather) its loss and gradients equal the model's without it
+    bit for bit: the recompute replays the layer's generator."""
+    kw = dict(TINY, hidden_dropout_prob=0.1,
+              attention_probs_dropout_prob=0.1, max_predictions_per_seq=6)
+    params = random_params(BertConfig(**kw), 2)
+    batch = make_batch(6, (4, 6))
+    runs = []
+    for cfg in (BertConfig(**kw), BertConfig(**dict(kw, **{knob: True}))):
+        tp = params_from_numpy(params, "cpu")
+        for _, leaf in leaves(tp):
+            leaf.requires_grad_()
+        loss = BertForPreTraining(cfg).apply(
+            tp, {k: torch.from_numpy(v) for k, v in batch.items()}, rng=3,
+            train=True)
+        loss.backward()
+        runs.append((loss.detach(), [t.grad for _, t in leaves(tp)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
-def test_progressive_layer_drop_raises_naming_its_roadmap_item():
-    cfg = BertConfig(**TINY)
-    model = BertForPreTraining(cfg)
-    params = params_from_numpy(random_params(cfg, 0), "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(5, (3, 3)).items()}
-    with pytest.raises(NotImplementedError, match="A3"):
-        model.apply(params, batch, rng=1, train=True, pld_theta=0.5)
-    with pytest.raises(NotImplementedError, match="A3"):
-        model.bert.encode(params["bert"], batch["input_ids"], pld_theta=0.5)
+@pytest.mark.parametrize("theta", [0.0, 1.0])
+@pytest.mark.parametrize("gather", [False, True], ids=["full", "gather"])
+def test_progressive_layer_drop_matches_jax_at_theta_0_and_1(theta, gather):
+    """Progressive Layer Drop with dropout off: at θ = 1 every layer is
+    kept, at θ = 0 every layer passes its input through, in both
+    packages (loss at 2e-5, every gradient at 5e-4); PLD turns the last
+    layer's MLM query gather off in both."""
+    kw = dict(TINY, max_predictions_per_seq=6 if gather else None)
+    jmodel = BertForPreTrainingTPU(JConfig(**kw))
+    params = np_tree(jmodel.init(jax.random.PRNGKey(7)))
+    batch = make_batch(7, (4, 6))
+    jbatch = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    want_loss, want = jax.value_and_grad(
+        lambda p: jmodel.apply(p, jbatch, rng=jax.random.PRNGKey(1),
+                               train=True, pld_theta=jnp.float32(theta)))(
+            jax.tree_util.tree_map(jnp.asarray, params))
+    want = dict(leaves(np_tree(want)))
+    tp = params_from_numpy(params, "cpu")
+    for _, leaf in leaves(tp):
+        leaf.requires_grad_()
+    loss = BertForPreTraining(BertConfig(**kw)).apply(
+        tp, {k: torch.from_numpy(v) for k, v in batch.items()}, rng=1,
+        train=True, pld_theta=torch.tensor(theta))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               atol=2e-5, rtol=2e-5)
+    for path, t in leaves(tp):
+        g = np.zeros(t.shape, np.float32) if t.grad is None \
+            else t.grad.numpy()
+        np.testing.assert_allclose(g, want[path], atol=5e-4, rtol=5e-4,
+                                   err_msg=path)

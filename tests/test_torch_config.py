@@ -3,8 +3,9 @@ read every config dict of ``tests/unit/test_config.py`` and resolve the
 keys the port reads to equal values (the fp16 loss-scale values among
 them), or both reject the dict.  Unknown keys warn with a "did you mean"
 hint and raise under ``strict_config``; blocks the port does not
-implement warn; the ``checkpoint`` and ``resilience`` blocks parse as
-the JAX package's."""
+implement warn; the ``checkpoint``, ``resilience``,
+``activation_checkpointing`` and ``progressive_layer_drop`` blocks parse
+as the JAX package's."""
 
 import logging
 
@@ -157,12 +158,39 @@ def test_unknown_keys_warn_with_a_hint_and_raise_under_strict(caplog):
 def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     with caplog.at_level(logging.WARNING):
         DeepSpeedConfig({"train_batch_size": 8,
-                         "activation_checkpointing": {
-                             "partition_activations": True},
+                         "flops_profiler": {"enabled": True},
                          "tensorboard": {"enabled": False}})
-    assert "activation_checkpointing" in caplog.text
-    assert "A7" in caplog.text
+    assert "flops_profiler" in caplog.text
+    assert "A16" in caplog.text
     assert "tensorboard" not in caplog.text   # set but off
+
+
+@pytest.mark.parametrize("blocks", [
+    {},
+    {"activation_checkpointing": {}, "progressive_layer_drop": {}},
+    {"activation_checkpointing": {"partition_activations": True,
+                                  "cpu_checkpointing": True,
+                                  "number_checkpoints": 4,
+                                  "contiguous_memory_optimization": True,
+                                  "synchronize_checkpoint_boundary": True,
+                                  "profile": True},
+     "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                "gamma": 0.001}},
+    {"progressive_layer_drop": {"enabled": False, "theta": 0.7}}],
+    ids=["absent", "empty", "every_key", "pld_off"])
+def test_memory_blocks_parse_as_the_jax_package_does(blocks, caplog):
+    """``activation_checkpointing`` and ``progressive_layer_drop`` are
+    ported: they parse into the JAX package's values, no longer warn,
+    and pass ``strict_config``."""
+    with caplog.at_level(logging.WARNING):
+        cfg = DeepSpeedConfig(dict(blocks, train_batch_size=8,
+                                   strict_config=True))
+    assert caplog.text == ""
+    want = JConfig(dict(blocks, train_batch_size=8))
+    assert cfg.activation_checkpointing_config.repr() == \
+        want.activation_checkpointing_config.repr()
+    assert cfg.pld_params == want.pld_params
+    assert cfg.pld_enabled == want.pld_enabled
 
 
 def test_checkpoint_block_parses_as_the_jax_package_does(caplog):

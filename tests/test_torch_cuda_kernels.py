@@ -1370,3 +1370,138 @@ def test_sparse_train_batch_launches_b5_and_never_syncs(cuda_device):
         [8, 8, 0, 0, 0, 0]          # 2 steps x 2 micro-batches x 2 layers
     assert len(fbs._lut_cache) == tables
     assert np.isfinite(first) and np.isfinite(float(loss))
+
+
+def remat_counters():
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_fused,
+            fa.in_kernel_dropout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [128, 512], ids=["b3", "b2"])
+def test_remat_recomputes_b1_and_is_bitwise_the_run_without(cuda_device,
+                                                            seq):
+    """GPT-2 in bf16 with dropout 0.1 through the ``activation_checkpointing``
+    block: each layer's B1 (with B4 inside) launches twice a step, in
+    the forward and in the recompute, and its backward once; the losses
+    and the master equal the run without remat bit for bit."""
+    config = dict(vocab_size=512, hidden_size=128, num_layers=2,
+                  num_heads=2, max_position_embeddings=512)
+    ds = {"train_batch_size": 2, "steps_per_print": 10 ** 9,
+          "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+          "bf16": {"enabled": True}}
+    rng = np.random.RandomState(0)
+    batches = [{"input_ids": rng.randint(0, 512, size=(2, seq))}
+               for _ in range(3)]
+    runs = []
+    for extra in ({}, {"activation_checkpointing": {}}):
+        cfg = GPT2Config(**config)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2LMHead(cfg), model_parameters=random_params(cfg, 0),
+            config=dict(ds, **extra), device=cuda_device)
+        torch.cuda.synchronize()
+        before = [c.launches for c in remat_counters()]
+        losses = torch.stack([engine.train_batch(iter([b]))
+                              for b in batches])
+        torch.cuda.synchronize()
+        runs.append((losses, engine.master.clone(),
+                     [c.launches - n for c, n in zip(remat_counters(),
+                                                     before)]))
+    fused = fa.use_fused_backward(64, seq, seq, torch.bfloat16)
+    n = 2 * 3    # layers x steps
+    bwd = [0, 0, n] if fused else [n, n, 0]
+    assert runs[0][2] == [n] + bwd + [n * (1 + (1 if fused else 2))]
+    assert runs[1][2] == [2 * n] + bwd + [n * (2 + (1 if fused else 2))]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpu_checkpointing", [False, True],
+                         ids=["remat", "remat_cpu"])
+def test_remat_and_pld_train_batch_never_syncs(cuda_device,
+                                               cpu_checkpointing):
+    """BERT under remat and Progressive Layer Drop: θ goes to the card
+    without a sync and the keep draws stay on it, so ``train_batch``
+    makes no synchronizing call between prints."""
+    from deepspeed_tpu_torch.models.bert import (BertConfig,
+                                                 BertForPreTraining)
+    from deepspeed_tpu_torch.models.bert import random_params as bert_params
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, max_predictions_per_seq=20)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, 0),
+        config={"train_batch_size": 4, "steps_per_print": 10 ** 9,
+                "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+                "bf16": {"enabled": True},
+                "activation_checkpointing": {
+                    "cpu_checkpointing": cpu_checkpointing},
+                "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                           "gamma": 0.1}},
+        device=cuda_device)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 512, size=(4, 128))
+    labels = np.where(rng.rand(4, 128) < 0.15, ids, -100)
+    batch = {"input_ids": ids, "attention_mask": np.ones((4, 128), np.int64),
+             "masked_lm_labels": labels,
+             "next_sentence_labels": rng.randint(0, 2, size=(4,))}
+    engine.train_batch(iter([batch]))   # warm-up
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            losses = [engine.train_batch(iter([batch])) for _ in range(3)]
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    assert syncs == []
+    assert engine.progressive_layer_drop.get_theta() < 1.0
+    assert all(np.isfinite(float(x)) for x in losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("fused", [True, False], ids=["b3", "b2"])
+@pytest.mark.parametrize("lengths", [(40, 100), (64, 65), (63, 1),
+                                     (20, 33)],
+                         ids=["40-100", "64-65", "63-1", "20-33"])
+def test_prefix_key_masks_match_plain(cuda_device, dtype, fused, lengths):
+    """Fine-tuning batches pad each row from its own length, so whole
+    64-key tiles of a row that sees other keys are masked: B1 and B3 (or
+    B2a+B2b) against their plain versions at the forward and backward
+    tolerances, and dk, dv exactly 0 at every masked key."""
+    g = torch.Generator().manual_seed(sum(lengths))
+    b, s, h, d = len(lengths), 128, 4, 64
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g)
+                     .to(cuda_device, dtype) for _ in range(4))
+    mask = (torch.arange(s)[None] < torch.tensor(lengths)[:, None]).float()
+    mask = mask.to(cuda_device)
+    out, lse = flash_attention_fwd(q, k, v, mask, False, 0.0, None)
+    want_out, want_lse = flash_attention_reference(q, k, v, mask, False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    if fused:
+        grads = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask,
+                                          False, 0.0, None)
+    else:
+        grads = (flash_attention_bwd_dq(q, k, v, out, lse, dout, mask,
+                                        False, 0.0, None),
+                 *flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask,
+                                          False, 0.0, None))
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
+                                        False)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=GRAD_TOLS[dtype],
+                                   rtol=GRAD_TOLS[dtype])
+    hidden = mask == 0
+    assert bool((grads[1][hidden] == 0).all())
+    assert bool((grads[2][hidden] == 0).all())

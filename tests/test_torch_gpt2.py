@@ -16,12 +16,13 @@ from deepspeed_tpu.models.gpt2 import GPT2Config as JConfig
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadTPU
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
-from deepspeed_tpu_torch.module_inject import replace_module as trm
 from deepspeed_tpu_torch.utils.params import params_from_numpy, \
     params_to_numpy
 
-# the package re-exports a function named replace_module over the module
+# both packages re-export a function named replace_module over the module
 jrm = importlib.import_module("deepspeed_tpu.module_inject.replace_module")
+trm = importlib.import_module(
+    "deepspeed_tpu_torch.module_inject.replace_module")
 
 TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
             max_position_embeddings=64, embd_dropout=0.0, attn_dropout=0.0,
@@ -263,12 +264,41 @@ def test_eval_apply_without_labels_returns_logits(jax_model_and_params):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("remat", True, "A7"), ("loss_chunk", 8, "A3"), ("moe_experts", 4, "A10"),
-    ("attn_impl", "ring", "A10"), ("normalize_invertible", True, "A7"),
-    ("gelu_checkpoint", True, "A7")])
+    ("moe_experts", 4, "A10"), ("attn_impl", "ring", "A10")])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, value, item):
     with pytest.raises(NotImplementedError, match=item):
         GPT2LMHead(GPT2Config(**dict(TINY, **{knob: value})))
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("remat", True), ("loss_chunk", 8), ("normalize_invertible", True),
+    ("gelu_checkpoint", True), ("attn_dropout_checkpoint", True)])
+def test_memory_knobs_match_the_model_without_them(knob, value):
+    """Each memory knob builds the model, and with dropout on at every
+    site its loss and gradients equal the model's without it: bit for
+    bit for the recomputed regions (they replay the layer's generator),
+    to 1e-6 in the loss and 1e-6 + 1e-5 relative in the gradients for
+    ``loss_chunk`` (the chunked head sums in another order)."""
+    kw = dict(TINY, embd_dropout=0.1, attn_dropout=0.1, resid_dropout=0.1)
+    params = random_params(GPT2Config(**kw), seed=2)
+    ids = {"input_ids": torch.from_numpy(
+        np.random.RandomState(6).randint(0, 256, size=(2, 32)))}
+    runs = []
+    for cfg in (GPT2Config(**kw), GPT2Config(**dict(kw, **{knob: value}))):
+        tp = params_from_numpy(params, "cpu")
+        for _, leaf in leaves(tp):
+            leaf.requires_grad_()
+        loss = GPT2LMHead(cfg).apply(tp, ids, rng=3, train=True)
+        loss.backward()
+        runs.append((loss.detach(), [t.grad for _, t in leaves(tp)]))
+    if knob == "loss_chunk":
+        torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-6,
+                                   atol=0)
+        for a, b in zip(runs[1][1], runs[0][1]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        return
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def test_training_dropout_is_seeded_and_active():

@@ -91,10 +91,17 @@ def test_sparse_subpackage_imports_with_jax_blocked():
 
 def test_importing_the_port_loads_no_jax():
     """Every module of the port, ``runtime.engine``, ``models.bert``, the
-    ``checkpoint`` and ``resilience`` packages and the fp16 loss scaler
-    among them."""
+    ``checkpoint`` and ``resilience`` packages, the fp16 loss scaler,
+    activation checkpointing, Progressive Layer Drop and the injection
+    policies among them."""
     assert {"deepspeed_tpu_torch.runtime.engine",
             "deepspeed_tpu_torch.models.bert",
+            "deepspeed_tpu_torch.runtime.activation_checkpointing",
+            "deepspeed_tpu_torch.runtime.activation_checkpointing"
+            ".checkpointing",
+            "deepspeed_tpu_torch.runtime.activation_checkpointing.config",
+            "deepspeed_tpu_torch.runtime.progressive_layer_drop",
+            "deepspeed_tpu_torch.module_inject.replace_module",
             "deepspeed_tpu_torch.checkpoint",
             "deepspeed_tpu_torch.checkpoint.manager",
             "deepspeed_tpu_torch.checkpoint.snapshot",
