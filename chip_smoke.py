@@ -214,7 +214,35 @@ failure raises, so the script exits non-zero:
               at θ 0 and 1, and the QA and MNLI heads under remat: the
               card against the CPU (loss rtol 1e-3, each gradient to
               1e-3 of its largest element), and, with dropout 0.1 on the
-              card, each bitwise the model without it.
+              card, each bitwise the model without it;
+26. offload parity — phase 6's GPT-2-medium with Adam lr 1e-4 (the
+              optimizer of bench.py's offload legs) under
+              ``cpu_offload``, ``offload_chunk_mb`` 512 (3 chunks, the
+              last ragged), 5 steps each: losses and master bitwise the
+              run without offload, prefetch depth 1 against 2 bitwise,
+              the bf16 SR host state at depth 1 against 2 bitwise; B1,
+              B2a, B2b and B4 a step as phase 6; every host buffer
+              pinned;
+27. offload large — bench.py's GPT-2-large offload leg
+              (``bench.py:514-526``: 36 layers, hidden 1280, seq 1024,
+              batch 4, dropout 0, remat, ``loss_chunk`` 256, Adam lr
+              1e-4, ZeRO-2, bf16): (a) no offload, (b) fp32 host state,
+              (c) bf16 SR, (d) bf16 with error feedback, (e)
+              DeepSpeedCPUAdam; 2 warm-up and 5 timed steps each,
+              finite and falling; step ms (median, spread), device peak,
+              pinned bytes, host-state bytes a step, the stream's H2D
+              and D2H GB/s and its wall against the sum of its copies,
+              (e)'s host-kernel ms and its two ways back for the params;
+              each offload row's peak below (a)'s; then the host kernel
+              on (e)'s pinned buffers against its plain version, with
+              the host's copy rate for its bound;
+28. offload xl — bench.py's GPT-2-xl leg (``bench.py:589-612``: 1.56 B
+              parameters, ``offload_gradients``, bf16, remat,
+              ``loss_chunk`` 256, batch 4), after ``MemAvailable``: 2
+              warm-up and 3 timed steps;
+29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
+              streamed offload in 1 MB chunks: 10 steps on the card
+              within rtol 1e-3 of the CPU's.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -222,7 +250,9 @@ kernels B5a/B5b replace) and G = 4 at 128 (the super-tile kernels B6a,
 B6b, B6c replace).  The bf16 B5b launches the super-tile backward
 kernels at G = 1 through its own wrapper and counter.
 
-Then one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+Then one ``{"kernels": [...], "host_kernels": [...]}`` JSON line (the
+host C++ kernel of DeepSpeedCPUAdam apart from the CUDA kernels), the
+card's name and power limit,
 and last the line ``{"ok": true, "device": {...}}``.  With ``--out PATH``
 the per-case numbers also go to PATH as JSON.  Needs one card and no
 network; imports nothing of JAX.
@@ -255,6 +285,7 @@ from deepspeed_tpu_torch.models.bert import random_params as bert_params
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.adam import cpu_adam
 from deepspeed_tpu_torch.ops.sparse_attention import \
     flash_block_sparse as fbs
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
@@ -2950,6 +2981,8 @@ def release(engine):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    # the pinned host blocks of an offload engine's state go back too
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
 
 
 def phase_remat(card, results):
@@ -3334,6 +3367,378 @@ def phase_remat_parity(results):
     return launches
 
 
+# ----------------------------------------------------------------- offload
+# phases 26-29: ZeRO-Offload at one rank
+OFFLOAD_CONFIG = dict(TRAIN_CONFIG,
+                      optimizer={"type": "Adam", "params": {"lr": 1e-4}})
+OFFLOAD_STEPS = 5
+OFFLOAD_CHUNK_MB = 512
+OFFLOAD = {"stage": 2, "cpu_offload": True,
+           "offload_chunk_mb": OFFLOAD_CHUNK_MB}
+BF16_EF = {"master": "bf16", "momentum": "bf16", "variance": "bf16",
+           "error_feedback": True}
+# bench.py's offload legs: batch 4, seq 1024, dropout 0, remat,
+# loss_chunk 256, Adam lr 1e-4, ZeRO-2, bf16
+BENCH_OFFLOAD_MODEL = dict(embd_dropout=0.0, attn_dropout=0.0,
+                           resid_dropout=0.0, remat=True, loss_chunk=256)
+LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 2, 5
+XL_WARMUP, XL_TIMED = 2, 3
+ADAM_RTOL, ADAM_ATOL = 2e-6, 1e-7  # tests/test_torch_cpu_adam.py
+MASTER_UPDATE_RTOL = 1e-3  # phase 29: 5.8e-5 measured on the H100
+
+
+def host_buffers(engine):
+    """The engine's host buffers under offload: master, moments,
+    residuals, host gradient."""
+    out = [engine.master, engine.opt_state.exp_avg,
+           engine.opt_state.exp_avg_sq, *engine._qres.values()]
+    return out + ([engine._host_grad] if engine._host_grad is not None
+                  else [])
+
+
+def offload_engine(cfg, params, zero, batch_size, optimizer=None):
+    """GPT-2 ``cfg`` from ``params`` under ``OFFLOAD_CONFIG`` with the
+    ``zero`` block (and ``optimizer``); checks that every host buffer of
+    an offload engine is pinned."""
+    config = dict(OFFLOAD_CONFIG, train_batch_size=batch_size,
+                  zero_optimization=zero)
+    if optimizer is not None:
+        config["optimizer"] = optimizer
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=params, config=config)
+    if zero.get("cpu_offload"):
+        check(all(b.is_pinned() for b in host_buffers(engine)),
+              "offload: a host buffer is not pinned")
+    return engine
+
+
+def phase_offload_parity(card, results, train_launches):
+    """26. Phase 6's GPT-2-medium with Adam lr 1e-4, 5 steps on one
+    batch each: without offload, then under ``cpu_offload`` at depth 2
+    (the default) and 1, then the bf16 SR host state at depth 1 and 2.
+    Losses and the master after the last step bitwise the run without
+    offload (fp32 state), depth 1 against depth 2 (both layouts).  Every
+    run launches B1, B2a, B2b and B4 a step as phase 6 did."""
+    b, _, s, _ = TRAIN_ATTN
+    cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
+                                 resid_dropout=DROPOUT)
+    params = random_params(cfg, SEED)
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(b, s))}
+    want = {k: train_launches[k] // 7 * OFFLOAD_STEPS
+            for k in ("B1", "B2a", "B2b", "B4")}
+    runs = (("none", {"stage": 2}),
+            ("fp32 depth 2", OFFLOAD),
+            ("fp32 depth 1", dict(OFFLOAD, offload_prefetch_depth=1)),
+            ("bf16 SR depth 1", dict(OFFLOAD, offload_prefetch_depth=1,
+                                     offload_state_dtype="bf16")),
+            ("bf16 SR depth 2", dict(OFFLOAD, offload_state_dtype="bf16")))
+    out, total, receipt = {}, {}, {"card": card}
+    for name, zero in runs:
+        label = f"offload parity: {name}"
+        engine = offload_engine(cfg, params, zero, b)
+        run = stepped(label, engine, batch, OFFLOAD_STEPS)
+        torch.cuda.synchronize()
+        master = engine.master.to("cpu", copy=True)
+        schedule = engine.host_stream_schedule()
+        release(engine)
+        expect_launches(label, run[2], want)
+        total = {k: total.get(k, 0) + v for k, v in run[2].items()}
+        out[name] = (run[0], master)
+        receipt[name] = {"losses": run[0],
+                         "step_ms": [1e3 * x for x in run[1]],
+                         "peak_memory_bytes": run[3], "schedule": schedule}
+        if zero.get("cpu_offload"):
+            check(schedule["chunks"] == 3, f"{label}: schedule {schedule}")
+        print(f"{label}: losses {run[0]}, step ms "
+              f"{[round(1e3 * x, 1) for x in run[1]]}, peak "
+              f"{run[3] / 1e9:.2f} GB, schedule {schedule} [{card}]")
+    for a, ref in (("fp32 depth 2", "none"), ("fp32 depth 1", "fp32 depth 2"),
+                   ("bf16 SR depth 2", "bf16 SR depth 1")):
+        check(out[a][0] == out[ref][0], f"offload parity: losses of {a} "
+              f"{out[a][0]} differ from {ref}'s {out[ref][0]}")
+        check(torch.equal(out[a][1], out[ref][1]), f"offload parity: the "
+              f"master of {a} differs from {ref}'s")
+    results["offload_parity"] = receipt
+    return total
+
+
+def host_memory_rates(nbytes=1 << 30):
+    """The host's memory rate between pinned buffers in two multithreaded
+    torch passes, median of 3 each: one ``copy_`` (bytes read and
+    written) and one ``torch.add(a, b, out=c)`` (two reads, one write).
+    Both also read each line they write before writing it, which a pass
+    that writes what it read (Adam's p, m and v) does not pay."""
+    a = torch.ones(nbytes // 4, pin_memory=True)
+    b = torch.ones_like(a, pin_memory=True)
+    c = torch.empty_like(a, pin_memory=True)
+    out = {}
+    for name, fn, moved in (("copy", lambda: c.copy_(a), 2 * nbytes),
+                            ("add", lambda: torch.add(a, b, out=c),
+                             3 * nbytes)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[name] = moved / statistics.median(times)
+    return out
+
+
+def check_host_kernel(engine, results):
+    """The host kernel in place on row (e)'s pinned master and moments
+    (with its last step's gradient) against the plain version on copies,
+    p, m and v within ``ADAM_RTOL``/``ADAM_ATOL``; its time, the plain
+    version's, ``torch._fused_adamw_``'s on the copies (where this torch
+    has a CPU one) and the bound: 28 bytes a parameter (p, m and v read
+    and written, g read) over the host's memory rate, the largest this
+    run reached: a pinned ``copy_``, a pinned ``add``, or the fused
+    AdamW call over the same 28 bytes a parameter, so that no call
+    beats the bound."""
+    engine._sync_host()
+    p, m, v = (t.view(-1) for t in (engine.master, engine.opt_state.exp_avg,
+                                    engine.opt_state.exp_avg_sq))
+    g = engine._host_grad.view(-1)
+    step = engine.opt_state.step + 1
+    copies = [t.clone() for t in (p, m, v)]
+    hp = engine.optimizer.hyperparams()
+    args = (hp["lr"], hp["beta1"], hp["beta2"], engine.optimizer.eps,
+            hp["weight_decay"])
+    bc1, bc2 = cpu_adam.bias_corrections(hp["beta1"], hp["beta2"], step)
+    t0 = time.perf_counter()
+    cpu_adam.ds_adam_step(p, m, v, g, *args, bc1, bc2, True)
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_adam.plain_adam_step(*copies, g, *args, step)
+    plain_s = time.perf_counter() - t0
+    err = max(float((a - b).abs().max()) for a, b in zip((p, m, v), copies))
+    check(torch.allclose(p, copies[0], rtol=ADAM_RTOL, atol=ADAM_ATOL)
+          and torch.allclose(m, copies[1], rtol=ADAM_RTOL, atol=ADAM_ATOL)
+          and torch.allclose(v, copies[2], rtol=ADAM_RTOL, atol=1e-8),
+          f"ds_adam_step: max abs error {err} against the plain version")
+    n = p.numel()
+    rates = host_memory_rates()
+    library_s = None
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is not None:
+        try:
+            t0 = time.perf_counter()
+            fused([copies[0]], [g], [copies[1]], [copies[2]], [],
+                  [torch.tensor(float(step))], lr=args[0], beta1=args[1],
+                  beta2=args[2], weight_decay=args[4], eps=args[3],
+                  amsgrad=False, maximize=False)
+            library_s = time.perf_counter() - t0
+            rates["fused_adamw"] = 28 * n / library_s
+        except (RuntimeError, TypeError) as e:  # not in this torch build
+            print(f"host kernel: torch._fused_adamw_ on the CPU: {e}")
+    row = {"kernel_ms": 1e3 * kernel_s, "plain_ms": 1e3 * plain_s,
+           "library_ms": None if library_s is None else 1e3 * library_s,
+           "bound_ms": 1e3 * 28 * n / max(rates.values()),
+           "bound_by": "bytes", "max_abs_err": err, "params": n,
+           "host_bytes_per_s": rates, "host_cpus": os.cpu_count()}
+    print(f"host kernel ds_adam_step on {n} parameters: {json.dumps(row)}")
+    results["host_kernel"] = row
+    return row
+
+
+def offload_large_setup(zero=OFFLOAD, optimizer=None, params=None):
+    """Phase 27's engine, model config and fixed batch: bench.py's
+    GPT-2-large offload leg (``bench.py:514-526``) under ``zero`` (and
+    ``optimizer``), random weights from ``SEED`` unless ``params``
+    are given.  ``examples/profile_torch_train.py --offload`` profiles
+    this set-up."""
+    s = TRAIN_ATTN[2]
+    cfg = GPT2Config.gpt2_large(max_position_embeddings=s,
+                                **BENCH_OFFLOAD_MODEL)
+    if params is None:
+        params = random_params(cfg, SEED)
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(LARGE_BATCH, s))}
+    return offload_engine(cfg, params, zero, LARGE_BATCH, optimizer), cfg, \
+        batch
+
+
+def phase_offload_large(card, results):
+    """27. bench.py's GPT-2-large offload leg, five rows: (a) without
+    offload, (b) fp32 host state, (c) bf16 SR, (d) bf16 with error
+    feedback, (e) DeepSpeedCPUAdam; 2 warm-up and 5 timed steps each.
+    Returns the launches and the host kernel's row, with its launches
+    in row (e)'s steps."""
+    s = TRAIN_ATTN[2]
+    cfg = GPT2Config.gpt2_large(max_position_embeddings=s,
+                                **BENCH_OFFLOAD_MODEL)
+    params = random_params(cfg, SEED)
+    layers, steps = cfg.num_layers, LARGE_WARMUP + LARGE_TIMED
+    # remat: B1 twice a layer a step (forward and recompute); dropout 0
+    want = {"B1": 2 * layers * steps, "B2a": layers * steps,
+            "B2b": layers * steps}
+    rows = (("a", "no offload", {"stage": 2}, None),
+            ("b", "fp32 host state", OFFLOAD, None),
+            ("c", "bf16 SR", dict(OFFLOAD, offload_state_dtype="bf16"),
+             None),
+            ("d", "bf16 error feedback",
+             dict(OFFLOAD, offload_state_dtype=BF16_EF), None),
+            ("e", "DeepSpeedCPUAdam", OFFLOAD,
+             {"type": "CPUAdam", "params": {"lr": 1e-4}}))
+    flops = gpt2_model_flops_per_sample(cfg, s)
+    receipts, total, host_row = {"card": card}, {}, None
+    for key, name, zero, opt in rows:
+        label = f"offload large ({key}) {name}"
+        engine, _, batch = offload_large_setup(zero, opt, params)
+        offload = zero.get("cpu_offload", False)
+        kernel_s0 = cpu_adam.ds_adam_step.seconds
+        cpu_adam.ds_adam_step.launches = 0
+        if offload:
+            engine.host_stream.timing = True
+
+        def after(e, n=iter(range(steps)), offload=offload):
+            if next(n) == LARGE_WARMUP - 1 and offload:
+                torch.cuda.synchronize()
+                e.host_stream.timing_report()  # drop the warm-up's
+
+        run = stepped(label, engine, batch, steps, after)
+        if key == "e":
+            adam_launches = cpu_adam.ds_adam_step.launches
+        timed = run[1][LARGE_WARMUP:]
+        extra = {"optimizer": opt["type"] if opt else "Adam",
+                 "step_ms_median": 1e3 * statistics.median(timed),
+                 "step_ms_spread": 1e3 * (max(timed) - min(timed))}
+        if offload:
+            torch.cuda.synchronize()
+            extra.update(
+                pinned_host_bytes=sum(b.nbytes for b in host_buffers(engine)),
+                host_state_dtype=engine.host_state_dtype(),
+                host_state_bytes_per_step=engine.host_state_bytes_per_step(),
+                schedule=engine.host_stream_schedule(),
+                stream=engine.host_stream.timing_report())
+        if key == "e":
+            extra["host_kernel_ms"] = 1e3 * (
+                cpu_adam.ds_adam_step.seconds - kernel_s0) / steps
+            host_row = check_host_kernel(engine, results)
+        release(engine)
+        expect_launches(label, run[2], want)
+        total = {k: total.get(k, 0) + v for k, v in run[2].items()}
+        receipts[key] = train_receipt(card, label, run, LARGE_WARMUP,
+                                      LARGE_BATCH, s, flops, **extra)
+    for key in "bcde":
+        check(receipts[key]["peak_memory_bytes"]
+              < receipts["a"]["peak_memory_bytes"],
+              f"offload large ({key}): peak "
+              f"{receipts[key]['peak_memory_bytes']} not below the run "
+              f"without offload's {receipts['a']['peak_memory_bytes']}")
+    results["offload_large"] = receipts
+    return total, dict(host_row, launches=adam_launches)
+
+
+def mem_available():
+    """``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def phase_offload_xl(card, results):
+    """28. bench.py's GPT-2-xl leg: 1.56 B parameters with
+    ``offload_gradients`` (the fp32 gradient in pinned host memory too),
+    bf16, remat, ``loss_chunk`` 256, batch 4: 2 warm-up and 3 timed
+    steps, after printing the host's ``MemAvailable``."""
+    s = TRAIN_ATTN[2]
+    avail = mem_available()
+    print(f"offload xl: MemAvailable {avail} bytes before the engine")
+    cfg = GPT2Config.gpt2_xl(max_position_embeddings=s,
+                             **BENCH_OFFLOAD_MODEL)
+    params = random_params(cfg, SEED)
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(LARGE_BATCH, s))}
+    engine = offload_engine(cfg, params, dict(OFFLOAD, offload_gradients=True),
+                            LARGE_BATCH)
+    del params
+    steps, layers = XL_WARMUP + XL_TIMED, cfg.num_layers
+    engine.host_stream.timing = True
+    run = stepped("offload xl", engine, batch, steps)
+    torch.cuda.synchronize()
+    extra = {"mem_available_bytes": avail,
+             "params": int(sum(engine.segments.sizes)),
+             "pinned_host_bytes": sum(b.nbytes for b in host_buffers(engine)),
+             "host_state_bytes_per_step": engine.host_state_bytes_per_step(),
+             "schedule": engine.host_stream_schedule(),
+             "stream": engine.host_stream.timing_report(),
+             "step_ms_median": 1e3 * statistics.median(run[1][XL_WARMUP:])}
+    release(engine)
+    expect_launches("offload xl", run[2], {"B1": 2 * layers * steps,
+                                           "B2a": layers * steps,
+                                           "B2b": layers * steps})
+    results["offload_xl"] = train_receipt(
+        card, "offload xl (GPT-2-xl, offload_gradients)", run, XL_WARMUP,
+        LARGE_BATCH, s, gpt2_model_flops_per_sample(cfg, s), **extra)
+    return run[2]
+
+
+def phase_offload_parity_cpu(results):
+    """29. 2 layers at GPT-2-medium width, fp32 (TF32 off), dropout 0,
+    seq 128, batch 2, Adam lr 1e-4, fp32 streamed offload in 1 MB
+    chunks: 10 steps on the card within rtol 1e-3 of the CPU's, and the
+    master's 10-step update on the card within ``MASTER_UPDATE_RTOL``
+    of the CPU's (the norm of their difference over the norm of the
+    CPU's update), which an update that did not run on the card fails
+    by 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
+                     embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+    params = random_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 3)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, size=(2, 128))}
+               for _ in range(10)]
+    config = {"train_batch_size": 2, "steps_per_print": 10 ** 9,
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+              "zero_optimization": dict(OFFLOAD, offload_chunk_mb=1)}
+    out, masters, launches, schedule = {}, {}, None, None
+    for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2LMHead(cfg), model_parameters=params,
+            config=dict(config), device=device)
+        start = engine.master.clone()
+        if where == "card":
+            schedule = engine.host_stream_schedule()
+            torch.cuda.synchronize()
+            reset_launches()
+        out[where] = [float(engine.train_batch(iter([bt])))
+                      for bt in batches]
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        masters[where] = engine.master.clone()
+        del engine
+    card, cpu = out["card"], out["cpu"]
+    moved = masters["cpu"] - start
+    diff = masters["card"] - masters["cpu"]
+    master = {"update_rel_err": float(torch.linalg.vector_norm(diff)
+                                      / torch.linalg.vector_norm(moved)),
+              "max_abs_err": float(diff.abs().max()),
+              "max_abs_update": float(moved.abs().max()),
+              "elements_over_1e-5": int((diff.abs() > 1e-5).sum()),
+              "elements": diff.numel()}
+    print(f"offload parity cpu: master {master}")
+    check(np.allclose(card, cpu, rtol=1e-3, atol=0.0),
+          f"offload parity cpu: card {card} vs cpu {cpu}")
+    check(master["update_rel_err"] <= MASTER_UPDATE_RTOL,
+          f"offload parity cpu: the master's update on the card is "
+          f"{master['update_rel_err']} from the CPU's (relative norm)")
+    check(schedule["chunks"] > 1, f"offload parity cpu: {schedule}")
+    expect_launches("offload parity cpu", launches,
+                    {"B1": 2 * 10, "B3": 2 * 10})
+    print(f"offload parity cpu (2 layers, hidden 1024, seq 128, fp32, "
+          f"{schedule['chunks']} chunks): card {card}, cpu {cpu}")
+    results["offload_parity_cpu"] = {"card": card, "cpu": cpu,
+                                     "master": master,
+                                     "schedule": schedule,
+                                     "launches": launches}
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3357,9 +3762,10 @@ def main(argv=None):
     print(f"env: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.monotonic()
-    op_builder.build()
+    op_builder.build([*op_builder.SOURCES, *op_builder.HOST_SOURCES])
     build_s = time.monotonic() - t0
-    print(f"env: kernels built in {build_s:.1f} s ({list(op_builder.SOURCES)})")
+    print(f"env: kernels built in {build_s:.1f} s "
+          f"({[*op_builder.SOURCES, *op_builder.HOST_SOURCES]})")
     results["env"] = {"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda, "build_seconds": build_s}
     # wall seconds of each phase, for the run's time limit
@@ -3456,6 +3862,19 @@ def main(argv=None):
     # 25. remat, the memory knobs and PLD: card against CPU, and bitwise
     remat_parity_launches = phase_remat_parity(results)
     lap("remat_parity")
+    # 26. offload parity, GPT-2-medium, bitwise the run without offload
+    offload_parity_launches = phase_offload_parity(card, results,
+                                                   train_launches)
+    lap("offload_parity")
+    # 27. bench.py's GPT-2-large offload leg, five rows
+    offload_large_launches, host_row = phase_offload_large(card, results)
+    lap("offload_large")
+    # 28. bench.py's GPT-2-xl leg, offload_gradients
+    offload_xl_launches = phase_offload_xl(card, results)
+    lap("offload_xl")
+    # 29. offload, card against CPU
+    offload_cpu_launches = phase_offload_parity_cpu(results)
+    lap("offload_parity_cpu")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -3469,7 +3888,11 @@ def main(argv=None):
              "fp16_parity": fp16_parity_launches,
              "rollback": rollback_launches, "remat": remat_launches,
              "bert_pld": bert_pld_launches, "squad": squad_launches,
-             "mnli": mnli_launches, "remat_parity": remat_parity_launches}
+             "mnli": mnli_launches, "remat_parity": remat_parity_launches,
+             "offload_parity": offload_parity_launches,
+             "offload_large": offload_large_launches,
+             "offload_xl": offload_xl_launches,
+             "offload_parity_cpu": offload_cpu_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches
@@ -3523,14 +3946,26 @@ def main(argv=None):
                      fp16_plain_ms=row["plain_ms"],
                      fp16_bound_ms=row["bound_ms"],
                      fp16_library_ms=row["library_ms"])
+    check(host_row["launches"] > 0,
+          "the offload path never launched ds_adam_step")
+    host_kernels = [{
+        "name": "ds_adam_step (DeepSpeedCPUAdam)", "route": "host",
+        "source": "deepspeed_tpu_torch/csrc/adam/cpu_adam.cpp",
+        "replaces": "deepspeed_tpu/csrc/adam/cpu_adam.cpp:12",
+        "launches": host_row["launches"],
+        "max_abs_err": host_row["max_abs_err"],
+        "ms": host_row["kernel_ms"], "plain_ms": host_row["plain_ms"],
+        "bound_ms": host_row["bound_ms"], "bound_by": host_row["bound_by"],
+        "library_ms": host_row["library_ms"]}]
     results["kernels"] = kernels
+    results["host_kernels"] = host_kernels
     results["phase_seconds"] = phase_s
     print("phase seconds:", json.dumps({k: round(v, 1)
                                         for k, v in phase_s.items()}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "host_kernels": host_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

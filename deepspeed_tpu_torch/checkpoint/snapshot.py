@@ -101,7 +101,12 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
     """Gather engine state to the host and freeze it as a snapshot: the
     compute params in ONE device->host copy of their flat buffer, the
     master and each flat optimizer buffer unpadded on the device and
-    then copied once each."""
+    then copied once each.  Under offload they are read from the host
+    buffers once the copies to them landed, upcast to fp32 (exact), and
+    error-feedback residuals go under ``qres/<name>`` with the storage
+    layout under ``offload_state_dtype`` in ``meta.json``, as the JAX
+    package writes them (its ``snapshot.py:156-166``)."""
+    engine._sync_host()
     model_states, model_dtypes = {}, {}
     for key, leaf in engine._params_to_host().items():
         enc, dtype_name = encode_array(leaf)
@@ -119,6 +124,8 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
         else:
             # host step counter: the JAX package's i32 scalar
             optim_states[key] = np.asarray(leaf, np.int32)
+    for name, buf in getattr(engine, "_qres", {}).items():
+        optim_states[f"qres/{name}"] = flat.gather_master_unpadded(buf)
 
     meta = {
         "global_steps": engine.global_steps,
@@ -144,6 +151,11 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
     loader = getattr(engine, "training_dataloader", None)
     if loader is not None and hasattr(loader, "state_dict"):
         meta["data_state"] = loader.state_dict()
+    zc = engine._config.zero_config
+    if zc.cpu_offload and zc.offload_state_reduced:
+        # the layout that wrote the file: a load into the same layout
+        # keeps the residuals, any other folds them
+        meta["offload_state_dtype"] = dict(zc.offload_state_dtype)
 
     client_state_pkl = (pickle.dumps(client_state)
                         if client_state else None)

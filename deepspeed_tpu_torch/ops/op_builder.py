@@ -10,6 +10,13 @@ Libraries land in ``build/deepspeed_tpu_torch/`` beside the package,
 named by a hash of the source, the headers under ``csrc/`` (which is on
 the include path) and the flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  A failed build raises
 with nvcc's stderr; there is no fallback.
+
+The host kernel of ``DeepSpeedCPUAdam`` (``csrc/adam/cpu_adam.cpp``,
+``HOST_SOURCES``) is built the same way with ``g++`` and the JAX
+builder's first tier of flags (``GXX_FLAGS``), into the same directory;
+its name also hashes the compiler's version and the host CPU's model,
+since ``-march=native`` code belongs to the CPU that built it.  A failed
+``g++`` build raises with its stderr: there is no tier of weaker flags.
 """
 
 import ctypes
@@ -34,6 +41,12 @@ SOURCES = {
     "flash_block_sparse": "sparse_attention/flash_block_sparse.cu",
     "flash_block_sparse_agg": "sparse_attention/flash_block_sparse_agg.cu",
 }
+
+# host (g++) library name -> source under csrc/, and the JAX builder's
+# first-tier flags (deepspeed_tpu/ops/op_builder.py: jit_build)
+HOST_SOURCES = {"cpu_adam": "adam/cpu_adam.cpp"}
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native",
+             "-fopenmp")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -70,22 +83,55 @@ def library_path(name):
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def find_gxx():
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("building the host Adam kernel needs g++ on "
+                           "PATH")
+    return found
+
+
+def host_library_path(name):
+    """Where host library ``name`` is built: keyed by its source, the
+    flags, the compiler's version and the CPU model."""
+    digest = hashlib.sha256((CSRC_DIR / HOST_SOURCES[name]).read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    digest.update(subprocess.run([find_gxx(), "--version"],
+                                 capture_output=True, text=True).stdout
+                  .encode())
+    with open("/proc/cpuinfo") as f:
+        digest.update(next((line for line in f
+                            if line.startswith("model name")), "").encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _path(name):
+    return (host_library_path(name) if name in HOST_SOURCES
+            else library_path(name))
+
+
+def _command(name, out):
+    if name in HOST_SOURCES:
+        return [find_gxx(), *GXX_FLAGS, "-o", str(out),
+                str(CSRC_DIR / HOST_SOURCES[name])]
+    return [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+            str(CSRC_DIR / SOURCES[name])]
+
+
 def build(names=None):
-    """Compile every named library (default: all) that is not built yet,
-    one ``nvcc`` per source, all started together.  Raises with nvcc's
-    stderr if any build fails."""
+    """Compile every named library (default: every CUDA source; a host
+    library is built when named) that is not built yet, one compiler per
+    source, all started together.  Raises with the compiler's stderr if
+    any build fails."""
     names = list(SOURCES) if names is None else list(names)
-    todo = [(n, library_path(n)) for n in names
-            if not library_path(n).exists()]
+    todo = [(n, _path(n)) for n in names if not _path(n).exists()]
     if not todo:
         return
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-               str(CSRC_DIR / SOURCES[name])]
+        cmd = _command(name, tmp)
         procs.append((name, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
@@ -96,17 +142,17 @@ def build(names=None):
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        raise RuntimeError("build failed:\n" + "\n".join(errors))
 
 
 def load(name):
-    """The ``ctypes.CDLL`` of kernel library ``name``, built on first
-    use and cached for the process."""
+    """The ``ctypes.CDLL`` of library ``name`` (a CUDA kernel library or
+    a host one), built on first use and cached for the process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(_path(name)))
             _loaded[name] = lib
         return lib
 

@@ -105,6 +105,35 @@ ZERO_OFFLOAD_GRADIENTS = "offload_gradients"
 ZERO_OFFLOAD_GRADIENTS_DEFAULT = False
 ZERO_ELASTIC_CHECKPOINT = "elastic_checkpoint"
 ZERO_ELASTIC_CHECKPOINT_DEFAULT = True
+# the offload tuning keys of the JAX package's (:672-741), with its
+# defaults.  offload_uniform_chunks and offload_group_mb exist there for
+# XLA's compile time and its per-host-buffer size bound; the port parses
+# and validates them and nothing reads them (zero/config.py)
+ZERO_OFFLOAD_UNIFORM_CHUNKS = "offload_uniform_chunks"
+ZERO_OFFLOAD_UNIFORM_CHUNKS_DEFAULT = "auto"
+ZERO_OFFLOAD_GROUP_MB = "offload_group_mb"
+ZERO_OFFLOAD_GROUP_MB_DEFAULT = 1792
+# fetch chunk k+d-1 while chunk k updates ("auto": whenever the update
+# streams; false: depth 1, the serialized schedule)
+ZERO_OFFLOAD_OVERLAP = "offload_overlap"
+ZERO_OFFLOAD_OVERLAP_DEFAULT = "auto"
+ZERO_OFFLOAD_PREFETCH_DEPTH = "offload_prefetch_depth"
+ZERO_OFFLOAD_PREFETCH_DEPTH_DEFAULT = 2
+# reduced-precision host state (zero/qstate.py): a sub-block, or the
+# shorthand "bf16"/"fp16"
+ZERO_OFFLOAD_STATE_DTYPE = "offload_state_dtype"
+ZERO_OFFLOAD_STATE_DTYPE_MASTER = "master"
+ZERO_OFFLOAD_STATE_DTYPE_MASTER_DEFAULT = "fp32"
+ZERO_OFFLOAD_STATE_DTYPE_MOMENTUM = "momentum"
+ZERO_OFFLOAD_STATE_DTYPE_MOMENTUM_DEFAULT = "fp32"
+ZERO_OFFLOAD_STATE_DTYPE_VARIANCE = "variance"
+ZERO_OFFLOAD_STATE_DTYPE_VARIANCE_DEFAULT = "fp32"
+ZERO_OFFLOAD_STATE_DTYPE_ERROR_FEEDBACK = "error_feedback"
+ZERO_OFFLOAD_STATE_DTYPE_ERROR_FEEDBACK_DEFAULT = False
+ZERO_OFFLOAD_STATE_DTYPE_ROUNDING = "rounding"
+ZERO_OFFLOAD_STATE_DTYPE_ROUNDING_DEFAULT = "stochastic"
+ZERO_OFFLOAD_STATE_DTYPE_SEED = "seed"
+ZERO_OFFLOAD_STATE_DTYPE_SEED_DEFAULT = 0
 
 #############################################
 # Schema: every key the JAX package knows

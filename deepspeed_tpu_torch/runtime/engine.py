@@ -57,6 +57,27 @@ makes the engine hand the keep probability θ to the model's ``apply``
 as ``pld_theta``, a 0-d tensor copied to the device without a sync, and
 move θ along its schedule after every step.
 
+ZeRO-Offload (``zero_optimization.cpu_offload``, JAX ``:480-660``,
+``:1951-2150``, ``:2310-2545``): the master and the optimizer state live
+in pinned host memory in their storage dtypes (fp32, or bf16/fp16 under
+``offload_state_dtype``, :mod:`~deepspeed_tpu_torch.runtime.zero.qstate`),
+zero-initialized there; the card holds the compute params, the
+gradient and the few chunks in flight.  ``step`` clips on the card and
+then takes one of three updates: Adam streams the state through the
+card chunk by chunk and writes each chunk's compute params from its
+updated master rows (:mod:`~deepspeed_tpu_torch.runtime.zero.stream`);
+other optimizers (Lamb's per-tensor norms cannot be chunked) take the
+one-shot update, the whole state through the card at once;
+``DeepSpeedCPUAdam`` updates the host buffers in place in its C++
+kernel and sends the params back.  There is no device master to cast
+from, so a skipped step moves no state and streams the host master up
+once, to re-cast the compute params as the engine without offload
+does (a compute param written from outside is healed).
+``offload_gradients`` spills the step's gradient as fp32
+into a pinned host buffer, which the stream reads back chunk by chunk
+with the state (``train_batch`` only, the flat Adam only, no
+accumulation: the JAX package's refusals).
+
 Checkpoints are the JAX package's files
 (:mod:`deepspeed_tpu_torch.checkpoint`): ``save_checkpoint`` gathers the
 state to the host once and commits it on a background writer thread
@@ -66,11 +87,12 @@ data-parallel degree, and resumes the step counters (so the dropout
 streams), the LR schedule and the dataloader's cursor.
 
 Not in this slice (each refused where asked for, with its ROADMAP item):
-data parallelism over ``torch.distributed`` (A5), ZeRO-3 (A8), host
-offload (A9), 1-bit Adam (A14), telemetry (A12), and resilience's fleet
+data parallelism over ``torch.distributed`` (A5), ZeRO-3 and its
+offload (A8), 1-bit Adam (A14), telemetry (A12), and resilience's fleet
 integrity plane and elastic supervisor (A15's second half).
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -87,6 +109,7 @@ from ..checkpoint.manager import CheckpointManager, drain_inflight
 from ..checkpoint.snapshot import capture_engine_snapshot, state_fields
 from ..checkpoint.writer import CheckpointCorruptionError, CheckpointError
 from ..models.layers import mix_seed
+from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..profiling.step_profiler import StepLatencyRing
@@ -105,7 +128,9 @@ from .activation_checkpointing import checkpointing as ds_checkpointing
 from .activation_checkpointing.config import ACT_CHKPT
 from .lr_schedules import SCHEDULE_CLASSES
 from .progressive_layer_drop import ProgressiveLayerDrop
+from .zero import qstate
 from .zero.coordinator import FlatParamCoordinator
+from .zero.stream import HostStream, chunk_rows_for
 
 logger = logging.getLogger(__name__)
 
@@ -169,9 +194,11 @@ class DeepSpeedEngine:
                 "data parallelism over torch.distributed is not ported yet "
                 "(ROADMAP A5)")
         self._config = DeepSpeedConfig(config)
-        if self._config.zero_config.cpu_offload:
-            raise NotImplementedError("zero_optimization.cpu_offload is not "
-                                      "ported yet (ROADMAP A9)")
+        zc = self._config.zero_config
+        self._offload = zc.cpu_offload
+        if self._offload and self._config.zero_optimization_stage >= 3:
+            raise NotImplementedError("ZeRO-3 with cpu_offload is not "
+                                      "ported yet (ROADMAP A8)")
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -212,10 +239,14 @@ class DeepSpeedEngine:
         self.flat = FlatParamCoordinator(
             params0, stage=self._config.zero_optimization_stage)
         self.segments = self.flat.segments
-        self.master = self.flat.flatten_to_master(params0, self.device)
-        del params0
         self.optimizer = self._configure_basic_optimizer(optimizer)
-        self.opt_state = self.optimizer.init_state(self.master)
+        if self._offload:
+            self._build_offload(params0)
+        else:
+            self.master = self.flat.flatten_to_master(params0, self.device)
+            self.opt_state = self.optimizer.init_state(self.master)
+            self._quant, self._qres = None, {}
+        del params0
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self.progressive_layer_drop = (ProgressiveLayerDrop(
             theta=cfg.pld_params["theta"], gamma=cfg.pld_params["gamma"])
@@ -235,6 +266,7 @@ class DeepSpeedEngine:
                                  device=self.device)
                      if acc > 1 and self.compute_dtype != torch.float32
                      else None)
+        self._in_train_batch = False
         self._refresh_params()
 
         self.training_dataloader = None
@@ -321,7 +353,7 @@ class DeepSpeedEngine:
             if (self._config.zero_enabled
                     and not self._config.zero_allow_untested_optimizer
                     and type(client_optimizer).__name__ not in (
-                        "FusedAdam", "FusedLamb")):
+                        "FusedAdam", "FusedLamb", "DeepSpeedCPUAdam")):
                 raise ValueError("ZeRO with a client optimizer requires "
                                  '"zero_allow_untested_optimizer": true')
             return client_optimizer
@@ -335,8 +367,11 @@ class DeepSpeedEngine:
         if name == C.LAMB_OPTIMIZER:
             return FusedLamb(**params)
         if name in ("cpuadam", "cpu_adam", "deepspeedcpuadam"):
-            raise NotImplementedError("DeepSpeedCPUAdam is not ported yet "
-                                      "(ROADMAP A9)")
+            if self.device.type == "cuda" and not self._offload:
+                raise ValueError(
+                    "DeepSpeedCPUAdam updates host buffers: on the card it "
+                    "needs zero_optimization.cpu_offload: true")
+            return cpu_adam.DeepSpeedCPUAdam(**params)
         if name == C.ONEBIT_ADAM_OPTIMIZER:
             raise NotImplementedError("1-bit Adam is not ported yet (ROADMAP "
                                       "A14)")
@@ -352,6 +387,179 @@ class DeepSpeedEngine:
             raise ValueError(f"Unknown lr schedule {name!r}")
         return SCHEDULE_CLASSES[name](self.optimizer,
                                       **(self._config.scheduler_params or {}))
+
+    # ----------------------------------------------------------- offload
+    def _build_offload(self, params0):
+        """Host state for ``cpu_offload`` (JAX ``engine.py:480-660``): the
+        master and the optimizer's flat state in their storage dtypes,
+        pinned on the card's host, zero-initialized there (every flat
+        optimizer here is zeros plus a step count); the residuals of
+        error feedback; the fp32 host gradient of ``offload_gradients``
+        and of the host optimizer; and the chunk stream."""
+        zc = self._config.zero_config
+        name = getattr(self.optimizer, "name", "")
+        pin = self.device.type == "cuda"
+        sd = zc.offload_state_dtype
+        if zc.offload_state_reduced and name != "adam":
+            raise ValueError("offload_state_dtype with reduced dtypes "
+                             "requires the flat Adam optimizer (the chunk-"
+                             "streamed update the compression rides)")
+        self._offload_grads = zc.offload_gradients
+        if self._offload_grads:
+            if name != "adam":
+                raise ValueError("offload_gradients requires the flat Adam "
+                                 "optimizer (the chunk-streamed update)")
+            if self.gradient_accumulation_steps() > 1:
+                raise ValueError(
+                    "offload_gradients does not yet support "
+                    "gradient_accumulation_steps > 1 (the host gradient "
+                    "buffer is written once per step)")
+        if zc.offload_overlap is True and zc.offload_prefetch_depth < 2:
+            raise ValueError(
+                "offload_overlap: true contradicts offload_prefetch_depth: "
+                "1 (a one-deep pipeline IS the serialized schedule); raise "
+                "the depth or drop offload_overlap")
+        self.master = self.flat.flatten_to_host(
+            params0, qstate.STATE_DTYPES[sd["master"]], pin)
+        if name in ("adam", "cpu_adam", "lamb"):
+            by_name = {"exp_avg": sd["momentum"], "exp_avg_sq": sd["variance"]}
+            shape = self.optimizer.init_state(
+                torch.empty((1, 1), dtype=torch.float32))
+            self.opt_state = dataclasses.replace(shape, **{
+                f: self.flat.host_buffer(
+                    qstate.STATE_DTYPES[by_name.get(f, "fp32")], pin)
+                for f, v in state_fields(shape).items()
+                if isinstance(v, torch.Tensor)})
+        else:
+            # a client optimizer: its own init on the host master, pinned
+            self.opt_state = self.optimizer.init_state(self.master)
+            if pin:
+                self.opt_state = dataclasses.replace(self.opt_state, **{
+                    f: v.pin_memory()
+                    for f, v in state_fields(self.opt_state).items()
+                    if isinstance(v, torch.Tensor)})
+        leaves = [(f, isinstance(v, torch.Tensor))
+                  for f, v in state_fields(self.opt_state).items()]
+        self._flat_fields = [f for f, flat in leaves if flat]
+        self._quant = qstate.build_state_quant(sd, leaves)
+        self._qres = {}
+        if self._quant is not None:
+            for res in self._quant.residual_names():
+                self._qres[res] = self.flat.host_buffer(
+                    self._quant.dtype_of(res), pin)
+        self._host_grad = (self.flat.alloc_host_grads(pin)
+                           if self._offload_grads or name == "cpu_adam"
+                           else None)
+        chunk_rows = chunk_rows_for(zc.offload_chunk_mb)
+        depth = (zc.offload_prefetch_depth
+                 if zc.offload_overlap is not False else 1)
+        self._streams_update = name == "adam"
+        # Adam streams in chunks and CPUAdam moves its gradient and params
+        # in them; other optimizers (Lamb's per-tensor norms) take the
+        # whole state in one job, the one-shot update
+        self._stream = HostStream(
+            self.segments.rows,
+            chunk_rows if name in ("adam", "cpu_adam") else None, depth,
+            self.device)
+        self._host_state_bytes = qstate.host_state_bytes_per_step(
+            self.segments.rows, self.segments.shape[1], self._quant,
+            n_flat_leaves=len(self._flat_fields))
+        logger.info("ZeRO-Offload: host state %s, %s update, schedule %s",
+                    self.host_state_dtype(),
+                    "streamed" if self._streams_update else name,
+                    self.host_stream_schedule())
+
+    def zero_cpu_offload(self):
+        return self._config.zero_config.cpu_offload
+
+    def host_state_dtype(self):
+        """Storage dtype of the offloaded host state: one name when the
+        master and both moments agree, else "mixed"."""
+        sd = self._config.zero_config.offload_state_dtype
+        names = {sd["master"], sd["momentum"], sd["variance"]}
+        return sd["master"] if len(names) == 1 else "mixed"
+
+    def host_state_bytes_per_step(self):
+        """Bytes the streamed update moves a step for the host state
+        (both directions; gradients apart).  None without offload."""
+        return self._host_state_bytes if self._offload else None
+
+    def host_stream_schedule(self):
+        """The streamed update's schedule (``{overlap, prefetch_depth,
+        chunks, groups, form}``); None when the update does not stream
+        (no offload, the one-shot update, the host optimizer)."""
+        if not self._offload or not self._streams_update:
+            return None
+        return self._stream.schedule()
+
+    @property
+    def host_stream(self):
+        """The :class:`~deepspeed_tpu_torch.runtime.zero.stream.HostStream`
+        that moves the host state (set its ``timing`` to time the copies;
+        ``timing_report()`` reads them); None without offload."""
+        return self._stream if self._offload else None
+
+    def _sync_host(self):
+        """Wait for every copy to or from the host buffers: before the
+        host reads or writes them."""
+        if self._offload:
+            self._stream.sync_host()
+
+    def _offload_update(self, g):
+        """The update under offload, the gradient ``g`` on the card
+        already unscaled and clipped."""
+        hp = self.optimizer.hyperparams()
+        if getattr(self.optimizer, "name", "") == "cpu_adam":
+            self._stream.spill(g, self._host_grad)
+            self._stream.sync_host()
+            self.optimizer.update(self.opt_state, self.master,
+                                  self._host_grad, hp)
+            self._params_from_host()
+            return
+        stream = self._stream
+        host = {"master": self.master}
+        fields = state_fields(self.opt_state)
+        for f in self._flat_fields:
+            host[f] = fields[f]
+        for res, buf in self._qres.items():
+            host["res/" + res] = buf
+        writes = tuple(host)
+        if self._offload_grads:
+            stream.spill(g, self._host_grad)
+            host["grad"] = self._host_grad
+        quant, step0 = self._quant, self.opt_state.step
+
+        def chunk(k, r0, rc, v):
+            pm = (quant.load(v["master"], v.get("res/master")) if quant
+                  else v["master"])
+            leaves = {f: quant.load(v[f], v.get("res/" + f)) if quant
+                      else v[f] for f in self._flat_fields}
+            st = dataclasses.replace(self.opt_state, **leaves)
+            gc = v["grad"] if "grad" in v else g[r0:r0 + rc]
+            self.optimizer.update(st, pm, gc, hp, segments=self.segments)
+            if quant is not None:
+                for slot, name in enumerate(["master", *self._flat_fields]):
+                    val = pm if name == "master" else getattr(st, name)
+                    q, r = quant.store(val, quant.dtype_of(name),
+                                       step=step0 + 1, tag=k,
+                                       slot=slot)
+                    v[name].copy_(q)
+                    if r is not None:
+                        v["res/" + name].copy_(r)
+            # the folded param cast, from the stored master
+            self._compute[r0:r0 + rc].copy_(v["master"])
+
+        stream.run(host, chunk, writes)
+        self.opt_state.step = step0 + 1
+
+    def _params_from_host(self):
+        """The compute params as the cast of the host master, streamed up
+        in chunks and cast on the card (for DeepSpeedCPUAdam this beat a
+        cast on the host and a 2-byte copy: ``ops/adam/cpu_adam.py``)."""
+        def cast(k, r0, rc, v):
+            self._compute[r0:r0 + rc].copy_(v["master"])
+
+        self._stream.run({"master": self.master}, cast)
 
     # -------------------------------------------------------- resilience
     def _build_resilience(self):
@@ -434,9 +642,12 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------- state
     def _refresh_params(self):
         """Cast the master into the compute params (in place: the param
-        dict's views see it)."""
+        dict's views see it); under offload, from the host master."""
         with torch.no_grad():
-            self._compute.copy_(self.master)
+            if self._offload:
+                self._params_from_host()
+            else:
+                self._compute.copy_(self.master)
 
     def _to_device(self, batch):
         """A host batch (numpy or tensor leaves) on the engine's device:
@@ -463,6 +674,11 @@ class DeepSpeedEngine:
         config ``seed`` and the micro-step count.  Under Progressive
         Layer Drop the model also gets ``pld_theta``, θ as a 0-d fp32
         tensor on the device."""
+        if self._offload and self._offload_grads \
+                and not self._in_train_batch:
+            raise RuntimeError(
+                "offload_gradients supports only train_batch() (the "
+                "step-wise forward/backward API is not its path)")
         rng = mix_seed(self._config.seed, self.micro_steps)
         kwargs = {}
         if self.progressive_layer_drop is not None:
@@ -521,12 +737,18 @@ class DeepSpeedEngine:
                     gnorm = torch.linalg.vector_norm(g, dtype=torch.float32)
                     coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
                     g = g * coef.to(g.dtype)
-                self.optimizer.update(self.opt_state, self.master, g,
-                                      self.optimizer.hyperparams(),
-                                      segments=self.segments)
-            # after a skipped step too: the compute params are the
-            # master's cast, whatever wrote into them
-            self._refresh_params()
+                if self._offload:
+                    # writes the compute params chunk by chunk
+                    self._offload_update(g)
+                else:
+                    self.optimizer.update(self.opt_state, self.master, g,
+                                          self.optimizer.hyperparams(),
+                                          segments=self.segments)
+            if not self._offload or overflow:
+                # after a skipped step too: the compute params are the
+                # master's cast, whatever wrote into them (an offload
+                # update writes them chunk by chunk itself)
+                self._refresh_params()
             self._grad.zero_()
             if self._acc is not None:
                 self._acc.zero_()
@@ -608,10 +830,14 @@ class DeepSpeedEngine:
             torch.cuda.synchronize(self.device)
             t0 = time.perf_counter()
         losses = []
-        for _ in range(self.gradient_accumulation_steps()):
-            loss = self.forward(next(data_iter))
-            self.backward(loss)
-            losses.append(loss.detach())
+        self._in_train_batch = True
+        try:
+            for _ in range(self.gradient_accumulation_steps()):
+                loss = self.forward(next(data_iter))
+                self.backward(loss)
+                losses.append(loss.detach())
+        finally:
+            self._in_train_batch = False
         if timed:
             torch.cuda.synchronize(self.device)
             self._step_seconds.append(time.perf_counter() - t0)
@@ -639,8 +865,10 @@ class DeepSpeedEngine:
             return torch.stack(losses).mean(dim=0)
 
     def get_master_params(self):
-        """The fp32 master as a param dict (views of the flat buffer)."""
-        return self.flat.unflatten_params(self.master)
+        """The fp32 master as a param dict (views of the flat buffer; of
+        an fp32 copy where the host master is stored reduced)."""
+        self._sync_host()
+        return self.flat.unflatten_params(self.master.float())
 
     # -------------------------------------------------------- checkpoints
     def _params_to_host(self):
@@ -738,28 +966,9 @@ class DeepSpeedEngine:
 
         with open(os.path.join(ckpt_dir, META_JSON)) as f:
             meta = json.load(f)
+        self._sync_host()
         with np.load(os.path.join(ckpt_dir, OPTIM_STATES_NPZ)) as opt_npz:
-            # a JAX checkpoint from a reduced-precision offload layout
-            # carries error-feedback residuals under qres/<name>; the port
-            # has no such layout (ROADMAP A9), so every such load folds
-            # them into their values, as the JAX engine's cross-layout
-            # load does
-            qres = {k[len("qres/"):]: opt_npz[k]
-                    for k in opt_npz.files if k.startswith("qres/")}
-
-            def _folded(name, arr):
-                r = qres.get(name.lstrip("."))
-                if r is None:
-                    return arr
-                return (np.asarray(arr, np.float32)
-                        + np.asarray(r, np.float32))
-
-            self.flat.scatter_master_from_unpadded(
-                _folded("master", opt_npz["master"]), out=self.master)
-            if load_optimizer_states:
-                self._restore_opt_state(
-                    {k[len("opt/"):]: _folded(k[len("opt/"):], opt_npz[k])
-                     for k in opt_npz.files if k.startswith("opt/")})
+            self._restore_flat_state(opt_npz, meta, load_optimizer_states)
         with torch.no_grad():
             self._refresh_params()
             self._grad.zero_()
@@ -803,6 +1012,54 @@ class DeepSpeedEngine:
                         f"re-padded onto dp={self.dp_world_size}")
         logger.info(f"loaded checkpoint {ckpt_dir}")
         return ckpt_dir, client_state
+
+    def _restore_flat_state(self, opt_npz, meta, load_optimizer_states):
+        """The master, the optimizer state and the error-feedback
+        residuals from ``optim_states.npz`` (JAX ``engine.py:4222-4291``).
+        A file written by a reduced-precision offload layout carries
+        residuals under ``qres/<name>``: a load into the same layout
+        keeps them as they are; any other load folds each into its value
+        (and a residual of this engine's layout is then the exact
+        rounding error of the value it stored)."""
+        qres = {k[len("qres/"):]: opt_npz[k]
+                for k in opt_npz.files if k.startswith("qres/")}
+        ck_layout = meta.get("offload_state_dtype")
+        sd = (self._config.zero_config.offload_state_dtype
+              if self._quant is not None else None)
+        field = {"master": "master", "exp_avg": "momentum",
+                 "exp_avg_sq": "variance"}
+
+        def same_layout(name):
+            return (name in field and ck_layout is not None
+                    and sd is not None and ck_layout.get("error_feedback")
+                    and sd["error_feedback"]
+                    and ck_layout.get(field[name]) == sd[field[name]]
+                    and name in qres)
+
+        def folded(name, arr):
+            r = qres.get(name)
+            if r is None or same_layout(name):
+                return arr
+            return np.asarray(arr, np.float32) + np.asarray(r, np.float32)
+
+        values = {"master": folded("master", opt_npz["master"])}
+        self.flat.scatter_master_from_unpadded(values["master"],
+                                               out=self.master)
+        if load_optimizer_states:
+            opt = {k[len("opt/"):]: folded(k[len("opt/."):], opt_npz[k])
+                   for k in opt_npz.files if k.startswith("opt/")}
+            values.update((k.lstrip("."), v) for k, v in opt.items())
+            self._restore_opt_state(opt)
+        for name, buf in self._qres.items():
+            if same_layout(name):
+                res = np.asarray(qres[name], np.float32)
+            elif name in values:
+                # the exact rounding error of the value just stored
+                val = torch.from_numpy(np.asarray(values[name], np.float32))
+                res = (val - val.to(buf.dtype).float()).numpy()
+            else:
+                res = np.zeros(sum(self.segments.sizes), np.float32)
+            self.flat.scatter_master_from_unpadded(res, out=buf)
 
     def _restore_opt_state(self, host):
         """Fill the optimizer state from ``{field path key: array}``

@@ -13,8 +13,17 @@ the param dict's views of any of them, and the compute buffer is the
 master's cast, one copy.
 This slice runs ZeRO stages 0, 1 and 2 at one data-parallel rank, where
 master, optimizer state and gradients are all one unsharded buffer each;
-sharding them over ``torch.distributed`` ranks is ROADMAP A5, stage 3 is
-A8 and host offload A9.
+sharding them over ``torch.distributed`` ranks is ROADMAP A5 and stage 3
+is A8.
+
+Under ``cpu_offload`` (JAX ``coordinator.py:225-242``, ``:352-380``) the
+master and the optimizer state are host buffers in their storage dtype,
+one per family (:meth:`host_buffer`, :meth:`flatten_to_host`,
+:meth:`alloc_host_grads`): pinned when the engine trains on the card,
+allocated pinned and filled in place (pinning a filled tensor would
+hold two copies), plain CPU tensors when it trains on the CPU.  The
+JAX package splits them into row groups under XLA's per-host-buffer
+bound; the port has no such bound and keeps one group.
 """
 
 import numpy as np
@@ -62,6 +71,35 @@ class FlatParamCoordinator:
                 leaf, np.float32).reshape(-1)
         return torch.from_numpy(host.reshape(self.segments.shape)).to(device)
 
+    def host_buffer(self, dtype, pin):
+        """A zero host buffer in the flat layout (``pin``: page-locked,
+        for copies to and from the card without a staging copy)."""
+        return torch.zeros(self.flat_shape, dtype=dtype, pin_memory=pin)
+
+    def flatten_to_host(self, params, dtype, pin):
+        """The master as a host buffer in storage ``dtype``, allocated
+        once and filled leaf by leaf in place (a cast to bf16 rounds to
+        nearest, as numpy's ``astype`` does in the JAX package)."""
+        _, leaves = tree_leaves(params)
+        if len(leaves) != self.segments.num_segments:
+            raise ValueError(f"the tree has {len(leaves)} leaves but the "
+                             f"layout was built for "
+                             f"{self.segments.num_segments}")
+        host = self.host_buffer(dtype, pin)
+        flat = host.view(-1)
+        with torch.no_grad():
+            for leaf, ro, n in zip(leaves, self.segments.row_offsets,
+                                   self.segments.sizes):
+                src = (leaf.detach().float().cpu()
+                       if isinstance(leaf, torch.Tensor)
+                       else torch.from_numpy(np.asarray(leaf, np.float32)))
+                flat[ro * LANES:ro * LANES + n].copy_(src.reshape(-1))
+        return host
+
+    def alloc_host_grads(self, pin):
+        """The fp32 host gradient buffer of ``offload_gradients``."""
+        return self.host_buffer(torch.float32, pin)
+
     def unflatten_params(self, flat):
         """The param dict of ``flat`` (any dtype, the master's layout):
         each leaf a VIEW of its rows, so a write to the buffer is a write
@@ -77,7 +115,9 @@ class FlatParamCoordinator:
         """Concatenated true-sized 1-D fp32 host copy (checkpoint
         format) of ``master`` or any buffer in its layout: the segments
         are gathered on the buffer's device, then copied to the host
-        once.  The array owns its memory: no later step writes it."""
+        once (a host buffer's are read where they are, with no round
+        trip through the card; a bf16 one is upcast exactly).  The array
+        owns its memory: no later step writes it."""
         view = master.detach().reshape(-1)
         parts = [view[ro * LANES:ro * LANES + n] for ro, n in
                  zip(self.segments.row_offsets, self.segments.sizes)]

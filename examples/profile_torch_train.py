@@ -14,10 +14,14 @@ full width and depth, exactly as that script's phase does:
   seq 128, micro-batch 64, MLM gather of 20 + NSP);
 - ``--bert-sparse``: ``chip_smoke.bert_sparse_train_setup`` (BERT-large,
   seq 4096, micro-batch 2, Fixed bidirectional layout of 128-row blocks:
-  the super-tile kernels B6).
+  the super-tile kernels B6);
+- ``--offload``: ``chip_smoke.offload_large_setup`` (bench.py's
+  GPT-2-large offload leg: seq 1024, batch 4, remat, ``loss_chunk`` 256,
+  Adam, bf16, ZeRO-2 with ``cpu_offload``, fp32 host state streamed in
+  512 MB chunks at depth 2).
 
     python3 examples/profile_torch_train.py [--sparse | --bert |
-        --bert-sparse] [--out PATH]
+        --bert-sparse | --offload] [--out PATH]
 
 Step wall time is a host clock around ``train_batch`` calls that end in
 ``torch.cuda.synchronize()``, median of 5 after 2 warm-up steps.  Device
@@ -30,9 +34,15 @@ kernel; in bf16 these are B6a's, B6b's and B6c's tensor-core kernels at
 G = 1, counted as B5's in the ``--sparse`` step, which launches no B6),
 the super-tile kernels B6a, B6b and B6c, matrix products
 (cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies,
-the optimizer).  Beside them, the registers and spills (``nvcc -Xptxas
--v``) of every kernel in the sources of the attention kernels the step
-runs.
+the optimizer), and the copies between host and card (H2D, D2H).
+Under ``--offload`` it also gives the copies' time that runs beside a
+kernel (their overlap with the update and the rest of the step), the
+share of the wall in which the card runs no kernel and no copy, and
+the two ways the params can go back after a host update
+(:func:`params_back_ms`: the design measurement behind
+``ops/adam/cpu_adam.py``'s choice).
+Beside them, the registers and spills (``nvcc -Xptxas -v``) of every
+kernel in the sources of the attention kernels the step runs.
 Prints one JSON object (also written to ``--out PATH``) with the card's
 name and power limit beside the numbers.
 """
@@ -64,6 +74,8 @@ SETUPS = {
              (chip_smoke.BERT_BATCH, chip_smoke.BERT_SEQ)),
     "bert-sparse": (chip_smoke.bert_sparse_train_setup, "bert-large",
                     chip_smoke.SPARSE_ATTN[0::2]),
+    "offload": (chip_smoke.offload_large_setup, "gpt2-large",
+                (chip_smoke.LARGE_BATCH, chip_smoke.TRAIN_ATTN[2])),
 }
 
 FAMILIES = (("B1 flash forward", ("flash_fwd",)),
@@ -77,7 +89,9 @@ FAMILIES = (("B1 flash forward", ("flash_fwd",)),
             ("B5b sparse flash dq", ("fbs_bwd_dq",)),
             ("B5b sparse flash dk/dv", ("fbs_bwd_dkv",)),
             ("matrix products", ("gemm", "cutlass", "xmma", "cublas",
-                                 "nvjet")))
+                                 "nvjet")),
+            ("H2D copies", ("memcpy htod",)),
+            ("D2H copies", ("memcpy dtoh",)))
 
 
 # the bf16 B5a and B5b run B6a's, B6b's and B6c's kernels at G = 1
@@ -89,7 +103,8 @@ B5_AT_G1 = {"B6a super-tile forward": "B5a sparse flash forward",
 LIBRARIES = {"gpt2": ("flash_attention_fwd", "flash_attention_bwd"),
              "sparse": ("flash_block_sparse_agg",),
              "bert": ("flash_attention_fwd", "flash_attention_bwd"),
-             "bert-sparse": ("flash_block_sparse_agg",)}
+             "bert-sparse": ("flash_block_sparse_agg",),
+             "offload": ("flash_attention_fwd", "flash_attention_bwd")}
 
 
 def family(name, mode):
@@ -98,6 +113,33 @@ def family(name, mode):
         if any(key in lowered for key in keys):
             return B5_AT_G1.get(label, label) if mode == "sparse" else label
     return "other"
+
+
+def is_copy(name):
+    return family(name, "offload") in ("H2D copies", "D2H copies")
+
+
+def union_us(spans):
+    """The length of the union of ``[(start, end)]`` (microseconds)."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def copy_overlap(events):
+    """(copy time, copy time beside a kernel, device time with neither)
+    over ``events`` (name, start us, end us), in microseconds."""
+    copies = [(a, b) for n, a, b in events if is_copy(n)]
+    kernels = [(a, b) for n, a, b in events if not is_copy(n)]
+    c, k = union_us(copies), union_us(kernels)
+    both = c + k - union_us(copies + kernels)
+    return c, both, union_us(copies + kernels)
 
 
 def registers_spills(mode):
@@ -113,12 +155,34 @@ def registers_spills(mode):
     return usage
 
 
+def params_back_ms(engine):
+    """ms of the two ways the compute params can go back from the host
+    master, twice each in turns: ``card``, the engine's (the fp32
+    master up in chunks, cast on the card), and ``host`` (cast to bf16
+    on the host into a pinned staging buffer, one 2-byte copy up)."""
+    staging = torch.empty_like(engine.master, dtype=engine.compute_dtype,
+                               pin_memory=True)
+
+    def host():
+        staging.copy_(engine.master)
+        engine._compute.copy_(staging, non_blocking=True)
+
+    out = {}
+    for how, fn in (("card", engine._params_from_host), ("host", host)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.setdefault(how, []).append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the result to this "
                         "JSON file")
     modes = parser.add_mutually_exclusive_group()
-    for mode in ("sparse", "bert", "bert-sparse"):
+    for mode in ("sparse", "bert", "bert-sparse", "offload"):
         modes.add_argument(f"--{mode}", dest="mode", action="store_const",
                            const=mode, help=f"profile the {mode} train "
                            f"set-up of chip_smoke.py instead of GPT-2's")
@@ -163,6 +227,8 @@ def main():
     for name, us in by_name.items():
         by_family[family(name, args.mode)] += us
     busy = sum(by_name.values()) / 1e3 / steps if events else None
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events]
+    copy_us, beside_us, active_us = copy_overlap(spans)
     result = {
         "card": card, "model": model_name, "mode": args.mode,
         "layers": getattr(cfg, "num_layers", None)
@@ -179,7 +245,13 @@ def main():
             [name[:80], us / 1e3 / steps]
             for name, us in by_name.most_common(12)],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "copy_ms_per_step": copy_us / 1e3 / steps,
+        "copy_ms_beside_a_kernel_per_step": beside_us / 1e3 / steps,
+        "idle_share_no_kernel_no_copy": (
+            None if not events else 1.0 - active_us / 1e3 / steps / wall),
         "registers_spills": registers_spills(args.mode)}
+    if args.mode == "offload":
+        result["params_back_ms"] = params_back_ms(engine)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

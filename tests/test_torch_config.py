@@ -46,6 +46,26 @@ UNIT_CONFIGS = [
                             "offload_chunk_mb": bad}}, 1)
     for bad in (True, False, -1, "512")
 ] + [
+    # the offload tuning keys (zero/config.py), good and bad values
+    ({"train_batch_size": 8, "bf16": {"enabled": True},
+      "zero_optimization": dict({"stage": 2, "cpu_offload": True}, **kv)},
+     1)
+    for kv in ({"offload_group_mb": 512}, {"offload_group_mb": 0},
+               {"offload_group_mb": 4096}, {"offload_group_mb": True},
+               {"offload_uniform_chunks": True},
+               {"offload_uniform_chunks": 1},
+               {"offload_overlap": False}, {"offload_overlap": 0},
+               {"offload_prefetch_depth": 3},
+               {"offload_prefetch_depth": 0},
+               {"offload_state_dtype": "bf16"},
+               {"offload_state_dtype": "int8"},
+               {"offload_state_dtype": {"master": "fp16"}},
+               {"offload_state_dtype": {"momentum": "bf16",
+                                        "error_feedback": True}},
+               {"offload_state_dtype": {"rounding": "sideways"}},
+               {"offload_state_dtype": {"seed": "7"}},
+               {"offload_gradients": True})
+] + [
     ({"train_batch_size": 8, "fp16": {"enabled": True},
       "bf16": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "fp16": {
@@ -104,6 +124,11 @@ def test_both_parsers_resolve_equal_values(d, world_size):
     for field in RESOLVED:
         assert getattr(ours, field) == getattr(theirs, field), field
     assert ours.zero_config.cpu_offload == theirs.zero_config.cpu_offload
+    for key in ("offload_chunk_mb", "offload_gradients", "offload_group_mb",
+                "offload_uniform_chunks", "offload_overlap",
+                "offload_prefetch_depth", "offload_state_dtype"):
+        assert (getattr(ours.zero_config, key)
+                == getattr(theirs.zero_config, key)), key
 
 
 @pytest.mark.parametrize("section", [

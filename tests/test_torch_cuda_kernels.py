@@ -1505,3 +1505,78 @@ def test_prefix_key_masks_match_plain(cuda_device, dtype, fused, lengths):
     hidden = mask == 0
     assert bool((grads[1][hidden] == 0).all())
     assert bool((grads[2][hidden] == 0).all())
+
+
+def offload_engine(device, zero, opt="Adam", **model_kw):
+    config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=128, **model_kw)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(config), model_parameters=random_params(config, 0),
+        config={"train_batch_size": 2, "steps_per_print": 10 ** 9,
+                "gradient_clipping": 1.0,
+                "optimizer": {"type": opt, "params": {"lr": 1e-3}},
+                "zero_optimization": zero, "bf16": {"enabled": True}},
+        device=device)
+    rng = np.random.RandomState(0)
+    return engine, {"input_ids": rng.randint(0, 512, size=(2, 128))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sd", ["fp32", "bf16"])
+def test_offload_host_buffers_are_pinned_and_the_stream_never_syncs(
+        cuda_device, sd):
+    """Under ``cpu_offload`` the master, the moments and the residuals
+    are pinned host buffers; a streamed step (1 MB chunks, depth 2) makes
+    no synchronizing call; and the master after 3 steps is bitwise the
+    run without offload's (fp32 state)."""
+    zero = {"stage": 2, "cpu_offload": True, "offload_chunk_mb": 1,
+            "offload_state_dtype": {"master": sd, "momentum": sd,
+                                    "variance": sd, "error_feedback": True}}
+    engine, batch = offload_engine(cuda_device, zero)
+    bufs = [engine.master, engine.opt_state.exp_avg,
+            engine.opt_state.exp_avg_sq, *engine._qres.values()]
+    assert len(bufs) == (6 if sd == "bf16" else 3)
+    assert all(b.device.type == "cpu" and b.is_pinned() for b in bufs)
+    assert engine.host_stream_schedule()["chunks"] > 1
+    engine.train_batch(iter([batch]))
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            engine.train_batch(iter([batch]))
+            engine.train_batch(iter([batch]))
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    assert syncs == 0
+    if sd == "fp32":
+        base, _ = offload_engine(cuda_device, {"stage": 2})
+        for _ in range(3):
+            base.train_batch(iter([batch]))
+        torch.cuda.synchronize()
+        assert torch.equal(engine.master, base.master.cpu())
+
+
+@pytest.mark.cuda
+def test_ds_adam_step_on_pinned_buffers_matches_plain(cuda_device):
+    """The host kernel in place on pinned buffers against its plain
+    version: rtol 2e-6, atol 1e-7 (the CPU test's bound)."""
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+
+    rng = np.random.RandomState(0)
+    n = 1 << 20
+    p, m, g = (torch.from_numpy(rng.randn(n).astype(np.float32))
+               .pin_memory() for _ in range(3))
+    v = torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32)) \
+        .pin_memory()
+    q, mq, vq = p.clone(), m.clone(), v.clone()
+    bc1, bc2 = cpu_adam.bias_corrections(0.9, 0.999, 3)
+    cpu_adam.ds_adam_step(p, m, v, g, 1e-3, 0.9, 0.999, 1e-8, 0.01, bc1,
+                          bc2, True)
+    cpu_adam.plain_adam_step(q, mq, vq, g, 1e-3, 0.9, 0.999, 1e-8, 0.01, 3)
+    assert p.is_pinned()
+    np.testing.assert_allclose(p.numpy(), q.numpy(), rtol=2e-6, atol=1e-7)
+    np.testing.assert_allclose(m.numpy(), mq.numpy(), rtol=2e-6, atol=1e-7)
+    np.testing.assert_allclose(v.numpy(), vq.numpy(), rtol=2e-6, atol=1e-8)

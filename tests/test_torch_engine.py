@@ -237,8 +237,8 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
 
 @pytest.mark.parametrize("change,error,match", [
     ({"fp16": {"enabled": True}}, None, "float16"),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}},
-     NotImplementedError, "A9"),
+    ({"zero_optimization": {"stage": 3, "cpu_offload": True}},
+     NotImplementedError, "A8"),
     ({"zero_optimization": {"stage": 3}}, NotImplementedError, "A8"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
      NotImplementedError, "A14"),

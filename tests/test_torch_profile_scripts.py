@@ -72,3 +72,20 @@ def test_every_mode_names_the_libraries_of_its_attention():
      "flash_fwd_mma_kernel_d64_dropout")])
 def test_kernel_name_keeps_the_kernels_own_name(mangled, name):
     assert op_builder.kernel_name(mangled) == name
+
+
+@pytest.mark.parametrize("name,family", [
+    ("Memcpy HtoD (Pinned -> Device)", "H2D copies"),
+    ("Memcpy DtoH (Device -> Pinned)", "D2H copies"),
+    ("void at::native::vectorized_elementwise_kernel<4>()", "other")])
+def test_the_offload_step_counts_its_copies_apart(name, family):
+    assert ptt.family(name, "offload") == family
+
+
+def test_copy_overlap_is_measured_on_the_union_of_spans():
+    """Copies 0-10 and 5-20 (union 20), kernels 15-30 and 40-50: 5 us
+    of copy beside a kernel, 40 us with either running."""
+    events = [("Memcpy HtoD (Pinned -> Device)", 0, 10),
+              ("Memcpy DtoH (Device -> Pinned)", 5, 20),
+              ("flash_fwd_mma_kernel", 15, 30), ("gemm", 40, 50)]
+    assert ptt.copy_overlap(events) == (20, 5, 40)
