@@ -19,8 +19,10 @@ steps and resumes it bitwise, then trains GPT-2-medium and BERT-large in
 fp16 under the dynamic loss scaler, rolls GPT-2-medium back to its
 checkpoint after a forced divergence, trains GPT-2-medium under
 activation checkpointing and the chunked LM loss (up to micro-batch 32),
-BERT-large under remat and Progressive Layer Drop, and fine-tunes
-BERT-large on SQuAD- and MNLI-shaped batches.  Phases, in order; any
+BERT-large under remat and Progressive Layer Drop, fine-tunes
+BERT-large on SQuAD- and MNLI-shaped batches, trains with the state on
+the host (ZeRO-Offload), and trains GPT-2-medium and BERT-large again
+through the data-parallel mesh on NCCL.  Phases, in order; any
 failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
@@ -242,7 +244,22 @@ failure raises, so the script exits non-zero:
               warm-up and 3 timed steps;
 29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
               streamed offload in 1 MB chunks: 10 steps on the card
-              within rtol 1e-3 of the CPU's.
+              within rtol 1e-3 of the CPU's;
+30. dp       — ``torch.distributed`` on NCCL at world size 1 through a
+              ``file://`` store under ``build/`` (the NCCL version
+              printed); phase 6's GPT-2-medium and phase 12's BERT-large
+              through ``initialize(mesh=make_mesh({"data": 1}))``, the
+              ZeRO-2 sharded path (reduce-scatter of the gradient, the
+              rank's rows of the master and Lamb state, all-gather of
+              the bf16 params), 2 + 3 steps each: losses bitwise the
+              first five of phases 6 and 12, the same attention launches
+              a step, 1 reduce-scatter, 2 all-reduces and 1 all-gather a
+              step, their bytes, and the exchange's device ms (the
+              collectives replayed on the engine's buffers) beside the
+              step ms; then the tiny GPT-2 at dp=2 on two gloo CPU
+              processes against one rank on the same global batches
+              (losses to rtol 1e-5, the master's update to 1e-4), which
+              checks this machine's torch build.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -262,6 +279,7 @@ import argparse
 import gc
 import json
 import math
+import multiprocessing
 import os
 import random
 import shutil
@@ -273,10 +291,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import checkpoint as ckpt
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models.bert import (
     BertConfig, BertForPreTraining, BertForQuestionAnsweringTPU,
@@ -298,6 +318,8 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
+from deepspeed_tpu_torch.parallel import DATA_AXIS, make_mesh
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.params import params_from_numpy, tree_leaves
 
 DEVICE = torch.device("cuda")
@@ -1241,22 +1263,40 @@ TRAIN_CONFIG = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
                 "bf16": {"enabled": True}}
 
 
-def train_setup(config=TRAIN_CONFIG, micro_batch=None, **model_kw):
+# the train set-ups' random weights, drawn once a set-up: their phases
+# build an engine each from the same weights (the engine copies them
+# into its flat master), and drawing GPT-2-medium's or BERT-large's
+# takes seconds of host time
+_SETUP_WEIGHTS = {}
+
+
+def setup_weights(name, make, cfg):
+    """``make(cfg, SEED)`` for the set-up ``name``, drawn on its first
+    call; every config the set-up makes has the same weight shapes."""
+    if name not in _SETUP_WEIGHTS:
+        _SETUP_WEIGHTS[name] = make(cfg, SEED)
+    return _SETUP_WEIGHTS[name]
+
+
+def train_setup(config=TRAIN_CONFIG, micro_batch=None, mesh=None,
+                **model_kw):
     """The train phase's engine, model config and fixed batch on the
     card: GPT-2-medium at full width and depth, bench.py's GPT-2 leg
     (``bench.py:806-816``): seq 1024, micro-batch 8, dropout 0.1 at all
     three sites, Lamb lr 1e-4, ZeRO-2, bf16 (``config``: phase 17 swaps
     in fp16, phase 21 adds ``activation_checkpointing``), random weights
     from ``SEED`` and token ids from ``SEED + 1``.  ``micro_batch`` and
-    ``model_kw`` (``loss_chunk``) are phase 21's changes.
+    ``model_kw`` (``loss_chunk``) are phase 21's changes; ``mesh`` is
+    phase 30's data-parallel mesh.
     ``examples/profile_torch_train.py`` profiles this same set-up."""
     b = micro_batch or TRAIN_ATTN[0]
     s = TRAIN_ATTN[2]
     cfg = GPT2Config.gpt2_medium(embd_dropout=DROPOUT, attn_dropout=DROPOUT,
                                  resid_dropout=DROPOUT, **model_kw)
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
-        config=dict(config, train_batch_size=b))
+        model=GPT2LMHead(cfg),
+        model_parameters=setup_weights("train", random_params, cfg),
+        config=dict(config, train_batch_size=b), mesh=mesh)
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                    size=(b, s))
     return engine, cfg, {"input_ids": ids}
@@ -2062,7 +2102,7 @@ def bert_batch(rng, vocab, b, s, n_pred, attention_mask):
     return batch
 
 
-def bert_train_setup(config=TRAIN_CONFIG, **model_kw):
+def bert_train_setup(config=TRAIN_CONFIG, mesh=None, **model_kw):
     """The BERT train phase's engine, model config and fixed batch on the
     card: BERT-large at full width and depth (24 layers, hidden 1024, 16
     heads, vocab 30528), bench.py's headline leg: seq 128, micro-batch
@@ -2070,15 +2110,16 @@ def bert_train_setup(config=TRAIN_CONFIG, **model_kw):
     exactly 20 labels a row, NSP labels, dropout 0.1 at every site, Lamb
     lr 1e-4, ZeRO-2, bf16 (``config``: phase 18 swaps in fp16), random
     weights from ``SEED``; ``model_kw`` changes the model config (phase
-    22).  ``examples/profile_torch_train.py --bert`` profiles this
-    set-up."""
+    22); ``mesh`` is phase 30's.  ``examples/profile_torch_train.py
+    --bert`` profiles this set-up."""
     cfg = BertConfig.bert_large(**dict(
         dict(vocab_size=BERT_VOCAB, hidden_dropout_prob=DROPOUT,
              attention_probs_dropout_prob=DROPOUT,
              max_predictions_per_seq=BERT_PRED), **model_kw))
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
-        config=dict(config, train_batch_size=BERT_BATCH))
+        model=BertForPreTraining(cfg),
+        model_parameters=setup_weights("bert train", bert_params, cfg),
+        config=dict(config, train_batch_size=BERT_BATCH), mesh=mesh)
     batch = bert_batch(np.random.default_rng(SEED + 1), cfg.vocab_size,
                        BERT_BATCH, BERT_SEQ, BERT_PRED,
                        np.ones((BERT_BATCH, BERT_SEQ), np.int64))
@@ -3739,6 +3780,230 @@ def phase_offload_parity_cpu(results):
     return launches
 
 
+# ---------------------------------------------------------------------- dp
+DP_CPU_WORLD = 2
+DP_CPU_STEPS = 3
+DP_CPU_MODEL = dict(vocab_size=256, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position_embeddings=64,
+                    embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+DP_CPU_MICRO = 2
+DP_CPU_TIMEOUT_S = 180
+
+
+def build_dir():
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def dp_cpu_engine(mesh, world):
+    """The tiny GPT-2 (2 layers, hidden 64, fp32, dropout 0) under ZeRO-2,
+    Lamb, accumulation 2 and clipping 1.0 on the CPU, for the global
+    micro-batch of ``DP_CPU_MICRO`` x 2 rows over ``world`` ranks."""
+    cfg = GPT2Config(**DP_CPU_MODEL)
+    micro = DP_CPU_MICRO * DP_CPU_WORLD // world
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
+        config={"train_batch_size": micro * 2 * world,
+                "train_micro_batch_size_per_gpu": micro,
+                "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+                "steps_per_print": 10 ** 9,
+                "optimizer": {"type": "Lamb", "params": {"lr": 3e-3}},
+                "zero_optimization": {"stage": 2}},
+        mesh=mesh, device="cpu")
+    return engine
+
+
+def dp_cpu_batches():
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.integers(0, 256, size=(DP_CPU_MICRO * DP_CPU_WORLD, 32))
+            for _ in range(2 * DP_CPU_STEPS)]
+
+
+def dp_cpu_rank(rank, store, out_dir):
+    """One gloo rank of the dp=2 CPU check: ``DP_CPU_STEPS`` steps on its
+    rows of :func:`dp_cpu_batches`, then the losses and the gathered
+    master into ``out_dir``.  The rank then leaves without tearing the
+    gloo group down (its teardown can abort a rank whose peer closed its
+    sockets first); an exception exits 1."""
+    torch.set_num_threads(1)
+    init_distributed(init_method=f"file://{store}", world_size=DP_CPU_WORLD,
+                     rank=rank, device="cpu", timeout=60, verbose=False)
+    engine = dp_cpu_engine(make_mesh({DATA_AXIS: DP_CPU_WORLD}),
+                           DP_CPU_WORLD)
+    per = DP_CPU_MICRO
+    it = iter([{"input_ids": b[rank * per:(rank + 1) * per]}
+               for b in dp_cpu_batches()])
+    losses = [float(engine.train_batch(it)) for _ in range(DP_CPU_STEPS)]
+    master = engine.flat.gather_master_unpadded(engine.master)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             losses=np.asarray(losses), master=master)
+    dist.barrier()
+    os._exit(0)
+
+
+def dp_cpu_check(results):
+    """dp=2 on two gloo CPU processes of this machine's torch against one
+    CPU rank on the same global batches: losses to rtol 1e-5 and the
+    master's update to 1e-4 of its norm.  A rank that fails or outlasts
+    ``DP_CPU_TIMEOUT_S`` fails the phase."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=build_dir())
+    try:
+        store = os.path.join(out_dir, "store")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_cpu_rank, args=(r, store, out_dir),
+                             daemon=True) for r in range(DP_CPU_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_CPU_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * DP_CPU_WORLD,
+              f"dp cpu: the gloo ranks exited with {codes}")
+        ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
+                 for r in range(DP_CPU_WORLD)]
+        engine = dp_cpu_engine(None, 1)
+        start = engine.flat.gather_master_unpadded(engine.master)
+        it = iter([{"input_ids": b} for b in dp_cpu_batches()])
+        want = [float(engine.train_batch(it)) for _ in range(DP_CPU_STEPS)]
+        master = engine.flat.gather_master_unpadded(engine.master)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    got = ranks[0]["losses"].tolist()
+    check(ranks[1]["losses"].tolist() == got
+          and np.array_equal(ranks[1]["master"], ranks[0]["master"]),
+          "dp cpu: the two ranks disagree")
+    check(np.allclose(got, want, rtol=1e-5, atol=0),
+          f"dp cpu: dp=2 losses {got} vs one rank's {want}")
+    update_rel = float(np.linalg.norm(ranks[0]["master"] - master)
+                       / np.linalg.norm(master - start))
+    check(update_rel <= 1e-4, f"dp cpu: the master's update is {update_rel} "
+          f"from one rank's (relative norm)")
+    print(f"dp cpu (2 gloo ranks, tiny GPT-2, ZeRO-2, Lamb, accumulation "
+          f"2, clip 1.0, fp32; torch {torch.__version__}): dp=2 {got}, one "
+          f"rank {want}, master update rel err {update_rel:.3g}")
+    results["dp_cpu"] = {"dp2": got, "one_rank": want,
+                         "master_update_rel_err": update_rel}
+
+
+def exchange_times(engine):
+    """Device ms of the step's collectives replayed on the engine's own
+    buffers (median of 20 runs of 10, :func:`device_ms`): the gradient's
+    reduce-scatter in the exchange dtype and in fp32 (the dtype above
+    one rank), the compute params' all-gather, the step's stats
+    all-reduce."""
+    mesh = engine.mesh
+    grad32 = engine._grad.float()
+    shard32 = engine._gshard.float()
+    cast = engine.master.to(engine.compute_dtype)
+    stats = torch.zeros(3, device=engine.device)
+    return {
+        "reduce_scatter_ms": device_ms(lambda: comm.reduce_scatter(
+            engine._grad, DATA_AXIS, mesh=mesh, out=engine._gshard)),
+        "reduce_scatter_fp32_ms": device_ms(lambda: comm.reduce_scatter(
+            grad32, DATA_AXIS, mesh=mesh, out=shard32)),
+        "all_gather_ms": device_ms(lambda: comm.all_gather(
+            cast, DATA_AXIS, mesh=mesh, out=engine._compute)),
+        "stats_all_reduce_ms": device_ms(lambda: comm.psum(
+            stats, DATA_AXIS, mesh, out=stats))}
+
+
+def dp_run(label, setup, without_mesh, mesh):
+    """2 + 3 steps of ``setup``'s engine on ``mesh``: losses bitwise the
+    first five of ``without_mesh`` (the receipt of the phase that ran
+    the set-up without a mesh), its attention launches a step, and the
+    collectives a step; then the exchange's device times."""
+    want_losses = without_mesh["losses"]
+    want_launches = {k: n for k, n in
+                     without_mesh["launches_per_step"].items() if n}
+    engine, _, batch = setup(mesh=mesh)
+    check(engine._partitioned and engine.dp_world_size == 1,
+          f"{label}: the engine is not on the sharded path")
+    comm.counter.reset()
+    losses, step_s, launches = run_steps(label, engine, batch, 2, 3)
+    steps = 5
+    calls = dict(comm.counter.calls)
+    nbytes = dict(comm.counter.bytes)
+    check(losses == want_losses[:steps],
+          f"{label}: losses {losses} are not the run without a mesh's "
+          f"{want_losses[:steps]}")
+    check(want_launches and all(launches[k] == n * steps
+                                for k, n in want_launches.items())
+          and only_launched(launches, tuple(want_launches)),
+          f"{label}: launches {launches}, expected {want_launches} a step")
+    # a step: the micro-batch's reduce-scatter, the stats all-reduce,
+    # Lamb's one all-reduce of the per-tensor sums, the params' all-gather
+    check(calls == {"reduce_scatter": steps, "psum": 2 * steps,
+                    "all_gather": steps},
+          f"{label}: collectives {calls}, expected 1 reduce_scatter, 2 "
+          f"psum and 1 all_gather a step")
+    times = exchange_times(engine)
+    exchange_ms = (times["reduce_scatter_ms"] + times["all_gather_ms"]
+                   + times["stats_all_reduce_ms"])
+    params = sum(engine.segments.sizes)
+    flat = engine.segments.total
+    receipt = {
+        "losses": losses, "step_ms": 1e3 * step_s,
+        "collectives_per_step": {k: v / steps for k, v in calls.items()},
+        "bytes_per_step": {k: v / steps for k, v in nbytes.items()},
+        "exchange_ms_per_step": exchange_ms, **times,
+        # above one rank the gradient goes over in fp32: what a step
+        # would move, from the layout
+        "bytes_per_step_above_one_rank": {
+            "reduce_scatter": 4 * flat,
+            "all_gather": flat * engine._compute.element_size(),
+            "psum": 12},
+        "parameters": params,
+        "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return receipt, launches
+
+
+def phase_dp(card, results):
+    """NCCL at world size 1 through a ``file://`` store under ``build/``;
+    GPT-2-medium (phase 6's set-up) and BERT-large (phase 12's) through
+    ``initialize(mesh=make_mesh({"data": 1}))``, 2 + 3 steps each on the
+    sharded path: losses bitwise their phases' first five, the same
+    attention launches a step, the collectives, bytes and the exchange's
+    device ms a step; then dp=2 against one rank on two gloo CPU
+    processes (:func:`dp_cpu_check`).  The process group is torn down
+    before the CPU check, whose parent engine has no mesh."""
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_", dir=build_dir())
+    try:
+        init_distributed(init_method=f"file://{store_dir}/store",
+                         world_size=1, rank=0, device="cuda", timeout=300)
+        version = torch.cuda.nccl.version()
+        nccl = (".".join(str(v) for v in version)
+                if isinstance(version, tuple) else str(version))
+        print(f"dp: torch.distributed {dist.get_backend()} (NCCL {nccl}) "
+              f"at world size {dist.get_world_size()}")
+        mesh = make_mesh({DATA_AXIS: 1})
+        gpt2, gpt2_launches = dp_run("dp gpt2", train_setup,
+                                     results["train"], mesh)
+        bert, bert_launches = dp_run("dp bert", bert_train_setup,
+                                     results["bert_train"], mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    for label, r in (("GPT-2-medium, seq 1024, batch 8", gpt2),
+                     ("BERT-large, seq 128, batch 64", bert)):
+        print(f"dp receipt ({label}, bf16, Lamb, ZeRO-2, mesh data=1 on "
+              f"NCCL; {card}):", json.dumps(r))
+    dp_cpu_check(results)
+    results["dp"] = {"card": card, "nccl": nccl, "gpt2": gpt2, "bert": bert}
+    return {k: gpt2_launches[k] + bert_launches[k] for k in gpt2_launches}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3875,6 +4140,10 @@ def main(argv=None):
     # 29. offload, card against CPU
     offload_cpu_launches = phase_offload_parity_cpu(results)
     lap("offload_parity_cpu")
+    # 30. data parallelism: NCCL at world size 1, the sharded path
+    # bitwise phases 6 and 12; dp=2 on two gloo CPU processes
+    dp_launches = phase_dp(card, results)
+    lap("dp")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -3892,7 +4161,8 @@ def main(argv=None):
              "offload_parity": offload_parity_launches,
              "offload_large": offload_large_launches,
              "offload_xl": offload_xl_launches,
-             "offload_parity_cpu": offload_cpu_launches}
+             "offload_parity_cpu": offload_cpu_launches,
+             "dp": dp_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

@@ -6,7 +6,9 @@ package's module paths (``deepspeed_tpu_torch/<path>`` ports
 ``deepspeed_tpu``.  It serves and trains: ``InferenceEngine`` serves the
 GPT-2 family through a paged KV cache, and ``initialize`` builds the
 training engine (flat fp32 master, Adam/AdamW or Lamb, ZeRO stages 0–2
-at one rank, bf16, fp16 under the dynamic loss scaler, or fp32).
+at one rank or data-parallel over ``torch.distributed`` with
+``mesh=parallel.make_mesh({"data": n})``, bf16, fp16 under the dynamic
+loss scaler, or fp32).
 Attention runs on hand-written CUDA flash-attention kernels
 (``csrc/transformer/``): the forward, the dq and dk/dv backward kernels,
 the fused single-tile backward and in-kernel dropout.  ``checkpoint``

@@ -256,6 +256,14 @@ class BertForPreTraining(nn.Module):
         self.config = config
         self.bert = BertModel(config)
 
+    def sparse_gradient_paths(self):
+        """Leaves whose gradients are row-sparse (the engine's
+        ``sparse_gradients``): none.  The MLM decoder ties to the word
+        embeddings, so their gradient touches every vocab row, and the
+        2-row token-type table cannot beat its own exchange (JAX
+        ``bert.py:227-238``)."""
+        return ()
+
     def init(self, seed):
         """Random numpy params (:func:`random_params`)."""
         return random_params(self.config, seed)
@@ -319,6 +327,11 @@ class BertForQuestionAnsweringTPU(nn.Module):
         self.config = config
         self.bert = BertModel(config)
 
+    def sparse_gradient_paths(self):
+        """The untied word and token-type embeddings: only the batch's
+        token rows get gradient (JAX ``bert.py:330-333``)."""
+        return ("bert/embeddings/word", "bert/embeddings/token_type")
+
     def init(self, seed):
         """Random numpy params: the trunk and ``qa_outputs`` [h, 2]."""
         draw = _Draw(self.config, seed)
@@ -364,6 +377,11 @@ class BertForSequenceClassificationTPU(nn.Module):
         self.config = config
         self.num_labels = num_labels
         self.bert = BertModel(config)
+
+    def sparse_gradient_paths(self):
+        """The untied word and token-type embeddings: only the batch's
+        token rows get gradient (JAX ``bert.py:330-333``)."""
+        return ("bert/embeddings/word", "bert/embeddings/token_type")
 
     def init(self, seed):
         """Random numpy params: the trunk and ``classifier`` [h,

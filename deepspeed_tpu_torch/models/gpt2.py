@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..comm import data_parallel_mean_count
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from .layers import (TransformerLayer, cross_entropy_with_logits, dropout,
                      generator, layer_norm)
@@ -152,6 +153,13 @@ class GPT2LMHead(nn.Module):
             attn_dropout_checkpoint=c.attn_dropout_checkpoint,
             normalize_invertible=c.normalize_invertible)
 
+    def sparse_gradient_paths(self):
+        """Leaves whose gradients are row-sparse (the engine's
+        ``sparse_gradients``): none.  ``wte`` ties to the LM head, whose
+        backward touches every vocab row, and every ``wpe`` row is
+        touched each step (JAX ``gpt2.py:133-141``)."""
+        return ()
+
     def init(self, seed):
         """Random numpy params (:func:`random_params`)."""
         return random_params(self.config, seed)
@@ -216,7 +224,7 @@ class GPT2LMHead(nn.Module):
         total = sum(checkpoint(one, xc, lc, use_reentrant=False)
                     for xc, lc in zip(x.split(chunk, dim=1),
                                       labels.split(chunk, dim=1)))
-        return total / (labels != -100).sum().clamp_min(1)
+        return total / data_parallel_mean_count((labels != -100).sum())
 
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
         """Training loss of ``batch`` (``{"input_ids"[, "labels"]}`` or

@@ -21,6 +21,7 @@ import os
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..comm import data_parallel_mean_count
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
 from ..ops.sparse_attention.flash_block_sparse import (
@@ -326,11 +327,15 @@ class TransformerLayer:
 
 def cross_entropy_with_logits(logits, labels, ignore_index=-100):
     """Mean token cross entropy with masking; fp32 logsumexp.
-    ``labels == ignore_index`` positions contribute nothing."""
+    ``labels == ignore_index`` positions contribute nothing.  Under an
+    engine's data-parallel mesh the count is the global batch's
+    (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`), so the
+    ranks' losses average to the global batch's mean, as in the JAX
+    engine, where ranks count different labels."""
     logits = logits.float()
     mask = labels != ignore_index
     safe_labels = torch.where(mask, labels, 0)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe_labels[..., None].long())[..., 0]
     nll = (lse - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1)
+    return nll.sum() / data_parallel_mean_count(mask.sum())

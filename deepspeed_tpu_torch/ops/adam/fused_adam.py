@@ -53,10 +53,12 @@ class FusedAdam:
                 "beta2": float(g["betas"][1]),
                 "weight_decay": float(g["weight_decay"])}
 
-    def update(self, state, flat_master, flat_grads, hp, segments=None):
+    def update(self, state, flat_master, flat_grads, hp, segments=None,
+               shard=None):
         """One step on the flat buffer, in place: ``flat_master`` and the
         moments in ``state`` are overwritten.  ``flat_grads`` may be bf16;
-        the update runs in fp32."""
+        the update runs in fp32.  Adam is elementwise, so it runs on a
+        rank's rows (``shard``, under ZeRO-1/2) unchanged."""
         lr, beta1, beta2, wd = (hp["lr"], hp["beta1"], hp["beta2"],
                                 hp["weight_decay"])
         p = flat_master

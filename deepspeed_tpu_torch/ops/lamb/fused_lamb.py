@@ -11,7 +11,8 @@ step count and hyperparameters are host numbers.
 import torch
 
 from ..adam.fused_adam import AdamState
-from ..op_common import segment_l2_norms_rows, segment_row_bounds
+from ..op_common import (segment_row_bounds, segment_sq_sums_rows,
+                         sq_sums_to_norms)
 
 LambState = AdamState
 
@@ -39,7 +40,7 @@ class FusedLamb:
                               "max_coeff": max_coeff,
                               "min_coeff": min_coeff}]
         self.defaults = {"lr": lr, "betas": tuple(betas)}
-        self._layout = None  # (segments, device) -> row bounds, row ids
+        self._layout = None  # (segments, device, shard) -> bounds, row ids
 
     def init_state(self, flat_master):
         return LambState(exp_avg=torch.zeros_like(flat_master),
@@ -51,17 +52,25 @@ class FusedLamb:
                 "beta2": float(g["betas"][1]),
                 "weight_decay": float(g["weight_decay"])}
 
-    def _row_layout(self, segments, device):
-        """The segments' row bounds and row ids on ``device``, made on
-        the first step and kept."""
-        if self._layout is None or self._layout[:2] != (segments, device):
-            self._layout = (segments, device,
-                            segment_row_bounds(segments, device),
-                            segments.row_segment_ids(device))
-        return self._layout[2], self._layout[3]
+    def _row_layout(self, segments, device, shard):
+        """The segments' row bounds and row ids on ``device`` (on the
+        shard's rows), made on the first step and kept."""
+        key = (segments, device, shard)
+        if self._layout is None or self._layout[0] != key:
+            ids = segments.row_segment_ids()
+            if shard is not None:
+                ids = ids[shard.row0:shard.row0 + shard.rows]
+            self._layout = (key, segment_row_bounds(segments, device, shard),
+                            ids.to(device))
+        return self._layout[1], self._layout[2]
 
-    def update(self, state, flat_master, flat_grads, hp, segments=None):
-        """One step on the flat buffer, in place."""
+    def update(self, state, flat_master, flat_grads, hp, segments=None,
+               shard=None):
+        """One step on the flat buffer, in place.  Under ZeRO-1/2 the
+        buffers are one rank's rows (``shard``, a
+        :class:`~deepspeed_tpu_torch.ops.op_common.RowShard`): the
+        per-tensor sums of squares are summed over the ranks before the
+        trust ratios are taken."""
         if segments is None:
             raise ValueError("FusedLamb needs the segment descriptor for "
                              "per-tensor trust ratios")
@@ -84,9 +93,14 @@ class FusedLamb:
         update = m_hat.div_(denom) if m_hat is not state.exp_avg \
             else m_hat / denom
         update.add_(p, alpha=wd)
-        bounds, row_ids = self._row_layout(segments, p.device)
-        w_norms = segment_l2_norms_rows(p, segments, bounds)
-        u_norms = segment_l2_norms_rows(update, segments, bounds)
+        bounds, row_ids = self._row_layout(segments, p.device, shard)
+        sq = torch.cat([segment_sq_sums_rows(p, segments, bounds),
+                        segment_sq_sums_rows(update, segments, bounds)])
+        if shard is not None:
+            # a tensor's rows can straddle ranks: ONE all-reduce of the
+            # partial sums of both norms before the roots
+            sq = shard.reduce(sq)
+        w_norms, u_norms = sq_sums_to_norms(sq).split(segments.num_segments)
         # trust ratio per tensor: ||w||/||u||, clamped; 1 where degenerate;
         # pad rows (id num_segments) get 1 and multiply a zero update
         ratio = torch.where((w_norms > 0) & (u_norms > 0),

@@ -9,7 +9,7 @@ alignment is what the Lamb trust ratios and the checkpoint format rest
 on), so a flat buffer means the same thing in both packages.
 """
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -63,29 +63,56 @@ def build_segments(sizes, pad_to=1):
                     rows=row)
 
 
-def segment_row_bounds(segments, device=None):
+class RowShard(NamedTuple):
+    """The rows ``[row0, row0 + rows)`` of the flat buffer that one
+    data-parallel rank owns under ZeRO-1/2, and ``reduce``, which sums a
+    tensor in place over the ranks that own the rest (a tensor's rows
+    can straddle two ranks, so its per-tensor sums are partial)."""
+
+    row0: int
+    rows: int
+    reduce: Callable
+
+
+def segment_row_bounds(segments, device=None, shard=None):
     """(first row, one past the last row) of every tensor, as int64
     tensors on ``device``: made once, so a step copies no index to the
-    card."""
+    card.  With a :class:`RowShard` they are the tensor's rows inside the
+    shard, relative to its first row (empty where it lies outside)."""
     starts = torch.tensor(segments.row_offsets, dtype=torch.int64)
     ends = starts + torch.tensor(segments.row_counts, dtype=torch.int64)
+    if shard is not None:
+        starts = (starts - shard.row0).clamp(0, shard.rows)
+        ends = (ends - shard.row0).clamp(0, shard.rows)
     return starts.to(device), ends.to(device)
 
 
-def segment_l2_norms_rows(flat, segments, bounds=None):
-    """Per-tensor L2 norms of the (rows, LANES) buffer, using the row
-    alignment (every tensor owns whole rows; intra-row tail padding is
-    zero).  One lane-axis reduction, then each tensor's rows summed as a
-    difference of one float64 prefix sum: no scatter, no atomics, the
-    same answer every run, and a fixed handful of kernels however many
-    tensors there are (the JAX package sums a static slice per tensor).
-    ``bounds`` is :func:`segment_row_bounds` on ``flat``'s device."""
+def segment_sq_sums_rows(flat, segments, bounds=None):
+    """Per-tensor sums of squares (float64) of the (rows, LANES) buffer,
+    using the row alignment (every tensor owns whole rows; intra-row
+    tail padding is zero).  One lane-axis reduction, then each tensor's
+    rows summed as a difference of one float64 prefix sum: no scatter,
+    no atomics, the same answer every run, and a fixed handful of
+    kernels however many tensors there are (the JAX package sums a
+    static slice per tensor).  ``bounds`` is :func:`segment_row_bounds`
+    on ``flat``'s device; with a :class:`RowShard`'s bounds the sums are
+    over the shard's rows only."""
     starts, ends = (bounds if bounds is not None
                     else segment_row_bounds(segments, flat.device))
     row_sq = flat.float().square().sum(dim=1)
     prefix = torch.cat([row_sq.new_zeros(1, dtype=torch.float64),
                         row_sq.double().cumsum(0)])
-    return (prefix[ends] - prefix[starts]).clamp_min(0.0).sqrt().float()
+    return prefix[ends] - prefix[starts]
+
+
+def sq_sums_to_norms(sq):
+    return sq.clamp_min(0.0).sqrt().float()
+
+
+def segment_l2_norms_rows(flat, segments, bounds=None):
+    """Per-tensor L2 norms of the (rows, LANES) buffer: the roots of
+    :func:`segment_sq_sums_rows`."""
+    return sq_sums_to_norms(segment_sq_sums_rows(flat, segments, bounds))
 
 
 def random_keep(generator, shape, rate, device=None):

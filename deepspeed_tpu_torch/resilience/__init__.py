@@ -15,8 +15,8 @@ detect bad steps, recover, prove it.
   state bitflips).
 
 The fleet integrity plane (``integrity.py``: fingerprint consensus and
-the hang quorum) and the elastic supervisor need data parallelism and are
-ROADMAP A15's second half, after A5.  The exit codes and
+the hang quorum) and the elastic supervisor work across data-parallel
+ranks and are ROADMAP A15's second half.  The exit codes and
 :class:`TrainingDivergedError` live in :mod:`.constants`; the other
 modules load lazily.
 """

@@ -5,8 +5,8 @@ Parsed by :class:`~deepspeed_tpu_torch.runtime.config.DeepSpeedConfig`
 like every other block; the keys live in ``runtime/constants.py``, whose
 schema gives a misspelled key (``"polcy"``) a "did you mean 'policy'?".
 The integrity keys are parsed as the JAX package parses them, and
-``integrity: true`` raises: the fleet integrity plane needs data
-parallelism (ROADMAP A5, then A15's second half).
+``integrity: true`` raises: the fleet integrity plane across
+data-parallel ranks is ROADMAP A15's second half.
 """
 
 from ..runtime import constants as C
@@ -93,9 +93,8 @@ class DeepSpeedResilienceConfig:
         if self.integrity:
             raise NotImplementedError(
                 "resilience.integrity (fingerprint consensus and the hang "
-                "quorum across data-parallel ranks) is not ported yet: it "
-                "needs data parallelism (ROADMAP A5, then A15's second "
-                "half)")
+                "quorum across data-parallel ranks) is not ported yet "
+                "(ROADMAP A15's second half)")
 
     def __repr__(self):
         return (f"DeepSpeedResilienceConfig(enabled={self.enabled}, "

@@ -13,7 +13,9 @@ the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
 (:func:`get_progressive_layer_drop`), ``checkpoint``
 (:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
 and ``resilience``
-(:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`).
+(:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`)
+and ``sparse_gradients``; the engine reads ``mesh`` through
+:func:`get_mesh_config` before this parse, which needs its size.
 ``fp16`` gives ``loss_scale``, ``initial_dynamic_scale`` and
 ``dynamic_loss_scale_args`` as the JAX config does (``:40-97``).
 Unknown keys warn with a "did you mean" hint and raise under
@@ -26,6 +28,7 @@ import logging
 
 from ..checkpoint.config import DeepSpeedCheckpointConfig
 from ..resilience.config import DeepSpeedResilienceConfig
+from ..parallel.mesh import UNPORTED_AXES
 from . import constants as C
 from .activation_checkpointing.config import \
     DeepSpeedActivationCheckpointingConfig
@@ -67,7 +70,27 @@ def config_issues(param_dict):
             issues.append(f"config section '{key}' is set but the PyTorch "
                           f"port does not implement it yet (ROADMAP "
                           f"{C.UNPORTED_SECTIONS[key]}); it has no effect")
+        if key == C.MESH and isinstance(value, dict):
+            for ax, item in UNPORTED_AXES.items():
+                if int(value.get(ax, 1)) > 1:
+                    issues.append(f"mesh axis '{ax}' is {value[ax]} but the "
+                                  f"PyTorch port runs data parallelism only "
+                                  f"(ROADMAP {item}); building the mesh "
+                                  f"will raise")
     return issues
+
+
+def get_mesh_config(json_file_or_dict):
+    """The ``mesh`` block's axis sizes (JAX ``config.py:222-230``):
+    ``data`` defaults to -1 (the whole world), the others to 1."""
+    param_dict = (json_file_or_dict if isinstance(json_file_or_dict, dict)
+                  else load_config_json(json_file_or_dict))
+    mesh = dict(param_dict.get(C.MESH, {}))
+    mesh.setdefault(C.MESH_DATA, -1)
+    mesh.setdefault(C.MESH_MODEL, 1)
+    mesh.setdefault(C.MESH_PIPE, 1)
+    mesh.setdefault(C.MESH_SEQ, 1)
+    return mesh
 
 
 def get_progressive_layer_drop(param_dict):
@@ -247,6 +270,8 @@ class DeepSpeedConfig:
         self.pld_enabled = self.pld_params["enabled"]
         self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
         self.resilience_config = DeepSpeedResilienceConfig(param_dict)
+        self.sparse_gradients_enabled = bool(get_scalar_param(
+            param_dict, C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT))
 
     def _set_batch_related_parameters(self):
         """Solve the batch triple from any subset of it."""

@@ -210,9 +210,22 @@ SECTION_KEYS = {
 # blocks the port parses but does not implement yet -> ROADMAP item
 UNPORTED_SECTIONS = {
     "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
-    "mesh": "A5/A10", "pipeline": "A13", "profiling": "A12/A16",
+    "pipeline": "A13", "profiling": "A12/A16",
     "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
 }
+
+#############################################
+# Data parallelism: the "mesh" block (axis sizes; data -1 is the whole
+# torch.distributed world), the JAX package's :267-271.  Its axes other
+# than data are ROADMAP A10 (model, seq, expert) and A13 (pipe)
+#############################################
+MESH = "mesh"
+MESH_DATA = "data"
+MESH_MODEL = "model"
+MESH_PIPE = "pipe"
+MESH_SEQ = "seq"
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
 
 #############################################
 # Progressive Layer Drop (the JAX package's :254-262)
@@ -257,7 +270,7 @@ CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT = False
 # Resilience subsystem (deepspeed_tpu_torch/resilience): the "resilience"
 # block, keys and defaults of the JAX package's (:336-404).  The
 # integrity keys are parsed and refused when on: the fleet integrity
-# plane needs data parallelism (ROADMAP A5, A15's second half)
+# plane is ROADMAP A15's second half
 #############################################
 RESILIENCE = "resilience"
 RESILIENCE_ENABLED = "enabled"

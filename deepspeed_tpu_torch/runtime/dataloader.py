@@ -3,9 +3,12 @@
 ``RepeatingLoader`` restarts an iterator on ``StopIteration``;
 ``DeepSpeedDataLoader`` batches a map-style or iterable dataset into
 micro-batches of host (numpy) arrays, with the sampler cursor
-``(epoch, samples_yielded)`` that a resumed run re-enters.  One process
-feeds the one card here; splitting batches over data-parallel processes
-is ROADMAP A5.
+``(epoch, samples_yielded)`` that a resumed run re-enters.  Under data
+parallelism every process iterates the dataset in the same seeded order
+and keeps its contiguous slice of each global micro-batch (JAX
+``dataloader.py:61-205``, the reference's ``DistributedSampler`` made
+batch-wise); the cursor counts global samples, so a run resumes at
+another data-parallel degree.
 """
 
 import numpy as np
@@ -45,15 +48,23 @@ def _stack_samples(samples):
 
 class DeepSpeedDataLoader:
     """Batches a dataset (a sequence, a torch ``Dataset`` or an iterable
-    of samples) into micro-batches of ``batch_size``; a seeded shuffle
+    of samples) into global micro-batches of ``batch_size`` (the
+    micro-batch per rank × ``data_parallel_world_size``), of which this
+    process yields its ``data_parallel_rank``-th slice; a seeded shuffle
     makes an epoch's order a pure function of ``(seed, epoch)``."""
 
     def __init__(self, dataset, batch_size, collate_fn=None, shuffle=False,
-                 seed=0, drop_last=True, data_parallel_world_size=1):
-        if data_parallel_world_size != 1:
-            raise NotImplementedError(
-                "splitting batches over data-parallel processes is not "
-                "ported yet (ROADMAP A5)")
+                 seed=0, drop_last=True, data_parallel_world_size=1,
+                 data_parallel_rank=0):
+        world = max(int(data_parallel_world_size), 1)
+        if not 0 <= data_parallel_rank < world:
+            raise ValueError(f"data_parallel_rank {data_parallel_rank} is "
+                             f"outside a world of {world}")
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} does not split over "
+                             f"{world} data-parallel processes")
+        self.world = world
+        self.rank = data_parallel_rank
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or _stack_samples
@@ -120,8 +131,17 @@ class DeepSpeedDataLoader:
             samples.append(sample)
             if len(samples) == self.batch_size:
                 self.samples_yielded += self.batch_size
-                yield self.collate_fn(samples)
+                yield self.collate_fn(self._process_slice(samples))
                 samples = []
         if samples and not self.drop_last:
-            self.samples_yielded += len(samples)
-            yield self.collate_fn(samples)
+            # a ragged tail splits only in whole rows a process
+            keep = len(samples) // self.world * self.world
+            if keep:
+                self.samples_yielded += keep
+                yield self.collate_fn(self._process_slice(samples[:keep]))
+
+    def _process_slice(self, samples):
+        """This process's contiguous slice of one global batch's
+        samples."""
+        per = len(samples) // self.world
+        return samples[self.rank * per:(self.rank + 1) * per]

@@ -86,10 +86,34 @@ checkpoint that either package wrote, at any ZeRO stage 0–2 and any
 data-parallel degree, and resumes the step counters (so the dropout
 streams), the LR schedule and the dataloader's cursor.
 
+Data parallelism (``initialize(mesh=make_mesh({"data": n}))``, an
+``mpu``, or a ``mesh`` config block; JAX ``:195-230``, ``:1896-1913``,
+``:2947-2985``): one process per rank over ``torch.distributed`` (NCCL
+on the card, gloo on the CPU), each on its slice of the global batch
+with its own dropout streams.  The loss is each rank's mean over its
+slice, and the gradient the mean over the ranks, summed in fp32 above
+one rank or under accumulation (the JAX rule: the flat gradient keeps
+the compute dtype only where nothing sums into it).  Stage 0
+all-reduces the flat gradient at the accumulation boundary and updates
+the whole master on every rank.
+Stages 1 and 2 reduce-scatter it onto the rank that owns its rows (stage
+1 at the boundary, stage 2 after every micro-batch, accumulating only
+the rank's rows), update the rank's rows of the master and the optimizer
+state, and rebuild the compute params with one all-gather in the compute
+dtype.  The step's one host sync becomes global: the overflow flag, the
+loss and the gradient's sum of squares go through ONE all-reduce first,
+so every rank clips by the global norm and takes the same skip, scale
+and guard decision.  Under ``sparse_gradients`` (stage 0) a model's
+declared embedding leaves go through the row-sparse exchange
+(:mod:`~deepspeed_tpu_torch.runtime.csr_tensor`).  Checkpoints gather the
+master and the moments unpadded; rank 0 writes them, and the ``latest``
+pointer and retention with them; a load re-pads onto every rank's rows.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-data parallelism over ``torch.distributed`` (A5), ZeRO-3 and its
-offload (A8), 1-bit Adam (A14), telemetry (A12), and resilience's fleet
-integrity plane and elastic supervisor (A15's second half).
+ZeRO-3 and ``overlap_comm`` buckets (A8), offload above one rank (A9),
+1-bit Adam (A14), telemetry (A12), tensor, sequence and expert
+parallelism (A10), pipeline (A13), and resilience's fleet integrity
+plane and elastic supervisor (A15's second half).
 """
 
 import dataclasses
@@ -102,6 +126,7 @@ import time
 import numpy as np
 import torch
 
+from .. import comm
 from ..checkpoint import writer as ckpt
 from ..checkpoint.constants import (CLIENT_STATE_PKL, LATEST_FILE,
                                     META_JSON, OPTIM_STATES_NPZ)
@@ -112,6 +137,9 @@ from ..models.layers import mix_seed
 from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
+from ..ops.op_common import LANES
+from ..parallel.mesh import (DATA_AXIS, Mesh, current_mesh, make_mesh,
+                             refuse_unported_axes)
 from ..profiling.step_profiler import StepLatencyRing
 from ..resilience.constants import TrainingDivergedError
 from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
@@ -119,9 +147,11 @@ from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
 from ..resilience.rollback import RollbackManager
 from ..resilience.watchdog import StepWatchdog
 from ..utils.device import resolve_device
+from ..utils.distributed import get_world_size, init_distributed
 from ..utils.params import tree_leaves
 from . import constants as C
-from .config import DeepSpeedConfig
+from .config import DeepSpeedConfig, get_mesh_config
+from .csr_tensor import CSRTensor, csr_allreduce
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import DynamicScaleState, update_scale_state
 from .activation_checkpointing import checkpointing as ds_checkpointing
@@ -138,12 +168,23 @@ logger = logging.getLogger(__name__)
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None, device=None, auto_resume=False):
+               config_params=None, mesh=None, device=None,
+               auto_resume=False):
     """Build the training engine.  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``, as the JAX package does.
     ``model_parameters`` is the param tree (numpy or tensor leaves); the
     model's ``init(seed)`` makes one when it is None.  ``device=None``
-    trains on CUDA and raises without it.
+    trains on CUDA (``cuda:LOCAL_RANK`` under a process group) and raises
+    without it.  ``mesh``
+    (:func:`~deepspeed_tpu_torch.parallel.mesh.make_mesh`) trains
+    data-parallel over its ``data`` axis, every rank calling
+    ``initialize`` alike; so does an ``mpu``, or a ``mesh`` config block
+    (default ``{"data": -1}``: the whole world) once a process group of
+    more than one process is up, which ``initialize`` joins from the
+    launcher's environment
+    (:func:`~deepspeed_tpu_torch.utils.distributed.init_distributed`)
+    unless ``dist_init_required=False``.  A world of one process trains
+    without a mesh unless one is passed.
 
     With ``auto_resume=True`` the engine restores the latest committed
     checkpoint under ``resilience.checkpoint_dir`` through its ``latest``
@@ -155,7 +196,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         model_parameters=model_parameters, training_data=training_data,
         lr_scheduler=lr_scheduler, mpu=mpu,
         dist_init_required=dist_init_required, collate_fn=collate_fn,
-        config=config, config_params=config_params, device=device)
+        config=config, config_params=config_params, mesh=mesh,
+        device=device)
     if auto_resume:
         load_dir = engine.resilience_config.checkpoint_dir
         if load_dir is None:
@@ -174,13 +216,14 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 class DeepSpeedEngine:
-    """The training engine at one data-parallel rank."""
+    """The training engine: one data-parallel rank of ``mesh`` (of a
+    world of one without it)."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, mpu=None, dist_init_required=None,
                  collate_fn=None, config=None, config_params=None,
-                 device=None):
+                 mesh=None, device=None):
         if model is None:
             raise ValueError("initialize requires a model")
         config = config if config is not None else config_params
@@ -189,16 +232,34 @@ class DeepSpeedEngine:
         if config is None:
             raise ValueError("DeepSpeed requires --deepspeed_config, a config "
                              "dict, or config_params")
-        if mpu is not None and mpu.get_data_parallel_world_size() != 1:
-            raise NotImplementedError(
-                "data parallelism over torch.distributed is not ported yet "
-                "(ROADMAP A5)")
-        self._config = DeepSpeedConfig(config)
+        if dist_init_required or dist_init_required is None:
+            init_distributed(device=device)
+        if mesh is None and mpu is not None:
+            mesh = Mesh.from_mpu(mpu)
+        if mesh is None and get_world_size() > 1:
+            mesh = make_mesh(get_mesh_config(config))
+        if mesh is not None:
+            refuse_unported_axes(mesh.shape)
+        self.mesh = mesh
+        dp = mesh.size(DATA_AXIS) if mesh is not None else 1
+        self.dp_world_size = dp
+        self.dp_rank = mesh.index(DATA_AXIS) if mesh is not None else 0
+        self.mp_world_size = 1
+        self._config = DeepSpeedConfig(config, world_size=dp)
         zc = self._config.zero_config
         self._offload = zc.cpu_offload
         if self._offload and self._config.zero_optimization_stage >= 3:
             raise NotImplementedError("ZeRO-3 with cpu_offload is not "
                                       "ported yet (ROADMAP A8)")
+        if self._offload and dp > 1:
+            raise NotImplementedError(
+                "ZeRO-Offload with the host state sharded over "
+                "data-parallel ranks is not ported yet (ROADMAP A9); it "
+                "runs at one rank")
+        if zc.overlap_comm is True and dp > 1:
+            raise NotImplementedError(
+                "overlap_comm (the bucketed gradient exchange) is not "
+                "ported yet (ROADMAP A8); set it to false or \"auto\"")
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -234,11 +295,16 @@ class DeepSpeedEngine:
                 mcfg.remat = True
                 logger.info("activation checkpointing enabled from config")
 
+        self._sparse_paths = self._configure_sparse_gradients(model)
         params0 = (model_parameters if model_parameters is not None
                    else model.init(self._config.seed))
         self.flat = FlatParamCoordinator(
-            params0, stage=self._config.zero_optimization_stage)
+            params0, stage=self._config.zero_optimization_stage,
+            dp_size=dp, dp_rank=self.dp_rank,
+            mesh=None if self._offload else mesh)
         self.segments = self.flat.segments
+        self._partitioned = self.flat.partitioned
+        self._row_shard = self.flat.row_shard()
         self.optimizer = self._configure_basic_optimizer(optimizer)
         if self._offload:
             self._build_offload(params0)
@@ -262,27 +328,41 @@ class DeepSpeedEngine:
         grads = self.flat.unflatten_params(self._grad)
         _attach_grads(self.params, grads)
         acc = self.gradient_accumulation_steps()
+        # the JAX rule: the gradient keeps the compute dtype only where
+        # nothing sums into it (one rank, no accumulation); the exchange
+        # and the accumulation sum in fp32
+        summed = acc > 1 or dp > 1
+        stage2 = self._partitioned and self._config.zero_optimization_stage \
+            == 2
         self._acc = (torch.zeros(self.flat.flat_shape, dtype=torch.float32,
                                  device=self.device)
-                     if acc > 1 and self.compute_dtype != torch.float32
-                     else None)
+                     if summed and not stage2
+                     and self.compute_dtype != torch.float32 else None)
+        # the rank's rows of the reduced gradient, in the exchange's
+        # dtype (stage 2 accumulates the micro-batches there)
+        self._gshard = (torch.zeros(
+            self.flat.shard_shape,
+            dtype=torch.float32 if summed else self.compute_dtype,
+            device=self.device) if self._partitioned else None)
+        self._step_loss = None
+        self._step_tokens = 0   # the step's input tokens on this rank
         self._in_train_batch = False
         self._refresh_params()
 
         self.training_dataloader = None
         if training_data is not None:
+            # the global micro-batch, of which this rank keeps its slice
             self.training_dataloader = DeepSpeedDataLoader(
-                training_data, self.train_micro_batch_size_per_gpu(),
-                collate_fn=collate_fn, seed=self._config.seed)
+                training_data, self.train_micro_batch_size_per_gpu() * dp,
+                collate_fn=collate_fn, seed=self._config.seed,
+                data_parallel_world_size=dp,
+                data_parallel_rank=self.dp_rank)
         self._train_iter = None
         self.global_steps = 0
         self.micro_steps = 0
         self.global_samples = 0
         self._losses = []
         self._step_seconds = []
-        # one rank: the values a checkpoint records for the JAX mesh
-        self.dp_world_size = 1
-        self.mp_world_size = 1
 
         self.checkpoint_config = self._config.checkpoint_config
         self._ckpt_manager = CheckpointManager(self.checkpoint_config)
@@ -292,11 +372,12 @@ class DeepSpeedEngine:
                 self._preemption_save)
         self._build_resilience()
         logger.info("engine on %s: %d parameters in %d tensors, flat %s, "
-                    "compute %s, optimizer %s, ZeRO stage %d", self.device,
+                    "compute %s, optimizer %s, ZeRO stage %d, data-parallel "
+                    "rank %d of %d", self.device,
                     sum(self.segments.sizes), self.segments.num_segments,
                     self.flat.flat_shape, self.compute_dtype,
                     type(self.optimizer).__name__,
-                    self._config.zero_optimization_stage)
+                    self._config.zero_optimization_stage, self.dp_rank, dp)
 
     # ------------------------------------------------------------ config
     def train_batch_size(self):
@@ -376,6 +457,40 @@ class DeepSpeedEngine:
             raise NotImplementedError("1-bit Adam is not ported yet (ROADMAP "
                                       "A14)")
         raise ValueError(f"Unknown optimizer {name!r}")
+
+    def _configure_sparse_gradients(self, model):
+        """The leaves whose gradients exchange row-sparse under
+        ``sparse_gradients`` (JAX ``engine.py:280-304``): the model's
+        ``sparse_gradient_paths()``, at ZeRO stage 0 only (the sharded
+        stages cannot carry a row-sparse exchange) and not under fp16
+        (its overflow skip would swallow the budget-overflow poison)."""
+        cfg = self._config
+        if not cfg.sparse_gradients_enabled:
+            return ()
+        if cfg.zero_optimization_stage != 0:
+            raise ValueError(
+                f"sparse_gradients: true requires ZeRO stage 0, got "
+                f"stage={cfg.zero_optimization_stage}: the row-sparse "
+                f"(indices, values) exchange cannot ride a sharded flat "
+                f"parameter space.  Disable sparse_gradients or set "
+                f"zero_optimization.stage: 0.")
+        if cfg.fp16_enabled:
+            raise ValueError(
+                "sparse_gradients does not compose with fp16 loss scaling "
+                "(overflow-skip would mask budget-overflow detection); use "
+                "bf16 or fp32")
+        paths = tuple(getattr(model, "sparse_gradient_paths", tuple)())
+        logger.info("sparse_gradients: embedding leaves %s exchange as "
+                    "row-sparse (indices, values) pairs over the data axis",
+                    paths or "(none declared)")
+        return paths
+
+    def sparse_gradients_enabled(self):
+        return self._config.sparse_gradients_enabled
+
+    def sparse_gradient_paths(self):
+        """The leaves whose gradients take the row-sparse exchange."""
+        return self._sparse_paths
 
     def _configure_lr_scheduler(self, client_scheduler):
         if client_scheduler is not None:
@@ -642,10 +757,16 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------- state
     def _refresh_params(self):
         """Cast the master into the compute params (in place: the param
-        dict's views see it); under offload, from the host master."""
+        dict's views see it); under offload, from the host master;
+        partitioned, each rank casts its rows and one all-gather in the
+        compute dtype assembles them (JAX ``_gather_cast_leaves``,
+        ``engine.py:2947-2985``)."""
         with torch.no_grad():
             if self._offload:
                 self._params_from_host()
+            elif self._partitioned:
+                comm.all_gather(self.master.to(self.compute_dtype),
+                                DATA_AXIS, mesh=self.mesh, out=self._compute)
             else:
                 self._compute.copy_(self.master)
 
@@ -671,7 +792,8 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """The training loss of one micro-batch, with its graph (call
         :meth:`backward` on it).  Dropout draws from streams seeded by the
-        config ``seed`` and the micro-step count.  Under Progressive
+        config ``seed``, the micro-step count and, above rank 0, the
+        data-parallel rank.  Under Progressive
         Layer Drop the model also gets ``pld_theta``, θ as a 0-d fp32
         tensor on the device."""
         if self._offload and self._offload_grads \
@@ -680,70 +802,175 @@ class DeepSpeedEngine:
                 "offload_gradients supports only train_batch() (the "
                 "step-wise forward/backward API is not its path)")
         rng = mix_seed(self._config.seed, self.micro_steps)
+        if self.dp_rank:
+            # each rank its own streams; rank 0 draws the one-rank ones
+            rng = mix_seed(rng, self.dp_rank)
         kwargs = {}
         if self.progressive_layer_drop is not None:
             kwargs["pld_theta"] = self._to_device(torch.tensor(
                 self.progressive_layer_drop.get_theta(),
                 dtype=torch.float32))
-        return self._loss_fn(self.params, self._to_device(batch), rng=rng,
-                             train=True, **kwargs)
+        if self._sparse_paths and isinstance(batch, dict) \
+                and "input_ids" in batch:
+            self._step_tokens += int(np.prod(np.shape(batch["input_ids"])))
+        return self._loss(batch, rng=rng, train=True, **kwargs)
 
     __call__ = forward
 
+    def _loss(self, batch, **kwargs):
+        """The model's loss on ``batch``, with the engine's mesh current
+        for the call only: a loss that counts items (labels, unmasked
+        keys) divides by the global batch's count through it
+        (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`), a
+        collective that the engine's callers make on every rank."""
+        with current_mesh(self.mesh):
+            return self._loss_fn(self.params, self._to_device(batch),
+                                 **kwargs)
+
     def backward(self, loss):
-        """Gradients of ``loss`` × the loss scale / accumulation steps
-        into the flat gradient buffer (fp32-accumulated across
-        micro-batches under bf16 or fp16 with accumulation).  The scale is
-        1 without fp16, and then no multiply is made."""
+        """Gradients of ``loss`` × the loss scale / (accumulation steps ×
+        data-parallel ranks) into the flat gradient buffer
+        (fp32-accumulated across micro-batches under bf16 or fp16 with
+        accumulation, and above one rank).  The scale is 1 without fp16,
+        and then no multiply is made.  Under ZeRO-2 the micro-batch's
+        gradient is reduce-scattered here onto its owners' rows."""
         scaled = loss.float()
         if self._config.fp16_enabled:
             scaled = scaled * self._scale_state.cur_scale
-        (scaled / self.gradient_accumulation_steps()).backward()
-        if self._acc is not None:
+        (scaled / (self.gradient_accumulation_steps()
+                   * self.dp_world_size)).backward()
+        if self._partitioned and self._config.zero_optimization_stage == 2:
+            self._reduce_scatter_grad(
+                accumulate=self.gradient_accumulation_steps() > 1)
+            self._grad.zero_()
+        elif self._acc is not None:
             self._acc.add_(self._grad)
             self._grad.zero_()
         self._losses.append(loss.detach())
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu()
+        self.global_samples += (self.train_micro_batch_size_per_gpu()
+                                * self.dp_world_size)
         return loss
+
+    def _reduce_scatter_grad(self, accumulate):
+        """The summed gradient's rows this rank owns, into ``_gshard``
+        (added to it with ``accumulate``): the full flat gradient, in
+        ``_gshard``'s dtype, reduce-scattered over the data axis."""
+        src = self._acc if self._acc is not None else self._grad
+        src = src.to(self._gshard.dtype)
+        if accumulate:
+            self._gshard.add_(comm.reduce_scatter(src, DATA_AXIS,
+                                                  mesh=self.mesh))
+        else:
+            comm.reduce_scatter(src, DATA_AXIS, mesh=self.mesh,
+                                out=self._gshard)
+
+    def _exchange_gradient(self):
+        """The step's gradient after the exchange (JAX ``engine.py:1896-1913``
+        for the dtype): this rank's rows of the sum over the ranks
+        (stages 1, 2), or the whole sum on every rank (stage 0; declared
+        embedding leaves row-sparse under ``sparse_gradients``); the
+        local gradient without a mesh."""
+        if self._partitioned:
+            if self._config.zero_optimization_stage == 1:
+                self._reduce_scatter_grad(accumulate=False)
+            return self._gshard
+        g = self._acc if self._acc is not None else self._grad
+        if self.mesh is None:
+            return g
+        if not self._sparse_paths:
+            return comm.psum(g, DATA_AXIS, self.mesh, out=g)
+        return self._sparse_exchange(g)
+
+    def _sparse_exchange(self, g):
+        """Stage 0 under ``sparse_gradients`` (JAX ``engine.py:2789-2870``):
+        every declared leaf's gradient goes through the row-sparse
+        all-gather with a budget of the step's tokens a rank (the support
+        of an embedding lookup's gradient), and the rows between them
+        through all-reduces.  A leaf whose gradient has more non-zero
+        rows than the budget (a tied head: its gradient is dense) is
+        poisoned with NaN on every rank, so the step fails loudly
+        instead of training on truncated gradients."""
+        view = g.view(-1)
+        bounds, dense_from = [], 0
+        _, leaves = tree_leaves(self.flat.unflatten_params(g))
+        for i, (path, leaf) in enumerate(zip(self.flat.paths, leaves)):
+            if ("/".join(path) not in self._sparse_paths or leaf.dim() != 2
+                    or not 0 < self._step_tokens < leaf.shape[0]):
+                continue
+            ro = self.segments.row_offsets[i]
+            bounds.append((dense_from * LANES, ro * LANES))
+            dense_from = ro + self.segments.row_counts[i]
+            csr, dropped = CSRTensor.from_dense(
+                leaf, max_rows=self._step_tokens, return_dropped=True)
+            summed = csr_allreduce(csr, DATA_AXIS, self.mesh)
+            dropped = comm.psum(dropped.float(), DATA_AXIS, self.mesh)
+            leaf.copy_(summed + torch.where(dropped > 0, float("nan"),
+                                            0.0).to(summed.dtype))
+        bounds.append((dense_from * LANES, view.numel()))
+        for lo, hi in bounds:
+            if hi > lo:
+                part = view[lo:hi]
+                comm.psum(part, DATA_AXIS, self.mesh, out=part)
+        return g
 
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
 
     def step(self):
-        """At the accumulation boundary: clip by global norm, update the
-        master in fp32, cast it into the compute params, step the LR
-        schedule.  Under fp16 or resilience the flat gradient is checked
-        first, in the step's one batched fetch, and a non-finite one skips
-        the update (and the LR step); fp16 unscales before clipping and
-        moves a dynamic scale after; the anomaly guard then sees the
-        step."""
+        """At the accumulation boundary: exchange the gradient over the
+        data-parallel ranks, clip by global norm, update the master (this
+        rank's rows of it under ZeRO-1/2) in fp32, cast it into the
+        compute params, step the LR schedule.  Under fp16 or resilience
+        the gradient is checked for a non-finite value in the step's one
+        batched fetch, and a non-finite one skips the update (and the LR
+        step); fp16 unscales before clipping and moves a dynamic scale
+        after; the anomaly guard then sees the step.  Under a mesh the
+        flag, the loss and the gradient's sum of squares go through one
+        all-reduce before that fetch, so every rank decides alike."""
         if not self.is_gradient_accumulation_boundary():
             return
-        g = self._acc if self._acc is not None else self._grad
         overflow, mean_loss = False, None
-        if self._skip_bad:
-            # the one host sync of the step: the overflow flag and the
-            # mean loss in one copy
-            flag = torch.logical_not(torch.isfinite(g).all()).float()
-            fetched = torch.stack(
-                [flag, torch.stack(self._losses).float().mean()]).tolist()
-            overflow, mean_loss = bool(fetched[0]), fetched[1]
         with torch.no_grad():
+            g = self._exchange_gradient()
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            flag = (torch.logical_not(torch.isfinite(g).all()).float()
+                    if self._skip_bad else zero)
+            loss = torch.stack(self._losses).float().mean()
+            # an overflowed step discards g, so unscaling first is safe
+            g = self._unscale(g)
+            clip = float(self.gradient_clipping() or 0.0)
+            norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
+                    if clip > 0.0 else None)
+            if self.mesh is not None:
+                # a sharded gradient's norm is the root of the ranks'
+                # summed squares; stage 0's is whole on every rank
+                sharded = norm is not None and self._partitioned
+                stats = comm.psum(
+                    torch.stack([flag, loss, norm * norm if sharded
+                                 else zero]), DATA_AXIS, self.mesh)
+                flag, loss = stats[0], stats[1] / self.dp_world_size
+                if sharded:
+                    norm = stats[2].sqrt()
+            self._step_loss = loss
+            if self._skip_bad:
+                # the one host sync of the step: the overflow flag and the
+                # mean loss in one copy
+                fetched = torch.stack([flag, loss]).tolist()
+                overflow, mean_loss = fetched[0] > 0, fetched[1]
             if not overflow:
-                g = self._unscale(g)
-                clip = float(self.gradient_clipping() or 0.0)
-                if clip > 0.0:
-                    gnorm = torch.linalg.vector_norm(g, dtype=torch.float32)
-                    coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+                if norm is not None:
+                    coef = torch.clamp(clip / (norm + 1e-6), max=1.0)
                     g = g * coef.to(g.dtype)
                 if self._offload:
                     # writes the compute params chunk by chunk
                     self._offload_update(g)
                 else:
+                    shard = ({"shard": self._row_shard}
+                             if self._partitioned else {})
                     self.optimizer.update(self.opt_state, self.master, g,
                                           self.optimizer.hyperparams(),
-                                          segments=self.segments)
+                                          segments=self.segments, **shard)
             if not self._offload or overflow:
                 # after a skipped step too: the compute params are the
                 # master's cast, whatever wrote into them (an offload
@@ -752,6 +979,9 @@ class DeepSpeedEngine:
             self._grad.zero_()
             if self._acc is not None:
                 self._acc.zero_()
+            if self._partitioned and self.gradient_accumulation_steps() > 1:
+                self._gshard.zero_()
+            self._step_tokens = 0
         if self.dynamic_loss_scale_enabled:
             args = self._scale_args
             self._scale_state = update_scale_state(
@@ -778,7 +1008,7 @@ class DeepSpeedEngine:
         if self.global_steps % self.steps_per_print() == 0:
             if mean_loss is None:
                 # the print cadence's one host sync
-                mean_loss = float(torch.stack(self._losses).float().mean())
+                mean_loss = float(self._step_loss)
             msg = (f"step={self.global_steps}, skipped={self._skipped}, "
                    f"lr={self.get_lr()[0]:.6g}, loss={mean_loss:.5f}, "
                    f"loss_scale={self.loss_scale}")
@@ -809,8 +1039,10 @@ class DeepSpeedEngine:
     def train_batch(self, data_iter=None):
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches drawn from ``data_iter`` (default: the training
-        dataloader, repeated).  Returns the mean loss as a device tensor;
-        without fp16 and resilience it fetches nothing from the card
+        dataloader, repeated; under a mesh, this rank's micro-batches).
+        Returns the mean loss as a device tensor (over every rank's
+        micro-batches under a mesh); without fp16 and resilience it
+        fetches nothing from the card
         (see :meth:`step`).  Under
         ``wall_clock_breakdown`` the step is timed between two
         synchronizations, which the log reports at the print cadence."""
@@ -842,33 +1074,45 @@ class DeepSpeedEngine:
             torch.cuda.synchronize(self.device)
             self._step_seconds.append(time.perf_counter() - t0)
         self.step()
-        return torch.stack(losses).float().mean()
+        return self._step_loss
 
     def eval_batch(self, batch):
         """Loss with ``train=False`` on one batch, or the mean over
-        ``gradient_accumulation_steps`` batches drawn from an iterator."""
+        ``gradient_accumulation_steps`` batches drawn from an iterator;
+        under a mesh, each rank's batch is its slice and a loss (a 0-d
+        result) is averaged over the ranks."""
         with torch.no_grad():
             if not hasattr(batch, "__next__"):
-                return self._loss_fn(self.params, self._to_device(batch),
-                                     rng=None, train=False)
+                return self._rank_mean(self._loss(batch, rng=None,
+                                                  train=False))
             losses = []
             for _ in range(max(1, self.gradient_accumulation_steps())):
                 try:
                     item = next(batch)
                 except StopIteration:
                     break
-                losses.append(self._loss_fn(self.params,
-                                            self._to_device(item), rng=None,
-                                            train=False))
+                losses.append(self._loss(item, rng=None, train=False))
             if not losses:
                 raise ValueError("eval_batch received an exhausted iterator")
-            return torch.stack(losses).mean(dim=0)
+            return self._rank_mean(torch.stack(losses).mean(dim=0))
+
+    def _rank_mean(self, out):
+        """A 0-d loss averaged over the data-parallel ranks; anything
+        else (logits) as it is."""
+        if self.mesh is None or not isinstance(out, torch.Tensor) \
+                or out.dim() != 0:
+            return out
+        return comm.pmean(out.float(), DATA_AXIS, self.mesh)
 
     def get_master_params(self):
         """The fp32 master as a param dict (views of the flat buffer; of
-        an fp32 copy where the host master is stored reduced)."""
+        an fp32 copy where the host master is stored reduced, or of the
+        ranks' rows gathered under ZeRO-1/2, which every rank calls)."""
         self._sync_host()
-        return self.flat.unflatten_params(self.master.float())
+        master = self.master.float()
+        if self._partitioned:
+            master = comm.all_gather(master, DATA_AXIS, mesh=self.mesh)
+        return self.flat.unflatten_params(master)
 
     # -------------------------------------------------------- checkpoints
     def _params_to_host(self):
@@ -886,11 +1130,16 @@ class DeepSpeedEngine:
         layout.  The device->host gather happens here; with
         ``checkpoint.async_save`` (the default) serialization and the
         atomic commit run on a background thread and training resumes at
-        once.  ``sync=True`` commits inline for this call."""
+        once.  ``sync=True`` commits inline for this call.  Under a mesh
+        every rank calls it (the master and the moments are gathered
+        from every rank's rows) and rank 0 alone writes, moving the
+        ``latest`` pointer and applying retention."""
         tag = tag or f"global_step{self.global_steps}"
         snapshot = capture_engine_snapshot(self, tag, client_state,
                                            save_latest)
         self._last_ckpt_dir = save_dir
+        if self.dp_rank != 0:
+            return True
         async_save = (self.checkpoint_config.async_save if sync is None
                       else not sync)
         ok = self._ckpt_manager.save(snapshot, save_dir,
@@ -907,8 +1156,26 @@ class DeepSpeedEngine:
         """Block until pending async saves finish (for ``save_dir``, or
         all of this engine's); raises
         :class:`~deepspeed_tpu_torch.checkpoint.writer.CheckpointError` if
-        the most recent commit failed."""
-        return self._ckpt_manager.wait(save_dir, timeout)
+        the most recent commit failed.  Under a mesh every rank calls it:
+        rank 0 waits for its writes and every rank learns the outcome, so
+        a load on any rank after it reads the commit."""
+        error, drained = None, True
+        if self.dp_rank == 0:
+            try:
+                drained = self._ckpt_manager.wait(save_dir, timeout)
+            except CheckpointError as e:
+                error = e
+        if self.mesh is not None:
+            flags = comm.psum(torch.tensor(
+                [float(error is not None), float(not drained)],
+                device=self.device), DATA_AXIS, self.mesh).tolist()
+            if flags[0] > 0 and error is None:
+                raise CheckpointError("the checkpoint commit on data-"
+                                      "parallel rank 0 failed")
+            drained = flags[1] == 0
+        if error is not None:
+            raise error
+        return drained
 
     def _preemption_save(self):
         """Final synchronous save on SIGTERM, into the last save dir."""
@@ -926,7 +1193,8 @@ class DeepSpeedEngine:
         """Restore a checkpoint that either package wrote; returns
         ``(path, client_state)``.  The unpadded master and moments are
         re-padded into this engine's layout, whatever ZeRO stage or
-        data-parallel degree wrote them.
+        data-parallel degree wrote them (under a mesh every rank calls it
+        and takes its rows).
 
         With ``strict=False`` a missing or unverifiable checkpoint warns
         and returns ``(None, None)``; ``strict=True`` raises.  Integrity
@@ -934,6 +1202,9 @@ class DeepSpeedEngine:
         ``checkpoint.verify_on_load``; directories from before manifests
         load unverified."""
         drain_inflight(load_dir)  # a same-process async save may be landing
+        if self.mesh is not None:
+            # rank 0's commit lands before any rank reads `latest`
+            comm.barrier(DATA_AXIS, self.mesh)
 
         def _missing(msg, exc=CheckpointError):
             if strict:

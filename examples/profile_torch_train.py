@@ -20,8 +20,14 @@ full width and depth, exactly as that script's phase does:
   Adam, bf16, ZeRO-2 with ``cpu_offload``, fp32 host state streamed in
   512 MB chunks at depth 2).
 
+``--dp`` (with the GPT-2 or the BERT set-up) trains on the data-parallel
+path instead, as ``chip_smoke.py``'s phase 30 does: ``torch.distributed``
+on NCCL at world size 1 through a ``file://`` store under ``build/``, and
+``make_mesh({"data": 1})`` (the ZeRO-2 reduce-scatter, the rank's rows
+of the master and the all-gather of the params).
+
     python3 examples/profile_torch_train.py [--sparse | --bert |
-        --bert-sparse | --offload] [--out PATH]
+        --bert-sparse | --offload] [--dp] [--out PATH]
 
 Step wall time is a host clock around ``train_batch`` calls that end in
 ``torch.cuda.synchronize()``, median of 5 after 2 warm-up steps.  Device
@@ -33,7 +39,7 @@ block-sparse kernels B5a (forward) and B5b (its dq and its dk/dv
 kernel; in bf16 these are B6a's, B6b's and B6c's tensor-core kernels at
 G = 1, counted as B5's in the ``--sparse`` step, which launches no B6),
 the super-tile kernels B6a, B6b and B6c, matrix products
-(cuBLAS/CUTLASS), and everything else (elementwise, reductions, copies,
+(cuBLAS/CUTLASS), the NCCL collectives, and everything else (elementwise, reductions, copies,
 the optimizer), and the copies between host and card (H2D, D2H).
 Under ``--offload`` it also gives the copies' time that runs beside a
 kernel (their overlap with the update and the rest of the step), the
@@ -50,9 +56,11 @@ name and power limit beside the numbers.
 import argparse
 import collections
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,6 +71,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from deepspeed_tpu_torch.ops import op_builder  # noqa: E402
+from deepspeed_tpu_torch.parallel import DATA_AXIS, make_mesh  # noqa: E402
+from deepspeed_tpu_torch.utils.distributed import \
+    init_distributed  # noqa: E402
 
 # --mode -> (set-up, model name, (batch, seq))
 SETUPS = {
@@ -90,6 +101,7 @@ FAMILIES = (("B1 flash forward", ("flash_fwd",)),
             ("B5b sparse flash dk/dv", ("fbs_bwd_dkv",)),
             ("matrix products", ("gemm", "cutlass", "xmma", "cublas",
                                  "nvjet")),
+            ("NCCL collectives", ("nccl",)),
             ("H2D copies", ("memcpy htod",)),
             ("D2H copies", ("memcpy dtoh",)))
 
@@ -186,8 +198,13 @@ def main():
         modes.add_argument(f"--{mode}", dest="mode", action="store_const",
                            const=mode, help=f"profile the {mode} train "
                            f"set-up of chip_smoke.py instead of GPT-2's")
+    parser.add_argument("--dp", action="store_true", help="train on the "
+                        "data-parallel path (NCCL at world size 1, "
+                        "make_mesh({'data': 1})); GPT-2 and BERT only")
     parser.set_defaults(mode="gpt2")
     args = parser.parse_args()
+    if args.dp and args.mode not in ("gpt2", "bert"):
+        parser.error("--dp goes with the GPT-2 or the BERT set-up")
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 1
@@ -196,7 +213,15 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     setup, model_name, (b, s) = SETUPS[args.mode]
-    engine, cfg, batch = setup()
+    store_dir = None
+    if args.dp:
+        store_dir = tempfile.mkdtemp(prefix="profile_nccl_",
+                                     dir=chip_smoke.build_dir())
+        init_distributed(init_method=f"file://{store_dir}/store",
+                         world_size=1, rank=0, device="cuda")
+        engine, cfg, batch = setup(mesh=make_mesh({DATA_AXIS: 1}))
+    else:
+        engine, cfg, batch = setup()
 
     def step():
         return engine.train_batch(iter([batch]))
@@ -252,6 +277,10 @@ def main():
         "registers_spills": registers_spills(args.mode)}
     if args.mode == "offload":
         result["params_back_ms"] = params_back_ms(engine)
+    result["dp"] = args.dp
+    if store_dir is not None:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

@@ -181,13 +181,24 @@ def test_unknown_keys_warn_with_a_hint_and_raise_under_strict(caplog):
 
 
 def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
+    """A set block the port lacks warns with its ROADMAP item; the
+    ``mesh`` block is ported for its data axis (ROADMAP A5) and warns
+    only for the other axes (A10, A13)."""
     with caplog.at_level(logging.WARNING):
         DeepSpeedConfig({"train_batch_size": 8,
                          "flops_profiler": {"enabled": True},
-                         "tensorboard": {"enabled": False}})
+                         "tensorboard": {"enabled": False},
+                         "mesh": {"data": 2}})
     assert "flops_profiler" in caplog.text
     assert "A16" in caplog.text
     assert "tensorboard" not in caplog.text   # set but off
+    assert "mesh" not in caplog.text
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        DeepSpeedConfig({"train_batch_size": 8,
+                         "mesh": {"data": 1, "model": 2, "pipe": 2}})
+    assert "'model' is 2" in caplog.text and "A10" in caplog.text
+    assert "'pipe' is 2" in caplog.text and "A13" in caplog.text
 
 
 @pytest.mark.parametrize("blocks", [
@@ -251,7 +262,7 @@ def test_resilience_block_parses_as_the_jax_package_does(caplog):
     """The ``resilience`` block is ported (ROADMAP A15's one-rank half):
     it parses into the same values as the JAX package's config, no
     longer warns, and passes ``strict_config``; ``integrity`` (the fleet
-    integrity plane) raises, naming A5."""
+    integrity plane) raises, naming A15."""
     block = {"enabled": True, "policy": "rollback", "spike_window": 16,
              "spike_zscore": 5.0, "divergence_patience": 2,
              "max_rollbacks": 1, "rollback_cooldown_steps": 4,
@@ -271,6 +282,6 @@ def test_resilience_block_parses_as_the_jax_package_does(caplog):
                   "straggler_factor", "integrity", "integrity_window",
                   "integrity_action", "integrity_peer_timeout_secs"):
         assert getattr(got, field) == getattr(want, field), field
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A15"):
         DeepSpeedConfig({"train_batch_size": 8,
                          "resilience": {"enabled": True, "integrity": True}})

@@ -22,6 +22,7 @@ from deepspeed_tpu.models import GPT2LMHeadTPU
 from deepspeed_tpu.parallel import make_mesh
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, \
     random_params
+from deepspeed_tpu_torch.parallel import Mesh
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 
 TINY = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
@@ -213,6 +214,40 @@ def test_dataloader_resumes_at_its_cursor():
     assert len(first) == 3 and len(rest) == 2
 
 
+def test_dataloader_slices_the_global_batch_per_rank():
+    """Every rank iterates the same seeded order and keeps its contiguous
+    slice of each global micro-batch; the cursor counts global samples,
+    so a run resumes at another data-parallel degree, a ragged tail
+    splits in whole rows a rank, and a rank outside the world or a batch
+    that does not split raises."""
+    data = list(range(23))
+    full = [b.tolist() for b in DeepSpeedDataLoader(data, 4, shuffle=True,
+                                                    seed=5)]
+    halves = [[b.tolist() for b in DeepSpeedDataLoader(
+        data, 4, shuffle=True, seed=5, data_parallel_world_size=2,
+        data_parallel_rank=r)] for r in range(2)]
+    assert [a + b for a, b in zip(*halves)] == full
+    loader = DeepSpeedDataLoader(data, 4, shuffle=True, seed=5,
+                                 data_parallel_world_size=2,
+                                 data_parallel_rank=1)
+    it = iter(loader)
+    next(it), next(it)
+    state = loader.state_dict()
+    assert state == {"epoch": 1, "samples_yielded": 8}
+    one = DeepSpeedDataLoader(data, 4, shuffle=True, seed=5)
+    one.load_state_dict(state)
+    assert [b.tolist() for b in one] == full[2:]
+    tail = DeepSpeedDataLoader(list(range(7)), 4, drop_last=False,
+                               data_parallel_world_size=2,
+                               data_parallel_rank=1)
+    assert [b.tolist() for b in tail] == [[2, 3], [5]]
+    with pytest.raises(ValueError, match="outside"):
+        DeepSpeedDataLoader(data, 4, data_parallel_world_size=2,
+                            data_parallel_rank=2)
+    with pytest.raises(ValueError, match="split"):
+        DeepSpeedDataLoader(data, 3, data_parallel_world_size=2)
+
+
 @pytest.mark.parametrize("bf16,acc,grad_dtype,acc_buffer", [
     (True, 1, torch.bfloat16, False), (True, 2, torch.bfloat16, True),
     (False, 2, torch.float32, False)])
@@ -242,12 +277,22 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
     ({"zero_optimization": {"stage": 3}}, NotImplementedError, "A8"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
      NotImplementedError, "A14"),
-    ({"optimizer": {"type": "Sgd", "params": {}}}, ValueError, "sgd")])
+    ({"optimizer": {"type": "Sgd", "params": {}}}, ValueError, "sgd"),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True},
+      "mesh": {"data": 2}}, NotImplementedError, "A9"),
+    ({"zero_optimization": {"stage": 2, "overlap_comm": True},
+      "mesh": {"data": 2}}, NotImplementedError, "A8")])
 def test_unported_options_raise(change, error, match):
     """Options the port does not have raise, naming their ROADMAP item;
     fp16 (ROADMAP A4, ported) builds an engine whose compute params and
-    flat gradient are fp16, with the JAX package's dynamic scale."""
+    flat gradient are fp16, with the JAX package's dynamic scale.  Above
+    one data-parallel rank (a ``mesh`` here, handed to ``initialize``),
+    offload (A9) and the bucketed ``overlap_comm`` (A8) raise."""
+    change = dict(change)
+    kw = {"mesh": Mesh(change.pop("mesh"))} if "mesh" in change else {}
     config = dict(ds_config("Adam", 1, 0.0), **change)
+    if kw:
+        config["train_batch_size"] *= kw["mesh"].size("data")
     if error is None:
         engine, *_ = torch_engine(config)
         assert str(engine.compute_dtype) == f"torch.{match}"
@@ -256,7 +301,7 @@ def test_unported_options_raise(change, error, match):
         assert engine.loss_scale == 2.0 ** 32 and engine.skipped_steps == 0
         return
     with pytest.raises(error, match=match):
-        torch_engine(config)
+        torch_engine(config, **kw)
 
 
 def test_default_device_is_the_card():
@@ -314,3 +359,40 @@ def test_flat_master_layout_is_the_jax_one():
                                   params["blocks"]["layer_1"]["fc2"]["kernel"])
     assert views["wte"].untyped_storage().data_ptr() == \
         master.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_flat_master_partitions_over_data_parallel_ranks(stage):
+    """At dp=2 the rows pad to a multiple of 2 (stages 1, 2, as the JAX
+    coordinator pads) and each rank of a mesh owns a contiguous half of
+    the master at stages 1 and 2 (the whole at stage 0); a checkpoint's
+    unpadded form re-pads onto each rank's rows."""
+    from deepspeed_tpu.ops.op_common import build_segments
+    from deepspeed_tpu_torch.runtime.zero.coordinator import \
+        FlatParamCoordinator
+
+    params = random_params(GPT2Config(**TINY), seed=2)
+    leaves = jax.tree_util.tree_leaves(params)
+    whole = FlatParamCoordinator(params, stage=stage).flatten_to_master(
+        params, "cpu")
+    unpadded = np.concatenate([np.ravel(leaf) for leaf in leaves])
+    parts = []
+    for rank in range(2):
+        coord = FlatParamCoordinator(params, stage=stage, dp_size=2,
+                                     dp_rank=rank,
+                                     mesh=Mesh({"data": 2}, rank=rank))
+        assert tuple(coord.segments) == tuple(build_segments(
+            [leaf.size for leaf in leaves], pad_to=2 if stage else 1))
+        assert coord.partitioned == (stage > 0)
+        part = coord.flatten_to_master(params, "cpu")
+        assert part.shape == coord.shard_shape
+        again = coord.scatter_master_from_unpadded(unpadded,
+                                                   torch.zeros_like(part))
+        assert torch.equal(again, part)
+        parts.append(part)
+    if stage:
+        assert coord.segments.rows % 2 == 0
+        torch.testing.assert_close(torch.cat(parts)[:whole.shape[0]], whole,
+                                   rtol=0, atol=0)
+    else:
+        assert torch.equal(parts[0], whole) and torch.equal(parts[1], whole)

@@ -34,7 +34,9 @@ AGG_DKV = "void (anonymous namespace)::agg_bwd_dkv_mma_kernel<64>(bf16*)"
     ("void flash_bwd_dq_mma_kernel<64>(bf16 const*)", "bert",
      "B2a flash dq"),
     ("void at::native::vectorized_elementwise_kernel<4>()", "bert",
-     "other")])
+     "other"),
+    ("ncclDevKernel_ReduceScatter_Sum_bf16_RING_LL(ncclDevKernelArgs)",
+     "gpt2", "NCCL collectives")])
 def test_family_counts_each_kernel_where_the_step_runs_it(name, mode,
                                                           family):
     assert ptt.family(name, mode) == family
