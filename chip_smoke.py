@@ -238,10 +238,12 @@ failure raises, so the script exits non-zero:
               each offload row's peak below (a)'s; then the host kernel
               on (e)'s pinned buffers against its plain version, with
               the host's copy rate for its bound;
-28. offload xl — bench.py's GPT-2-xl leg (``bench.py:589-612``: 1.56 B
-              parameters, ``offload_gradients``, bf16, remat,
-              ``loss_chunk`` 256, batch 4), after ``MemAvailable``: 2
-              warm-up and 3 timed steps;
+28. offload xl — bench.py's GPT-2-xl leg (``bench.py:589-612``:
+              ``offload_gradients``, bf16, remat, ``loss_chunk`` 256,
+              batch 4) at GPT-2-xl's width and 24 of its 48 layers (its
+              full depth, 1.56 B parameters, is on record from the
+              earlier runs), after ``MemAvailable``: 2 warm-up and 3
+              timed steps;
 29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
               streamed offload in 1 MB chunks: 10 steps on the card
               within rtol 1e-3 of the CPU's;
@@ -259,7 +261,21 @@ failure raises, so the script exits non-zero:
               step ms; then the tiny GPT-2 at dp=2 on two gloo CPU
               processes against one rank on the same global batches
               (losses to rtol 1e-5, the master's update to 1e-4), which
-              checks this machine's torch build.
+              checks this machine's torch build;
+31. zero3    — phase 6's GPT-2-medium at ZeRO stage 3 on NCCL at world
+              size 1 (``make_mesh({"data": 1})``), 2 + 3 steps: losses
+              bitwise phase 6's first five, its launches a step, 1
+              all-gather, 1 reduce-scatter and 2 all-reduces a step, no
+              compute params between the steps; ``overlap_comm: true``
+              refused ("dp > 1"); then ZeRO-3 under ``cpu_offload``, 2
+              steps, bitwise phase 26's ZeRO-2 offload run;
+32. onebit   — phase 12's BERT-large with ``OneBitAdam`` (lr 1e-4,
+              ``freeze_step`` 2) on NCCL at world size 1: 2 dense and 4
+              compressed steps, finite losses, phase 12's launches a
+              step, no dense all-reduce in the compressed steps, the
+              compressed all-reduce's bytes and device ms against a
+              dense fp32 all-reduce's of the same buffer; a 2-layer fp32
+              BERT through the freeze, card against CPU.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -297,6 +313,7 @@ import torch.nn.functional as F
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import checkpoint as ckpt
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.comm import compression
 from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models.bert import (
     BertConfig, BertForPreTraining, BertForQuestionAnsweringTPU,
@@ -3424,6 +3441,8 @@ BENCH_OFFLOAD_MODEL = dict(embd_dropout=0.0, attn_dropout=0.0,
                            resid_dropout=0.0, remat=True, loss_chunk=256)
 LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 2, 5
 XL_WARMUP, XL_TIMED = 2, 3
+# GPT-2-xl's depth in phase 28, cut from 48 to keep the script's time
+XL_LAYERS = 24
 ADAM_RTOL, ADAM_ATOL = 2e-6, 1e-7  # tests/test_torch_cpu_adam.py
 MASTER_UPDATE_RTOL = 1e-3  # phase 29: 5.8e-5 measured on the H100
 
@@ -3681,15 +3700,17 @@ def mem_available():
 
 
 def phase_offload_xl(card, results):
-    """28. bench.py's GPT-2-xl leg: 1.56 B parameters with
-    ``offload_gradients`` (the fp32 gradient in pinned host memory too),
-    bf16, remat, ``loss_chunk`` 256, batch 4: 2 warm-up and 3 timed
-    steps, after printing the host's ``MemAvailable``."""
+    """28. bench.py's GPT-2-xl leg at its width and ``XL_LAYERS`` of its
+    48 layers, with ``offload_gradients`` (the fp32 gradient in pinned
+    host memory too), bf16, remat, ``loss_chunk`` 256, batch 4: 2
+    warm-up and 3 timed steps, after printing the host's
+    ``MemAvailable``."""
     s = TRAIN_ATTN[2]
     avail = mem_available()
     print(f"offload xl: MemAvailable {avail} bytes before the engine")
     cfg = GPT2Config.gpt2_xl(max_position_embeddings=s,
                              **BENCH_OFFLOAD_MODEL)
+    cfg.num_layers = XL_LAYERS
     params = random_params(cfg, SEED)
     batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, size=(LARGE_BATCH, s))}
@@ -3712,7 +3733,8 @@ def phase_offload_xl(card, results):
                                            "B2a": layers * steps,
                                            "B2b": layers * steps})
     results["offload_xl"] = train_receipt(
-        card, "offload xl (GPT-2-xl, offload_gradients)", run, XL_WARMUP,
+        card, f"offload xl (GPT-2-xl width, {XL_LAYERS} layers, "
+        f"offload_gradients)", run, XL_WARMUP,
         LARGE_BATCH, s, gpt2_model_flops_per_sample(cfg, s), **extra)
     return run[2]
 
@@ -4004,6 +4026,287 @@ def phase_dp(card, results):
     return {k: gpt2_launches[k] + bert_launches[k] for k in gpt2_launches}
 
 
+# ------------------------------------------------------- ZeRO-3, 1-bit Adam
+ZERO3_CONFIG = dict(TRAIN_CONFIG, zero_optimization={"stage": 3})
+
+
+def nccl_world_of_one(label):
+    """``torch.distributed`` on NCCL at world size 1 through a ``file://``
+    store under ``build/`` (the store's directory is returned, for
+    :func:`nccl_teardown`), and the NCCL version."""
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_", dir=build_dir())
+    init_distributed(init_method=f"file://{store_dir}/store",
+                     world_size=1, rank=0, device="cuda", timeout=300)
+    version = torch.cuda.nccl.version()
+    nccl = (".".join(str(v) for v in version)
+            if isinstance(version, tuple) else str(version))
+    print(f"{label}: torch.distributed {dist.get_backend()} (NCCL {nccl}) "
+          f"at world size {dist.get_world_size()}")
+    return store_dir, nccl
+
+
+def nccl_teardown(store_dir):
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def phase_zero3(card, results):
+    """31. ZeRO-3: phase 6's GPT-2-medium (Lamb, bf16, dropout 0.1)
+    with ``zero_optimization.stage`` 3 through
+    ``initialize(mesh=make_mesh({"data": 1}))`` on NCCL, 2 + 3 steps:
+    losses bitwise phase 6's first five (at one rank the compute params
+    are the master's cast, gathered before each forward and freed after
+    its backward), the same attention launches a step, one all-gather,
+    one reduce-scatter and two all-reduces a step, no compute params
+    between the steps; ``overlap_comm: true`` refused with the JAX
+    package's "dp > 1".  Then ZeRO-3 under ``cpu_offload`` at one rank
+    (phase 26's Adam, fp32 host state), 2 steps: losses bitwise phase
+    26's ZeRO-2 run's first two."""
+    store_dir, nccl = nccl_world_of_one("zero3")
+    try:
+        mesh = make_mesh({DATA_AXIS: 1})
+        try:
+            train_setup(config=dict(ZERO3_CONFIG, zero_optimization={
+                "stage": 3, "overlap_comm": True}), mesh=mesh)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "dp > 1" in refused,
+              f"zero3: overlap_comm true at dp=1 gave {refused!r}")
+        engine, cfg, batch = train_setup(config=ZERO3_CONFIG, mesh=mesh)
+        check(engine._stage3 and engine._partitioned
+              and not engine.comm_overlap_enabled(),
+              "zero3: the engine is not on the stage-3 sharded path")
+        comm.counter.reset()
+        losses, step_s, launches = run_steps("zero3", engine, batch, 2, 3)
+        steps = 5
+        calls, nbytes = dict(comm.counter.calls), dict(comm.counter.bytes)
+        freed = engine._compute.untyped_storage().nbytes() == 0
+        peak = torch.cuda.max_memory_allocated()
+        flat = engine.segments.total
+        release(engine)
+    finally:
+        nccl_teardown(store_dir)
+    want = results["train"]
+    check(losses == want["losses"][:steps],
+          f"zero3: losses {losses} are not phase 6's {want['losses'][:5]}")
+    per_step = {k: n for k, n in want["launches_per_step"].items() if n}
+    check(all(launches[k] == n * steps for k, n in per_step.items())
+          and only_launched(launches, tuple(per_step)),
+          f"zero3: launches {launches}, expected {per_step} a step")
+    check(calls == {"all_gather": steps, "reduce_scatter": steps,
+                    "psum": 2 * steps},
+          f"zero3: collectives {calls}, expected 1 all_gather, 1 "
+          f"reduce_scatter and 2 psum a step")
+    check(freed, "zero3: compute params persist after the step")
+    receipt = {
+        "card": card, "nccl": nccl, "losses": losses,
+        "step_ms": 1e3 * step_s, "phase6_step_ms": want["step_ms"],
+        "peak_memory_bytes": peak,
+        "phase6_peak_memory_bytes": want["peak_memory_bytes"],
+        "collectives_per_step": {k: v / steps for k, v in calls.items()},
+        "bytes_per_step": {k: v / steps for k, v in nbytes.items()},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        # from the shapes, not measured here (overlap needs dp > 1):
+        # each group gathered in the forward and again in the backward,
+        # in the compute dtype
+        "computed": {"gather_bytes_per_step_with_overlap": 2 * 2 * flat}}
+    print("zero3 receipt (GPT-2-medium, 24 layers, seq 1024, batch 8, "
+          "bf16, Lamb, ZeRO-3, mesh data=1 on NCCL):", json.dumps(receipt))
+
+    b = TRAIN_ATTN[0]
+    params = setup_weights("train", random_params, cfg)
+    engine = offload_engine(cfg, params, dict(OFFLOAD, stage=3), b)
+    run = stepped("zero3 offload", engine, batch, 2)
+    freed = engine._compute.untyped_storage().nbytes() == 0
+    release(engine)
+    want26 = results["offload_parity"]["fp32 depth 2"]["losses"][:2]
+    check(run[0] == want26, f"zero3 offload: losses {run[0]} are not "
+          f"phase 26's ZeRO-2 offload losses {want26}")
+    check(freed, "zero3 offload: compute params persist after the step")
+    expect_launches("zero3 offload", run[2],
+                    {k: int(n * 2) for k, n in per_step.items()})
+    receipt["offload"] = {"losses": run[0],
+                          "step_ms": [1e3 * x for x in run[1]],
+                          "peak_memory_bytes": run[3]}
+    print(f"zero3 offload (fp32 host state, Adam): losses {run[0]}, step "
+          f"ms {[round(1e3 * x, 1) for x in run[1]]}, peak "
+          f"{run[3] / 1e9:.2f} GB [{card}]")
+    results["zero3"] = receipt
+    return {k: launches[k] + run[2][k] for k in launches}
+
+
+ONEBIT_FREEZE = 2
+ONEBIT_COMPRESSED = 4
+ONEBIT_CONFIG = dict(TRAIN_CONFIG, zero_optimization={"stage": 0},
+                     optimizer={"type": "OneBitAdam", "params": {
+                         "lr": 1e-4, "freeze_step": ONEBIT_FREEZE}})
+# the 2-layer fp32 BERT through the freeze, card against CPU: the dense
+# steps' losses as dense Adam's parity (rtol 1e-3); the momentum after
+# the first compressed update element by element: a sign may flip where
+# the two devices' momenta lie within rounding of 0 (on at most
+# ONEBIT_FLIP_FRACTION of the elements), and elsewhere the two agree to
+# the rounding of their scale, a norm over the whole buffer
+# (ONEBIT_MOMENTUM_RTOL).  The later losses are not compared: with the
+# variance frozen after 2 steps, elements whose variance is below eps
+# take steps of lr x scale / eps, and a flipped sign there moves the
+# next loss by percents
+ONEBIT_PARITY_RTOL = 1e-3
+ONEBIT_FLIP_FRACTION = 1e-3
+ONEBIT_MOMENTUM_RTOL = 1e-4
+
+
+def onebit_exchange_ms(engine):
+    """Device ms of the compressed all-reduce replayed on the engine's
+    momentum (copies of its error buffers).  A dense all-reduce is not
+    timed beside it: at world size 1 NCCL returns without moving the
+    buffer, so its time would measure nothing."""
+    mesh, opt = engine.mesh, engine.opt_state
+    m = opt.exp_avg.reshape(-1).clone()
+    we, se = opt.worker_error.clone(), opt.server_error.clone()
+    return {"compressed_ms": device_ms(
+        lambda: compression.compressed_allreduce(m, we, se, DATA_AXIS,
+                                                 mesh=mesh))}
+
+
+def onebit_parity(results):
+    """2 layers at BERT-large width, fp32 (TF32 off), dropout 0, seq 128,
+    batch 2, OneBitAdam lr 1e-4 with ``freeze_step`` 2, 6 steps on the
+    card and on the CPU (no mesh: the compressed all-reduce over an axis
+    of one member)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(vocab_size=BERT_VOCAB, hidden_size=1024,
+                     num_hidden_layers=2, num_attention_heads=16,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0,
+                     max_predictions_per_seq=BERT_PRED)
+    rng = np.random.default_rng(SEED + 5)
+    batches = [bert_batch(rng, BERT_VOCAB, 2, BERT_SEQ, BERT_PRED,
+                          np.ones((2, BERT_SEQ), np.int64))
+               for _ in range(ONEBIT_FREEZE + ONEBIT_COMPRESSED)]
+    config = dict(ONEBIT_CONFIG, train_batch_size=2)
+    config.pop("bf16")
+    params = bert_params(cfg, SEED)
+    out, momentum, launches = {}, {}, None
+    for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=BertForPreTraining(cfg), model_parameters=params,
+            config=dict(config), device=device)
+        if where == "card":
+            torch.cuda.synchronize()
+            reset_launches()
+        out[where] = []
+        for i, b in enumerate(batches):
+            out[where].append(float(engine.train_batch(iter([b]))))
+            if i == ONEBIT_FREEZE:
+                # after the first compressed update
+                momentum[where] = engine.opt_state.exp_avg.to(
+                    "cpu", copy=True).numpy()
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        del engine
+    card, cpu = out["card"], out["cpu"]
+    k = ONEBIT_FREEZE + 1
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    same = np.sign(momentum["card"]) == np.sign(momentum["cpu"])
+    flips = float((~same).mean())
+    m_rel = float(np.max(np.abs(momentum["card"] - momentum["cpu"])[same]
+                         / np.abs(momentum["cpu"])[same]))
+    check(np.allclose(card[:k], cpu[:k], rtol=ONEBIT_PARITY_RTOL, atol=0)
+          and all(math.isfinite(x) for x in card + cpu),
+          f"onebit parity: card {card} vs cpu {cpu}")
+    check(flips <= ONEBIT_FLIP_FRACTION and m_rel <= ONEBIT_MOMENTUM_RTOL,
+          f"onebit parity: the first compressed momentum flips {flips} of "
+          f"its signs and differs by {m_rel} where they agree")
+    print(f"onebit parity (2 layers, hidden 1024, seq 128, fp32, "
+          f"OneBitAdam freeze 2): card {card}, cpu {cpu}, rel diff "
+          f"{[float(f'{x:.3g}') for x in rel]}; the first compressed "
+          f"momentum: {flips:.3g} of its signs flipped, {m_rel:.3g} "
+          f"relative elsewhere")
+    return {"card": card, "cpu": cpu, "rel_diff": rel,
+            "momentum_flips": flips, "momentum_rel_diff": m_rel,
+            "launches": launches}
+
+
+def phase_onebit(card, results):
+    """32. 1-bit Adam: phase 12's BERT-large (seq 128, micro-batch 64,
+    MLM + NSP, bf16, dropout 0.1) with ``OneBitAdam`` lr 1e-4,
+    ``freeze_step`` 2, ZeRO 0, through ``initialize(mesh=make_mesh(
+    {"data": 1}))`` on NCCL: 2 warm-up (dense) and 4 compressed steps,
+    finite losses, phase 12's attention launches a step, no dense
+    all-reduce in the compressed steps (their collectives and bytes a
+    step), the compressed all-reduce's device ms, and its measured bytes
+    against a dense fp32 all-reduce's, computed from the shapes; then
+    :func:`onebit_parity`."""
+    store_dir, nccl = nccl_world_of_one("onebit")
+    steps = ONEBIT_FREEZE + ONEBIT_COMPRESSED
+    try:
+        mesh = make_mesh({DATA_AXIS: 1})
+        engine, cfg, batch = bert_train_setup(config=ONEBIT_CONFIG,
+                                              mesh=mesh)
+        check(type(engine.optimizer).__name__ == "OnebitAdam",
+              "onebit: the engine has no OnebitAdam")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms, calls = [], [], []
+        for _ in range(steps):
+            comm.counter.reset()
+            t0 = time.perf_counter()
+            loss = engine.train_batch(iter([batch]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+            calls.append({"calls": dict(comm.counter.calls),
+                          "bytes": dict(comm.counter.bytes)})
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        n = engine.master.numel()
+        params = sum(engine.segments.sizes)
+        engine_dp = engine.dp_world_size
+        print(f"onebit: losses {losses}, step ms "
+              f"{[round(x, 2) for x in step_ms]}, peak {peak / 1e9:.2f} GB, "
+              f"collectives {calls} [{card}]")
+        times = onebit_exchange_ms(engine)
+        release(engine)
+    finally:
+        nccl_teardown(store_dir)
+    check(all(math.isfinite(x) for x in losses), f"onebit: losses {losses}")
+    per_step = {k: n_ for k, n_ in
+                results["bert_train"]["launches_per_step"].items() if n_}
+    check(all(launches[k] == v * steps for k, v in per_step.items())
+          and only_launched(launches, tuple(per_step)),
+          f"onebit: launches {launches}, expected {per_step} a step")
+    for i, c in enumerate(calls[ONEBIT_FREEZE:]):
+        check(c["bytes"].get("psum", 0) <= 8 and c["calls"].get(
+              "all_to_all") == 1 and c["bytes"]["all_to_all"] <= n // 8 + 8,
+              f"onebit: compressed step {i} collectives {c}")
+    wire = sum(c["bytes"].get("all_to_all", 0) + c["bytes"].get(
+        "all_gather", 0) for c in calls[ONEBIT_FREEZE:]) / ONEBIT_COMPRESSED
+    receipt = {
+        "card": card, "nccl": nccl, "losses": losses, "step_ms": step_ms,
+        "parameters": params, "flat_elements": n,
+        "peak_memory_bytes": peak, "collectives": calls,
+        "compressed_bytes_per_step": wire, **times,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        # from the shapes, not measured: the dense fp32 all-reduce's
+        # buffer and the compressed exchange's buffers
+        "computed": {
+            "dense_fp32_all_reduce_bytes": 4 * n,
+            "compressed_buffer_bytes": compression.buffer_bytes(
+                n, engine_dp),
+            "measured_compressed_over_dense": wire / (4 * n)}}
+    print("onebit receipt (BERT-large, seq 128, batch 64, bf16, OneBitAdam "
+          "freeze 2, mesh data=1 on NCCL):", json.dumps(receipt))
+    receipt["parity"] = onebit_parity(results)
+    results["onebit"] = receipt
+    par = receipt["parity"]["launches"]
+    return {k: launches[k] + par[k] for k in launches}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4144,6 +4447,12 @@ def main(argv=None):
     # bitwise phases 6 and 12; dp=2 on two gloo CPU processes
     dp_launches = phase_dp(card, results)
     lap("dp")
+    # 31. ZeRO-3 at one rank on NCCL, bitwise phase 6; and under offload
+    zero3_launches = phase_zero3(card, results)
+    lap("zero3")
+    # 32. 1-bit Adam, BERT-large through the freeze on NCCL; card vs CPU
+    onebit_launches = phase_onebit(card, results)
+    lap("onebit")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -4162,7 +4471,8 @@ def main(argv=None):
              "offload_large": offload_large_launches,
              "offload_xl": offload_xl_launches,
              "offload_parity_cpu": offload_cpu_launches,
-             "dp": dp_launches}
+             "dp": dp_launches, "zero3": zero3_launches,
+             "onebit": onebit_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

@@ -116,9 +116,14 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
 
     flat = engine.flat
     optim_states = {"master": flat.gather_master_unpadded(engine.master)}
+    local = engine._rank_local_fields()
     for name, leaf in state_fields(engine.opt_state).items():
         key = f"opt/.{name}"
-        if isinstance(leaf, torch.Tensor):
+        if name in local:
+            # every rank's own buffer, stacked [dp, ...] (1-bit Adam's
+            # error feedback, as the JAX engine stores it)
+            optim_states[key] = engine._gather_rank_local(leaf)
+        elif isinstance(leaf, torch.Tensor):
             # a flat buffer in the master's layout: saved unpadded
             optim_states[key] = flat.gather_master_unpadded(leaf)
         else:

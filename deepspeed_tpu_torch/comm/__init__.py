@@ -16,16 +16,24 @@ psum / pmean / pmax / pmin      all_reduce (SUM, SUM then / size, MAX, MIN)
 reduce_scatter (psum_scatter)   reduce_scatter_tensor
 all_gather                      all_gather_into_tensor
 axis_index / axis_size          the rank and size in the axis's group
+all_to_all                      all_to_all_single
 ppermute                        pipeline p2p: ROADMAP A13
-all_to_all                      sequence/expert parallelism: ROADMAP A10
 ==============================  ==========================================
 
 Every verb returns a new tensor, as the JAX verbs do, or writes into
 ``out`` (which may be the input itself for the reductions): the engine
-exchanges its flat buffers in place.  ``counter`` counts the collectives
-issued and the bytes of the buffers they cover.
+exchanges its flat buffers in place.  ``reduce_scatter`` and
+``all_gather`` also run asynchronously (``async_op=True``): they return
+``(out, handle)``, and ``out`` holds the result once ``handle.wait()``
+returned (on the card, once the current stream reaches the wait).  The
+bucketed ZeRO exchange issues its collectives so, in the same order on
+every rank.  ``counter`` counts the collectives issued and the bytes of
+the buffers they cover.  The verbs run on any axis whose group exists;
+the mesh refuses the axes other than ``data`` above one member (ROADMAP
+A10, A13), so in the port they run on ``data``.
 """
 
+import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import DATA_AXIS, get_current_mesh
@@ -35,6 +43,14 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 _all_gather = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+
+
+class _Done:
+    """The handle of a collective that completed when it was issued (an
+    axis of one member)."""
+
+    def wait(self):
+        return True
 
 
 class CommCounter:
@@ -106,11 +122,13 @@ def pmin(x, axis_name, mesh=None, out=None):
 
 
 def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, mesh=None,
-                   out=None):
+                   out=None, async_op=False):
     """Sum-reduce, then scatter dim 0 in equal contiguous pieces over the
     axis (reference: the ZeRO reduce-to-owner pattern, ``stage2.py:727``):
     member ``i`` gets piece ``i``.  ``tiled=False`` takes ``x`` of
-    leading dim equal to the axis size and drops that dim."""
+    leading dim equal to the axis size and drops that dim.  With
+    ``async_op`` it returns ``(out, handle)``; ``x`` must stay unchanged
+    until the handle's ``wait``."""
     if scatter_dimension != 0:
         raise NotImplementedError("reduce_scatter scatters dim 0 only")
     group, n = _axis(axis_name, mesh)
@@ -121,18 +139,23 @@ def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, mesh=None,
     shape = (x.shape[0] // n, *x.shape[1:])
     if out is None:
         out = x.new_empty(shape)
+    handle = _Done()
     if group is None:
         out.copy_(x.view(shape))
     else:
         counter.add("reduce_scatter", x.numel() * x.element_size())
-        _reduce_scatter(out, x, op=dist.ReduceOp.SUM, group=group)
-    return out if tiled else out.view(x.shape[1:])
+        handle = _reduce_scatter(out, x, op=dist.ReduceOp.SUM, group=group,
+                                 async_op=async_op)
+    out = out if tiled else out.view(x.shape[1:])
+    return (out, handle) if async_op else out
 
 
-def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None):
+def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None,
+               async_op=False):
     """Gather every member's ``x`` along dim 0 (reference: dist.all_gather,
     the ZeRO param reassembly ``stage2.py:1444-1477``): concatenated
-    (``tiled``) or stacked on a new leading dim."""
+    (``tiled``) or stacked on a new leading dim.  With ``async_op`` it
+    returns ``(out, handle)``."""
     if axis != 0:
         raise NotImplementedError("all_gather gathers along dim 0 only")
     group, n = _axis(axis_name, mesh)
@@ -141,12 +164,14 @@ def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None):
              else (n, *x.shape))
     if out is None:
         out = x.new_empty(shape)
+    handle = _Done()
     if group is None:
         out.copy_(x.view(shape))
     else:
         counter.add("all_gather", out.numel() * out.element_size())
-        _all_gather(out.view(-1), x.view(-1), group=group)
-    return out
+        handle = _all_gather(out.view(-1), x.view(-1), group=group,
+                             async_op=async_op)
+    return (out, handle) if async_op else out
 
 
 def ppermute(x, axis_name, perm):
@@ -155,10 +180,33 @@ def ppermute(x, axis_name, perm):
                               "(ROADMAP A13)")
 
 
-def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True):
-    """All-to-all: sequence and expert parallelism, not ported yet."""
-    raise NotImplementedError("all_to_all (sequence/expert parallelism) is "
-                              "not ported yet (ROADMAP A10)")
+def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True,
+               mesh=None):
+    """``jax.lax.all_to_all``: split ``x`` along ``split_axis`` into one
+    chunk per member, send chunk ``i`` to member ``i``, and join the
+    chunks received along ``concat_axis`` in member order (one
+    ``all_to_all_single``).  ``tiled=False`` takes a ``split_axis`` of
+    the axis size, drops it, and stacks the received chunks on a new
+    axis at ``concat_axis``.  1-bit Adam's compressed all-reduce sends
+    its packed sign chunks so (``comm/compression.py``)."""
+    group, n = _axis(axis_name, mesh)
+    size = x.shape[split_axis]
+    if size % n or (not tiled and size != n):
+        raise ValueError(f"dim {split_axis} of {tuple(x.shape)} does not "
+                         f"split over {n} members of {axis_name!r}")
+    parts = x.movedim(split_axis, 0).reshape(n, size // n,
+                                             *x.movedim(split_axis, 0)
+                                             .shape[1:]).contiguous()
+    recv = torch.empty_like(parts)
+    if group is None:
+        recv.copy_(parts)
+    else:
+        counter.add("all_to_all", parts.numel() * parts.element_size())
+        dist.all_to_all_single(recv, parts, group=group)
+    if not tiled:
+        return torch.stack([recv[i, 0] for i in range(n)], dim=concat_axis)
+    return torch.cat([recv[i].movedim(0, split_axis) for i in range(n)],
+                     dim=concat_axis)
 
 
 def axis_index(axis_name, mesh=None):

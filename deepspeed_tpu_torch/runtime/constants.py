@@ -35,6 +35,9 @@ MAX_GRAD_NORM = "max_grad_norm"
 ADAM_OPTIMIZER = "adam"
 LAMB_OPTIMIZER = "lamb"
 ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+# 1-bit Adam's optimizer param: the step from which the momentum goes
+# through the compressed all-reduce (its default is the optimizer's)
+ONEBIT_FREEZE_STEP = "freeze_step"
 DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER]
 ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
 ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False

@@ -109,11 +109,39 @@ declared embedding leaves go through the row-sparse exchange
 master and the moments unpadded; rank 0 writes them, and the ``latest``
 pointer and retention with them; a load re-pads onto every rank's rows.
 
+The bucketed exchange (``zero_optimization.overlap_comm``, JAX
+``:1767-1816``, ``:2890-3112``): ``"auto"`` (the default) turns it on
+wherever it is supported (stage 2 or 3, more than one data-parallel
+rank, the flat Adam or AdamW, no offload, no ``sparse_gradients``),
+``true`` raises where it is not, ``false`` keeps the fused exchange.
+The flat space splits into leaf-aligned buckets
+(:class:`~deepspeed_tpu_torch.runtime.zero.buckets.BucketPlan`), the
+master and the optimizer state take its shard-major order, a
+post-accumulate-grad hook on every leaf reduce-scatters each bucket as
+soon as the backward has produced it (:mod:`~deepspeed_tpu_torch.runtime.zero.overlap`),
+and the step waits for them before its stats all-reduce; the compute
+params come back in ``allgather_bucket_size`` groups.
+
+ZeRO-3 (JAX ``:2737-2741``, ``:3065-3112``, ``:3279``): the rank's rows
+of the fp32 master are the only persistent copy of the parameters.
+Without overlap the whole compute buffer is gathered before each
+forward and freed after its backward (at one rank it is the master's
+cast, so the step is bitwise ZeRO-2's); with it each ``ag_group`` is
+gathered when the model first reads it, freed after the forward's last
+use and gathered again in the backward, whose reduce-scatter it is.
+Under ``cpu_offload`` at one rank the compute params are cast from the
+host master before each forward.
+
+1-bit Adam (``"type": "OneBitAdam"``, JAX ``:3412-3440``,
+:mod:`~deepspeed_tpu_torch.runtime.fp16.onebit_adam`): dense Adam until
+``freeze_step``; from then on the backward makes no gradient exchange
+and the step's one data-parallel exchange of the momentum is the 1-bit
+compressed all-reduce.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-ZeRO-3 and ``overlap_comm`` buckets (A8), offload above one rank (A9),
-1-bit Adam (A14), telemetry (A12), tensor, sequence and expert
-parallelism (A10), pipeline (A13), and resilience's fleet integrity
-plane and elastic supervisor (A15's second half).
+offload above one rank (A9), telemetry (A12), tensor, sequence and
+expert parallelism (A10), pipeline (A13), and resilience's fleet
+integrity plane and elastic supervisor (A15's second half).
 """
 
 import dataclasses
@@ -150,6 +178,7 @@ from ..utils.device import resolve_device
 from ..utils.distributed import get_world_size, init_distributed
 from ..utils.params import tree_leaves
 from . import constants as C
+from .fp16.onebit_adam import OnebitAdam
 from .config import DeepSpeedConfig, get_mesh_config
 from .csr_tensor import CSRTensor, csr_allreduce
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -159,7 +188,9 @@ from .activation_checkpointing.config import ACT_CHKPT
 from .lr_schedules import SCHEDULE_CLASSES
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .zero import qstate
+from .zero.buckets import BucketPlan
 from .zero.coordinator import FlatParamCoordinator
+from .zero.overlap import BucketedExchange, Zero3Params
 from .zero.stream import HostStream, chunk_rows_for
 
 logger = logging.getLogger(__name__)
@@ -247,19 +278,16 @@ class DeepSpeedEngine:
         self.mp_world_size = 1
         self._config = DeepSpeedConfig(config, world_size=dp)
         zc = self._config.zero_config
+        self.zero_stage = self._config.zero_optimization_stage
+        self._stage3 = self.zero_stage >= 3
         self._offload = zc.cpu_offload
-        if self._offload and self._config.zero_optimization_stage >= 3:
-            raise NotImplementedError("ZeRO-3 with cpu_offload is not "
-                                      "ported yet (ROADMAP A8)")
+        self._sparse_paths = self._configure_sparse_gradients(model)
+        self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
         if self._offload and dp > 1:
             raise NotImplementedError(
                 "ZeRO-Offload with the host state sharded over "
                 "data-parallel ranks is not ported yet (ROADMAP A9); it "
                 "runs at one rank")
-        if zc.overlap_comm is True and dp > 1:
-            raise NotImplementedError(
-                "overlap_comm (the bucketed gradient exchange) is not "
-                "ported yet (ROADMAP A8); set it to false or \"auto\"")
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -295,13 +323,17 @@ class DeepSpeedEngine:
                 mcfg.remat = True
                 logger.info("activation checkpointing enabled from config")
 
-        self._sparse_paths = self._configure_sparse_gradients(model)
         params0 = (model_parameters if model_parameters is not None
                    else model.init(self._config.seed))
+        plan = None
+        if self._comm_overlap:
+            _, leaves0 = tree_leaves(params0)
+            plan = BucketPlan([int(np.prod(np.shape(x))) for x in leaves0],
+                              dp=dp, reduce_bucket_size=zc.reduce_bucket_size,
+                              allgather_bucket_size=zc.allgather_bucket_size)
         self.flat = FlatParamCoordinator(
-            params0, stage=self._config.zero_optimization_stage,
-            dp_size=dp, dp_rank=self.dp_rank,
-            mesh=None if self._offload else mesh)
+            params0, stage=self.zero_stage, dp_size=dp, dp_rank=self.dp_rank,
+            mesh=None if self._offload else mesh, plan=plan)
         self.segments = self.flat.segments
         self._partitioned = self.flat.partitioned
         self._row_shard = self.flat.row_shard()
@@ -318,35 +350,53 @@ class DeepSpeedEngine:
             theta=cfg.pld_params["theta"], gamma=cfg.pld_params["gamma"])
             if cfg.pld_enabled else None)
 
-        # compute params: one flat buffer; the param dict is its views,
-        # each an autograd leaf whose .grad is a view of one flat buffer
-        self._compute = torch.empty(self.flat.flat_shape,
-                                    dtype=self.compute_dtype,
-                                    device=self.device)
-        self._grad = torch.zeros_like(self._compute)
-        self.params = self.flat.unflatten_params(self._compute)
-        grads = self.flat.unflatten_params(self._grad)
-        _attach_grads(self.params, grads)
         acc = self.gradient_accumulation_steps()
         # the JAX rule: the gradient keeps the compute dtype only where
         # nothing sums into it (one rank, no accumulation); the exchange
         # and the accumulation sum in fp32
         summed = acc > 1 or dp > 1
-        stage2 = self._partitioned and self._config.zero_optimization_stage \
-            == 2
+        # stages 2 and 3 reduce-scatter every micro-batch and accumulate
+        # the rank's rows
+        per_micro = self._partitioned and self.zero_stage >= 2
         self._acc = (torch.zeros(self.flat.flat_shape, dtype=torch.float32,
                                  device=self.device)
-                     if summed and not stage2
+                     if summed and not per_micro
                      and self.compute_dtype != torch.float32 else None)
         # the rank's rows of the reduced gradient, in the exchange's
-        # dtype (stage 2 accumulates the micro-batches there)
+        # dtype (stages 2 and 3 accumulate the micro-batches there)
         self._gshard = (torch.zeros(
             self.flat.shard_shape,
             dtype=torch.float32 if summed else self.compute_dtype,
             device=self.device) if self._partitioned else None)
+        self._exchange = (BucketedExchange(plan, mesh, self._gshard)
+                          if plan is not None else None)
+        self._z3 = None
+        if self._stage3 and plan is not None:
+            # ZeRO-3 under overlap: no flat compute or gradient buffer;
+            # the model reads a lazy tree gathered group by group
+            self._compute = self._grad = None
+            self._exchange.max_inflight = 2 * max(
+                hi - lo for lo, hi in plan.ag_groups)
+            self._z3 = Zero3Params(self.flat, self.master, self.compute_dtype,
+                                   self._exchange)
+            self.params = self._z3.params
+        else:
+            # compute params: one flat buffer; the param dict is its
+            # views, each an autograd leaf whose .grad is a view of one
+            # flat buffer
+            self._compute = torch.empty(self.flat.flat_shape,
+                                        dtype=self.compute_dtype,
+                                        device=self.device)
+            self._grad = torch.zeros_like(self._compute)
+            self.params = self.flat.unflatten_params(self._compute)
+            grads = self.flat.unflatten_params(self._grad)
+            _attach_grads(self.params, grads)
+            if self._exchange is not None:
+                self._attach_bucket_hooks()
         self._step_loss = None
         self._step_tokens = 0   # the step's input tokens on this rank
         self._in_train_batch = False
+        self._compute_live = True
         self._refresh_params()
 
         self.training_dataloader = None
@@ -454,9 +504,125 @@ class DeepSpeedEngine:
                     "needs zero_optimization.cpu_offload: true")
             return cpu_adam.DeepSpeedCPUAdam(**params)
         if name == C.ONEBIT_ADAM_OPTIMIZER:
-            raise NotImplementedError("1-bit Adam is not ported yet (ROADMAP "
-                                      "A14)")
+            return self._configure_onebit(params)
         raise ValueError(f"Unknown optimizer {name!r}")
+
+    def _configure_onebit(self, params):
+        """1-bit Adam with the JAX engine's restrictions (its
+        ``:3412-3440``; the ZeRO one is the optimizer's own)."""
+        opt = OnebitAdam(
+            dp=self.dp_world_size, zero_stage=self.zero_stage,
+            freeze_step=params.pop(C.ONEBIT_FREEZE_STEP, 100000), **params)
+        if self._offload:
+            raise ValueError(
+                "OneBitAdam does not compose with cpu_offload: its per-rank "
+                "error-feedback state must stay device-resident for the "
+                "compressed collective")
+        if self._config.fp16_enabled and self.dynamic_loss_scale_enabled:
+            raise ValueError(
+                "OneBitAdam's compressed phase does not support fp16 dynamic "
+                "loss scaling; use bf16 or a static scale")
+        clip = float(self._config.gradient_clipping or 0.0)
+        if clip > 0.0:
+            logger.warning(
+                "OneBitAdam: gradient_clipping=%s applies only to the "
+                "warmup (dense) phase; the compressed phase exchanges "
+                "1-bit momenta and cannot clip by global grad norm "
+                "(matches reference onebit_adam.py behavior)", clip)
+        return opt
+
+    def _onebit_compressing(self):
+        """True in 1-bit Adam's compressed phase: the backward makes no
+        gradient exchange and the step's exchange is the compressed
+        all-reduce of the momentum."""
+        return (isinstance(self.optimizer, OnebitAdam)
+                and self.optimizer.compressing(self.global_steps))
+
+    def _resolve_comm_overlap(self, zc, client_optimizer):
+        """``zero_optimization.overlap_comm`` (auto, true, false) against
+        what the bucketed exchange supports (JAX ``engine.py:1767-1816``).
+        Returns ``(enabled, reason)``; ``reason`` is None exactly where
+        the bucketed exchange could run.  ``true`` raises on an
+        unsupported config, ``"auto"`` turns it on wherever it is
+        supported, ``false`` keeps the fused exchange."""
+        reason = None
+        shape = self.mesh.shape if self.mesh is not None else {}
+        if self.zero_stage not in (2, 3):
+            reason = (f"requires ZeRO stage 2 or 3 (the sharded-gradient "
+                      f"exchange rides the shard-major flat layout; "
+                      f"stage={self.zero_stage})")
+        elif self.dp_world_size <= 1:
+            reason = ("requires dp > 1 (a single data group has no "
+                      "gradient exchange to overlap)")
+        elif any(sz > 1 for ax, sz in shape.items() if ax != DATA_AXIS):
+            reason = (f"requires a pure data-parallel mesh (got "
+                      f"{shape}); model/pipe/seq/expert axes keep the "
+                      f"GSPMD exchange")
+        elif zc.cpu_offload:
+            reason = ("does not compose with cpu_offload (the streamed "
+                      "update owns the flat chunk layout)")
+        elif self._config.sparse_gradients_enabled:
+            reason = ("does not compose with sparse_gradients (its "
+                      "shard_map step owns the gradient exchange)")
+        else:
+            if client_optimizer is not None:
+                opt_ok = type(client_optimizer).__name__ == "FusedAdam"
+            else:
+                name = (self._config.optimizer_name
+                        or C.ADAM_OPTIMIZER).lower()
+                opt_ok = name in (C.ADAM_OPTIMIZER, "adamw")
+            if not opt_ok:
+                reason = ("requires the flat Adam/AdamW optimizer (the "
+                          "per-bucket update must be elementwise; LAMB "
+                          "trust ratios and segment-aware optimizers "
+                          "need the whole buffer)")
+        cfg = zc.overlap_comm
+        if cfg is False:
+            return False, reason
+        if cfg is True:
+            if reason is not None:
+                raise ValueError(
+                    f"zero_optimization.overlap_comm: true but the "
+                    f"bucketed exchange {reason}")
+            return True, None
+        return reason is None, reason
+
+    def comm_overlap_enabled(self):
+        """True when the bucketed exchange runs (``overlap_comm``)."""
+        return self._comm_overlap
+
+    def collective_schedule(self):
+        """The bucketed exchange's geometry (``{overlap, rs_buckets,
+        ag_buckets, reduce_bucket_size, allgather_bucket_size, rows}``),
+        or None where it is off."""
+        if self.flat.plan is None:
+            return None
+        return dict(self.flat.plan.schedule(), overlap=True)
+
+    def _attach_bucket_hooks(self):
+        """A post-accumulate-grad hook on every leaf: when the last leaf
+        of a bucket has its gradient (a tied leaf once, after all its
+        uses), the bucket is ready to reduce-scatter."""
+        plan = self.flat.plan
+        self._bucket_left = [0] * plan.n_buckets
+        _, leaves = tree_leaves(self.params)
+        for i, p in enumerate(leaves):
+            p.register_post_accumulate_grad_hook(
+                lambda _p, b=plan.bucket_of_leaf[i]: self._leaf_ready(b))
+
+    def _leaf_ready(self, b):
+        if not self._exchange.active:
+            return
+        self._bucket_left[b] -= 1
+        if self._bucket_left[b] == 0:
+            self._exchange.ready(b, self._bucket_block)
+
+    def _bucket_block(self, b):
+        """Bucket ``b``'s rows of the gradient, in fp32 (the exchange's
+        dtype)."""
+        bk = self.flat.plan.buckets[b]
+        return self._grad[bk.start_row:bk.start_row + bk.rows].to(
+            self._gshard.dtype)
 
     def _configure_sparse_gradients(self, model):
         """The leaves whose gradients exchange row-sparse under
@@ -629,7 +795,8 @@ class DeepSpeedEngine:
             self._stream.sync_host()
             self.optimizer.update(self.opt_state, self.master,
                                   self._host_grad, hp)
-            self._params_from_host()
+            if not self._stage3:
+                self._params_from_host()
             return
         stream = self._stream
         host = {"master": self.master}
@@ -661,8 +828,10 @@ class DeepSpeedEngine:
                     v[name].copy_(q)
                     if r is not None:
                         v["res/" + name].copy_(r)
-            # the folded param cast, from the stored master
-            self._compute[r0:r0 + rc].copy_(v["master"])
+            if not self._stage3:
+                # the folded param cast, from the stored master (ZeRO-3
+                # casts before the next forward instead)
+                self._compute[r0:r0 + rc].copy_(v["master"])
 
         stream.run(host, chunk, writes)
         self.opt_state.step = step0 + 1
@@ -756,19 +925,58 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------- state
     def _refresh_params(self):
+        """After the master changed: the compute params as its cast, or,
+        under ZeRO-3, none until the next forward gathers them."""
+        if self._stage3:
+            self._release_compute()
+        else:
+            self._cast_params()
+
+    def _cast_params(self):
         """Cast the master into the compute params (in place: the param
         dict's views see it); under offload, from the host master;
-        partitioned, each rank casts its rows and one all-gather in the
-        compute dtype assembles them (JAX ``_gather_cast_leaves``,
-        ``engine.py:2947-2985``)."""
+        partitioned, each rank casts its rows and all-gathers in the
+        compute dtype assemble them (JAX ``_gather_cast_leaves``,
+        ``engine.py:2947-2990``): one all-gather, or under a bucket plan
+        one per ``ag_group``, each group's buckets then moved from
+        rank-major pieces into the canonical rows."""
         with torch.no_grad():
             if self._offload:
                 self._params_from_host()
+            elif self.flat.plan is not None:
+                plan, handles = self.flat.plan, []
+                for g in range(len(plan.ag_groups)):
+                    p0, prows = plan.group_rows(g)[2:]
+                    piece = self.master[p0:p0 + prows].to(self.compute_dtype)
+                    handles.append((g, *comm.all_gather(
+                        piece, DATA_AXIS, mesh=self.mesh, async_op=True)))
+                for g, full, handle in handles:
+                    handle.wait()
+                    c0, rows = plan.group_rows(g)[:2]
+                    plan.canonical_group(full, g,
+                                         out=self._compute[c0:c0 + rows])
             elif self._partitioned:
                 comm.all_gather(self.master.to(self.compute_dtype),
                                 DATA_AXIS, mesh=self.mesh, out=self._compute)
             else:
                 self._compute.copy_(self.master)
+
+    def _gather_compute(self):
+        """ZeRO-3 without overlap: the whole compute buffer, gathered
+        (allocated again and cast from the master) unless it is live."""
+        if self._compute_live:
+            return
+        self._compute.untyped_storage().resize_(
+            self._compute.numel() * self._compute.element_size())
+        self._compute_live = True
+        self._cast_params()
+
+    def _release_compute(self):
+        """ZeRO-3 without overlap: free the compute buffer's memory (the
+        param dict's views stay, and see it again once gathered)."""
+        if self._compute is not None and self._compute_live:
+            self._compute.untyped_storage().resize_(0)
+            self._compute_live = False
 
     def _to_device(self, batch):
         """A host batch (numpy or tensor leaves) on the engine's device:
@@ -822,30 +1030,63 @@ class DeepSpeedEngine:
         for the call only: a loss that counts items (labels, unmasked
         keys) divides by the global batch's count through it
         (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`), a
-        collective that the engine's callers make on every rank."""
+        collective that the engine's callers make on every rank.  Under
+        ZeRO-3 the params are gathered first: the whole buffer without
+        overlap, and group by group as the model reads them with it."""
+        batch = self._to_device(batch)
         with current_mesh(self.mesh):
-            return self._loss_fn(self.params, self._to_device(batch),
-                                 **kwargs)
+            if self._z3 is not None:
+                phase = "forward" if kwargs.get("train") else "eval"
+                with self._z3.scope(phase):
+                    return self._loss_fn(self.params, batch, **kwargs)
+            if self._stage3:
+                self._gather_compute()
+            return self._loss_fn(self.params, batch, **kwargs)
 
     def backward(self, loss):
         """Gradients of ``loss`` × the loss scale / (accumulation steps ×
         data-parallel ranks) into the flat gradient buffer
         (fp32-accumulated across micro-batches under bf16 or fp16 with
         accumulation, and above one rank).  The scale is 1 without fp16,
-        and then no multiply is made.  Under ZeRO-2 the micro-batch's
-        gradient is reduce-scattered here onto its owners' rows."""
+        and then no multiply is made.  Under ZeRO-2 and 3 the
+        micro-batch's gradient is reduce-scattered onto its owners' rows:
+        after the backward, or under ``overlap_comm`` bucket by bucket
+        during it.  1-bit Adam's compressed phase keeps each rank's
+        gradient local (divided by the accumulation steps only) and
+        unscaled: the JAX compressed program applies no loss scale
+        (``onebit_adam.py:172-177``), and its momentum mixes the
+        gradient with the unscaled momentum of the warmup."""
+        compressing = self._onebit_compressing()
         scaled = loss.float()
-        if self._config.fp16_enabled:
+        if self._config.fp16_enabled and not compressing:
             scaled = scaled * self._scale_state.cur_scale
-        (scaled / (self.gradient_accumulation_steps()
-                   * self.dp_world_size)).backward()
-        if self._partitioned and self._config.zero_optimization_stage == 2:
-            self._reduce_scatter_grad(
-                accumulate=self.gradient_accumulation_steps() > 1)
+        acc = self.gradient_accumulation_steps()
+        divisor = acc if compressing else acc * self.dp_world_size
+        # with accumulation the rank's rows sum the micro-batches (the
+        # step zeroes them)
+        accumulate = acc > 1
+        if self._exchange is not None:
+            if self._z3 is None:
+                self._bucket_left = [b.leaf_hi - b.leaf_lo
+                                     for b in self.flat.plan.buckets]
+            self._exchange.start(accumulate, ordered=self._z3 is None)
+        if self._z3 is not None:
+            with self._z3.scope("backward"):
+                (scaled / divisor).backward()
+        else:
+            (scaled / divisor).backward()
+        if self._exchange is not None:
+            self._exchange.finish(self._bucket_block)
+            if self._grad is not None:
+                self._grad.zero_()
+        elif self._partitioned and self.zero_stage >= 2:
+            self._reduce_scatter_grad(accumulate=acc > 1)
             self._grad.zero_()
         elif self._acc is not None:
             self._acc.add_(self._grad)
             self._grad.zero_()
+        if self._stage3:
+            self._release_compute()
         self._losses.append(loss.detach())
         self.micro_steps += 1
         self.global_samples += (self.train_micro_batch_size_per_gpu()
@@ -868,7 +1109,7 @@ class DeepSpeedEngine:
     def _exchange_gradient(self):
         """The step's gradient after the exchange (JAX ``engine.py:1896-1913``
         for the dtype): this rank's rows of the sum over the ranks
-        (stages 1, 2), or the whole sum on every rank (stage 0; declared
+        (stages 1-3), or the whole sum on every rank (stage 0; declared
         embedding leaves row-sparse under ``sparse_gradients``); the
         local gradient without a mesh."""
         if self._partitioned:
@@ -930,58 +1171,93 @@ class DeepSpeedEngine:
         all-reduce before that fetch, so every rank decides alike."""
         if not self.is_gradient_accumulation_boundary():
             return
-        overflow, mean_loss = False, None
         with torch.no_grad():
-            g = self._exchange_gradient()
-            zero = torch.zeros((), dtype=torch.float32, device=self.device)
-            flag = (torch.logical_not(torch.isfinite(g).all()).float()
-                    if self._skip_bad else zero)
-            loss = torch.stack(self._losses).float().mean()
-            # an overflowed step discards g, so unscaling first is safe
-            g = self._unscale(g)
-            clip = float(self.gradient_clipping() or 0.0)
-            norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
-                    if clip > 0.0 else None)
-            if self.mesh is not None:
-                # a sharded gradient's norm is the root of the ranks'
-                # summed squares; stage 0's is whole on every rank
-                sharded = norm is not None and self._partitioned
-                stats = comm.psum(
-                    torch.stack([flag, loss, norm * norm if sharded
-                                 else zero]), DATA_AXIS, self.mesh)
-                flag, loss = stats[0], stats[1] / self.dp_world_size
-                if sharded:
-                    norm = stats[2].sqrt()
-            self._step_loss = loss
-            if self._skip_bad:
-                # the one host sync of the step: the overflow flag and the
-                # mean loss in one copy
-                fetched = torch.stack([flag, loss]).tolist()
-                overflow, mean_loss = fetched[0] > 0, fetched[1]
-            if not overflow:
-                if norm is not None:
-                    coef = torch.clamp(clip / (norm + 1e-6), max=1.0)
-                    g = g * coef.to(g.dtype)
-                if self._offload:
-                    # writes the compute params chunk by chunk
-                    self._offload_update(g)
-                else:
-                    shard = ({"shard": self._row_shard}
-                             if self._partitioned else {})
-                    self.optimizer.update(self.opt_state, self.master, g,
-                                          self.optimizer.hyperparams(),
-                                          segments=self.segments, **shard)
-            if not self._offload or overflow:
-                # after a skipped step too: the compute params are the
-                # master's cast, whatever wrote into them (an offload
-                # update writes them chunk by chunk itself)
-                self._refresh_params()
-            self._grad.zero_()
+            if self._onebit_compressing():
+                overflow, mean_loss = self._compressed_step()
+            else:
+                overflow, mean_loss = self._dense_step()
+            if self._grad is not None:
+                self._grad.zero_()
             if self._acc is not None:
                 self._acc.zero_()
             if self._partitioned and self.gradient_accumulation_steps() > 1:
                 self._gshard.zero_()
             self._step_tokens = 0
+        self._after_step(overflow, mean_loss)
+
+    def _compressed_step(self):
+        """1-bit Adam's compressed phase (JAX ``onebit_adam.py:176-241``):
+        the rank's local gradient into its momentum, the momentum's 1-bit
+        consensus, the update on the frozen variance; the loss is the
+        mean over the ranks.  No clipping and no overflow check, as in
+        the JAX program.  Returns ``(False, mean loss or None)``: the
+        loss is fetched where the dense step fetches it (fp16 or
+        resilience), so the anomaly guard sees the step as the JAX
+        engine's does."""
+        g = self._acc if self._acc is not None else self._grad
+        loss = torch.stack(self._losses).float().mean()
+        if self.mesh is not None:
+            loss = comm.pmean(loss, DATA_AXIS, self.mesh)
+        self._step_loss = loss
+        self.optimizer.compressed_update(self.opt_state, self.master, g,
+                                         self.optimizer.hyperparams(),
+                                         mesh=self.mesh)
+        self._refresh_params()
+        return False, (float(loss) if self._skip_bad else None)
+
+    def _dense_step(self):
+        """The exchange, the checks, the clip and the update of a step;
+        returns ``(overflow, mean loss or None)``."""
+        overflow, mean_loss = False, None
+        g = self._exchange_gradient()
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        flag = (torch.logical_not(torch.isfinite(g).all()).float()
+                if self._skip_bad else zero)
+        loss = torch.stack(self._losses).float().mean()
+        # an overflowed step discards g, so unscaling first is safe
+        g = self._unscale(g)
+        clip = float(self.gradient_clipping() or 0.0)
+        norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
+                if clip > 0.0 else None)
+        if self.mesh is not None:
+            # a sharded gradient's norm is the root of the ranks'
+            # summed squares; stage 0's is whole on every rank
+            sharded = norm is not None and self._partitioned
+            stats = comm.psum(
+                torch.stack([flag, loss, norm * norm if sharded
+                             else zero]), DATA_AXIS, self.mesh)
+            flag, loss = stats[0], stats[1] / self.dp_world_size
+            if sharded:
+                norm = stats[2].sqrt()
+        self._step_loss = loss
+        if self._skip_bad:
+            # the one host sync of the step: the overflow flag and the
+            # mean loss in one copy
+            fetched = torch.stack([flag, loss]).tolist()
+            overflow, mean_loss = fetched[0] > 0, fetched[1]
+        if not overflow:
+            if norm is not None:
+                coef = torch.clamp(clip / (norm + 1e-6), max=1.0)
+                g = g * coef.to(g.dtype)
+            if self._offload:
+                # writes the compute params chunk by chunk
+                self._offload_update(g)
+            else:
+                shard = ({"shard": self._row_shard}
+                         if self._partitioned else {})
+                self.optimizer.update(self.opt_state, self.master, g,
+                                      self.optimizer.hyperparams(),
+                                      segments=self.segments, **shard)
+        if not self._offload or overflow or self._stage3:
+            # after a skipped step too: the compute params are the
+            # master's cast, whatever wrote into them (an offload
+            # update writes them chunk by chunk itself)
+            self._refresh_params()
+        return overflow, mean_loss
+
+    def _after_step(self, overflow, mean_loss):
+        """The step's bookkeeping: the loss scale, the counters, the
+        guard, the LR schedule, PLD and the print cadence."""
         if self.dynamic_loss_scale_enabled:
             args = self._scale_args
             self._scale_state = update_scale_state(
@@ -1081,6 +1357,15 @@ class DeepSpeedEngine:
         ``gradient_accumulation_steps`` batches drawn from an iterator;
         under a mesh, each rank's batch is its slice and a loss (a 0-d
         result) is averaged over the ranks."""
+        live = self._compute_live
+        try:
+            return self._eval(batch)
+        finally:
+            if not live:
+                # ZeRO-3: free what the evaluation gathered
+                self._release_compute()
+
+    def _eval(self, batch):
         with torch.no_grad():
             if not hasattr(batch, "__next__"):
                 return self._rank_mean(self._loss(batch, rng=None,
@@ -1109,10 +1394,8 @@ class DeepSpeedEngine:
         an fp32 copy where the host master is stored reduced, or of the
         ranks' rows gathered under ZeRO-1/2, which every rank calls)."""
         self._sync_host()
-        master = self.master.float()
-        if self._partitioned:
-            master = comm.all_gather(master, DATA_AXIS, mesh=self.mesh)
-        return self.flat.unflatten_params(master)
+        return self.flat.unflatten_params(
+            self.flat.canonical_master(self.master.float()))
 
     # -------------------------------------------------------- checkpoints
     def _params_to_host(self):
@@ -1120,7 +1403,14 @@ class DeepSpeedEngine:
         ONE host copy of the flat compute buffer, which no step writes.
         The key is the ``/``-joined tree path, the JAX package's
         ``tree_path_key``."""
-        host = self._compute.detach().to("cpu", copy=True)
+        if self._stage3:
+            # no persistent compute params: the master's cast
+            with torch.no_grad():
+                flat = self.flat.canonical_master(self.master).to(
+                    self.compute_dtype)
+        else:
+            flat = self._compute.detach()
+        host = flat.to("cpu", copy=True)
         paths, leaves = tree_leaves(self.flat.unflatten_params(host))
         return {"/".join(path): leaf for path, leaf in zip(paths, leaves)}
 
@@ -1242,7 +1532,8 @@ class DeepSpeedEngine:
             self._restore_flat_state(opt_npz, meta, load_optimizer_states)
         with torch.no_grad():
             self._refresh_params()
-            self._grad.zero_()
+            if self._grad is not None:
+                self._grad.zero_()
             if self._acc is not None:
                 self._acc.zero_()
         self._losses = []
@@ -1335,16 +1626,45 @@ class DeepSpeedEngine:
     def _restore_opt_state(self, host):
         """Fill the optimizer state from ``{field path key: array}``
         (``.exp_avg``, ``.exp_avg_sq``, ``.step``): the flat buffers from
-        their unpadded form, in place; the host step as an int."""
+        their unpadded form, in place; the host step as an int.  A
+        rank-local buffer (1-bit Adam's error feedback, stored ``[dp,
+        ...]``) takes this rank's row, or restarts from zero, with a
+        warning, where the checkpoint's data-parallel degree differs (as
+        the JAX engine does)."""
+        local = self._rank_local_fields()
         for name, leaf in state_fields(self.opt_state).items():
             key = f".{name}"
             if key not in host:
                 raise CheckpointError(f"checkpoint missing optimizer state "
                                       f"opt/{key}")
-            if isinstance(leaf, torch.Tensor):
+            if name in local:
+                arr = np.asarray(host[key], np.float32)
+                if arr.shape == (self.dp_world_size, *leaf.shape):
+                    leaf.copy_(torch.from_numpy(arr[self.dp_rank]))
+                else:
+                    logger.warning(
+                        f"optimizer state {key}: checkpoint shape "
+                        f"{arr.shape} != current "
+                        f"{(self.dp_world_size, *leaf.shape)} (DP degree "
+                        f"changed); resetting to zeros")
+                    leaf.zero_()
+            elif isinstance(leaf, torch.Tensor):
                 self.flat.scatter_master_from_unpadded(host[key], out=leaf)
             else:
                 setattr(self.opt_state, name, int(host[key]))
+
+    def _rank_local_fields(self):
+        """The optimizer state fields that each rank holds for itself."""
+        fields = getattr(self.optimizer, "rank_local_fields", tuple)
+        return tuple(fields())
+
+    def _gather_rank_local(self, leaf):
+        """Every rank's copy of a rank-local state tensor, stacked ``[dp,
+        ...]`` on the host (a collective under a mesh)."""
+        t = leaf.detach()[None]
+        if self.mesh is not None:
+            t = comm.all_gather(t, DATA_AXIS, mesh=self.mesh)
+        return t.float().cpu().numpy()
 
 
 def _attach_grads(params, grads):

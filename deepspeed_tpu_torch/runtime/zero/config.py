@@ -2,9 +2,11 @@
 
 Parses and validates every key of the block as the JAX package does,
 in its order, so a bad config raises the same error class naming the
-same key in both packages.  The port's engine runs stages 0, 1 and 2 at
-one data-parallel rank, with ``cpu_offload`` (ROADMAP A9) at stage 1 and
-2; stage 3 is refused by the engine (A8).
+same key in both packages.  The port's engine runs stages 0 to 3 at any
+data-parallel degree, with ``cpu_offload`` (ROADMAP A9) at stages 2 and
+3 at one rank; ``overlap_comm`` (default ``"auto"``) picks the bucketed
+exchange of ``reduce_bucket_size`` buckets and ``allgather_bucket_size``
+groups wherever the JAX package does (ROADMAP A8).
 
 Two offload keys exist in the JAX package for XLA alone:
 ``offload_group_mb`` splits the host state into row groups under XLA's

@@ -1,7 +1,8 @@
 """The flat fp32 master and its views (port of
 ``deepspeed_tpu/runtime/zero/coordinator.py``: ``flatten_to_master``,
 ``unflatten_params``, ``gather_master_unpadded`` and its inverses
-``repad_unpadded`` / ``scatter_master_from_unpadded``, ``:512``, ``:528``).
+``repad_unpadded`` / ``scatter_master_from_unpadded``, ``:512``, ``:528``;
+the stage-3 and bucket-plan parts of ``:158-615``).
 
 Every parameter lives in one ``(rows, LANES)`` fp32 buffer in the
 row-aligned layout of :func:`~deepspeed_tpu_torch.ops.op_common.build_segments`,
@@ -20,7 +21,17 @@ row range of the master, so the same range of the optimizer state
 :meth:`gather_master_unpadded` / :meth:`scatter_master_from_unpadded`
 gather and re-pad across the ranks, so a checkpoint's unpadded form is
 the same at every degree.  Stage 0 keeps one whole buffer on every rank.
-Stage 3 is ROADMAP A8.
+Stage 3 shards the master as stages 1 and 2 do; the engine then keeps no
+persistent compute copy of the parameters (it gathers them for the
+forward and the backward only).
+
+Under ``overlap_comm`` (a :class:`~deepspeed_tpu_torch.runtime.zero.buckets.BucketPlan`,
+``plan``) the compute params and the gradient take the plan's canonical
+layout (:attr:`segments` is the plan's: buckets one after another, each
+padded to a multiple of the data-parallel degree), and the master and
+the optimizer state its shard-major order: each rank's contiguous rows
+are its piece of every bucket.  The checkpoint form stays the canonical
+unpadded one, through the plan, so every layout loads every other.
 
 Under ``cpu_offload`` (JAX ``coordinator.py:225-242``, ``:352-380``) the
 master and the optimizer state are host buffers in their storage dtype,
@@ -47,19 +58,18 @@ class FlatParamCoordinator:
     master and the optimizer state at stages 1 and 2."""
 
     def __init__(self, params_template, stage=0, dp_size=1, dp_rank=0,
-                 mesh=None):
-        if stage >= 3:
-            raise NotImplementedError("ZeRO stage 3 is not ported yet "
-                                      "(ROADMAP A8)")
+                 mesh=None, plan=None):
         self.stage = stage
         self.dp_size = dp_size
         self.dp_rank = dp_rank
         self.mesh = mesh
+        self.plan = plan
         self.paths, leaves = tree_leaves(params_template)
         self.shapes = [tuple(np.shape(leaf)) for leaf in leaves]
         sizes = [int(np.prod(shape)) for shape in self.shapes]
-        self.segments = build_segments(sizes,
-                                       pad_to=dp_size if stage >= 1 else 1)
+        self.segments = (plan.segments if plan is not None else
+                         build_segments(sizes,
+                                        pad_to=dp_size if stage >= 1 else 1))
         self.partitioned = stage >= 1 and mesh is not None
         self.shard_rows = (self.segments.rows // dp_size if self.partitioned
                            else self.segments.rows)
@@ -100,7 +110,7 @@ class FlatParamCoordinator:
                 leaf = leaf.detach().float().cpu().numpy()
             host[ro * LANES:ro * LANES + n] = np.asarray(
                 leaf, np.float32).reshape(-1)
-        host = host.reshape(self.segments.shape)
+        host = self.storage_from_canonical(host)
         return torch.from_numpy(
             host[self.row0:self.row0 + self.shard_rows]).to(device)
 
@@ -144,6 +154,24 @@ class FlatParamCoordinator:
                                           self.segments.sizes, self.shapes)]
         return tree_from_leaves(self.paths, leaves)
 
+    def storage_from_canonical(self, host):
+        """A host array in the canonical layout as the master stores it
+        (the plan's shard-major order; itself without a plan)."""
+        host = np.asarray(host).reshape(self.segments.shape)
+        return (self.plan.storage_from_canonical(host)
+                if self.plan is not None else host)
+
+    def canonical_master(self, master):
+        """The whole master (any buffer in its layout, every rank's rows
+        gathered when partitioned: a collective) in the canonical layout
+        of the compute params, on its device."""
+        if self.partitioned:
+            master = comm.all_gather(master.detach(), DATA_AXIS,
+                                     mesh=self.mesh)
+        if self.plan is None:
+            return master
+        return self.plan.canonical_from_storage(master)
+
     def gather_master_unpadded(self, master):
         """Concatenated true-sized 1-D fp32 host copy (checkpoint
         format) of ``master`` or any buffer in its layout: the segments
@@ -153,10 +181,7 @@ class FlatParamCoordinator:
         owns its memory: no later step writes it.  Partitioned, ``master``
         is this rank's rows: every rank gathers the whole buffer first
         (a collective: every rank calls it)."""
-        if self.partitioned:
-            master = comm.all_gather(master.detach(), DATA_AXIS,
-                                     mesh=self.mesh)
-        view = master.detach().reshape(-1)
+        view = self.canonical_master(master).detach().reshape(-1)
         parts = [view[ro * LANES:ro * LANES + n] for ro, n in
                  zip(self.segments.row_offsets, self.segments.sizes)]
         if not parts:
@@ -186,7 +211,7 @@ class FlatParamCoordinator:
         buffer in this layout on the engine's device (this rank's rows of
         it when partitioned), padding zero (the JAX coordinator's
         ``scatter_master_from_unpadded``, in place).  Returns ``out``."""
-        full = self.repad_unpadded(unpadded)
+        full = self.storage_from_canonical(self.repad_unpadded(unpadded))
         with torch.no_grad():
             out.copy_(torch.from_numpy(
                 full[self.row0:self.row0 + self.shard_rows]))

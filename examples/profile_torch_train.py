@@ -20,14 +20,24 @@ full width and depth, exactly as that script's phase does:
   Adam, bf16, ZeRO-2 with ``cpu_offload``, fp32 host state streamed in
   512 MB chunks at depth 2).
 
+- ``--zero3``: the GPT-2 set-up at ZeRO stage 3 (``chip_smoke.py``'s
+  phase 31: the compute params gathered before each forward and freed
+  after its backward);
+- ``--onebit``: the BERT set-up under ``OneBitAdam`` with ``freeze_step``
+  2 (phase 32); the profiled steps are compressed ones, and the result
+  adds the compressed all-reduce's device ms and bytes beside a dense
+  fp32 all-reduce's of the same buffer.
+
 ``--dp`` (with the GPT-2 or the BERT set-up) trains on the data-parallel
 path instead, as ``chip_smoke.py``'s phase 30 does: ``torch.distributed``
 on NCCL at world size 1 through a ``file://`` store under ``build/``, and
 ``make_mesh({"data": 1})`` (the ZeRO-2 reduce-scatter, the rank's rows
-of the master and the all-gather of the params).
+of the master and the all-gather of the params).  ``--zero3`` and
+``--onebit`` always train so.
 
     python3 examples/profile_torch_train.py [--sparse | --bert |
-        --bert-sparse | --offload] [--dp] [--out PATH]
+        --bert-sparse | --offload | --zero3 | --onebit] [--dp]
+        [--out PATH]
 
 Step wall time is a host clock around ``train_batch`` calls that end in
 ``torch.cuda.synchronize()``, median of 5 after 2 warm-up steps.  Device
@@ -70,6 +80,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from deepspeed_tpu_torch import comm  # noqa: E402
 from deepspeed_tpu_torch.ops import op_builder  # noqa: E402
 from deepspeed_tpu_torch.parallel import DATA_AXIS, make_mesh  # noqa: E402
 from deepspeed_tpu_torch.utils.distributed import \
@@ -87,7 +98,15 @@ SETUPS = {
                     chip_smoke.SPARSE_ATTN[0::2]),
     "offload": (chip_smoke.offload_large_setup, "gpt2-large",
                 (chip_smoke.LARGE_BATCH, chip_smoke.TRAIN_ATTN[2])),
+    "zero3": (lambda mesh=None: chip_smoke.train_setup(
+        config=chip_smoke.ZERO3_CONFIG, mesh=mesh), "gpt2-medium",
+              chip_smoke.TRAIN_ATTN[0::2]),
+    "onebit": (lambda mesh=None: chip_smoke.bert_train_setup(
+        config=chip_smoke.ONEBIT_CONFIG, mesh=mesh), "bert-large",
+               (chip_smoke.BERT_BATCH, chip_smoke.BERT_SEQ)),
 }
+# the modes that train on the data-parallel path whatever --dp says
+MESHED = ("zero3", "onebit")
 
 FAMILIES = (("B1 flash forward", ("flash_fwd",)),
             ("B2a flash dq", ("flash_bwd_dq",)),
@@ -116,7 +135,9 @@ LIBRARIES = {"gpt2": ("flash_attention_fwd", "flash_attention_bwd"),
              "sparse": ("flash_block_sparse_agg",),
              "bert": ("flash_attention_fwd", "flash_attention_bwd"),
              "bert-sparse": ("flash_block_sparse_agg",),
-             "offload": ("flash_attention_fwd", "flash_attention_bwd")}
+             "offload": ("flash_attention_fwd", "flash_attention_bwd"),
+             "zero3": ("flash_attention_fwd", "flash_attention_bwd"),
+             "onebit": ("flash_attention_fwd", "flash_attention_bwd")}
 
 
 def family(name, mode):
@@ -194,7 +215,8 @@ def main():
     parser.add_argument("--out", help="also write the result to this "
                         "JSON file")
     modes = parser.add_mutually_exclusive_group()
-    for mode in ("sparse", "bert", "bert-sparse", "offload"):
+    for mode in ("sparse", "bert", "bert-sparse", "offload", "zero3",
+                 "onebit"):
         modes.add_argument(f"--{mode}", dest="mode", action="store_const",
                            const=mode, help=f"profile the {mode} train "
                            f"set-up of chip_smoke.py instead of GPT-2's")
@@ -203,8 +225,9 @@ def main():
                         "make_mesh({'data': 1})); GPT-2 and BERT only")
     parser.set_defaults(mode="gpt2")
     args = parser.parse_args()
-    if args.dp and args.mode not in ("gpt2", "bert"):
+    if args.dp and args.mode not in ("gpt2", "bert", *MESHED):
         parser.error("--dp goes with the GPT-2 or the BERT set-up")
+    args.dp = args.dp or args.mode in MESHED
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 1
@@ -277,6 +300,15 @@ def main():
         "registers_spills": registers_spills(args.mode)}
     if args.mode == "offload":
         result["params_back_ms"] = params_back_ms(engine)
+    if args.mode == "onebit":
+        # a compressed step's collectives, then the exchange replayed
+        comm.counter.reset()
+        step()
+        torch.cuda.synchronize()
+        result["onebit_step_collectives"] = {
+            "calls": dict(comm.counter.calls),
+            "bytes": dict(comm.counter.bytes)}
+        result["onebit_exchange"] = chip_smoke.onebit_exchange_ms(engine)
     result["dp"] = args.dp
     if store_dir is not None:
         torch.distributed.destroy_process_group()

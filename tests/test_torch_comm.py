@@ -76,14 +76,39 @@ def test_reduce_scatter_allgather_roundtrip(ranks):
 
 
 def test_ppermute_ring():
-    """Point-to-point (pipeline, ROADMAP A13) and all-to-all (sequence and
-    expert parallelism, A10) are not ported: each raises, naming its
-    item."""
+    """Point-to-point (pipeline, ROADMAP A13) is not ported and raises,
+    naming its item; all-to-all runs on the data axis (1-bit Adam's
+    compressed all-reduce): over one member it returns its input, tiled
+    or stacked as ``jax.lax.all_to_all``, while the axes of sequence and
+    expert parallelism keep their refusal in the mesh (A10)."""
     x = torch.arange(8.0)
     with pytest.raises(NotImplementedError, match="A13"):
         comm.ppermute(x, DATA_AXIS, [(i, (i + 1) % 8) for i in range(8)])
+    one = Mesh({"data": 1})
+    assert torch.equal(comm.all_to_all(x, DATA_AXIS, 0, 0, mesh=one), x)
+    y = x.view(2, 4)
+    # the split dim (of the axis size) goes, a dim of it comes at 1
+    assert torch.equal(comm.all_to_all(y[None], DATA_AXIS, 0, 1,
+                                       tiled=False, mesh=one), y[:, None])
     with pytest.raises(NotImplementedError, match="A10"):
-        comm.all_to_all(x, DATA_AXIS, 0, 0)
+        make_mesh({"seq": 2})
+
+
+def test_all_to_all_and_async_collectives(ranks):
+    """On 4 ranks: rank r's chunk i goes to rank i, joined in rank order
+    (``tiled`` along dim 0, and stacked on a new dim 0 from a split dim
+    1); the asynchronous reduce-scatter and all-gather give the blocking
+    ones' results after ``wait``."""
+    for rank, got in enumerate(ranks):
+        want = np.stack([100 * src + 2 * rank + np.arange(2)
+                         for src in range(WORLD)]).astype(np.float32)
+        np.testing.assert_array_equal(got["a2a"], want.reshape(-1))
+        np.testing.assert_array_equal(got["a2a_stacked"], want[:, None])
+        assert got["a2a_u8"].dtype == np.uint8
+        np.testing.assert_array_equal(got["a2a_u8"], want.reshape(-1)
+                                      .astype(np.uint8))
+        np.testing.assert_array_equal(got["async_rs"], got["scattered"])
+        np.testing.assert_array_equal(got["async_ag"], got["roundtrip"])
 
 
 def test_mesh_grid_mpu_interface():

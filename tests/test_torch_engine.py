@@ -271,37 +271,62 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"fp16": {"enabled": True}}, None, "float16"),
-    ({"zero_optimization": {"stage": 3, "cpu_offload": True}},
-     NotImplementedError, "A8"),
-    ({"zero_optimization": {"stage": 3}}, NotImplementedError, "A8"),
-    ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
-     NotImplementedError, "A14"),
-    ({"optimizer": {"type": "Sgd", "params": {}}}, ValueError, "sgd"),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True},
-      "mesh": {"data": 2}}, NotImplementedError, "A9"),
-    ({"zero_optimization": {"stage": 2, "overlap_comm": True},
-      "mesh": {"data": 2}}, NotImplementedError, "A8")])
+    pytest.param({"fp16": {"enabled": True}}, None, "float16",
+                 id="change0-None-float16"),
+    pytest.param({"zero_optimization": {"stage": 3, "cpu_offload": True}},
+                 None, "zero3-offload", id="change1-NotImplementedError-A8"),
+    pytest.param({"zero_optimization": {"stage": 3}}, None, "zero3",
+                 id="change2-NotImplementedError-A8"),
+    pytest.param({"optimizer": {"type": "OneBitAdam",
+                                "params": {"lr": 1e-3}},
+                  "zero_optimization": {"stage": 0}}, None, "onebit",
+                 id="change3-NotImplementedError-A14"),
+    pytest.param({"optimizer": {"type": "Sgd", "params": {}}}, ValueError,
+                 "sgd", id="change4-ValueError-sgd"),
+    pytest.param({"zero_optimization": {"stage": 2, "cpu_offload": True},
+                  "mesh": {"data": 2}}, NotImplementedError, "A9",
+                 id="change5-NotImplementedError-A9"),
+    pytest.param({"zero_optimization": {"stage": 2, "overlap_comm": True},
+                  "mesh": {"data": 2}}, RuntimeError, "process group",
+                 id="change6-NotImplementedError-A8")])
 def test_unported_options_raise(change, error, match):
-    """Options the port does not have raise, naming their ROADMAP item;
-    fp16 (ROADMAP A4, ported) builds an engine whose compute params and
-    flat gradient are fp16, with the JAX package's dynamic scale.  Above
-    one data-parallel rank (a ``mesh`` here, handed to ``initialize``),
-    offload (A9) and the bucketed ``overlap_comm`` (A8) raise."""
+    """Options the port does not have raise, naming their ROADMAP item:
+    offload above one data-parallel rank (A9; a ``mesh`` here, handed to
+    ``initialize``).  The ids keep the refusals these cases once were:
+    fp16 (A4) builds an engine whose compute params and flat gradient
+    are fp16, with the JAX package's dynamic scale; ZeRO-3, alone and
+    under offload, and 1-bit Adam (A8, A14) build and train; the bucketed
+    ``overlap_comm`` at two ranks (A8) builds its bucket plan and goes on
+    to its first collective, which a mesh without a process group
+    cannot make."""
     change = dict(change)
     kw = {"mesh": Mesh(change.pop("mesh"))} if "mesh" in change else {}
     config = dict(ds_config("Adam", 1, 0.0), **change)
     if kw:
         config["train_batch_size"] *= kw["mesh"].size("data")
-    if error is None:
-        engine, *_ = torch_engine(config)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            torch_engine(config, **kw)
+        return
+    engine, *_ = torch_engine(config)
+    if match == "float16":
         assert str(engine.compute_dtype) == f"torch.{match}"
         assert engine._compute.dtype == engine._grad.dtype == torch.float16
         assert engine.fp16_enabled() and engine.dynamic_loss_scale()
         assert engine.loss_scale == 2.0 ** 32 and engine.skipped_steps == 0
         return
-    with pytest.raises(error, match=match):
-        torch_engine(config, **kw)
+    losses = [float(engine.train_batch(iter([b])))
+              for b in make_batches(2)]
+    assert all(np.isfinite(losses))
+    if match == "onebit":
+        assert type(engine.optimizer).__name__ == "OnebitAdam"
+        assert engine.optimizer.freeze_step == 100000
+        assert engine.opt_state.step == 2
+        return
+    # ZeRO-3: no compute params persist between the steps
+    assert engine.zero_optimization_stage() == 3
+    assert engine._compute.untyped_storage().nbytes() == 0
+    assert engine.zero_cpu_offload() == (match == "zero3-offload")
 
 
 def test_default_device_is_the_card():

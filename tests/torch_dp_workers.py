@@ -410,6 +410,22 @@ def collectives(rank, world, seed):
     inplace = full.clone()
     comm.psum(inplace, DATA_AXIS, mesh, out=inplace)
     out["psum_inplace"] = inplace.numpy()
+    # rank r sends [100 r + 2 i, 100 r + 2 i + 1] to rank i
+    chunks = (100 * rank + torch.arange(2 * world)).float()
+    out["a2a"] = comm.all_to_all(chunks, DATA_AXIS, 0, 0, mesh=mesh).numpy()
+    out["a2a_stacked"] = comm.all_to_all(
+        chunks.view(1, world, 2), DATA_AXIS, 1, 0, tiled=False,
+        mesh=mesh).numpy()
+    out["a2a_u8"] = comm.all_to_all(chunks.to(torch.uint8), DATA_AXIS, 0, 0,
+                                    mesh=mesh).numpy()
+    piece, handle = comm.reduce_scatter(full, DATA_AXIS, mesh=mesh,
+                                        async_op=True)
+    handle.wait()
+    out["async_rs"] = piece.numpy()
+    gathered, handle = comm.all_gather(piece, DATA_AXIS, mesh=mesh,
+                                       async_op=True)
+    handle.wait()
+    out["async_ag"] = gathered.numpy()
 
     d = csr_dense(touched=(rank, 2 * rank + 1, 50), seed=rank)
     csr = csr_tensor.CSRTensor.from_dense(torch.from_numpy(d), max_rows=4)
