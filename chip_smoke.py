@@ -22,7 +22,8 @@ activation checkpointing and the chunked LM loss (up to micro-batch 32),
 BERT-large under remat and Progressive Layer Drop, fine-tunes
 BERT-large on SQuAD- and MNLI-shaped batches, trains with the state on
 the host (ZeRO-Offload), and trains GPT-2-medium and BERT-large again
-through the data-parallel mesh on NCCL.  Phases, in order; any
+through the data-parallel mesh on NCCL, and trains GPT-2-medium as a
+``PipelineModule`` through the pipeline engine.  Phases, in order; any
 failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
@@ -230,7 +231,7 @@ failure raises, so the script exits non-zero:
               batch 4, dropout 0, remat, ``loss_chunk`` 256, Adam lr
               1e-4, ZeRO-2, bf16): (a) no offload, (b) fp32 host state,
               (c) bf16 SR, (d) bf16 with error feedback, (e)
-              DeepSpeedCPUAdam; 2 warm-up and 5 timed steps each,
+              DeepSpeedCPUAdam; 2 warm-up and 3 timed steps each,
               finite and falling; step ms (median, spread), device peak,
               pinned bytes, host-state bytes a step, the stream's H2D
               and D2H GB/s and its wall against the sum of its copies,
@@ -275,7 +276,23 @@ failure raises, so the script exits non-zero:
               step, no dense all-reduce in the compressed steps, the
               compressed all-reduce's bytes and device ms against a
               dense fp32 all-reduce's of the same buffer; a 2-layer fp32
-              BERT through the freeze, card against CPU.
+              BERT through the freeze, card against CPU;
+33. pipe     — GPT-2-medium (phase 6's weights and batch) as a
+              ``PipelineModule`` (``examples/train_torch_pipe.py``: the
+              embedding tied to the LM head, 24 ``TransformerLayer``
+              blocks, the final norm) through ``initialize`` and the
+              ``PipelineEngine`` at one stage (its
+              ``DataParallelSchedule``), global batch 8 as 4
+              micro-batches of 2, bf16, Lamb, ZeRO-2: at dropout 0 the
+              first 3 losses within rtol 2e-2 (bf16) of the
+              ``models/gpt2.py`` engine's on the same weights and
+              micro-batches, the executed stream its
+              ``schedule_trace``; then at dropout 0.1, 1 warm-up and 3
+              timed steps: 24 B1, B2a and B2b launches a micro-batch and
+              B4 in every one of them, step ms, MFU, peak memory; then a
+              tiny GPT-2 at pipe 2 and at pipe 2 with interleave 2 on
+              two gloo CPU processes against one stage (losses to rtol
+              1e-5).
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -335,7 +352,8 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
-from deepspeed_tpu_torch.parallel import DATA_AXIS, make_mesh
+from deepspeed_tpu_torch.parallel import DATA_AXIS, PIPE_AXIS, make_mesh
+from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.params import params_from_numpy, tree_leaves
 
@@ -3439,7 +3457,8 @@ BF16_EF = {"master": "bf16", "momentum": "bf16", "variance": "bf16",
 # loss_chunk 256, Adam lr 1e-4, ZeRO-2, bf16
 BENCH_OFFLOAD_MODEL = dict(embd_dropout=0.0, attn_dropout=0.0,
                            resid_dropout=0.0, remat=True, loss_chunk=256)
-LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 2, 5
+# 3 timed steps since PR 16 (5 before): the script's time aim
+LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 2, 3
 XL_WARMUP, XL_TIMED = 2, 3
 # GPT-2-xl's depth in phase 28, cut from 48 to keep the script's time
 XL_LAYERS = 24
@@ -3621,7 +3640,7 @@ def offload_large_setup(zero=OFFLOAD, optimizer=None, params=None):
 def phase_offload_large(card, results):
     """27. bench.py's GPT-2-large offload leg, five rows: (a) without
     offload, (b) fp32 host state, (c) bf16 SR, (d) bf16 with error
-    feedback, (e) DeepSpeedCPUAdam; 2 warm-up and 5 timed steps each.
+    feedback, (e) DeepSpeedCPUAdam; 2 warm-up and 3 timed steps each.
     Returns the launches and the host kernel's row, with its launches
     in row (e)'s steps."""
     s = TRAIN_ATTN[2]
@@ -4307,6 +4326,228 @@ def phase_onebit(card, results):
     return {k: launches[k] + par[k] for k in launches}
 
 
+# --------------------------------------------------------------------- pipe
+PIPE_MICRO_BATCHES = 4
+PIPE_PARITY_STEPS = 3
+# the pipeline's losses against the GPT-2 engine's: the same kernels on
+# the same micro-batches, only the flat layouts differ (measured bitwise
+# on the H100); 1e-5 is far inside the 2.4e-3 that one step moves the
+# loss, so a missing, partial or wrong-signed update fails
+PIPE_PARITY_RTOL = 1e-5
+PIPE_CPU_WORLD = 2
+PIPE_CPU_STEPS = 3
+PIPE_CPU_MODEL = dict(vocab_size=256, hidden_size=64, num_layers=4,
+                      num_heads=4, max_position_embeddings=32,
+                      embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0)
+PIPE_CPU_TIMEOUT_S = 180
+
+
+def pipe_config(micro_batches, rows):
+    return dict(TRAIN_CONFIG, train_batch_size=rows,
+                train_micro_batch_size_per_gpu=rows // micro_batches,
+                gradient_accumulation_steps=micro_batches)
+
+
+def pipe_setup(dropout_rate, pipeline):
+    """Phase 6's GPT-2-medium (its weights, its batch of 8 rows of seq
+    1024) at ``dropout_rate``, the global batch as
+    ``PIPE_MICRO_BATCHES`` micro-batches, through ``initialize``: as a
+    ``PipelineModule`` (``pipeline``) or as ``models/gpt2.py``'s model.
+    Returns the engine, the config and the micro-batches."""
+    from examples import train_torch_pipe as tp
+
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
+    cfg = GPT2Config.gpt2_medium(embd_dropout=dropout_rate,
+                                 attn_dropout=dropout_rate,
+                                 resid_dropout=dropout_rate)
+    weights = setup_weights("train", random_params, cfg)
+    batches = tp.token_batches(cfg.vocab_size, b, s, PIPE_MICRO_BATCHES,
+                               SEED + 1)
+    if pipeline:
+        model, params = (tp.gpt2_pipeline_module(cfg),
+                         tp.pipe_params_from_gpt2(weights))
+    else:
+        model, params = GPT2LMHead(cfg), weights
+        batches = [{"input_ids": ids} for ids, _ in batches]
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params,
+        config=pipe_config(PIPE_MICRO_BATCHES, b))
+    return engine, cfg, batches
+
+
+def pipe_losses(engine, batches, steps):
+    return [float(engine.train_batch(iter(batches))) for _ in range(steps)]
+
+
+def timed_losses(engine, batches, steps):
+    """``steps`` steps; the losses and the ms a step of all but the
+    first (between two synchronizations)."""
+    losses = pipe_losses(engine, batches, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += pipe_losses(engine, batches, steps - 1)
+    torch.cuda.synchronize()
+    return losses, 1e3 * (time.perf_counter() - t0) / (steps - 1)
+
+
+def pipe_cpu_engine(stages, interleave):
+    from examples import train_torch_pipe as tp
+
+    cfg = GPT2Config(**PIPE_CPU_MODEL)
+    mesh = make_mesh({PIPE_AXIS: stages}) if stages > 1 else None
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=tp.gpt2_pipeline_module(cfg, interleave=interleave),
+        model_parameters=tp.pipe_params_from_gpt2(random_params(cfg, SEED)),
+        config={"train_micro_batch_size_per_gpu": 2,
+                "gradient_accumulation_steps": PIPE_MICRO_BATCHES,
+                "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+                "optimizer": {"type": "Lamb", "params": {"lr": 3e-3}},
+                "zero_optimization": {"stage": 2}},
+        mesh=mesh, device="cpu")
+    batches = tp.token_batches(cfg.vocab_size, 2 * PIPE_MICRO_BATCHES,
+                               cfg.max_position_embeddings,
+                               PIPE_MICRO_BATCHES, SEED + 3)
+    return engine, batches
+
+
+def pipe_cpu_rank(rank, store, out_dir):
+    """One gloo rank of the pipe = 2 CPU check: ``PIPE_CPU_STEPS`` steps
+    of the tiny GPT-2 at interleave 1 and 2; the losses into
+    ``out_dir``.  It leaves without tearing the gloo group down; an
+    exception exits 1."""
+    torch.set_num_threads(1)
+    init_distributed(init_method=f"file://{store}",
+                     world_size=PIPE_CPU_WORLD, rank=rank, device="cpu",
+                     timeout=60, verbose=False)
+    out = {}
+    for interleave in (1, 2):
+        engine, batches = pipe_cpu_engine(PIPE_CPU_WORLD, interleave)
+        out[f"interleave{interleave}"] = pipe_losses(engine, batches,
+                                                     PIPE_CPU_STEPS)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    os._exit(0)
+
+
+def pipe_cpu_check(results):
+    """The tiny GPT-2 (tied embedding and head, 4 blocks, fp32, Lamb,
+    ZeRO-2, clip 1.0) at pipe 2 and at pipe 2 with interleave 2 on two
+    gloo CPU processes against one stage: losses to rtol 1e-5."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipe_", dir=build_dir())
+    try:
+        store = os.path.join(out_dir, "store")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=pipe_cpu_rank, args=(r, store, out_dir),
+                             daemon=True) for r in range(PIPE_CPU_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PIPE_CPU_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * PIPE_CPU_WORLD,
+              f"pipe cpu: the gloo ranks exited with {codes}")
+        ranks = []
+        for r in range(PIPE_CPU_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        engine, batches = pipe_cpu_engine(1, 1)
+        want = pipe_losses(engine, batches, PIPE_CPU_STEPS)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(ranks[0] == ranks[1], f"pipe cpu: the two stages disagree: "
+          f"{ranks}")
+    for key, got in ranks[0].items():
+        check(np.allclose(got, want, rtol=1e-5, atol=0),
+              f"pipe cpu: pipe=2 {key} losses {got} vs one stage's {want}")
+    print(f"pipe cpu (2 gloo ranks, tiny GPT-2, tied head, Lamb, ZeRO-2, "
+          f"clip 1.0, fp32; torch {torch.__version__}): pipe=2 "
+          f"{ranks[0]}, one stage {want}")
+    results["pipe_cpu"] = {**ranks[0], "one_stage": want}
+
+
+def phase_pipe(card, results):
+    """33. pipe: GPT-2-medium through the ``PipelineEngine`` at one
+    stage, held to the GPT-2 engine at dropout 0, then timed at dropout
+    0.1; then :func:`pipe_cpu_check`."""
+    M = PIPE_MICRO_BATCHES
+    engine, cfg, batches = pipe_setup(0.0, pipeline=False)
+    want, gpt2_ms = timed_losses(engine, batches, PIPE_PARITY_STEPS)
+    release(engine)
+    del engine
+    engine, _, batches = pipe_setup(0.0, pipeline=True)
+    check(isinstance(engine, PipelineEngine)
+          and engine.pipe_world_size == 1,
+          "pipe: initialize did not build a one-stage PipelineEngine")
+    got, pipe_ms = timed_losses(engine, batches, PIPE_PARITY_STEPS)
+    check(engine.executed == engine.schedule_trace(0),
+          "pipe: the executed stream is not the schedule's")
+    release(engine)
+    del engine
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    check(all(math.isfinite(x) for x in got) and max(rel) <= PIPE_PARITY_RTOL,
+          f"pipe: losses {got} vs the GPT-2 engine's {want} (rel {rel})")
+    check(all(a > b for a, b in zip(got, got[1:])),
+          f"pipe: the losses {got} do not fall step by step")
+    engine, cfg, batches = pipe_setup(DROPOUT, pipeline=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # one warm-up: the dropout-0 runs warmed the kernels and allocator
+    warmup, timed = 1, 3
+    losses = pipe_losses(engine, batches, warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += pipe_losses(engine, batches, timed)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    params = sum(engine.segments.sizes)
+    release(engine)
+    del engine
+    steps, layers = warmup + timed, cfg.num_layers
+    per_step = layers * M
+    check(all(math.isfinite(x) for x in losses), f"pipe: losses {losses}")
+    check(launches["B1"] == launches["B2a"] == launches["B2b"]
+          == per_step * steps and launches["B4"] == 3 * per_step * steps
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
+          f"pipe: launches {launches}, expected {layers} of B1/B2a/B2b a "
+          f"micro-batch ({per_step * steps} in {steps} steps) and 3x that "
+          f"of B4")
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
+    samples_s = b / step_s
+    flops = gpt2_model_flops_per_sample(cfg, s)
+    receipt = {
+        "card": card, "stages": 1, "micro_batches": M,
+        "micro_batch": b // M, "global_batch": b, "seq": s,
+        "layers": layers, "dropout": DROPOUT, "losses": losses,
+        "step_ms": 1e3 * step_s, "samples_per_s": samples_s,
+        "tokens_per_s": samples_s * s,
+        "mfu": samples_s * flops / PEAK_FLOPS[torch.bfloat16],
+        "model_flops_per_sample": flops, "peak_memory_bytes": peak,
+        "parameters": params,
+        "parity": {"pipe_losses": got, "gpt2_losses": want,
+                   "max_rel_diff": max(rel), "rtol": PIPE_PARITY_RTOL,
+                   # dropout 0, the last two of the three steps each
+                   "pipe_step_ms": pipe_ms, "gpt2_step_ms": gpt2_ms},
+        "launches_per_micro_batch": {k: v / (steps * M)
+                                     for k, v in launches.items()}}
+    print("pipe receipt (GPT-2-medium as a PipelineModule, one stage, seq "
+          "1024, batch 8 as 4 micro-batches of 2, bf16, Lamb, ZeRO-2, "
+          "dropout 0.1):", json.dumps(receipt))
+    results["pipe"] = receipt
+    pipe_cpu_check(results)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4453,6 +4694,10 @@ def main(argv=None):
     # 32. 1-bit Adam, BERT-large through the freeze on NCCL; card vs CPU
     onebit_launches = phase_onebit(card, results)
     lap("onebit")
+    # 33. pipeline: GPT-2-medium through the PipelineEngine at one stage;
+    # pipe 2 (and interleave 2) on two gloo CPU processes
+    pipe_launches = phase_pipe(card, results)
+    lap("pipe")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -4472,7 +4717,7 @@ def main(argv=None):
              "offload_xl": offload_xl_launches,
              "offload_parity_cpu": offload_cpu_launches,
              "dp": dp_launches, "zero3": zero3_launches,
-             "onebit": onebit_launches}
+             "onebit": onebit_launches, "pipe": pipe_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

@@ -17,6 +17,9 @@ moves between the two packages; ``resilience`` skips non-finite steps,
 rolls back to the last checkpoint on divergence and watches for hung
 steps.  ``checkpointing`` is activation checkpointing, the reference's
 ``deepspeed.checkpointing`` (``configure``, ``checkpoint``).
+``PipelineModule`` (with ``LayerSpec`` and ``TiedLayerSpec``) trains a
+layer sequence split into stages, one process a stage over the mesh's
+``pipe`` axis (``runtime/pipe``).
 """
 
 from . import checkpoint  # noqa: F401
@@ -24,8 +27,8 @@ from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["InferenceEngine", "checkpoint", "checkpointing", "initialize",
-           "__version__"]
+__all__ = ["InferenceEngine", "LayerSpec", "PipelineModule", "TiedLayerSpec",
+           "checkpoint", "checkpointing", "initialize", "__version__"]
 
 
 def initialize(*args, **kwargs):
@@ -42,4 +45,8 @@ def __getattr__(name):
         from .inference.engine import InferenceEngine
 
         return InferenceEngine
+    if name in ("LayerSpec", "PipelineModule", "TiedLayerSpec"):
+        from .runtime import pipe
+
+        return getattr(pipe, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

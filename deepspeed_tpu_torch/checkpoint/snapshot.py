@@ -115,7 +115,7 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
             model_dtypes[key] = dtype_name
 
     flat = engine.flat
-    optim_states = {"master": flat.gather_master_unpadded(engine.master)}
+    optim_states = {"master": engine._gather_unpadded(engine.master)}
     local = engine._rank_local_fields()
     for name, leaf in state_fields(engine.opt_state).items():
         key = f"opt/.{name}"
@@ -125,7 +125,7 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
             optim_states[key] = engine._gather_rank_local(leaf)
         elif isinstance(leaf, torch.Tensor):
             # a flat buffer in the master's layout: saved unpadded
-            optim_states[key] = flat.gather_master_unpadded(leaf)
+            optim_states[key] = engine._gather_unpadded(leaf)
         else:
             # host step counter: the JAX package's i32 scalar
             optim_states[key] = np.asarray(leaf, np.int32)
@@ -149,7 +149,7 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
         "dp_world_size": engine.dp_world_size,
         "mp_world_size": engine.mp_world_size,
         "zero_stage": engine.zero_optimization_stage(),
-        "param_count": int(sum(engine.segments.sizes)),
+        "param_count": engine._param_count(),
         "model_dtypes": model_dtypes,
     }
     # dataloader cursor: a resumed run consumes the exact next samples

@@ -17,7 +17,7 @@ reduce_scatter (psum_scatter)   reduce_scatter_tensor
 all_gather                      all_gather_into_tensor
 axis_index / axis_size          the rank and size in the axis's group
 all_to_all                      all_to_all_single
-ppermute                        pipeline p2p: ROADMAP A13
+ppermute                        batch_isend_irecv (:func:`send_recv`)
 ==============================  ==========================================
 
 Every verb returns a new tensor, as the JAX verbs do, or writes into
@@ -28,15 +28,23 @@ exchanges its flat buffers in place.  ``reduce_scatter`` and
 returned (on the card, once the current stream reaches the wait).  The
 bucketed ZeRO exchange issues its collectives so, in the same order on
 every rank.  ``counter`` counts the collectives issued and the bytes of
-the buffers they cover.  The verbs run on any axis whose group exists;
-the mesh refuses the axes other than ``data`` above one member (ROADMAP
-A10, A13), so in the port they run on ``data``.
+the buffers they cover.  The verbs run on any axis whose group exists,
+and the reductions on a tuple of axes too (``psum(x, ("pipe",
+"data"))``, the group over both); the mesh refuses ``model``, ``seq`` and
+``expert`` above one member (ROADMAP A10), so in the port they run on
+``data`` and ``pipe``.
+
+Point-to-point (:func:`send_recv`, :func:`ppermute`) is the pipeline's:
+a step's sends and receives to neighbouring stages go out together
+through one ``batch_isend_irecv`` and are waited for together, so two
+ranks that send to each other in the same step cannot deadlock.  It
+counts ``send`` and ``recv`` calls and bytes.
 """
 
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import DATA_AXIS, get_current_mesh
+from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, get_current_mesh
 
 # torch 2.13 renamed the two flat-buffer collectives
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
@@ -112,6 +120,14 @@ def pmean(x, axis_name, mesh=None, out=None):
     return out.div_(n) if n > 1 else out
 
 
+def psum_group(x, group):
+    """Sum-allreduce of ``x`` in place over a process group that is no
+    mesh axis (the pipeline's tied-parameter copies)."""
+    counter.add("psum", x.numel() * x.element_size())
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
 def pmax(x, axis_name, mesh=None, out=None):
     """Max-allreduce (reference: dist.all_reduce MAX, overflow flags)."""
     return _all_reduce(x, axis_name, mesh, dist.ReduceOp.MAX, out, "pmax")
@@ -174,10 +190,53 @@ def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None,
     return (out, handle) if async_op else out
 
 
-def ppermute(x, axis_name, perm):
-    """Point-to-point ring: the pipeline's p2p, not ported yet."""
-    raise NotImplementedError("ppermute (pipeline p2p) is not ported yet "
-                              "(ROADMAP A13)")
+def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None):
+    """Point-to-point on ``axis_name``: every ``(tensor, index)`` of
+    ``sends`` goes to the member at ``index`` of the axis, and every
+    ``(buffer, index)`` of ``recvs`` is filled in place from the member at
+    ``index``.  All of them are posted at once (``batch_isend_irecv``, on
+    the axis's group) and waited for before this returns (on the card:
+    before the current stream goes on).  A pair with this rank's own
+    index is a local copy.  The peer must make the matching calls in the
+    same order, with buffers of the same shape and dtype."""
+    group, _ = _axis(axis_name, mesh)
+    mesh = mesh if mesh is not None else get_current_mesh()
+    me = mesh.index(axis_name)
+    local = [t for t, i in sends if i == me]
+    ops = []
+    for t, i in sends:
+        if i != me:
+            t = t.contiguous()
+            counter.add("send", t.numel() * t.element_size())
+            ops.append(dist.P2POp(dist.isend, t, mesh.peer(axis_name, i),
+                                  group))
+    for buf, i in recvs:
+        if i == me:
+            buf.copy_(local.pop(0))
+        else:
+            counter.add("recv", buf.numel() * buf.element_size())
+            ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis_name, i),
+                                  group))
+    if ops:
+        if group is None:
+            raise RuntimeError(f"point-to-point on axis {axis_name!r} "
+                               f"needs its process group")
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def ppermute(x, axis_name, perm, mesh=None):
+    """``jax.lax.ppermute``: member ``src`` of the axis sends ``x`` to
+    member ``dst`` for every ``(src, dst)`` in ``perm``; each member
+    returns what it received, zeros where no pair names it as ``dst``
+    (the ring shift of pipeline stages and of ring attention)."""
+    mesh = mesh if mesh is not None else get_current_mesh()
+    me = axis_index(axis_name, mesh)
+    out = torch.zeros_like(x)
+    send_recv(sends=[(x, dst) for src, dst in perm if src == me],
+              recvs=[(out, src) for src, dst in perm if dst == me],
+              axis_name=axis_name, mesh=mesh)
+    return out
 
 
 def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True,

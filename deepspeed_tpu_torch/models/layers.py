@@ -18,6 +18,7 @@ import functools
 import logging
 import os
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -175,9 +176,10 @@ class TransformerLayer:
             logger.warning("stochastic_mode=True is accepted for config "
                            "parity and has no effect: the port's kernels "
                            "are deterministic")
-        # intermediate_size and initializer_range size and draw params
-        # in the JAX layer; here the param dict carries its shapes, so
-        # they are accepted for the JAX signature only
+        # intermediate_size and initializer_range size and draw the
+        # params of :meth:`init`; apply reads the shapes from the dict
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.initializer_range = initializer_range
         self.hidden_size = hidden_size
         self.heads = heads
         self.head_dim = hidden_size // heads
@@ -192,6 +194,27 @@ class TransformerLayer:
         self.attn_impl = attn_impl
         self.sparsity_config = sparsity_config
         self._layout_cache = {}  # seq_len -> layout
+
+    def init(self, seed):
+        """The layer's params as numpy (JAX ``layers.py:141-153``):
+        normal(0, ``initializer_range``) kernels, zero biases, unit
+        layernorm scales, from a numpy generator seeded with ``seed``
+        (a pipeline stage draws each of its layers so)."""
+        rng = np.random.default_rng(seed)
+        h, i = self.hidden_size, self.intermediate_size
+
+        def dense_p(n_in, n_out):
+            kernel = rng.standard_normal((n_in, n_out), dtype=np.float32)
+            return {"kernel": kernel * np.float32(self.initializer_range),
+                    "bias": np.zeros((n_out,), np.float32)}
+
+        def ln_p():
+            return {"scale": np.ones((h,), np.float32),
+                    "bias": np.zeros((h,), np.float32)}
+
+        return {"qkv": dense_p(h, 3 * h), "attn_out": dense_p(h, h),
+                "fc1": dense_p(h, i), "fc2": dense_p(i, h),
+                "ln_attn": ln_p(), "ln_mlp": ln_p()}
 
     def _sparse_layout(self, seq_len):
         """Layout cached per sequence length: randomized configs (BigBird,

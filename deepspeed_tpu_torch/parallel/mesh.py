@@ -9,9 +9,16 @@ row-major layout) and one process group per axis; the verbs of
 :mod:`deepspeed_tpu_torch.comm` name an axis and run on its group.
 
 Canonical axes, outermost first: ``pipe``, ``data``, ``seq``, ``model``,
-``expert``.  ``data`` is the ZeRO axis and the one this port runs above
-size 1; ``model``, ``seq`` and ``expert`` (tensor, sequence and expert
-parallelism) are ROADMAP A10 and ``pipe`` is A13, refused above 1.
+``expert``.  ``data`` is the ZeRO axis and ``pipe`` the pipeline's: the
+port runs both above size 1, in the reference's rank order (``pipe``
+outermost, so the ranks of one stage are consecutive:
+:class:`~deepspeed_tpu_torch.parallel.topology.PipeDataParallelTopology`).
+A ``pipe`` × ``data`` mesh has one process group per pipe column (the
+stages of one data coordinate), one data group per stage, and one over
+both axes (``group((PIPE_AXIS, DATA_AXIS))``), which the pipeline
+engine's one scalar all-reduce a step runs on.  ``model``, ``seq`` and
+``expert`` (tensor, sequence and expert parallelism) are ROADMAP A10,
+refused above 1.
 """
 
 import contextlib
@@ -28,19 +35,26 @@ MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
 
 CANONICAL_AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
-# the ROADMAP item that ports each axis other than data
-UNPORTED_AXES = {PIPE_AXIS: "A13", SEQ_AXIS: "A10", MODEL_AXIS: "A10",
-                 EXPERT_AXIS: "A10"}
+# the ROADMAP item that ports each axis other than data and pipe
+UNPORTED_AXES = {SEQ_AXIS: "A10", MODEL_AXIS: "A10", EXPERT_AXIS: "A10"}
 
 
 def refuse_unported_axes(sizes):
-    """Raise for an axis other than ``data`` above size 1, naming its
-    ROADMAP item."""
+    """Raise for an axis other than ``data`` and ``pipe`` above size 1,
+    naming its ROADMAP item."""
     for ax, item in UNPORTED_AXES.items():
         if int(sizes.get(ax, 1)) > 1:
             raise NotImplementedError(
                 f"mesh axis {ax!r} of size {sizes[ax]} is not ported yet "
-                f"(ROADMAP {item}); the port runs data parallelism only")
+                f"(ROADMAP {item}); the port runs data and pipeline "
+                f"parallelism only")
+
+
+def _axes_key(axis):
+    """An axis name, or a tuple of them in canonical order."""
+    if isinstance(axis, (tuple, list)):
+        return tuple(ax for ax in CANONICAL_AXES if ax in axis)
+    return axis
 
 
 class Mesh:
@@ -76,14 +90,33 @@ class Mesh:
                    rank=mpu.get_data_parallel_rank())
 
     def size(self, axis):
-        return self.shape[axis]
+        """The size of an axis, or of a tuple of axes (their product)."""
+        key = _axes_key(axis)
+        if isinstance(key, tuple):
+            n = 1
+            for ax in key:
+                n *= self.shape[ax]
+            return n
+        return self.shape[key]
 
     def group(self, axis):
-        return self._groups.get(axis)
+        """The process group of an axis, or of a tuple of axes (the
+        ranks that differ only in those coordinates)."""
+        key = _axes_key(axis)
+        if isinstance(key, tuple) and len(key) == 1:
+            key = key[0]
+        return self._groups.get(key)
 
     def index(self, axis):
         """This rank's coordinate on ``axis``."""
         return getattr(self.topology.get_coord(self.rank), axis)
+
+    def peer(self, axis, index):
+        """The global rank at coordinate ``index`` of ``axis``, every
+        other coordinate this rank's."""
+        coord = self.topology.get_coord(self.rank)._asdict()
+        coord[axis] = index
+        return self.topology.get_rank(**coord)
 
     def __repr__(self):
         return f"Mesh({mesh_axis_sizes(self, keep_trivial=True)}, " \
@@ -160,12 +193,33 @@ def make_mesh(axis_dims):
         for ax in CANONICAL_AXES:
             if dims[ax] == 1 and ax != DATA_AXIS:
                 continue  # nothing to exchange over
-            for ranks in mesh.topology.get_axis_comm_lists(ax):
-                group = (dist.group.WORLD if len(ranks) == world
-                         else dist.new_group(ranks))
-                if mesh.rank in ranks:
-                    mesh._groups[ax] = group
+            _add_groups(mesh, ax, mesh.topology.get_axis_comm_lists(ax),
+                        world)
+        if dims[PIPE_AXIS] > 1:
+            both = (PIPE_AXIS, DATA_AXIS)
+            _add_groups(mesh, both, _comm_lists(mesh.topology, both), world)
     return mesh
+
+
+def _add_groups(mesh, key, rank_lists, world):
+    """One process group per list (every rank creates every group, as
+    ``new_group`` requires); this rank's is the mesh's group ``key``."""
+    for ranks in rank_lists:
+        group = (dist.group.WORLD if len(ranks) == world
+                 else dist.new_group(ranks))
+        if mesh.rank in ranks:
+            mesh._groups[key] = group
+
+
+def _comm_lists(topology, axes):
+    """Lists of ranks that differ only in their coordinates on ``axes``
+    (``get_axis_comm_lists`` over several axes), each in rank order."""
+    lists = {}
+    for coord, rank in topology.mapping.items():
+        rest = tuple(getattr(coord, ax) for ax in topology.axes
+                     if ax not in axes)
+        lists.setdefault(rest, []).append(rank)
+    return [sorted(ranks) for _, ranks in sorted(lists.items())]
 
 
 class MeshGrid:

@@ -13,9 +13,11 @@ the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
 (:func:`get_progressive_layer_drop`), ``checkpoint``
 (:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
 and ``resilience``
-(:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`)
-and ``sparse_gradients``; the engine reads ``mesh`` through
-:func:`get_mesh_config` before this parse, which needs its size.
+(:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`),
+and ``sparse_gradients``.  The engines read ``mesh`` through
+:func:`get_mesh_config` and the pipeline engine reads ``pipeline``
+through :func:`get_pipeline_config` (applying it to its module) before
+this parse, which needs the mesh's size.
 ``fp16`` gives ``loss_scale``, ``initial_dynamic_scale`` and
 ``dynamic_loss_scale_args`` as the JAX config does (``:40-97``).
 Unknown keys warn with a "did you mean" hint and raise under
@@ -74,9 +76,9 @@ def config_issues(param_dict):
             for ax, item in UNPORTED_AXES.items():
                 if int(value.get(ax, 1)) > 1:
                     issues.append(f"mesh axis '{ax}' is {value[ax]} but the "
-                                  f"PyTorch port runs data parallelism only "
-                                  f"(ROADMAP {item}); building the mesh "
-                                  f"will raise")
+                                  f"PyTorch port runs data and pipeline "
+                                  f"parallelism only (ROADMAP {item}); "
+                                  f"building the mesh will raise")
     return issues
 
 
@@ -91,6 +93,22 @@ def get_mesh_config(json_file_or_dict):
     mesh.setdefault(C.MESH_PIPE, 1)
     mesh.setdefault(C.MESH_SEQ, 1)
     return mesh
+
+
+def get_pipeline_config(param_dict):
+    """The ``pipeline`` block with the JAX package's defaults
+    (``config.py:199-211``): ``stages``, ``partition`` ("best"),
+    ``seed_layers`` and ``activation_checkpoint_interval``; any other key
+    it sets (``interleave``) passes through."""
+    config = {
+        C.PIPELINE_STAGES: C.PIPELINE_STAGES_DEFAULT,
+        C.PIPELINE_PARTITION: C.PIPELINE_PARTITION_DEFAULT,
+        C.PIPELINE_SEED_LAYERS: C.PIPELINE_SEED_LAYERS_DEFAULT,
+        C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL:
+            C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT,
+    }
+    config.update(param_dict.get(C.PIPELINE, {}))
+    return config
 
 
 def get_progressive_layer_drop(param_dict):

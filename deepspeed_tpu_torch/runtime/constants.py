@@ -180,8 +180,8 @@ SECTION_KEYS = {
     "flops_profiler": ("detailed", "enabled", "module_depth", "profile_step",
                        "top_modules"),
     "mesh": ("data", "model", "pipe", "seq"),
-    "pipeline": ("activation_checkpoint_interval", "partition",
-                 "seed_layers", "stages"),
+    "pipeline": ("activation_checkpoint_interval", "interleave",
+                 "partition", "seed_layers", "stages"),
     "profiling": ("comm_ledger", "memory_ledger", "memory_watermarks",
                   "program_dump"),
     "progressive_layer_drop": ("enabled", "gamma", "theta"),
@@ -213,14 +213,14 @@ SECTION_KEYS = {
 # blocks the port parses but does not implement yet -> ROADMAP item
 UNPORTED_SECTIONS = {
     "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
-    "pipeline": "A13", "profiling": "A12/A16",
+    "profiling": "A12/A16",
     "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
 }
 
 #############################################
-# Data parallelism: the "mesh" block (axis sizes; data -1 is the whole
-# torch.distributed world), the JAX package's :267-271.  Its axes other
-# than data are ROADMAP A10 (model, seq, expert) and A13 (pipe)
+# Data and pipeline parallelism: the "mesh" block (axis sizes; data -1
+# is the whole torch.distributed world), the JAX package's :267-271.
+# Its model, seq and expert axes are ROADMAP A10
 #############################################
 MESH = "mesh"
 MESH_DATA = "data"
@@ -229,6 +229,20 @@ MESH_PIPE = "pipe"
 MESH_SEQ = "seq"
 SPARSE_GRADIENTS = "sparse_gradients"
 SPARSE_GRADIENTS_DEFAULT = False
+
+#############################################
+# Pipeline (the JAX package's :243-252); the block's "interleave" passes
+# through to the pipeline engine (``runtime/pipe/engine.py:323-330``)
+#############################################
+PIPELINE = "pipeline"
+PIPELINE_STAGES = "stages"
+PIPELINE_STAGES_DEFAULT = None
+PIPELINE_PARTITION = "partition"
+PIPELINE_PARTITION_DEFAULT = "best"
+PIPELINE_SEED_LAYERS = "seed_layers"
+PIPELINE_SEED_LAYERS_DEFAULT = False
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL = "activation_checkpoint_interval"
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT = 0
 
 #############################################
 # Progressive Layer Drop (the JAX package's :254-262)

@@ -138,10 +138,18 @@ host master before each forward.
 and the step's one data-parallel exchange of the momentum is the 1-bit
 compressed all-reduce.
 
+Pipeline parallelism: ``initialize`` returns a
+:class:`~deepspeed_tpu_torch.runtime.pipe.engine.PipelineEngine` for a
+``PipelineModule``, a subclass of this engine that holds one stage's
+params and runs its instruction stream; this engine's step is its
+``ReduceGrads`` and ``OptimizerStep``, with the step's statistics
+(:meth:`_step_stats`) taken over the pipeline's ranks too.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
 offload above one rank (A9), telemetry (A12), tensor, sequence and
-expert parallelism (A10), pipeline (A13), and resilience's fleet
-integrity plane and elastic supervisor (A15's second half).
+expert parallelism (A10), ZeRO-3 and 1-bit Adam under a pipeline (A13
+remainder), and resilience's fleet integrity plane and elastic
+supervisor (A15's second half).
 """
 
 import dataclasses
@@ -166,8 +174,8 @@ from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.op_common import LANES
-from ..parallel.mesh import (DATA_AXIS, Mesh, current_mesh, make_mesh,
-                             refuse_unported_axes)
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, Mesh, current_mesh,
+                             make_mesh, refuse_unported_axes)
 from ..profiling.step_profiler import StepLatencyRing
 from ..resilience.constants import TrainingDivergedError
 from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
@@ -178,6 +186,7 @@ from ..utils.device import resolve_device
 from ..utils.distributed import get_world_size, init_distributed
 from ..utils.params import tree_leaves
 from . import constants as C
+from .utils import tree_path_key
 from .fp16.onebit_adam import OnebitAdam
 from .config import DeepSpeedConfig, get_mesh_config
 from .csr_tensor import CSRTensor, csr_allreduce
@@ -215,14 +224,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     launcher's environment
     (:func:`~deepspeed_tpu_torch.utils.distributed.init_distributed`)
     unless ``dist_init_required=False``.  A world of one process trains
-    without a mesh unless one is passed.
+    without a mesh unless one is passed.  A
+    :class:`~deepspeed_tpu_torch.runtime.pipe.module.PipelineModule`
+    trains through the
+    :class:`~deepspeed_tpu_torch.runtime.pipe.engine.PipelineEngine`,
+    one stage a process over the mesh's ``pipe`` axis.
 
     With ``auto_resume=True`` the engine restores the latest committed
     checkpoint under ``resilience.checkpoint_dir`` through its ``latest``
     pointer, and starts fresh (with a warning) when there is none: a
     respawned job lands on its last good step (JAX ``engine.py:130-185``).
     """
-    engine = DeepSpeedEngine(
+    from .pipe.module import PipelineModule
+
+    cls = DeepSpeedEngine
+    if isinstance(model, PipelineModule):
+        from .pipe.engine import PipelineEngine
+
+        cls = PipelineEngine
+    engine = cls(
         args=args, model=model, optimizer=optimizer,
         model_parameters=model_parameters, training_data=training_data,
         lr_scheduler=lr_scheduler, mpu=mpu,
@@ -250,6 +270,12 @@ class DeepSpeedEngine:
     """The training engine: one data-parallel rank of ``mesh`` (of a
     world of one without it)."""
 
+    # the axes of the step's one scalar all-reduce and of the checkpoint
+    # handshakes (the pipeline engine adds the pipe axis)
+    _stats_axes = DATA_AXIS
+    # True for the pipeline engine, the one that trains over a pipe axis
+    _pipelined = False
+
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, mpu=None, dist_init_required=None,
@@ -271,6 +297,11 @@ class DeepSpeedEngine:
             mesh = make_mesh(get_mesh_config(config))
         if mesh is not None:
             refuse_unported_axes(mesh.shape)
+            if mesh.size(PIPE_AXIS) > 1 and not self._pipelined:
+                raise ValueError(
+                    f"a mesh with a pipe axis of {mesh.size(PIPE_AXIS)} "
+                    f"trains a PipelineModule (runtime/pipe); this model "
+                    f"is not one")
         self.mesh = mesh
         dp = mesh.size(DATA_AXIS) if mesh is not None else 1
         self.dp_world_size = dp
@@ -356,8 +387,11 @@ class DeepSpeedEngine:
         # and the accumulation sum in fp32
         summed = acc > 1 or dp > 1
         # stages 2 and 3 reduce-scatter every micro-batch and accumulate
-        # the rank's rows
-        per_micro = self._partitioned and self.zero_stage >= 2
+        # the rank's rows (a pipeline stage that holds a tied copy
+        # exchanges at the boundary instead, after the copies' sum)
+        per_micro = (self._partitioned and self.zero_stage >= 2
+                     and not self._defer_exchange())
+        self._per_micro_exchange = per_micro
         self._acc = (torch.zeros(self.flat.flat_shape, dtype=torch.float32,
                                  device=self.device)
                      if summed and not per_micro
@@ -428,6 +462,15 @@ class DeepSpeedEngine:
                     self.flat.flat_shape, self.compute_dtype,
                     type(self.optimizer).__name__,
                     self._config.zero_optimization_stage, self.dp_rank, dp)
+
+    def _defer_exchange(self):
+        """True where ZeRO-2 must exchange the gradient at the step, not
+        after every micro-batch (a pipeline stage's tied copies)."""
+        return False
+
+    def _is_writer(self):
+        """True on the rank that writes checkpoints."""
+        return self.dp_rank == 0
 
     # ------------------------------------------------------------ config
     def train_batch_size(self):
@@ -1056,15 +1099,10 @@ class DeepSpeedEngine:
         unscaled: the JAX compressed program applies no loss scale
         (``onebit_adam.py:172-177``), and its momentum mixes the
         gradient with the unscaled momentum of the warmup."""
-        compressing = self._onebit_compressing()
-        scaled = loss.float()
-        if self._config.fp16_enabled and not compressing:
-            scaled = scaled * self._scale_state.cur_scale
-        acc = self.gradient_accumulation_steps()
-        divisor = acc if compressing else acc * self.dp_world_size
+        scaled = self._scaled_loss(loss)
         # with accumulation the rank's rows sum the micro-batches (the
         # step zeroes them)
-        accumulate = acc > 1
+        accumulate = self.gradient_accumulation_steps() > 1
         if self._exchange is not None:
             if self._z3 is None:
                 self._bucket_left = [b.leaf_hi - b.leaf_lo
@@ -1072,14 +1110,38 @@ class DeepSpeedEngine:
             self._exchange.start(accumulate, ordered=self._z3 is None)
         if self._z3 is not None:
             with self._z3.scope("backward"):
-                (scaled / divisor).backward()
+                scaled.backward()
         else:
-            (scaled / divisor).backward()
+            scaled.backward()
+        self._after_backward()
+        self._losses.append(loss.detach())
+        self.micro_steps += 1
+        self.global_samples += (self.train_micro_batch_size_per_gpu()
+                                * self.dp_world_size)
+        return loss
+
+    def _scaled_loss(self, loss):
+        """The fp32 loss × the loss scale / (accumulation steps ×
+        data-parallel ranks), whose backward is the micro-batch's share
+        of the step's gradient (see :meth:`backward`)."""
+        compressing = self._onebit_compressing()
+        scaled = loss.float()
+        if self._config.fp16_enabled and not compressing:
+            scaled = scaled * self._scale_state.cur_scale
+        acc = self.gradient_accumulation_steps()
+        return scaled / (acc if compressing else acc * self.dp_world_size)
+
+    def _after_backward(self):
+        """A micro-batch's gradient, just summed into the flat gradient
+        buffer, onto its way to the step: the bucketed exchange's
+        finish, ZeRO-2's reduce-scatter onto the owners' rows, or the
+        fp32 accumulator; the flat gradient buffer is then zeroed."""
+        acc = self.gradient_accumulation_steps()
         if self._exchange is not None:
             self._exchange.finish(self._bucket_block)
             if self._grad is not None:
                 self._grad.zero_()
-        elif self._partitioned and self.zero_stage >= 2:
+        elif self._per_micro_exchange:
             self._reduce_scatter_grad(accumulate=acc > 1)
             self._grad.zero_()
         elif self._acc is not None:
@@ -1087,11 +1149,6 @@ class DeepSpeedEngine:
             self._grad.zero_()
         if self._stage3:
             self._release_compute()
-        self._losses.append(loss.detach())
-        self.micro_steps += 1
-        self.global_samples += (self.train_micro_batch_size_per_gpu()
-                                * self.dp_world_size)
-        return loss
 
     def _reduce_scatter_grad(self, accumulate):
         """The summed gradient's rows this rank owns, into ``_gshard``
@@ -1113,7 +1170,8 @@ class DeepSpeedEngine:
         embedding leaves row-sparse under ``sparse_gradients``); the
         local gradient without a mesh."""
         if self._partitioned:
-            if self._config.zero_optimization_stage == 1:
+            if not self._per_micro_exchange and self._exchange is None:
+                # stage 1 (and a deferred stage 2): once, at the step
                 self._reduce_scatter_grad(accumulate=False)
             return self._gshard
         g = self._acc if self._acc is not None else self._grad
@@ -1210,25 +1268,13 @@ class DeepSpeedEngine:
         returns ``(overflow, mean loss or None)``."""
         overflow, mean_loss = False, None
         g = self._exchange_gradient()
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
         flag = (torch.logical_not(torch.isfinite(g).all()).float()
-                if self._skip_bad else zero)
-        loss = torch.stack(self._losses).float().mean()
+                if self._skip_bad else
+                torch.zeros((), dtype=torch.float32, device=self.device))
         # an overflowed step discards g, so unscaling first is safe
         g = self._unscale(g)
         clip = float(self.gradient_clipping() or 0.0)
-        norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
-                if clip > 0.0 else None)
-        if self.mesh is not None:
-            # a sharded gradient's norm is the root of the ranks'
-            # summed squares; stage 0's is whole on every rank
-            sharded = norm is not None and self._partitioned
-            stats = comm.psum(
-                torch.stack([flag, loss, norm * norm if sharded
-                             else zero]), DATA_AXIS, self.mesh)
-            flag, loss = stats[0], stats[1] / self.dp_world_size
-            if sharded:
-                norm = stats[2].sqrt()
+        flag, loss, norm = self._step_stats(flag, g, clip)
         self._step_loss = loss
         if self._skip_bad:
             # the one host sync of the step: the overflow flag and the
@@ -1254,6 +1300,25 @@ class DeepSpeedEngine:
             # update writes them chunk by chunk itself)
             self._refresh_params()
         return overflow, mean_loss
+
+    def _step_stats(self, flag, g, clip):
+        """``(overflow flag, mean loss, global norm or None)`` of the
+        step: this rank's, made global by one all-reduce under a mesh (a
+        sharded gradient's norm is the root of the ranks' summed
+        squares; stage 0's is whole on every rank)."""
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss = torch.stack(self._losses).float().mean()
+        norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
+                if clip > 0.0 else None)
+        if self.mesh is not None:
+            sharded = norm is not None and self._partitioned
+            stats = comm.psum(
+                torch.stack([flag, loss, norm * norm if sharded
+                             else zero]), DATA_AXIS, self.mesh)
+            flag, loss = stats[0], stats[1] / self.dp_world_size
+            if sharded:
+                norm = stats[2].sqrt()
+        return flag, loss, norm
 
     def _after_step(self, overflow, mean_loss):
         """The step's bookkeeping: the loss scale, the counters, the
@@ -1412,7 +1477,23 @@ class DeepSpeedEngine:
             flat = self._compute.detach()
         host = flat.to("cpu", copy=True)
         paths, leaves = tree_leaves(self.flat.unflatten_params(host))
-        return {"/".join(path): leaf for path, leaf in zip(paths, leaves)}
+        return {tree_path_key(path): leaf
+                for path, leaf in zip(paths, leaves)}
+
+    def _gather_unpadded(self, buf):
+        """A buffer in the master's layout as the checkpoint's 1-D
+        unpadded fp32 array (a collective under a mesh)."""
+        return self.flat.gather_master_unpadded(buf)
+
+    def _scatter_unpadded(self, unpadded, out):
+        """Inverse of :meth:`_gather_unpadded`: the checkpoint's array
+        into ``out``, this rank's rows of a buffer in the master's
+        layout."""
+        return self.flat.scatter_master_from_unpadded(unpadded, out=out)
+
+    def _param_count(self):
+        """The model's parameter count, as the checkpoint records it."""
+        return int(sum(self.segments.sizes))
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, sync=None):
@@ -1428,7 +1509,7 @@ class DeepSpeedEngine:
         snapshot = capture_engine_snapshot(self, tag, client_state,
                                            save_latest)
         self._last_ckpt_dir = save_dir
-        if self.dp_rank != 0:
+        if not self._is_writer():
             return True
         async_save = (self.checkpoint_config.async_save if sync is None
                       else not sync)
@@ -1450,7 +1531,7 @@ class DeepSpeedEngine:
         rank 0 waits for its writes and every rank learns the outcome, so
         a load on any rank after it reads the commit."""
         error, drained = None, True
-        if self.dp_rank == 0:
+        if self._is_writer():
             try:
                 drained = self._ckpt_manager.wait(save_dir, timeout)
             except CheckpointError as e:
@@ -1458,7 +1539,7 @@ class DeepSpeedEngine:
         if self.mesh is not None:
             flags = comm.psum(torch.tensor(
                 [float(error is not None), float(not drained)],
-                device=self.device), DATA_AXIS, self.mesh).tolist()
+                device=self.device), self._stats_axes, self.mesh).tolist()
             if flags[0] > 0 and error is None:
                 raise CheckpointError("the checkpoint commit on data-"
                                       "parallel rank 0 failed")
@@ -1494,7 +1575,7 @@ class DeepSpeedEngine:
         drain_inflight(load_dir)  # a same-process async save may be landing
         if self.mesh is not None:
             # rank 0's commit lands before any rank reads `latest`
-            comm.barrier(DATA_AXIS, self.mesh)
+            comm.barrier(self._stats_axes, self.mesh)
 
         def _missing(msg, exc=CheckpointError):
             if strict:
@@ -1605,8 +1686,7 @@ class DeepSpeedEngine:
             return np.asarray(arr, np.float32) + np.asarray(r, np.float32)
 
         values = {"master": folded("master", opt_npz["master"])}
-        self.flat.scatter_master_from_unpadded(values["master"],
-                                               out=self.master)
+        self._scatter_unpadded(values["master"], out=self.master)
         if load_optimizer_states:
             opt = {k[len("opt/"):]: folded(k[len("opt/."):], opt_npz[k])
                    for k in opt_npz.files if k.startswith("opt/")}
@@ -1649,7 +1729,7 @@ class DeepSpeedEngine:
                         f"changed); resetting to zeros")
                     leaf.zero_()
             elif isinstance(leaf, torch.Tensor):
-                self.flat.scatter_master_from_unpadded(host[key], out=leaf)
+                self._scatter_unpadded(host[key], out=leaf)
             else:
                 setattr(self.opt_state, name, int(host[key]))
 

@@ -23,7 +23,10 @@ gather and re-pad across the ranks, so a checkpoint's unpadded form is
 the same at every degree.  Stage 0 keeps one whole buffer on every rank.
 Stage 3 shards the master as stages 1 and 2 do; the engine then keeps no
 persistent compute copy of the parameters (it gathers them for the
-forward and the backward only).
+forward and the backward only).  A pipeline stage builds its layout from
+its own stage tree (its layers and its copy of each tied param, never
+the whole model), and ZeRO-1/2 shard it over the stage's data group
+exactly so.
 
 Under ``overlap_comm`` (a :class:`~deepspeed_tpu_torch.runtime.zero.buckets.BucketPlan`,
 ``plan``) the compute params and the gradient take the plan's canonical

@@ -3,7 +3,11 @@
 Port-only module.  The JAX package keeps parameters as nested dicts of
 arrays; the port keeps the same keys and the same ``[in, out]`` kernel
 layout (``deepspeed_tpu/models/layers.py:42``), with torch tensors as
-leaves, so weights move in either direction with no transposes.
+leaves, so weights move in either direction with no transposes.  A
+``PipelineModule``'s tree is ``{"layers": (layer dict, ...), "tied":
+{key: ...}}`` (JAX ``runtime/pipe/module.py:157``): a tuple is a node
+too, its items in index order, and a path names an item by its index,
+as ``jax.tree_util`` does.
 """
 
 import numpy as np
@@ -11,28 +15,37 @@ import torch
 
 
 def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested-dict param tree."""
+    """``fn`` applied to every leaf of a param tree of dicts and tuples
+    (lists stay lists)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def tree_leaves(tree):
-    """``(paths, leaves)`` of a nested-dict tree, keys sorted at every
-    level: the order of ``jax.tree_util.tree_leaves``, which fixes where
-    each tensor sits in the flat parameter buffer."""
-    if not isinstance(tree, dict):
+    """``(paths, leaves)`` of a tree of dicts and tuples, dict keys
+    sorted at every level and tuple items in index order: the order of
+    ``jax.tree_util.tree_leaves``, which fixes where each tensor sits in
+    the flat parameter buffer.  An empty dict or tuple has no leaves."""
+    if isinstance(tree, dict):
+        items = [(key, tree[key]) for key in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = list(enumerate(tree))
+    else:
         return [()], [tree]
     paths, leaves = [], []
-    for key in sorted(tree):
-        sub_paths, sub_leaves = tree_leaves(tree[key])
+    for key, sub in items:
+        sub_paths, sub_leaves = tree_leaves(sub)
         paths += [(key,) + sp for sp in sub_paths]
         leaves += sub_leaves
     return paths, leaves
 
 
 def tree_from_leaves(paths, leaves):
-    """Inverse of :func:`tree_leaves`."""
+    """Inverse of :func:`tree_leaves`, in dicts (a tuple's items come
+    back keyed by their index)."""
     tree = {}
     for path, leaf in zip(paths, leaves):
         node = tree

@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.runtime.csr_tensor import (CSRTensor,
                                                     csr_allreduce_reference)
 
 from . import torch_dp_workers as W
+from . import torch_pipe_workers as P
 from .torch_dist import run_ranks
 from .torch_simple_model import SimpleModel, base_config
 
@@ -75,15 +76,25 @@ def test_reduce_scatter_allgather_roundtrip(ranks):
         np.testing.assert_allclose(got["psum_inplace"], WORLD * full)
 
 
-def test_ppermute_ring():
-    """Point-to-point (pipeline, ROADMAP A13) is not ported and raises,
-    naming its item; all-to-all runs on the data axis (1-bit Adam's
+def test_ppermute_ring(tmp_path):
+    """Point-to-point (the pipeline's, ROADMAP A13) runs: on a 2-rank
+    gloo ring each member gets its neighbour's tensor, the shift back
+    restores its own, and a member no pair sends to gets zeros, as
+    ``jax.lax.ppermute``; all-to-all runs on the data axis (1-bit Adam's
     compressed all-reduce): over one member it returns its input, tiled
     or stacked as ``jax.lax.all_to_all``, while the axes of sequence and
     expert parallelism keep their refusal in the mesh (A10)."""
+    got = run_ranks(P.ppermute_ring, 2, tmp_path)
+    for rank, r in enumerate(got):
+        other = 1 - rank
+        np.testing.assert_array_equal(r["fwd"], [10.0 * other,
+                                                 10.0 * other + 1])
+        np.testing.assert_array_equal(r["back"], [10.0 * rank,
+                                                  10.0 * rank + 1])
+    np.testing.assert_array_equal(got[1]["partial"], [0.0, 1.0])
+    np.testing.assert_array_equal(got[0]["partial"], [0.0, 0.0])
+    assert [r["sends"] for r in got] == [3, 2]
     x = torch.arange(8.0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        comm.ppermute(x, DATA_AXIS, [(i, (i + 1) % 8) for i in range(8)])
     one = Mesh({"data": 1})
     assert torch.equal(comm.all_to_all(x, DATA_AXIS, 0, 0, mesh=one), x)
     y = x.view(2, 4)
@@ -121,10 +132,10 @@ def test_mesh_grid_mpu_interface():
     assert grid.get_model_parallel_group() == "model"
     assert grid.world_size == 8
     assert grid.is_first_stage()
-    # the port builds meshes with a data axis only; the rest raise
+    # the port builds meshes with data and pipe axes; the rest raise
     with pytest.raises(NotImplementedError, match="A10"):
         make_mesh({"model": 2, "data": -1})
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A10.*data and pipeline"):
         tds.initialize(model=SimpleModel(W.HIDDEN), config=base_config(),
                        mesh=mesh, device="cpu")
 
