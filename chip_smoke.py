@@ -231,7 +231,7 @@ failure raises, so the script exits non-zero:
               batch 4, dropout 0, remat, ``loss_chunk`` 256, Adam lr
               1e-4, ZeRO-2, bf16): (a) no offload, (b) fp32 host state,
               (c) bf16 SR, (d) bf16 with error feedback, (e)
-              DeepSpeedCPUAdam; 2 warm-up and 3 timed steps each,
+              DeepSpeedCPUAdam; 1 warm-up and 3 timed steps each,
               finite and falling; step ms (median, spread), device peak,
               pinned bytes, host-state bytes a step, the stream's H2D
               and D2H GB/s and its wall against the sum of its copies,
@@ -241,9 +241,9 @@ failure raises, so the script exits non-zero:
               the host's copy rate for its bound;
 28. offload xl — bench.py's GPT-2-xl leg (``bench.py:589-612``:
               ``offload_gradients``, bf16, remat, ``loss_chunk`` 256,
-              batch 4) at GPT-2-xl's width and 24 of its 48 layers (its
+              batch 4) at GPT-2-xl's width and 16 of its 48 layers (its
               full depth, 1.56 B parameters, is on record from the
-              earlier runs), after ``MemAvailable``: 2 warm-up and 3
+              earlier runs), after ``MemAvailable``: 1 warm-up and 3
               timed steps;
 29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
               streamed offload in 1 MB chunks: 10 steps on the card
@@ -292,7 +292,31 @@ failure raises, so the script exits non-zero:
               B4 in every one of them, step ms, MFU, peak memory; then a
               tiny GPT-2 at pipe 2 and at pipe 2 with interleave 2 on
               two gloo CPU processes against one stage (losses to rtol
-              1e-5).
+              1e-5);
+34. tp       — tensor parallelism in one process: (a) B1, B2a and B2b
+              at GPT-2-medium's training attention (b=8, s=1024, 16
+              heads, bf16, dropout 0.1, causal) and B3 at BERT's (b=64,
+              s=128, a key mask) called on heads [0, 8), [8, 16) and
+              [4, 8) with their head offset: out, lse, dq, dk and dv
+              BITWISE the whole call's heads (B4 counts the global
+              head); (b) one full-width GPT-2-medium layer (bf16,
+              attention dropout 0.1) as its m = 2 and 4 Megatron shards
+              (``tp_slice``: QKV by heads, ``fc1`` columns, ``attn_out``
+              and ``fc2`` rows) run per coordinate, the row-parallel
+              partials summed: output and input gradient within
+              ``TP_LAYER_RTOL`` (relative norm) of the whole layer's;
+              (c) phase 33's GPT-2 set-up through ``initialize(mesh=
+              make_mesh({"data": 1, "model": 1}))`` on NCCL, 3 steps at
+              dropout 0: losses bitwise phase 33's GPT-2 engine's;
+35. moe      — MoE GPT-2-medium at full width (24 layers, hidden 1024,
+              16 heads, seq 1024, vocab 50304, 8 experts in every second
+              block, top-2, capacity factor 1.25: about 1.06 B
+              parameters), Adam, bf16, ZeRO-2, micro-batch 8, dropout 0:
+              1 warm-up and 3 timed steps whose losses fall, one B1,
+              B2a and B2b launch per layer per step in the MoE blocks
+              too; step ms, peak memory, the share of token-choices over
+              capacity and the aux loss; 2 layers at full width in fp32,
+              card against CPU; one expert at k = 1 is the dense FFN.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -352,10 +376,16 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
-from deepspeed_tpu_torch.parallel import DATA_AXIS, PIPE_AXIS, make_mesh
+from deepspeed_tpu_torch.models import moe
+from deepspeed_tpu_torch.models.layers import (TransformerLayer, dense,
+                                               gelu, generator, layer_norm)
+from deepspeed_tpu_torch.ops.transformer.attention import dropout_seed
+from deepspeed_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                          make_mesh)
 from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
 from deepspeed_tpu_torch.utils.distributed import init_distributed
-from deepspeed_tpu_torch.utils.params import params_from_numpy, tree_leaves
+from deepspeed_tpu_torch.utils.params import (MODEL, params_from_numpy,
+                                              tp_slice, tree_leaves)
 
 DEVICE = torch.device("cuda")
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -3457,11 +3487,11 @@ BF16_EF = {"master": "bf16", "momentum": "bf16", "variance": "bf16",
 # loss_chunk 256, Adam lr 1e-4, ZeRO-2, bf16
 BENCH_OFFLOAD_MODEL = dict(embd_dropout=0.0, attn_dropout=0.0,
                            resid_dropout=0.0, remat=True, loss_chunk=256)
-# 3 timed steps since PR 16 (5 before): the script's time aim
-LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 2, 3
-XL_WARMUP, XL_TIMED = 2, 3
+# one warm-up and 3 timed steps a row: the script's time aim
+LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 1, 3
+XL_WARMUP, XL_TIMED = 1, 3
 # GPT-2-xl's depth in phase 28, cut from 48 to keep the script's time
-XL_LAYERS = 24
+XL_LAYERS = 16
 ADAM_RTOL, ADAM_ATOL = 2e-6, 1e-7  # tests/test_torch_cpu_adam.py
 MASTER_UPDATE_RTOL = 1e-3  # phase 29: 5.8e-5 measured on the H100
 
@@ -3640,7 +3670,7 @@ def offload_large_setup(zero=OFFLOAD, optimizer=None, params=None):
 def phase_offload_large(card, results):
     """27. bench.py's GPT-2-large offload leg, five rows: (a) without
     offload, (b) fp32 host state, (c) bf16 SR, (d) bf16 with error
-    feedback, (e) DeepSpeedCPUAdam; 2 warm-up and 3 timed steps each.
+    feedback, (e) DeepSpeedCPUAdam; 1 warm-up and 3 timed steps each.
     Returns the launches and the host kernel's row, with its launches
     in row (e)'s steps."""
     s = TRAIN_ATTN[2]
@@ -3721,7 +3751,7 @@ def mem_available():
 def phase_offload_xl(card, results):
     """28. bench.py's GPT-2-xl leg at its width and ``XL_LAYERS`` of its
     48 layers, with ``offload_gradients`` (the fp32 gradient in pinned
-    host memory too), bf16, remat, ``loss_chunk`` 256, batch 4: 2
+    host memory too), bf16, remat, ``loss_chunk`` 256, batch 4: 1
     warm-up and 3 timed steps, after printing the host's
     ``MemAvailable``."""
     s = TRAIN_ATTN[2]
@@ -4348,12 +4378,13 @@ def pipe_config(micro_batches, rows):
                 gradient_accumulation_steps=micro_batches)
 
 
-def pipe_setup(dropout_rate, pipeline):
+def pipe_setup(dropout_rate, pipeline, mesh=None):
     """Phase 6's GPT-2-medium (its weights, its batch of 8 rows of seq
     1024) at ``dropout_rate``, the global batch as
     ``PIPE_MICRO_BATCHES`` micro-batches, through ``initialize``: as a
     ``PipelineModule`` (``pipeline``) or as ``models/gpt2.py``'s model.
-    Returns the engine, the config and the micro-batches."""
+    ``mesh``: phase 34's. Returns the engine, the config and the
+    micro-batches."""
     from examples import train_torch_pipe as tp
 
     b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
@@ -4371,7 +4402,7 @@ def pipe_setup(dropout_rate, pipeline):
         batches = [{"input_ids": ids} for ids, _ in batches]
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=params,
-        config=pipe_config(PIPE_MICRO_BATCHES, b))
+        config=pipe_config(PIPE_MICRO_BATCHES, b), mesh=mesh)
     return engine, cfg, batches
 
 
@@ -4548,6 +4579,312 @@ def phase_pipe(card, results):
     return launches
 
 
+# ---------------------------------------------------- tensor parallelism
+TP_HEAD_RANGES = ((0, 8), (8, 16), (4, 8))
+TP_DEGREES = (2, 4)
+# phase 34 (b): the sharded layer's output and input gradient against
+# the whole layer's, as the norm of the difference over the norm: bf16
+# products summed over m partials, each rounded to bf16 (2^-8 relative)
+# before the sum, against one product rounded once
+TP_LAYER_RTOL = 1e-2
+
+
+def tp_heads_check(label, bwd, shape, causal, mask):
+    """The whole call and each head range of ``TP_HEAD_RANGES`` with its
+    offset: out, lse and every gradient bitwise the whole call's heads."""
+    b, h, s, d = shape
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 34)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device=DEVICE,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dout = torch.randn(b, s, h, d, generator=g, device=DEVICE,
+                       dtype=torch.bfloat16)
+    seed = torch.tensor([SEED + 34, 17], dtype=torch.int32, device=DEVICE)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal, DROPOUT, seed)
+    grads = bwd(q, k, v, out, lse, dout, mask, causal, DROPOUT, seed, 0, h)
+    lse = lse.view(b, h, s)
+    for h0, h1 in TP_HEAD_RANGES:
+        n, heads = h1 - h0, slice(h0, h1)
+        part = [t[:, :, heads] for t in (q, k, v)]
+        o, l = flash_attention_fwd(*part, mask, causal, DROPOUT, seed, h0, h)
+        got = bwd(*part, o, l, dout[:, :, heads], mask, causal, DROPOUT,
+                  seed, h0, h)
+        check(torch.equal(o, out[:, :, heads])
+              and torch.equal(l.view(b, n, s), lse[:, heads])
+              and all(torch.equal(a, w[:, :, heads])
+                      for a, w in zip(got, grads)),
+              f"tp heads {label}: heads [{h0}, {h1}) with their offset "
+              f"are not bitwise the whole call's")
+    return {"shape": list(shape), "ranges": [list(r) for r in TP_HEAD_RANGES],
+            "bitwise": True}
+
+
+def tp_b2(q, k, v, out, lse, dout, mask, causal, rate, seed, h0, h):
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal, rate,
+                                seed, None, h0, h)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask,
+                                         causal, rate, seed, None, h0, h))
+
+
+def tp_b3(q, k, v, out, lse, dout, mask, causal, rate, seed, h0, h):
+    return flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
+                                     rate, seed, None, h0, h)
+
+
+def sharded_layer(layer, ranks, x, seed):
+    """A pre-LN GPT-2 layer as its Megatron shards ``ranks`` (each a
+    rank's params), run per coordinate in one process: each rank's heads
+    (with their offset) and its slice of the MLP, the row-parallel
+    partials summed and the replicated biases added once; attention
+    dropout inside the kernels from ``seed``, no hidden dropout."""
+    b, s, _ = x.shape
+    m, eps = len(ranks), layer.layer_norm_eps
+    hl, d = layer.heads // m, layer.head_dim
+    first = ranks[0]
+    y = layer_norm(first["ln_attn"], x, eps)
+    attn = 0
+    for r, p in enumerate(ranks):
+        qkv = dense(p["qkv"], y).reshape(b, s, 3, hl, d)
+        ctx = fa.FlashAttention.apply(qkv[:, :, 0], qkv[:, :, 1],
+                                      qkv[:, :, 2], None, seed, True,
+                                      DROPOUT, r * hl, layer.heads)
+        attn = attn + ctx.reshape(b, s, hl * d) @ p["attn_out"]["kernel"]
+    h = x + (attn + first["attn_out"]["bias"])
+    y = layer_norm(first["ln_mlp"], h, eps)
+    mlp = sum(gelu(dense(p["fc1"], y)) @ p["fc2"]["kernel"] for p in ranks)
+    return h + (mlp + first["fc2"]["bias"])
+
+
+def tp_layer_check(results):
+    """Phase 34 (b): one full-width GPT-2-medium layer, whole and as its
+    m = 2 and 4 shards: output and input gradient."""
+    b, h, s, d = TRAIN_ATTN
+    cfg = GPT2Config.gpt2_medium()
+    layer = TransformerLayer(cfg.hidden_size, cfg.num_heads, causal=True,
+                             attn_dropout_ratio=DROPOUT,
+                             hidden_dropout_ratio=0.0, pre_layer_norm=True,
+                             layer_norm_eps=cfg.layer_norm_eps)
+    tree = layer.init(SEED + 34)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 35)
+    x0 = torch.randn(b, s, cfg.hidden_size, generator=g, device=DEVICE,
+                     dtype=torch.bfloat16)
+    gout = torch.randn(x0.shape, generator=g, device=DEVICE,
+                       dtype=torch.bfloat16)
+    whole = params_from_numpy(tree, DEVICE, torch.bfloat16)
+    x = x0.clone().requires_grad_(True)
+    # the layer draws its attention's two seed words from its generator
+    want = layer.apply(whole, x, rng=generator(SEED, 34, DEVICE),
+                       deterministic=False)
+    want.backward(gout)
+    seed = dropout_seed(generator(SEED, 34, DEVICE), DEVICE)
+    out = {}
+    for m in TP_DEGREES:
+        ranks = [params_from_numpy(tp_slice(
+            tree, TransformerLayer.partition_specs(), {MODEL: r},
+            {MODEL: m}), DEVICE, torch.bfloat16) for r in range(m)]
+        xs = x0.clone().requires_grad_(True)
+        got = sharded_layer(layer, ranks, xs, seed)
+        got.backward(gout)
+        errs = {}
+        for name, a, w in (("out", got, want), ("dx", xs.grad, x.grad)):
+            a, w = a.float(), w.float()
+            errs[name] = {"rel": float((a - w).norm() / w.norm()),
+                          "max_abs": float((a - w).abs().max())}
+            check(errs[name]["rel"] <= TP_LAYER_RTOL,
+                  f"tp layer m={m}: {name} relative error "
+                  f"{errs[name]['rel']} above {TP_LAYER_RTOL}")
+        out[f"m{m}"] = errs
+    return out
+
+
+def phase_tp(card, results):
+    """34. tp: (a) head ranges bitwise, (b) the sharded layer, (c) the
+    model axis of one on NCCL bitwise phase 33's GPT-2 engine.  Returns
+    (c)'s launches."""
+    b, h, s, d = TRAIN_ATTN
+    heads = {"b1_b2": tp_heads_check("B1/B2a/B2b", tp_b2, (b, h, s, d),
+                                     True, None)}
+    bert_mask = torch.ones(BERT_BATCH, BERT_SEQ, device=DEVICE)
+    bert_mask[::3, BERT_SEQ - 40:] = 0.0
+    heads["b1_b3"] = tp_heads_check("B1/B3", tp_b3,
+                                    (BERT_BATCH, h, BERT_SEQ, d), False,
+                                    bert_mask)
+    layer = tp_layer_check(results)
+    store_dir, nccl = nccl_world_of_one("tp")
+    try:
+        mesh = make_mesh({DATA_AXIS: 1, MODEL_AXIS: 1})
+        engine, cfg, batches = pipe_setup(0.0, pipeline=False, mesh=mesh)
+        check(engine.mesh is mesh and engine.mp_world_size == 1,
+              "tp: the engine is not on the model-axis mesh")
+        torch.cuda.synchronize()
+        reset_launches()
+        losses = pipe_losses(engine, batches, PIPE_PARITY_STEPS)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        release(engine)
+        del engine
+    finally:
+        nccl_teardown(store_dir)
+    want = results["pipe"]["parity"]["gpt2_losses"]
+    check(losses == want, f"tp: the model axis of one's losses {losses} "
+          f"are not bitwise phase 33's GPT-2 engine's {want}")
+    n = cfg.num_layers * PIPE_MICRO_BATCHES * PIPE_PARITY_STEPS
+    expect_launches("tp", launches, {"B1": n, "B2a": n, "B2b": n})
+    receipt = {"card": card, "nccl": nccl, "heads": heads, "layer": layer,
+               "layer_rtol": TP_LAYER_RTOL, "model_axis_of_one": {
+                   "losses": losses, "gpt2_losses": want}}
+    print("tp receipt (head ranges bitwise; GPT-2-medium layer shards; "
+          "mesh data=1 model=1 on NCCL):", json.dumps(receipt))
+    results["tp"] = receipt
+    return launches
+
+
+# ------------------------------------------------------------------- MoE
+MOE_MODEL = dict(moe_experts=8, moe_every=2, moe_k=2,
+                 moe_capacity_factor=1.25, embd_dropout=0.0,
+                 attn_dropout=0.0, resid_dropout=0.0)
+MOE_CONFIG = dict(TRAIN_CONFIG, optimizer={"type": "Adam",
+                                           "params": {"lr": 1e-4}})
+# phase 35's one-expert block against the dense block, bf16: the expert
+# products run at another shape ([b, 1, capacity, h]), so their
+# summation blocks, not their math, differ
+MOE_DENSE_TOL = 2e-2
+
+
+def moe_params(cfg):
+    """The MoE GPT-2-medium's weights: phase 6's for every leaf the dense
+    model has, the routers and experts drawn on the card from
+    ``SEED + 35`` (normal(0, 0.02) kernels, zero biases): drawing 0.8 B
+    numbers on the host would take seconds."""
+    dense_w = setup_weights("train", random_params, GPT2Config.gpt2_medium())
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 35)
+    h, E, inter = cfg.hidden_size, cfg.moe_experts, 4 * cfg.hidden_size
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE) \
+            * cfg.initializer_range
+
+    blocks = {}
+    for i in range(cfg.num_layers):
+        blk = dict(dense_w["blocks"][f"layer_{i}"])
+        if i % cfg.moe_every == cfg.moe_every - 1:
+            del blk["fc1"], blk["fc2"]
+            blk["moe"] = {
+                "router": {"kernel": normal(h, E)},
+                "fc1": {"kernel": normal(E, h, inter),
+                        "bias": torch.zeros(E, inter, device=DEVICE)},
+                "fc2": {"kernel": normal(E, inter, h),
+                        "bias": torch.zeros(E, h, device=DEVICE)}}
+        blocks[f"layer_{i}"] = blk
+    return dict(dense_w, blocks=blocks)
+
+
+def moe_dropped_share(engine, batch):
+    """The share of token-choices over capacity in every MoE block of
+    one evaluation pass of ``batch`` (``moe.route`` wrapped to count)."""
+    kept, total, real = [], [], moe.route
+
+    def counting(probs, k, capacity):
+        out = real(probs, k, capacity)
+        kept.append(out[0].sum())
+        total.append(probs.shape[0] * probs.shape[1] * k)
+        return out
+
+    moe.route = counting
+    try:
+        engine.eval_batch(batch)
+    finally:
+        moe.route = real
+    return 1.0 - float(torch.stack(kept).sum()) / sum(total)
+
+
+def moe_dense_check():
+    """One expert at k = 1 with the dense block's FFN weights is the
+    dense block, at full width in bf16 on the card."""
+    cfg = GPT2Config.gpt2_medium()
+    h = cfg.hidden_size
+    dense_layer = TransformerLayer(h, cfg.num_heads, causal=True,
+                                   attn_dropout_ratio=0.0,
+                                   hidden_dropout_ratio=0.0,
+                                   pre_layer_norm=True,
+                                   layer_norm_eps=cfg.layer_norm_eps)
+    block = moe.MoETransformerLayer(h, cfg.num_heads, num_experts=1, k=1,
+                                    attn_dropout_ratio=0.0,
+                                    hidden_dropout_ratio=0.0,
+                                    layer_norm_eps=cfg.layer_norm_eps)
+    p = dense_layer.init(SEED + 36)
+    mp = {k: p[k] for k in ("qkv", "attn_out", "ln_attn", "ln_mlp")}
+    mp["moe"] = {"router": {"kernel": np.zeros((h, 1), np.float32)},
+                 "fc1": {k: v[None] for k, v in p["fc1"].items()},
+                 "fc2": {k: v[None] for k, v in p["fc2"].items()}}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 36)
+    x = torch.randn(2, TRAIN_ATTN[2], h, generator=g, device=DEVICE,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = dense_layer.apply(params_from_numpy(p, DEVICE,
+                                                   torch.bfloat16), x)
+        got, aux = block.apply(params_from_numpy(mp, DEVICE,
+                                                 torch.bfloat16), x)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= MOE_DENSE_TOL and float(aux) == 1.0,
+          f"moe: one expert at k=1 differs from the dense block by {err} "
+          f"(aux {float(aux)})")
+    return err
+
+
+def phase_moe(card, results):
+    """35. moe: MoE GPT-2-medium at full width, 1 + 3 steps; card
+    against CPU at 2 layers; one expert against the dense FFN."""
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
+    cfg = GPT2Config.gpt2_medium(**MOE_MODEL)
+    model = GPT2LMHead(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=moe_params(cfg),
+        config=dict(MOE_CONFIG, train_batch_size=b))
+    params = sum(engine.segments.sizes)
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(b, s))}
+    warmup, timed = 1, 3
+    losses, step_s, launches = run_steps("moe", engine, batch, warmup, timed)
+    peak = torch.cuda.max_memory_allocated()
+    aux = float(model._last_moe_aux.detach())
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"moe: the losses {losses} do not fall step by step")
+    steps, layers = warmup + timed, cfg.num_layers
+    expect_launches("moe", launches, {"B1": layers * steps,
+                                      "B2a": layers * steps,
+                                      "B2b": layers * steps})
+    dropped = moe_dropped_share(engine, batch)
+    release(engine)
+    del engine, model
+    pcfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
+                      **MOE_MODEL)
+    card_l, cpu_l, parity_launches = gpt2_parity_run("moe parity", pcfg, 128,
+                                                     SEED + 35)
+    n = pcfg.num_layers * 2 * 3
+    check(only_launched(parity_launches, ("B1", "B3"), n),
+          f"moe parity: launches {parity_launches}, expected {n} of B1 and "
+          f"B3")
+    dense_err = moe_dense_check()
+    samples_s = b / step_s
+    receipt = {
+        "card": card, "layers": layers, "hidden": cfg.hidden_size,
+        "experts": cfg.moe_experts, "moe_every": cfg.moe_every,
+        "k": cfg.moe_k, "capacity_factor": cfg.moe_capacity_factor,
+        "seq": s, "micro_batch": b, "parameters": params, "losses": losses,
+        "step_ms": 1e3 * step_s, "samples_per_s": samples_s,
+        "tokens_per_s": samples_s * s, "peak_memory_bytes": peak,
+        "dropped_share": dropped, "aux_loss": aux,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "parity": {"card": card_l, "cpu": cpu_l},
+        "one_expert_vs_dense_max_abs": dense_err}
+    print("moe receipt (GPT-2-medium with 8 experts in every second block, "
+          "top-2, seq 1024, batch 8, bf16, Adam, ZeRO-2, dropout 0):",
+          json.dumps(receipt))
+    results["moe"] = receipt
+    return dict(launches)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4698,6 +5035,13 @@ def main(argv=None):
     # pipe 2 (and interleave 2) on two gloo CPU processes
     pipe_launches = phase_pipe(card, results)
     lap("pipe")
+    # 34. tensor parallelism: head ranges bitwise, a sharded layer, the
+    # model axis of one on NCCL
+    tp_launches = phase_tp(card, results)
+    lap("tp")
+    # 35. MoE GPT-2-medium at full width
+    moe_launches = phase_moe(card, results)
+    lap("moe")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -4717,7 +5061,8 @@ def main(argv=None):
              "offload_xl": offload_xl_launches,
              "offload_parity_cpu": offload_cpu_launches,
              "dp": dp_launches, "zero3": zero3_launches,
-             "onebit": onebit_launches, "pipe": pipe_launches}
+             "onebit": onebit_launches, "pipe": pipe_launches,
+             "tp": tp_launches, "moe": moe_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

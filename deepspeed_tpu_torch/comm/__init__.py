@@ -30,9 +30,18 @@ bucketed ZeRO exchange issues its collectives so, in the same order on
 every rank.  ``counter`` counts the collectives issued and the bytes of
 the buffers they cover.  The verbs run on any axis whose group exists,
 and the reductions on a tuple of axes too (``psum(x, ("pipe",
-"data"))``, the group over both); the mesh refuses ``model``, ``seq`` and
-``expert`` above one member (ROADMAP A10), so in the port they run on
-``data`` and ``pipe``.
+"data"))``, the group over both); the mesh refuses ``seq`` above one
+member (ROADMAP A10).
+
+Tensor and expert parallelism (Megatron's ``mappings``) go through
+three autograd regions over a named axis or tuple of axes, each an
+identity where the axis has one member: :func:`copy_to` (identity
+forward, sum-allreduce of the gradient backward: the input of a
+column-parallel product), :func:`reduce_from` (sum-allreduce forward,
+identity backward: the output of a row-parallel product) and
+:func:`gather_from` (all-gather along a dim forward, this member's
+slice of the gradient backward).  In the JAX package GSPMD inserts the
+same collectives from the partition specs.
 
 Point-to-point (:func:`send_recv`, :func:`ppermute`) is the pipeline's:
 a step's sends and receives to neighbouring stages go out together
@@ -98,7 +107,8 @@ def _axis(axis_name, mesh):
 def _all_reduce(x, axis_name, mesh, op, out, verb):
     group, _ = _axis(axis_name, mesh)
     if out is None:
-        out = x.clone()
+        # contiguous: NCCL refuses a strided buffer (an einsum's output)
+        out = x.clone(memory_format=torch.contiguous_format)
     elif out is not x:
         out.copy_(x)
     if group is not None:
@@ -286,6 +296,76 @@ def barrier(axis_name=DATA_AXIS, mesh=None):
     group, _ = _axis(axis_name, mesh)
     if group is not None:
         dist.barrier(group=group)
+
+
+def _trivial(axis_name, mesh):
+    mesh = mesh if mesh is not None else get_current_mesh()
+    return mesh is None or mesh.size(axis_name) == 1, mesh
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad.contiguous(), ctx.axis_name, ctx.mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        return psum(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim, mesh):
+        ctx.axis_name, ctx.dim, ctx.mesh = axis_name, dim, mesh
+        n = axis_size(axis_name, mesh)
+        parts = all_gather(x.movedim(dim, 0), axis_name, mesh=mesh,
+                           tiled=False)
+        # [n, ..., x.shape[dim], ...] -> the members' pieces joined on dim
+        return torch.cat([parts[i].movedim(0, dim) for i in range(n)],
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = axis_size(ctx.axis_name, ctx.mesh)
+        me = axis_index(ctx.axis_name, ctx.mesh)
+        return grad.chunk(n, dim=ctx.dim)[me].contiguous(), None, None, None
+
+
+def copy_to(x, axis_name, mesh=None):
+    """Identity forward; the gradient sum-allreduced over ``axis_name``
+    backward (Megatron's ``copy_to_model_parallel_region``): ``x`` is the
+    replicated input of a product each member computes a slice of."""
+    trivial, mesh = _trivial(axis_name, mesh)
+    return x if trivial else _CopyTo.apply(x, axis_name, mesh)
+
+
+def reduce_from(x, axis_name, mesh=None):
+    """Sum-allreduce over ``axis_name`` forward; the gradient as it is
+    backward (``reduce_from_model_parallel_region``): ``x`` is each
+    member's partial sum of a row-parallel product."""
+    trivial, mesh = _trivial(axis_name, mesh)
+    return x if trivial else _ReduceFrom.apply(x, axis_name, mesh)
+
+
+def gather_from(x, axis_name, dim=-1, mesh=None):
+    """All-gather along ``dim`` over ``axis_name`` forward, in member
+    order; this member's slice of the gradient backward
+    (``gather_from_model_parallel_region``)."""
+    trivial, mesh = _trivial(axis_name, mesh)
+    if trivial:
+        return x
+    return _GatherFrom.apply(x, axis_name, dim % x.dim(), mesh)
 
 
 def data_parallel_mean_count(count):

@@ -191,7 +191,8 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
                         T* __restrict__ dq, int heads, int s, int kv_len,
                         Strides st, float scale, int causal,
                         const int* __restrict__ seed, uint32_t thresh,
-                        float inv_keep) {
+                        float inv_keep,
+                        int drop_h0, int drop_heads) {
   constexpr int TPR = D / kEpt;  // threads per query row
   constexpr int THREADS = kDqRows * TPR;
   constexpr int ROW = TPR * kSeg;
@@ -210,6 +211,8 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
   const bool q_valid = qi < s;
   const int qr_i = q_valid ? qi : 0;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
 
   float qr[kEpt], dor[kEpt], acc[kEpt];
   load_seg(qr, q + b * st.q[0] + qr_i * st.q[1] + h * st.q[2] + part * kEpt,
@@ -256,7 +259,7 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
 #pragma unroll
       for (int u = 0; u < kDqKeys / 4 / TPR; ++u) {
         const int g = part * (kDqKeys / 4 / TPR) + u;
-        bits |= keep_bits4(dr.k0, dr.k1, bh, qi, (k0 >> 2) + g, dr.thresh)
+        bits |= keep_bits4(dr.k0, dr.k1, dbh, qi, (k0 >> 2) + g, dr.thresh)
                 << (4 * g);
       }
       keep = lane_or<TPR>(bits);
@@ -321,7 +324,8 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
                          T* __restrict__ dk, T* __restrict__ dv, int heads,
                          int s, int kv_len, Strides st, float scale,
                          int causal, const int* __restrict__ seed,
-                         uint32_t thresh, float inv_keep) {
+                         uint32_t thresh, float inv_keep,
+                        int drop_h0, int drop_heads) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kKvKeys * TPR;
   constexpr int ROW = TPR * kSeg;
@@ -344,6 +348,8 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
   const bool key_visible = k_valid && (!mrow || mrow[kj_i] > 0.f);
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
 
   float kr[kEpt], vr[kEpt], dka[kEpt], dva[kEpt];
   load_seg(kr, k + b * st.k[0] + kj_i * st.k[1] + h * st.k[2] + part * kEpt,
@@ -385,7 +391,7 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
       for (int e = tid; e < kKvRows * (kKvKeys / 4); e += THREADS) {
         const int r = e / (kKvKeys / 4);
         const int g = e - r * (kKvKeys / 4);
-        const uint32_t bits = keep_bits4(dr.k0, dr.k1, bh, i0 + r,
+        const uint32_t bits = keep_bits4(dr.k0, dr.k1, dbh, i0 + r,
                                          (k0 >> 2) + g, dr.thresh);
         atomicOr(&keep_s[r * kKvWords + (g >> 3)], bits << (4 * (g & 7)));
       }
@@ -502,7 +508,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                             T* __restrict__ dq, int heads, int s,
                             int kv_len, Strides st, float scale, int causal,
                             const int* __restrict__ seed, uint32_t thresh,
-                            float inv_keep) {
+                            float inv_keep,
+                        int drop_h0, int drop_heads) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -525,6 +532,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   // tiles, and the card starts blocks in grid order
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
 
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
@@ -552,7 +561,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                      tid);
   issue(0);
   cp_async_commit();
-  if (dr.on) draw_keep_tile(bits_s, tid, dr.k0, dr.k1, bh, q0, 0, dr.thresh);
+  if (dr.on) draw_keep_tile(bits_s, tid, dr.k0, dr.k1, dbh, q0, 0, dr.thresh);
 
   // lse (in log2 units) and Δ of the thread's rows g and g+8
   float lse2[2], dlt[2];
@@ -576,7 +585,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
     cp_async_commit();
     if (dr.on && j + 1 < n_tiles)
       draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
-                     bh, q0, (j + 1) * kMmaTileRows, dr.thresh);
+                     dbh, q0, (j + 1) * kMmaTileRows, dr.thresh);
     cp_async_wait<1>();  // tile j (and at j = 0 the block's Q, dO) is in
     __syncthreads();
     if (j == 0) {
@@ -687,7 +696,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                              int heads, int s, int kv_len, Strides st,
                              float scale, int causal,
                              const int* __restrict__ seed, uint32_t thresh,
-                             float inv_keep) {
+                             float inv_keep,
+                        int drop_h0, int drop_heads) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -709,6 +719,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const int h = bh - b * heads;
   const int k0 = blockIdx.x * kMmaTileRows;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
 
   const T* qbase = q + b * st.q[0] + h * st.q[2];
   const T* obase = dout + b * st.o[0] + h * st.o[2];
@@ -735,7 +747,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   if (n_tiles > 0) issue(0);
   cp_async_commit();
   if (dr.on && n_tiles > 0)
-    draw_keep_tile(bits_s, tid, dr.k0, dr.k1, bh, i_begin, k0, dr.thresh);
+    draw_keep_tile(bits_s, tid, dr.k0, dr.k1, dbh, i_begin, k0, dr.thresh);
 
   // whether the thread's keys g and g+8 are visible at all
   bool key_vis[2];
@@ -759,7 +771,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
     cp_async_commit();
     if (dr.on && j + 1 < n_tiles)
       draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
-                     bh, i_begin + (j + 1) * kMmaTileRows, k0, dr.thresh);
+                     dbh, i_begin + (j + 1) * kMmaTileRows, k0, dr.thresh);
     cp_async_wait<1>();  // tile j (and at j = 0 the block's K, V) is in
     __syncthreads();
     if (j == 0) {
@@ -896,7 +908,8 @@ __global__ void __launch_bounds__(kFusedThreads)
                            T* __restrict__ dv, int heads, int s, int kv_len,
                            Strides st, float scale, int causal,
                            const int* __restrict__ seed, uint32_t thresh,
-                           float inv_keep) {
+                           float inv_keep,
+                        int drop_h0, int drop_heads) {
   constexpr int KROW = D + 1;  // padded: threads walking keys hit all banks
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -915,6 +928,8 @@ __global__ void __launch_bounds__(kFusedThreads)
   const int b = bh / heads;
   const int h = bh - b * heads;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
 
   for (int e = tid; e < s * D; e += kFusedThreads) {
@@ -946,7 +961,7 @@ __global__ void __launch_bounds__(kFusedThreads)
     for (int e = tid; e < s * groups; e += kFusedThreads) {
       const int i = e / groups;
       const int g = e - i * groups;
-      const uint32_t bits = keep_bits4(dr.k0, dr.k1, bh, i, g, dr.thresh);
+      const uint32_t bits = keep_bits4(dr.k0, dr.k1, dbh, i, g, dr.thresh);
       atomicOr(&keep_s[i * words + (g >> 3)], bits << (4 * (g & 7)));
     }
   }
@@ -1075,7 +1090,8 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
                                T* __restrict__ dv, int heads, int s,
                                int kv_len, Strides st, float scale,
                                int causal, const int* __restrict__ seed,
-                               uint32_t thresh, float inv_keep) {
+                               uint32_t thresh, float inv_keep,
+                        int drop_h0, int drop_heads) {
   constexpr int ROW = MmaTile<D>::kRow;
   constexpr int CH = MmaTile<D>::kChunks;
   constexpr int KC = kMmaChunk;
@@ -1103,6 +1119,8 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
   const int b = bh / heads;
   const int h = bh - b * heads;
   const Dropout dr = read_dropout(seed, thresh, inv_keep);
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
 
   // Q, dO, K and V by cp.async, zero past s and kv_len
   auto load = [&](T* dst, const T* src, int64_t stride, int n,
@@ -1132,7 +1150,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
 #pragma unroll
       for (int gq = 0; gq < 8; ++gq)
         if (32 * w + 4 * gq < kv_len)
-          word |= keep_bits4(dr.k0, dr.k1, bh, i, 8 * w + gq, dr.thresh)
+          word |= keep_bits4(dr.k0, dr.k1, dbh, i, 8 * w + gq, dr.thresh)
                   << (4 * gq);
       bits_s[e] = word;
     }
@@ -1311,6 +1329,7 @@ struct Args {
   const int* seed;
   uint32_t thresh;
   float inv_keep;
+  int drop_h0, drop_heads;
   cudaStream_t stream;
 };
 
@@ -1340,7 +1359,7 @@ int launch_dq(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
-        a.inv_keep);
+        a.inv_keep, a.drop_h0, a.drop_heads);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1351,7 +1370,7 @@ int launch_dq(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
-        a.inv_keep);
+        a.inv_keep, a.drop_h0, a.drop_heads);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1370,7 +1389,8 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.seed, a.thresh, a.inv_keep);
+        a.causal, a.seed, a.thresh, a.inv_keep,
+        a.drop_h0, a.drop_heads);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1381,7 +1401,8 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.seed, a.thresh, a.inv_keep);
+        a.causal, a.seed, a.thresh, a.inv_keep,
+        a.drop_h0, a.drop_heads);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1400,7 +1421,8 @@ int launch_fused_mma(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-      a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+      a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep,
+        a.drop_h0, a.drop_heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1423,7 +1445,8 @@ int launch_fused(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-        a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
+        a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep,
+        a.drop_h0, a.drop_heads);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1460,14 +1483,18 @@ extern "C" int64_t ds_flash_attention_bwd_fused_smem(int dtype, int head_dim,
 // of dk/dv (which share them).  lse and delta are contiguous fp32
 // [b·h, s]; kv_mask is [batch, kv_len] fp32 or null; `seed` null (no
 // dropout) or two int32 words in device memory, with `thresh` and
-// `inv_keep` the dropout threshold and scale.  Launches on `stream`,
+// `inv_keep` the dropout threshold and scale; the keep bits of head h of
+// batch b are those of head b·drop_heads + drop_h0 + h of the Philox
+// counter (0 and heads for a whole call; a tensor-parallel rank's first
+// head and the model's head count for its range).  Launches on `stream`,
 // does not synchronise, allocates nothing, and returns the CUDA error.
 extern "C" int ds_flash_attention_bwd(
     int which, int dtype, int head_dim, const void* q, const void* k,
     const void* v, const void* dout, const void* lse, const void* delta,
     const void* kv_mask, void* dq, void* dk, void* dv, int batch, int heads,
     int s, int kv_len, const int64_t* strides, float scale, int causal,
-    const void* seed, uint32_t thresh, float inv_keep, void* stream) {
+    const void* seed, uint32_t thresh, float inv_keep, int drop_h0,
+    int drop_heads, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -1496,6 +1523,8 @@ extern "C" int ds_flash_attention_bwd(
   a.seed = static_cast<const int*>(seed);
   a.thresh = thresh;
   a.inv_keep = inv_keep;
+  a.drop_h0 = drop_h0;
+  a.drop_heads = drop_heads;
   a.stream = static_cast<cudaStream_t>(stream);
   if (which < kDq || which > kFused) return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a);

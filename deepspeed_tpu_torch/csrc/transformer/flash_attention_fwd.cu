@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                      int64_t v_sh, float scale, int causal,
                      const int* __restrict__ seed, uint32_t thresh,
-                     float inv_keep) {
+                     float inv_keep, int drop_h0, int drop_heads) {
   constexpr int DH = D / 2;       // head_dim elements each thread owns
   constexpr int HALF = DH + 4;    // padded half row: halves in other banks
   constexpr int ROW = 2 * HALF;   // padded K/V row in shared memory
@@ -134,6 +134,8 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
   const int q0 = blockIdx.x * kBlockQ;
   const int qi = q0 + row;
   const bool q_valid = qi < s;
@@ -214,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kBlockK / 8; ++u) {
         const int g = half * (kBlockK / 8) + u;
-        bits |= ds_flash::keep_bits4(sk0, sk1, bh, qi, (k0 >> 2) + g, thresh)
+        bits |= ds_flash::keep_bits4(sk0, sk1, dbh, qi, (k0 >> 2) + g, thresh)
                 << (4 * g);
       }
       keep = ds_flash::lane_or<2>(bits);
@@ -317,7 +319,7 @@ __global__ void __launch_bounds__(
                          int64_t k_ss, int64_t k_sh, int64_t v_sb,
                          int64_t v_ss, int64_t v_sh, float scale, int causal,
                          const int* __restrict__ seed, uint32_t thresh,
-                         float inv_keep) {
+                         float inv_keep, int drop_h0, int drop_heads) {
   using Tile = MmaTile<D>;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* q_s = reinterpret_cast<T*>(fwd_smem);
@@ -334,6 +336,8 @@ __global__ void __launch_bounds__(
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
+  // B4's counter head: this head's place in the whole call's heads
+  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
   // the last query tiles first: under `causal` they walk the most key
   // tiles, and the card starts blocks in grid order
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
@@ -359,7 +363,7 @@ __global__ void __launch_bounds__(
     if (mrow) load_row_async(mask_s + stage * kKeys, mrow, kt, kv_len, tid);
   };
   auto draw = [&](int j) {
-    draw_keep_tile_visible(bits_s + (j & 1) * kBitWords, tid, sk0, sk1, bh,
+    draw_keep_tile_visible(bits_s + (j & 1) * kBitWords, tid, sk0, sk1, dbh,
                            q0, j * kKeys, thresh, s, kv_len, causal);
   };
   load_tile_async<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, s, tid);
@@ -537,7 +541,8 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
            int64_t v_sh, float scale, int causal, const int* seed,
-           uint32_t thresh, float inv_keep, cudaStream_t stream) {
+           uint32_t thresh, float inv_keep, int drop_h0, int drop_heads,
+           cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value ||
                 std::is_same<T, __half>::value) {
     constexpr int kSmem = fwd_mma_smem_bytes<D>();
@@ -552,7 +557,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        seed, thresh, inv_keep);
+        seed, thresh, inv_keep, drop_h0, drop_heads);
   } else {
     // fp32: the scalar design
     const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
@@ -561,7 +566,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        seed, thresh, inv_keep);
+        seed, thresh, inv_keep, drop_h0, drop_heads);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -576,7 +581,11 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 // fp32 (1 keeps a key) or null; out is a contiguous [b, s, h, d] of the
 // input dtype and lse a contiguous fp32 [b·h, s].  `seed` is null (no
 // dropout) or two int32 seed words in device memory; `thresh` and
-// `inv_keep` are the dropout threshold and scale.  Launches on `stream`,
+// `inv_keep` are the dropout threshold and scale; the keep bits of head
+// h of batch b are those of head b·drop_heads + drop_h0 + h of the
+// Philox counter (drop_h0 = 0, drop_heads = heads for a whole call; a
+// tensor-parallel rank passes its first head and the model's head
+// count).  Launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int ds_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -584,13 +593,13 @@ extern "C" int ds_flash_attention_fwd(
     int kv_len, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, const void* seed, uint32_t thresh,
-    float inv_keep, void* stream) {
+    float inv_keep, int drop_h0, int drop_heads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_FLASH_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, kv_mask, out, lse, batch, heads, s, kv_len,   \
                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
                       scale, causal, static_cast<const int*>(seed), thresh,  \
-                      inv_keep, st)
+                      inv_keep, drop_h0, drop_heads, st)
   if (dtype == 0 && head_dim == 64) DS_FLASH_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) DS_FLASH_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) DS_FLASH_LAUNCH(__nv_bfloat16, 64);

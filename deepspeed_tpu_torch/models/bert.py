@@ -37,15 +37,27 @@ Parameters are a dict with the JAX package's keys
 Dropout draws from the GPT-2 port's generator streams: stream 0 drops the
 embeddings, stream i+1 is layer i's, its sub-stream 17 draws layer i's
 PLD keep, and stream L+1 (L layers) drops the classifier's pooled row.
+
+Tensor parallelism (the current mesh's ``model`` axis): the params are
+a rank's slices by ``partition_specs()`` (JAX ``bert.py:118-127``,
+``:240-250``): the word embeddings are vocab-parallel, so is the MLM
+decoder tied to them and its ``decoder_bias``, whose cross entropy runs
+over the ranks' slices of the logits (an eval call that returns them
+gathers them whole); the layers are Megatron shards; the rest,
+the QA and classifier heads included, is replicated.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..comm import copy_to, gather_from
+from ..parallel.mesh import MODEL_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
+from ..utils.params import MODEL
 from .layers import (TransformerLayer, cross_entropy_with_logits, dense,
-                     dropout, gelu, generator, layer_norm, mix_seed)
+                     dropout, gelu, generator, layer_norm, mix_seed,
+                     vocab_parallel_cross_entropy, vocab_parallel_embedding)
 
 # the sub-stream of a layer's seed that draws its PLD keep (the JAX
 # model's fold_in(layer_rng, 17)): the layer's dropout stream is not
@@ -149,6 +161,39 @@ def random_params(config, seed):
                     "seq_relationship": draw.dense(h, 2)}}
 
 
+def _replicated(tree):
+    """A spec tree of ``tree``'s shape with every leaf replicated."""
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    return (None,) * np.ndim(tree)
+
+
+def trunk_specs(config):
+    """The trunk's slicing over ``model``: the word embeddings by vocab
+    rows, each layer's Megatron specs, the rest replicated."""
+    specs = _replicated(_trunk_params(config, _ShapeDraw()))
+    specs["embeddings"]["word"] = (MODEL, None)
+    specs["encoder"] = {f"layer_{i}": TransformerLayer.partition_specs()
+                        for i in range(config.num_hidden_layers)}
+    return specs
+
+
+class _ShapeDraw:
+    """Shape-only stand-ins for :class:`_Draw` (zero-size strides: the
+    spec trees need the shapes' ranks only)."""
+
+    @staticmethod
+    def normal(*shape):
+        return np.broadcast_to(np.float32(0), shape)
+
+    def dense(self, n_in, n_out):
+        return {"kernel": self.normal(n_in, n_out),
+                "bias": self.normal(n_out)}
+
+    def ln(self, n):
+        return {"scale": self.normal(n), "bias": self.normal(n)}
+
+
 def mlm_positions(labels, n_pred):
     """The first ``n_pred`` labeled positions of each row ([b, n_pred],
     int64), then the first unlabeled ones where a row has fewer labels:
@@ -201,7 +246,8 @@ class BertModel:
         c = self.config
         s = input_ids.shape[1]
         emb = params["embeddings"]
-        x = emb["word"][input_ids] + emb["position"][None, :s]
+        x = vocab_parallel_embedding(emb["word"], input_ids) \
+            + emb["position"][None, :s]
         if token_type_ids is not None:
             x = x + emb["token_type"][token_type_ids]
         x = layer_norm(emb["ln"], x, c.layer_norm_eps)
@@ -268,6 +314,17 @@ class BertForPreTraining(nn.Module):
         """Random numpy params (:func:`random_params`)."""
         return random_params(self.config, seed)
 
+    def partition_specs(self, mesh=None):
+        """The trunk's specs, the decoder bias vocab-parallel with the
+        word embeddings, the rest of the head replicated."""
+        return {"bert": trunk_specs(self.config),
+                "cls": {"transform": {"kernel": (None, None),
+                                      "bias": (None,)},
+                        "transform_ln": {"scale": (None,), "bias": (None,)},
+                        "decoder_bias": (MODEL,),
+                        "seq_relationship": {"kernel": (None, None),
+                                             "bias": (None,)}}}
+
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
         c = self.config
         input_ids = batch["input_ids"]
@@ -298,12 +355,14 @@ class BertForPreTraining(nn.Module):
                                                  dim=1))
         h = gelu(dense(cls["transform"], head_in))
         h = layer_norm(cls["transform_ln"], h, c.layer_norm_eps)
-        # the decoder is tied to the word embeddings
-        logits = h @ params["bert"]["embeddings"]["word"].T.to(h.dtype) \
+        # the decoder is tied to the word embeddings (under ``model``,
+        # this rank's vocab slice of the logits)
+        logits = copy_to(h, MODEL_AXIS) \
+            @ params["bert"]["embeddings"]["word"].T.to(h.dtype) \
             + cls["decoder_bias"].to(h.dtype)
         if not train and mlm_labels is None:
-            return logits
-        loss = cross_entropy_with_logits(logits, mlm_labels)
+            return gather_from(logits, MODEL_AXIS)
+        loss = vocab_parallel_cross_entropy(logits, mlm_labels)
         if "next_sentence_labels" in batch:
             nsp_logits = dense(cls["seq_relationship"], pooled)
             loss = loss + cross_entropy_with_logits(
@@ -331,6 +390,10 @@ class BertForQuestionAnsweringTPU(nn.Module):
         """The untied word and token-type embeddings: only the batch's
         token rows get gradient (JAX ``bert.py:330-333``)."""
         return ("bert/embeddings/word", "bert/embeddings/token_type")
+
+    def partition_specs(self, mesh=None):
+        return {"bert": trunk_specs(self.config),
+                "qa_outputs": {"kernel": (None, None), "bias": (None,)}}
 
     def init(self, seed):
         """Random numpy params: the trunk and ``qa_outputs`` [h, 2]."""
@@ -382,6 +445,10 @@ class BertForSequenceClassificationTPU(nn.Module):
         """The untied word and token-type embeddings: only the batch's
         token rows get gradient (JAX ``bert.py:330-333``)."""
         return ("bert/embeddings/word", "bert/embeddings/token_type")
+
+    def partition_specs(self, mesh=None):
+        return {"bert": trunk_specs(self.config),
+                "classifier": {"kernel": (None, None), "bias": (None,)}}
 
     def init(self, seed):
         """Random numpy params: the trunk and ``classifier`` [h,

@@ -17,8 +17,17 @@ each block (or ``number_checkpoints`` of them, from the
 ``activation_checkpointing`` config) in backward, and ``loss_chunk``
 computes the LM-head loss over sequence chunks whose logits are
 recomputed in backward, so the ``[b, s, vocab]`` logits are never held
-whole.  Not ported yet, and refused: MoE blocks (ROADMAP A10) and the
-ring attention core (A10).
+whole.  ``moe_experts`` > 0 swaps the dense FFN of every
+``moe_every``-th block for a routed-expert FFN (:mod:`.moe`) and adds
+``moe_aux_coef`` × the blocks' mean Switch aux loss to the training
+loss.  Not ported yet, and refused: the ring attention core (A10).
+
+Tensor parallelism (the current mesh's ``model`` axis): the params are
+a rank's slices by :meth:`GPT2LMHead.partition_specs`; ``wte`` is
+vocab-parallel, so the lookup sums the ranks' rows, the tied head makes
+each rank's ``[b, s, V/m]`` slice of the logits, and the loss (whole or
+chunked) takes the cross entropy over the slices without gathering them;
+an eval call that returns logits gathers them whole.
 """
 
 import logging
@@ -28,10 +37,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..comm import data_parallel_mean_count
+from ..comm import copy_to, data_parallel_mean_count, gather_from
+from ..parallel.mesh import MODEL_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
-from .layers import (TransformerLayer, cross_entropy_with_logits, dropout,
-                     generator, layer_norm)
+from ..utils.params import MODEL
+from .layers import (TransformerLayer, dropout, generator, layer_norm,
+                     vocab_parallel_cross_entropy, vocab_parallel_embedding,
+                     vocab_parallel_nll_sum)
+from .moe import MoETransformerLayer
 
 logger = logging.getLogger(__name__)
 
@@ -109,17 +122,34 @@ def random_params(config, seed):
         return {"scale": np.ones((h,), np.float32),
                 "bias": np.zeros((h,), np.float32)}
 
+    def block(i):
+        p = {"qkv": dense_p(h, 3 * h), "attn_out": dense_p(h, h)}
+        if is_moe_layer(c, i):
+            E = c.moe_experts
+            p["moe"] = {"router": {"kernel": normal(h, E)},
+                        "fc1": {"kernel": normal(E, h, inter),
+                                "bias": np.zeros((E, inter), np.float32)},
+                        "fc2": {"kernel": normal(E, inter, h),
+                                "bias": np.zeros((E, h), np.float32)}}
+        else:
+            p["fc1"] = dense_p(h, inter)
+            p["fc2"] = dense_p(inter, h)
+        p["ln_attn"], p["ln_mlp"] = ln_p(), ln_p()
+        return p
+
     return {
         "wte": normal(c.vocab_size, h),
         "wpe": normal(c.max_position_embeddings, h),
-        "blocks": {f"layer_{i}": {"qkv": dense_p(h, 3 * h),
-                                  "attn_out": dense_p(h, h),
-                                  "fc1": dense_p(h, inter),
-                                  "fc2": dense_p(inter, h),
-                                  "ln_attn": ln_p(), "ln_mlp": ln_p()}
-                   for i in range(c.num_layers)},
+        "blocks": {f"layer_{i}": block(i) for i in range(c.num_layers)},
         "ln_f": ln_p(),
     }
+
+
+def is_moe_layer(config, i):
+    """Whether block ``i`` is a MoE block: every ``moe_every``-th, the
+    last of each group (JAX ``gpt2.py:97-99``)."""
+    c = config
+    return bool(c.moe_experts) and i % c.moe_every == c.moe_every - 1
 
 
 class GPT2LMHead(nn.Module):
@@ -137,9 +167,6 @@ class GPT2LMHead(nn.Module):
     def __init__(self, config, params=None):
         super().__init__()
         c = config
-        if c.moe_experts:
-            raise NotImplementedError("MoE blocks are not ported yet "
-                                      "(ROADMAP A10)")
         self.config = config
         self.params = params
         self.layer = TransformerLayer(
@@ -152,6 +179,34 @@ class GPT2LMHead(nn.Module):
             gelu_checkpoint=c.gelu_checkpoint,
             attn_dropout_checkpoint=c.attn_dropout_checkpoint,
             normalize_invertible=c.normalize_invertible)
+        self.moe_layer = None
+        if c.moe_experts:
+            self.moe_layer = MoETransformerLayer(
+                hidden_size=c.hidden_size, heads=c.num_heads,
+                num_experts=c.moe_experts, causal=True, k=c.moe_k,
+                capacity_factor=c.moe_capacity_factor,
+                attn_dropout_ratio=c.attn_dropout,
+                hidden_dropout_ratio=c.resid_dropout,
+                initializer_range=c.initializer_range,
+                layer_norm_eps=c.layer_norm_eps, attn_impl=c.attn_impl,
+                sparsity_config=c.sparsity_config,
+                gelu_checkpoint=c.gelu_checkpoint,
+                attn_dropout_checkpoint=c.attn_dropout_checkpoint,
+                normalize_invertible=c.normalize_invertible)
+        self._last_moe_aux = None
+
+    def partition_specs(self, mesh=None):
+        """The port's slicing of the params over ``model`` and
+        ``expert`` (JAX ``gpt2.py:143-157``): ``wte`` vocab-parallel,
+        each block's :meth:`TransformerLayer.partition_specs` (or the MoE
+        block's), the rest replicated."""
+        c = self.config
+        layer = TransformerLayer.partition_specs()
+        moe = MoETransformerLayer.partition_specs()
+        return {"wte": (MODEL, None), "wpe": (None, None),
+                "blocks": {f"layer_{i}": moe if is_moe_layer(c, i)
+                           else layer for i in range(c.num_layers)},
+                "ln_f": {"scale": (None,), "bias": (None,)}}
 
     def sparse_gradient_paths(self):
         """Leaves whose gradients are row-sparse (the engine's
@@ -175,7 +230,8 @@ class GPT2LMHead(nn.Module):
         layer so a recompute draws the forward's masks."""
         c = self.config
         s = input_ids.shape[1]
-        x = params["wte"][input_ids] + params["wpe"][None, :s]
+        x = vocab_parallel_embedding(params["wte"], input_ids) \
+            + params["wpe"][None, :s]
         train = rng is not None and not deterministic
         if train:
             x = dropout(generator(rng, 0, x.device), x, c.embd_dropout,
@@ -183,25 +239,35 @@ class GPT2LMHead(nn.Module):
 
         def run_layer(lp, x, i):
             layer_rng = generator(rng, i + 1, x.device) if train else None
+            if is_moe_layer(c, i):
+                return self.moe_layer.apply(lp, x, rng=layer_rng,
+                                            deterministic=deterministic)
             return self.block(lp, x, layer_rng, deterministic)
 
         ck_layer = ds_ckpt.checkpoint_wrapper(run_layer) if c.remat else None
+        aux = []
         for i in range(c.num_layers):
             fn = run_layer
             if ck_layer is not None and ds_ckpt.should_checkpoint_layer(
                     i, c.num_layers):
                 fn = ck_layer
             x = fn(params["blocks"][f"layer_{i}"], x, i)
+            if is_moe_layer(c, i):
+                x, a = x
+                aux.append(a)
+        self._last_moe_aux = sum(aux) / len(aux) if aux else None
         return layer_norm(params["ln_f"], x, c.layer_norm_eps)
 
     @staticmethod
     def _lm_head(params, x):
-        # tied LM head
-        return x @ params["wte"].T.to(x.dtype)
+        """The tied LM head: under ``model`` this rank's ``[b, s, V/m]``
+        slice of the logits."""
+        return copy_to(x, MODEL_AXIS) @ params["wte"].T.to(x.dtype)
 
     def logits(self, params, input_ids, rng=None, deterministic=True):
-        return self._lm_head(params, self.hidden(params, input_ids, rng,
-                                                 deterministic))
+        """The whole ``[b, s, vocab]`` logits (gathered over ``model``)."""
+        return gather_from(self._lm_head(params, self.hidden(
+            params, input_ids, rng, deterministic)), MODEL_AXIS)
 
     @staticmethod
     def _chunked_lm_loss(params, x, labels, chunk):
@@ -212,14 +278,10 @@ class GPT2LMHead(nn.Module):
         piece, which backward recomputes, so the full logits and their
         fp32 copy are never held: the largest tensors of the step."""
         w = params["wte"]
+        x = copy_to(x, MODEL_AXIS)
 
         def one(xc, lc):
-            logits = (xc @ w.T.to(xc.dtype)).float()
-            mask = lc != -100
-            lse = torch.logsumexp(logits, dim=-1)
-            safe = torch.where(mask, lc, 0).long()
-            gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-            return ((lse - gold) * mask).sum()
+            return vocab_parallel_nll_sum(xc @ w.T.to(xc.dtype), lc)[0]
 
         total = sum(checkpoint(one, xc, lc, use_reentrant=False)
                     for xc, lc in zip(x.split(chunk, dim=1),
@@ -250,7 +312,7 @@ class GPT2LMHead(nn.Module):
                 chunk, input_ids.shape[1])
         x = self.hidden(params, input_ids, rng=rng, deterministic=not train)
         if want_logits:
-            return self._lm_head(params, x)
+            return gather_from(self._lm_head(params, x), MODEL_AXIS)
         if has_labels:
             labels = batch["labels"]
         else:
@@ -260,9 +322,15 @@ class GPT2LMHead(nn.Module):
                                               device=input_ids.device)],
                 dim=1)
         if use_chunked:
-            return self._chunked_lm_loss(params, x, labels, int(chunk))
-        return cross_entropy_with_logits(self._lm_head(params, x), labels,
-                                         ignore_index=-100)
+            loss = self._chunked_lm_loss(params, x, labels, int(chunk))
+        else:
+            loss = vocab_parallel_cross_entropy(self._lm_head(params, x),
+                                                labels, ignore_index=-100)
+        if train and self._last_moe_aux is not None:
+            # the Switch load-balancing loss, a training-only regularizer
+            # (JAX gpt2.py:291-294)
+            loss = loss + c.moe_aux_coef * self._last_moe_aux
+        return loss
 
     def forward(self, input_ids):
         return self.logits(self.params, input_ids)

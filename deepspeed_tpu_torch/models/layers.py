@@ -12,6 +12,17 @@ draw from its own generator in a fixed order (attention, attention
 output, MLP output).  A sub-block recomputed in backward (the layer's
 memory knobs) replays its generator from the state its forward started
 from (:func:`recomputed`), so the recompute draws the forward's masks.
+
+Tensor parallelism (Megatron, over the current mesh's ``model`` axis):
+a layer whose params are a rank's slices (:func:`~deepspeed_tpu_torch.utils.params.tp_slice`
+by :meth:`TransformerLayer.partition_specs`) runs its heads and its
+slice of the MLP: QKV and ``fc1`` column-parallel on the replicated
+input (:func:`~deepspeed_tpu_torch.comm.copy_to`), ``attn_out`` and
+``fc2`` row-parallel, their partial products summed over the ranks
+(:func:`~deepspeed_tpu_torch.comm.reduce_from`) before the bias is
+added once.  Every rank of a data coordinate draws the same dropout
+streams, and the flash kernels drop the entries of the rank's GLOBAL
+heads, so a sharded layer drops what the whole layer drops.
 """
 
 import functools
@@ -22,7 +33,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..comm import data_parallel_mean_count
+from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
+                    pmax, reduce_from)
+from ..parallel.mesh import MODEL_AXIS
+from ..utils.params import MODEL, QKV
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
 from ..ops.sparse_attention.flash_block_sparse import (
@@ -73,6 +87,16 @@ def recomputed(block, rng=None):
 
 def dense(params, x):
     return x @ params["kernel"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def row_dense(params, x, axis=MODEL_AXIS):
+    """A row-parallel ``dense``: each rank's partial product of its rows
+    of the kernel, summed over ``axis``, then the (replicated) bias added
+    once; ``dense`` itself where the axis has one member."""
+    if axis_size(axis) == 1:
+        return dense(params, x)
+    return reduce_from(x @ params["kernel"].to(x.dtype), axis) \
+        + params["bias"].to(x.dtype)
 
 
 def layer_norm(params, x, eps=1e-12):
@@ -151,7 +175,10 @@ class TransformerLayer:
     attention block (QKV, B1, attention output and its dropout),
     ``gelu_checkpoint`` the MLP block, ``normalize_invertible`` each
     layernorm.  Not ported yet, and refused: the ring core (``attn_impl``
-    'ring', ROADMAP A10).  ``apply(..., positions=...)`` computes the
+    'ring', ROADMAP A10), and the sparse core above one ``model`` rank
+    (A18).  Under a ``model`` axis the params are the rank's slices
+    (:meth:`partition_specs`) and the layer is its Megatron shard (see
+    the module docstring).  ``apply(..., positions=...)`` computes the
     layer at a few gathered rows only (BERT's last layer under the MLM
     gather)."""
 
@@ -216,6 +243,33 @@ class TransformerLayer:
                 "fc1": dense_p(h, i), "fc2": dense_p(i, h),
                 "ln_attn": ln_p(), "ln_mlp": ln_p()}
 
+    @staticmethod
+    def partition_specs():
+        """The port's slicing of the layer's params over ``model``
+        (the JAX layer's ``partition_specs``, ``layers.py:156-163``): QKV
+        column-parallel by heads inside each of Q, K and V, ``fc1``
+        column-parallel, ``attn_out`` and ``fc2`` row-parallel with their
+        bias replicated, the layernorms replicated."""
+        return {"qkv": {"kernel": (None, QKV), "bias": (QKV,)},
+                "attn_out": {"kernel": (MODEL, None), "bias": (None,)},
+                "fc1": {"kernel": (None, MODEL), "bias": (MODEL,)},
+                "fc2": {"kernel": (MODEL, None), "bias": (None,)},
+                "ln_attn": {"scale": (None,), "bias": (None,)},
+                "ln_mlp": {"scale": (None,), "bias": (None,)}}
+
+    def local_heads(self, params):
+        """``(heads this rank holds, its first head)``: all of them at
+        one ``model`` rank, ``heads / m`` at rank r of m from ``r·heads /
+        m``."""
+        hl = params["qkv"]["kernel"].shape[1] // (3 * self.head_dim)
+        if hl == self.heads:
+            return hl, 0
+        m = axis_size(MODEL_AXIS)
+        if hl * m != self.heads:
+            raise ValueError(f"the QKV holds {hl} of {self.heads} heads but "
+                             f"the model axis has {m} ranks")
+        return hl, axis_index(MODEL_AXIS) * hl
+
     def _sparse_layout(self, seq_len):
         """Layout cached per sequence length: randomized configs (BigBird,
         Variable) must give the same pattern in every call, and the
@@ -265,7 +319,10 @@ class TransformerLayer:
         ``positions`` [b, K] (int64): queries, and so output rows, only at
         those positions, with keys and values over the whole sequence;
         the dense bidirectional core only.  Returns [b, K, h]."""
-        b, s, h = y.shape
+        b, s = y.shape[:2]
+        heads, h0 = self.local_heads(params)
+        h = heads * self.head_dim   # this rank's width of the context
+        y = copy_to(y, MODEL_AXIS)
         if positions is not None:
             if self.attn_impl != "auto" or self.causal:
                 raise ValueError("query-gathered attention supports the "
@@ -274,19 +331,25 @@ class TransformerLayer:
             w = params["qkv"]["kernel"].to(y.dtype)
             bias = params["qkv"]["bias"].to(y.dtype)
             y_sel = torch.take_along_dim(y, positions[..., None], dim=1)
-            q = (y_sel @ w[:, :h] + bias[:h]).reshape(b, n, self.heads,
+            q = (y_sel @ w[:, :h] + bias[:h]).reshape(b, n, heads,
                                                       self.head_dim)
-            kv = (y @ w[:, h:] + bias[h:]).reshape(b, s, 2, self.heads,
+            kv = (y @ w[:, h:] + bias[h:]).reshape(b, s, 2, heads,
                                                    self.head_dim)
             ctx = dot_product_attention(
                 q, kv[:, :, 0], kv[:, :, 1], mask=mask,
                 key_padding_mask=key_padding_mask, causal=False,
                 dropout_rate=self.attn_dropout_ratio, dropout_rng=attn_rng,
-                deterministic=deterministic)
+                deterministic=deterministic, head_offset=h0,
+                total_heads=self.heads)
             return ctx.reshape(b, n, h)
-        qkv = dense(params["qkv"], y).reshape(b, s, 3, self.heads,
+        qkv = dense(params["qkv"], y).reshape(b, s, 3, heads,
                                               self.head_dim)
         if self.attn_impl == "sparse":
+            if heads != self.heads:
+                raise NotImplementedError(
+                    "the block-sparse attention core above one model rank "
+                    "is not ported yet (ROADMAP A18): its per-head layouts "
+                    "need slicing")
             return self._sparse_attention(
                 qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
                 key_padding_mask, attn_rng, deterministic).reshape(b, s, h)
@@ -294,7 +357,8 @@ class TransformerLayer:
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask=mask,
             key_padding_mask=key_padding_mask, causal=self.causal,
             dropout_rate=self.attn_dropout_ratio, dropout_rng=attn_rng,
-            deterministic=deterministic)
+            deterministic=deterministic, head_offset=h0,
+            total_heads=self.heads)
         return ctx.reshape(b, s, h)
 
     def apply(self, params, x, mask=None, key_padding_mask=None, rng=None,
@@ -319,12 +383,13 @@ class TransformerLayer:
                                       attn_rng=rng,
                                       deterministic=deterministic,
                                       positions=positions)
-            return dropout(rng, dense(params["attn_out"], ctx), rate,
+            return dropout(rng, row_dense(params["attn_out"], ctx), rate,
                            deterministic)
 
         def mlp_block(y):
-            z = dense(params["fc2"], gelu(dense(params["fc1"], y)))
-            return dropout(rng, z, rate, deterministic)
+            z = gelu(dense(params["fc1"], copy_to(y, MODEL_AXIS)))
+            return dropout(rng, row_dense(params["fc2"], z), rate,
+                           deterministic)
 
         def ln(p, y):
             return layer_norm(p, y, self.layer_norm_eps)
@@ -362,3 +427,54 @@ def cross_entropy_with_logits(logits, labels, ignore_index=-100):
     gold = torch.gather(logits, -1, safe_labels[..., None].long())[..., 0]
     nll = (lse - gold) * mask
     return nll.sum() / data_parallel_mean_count(mask.sum())
+
+
+def vocab_parallel_embedding(table, ids):
+    """``table[ids]`` for a ``[V, H]`` table sliced over ``model`` by
+    rows (vocab-parallel, ``P("model", None)``): each rank looks up the
+    ids in its rows, zeros elsewhere, and one sum over the ranks gives
+    every rank the whole lookup (bitwise: one rank adds a row to zeros).
+    ``table[ids]`` itself at one ``model`` rank."""
+    if axis_size(MODEL_AXIS) == 1:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - axis_index(MODEL_AXIS) * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, 0)]
+    return reduce_from(torch.where(inside[..., None], x, 0.0).to(x.dtype),
+                       MODEL_AXIS)
+
+
+def vocab_parallel_nll_sum(logits, labels, ignore_index=-100):
+    """``(Σ token nll, mask)`` of a rank's ``[..., V/m]`` slice of the
+    logits (vocab rows ``[r·V/m, (r+1)·V/m)``, as the tied head makes
+    them), without gathering them: the row max over the ranks (a max
+    all-reduce, no gradient), then the sum of exponentials and the
+    target's logit in one sum all-reduce; fp32.  At one ``model`` rank,
+    the JAX package's logsumexp form."""
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    if axis_size(MODEL_AXIS) == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        return ((lse - gold) * mask).sum(), mask
+    rows = logits.shape[-1]
+    local = safe - axis_index(MODEL_AXIS) * rows
+    inside = (local >= 0) & (local < rows)
+    gmax = pmax(logits.detach().amax(dim=-1), MODEL_AXIS)
+    sumexp = (logits - gmax[..., None]).exp().sum(-1)
+    gold = torch.where(inside, torch.gather(
+        logits, -1, torch.where(inside, local, 0)[..., None])[..., 0], 0.0)
+    sumexp, gold = reduce_from(torch.stack([sumexp, gold]), MODEL_AXIS)
+    return ((sumexp.log() + gmax - gold) * mask).sum(), mask
+
+
+def vocab_parallel_cross_entropy(logits, labels, ignore_index=-100):
+    """:func:`cross_entropy_with_logits` of logits sliced over ``model``
+    by vocab (:func:`vocab_parallel_nll_sum`); the function itself at
+    one ``model`` rank."""
+    if axis_size(MODEL_AXIS) == 1:
+        return cross_entropy_with_logits(logits, labels, ignore_index)
+    total, mask = vocab_parallel_nll_sum(logits, labels, ignore_index)
+    return total / data_parallel_mean_count(mask.sum())

@@ -54,11 +54,12 @@ class FusedAdam:
                 "weight_decay": float(g["weight_decay"])}
 
     def update(self, state, flat_master, flat_grads, hp, segments=None,
-               shard=None):
+               shard=None, tensor_reduce=None):
         """One step on the flat buffer, in place: ``flat_master`` and the
         moments in ``state`` are overwritten.  ``flat_grads`` may be bf16;
         the update runs in fp32.  Adam is elementwise, so it runs on a
-        rank's rows (``shard``, under ZeRO-1/2) unchanged."""
+        rank's rows (``shard``, under ZeRO-1/2) and on a tensor-parallel
+        rank's slices unchanged (``tensor_reduce`` is Lamb's)."""
         lr, beta1, beta2, wd = (hp["lr"], hp["beta1"], hp["beta2"],
                                 hp["weight_decay"])
         p = flat_master

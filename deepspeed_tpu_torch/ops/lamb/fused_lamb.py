@@ -65,12 +65,16 @@ class FusedLamb:
         return self._layout[1], self._layout[2]
 
     def update(self, state, flat_master, flat_grads, hp, segments=None,
-               shard=None):
+               shard=None, tensor_reduce=None):
         """One step on the flat buffer, in place.  Under ZeRO-1/2 the
         buffers are one rank's rows (``shard``, a
         :class:`~deepspeed_tpu_torch.ops.op_common.RowShard`): the
         per-tensor sums of squares are summed over the ranks before the
-        trust ratios are taken."""
+        trust ratios are taken.  Under tensor parallelism a tensor is a
+        rank's slice of a whole one: ``tensor_reduce`` (the engine's)
+        sums each sliced tensor's partial sums over the ``model`` and
+        ``expert`` ranks too, so the trust ratio is the whole tensor's
+        (JAX ``fused_lamb.py:96-101``)."""
         if segments is None:
             raise ValueError("FusedLamb needs the segment descriptor for "
                              "per-tensor trust ratios")
@@ -100,6 +104,8 @@ class FusedLamb:
             # a tensor's rows can straddle ranks: ONE all-reduce of the
             # partial sums of both norms before the roots
             sq = shard.reduce(sq)
+        if tensor_reduce is not None:
+            sq = tensor_reduce(sq)
         w_norms, u_norms = sq_sums_to_norms(sq).split(segments.num_segments)
         # trust ratio per tensor: ||w||/||u||, clamped; 1 where degenerate;
         # pad rows (id num_segments) get 1 and multiply a zero update

@@ -87,7 +87,8 @@ def dropout_seed(generator, device):
 
 def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
                           causal=False, dropout_rate=0.0, dropout_rng=None,
-                          deterministic=True):
+                          deterministic=True, head_offset=0,
+                          total_heads=None):
     """Multi-head attention on [batch, seq, heads, head_dim] tensors.
 
     ``mask`` is an additive bias broadcastable to [b, h, q, k];
@@ -95,7 +96,11 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
     the flash kernels fuse.  Pass one or the other, not both.
     ``dropout_rng`` is a ``torch.Generator`` on the tensors' device; the
     probabilities are dropped at ``dropout_rate`` when it is given and
-    ``deterministic`` is false."""
+    ``deterministic`` is false.  ``head_offset`` and ``total_heads``
+    place the heads in a whole call's (a tensor-parallel rank's range):
+    the flash path then drops the whole call's entries of those heads
+    (the additive-``mask`` path draws its bytes per call, at the local
+    shape)."""
     if mask is not None and key_padding_mask is not None:
         raise ValueError(
             "pass either an additive mask or a key_padding_mask, not both")
@@ -103,7 +108,8 @@ def dot_product_attention(q, k, v, mask=None, key_padding_mask=None,
     if takes_flash(q.device.type, q.shape[1], mask is not None, drop):
         seed = dropout_seed(dropout_rng, q.device) if drop else None
         return FlashAttention.apply(q, k, v, key_padding_mask, seed, causal,
-                                    float(dropout_rate) if drop else 0.0)
+                                    float(dropout_rate) if drop else 0.0,
+                                    head_offset, total_heads)
     if key_padding_mask is not None:
         mask = key_padding_to_additive(key_padding_mask)[:, None, None, :]
     return reference_attention(q, k, v, mask=mask, causal=causal,

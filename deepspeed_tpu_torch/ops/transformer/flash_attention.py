@@ -15,7 +15,10 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 - B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
   mask regenerated from a counter-based Philox keyed on two seed words
   and counting ELEMENTS (b·h, q row, k col >> 2), so every kernel draws
-  the same bits whatever its tiling.
+  the same bits whatever its tiling.  A call on a range of the heads
+  (a tensor-parallel rank's, ``head_offset`` into ``total_heads``)
+  counts with the GLOBAL head, b·total_heads + head_offset + j, so the
+  ranks of a sharded run drop exactly the entries of the whole call.
 
 Each wrapper launches its kernel for CUDA tensors or raises, and runs the
 plain version (:func:`flash_attention_reference`,
@@ -117,21 +120,36 @@ def philox_bits(seed, heads, rows, c_lo, c_hi):
     return words[..., first:first + c_hi - c_lo]
 
 
-def philox_keep_mask(seed, bh, s, kv_len, rate):
+def drop_heads(b, h, head_offset=0, total_heads=None, device=None):
+    """The Philox counter word of each (batch, head) of a ``[b, s, h,
+    d]`` call on heads ``head_offset .. head_offset + h - 1`` of
+    ``total_heads`` (default ``h``): ``batch·total_heads + head_offset +
+    j``, int64 ``[b·h]`` in the kernels' b·h order."""
+    total = h if total_heads is None else int(total_heads)
+    return (torch.arange(b, device=device)[:, None] * total + head_offset
+            + torch.arange(h, device=device)[None, :]).reshape(-1)
+
+
+def philox_keep_mask(seed, bh, s, kv_len, rate, heads=None):
     """Plain version of B4: the bool keep mask ``[bh, s, kv_len]`` the
     kernels draw for seed words ``seed`` (two int32, on any device; the
     mask comes back on that device): an element is kept iff its
-    :func:`philox_bits` are at least ``thresh``."""
+    :func:`philox_bits` are at least ``thresh``.  ``heads`` (int64
+    ``[bh]``, :func:`drop_heads`) are the counter words of the b·h rows,
+    ``0 .. bh-1`` by default."""
     thresh, _ = dropout_thresh(rate)
     dev = seed.device
-    return philox_bits(seed, torch.arange(bh, device=dev),
-                       torch.arange(s, device=dev), 0, kv_len) >= thresh
+    heads = torch.arange(bh, device=dev) if heads is None else heads
+    return philox_bits(seed, heads, torch.arange(s, device=dev), 0,
+                       kv_len) >= thresh
 
 
-def _keep_and_scale(seed, dropout_rate, b, h, s, kv_len):
+def _keep_and_scale(seed, dropout_rate, b, h, s, kv_len, head_offset=0,
+                    total_heads=None):
     if not dropout_rate:
         return None, 1.0
-    return (philox_keep_mask(seed, b * h, s, kv_len, dropout_rate)
+    heads = drop_heads(b, h, head_offset, total_heads, seed.device)
+    return (philox_keep_mask(seed, b * h, s, kv_len, dropout_rate, heads)
             .view(b, h, s, kv_len), dropout_thresh(dropout_rate)[1])
 
 
@@ -207,7 +225,7 @@ def _fwd_kernel():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 4 + [i64] * 9
                        + [ctypes.c_float, i32, ptr, ctypes.c_uint32,
-                          ctypes.c_float, ptr])
+                          ctypes.c_float, i32, i32, ptr])
         fn.restype = ctypes.c_int
     return fn
 
@@ -219,7 +237,8 @@ def _bwd_kernel():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([i32] * 3 + [ptr] * 10 + [i32] * 4
                        + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                          i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr])
+                          i32, ptr, ctypes.c_uint32, ctypes.c_float, i32,
+                          i32, ptr])
         fn.restype = ctypes.c_int
         smem = lib.ds_flash_attention_bwd_fused_smem
         smem.argtypes = [i32, i32, i32, i32]
@@ -322,6 +341,16 @@ def _check(q, k, v, kv_mask):
                          f"{v.dtype}")
 
 
+def _total_heads(h, head_offset, total_heads):
+    """``total_heads`` (default ``h``), checked to hold heads
+    ``head_offset .. head_offset + h - 1``."""
+    total = h if total_heads is None else int(total_heads)
+    if head_offset < 0 or head_offset + h > total:
+        raise ValueError(f"heads {head_offset}..{head_offset + h - 1} are "
+                         f"not within {total}")
+    return total
+
+
 def _check_seed(seed, dropout_rate, device):
     if not dropout_rate:
         return
@@ -386,9 +415,13 @@ def _count_launch(wrapper, dropout_rate, dtype):
 
 
 def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
-                        dropout_rate=0.0, seed=None):
+                        dropout_rate=0.0, seed=None, head_offset=0,
+                        total_heads=None):
     """Flash-attention forward (B1, with B4 when ``dropout_rate`` > 0 and
     ``seed`` holds the two int32 seed words); returns ``(out, lse)``.
+    ``head_offset`` and ``total_heads`` place q's heads in a whole call's
+    (a tensor-parallel rank's range): B4 then draws the whole call's keep
+    bits of those heads.
 
     CPU tensors take :func:`flash_attention_reference` with the
     :func:`philox_keep_mask` mask.  CUDA tensors launch the Hopper kernel
@@ -400,8 +433,10 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
     _check_seed(seed, dropout_rate, q.device)
     b, s, h, d = q.shape
     kv_len = k.shape[1]
+    total = _total_heads(h, head_offset, total_heads)
     if q.device.type == "cpu":
-        keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, kv_len)
+        keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, kv_len,
+                                         head_offset, total)
         return flash_attention_reference(q, k, v, kv_mask, causal, keep,
                                          inv_keep)
     _check_cuda(q, k, v, kv_mask)
@@ -420,7 +455,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
                 1.0 / math.sqrt(d), int(bool(causal)), seed_ptr, thresh,
-                inv_keep, stream)
+                inv_keep, head_offset, total, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -439,7 +474,7 @@ def _delta(out, dout):
 
 
 def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, delta, dq, dk, dv):
+                seed, delta, dq, dk, dv, head_offset=0, total_heads=None):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
     if q.dtype in MMA_DTYPES and not mma_aligned(q, k, v, dout):
@@ -464,6 +499,7 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
         *dout.stride()[:3], *grads_q.stride()[:3], *grads_kv.stride()[:3])
     fn = _bwd_kernel()
     seed_ptr, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    total = _total_heads(h, head_offset, total_heads)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -471,7 +507,7 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), ptr(mask), ptr(dq), ptr(dk), ptr(dv), b, h,
                 s, kv_len, strides, 1.0 / math.sqrt(d), int(bool(causal)),
-                seed_ptr, thresh, inv_keep, stream)
+                seed_ptr, thresh, inv_keep, head_offset, total, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward ({which}) kernel "
                            f"launch failed: CUDA error {rc}")
@@ -497,16 +533,19 @@ def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate, seed):
     return dout, lse
 
 
-def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed):
+def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed,
+               head_offset=0, total_heads=None):
     b, s, h, _ = q.shape
-    keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, k.shape[1])
+    keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, k.shape[1],
+                                     head_offset,
+                                     _total_heads(h, head_offset, total_heads))
     return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask,
                                          causal, keep, inv_keep)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
                            causal=False, dropout_rate=0.0, seed=None,
-                           delta=None):
+                           delta=None, head_offset=0, total_heads=None):
     """B2a: dq ``[b, s, h, d]``.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``)
     or raise.  ``delta``, Δ = rowsum(dO∘O) as fp32 ``[b·h, s]``, is
@@ -516,18 +555,18 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed)[0]
+                          dropout_rate, seed, head_offset, total_heads)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, dq,
-                None, None)
+                None, None, head_offset, total_heads)
     _count_launch(flash_attention_bwd_dq, dropout_rate, q.dtype)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
                             causal=False, dropout_rate=0.0, seed=None,
-                            delta=None):
+                            delta=None, head_offset=0, total_heads=None):
     """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]``.  CPU tensors take
     the plain version; CUDA tensors launch the kernel
     (``flash_attention_bwd_dkv.launches``) or raise.  ``delta`` as for
@@ -536,19 +575,19 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed)[1:]
+                          dropout_rate, seed, head_offset, total_heads)[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, None,
-                dk, dv)
+                dk, dv, head_offset, total_heads)
     _count_launch(flash_attention_bwd_dkv, dropout_rate, q.dtype)
     return dk, dv
 
 
 def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
                               causal=False, dropout_rate=0.0, seed=None,
-                              delta=None):
+                              delta=None, head_offset=0, total_heads=None):
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
     (``flash_attention_bwd_fused.launches``: bf16 and fp16 on the tensor
@@ -561,7 +600,7 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
                             seed)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed)
+                          dropout_rate, seed, head_offset, total_heads)
     d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
     if not fused_backward_fits(d, s, kv_len, q.dtype):
         raise ValueError(f"the fused backward needs "
@@ -573,7 +612,7 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 seed, _delta(out, dout) if delta is None else delta, dq, dk,
-                dv)
+                dv, head_offset, total_heads)
     _count_launch(flash_attention_bwd_fused, dropout_rate, q.dtype)
     return dq, dk, dv
 
@@ -585,7 +624,8 @@ for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
-                        dropout_rate=0.0, seed=None):
+                        dropout_rate=0.0, seed=None, head_offset=0,
+                        total_heads=None):
     """Flash-attention backward: ``(dq, dk, dv)`` from the forward's out
     and lse.  CUDA tensors run B3 where :func:`use_fused_backward` takes
     it, else B2a then B2b, which share one Δ and one fp32 key mask; CPU
@@ -597,34 +637,41 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
         kv_mask = _mask_arg(kv_mask)
         delta = _delta(out, dout)
         dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask, causal,
-                                    dropout_rate, seed, delta)
+                                    dropout_rate, seed, delta, head_offset,
+                                    total_heads)
         dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask,
-                                         causal, dropout_rate, seed, delta)
+                                         causal, dropout_rate, seed, delta,
+                                         head_offset, total_heads)
         return dq, dk, dv
     return flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask,
-                                     causal, dropout_rate, seed)
+                                     causal, dropout_rate, seed, None,
+                                     head_offset, total_heads)
 
 
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, kv_mask, seed, causal,
-    dropout_rate)`` -> out ``[b, s, h, d]``.  The forward runs B1 (with
-    B4 under dropout) and saves q, k, v, out, lse and the seed; the
-    backward runs B3 or B2a+B2b, regenerating the keep mask from the
-    seed.  kv_mask and the seed get no gradient."""
+    dropout_rate, head_offset, total_heads)`` -> out ``[b, s, h, d]``.
+    The forward runs B1 (with B4 under dropout) and saves q, k, v, out,
+    lse and the seed; the backward runs B3 or B2a+B2b, regenerating the
+    keep mask from the seed (of the global heads, for a rank's range).
+    kv_mask and the seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask=None, seed=None, causal=False,
-                dropout_rate=0.0):
+                dropout_rate=0.0, head_offset=0, total_heads=None):
         out, lse = flash_attention_fwd(q, k, v, kv_mask, causal,
-                                       dropout_rate, seed)
+                                       dropout_rate, seed, head_offset,
+                                       total_heads)
         ctx.save_for_backward(q, k, v, out, lse, kv_mask, seed)
         ctx.causal = causal
         ctx.dropout_rate = dropout_rate
+        ctx.heads = (head_offset, total_heads)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kv_mask, seed = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask,
-                                         ctx.causal, ctx.dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None
+                                         ctx.causal, ctx.dropout_rate, seed,
+                                         *ctx.heads)
+        return dq, dk, dv, None, None, None, None, None, None

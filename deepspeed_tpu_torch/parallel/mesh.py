@@ -16,12 +16,17 @@ outermost, so the ranks of one stage are consecutive:
 A ``pipe`` × ``data`` mesh has one process group per pipe column (the
 stages of one data coordinate), one data group per stage, and one over
 both axes (``group((PIPE_AXIS, DATA_AXIS))``), which the pipeline
-engine's one scalar all-reduce a step runs on.  ``model``, ``seq`` and
-``expert`` (tensor, sequence and expert parallelism) are ROADMAP A10,
-refused above 1.
+engine's one scalar all-reduce a step runs on.  ``model`` (Megatron
+tensor parallelism) and ``expert`` (expert parallelism) run above 1
+too: every process group over a set of two or more axes above size 1
+is made with the mesh (``group(("model", "expert"))``, ``group(("data",
+"model", "expert"))``, ...), so the engine's one stats all-reduce and
+the MoE layer's regions over both axes have theirs.  ``seq`` (sequence
+parallelism, ring attention) is ROADMAP A10, refused above 1.
 """
 
 import contextlib
+import itertools
 
 import torch.distributed as dist
 
@@ -35,19 +40,19 @@ MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
 
 CANONICAL_AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
-# the ROADMAP item that ports each axis other than data and pipe
-UNPORTED_AXES = {SEQ_AXIS: "A10", MODEL_AXIS: "A10", EXPERT_AXIS: "A10"}
+# the ROADMAP item that ports each axis the port refuses above 1
+UNPORTED_AXES = {SEQ_AXIS: "A10"}
 
 
 def refuse_unported_axes(sizes):
-    """Raise for an axis other than ``data`` and ``pipe`` above size 1,
+    """Raise for an axis the port does not run above size 1 (``seq``),
     naming its ROADMAP item."""
     for ax, item in UNPORTED_AXES.items():
         if int(sizes.get(ax, 1)) > 1:
             raise NotImplementedError(
                 f"mesh axis {ax!r} of size {sizes[ax]} is not ported yet "
-                f"(ROADMAP {item}); the port runs data and pipeline "
-                f"parallelism only")
+                f"(ROADMAP {item}); the port runs the data, pipe, model "
+                f"and expert axes")
 
 
 def _axes_key(axis):
@@ -78,16 +83,30 @@ class Mesh:
 
     @classmethod
     def from_mpu(cls, mpu):
-        """The data-parallel mesh of a Megatron-style ``mpu`` whose
-        ``get_data_parallel_group()`` is a process group (a
-        :class:`MeshGrid` carries its mesh already)."""
+        """The ``data`` × ``model`` mesh of a Megatron-style ``mpu`` whose
+        ``get_data_parallel_group()`` and ``get_model_parallel_group()``
+        are process groups (a :class:`MeshGrid` carries its mesh
+        already).  The ranks are laid out as the reference's mpu lays
+        them out, ``model`` innermost; above one member on both axes the
+        two axes must cover the whole world, whose group is then the
+        stats group over both."""
         if isinstance(mpu, MeshGrid):
             return mpu.mesh
-        refuse_unported_axes(
-            {MODEL_AXIS: mpu.get_model_parallel_world_size()})
-        return cls({DATA_AXIS: mpu.get_data_parallel_world_size()},
-                   groups={DATA_AXIS: mpu.get_data_parallel_group()},
-                   rank=mpu.get_data_parallel_rank())
+        dp = mpu.get_data_parallel_world_size()
+        mp = mpu.get_model_parallel_world_size()
+        groups = {DATA_AXIS: mpu.get_data_parallel_group()}
+        rank = mpu.get_data_parallel_rank() * mp
+        if mp > 1:
+            groups[MODEL_AXIS] = mpu.get_model_parallel_group()
+            rank += mpu.get_model_parallel_rank()
+            if dp > 1:
+                if dp * mp != get_world_size():
+                    raise ValueError(
+                        f"an mpu with data {dp} x model {mp} needs a world "
+                        f"of {dp * mp} processes, not {get_world_size()}")
+                groups[(DATA_AXIS, MODEL_AXIS)] = dist.group.WORLD
+        return cls({DATA_AXIS: dp, MODEL_AXIS: mp}, groups=groups,
+                   rank=rank)
 
     def size(self, axis):
         """The size of an axis, or of a tuple of axes (their product)."""
@@ -101,10 +120,16 @@ class Mesh:
 
     def group(self, axis):
         """The process group of an axis, or of a tuple of axes (the
-        ranks that differ only in those coordinates)."""
+        ranks that differ only in those coordinates; the axes of size 1
+        in it are dropped, so a tuple names the group of its axes above
+        one member, None where none is)."""
         key = _axes_key(axis)
-        if isinstance(key, tuple) and len(key) == 1:
-            key = key[0]
+        if isinstance(key, tuple):
+            key = tuple(ax for ax in key if self.shape[ax] > 1)
+            if not key:
+                return None
+            if len(key) == 1:
+                key = key[0]
         return self._groups.get(key)
 
     def index(self, axis):
@@ -195,9 +220,12 @@ def make_mesh(axis_dims):
                 continue  # nothing to exchange over
             _add_groups(mesh, ax, mesh.topology.get_axis_comm_lists(ax),
                         world)
-        if dims[PIPE_AXIS] > 1:
-            both = (PIPE_AXIS, DATA_AXIS)
-            _add_groups(mesh, both, _comm_lists(mesh.topology, both), world)
+        # every set of two or more axes above size 1, in canonical order
+        big = [ax for ax in CANONICAL_AXES if dims[ax] > 1]
+        for n in range(2, len(big) + 1):
+            for axes in itertools.combinations(big, n):
+                _add_groups(mesh, axes, _comm_lists(mesh.topology, axes),
+                            world)
     return mesh
 
 
@@ -235,6 +263,7 @@ class MeshGrid:
         shape = mesh.shape
         self.data_parallel_size = shape.get(DATA_AXIS, 1)
         self.model_parallel_size = shape.get(MODEL_AXIS, 1)
+        self.expert_parallel_size = shape.get(EXPERT_AXIS, 1)
         self.seq_parallel_size = shape.get(SEQ_AXIS, 1)
         self.pipe_parallel_size = shape.get(PIPE_AXIS, 1)
         if topology is None:
@@ -274,6 +303,16 @@ class MeshGrid:
 
     def get_data_parallel_group(self):
         return DATA_AXIS
+
+    def get_expert_parallel_rank(self):
+        return getattr(self._coord(), EXPERT_AXIS, 0) \
+            if EXPERT_AXIS in self._topo.axes else 0
+
+    def get_expert_parallel_world_size(self):
+        return self.expert_parallel_size
+
+    def get_expert_parallel_group(self):
+        return EXPERT_AXIS
 
     # ---- pipeline extras (reference PipelineParallelGrid) ----
     def get_pipe_parallel_rank(self):

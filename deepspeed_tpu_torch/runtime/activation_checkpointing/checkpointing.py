@@ -18,10 +18,15 @@ everything it computes is recomputed there.  The knobs of the
   call.  Only the wrapped function's tensor arguments (or those
   ``argnums`` picks) pass through those hooks, never the weights, which
   the models hand in inside a dict and which stay where they are;
-- ``partition_activations``: shards the kept inputs over the
-  model-parallel ranks.  At model-parallel 1, the port's only degree,
-  that is no change, as in the JAX package on a mesh whose ``model`` axis
-  is 1; more ranks wait for ROADMAP A10;
+- ``partition_activations``: above one rank of the current mesh's
+  ``model`` axis, each rank keeps only its ``1/m`` of a kept input's dim
+  1 (the sequence of ``[b, s, h]``; JAX ``:105-113`` shards it so), and
+  backward all-gathers the slices before the recompute, through the
+  same saved-tensor hooks (so a dim 1 that ``m`` does not divide is
+  kept whole).  The gathered input is the input, so the run is bitwise
+  the run without it.  At one ``model`` rank it is no change, as in the
+  JAX package on a mesh whose ``model`` axis is 1.
+  ``partition_stats`` counts the bytes the hooks were handed and kept;
 - ``contiguous_memory_optimization``, ``synchronize_checkpoint_boundary``
   and ``profile`` are parsed and have no effect, as in the JAX package.
 
@@ -40,6 +45,9 @@ use.
 
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+
+from ...comm import all_gather, axis_index, axis_size
+from ...parallel.mesh import MODEL_AXIS, get_current_mesh
 
 from .config import DeepSpeedActivationCheckpointingConfig
 
@@ -91,24 +99,45 @@ def should_checkpoint_layer(index, num_layers, cfg=None):
     return index in {round(j * num_layers / k) for j in range(k)}
 
 
-def _offload_hooks(selected):
-    """Saved-tensor hooks that keep the tensors in ``selected`` (by
-    identity) in host memory, pinned when they come from the card, and
-    bring them back to their device when backward unpacks them; other
-    saved tensors pass through."""
+# bytes handed to the partitioning hooks and bytes they kept (the
+# ``partition_activations`` receipt)
+partition_stats = {"full_bytes": 0, "kept_bytes": 0}
+
+
+def _offload_hooks(selected, offload=True, mesh=None):
+    """Saved-tensor hooks for the tensors in ``selected`` (by identity):
+    with ``mesh`` (``partition_activations`` above one ``model`` rank)
+    each keeps only this rank's slice of its dim 1 and backward
+    all-gathers the slices; with ``offload`` (``cpu_checkpointing``) what
+    is kept waits in host memory, pinned when it comes from the card,
+    and goes back to its device when backward unpacks it.  Other saved
+    tensors pass through."""
+    m = axis_size(MODEL_AXIS, mesh) if mesh is not None else 1
+
     def pack(t):
         if id(t) not in selected:
-            return None, t
+            return None, False, t
+        split = m > 1 and t.dim() >= 2 and t.shape[1] % m == 0
+        if split:
+            partition_stats["full_bytes"] += t.numel() * t.element_size()
+            t = t.chunk(m, dim=1)[axis_index(MODEL_AXIS, mesh)].clone()
+            partition_stats["kept_bytes"] += t.numel() * t.element_size()
+        if not offload:
+            return t.device, split, t
         host = torch.empty(t.size(), dtype=t.dtype, layout=t.layout,
                            pin_memory=t.is_cuda)
         host.copy_(t, non_blocking=t.is_cuda)
-        return t.device, host
+        return t.device, split, host
 
     def unpack(packed):
-        device, t = packed
+        device, split, t = packed
         if device is None:
             return t
-        return t.to(device, non_blocking=device.type == "cuda")
+        t = t.to(device, non_blocking=device.type == "cuda")
+        if not split:
+            return t
+        parts = all_gather(t.movedim(1, 0), MODEL_AXIS, mesh=mesh)
+        return parts.movedim(0, 1).contiguous()
 
     return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
@@ -122,13 +151,19 @@ def checkpoint_wrapper(fn, cfg=None, argnums=None):
     cfg = cfg or _config
 
     def wrapped(*args, **kwargs):
-        if not cfg.cpu_checkpointing:
+        mesh = get_current_mesh()
+        partition = (cfg.partition_activations and mesh is not None
+                     and mesh.size(MODEL_AXIS) > 1)
+        if not (cfg.cpu_checkpointing or partition):
             return _torch_checkpoint(fn, *args, use_reentrant=False,
                                      **kwargs)
         selected = {id(a) for i, a in enumerate(args)
                     if isinstance(a, torch.Tensor)
                     and (argnums is None or i in argnums)}
-        with _offload_hooks(selected):
+        hooks = (_offload_hooks(selected, offload=cfg.cpu_checkpointing,
+                                mesh=mesh) if partition
+                 else _offload_hooks(selected))
+        with hooks:
             return _torch_checkpoint(fn, *args, use_reentrant=False,
                                      **kwargs)
 

@@ -76,9 +76,9 @@ def config_issues(param_dict):
             for ax, item in UNPORTED_AXES.items():
                 if int(value.get(ax, 1)) > 1:
                     issues.append(f"mesh axis '{ax}' is {value[ax]} but the "
-                                  f"PyTorch port runs data and pipeline "
-                                  f"parallelism only (ROADMAP {item}); "
-                                  f"building the mesh will raise")
+                                  f"PyTorch port runs the data, pipe, "
+                                  f"model and expert axes (ROADMAP "
+                                  f"{item}); building the mesh will raise")
     return issues
 
 
@@ -92,6 +92,7 @@ def get_mesh_config(json_file_or_dict):
     mesh.setdefault(C.MESH_MODEL, 1)
     mesh.setdefault(C.MESH_PIPE, 1)
     mesh.setdefault(C.MESH_SEQ, 1)
+    mesh.setdefault(C.MESH_EXPERT, 1)
     return mesh
 
 

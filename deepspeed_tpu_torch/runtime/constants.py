@@ -179,7 +179,9 @@ SECTION_KEYS = {
                    "min_time", "prefer_larger_batch", "version"),
     "flops_profiler": ("detailed", "enabled", "module_depth", "profile_step",
                        "top_modules"),
-    "mesh": ("data", "model", "pipe", "seq"),
+    # "expert": the port's (the JAX schema's mesh block has no key for
+    # the expert axis, which its engine takes from a mesh passed in)
+    "mesh": ("data", "expert", "model", "pipe", "seq"),
     "pipeline": ("activation_checkpoint_interval", "interleave",
                  "partition", "seed_layers", "stages"),
     "profiling": ("comm_ledger", "memory_ledger", "memory_watermarks",
@@ -218,15 +220,16 @@ UNPORTED_SECTIONS = {
 }
 
 #############################################
-# Data and pipeline parallelism: the "mesh" block (axis sizes; data -1
-# is the whole torch.distributed world), the JAX package's :267-271.
-# Its model, seq and expert axes are ROADMAP A10
+# Data, pipeline, tensor and expert parallelism: the "mesh" block (axis
+# sizes; data -1 is the whole torch.distributed world), the JAX
+# package's :267-271.  Its seq axis is ROADMAP A10
 #############################################
 MESH = "mesh"
 MESH_DATA = "data"
 MESH_MODEL = "model"
 MESH_PIPE = "pipe"
 MESH_SEQ = "seq"
+MESH_EXPERT = "expert"
 SPARSE_GRADIENTS = "sparse_gradients"
 SPARSE_GRADIENTS_DEFAULT = False
 

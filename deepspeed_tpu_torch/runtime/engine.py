@@ -145,11 +145,30 @@ params and runs its instruction stream; this engine's step is its
 ``ReduceGrads`` and ``OptimizerStep``, with the step's statistics
 (:meth:`_step_stats`) taken over the pipeline's ranks too.
 
+Tensor and expert parallelism (a mesh with ``model`` or ``expert``
+above 1; JAX ``:195-230``, ``:379-381``): each rank holds its slices of
+the model's params (Megatron's layout, by the model's
+``partition_specs()``: :func:`~deepspeed_tpu_torch.utils.params.tp_slice`
+of the whole tree drawn from the seed, so one seed gives the one-rank
+run's params), and its flat master, optimizer state and ZeRO sharding
+over ``data`` are those of its own tree.  The JAX engine keeps the whole
+master on every model rank and lets GSPMD slice the compute; the math
+is the same: the ranks of one data coordinate see the same batch and
+draw the same dropout streams, the step's one stats all-reduce runs over
+``data``, ``model`` and ``expert`` with a replicated leaf counted once
+(at model and expert coordinate 0) in the global norm, Lamb's trust
+ratios come from whole-tensor norms, and a replicated leaf's gradient
+comes out the same on every rank, so it needs no exchange.  Checkpoints
+are gathered over ``model`` and ``expert`` into the JAX whole-tree
+layout and cut again on load, so they load at any degree and in either
+package.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-offload above one rank (A9), telemetry (A12), tensor, sequence and
-expert parallelism (A10), ZeRO-3 and 1-bit Adam under a pipeline (A13
-remainder), and resilience's fleet integrity plane and elastic
-supervisor (A15's second half).
+offload above one rank (A9), telemetry (A12), sequence parallelism
+(A10), ZeRO-3 and 1-bit Adam under a pipeline (A13 remainder), 1-bit
+Adam and ``sparse_gradients`` above one model or expert rank (A18), and
+resilience's fleet integrity plane and elastic supervisor (A15's second
+half).
 """
 
 import dataclasses
@@ -174,8 +193,9 @@ from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.op_common import LANES
-from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, Mesh, current_mesh,
-                             make_mesh, refuse_unported_axes)
+from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
+                             Mesh, current_mesh, make_mesh,
+                             refuse_unported_axes)
 from ..profiling.step_profiler import StepLatencyRing
 from ..resilience.constants import TrainingDivergedError
 from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
@@ -184,7 +204,9 @@ from ..resilience.rollback import RollbackManager
 from ..resilience.watchdog import StepWatchdog
 from ..utils.device import resolve_device
 from ..utils.distributed import get_world_size, init_distributed
-from ..utils.params import tree_leaves
+from ..utils.params import (EXPERT, MODEL, leaf_specs, spec_axes,
+                            tp_gather_leaf, tp_slice, tp_slice_leaf,
+                            tree_leaves)
 from . import constants as C
 from .utils import tree_path_key
 from .fp16.onebit_adam import OnebitAdam
@@ -306,7 +328,17 @@ class DeepSpeedEngine:
         dp = mesh.size(DATA_AXIS) if mesh is not None else 1
         self.dp_world_size = dp
         self.dp_rank = mesh.index(DATA_AXIS) if mesh is not None else 0
-        self.mp_world_size = 1
+        self.mp_world_size = mesh.size(MODEL_AXIS) if mesh is not None else 1
+        self.ep_world_size = (mesh.size(EXPERT_AXIS) if mesh is not None
+                              else 1)
+        # (model, expert) coordinates of this rank
+        self._tp_coords = ((mesh.index(MODEL_AXIS), mesh.index(EXPERT_AXIS))
+                           if mesh is not None else (0, 0))
+        self._tp = self.mp_world_size * self.ep_world_size > 1
+        if self._tp:
+            axes = self._stats_axes if isinstance(self._stats_axes, tuple) \
+                else (self._stats_axes,)
+            self._stats_axes = axes + (MODEL_AXIS, EXPERT_AXIS)
         self._config = DeepSpeedConfig(config, world_size=dp)
         zc = self._config.zero_config
         self.zero_stage = self._config.zero_optimization_stage
@@ -314,11 +346,13 @@ class DeepSpeedEngine:
         self._offload = zc.cpu_offload
         self._sparse_paths = self._configure_sparse_gradients(model)
         self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
-        if self._offload and dp > 1:
+        if self._offload and (dp > 1 or self._tp):
             raise NotImplementedError(
                 "ZeRO-Offload with the host state sharded over "
                 "data-parallel ranks is not ported yet (ROADMAP A9); it "
                 "runs at one rank")
+        if self._tp:
+            self._refuse_tp(optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -356,6 +390,7 @@ class DeepSpeedEngine:
 
         params0 = (model_parameters if model_parameters is not None
                    else model.init(self._config.seed))
+        params0 = self._tp_setup(model, params0)
         plan = None
         if self._comm_overlap:
             _, leaves0 = tree_leaves(params0)
@@ -470,7 +505,141 @@ class DeepSpeedEngine:
 
     def _is_writer(self):
         """True on the rank that writes checkpoints."""
-        return self.dp_rank == 0
+        return self.dp_rank == 0 and self._tp_coords == (0, 0)
+
+    # ------------------------------------------------ tensor parallelism
+    def _refuse_tp(self, client_optimizer):
+        """What this slice does not compose with ``model`` or ``expert``
+        above one rank, each naming ROADMAP A18."""
+        name = (type(client_optimizer).__name__.lower()
+                if client_optimizer is not None
+                else (self._config.optimizer_name or "").lower())
+        if name == C.ONEBIT_ADAM_OPTIMIZER:
+            raise NotImplementedError(
+                "OneBitAdam above one model or expert rank is not ported "
+                "yet (ROADMAP A18)")
+        if self._config.sparse_gradients_enabled:
+            raise NotImplementedError(
+                "sparse_gradients above one model or expert rank is not "
+                "ported yet (ROADMAP A18)")
+
+    def _tp_setup(self, model, params0):
+        """Under ``model`` or ``expert`` above 1: this rank's slices of
+        the whole tree ``params0`` by the model's ``partition_specs()``
+        (none: every leaf replicated), and the per-leaf bookkeeping the
+        step and the checkpoints read: each leaf's spec, whole shape and
+        whether this rank counts it in the global norm (a leaf replicated
+        over an axis counts at coordinate 0 of it)."""
+        paths, leaves = tree_leaves(params0)
+        self._whole_shapes = [tuple(np.shape(x)) for x in leaves]
+        self._leaf_specs = [None] * len(leaves)
+        if not self._tp:
+            return params0
+        specs_fn = getattr(model, "partition_specs", None)
+        specs = specs_fn(self.mesh) if specs_fn is not None else None
+        self._leaf_specs = leaf_specs(params0, specs)
+        mi, ei = self._tp_coords
+        self._tp_sizes = {MODEL: self.mp_world_size,
+                          EXPERT: self.ep_world_size}
+        self._leaf_counts = [
+            (MODEL in spec_axes(sp) or mi == 0)
+            and (EXPERT in spec_axes(sp) or ei == 0)
+            for sp in self._leaf_specs]
+        self._norm_rows = self._tensor_reduce_fn = None
+        return tp_slice(params0, specs, {MODEL: mi, EXPERT: ei},
+                        self._tp_sizes)
+
+    def _norm_row_weights(self):
+        """1.0 on the rows of the rank's master whose leaf this rank
+        counts in the global norm, 0.0 elsewhere (padding too)."""
+        if self._norm_rows is None:
+            counts = torch.tensor(self._leaf_counts + [False],
+                                  dtype=torch.float32)
+            ids = self.segments.row_segment_ids()
+            ids = ids[self.flat.row0:self.flat.row0 + self.flat.shard_rows]
+            self._norm_rows = counts[ids.long()].to(self.device)
+        return self._norm_rows
+
+    def _tp_norm_sq(self, g, rows=None):
+        """This rank's share of the global norm's square under tensor
+        parallelism: the counted rows of ``g`` (its rows ``rows``, a
+        slice of the master's, default all)."""
+        w = self._norm_row_weights()
+        if rows is not None:
+            w = w[rows]
+        return (g.float().square().sum(dim=-1) * w).sum()
+
+    def _tensor_reduce(self):
+        """Lamb's whole-tensor sums under tensor parallelism: a callable
+        that sums each tensor's partial sums of squares (``[2 ×
+        tensors]``: the weights', then the updates') over the axes its
+        leaf is cut over; made on the first step and kept."""
+        if self._tensor_reduce_fn is None:
+            self._tensor_reduce_fn = self._make_tensor_reduce()
+        return self._tensor_reduce_fn
+
+    def _make_tensor_reduce(self):
+        n = len(self._leaf_specs)
+        groups = {}
+        for i, sp in enumerate(self._leaf_specs):
+            axes = tuple(sorted(spec_axes(sp)))
+            groups.setdefault(axes, []).append(i)
+        masks = {}
+        for axes, idx in groups.items():
+            m = torch.zeros(2 * n, dtype=torch.float32)
+            m[idx] = 1.0
+            m[[n + i for i in idx]] = 1.0
+            masks[axes] = m.to(self.device)
+        mesh = self.mesh
+
+        def reduce(sq):
+            out = sq * masks[()] if () in masks else torch.zeros_like(sq)
+            for axes, m in masks.items():
+                if axes:
+                    out = out + comm.psum(sq * m, axes, mesh)
+            return out
+
+        return reduce
+
+    def _tp_gather_flat(self, local):
+        """The whole model's 1-D leaf concatenation (host tensor) from
+        this rank's (``local``, a 1-D tensor of its leaves in flat
+        order, any dtype): one all-gather over ``model`` and ``expert``
+        (a collective), then each leaf joined by its spec."""
+        local = local.detach().reshape(-1).contiguous()
+        dev = self.device
+        wire = local.to(dev).view(torch.uint8)
+        parts = comm.all_gather(wire[None], (MODEL_AXIS, EXPERT_AXIS),
+                                mesh=self.mesh).cpu().view(local.dtype)
+        m, e = self.mp_world_size, self.ep_world_size
+        sizes = [int(np.prod(sh)) for sh in self.flat.shapes]
+        splits = {(i, j): torch.split(parts[i * e + j], sizes)
+                  for i in range(m) for j in range(e)}
+        out = []
+        for k, (shape, spec) in enumerate(zip(self.flat.shapes,
+                                              self._leaf_specs)):
+            pieces = {c: sp[k].view(shape) for c, sp in splits.items()}
+            out.append(tp_gather_leaf(pieces, spec, self._tp_sizes)
+                       .reshape(-1))
+        return torch.cat(out) if out else local.cpu()
+
+    def _tp_slice_flat(self, whole):
+        """Inverse of :meth:`_tp_gather_flat` on the host: this rank's 1-D
+        leaf concatenation (numpy fp32) from the whole one."""
+        whole = np.asarray(whole, np.float32).reshape(-1)
+        mi, ei = self._tp_coords
+        out, off = [], 0
+        for shape, spec in zip(self._whole_shapes, self._leaf_specs):
+            n = int(np.prod(shape))
+            leaf = whole[off:off + n].reshape(shape)
+            off += n
+            out.append(np.ascontiguousarray(tp_slice_leaf(
+                leaf, spec, {MODEL: mi, EXPERT: ei},
+                self._tp_sizes)).reshape(-1))
+        if off != whole.size:
+            raise ValueError(f"the checkpoint holds {whole.size} values but "
+                             f"the model has {off} parameters")
+        return np.concatenate(out) if out else whole
 
     # ------------------------------------------------------------ config
     def train_batch_size(self):
@@ -1108,11 +1277,14 @@ class DeepSpeedEngine:
                 self._bucket_left = [b.leaf_hi - b.leaf_lo
                                      for b in self.flat.plan.buckets]
             self._exchange.start(accumulate, ordered=self._z3 is None)
-        if self._z3 is not None:
-            with self._z3.scope("backward"):
+        # the mesh is current in the backward too: a recomputed region
+        # (remat, the chunked loss) runs its forward again there
+        with current_mesh(self.mesh):
+            if self._z3 is not None:
+                with self._z3.scope("backward"):
+                    scaled.backward()
+            else:
                 scaled.backward()
-        else:
-            scaled.backward()
         self._after_backward()
         self._losses.append(loss.detach())
         self.micro_steps += 1
@@ -1291,6 +1463,8 @@ class DeepSpeedEngine:
             else:
                 shard = ({"shard": self._row_shard}
                          if self._partitioned else {})
+                if self._tp:
+                    shard["tensor_reduce"] = self._tensor_reduce()
                 self.optimizer.update(self.opt_state, self.master, g,
                                       self.optimizer.hyperparams(),
                                       segments=self.segments, **shard)
@@ -1308,6 +1482,17 @@ class DeepSpeedEngine:
         squares; stage 0's is whole on every rank)."""
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         loss = torch.stack(self._losses).float().mean()
+        if self._tp:
+            # a replicated leaf counts once: at model and expert
+            # coordinate 0, and on data rank 0 where every data rank
+            # holds the whole summed gradient (stage 0)
+            sq = (self._tp_norm_sq(g) if clip > 0.0
+                  and (self._partitioned or self.dp_rank == 0) else zero)
+            first = float(self._tp_coords == (0, 0))
+            stats = comm.psum(torch.stack([flag, loss * first, sq]),
+                              self._stats_axes, self.mesh)
+            return (stats[0], stats[1] / self.dp_world_size,
+                    stats[2].sqrt() if clip > 0.0 else None)
         norm = (torch.linalg.vector_norm(g, dtype=torch.float32)
                 if clip > 0.0 else None)
         if self.mesh is not None:
@@ -1477,23 +1662,35 @@ class DeepSpeedEngine:
             flat = self._compute.detach()
         host = flat.to("cpu", copy=True)
         paths, leaves = tree_leaves(self.flat.unflatten_params(host))
+        if self._tp:
+            whole = self._tp_gather_flat(torch.cat(
+                [leaf.reshape(-1) for leaf in leaves]))
+            sizes = [int(np.prod(sh)) for sh in self._whole_shapes]
+            leaves = [part.view(sh) for part, sh in zip(
+                torch.split(whole, sizes), self._whole_shapes)]
         return {tree_path_key(path): leaf
                 for path, leaf in zip(paths, leaves)}
 
     def _gather_unpadded(self, buf):
         """A buffer in the master's layout as the checkpoint's 1-D
-        unpadded fp32 array (a collective under a mesh)."""
-        return self.flat.gather_master_unpadded(buf)
+        unpadded fp32 array (a collective under a mesh): the whole
+        model's, joined over ``model`` and ``expert``."""
+        local = self.flat.gather_master_unpadded(buf)
+        if not self._tp:
+            return local
+        return self._tp_gather_flat(torch.from_numpy(local)).numpy()
 
     def _scatter_unpadded(self, unpadded, out):
         """Inverse of :meth:`_gather_unpadded`: the checkpoint's array
         into ``out``, this rank's rows of a buffer in the master's
-        layout."""
+        layout (its slices of the whole model's leaves)."""
+        if self._tp:
+            unpadded = self._tp_slice_flat(unpadded)
         return self.flat.scatter_master_from_unpadded(unpadded, out=out)
 
     def _param_count(self):
         """The model's parameter count, as the checkpoint records it."""
-        return int(sum(self.segments.sizes))
+        return int(sum(int(np.prod(sh)) for sh in self._whole_shapes))
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, sync=None):

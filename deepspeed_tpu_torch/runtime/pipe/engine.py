@@ -59,10 +59,22 @@ step's seed (JAX ``:237-241``), per micro-batch alone at one stage
 (``:104-106``), and the data-parallel rank's above rank 0.  The math is
 the JAX engine's: the mean loss over the micro-batches, the tied
 gradient summed over its uses, the global-norm clip, the fp16 skip;
-only the order of the sums differs.  Checkpoints are the JAX package's
-files for the whole tree: the stages' rows are gathered to global rank
-0, which writes them, and every rank reads its own leaves back, so a
-checkpoint moves between stage counts and between the two packages.
+only the order of the sums differs.
+
+Pipe × model × data (JAX ``PipeModelDataParallelTopology``): a stage's
+layers are Megatron shards over the mesh's ``model`` axis (the layers'
+``partition_specs``), point-to-point between stages pairs ranks of
+equal model coordinate (each model rank sends its own copy of the
+boundary activation), a tied param's copies are summed over the stages
+of one data and model coordinate, and the step's stats all-reduce runs
+over ``pipe``, ``data`` and ``model``.  MoE blocks under the pipeline
+engine (the ``expert`` axis) are ROADMAP A18.
+
+Checkpoints are the JAX package's files for the whole tree: each
+stage's leaves are joined over ``model``, the stages' rows are gathered
+to global rank 0, which writes them, and every rank reads its own
+leaves back (its slices of them), so a checkpoint moves between stage
+counts, model degrees and the two packages.
 """
 
 import bisect
@@ -75,8 +87,8 @@ import torch.distributed as dist
 
 from ... import comm
 from ...models.layers import mix_seed
-from ...parallel.mesh import DATA_AXIS, PIPE_AXIS, Mesh, current_mesh, \
-    make_mesh
+from ...parallel.mesh import DATA_AXIS, EXPERT_AXIS, PIPE_AXIS, Mesh, \
+    current_mesh, make_mesh
 from ...utils.distributed import get_rank, get_world_size, init_distributed
 from ...utils.params import tree_leaves
 from ..config import get_mesh_config, get_pipeline_config
@@ -183,6 +195,9 @@ class _StageModel:
 
     def init(self, seed):
         return self.engine._stage_params(seed)
+
+    def partition_specs(self, mesh=None):
+        return self.engine.pipe_module.stage_specs(self.engine.stage_layers)
 
     def apply(self, *args, **kwargs):
         raise RuntimeError("Only train_batch() and eval_batch() are "
@@ -300,6 +315,10 @@ class PipelineEngine(DeepSpeedEngine):
             raise NotImplementedError(
                 "ZeRO-Offload above one rank is not ported yet (ROADMAP "
                 "A9); it runs at one rank")
+        if self.mesh is not None and self.mesh.size(EXPERT_AXIS) > 1:
+            raise NotImplementedError(
+                "MoE under the pipeline engine (an expert axis above 1) is "
+                "not ported yet (ROADMAP A18)")
 
     def _stage_params(self, seed):
         """Partition the layers, place this rank's logical stages, set up
@@ -373,14 +392,17 @@ class PipelineEngine(DeepSpeedEngine):
         if not dist.is_initialized() or self.pipe_world_size == 1:
             return groups
         topo, world = self.mesh.topology, get_world_size()
+        others = [ax for ax in topo.axes if ax != PIPE_AXIS]
         for key in sorted(holders):
             if len(holders[key]) < 2:
                 continue
-            for d in range(self.mesh.size(DATA_AXIS)):
+            # one group per coordinate of every other axis (data, model)
+            for rest in itertools.product(*(range(self.mesh.size(ax))
+                                            for ax in others)):
                 ranks = []
                 for s in sorted(holders[key]):
-                    coord = {ax: 0 for ax in topo.axes}
-                    coord.update({PIPE_AXIS: s, DATA_AXIS: d})
+                    coord = dict(zip(others, rest))
+                    coord[PIPE_AXIS] = s
                     ranks.append(topo.get_rank(**coord))
                 group = (dist.group.WORLD if len(ranks) == world
                          else dist.new_group(ranks))
@@ -392,7 +414,8 @@ class PipelineEngine(DeepSpeedEngine):
         return bool(self._cross_tied)
 
     def _is_writer(self):
-        return self.dp_rank == 0 and self.stage_id == 0
+        return (self.dp_rank == 0 and self.stage_id == 0
+                and self._tp_coords == (0, 0))
 
     # ------------------------------------------------------ loop API
     def is_gradient_accumulation_boundary(self):
@@ -739,7 +762,11 @@ class PipelineEngine(DeepSpeedEngine):
             cuts += [max(lo, min(hi, r0)), max(lo, min(hi, r1))]
         cuts.append(hi)
         for a, b in zip(cuts[::2], cuts[1::2]):
-            if b > a:
+            if b > a and self._tp:
+                # a leaf replicated over model counts at coordinate 0
+                total = total + self._tp_norm_sq(g[a - lo:b - lo],
+                                                 slice(a - lo, b - lo))
+            elif b > a:
                 total = total + torch.linalg.vector_norm(
                     g[a - lo:b - lo], dtype=torch.float32).square()
         return total
@@ -751,7 +778,8 @@ class PipelineEngine(DeepSpeedEngine):
         if self.pipe_world_size == 1:
             return super()._step_stats(flag, g, clip)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        last = self.stage_id == self.pipe_world_size - 1
+        last = (self.stage_id == self.pipe_world_size - 1
+                and self._tp_coords == (0, 0))
         loss = torch.stack(self._losses).float().mean() if last else zero
         sq = self._norm_sq(g) if clip > 0.0 else zero
         bad = zero + float(getattr(self, "_boundary_mismatch", False))
@@ -774,8 +802,9 @@ class PipelineEngine(DeepSpeedEngine):
         stage's leaves in its own flat order (gathered once over the pipe
         group)."""
         if not hasattr(self, "_leaf_cache"):
-            mine = list(zip(self.flat.paths, self.segments.sizes,
-                            self.flat.shapes))
+            mine = list(zip(self.flat.paths,
+                            [int(np.prod(sh)) for sh in self._whole_shapes],
+                            self._whole_shapes))
             gathered = [None] * self.pipe_world_size
             dist.all_gather_object(gathered, mine,
                                    group=self.mesh.group(PIPE_AXIS))
@@ -799,7 +828,7 @@ class PipelineEngine(DeepSpeedEngine):
         host, a tied leaf from its owner (None elsewhere).  Data rank 0
         of each stage takes part."""
         order, by_stage = self._global_leaves()
-        if self.dp_rank:
+        if self.dp_rank or self._tp_coords != (0, 0):
             return None
         if self.stage_id:
             comm.send_recv(sends=[(_wire(local.to(self.device)), 0)],
@@ -824,7 +853,8 @@ class PipelineEngine(DeepSpeedEngine):
         return leaves
 
     def _gather_unpadded(self, buf):
-        local = self.flat.gather_master_unpadded(buf)
+        # the stage's whole leaves (joined over model)
+        local = super()._gather_unpadded(buf)
         if self.pipe_world_size == 1:
             return local
         leaves = self._gather_stages(torch.from_numpy(local), torch.float32)
@@ -838,6 +868,8 @@ class PipelineEngine(DeepSpeedEngine):
             return super()._params_to_host()
         _, parts = tree_leaves(self.flat.unflatten_params(self._compute))
         local = torch.cat([p.detach().reshape(-1) for p in parts])
+        if self._tp:
+            local = self._tp_gather_flat(local)
         leaves = self._gather_stages(local, self.compute_dtype)
         if leaves is None:
             return {}
@@ -859,11 +891,13 @@ class PipelineEngine(DeepSpeedEngine):
         for path, n in order:
             offsets[path] = off
             off += n
+        sizes = [int(np.prod(sh)) for sh in self._whole_shapes]
         local = np.concatenate(
             [unpadded[offsets[p]:offsets[p] + n]
-             for p, n in zip(self.flat.paths, self.segments.sizes)]
+             for p, n in zip(self.flat.paths, sizes)]
             or [np.zeros(0, np.float32)])
-        return self.flat.scatter_master_from_unpadded(local, out=out)
+        # this stage's whole leaves, cut to the rank's slices under model
+        return super()._scatter_unpadded(local, out)
 
 
 def _tensors(x):

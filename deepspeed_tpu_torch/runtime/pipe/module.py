@@ -27,8 +27,13 @@ the batch labels to a scalar loss.
 Layer seeds: with ``seed_layers`` layer ``i`` draws from ``base_seed +
 i`` (through ``seed_fn``), else from stream ``i`` of the engine's seed
 (:func:`~deepspeed_tpu_torch.models.layers.mix_seed`), so a layer's
-weights do not depend on the partition.  Tensor parallelism
-(``partition_specs``) is ROADMAP A10 and raises.
+weights do not depend on the partition.  Tensor parallelism: a layer
+may declare ``partition_specs()``, the port's slicing of its params over
+``model`` and ``expert`` (a tree like its ``init`` params, as
+:meth:`~deepspeed_tpu_torch.models.layers.TransformerLayer.partition_specs`);
+:meth:`PipelineModule.partition_specs` gathers them into the tree's
+specs (undeclared layers replicated, a tied key taking its owner's spec
+of the shared entry), and the engine slices each stage's tree by them.
 """
 
 import inspect
@@ -241,9 +246,38 @@ class PipelineModule:
                 "tied": {k: params["tied"][k]
                          for k in self.tied_keys_of(indices)}}
 
+    def _layer_specs(self, idx):
+        """``(slot spec, shared spec)`` of layer ``idx`` split as
+        :meth:`_init_layer` splits its params (None: replicated)."""
+        decl = getattr(self.layer(idx), "partition_specs", None)
+        if decl is None or not self.has_params(idx):
+            return None, None
+        spec = decl()
+        tkey = self._tied_key_of.get(idx)
+        if tkey is None:
+            return spec, None
+        attr = self._tied_attr_of[idx]
+        if isinstance(spec, dict) and attr in spec and len(spec) > 1:
+            return ({k: v for k, v in spec.items() if k != attr},
+                    spec[attr] if self.tied_keys[tkey] == idx else None)
+        return None, spec if self.tied_keys[tkey] == idx else None
+
     def partition_specs(self, mesh=None):
-        raise NotImplementedError("tensor-parallel partition_specs are not "
-                                  "ported yet (ROADMAP A10)")
+        """The whole tree's specs, ``{"layers": (...), "tied": {...}}``
+        (JAX ``module.py:248-330``): each layer's declared
+        ``partition_specs()``, undeclared layers replicated, a tied key
+        its owning layer's spec of the shared params."""
+        return self.stage_specs(range(self.num_layers), whole=True)
+
+    def stage_specs(self, indices, whole=False):
+        """The specs of :meth:`init_stage`'s tree of the layers
+        ``indices`` (``whole``: of :meth:`init`'s tree)."""
+        layers = {i: self._layer_specs(i)[0] for i in sorted(indices)}
+        tied = {k: self._layer_specs(self.tied_keys[k])[1]
+                for k in self.tied_keys_of(indices)}
+        if whole:
+            layers = tuple(layers[i] for i in range(self.num_layers))
+        return {"layers": layers, "tied": tied}
 
     def layer_param_counts(self, params=None, seed=0):
         """Per-layer parameter counts for 'parameters' partitioning (JAX

@@ -65,10 +65,12 @@ import deepspeed_tpu_torch as tds  # noqa: E402
 from deepspeed_tpu_torch import comm  # noqa: E402
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config,  # noqa: E402
                                              random_params)
+from deepspeed_tpu_torch.comm import copy_to  # noqa: E402
 from deepspeed_tpu_torch.models.layers import (  # noqa: E402
-    TransformerLayer, cross_entropy_with_logits, dropout, layer_norm)
-from deepspeed_tpu_torch.parallel import (DATA_AXIS, PIPE_AXIS,  # noqa: E402
-                                          make_mesh)
+    TransformerLayer, dropout, layer_norm, vocab_parallel_cross_entropy,
+    vocab_parallel_embedding)
+from deepspeed_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS,  # noqa: E402
+                                          PIPE_AXIS, make_mesh)
 from deepspeed_tpu_torch.runtime.pipe import (LayerSpec,  # noqa: E402
                                               PipelineModule, TiedLayerSpec)
 from deepspeed_tpu_torch.utils.distributed import (  # noqa: E402
@@ -78,7 +80,8 @@ TIED_KEY = "embed"
 
 
 class Embedding:
-    """Token and position embeddings, with the embedding dropout."""
+    """Token and position embeddings, with the embedding dropout; the
+    token table is vocab-parallel under a ``model`` axis."""
 
     def __init__(self, vocab, hidden, max_pos, dropout_rate=0.0,
                  initializer_range=0.02):
@@ -94,9 +97,14 @@ class Embedding:
                 "wpe": rng.standard_normal((self.max_pos, self.hidden),
                                            dtype=np.float32) * r}
 
+    @staticmethod
+    def partition_specs():
+        return {"wte": ("model", None), "wpe": (None, None)}
+
     def apply(self, params, ids, rng=None, deterministic=True):
         s = ids.shape[1]
-        x = params["wte"][ids] + params["wpe"][None, :s]
+        x = vocab_parallel_embedding(params["wte"], ids) \
+            + params["wpe"][None, :s]
         return dropout(rng, x, self.dropout_rate, deterministic)
 
 
@@ -113,12 +121,13 @@ class FinalNorm:
 
 
 def lm_head(params, x):
-    """Decode with the tied token embedding, transposed."""
-    return x @ params["wte"].T.to(x.dtype)
+    """Decode with the tied token embedding, transposed (under a
+    ``model`` axis, this rank's vocab slice of the logits)."""
+    return copy_to(x, MODEL_AXIS) @ params["wte"].T.to(x.dtype)
 
 
 def lm_loss(logits, labels):
-    return cross_entropy_with_logits(logits, labels, ignore_index=-100)
+    return vocab_parallel_cross_entropy(logits, labels, ignore_index=-100)
 
 
 def gpt2_pipeline_module(cfg, **module_kw):
@@ -205,7 +214,10 @@ def union_us(spans):
 def trace_steps(engine, batches, steps, sync, losses):
     """``steps`` steps under ``torch.profiler`` (their losses appended
     to ``losses``): their wall ms a step, the card's busy ms a step
-    outside NCCL's kernels, NCCL's, and the idle share."""
+    outside NCCL's kernels, NCCL's, and the idle share.  Only the device
+    work queued inside the steps counts (from the start of a
+    ``record_function`` range around them), not the barrier's kernel
+    that waits for the other ranks before them."""
     from torch.autograd import DeviceType
 
     sync()
@@ -217,13 +229,19 @@ def trace_steps(engine, batches, steps, sync, losses):
             # this, the early ranks' walls include the wait for the last
             dist.barrier()
             sync()
-        t0 = time.perf_counter()
-        out = [engine.train_batch(iter(batches)) for _ in range(steps)]
-        sync()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+        with torch.profiler.record_function("traced_steps"):
+            t0 = time.perf_counter()
+            out = [engine.train_batch(iter(batches)) for _ in range(steps)]
+            sync()
+            wall_us = 1e6 * (time.perf_counter() - t0)
     losses += [float(x) for x in out]
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "traced_steps")
+    # the range's own device-side annotation spans the whole window
     spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+             for e in events if e.device_type == DeviceType.CUDA
+             and e.time_range.start >= start and e.name != "traced_steps"]
     nccl = [(a, b) for n, a, b in spans if "nccl" in n.lower()]
     busy = union_us([(a, b) for n, a, b in spans if "nccl" not in n.lower()])
     return {"steps": steps, "step_ms": wall_us / 1e3 / steps,

@@ -132,12 +132,61 @@ def test_mesh_grid_mpu_interface():
     assert grid.get_model_parallel_group() == "model"
     assert grid.world_size == 8
     assert grid.is_first_stage()
-    # the port builds meshes with data and pipe axes; the rest raise
+    # the model and expert axes are ported (A10's tensor and expert
+    # parts): their coordinates and sizes; a model axis of 2 needs two
+    # processes; the seq axis keeps its refusal
+    grid = MeshGrid(Mesh({"data": 2, "model": 2, "expert": 2}, rank=5))
+    assert grid.get_expert_parallel_world_size() == 2
+    assert grid.get_expert_parallel_group() == "expert"
+    assert (grid.get_data_parallel_rank(), grid.get_model_parallel_rank(),
+            grid.get_expert_parallel_rank()) == (1, 0, 1)
+    with pytest.raises(ValueError, match="need 2 processes"):
+        make_mesh({"model": 2, "data": 1})
     with pytest.raises(NotImplementedError, match="A10"):
-        make_mesh({"model": 2, "data": -1})
-    with pytest.raises(NotImplementedError, match="A10.*data and pipeline"):
+        make_mesh({"seq": 2, "data": -1})
+    with pytest.raises(NotImplementedError,
+                       match="A10.*data, pipe, model and expert"):
         tds.initialize(model=SimpleModel(W.HIDDEN), config=base_config(),
-                       mesh=mesh, device="cpu")
+                       mesh=Mesh({"seq": 2, "data": 2}), device="cpu")
+
+
+class _Mpu:
+    """A Megatron-style mpu of one data rank and two model ranks."""
+
+    def __init__(self, model_rank):
+        self.model_rank = model_rank
+
+    def get_data_parallel_world_size(self):
+        return 1
+
+    def get_data_parallel_rank(self):
+        return 0
+
+    def get_data_parallel_group(self):
+        return "dp-group"
+
+    def get_model_parallel_world_size(self):
+        return 2
+
+    def get_model_parallel_rank(self):
+        return self.model_rank
+
+    def get_model_parallel_group(self):
+        return "mp-group"
+
+
+@pytest.mark.parametrize("model_rank", [0, 1])
+def test_mesh_from_an_mpu_takes_its_model_axis(model_rank):
+    """``Mesh.from_mpu`` of an mpu with two model ranks: the model axis
+    of 2 with the mpu's group and this rank's coordinate (model
+    innermost, as the reference's mpu lays ranks out)."""
+    mesh = Mesh.from_mpu(_Mpu(model_rank))
+    assert mesh.shape["model"] == 2 and mesh.shape["data"] == 1
+    assert mesh.index("model") == model_rank
+    assert mesh.group("model") == "mp-group"
+    assert mesh.group("data") == "dp-group"
+    # a tuple of axes names the group of its axes above one member
+    assert mesh.group(("data", "model", "expert")) == "mp-group"
 
 
 def test_an_mpu_with_data_parallel_ranks_is_accepted(ranks):

@@ -183,8 +183,9 @@ def test_unknown_keys_warn_with_a_hint_and_raise_under_strict(caplog):
 def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     """A set block the port lacks warns with its ROADMAP item; the
     ``mesh`` block is ported for its data and pipe axes (ROADMAP A5,
-    A13) and warns only for the other axes (A10), and the ``pipeline``
-    block (A13) warns no more."""
+    A13), its model and expert axes too (A10's tensor and expert parts),
+    and warns only for the seq axis (A10), and the ``pipeline`` block
+    (A13) warns no more."""
     with caplog.at_level(logging.WARNING):
         DeepSpeedConfig({"train_batch_size": 8,
                          "flops_profiler": {"enabled": True},
@@ -197,9 +198,11 @@ def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     caplog.clear()
     with caplog.at_level(logging.WARNING):
         DeepSpeedConfig({"train_batch_size": 8,
-                         "mesh": {"data": 1, "model": 2, "pipe": 2},
+                         "mesh": {"data": 1, "model": 2, "pipe": 2,
+                                  "expert": 2, "seq": 2},
                          "pipeline": {"stages": 2, "interleave": 2}})
-    assert "'model' is 2" in caplog.text and "A10" in caplog.text
+    assert "'seq' is 2" in caplog.text and "A10" in caplog.text
+    assert "'model'" not in caplog.text and "'expert'" not in caplog.text
     assert "'pipe'" not in caplog.text
     assert "section 'pipeline'" not in caplog.text
     assert "A13" not in caplog.text

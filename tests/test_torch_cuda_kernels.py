@@ -1580,3 +1580,54 @@ def test_ds_adam_step_on_pinned_buffers_matches_plain(cuda_device):
     np.testing.assert_allclose(p.numpy(), q.numpy(), rtol=2e-6, atol=1e-7)
     np.testing.assert_allclose(m.numpy(), mq.numpy(), rtol=2e-6, atol=1e-7)
     np.testing.assert_allclose(v.numpy(), vq.numpy(), rtol=2e-6, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("path,s", [("dq+dkv", 256), ("fused", 128)])
+def test_head_ranges_draw_the_whole_calls_heads(cuda_device, dtype, path,
+                                                s):
+    """A tensor-parallel rank's call on heads [h0, h0 + n) of 8, with
+    ``head_offset`` h0 and ``total_heads`` 8, gives BITWISE the whole
+    call's out, lse, dq, dk and dv of those heads at dropout 0.1: B4
+    counts the global head in B1, B2a, B2b and B3 alike (and the plain
+    versions agree)."""
+    b, h, d = 2, 8, 64
+    q, k, v, mask = make_inputs(7, b, s, s, h, d)
+    t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    dout = torch.randn(b, s, h, d, generator=torch.Generator().manual_seed(
+        1)).to(cuda_device, dtype)
+    seed = torch.tensor([11, -5], dtype=torch.int32, device=cuda_device)
+    rate = 0.1
+
+    def bwd(q_, k_, v_, out, lse, do, h0=0, total=None):
+        if path == "fused":
+            return flash_attention_bwd_fused(q_, k_, v_, out, lse, do, m,
+                                             False, rate, seed, None, h0,
+                                             total)
+        dq = flash_attention_bwd_dq(q_, k_, v_, out, lse, do, m, True,
+                                    rate, seed, None, h0, total)
+        return (dq, *flash_attention_bwd_dkv(q_, k_, v_, out, lse, do, m,
+                                             True, rate, seed, None, h0,
+                                             total))
+
+    causal = path != "fused"
+    out, lse = flash_attention_fwd(*t, m, causal, rate, seed)
+    grads = bwd(*t, out, lse, dout)
+    lse = lse.view(b, h, s)
+    for h0, n in ((0, 4), (4, 4), (2, 2)):
+        part = [x[:, :, h0:h0 + n].contiguous() for x in t]
+        o, l = flash_attention_fwd(*part, m, causal, rate, seed, h0, h)
+        assert torch.equal(o, out[:, :, h0:h0 + n])
+        assert torch.equal(l.view(b, n, s), lse[:, h0:h0 + n])
+        g = bwd(*part, o, l, dout[:, :, h0:h0 + n].contiguous(), h0, h)
+        for got, want in zip(g, grads):
+            assert torch.equal(got, want[:, :, h0:h0 + n])
+    # the plain versions draw the same global heads
+    keep = fa.drop_heads(b, 2, 2, h, cuda_device)
+    whole = philox_keep_mask(seed, b * h, s, s, rate).view(b, h, s, s)
+    part = philox_keep_mask(seed, b * 2, s, s, rate, keep).view(b, 2, s, s)
+    assert torch.equal(part, whole[:, 2:4])

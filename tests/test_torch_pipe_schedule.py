@@ -18,6 +18,7 @@ from deepspeed_tpu.runtime.pipe import PipelineModule as JPipelineModule
 from deepspeed_tpu.runtime.pipe import schedule as jsched
 from deepspeed_tpu.runtime.pipe.module import split_batch as jsplit
 import deepspeed_tpu_torch as tds
+from deepspeed_tpu_torch.models.layers import TransformerLayer
 from deepspeed_tpu_torch.runtime import utils as tutils
 from deepspeed_tpu_torch.runtime.config import get_pipeline_config
 from deepspeed_tpu_torch.runtime.pipe import PipelineModule, schedule
@@ -27,6 +28,7 @@ from deepspeed_tpu_torch.utils.params import (params_from_numpy,
                                               params_to_numpy, tree_leaves)
 
 from . import torch_pipe_workers as W
+from . import torch_tp_workers as TW
 from .test_torch_pipe import (jax_carry_specs, jax_gpt_like_specs,
                               jax_linear_specs)
 from tests.unit.test_pipe import mse_loss as j_mse
@@ -251,8 +253,23 @@ def test_stage_init_draws_only_its_layers_and_the_tied_copy():
     np.testing.assert_array_equal(stage["layers"][9]["bias"],
                                   whole["layers"][9]["bias"])
     assert "table" not in stage["layers"][9]
-    with pytest.raises(NotImplementedError, match="A10"):
-        mod.partition_specs()
+    # layers without partition_specs are replicated (A10's model axis:
+    # the specs are the tree's, tied keys by their owner)
+    specs = mod.partition_specs()
+    assert specs["layers"] == (None,) * mod.num_layers
+    assert specs["tied"] == {"emb": None}
+    gpt, _ = TW.pipe_module()
+    specs = gpt.partition_specs()
+    assert specs["tied"] == {"embed": ("model", None)}
+    assert specs["layers"][0] == {"wpe": (None, None)}
+    assert specs["layers"][1] == TransformerLayer.partition_specs()
+    # the final norm has no specs; the head's use of the tied embedding
+    # keeps its own wpe, replicated
+    assert specs["layers"][-2] is None
+    assert specs["layers"][-1] == {"wpe": (None, None)}
+    stage = gpt.stage_specs([0, 1])
+    assert sorted(stage["layers"]) == [0, 1]
+    assert stage["tied"] == {"embed": ("model", None)}
 
 
 def test_per_layer_files_cross_the_packages(tmp_path):
