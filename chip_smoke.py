@@ -316,7 +316,22 @@ failure raises, so the script exits non-zero:
               B2a and B2b launch per layer per step in the MoE blocks
               too; step ms, peak memory, the share of token-choices over
               capacity and the aux loss; 2 layers at full width in fp32,
-              card against CPU; one expert at k = 1 is the dense FFN.
+              card against CPU; one expert at k = 1 is the dense FFN;
+36. ring     — ring attention (sequence parallelism) through the
+              one-process schedule of its N = 4 shards at GPT-2-medium's
+              attention width (h = 16, d = 64, bf16, b = 2, s = 4096):
+              (a) causal, (b) bidirectional with a key mask whose last
+              chunk is all padding (BERT-large's width), forward and
+              backward: B1 on each (Q chunk, K/V chunk) pair at or below
+              the diagonal merged by lse, B2a and B2b on each on the
+              merged lse and Δ; launches exactly 10 (a) and 16 (b) of
+              each, no B3 and no plain version; the ring's out, dq, dk
+              and dv within twice the error of one FlashAttention call
+              at s = 4096 on the same inputs, both against the fp32
+              plain version: the max abs error over each tensor, and
+              the error's norm over each chunk's rows (the query chunk
+              of out and dq, the key chunk of dk and dv); the device ms
+              of both, forward and backward, and the phase's seconds.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -377,6 +392,8 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
 from deepspeed_tpu_torch.models import moe
+from deepspeed_tpu_torch.ops.transformer.ring_attention import (
+    ring_flash_attention_local, visible_keys)
 from deepspeed_tpu_torch.models.layers import (TransformerLayer, dense,
                                                gelu, generator, layer_norm)
 from deepspeed_tpu_torch.ops.transformer.attention import dropout_seed
@@ -442,9 +459,10 @@ BERT_SPARSE_LAYOUT = dict(num_heads=16, block=128,
                           attention="bidirectional",
                           num_different_global_patterns=4)
 BERT_PARITY_SEQ = 1024
-# ~10 ms of spinning at the H100's clock, doubled where the host needs
-# longer to queue a timed run
-SPIN_CYCLES = 20_000_000
+# ~2.5 ms of spinning at the H100's clock, doubled where the host needs
+# longer to queue a timed run, up to ~640 ms
+SPIN_CYCLES = 5_000_000
+SPIN_MAX_CYCLES = 1_280_000_000
 
 
 def check(cond, msg):
@@ -485,7 +503,7 @@ def device_times(fn, calls=10, repeats=20, warmup=3):
             times.append(start.elapsed_time(end) / calls)
         else:
             spin *= 2
-            check(spin <= 64 * SPIN_CYCLES, "the host cannot queue a "
+            check(spin <= SPIN_MAX_CYCLES, "the host cannot queue a "
                   "timed run within the spin")
     return times
 
@@ -4885,6 +4903,148 @@ def phase_moe(card, results):
     return dict(launches)
 
 
+# ------------------------------------------------------------------ ring
+RING_SHARDS = 4
+RING_ATTN = (2, 16, 4096, 64)   # b, h, s, d: GPT-2-medium's attention
+RING_ERR_FACTOR = 2.0
+
+
+def ring_plain_calls():
+    """Count the plain versions' calls while the ring runs: returns the
+    counter and a function that restores the module."""
+    calls = [0]
+    saved = (fa.flash_attention_reference, fa.flash_attention_bwd_reference)
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    fa.flash_attention_reference = counted(saved[0])
+    fa.flash_attention_bwd_reference = counted(saved[1])
+
+    def restore():
+        fa.flash_attention_reference, fa.flash_attention_bwd_reference = \
+            saved
+
+    return calls, restore
+
+
+def ring_case(label, causal, padded, seed):
+    """The one-process ring of ``RING_SHARDS`` shards against one
+    FlashAttention call on the same bf16 inputs, both against the fp32
+    plain version; their launches, errors and device times."""
+    b, h, s, d = RING_ATTN
+    n = RING_SHARDS
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=g, device=DEVICE)
+                     .to(torch.bfloat16) for _ in range(4))
+    kpm = torch.zeros((b, s), device=DEVICE)
+    if padded:
+        kpm[:, s - s // n:] = -1e9
+    mask = visible_keys(kpm)
+
+    def ring_run():
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = ring_flash_attention_local(*qkv, n, causal=causal,
+                                         key_padding_mask=kpm)
+        return [out.detach(), *torch.autograd.grad(out, qkv, dout)]
+
+    def one_run():
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fa.FlashAttention.apply(*qkv, mask, None, causal, 0.0, 0,
+                                      None)
+        return [out.detach(), *torch.autograd.grad(out, qkv, dout)]
+
+    plain_calls, restore = ring_plain_calls()
+    reset_launches()
+    try:
+        ring = ring_run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        restore()
+    pairs = n * (n + 1) // 2 if causal else n * n
+    check(plain_calls[0] == 0, f"ring {label}: {plain_calls[0]} plain-"
+          f"version calls on the card")
+    check(all(launches[name] == pairs for name in ("B1", "B2a", "B2b"))
+          and launches["B3"] == 0 and launches["B4"] == 0,
+          f"ring {label}: launches {launches}, expected {pairs} each of "
+          f"B1, B2a and B2b and no B3 or B4")
+    one = one_run()
+    f32 = [x.float() for x in (q, k, v, dout)]
+    po, plse = flash_attention_reference(*f32[:3], mask, causal)
+    plain = [po, *flash_attention_bwd_reference(*f32[:3], po, plse, f32[3],
+                                                mask, causal)]
+    del po, plse, f32
+    sl = s // n
+
+    def chunk_norms(x):
+        # the Frobenius norm over each chunk's rows: the query chunk of
+        # out and dq, the key chunk of dk and dv
+        return [torch.linalg.vector_norm(x[:, c * sl:(c + 1) * sl]).item()
+                for c in range(n)]
+
+    errs = {}
+    for name, got, want, ref in zip(("out", "dq", "dk", "dv"), ring, one,
+                                    plain):
+        d_ring, d_one = got.float() - ref, want.float() - ref
+        by_ring, by_one = chunk_norms(d_ring), chunk_norms(d_one)
+        errs[name] = {"ring": d_ring.abs().max().item(),
+                      "one_call": d_one.abs().max().item(),
+                      "ref_norm_by_chunk": chunk_norms(ref),
+                      "ring_norm_by_chunk": by_ring,
+                      "one_call_norm_by_chunk": by_one}
+        print(f"ring {label} {name}: max error ring {errs[name]['ring']}, "
+              f"one call {errs[name]['one_call']}; error norm by chunk, "
+              f"ring {by_ring}, one call {by_one}")
+        check(errs[name]["ring"] <= RING_ERR_FACTOR
+              * errs[name]["one_call"],
+              f"ring {label}: {name} error {errs[name]['ring']} against the "
+              f"fp32 plain version exceeds {RING_ERR_FACTOR} x the one "
+              f"call's {errs[name]['one_call']}")
+        for c in range(n):
+            check(by_ring[c] <= RING_ERR_FACTOR * by_one[c],
+                  f"ring {label}: {name} error norm {by_ring[c]} on chunk "
+                  f"{c}'s rows against the fp32 plain version exceeds "
+                  f"{RING_ERR_FACTOR} x the one call's {by_one[c]} there")
+        del d_ring, d_one
+    del ring, one, plain
+    ring_ms = device_ms(ring_run, calls=1, repeats=5, warmup=1)
+    one_ms = device_ms(one_run, calls=1, repeats=5, warmup=1)
+    chunk = 2 * b * sl * h * d * q.element_size() + (
+        b * sl * q.element_size())
+    return dict(launches), {
+        "label": label, "causal": causal, "padded_last_chunk": padded,
+        "shards": n, "pairs": pairs, "errors": errs,
+        "ring_fwd_bwd_ms": ring_ms, "one_call_fwd_bwd_ms": one_ms,
+        "bytes_rotated_per_step": {
+            "forward": chunk, "backward": chunk + 2 * b * sl * h * d * 4}}
+
+
+def phase_ring(card, results):
+    """36. ring: the one-process ring at N = 4, causal GPT-2-medium and
+    bidirectional padded BERT-large attention, against one call."""
+    t0 = time.monotonic()
+    launches, rows = {}, []
+    for label, causal, padded, seed in (("a gpt2 causal", True, False,
+                                         SEED + 36),
+                                        ("b bert padded", False, True,
+                                         SEED + 37)):
+        got, row = ring_case(label, causal, padded, seed)
+        for name, count in got.items():
+            launches[name] = launches.get(name, 0) + count
+        rows.append(row)
+    receipt = {"card": card, "attention": dict(zip("bhsd", RING_ATTN)),
+               "cases": rows, "seconds": time.monotonic() - t0}
+    print("ring receipt (one-process ring of 4 shards, b=2 h=16 s=4096 "
+          "d=64 bf16, forward and backward, against one FlashAttention "
+          "call):", json.dumps(receipt))
+    results["ring"] = receipt
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5042,6 +5202,9 @@ def main(argv=None):
     # 35. MoE GPT-2-medium at full width
     moe_launches = phase_moe(card, results)
     lap("moe")
+    # 36. ring attention: the one-process ring on B1, B2a and B2b
+    ring_launches = phase_ring(card, results)
+    lap("ring")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -5062,7 +5225,7 @@ def main(argv=None):
              "offload_parity_cpu": offload_cpu_launches,
              "dp": dp_launches, "zero3": zero3_launches,
              "onebit": onebit_launches, "pipe": pipe_launches,
-             "tp": tp_launches, "moe": moe_launches}
+             "tp": tp_launches, "moe": moe_launches, "ring": ring_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches

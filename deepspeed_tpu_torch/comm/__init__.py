@@ -30,8 +30,7 @@ bucketed ZeRO exchange issues its collectives so, in the same order on
 every rank.  ``counter`` counts the collectives issued and the bytes of
 the buffers they cover.  The verbs run on any axis whose group exists,
 and the reductions on a tuple of axes too (``psum(x, ("pipe",
-"data"))``, the group over both); the mesh refuses ``seq`` above one
-member (ROADMAP A10).
+"data"))``, the group over both), ``seq`` included.
 
 Tensor and expert parallelism (Megatron's ``mappings``) go through
 three autograd regions over a named axis or tuple of axes, each an
@@ -43,17 +42,20 @@ identity backward: the output of a row-parallel product) and
 slice of the gradient backward).  In the JAX package GSPMD inserts the
 same collectives from the partition specs.
 
-Point-to-point (:func:`send_recv`, :func:`ppermute`) is the pipeline's:
-a step's sends and receives to neighbouring stages go out together
-through one ``batch_isend_irecv`` and are waited for together, so two
-ranks that send to each other in the same step cannot deadlock.  It
-counts ``send`` and ``recv`` calls and bytes.
+Point-to-point (:func:`send_recv`, :func:`ppermute`) is the pipeline's
+and ring attention's: a step's sends and receives to neighbouring
+stages (or ``seq`` ranks) go out together through one
+``batch_isend_irecv`` and are waited for together, so two ranks that
+send to each other in the same step cannot deadlock.  With
+``async_op=True`` it returns a handle instead of waiting, so the ring
+posts the next key/value chunk before it launches the current pair's
+kernel.  It counts ``send`` and ``recv`` calls and bytes.
 """
 
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, get_current_mesh
+from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, get_current_mesh
 
 # torch 2.13 renamed the two flat-buffer collectives
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
@@ -67,6 +69,19 @@ class _Done:
     axis of one member)."""
 
     def wait(self):
+        return True
+
+
+class _Requests:
+    """The handle of a batch of point-to-point requests: ``wait`` waits
+    for every one of them."""
+
+    def __init__(self, reqs):
+        self.reqs = reqs
+
+    def wait(self):
+        for req in self.reqs:
+            req.wait()
         return True
 
 
@@ -200,15 +215,18 @@ def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None,
     return (out, handle) if async_op else out
 
 
-def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None):
+def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None,
+              async_op=False):
     """Point-to-point on ``axis_name``: every ``(tensor, index)`` of
     ``sends`` goes to the member at ``index`` of the axis, and every
     ``(buffer, index)`` of ``recvs`` is filled in place from the member at
     ``index``.  All of them are posted at once (``batch_isend_irecv``, on
     the axis's group) and waited for before this returns (on the card:
-    before the current stream goes on).  A pair with this rank's own
-    index is a local copy.  The peer must make the matching calls in the
-    same order, with buffers of the same shape and dtype."""
+    before the current stream goes on), or, with ``async_op``, when the
+    returned handle's ``wait()`` is called; the sent tensors must stay
+    unchanged until then.  A pair with this rank's own index is a local
+    copy.  The peer must make the matching calls in the same order, with
+    buffers of the same shape and dtype."""
     group, _ = _axis(axis_name, mesh)
     mesh = mesh if mesh is not None else get_current_mesh()
     me = mesh.index(axis_name)
@@ -227,12 +245,15 @@ def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None):
             counter.add("recv", buf.numel() * buf.element_size())
             ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis_name, i),
                                   group))
+    handle = _Done()
     if ops:
         if group is None:
             raise RuntimeError(f"point-to-point on axis {axis_name!r} "
                                f"needs its process group")
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        handle = _Requests(dist.batch_isend_irecv(ops))
+    if async_op:
+        return handle
+    handle.wait()
 
 
 def ppermute(x, axis_name, perm, mesh=None):
@@ -242,7 +263,8 @@ def ppermute(x, axis_name, perm, mesh=None):
     (the ring shift of pipeline stages and of ring attention)."""
     mesh = mesh if mesh is not None else get_current_mesh()
     me = axis_index(axis_name, mesh)
-    out = torch.zeros_like(x)
+    # contiguous: gloo and NCCL receive into dense buffers only
+    out = torch.zeros_like(x, memory_format=torch.contiguous_format)
     send_recv(sends=[(x, dst) for src, dst in perm if src == me],
               recvs=[(out, src) for src, dst in perm if dst == me],
               axis_name=axis_name, mesh=mesh)
@@ -371,14 +393,18 @@ def gather_from(x, axis_name, dim=-1, mesh=None):
 def data_parallel_mean_count(count):
     """A loss's normaliser made global: ``max(total, 1) / n``, where
     ``total`` is ``count`` (this rank's number of counted items, a
-    tensor) summed over the current mesh's data axis and ``n`` is its
-    size.  A loss ``local_sum / mean_count`` then averages over the ranks
-    to the global batch's ``total_sum / max(total_count, 1)``, as the JAX
-    engine's loss over the global batch is; where every rank counts the
-    same, the mean count is the count itself.  Without a mesh, or at one
-    data-parallel rank, this is ``count.clamp_min(1)``."""
+    tensor) summed over the current mesh's ``data`` and ``seq`` axes and
+    ``n`` is the size of ``data``.  A loss ``local_sum / mean_count``
+    then averages over the data ranks to the global batch's ``total_sum
+    / max(total_count, 1)``, as the JAX engine's loss over the global
+    batch is; where every rank counts the same, the mean count is the
+    count itself.  Under ``seq`` each rank counts its chunk's items and
+    its loss is a partial sum: the ``seq`` ranks' losses (and gradients)
+    summed, then averaged over ``data``, give the global mean.  Without
+    a mesh, or at one data and one seq rank, this is
+    ``count.clamp_min(1)``."""
     mesh = get_current_mesh()
-    if mesh is None or mesh.size(DATA_AXIS) == 1:
+    if mesh is None or mesh.size((DATA_AXIS, SEQ_AXIS)) == 1:
         return count.clamp_min(1)
-    total = psum(count.float(), DATA_AXIS, mesh)
+    total = psum(count.float(), (DATA_AXIS, SEQ_AXIS), mesh)
     return total.clamp_min(1) / mesh.size(DATA_AXIS)

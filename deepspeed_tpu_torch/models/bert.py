@@ -45,18 +45,34 @@ decoder tied to them and its ``decoder_bias``, whose cross entropy runs
 over the ranks' slices of the logits (an eval call that returns them
 gathers them whole); the layers are Megatron shards; the rest,
 the QA and classifier heads included, is replicated.
+
+Sequence parallelism (the current mesh's ``seq`` axis, ``attn_impl=
+"ring"``): the model takes its data rank's whole rows and encodes its
+own chunk (:func:`~.layers.seq_chunk`) with the position and token-type
+rows of its global positions; the key-padding chunk rotates with K/V
+in the ring.  The MLM head scores, of the first ``max_predictions_per_seq``
+labelled positions of the WHOLE row (the JAX model's ``top_k``), those
+that fall in the rank's chunk (a row's later labels are dropped
+globally, not per chunk), and the count sums over ``data`` × ``seq``.
+Only ``seq`` rank 0 holds position 0: it alone computes the pooler and
+the NSP head, and the other ranks add nothing to the loss or to their
+gradients.  The fine-tuning heads read the whole sequence (QA's span
+softmax) or the pooled row, and raise above one ``seq`` rank
+(``SEQ_ITEM``).
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..comm import copy_to, gather_from
-from ..parallel.mesh import MODEL_AXIS
+from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
+                    gather_from)
+from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, cross_entropy_with_logits, dense,
                      dropout, gelu, generator, layer_norm, mix_seed,
+                     refuse_seq, seq_chunk, seq_offset, seq_stream_seed,
                      vocab_parallel_cross_entropy, vocab_parallel_embedding)
 
 # the sub-stream of a layer's seed that draws its PLD keep (the JAX
@@ -242,18 +258,28 @@ class BertModel:
         first.  ``pld_theta`` (a 0-d tensor or a number) turns on
         Progressive Layer Drop in a training call and turns
         ``final_positions`` off: the keep-or-pass-through select needs
-        one shape on both sides."""
+        one shape on both sides.  Under ``seq`` the rows are the whole
+        sequence's and the rank encodes its chunk: the sequence output
+        is the chunk's, and ``pooled`` is None past ``seq`` rank 0, which
+        alone holds position 0."""
         c = self.config
+        p0 = seq_offset(input_ids.shape[1])
+        input_ids = seq_chunk(input_ids)
+        attention_mask = (None if attention_mask is None
+                          else seq_chunk(attention_mask))
         s = input_ids.shape[1]
         emb = params["embeddings"]
         x = vocab_parallel_embedding(emb["word"], input_ids) \
-            + emb["position"][None, :s]
+            + emb["position"][None, p0:p0 + s]
         if token_type_ids is not None:
-            x = x + emb["token_type"][token_type_ids]
+            x = x + emb["token_type"][seq_chunk(token_type_ids)]
         x = layer_norm(emb["ln"], x, c.layer_norm_eps)
         train = rng is not None and not deterministic
+        # the layers' dropout streams (this seq rank's); PLD draws from
+        # the step's own, so every seq rank keeps the same layers
+        drop_rng = seq_stream_seed(rng)
         if train:
-            x = dropout(generator(rng, 0, x.device), x,
+            x = dropout(generator(drop_rng, 0, x.device), x,
                         c.hidden_dropout_prob, deterministic)
         if pld_theta is not None:
             final_positions = None
@@ -263,7 +289,8 @@ class BertModel:
                                     device=x.device).clamp(0.0, 1.0)
 
         def run_layer(lp, x, i, positions=None):
-            layer_rng = generator(rng, i + 1, x.device) if train else None
+            layer_rng = (generator(drop_rng, i + 1, x.device) if train
+                         else None)
             return self.layer.apply(lp, x, key_padding_mask=attention_mask,
                                     rng=layer_rng,
                                     deterministic=deterministic,
@@ -286,6 +313,8 @@ class BertModel:
                     device=x.device)
                 y = torch.where(u < theta, y, x)
             x = y
+        if axis_index(SEQ_AXIS) > 0:
+            return x, None
         pooled = torch.tanh(dense(params["pooler"], x[:, 0]))
         return x, pooled
 
@@ -336,12 +365,22 @@ class BertForPreTraining(nn.Module):
         if gather:
             pos = mlm_positions(mlm_labels, n_pred)
             mlm_labels = torch.take_along_dim(mlm_labels, pos, dim=1)
+            if axis_size(SEQ_AXIS) > 1:
+                # the whole row's positions, scored where they fall in
+                # this rank's chunk
+                sl = input_ids.shape[1] // axis_size(SEQ_AXIS)
+                local = pos - seq_offset(input_ids.shape[1])
+                inside = (local >= 0) & (local < sl)
+                pos = torch.where(inside, local, 0)
+                mlm_labels = torch.where(inside, mlm_labels, -100)
             # the last layer's query gather needs the dense bidirectional
             # core and one shape on both sides of PLD's select; else the
             # whole last layer runs and the head gathers after it
             if pld_theta is None and c.attn_impl == "auto":
                 final_positions = torch.cat(
                     [torch.zeros_like(pos[:, :1]), pos], dim=1)
+        elif mlm_labels is not None:
+            mlm_labels = seq_chunk(mlm_labels)
         seq_out, pooled = self.bert.encode(
             params["bert"], input_ids, batch.get("attention_mask"),
             batch.get("token_type_ids"), rng=rng, deterministic=not train,
@@ -361,12 +400,19 @@ class BertForPreTraining(nn.Module):
             @ params["bert"]["embeddings"]["word"].T.to(h.dtype) \
             + cls["decoder_bias"].to(h.dtype)
         if not train and mlm_labels is None:
-            return gather_from(logits, MODEL_AXIS)
+            return gather_from(gather_from(logits, MODEL_AXIS), SEQ_AXIS,
+                               dim=1)
         loss = vocab_parallel_cross_entropy(logits, mlm_labels)
         if "next_sentence_labels" in batch:
-            nsp_logits = dense(cls["seq_relationship"], pooled)
-            loss = loss + cross_entropy_with_logits(
-                nsp_logits, batch["next_sentence_labels"])
+            if pooled is None:
+                # a seq rank without position 0 counts no NSP row, but
+                # makes the normaliser's collective with the others
+                data_parallel_mean_count(torch.zeros(
+                    (), dtype=torch.int64, device=logits.device))
+            else:
+                nsp_logits = dense(cls["seq_relationship"], pooled)
+                loss = loss + cross_entropy_with_logits(
+                    nsp_logits, batch["next_sentence_labels"])
         return loss
 
 
@@ -402,6 +448,8 @@ class BertForQuestionAnsweringTPU(nn.Module):
                 "qa_outputs": draw.dense(self.config.hidden_size, 2)}
 
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
+        refuse_seq("the QA span head (its softmax runs over the whole "
+                   "sequence)")
         seq_out, _ = self.bert.encode(
             params["bert"], batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"), rng=rng, deterministic=not train)
@@ -460,6 +508,7 @@ class BertForSequenceClassificationTPU(nn.Module):
 
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
         c = self.config
+        refuse_seq("the sequence classification head")
         _, pooled = self.bert.encode(
             params["bert"], batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"), rng=rng, deterministic=not train)

@@ -20,7 +20,8 @@ recomputed in backward, so the ``[b, s, vocab]`` logits are never held
 whole.  ``moe_experts`` > 0 swaps the dense FFN of every
 ``moe_every``-th block for a routed-expert FFN (:mod:`.moe`) and adds
 ``moe_aux_coef`` × the blocks' mean Switch aux loss to the training
-loss.  Not ported yet, and refused: the ring attention core (A10).
+loss.  ``attn_impl="ring"`` runs the ring attention core, for sequence
+parallelism.
 
 Tensor parallelism (the current mesh's ``model`` axis): the params are
 a rank's slices by :meth:`GPT2LMHead.partition_specs`; ``wte`` is
@@ -28,6 +29,19 @@ vocab-parallel, so the lookup sums the ranks' rows, the tied head makes
 each rank's ``[b, s, V/m]`` slice of the logits, and the loss (whole or
 chunked) takes the cross entropy over the slices without gathering them;
 an eval call that returns logits gathers them whole.
+
+Sequence parallelism (the current mesh's ``seq`` axis, ``attn_impl=
+"ring"``): the model takes its data rank's whole ``[b, s]`` ids and
+cuts its own chunk (:func:`~.layers.seq_chunk`), so positions and
+labels are global by construction: the labels are shifted over the
+whole sequence before the cut (the last position of chunk r is
+labelled with the first token of chunk r+1, the global last with
+-100), the ``wpe`` rows are the chunk's global positions, and the loss
+(whole or chunked) is the chunk's partial sum over the global count
+(:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`).  An eval
+call that returns logits gathers them over ``seq`` too.  MoE blocks and
+any other attention core above one ``seq`` rank raise naming
+``SEQ_ITEM``.
 """
 
 import logging
@@ -38,10 +52,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..comm import copy_to, data_parallel_mean_count, gather_from
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, dropout, generator, layer_norm,
+                     refuse_seq, seq_chunk, seq_offset, seq_stream_seed,
                      vocab_parallel_cross_entropy, vocab_parallel_embedding,
                      vocab_parallel_nll_sum)
 from .moe import MoETransformerLayer
@@ -224,15 +239,21 @@ class GPT2LMHead(nn.Module):
         return self.layer.apply(lp, x, rng=rng, deterministic=deterministic)
 
     def hidden(self, params, input_ids, rng=None, deterministic=True):
-        """Trunk + final layernorm -> [b, s, hidden].  ``rng`` is an
-        integer seed: stream 0 drops the embeddings and stream i+1 is
-        layer i's generator, built inside the (possibly recomputed)
-        layer so a recompute draws the forward's masks."""
+        """Trunk + final layernorm -> [b, s, hidden] (under ``seq``, this
+        rank's chunk of the whole ``[b, s]`` ids: [b, s/N, hidden]).
+        ``rng`` is an integer seed: stream 0 drops the embeddings and
+        stream i+1 is layer i's generator, built inside the (possibly
+        recomputed) layer so a recompute draws the forward's masks."""
         c = self.config
-        s = input_ids.shape[1]
-        x = vocab_parallel_embedding(params["wte"], input_ids) \
-            + params["wpe"][None, :s]
+        if c.moe_experts:
+            refuse_seq("a MoE model (its routing groups are whole "
+                       "sequences)")
+        ids = seq_chunk(input_ids)
+        p0 = seq_offset(input_ids.shape[1])
+        x = vocab_parallel_embedding(params["wte"], ids) \
+            + params["wpe"][None, p0:p0 + ids.shape[1]]
         train = rng is not None and not deterministic
+        rng = seq_stream_seed(rng)
         if train:
             x = dropout(generator(rng, 0, x.device), x, c.embd_dropout,
                         deterministic)
@@ -265,9 +286,10 @@ class GPT2LMHead(nn.Module):
         return copy_to(x, MODEL_AXIS) @ params["wte"].T.to(x.dtype)
 
     def logits(self, params, input_ids, rng=None, deterministic=True):
-        """The whole ``[b, s, vocab]`` logits (gathered over ``model``)."""
-        return gather_from(self._lm_head(params, self.hidden(
-            params, input_ids, rng, deterministic)), MODEL_AXIS)
+        """The whole ``[b, s, vocab]`` logits (gathered over ``model``
+        and ``seq``)."""
+        return _whole_logits(self._lm_head(params, self.hidden(
+            params, input_ids, rng, deterministic)))
 
     @staticmethod
     def _chunked_lm_loss(params, x, labels, chunk):
@@ -302,17 +324,16 @@ class GPT2LMHead(nn.Module):
         has_labels = isinstance(batch, dict) and "labels" in batch
         want_logits = not train and not has_labels
         chunk = c.loss_chunk
-        use_chunked = bool(not want_logits and chunk
-                           and input_ids.shape[1] % chunk == 0)
-        if chunk and not want_logits and not use_chunked:
+        x = self.hidden(params, input_ids, rng=rng, deterministic=not train)
+        if want_logits:
+            return _whole_logits(self._lm_head(params, x))
+        use_chunked = bool(chunk and x.shape[1] % chunk == 0)
+        if chunk and not use_chunked:
             logger.warning(
                 "loss_chunk=%s does not divide seq %s: falling back to the "
                 "FULL-logits loss (the [b, s, vocab] tensor this knob exists "
                 "to avoid WILL be materialized); pick a divisor",
-                chunk, input_ids.shape[1])
-        x = self.hidden(params, input_ids, rng=rng, deterministic=not train)
-        if want_logits:
-            return gather_from(self._lm_head(params, x), MODEL_AXIS)
+                chunk, x.shape[1])
         if has_labels:
             labels = batch["labels"]
         else:
@@ -321,6 +342,8 @@ class GPT2LMHead(nn.Module):
                                               dtype=input_ids.dtype,
                                               device=input_ids.device)],
                 dim=1)
+        # shifted over the whole sequence, then this seq rank's chunk
+        labels = seq_chunk(labels)
         if use_chunked:
             loss = self._chunked_lm_loss(params, x, labels, int(chunk))
         else:
@@ -334,3 +357,9 @@ class GPT2LMHead(nn.Module):
 
     def forward(self, input_ids):
         return self.logits(self.params, input_ids)
+
+
+def _whole_logits(logits):
+    """A rank's ``[b, s/N, V/m]`` logits gathered over ``model`` (vocab)
+    and ``seq`` (positions): the whole ``[b, s, V]``."""
+    return gather_from(gather_from(logits, MODEL_AXIS), SEQ_AXIS, dim=1)

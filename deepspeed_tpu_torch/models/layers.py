@@ -23,6 +23,15 @@ input (:func:`~deepspeed_tpu_torch.comm.copy_to`), ``attn_out`` and
 added once.  Every rank of a data coordinate draws the same dropout
 streams, and the flash kernels drop the entries of the rank's GLOBAL
 heads, so a sharded layer drops what the whole layer drops.
+
+Sequence parallelism (the current mesh's ``seq`` axis): a layer with
+``attn_impl="ring"`` takes this rank's chunk of the sequence and runs
+ring attention over the axis (on its heads under ``model``); every
+other part of the layer is per position and runs on the chunk as it is.
+A model cuts its chunk with :func:`seq_chunk` and draws its dropout
+streams from :func:`seq_stream_seed`, so each chunk drops its own
+entries.  Any other core above one ``seq`` rank would attend over the
+chunk only, and raises (``SEQ_ITEM``).
 """
 
 import functools
@@ -35,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
                     pmax, reduce_from)
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..utils.params import MODEL, QKV
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
@@ -44,10 +53,16 @@ from ..ops.sparse_attention.flash_block_sparse import (
 from ..ops.transformer.attention import (MIN_DROPOUT,
                                          dot_product_attention,
                                          key_padding_to_additive)
+from ..ops.transformer.ring_attention import ring_attention
 
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
+# the ROADMAP item that ports what does not compose with seq above 1
+SEQ_ITEM = "ROADMAP A19"
+# the sub-stream under a step's seed from which seq rank r > 0 draws
+# its chunk's dropout (rank 0 draws the seed's own streams)
+SEQ_STREAM = 0x5E9 << 20
 
 
 def mix_seed(seed, index):
@@ -83,6 +98,42 @@ def recomputed(block, rng=None):
         return checkpoint(replay, *args, use_reentrant=False)
 
     return call
+
+
+def seq_chunk(x, dim=1):
+    """This ``seq`` rank's chunk of ``x`` along ``dim`` (rank r of N:
+    positions ``[r·s/N, (r+1)·s/N)``); ``x`` itself at one rank."""
+    n = axis_size(SEQ_AXIS)
+    if n == 1:
+        return x
+    s = x.shape[dim]
+    if s % n:
+        raise ValueError(f"a sequence of {s} positions does not split over "
+                         f"{n} seq ranks")
+    return x.narrow(dim, axis_index(SEQ_AXIS) * (s // n), s // n)
+
+
+def seq_offset(s):
+    """The global position of this ``seq`` rank's first row of a
+    length-``s`` sequence (0 at one rank)."""
+    return axis_index(SEQ_AXIS) * (s // axis_size(SEQ_AXIS))
+
+
+def seq_stream_seed(seed):
+    """The seed a ``seq`` rank's chunk draws its dropout from: ``seed``
+    at rank 0 (and at one rank), a sub-stream of it above."""
+    r = axis_index(SEQ_AXIS)
+    return seed if seed is None or r == 0 else mix_seed(seed,
+                                                        SEQ_STREAM + r)
+
+
+def refuse_seq(what):
+    """Raise for ``what`` above one ``seq`` rank, naming its item."""
+    if axis_size(SEQ_AXIS) > 1:
+        raise NotImplementedError(
+            f"{what} above one seq rank is not ported yet ({SEQ_ITEM}); "
+            f"sequence parallelism runs the ring attention core "
+            f"(attn_impl='ring')")
 
 
 def dense(params, x):
@@ -163,8 +214,9 @@ def _log_gather_once():
 
 
 class TransformerLayer:
-    """One encoder/decoder layer with the dense (``attn_impl="auto"``)
-    or the block-sparse (``"sparse"``, with a ``sparsity_config``)
+    """One encoder/decoder layer with the dense (``attn_impl="auto"``),
+    the block-sparse (``"sparse"``, with a ``sparsity_config``) or the
+    ring (``"ring"``, sequence parallelism over the mesh's ``seq`` axis)
     attention core.
 
     The config mirrors the JAX ``TransformerLayer`` (``pre_layer_norm``,
@@ -174,13 +226,15 @@ class TransformerLayer:
     regions, ``layers.py:291-305``): ``attn_dropout_checkpoint`` the
     attention block (QKV, B1, attention output and its dropout),
     ``gelu_checkpoint`` the MLP block, ``normalize_invertible`` each
-    layernorm.  Not ported yet, and refused: the ring core (``attn_impl``
-    'ring', ROADMAP A10), and the sparse core above one ``model`` rank
-    (A18).  Under a ``model`` axis the params are the rank's slices
-    (:meth:`partition_specs`) and the layer is its Megatron shard (see
-    the module docstring).  ``apply(..., positions=...)`` computes the
-    layer at a few gathered rows only (BERT's last layer under the MLM
-    gather)."""
+    layernorm.  Not ported yet, and refused: the sparse core above one
+    ``model`` rank (A18), and any core but the ring above one ``seq``
+    rank (``SEQ_ITEM``).  Under a ``model`` axis the params are the
+    rank's slices (:meth:`partition_specs`) and the layer is its Megatron
+    shard (see the module docstring); under ``seq`` the input is this
+    rank's chunk of the sequence.  ``apply(..., positions=...)`` computes
+    the layer at a few gathered rows only (BERT's last layer under the
+    MLM gather; the dense core only, so never with the ring, as in the
+    JAX layer)."""
 
     def __init__(self, hidden_size, heads, intermediate_size=None,
                  causal=False, attn_dropout_ratio=0.1,
@@ -192,10 +246,7 @@ class TransformerLayer:
         if hidden_size % heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of heads {heads}")
-        if attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' is not ported yet (ROADMAP A10)")
-        if attn_impl not in ("auto", "sparse"):
+        if attn_impl not in ("auto", "sparse", "ring"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if attn_impl == "sparse" and sparsity_config is None:
             raise ValueError("attn_impl='sparse' requires a SparsityConfig")
@@ -279,22 +330,34 @@ class TransformerLayer:
                 self.sparsity_config.make_layout(seq_len)
         return self._layout_cache[seq_len]
 
+    def _additive_key_padding(self, mask, key_padding_mask, b, s):
+        """The additive ``[b, s]`` key-padding form the sparse and ring
+        cores take, or None."""
+        if key_padding_mask is not None:
+            return key_padding_to_additive(key_padding_mask)
+        if mask is None:
+            return None
+        # the general additive [b, 1, 1, s] broadcast collapses
+        if mask.numel() != b * s:
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r} supports key-padding masks "
+                f"([b,1,1,s]), got mask shape {tuple(mask.shape)}")
+        return mask.reshape(b, s)
+
+    def _context_dropout(self, ctx, attn_rng, deterministic):
+        """The sparse and ring cores drop nothing inside: the layer drops
+        their context with its generator, as the JAX layer does."""
+        if attn_rng is not None and self.attn_dropout_ratio > 0.0:
+            ctx = dropout(attn_rng, ctx, self.attn_dropout_ratio,
+                          deterministic)
+        return ctx
+
     def _sparse_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
                           deterministic):
         """The sparse core on [b, s, heads, head_dim] views, and the
-        attention dropout on its context: the sparse cores have none
-        inside."""
+        attention dropout on its context."""
         b, s = q.shape[:2]
-        kpm_add = None  # additive [b, s] form
-        if key_padding_mask is not None:
-            kpm_add = key_padding_to_additive(key_padding_mask)
-        elif mask is not None:
-            # the general additive [b, 1, 1, s] broadcast collapses
-            if mask.numel() != b * s:
-                raise ValueError(
-                    f"attn_impl='sparse' supports key-padding masks "
-                    f"([b,1,1,s]), got mask shape {tuple(mask.shape)}")
-            kpm_add = mask.reshape(b, s)
+        kpm_add = self._additive_key_padding(mask, key_padding_mask, b, s)
         layout = self._sparse_layout(s)
         causal_sp = self.causal or getattr(
             self.sparsity_config, "attention",
@@ -305,10 +368,18 @@ class TransformerLayer:
         else:
             ctx = block_sparse_attention(q, k, v, layout, causal=causal_sp,
                                          key_padding_mask=kpm_add)
-        if attn_rng is not None and self.attn_dropout_ratio > 0.0:
-            ctx = dropout(attn_rng, ctx, self.attn_dropout_ratio,
-                          deterministic)
-        return ctx
+        return self._context_dropout(ctx, attn_rng, deterministic)
+
+    def _ring_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
+                        deterministic):
+        """The ring core on this rank's [b, s/N, heads, head_dim] chunk
+        (its key-padding chunk rotates with K/V), and the attention
+        dropout on its context (JAX ``layers.py:250-255``)."""
+        kpm_add = self._additive_key_padding(mask, key_padding_mask,
+                                             *q.shape[:2])
+        ctx = ring_attention(q, k, v, causal=self.causal,
+                             key_padding_mask=kpm_add)
+        return self._context_dropout(ctx, attn_rng, deterministic)
 
     def attention_core(self, params, y, mask=None, key_padding_mask=None,
                        attn_rng=None, deterministic=True, positions=None):
@@ -319,6 +390,9 @@ class TransformerLayer:
         ``positions`` [b, K] (int64): queries, and so output rows, only at
         those positions, with keys and values over the whole sequence;
         the dense bidirectional core only.  Returns [b, K, h]."""
+        if self.attn_impl != "ring":
+            refuse_seq(f"the {self.attn_impl!r} attention core (it would "
+                       f"attend over this rank's chunk only)")
         b, s = y.shape[:2]
         heads, h0 = self.local_heads(params)
         h = heads * self.head_dim   # this rank's width of the context
@@ -344,6 +418,10 @@ class TransformerLayer:
             return ctx.reshape(b, n, h)
         qkv = dense(params["qkv"], y).reshape(b, s, 3, heads,
                                               self.head_dim)
+        if self.attn_impl == "ring":
+            return self._ring_attention(
+                qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
+                key_padding_mask, attn_rng, deterministic).reshape(b, s, h)
         if self.attn_impl == "sparse":
             if heads != self.heads:
                 raise NotImplementedError(

@@ -22,7 +22,11 @@ too: every process group over a set of two or more axes above size 1
 is made with the mesh (``group(("model", "expert"))``, ``group(("data",
 "model", "expert"))``, ...), so the engine's one stats all-reduce and
 the MoE layer's regions over both axes have theirs.  ``seq`` (sequence
-parallelism, ring attention) is ROADMAP A10, refused above 1.
+parallelism) runs above 1 too: the ranks of one ``seq`` group hold the
+chunks of one data coordinate's sequences, and ring attention
+(:mod:`~deepspeed_tpu_torch.ops.transformer.ring_attention`) rotates the
+keys and values over it; the groups over ``(data, seq)``, ``(seq,
+model)`` and ``(data, seq, model)`` are made with the others.
 """
 
 import contextlib
@@ -40,19 +44,6 @@ MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
 
 CANONICAL_AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS, EXPERT_AXIS)
-# the ROADMAP item that ports each axis the port refuses above 1
-UNPORTED_AXES = {SEQ_AXIS: "A10"}
-
-
-def refuse_unported_axes(sizes):
-    """Raise for an axis the port does not run above size 1 (``seq``),
-    naming its ROADMAP item."""
-    for ax, item in UNPORTED_AXES.items():
-        if int(sizes.get(ax, 1)) > 1:
-            raise NotImplementedError(
-                f"mesh axis {ax!r} of size {sizes[ax]} is not ported yet "
-                f"(ROADMAP {item}); the port runs the data, pipe, model "
-                f"and expert axes")
 
 
 def _axes_key(axis):
@@ -150,8 +141,10 @@ class Mesh:
 
 def data_parallel_process_info(mesh):
     """``(world, rank)`` for per-process batch slicing: the size of the
-    ``data`` axis and this process's coordinate on it (every process of
-    the port is one data coordinate)."""
+    ``data`` axis and this process's coordinate on it.  Every process is
+    one data coordinate, and the ``seq`` (and ``model``) ranks of one
+    data coordinate get the same rows: a sequence-parallel model cuts its
+    own chunk of each row."""
     return mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
 
 
@@ -196,7 +189,6 @@ def make_mesh(axis_dims):
         if ax not in CANONICAL_AXES:
             raise ValueError(f"unknown mesh axis {ax!r}; canonical axes are "
                              f"{CANONICAL_AXES}")
-    refuse_unported_axes(dims)
     world = get_world_size()
     infer = [ax for ax, d in dims.items() if d == -1]
     if len(infer) > 1:
@@ -313,6 +305,16 @@ class MeshGrid:
 
     def get_expert_parallel_group(self):
         return EXPERT_AXIS
+
+    def get_seq_parallel_rank(self):
+        return getattr(self._coord(), SEQ_AXIS, 0) \
+            if SEQ_AXIS in self._topo.axes else 0
+
+    def get_seq_parallel_world_size(self):
+        return self.seq_parallel_size
+
+    def get_seq_parallel_group(self):
+        return SEQ_AXIS
 
     # ---- pipeline extras (reference PipelineParallelGrid) ----
     def get_pipe_parallel_rank(self):

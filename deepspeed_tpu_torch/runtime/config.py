@@ -14,7 +14,9 @@ the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
 (:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
 and ``resilience``
 (:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`),
-and ``sparse_gradients``.  The engines read ``mesh`` through
+and ``sparse_gradients``.  A ``ring_attention`` block is known and
+logs that it has no effect: a model's ``attn_impl="ring"`` and the
+mesh's ``seq`` axis select the ring.  The engines read ``mesh`` through
 :func:`get_mesh_config` and the pipeline engine reads ``pipeline``
 through :func:`get_pipeline_config` (applying it to its module) before
 this parse, which needs the mesh's size.
@@ -30,7 +32,6 @@ import logging
 
 from ..checkpoint.config import DeepSpeedCheckpointConfig
 from ..resilience.config import DeepSpeedResilienceConfig
-from ..parallel.mesh import UNPORTED_AXES
 from . import constants as C
 from .activation_checkpointing.config import \
     DeepSpeedActivationCheckpointingConfig
@@ -72,13 +73,6 @@ def config_issues(param_dict):
             issues.append(f"config section '{key}' is set but the PyTorch "
                           f"port does not implement it yet (ROADMAP "
                           f"{C.UNPORTED_SECTIONS[key]}); it has no effect")
-        if key == C.MESH and isinstance(value, dict):
-            for ax, item in UNPORTED_AXES.items():
-                if int(value.get(ax, 1)) > 1:
-                    issues.append(f"mesh axis '{ax}' is {value[ax]} but the "
-                                  f"PyTorch port runs the data, pipe, "
-                                  f"model and expert axes (ROADMAP "
-                                  f"{item}); building the mesh will raise")
     return issues
 
 
@@ -283,6 +277,10 @@ class DeepSpeedConfig:
                                  else None)
 
         self.sparse_attention = get_sparse_attention(param_dict)
+        if "ring_attention" in param_dict:
+            logger.info("DeepSpeedConfig: the 'ring_attention' block has no "
+                        "effect; a model's attn_impl='ring' and the mesh's "
+                        "seq axis select the ring")
         self.activation_checkpointing_config = \
             DeepSpeedActivationCheckpointingConfig(param_dict)
         self.pld_params = get_progressive_layer_drop(param_dict)

@@ -216,13 +216,13 @@ SECTION_KEYS = {
 UNPORTED_SECTIONS = {
     "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
     "profiling": "A12/A16",
-    "ring_attention": "A10", "telemetry": "A12", "tensorboard": "A12",
+    "telemetry": "A12", "tensorboard": "A12",
 }
 
 #############################################
 # Data, pipeline, tensor and expert parallelism: the "mesh" block (axis
 # sizes; data -1 is the whole torch.distributed world), the JAX
-# package's :267-271.  Its seq axis is ROADMAP A10
+# package's :267-271
 #############################################
 MESH = "mesh"
 MESH_DATA = "data"

@@ -163,12 +163,33 @@ are gathered over ``model`` and ``expert`` into the JAX whole-tree
 layout and cut again on load, so they load at any degree and in either
 package.
 
+Sequence parallelism (a ``seq`` axis above 1, JAX ``engine.py:214-217``
+for the sizes): the data world is world / (model·pipe·seq·expert); the
+``seq`` ranks of one data coordinate take the same rows, and the model
+(``attn_impl="ring"``) cuts its own chunk and runs ring attention over
+the axis.  Each ``seq`` rank's loss is a partial sum over the global
+count (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`), so
+its gradient is summed over ``seq``: ZeRO-1/2/3 reduce-scatter the
+flat gradient over ``data`` and then all-reduce the shard over ``seq``
+(1/dp of the bytes of a ``seq`` sum of the whole gradient); stage 0
+all-reduces it once over ``data`` × ``seq``.  The
+master and the optimizer state stay sharded over ``data`` only and
+replicated over ``seq``, as in JAX.  The step's one stats all-reduce
+runs over ``data`` × ``seq`` (× ``model`` × ``expert``): the loss sums
+the ``seq`` ranks' partials, and the overflow flag and the norm's
+square count at ``seq`` coordinate 0 only, where the gradient is
+already the ``seq`` sum.  Checkpoints are the whole tree, written by
+``seq`` rank 0 of data rank 0.  Not composed with ``seq`` yet, each
+raising with ``SEQ_ITEM`` (ROADMAP A19): another attention core than
+the ring, a pipe or expert axis above 1, MoE blocks, ``OneBitAdam`` and
+``sparse_gradients``; offload keeps its refusal above one rank (A9).
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-offload above one rank (A9), telemetry (A12), sequence parallelism
-(A10), ZeRO-3 and 1-bit Adam under a pipeline (A13 remainder), 1-bit
-Adam and ``sparse_gradients`` above one model or expert rank (A18), and
-resilience's fleet integrity plane and elastic supervisor (A15's second
-half).
+offload above one rank (A9), telemetry (A12), ZeRO-3 and 1-bit Adam
+under a pipeline (A13 remainder), 1-bit Adam and ``sparse_gradients``
+above one model or expert rank (A18), what does not compose with
+``seq`` yet (A19), and resilience's fleet integrity plane and elastic
+supervisor (A15's second half).
 """
 
 import dataclasses
@@ -188,14 +209,13 @@ from ..checkpoint.constants import (CLIENT_STATE_PKL, LATEST_FILE,
 from ..checkpoint.manager import CheckpointManager, drain_inflight
 from ..checkpoint.snapshot import capture_engine_snapshot, state_fields
 from ..checkpoint.writer import CheckpointCorruptionError, CheckpointError
-from ..models.layers import mix_seed
+from ..models.layers import SEQ_ITEM, mix_seed
 from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.op_common import LANES
 from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
-                             Mesh, current_mesh, make_mesh,
-                             refuse_unported_axes)
+                             SEQ_AXIS, Mesh, current_mesh, make_mesh)
 from ..profiling.step_profiler import StepLatencyRing
 from ..resilience.constants import TrainingDivergedError
 from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
@@ -318,7 +338,8 @@ class DeepSpeedEngine:
         if mesh is None and get_world_size() > 1:
             mesh = make_mesh(get_mesh_config(config))
         if mesh is not None:
-            refuse_unported_axes(mesh.shape)
+            if mesh.size(SEQ_AXIS) > 1:
+                self._refuse_seq_mesh(mesh, model)
             if mesh.size(PIPE_AXIS) > 1 and not self._pipelined:
                 raise ValueError(
                     f"a mesh with a pipe axis of {mesh.size(PIPE_AXIS)} "
@@ -335,10 +356,17 @@ class DeepSpeedEngine:
         self._tp_coords = ((mesh.index(MODEL_AXIS), mesh.index(EXPERT_AXIS))
                            if mesh is not None else (0, 0))
         self._tp = self.mp_world_size * self.ep_world_size > 1
-        if self._tp:
+        self.sp_world_size = mesh.size(SEQ_AXIS) if mesh is not None else 1
+        self.sp_rank = mesh.index(SEQ_AXIS) if mesh is not None else 0
+        seq = self.sp_world_size > 1
+        # the axes a flat gradient is summed over at stage 0
+        self._grad_axes = (DATA_AXIS, SEQ_AXIS) if seq else DATA_AXIS
+        if self._tp or seq:
             axes = self._stats_axes if isinstance(self._stats_axes, tuple) \
                 else (self._stats_axes,)
-            self._stats_axes = axes + (MODEL_AXIS, EXPERT_AXIS)
+            self._stats_axes = (axes + ((SEQ_AXIS,) if seq else ())
+                                + ((MODEL_AXIS, EXPERT_AXIS) if self._tp
+                                   else ()))
         self._config = DeepSpeedConfig(config, world_size=dp)
         zc = self._config.zero_config
         self.zero_stage = self._config.zero_optimization_stage
@@ -346,13 +374,15 @@ class DeepSpeedEngine:
         self._offload = zc.cpu_offload
         self._sparse_paths = self._configure_sparse_gradients(model)
         self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
-        if self._offload and (dp > 1 or self._tp):
+        if self._offload and (dp > 1 or self._tp or seq):
             raise NotImplementedError(
                 "ZeRO-Offload with the host state sharded over "
                 "data-parallel ranks is not ported yet (ROADMAP A9); it "
                 "runs at one rank")
         if self._tp:
             self._refuse_tp(optimizer)
+        if seq:
+            self._refuse_seq_config(optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -420,7 +450,7 @@ class DeepSpeedEngine:
         # the JAX rule: the gradient keeps the compute dtype only where
         # nothing sums into it (one rank, no accumulation); the exchange
         # and the accumulation sum in fp32
-        summed = acc > 1 or dp > 1
+        summed = acc > 1 or dp > 1 or seq
         # stages 2 and 3 reduce-scatter every micro-batch and accumulate
         # the rank's rows (a pipeline stage that holds a tied copy
         # exchanges at the boundary instead, after the copies' sum)
@@ -490,6 +520,10 @@ class DeepSpeedEngine:
             self._ckpt_manager.install_preemption_handler(
                 self._preemption_save)
         self._build_resilience()
+        if seq:
+            # the seq group's first collective comes before the ring's
+            # first point-to-point batch, which NCCL needs of a new group
+            comm.barrier(SEQ_AXIS, self.mesh)
         logger.info("engine on %s: %d parameters in %d tensors, flat %s, "
                     "compute %s, optimizer %s, ZeRO stage %d, data-parallel "
                     "rank %d of %d", self.device,
@@ -505,7 +539,48 @@ class DeepSpeedEngine:
 
     def _is_writer(self):
         """True on the rank that writes checkpoints."""
-        return self.dp_rank == 0 and self._tp_coords == (0, 0)
+        return (self.dp_rank == 0 and self.sp_rank == 0
+                and self._tp_coords == (0, 0))
+
+    # ------------------------------------------------ sequence parallelism
+    def _refuse_seq_mesh(self, mesh, model):
+        """What this slice does not compose with ``seq`` above one rank,
+        read off the mesh and the model, each naming ``SEQ_ITEM``: the
+        model must run the ring core (any other would attend over a
+        rank's chunk only, and a model without attention would be
+        counted once a seq rank)."""
+        for ax in (PIPE_AXIS, EXPERT_AXIS):
+            if mesh.size(ax) > 1:
+                raise NotImplementedError(
+                    f"a seq axis with a {ax} axis above 1 is not ported "
+                    f"yet ({SEQ_ITEM})")
+        mcfg = getattr(model, "config", None)
+        impl = getattr(mcfg, "attn_impl", None)
+        if impl != "ring":
+            raise NotImplementedError(
+                f"a seq axis above 1 trains a model whose attention core "
+                f"is the ring (attn_impl='ring'), not {impl!r}: other "
+                f"cores are not ported to sequence parallelism yet "
+                f"({SEQ_ITEM})")
+        if getattr(mcfg, "moe_experts", 0):
+            raise NotImplementedError(
+                f"MoE blocks above one seq rank are not ported yet "
+                f"({SEQ_ITEM})")
+
+    def _refuse_seq_config(self, client_optimizer):
+        """The config's knobs that do not compose with ``seq`` yet, each
+        naming ``SEQ_ITEM``."""
+        name = (type(client_optimizer).__name__.lower()
+                if client_optimizer is not None
+                else (self._config.optimizer_name or "").lower())
+        if name == C.ONEBIT_ADAM_OPTIMIZER:
+            raise NotImplementedError(
+                f"OneBitAdam above one seq rank is not ported yet "
+                f"({SEQ_ITEM})")
+        if self._config.sparse_gradients_enabled:
+            raise NotImplementedError(
+                f"sparse_gradients above one seq rank is not ported yet "
+                f"({SEQ_ITEM})")
 
     # ------------------------------------------------ tensor parallelism
     def _refuse_tp(self, client_optimizer):
@@ -1325,12 +1400,20 @@ class DeepSpeedEngine:
     def _reduce_scatter_grad(self, accumulate):
         """The summed gradient's rows this rank owns, into ``_gshard``
         (added to it with ``accumulate``): the full flat gradient, in
-        ``_gshard``'s dtype, reduce-scattered over the data axis."""
+        ``_gshard``'s dtype, reduce-scattered over the data axis, then the
+        seq ranks' partial shards summed (1/dp of the bytes a seq sum of
+        the whole gradient would move)."""
         src = self._acc if self._acc is not None else self._grad
         src = src.to(self._gshard.dtype)
-        if accumulate:
-            self._gshard.add_(comm.reduce_scatter(src, DATA_AXIS,
-                                                  mesh=self.mesh))
+        seq = self.sp_world_size > 1
+        if accumulate or seq:
+            shard = comm.reduce_scatter(src, DATA_AXIS, mesh=self.mesh)
+            if seq:
+                comm.psum(shard, SEQ_AXIS, self.mesh, out=shard)
+            if accumulate:
+                self._gshard.add_(shard)
+            else:
+                self._gshard.copy_(shard)
         else:
             comm.reduce_scatter(src, DATA_AXIS, mesh=self.mesh,
                                 out=self._gshard)
@@ -1350,7 +1433,7 @@ class DeepSpeedEngine:
         if self.mesh is None:
             return g
         if not self._sparse_paths:
-            return comm.psum(g, DATA_AXIS, self.mesh, out=g)
+            return comm.psum(g, self._grad_axes, self.mesh, out=g)
         return self._sparse_exchange(g)
 
     def _sparse_exchange(self, g):
@@ -1482,6 +1565,10 @@ class DeepSpeedEngine:
         squares; stage 0's is whole on every rank)."""
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         loss = torch.stack(self._losses).float().mean()
+        # the seq ranks' gradients are their sum already: the flag and
+        # the norm count at seq coordinate 0 only, while the loss sums
+        # the seq ranks' partials
+        seq0 = float(self.sp_rank == 0)
         if self._tp:
             # a replicated leaf counts once: at model and expert
             # coordinate 0, and on data rank 0 where every data rank
@@ -1489,7 +1576,8 @@ class DeepSpeedEngine:
             sq = (self._tp_norm_sq(g) if clip > 0.0
                   and (self._partitioned or self.dp_rank == 0) else zero)
             first = float(self._tp_coords == (0, 0))
-            stats = comm.psum(torch.stack([flag, loss * first, sq]),
+            stats = comm.psum(torch.stack([flag * seq0, loss * first,
+                                           sq * seq0]),
                               self._stats_axes, self.mesh)
             return (stats[0], stats[1] / self.dp_world_size,
                     stats[2].sqrt() if clip > 0.0 else None)
@@ -1497,9 +1585,11 @@ class DeepSpeedEngine:
                 if clip > 0.0 else None)
         if self.mesh is not None:
             sharded = norm is not None and self._partitioned
+            if self.sp_world_size > 1:
+                flag = flag * seq0
             stats = comm.psum(
-                torch.stack([flag, loss, norm * norm if sharded
-                             else zero]), DATA_AXIS, self.mesh)
+                torch.stack([flag, loss, norm * norm * seq0 if sharded
+                             else zero]), self._stats_axes, self.mesh)
             flag, loss = stats[0], stats[1] / self.dp_world_size
             if sharded:
                 norm = stats[2].sqrt()
@@ -1632,12 +1722,16 @@ class DeepSpeedEngine:
             return self._rank_mean(torch.stack(losses).mean(dim=0))
 
     def _rank_mean(self, out):
-        """A 0-d loss averaged over the data-parallel ranks; anything
-        else (logits) as it is."""
+        """A 0-d loss averaged over the data-parallel ranks (the seq
+        ranks' partials summed first); anything else (logits) as it
+        is."""
         if self.mesh is None or not isinstance(out, torch.Tensor) \
                 or out.dim() != 0:
             return out
-        return comm.pmean(out.float(), DATA_AXIS, self.mesh)
+        out = out.float()
+        if self.sp_world_size > 1:
+            out = comm.psum(out, SEQ_AXIS, self.mesh)
+        return comm.pmean(out, DATA_AXIS, self.mesh)
 
     def get_master_params(self):
         """The fp32 master as a param dict (views of the flat buffer; of

@@ -80,10 +80,11 @@ def test_ppermute_ring(tmp_path):
     """Point-to-point (the pipeline's, ROADMAP A13) runs: on a 2-rank
     gloo ring each member gets its neighbour's tensor, the shift back
     restores its own, and a member no pair sends to gets zeros, as
-    ``jax.lax.ppermute``; all-to-all runs on the data axis (1-bit Adam's
-    compressed all-reduce): over one member it returns its input, tiled
-    or stacked as ``jax.lax.all_to_all``, while the axes of sequence and
-    expert parallelism keep their refusal in the mesh (A10)."""
+    ``jax.lax.ppermute``; the ring attention's rotation round the seq
+    axis (ported, A10) gives each member its neighbour's tensor through
+    an asynchronous ``send_recv``; all-to-all runs on the data axis
+    (1-bit Adam's compressed all-reduce): over one member it returns its
+    input, tiled or stacked as ``jax.lax.all_to_all``."""
     got = run_ranks(P.ppermute_ring, 2, tmp_path)
     for rank, r in enumerate(got):
         other = 1 - rank
@@ -94,6 +95,10 @@ def test_ppermute_ring(tmp_path):
     np.testing.assert_array_equal(got[1]["partial"], [0.0, 1.0])
     np.testing.assert_array_equal(got[0]["partial"], [0.0, 0.0])
     assert [r["sends"] for r in got] == [3, 2]
+    for rank, r in enumerate(got):
+        other = 1 - rank
+        np.testing.assert_array_equal(r["seq_shift"], [10.0 * other,
+                                                       10.0 * other + 1])
     x = torch.arange(8.0)
     one = Mesh({"data": 1})
     assert torch.equal(comm.all_to_all(x, DATA_AXIS, 0, 0, mesh=one), x)
@@ -101,8 +106,6 @@ def test_ppermute_ring(tmp_path):
     # the split dim (of the axis size) goes, a dim of it comes at 1
     assert torch.equal(comm.all_to_all(y[None], DATA_AXIS, 0, 1,
                                        tiled=False, mesh=one), y[:, None])
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_mesh({"seq": 2})
 
 
 def test_all_to_all_and_async_collectives(ranks):
@@ -132,9 +135,8 @@ def test_mesh_grid_mpu_interface():
     assert grid.get_model_parallel_group() == "model"
     assert grid.world_size == 8
     assert grid.is_first_stage()
-    # the model and expert axes are ported (A10's tensor and expert
-    # parts): their coordinates and sizes; a model axis of 2 needs two
-    # processes; the seq axis keeps its refusal
+    # the model, expert and seq axes are ported (A10): their coordinates
+    # and sizes; a model or seq axis of 2 needs two processes
     grid = MeshGrid(Mesh({"data": 2, "model": 2, "expert": 2}, rank=5))
     assert grid.get_expert_parallel_world_size() == 2
     assert grid.get_expert_parallel_group() == "expert"
@@ -142,10 +144,16 @@ def test_mesh_grid_mpu_interface():
             grid.get_expert_parallel_rank()) == (1, 0, 1)
     with pytest.raises(ValueError, match="need 2 processes"):
         make_mesh({"model": 2, "data": 1})
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_mesh({"seq": 2, "data": -1})
-    with pytest.raises(NotImplementedError,
-                       match="A10.*data, pipe, model and expert"):
+    grid = MeshGrid(Mesh({"data": 2, "seq": 2, "model": 2}, rank=6))
+    assert grid.seq_parallel_size == grid.get_seq_parallel_world_size() == 2
+    assert grid.get_seq_parallel_group() == "seq"
+    assert (grid.get_data_parallel_rank(), grid.get_seq_parallel_rank(),
+            grid.get_model_parallel_rank()) == (1, 1, 0)
+    with pytest.raises(ValueError, match="need 2 processes"):
+        make_mesh({"seq": 2, "data": 1})
+    # a seq axis trains a model with the ring core; one without attention
+    # would be counted once a seq rank, and is refused naming A19
+    with pytest.raises(NotImplementedError, match="A19"):
         tds.initialize(model=SimpleModel(W.HIDDEN), config=base_config(),
                        mesh=Mesh({"seq": 2, "data": 2}), device="cpu")
 

@@ -183,9 +183,10 @@ def test_unknown_keys_warn_with_a_hint_and_raise_under_strict(caplog):
 def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     """A set block the port lacks warns with its ROADMAP item; the
     ``mesh`` block is ported for its data and pipe axes (ROADMAP A5,
-    A13), its model and expert axes too (A10's tensor and expert parts),
-    and warns only for the seq axis (A10), and the ``pipeline`` block
-    (A13) warns no more."""
+    A13) and its model, expert and seq axes (A10), and warns for none of
+    them; the ``pipeline`` block (A13) warns no more, and the
+    ``ring_attention`` block (A10) logs at info that it has no effect,
+    since ``attn_impl="ring"`` and the mesh's seq axis select the ring."""
     with caplog.at_level(logging.WARNING):
         DeepSpeedConfig({"train_batch_size": 8,
                          "flops_profiler": {"enabled": True},
@@ -196,16 +197,24 @@ def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     assert "tensorboard" not in caplog.text   # set but off
     assert "mesh" not in caplog.text
     caplog.clear()
-    with caplog.at_level(logging.WARNING):
+    with caplog.at_level(logging.INFO):
         DeepSpeedConfig({"train_batch_size": 8,
                          "mesh": {"data": 1, "model": 2, "pipe": 2,
                                   "expert": 2, "seq": 2},
-                         "pipeline": {"stages": 2, "interleave": 2}})
-    assert "'seq' is 2" in caplog.text and "A10" in caplog.text
-    assert "'model'" not in caplog.text and "'expert'" not in caplog.text
-    assert "'pipe'" not in caplog.text
-    assert "section 'pipeline'" not in caplog.text
-    assert "A13" not in caplog.text
+                         "pipeline": {"stages": 2, "interleave": 2},
+                         "ring_attention": {"enabled": True}})
+    ring = [r for r in caplog.records if "ring_attention" in r.getMessage()]
+    assert len(ring) == 1 and ring[0].levelno == logging.INFO
+    assert "no effect" in ring[0].getMessage()
+    assert "attn_impl='ring'" in ring[0].getMessage()
+    warned = " ".join(r.getMessage() for r in caplog.records
+                      if r.levelno >= logging.WARNING)
+    assert "'seq'" not in warned and "A10" not in warned
+    assert "ring_attention" not in warned
+    assert "'model'" not in warned and "'expert'" not in warned
+    assert "'pipe'" not in warned
+    assert "section 'pipeline'" not in warned
+    assert "A13" not in warned
 
 
 @pytest.mark.parametrize("blocks", [

@@ -1631,3 +1631,74 @@ def test_head_ranges_draw_the_whole_calls_heads(cuda_device, dtype, path,
     whole = philox_keep_mask(seed, b * h, s, s, rate).view(b, h, s, s)
     part = philox_keep_mask(seed, b * 2, s, s, rate, keep).view(b, 2, s, s)
     assert torch.equal(part, whole[:, 2:4])
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("a plain version ran on CUDA tensors")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,causal,padded", [(4, True, False),
+                                             (4, False, True),
+                                             (2, True, True)],
+                         ids=["n4-causal", "n4-padded", "n2-causal-padded"])
+def test_ring_schedule_matches_one_flash_call(cuda_device, monkeypatch,
+                                              dtype, n, causal, padded):
+    """The one-process ring schedule (B1 on each (Q chunk, K/V chunk)
+    pair merged by lse; B2a and B2b on each pair with the merged lse and
+    Δ) against one B1 call and its B2a+B2b backward at s=512: fp32 within
+    the forward's 2e-5 and the backward's 5e-4; bf16 within twice the
+    one call's own error against the fp32 plain version (the ring rounds
+    each pair's out and dq to bf16 before the fp32 merge), plus 1e-3.
+    Launches: one B1, B2a and B2b per pair at or below the diagonal
+    (n(n+1)/2 causal, n² not), no B3 and no plain version; a key chunk
+    that is all padding is merged with weight 0."""
+    from deepspeed_tpu_torch.ops.transformer.ring_attention import (
+        ring_flash_attention_local, visible_keys)
+
+    b, s, h, d = 2, 512, 4, 64
+    q, k, v, _ = make_inputs(31, b, s, s, h, d)
+    dout = np.random.RandomState(32).randn(b, s, h, d).astype(np.float32)
+    kpm = np.zeros((b, s), np.float32)
+    if padded:
+        kpm[:, s - s // n:] = -1e9
+    dev = cuda_device
+    q, k, v, dout = (torch.from_numpy(x).to(dev, dtype) for x in
+                     (q, k, v, dout))
+    kpm = torch.from_numpy(kpm).to(dev)
+    mask = visible_keys(kpm)
+    monkeypatch.setattr(fa, "flash_attention_reference", _no_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", _no_plain)
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, flash_attention_bwd_fused)
+    before = [c.launches for c in counters]
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ring_flash_attention_local(*qkv, n, causal=causal,
+                                     key_padding_mask=kpm)
+    ring = [out.detach()] + list(torch.autograd.grad(out, qkv, dout))
+    pairs = n * (n + 1) // 2 if causal else n * n
+    assert [c.launches - x for c, x in zip(counters, before)] == \
+        [pairs, pairs, pairs, 0]
+    o1, lse1 = flash_attention_fwd(q, k, v, mask, causal)
+    delta = fa._delta(o1, dout)
+    one = [o1, flash_attention_bwd_dq(q, k, v, o1, lse1, dout, mask, causal,
+                                      delta=delta),
+           *flash_attention_bwd_dkv(q, k, v, o1, lse1, dout, mask, causal,
+                                    delta=delta)]
+    monkeypatch.undo()
+    if dtype == torch.float32:
+        for got, want, tol in zip(ring, one, (2e-5, 5e-4, 5e-4, 5e-4)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=tol, atol=tol)
+        return
+    f32 = [x.float() for x in (q, k, v, dout)]
+    po, plse = flash_attention_reference(*f32[:3], mask, causal)
+    plain = [po, *flash_attention_bwd_reference(*f32[:3], po, plse, f32[3],
+                                                mask, causal)]
+    for label, got, want, ref in zip(("out", "dq", "dk", "dv"), ring, one,
+                                     plain):
+        ring_err = (got.float() - ref).abs().max().item()
+        one_err = (want.float() - ref).abs().max().item()
+        assert ring_err <= 2 * one_err + 1e-3, (label, ring_err, one_err)

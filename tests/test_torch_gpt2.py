@@ -264,21 +264,28 @@ def test_eval_apply_without_labels_returns_logits(jax_model_and_params):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("moe_experts", 4, None), ("attn_impl", "ring", "A10")])
+    pytest.param("moe_experts", 4, None, id="moe_experts-4-None"),
+    pytest.param("attn_impl", "ring", None, id="attn_impl-ring-A10")])
 def test_unported_knobs_raise_naming_their_roadmap_item(knob, value, item):
-    """The ring core still raises naming A10; MoE blocks (A10's expert
-    part, ported) build and give a finite training loss with the aux
-    term (their parity with the JAX model is ``tests/test_torch_moe.py``)."""
+    """Both knobs are ported (A10): MoE blocks (A10's expert part) build
+    and give a finite training loss with the aux term (their parity with
+    the JAX model is ``tests/test_torch_moe.py``); the ring core (A10's
+    seq part) builds, and at one seq rank runs FlashAttention's plain
+    versions here, so its loss is the dense core's to 1e-6 (its parity
+    over seq ranks is ``tests/test_torch_sequence_parallel.py``)."""
     cfg = GPT2Config(**dict(TINY, **{knob: value}))
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            GPT2LMHead(cfg)
-        return
+    assert item is None
     model = GPT2LMHead(cfg)
     params = params_from_numpy(random_params(cfg, seed=1), "cpu")
     ids = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 16)))
     loss = model.apply(params, {"input_ids": ids}, train=True)
-    assert torch.isfinite(loss) and model._last_moe_aux is not None
+    assert torch.isfinite(loss)
+    if knob == "attn_impl":
+        dense = GPT2LMHead(GPT2Config(**TINY)).apply(
+            params, {"input_ids": ids}, train=True)
+        np.testing.assert_allclose(float(loss), float(dense), rtol=1e-6)
+        return
+    assert model._last_moe_aux is not None
     assert "moe" in params["blocks"]["layer_1"]
 
 

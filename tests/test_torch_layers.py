@@ -430,14 +430,24 @@ def test_sparse_core_fp16_names_its_roadmap_item(monkeypatch):
 
 
 def test_sparse_layer_needs_a_config_and_ring_still_raises():
+    """The sparse core needs its config; the ring core is ported (A10)
+    and builds, while any other core above one seq rank raises naming
+    A19 before any collective (it would attend over a chunk only)."""
     from deepspeed_tpu_torch.models.layers import TransformerLayer
+    from deepspeed_tpu_torch.parallel import Mesh, current_mesh
 
     with pytest.raises(ValueError, match="SparsityConfig"):
         TransformerLayer(64, 4, attn_impl="sparse")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TransformerLayer(64, 4, attn_impl="ring")
+    ring = TransformerLayer(64, 4, attn_impl="ring")
+    assert ring.attn_impl == "ring"
     with pytest.raises(ValueError, match="unknown attn_impl"):
         TransformerLayer(64, 4, attn_impl="flash")
+    dense = TransformerLayer(64, 4)
+    params = {k: {n: torch.from_numpy(a) for n, a in v.items()}
+              for k, v in dense.init(0).items()}
+    with current_mesh(Mesh({"seq": 2})):
+        with pytest.raises(NotImplementedError, match="A19"):
+            dense.attention_core(params, torch.zeros(1, 8, 64))
 
 
 def test_sparse_attention_dropout_is_applied_to_the_context():

@@ -31,6 +31,19 @@ from .torch_dist import run_ranks
 
 
 @pytest.fixture(autouse=True, scope="module")
+def restore_jax_current_mesh():
+    """The JAX engines built here make their mesh the JAX package's
+    current mesh, which its MoE layer and ring attention read when given
+    none: the module puts back the mesh it found, so the test files run
+    after it in this process see that one."""
+    from deepspeed_tpu.parallel import mesh as jax_mesh_state
+
+    prev = jax_mesh_state.get_current_mesh()
+    yield
+    jax_mesh_state.set_current_mesh(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)

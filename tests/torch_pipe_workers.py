@@ -215,8 +215,18 @@ def ppermute_ring(rank, world, seed):
     back = comm.ppermute(fwd, PIPE_AXIS, [((i + 1) % world, i)
                                           for i in range(world)], mesh=mesh)
     partial = comm.ppermute(x, PIPE_AXIS, [(0, 1)], mesh=mesh)
+    sends = comm.counter.calls["send"]
+    # the ring attention's rotation: one step round the seq axis, posted
+    # asynchronously and waited for after
+    seq = make_mesh({"seq": world})
+    got = torch.empty_like(x)
+    handle = comm.send_recv(sends=[(x, (rank + 1) % world)],
+                            recvs=[(got, (rank - 1) % world)],
+                            axis_name="seq", mesh=seq, async_op=True)
+    handle.wait()
     return {"fwd": fwd.numpy(), "back": back.numpy(),
-            "partial": partial.numpy(), "sends": comm.counter.calls["send"]}
+            "partial": partial.numpy(), "sends": sends,
+            "seq_shift": got.numpy()}
 
 
 def pipe2_world(rank, world, seed, lin, gpt, save_dir, jax_dir):
