@@ -23,7 +23,9 @@ BERT-large under remat and Progressive Layer Drop, fine-tunes
 BERT-large on SQuAD- and MNLI-shaped batches, trains with the state on
 the host (ZeRO-Offload), and trains GPT-2-medium and BERT-large again
 through the data-parallel mesh on NCCL, and trains GPT-2-medium as a
-``PipelineModule`` through the pipeline engine.  Phases, in order; any
+``PipelineModule`` through the pipeline engine, and last serves
+GPT-2-medium as two replicas through the front-end (a requeue, a shed
+burst) and trains it with telemetry on (a device trace, the report).  Phases, in order; any
 failure raises, so the script exits non-zero:
 
 1. env      — card name and power limit, torch/CUDA versions, kernel
@@ -331,7 +333,29 @@ failure raises, so the script exits non-zero:
               plain version: the max abs error over each tensor, and
               the error's norm over each chunk's rows (the query chunk
               of out and dq, the key chunk of dk and dv); the device ms
-              of both, forward and backward, and the phase's seconds.
+              of both, forward and backward, and the phase's seconds;
+37. telemetry — (a) phase 4's GPT-2-medium (bf16, its 16 prompts,
+              32 tokens each) as two replicas on the card sharing one
+              param dict, each with its own KV pool, through
+              ``ServingFrontend`` with telemetry on and the SLO of
+              PERF.md's section 2 (TTFT 1000 ms, 50 ms a token): the
+              prompts in two waves of 8; then the same with replica 1
+              marked dead after 4 iterations: every request finishes
+              exactly once with 32 tokens equal to the unkilled run's,
+              one B1 a layer a prefill and a re-served prefill; one
+              burst of 24 submits at ``max_queue_depth`` 8 sheds 16
+              with ``ServingOverloadError``; every event valid; TTFT
+              p50/p99, decode-only per-token p50/p99 and goodput; (b)
+              phase 6's train cell, 6 steps with telemetry on and
+              ``steps_per_print`` 2: one host sync in step 2 (the print
+              cadence's loss fetch) and none in step 3 (CUDA sync debug
+              mode), their step ms beside phase 6's, a trigger-file
+              ``torch.profiler`` device trace from the end of step 4
+              (CUPTI started before the steps; bounded at 1.6 step
+              times) holding B1, B2a and B2b kernel events, every event
+              valid with 3 ``step_metrics``, and the report CLI's
+              ``main`` (``python -m deepspeed_tpu_torch.telemetry
+              report``) on the run dir returning 0.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -348,7 +372,9 @@ network; imports nothing of JAX.
 """
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import multiprocessing
@@ -360,6 +386,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -370,7 +397,9 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch import checkpoint as ckpt
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.comm import compression
-from deepspeed_tpu_torch.inference import InferenceEngine
+from deepspeed_tpu_torch.inference import (InferenceEngine,
+                                           ServingFrontend,
+                                           ServingOverloadError)
 from deepspeed_tpu_torch.models.bert import (
     BertConfig, BertForPreTraining, BertForQuestionAnsweringTPU,
     BertForSequenceClassificationTPU)
@@ -400,6 +429,8 @@ from deepspeed_tpu_torch.ops.transformer.attention import dropout_seed
 from deepspeed_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
                                           make_mesh)
 from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+from deepspeed_tpu_torch.telemetry import read_events, validate_event
+from deepspeed_tpu_torch.telemetry import report as telemetry_report
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.params import (MODEL, params_from_numpy,
                                               tp_slice, tree_leaves)
@@ -1217,13 +1248,19 @@ def serve_config(weights_dtype, kv_blocks):
         "weights_dtype": weights_dtype}}
 
 
+def serve_prompts(model):
+    """Phase 4's 16 prompts of 32-960 tokens (numpy seed ``SEED + 1``),
+    also phase 37's."""
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(32, 961, size=16)
+    return lens, [rng.integers(0, model.config.vocab_size, size=n).tolist()
+                  for n in lens]
+
+
 def phase_serve(card, model, params, results):
     engine = InferenceEngine(model, params,
                              config=serve_config("bfloat16", 520))
-    rng = np.random.default_rng(SEED + 1)
-    lens = rng.integers(32, 961, size=16)
-    prompts = [rng.integers(0, model.config.vocab_size, size=n).tolist()
-               for n in lens]
+    lens, prompts = serve_prompts(model)
     torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0   # count only the main path's launches
     for i, p in enumerate(prompts[:8]):
@@ -5045,6 +5082,259 @@ def phase_ring(card, results):
     return launches
 
 
+# ------------------------------------------------- telemetry and fleet
+# PERF.md section 2's serving limits, as the fleet's SLO
+FLEET_SLO = {"ttft_ms": 1000, "per_token_ms": 50}
+FLEET_MAX_QUEUE_DEPTH = 8
+FLEET_KILL_AFTER = 4
+FLEET_BURST = 24
+# the kernels a device trace of a GPT-2-medium train step must hold
+TRACE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv_mma_kernel")
+
+
+def fleet_serve(replicas, prompts, prefix, kill_after=None):
+    """Phase 37a's serve through a front-end over ``replicas``: the
+    prompts in two waves of 8 (one iteration between, so the fleet queue
+    stays under ``max_queue_depth``), replica 1 marked dead after
+    ``kill_after`` iterations (None: never).  Returns ({index: tokens},
+    the front-end)."""
+    fe = ServingFrontend(replicas)
+    rids = [fe.submit(p, request_id=f"{prefix}-{i}")
+            for i, p in enumerate(prompts[:8])]
+    fe.step()
+    rids += [fe.submit(p, request_id=f"{prefix}-{i}")
+             for i, p in enumerate(prompts[8:], start=8)]
+    if kill_after is not None:
+        for _ in range(kill_after - 1):
+            fe.step()
+        moved = fe.mark_dead(1)
+        check(moved, f"fleet: replica 1 held no unfinished request after "
+              f"{kill_after} iterations")
+    results = fe.run()
+    check(sorted(results) == sorted(rids) and all(
+        len(results[r]["tokens"]) == 32
+        and results[r]["finish_reason"] == "max_new_tokens"
+        for r in rids), f"fleet {prefix}: not every request finished once "
+          f"with 32 tokens")
+    return {i: results[r]["tokens"] for i, r in enumerate(rids)}, fe
+
+
+def phase_fleet(card, model, params, run_dir):
+    """37a: phase 4's GPT-2-medium (bf16) as two replicas on the card
+    sharing one param dict, each with its own KV pool, through
+    ``ServingFrontend`` with telemetry on: an unkilled run of the 16
+    prompts; the same with replica 1 dead after 4 iterations (its
+    requests requeued onto replica 0, exactly once, tokens equal to the
+    unkilled run's); one burst of 24 submits at ``max_queue_depth`` 8,
+    16 shed with ``ServingOverloadError``.  Returns the receipt."""
+    config = serve_config("bfloat16", 520)
+    config["inference"].update(slo=dict(FLEET_SLO),
+                               max_queue_depth=FLEET_MAX_QUEUE_DEPTH)
+    config["telemetry"] = {"enabled": True, "run_dir": run_dir}
+    t0 = time.perf_counter()
+    first = InferenceEngine(model, params, config=config)
+    # serving never writes the params: the second replica shares them
+    replicas = [first, InferenceEngine(model, first.params, config=config)]
+    check(all(a is b for a, b in zip(tree_leaves(first.params)[1],
+                                     tree_leaves(replicas[1].params)[1])),
+          "fleet: the replicas do not share their params")
+    _, prompts = serve_prompts(model)
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    unkilled, fe = fleet_serve(replicas, prompts, "u")
+    unkilled_s = time.perf_counter() - t0
+    receipt = fe.serving_receipt()
+    t0 = time.perf_counter()
+    killed, kfe = fleet_serve(replicas, prompts, "k",
+                              kill_after=FLEET_KILL_AFTER)
+    killed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = flash_attention_fwd.launches
+    kreceipt = kfe.serving_receipt()
+    differ = [i for i in unkilled if killed[i] != unkilled[i]]
+    check(not differ, f"fleet: requests {differ} re-served after the "
+          f"requeue gave other tokens than the unkilled run")
+    check(kreceipt["requeued_requests"] > 0
+          and kreceipt["completed_requests"] == 16,
+          f"fleet: requeue receipt {kreceipt}")
+    check(launches == model.config.num_layers * (
+        32 + kreceipt["requeued_requests"]),
+          f"fleet: {launches} B1 launches for 32 prefills and "
+          f"{kreceipt['requeued_requests']} re-served ones")
+    # the burst: 24 submits at once on the idle fleet
+    t0 = time.perf_counter()
+    fe = ServingFrontend(replicas)
+    shed = 0
+    for i in range(FLEET_BURST):
+        try:
+            fe.submit(prompts[i % len(prompts)], max_new_tokens=2,
+                      request_id=f"b-{i}")
+        except ServingOverloadError as e:
+            check(e.queue_depth == e.max_queue_depth
+                  == FLEET_MAX_QUEUE_DEPTH, f"fleet: shed at {e}")
+            shed += 1
+    check(shed == FLEET_BURST - FLEET_MAX_QUEUE_DEPTH,
+          f"fleet: {shed} of {FLEET_BURST} shed, expected "
+          f"{FLEET_BURST - FLEET_MAX_QUEUE_DEPTH}")
+    check(len(fe.run()) == FLEET_MAX_QUEUE_DEPTH, "fleet: the admitted "
+          "burst did not finish")
+    burst_s = time.perf_counter() - t0
+    for engine in replicas:
+        engine.close()
+    records = read_events(run_dir)
+    bad = [r for r in records if validate_event(r)]
+    check(records and not bad, f"fleet: invalid events {bad[:3]}")
+    out = {"card": card, "replicas": 2, "slo": FLEET_SLO,
+           "unkilled": receipt, "killed": kreceipt,
+           "build_s": build_s, "unkilled_s": unkilled_s,
+           "killed_s": killed_s, "burst_s": burst_s,
+           "burst": FLEET_BURST, "shed": shed, "b1_launches": launches,
+           "events": len(records)}
+    ms = {k: (None if v is None else round(1e3 * v, 3))
+          for k, v in receipt.items() if k.endswith("_seconds")}
+    print(f"fleet (GPT-2-medium bf16, 2 replicas, one card; SLO ttft "
+          f"{FLEET_SLO['ttft_ms']} ms, per token {FLEET_SLO['per_token_ms']}"
+          f" ms): unkilled {unkilled_s:.2f} s, TTFT p50/p99 "
+          f"{ms['ttft_p50_seconds']}/{ms['ttft_p99_seconds']} ms, "
+          f"decode-only per-token p50/p99 "
+          f"{ms['decode_per_token_p50_seconds']}/"
+          f"{ms['decode_per_token_p99_seconds']} ms, goodput "
+          f"{receipt['delivered_goodput_tokens']}/"
+          f"{receipt['delivered_tokens']} tokens "
+          f"({receipt['delivered_slo_attainment']:.3f}); killed run "
+          f"{killed_s:.2f} s, {kreceipt['requeued_requests']} requeued, "
+          f"tokens equal; burst {shed}/{FLEET_BURST} shed")
+    return out, launches
+
+
+def trace_kernel_counts(path):
+    """{kernel: events} of ``TRACE_KERNELS`` in a ``torch.profiler``
+    Chrome trace (its ``kernel`` category, the device's activity)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in TRACE_KERNELS}
+
+
+def phase_telemetry_train(card, results, run_dir):
+    """37b: phase 6's GPT-2-medium, 6 steps with telemetry on and
+    ``steps_per_print`` 2: no host sync off the print cadence (steps 2
+    and 3, counted by CUDA sync debug mode), their step ms beside phase
+    6's, a trigger-file ``torch.profiler`` trace from the end of step 4
+    (CUPTI started once before the steps) that holds B1, B2a and B2b,
+    every event valid with 3 ``step_metrics``, and the report CLI on the
+    run dir exiting 0."""
+    config = dict(TRAIN_CONFIG, steps_per_print=2, telemetry={
+        "enabled": True, "run_dir": run_dir, "trace": True})
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        laps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    engine, cfg, batch = train_setup(config=config)
+    lap("setup_s")
+    # CUPTI's first start takes seconds: here, not in a step
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(8, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    lap("cupti_s")
+    reset_launches()
+    engine.train_batch(iter([batch]))            # step 1: warm-up
+    torch.cuda.synchronize()
+    counts = []
+    t0 = time.perf_counter()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(2):                       # steps 2 (prints), 3
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                engine.train_batch(iter([batch]))
+            counts.append(sum("synchroniz" in str(w.message)
+                              for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 2
+    check(counts == [1, 0], f"telemetry train: host syncs {counts} in "
+          "steps 2 and 3, expected the print cadence's one in step 2")
+    # the trace covers what follows step 4's poll; the bound stops it
+    # after about two steps (close() stops it otherwise)
+    trigger = engine.telemetry.device_trace
+    trigger.check_every = 1
+    trigger.max_secs = 1.6e-3 * step_ms
+    open(trigger.trigger_path, "w").close()
+    lap("steps_1_3_s")
+    for _ in range(3):                           # steps 4, 5, 6
+        engine.train_batch(iter([batch]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    engine.close()
+    lap("steps_4_6_close_s")
+    layers = cfg.num_layers
+    check(launches["B1"] == launches["B2a"] == launches["B2b"] == 6 * layers,
+          f"telemetry train: launches {launches}")
+    check(len(trigger.paths) == 1, f"telemetry train: device traces "
+          f"{trigger.paths}")
+    in_trace = trace_kernel_counts(trigger.paths[0])
+    check(all(in_trace.values()), f"telemetry train: the device trace "
+          f"holds {in_trace}")
+    records = read_events(run_dir)
+    bad = [r for r in records if validate_event(r)]
+    types = [r["type"] for r in records]
+    check(not bad and types.count("step_metrics") == 3
+          and "anomaly" not in types, f"telemetry train: events {types}, "
+          f"invalid {bad[:3]}")
+    # the report CLI's entry point (``python -m
+    # deepspeed_tpu_torch.telemetry report``), in this process: a new
+    # interpreter would spend seconds importing torch
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        report_rc = telemetry_report.main(["report", run_dir])
+    check(report_rc == 0 and "step_metrics" in text.getvalue(),
+          f"telemetry train: report exit {report_rc}: "
+          f"{text.getvalue()[-2000:]}")
+    lap("checks_report_s")
+    out = {"card": card, "step_ms": step_ms,
+           "phase6_step_ms": results["train"]["step_ms"],
+           "syncs_steps_2_3": counts, "trace_kernel_events": in_trace,
+           "traced_steps": in_trace[TRACE_KERNELS[0]] / layers,
+           "trace_bytes": os.path.getsize(trigger.paths[0]),
+           "events": len(records), "event_types": sorted(set(types)),
+           **laps}
+    print(f"telemetry train (GPT-2-medium, telemetry on): step ms "
+          f"{step_ms:.2f} against phase 6's "
+          f"{results['train']['step_ms']:.2f}; syncs {counts}; device "
+          f"trace {out['traced_steps']:g} step(s), {in_trace}; "
+          f"{len(records)} events valid; report exit 0")
+    del engine
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_telemetry(card, model, params, results):
+    """37. telemetry and fleet serving (37a :func:`phase_fleet`, 37b
+    :func:`phase_telemetry_train`), each with its own run dir under
+    ``build/``, deleted after.  Returns the B1 launches of 37a and the
+    launches of 37b."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_", dir=build_dir())
+    try:
+        fleet, serve_b1 = phase_fleet(card, model, params,
+                                      os.path.join(root, "fleet"))
+        train, launches = phase_telemetry_train(
+            card, results, os.path.join(root, "train"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results["telemetry"] = {"fleet": fleet, "train": train}
+    return serve_b1, launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5099,7 +5389,6 @@ def main(argv=None):
     # 5. parity, fp32 on the card against the CPU
     phase_parity(model, params, results)
     lap("parity")
-    del model, params
 
     # 6. train, GPT-2-medium at full width and depth
     train_launches = phase_train(card, results)
@@ -5205,6 +5494,12 @@ def main(argv=None):
     # 36. ring attention: the one-process ring on B1, B2a and B2b
     ring_launches = phase_ring(card, results)
     lap("ring")
+    # 37. telemetry and fleet serving: phase 4's model as two replicas
+    # through the front-end; phase 6's train cell with telemetry on
+    fleet_b1, telemetry_launches = phase_telemetry(card, model, params,
+                                                   results)
+    del model, params
+    lap("telemetry")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -5225,11 +5520,13 @@ def main(argv=None):
              "offload_parity_cpu": offload_cpu_launches,
              "dp": dp_launches, "zero3": zero3_launches,
              "onebit": onebit_launches, "pipe": pipe_launches,
-             "tp": tp_launches, "moe": moe_launches, "ring": ring_launches}
+             "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
+             "telemetry": telemetry_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
-    launches["B1"] += serve_launches
-    results["launches"] = dict(paths, serve={"B1": serve_launches})
+    launches["B1"] += serve_launches + fleet_b1
+    results["launches"] = dict(paths, serve={"B1": serve_launches},
+                               fleet={"B1": fleet_b1})
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
 

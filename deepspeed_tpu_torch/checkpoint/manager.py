@@ -12,8 +12,9 @@ resolving ``latest``.
 
 Writer threads are non-daemon on purpose: a normal interpreter exit waits
 for the last commit instead of tearing a checkpoint.  A writer thread
-handles host numpy arrays only, never a CUDA tensor.  The ``telemetry``
-hook stays ``None`` until telemetry is ported (ROADMAP A12).
+handles host numpy arrays only, never a CUDA tensor.  The training
+engine sets the ``telemetry`` hook to its
+:class:`~deepspeed_tpu_torch.telemetry.manager.TelemetryManager`.
 """
 
 import logging
@@ -192,8 +193,7 @@ class CheckpointManager:
         # optional TelemetryManager (engine-injected; this module never
         # imports telemetry): checkpoint lifecycle events — queue depth,
         # commit latency/bytes/retries, failures — emitted from the save
-        # path and the background writer threads.  None until telemetry
-        # is ported (ROADMAP A12)
+        # path and the background writer threads
         self.telemetry = None
 
     def _emit(self, event_type, step=None, **data):

@@ -10,10 +10,20 @@ anyway: one per prefill and one per decode iteration.  The per-call
 index inputs (token ids, block tables, context lengths) go to the device
 through pinned staging buffers with asynchronous copies.
 
-Not ported in this slice (the JAX engine's observability and resilience
-planes): memory/comm ledgers, program dumps and verification, the
-comm/overlap/attribution receipts, telemetry, serving observability,
-the health plane and the front-end.
+Telemetry and the serving observability plane (JAX ``:94-150``,
+``:226-364``): a ``telemetry`` block opens the run dir's event stream;
+each request's lifecycle (submit, admit, first token, finish or
+deadline) is a schema-versioned ``serving`` record under one trace id,
+and the ``steps_per_print`` cadence adds the queue, decode-window and
+SLO records and the occupancy gauges
+(:class:`~deepspeed_tpu_torch.inference.observability.ServingObservability`),
+all host arithmetic on numbers the loop already fetched.  Shedding and
+degradation act in the front-end
+(:class:`~deepspeed_tpu_torch.inference.frontend.ServingFrontend`).
+
+Not ported in this slice: memory/comm ledgers, program dumps and
+verification, the comm/overlap/attribution receipts (A12's remainder)
+and the health plane (``inference/resilience.py``, A15).
 """
 
 import logging
@@ -24,11 +34,17 @@ import torch
 
 from ..ops.transformer.flash_attention import flash_attention_fwd
 from ..runtime import constants as C
+from ..telemetry import events as TEL
+from ..telemetry.config import DeepSpeedTelemetryConfig
+from ..telemetry.manager import TelemetryManager
 from ..utils.device import resolve_device
+from ..utils.distributed import get_rank
 from ..utils.params import params_from_numpy
 from .config import DeepSpeedInferenceConfig
 from .kv_cache import BlockAllocator, init_kv_cache
 from .model import build_decode, build_prefill
+from .observability import (ServingObservability, latency_receipt,
+                            mint_trace_id)
 from .scheduler import ContinuousBatchScheduler, Request
 
 logger = logging.getLogger(__name__)
@@ -59,15 +75,17 @@ class InferenceEngine:
     (or anything exposing ``.config`` with the same geometry fields);
     ``params`` its param dict, with numpy or tensor leaves (use
     :func:`~deepspeed_tpu_torch.module_inject.ingest_gpt2_model` for an
-    HF checkpoint).  ``config`` is the usual DeepSpeed config dict; the
-    ``inference`` block's keys are checked against the known ones.
-    ``device=None`` serves on CUDA and raises without it."""
+    HF checkpoint); a dict of tensors already on ``device`` in the
+    serve dtype is used as it is, so replicas on one card can share one.
+    ``config`` is the usual DeepSpeed config dict; the ``inference``
+    block's keys are checked against the known ones.  ``device=None``
+    serves on CUDA and raises without it."""
 
     def __init__(self, model, params, config=None, device=None):
         param_dict = dict(config or {})
         self.inference_config = DeepSpeedInferenceConfig(param_dict)
         icfg = self.inference_config
-        self._validate_config(param_dict, icfg)
+        self._validate_config(param_dict)
         self.device = resolve_device(device, "InferenceEngine")
         self.model = model
         mc = model.config
@@ -104,12 +122,26 @@ class InferenceEngine:
                 pin_memory=self.device.type == "cuda")
             self._dev[name] = torch.zeros(shape, dtype=torch.int64,
                                           device=self.device)
+        self.telemetry_config = DeepSpeedTelemetryConfig(param_dict)
+        self.telemetry = TelemetryManager(self.telemetry_config,
+                                          rank=get_rank(),
+                                          device=self.device)
         self.decode_iterations = 0
+        # the serving observability plane: lifecycle tracing, occupancy
+        # windows, SLO/goodput accounting.  Always built — every hook is
+        # host arithmetic that emits nothing with telemetry off, and the
+        # receipt needs the accumulators either way
+        self.observability = ServingObservability(self)
         self.generated_tokens = 0
         self._results = {}
         self._next_request_id = 0
         self._draining = False
         self._closed = False
+        self.telemetry.emit(TEL.EVENT_RUN_START, world_size=1,
+                            mode="serving",
+                            max_batch_slots=icfg.max_batch_slots,
+                            kv_blocks=icfg.kv_blocks,
+                            prefill_buckets=list(icfg.prefill_buckets))
         logger.info(
             "InferenceEngine on %s: %d layers, %d slots, %d KV blocks x %d "
             "tokens, prefill buckets %s, weights %s", self.device,
@@ -129,14 +161,14 @@ class InferenceEngine:
                    config=config, device=device)
 
     @staticmethod
-    def _validate_config(param_dict, icfg):
+    def _validate_config(param_dict):
         """Unknown keys in the ``inference`` block (and its ``slo``
-        sub-block) warn, or raise under ``strict_config``.  So do the
-        knobs of features this engine does not serve yet, each on when
-        its knob is non-zero: load shedding and degradation (the JAX
-        package's ``inference/frontend.py``; ``degraded_max_new_tokens``
-        acts only under ``degrade_queue_depth``) and SLO goodput
-        (``inference/observability.py``).  ROADMAP A12 ports them."""
+        sub-block) and in the ``telemetry`` block warn, or raise under
+        ``strict_config``.  Shedding and degradation
+        (``max_queue_depth``, ``degrade_queue_depth``,
+        ``degraded_max_new_tokens``) act in the
+        :class:`~deepspeed_tpu_torch.inference.frontend.ServingFrontend`,
+        the ``slo`` targets in the goodput accounting."""
         strict = bool(param_dict.get(C.STRICT_CONFIG,
                                      C.STRICT_CONFIG_DEFAULT))
         inf = param_dict.get(C.INFERENCE) or {}
@@ -145,21 +177,9 @@ class InferenceEngine:
         slo = inf.get(C.INFERENCE_SLO) or {}
         issues += [f"unknown key '{C.INFERENCE}.{C.INFERENCE_SLO}.{k}'"
                    for k in slo if k not in C.INFERENCE_SLO_KEYS]
-        slo_key = f"{C.INFERENCE_SLO}."
-        for key, value, feature in (
-                (C.INFERENCE_MAX_QUEUE_DEPTH, icfg.max_queue_depth,
-                 "load shedding"),
-                (C.INFERENCE_DEGRADE_QUEUE_DEPTH, icfg.degrade_queue_depth,
-                 "graceful degradation"),
-                (slo_key + C.INFERENCE_SLO_TTFT_MS, icfg.slo_ttft_ms,
-                 "SLO goodput"),
-                (slo_key + C.INFERENCE_SLO_PER_TOKEN_MS,
-                 icfg.slo_per_token_ms, "SLO goodput")):
-            if value:
-                issues.append(
-                    f"'{C.INFERENCE}.{key}' = {value} asks for {feature}, "
-                    "which this engine does not implement yet (ROADMAP "
-                    "A12, serving remainder); the setting has no effect")
+        tel = param_dict.get(C.TELEMETRY) or {}
+        issues += [f"unknown key '{C.TELEMETRY}.{k}'" for k in tel
+                   if k not in C.SECTION_KEYS[C.TELEMETRY]]
         for issue in issues:
             logger.warning("InferenceEngine config: %s", issue)
         if strict and issues:
@@ -176,7 +196,8 @@ class InferenceEngine:
         requests whose worst case exceeds ``max_seq_len`` — at
         submission, never mid-serve.  ``deadline_ms`` overrides the
         configured ``inference.request_deadline_ms`` for this request
-        (0 = no deadline); ``trace_id`` is carried on the request."""
+        (0 = no deadline).  ``trace_id`` joins this request into a
+        lifecycle trace a front-end minted; None mints one here."""
         if self._draining:
             raise RuntimeError(
                 "InferenceEngine is draining (close()/SIGTERM): "
@@ -184,6 +205,9 @@ class InferenceEngine:
         if request_id is None:
             request_id = f"req-{self._next_request_id}"
             self._next_request_id += 1
+        minted_here = trace_id is None
+        if minted_here:
+            trace_id = mint_trace_id()
         ms = (deadline_ms if deadline_ms is not None
               else self.inference_config.request_deadline_ms)
         request = Request(
@@ -194,6 +218,12 @@ class InferenceEngine:
             trace_id=trace_id)
         self.scheduler.submit(request)
         self._results[request_id] = request
+        if minted_here:
+            # a front-end that minted the trace already wrote its submit
+            # record (before its shed decision); a bare submit starts
+            # the trace here
+            self.observability.note_submit(request,
+                                           self.scheduler.queue_depth)
         return request_id
 
     def resubmit(self, request):
@@ -237,6 +267,7 @@ class InferenceEngine:
     @torch.no_grad()
     def _run_prefill(self, request):
         sched = self.scheduler
+        t_pre = time.monotonic()
         self._host_view("ids")[0, :len(request.prompt)] = request.prompt
         self._host_view("table")[:] = sched.block_table_row(request)
         first = self._prefills[request.bucket](
@@ -249,6 +280,9 @@ class InferenceEngine:
         request.step_times.append(now - request.submitted)
         request.generated.append(token)
         self.generated_tokens += 1
+        # admit + first_token records, the admission-wait histogram, the
+        # TTFT leg of the SLO, the bucket padding-waste accumulators
+        self.observability.note_prefill(request, now, now - t_pre)
 
     @torch.no_grad()
     def _decode_once(self):
@@ -280,6 +314,43 @@ class InferenceEngine:
             request.generated.append(int(next_tokens[request.slot]))
             request.step_times.append(now - t0)
             self.generated_tokens += 1
+        # O(active) host arithmetic on numbers this loop already holds
+        # (window sums, per-token P² observations, the per-token SLO
+        # leg): no sync
+        self.observability.note_decode(before, now - t0)
+
+    def _sample_telemetry(self):
+        """Print-cadence sampling (JAX ``engine.py:341-364``, without its
+        comm and attribution gauges): queue and occupancy gauges, one
+        ``queue`` record, and the observability window's
+        ``decode_window`` and ``slo`` records — host arithmetic on
+        fetched numbers, no sync."""
+        if not self.telemetry.enabled:
+            return
+        sched = self.scheduler
+        self.telemetry.gauge("serving/queue_depth").set(
+            float(sched.queue_depth))
+        self.telemetry.gauge("serving/active_slots").set(
+            float(sched.active_count))
+        self.telemetry.gauge("serving/free_blocks").set(
+            float(self.allocator.free_blocks))
+        self.telemetry.gauge("serving/generated_tokens").set(
+            float(self.generated_tokens))
+        self.telemetry.emit(
+            TEL.EVENT_SERVING, step=self.decode_iterations, kind="queue",
+            queue_depth=sched.queue_depth, active=sched.active_count,
+            free_blocks=self.allocator.free_blocks,
+            reserved_tokens=sched.reserved_tokens())
+        self.observability.export_serving_window()
+
+    def _sweep_finished(self):
+        """The scheduler's sweep of finished slots, each with its
+        ``finish`` record."""
+        done = self.scheduler.sweep_finished(
+            self.inference_config.eos_token_id)
+        for request in done:
+            self.observability.note_finish(request)
+        return done
 
     def step(self):
         """One engine iteration: expire deadlines, recycle finished
@@ -287,9 +358,10 @@ class InferenceEngine:
         immediately), then advance every active slot one token.
         Returns the requests finished DURING this iteration."""
         sched = self.scheduler
-        eos = self.inference_config.eos_token_id
         finished = sched.sweep_deadlines()
-        finished.extend(sched.sweep_finished(eos))
+        for request in finished:
+            self.observability.note_deadline(request)
+        finished.extend(self._sweep_finished())
         while not self._draining:
             request = sched.try_admit()
             if request is None:
@@ -305,7 +377,7 @@ class InferenceEngine:
         # a prefill can already satisfy a request (max_new_tokens=1, or
         # the prefill token IS eos): sweep before decoding, else the
         # slot advances one token past its contract
-        finished.extend(sched.sweep_finished(eos))
+        finished.extend(self._sweep_finished())
         if sched.active_count:
             self._decode_once()
             if self.decode_iterations % self.steps_per_print == 0:
@@ -313,6 +385,9 @@ class InferenceEngine:
                             "%d free blocks", self.decode_iterations,
                             sched.active_count, sched.queue_depth,
                             self.allocator.free_blocks)
+        if (self.decode_iterations
+                and self.decode_iterations % self.steps_per_print == 0):
+            self._sample_telemetry()
         return finished
 
     def run(self):
@@ -322,16 +397,23 @@ class InferenceEngine:
         while not self.scheduler.idle():
             self.step()
         # final sweep: the last decode's tokens may have finished slots
-        self.scheduler.sweep_finished(self.inference_config.eos_token_id)
+        self._sweep_finished()
+        self._sample_telemetry()
         return {rid: r.result() for rid, r in self._results.items()}
 
     # ------------------------------------------------------------------
     # receipts
     # ------------------------------------------------------------------
     def serving_receipt(self):
-        """Aggregate serve metrics over every finished request, plus
-        ``flash_fwd_launches``: the flash kernel's launch counter (all
-        launches in this process since the counter was last reset)."""
+        """Aggregate serve metrics over every finished request, the
+        observability plane's occupancy/SLO receipt (goodput re-based
+        onto the throughput's wall clock, as in JAX), the port's
+        TTFT p99 and decode-only per-token p50/p99
+        (:func:`~deepspeed_tpu_torch.inference.observability.latency_receipt`:
+        ``per_token_*`` pools each request's TTFT with its decode
+        tokens), and ``flash_fwd_launches``: the flash kernel's launch
+        counter (all launches in this process since the counter was last
+        reset)."""
         finished = [r for r in self._results.values()
                     if r.state == "finished"]
         lats = sorted(t for r in finished for t in r.step_times)
@@ -348,7 +430,7 @@ class InferenceEngine:
             start = min(r.submitted for r in finished)
             end = max(r.finished_at for r in finished)
             wall = max(end - start, 1e-9)
-        return {
+        receipt = {
             "requests": len(finished),
             "generated_tokens": self.generated_tokens,
             "decode_iterations": self.decode_iterations,
@@ -359,6 +441,18 @@ class InferenceEngine:
                 self.generated_tokens / wall if wall else None),
             "flash_fwd_launches": flash_attention_fwd.launches,
         }
+        obs = self.observability.receipt()
+        receipt.update(obs)
+        receipt["goodput_tokens_per_second"] = (
+            obs["goodput_tokens"] / wall if wall else None)
+        split = latency_receipt(finished)
+        receipt.update(
+            ttft_p99_seconds=split["ttft_p99_seconds"],
+            decode_per_token_p50_seconds=split[
+                "decode_per_token_p50_seconds"],
+            decode_per_token_p99_seconds=split[
+                "decode_per_token_p99_seconds"])
+        return receipt
 
     # ------------------------------------------------------------------
     # shutdown
@@ -375,6 +469,12 @@ class InferenceEngine:
         deadline = (time.monotonic() + float(deadline_secs)
                     if deadline_secs and float(deadline_secs) > 0
                     else None)
+        self.telemetry.emit(
+            TEL.EVENT_SERVING, step=self.decode_iterations, kind="drain",
+            active=self.scheduler.active_count,
+            queued=self.scheduler.queue_depth,
+            deadline_secs=(float(deadline_secs)
+                           if deadline is not None else None))
         drained = []
         while self.scheduler.active_count:
             if deadline is not None and time.monotonic() >= deadline:
@@ -384,16 +484,17 @@ class InferenceEngine:
                     float(deadline_secs), self.scheduler.active_count)
                 break
             drained.extend(self.step())
-        drained.extend(self.scheduler.sweep_finished(
-            self.inference_config.eos_token_id))
+        drained.extend(self._sweep_finished())
         return drained
 
-    def close(self):
-        """Stop admission and drain the in-flight decodes up to the
-        bounded deadline.  Idempotent."""
+    def close(self, reason="serve_done"):
+        """Stop admission, drain the in-flight decodes up to the bounded
+        deadline, then flush and close telemetry (whose close writes the
+        ``run_end`` event).  Idempotent."""
         if self._closed:
             return
         self._closed = True
         if self.scheduler.active_count:
             self.drain()
         self._draining = True
+        self.telemetry.close(reason=reason)

@@ -12,9 +12,12 @@ the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
 (``DeepSpeedActivationCheckpointingConfig``), ``progressive_layer_drop``
 (:func:`get_progressive_layer_drop`), ``checkpoint``
 (:class:`~deepspeed_tpu_torch.checkpoint.config.DeepSpeedCheckpointConfig`)
-and ``resilience``
+``resilience``
 (:class:`~deepspeed_tpu_torch.resilience.config.DeepSpeedResilienceConfig`),
-and ``sparse_gradients``.  A ``ring_attention`` block is known and
+``telemetry``
+(:class:`~deepspeed_tpu_torch.telemetry.config.DeepSpeedTelemetryConfig`),
+``tensorboard`` (the monitor's ``enabled``, ``output_path``,
+``job_name``) and ``sparse_gradients``.  A ``ring_attention`` block is known and
 logs that it has no effect: a model's ``attn_impl="ring"`` and the
 mesh's ``seq`` axis select the ring.  The engines read ``mesh`` through
 :func:`get_mesh_config` and the pipeline engine reads ``pipeline``
@@ -32,6 +35,7 @@ import logging
 
 from ..checkpoint.config import DeepSpeedCheckpointConfig
 from ..resilience.config import DeepSpeedResilienceConfig
+from ..telemetry.config import DeepSpeedTelemetryConfig
 from . import constants as C
 from .activation_checkpointing.config import \
     DeepSpeedActivationCheckpointingConfig
@@ -287,6 +291,14 @@ class DeepSpeedConfig:
         self.pld_enabled = self.pld_params["enabled"]
         self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
         self.resilience_config = DeepSpeedResilienceConfig(param_dict)
+        self.telemetry_config = DeepSpeedTelemetryConfig(param_dict)
+        tb = param_dict.get(C.TENSORBOARD, {}) or {}
+        self.tensorboard_enabled = bool(get_scalar_param(
+            tb, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT))
+        self.tensorboard_output_path = get_scalar_param(
+            tb, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = get_scalar_param(
+            tb, C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT)
         self.sparse_gradients_enabled = bool(get_scalar_param(
             param_dict, C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT))
 

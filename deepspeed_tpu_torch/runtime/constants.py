@@ -216,8 +216,44 @@ SECTION_KEYS = {
 UNPORTED_SECTIONS = {
     "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
     "profiling": "A12/A16",
-    "telemetry": "A12", "tensorboard": "A12",
 }
+
+#############################################
+# Telemetry (``deepspeed_tpu_torch/telemetry``, the JAX package's
+# :406-432) and the ``tensorboard`` block (the monitor, ``:107-113``)
+#############################################
+TELEMETRY = "telemetry"
+TELEMETRY_ENABLED = "enabled"
+TELEMETRY_ENABLED_DEFAULT = False
+# where event streams, trace files and metric snapshots land; the report
+# CLI reads this directory.  Empty -> $DS_TELEMETRY_DIR, else
+# "runs/telemetry"
+TELEMETRY_RUN_DIR = "run_dir"
+TELEMETRY_RUN_DIR_DEFAULT = ""
+# structured JSONL event stream (events-rank<k>.jsonl)
+TELEMETRY_EVENTS = "events"
+TELEMETRY_EVENTS_DEFAULT = True
+# Chrome-trace host-phase spans (trace-rank<k>.json)
+TELEMETRY_TRACE = "trace"
+TELEMETRY_TRACE_DEFAULT = False
+# span cap per trace file: past it new spans are dropped (loudly)
+TELEMETRY_TRACE_MAX_EVENTS = "trace_max_events"
+TELEMETRY_TRACE_MAX_EVENTS_DEFAULT = 200000
+# on-demand torch.profiler device traces: touching <run_dir>/
+# device_trace.trigger starts one, stopped after this many seconds
+TELEMETRY_DEVICE_TRACE_SECS = "device_trace_secs"
+TELEMETRY_DEVICE_TRACE_SECS_DEFAULT = 10.0
+# the trigger file's path (empty -> <run_dir>/device_trace.trigger)
+TELEMETRY_DEVICE_TRACE_TRIGGER = "device_trace_trigger"
+TELEMETRY_DEVICE_TRACE_TRIGGER_DEFAULT = ""
+
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
 
 #############################################
 # Data, pipeline, tensor and expert parallelism: the "mesh" block (axis
@@ -439,8 +475,7 @@ INFERENCE_WEIGHTS_DTYPE_DEFAULT = "float32"
 INFERENCE_REQUEST_DEADLINE_MS = "request_deadline_ms"
 INFERENCE_REQUEST_DEADLINE_MS_DEFAULT = 0
 # front-end admission bound and graceful degradation (read by the
-# serving front-end, which a later slice ports; parsed and checked here
-# so one config dict is valid for both packages)
+# serving front-end, ``inference/frontend.py``)
 INFERENCE_MAX_QUEUE_DEPTH = "max_queue_depth"
 INFERENCE_MAX_QUEUE_DEPTH_DEFAULT = 0
 INFERENCE_DEGRADE_QUEUE_DEPTH = "degrade_queue_depth"

@@ -184,8 +184,18 @@ raising with ``SEQ_ITEM`` (ROADMAP A19): another attention core than
 the ring, a pipe or expert axis above 1, MoE blocks, ``OneBitAdam`` and
 ``sparse_gradients``; offload keeps its refusal above one rank (A9).
 
+Telemetry (the ``telemetry`` and ``tensorboard`` blocks and
+``wall_clock_breakdown``, JAX ``:675-800``, ``:3600-4009``): the
+:class:`~deepspeed_tpu_torch.telemetry.manager.TelemetryManager` writes
+``run_start``, the guard's anomalies, rollbacks, aborts, watchdog hangs,
+loss-scale changes, the checkpoint lifecycle and, at the print cadence,
+``step_metrics`` (the loss the cadence fetches anyway) into the run
+dir; host spans time the batch fetch, the dispatch, the fetches and the
+checkpoint snapshot; a trigger file starts a ``torch.profiler`` device
+trace.  None of it adds a host sync.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-offload above one rank (A9), telemetry (A12), ZeRO-3 and 1-bit Adam
+offload above one rank (A9), ZeRO-3 and 1-bit Adam
 under a pipeline (A13 remainder), 1-bit Adam and ``sparse_gradients``
 above one model or expert rank (A18), what does not compose with
 ``seq`` yet (A19), and resilience's fleet integrity plane and elastic
@@ -222,8 +232,12 @@ from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
                                 AnomalyGuard)
 from ..resilience.rollback import RollbackManager
 from ..resilience.watchdog import StepWatchdog
+from ..telemetry import events as TEL
+from ..telemetry.manager import TelemetryManager
 from ..utils.device import resolve_device
-from ..utils.distributed import get_world_size, init_distributed
+from ..utils.distributed import get_rank, get_world_size, init_distributed
+from ..utils.monitor import TrainingMonitor
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.params import (EXPERT, MODEL, leaf_specs, spec_axes,
                             tp_gather_leaf, tp_slice, tp_slice_leaf,
                             tree_leaves)
@@ -493,6 +507,7 @@ class DeepSpeedEngine:
             if self._exchange is not None:
                 self._attach_bucket_hooks()
         self._step_loss = None
+        self._skipped_last = False   # whether the last step was skipped
         self._step_tokens = 0   # the step's input tokens on this rank
         self._in_train_batch = False
         self._compute_live = True
@@ -511,10 +526,14 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.global_samples = 0
         self._losses = []
-        self._step_seconds = []
+        self._build_telemetry()
 
         self.checkpoint_config = self._config.checkpoint_config
         self._ckpt_manager = CheckpointManager(self.checkpoint_config)
+        # lifecycle events (queue depth, commit latency, bytes, retries)
+        # from the save path and the background writer threads (the
+        # event log and the registry are thread-safe)
+        self._ckpt_manager.telemetry = self.telemetry
         self._last_ckpt_dir = None
         if self.checkpoint_config.save_on_preemption:
             self._ckpt_manager.install_preemption_handler(
@@ -1133,10 +1152,66 @@ class DeepSpeedEngine:
         self._stream.run({"master": self.master}, cast)
 
     # -------------------------------------------------------- resilience
+    def _build_telemetry(self):
+        """The monitor (``tensorboard`` block), the wall-clock and
+        throughput timers, and the telemetry manager (JAX
+        ``engine.py:675-700``, ``:766-771``); ``run_start`` is the
+        stream's first event.  Everything here is host work on numbers
+        the engine already holds: no host sync.  The throughput timer
+        stops after the print cadence's loss fetch
+        (see :class:`~deepspeed_tpu_torch.utils.timer.ThroughputTimer`)."""
+        cfg = self._config
+        rank = get_rank()
+        self.monitor = TrainingMonitor(
+            cfg.tensorboard_enabled, cfg.tensorboard_output_path,
+            cfg.tensorboard_job_name, rank=rank)
+        self.timers = SynchronizedWallClockTimer(self.device)
+        self._timed_steps = 0
+        self.tput_timer = ThroughputTimer(
+            batch_size=(self.train_micro_batch_size_per_gpu()
+                        * self.dp_world_size),
+            num_workers=1, steps_per_output=self.steps_per_print())
+        self.telemetry_config = cfg.telemetry_config
+        self.telemetry = TelemetryManager(
+            self.telemetry_config, rank=rank, monitor=self.monitor,
+            device=self.device)
+        self.telemetry.emit(
+            TEL.EVENT_RUN_START, step=0, world_size=get_world_size(),
+            dp=self.dp_world_size,
+            precision=("fp16" if cfg.fp16_enabled else
+                       "bf16" if cfg.bf16_enabled else "fp32"),
+            zero_stage=self.zero_stage)
+
+    def _telemetry_anomaly(self, step, kind, detail):
+        """Anomaly-guard event sink (JAX ``engine.py:1098-1106``): each
+        classified anomaly is an ``anomaly`` event (host scalars the
+        guard already has)."""
+        self.telemetry.emit(
+            TEL.EVENT_ANOMALY, step=step, kind=kind, detail=detail,
+            consecutive=(self._guard.consecutive_anomalies
+                         if self._guard is not None else 0))
+        self.telemetry.counter("resilience/anomalies").inc()
+
+    def _telemetry_watchdog_fire(self, stalled_secs):
+        """Watchdog fire hook (JAX ``engine.py:1108-1115``): the process
+        dies by ``os._exit`` next, so the tail events are flushed here."""
+        self.telemetry.emit(
+            TEL.EVENT_WATCHDOG_HANG, step=self.global_steps,
+            stalled_secs=float(stalled_secs),
+            timeout_secs=float(self.resilience_config.hang_timeout_secs))
+        self.telemetry.flush(reason="watchdog_hang")
+
+    def close(self):
+        """Flush and close every telemetry sink (events, trace, metrics
+        snapshot, monitor); a device trace still running is stopped and
+        exported.  Idempotent; also registered with ``atexit``, so a run
+        that exits normally keeps its tail events without calling it."""
+        self.telemetry.close()
+
     def _build_resilience(self):
         """The anomaly guard, the rollback manager and the step watchdog
-        of an enabled ``resilience`` block (JAX ``engine.py:805-840``);
-        the telemetry sinks stay unset until ROADMAP A12."""
+        of an enabled ``resilience`` block (JAX ``engine.py:805-840``),
+        with the telemetry sinks (``:823``, ``:839``)."""
         rcfg = self.resilience_config
         self._guard = None
         self._rollback_mgr = None
@@ -1150,7 +1225,8 @@ class DeepSpeedEngine:
             divergence_patience=rcfg.divergence_patience,
             floor_scale_patience=rcfg.floor_scale_patience,
             min_scale=float(self._scale_args.get("min_scale", 1.0)),
-            fp16=self._config.fp16_enabled)
+            fp16=self._config.fp16_enabled,
+            event_sink=self._telemetry_anomaly)
         self._rollback_mgr = RollbackManager(
             self, max_rollbacks=rcfg.max_rollbacks,
             cooldown_steps=rcfg.rollback_cooldown_steps,
@@ -1160,7 +1236,8 @@ class DeepSpeedEngine:
             self._watchdog = StepWatchdog(
                 rcfg.hang_timeout_secs, latency_ring=self._step_latencies,
                 describe=lambda: (f"global_step={self.global_steps} "
-                                  f"micro_steps={self.micro_steps}")).start()
+                                  f"micro_steps={self.micro_steps}"),
+                on_fire=self._telemetry_watchdog_fire).start()
         logger.info(f"resilience enabled: {rcfg}")
 
     def _step_beat(self):
@@ -1190,12 +1267,23 @@ class DeepSpeedEngine:
             self._step_beat_pause()
             reason = (f"{self._guard.consecutive_anomalies} consecutive "
                       f"anomalous step(s)")
+            diverged_at = self.global_steps
             try:
-                self._rollback_mgr.rollback(reason=reason)
-            except TrainingDivergedError:
+                with self.telemetry.span("rollback_restore"):
+                    path = self._rollback_mgr.rollback(reason=reason)
+            except TrainingDivergedError as e:
                 if self._watchdog is not None:
                     self._watchdog.stop()
+                self.telemetry.emit(TEL.EVENT_ABORT, step=self.global_steps,
+                                    reason=str(e))
+                self.telemetry.flush(reason="abort")
                 raise
+            # global_steps is now the restored step; from_step names the
+            # abandoned timeline's head
+            self.telemetry.emit(TEL.EVENT_ROLLBACK, step=self.global_steps,
+                                from_step=diverged_at, restored_path=path,
+                                reason=reason)
+            self.telemetry.counter("resilience/rollbacks").inc()
             self._guard.notify_rollback()
             return True
         if action == ACTION_ABORT:
@@ -1203,11 +1291,14 @@ class DeepSpeedEngine:
                 # the abort's teardown must not race the watchdog's
                 # respawnable exit
                 self._watchdog.stop()
-            raise TrainingDivergedError(
-                f"training diverged at step {self.global_steps}: "
-                f"{self._guard.consecutive_anomalies} consecutive anomalous "
-                f"step(s) under policy={self._guard.policy}; recent "
-                f"anomalies: {self._guard.recent_events()[-5:]}")
+            msg = (f"training diverged at step {self.global_steps}: "
+                   f"{self._guard.consecutive_anomalies} consecutive "
+                   f"anomalous step(s) under policy={self._guard.policy}; "
+                   f"recent anomalies: {self._guard.recent_events()[-5:]}")
+            self.telemetry.emit(TEL.EVENT_ABORT, step=self.global_steps,
+                                reason=msg)
+            self.telemetry.flush(reason="abort")
+            raise TrainingDivergedError(msg)
         return False
 
     # ------------------------------------------------------------- state
@@ -1308,7 +1399,20 @@ class DeepSpeedEngine:
         if self._sparse_paths and isinstance(batch, dict) \
                 and "input_ids" in batch:
             self._step_tokens += int(np.prod(np.shape(batch["input_ids"])))
-        return self._loss(batch, rng=rng, train=True, **kwargs)
+        timed = self._stepwise_timed()
+        if timed:
+            self.timers("forward").start(sync=False)
+        loss = self._loss(batch, rng=rng, train=True, **kwargs)
+        if timed:
+            self.timers("forward").stop(sync=False)
+        return loss
+
+    def _stepwise_timed(self):
+        """Whether ``wall_clock_breakdown`` times the step-wise API's
+        phases: host-clock ``forward``, ``backward`` and ``step`` timers
+        (no fence, JAX ``engine.py:3604-3618``), logged at each step;
+        ``train_batch`` times its whole step instead."""
+        return self.wall_clock_breakdown() and not self._in_train_batch
 
     __call__ = forward
 
@@ -1343,6 +1447,9 @@ class DeepSpeedEngine:
         unscaled: the JAX compressed program applies no loss scale
         (``onebit_adam.py:172-177``), and its momentum mixes the
         gradient with the unscaled momentum of the warmup."""
+        timed = self._stepwise_timed()
+        if timed:
+            self.timers("backward").start(sync=False)
         scaled = self._scaled_loss(loss)
         # with accumulation the rank's rows sum the micro-batches (the
         # step zeroes them)
@@ -1361,6 +1468,8 @@ class DeepSpeedEngine:
             else:
                 scaled.backward()
         self._after_backward()
+        if timed:
+            self.timers("backward").stop(sync=False)
         self._losses.append(loss.detach())
         self.micro_steps += 1
         self.global_samples += (self.train_micro_batch_size_per_gpu()
@@ -1484,6 +1593,9 @@ class DeepSpeedEngine:
         all-reduce before that fetch, so every rank decides alike."""
         if not self.is_gradient_accumulation_boundary():
             return
+        timed = self._stepwise_timed()
+        if timed:
+            self.timers("step").start(sync=False)
         with torch.no_grad():
             if self._onebit_compressing():
                 overflow, mean_loss = self._compressed_step()
@@ -1497,6 +1609,9 @@ class DeepSpeedEngine:
                 self._gshard.zero_()
             self._step_tokens = 0
         self._after_step(overflow, mean_loss)
+        if timed:
+            self.timers("step").stop(sync=False)
+            self.timers.log(["forward", "backward", "step"])
 
     def _compressed_step(self):
         """1-bit Adam's compressed phase (JAX ``onebit_adam.py:176-241``):
@@ -1534,7 +1649,9 @@ class DeepSpeedEngine:
         if self._skip_bad:
             # the one host sync of the step: the overflow flag and the
             # mean loss in one copy
-            fetched = torch.stack([flag, loss]).tolist()
+            with self.telemetry.span("device_get",
+                                     step=self.global_steps + 1):
+                fetched = torch.stack([flag, loss]).tolist()
             overflow, mean_loss = fetched[0] > 0, fetched[1]
         if not overflow:
             if norm is not None:
@@ -1606,8 +1723,13 @@ class DeepSpeedEngine:
                 min_scale=args.get("min_scale", 1.0),
                 delayed_shift=args.get("delayed_shift", 1))
         self._skipped += int(overflow)
+        self._skipped_last = overflow
         self.global_steps += 1
         if self._guard is not None:
+            # the scale rides the step's one batched fetch, as in JAX
+            # (``engine.py:3919-3925``)
+            self.telemetry.note_scale(self._scale_state.cur_scale,
+                                      step=self.global_steps)
             action = self._guard.observe(
                 mean_loss, overflow, scale=self._scale_state.cur_scale,
                 step=self.global_steps)
@@ -1624,15 +1746,26 @@ class DeepSpeedEngine:
         if self.global_steps % self.steps_per_print() == 0:
             if mean_loss is None:
                 # the print cadence's one host sync
-                mean_loss = float(self._step_loss)
-            msg = (f"step={self.global_steps}, skipped={self._skipped}, "
-                   f"lr={self.get_lr()[0]:.6g}, loss={mean_loss:.5f}, "
-                   f"loss_scale={self.loss_scale}")
-            if self._step_seconds:
-                msg += (f", train_batch ms (synchronized)="
-                        f"{1e3 * np.mean(self._step_seconds):.2f}")
-                self._step_seconds = []
-            logger.info(msg)
+                with self.telemetry.span("device_get",
+                                         step=self.global_steps):
+                    mean_loss = float(self._step_loss)
+            lr = self.get_lr()[0]
+            scale = (float(self._scale_state.cur_scale)
+                     if self._config.fp16_enabled else 1.0)
+            if self._config.fp16_enabled:
+                self.telemetry.note_scale(scale, step=self.global_steps)
+            logger.info(f"step={self.global_steps}, "
+                        f"skipped={self._skipped}, lr={lr:.6g}, "
+                        f"loss={mean_loss:.5f}, loss_scale={scale}")
+            # the reference's tensorboard tags (JAX ``engine.py:3978-
+            # 3985``); the event stream and the registry ride the same
+            # fetched scalars
+            self.telemetry.step_metrics(self.global_steps,
+                                        self.global_samples, {
+                "Train/Samples/train_loss": mean_loss,
+                "Train/Samples/lr": lr,
+                "Train/Samples/loss_scale": scale,
+            }, skipped=self._skipped)
         self._losses = []
         self._step_beat()
 
@@ -1661,7 +1794,11 @@ class DeepSpeedEngine:
         fetches nothing from the card
         (see :meth:`step`).  Under
         ``wall_clock_breakdown`` the step is timed between two
-        synchronizations, which the log reports at the print cadence."""
+        synchronizations (the ``train_batch`` timer), whose mean the log
+        reports at the print cadence.  Telemetry (JAX
+        ``engine.py:3827-4009``) spans the batch fetch and the dispatch
+        on the host clock, counts steps and samples and polls the device
+        trace trigger: no host sync."""
         if data_iter is None:
             if self.training_dataloader is None:
                 raise ValueError("train_batch() without an iterator needs "
@@ -1673,24 +1810,48 @@ class DeepSpeedEngine:
         if self.micro_steps % self.gradient_accumulation_steps():
             raise RuntimeError("train_batch() cannot run with un-stepped "
                                "forward()/backward() micro-batches pending")
-        timed = self.wall_clock_breakdown() and self.device.type == "cuda"
+        acc = self.gradient_accumulation_steps()
+        timed = self.wall_clock_breakdown()
+        self.tput_timer.start()
+        t_host0 = time.perf_counter()
         if timed:
-            torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
-        losses = []
+            self.timers("train_batch").start(sync=True)
+        with self.telemetry.span("batch_fetch", step=self.global_steps + 1):
+            micro_batches = [next(data_iter) for _ in range(acc)]
         self._in_train_batch = True
         try:
-            for _ in range(self.gradient_accumulation_steps()):
-                loss = self.forward(next(data_iter))
-                self.backward(loss)
-                losses.append(loss.detach())
+            with self.telemetry.span("dispatch", step=self.global_steps + 1):
+                for batch in micro_batches:
+                    self.backward(self.forward(batch))
+            self.step()
         finally:
             self._in_train_batch = False
         if timed:
-            torch.cuda.synchronize(self.device)
-            self._step_seconds.append(time.perf_counter() - t0)
-        self.step()
+            self.timers("train_batch").stop(sync=True)
+            self._timed_steps += 1
+            if self.global_steps % self.steps_per_print() == 0:
+                self.timers.log(["train_batch"],
+                                normalizer=self._timed_steps)
+                self._timed_steps = 0
+        self.tput_timer.stop()
+        self._after_train_batch(acc, t_host0)
         return self._step_loss
+
+    def _after_train_batch(self, micro_batches, t_host0):
+        """A step's telemetry (JAX ``engine.py:3997-4009``): O(1) host
+        bookkeeping.  ``train/host_step_secs`` is the host's side of the
+        step (the card's time shows in it only where the host waits)."""
+        if not self.telemetry.enabled:
+            return
+        self.telemetry.counter("train/steps").inc()
+        self.telemetry.counter("train/samples").inc(
+            micro_batches * self.train_micro_batch_size_per_gpu()
+            * self.dp_world_size)
+        if self._skipped_last:
+            self.telemetry.counter("train/overflow_steps").inc()
+        self.telemetry.histogram("train/host_step_secs").observe(
+            time.perf_counter() - t_host0)
+        self.telemetry.poll_device_trace(self.global_steps)
 
     def eval_batch(self, batch):
         """Loss with ``train=False`` on one batch, or the mean over
@@ -1797,8 +1958,9 @@ class DeepSpeedEngine:
         from every rank's rows) and rank 0 alone writes, moving the
         ``latest`` pointer and applying retention."""
         tag = tag or f"global_step{self.global_steps}"
-        snapshot = capture_engine_snapshot(self, tag, client_state,
-                                           save_latest)
+        with self.telemetry.span("ckpt_snapshot", tag=str(tag)):
+            snapshot = capture_engine_snapshot(self, tag, client_state,
+                                               save_latest)
         self._last_ckpt_dir = save_dir
         if not self._is_writer():
             return True
@@ -1840,14 +2002,26 @@ class DeepSpeedEngine:
         return drained
 
     def _preemption_save(self):
-        """Final synchronous save on SIGTERM, into the last save dir."""
-        if self._last_ckpt_dir is None:
-            logger.warning("preemption save skipped: no checkpoint dir seen "
-                           "yet (call save_checkpoint once to set it)")
-            return
-        self._step_beat_pause()
-        self.save_checkpoint(self._last_ckpt_dir,
-                             tag=f"global_step{self.global_steps}", sync=True)
+        """Final synchronous save on SIGTERM, into the last save dir.
+        The telemetry sinks are flushed, not closed (the previous signal
+        disposition may let the process go on), so a preempted run
+        keeps its tail events (JAX ``engine.py:4152-4172``)."""
+        import signal
+
+        self.telemetry.emit(TEL.EVENT_PREEMPTION, step=self.global_steps,
+                            signum=int(signal.SIGTERM))
+        try:
+            if self._last_ckpt_dir is None:
+                logger.warning("preemption save skipped: no checkpoint dir "
+                               "seen yet (call save_checkpoint once to set "
+                               "it)")
+                return
+            self._step_beat_pause()
+            self.save_checkpoint(self._last_ckpt_dir,
+                                 tag=f"global_step{self.global_steps}",
+                                 sync=True)
+        finally:
+            self.telemetry.flush(reason="preemption")
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True,
@@ -1940,8 +2114,15 @@ class DeepSpeedEngine:
         # a resumed job can take its preemption save before the first
         # periodic save_checkpoint sets a directory
         self._last_ckpt_dir = load_dir
+        self.telemetry.emit(TEL.EVENT_RUN_RESUME, step=self.global_steps,
+                            checkpoint=ckpt_dir)
         ck_dp = meta.get("dp_world_size")
         if ck_dp is not None and int(ck_dp) != self.dp_world_size:
+            # the resize timeline's "restore" leg
+            self.telemetry.emit(TEL.EVENT_ELASTIC, step=self.global_steps,
+                                phase="restore", from_dp=int(ck_dp),
+                                to_dp=self.dp_world_size,
+                                checkpoint=ckpt_dir)
             logger.info(f"elastic restore: checkpoint written at dp={ck_dp} "
                         f"re-padded onto dp={self.dp_world_size}")
         logger.info(f"loaded checkpoint {ckpt_dir}")

@@ -80,6 +80,7 @@ counts, model degrees and the two packages.
 import bisect
 import itertools
 import logging
+import time
 
 import numpy as np
 import torch
@@ -468,10 +469,22 @@ class PipelineEngine(DeepSpeedEngine):
                 self._train_iter = iter(RepeatingLoader(
                     self.training_dataloader))
             data_iter = self._train_iter
+        self.tput_timer.start()
+        t_host0 = time.perf_counter()
         self._losses = []
         self._batch_seed = mix_seed(self._config.seed, self.micro_steps)
         self._run(self._schedule("train", self.micro_batches, self.stage_id),
                   data_iter, train=True)
+        self.tput_timer.stop()
+        if self.telemetry.enabled:
+            # the train engine's per-step telemetry (JAX
+            # ``pipe/engine.py:389-399``): host bookkeeping only
+            self.telemetry.counter("train/steps").inc()
+            self.telemetry.counter("train/samples").inc(
+                self.train_batch_size())
+            self.telemetry.histogram("train/host_step_secs").observe(
+                time.perf_counter() - t_host0)
+            self.telemetry.poll_device_trace(self.global_steps)
         return self._step_loss
 
     def eval_batch(self, data_iter):

@@ -186,15 +186,25 @@ def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     A13) and its model, expert and seq axes (A10), and warns for none of
     them; the ``pipeline`` block (A13) warns no more, and the
     ``ring_attention`` block (A10) logs at info that it has no effect,
-    since ``attn_impl="ring"`` and the mesh's seq axis select the ring."""
+    since ``attn_impl="ring"`` and the mesh's seq axis select the ring.
+    The ``telemetry`` and ``tensorboard`` blocks (A12) are ported: set
+    and on, they are parsed and warn nothing."""
     with caplog.at_level(logging.WARNING):
-        DeepSpeedConfig({"train_batch_size": 8,
-                         "flops_profiler": {"enabled": True},
-                         "tensorboard": {"enabled": False},
-                         "mesh": {"data": 2}})
+        cfg = DeepSpeedConfig({"train_batch_size": 8,
+                               "flops_profiler": {"enabled": True},
+                               "tensorboard": {"enabled": True,
+                                               "job_name": "unit"},
+                               "telemetry": {"enabled": True,
+                                             "run_dir": "/tmp/t",
+                                             "trace": True},
+                               "mesh": {"data": 2}})
     assert "flops_profiler" in caplog.text
     assert "A16" in caplog.text
-    assert "tensorboard" not in caplog.text   # set but off
+    assert "tensorboard" not in caplog.text and "A12" not in caplog.text
+    assert "telemetry" not in caplog.text
+    assert cfg.tensorboard_enabled and cfg.tensorboard_job_name == "unit"
+    assert cfg.telemetry_config.enabled and cfg.telemetry_config.trace
+    assert cfg.telemetry_config.run_dir == "/tmp/t"
     assert "mesh" not in caplog.text
     caplog.clear()
     with caplog.at_level(logging.INFO):

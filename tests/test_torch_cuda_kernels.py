@@ -129,18 +129,28 @@ def test_flash_fwd_kernel_reads_strided_qkv_views(cuda_device):
 
 
 @pytest.mark.cuda
-def test_engine_syncs_once_per_prefill_and_decode_iteration(cuda_device):
+@pytest.mark.parametrize("telemetry", [False, True],
+                         ids=["telemetry_off", "telemetry_on"])
+def test_engine_syncs_once_per_prefill_and_decode_iteration(
+        cuda_device, telemetry, tmp_path):
     """The serve loop's only host syncs are its token fetches: one per
     prefill and one per decode iteration (counted by CUDA sync debug
-    mode, which warns at every synchronizing call)."""
+    mode, which warns at every synchronizing call), with the telemetry
+    and observability plane on too (events, an SLO, the cadence every
+    iteration)."""
     config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
                         num_heads=2, max_position_embeddings=256)
+    serve = {"inference": {
+        "kv_block_size": 16, "max_seq_len": 256,
+        "prefill_buckets": [128, 256], "max_batch_slots": 4,
+        "kv_blocks": 64, "token_budget": 1024, "max_new_tokens": 4}}
+    if telemetry:
+        serve["inference"]["slo"] = {"ttft_ms": 1000, "per_token_ms": 50}
+        serve["steps_per_print"] = 1
+        serve["telemetry"] = {"enabled": True, "run_dir": str(tmp_path),
+                              "trace": True}
     engine = InferenceEngine(
-        GPT2LMHead(config), random_params(config, seed=0),
-        config={"inference": {
-            "kv_block_size": 16, "max_seq_len": 256,
-            "prefill_buckets": [128, 256], "max_batch_slots": 4,
-            "kv_blocks": 64, "token_budget": 1024, "max_new_tokens": 4}},
+        GPT2LMHead(config), random_params(config, seed=0), config=serve,
         device=cuda_device)
     rng = np.random.RandomState(0)
     engine.submit(rng.randint(0, 512, size=100).tolist())
@@ -163,6 +173,7 @@ def test_engine_syncs_once_per_prefill_and_decode_iteration(cuda_device):
     # step 1: two prefills and a decode; steps 2 and 3: a decode each
     assert counts == [3, 1, 1]
     assert engine.decode_iterations == 3 + 3
+    engine.close()
 
 
 def backward_by_kernels(path, q, k, v, out, lse, dout, mask, causal, rate,
@@ -534,18 +545,26 @@ def test_keep_mask_drawn_by_b1_equals_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_train_batch_syncs_only_at_the_print_cadence(cuda_device):
+@pytest.mark.parametrize("telemetry", [False, True],
+                         ids=["telemetry_off", "telemetry_on"])
+def test_train_batch_syncs_only_at_the_print_cadence(cuda_device, telemetry,
+                                                     tmp_path):
     """``train_batch`` fetches nothing from the card between prints: no
     synchronizing call (CUDA sync debug mode warns at each) except the
-    loss fetch of the step that prints."""
+    loss fetch of the step that prints — with telemetry on too (events,
+    host spans, step metrics, the throughput timer, the trigger poll)."""
     config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
                         num_heads=2, max_position_embeddings=128)
+    train = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+             "steps_per_print": 3, "gradient_clipping": 1.0,
+             "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+             "bf16": {"enabled": True}}
+    if telemetry:
+        train["telemetry"] = {"enabled": True, "run_dir": str(tmp_path),
+                              "trace": True}
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=GPT2LMHead(config), model_parameters=random_params(config, 0),
-        config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
-                "steps_per_print": 3, "gradient_clipping": 1.0,
-                "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
-                "bf16": {"enabled": True}}, device=cuda_device)
+        config=train, device=cuda_device)
     rng = np.random.RandomState(0)
     batches = [{"input_ids": rng.randint(0, 512, size=(2, 128))}
                for _ in range(8)]
@@ -566,6 +585,7 @@ def test_train_batch_syncs_only_at_the_print_cadence(cuda_device):
         torch.cuda.set_sync_debug_mode(previous)
     # global steps 2, 3, 4: step 3 prints
     assert counts == [0, 1, 0]
+    engine.close()
 
 
 @pytest.mark.cuda

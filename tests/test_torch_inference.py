@@ -327,28 +327,55 @@ def test_engine_strict_config_rejects_unknown_keys(models):
 
 
 @pytest.mark.parametrize("overrides,key", [
-    ({"max_queue_depth": 8}, "inference.max_queue_depth"),
-    ({"degrade_queue_depth": 4}, "inference.degrade_queue_depth"),
-    ({"slo": {"ttft_ms": 100}}, "inference.slo.ttft_ms"),
-    ({"slo": {"per_token_ms": 50}}, "inference.slo.per_token_ms"),
+    ({"max_queue_depth": 2}, "inference.max_queue_depth"),
+    ({"max_queue_depth": 8, "degrade_queue_depth": 1,
+      "degraded_max_new_tokens": 2}, "inference.degrade_queue_depth"),
+    ({"slo": {"ttft_ms": 1e-4}}, "inference.slo.ttft_ms"),
+    ({"slo": {"per_token_ms": 1e-4}}, "inference.slo.per_token_ms"),
 ], ids=["shedding", "degradation", "slo_ttft", "slo_per_token"])
 def test_engine_flags_knobs_of_unported_features(models, caplog, overrides,
                                                   key):
-    """Shedding, degradation and SLO goodput are not served yet: setting
-    one warns, naming the key, and strict_config rejects it; the knobs at
-    their disabled defaults say nothing."""
+    """Shedding, degradation and SLO goodput are served (ROADMAP A12):
+    setting a knob warns nothing, ``strict_config`` accepts it, and it
+    acts — a two-replica front-end sheds the third submit at
+    ``max_queue_depth`` 2, caps the second request's generation past
+    ``degrade_queue_depth`` 1, and an impossible TTFT or per-token
+    target takes its leg of the tokens out of goodput."""
+    from deepspeed_tpu_torch.inference import (ServingFrontend,
+                                               ServingOverloadError)
+
     _, model, params = models
-    with caplog.at_level("WARNING"):
-        InferenceEngine(model, params, config=serve_config(), device="cpu")
-    assert not caplog.records
     config = serve_config(**overrides)
-    with caplog.at_level("WARNING"):
-        InferenceEngine(model, params, config=config, device="cpu")
-    assert any(key in r.getMessage() and "ROADMAP A12" in r.getMessage()
-               for r in caplog.records)
     config["strict_config"] = True
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-        InferenceEngine(model, params, config=config, device="cpu")
+    with caplog.at_level("WARNING"):
+        replicas = [InferenceEngine(model, params, config=config,
+                                    device="cpu") for _ in range(2)]
+    assert not caplog.records
+    fe = ServingFrontend(replicas)
+    prompts = seeded_prompts(3, seed=5)
+    if "max_queue_depth" in overrides and "degrade_queue_depth" \
+            not in overrides:
+        fe.submit(prompts[0], max_new_tokens=2)
+        fe.submit(prompts[1], max_new_tokens=2)
+        with pytest.raises(ServingOverloadError):
+            fe.submit(prompts[2], max_new_tokens=2)
+        assert fe.shed_total == 1 and len(fe.run()) == 2
+        return
+    rids = [fe.submit(p, max_new_tokens=4) for p in prompts]
+    results = fe.run()
+    receipt = replicas[0].serving_receipt()
+    if "degrade_queue_depth" in overrides:
+        assert fe.degraded_total == 2
+        assert [len(results[r]["tokens"]) for r in rids] == [4, 2, 2]
+        return
+    assert receipt["slo_enabled"]
+    # each request's first token misses the TTFT target, or each decode
+    # token the per-token one; the other leg is met (no target)
+    first = receipt["requests"]
+    good = (receipt["generated_tokens"] - first if "ttft_ms" in key
+            else first)
+    assert receipt["goodput_tokens"] == good
+    assert receipt["slo_attainment"] == good / receipt["generated_tokens"]
 
 
 def test_engine_drain_finishes_in_flight_and_stops_admission(models):
