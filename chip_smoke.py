@@ -233,7 +233,7 @@ failure raises, so the script exits non-zero:
               batch 4, dropout 0, remat, ``loss_chunk`` 256, Adam lr
               1e-4, ZeRO-2, bf16): (a) no offload, (b) fp32 host state,
               (c) bf16 SR, (d) bf16 with error feedback, (e)
-              DeepSpeedCPUAdam; 1 warm-up and 3 timed steps each,
+              DeepSpeedCPUAdam; 1 warm-up and 2 timed steps each,
               finite and falling; step ms (median, spread), device peak,
               pinned bytes, host-state bytes a step, the stream's H2D
               and D2H GB/s and its wall against the sum of its copies,
@@ -245,7 +245,7 @@ failure raises, so the script exits non-zero:
               ``offload_gradients``, bf16, remat, ``loss_chunk`` 256,
               batch 4) at GPT-2-xl's width and 16 of its 48 layers (its
               full depth, 1.56 B parameters, is on record from the
-              earlier runs), after ``MemAvailable``: 1 warm-up and 3
+              earlier runs), after ``MemAvailable``: 1 warm-up and 2
               timed steps;
 29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
               streamed offload in 1 MB chunks: 10 steps on the card
@@ -355,7 +355,26 @@ failure raises, so the script exits non-zero:
               times) holding B1, B2a and B2b kernel events, every event
               valid with 3 ``step_metrics``, and the report CLI's
               ``main`` (``python -m deepspeed_tpu_torch.telemetry
-              report``) on the run dir returning 0.
+              report``) on the run dir returning 0;
+38. fleet    — the launcher, elasticity and the fleet integrity plane:
+              ``launcher.launch.main`` in this process spawns
+              ``examples/torch_fleet_replica.py`` replicas on the one
+              card (each ``device="cuda:0"``), under an elastic schedule
+              admitting worlds 1-3 and a telemetry run dir: (a) 3
+              serving replicas of phase 4's weights (bf16) share 9 of
+              phase 4's prompts, 6 new tokens each, exactly once; replica
+              1 takes a seeded ``ChaosMonkey.bitflip_params`` at its
+              second iteration: the weight-fingerprint consensus names
+              it (``sdc_outlier`` on rank 1), the launcher resizes 3 -> 2
+              with slot 1 blocklisted, the ledgers' union holds each
+              request once, its tokens are phase 4's first 6, and the
+              launcher returns 0; (b) 2 replicas train GPT-2-medium
+              (bf16, micro-batch 1, seq 1024, dropout 0.1, one seed) 3
+              steps at ``steps_per_print`` 1 with ``resilience.integrity``
+              on: every verdict ok or pending, the final one ok with 2
+              voters, and the replicas' losses and state fingerprints
+              bitwise equal at every step; the replicas' B1 (a, b), B2a,
+              B2b and B4 (b) launches join the kernels line.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -379,8 +398,10 @@ import json
 import math
 import multiprocessing
 import os
+import pickle
 import random
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1272,6 +1293,8 @@ def phase_serve(card, model, params, results):
     out = engine.run()
     torch.cuda.synchronize()
     launches = flash_attention_fwd.launches
+    # phase 38's serving replicas are held to these greedy tokens
+    results["serve_tokens"] = {rid: r["tokens"] for rid, r in out.items()}
     receipt = engine.serving_receipt()
     prefills = len(prompts)   # one prefill per admitted request
     check(len(out) == 16 and all(
@@ -3542,9 +3565,10 @@ BF16_EF = {"master": "bf16", "momentum": "bf16", "variance": "bf16",
 # loss_chunk 256, Adam lr 1e-4, ZeRO-2, bf16
 BENCH_OFFLOAD_MODEL = dict(embd_dropout=0.0, attn_dropout=0.0,
                            resid_dropout=0.0, remat=True, loss_chunk=256)
-# one warm-up and 3 timed steps a row: the script's time aim
-LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 1, 3
-XL_WARMUP, XL_TIMED = 1, 3
+# one warm-up and 2 timed steps a row (phase 28: its one row): the
+# script's time aim
+LARGE_BATCH, LARGE_WARMUP, LARGE_TIMED = 4, 1, 2
+XL_WARMUP, XL_TIMED = 1, 2
 # GPT-2-xl's depth in phase 28, cut from 48 to keep the script's time
 XL_LAYERS = 16
 ADAM_RTOL, ADAM_ATOL = 2e-6, 1e-7  # tests/test_torch_cpu_adam.py
@@ -3725,7 +3749,7 @@ def offload_large_setup(zero=OFFLOAD, optimizer=None, params=None):
 def phase_offload_large(card, results):
     """27. bench.py's GPT-2-large offload leg, five rows: (a) without
     offload, (b) fp32 host state, (c) bf16 SR, (d) bf16 with error
-    feedback, (e) DeepSpeedCPUAdam; 1 warm-up and 3 timed steps each.
+    feedback, (e) DeepSpeedCPUAdam; 1 warm-up and 2 timed steps each.
     Returns the launches and the host kernel's row, with its launches
     in row (e)'s steps."""
     s = TRAIN_ATTN[2]
@@ -5335,6 +5359,239 @@ def phase_telemetry(card, model, params, results):
     return serve_b1, launches
 
 
+# ------------------------------------------------------------ 38. fleet
+FLEET_REPLICA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "examples", "torch_fleet_replica.py")
+# the serving fleet's elastic schedule: global batch 6 on 1, 2 or 3
+FLEET_ELASTIC = {"enabled": True, "max_train_batch_size": 6,
+                 "micro_batch_sizes": [1, 2], "min_gpus": 1, "max_gpus": 3,
+                 "version": 0.1}
+FLEET_REQUESTS = 9       # the replica script's request count
+FLEET_NEW_TOKENS = 6
+FLEET_TRAIN_STEPS = 3
+
+
+def launcher_argv(slots, script_args, run_dir, elastic=None):
+    """The node spawner's arguments: ``slots`` of this host, the fleet's
+    telemetry dir under ``run_dir``, an elastic schedule if given, then
+    the replica script and its ``script_args``."""
+    from deepspeed_tpu_torch.launcher.runner import encode_world_info
+
+    os.makedirs(run_dir, exist_ok=True)
+    argv = ["--world_info",
+            encode_world_info({"localhost": list(slots)}),
+            "--node_rank", "0", "--master_addr", "127.0.0.1",
+            "--master_port", "29531", "--max-restarts", "2",
+            "--telemetry-dir", os.path.join(run_dir, "tel")]
+    if elastic is not None:
+        path = os.path.join(run_dir, "elastic.json")
+        with open(path, "w") as f:
+            json.dump({"elasticity": elastic}, f)
+        argv += ["--elastic-config", path, "--elastic-devices",
+                 str(len(slots))]
+    return [*argv, FLEET_REPLICA, *script_args]
+
+
+def run_launcher(argv, env):
+    """``deepspeed_tpu_torch.launcher.launch.main(argv)`` in this
+    process, children started with ``env`` added; its exit code.  The
+    launcher's signal handlers are undone after."""
+    from deepspeed_tpu_torch.launcher import launch
+
+    saved_env = dict(os.environ)
+    saved_signals = {sig: signal.getsignal(sig)
+                     for sig in (signal.SIGINT, signal.SIGTERM)}
+    os.environ.update(env)
+    code = 0
+    try:
+        launch.main(argv)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        for sig, handler in saved_signals.items():
+            signal.signal(sig, handler)
+    return code
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def spawn_to_engine_seconds(tel):
+    """Seconds from each child's spawn (the launcher's ``proc_spawn``)
+    to its engine's ``run_start``: a replica's start-up, the most of a
+    life here."""
+    spawns = sorted(e["ts"] for e in read_jsonl(
+        os.path.join(tel, "events-launcher.jsonl"))
+        if e["type"] == "proc_spawn")
+    starts = [e["ts"] for name in os.listdir(tel)
+              if name.startswith("events-rank")
+              for e in read_jsonl(os.path.join(tel, name))
+              if e["type"] == "run_start"]
+    return sorted(t - max(s for s in spawns if s <= t) for t in starts)
+
+
+FLEET_ENV = {"FLEET_MODEL": "gpt2-medium", "FLEET_ONE_CARD": "1",
+             "DS_MONITOR_POLL_SECS": "0.1",
+             "DS_RESTART_BACKOFF_SECS": "0.1", "DS_TERM_GRACE_SECS": "20",
+             "DS_ELASTIC_DEVICES_PER_FAILURE": "1"}
+
+
+def phase_fleet_serve(run_dir, results, fleet_env):
+    """38a: three serving replicas, one bitflipped, resized to two."""
+    out_dir = os.path.join(run_dir, "out")
+    env = dict(fleet_env, DS_SERVE_CHAOS_KIND="bitflip",
+               DS_SERVE_PEER_TIMEOUT="30",
+               DS_SERVE_MAX_NEW=str(FLEET_NEW_TOKENS))
+    t0 = time.perf_counter()
+    code = run_launcher(launcher_argv((0, 1, 2), ("serve", out_dir),
+                                      run_dir, elastic=FLEET_ELASTIC), env)
+    seconds = time.perf_counter() - t0
+    check(code == 0, f"fleet serve: the launcher returned {code}")
+    tel = os.path.join(run_dir, "tel")
+    events = read_jsonl(os.path.join(tel, "events-launcher.jsonl"))
+    elastic = [e["data"] for e in events if e["type"] == "elastic"]
+    check([e["phase"] for e in elastic] == ["evict", "plan", "resize"],
+          f"fleet serve: elastic events {elastic}")
+    evict, plan, resize = elastic
+    check((evict["suspect"], evict["slot"], evict["kind"])
+          == (1, 1, "sdc_outlier"), f"fleet serve: eviction {evict}")
+    check((plan["prev_world_size"], plan["planned_world_size"],
+           resize["procs"], resize["evicted_slots"]) == (3, 2, 2, [1]),
+          f"fleet serve: resize {plan} {resize}")
+    verdict = json.load(open(os.path.join(tel,
+                                          "integrity-verdict.json.consumed")))
+    check((verdict["kind"], verdict["suspect"]) == ("sdc_outlier", 1),
+          f"fleet serve: verdict {verdict}")
+    ledger = [rec for name in sorted(os.listdir(out_dir))
+              if name.startswith("results-")
+              for rec in read_jsonl(os.path.join(out_dir, name))]
+    rids = sorted(r["rid"] for r in ledger)
+    check(rids == [f"req-{i:03d}" for i in range(FLEET_REQUESTS)],
+          f"fleet serve: the ledgers hold {rids}")
+    want = {f"req-{i:03d}": results["serve_tokens"][f"r{i}"][
+        :FLEET_NEW_TOKENS] for i in range(FLEET_REQUESTS)}
+    differ = sorted(r["rid"] for r in ledger if r["tokens"] != want[r["rid"]])
+    check(not differ, f"fleet serve: requests {differ} gave other tokens "
+          "than phase 4's greedy serve")
+    b1 = sum(json.load(open(os.path.join(out_dir, name)))["B1"]
+             for name in os.listdir(out_dir) if name.startswith("launches-"))
+    return {"seconds": seconds, "evict": evict, "plan": plan,
+            "resize": resize, "requests": len(ledger),
+            "lives": len({r["life"] for r in ledger}), "b1_launches": b1,
+            "spawn_to_engine_s": spawn_to_engine_seconds(tel)}
+
+
+def start_fleet_train(run_dir, fleet_env):
+    """38b's launcher, started as ``python -m
+    deepspeed_tpu_torch.launcher.launch`` beside 38a's (its children
+    start while 38a's do): two training replicas with the integrity
+    plane armed, at the train cell's seq 1024 and dropout 0.1
+    (the replica script's GPT-2-medium).  Returns the process and its
+    start time."""
+    out_dir = os.path.join(run_dir, "out")
+    env = dict(os.environ, **fleet_env, FLEET_REPLICAS="1",
+               FLEET_STEPS=str(FLEET_TRAIN_STEPS), FLEET_BATCH="1",
+               FLEET_SAVE_EVERY="0")
+    argv = launcher_argv((0, 1), ("train", out_dir,
+                                  os.path.join(run_dir, "ckpt")), run_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         *argv], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def phase_fleet_train(run_dir, proc, t0):
+    """38b: waits for :func:`start_fleet_train`'s launcher and checks its
+    replicas."""
+    out_dir = os.path.join(run_dir, "out")
+    log, _ = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"fleet train: the launcher returned "
+          f"{proc.returncode}: {log[-3000:]}")
+    finals = [json.load(open(os.path.join(out_dir, f"final-rank{r}.json")))
+              for r in (0, 1)]
+    steps = [str(s) for s in range(1, FLEET_TRAIN_STEPS + 1)]
+    labels = [str(s) for s in range(FLEET_TRAIN_STEPS + 1)]
+    for r, final in enumerate(finals):
+        check(sorted(final["losses"]) == steps and all(
+            math.isfinite(x) for x in final["losses"].values()),
+            f"fleet train: replica {r} losses {final['losses']}")
+        check(sorted(final["fingerprints"]) == labels,
+              f"fleet train: replica {r} fingerprints "
+              f"{final['fingerprints']}")
+        verdicts = final["verdicts"]
+        check(all(v["verdict"] in ("ok", "pending") for v in verdicts)
+              and verdicts[-1]["verdict"] == "ok"
+              and verdicts[-1]["voters"] == 2,
+              f"fleet train: replica {r} verdicts {verdicts}")
+    check(finals[0]["losses"] == finals[1]["losses"],
+          f"fleet train: losses differ {finals[0]['losses']} "
+          f"{finals[1]['losses']}")
+    check(finals[0]["fingerprints"] == finals[1]["fingerprints"],
+          f"fleet train: fingerprints differ {finals[0]['fingerprints']} "
+          f"{finals[1]['fingerprints']}")
+    launches = {name: sum(f["launches"][name] for f in finals)
+                for name in ("B1", "B2a", "B2b", "B3", "B4")}
+    check(all(launches[k] > 0 for k in ("B1", "B2a", "B2b", "B4")),
+          f"fleet train: launches {launches}")
+    return {"seconds": seconds, "losses": finals[0]["losses"],
+            "fingerprints": finals[0]["fingerprints"],
+            "verdicts": finals[0]["verdicts"], "launches": launches,
+            "spawn_to_engine_s": spawn_to_engine_seconds(
+                os.path.join(run_dir, "tel"))}
+
+
+def phase_fleet_integrity(card, results, params):
+    """38. launcher, elasticity and fleet integrity (38a
+    :func:`phase_fleet_serve` in this process, 38b
+    :func:`phase_fleet_train` beside it), each with its own run dir
+    under ``build/``, deleted after; every replica loads ``params``
+    (phase 4's weights, which are also phase 6's) from one pickle there
+    instead of drawing them again.  Returns the B1 launches of 38a and
+    the launches of 38b."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=build_dir())
+    t0 = time.perf_counter()
+    weights = os.path.join(root, "weights.pkl")
+    with open(weights, "wb") as f:
+        pickle.dump(params, f, protocol=pickle.HIGHEST_PROTOCOL)
+    fleet_env = dict(FLEET_ENV, FLEET_WEIGHTS=weights)
+    proc, t_train = start_fleet_train(os.path.join(root, "train"),
+                                      fleet_env)
+    try:
+        serve = phase_fleet_serve(os.path.join(root, "serve"), results,
+                                  fleet_env)
+        train = phase_fleet_train(os.path.join(root, "train"), proc,
+                                  t_train)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    results["fleet_integrity"] = {"card": card, "seconds": seconds,
+                                  "serve": serve, "train": train}
+    print(f"fleet integrity (GPT-2-medium bf16 on one card, "
+          f"{seconds:.1f} s; replica start-up "
+          f"{max(serve['spawn_to_engine_s'] + train['spawn_to_engine_s']):.1f}"
+          f" s at most): serve "
+          f"{serve['seconds']:.1f} s, bitflipped replica 1 evicted "
+          f"({serve['evict']['kind']}), world 3 -> 2, "
+          f"{serve['requests']} requests once each, tokens phase 4's; "
+          f"train {train['seconds']:.1f} s, 2 replicas x "
+          f"{FLEET_TRAIN_STEPS} steps, losses and fingerprints bitwise "
+          f"equal, final verdict {train['verdicts'][-1]['verdict']} with "
+          f"{train['verdicts'][-1]['voters']} voters")
+    return serve["b1_launches"], {
+        name: train["launches"].get(name, 0)
+        for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5498,8 +5755,14 @@ def main(argv=None):
     # through the front-end; phase 6's train cell with telemetry on
     fleet_b1, telemetry_launches = phase_telemetry(card, model, params,
                                                    results)
-    del model, params
     lap("telemetry")
+    # 38. launcher, elasticity and fleet integrity: replicas spawned by
+    # the port's launcher on this card, a bitflipped serving replica
+    # evicted, two training replicas voting
+    fleet38_b1, fleet38_launches = phase_fleet_integrity(card, results,
+                                                         params)
+    del model, params
+    lap("fleet_integrity")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -5521,12 +5784,14 @@ def main(argv=None):
              "dp": dp_launches, "zero3": zero3_launches,
              "onebit": onebit_launches, "pipe": pipe_launches,
              "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
-             "telemetry": telemetry_launches}
+             "telemetry": telemetry_launches,
+             "fleet_integrity": fleet38_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
-    launches["B1"] += serve_launches + fleet_b1
+    launches["B1"] += serve_launches + fleet_b1 + fleet38_b1
     results["launches"] = dict(paths, serve={"B1": serve_launches},
-                               fleet={"B1": fleet_b1})
+                               fleet={"B1": fleet_b1},
+                               fleet_serve={"B1": fleet38_b1})
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
 

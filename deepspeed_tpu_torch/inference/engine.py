@@ -21,13 +21,18 @@ all host arithmetic on numbers the loop already fetched.  Shedding and
 degradation act in the front-end
 (:class:`~deepspeed_tpu_torch.inference.frontend.ServingFrontend`).
 
+The health plane (JAX ``:287-320``, ``:386-396``, ``:577-585``,
+``:627-637``; :mod:`~deepspeed_tpu_torch.inference.resilience`):
+``attach_health(ServingHealth(...))`` beats the fleet heartbeat at every
+decode iteration and, on the ``steps_per_print`` cadence, folds the
+recomputed weight fingerprint into that iteration's next-token fetch,
+so it adds no host sync; the host scalar then goes to the vote.
+
 Not ported in this slice: memory/comm ledgers, program dumps and
-verification, the comm/overlap/attribution receipts (A12's remainder)
-and the health plane (``inference/resilience.py``, A15).
+verification, the comm/overlap/attribution receipts (A12's remainder).
 """
 
 import logging
-import os
 import time
 
 import torch
@@ -38,34 +43,17 @@ from ..telemetry import events as TEL
 from ..telemetry.config import DeepSpeedTelemetryConfig
 from ..telemetry.manager import TelemetryManager
 from ..utils.device import resolve_device
-from ..utils.distributed import get_rank
+from ..utils.distributed import fleet_identity
 from ..utils.params import params_from_numpy
 from .config import DeepSpeedInferenceConfig
 from .kv_cache import BlockAllocator, init_kv_cache
 from .model import build_decode, build_prefill
 from .observability import (ServingObservability, latency_receipt,
                             mint_trace_id)
+from .resilience import drain_deadline_secs
 from .scheduler import ContinuousBatchScheduler, Request
 
 logger = logging.getLogger(__name__)
-
-
-def drain_deadline_secs():
-    """Bounded-drain deadline under the ``DS_TERM_DRAIN_DEADLINE_SECS``
-    contract (port of ``inference/resilience.py:328``): an explicit value
-    wins, ``<= 0`` disables the bound, otherwise 90% of the kill grace
-    (``DS_TERM_GRACE_SECS``, default 30 s)."""
-    try:
-        grace = float(os.environ.get("DS_TERM_GRACE_SECS", "30"))
-    except ValueError:
-        grace = 30.0
-    raw = os.environ.get("DS_TERM_DRAIN_DEADLINE_SECS", "")
-    try:
-        return float(raw) if raw else grace * 0.9
-    except ValueError:
-        logger.warning("DS_TERM_DRAIN_DEADLINE_SECS=%r is not a number; "
-                       "using the default (90%% of the kill grace)", raw)
-        return grace * 0.9
 
 
 class InferenceEngine:
@@ -123,8 +111,9 @@ class InferenceEngine:
             self._dev[name] = torch.zeros(shape, dtype=torch.int64,
                                           device=self.device)
         self.telemetry_config = DeepSpeedTelemetryConfig(param_dict)
+        # a replica of a launcher fleet writes its own rank's files
         self.telemetry = TelemetryManager(self.telemetry_config,
-                                          rank=get_rank(),
+                                          rank=fleet_identity()[0],
                                           device=self.device)
         self.decode_iterations = 0
         # the serving observability plane: lifecycle tracing, occupancy
@@ -137,6 +126,8 @@ class InferenceEngine:
         self._next_request_id = 0
         self._draining = False
         self._closed = False
+        self._health = None
+        self._pending_fingerprint = None
         self.telemetry.emit(TEL.EVENT_RUN_START, world_size=1,
                             mode="serving",
                             max_batch_slots=icfg.max_batch_slots,
@@ -287,7 +278,9 @@ class InferenceEngine:
     @torch.no_grad()
     def _decode_once(self):
         """One continuous-batch decode iteration over the active slots,
-        with one host sync: the next-token fetch."""
+        with one host sync: the next-token fetch.  With a health plane
+        attached, the cadence iterations fold the recomputed weight
+        fingerprint into that same fetch."""
         sched = self.scheduler
         tables = self._host_view("tables")
         ctx_lens = self._host_view("ctx_lens")
@@ -302,12 +295,25 @@ class InferenceEngine:
             ctx_lens[request.slot] = request.context_len - 1
             tokens[request.slot] = request.generated[-1]
             before.append(request)
+        fp_dev = None
+        if self._health is not None:
+            # liveness tick for ENTERING this iteration (throttled O(1)
+            # publish; a wedged decode never refreshes it again)
+            self._health.beat(self.decode_iterations + 1)
+            if (self.decode_iterations + 1) % self.steps_per_print == 0:
+                fp_dev = self._health.fingerprint_device()
         t0 = time.monotonic()
         next_dev = self._decode(self.params, self._k_cache, self._v_cache,
                                 self._to_device("tables"),
                                 self._to_device("ctx_lens"),
                                 self._to_device("tokens"))
+        if fp_dev is not None:
+            # the fingerprint (below 2^32) rides the token fetch
+            next_dev = torch.cat([next_dev.to(torch.int64).reshape(-1),
+                                  fp_dev.reshape(1)])
         next_tokens = next_dev.tolist()  # the iteration's one host sync
+        if fp_dev is not None:
+            self._pending_fingerprint = next_tokens.pop()
         now = time.monotonic()
         self.decode_iterations += 1
         for request in before:
@@ -342,6 +348,17 @@ class InferenceEngine:
             free_blocks=self.allocator.free_blocks,
             reserved_tokens=sched.reserved_tokens())
         self.observability.export_serving_window()
+
+    def _sample_integrity(self):
+        """Print-cadence health sample (JAX ``engine.py:386-396``): hand
+        the fingerprint the decode fetch already brought back to the
+        health plane — publish, fleet read, majority vote.  Raises
+        :class:`~deepspeed_tpu_torch.resilience.constants.FleetIntegrityError`
+        (exit code 87) when the vote convicts a replica."""
+        if self._health is None or self._pending_fingerprint is None:
+            return
+        value, self._pending_fingerprint = self._pending_fingerprint, None
+        self._health.note_weight_fingerprint(value)
 
     def _sweep_finished(self):
         """The scheduler's sweep of finished slots, each with its
@@ -388,6 +405,7 @@ class InferenceEngine:
         if (self.decode_iterations
                 and self.decode_iterations % self.steps_per_print == 0):
             self._sample_telemetry()
+            self._sample_integrity()
         return finished
 
     def run(self):
@@ -455,8 +473,19 @@ class InferenceEngine:
         return receipt
 
     # ------------------------------------------------------------------
-    # shutdown
+    # health plane and shutdown
     # ------------------------------------------------------------------
+    def attach_health(self, health):
+        """Arm the serving health plane (a
+        :class:`~deepspeed_tpu_torch.inference.resilience.ServingHealth`:
+        heartbeats per decode iteration and the weight-fingerprint
+        consensus on the print cadence) and start its peer monitor.
+        Adds no host sync: the fingerprint rides the decode loop's
+        next-token fetch."""
+        self._health = health
+        health.start()
+        return health
+
     def drain(self, deadline_secs=None):
         """Stop admission and finish the in-flight decodes up to a
         bounded deadline (``DS_TERM_DRAIN_DEADLINE_SECS`` contract;
@@ -489,7 +518,7 @@ class InferenceEngine:
 
     def close(self, reason="serve_done"):
         """Stop admission, drain the in-flight decodes up to the bounded
-        deadline, then flush and close telemetry (whose close writes the
+        deadline, stop the health plane, then flush and close telemetry (whose close writes the
         ``run_end`` event).  Idempotent."""
         if self._closed:
             return
@@ -497,4 +526,6 @@ class InferenceEngine:
         if self.scheduler.active_count:
             self.drain()
         self._draining = True
+        if self._health is not None:
+            self._health.stop()
         self.telemetry.close(reason=reason)

@@ -1,4 +1,4 @@
-"""Training resilience at one rank (port of ``deepspeed_tpu/resilience/``):
+"""Training resilience (port of ``deepspeed_tpu/resilience/``):
 detect bad steps, recover, prove it.
 
 - :mod:`.guard`: per-step anomaly detection (non-finite gradients or
@@ -12,13 +12,14 @@ detect bad steps, recover, prove it.
   respawnable code;
 - :mod:`.chaos`: a seeded fault injector (NaN batches, torn, corrupt and
   delayed checkpoints, a crash mid-save, SIGTERM, step hangs and kills,
-  state bitflips).
+  state bitflips);
+- :mod:`.integrity`: the fleet integrity plane across ranks or replicas
+  (fingerprint consensus, heartbeats and the hang quorum, the verdict
+  files the launcher's elastic supervisor acts on), stdlib-only, with
+  :mod:`.fingerprint`, the state checksum it votes on.
 
-The fleet integrity plane (``integrity.py``: fingerprint consensus and
-the hang quorum) and the elastic supervisor work across data-parallel
-ranks and are ROADMAP A15's second half.  The exit codes and
-:class:`TrainingDivergedError` live in :mod:`.constants`; the other
-modules load lazily.
+The exit codes and :class:`TrainingDivergedError` live in
+:mod:`.constants`; the other modules load lazily.
 """
 
 from .constants import (EXIT_DIVERGENCE_ABORT, EXIT_INTEGRITY_EVICT,  # noqa: F401,E501

@@ -23,8 +23,8 @@ Faults mirror the real-world menagerie:
 - ``bitflip_steps`` — silent data corruption: ONE seeded element of
   the targeted rank's master (or optimizer) state gets a bit flipped
   right before the step pulls its batch, with no crash, no NaN, no log
-  line (across data-parallel replicas only a fingerprint consensus
-  sees it: ROADMAP A15's second half);
+  line (across data-parallel replicas only the fingerprint consensus
+  of :mod:`.integrity` sees it);
 
 Rank-targetable faults (``kill_steps``/``sigterm_steps``/
 ``hang_steps``/``bitflip_steps``) hit a SPECIFIC rank: pass

@@ -4,17 +4,16 @@
 Parsed by :class:`~deepspeed_tpu_torch.runtime.config.DeepSpeedConfig`
 like every other block; the keys live in ``runtime/constants.py``, whose
 schema gives a misspelled key (``"polcy"``) a "did you mean 'policy'?".
-The integrity keys are parsed as the JAX package parses them, and
-``integrity: true`` raises: the fleet integrity plane across
-data-parallel ranks is ROADMAP A15's second half.
+The integrity keys arm the fleet integrity plane
+(:mod:`~deepspeed_tpu_torch.resilience.integrity`), whose arming rules
+the engine applies.
 """
 
 from ..runtime import constants as C
 from ..runtime.config_utils import get_scalar_param
 from .constants import GUARD_POLICIES
+from .integrity import INTEGRITY_ACTIONS
 
-# integrity.py's actions (the JAX package's INTEGRITY_ACTIONS)
-INTEGRITY_ACTIONS = ("evict", "warn")
 
 
 class DeepSpeedResilienceConfig:
@@ -90,11 +89,6 @@ class DeepSpeedResilienceConfig:
         assert self.integrity_peer_timeout_secs >= 0, (
             "resilience.integrity_peer_timeout_secs must be >= 0 "
             "(0 disables the fleet heartbeat)")
-        if self.integrity:
-            raise NotImplementedError(
-                "resilience.integrity (fingerprint consensus and the hang "
-                "quorum across data-parallel ranks) is not ported yet "
-                "(ROADMAP A15's second half)")
 
     def __repr__(self):
         return (f"DeepSpeedResilienceConfig(enabled={self.enabled}, "

@@ -17,7 +17,10 @@ the kwargs ``build_sparsity_config`` takes), ``activation_checkpointing``
 ``telemetry``
 (:class:`~deepspeed_tpu_torch.telemetry.config.DeepSpeedTelemetryConfig`),
 ``tensorboard`` (the monitor's ``enabled``, ``output_path``,
-``job_name``) and ``sparse_gradients``.  A ``ring_attention`` block is known and
+``job_name``) and ``sparse_gradients``.  An enabled ``elasticity`` block
+derives ``train_batch_size``, the micro-batch and the accumulation
+steps from the data-parallel world size before the batch triple is
+solved (JAX ``:287-319``, :mod:`deepspeed_tpu_torch.elasticity`).  A ``ring_attention`` block is known and
 logs that it has no effect: a model's ``attn_impl="ring"`` and the
 mesh's ``seq`` axis select the ring.  The engines read ``mesh`` through
 :func:`get_mesh_config` and the pipeline engine reads ``pipeline``
@@ -34,6 +37,10 @@ when set, naming their ROADMAP item.
 import logging
 
 from ..checkpoint.config import DeepSpeedCheckpointConfig
+from ..elasticity import (compute_elastic_config, elasticity_enabled,
+                          ensure_immutable_elastic_config)
+from ..elasticity import constants as EC
+from ..elasticity.config import ElasticityConfigError
 from ..resilience.config import DeepSpeedResilienceConfig
 from ..telemetry.config import DeepSpeedTelemetryConfig
 from . import constants as C
@@ -228,9 +235,45 @@ class DeepSpeedConfig:
                 "strict_config: rejected configuration: "
                 + "; ".join(issues))
         self.world_size = world_size
+        self.elasticity_enabled = elasticity_enabled(param_dict)
+        if self.elasticity_enabled:
+            self._param_dict = param_dict = self._elastic_batch(param_dict)
         self._initialize_params(param_dict)
         self._configure_train_batch_size()
         self._do_error_check()
+
+    def _elastic_batch(self, param_dict):
+        """A copy of ``param_dict`` whose batch triple the elastic
+        schedule sets for this world size (JAX ``config.py:287-319``):
+        the schedule's global batch, the largest listed micro-batch that
+        divides this world's share, and the accumulation steps between
+        them.  A config that also sets a batch key raises, unless the
+        block sets ``ignore_non_elastic_batch_info``."""
+        logger.info("DeepSpeed elasticity support enabled")
+        final_batch, valid, micro = compute_elastic_config(
+            ds_config=param_dict, target_deepspeed_version="0",
+            world_size=self.world_size)
+        elastic = param_dict[EC.ELASTICITY]
+        ensure_immutable_elastic_config(runtime_elastic_config_dict=elastic)
+        if not elastic.get(EC.IGNORE_NON_ELASTIC_BATCH_INFO,
+                           EC.IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT):
+            batch_keys = (C.TRAIN_BATCH_SIZE,
+                          C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                          C.GRADIENT_ACCUMULATION_STEPS)
+            if any(k in param_dict for k in batch_keys):
+                raise ElasticityConfigError(
+                    "One or more batch related parameters were found in "
+                    "your ds_config. These parameters *will not be used* "
+                    "since elastic training is enabled, which takes "
+                    "control of these parameters. To suppress this error "
+                    f"set '{EC.IGNORE_NON_ELASTIC_BATCH_INFO}':true in "
+                    "your elasticity config.")
+        logger.info(f"[Elasticity] valid device counts: {valid}")
+        return {**param_dict,
+                C.TRAIN_BATCH_SIZE: final_batch,
+                C.TRAIN_MICRO_BATCH_SIZE_PER_GPU: micro,
+                C.GRADIENT_ACCUMULATION_STEPS:
+                    final_batch // (micro * self.world_size)}
 
     def _initialize_params(self, param_dict):
         self.train_batch_size = get_scalar_param(

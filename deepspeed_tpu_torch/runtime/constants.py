@@ -187,12 +187,6 @@ SECTION_KEYS = {
     "profiling": ("comm_ledger", "memory_ledger", "memory_watermarks",
                   "program_dump"),
     "progressive_layer_drop": ("enabled", "gamma", "theta"),
-    "resilience": ("checkpoint_dir", "divergence_patience", "enabled",
-                   "floor_scale_patience", "hang_timeout_secs", "integrity",
-                   "integrity_action", "integrity_peer_timeout_secs",
-                   "integrity_window", "max_rollbacks", "policy",
-                   "rollback_cooldown_steps", "spike_window", "spike_zscore",
-                   "straggler_factor"),
     "resilience": (
         "checkpoint_dir", "divergence_patience", "enabled",
         "floor_scale_patience", "hang_timeout_secs", "integrity",
@@ -214,8 +208,7 @@ SECTION_KEYS = {
 }
 # blocks the port parses but does not implement yet -> ROADMAP item
 UNPORTED_SECTIONS = {
-    "compilation": "A16", "elasticity": "A15", "flops_profiler": "A16",
-    "profiling": "A12/A16",
+    "compilation": "A16", "flops_profiler": "A16", "profiling": "A12/A16",
 }
 
 #############################################
@@ -324,9 +317,8 @@ CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT = False
 
 #############################################
 # Resilience subsystem (deepspeed_tpu_torch/resilience): the "resilience"
-# block, keys and defaults of the JAX package's (:336-404).  The
-# integrity keys are parsed and refused when on: the fleet integrity
-# plane is ROADMAP A15's second half
+# block, keys and defaults of the JAX package's (:336-404), the fleet
+# integrity plane's keys included
 #############################################
 RESILIENCE = "resilience"
 RESILIENCE_ENABLED = "enabled"

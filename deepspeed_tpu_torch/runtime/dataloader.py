@@ -8,10 +8,18 @@ parallelism every process iterates the dataset in the same seeded order
 and keeps its contiguous slice of each global micro-batch (JAX
 ``dataloader.py:61-205``, the reference's ``DistributedSampler`` made
 batch-wise); the cursor counts global samples, so a run resumes at
-another data-parallel degree.
+another data-parallel degree.  Given the data-parallel process group,
+the loader checks on an epoch's first batch that every rank iterates
+the same order (``DS_VERIFY_DATA_ORDER``, JAX ``dataloader.py:143-195``).
 """
 
+import logging
+import os
+import zlib
+
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 _END = object()
 
@@ -51,11 +59,13 @@ class DeepSpeedDataLoader:
     of samples) into global micro-batches of ``batch_size`` (the
     micro-batch per rank × ``data_parallel_world_size``), of which this
     process yields its ``data_parallel_rank``-th slice; a seeded shuffle
-    makes an epoch's order a pure function of ``(seed, epoch)``."""
+    makes an epoch's order a pure function of ``(seed, epoch)``.
+    ``group`` is the data-parallel process group the order check
+    gathers over (None: no check)."""
 
     def __init__(self, dataset, batch_size, collate_fn=None, shuffle=False,
                  seed=0, drop_last=True, data_parallel_world_size=1,
-                 data_parallel_rank=0):
+                 data_parallel_rank=0, group=None):
         world = max(int(data_parallel_world_size), 1)
         if not 0 <= data_parallel_rank < world:
             raise ValueError(f"data_parallel_rank {data_parallel_rank} is "
@@ -65,6 +75,7 @@ class DeepSpeedDataLoader:
                              f"{world} data-parallel processes")
         self.world = world
         self.rank = data_parallel_rank
+        self.group = group
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or _stack_samples
@@ -109,8 +120,56 @@ class DeepSpeedDataLoader:
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        self._verify_shared_order(order)
         for i in order:
             yield self.dataset[int(i)]
+
+    @staticmethod
+    def order_fingerprint(order):
+        """Deterministic 32-bit fingerprint of an iteration order (CRC-32
+        over the int64 index bytes, the JAX package's); identical across
+        processes iff the orders are identical."""
+        return zlib.crc32(np.ascontiguousarray(
+            np.asarray(order, np.int64)).tobytes()) & 0xFFFFFFFF
+
+    def _verify_shared_order(self, order):
+        """Every data-parallel rank must iterate the dataset in the SAME
+        order — each keeps its slice of every global batch, so a rank
+        seeded differently trains on duplicated or missing shards with
+        no error.  One all-gather of the order's fingerprint over the
+        data group turns that into a loud failure on the epoch's first
+        batch.  ``DS_VERIFY_DATA_ORDER``: ``epoch0`` (the default)
+        checks the first epoch only, ``always`` every epoch, ``never``
+        disables.  A world of one never gathers."""
+        if self.world <= 1 or self.group is None:
+            return
+        mode = os.environ.get("DS_VERIFY_DATA_ORDER", "epoch0")
+        if mode not in ("epoch0", "always", "never"):
+            logger.warning(
+                f"DS_VERIFY_DATA_ORDER={mode!r} is not one of "
+                "epoch0/always/never; treating as 'epoch0'")
+            mode = "epoch0"
+        if mode == "never" or (mode == "epoch0" and self.epoch > 1):
+            return
+        import torch
+        import torch.distributed as dist
+
+        # one uint32 in an int64 word (gloo has no uint32); on the card
+        # under NCCL
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend(self.group) == "nccl"
+                  else torch.device("cpu"))
+        fp = torch.tensor([self.order_fingerprint(order)],
+                          dtype=torch.int64, device=device)
+        gathered = [torch.empty_like(fp)
+                    for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(gathered, fp, group=self.group)
+        fps = torch.cat(gathered).tolist()
+        if len(set(fps)) > 1:
+            raise RuntimeError(
+                f"data-parallel dataloader order drift: per-rank order "
+                f"fingerprints differ ({fps}); every rank must construct "
+                f"the loader with the same dataset, seed, and shuffle flag")
 
     def __iter__(self):
         resume = self._pending_state

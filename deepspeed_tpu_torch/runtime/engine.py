@@ -194,12 +194,33 @@ dir; host spans time the batch fetch, the dispatch, the fetches and the
 checkpoint snapshot; a trigger file starts a ``torch.profiler`` device
 trace.  None of it adds a host sync.
 
+The fleet integrity plane (``resilience.integrity``, JAX ``:842-968``,
+``:1140-1290``; :mod:`deepspeed_tpu_torch.resilience.integrity`): with
+telemetry's run dir as the exchange medium, each rank publishes a
+fingerprint of its (master, optimizer state)
+(:func:`~deepspeed_tpu_torch.resilience.fingerprint.fingerprint`) every
+``steps_per_print`` steps and votes on the fleet's; a rank whose
+fingerprint disagrees with the majority is written into a verdict file
+and the step raises :class:`~deepspeed_tpu_torch.resilience.constants.FleetIntegrityError`
+(exit code 87), which the launcher's elastic supervisor resizes around
+(:mod:`deepspeed_tpu_torch.launcher.launch`).  The fingerprint of the
+state a step starts from rides that step's one batched fetch (the
+overflow flag and the loss), so it adds no host sync; it is armed only
+where each process holds a full replica of the state (no process group,
+or one whose only axis above 1 is ``data``, at ZeRO-0; no offload).  A
+fleet of three or more also runs the heartbeat and hang quorum.  At the
+print cadence each rank publishes its step-latency ring and a
+slowest-over-median ratio at or above ``resilience.straggler_factor``
+is a ``straggler`` anomaly (JAX ``:1538-1590``).  The fleet's rank and
+size are the launcher's ``DS_PROCESS_ID`` and ``DS_NUM_PROCESSES`` where
+it set them (a fleet of full replicas runs without a process group),
+else the process group's.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
 offload above one rank (A9), ZeRO-3 and 1-bit Adam
 under a pipeline (A13 remainder), 1-bit Adam and ``sparse_gradients``
-above one model or expert rank (A18), what does not compose with
-``seq`` yet (A19), and resilience's fleet integrity plane and elastic
-supervisor (A15's second half).
+above one model or expert rank (A18), and what does not compose with
+``seq`` yet (A19).
 """
 
 import dataclasses
@@ -226,8 +247,12 @@ from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.op_common import LANES
 from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
                              SEQ_AXIS, Mesh, current_mesh, make_mesh)
+from ..profiling import comm as comm_prof
 from ..profiling.step_profiler import StepLatencyRing
-from ..resilience.constants import TrainingDivergedError
+from ..resilience import integrity as integ
+from ..resilience.constants import (FleetIntegrityError,
+                                    TrainingDivergedError)
+from ..resilience.fingerprint import fingerprint
 from ..resilience.guard import (ACTION_ABORT, ACTION_ROLLBACK,
                                 AnomalyGuard)
 from ..resilience.rollback import RollbackManager
@@ -235,7 +260,8 @@ from ..resilience.watchdog import StepWatchdog
 from ..telemetry import events as TEL
 from ..telemetry.manager import TelemetryManager
 from ..utils.device import resolve_device
-from ..utils.distributed import get_rank, get_world_size, init_distributed
+from ..utils.distributed import (fleet_identity, get_rank, get_world_size,
+                                 init_distributed)
 from ..utils.monitor import TrainingMonitor
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.params import (EXPERT, MODEL, leaf_specs, spec_axes,
@@ -520,7 +546,9 @@ class DeepSpeedEngine:
                 training_data, self.train_micro_batch_size_per_gpu() * dp,
                 collate_fn=collate_fn, seed=self._config.seed,
                 data_parallel_world_size=dp,
-                data_parallel_rank=self.dp_rank)
+                data_parallel_rank=self.dp_rank,
+                group=(self.mesh.group(DATA_AXIS) if self.mesh is not None
+                       else None))
         self._train_iter = None
         self.global_steps = 0
         self.micro_steps = 0
@@ -1161,7 +1189,7 @@ class DeepSpeedEngine:
         stops after the print cadence's loss fetch
         (see :class:`~deepspeed_tpu_torch.utils.timer.ThroughputTimer`)."""
         cfg = self._config
-        rank = get_rank()
+        rank = fleet_identity()[0]
         self.monitor = TrainingMonitor(
             cfg.tensorboard_enabled, cfg.tensorboard_output_path,
             cfg.tensorboard_job_name, rank=rank)
@@ -1203,9 +1231,12 @@ class DeepSpeedEngine:
 
     def close(self):
         """Flush and close every telemetry sink (events, trace, metrics
-        snapshot, monitor); a device trace still running is stopped and
-        exported.  Idempotent; also registered with ``atexit``, so a run
-        that exits normally keeps its tail events without calling it."""
+        snapshot, monitor) and stop the fleet-heartbeat monitor; a device
+        trace still running is stopped and exported.  Idempotent; also
+        registered with ``atexit``, so a run that exits normally keeps
+        its tail events without calling it."""
+        if self._fleet_heartbeat is not None:
+            self._fleet_heartbeat.stop()
         self.telemetry.close()
 
     def _build_resilience(self):
@@ -1216,7 +1247,13 @@ class DeepSpeedEngine:
         self._guard = None
         self._rollback_mgr = None
         self._watchdog = None
-        self._step_latencies = None
+        # the step-latency ring is always on (O(1) host work a step):
+        # the watchdog's post-mortem and the straggler exchange read it
+        self._step_latencies = StepLatencyRing()
+        self._integrity = None
+        self._fleet_heartbeat = None
+        self._fingerprint_off = False
+        self._pending_fingerprint = None
         if not rcfg.enabled:
             return
         self._guard = AnomalyGuard(
@@ -1232,13 +1269,293 @@ class DeepSpeedEngine:
             cooldown_steps=rcfg.rollback_cooldown_steps,
             checkpoint_dir=rcfg.checkpoint_dir)
         if rcfg.hang_timeout_secs > 0:
-            self._step_latencies = StepLatencyRing()
             self._watchdog = StepWatchdog(
                 rcfg.hang_timeout_secs, latency_ring=self._step_latencies,
                 describe=lambda: (f"global_step={self.global_steps} "
                                   f"micro_steps={self.micro_steps}"),
                 on_fire=self._telemetry_watchdog_fire).start()
         logger.info(f"resilience enabled: {rcfg}")
+        self._build_integrity()
+
+    def _full_replica(self):
+        """Whether this process holds a whole replica of (master,
+        optimizer state): no mesh, or one whose only axis above 1 is
+        ``data``, at ZeRO-0.  Each process's fingerprint is then one
+        replica's, and the replicas must agree bit for bit (the JAX
+        engine's rule at ``:881-898`` guards a checksum that is a
+        global reduction; the port's is always local, so this is its
+        condition)."""
+        if self.mesh is None:
+            return True
+        others = [ax for ax in (MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, EXPERT_AXIS)
+                  if self.mesh.size(ax) > 1]
+        return not others and (self.dp_world_size == 1
+                               or self.zero_stage == 0)
+
+    def _build_integrity(self):
+        """The fleet integrity plane of ``resilience.integrity`` (JAX
+        ``engine.py:842-968``): the fingerprint consensus for a fleet of
+        two or more full replicas, the heartbeat and hang quorum for a
+        fleet of three or more, each refused with the JAX package's
+        reasons."""
+        rcfg = self.resilience_config
+        if not rcfg.integrity:
+            return
+        if not (self.telemetry.enabled and self.telemetry.run_dir):
+            logger.warning(
+                "resilience.integrity needs telemetry enabled with a "
+                "run_dir (the fingerprint/heartbeat exchange medium); "
+                "integrity plane disabled")
+            return
+        fleet_rank, fleet_size = fleet_identity()
+        if fleet_size < 2:
+            # min_quorum is always >= 2: a single process can never
+            # reach a verdict
+            logger.warning(
+                "resilience.integrity: fingerprint consensus needs a fleet "
+                "of >= 2 ranks (single process can never reach a voting "
+                "quorum); integrity plane not armed")
+        elif not self._full_replica():
+            logger.warning(
+                "resilience.integrity: fingerprint consensus disabled: "
+                "this process holds a shard of the (master, optimizer) "
+                "state (ZeRO >= 1 above one data rank, or a model, pipe, "
+                "seq or expert axis above 1), so per-process fingerprints "
+                "legitimately differ and per-shard fingerprints are not "
+                "implemented; fleet heartbeat still armed")
+        elif self._offload:
+            # the offloaded state is host-resident because it does not
+            # fit on the card; a chunked host-side checksum is future
+            # work (the JAX engine's refusal, :899-911)
+            logger.warning(
+                "resilience.integrity: fingerprint consensus disabled "
+                "under ZeRO-Offload (the checksum would re-transfer the "
+                "host-resident state each print cadence); fleet "
+                "heartbeat still armed")
+        else:
+            self._integrity = integ.IntegrityPlane(
+                self.telemetry.run_dir, rank=fleet_rank,
+                fleet_size=fleet_size, window=rcfg.integrity_window,
+                action=rcfg.integrity_action)
+        if rcfg.integrity_peer_timeout_secs > 0:
+            if fleet_size >= 3:
+                self._fleet_heartbeat = integ.FleetHeartbeat(
+                    self.telemetry.run_dir, rank=fleet_rank,
+                    fleet_size=fleet_size,
+                    peer_timeout_secs=rcfg.integrity_peer_timeout_secs,
+                    action=rcfg.integrity_action,
+                    on_fire=self._telemetry_integrity_hang).start()
+            elif fleet_size == 2:
+                # with 2 ranks a strict majority at the head means BOTH
+                # are at the head: the quorum can never convict
+                logger.warning(
+                    "resilience.integrity: hang quorum needs a fleet of "
+                    ">= 3 ranks (2 ranks can never reach a convicting "
+                    "majority); fleet heartbeat not armed — each rank's "
+                    "local watchdog remains the hang authority")
+        launcher_dir = os.environ.get("DS_TELEMETRY_DIR")
+        if launcher_dir and (os.path.abspath(launcher_dir)
+                             != os.path.abspath(self.telemetry.run_dir)):
+            # the launcher consumes verdicts / clears fleet state from
+            # ITS --telemetry-dir; an exchange elsewhere makes every
+            # eviction blind
+            logger.warning(
+                "resilience.integrity: telemetry.run_dir "
+                f"({self.telemetry.run_dir}) differs from the launcher's "
+                f"--telemetry-dir ({launcher_dir}); the launcher consumes "
+                "integrity verdicts and clears fleet state from its own "
+                "dir, so eviction recovery will NOT see this run's "
+                "verdicts — drop telemetry.run_dir from the config or "
+                "point both at the same directory")
+        armed = [h for h, on in (
+            ("fingerprint consensus", self._integrity is not None),
+            ("hang quorum", self._fleet_heartbeat is not None)) if on]
+        if armed:
+            logger.info(
+                f"fleet integrity plane armed ({', '.join(armed)}): rank "
+                f"{fleet_rank}/{fleet_size}, window "
+                f"{rcfg.integrity_window}, action "
+                f"{rcfg.integrity_action}, peer timeout "
+                f"{rcfg.integrity_peer_timeout_secs:g}s")
+
+    # ------------------------------------------------------------------
+    # fleet integrity plane (resilience/integrity.py)
+    # ------------------------------------------------------------------
+    def _integrity_step_enter(self):
+        """Entering one optimizer step: publish the fleet heartbeat
+        (throttled atomic file write, O(1) host work, no device access),
+        after the batch fetch, so a wedged input pipeline never
+        publishes the step it failed to enter (JAX ``:1140-1147``)."""
+        if self._fleet_heartbeat is not None:
+            self._fleet_heartbeat.beat(self.global_steps + 1)
+
+    def _telemetry_integrity_hang(self, verdict):
+        """FleetHeartbeat fire hook (JAX ``:1149-1161``): the process
+        exits by ``os._exit`` next, so the verdict event is emitted and
+        flushed here."""
+        self.telemetry.emit(
+            TEL.EVENT_INTEGRITY, step=self.global_steps,
+            verdict="outlier", kind=integ.KIND_HANG,
+            suspects=[verdict["suspect"]],
+            stalled_secs=float(verdict["stalled_secs"]),
+            suspect_step=verdict["suspect_step"],
+            head_step=verdict["head_step"], voters=verdict["leaders"])
+        self.telemetry.counter("integrity/violations").inc()
+        self.telemetry.flush(reason="integrity_hang_quorum")
+
+    def _integrity_leaves(self):
+        """(master, optimizer state) as the fingerprint's leaves, in the
+        JAX tree's order: the master, then the state's fields.  Above one
+        data rank, fields that hold one rank's own values (1-bit Adam's
+        error feedback) are left out: they differ between healthy
+        replicas, while the master and moments they feed stay equal.
+        The JAX checksum covers them stacked over every rank, which no
+        one rank of the port holds."""
+        per_rank = (getattr(self.optimizer, "per_rank_fields", ())
+                    if self.dp_world_size > 1 else ())
+        fields = [v for f, v in state_fields(self.opt_state).items()
+                  if f not in per_rank]
+        return [self.master, *(v for v in fields
+                               if torch.is_tensor(v) or isinstance(v, int))]
+
+    def _integrity_fingerprint_device(self):
+        """The fingerprint of the state this step starts from (0-d int64
+        device tensor) when one is due — the step after each print
+        cadence, and the first — else None.  Not fetched here: it rides
+        the step's batched fetch."""
+        if (self._integrity is None or self._fingerprint_off
+                or self.global_steps % self.steps_per_print()):
+            return None
+        try:
+            return fingerprint(self._integrity_leaves())
+        except Exception as e:  # noqa: BLE001 — observability only
+            logger.error(
+                "integrity fingerprint failed (%s); disabling the "
+                "fingerprint exchange on this rank", e)
+            self._fingerprint_off = True
+            return None
+
+    def _fetch_step_scalars(self, scalars):
+        """The step's one batched device-to-host copy: the 0-d float32
+        ``scalars`` and, when one is due, the state fingerprint (float64
+        holds both exactly).  Returns the scalars as host floats."""
+        fp = self._integrity_fingerprint_device()
+        with self.telemetry.span("device_get", step=self.global_steps + 1):
+            vals = torch.stack(scalars)
+            if fp is not None:
+                vals = torch.cat([vals.double(), fp.double().reshape(1)])
+            fetched = vals.tolist()
+        if fp is not None:
+            self._pending_fingerprint = (self.global_steps,
+                                         int(fetched.pop()))
+        return fetched
+
+    def vote_integrity(self):
+        """Fingerprint the state now, off the step path (one host sync),
+        publish it under the current step and vote — for the end of a
+        run, whose last state no later step's fetch carries.  Returns
+        the consensus verdict dict, or None with the plane off."""
+        if self._integrity is None:
+            return None
+        self._pending_fingerprint = (
+            self.global_steps, int(fingerprint(self._integrity_leaves())))
+        return self._sample_integrity()
+
+    def _sample_integrity(self):
+        """Publish the pending fingerprint, read the fleet, vote and
+        escalate per ``resilience.integrity_action`` (JAX
+        ``:1226-1290``): host arithmetic and run-dir file I/O on a
+        scalar already fetched.  Returns the verdict dict or None."""
+        if self._pending_fingerprint is None:
+            return None
+        step, value = self._pending_fingerprint
+        self._pending_fingerprint = None
+        verdict = self._integrity.note_fingerprint(step, value)
+        self.telemetry.gauge("integrity/fleet_voters").set(
+            float(verdict["voters"]))
+        self.telemetry.emit(
+            TEL.EVENT_INTEGRITY, step=self.global_steps,
+            verdict=verdict["verdict"], kind="fingerprint",
+            suspects=verdict["suspects"],
+            fingerprint=self._integrity.history.get(step),
+            majority_fingerprint=verdict["fingerprint"],
+            voted_step=verdict["step"], voters=verdict["voters"])
+        if verdict["verdict"] in (integ.VERDICT_OK, integ.VERDICT_PENDING):
+            return verdict
+        self.telemetry.counter("integrity/violations").inc()
+        if self._integrity.action != "evict":
+            logger.error(
+                "integrity verdict %s at step %s (suspects %s) — "
+                "integrity_action=warn, continuing", verdict["verdict"],
+                verdict["step"], verdict["suspects"])
+            return verdict
+        if self._watchdog is not None:
+            # the eviction/poison teardown must never be preempted by
+            # the watchdog's respawnable os._exit
+            self._watchdog.stop()
+        if self._fleet_heartbeat is not None:
+            self._fleet_heartbeat.stop()
+        if verdict["verdict"] == integ.VERDICT_NO_MAJORITY:
+            msg = (f"fleet integrity: NO MAJORITY among "
+                   f"{verdict['voters']} rank(s) at step "
+                   f"{verdict['step']} — nobody can say which replica "
+                   f"is right; poisoning the run")
+            self.telemetry.emit(TEL.EVENT_ABORT, step=self.global_steps,
+                                reason=msg)
+            self.telemetry.flush(reason="integrity_no_majority")
+            raise TrainingDivergedError(msg)
+        suspect = verdict["suspects"][0]
+        detail = (f"state fingerprint of rank(s) {verdict['suspects']} "
+                  f"disagrees with the majority of {verdict['voters']} "
+                  f"voter(s) at step {verdict['step']} "
+                  f"(majority {verdict['fingerprint']})")
+        self._integrity.record_eviction_verdict(
+            integ.KIND_SDC, suspect, detail, step=verdict["step"])
+        self.telemetry.flush(reason="integrity_evict")
+        raise FleetIntegrityError(
+            f"fleet integrity: {detail}; exiting for eviction resize",
+            suspect=suspect, kind=integ.KIND_SDC)
+
+    def _sample_comm_skew(self):
+        """Per-rank step-latency export and the fleet's skew at the
+        print cadence (JAX ``engine.py:1538-1590``): host arithmetic on
+        recorded floats and one tiny run-dir file write and read, no
+        device access.  A slowest-over-median ratio at or above
+        ``resilience.straggler_factor`` is a ``straggler`` anomaly."""
+        if self._step_latencies is None or not self.telemetry.enabled:
+            return
+        snap = self._step_latencies.latency_snapshot()
+        if not snap["n"]:
+            return
+        for key in ("last", "mean", "p50", "p95", "max"):
+            self.telemetry.gauge(f"comm/latency/{key}_secs").set(snap[key])
+        self.telemetry.emit(TEL.EVENT_COMM, step=self.global_steps,
+                            kind=comm_prof.KIND_LATENCY, **snap)
+        rank, size = fleet_identity()
+        comm_prof.publish_rank_latency(self.telemetry.run_dir, rank, snap,
+                                       step=self.global_steps)
+        # a sibling is live if it published within ~20 of our publish
+        # intervals (floor 10 min), and its rank must fit the fleet
+        publish_interval = max(self.steps_per_print(), 1) * snap["p50"]
+        skew = comm_prof.fleet_skew(comm_prof.read_fleet_latencies(
+            self.telemetry.run_dir,
+            max_age_secs=max(600.0, 20.0 * publish_interval),
+            world_size=size))
+        if skew is None:
+            return
+        self.telemetry.gauge("comm/skew/slowest_over_median").set(
+            float(skew["ratio"]))
+        self.telemetry.gauge("comm/skew/ranks").set(float(skew["ranks"]))
+        self.telemetry.emit(TEL.EVENT_COMM, step=self.global_steps,
+                            kind=comm_prof.KIND_SKEW, **skew)
+        factor = self.resilience_config.straggler_factor
+        if factor > 0 and skew["ranks"] >= 2 and skew["ratio"] >= factor:
+            self._telemetry_anomaly(
+                self.global_steps, "straggler",
+                f"rank {skew['slowest_rank']} p50 "
+                f"{skew['slowest']:.4f}s vs fleet median "
+                f"{skew['median']:.4f}s (x{skew['ratio']:.2f} >= "
+                f"straggler_factor {factor:g})")
 
     def _step_beat(self):
         """One completed step: the watchdog's heartbeat (which feeds the
@@ -1255,6 +1572,8 @@ class DeepSpeedEngine:
             self._watchdog.pause()
         if self._step_latencies is not None:
             self._step_latencies.pause()
+        if self._fleet_heartbeat is not None:
+            self._fleet_heartbeat.pause()
 
     def _apply_guard_action(self, action):
         """Escalate an anomaly-guard verdict (JAX ``engine.py:3750-3805``).
@@ -1285,6 +1604,12 @@ class DeepSpeedEngine:
                                 reason=reason)
             self.telemetry.counter("resilience/rollbacks").inc()
             self._guard.notify_rollback()
+            if self._integrity is not None:
+                # the abandoned timeline's fingerprints must not stay up
+                # for peers to vote against while the replay heals this
+                # replica
+                self._integrity.reset_history()
+                self._pending_fingerprint = None
             return True
         if action == ACTION_ABORT:
             if self._watchdog is not None:
@@ -1593,6 +1918,9 @@ class DeepSpeedEngine:
         all-reduce before that fetch, so every rank decides alike."""
         if not self.is_gradient_accumulation_boundary():
             return
+        if not self._in_train_batch:
+            # train_batch beats right after its batch fetch
+            self._integrity_step_enter()
         timed = self._stepwise_timed()
         if timed:
             self.timers("step").start(sync=False)
@@ -1627,11 +1955,13 @@ class DeepSpeedEngine:
         if self.mesh is not None:
             loss = comm.pmean(loss, DATA_AXIS, self.mesh)
         self._step_loss = loss
+        mean_loss = (self._fetch_step_scalars([loss])[0] if self._skip_bad
+                     else None)
         self.optimizer.compressed_update(self.opt_state, self.master, g,
                                          self.optimizer.hyperparams(),
                                          mesh=self.mesh)
         self._refresh_params()
-        return False, (float(loss) if self._skip_bad else None)
+        return False, mean_loss
 
     def _dense_step(self):
         """The exchange, the checks, the clip and the update of a step;
@@ -1648,10 +1978,8 @@ class DeepSpeedEngine:
         self._step_loss = loss
         if self._skip_bad:
             # the one host sync of the step: the overflow flag and the
-            # mean loss in one copy
-            with self.telemetry.span("device_get",
-                                     step=self.global_steps + 1):
-                fetched = torch.stack([flag, loss]).tolist()
+            # mean loss in one copy (with the state fingerprint when due)
+            fetched = self._fetch_step_scalars([flag, loss])
             overflow, mean_loss = fetched[0] > 0, fetched[1]
         if not overflow:
             if norm is not None:
@@ -1766,8 +2094,11 @@ class DeepSpeedEngine:
                 "Train/Samples/lr": lr,
                 "Train/Samples/loss_scale": scale,
             }, skipped=self._skipped)
+            self._sample_comm_skew()
         self._losses = []
         self._step_beat()
+        if self._integrity is not None:
+            self._sample_integrity()
 
     def _unscale(self, g):
         """The flat gradient divided by the loss scale (itself when the
@@ -1818,6 +2149,7 @@ class DeepSpeedEngine:
             self.timers("train_batch").start(sync=True)
         with self.telemetry.span("batch_fetch", step=self.global_steps + 1):
             micro_batches = [next(data_iter) for _ in range(acc)]
+        self._integrity_step_enter()
         self._in_train_batch = True
         try:
             with self.telemetry.span("dispatch", step=self.global_steps + 1):

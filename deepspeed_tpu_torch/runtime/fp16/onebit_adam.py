@@ -51,6 +51,10 @@ class OnebitAdam:
     ``ZERO_SUPPORTED_OPTIMIZERS``)."""
 
     name = "onebit_adam"
+    # the state fields that hold this rank's own error feedback: they
+    # differ between data ranks by design, so no replica comparison (the
+    # fleet fingerprint) may cover them above one data rank
+    per_rank_fields = ("worker_error", "server_error")
 
     def __init__(self, lr=1e-3, freeze_step=100000, betas=(0.9, 0.999),
                  eps=1e-8, weight_decay=0.0, cuda_aware=False, dp=1,

@@ -5,8 +5,10 @@ The JAX package calls ``jax.distributed.initialize`` from its launcher's
 environment; the port calls ``torch.distributed.init_process_group``
 from the same environment, or from torchrun's:
 
-- the JAX launcher's ``DS_COORDINATOR`` (``host:port``),
-  ``DS_NUM_PROCESSES`` and ``DS_PROCESS_ID``, with the MPI library's
+- the launcher's ``DS_COORDINATOR`` (``host:port``),
+  ``DS_NUM_PROCESSES``, ``DS_PROCESS_ID`` and ``DS_LOCAL_RANK`` (the
+  JAX launcher's and the port's,
+  :mod:`deepspeed_tpu_torch.launcher`), with the MPI library's
   rank and size variables for ranks that ``mpirun`` starts (JAX
   ``distributed.py:20-45``);
 - torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
@@ -125,7 +127,21 @@ def get_world_size():
 
 
 def get_local_rank():
-    """This process's index among the ranks of its host: torchrun's
-    ``LOCAL_RANK``, MPI's local rank, else 0."""
-    local = _first_env(("LOCAL_RANK", *_MPI_LOCAL_RANK_VARS))
+    """This process's index among the ranks of its host, the card it
+    binds under NCCL: torchrun's ``LOCAL_RANK`` (which the port's
+    launcher exports too), the JAX launcher's ``DS_LOCAL_RANK`` (the
+    hostfile slot), MPI's local rank, else 0."""
+    local = _first_env(("LOCAL_RANK", "DS_LOCAL_RANK",
+                        *_MPI_LOCAL_RANK_VARS))
     return 0 if local is None else local
+
+
+def fleet_identity():
+    """``(rank, size)`` of this process in its fleet: the launcher's
+    ``DS_PROCESS_ID`` and ``DS_NUM_PROCESSES`` where it set them (a fleet
+    of full replicas runs each process without a process group), else
+    the process group's rank and world size."""
+    rank = os.environ.get("DS_PROCESS_ID", "")
+    size = os.environ.get("DS_NUM_PROCESSES", "")
+    return (int(rank) if rank else get_rank(),
+            int(size) if size else get_world_size())

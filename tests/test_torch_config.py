@@ -285,10 +285,11 @@ def test_config_from_a_json_file_rejects_duplicate_keys(tmp_path):
 
 
 def test_resilience_block_parses_as_the_jax_package_does(caplog):
-    """The ``resilience`` block is ported (ROADMAP A15's one-rank half):
-    it parses into the same values as the JAX package's config, no
-    longer warns, and passes ``strict_config``; ``integrity`` (the fleet
-    integrity plane) raises, naming A15."""
+    """The ``resilience`` block is ported (ROADMAP A15): it parses into
+    the same values as the JAX package's config, no longer warns, and
+    passes ``strict_config``; the fleet integrity plane's keys
+    (``integrity: true`` with its window, action and peer timeout) parse
+    as the JAX package's too."""
     block = {"enabled": True, "policy": "rollback", "spike_window": 16,
              "spike_zscore": 5.0, "divergence_patience": 2,
              "max_rollbacks": 1, "rollback_cooldown_steps": 4,
@@ -308,6 +309,14 @@ def test_resilience_block_parses_as_the_jax_package_does(caplog):
                   "straggler_factor", "integrity", "integrity_window",
                   "integrity_action", "integrity_peer_timeout_secs"):
         assert getattr(got, field) == getattr(want, field), field
-    with pytest.raises(NotImplementedError, match="A15"):
-        DeepSpeedConfig({"train_batch_size": 8,
-                         "resilience": {"enabled": True, "integrity": True}})
+    fleet = {"enabled": True, "integrity": True, "integrity_window": 4,
+             "integrity_action": "warn",
+             "integrity_peer_timeout_secs": 12.5}
+    got = DeepSpeedConfig({"train_batch_size": 8, "resilience": fleet,
+                           "strict_config": True}).resilience_config
+    want = JConfig({"train_batch_size": 8,
+                    "resilience": fleet}).resilience_config
+    for field in ("integrity", "integrity_window", "integrity_action",
+                  "integrity_peer_timeout_secs"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.integrity is True

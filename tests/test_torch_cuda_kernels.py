@@ -589,6 +589,94 @@ def test_train_batch_syncs_only_at_the_print_cadence(cuda_device, telemetry,
 
 
 @pytest.mark.cuda
+def test_integrity_rides_the_steps_one_fetch_on_the_card(cuda_device,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """With ``resilience.integrity`` armed (this process as rank 0 of a
+    fleet of 2), each step still makes exactly one synchronizing copy,
+    as with resilience alone: the state fingerprint of the step after the
+    print cadence rides that copy, and lands in the run dir."""
+    from deepspeed_tpu_torch.resilience import integrity as integ
+
+    monkeypatch.setenv("DS_PROCESS_ID", "0")
+    monkeypatch.setenv("DS_NUM_PROCESSES", "2")
+    monkeypatch.delenv("DS_TELEMETRY_DIR", raising=False)
+    config = GPT2Config(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=128)
+    counts = {}
+    for integrity in (False, True):
+        run_dir = str(tmp_path / f"integrity{int(integrity)}")
+        train = {"train_batch_size": 2, "steps_per_print": 3,
+                 "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                 "bf16": {"enabled": True},
+                 "resilience": {"enabled": True, "integrity": integrity},
+                 "telemetry": {"enabled": True, "run_dir": run_dir}}
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2LMHead(config),
+            model_parameters=random_params(config, 0), config=train,
+            device=cuda_device, dist_init_required=False)
+        assert (engine._integrity is not None) == integrity
+        rng = np.random.RandomState(0)
+        it = iter([{"input_ids": rng.randint(0, 512, size=(2, 128))}
+                   for _ in range(4)])
+        engine.train_batch(it)   # warm-up: kernels, cuBLAS, allocator
+        torch.cuda.synchronize()
+        counts[integrity] = []
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    engine.train_batch(it)
+                counts[integrity].append(
+                    sum("synchroniz" in str(w.message) for w in caught))
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+        if integrity:
+            # the states steps 1 and 4 start from: labels 0 and 3
+            assert sorted(integ.read_fleet_fingerprints(run_dir)[0]) == \
+                [0, 3]
+        engine.close()
+    assert counts[True] == counts[False] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_fingerprint_on_the_card_equals_the_cpus(cuda_device):
+    """The fleet fingerprint of the same leaves on the card and on the
+    CPU, without a synchronizing call on the card: a 32-bit leaf of more
+    than one run (its full rows straight from the leaf, its tail packed
+    with the next leaf), 16-bit, bool, 8-byte and all-ones leaves, and a
+    Python int."""
+    from deepspeed_tpu_torch.resilience.fingerprint import CHUNK, fingerprint
+
+    g = torch.Generator().manual_seed(5)
+    leaves = [torch.randn(CHUNK + 5 * 4096 + 77, generator=g),
+              torch.randn(7000, generator=g),
+              torch.randn(3 * 4096 + 1, generator=g).bfloat16(),
+              torch.randint(-2 ** 31, 2 ** 31 - 1, (100,), generator=g,
+                            dtype=torch.int32),
+              torch.rand(1000, generator=g) < 0.5,
+              torch.randn(333, generator=g, dtype=torch.float64),
+              torch.full((CHUNK,), -1, dtype=torch.int32), 7]
+    on_card = [x.to(cuda_device) if torch.is_tensor(x) else x
+               for x in leaves]
+    fingerprint(on_card)     # warm-up: the byte weights, cuBLAS
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = fingerprint(on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert int(got) == int(fingerprint(leaves))
+
+
+@pytest.mark.cuda
 def test_fp16_engine_skips_a_forced_overflow_through_the_fp16_kernels(
         cuda_device):
     """Tiny GPT-2 in fp16 (dropout 0.1, seq 256: B1, B2a+B2b and B4, all
