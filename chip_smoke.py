@@ -40,7 +40,7 @@ failure raises, so the script exits non-zero:
               fused-QKV views, a fully masked row at s=1024: out 0 and
               lse MAX_FLOOR, BERT's 21 gathered rows with a key mask
               and dropout); its device time per launch at each bucket
-              (median of 20 runs of 10 back-to-back launches between
+              (median of 10 runs of 10 back-to-back launches between
               CUDA events) beside the plain version's,
               ``reference_attention``'s (the dispatch's other path,
               behind ``FLASH_MIN_ROWS``), ``scaled_dot_product_attention``'s
@@ -84,10 +84,10 @@ failure raises, so the script exits non-zero:
               WarmupLR, accumulation 2, clipping 1.0: 3 steps on the card
               (through B3) and on the CPU agree to rtol 1e-3;
 8. sparse kernel — B5a and B5b (block-sparse flash forward and backward;
-              in bf16 on B6's tensor-core kernels at G = 1, in fp32
-              scalar) vs ``flash_block_sparse_reference``
-              and ``flash_block_sparse_bwd_reference``, fp32 (TF32 off)
-              and bf16, on fused-QKV views, over ten layouts; two runs
+              in bf16 and fp16 on B6's tensor-core kernels at G = 1, in
+              fp32 scalar) vs ``flash_block_sparse_reference``
+              and ``flash_block_sparse_bwd_reference``, fp32 (TF32 off),
+              bf16 and fp16, on fused-QKV views, over ten layouts; two runs
               bitwise equal; device times at the sparse training
               attention (b=2, h=16, s=4096, d=64, bf16) beside the plain
               versions', SDPA's with the layout as a boolean mask and
@@ -105,10 +105,11 @@ failure raises, so the script exits non-zero:
               256-row blocks, dropout 0: 3 steps on the card (B5a, B5b)
               and on the CPU (the gather path) agree to rtol 1e-3;
 11. agg kernel — B6a, B6b and B6c (the G×G super-tile kernels; bf16
-              on the tensor cores, fp32 scalar) vs
+              and fp16 on the tensor cores, fp32 scalar) vs
               ``flash_block_sparse_agg_reference`` and
               ``flash_block_sparse_agg_bwd_reference`` and vs B5 on the
-              same inputs, fp32 (TF32 off) and bf16, fused-QKV views:
+              same inputs, fp32 (TF32 off), bf16 and fp16, fused-QKV
+              views:
               the BERT train and parity layouts, BigBird at blk 64,
               Fixed at blk 16, blk 24 at G=3, blk 256 at G=2, a per-head
               layout with an empty super-row (out and dq exactly 0, lse
@@ -118,7 +119,7 @@ failure raises, so the script exits non-zero:
               device times at the BERT sparse attention (b=2, h=16,
               s=4096, d=64, bf16) beside the plain versions', SDPA's
               with the layout as a boolean mask and the bound, with the
-              spread of the 20 repeats and the SM clock and power draw
+              spread of the 10 repeats and the SM clock and power draw
               before and after; B6b and B6c in their launch order
               (longest blocks first) against grid order, in turns, with
               bitwise-equal grads; and B6 against B5 at 128-, 64- and
@@ -167,7 +168,12 @@ failure raises, so the script exits non-zero:
               at BERT's shape (``use_fused_backward``'s fp16 rule must
               take B3 exactly where it measured faster); an inf in dO
               and a NaN in q give non-finite grads, out and lse in
-              exactly the plain version's (batch, head) slices;
+              exactly the plain version's (batch, head) slices; then
+              B5a/B5b at the sparse GPT-2 attention and B6a/B6b/B6c at
+              the sparse BERT one in fp16, timed in turns with bf16,
+              beside the fp16 plain versions, SDPA (the layout as a
+              boolean mask) and the bound, and an inf in dO and a NaN in
+              q through both, non-finite where the plain versions are;
 17. fp16 train — phase 6's GPT-2-medium in fp16 under DeepSpeed's
               default dynamic scaler (scale 2^32, window 1000, hysteresis
               2, min 1): steps until the scale settles (3 applied in a
@@ -177,6 +183,12 @@ failure raises, so the script exits non-zero:
               memory beside phase 6's;
 18. fp16 bert train — phase 12's BERT-large the same way: one fp16 B1
               and B3 a layer a step; beside phase 12's;
+18b. fp16 sparse train — phase 13's sparse BERT-large and phase 9's
+              sparse GPT-2-medium at seq 4096 in fp16 from scale 2^16:
+              steps until the scale settles, then 2 warm-up and 3 timed
+              steps; finite, falling losses, no step skipped after the
+              settling, one fp16 B6a, B6b, B6c (B5a, B5b) a layer a step
+              and no other attention launch;
 19. fp16 parity — 2 layers at GPT-2-medium width (vocab cut to 4096,
               one 32-token sequence a step: the host's fp16 matmuls are
               slow), fp16 from scale 2^16, an inf in one compute
@@ -301,7 +313,10 @@ failure raises, so the script exits non-zero:
               s=128, a key mask) called on heads [0, 8), [8, 16) and
               [4, 8) with their head offset: out, lse, dq, dk and dv
               BITWISE the whole call's heads (B4 counts the global
-              head); (b) one full-width GPT-2-medium layer (bf16,
+              head), and B5 (BigBird, 256-row blocks) and B6 (Fixed,
+              128-row blocks) on per-head layouts at b=2, s=4096, the
+              same head ranges on their rows of the layout, bitwise
+              too; (b) one full-width GPT-2-medium layer (bf16,
               attention dropout 0.1) as its m = 2 and 4 Megatron shards
               (``tp_slice``: QKV by heads, ``fc1`` columns, ``attn_out``
               and ``fc2`` rows) run per coordinate, the row-parallel
@@ -374,7 +389,14 @@ failure raises, so the script exits non-zero:
               on: every verdict ok or pending, the final one ok with 2
               voters, and the replicas' losses and state fingerprints
               bitwise equal at every step; the replicas' B1 (a, b), B2a,
-              B2b and B4 (b) launches join the kernels line.
+              B2b and B4 (b) launches join the kernels line;
+39. a18      — on NCCL at world size 1, phase 33's GPT-2-medium (dropout
+              0, 4 micro-batches): OneBitAdam (freeze 2, 2 + 2 steps) on
+              the engine without a mesh and on ``{data: 1, model: 1}``,
+              bitwise; ZeRO-3 under the one-stage ``PipelineEngine``,
+              bitwise phase 33's ZeRO-2 pipeline, no compute params held
+              between steps; OneBitAdam under it within
+              ``A18_ONEBIT_RTOL`` of the engine's.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -530,7 +552,7 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def device_times(fn, calls=10, repeats=20, warmup=3):
+def device_times(fn, calls=10, repeats=10, warmup=3):
     """Device time per call, in ms, of each of ``repeats`` runs of
     ``calls`` back-to-back calls between two CUDA events.  A spin kernel
     holds the stream until the host has queued the whole run, so no host
@@ -560,7 +582,7 @@ def device_times(fn, calls=10, repeats=20, warmup=3):
     return times
 
 
-def device_ms(fn, calls=10, repeats=20, warmup=3):
+def device_ms(fn, calls=10, repeats=10, warmup=3):
     """The median of :func:`device_times`."""
     return statistics.median(device_times(fn, calls, repeats, warmup))
 
@@ -1067,7 +1089,7 @@ def time_backward(card, results, max_err):
           f"{dq_row['kernel_ms'] + dkv_row['kernel_ms']:.5f} ms, no dropout "
           f"{no_drop_ms:.5f} ms; SDPA backward {sdpa[0.0]:.5f} ms, with dropout_p=0.1 "
           f"{sdpa[DROPOUT]:.5f} ms; plain {plain_ms:.5f} ms; bound "
-          f"{dq_row['bound_ms'] + dkv_row['bound_ms']:.5f} ms; 20 repeats "
+          f"{dq_row['bound_ms'] + dkv_row['bound_ms']:.5f} ms; 10 repeats "
           f"B2a {dq_row['kernel_ms_min']:.5f}-{dq_row['kernel_ms_max']:.5f}, "
           f"B2b {dkv_row['kernel_ms_min']:.5f}-{dkv_row['kernel_ms_max']:.5f};"
           f" clocks.sm, clocks.max.sm, power.draw after: {clocks['after']} "
@@ -1373,9 +1395,10 @@ KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
                    "B6c": fbs.flash_block_sparse_agg_bwd_dkv}
 
 
-# the fp16 launches of B1-B4, counted again beside their all-dtype counts
+# the fp16 launches of every kernel, counted again beside their
+# all-dtype counts
 FP16_COUNTERS = {f"{name} fp16": KERNEL_COUNTERS[name].fp16
-                 for name in ("B1", "B2a", "B2b", "B3", "B4")}
+                 for name in KERNEL_COUNTERS}
 
 
 def reset_launches():
@@ -1652,56 +1675,92 @@ def sparse_chain(q, k, v, dout, layout, causal):
         q, k, v, out, lse, dout, layout, causal))
 
 
+def check_sparse_case(label, layout, causal, q, k, v, dout, dtype):
+    """B5a, B5b on one case: two runs bitwise equal, against the plain
+    versions, and out 0, dq 0 for a row with no active block; returns the
+    max errors."""
+    got = sparse_chain(q, k, v, dout, layout, causal)
+    torch.cuda.synchronize()
+    again = sparse_chain(q, k, v, dout, layout, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          f"sparse {label}: two runs are not bitwise equal")
+    out, lse, dq, dk, dv = got
+    ref_out, ref_lse = fbs.flash_block_sparse_reference(q, k, v, layout,
+                                                        causal)
+    tol, gtol = TOLS[dtype], GRAD_TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    errs = {"out": float((out.float() - ref_out.float()).abs().max())}
+    del ref_out, ref_lse
+    ref = fbs.flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
+                                               layout, causal)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"sparse {label}: non-finite {name}")
+        torch.testing.assert_close(
+            g.float(), r.float(), atol=gtol, rtol=gtol,
+            msg=lambda m: f"sparse {label} {name}: {m}")
+        errs[name] = float((g.float() - r.float()).abs().max())
+    del ref
+    if label.startswith("per_head"):
+        s = q.shape[1]
+        blk = s // layout.shape[1]
+        check(not bool(out[:, 3 * blk:4 * blk, 1].any())
+              and not bool(dq[:, 3 * blk:4 * blk, 1].any())
+              and not bool(out[:, 5 * blk:6 * blk].any())
+              and not bool(dq[:, 5 * blk:6 * blk].any()),
+              f"sparse {label}: a row with no active block has non-zero "
+              f"out or dq")
+    return errs
+
+
+# the types the sparse kernel phases check: fp32 (scalar kernels), bf16
+# and fp16 (the tensor-core template); fp16, the same template's other
+# instantiation, on the cases of FP16_SPARSE_CASES only (the main paths'
+# layouts, causal and not, per-head with empty rows, d=128, the odd
+# factors and block sizes)
+SPARSE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FP16_SPARSE_CASES = {"train_layout", "parity_layout", "per_head_empty_rows",
+                     "blk16", "blk24_upper_triangle", "d128",
+                     "bert_train_layout", "bert_parity_layout",
+                     "fixed_blk16", "blk24_q_agg3_causal",
+                     "per_head_empty_causal", "d128_causal", "blk16_q_agg5"}
+
+
+def case_dtypes(label):
+    """The types :data:`SPARSE_DTYPES` checks on case ``label``."""
+    return [d for d in SPARSE_DTYPES
+            if d != torch.float16 or label in FP16_SPARSE_CASES]
+
+
+def dtype_key(dtype):
+    """"" for fp32 and bf16 (the kernel entries' own errors), "_fp16" for
+    fp16 (the entries' fp16_* keys)."""
+    return "_fp16" if dtype == torch.float16 else ""
+
+
 def phase_sparse_kernel(card, results):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("sparse kernel: B5a out/lse to fp32 2e-5, bf16 2e-2; B5b grads "
-          "to 5e-4 / 1e-2 from the kernel's own out and lse (the bounds of "
-          "B1-B3)")
-    max_err = {"fwd": 0.0, "bwd": 0.0}
+    print("sparse kernel: B5a out/lse to fp32 2e-5, bf16 and fp16 2e-2; "
+          "B5b grads to 5e-4 / 1e-2 from the kernel's own out and lse (the "
+          "bounds of B1-B3)")
+    max_err = {"fwd": 0.0, "bwd": 0.0, "fwd_fp16": 0.0, "bwd_fp16": 0.0}
     rows = []
     for i, (label, layout, b, h, s, d, causal) in enumerate(sparse_cases()):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in case_dtypes(label):
             q, k, v, _ = make_case(b, h, s, s, d, "none", True, dtype,
                                    SEED + 400 + i)
             dout = torch.randn(b, s, h, d, generator=torch.Generator()
                                .manual_seed(SEED + 500 + i)).to(DEVICE, dtype)
-            got = sparse_chain(q, k, v, dout, layout, causal)
-            torch.cuda.synchronize()
-            again = sparse_chain(q, k, v, dout, layout, causal)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
-                  f"sparse {label}: two runs are not bitwise equal")
-            out, lse, dq, dk, dv = got
-            ref_out, ref_lse = fbs.flash_block_sparse_reference(
-                q, k, v, layout, causal)
-            tol, gtol = TOLS[dtype], GRAD_TOLS[dtype]
-            torch.testing.assert_close(out.float(), ref_out.float(),
-                                       atol=tol, rtol=tol)
-            torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
-            errs = {"out": float((out.float() - ref_out.float()).abs().max())}
-            del ref_out, ref_lse
-            ref = fbs.flash_block_sparse_bwd_reference(
-                q, k, v, out, lse, dout, layout, causal)
-            for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                check(bool(torch.isfinite(g.float()).all()),
-                      f"sparse {label}: non-finite {name}")
-                torch.testing.assert_close(
-                    g.float(), r.float(), atol=gtol, rtol=gtol,
-                    msg=lambda m: f"sparse {label} {name}: {m}")
-                errs[name] = float((g.float() - r.float()).abs().max())
-            del ref
-            if label.startswith("per_head"):
-                blk = s // layout.shape[1]
-                check(not bool(out[:, 3 * blk:4 * blk, 1].any())
-                      and not bool(dq[:, 3 * blk:4 * blk, 1].any())
-                      and not bool(out[:, 5 * blk:6 * blk].any())
-                      and not bool(dq[:, 5 * blk:6 * blk].any()),
-                      f"sparse {label}: a row with no active block has "
-                      f"non-zero out or dq")
-            max_err["fwd"] = max(max_err["fwd"], errs["out"])
-            max_err["bwd"] = max(max_err["bwd"], errs["dq"], errs["dk"],
-                                 errs["dv"])
+            errs = check_sparse_case(label, layout, causal, q, k, v, dout,
+                                     dtype)
+            key = dtype_key(dtype)
+            max_err["fwd" + key] = max(max_err["fwd" + key], errs["out"])
+            max_err["bwd" + key] = max(max_err["bwd" + key], errs["dq"],
+                                       errs["dk"], errs["dv"])
             rows.append(dict(errs, case=label,
                              dtype=str(dtype).split(".")[-1], b=b, h=h, s=s,
                              d=d, causal=causal,
@@ -1815,23 +1874,25 @@ def time_sparse(card, results):
     return timings
 
 
-def sparse_train_setup():
+def sparse_train_setup(config=None):
     """The sparse train phase's engine, model config and fixed batch on
     the card: GPT-2-medium at full width and depth with 4096 positions
     and ``attn_impl="sparse"`` under the Fixed unidirectional layout of
     "Generative Modeling with Sparse Transformers" (256-row blocks, 4
     local blocks, 1 global block: a block size at which the JAX layer
     runs the work-list kernels), seq 4096, micro-batch 2, dropout 0.1,
-    Lamb lr 1e-4, ZeRO-2, bf16.  ``examples/profile_torch_train.py
-    --sparse`` profiles this same set-up."""
+    Lamb lr 1e-4, ZeRO-2, bf16 (``config`` in its place: phase 18b's
+    fp16).  ``examples/profile_torch_train.py --sparse`` profiles this
+    same set-up."""
     b, _, s, _ = SPARSE_ATTN
     cfg = GPT2Config.gpt2_medium(
         max_position_embeddings=s, embd_dropout=DROPOUT, attn_dropout=DROPOUT,
         resid_dropout=DROPOUT, attn_impl="sparse",
         sparsity_config=FixedSparsityConfig(**SPARSE_LAYOUT))
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
-        config=dict(TRAIN_CONFIG, train_batch_size=b))
+        model=GPT2LMHead(cfg),
+        model_parameters=setup_weights("sparse train", random_params, cfg),
+        config=dict(config or TRAIN_CONFIG, train_batch_size=b))
     ids = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
                                                    size=(b, s))
     return engine, cfg, {"input_ids": ids}
@@ -2010,22 +2071,25 @@ def check_agg_case(label, layout, G, causal, q, k, v, dout, dtype):
 def phase_agg_kernel(card, results):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("agg kernel: B6a out/lse to fp32 2e-5, bf16 2e-2 (MAX_FLOOR and "
-          "NEG_INF rows equal); B6b, B6c grads to 5e-4 / 1e-2 from the "
+    print("agg kernel: B6a out/lse to fp32 2e-5, bf16 and fp16 2e-2 "
+          "(MAX_FLOOR and NEG_INF rows equal); B6b, B6c grads to 5e-4 / 1e-2 from the "
           "kernel's own out and lse; and against B5 at the same bounds")
-    max_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    max_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "fwd_fp16": 0.0,
+               "dq_fp16": 0.0, "dkv_fp16": 0.0}
     rows = []
     for i, (label, layout, b, h, s, d, G, causal) in enumerate(agg_cases()):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in case_dtypes(label):
             q, k, v, _ = make_case(b, h, s, s, d, "none", True, dtype,
                                    SEED + 800 + i)
             dout = torch.randn(b, s, h, d, generator=torch.Generator()
                                .manual_seed(SEED + 900 + i)).to(DEVICE, dtype)
             errs = check_agg_case(label, layout, G, causal, q, k, v, dout,
                                   dtype)
-            max_err["fwd"] = max(max_err["fwd"], errs["out"])
-            max_err["dq"] = max(max_err["dq"], errs["dq"])
-            max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
+            key = dtype_key(dtype)
+            max_err["fwd" + key] = max(max_err["fwd" + key], errs["out"])
+            max_err["dq" + key] = max(max_err["dq" + key], errs["dq"])
+            max_err["dkv" + key] = max(max_err["dkv" + key], errs["dk"],
+                                       errs["dv"])
             rows.append(dict(errs, case=label, dtype=str(dtype).split(".")[-1],
                              b=b, h=h, s=s, d=d, G=G, causal=causal,
                              block=s // layout.shape[1],
@@ -2100,7 +2164,7 @@ def time_agg(card, results):
               + f" [{card}]")
     dq_row, dkv_row = timings["dq"], timings["dkv"]
     print(f"agg timing B6b+B6c {dq_row['kernel_ms'] + dkv_row['kernel_ms']:.5f}"
-          f" ms (20 repeats B6b {dq_row['kernel_ms_min']:.5f}-"
+          f" ms (10 repeats B6b {dq_row['kernel_ms_min']:.5f}-"
           f"{dq_row['kernel_ms_max']:.5f}, B6c {dkv_row['kernel_ms_min']:.5f}-"
           f"{dkv_row['kernel_ms_max']:.5f}; B6c/B6b "
           f"{dkv_row['kernel_ms'] / dq_row['kernel_ms']:.3f}) against SDPA's "
@@ -2309,15 +2373,16 @@ def phase_bert_train(card, results):
     return launches
 
 
-def bert_sparse_train_setup():
+def bert_sparse_train_setup(config=None):
     """The sparse BERT train phase's engine, config and fixed batch:
     BERT-large with 4096 positions and ``attn_impl="sparse"`` under
     ``BERT_SPARSE_LAYOUT`` (128-row blocks: the JAX layer runs B6 with
     G = 4), seq 4096, micro-batch 2, no attention mask (packed documents,
     no padding, so every layer takes the kernels), token types 0 then 1
     by halves, ``max_predictions_per_seq`` 640, NSP, dropout 0.1, Lamb,
-    ZeRO-2, bf16.  ``examples/profile_torch_train.py --bert-sparse``
-    profiles this set-up."""
+    ZeRO-2, bf16 (``config`` in its place: phase 18b's fp16).
+    ``examples/profile_torch_train.py --bert-sparse`` profiles this
+    set-up."""
     b, _, s, _ = SPARSE_ATTN
     cfg = BertConfig.bert_large(
         vocab_size=BERT_VOCAB, max_position_embeddings=s,
@@ -2325,8 +2390,9 @@ def bert_sparse_train_setup():
         max_predictions_per_seq=BERT_SPARSE_PRED, attn_impl="sparse",
         sparsity_config=FixedSparsityConfig(**BERT_SPARSE_LAYOUT))
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=BertForPreTraining(cfg), model_parameters=bert_params(cfg, SEED),
-        config=dict(TRAIN_CONFIG, train_batch_size=b))
+        model=BertForPreTraining(cfg),
+        model_parameters=setup_weights("bert sparse train", bert_params, cfg),
+        config=dict(config or TRAIN_CONFIG, train_batch_size=b))
     batch = bert_batch(np.random.default_rng(SEED + 1), cfg.vocab_size, b, s,
                        BERT_SPARSE_PRED, None)
     return engine, cfg, batch
@@ -2812,6 +2878,9 @@ def phase_fp16_kernel(card, results):
           f"{t['b2_ms']:.5f} ms")
     check_fp16_nonfinite("bert", q, k, v, mask, False, dout, seed, True)
     errs["B4"] = max(errs.values())
+    del q, k, v, dout, out, lse, qt, kt, vt, dot, delta
+    # B5a-B6c in fp16 beside bf16 (their errors are phases 8 and 11's)
+    timing.update(time_fp16_sparse(card, results))
     print(f"fp16 kernels: tolerances out {tol}, lse {BF16_LSE_TOL}, grads "
           f"{gtol}; max |kernel-plain| " + " ".join(
               f"{k_}={v_:.3g}" for k_, v_ in errs.items())
@@ -2824,6 +2893,168 @@ def phase_fp16_kernel(card, results):
             + f" [{card}]")
     results["fp16_kernel"] = {"errors": errs, "timing": timing}
     return errs, timing
+
+
+def check_fp16_sparse_nonfinite(label, q, k, v, dout, layout, G, causal):
+    """An inf in dO and a NaN in q through the fp16 B5 (``G`` 1) or B6
+    kernels: the (batch, head) slices of out, dq, dk and dv that hold a
+    non-finite value are the plain versions', and the poisoned slice is
+    one of them, so the loss scaler sees an overflow in the sparse
+    core."""
+    if G == 1:
+        def chain(q_, dout_):
+            return sparse_chain(q_, k, v, dout_, layout, causal)
+
+        def plain(q_, dout_):
+            out, lse = fbs.flash_block_sparse_reference(q_, k, v, layout,
+                                                        causal)
+            return (out, lse) + fbs.flash_block_sparse_bwd_reference(
+                q_, k, v, out, lse, dout_, layout, causal)
+    else:
+        def chain(q_, dout_):
+            return agg_chain(q_, k, v, dout_, layout, G, causal)
+
+        def plain(q_, dout_):
+            out, lse = fbs.flash_block_sparse_agg_reference(q_, k, v, layout,
+                                                            G, causal)
+            return (out, lse) + fbs.flash_block_sparse_agg_bwd_reference(
+                q_, k, v, out, lse, dout_, layout, G, causal)
+    s = q.shape[1]
+    bad_dout = dout.clone()
+    bad_dout[0, s // 3, 1, 5] = float("inf")
+    bad_q = q.clone()
+    bad_q[1, s // 2, 2, 7] = float("nan")
+    for what, q_, dout_, slot in (("inf in dO", q, bad_dout, (0, 1)),
+                                  ("NaN in q", bad_q, dout, (1, 2))):
+        got, want = chain(q_, dout_), plain(q_, dout_)
+        names = ("out", "dq", "dk", "dv")
+        for name, g, w in zip(names, got[:1] + got[2:], want[:1] + want[2:]):
+            if what == "inf in dO" and name == "out":
+                continue
+            check(bool(nonfinite_by_head(w)[slot]) and torch.equal(
+                nonfinite_by_head(g), nonfinite_by_head(w)),
+                f"fp16 sparse {label}: {what}: the kernel's non-finite "
+                f"{name} slices differ from the plain version's")
+
+
+def time_fp16_sparse(card, results):
+    """fp16 B5a/B5b at the sparse GPT-2 attention (b=2, h=16, s=4096,
+    d=64, causal, the train layout: G = 1) and B6a/B6b/B6c at the sparse
+    BERT one (the same shape, Fixed bidirectional 128-row blocks, G = 4),
+    fused-QKV views: each kernel's device ms in fp16 and in bf16 timed in
+    turns (bf16, fp16, fp16, bf16) on inputs drawn alike, beside the fp16
+    plain version, SDPA in fp16 with the layout as a boolean mask and the
+    bound (989 TFLOP/s in both types); B6b and B6c on one precomputed Δ,
+    B5b with its Δ as the wrapper computes it.  Then an inf in dO and a
+    NaN in q through both (:func:`check_fp16_sparse_nonfinite`, at the
+    parity layouts' s=1024)."""
+    b, h, s, d = SPARSE_ATTN
+    timing = {}
+    for family, layout, G, causal, seed in (
+            ("B5", FixedSparsityConfig(**SPARSE_LAYOUT).make_layout(s), 1,
+             True, SEED + 1100),
+            ("B6", FixedSparsityConfig(**BERT_SPARSE_LAYOUT).make_layout(s),
+             4, False, SEED + 1200)):
+        data = {}
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k, v, _ = make_case(b, h, s, s, d, "none", True, dtype, seed)
+            dout = torch.randn(b, s, h, d, generator=torch.Generator()
+                               .manual_seed(seed + 1)).to(DEVICE, dtype)
+            if G == 1:
+                out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout,
+                                                      causal)
+            else:
+                out, lse = fbs.flash_block_sparse_agg_fwd(q, k, v, layout, G,
+                                                          causal)
+            data[dtype] = (q, k, v, dout, out, lse, fbs._delta(out, dout))
+
+        def kernels(dtype):
+            q, k, v, dout, out, lse, delta = data[dtype]
+            if G == 1:
+                return {
+                    "B5a": lambda: fbs.flash_block_sparse_fwd(q, k, v, layout,
+                                                              causal),
+                    "B5b": lambda: fbs.flash_block_sparse_bwd(
+                        q, k, v, out, lse, dout, layout, causal)}
+            return {
+                "B6a": lambda: fbs.flash_block_sparse_agg_fwd(
+                    q, k, v, layout, G, causal),
+                "B6b": lambda: fbs.flash_block_sparse_agg_bwd_dq(
+                    q, k, v, out, lse, dout, layout, G, causal, delta),
+                "B6c": lambda: fbs.flash_block_sparse_agg_bwd_dkv(
+                    q, k, v, out, lse, dout, layout, G, causal, delta)}
+
+        turns = {}
+        for dtype in (torch.bfloat16, torch.float16, torch.float16,
+                      torch.bfloat16):
+            for name, fn in kernels(dtype).items():
+                turns.setdefault((name, dtype), []).append(
+                    device_ms(fn, calls=10, repeats=5))
+        q, k, v, dout, out, lse, _ = data[torch.float16]
+        del data[torch.bfloat16]
+        visible, _ = fbs.expand_layout(layout, s, causal, DEVICE)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=visible), calls=2, repeats=3, warmup=1)
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=visible)
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True),
+            calls=2, repeats=3, warmup=1)
+        del o_sdpa, visible, qt, kt, vt
+        if G == 1:
+            plain_fwd = device_ms(lambda: fbs.flash_block_sparse_reference(
+                q, k, v, layout, causal), calls=1, repeats=2, warmup=1)
+            plain_bwd = device_ms(
+                lambda: fbs.flash_block_sparse_bwd_reference(
+                    q, k, v, out, lse, dout, layout, causal),
+                calls=1, repeats=2, warmup=1)
+            kinds = {"B5a": ("fwd", plain_fwd, sdpa_fwd),
+                     "B5b": ("bwd", plain_bwd, sdpa_bwd)}
+        else:
+            plain_fwd = device_ms(
+                lambda: fbs.flash_block_sparse_agg_reference(
+                    q, k, v, layout, G, causal), calls=1, repeats=2, warmup=1)
+            plain_bwd = device_ms(
+                lambda: fbs.flash_block_sparse_agg_bwd_reference(
+                    q, k, v, out, lse, dout, layout, G, causal),
+                calls=1, repeats=2, warmup=1)
+            kinds = {"B6a": ("fwd", plain_fwd, sdpa_fwd),
+                     "B6b": ("dq", plain_bwd, sdpa_bwd),
+                     "B6c": ("dkv", plain_bwd, sdpa_bwd)}
+        for name, (kind, plain, library) in kinds.items():
+            bound, by = sparse_bound(kind, q, layout, causal)
+            timing[name] = {
+                "shape": f"b={b} h={h} s={s} d={d} G={G}"
+                         f"{' causal' if causal else ''}",
+                "kernel_ms": statistics.mean(turns[(name, torch.float16)]),
+                "bf16_kernel_ms": statistics.mean(
+                    turns[(name, torch.bfloat16)]),
+                "plain_ms": plain, "library_ms": library,
+                "bound_ms": bound, "bound_by": by}
+        del data
+    # non-finite values, at the parity layouts (s = 1024)
+    for label, layout, G, causal in (
+            ("B5", FixedSparsityConfig(**PARITY_LAYOUT)
+             .make_layout(PARITY_SEQ), 1, True),
+            ("B6", FixedSparsityConfig(**BERT_SPARSE_LAYOUT)
+             .make_layout(BERT_PARITY_SEQ), 4, False)):
+        q, k, v, _ = make_case(2, h, PARITY_SEQ, PARITY_SEQ, d, "none", True,
+                               torch.float16, SEED + 1300)
+        dout = torch.randn(2, PARITY_SEQ, h, d, generator=torch.Generator()
+                           .manual_seed(SEED + 1301)).to(DEVICE,
+                                                         torch.float16)
+        check_fp16_sparse_nonfinite(label, q, k, v, dout, layout, G, causal)
+    for name, row in timing.items():
+        print(f"fp16 sparse timing {name} ({row['shape']}): " + " ".join(
+            f"{key}={val:.5f}" if isinstance(val, float) else
+            f"{key}={val}" for key, val in row.items() if key != "shape")
+            + f" [{card}]")
+    print(f"fp16 sparse: an inf in dO and a NaN in q stay non-finite in "
+          f"exactly the plain versions' (batch, head) slices through B5 and "
+          f"B6 [{card}]")
+    results["fp16_sparse_timing"] = timing
+    return timing
 
 
 def settle_scale(label, engine, batch):
@@ -2927,6 +3158,62 @@ def phase_fp16_bert_train(card, results):
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+# fp16 sparse training settles from 2^16, which the first steps of
+# these models overflow a few times at most
+FP16_SPARSE_CONFIG = dict(FP16_TRAIN_CONFIG,
+                          fp16=dict(FP16_SCALER, initial_scale_power=16))
+
+
+def phase_fp16_sparse_train(card, results):
+    """18b. The sparse core in fp16 under the dynamic loss scaler (ROADMAP
+    B item 10): BERT-large at seq 4096 (:func:`bert_sparse_train_setup`,
+    phase 13's model, Fixed bidirectional 128-row blocks: B6 at G = 4)
+    and GPT-2-medium at seq 4096 (:func:`sparse_train_setup`, phase 9's,
+    256-row blocks: B5), both at full width and depth with dropout 0.1,
+    Lamb, ZeRO-2: steps until the scale from 2^16 settles, then 2
+    warm-up and 3 timed steps.  Finite, falling losses, the skipped
+    steps all in the settling, and exactly one fp16 B6a, B6b, B6c (B5a,
+    B5b) launch a layer a step and no other attention launch; step ms
+    and peak memory beside the bf16 phases 13 and 9."""
+    receipts, total = {}, {}
+    for label, setup, names, bf16 in (
+            ("fp16 bert sparse train", bert_sparse_train_setup,
+             ("B6a", "B6b", "B6c"), "bert_sparse_train"),
+            ("fp16 sparse train", sparse_train_setup, ("B5a", "B5b"),
+             "sparse_train")):
+        engine, cfg, batch = setup(FP16_SPARSE_CONFIG)
+        check(engine.compute_dtype == torch.float16, f"{label}: not fp16")
+        trace = settle_scale(label, engine, batch)
+        skipped = engine.skipped_steps
+        losses, step_s, launches = run_steps(label, engine, batch, 2, 3)
+        check(engine.skipped_steps == skipped,
+              f"{label}: a step after the settling was skipped")
+        layers = getattr(cfg, "num_hidden_layers", None) or cfg.num_layers
+        check_all_fp16(label, launches, {n: layers * 5 for n in names})
+        ref = results[bf16]
+        receipts[bf16] = {
+            "card": card, "scale_trace": trace, "settle_steps": len(trace),
+            "skipped_steps": engine.skipped_steps,
+            "loss_scale": engine.loss_scale, "losses": losses,
+            "step_ms": 1e3 * step_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": {k: v / 5 for k, v in launches.items()},
+            "bf16_step_ms": ref["step_ms"],
+            "bf16_peak_memory_bytes": ref["peak_memory_bytes"]}
+        print(f"{label} (full width and depth, seq 4096, batch 2, fp16 from "
+              f"scale 2^16, Lamb, ZeRO-2, dropout 0.1): scale settled after "
+              f"{len(trace)} steps, {engine.skipped_steps} skipped, trace "
+              f"{trace}; losses {losses}; step {1e3 * step_s:.2f} ms (bf16 "
+              f"{ref['step_ms']:.2f}), peak "
+              f"{receipts[bf16]['peak_memory_bytes'] / 1e9:.2f} GB [{card}]")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del engine
+        torch.cuda.empty_cache()
+    results["fp16_sparse_train"] = receipts
+    return total
 
 
 FP16_PARITY_CONFIG = {
@@ -4045,7 +4332,7 @@ def dp_cpu_check(results):
 
 def exchange_times(engine):
     """Device ms of the step's collectives replayed on the engine's own
-    buffers (median of 20 runs of 10, :func:`device_ms`): the gradient's
+    buffers (median of 10 runs of 10, :func:`device_ms`): the gradient's
     reduce-scatter in the exchange dtype and in fp32 (the dtype above
     one rank), the compute params' all-gather, the step's stats
     all-reduce."""
@@ -4451,18 +4738,19 @@ PIPE_CPU_MODEL = dict(vocab_size=256, hidden_size=64, num_layers=4,
 PIPE_CPU_TIMEOUT_S = 180
 
 
-def pipe_config(micro_batches, rows):
-    return dict(TRAIN_CONFIG, train_batch_size=rows,
+def pipe_config(micro_batches, rows, base=TRAIN_CONFIG):
+    return dict(base, train_batch_size=rows,
                 train_micro_batch_size_per_gpu=rows // micro_batches,
                 gradient_accumulation_steps=micro_batches)
 
 
-def pipe_setup(dropout_rate, pipeline, mesh=None):
+def pipe_setup(dropout_rate, pipeline, mesh=None, base=TRAIN_CONFIG):
     """Phase 6's GPT-2-medium (its weights, its batch of 8 rows of seq
     1024) at ``dropout_rate``, the global batch as
     ``PIPE_MICRO_BATCHES`` micro-batches, through ``initialize``: as a
     ``PipelineModule`` (``pipeline``) or as ``models/gpt2.py``'s model.
-    ``mesh``: phase 34's. Returns the engine, the config and the
+    ``mesh``: phase 34's; ``base`` the config the batch geometry goes
+    into (phase 39's). Returns the engine, the config and the
     micro-batches."""
     from examples import train_torch_pipe as tp
 
@@ -4481,7 +4769,7 @@ def pipe_setup(dropout_rate, pipeline, mesh=None):
         batches = [{"input_ids": ids} for ids, _ in batches]
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=params,
-        config=pipe_config(PIPE_MICRO_BATCHES, b), mesh=mesh)
+        config=pipe_config(PIPE_MICRO_BATCHES, b, base), mesh=mesh)
     return engine, cfg, batches
 
 
@@ -4698,6 +4986,45 @@ def tp_heads_check(label, bwd, shape, causal, mask):
             "bitwise": True}
 
 
+def tp_sparse_heads_check(label, layout, G, causal):
+    """A per-head layout (``[h, nb, nb]``, the heads' rows differing)
+    through B5 (``G`` 1) or B6 at the sparse attention's shape (b=2,
+    h=16, s=4096, d=64, bf16, fused-QKV views): each head range of
+    ``TP_HEAD_RANGES`` with its rows of the layout, cut on the host as a
+    model rank's sparse core cuts them, gives out, lse and every
+    gradient bitwise the whole call's heads."""
+    b, h, s, d = SPARSE_ATTN
+    check(len({layout[i].tobytes() for i in range(h)}) > 1,
+          f"tp sparse heads {label}: the layout is the same for every head")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 39)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device=DEVICE,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dout = torch.randn(b, s, h, d, generator=g, device=DEVICE,
+                       dtype=torch.bfloat16)
+
+    def chain(q_, k_, v_, dout_, lay):
+        if G == 1:
+            return sparse_chain(q_, k_, v_, dout_, lay, causal)
+        return agg_chain(q_, k_, v_, dout_, lay, G, causal)
+
+    out, lse, *grads = chain(q, k, v, dout, layout)
+    lse = lse.view(b, h, s)
+    for h0, h1 in TP_HEAD_RANGES:
+        heads = slice(h0, h1)
+        rows = np.ascontiguousarray(layout[h0:h1])
+        o, l, *got = chain(q[:, :, heads], k[:, :, heads], v[:, :, heads],
+                           dout[:, :, heads], rows)
+        check(torch.equal(o, out[:, :, heads])
+              and torch.equal(l.view(b, h1 - h0, s), lse[:, heads])
+              and all(torch.equal(a, w[:, :, heads])
+                      for a, w in zip(got, grads)),
+              f"tp sparse heads {label}: heads [{h0}, {h1}) on their rows "
+              f"of the layout are not bitwise the whole call's")
+    return {"shape": [b, h, s, d], "G": G, "causal": causal,
+            "ranges": [list(r) for r in TP_HEAD_RANGES], "bitwise": True}
+
+
 def tp_b2(q, k, v, out, lse, dout, mask, causal, rate, seed, h0, h):
     dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal, rate,
                                 seed, None, h0, h)
@@ -4777,9 +5104,10 @@ def tp_layer_check(results):
 
 
 def phase_tp(card, results):
-    """34. tp: (a) head ranges bitwise, (b) the sharded layer, (c) the
-    model axis of one on NCCL bitwise phase 33's GPT-2 engine.  Returns
-    (c)'s launches."""
+    """34. tp: (a) head ranges bitwise (B1-B3 with their head offset,
+    and B5 and B6 on a per-head layout's rows), (b) the sharded layer,
+    (c) the model axis of one on NCCL bitwise phase 33's GPT-2 engine.
+    Returns (c)'s launches."""
     b, h, s, d = TRAIN_ATTN
     heads = {"b1_b2": tp_heads_check("B1/B2a/B2b", tp_b2, (b, h, s, d),
                                      True, None)}
@@ -4788,6 +5116,15 @@ def phase_tp(card, results):
     heads["b1_b3"] = tp_heads_check("B1/B3", tp_b3,
                                     (BERT_BATCH, h, BERT_SEQ, d), False,
                                     bert_mask)
+    layout = BigBirdSparsityConfig(
+        num_heads=h, block=256, different_layout_per_head=True,
+        num_random_blocks=1, num_sliding_window_blocks=3,
+        num_global_blocks=1).make_layout(SPARSE_ATTN[2])
+    heads["b5"] = tp_sparse_heads_check("B5a/B5b", layout, 1, True)
+    layout = FixedSparsityConfig(**dict(
+        BERT_SPARSE_LAYOUT, different_layout_per_head=True,
+        num_different_global_patterns=4)).make_layout(SPARSE_ATTN[2])
+    heads["b6"] = tp_sparse_heads_check("B6a/B6b/B6c", layout, 4, False)
     layer = tp_layer_check(results)
     store_dir, nccl = nccl_world_of_one("tp")
     try:
@@ -4816,6 +5153,94 @@ def phase_tp(card, results):
           "mesh data=1 model=1 on NCCL):", json.dumps(receipt))
     results["tp"] = receipt
     return launches
+
+
+# ---------------------------------------- 1-bit Adam and ZeRO-3, A13/A18
+A18_ZERO3 = dict(TRAIN_CONFIG, zero_optimization={"stage": 3})
+A18_STEPS = ONEBIT_FREEZE + 2
+# 1-bit Adam through the one-stage PipelineEngine against the GPT-2
+# engine: the warmup as phase 33's parity (the same kernels, other flat
+# layouts); the compressed steps' scale is the RMS over the flat buffer,
+# whose padding differs between the two layouts, through a variance
+# frozen after 2 steps (7.2e-4 in a CPU rehearsal at 2 layers, hidden 128)
+A18_ONEBIT_RTOL = 1e-2
+
+
+def a18_losses(label, engine, batches, steps):
+    """``steps`` steps and the launches they made."""
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = pipe_losses(engine, batches, steps)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    return losses, launches
+
+
+def phase_a18(card, results):
+    """39. What the model and pipe axes now compose with, at one rank on
+    NCCL (phase 6's GPT-2-medium at dropout 0, its batch as
+    ``PIPE_MICRO_BATCHES`` micro-batches, bf16): (a) OneBitAdam through
+    the freeze on the GPT-2 engine without a mesh and on ``{data: 1,
+    model: 1}``, bitwise; (b) ZeRO-3 under the one-stage
+    ``PipelineEngine``, bitwise phase 33's ZeRO-2 pipeline losses, with
+    no compute params held between steps; (c) OneBitAdam under the
+    one-stage ``PipelineEngine``, within ``A18_ONEBIT_RTOL`` of (a).
+    Each with B1, B2a and B2b once a layer a micro-batch.  Returns the
+    launches."""
+    store_dir, nccl = nccl_world_of_one("a18")
+    runs, total = {}, {}
+    try:
+        for key, pipeline, mesh_dims, base, steps in (
+                ("onebit_plain", False, None, ONEBIT_CONFIG, A18_STEPS),
+                ("onebit_model_axis", False, {DATA_AXIS: 1, MODEL_AXIS: 1},
+                 ONEBIT_CONFIG, A18_STEPS),
+                ("zero3_pipe", True, None, A18_ZERO3, PIPE_PARITY_STEPS),
+                ("onebit_pipe", True, None, ONEBIT_CONFIG, A18_STEPS)):
+            mesh = make_mesh(mesh_dims) if mesh_dims else None
+            engine, cfg, batches = pipe_setup(0.0, pipeline, mesh, base)
+            check(isinstance(engine, PipelineEngine) == pipeline,
+                  f"a18 {key}: the wrong engine")
+            losses, launches = a18_losses(f"a18 {key}", engine, batches,
+                                          steps)
+            runs[key] = {"losses": losses}
+            if key == "zero3_pipe":
+                runs[key]["compute_bytes"] = \
+                    engine._compute.untyped_storage().nbytes()
+            if key.startswith("onebit"):
+                runs[key]["optimizer"] = type(engine.optimizer).__name__
+            n = cfg.num_layers * PIPE_MICRO_BATCHES * steps
+            expect_launches(f"a18 {key}", launches,
+                            {"B1": n, "B2a": n, "B2b": n})
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            release(engine)
+            del engine
+    finally:
+        nccl_teardown(store_dir)
+    plain = runs["onebit_plain"]["losses"]
+    check(runs["onebit_model_axis"]["losses"] == plain,
+          f"a18: OneBitAdam on the model axis of one "
+          f"{runs['onebit_model_axis']['losses']} is not bitwise the "
+          f"engine without a mesh {plain}")
+    want = results["pipe"]["parity"]["pipe_losses"]
+    check(runs["zero3_pipe"]["losses"] == want
+          and runs["zero3_pipe"]["compute_bytes"] == 0,
+          f"a18: ZeRO-3 under the pipeline {runs['zero3_pipe']} is not "
+          f"bitwise phase 33's ZeRO-2 pipeline {want}, or holds compute "
+          f"params between steps")
+    got = runs["onebit_pipe"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+    check(rel <= A18_ONEBIT_RTOL, f"a18: OneBitAdam under the pipeline "
+          f"{got} vs the GPT-2 engine's {plain} (max rel {rel:.3g})")
+    receipt = {"card": card, "nccl": nccl, "runs": runs,
+               "onebit_pipe_max_rel_diff": rel,
+               "onebit_rtol": A18_ONEBIT_RTOL, "zero3_want": want}
+    print("a18 receipt (GPT-2-medium, 4 micro-batches of 2, bf16, NCCL at "
+          "world size 1: OneBitAdam freeze 2 on the engine and on data=1 "
+          "model=1, ZeRO-3 and OneBitAdam under the one-stage "
+          "PipelineEngine):", json.dumps(receipt))
+    results["a18"] = receipt
+    return total
 
 
 # ------------------------------------------------------------------- MoE
@@ -5691,6 +6116,10 @@ def main(argv=None):
         # 18. fp16 train, BERT-large
         fp16_bert_launches = phase_fp16_bert_train(card, results)
         lap("fp16_bert_train")
+        # 18b. fp16 sparse train: BERT-large (B6) and GPT-2-medium (B5)
+        # at seq 4096 under the dynamic loss scaler
+        fp16_sparse_launches = phase_fp16_sparse_train(card, results)
+        lap("fp16_sparse_train")
         # 19. fp16 parity, card against CPU, with a forced overflow
         fp16_parity_launches = phase_fp16_parity(results)
         lap("fp16_parity")
@@ -5763,6 +6192,10 @@ def main(argv=None):
                                                          params)
     del model, params
     lap("fleet_integrity")
+    # 39. OneBitAdam on the model axis, ZeRO-3 and OneBitAdam under the
+    # pipeline engine, at one rank on NCCL
+    a18_launches = phase_a18(card, results)
+    lap("a18")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -5773,6 +6206,7 @@ def main(argv=None):
              "checkpoint": checkpoint_launches,
              "fp16_train": fp16_launches,
              "fp16_bert_train": fp16_bert_launches,
+             "fp16_sparse_train": fp16_sparse_launches,
              "fp16_parity": fp16_parity_launches,
              "rollback": rollback_launches, "remat": remat_launches,
              "bert_pld": bert_pld_launches, "squad": squad_launches,
@@ -5785,7 +6219,7 @@ def main(argv=None):
              "onebit": onebit_launches, "pipe": pipe_launches,
              "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
              "telemetry": telemetry_launches,
-             "fleet_integrity": fleet38_launches}
+             "fleet_integrity": fleet38_launches, "a18": a18_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches + fleet_b1 + fleet38_b1
@@ -5831,9 +6265,14 @@ def main(argv=None):
         kernel_entry("flash_block_sparse_agg_bwd_dkv (B6c)", AGG_SOURCE,
                      SPARSE_REF + ":402", launches["B6c"], agg_err["dkv"],
                      agg_timings["dkv"])]
-    # B1-B4's fp16 instantiations: their main-path launches, errors
-    # against the plain versions and times (phase 16)
-    for entry, name in zip(kernels, ("B1", "B2a", "B2b", "B3", "B4")):
+    # every kernel's fp16 instantiation: its main-path launches, errors
+    # against the plain versions (B1-B4 phase 16, B5 phase 8, B6 phase
+    # 11) and times (phase 16)
+    fp16_err.update(B5a=sparse_err["fwd_fp16"], B5b=sparse_err["bwd_fp16"],
+                    B6a=agg_err["fwd_fp16"], B6b=agg_err["dq_fp16"],
+                    B6c=agg_err["dkv_fp16"])
+    for entry, name in zip(kernels, ("B1", "B2a", "B2b", "B3", "B4", "B5a",
+                                     "B5b", "B6a", "B6b", "B6c")):
         row = fp16_timing[name]
         entry.update(fp16_launches=launches[f"{name} fp16"],
                      fp16_max_abs_err=fp16_err[name],

@@ -5,13 +5,15 @@ package's module paths (``deepspeed_tpu_torch/<path>`` ports
 ``deepspeed_tpu/<path>``) and imports neither ``jax`` nor anything of
 ``deepspeed_tpu``.  It serves and trains: ``InferenceEngine`` serves the
 GPT-2 family through a paged KV cache, and ``initialize`` builds the
-training engine (flat fp32 master, Adam/AdamW or Lamb, ZeRO stages 0–2
-at one rank or data-parallel over ``torch.distributed`` with
-``mesh=parallel.make_mesh({"data": n})``, bf16, fp16 under the dynamic
-loss scaler, or fp32).
+training engine (flat fp32 master, Adam/AdamW, Lamb or 1-bit Adam, ZeRO
+stages 0–3 at one rank or over a mesh of ``torch.distributed`` ranks,
+``mesh=parallel.make_mesh({"data": n, ...})`` with data, pipe, model,
+expert and seq axes, bf16, fp16 under the dynamic loss scaler, or fp32).
 Attention runs on hand-written CUDA flash-attention kernels
 (``csrc/transformer/``): the forward, the dq and dk/dv backward kernels,
-the fused single-tile backward and in-kernel dropout.  ``checkpoint``
+the fused single-tile backward and in-kernel dropout; block-sparse
+attention on the block-sparse and super-tile kernels
+(``csrc/sparse_attention/``), in fp32, bf16 and fp16.  ``checkpoint``
 saves and resumes a run in the JAX package's checkpoint files, so a run
 moves between the two packages; ``resilience`` skips non-finite steps,
 rolls back to the last checkpoint on divergence and watches for hung

@@ -22,7 +22,7 @@ autograd, in the optimizer step.
 import numpy as np
 import torch
 
-from . import all_gather, all_to_all, axis_size
+from . import all_gather, all_to_all, axis_index, axis_size, psum
 
 def _weights(device):
     """128, 64, ..., 1 (MSB first), made on ``device`` (no copy from the
@@ -45,17 +45,25 @@ def unpack_signs(packed):
     return bits.reshape(*packed.shape[:-1], -1).float() * 2.0 - 1.0
 
 
-def _compress(buf, error):
+def _compress(buf, error, scale_over=None):
     """Error-feedback sign compression: ``(sign bits, scale, new
     error)``, with scale = ||buf + error|| / sqrt(n), +1 at 0, and the
     quantization residual as the next round's error (reference
     ``onebit_adam.py:122-127``).  The norm sums in fp64: torch's fp32
     norm on the CPU drifts as the buffer grows, and every element of
-    the result is +-scale."""
+    the result is +-scale.  ``scale_over``, ``(weights, axes, mesh)``:
+    the scale is the weighted RMS sqrt(Σ w·x² / Σ w) with both sums
+    taken over ``axes`` too (one all-reduce)."""
     comp = buf + error
     n = comp.shape[0]
-    scale = (torch.linalg.vector_norm(comp, dtype=torch.float64)
-             / np.sqrt(n)).float()
+    if scale_over is None:
+        scale = (torch.linalg.vector_norm(comp, dtype=torch.float64)
+                 / np.sqrt(n)).float()
+    else:
+        w, axes, mesh = scale_over
+        sums = psum(torch.stack([(w * comp * comp).sum(dtype=torch.float64),
+                                 w.sum(dtype=torch.float64)]), axes, mesh)
+        scale = (sums[0] / sums[1].clamp_min(1.0)).sqrt().float()
     sign_bits = comp >= 0
     signs = sign_bits.float() * 2.0 - 1.0
     return sign_bits, scale, comp - scale * signs
@@ -70,13 +78,22 @@ def padded_size(n, world):
 
 
 def compressed_allreduce(buf, worker_error, server_error, axis_name,
-                         mesh=None):
+                         mesh=None, scale_axes=None, weights=None):
     """1-bit error-feedback mean all-reduce of the 1-D fp32 ``buf`` over
     ``axis_name``.  ``worker_error`` is this rank's ``[padded_size(n,
     world)]`` residual and ``server_error`` its ``[padded_size / world]``
     one, both carried across steps.  Returns ``(out, new_worker_error,
     new_server_error)``: ``out`` is the ``[n]`` approximation of the
-    ranks' mean, the same on every rank."""
+    ranks' mean, the same on every rank.
+
+    ``scale_axes`` (a tuple of other axes, whose ranks hold other parts
+    of one buffer: ``model``, ``expert``, ``pipe``) with ``weights``
+    (``[n]``, 1 where this rank counts an element, 0 where another rank
+    counts its copy): the worker scale is the weighted RMS of the
+    compensated buffer over those axes, and the server scale the
+    weighted RMS of every served chunk over ``axis_name`` and those
+    axes, so an element that several ranks hold, compressed with the
+    same value and error on each, gets the same result on each."""
     world = axis_size(axis_name, mesh)
     n = buf.shape[0]
     n_pad = padded_size(n, world)
@@ -89,16 +106,27 @@ def compressed_allreduce(buf, worker_error, server_error, axis_name,
                          f"{n_pad // world}")
     if n_pad != n:
         buf = torch.cat([buf, buf.new_zeros(n_pad - n)])
+    worker_over = server_over = None
+    if scale_axes:
+        w = weights.float()
+        if n_pad != n:
+            w = torch.cat([w, w.new_zeros(n_pad - n)])
+        chunk = n_pad // world
+        r = axis_index(axis_name, mesh)
+        worker_over = (w, tuple(scale_axes), mesh)
+        server_over = (w[r * chunk:(r + 1) * chunk],
+                       (axis_name, *scale_axes), mesh)
     # worker compression (reference :118-127)
-    sign_bits, worker_scale, new_worker_error = _compress(buf, worker_error)
+    sign_bits, worker_scale, new_worker_error = _compress(buf, worker_error,
+                                                          worker_over)
     # phase 1: chunk r of every rank's signs to rank r (reference :146-165)
     chunks = pack_signs(sign_bits).reshape(world, n_pad // 8 // world)
     recv = all_to_all(chunks, axis_name, 0, 0, mesh=mesh)
     scales = all_gather(worker_scale.reshape(1), axis_name, mesh=mesh)
     # server: the mean of the signed chunks, compressed again (:174-193)
     compensated = torch.einsum("w,wn->n", scales / world, unpack_signs(recv))
-    srv_bits, server_scale, new_server_error = _compress(compensated,
-                                                         server_error)
+    srv_bits, server_scale, new_server_error = _compress(
+        compensated, server_error, server_over)
     # phase 2: every rank gathers the served chunks (:202-214)
     all_packed = all_gather(pack_signs(srv_bits)[None], axis_name,
                             mesh=mesh)

@@ -3,14 +3,14 @@
 //
 // Replaces, in deepspeed_tpu/ops/sparse_attention/flash_block_sparse.py:
 //   B6a `_fwd_kernel_agg`     (:333, launched at :598)
-//       -> agg_fwd_mma_kernel (bf16), agg_fwd_kernel (fp32)
+//       -> agg_fwd_mma_kernel (bf16, fp16), agg_fwd_kernel (fp32)
 //   B6b `_bwd_dq_kernel_agg`  (:373, launched at :650)
-//       -> agg_bwd_dq_mma_kernel (bf16), agg_bwd_dq_kernel (fp32)
+//       -> agg_bwd_dq_mma_kernel (bf16, fp16), agg_bwd_dq_kernel (fp32)
 //   B6c `_bwd_dkv_kernel_agg` (:402, launched at :682)
-//       -> agg_bwd_dkv_mma_kernel (bf16), agg_bwd_dkv_kernel (fp32)
-// and, at G = 1, the bf16 halves of B5a `_fwd_kernel` (:213) and B5b
-// `_bwd_fused_kernel` (:253): the bf16 B5a wrapper launches
-// agg_fwd_mma_kernel and the bf16 B5b wrapper agg_bwd_dq_mma_kernel and
+//       -> agg_bwd_dkv_mma_kernel (bf16, fp16), agg_bwd_dkv_kernel (fp32)
+// and, at G = 1, the 16-bit halves of B5a `_fwd_kernel` (:213) and B5b
+// `_bwd_fused_kernel` (:253): the 16-bit B5a wrapper launches
+// agg_fwd_mma_kernel and the 16-bit B5b wrapper agg_bwd_dq_mma_kernel and
 // agg_bwd_dkv_mma_kernel with the G = 1 tables, where a super-tile is one
 // layout block with one mask bit and the lse rule below is B5's.
 // They compute what those kernels compute.  A super-tile covers a G×G
@@ -51,7 +51,10 @@
 //   shared steps of ../transformer/flash_common.cuh, plain loads and no
 //   copy/compute overlap.  They serve the parity checks (TF32 would miss
 //   their 2e-5 / 5e-4).
-// - The bf16 B6a, B6b and B6c run on the tensor cores, in the shape of
+// - The bf16 and fp16 B6a, B6b and B6c run on the tensor cores (one
+//   template on the 16-bit type T: the two differ only in the mma.sync
+//   form and the fp32 -> T rounding of P, dS and the outputs, as B1-B3
+//   do; scores, lse and Δ stay fp32 in both), in the shape of
 //   B1, B2a and B2b (../transformer/flash_attention_fwd.cu and
 //   flash_attention_bwd.cu, with ../transformer/flash_mma.cuh): 4 warps
 //   of 16 rows (keys) hold Q (and dO; B6c K and V) as A fragments; the
@@ -59,7 +62,7 @@
 //   (zero-filled past the super-tile's end, so n = 72 at blk 24 is cut
 //   64 + 8).  B6a: S = Q·Kᵀ on mma.sync m16n8k16 over the 64 keys, the
 //   online softmax on the C fragments in log2 units (ex2), P repacked
-//   C→A as bf16 in registers, O += P·V with ldmatrix.trans, out staged
+//   C→A as T in registers, O += P·V with ldmatrix.trans, out staged
 //   in the block's Q tile and stored in 16-byte chunks.  B6b and B6c: S
 //   and dP (Sᵀ and dPᵀ) in 32-wide chunks; dS (and Pᵀ, dSᵀ) repacked
 //   C→A; dq += dS·K (dv += Pᵀ·dO, dk += dSᵀ·Q).  No dropout: B6 has
@@ -96,6 +99,7 @@
 // recomputes S and dP in both kernels; wgmma with TMA is the next step.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -423,7 +427,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
   }
 }
 
-// ------------------------------------------------ B6b and B6c, bf16 (mma)
+// ------------------------- B6a, B6b and B6c, bf16 and fp16 (mma)
 using bf16 = __nv_bfloat16;
 using ds_flash::c_to_a;
 using ds_flash::cp_async_commit;
@@ -436,10 +440,10 @@ using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
-using ds_flash::mma_bf16;
+using ds_flash::mma16;
 using ds_flash::MmaTile;
 using ds_flash::OwnRows;
-using ds_flash::pack_bf16;
+using ds_flash::pack16;
 
 static_assert(kRows == kMmaTileRows, "a part is one 64-row mma tile");
 constexpr float kLog2e = 1.4426950408889634f;
@@ -582,15 +586,15 @@ struct TileWalk {
 // rows, its unit from B6b's launch order (the two visit the same tiles).
 // Q is the warps' A fragments; the visited 64-key K/V tiles stream in by
 // cp.async two stages deep; per tile S = Q·Kᵀ on mma.sync, the online
-// softmax on the C fragments in log2 units, P repacked C→A as bf16 and
+// softmax on the C fragments in log2 units, P repacked C→A as T and
 // O += P·V.  The per-tile body is B1's (flash_attention_fwd.cu) without
 // dropout and with the super-tile mask: a copy, as for B6b.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads,
                                   D == 64 ? kAggMinBlocks64Fwd : 2)
-    agg_fwd_mma_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out,
+    agg_fwd_mma_kernel(const T* __restrict__ q,
+                       const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, SuperLayout lay,
                        const int* __restrict__ order, int heads, int s,
                        Strides st, float scale, int causal) {
@@ -598,9 +602,9 @@ __global__ void __launch_bounds__(kMmaThreads,
   constexpr int KN = kMmaTileRows;  // keys per streamed tile
   constexpr float kLn2 = 0.6931471805599453f;
   extern __shared__ __align__(16) unsigned char agg_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(agg_smem);
-  bf16* k_s = q_s + Tile::kElems;      // two stages
-  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  T* q_s = reinterpret_cast<T*>(agg_smem);
+  T* k_s = q_s + Tile::kElems;      // two stages
+  T* v_s = k_s + 2 * Tile::kElems;  // two stages
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -618,8 +622,8 @@ __global__ void __launch_bounds__(kMmaThreads,
                       lay.mask + row_off * lay.width, n_active, lay, p,
                       causal};
 
-  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
-  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  const T* kbase = k + b * st.k[0] + h * st.k[2];
+  const T* vbase = v + b * st.v[0] + h * st.v[2];
   auto issue = [&](const OtherTile& o, int stage) {
     load_tile_async<D>(k_s + stage * Tile::kElems, kbase, st.k[1], o.x0,
                        o.x_lim, tid);
@@ -666,8 +670,8 @@ __global__ void __launch_bounds__(kMmaThreads,
       for (int kk = 0; kk < D / 16; ++kk)
         ldsm_a<D>(qa[kk], q_s, wr, 16 * kk, lane);
     }
-    const bf16* kt_s = k_s + stage * Tile::kElems;
-    const bf16* vt_s = v_s + stage * Tile::kElems;
+    const T* kt_s = k_s + stage * Tile::kElems;
+    const T* vt_s = v_s + stage * Tile::kElems;
 
     // S = Q·Kᵀ over the tile's 64 keys; the thread's keys are
     // x0 + 8n + 2t + {0, 1}
@@ -682,8 +686,8 @@ __global__ void __launch_bounds__(kMmaThreads,
       for (int nn = 0; nn < KN / 16; ++nn) {
         uint32_t bk[4];
         ldsm_b<D>(bk, kt_s, 16 * nn, 16 * kk, lane);
-        mma_bf16(sc[2 * nn], qa[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
+        mma16<T>(sc[2 * nn], qa[kk], bk[0], bk[1]);
+        mma16<T>(sc[2 * nn + 1], qa[kk], bk[2], bk[3]);
       }
     }
     // a partial tile: each element's row group, column group, causal
@@ -733,7 +737,7 @@ __global__ void __launch_bounds__(kMmaThreads,
       acc[n][3] *= corr[1];
     }
     // P, l and O += P·V, 16 keys at a time: l sums the fp32 P, the
-    // product takes P rounded to bf16
+    // product takes P rounded to T
 #pragma unroll
     for (int kk = 0; kk < KN / 16; ++kk) {
 #pragma unroll
@@ -746,13 +750,13 @@ __global__ void __launch_bounds__(kMmaThreads,
         }
       }
       uint32_t a[4];
-      c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+      c_to_a<T>(a, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int nd = 0; nd < D / 16; ++nd) {
         uint32_t bv[4];
         ldsm_bt<D>(bv, vt_s, 16 * kk, 16 * nd, lane);
-        mma_bf16(acc[2 * nd], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * nd + 1], a, bv[2], bv[3]);
+        mma16<T>(acc[2 * nd], a, bv[0], bv[1]);
+        mma16<T>(acc[2 * nd + 1], a, bv[2], bv[3]);
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -775,7 +779,7 @@ __global__ void __launch_bounds__(kMmaThreads,
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(q_s + r * Tile::kRow + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
+          pack16<T>(acc[n][2 * hh] / l_safe, acc[n][2 * hh + 1] / l_safe);
     if (t == 0 && grp[hh] >= 0)
       lse[(int64_t)bh * s + row[hh]] =
           l[hh] == 0.f ? lse_empty : m[hh] * kLn2 + logf(l[hh]);
@@ -799,28 +803,28 @@ __global__ void __launch_bounds__(kMmaThreads,
 // rows.  Q and dO are the warps' A fragments; the visited 64-key K/V
 // tiles stream in by cp.async two stages deep; per tile S = Q·Kᵀ and
 // dP = dO·Vᵀ on mma.sync in 32-key chunks, dS = P∘(dP − Δ) on the C
-// fragments, repacked C→A as bf16, and dq += dS·K.  The per-tile body is
+// fragments, repacked C→A as T, and dq += dS·K.  The per-tile body is
 // B2a's (flash_attention_bwd.cu) without dropout and with the
 // super-tile mask: a copy, not a shared function, so that B2a's code is
 // left as it was measured.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
-    agg_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
+    agg_bwd_dq_mma_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, SuperLayout lay,
+                          T* __restrict__ dq, SuperLayout lay,
                           const int* __restrict__ order, int heads, int s,
                           Strides st, float scale, int causal) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char agg_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(agg_smem);
-  bf16* o_s = q_s + Tile::kElems;
-  bf16* k_s = o_s + Tile::kElems;      // two stages
-  bf16* v_s = k_s + 2 * Tile::kElems;  // two stages
+  T* q_s = reinterpret_cast<T*>(agg_smem);
+  T* o_s = q_s + Tile::kElems;
+  T* k_s = o_s + Tile::kElems;      // two stages
+  T* v_s = k_s + 2 * Tile::kElems;  // two stages
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -837,8 +841,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
                       lay.mask + row_off * lay.width, lay.cnt[row_off], lay,
                       p, causal};
 
-  const bf16* kbase = k + b * st.k[0] + h * st.k[2];
-  const bf16* vbase = v + b * st.v[0] + h * st.v[2];
+  const T* kbase = k + b * st.k[0] + h * st.k[2];
+  const T* vbase = v + b * st.v[0] + h * st.v[2];
   auto issue = [&](const OtherTile& o, int stage) {
     load_tile_async<D>(k_s + stage * Tile::kElems, kbase, st.k[1], o.x0,
                        o.x_lim, tid);
@@ -877,7 +881,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  OwnRows<D> qf, of;
+  OwnRows<D, T> qf, of;
 
   for (int stage = 0, first = 1; have; stage ^= 1, first = 0) {
     const bool more = walk.next(nxt);
@@ -889,8 +893,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
       qf.init(q_s, wr, lane);
       of.init(o_s, wr, lane);
     }
-    const bf16* kt_s = k_s + stage * Tile::kElems;
-    const bf16* vt_s = v_s + stage * Tile::kElems;
+    const T* kt_s = k_s + stage * Tile::kElems;
+    const T* vt_s = v_s + stage * Tile::kElems;
     // the key groups each of the thread's rows sees in this super-tile
     uint32_t sel[2];
 #pragma unroll
@@ -915,10 +919,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
           uint32_t bk[4], bv[4];
           ldsm_b<D>(bk, kt_s, c + 16 * nn, 16 * kk, lane);
           ldsm_b<D>(bv, vt_s, c + 16 * nn, 16 * kk, lane);
-          mma_bf16(sc[2 * nn], aq, bk[0], bk[1]);
-          mma_bf16(sc[2 * nn + 1], aq, bk[2], bk[3]);
-          mma_bf16(dp[2 * nn], ao, bv[0], bv[1]);
-          mma_bf16(dp[2 * nn + 1], ao, bv[2], bv[3]);
+          mma16<T>(sc[2 * nn], aq, bk[0], bk[1]);
+          mma16<T>(sc[2 * nn + 1], aq, bk[2], bk[3]);
+          mma16<T>(dp[2 * nn], ao, bv[0], bv[1]);
+          mma16<T>(dp[2 * nn + 1], ao, bv[2], bv[3]);
         }
       }
       // dS = P∘(dP − Δ) in place of S; the thread's keys are
@@ -939,17 +943,17 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
           sc[n][e] = pr * (dp[n][e] - dlt[hh]);
         }
       }
-      // dq += dS·K, dS as bf16 A fragments straight from the C fragments
+      // dq += dS·K, dS as T A fragments straight from the C fragments
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t a[4];
-        c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a<T>(a, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
         for (int nd = 0; nd < D / 16; ++nd) {
           uint32_t bk[4];
           ldsm_bt<D>(bk, kt_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(acc[2 * nd], a, bk[0], bk[1]);
-          mma_bf16(acc[2 * nd + 1], a, bk[2], bk[3]);
+          mma16<T>(acc[2 * nd], a, bk[0], bk[1]);
+          mma16<T>(acc[2 * nd + 1], a, bk[2], bk[3]);
         }
       }
     }
@@ -962,11 +966,11 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (grp[hh] >= 0) {
-      bf16* o = dq + b * st.grad[0] + (int64_t)row[hh] * st.grad[1] +
+      T* o = dq + b * st.grad[0] + (int64_t)row[hh] * st.grad[1] +
                 h * st.grad[2];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) = pack16<T>(
             acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
     }
   }
@@ -978,25 +982,25 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
 // Δ; per tile Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so Pᵀ and dSᵀ are A operands as
 // they stand: dv += Pᵀ·dO and dk += dSᵀ·Q.  The per-tile body is B2b's
 // without dropout and with the super-tile mask (a copy, as for B6b).
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
-    agg_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ dout,
+    agg_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            SuperLayout lay, const int* __restrict__ order,
                            int heads, int s, Strides st, float scale,
                            int causal) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char agg_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(agg_smem);
-  bf16* v_s = k_s + Tile::kElems;
-  bf16* q_s = v_s + Tile::kElems;      // two stages
-  bf16* o_s = q_s + 2 * Tile::kElems;  // two stages
+  T* k_s = reinterpret_cast<T*>(agg_smem);
+  T* v_s = k_s + Tile::kElems;
+  T* q_s = v_s + Tile::kElems;      // two stages
+  T* o_s = q_s + 2 * Tile::kElems;  // two stages
   float* lse_s = reinterpret_cast<float*>(o_s + 2 * Tile::kElems);
   float* dlt_s = lse_s + 2 * kMmaTileRows;
 
@@ -1015,8 +1019,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
                        lay.mask + col_off * lay.width, lay.cnt[col_off], lay,
                        p, causal};
 
-  const bf16* qbase = q + b * st.q[0] + h * st.q[2];
-  const bf16* obase = dout + b * st.o[0] + h * st.o[2];
+  const T* qbase = q + b * st.q[0] + h * st.q[2];
+  const T* obase = dout + b * st.o[0] + h * st.o[2];
   const float* lrow = lse + (int64_t)bh * s;
   const float* drow = delta + (int64_t)bh * s;
   auto issue = [&](const OtherTile& o, int stage) {
@@ -1052,7 +1056,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  OwnRows<D> kf, vf;
+  OwnRows<D, T> kf, vf;
 
   for (int stage = 0, first = 1; have; stage ^= 1, first = 0) {
     const bool more = walk.next(nxt);
@@ -1064,8 +1068,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
       kf.init(k_s, wk, lane);
       vf.init(v_s, wk, lane);
     }
-    const bf16* qt_s = q_s + stage * Tile::kElems;
-    const bf16* ot_s = o_s + stage * Tile::kElems;
+    const T* qt_s = q_s + stage * Tile::kElems;
+    const T* ot_s = o_s + stage * Tile::kElems;
     const float* lt = lse_s + stage * kMmaTileRows;
     const float* dt = dlt_s + stage * kMmaTileRows;
     // the row groups that see each of the thread's keys in this
@@ -1094,10 +1098,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
           uint32_t bq[4], bo[4];
           ldsm_b<D>(bq, qt_s, c + 16 * nn, 16 * kk, lane);
           ldsm_b<D>(bo, ot_s, c + 16 * nn, 16 * kk, lane);
-          mma_bf16(sc[2 * nn], ak, bq[0], bq[1]);
-          mma_bf16(sc[2 * nn + 1], ak, bq[2], bq[3]);
-          mma_bf16(dp[2 * nn], av, bo[0], bo[1]);
-          mma_bf16(dp[2 * nn + 1], av, bo[2], bo[3]);
+          mma16<T>(sc[2 * nn], ak, bq[0], bq[1]);
+          mma16<T>(sc[2 * nn + 1], ak, bq[2], bq[3]);
+          mma16<T>(dp[2 * nn], av, bo[0], bo[1]);
+          mma16<T>(dp[2 * nn + 1], av, bo[2], bo[3]);
         }
       }
       // Pᵀ in place of Sᵀ, dSᵀ in place of dPᵀ; the thread's rows are
@@ -1128,17 +1132,17 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t ap[4], as[4];
-        c_to_a(ap, sc[2 * kk], sc[2 * kk + 1]);
-        c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<T>(ap, sc[2 * kk], sc[2 * kk + 1]);
+        c_to_a<T>(as, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int nd = 0; nd < D / 16; ++nd) {
           uint32_t bo[4], bq[4];
           ldsm_bt<D>(bo, ot_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(dva[2 * nd], ap, bo[0], bo[1]);
-          mma_bf16(dva[2 * nd + 1], ap, bo[2], bo[3]);
+          mma16<T>(dva[2 * nd], ap, bo[0], bo[1]);
+          mma16<T>(dva[2 * nd + 1], ap, bo[2], bo[3]);
           ldsm_bt<D>(bq, qt_s, c + 16 * kk, 16 * nd, lane);
-          mma_bf16(dka[2 * nd], as, bq[0], bq[1]);
-          mma_bf16(dka[2 * nd + 1], as, bq[2], bq[3]);
+          mma16<T>(dka[2 * nd], as, bq[0], bq[1]);
+          mma16<T>(dka[2 * nd + 1], as, bq[2], bq[3]);
         }
       }
     }
@@ -1155,10 +1159,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
                           h * st.grad[2] + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack16<T>(
             dka[n][2 * hh] * scale, dka[n][2 * hh + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-            pack_bf16(dva[n][2 * hh], dva[n][2 * hh + 1]);
+            pack16<T>(dva[n][2 * hh], dva[n][2 * hh + 1]);
       }
     }
   }
@@ -1170,7 +1174,7 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out, *lse_out, *grad, *dv;
-  const int* order;  // the bf16 backward's launch order
+  const int* order;  // the 16-bit kernels' launch order
   SuperLayout lay;
   int batch, heads, s;
   Strides st;
@@ -1179,9 +1183,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The bf16 B6a, B6b and B6c, on the tensor cores: grid x the copies of
-// a layout head, grid y the rank in the launch order (B6a takes B6b's).
-template <int D>
+// The bf16 and fp16 B6a, B6b and B6c, on the tensor cores: grid x the
+// copies of a layout head, grid y the rank in the launch order (B6a takes
+// B6b's).
+template <typename T, int D>
 int launch_mma(Kind kind, const Args& a) {
   const SuperLayout& l = a.lay;
   const int units = l.layout_heads * l.ns * l.parts;
@@ -1190,38 +1195,38 @@ int launch_mma(Kind kind, const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(l.layout_heads == 1 ? a.batch * a.heads : a.batch, units);
   constexpr int bytes = agg_mma_smem_bytes<D>();
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
   if (kind == kFwd) {
     constexpr int fwd_bytes = agg_fwd_mma_smem_bytes<D>();
-    err = cudaFuncSetAttribute(agg_fwd_mma_kernel<D>,
+    err = cudaFuncSetAttribute(agg_fwd_mma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                fwd_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    agg_fwd_mma_kernel<D><<<grid, kMmaThreads, fwd_bytes, a.stream>>>(
-        q, k, v, static_cast<bf16*>(a.out), static_cast<float*>(a.lse_out),
+    agg_fwd_mma_kernel<T, D><<<grid, kMmaThreads, fwd_bytes, a.stream>>>(
+        q, k, v, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
         l, a.order, a.heads, a.s, a.st, a.scale, a.causal);
   } else if (kind == kDq) {
-    err = cudaFuncSetAttribute(agg_bwd_dq_mma_kernel<D>,
+    err = cudaFuncSetAttribute(agg_bwd_dq_mma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    agg_bwd_dq_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<bf16*>(a.grad), l, a.order,
+    agg_bwd_dq_mma_kernel<T, D><<<grid, kMmaThreads, bytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.grad), l, a.order,
         a.heads, a.s, a.st, a.scale, a.causal);
   } else {
-    err = cudaFuncSetAttribute(agg_bwd_dkv_mma_kernel<D>,
+    err = cudaFuncSetAttribute(agg_bwd_dkv_mma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    agg_bwd_dkv_mma_kernel<D><<<grid, kMmaThreads, bytes, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<bf16*>(a.grad),
-        static_cast<bf16*>(a.dv), l, a.order, a.heads, a.s, a.st, a.scale,
+    agg_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, bytes, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.grad),
+        static_cast<T*>(a.dv), l, a.order, a.heads, a.s, a.st, a.scale,
         a.causal);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1259,10 +1264,18 @@ int dispatch(Kind kind, int dtype, int head_dim, const Args& a) {
   if (l.G < 1 || l.G * l.G > 32 || l.blk <= 0 || l.ns <= 0 ||
       l.ns * l.n != a.s || a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  // Built twice (op_builder): without DS_AGG_FP16 the fp32 and bf16
+  // kernels, with it the fp16 ones, so the two builds of the tensor-core
+  // templates run side by side; each library refuses the other's types.
+#ifndef DS_AGG_FP16
   if (dtype == 0 && head_dim == 64) return launch_scalar<64>(kind, a);
   if (dtype == 0 && head_dim == 128) return launch_scalar<128>(kind, a);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(kind, a);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(kind, a);
+  if (dtype == 1 && head_dim == 64) return launch_mma<bf16, 64>(kind, a);
+  if (dtype == 1 && head_dim == 128) return launch_mma<bf16, 128>(kind, a);
+#else
+  if (dtype == 2 && head_dim == 64) return launch_mma<__half, 64>(kind, a);
+  if (dtype == 2 && head_dim == 128) return launch_mma<__half, 128>(kind, a);
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1300,15 +1313,15 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
 
 }  // namespace
 
-// B6a.  dtype: 0 = float32, 1 = bfloat16.  q, k, v are [b, s, h, d] of
-// that dtype with the last dim contiguous; `strides` points to 9 host
+// B6a.  dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, k, v are
+// [b, s, h, d] of that dtype with the last dim contiguous; `strides` points to 9 host
 // int64 element strides: (batch, seq, head) of q, k and v.  out is a
 // contiguous [b, s, h, d] of the input dtype and lse a contiguous fp32
 // [b·h, s].  slut, scnt, smask are build_super_luts' [H, ns, tmax],
 // [H, ns] and [H, ns, tmax] int32 tables in device memory; H =
 // layout_heads is 1 or `heads`; s = ns·G·blk.  `order` is B6b's int32
 // launch order in device memory (build_launch_order's dq order); the
-// bf16 kernel reads it, the fp32 one launches in grid order.  bf16 rows
+// 16-bit kernels read it, the fp32 one launches in grid order.  16-bit rows
 // must be 16-byte aligned with strides that are multiples of 8 elements
 // (the wrapper checks).  Launches on `stream`, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -1334,7 +1347,7 @@ extern "C" int ds_fbs_agg_fwd(int dtype, int head_dim, const void* q,
 // is 15 host int64 element strides: (batch, seq, head) of q, k, v, dout
 // and dq.  `order` is the int32 launch order in device memory
 // (build_launch_order: the H·ns·parts units, the most tiles first); the
-// bf16 kernel reads it, the fp32 one launches in grid order.  bf16 rows
+// 16-bit kernels read it, the fp32 one launches in grid order.  16-bit rows
 // must be 16-byte aligned with strides that are multiples of 8 elements
 // (the wrapper checks).  Otherwise as ds_fbs_agg_fwd.
 extern "C" int ds_fbs_agg_bwd_dq(int dtype, int head_dim, const void* q,

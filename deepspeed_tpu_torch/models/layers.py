@@ -49,7 +49,7 @@ from ..utils.params import MODEL, QKV
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
 from ..ops.sparse_attention.flash_block_sparse import (
-    FP16_ITEM, flash_block_sparse_attention, kernel_takes)
+    flash_block_sparse_attention, kernel_takes)
 from ..ops.transformer.attention import (MIN_DROPOUT,
                                          dot_product_attention,
                                          key_padding_to_additive)
@@ -199,10 +199,9 @@ def sparse_core(q, has_key_padding):
         return "gather"
     if not kernel_takes(q):
         raise NotImplementedError(
-            f"the block-sparse flash kernels take fp32 or bf16 at head_dim "
-            f"64 or 128, not {q.dtype} at head_dim {q.shape[-1]} (fp16 "
-            f"B5/B6 is {FP16_ITEM}); DS_SPARSE_FLASH=never takes the gather "
-            f"path instead")
+            f"the block-sparse flash kernels take fp32, bf16 or fp16 at "
+            f"head_dim 64 or 128, not {q.dtype} at head_dim {q.shape[-1]}; "
+            f"DS_SPARSE_FLASH=never takes the gather path instead")
     return "kernel"
 
 
@@ -226,15 +225,16 @@ class TransformerLayer:
     regions, ``layers.py:291-305``): ``attn_dropout_checkpoint`` the
     attention block (QKV, B1, attention output and its dropout),
     ``gelu_checkpoint`` the MLP block, ``normalize_invertible`` each
-    layernorm.  Not ported yet, and refused: the sparse core above one
-    ``model`` rank (A18), and any core but the ring above one ``seq``
-    rank (``SEQ_ITEM``).  Under a ``model`` axis the params are the
-    rank's slices (:meth:`partition_specs`) and the layer is its Megatron
-    shard (see the module docstring); under ``seq`` the input is this
-    rank's chunk of the sequence.  ``apply(..., positions=...)`` computes
-    the layer at a few gathered rows only (BERT's last layer under the
-    MLM gather; the dense core only, so never with the ring, as in the
-    JAX layer)."""
+    layernorm.  Not ported yet, and refused: any core but the ring above
+    one ``seq`` rank (``SEQ_ITEM``).  Under a ``model`` axis the params
+    are the rank's slices (:meth:`partition_specs`) and the layer is its
+    Megatron shard (see the module docstring): the sparse core runs the
+    rank's heads on their rows of a per-head layout, and the sparse and
+    ring cores' context dropout cuts the whole layer's mask to them;
+    under ``seq`` the input is this rank's chunk of the sequence.
+    ``apply(..., positions=...)`` computes the layer at a few gathered
+    rows only (BERT's last layer under the MLM gather; the dense core
+    only, so never with the ring, as in the JAX layer)."""
 
     def __init__(self, hidden_size, heads, intermediate_size=None,
                  causal=False, attn_dropout_ratio=0.1,
@@ -321,14 +321,25 @@ class TransformerLayer:
                              f"the model axis has {m} ranks")
         return hl, axis_index(MODEL_AXIS) * hl
 
-    def _sparse_layout(self, seq_len):
+    def _sparse_layout(self, seq_len, h0=0, heads=None):
         """Layout cached per sequence length: randomized configs (BigBird,
         Variable) must give the same pattern in every call, and the
-        kernels' device tables are cached on the array's identity."""
+        kernels' device tables are cached on the array's identity.  On a
+        ``model`` rank that holds heads ``[h0, h0 + heads)`` a per-head
+        layout (``different_layout_per_head``) is cut to those heads'
+        rows, and the cut is cached too; a shared layout (one row) serves
+        every rank as it is."""
         if seq_len not in self._layout_cache:
             self._layout_cache[seq_len] = \
                 self.sparsity_config.make_layout(seq_len)
-        return self._layout_cache[seq_len]
+        layout = self._layout_cache[seq_len]
+        if heads is None or layout.shape[0] == 1 or heads == layout.shape[0]:
+            return layout
+        key = (seq_len, h0, heads)
+        if key not in self._layout_cache:
+            self._layout_cache[key] = np.ascontiguousarray(
+                layout[h0:h0 + heads])
+        return self._layout_cache[key]
 
     def _additive_key_padding(self, mask, key_padding_mask, b, s):
         """The additive ``[b, s]`` key-padding form the sparse and ring
@@ -344,21 +355,30 @@ class TransformerLayer:
                 f"([b,1,1,s]), got mask shape {tuple(mask.shape)}")
         return mask.reshape(b, s)
 
-    def _context_dropout(self, ctx, attn_rng, deterministic):
+    def _context_dropout(self, ctx, attn_rng, deterministic, h0=0):
         """The sparse and ring cores drop nothing inside: the layer drops
-        their context with its generator, as the JAX layer does."""
-        if attn_rng is not None and self.attn_dropout_ratio > 0.0:
-            ctx = dropout(attn_rng, ctx, self.attn_dropout_ratio,
-                          deterministic)
-        return ctx
+        their ``[b, s, heads, head_dim]`` context with its generator, as
+        the JAX layer does.  On a ``model`` rank holding heads ``[h0, h0
+        + heads)`` the keep mask is drawn for every head and cut to the
+        rank's, so each rank drops what the whole layer drops (the ranks
+        of a data coordinate share the generator's stream)."""
+        if (attn_rng is None or self.attn_dropout_ratio <= 0.0
+                or deterministic or self.attn_dropout_ratio < MIN_DROPOUT):
+            return ctx
+        shape = (*ctx.shape[:2], self.heads, ctx.shape[3])
+        keep, scale = random_keep(attn_rng, shape, self.attn_dropout_ratio,
+                                  ctx.device)
+        keep = keep[:, :, h0:h0 + ctx.shape[2]]
+        return torch.where(keep, ctx * scale, torch.zeros_like(ctx))
 
     def _sparse_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
-                          deterministic):
-        """The sparse core on [b, s, heads, head_dim] views, and the
-        attention dropout on its context."""
+                          deterministic, h0=0):
+        """The sparse core on [b, s, heads, head_dim] views (this rank's
+        heads ``[h0, h0 + heads)`` under ``model``, with their rows of a
+        per-head layout), and the attention dropout on its context."""
         b, s = q.shape[:2]
         kpm_add = self._additive_key_padding(mask, key_padding_mask, b, s)
-        layout = self._sparse_layout(s)
+        layout = self._sparse_layout(s, h0, q.shape[2])
         causal_sp = self.causal or getattr(
             self.sparsity_config, "attention",
             "bidirectional") == "unidirectional"
@@ -368,10 +388,10 @@ class TransformerLayer:
         else:
             ctx = block_sparse_attention(q, k, v, layout, causal=causal_sp,
                                          key_padding_mask=kpm_add)
-        return self._context_dropout(ctx, attn_rng, deterministic)
+        return self._context_dropout(ctx, attn_rng, deterministic, h0)
 
     def _ring_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
-                        deterministic):
+                        deterministic, h0=0):
         """The ring core on this rank's [b, s/N, heads, head_dim] chunk
         (its key-padding chunk rotates with K/V), and the attention
         dropout on its context (JAX ``layers.py:250-255``)."""
@@ -379,7 +399,7 @@ class TransformerLayer:
                                              *q.shape[:2])
         ctx = ring_attention(q, k, v, causal=self.causal,
                              key_padding_mask=kpm_add)
-        return self._context_dropout(ctx, attn_rng, deterministic)
+        return self._context_dropout(ctx, attn_rng, deterministic, h0)
 
     def attention_core(self, params, y, mask=None, key_padding_mask=None,
                        attn_rng=None, deterministic=True, positions=None):
@@ -421,16 +441,13 @@ class TransformerLayer:
         if self.attn_impl == "ring":
             return self._ring_attention(
                 qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
-                key_padding_mask, attn_rng, deterministic).reshape(b, s, h)
+                key_padding_mask, attn_rng, deterministic,
+                h0).reshape(b, s, h)
         if self.attn_impl == "sparse":
-            if heads != self.heads:
-                raise NotImplementedError(
-                    "the block-sparse attention core above one model rank "
-                    "is not ported yet (ROADMAP A18): its per-head layouts "
-                    "need slicing")
             return self._sparse_attention(
                 qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
-                key_padding_mask, attn_rng, deterministic).reshape(b, s, h)
+                key_padding_mask, attn_rng, deterministic,
+                h0).reshape(b, s, h)
         ctx = dot_product_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask=mask,
             key_padding_mask=key_padding_mask, causal=self.causal,

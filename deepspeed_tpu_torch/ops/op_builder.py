@@ -8,8 +8,11 @@ Nothing includes PyTorch's headers, so a build takes seconds.
 
 Libraries land in ``build/deepspeed_tpu_torch/`` beside the package,
 named by a hash of the source, the headers under ``csrc/`` (which is on
-the include path) and the flags, so an edited source or header is rebuilt and an unchanged one is loaded as it is.  A failed build raises
-with nvcc's stderr; there is no fallback.
+the include path) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  A source may build
+several libraries with their own defines (``DEFINES``): the block-sparse
+super-tile source builds its fp16 kernels apart, in parallel.  A failed
+build raises with nvcc's stderr; there is no fallback.
 
 The host kernel of ``DeepSpeedCPUAdam`` (``csrc/adam/cpu_adam.cpp``,
 ``HOST_SOURCES``) is built the same way with ``g++`` and the JAX
@@ -40,7 +43,14 @@ SOURCES = {
     "flash_attention_bwd": "transformer/flash_attention_bwd.cu",
     "flash_block_sparse": "sparse_attention/flash_block_sparse.cu",
     "flash_block_sparse_agg": "sparse_attention/flash_block_sparse_agg.cu",
+    # the same source's fp16 kernels, a library of their own so that the
+    # two halves of its instantiations compile side by side
+    "flash_block_sparse_agg_fp16":
+        "sparse_attention/flash_block_sparse_agg.cu",
 }
+
+# kernel library name -> its own nvcc flags (preprocessor defines)
+DEFINES = {"flash_block_sparse_agg_fp16": ("-DDS_AGG_FP16",)}
 
 # host (g++) library name -> source under csrc/, and the JAX builder's
 # first-tier flags (deepspeed_tpu/ops/op_builder.py: jit_build)
@@ -79,7 +89,7 @@ def library_path(name):
     for header in sorted(CSRC_DIR.rglob("*.cuh")):
         digest.update(str(header.relative_to(CSRC_DIR)).encode())
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + DEFINES.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -114,8 +124,8 @@ def _command(name, out):
     if name in HOST_SOURCES:
         return [find_gxx(), *GXX_FLAGS, "-o", str(out),
                 str(CSRC_DIR / HOST_SOURCES[name])]
-    return [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
-            str(CSRC_DIR / SOURCES[name])]
+    return [find_nvcc(), *NVCC_FLAGS, *DEFINES.get(name, ()), "-I",
+            str(CSRC_DIR), "-o", str(out), str(CSRC_DIR / SOURCES[name])]
 
 
 def build(names=None):
@@ -176,13 +186,15 @@ def kernel_name(mangled):
             + ("_dropout" if "Lb1E" in mangled else ""))
 
 
-def ptxas_usage(src, out):
+def ptxas_usage(src, out, defines=()):
     """Builds ``src`` (a CUDA source, or an edited copy of one) into
-    ``out`` as :func:`build` does, with ``-Xptxas -v``; returns
-    ``{kernel_name: [registers, spill bytes stored]}`` from ptxas's
-    report.  For the profiling scripts."""
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC_DIR),
-           "-I", str(CSRC_DIR / "transformer"), "-o", str(out), str(src)]
+    ``out`` as :func:`build` does, with ``-Xptxas -v`` and ``defines``
+    (a library's :data:`DEFINES`); returns ``{kernel_name: [registers,
+    spill bytes stored]}`` from ptxas's report.  For the profiling
+    scripts."""
+    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-I",
+           str(CSRC_DIR), "-I", str(CSRC_DIR / "transformer"), "-o",
+           str(out), str(src)]
     err = subprocess.run(cmd, capture_output=True, text=True,
                          check=True).stderr
     kernels, name = {}, None

@@ -8,21 +8,23 @@ Kernels:
   nb]`` layout (``H`` is 1 or the head count), out and the fp32
   logsumexp; replaces the TPU's work-list ``_fwd_kernel``.  fp32 runs
   the scalar kernel of ``csrc/sparse_attention/flash_block_sparse.cu``;
-  bf16 runs B6a's tensor-core kernel at G = 1;
+  bf16 and fp16 run B6a's tensor-core kernel at G = 1;
 - B5b: dq, dk and dv over the same tiles, as a dq kernel in row-major
   order and a dk/dv kernel in key-major order over the transposed
   look-up table, launched together by one wrapper; replaces the TPU's
   ``_bwd_fused_kernel``, whose full-sequence dk/dv accumulators no Hopper
   block can hold.  fp32 runs the scalar kernels of the same source; bf16
-  runs B6b's and B6c's tensor-core kernels at G = 1, where a super-tile
+  and fp16 run B6b's and B6c's tensor-core kernels at G = 1, where a
+  super-tile
   is one layout block and the super-tile lse rule is B5's;
 - B6a, B6b, B6c (``csrc/sparse_attention/flash_block_sparse_agg.cu``):
   the forward, the dq kernel and the dk/dv kernel over ``G×G``
   super-tiles of ``[G·blk, G·blk]`` with a ``G·G``-bit mask each
   (:func:`build_super_luts`); replace the TPU's ``_fwd_kernel_agg``,
   ``_bwd_dq_kernel_agg`` and ``_bwd_dkv_kernel_agg``, and count their
-  launches separately, as the TPU backward is two calls.  In bf16 all
-  three run on the tensor cores and launch their blocks in
+  launches separately, as the TPU backward is two calls.  In bf16 and
+  fp16 all three run on the tensor cores (one template on the 16-bit
+  type, as B1-B3) and launch their blocks in
   :func:`build_launch_order`'s order, the most tiles first (B6a in
   B6b's); fp32 keeps scalar kernels for the parity checks.
 
@@ -36,8 +38,9 @@ compute the same out and gradients; they differ only in the lse of a row
 that sees no pair, which B6 gives as the TPU's super-tile kernels do
 (MAX_FLOOR in a super-row with an active tile, NEG_INF in one without).
 
-Each wrapper launches its kernel for CUDA tensors or raises, and runs the
-plain version (:func:`flash_block_sparse_reference` and
+Each wrapper launches its kernel for CUDA tensors or raises, counts the
+launch in ``.launches`` (an fp16 one again in ``.fp16.launches``), and
+runs the plain version (:func:`flash_block_sparse_reference` and
 :func:`flash_block_sparse_bwd_reference`, or their ``_agg`` forms) for
 CPU tensors.  Layout is the JAX package's: q, k, v ``[b, s, h, d]``, read
 through their strides, so views of a fused QKV projection go in as they
@@ -69,20 +72,18 @@ from ..transformer.flash_attention import mma_aligned
 
 logger = logging.getLogger(__name__)
 
-# The types the B5 and B6 kernels take, their own set: the dense kernels
-# also take fp16, which the sparse sources have no code for (fp16 B5/B6 is
-# ROADMAP B item 10).
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-FP16_ITEM = "ROADMAP B item 10"
+# The types the B5 and B6 kernels take, and their codes in the C entries:
+# fp32 the scalar kernels, bf16 and fp16 the tensor-core ones.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SHORT = {torch.bfloat16: "bf16", torch.float16: "fp16"}
 
 
 def _check_cuda(q, k, v, kv_mask, extra=()):
     """The dense kernels' limits, and the sparse kernels' own types."""
     _check_dense_cuda(q, k, v, kv_mask, extra)
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the block-sparse flash kernels take float32 or "
-                         f"bfloat16, not {q.dtype} (fp16 B5/B6 is "
-                         f"{FP16_ITEM})")
+        raise ValueError(f"the block-sparse flash kernels take float32, "
+                         f"bfloat16 or float16, not {q.dtype}")
 
 
 # -------------------------------------------------------------- host tables
@@ -431,8 +432,12 @@ def _kernels():
     return fwd, bwd
 
 
-def _agg_kernels():
-    lib = op_builder.load("flash_block_sparse_agg")
+def _agg_kernels(dtype):
+    """The super-tile kernels' entries for ``dtype``: fp16's are built as
+    a library of their own from the same source (``op_builder.DEFINES``)."""
+    lib = op_builder.load("flash_block_sparse_agg_fp16"
+                          if dtype == torch.float16
+                          else "flash_block_sparse_agg")
     fwd, dq, dkv = (lib.ds_fbs_agg_fwd, lib.ds_fbs_agg_bwd_dq,
                     lib.ds_fbs_agg_bwd_dkv)
     if fwd.argtypes is None:
@@ -513,10 +518,17 @@ def _launched(rc, name):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _count_launch(wrapper, dtype):
+    """One more launch of ``wrapper``'s kernel, an fp16 one counted again
+    under ``wrapper.fp16``; called only after the launch succeeded."""
+    wrapper.launches += 1
+    if dtype == torch.float16:
+        wrapper.fp16.launches += 1
+
+
 def kernel_takes(q):
     """Whether the B5 and B6 kernels take tensors like ``q`` ``[b, s, h,
-    d]``: on the card, fp32 or bf16 (not fp16: ``FP16_ITEM``), head_dim 64
-    or 128."""
+    d]``: on the card, fp32, bf16 or fp16, head_dim 64 or 128."""
     return (q.is_cuda and q.dtype in _DTYPE_CODES
             and q.shape[-1] in HEAD_DIMS)
 
@@ -525,8 +537,8 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
     """Block-sparse flash forward (B5a); returns ``(out, lse)``.
 
     CPU tensors take :func:`flash_block_sparse_reference`.  CUDA tensors
-    launch a Hopper kernel (head_dim 64 or 128) or raise: bf16 the
-    tensor-core super-tile forward at G = 1 (a super-tile is one layout
+    launch a Hopper kernel (head_dim 64 or 128) or raise: bf16 and fp16
+    the tensor-core super-tile forward at G = 1 (a super-tile is one layout
     block, whose lse rule is B5's) in :func:`build_launch_order`'s dq
     order, with a ValueError naming B5a on views ``mma_aligned`` refuses;
     fp32 the scalar kernel of ``flash_block_sparse.cu``.  Every launch
@@ -536,11 +548,11 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
     if q.device.type == "cpu":
         return flash_block_sparse_reference(q, k, v, layout, causal)
     _check_cuda(q, k, v, None)
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _mma_views("B5a", q, k, v)
         out, lse = _agg_fwd(q, k, v, layout, 1, causal,
                             "flash_block_sparse_fwd")
-        flash_block_sparse_fwd.launches += 1
+        _count_launch(flash_block_sparse_fwd, q.dtype)
         return out, lse
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
@@ -557,11 +569,8 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
                  luts.layout_heads, luts.kmax, strides, 1.0 / math.sqrt(d),
                  int(bool(causal)), stream)
     _launched(rc, "flash_block_sparse_fwd")
-    flash_block_sparse_fwd.launches += 1
+    _count_launch(flash_block_sparse_fwd, q.dtype)
     return out, lse
-
-
-flash_block_sparse_fwd.launches = 0
 
 
 def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
@@ -571,7 +580,7 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
     CPU tensors take :func:`flash_block_sparse_bwd_reference`.  CUDA
     tensors launch a dq kernel and a dk/dv kernel (one launch of B5b:
     ``flash_block_sparse_bwd.launches`` goes up by one, and no B6 counter
-    moves) or raise.  bf16 runs on the tensor cores through the
+    moves) or raise.  bf16 and fp16 run on the tensor cores through the
     super-tile kernels at G = 1 (a super-tile is one layout block, whose
     lse rule is B5's), in :func:`build_launch_order`'s order, with a
     ValueError naming B5b on views ``mma_aligned`` refuses; fp32 runs the
@@ -583,14 +592,14 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
         return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
                                                 layout, causal)
     _check_cuda(q, k, v, None, extra=(dout, out))
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _mma_views("B5b", q, k, v, dout)
         delta = _delta(out, dout)
         name = "flash_block_sparse_bwd"
         dq = _agg_dq(q, k, v, lse, dout, delta, layout, 1, causal, name)
         dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, 1, causal,
                           name)
-        flash_block_sparse_bwd.launches += 1
+        _count_launch(flash_block_sparse_bwd, q.dtype)
         return dq, dk, dv
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
@@ -612,11 +621,8 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
                  luts.nb, luts.layout_heads, luts.kmax, luts.qmax, strides,
                  1.0 / math.sqrt(d), int(bool(causal)), stream)
     _launched(rc, "flash_block_sparse_bwd")
-    flash_block_sparse_bwd.launches += 1
+    _count_launch(flash_block_sparse_bwd, q.dtype)
     return dq, dk, dv
-
-
-flash_block_sparse_bwd.launches = 0
 
 
 class FlashBlockSparse(torch.autograd.Function):
@@ -658,17 +664,17 @@ def _agg_common(q, tables, G):
 
 
 def _mma_views(name, q, k, v, dout=None):
-    """The bf16 tensor-core kernels (B5a, B5b, B6a, B6b, B6c) copy q, k, v
+    """The 16-bit tensor-core kernels (B5a, B5b, B6a, B6b, B6c) copy q, k, v
     (and dO) in 16-byte ``cp.async`` chunks: a ValueError naming the
     kernel where ``mma_aligned`` refuses the views (nothing is copied or
     sent elsewhere)."""
     tensors = (q, k, v) if dout is None else (q, k, v, dout)
-    if q.dtype == torch.bfloat16 and not mma_aligned(*tensors):
+    if q.dtype != torch.float32 and not mma_aligned(*tensors):
         names = "q, k and v" if dout is None else "q, k, v and dO"
         raise ValueError(
-            f"the bf16 {name} kernel needs {names} 16-byte aligned with "
-            f"batch, seq and head strides that are multiples of 8 "
-            f"elements; got strides {[t.stride() for t in tensors]}")
+            f"the {_SHORT[q.dtype]} {name} kernel needs {names} 16-byte "
+            f"aligned with batch, seq and head strides that are multiples "
+            f"of 8 elements; got strides {[t.stride() for t in tensors]}")
 
 
 def _agg_order(layout, q, G, causal):
@@ -690,7 +696,7 @@ def _agg_fwd(q, k, v, layout, G, causal, name):
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    fwd, _, _ = _agg_kernels()
+    fwd, _, _ = _agg_kernels(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
@@ -708,8 +714,8 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
 
     CPU tensors take :func:`flash_block_sparse_agg_reference`.  CUDA
     tensors launch the Hopper kernel (head_dim 64 or 128) or raise: bf16
-    the tensor-core kernel in B6b's launch order (:func:`build_launch_order`;
-    the two visit the same tiles), with a ValueError naming B6a on views
+    and fp16 the tensor-core kernel in B6b's launch order
+    (:func:`build_launch_order`; the two visit the same tiles), with a ValueError naming B6a on views
     ``mma_aligned`` refuses; fp32 the scalar one.  Every launch adds one
     to ``flash_block_sparse_agg_fwd.launches``."""
     layout = _agg_setup(q, k, v, layout, G)
@@ -719,7 +725,7 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
     _mma_views("B6a", q, k, v)
     out, lse = _agg_fwd(q, k, v, layout, G, causal,
                         "flash_block_sparse_agg_fwd")
-    flash_block_sparse_agg_fwd.launches += 1
+    _count_launch(flash_block_sparse_agg_fwd, q.dtype)
     return out, lse
 
 
@@ -737,7 +743,7 @@ def _agg_dq(q, k, v, lse, dout, delta, layout, G, causal, name):
     st = device_luts(layout, q.device).super_tables(G)
     order = _agg_order(layout, q, G, causal)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _, fn, _ = _agg_kernels()
+    _, fn, _ = _agg_kernels(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
@@ -760,7 +766,7 @@ def _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal, name):
     order = _agg_order(layout, q, G, causal)[1]
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _, _, fn = _agg_kernels()
+    _, _, fn = _agg_kernels(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
@@ -781,10 +787,11 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
     Δ as fp32 ``[b·h, s]``, is computed when not given.
 
     CPU tensors take :func:`flash_block_sparse_agg_bwd_reference`.  CUDA
-    tensors launch the Hopper kernel or raise: bf16 the tensor-core
-    kernel in :func:`build_launch_order`'s order (and a ValueError naming
-    B6b on views ``mma_aligned`` refuses), fp32 the scalar one.  Every
-    launch adds one to ``flash_block_sparse_agg_bwd_dq.launches``."""
+    tensors launch the Hopper kernel or raise: bf16 and fp16 the
+    tensor-core kernel in :func:`build_launch_order`'s order (and a
+    ValueError naming B6b on views ``mma_aligned`` refuses), fp32 the
+    scalar one.  Every launch adds one to
+    ``flash_block_sparse_agg_bwd_dq.launches``."""
     layout = _agg_setup(q, k, v, layout, G)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
@@ -795,7 +802,7 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
     delta = _delta(out, dout) if delta is None else delta
     dq = _agg_dq(q, k, v, lse, dout, delta, layout, G, causal,
                  "flash_block_sparse_agg_bwd_dq")
-    flash_block_sparse_agg_bwd_dq.launches += 1
+    _count_launch(flash_block_sparse_agg_bwd_dq, q.dtype)
     return dq
 
 
@@ -814,13 +821,15 @@ def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
     delta = _delta(out, dout) if delta is None else delta
     dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal,
                       "flash_block_sparse_agg_bwd_dkv")
-    flash_block_sparse_agg_bwd_dkv.launches += 1
+    _count_launch(flash_block_sparse_agg_bwd_dkv, q.dtype)
     return dk, dv
 
 
-flash_block_sparse_agg_fwd.launches = 0
-flash_block_sparse_agg_bwd_dq.launches = 0
-flash_block_sparse_agg_bwd_dkv.launches = 0
+for _wrapper in (flash_block_sparse_fwd, flash_block_sparse_bwd,
+                 flash_block_sparse_agg_fwd, flash_block_sparse_agg_bwd_dq,
+                 flash_block_sparse_agg_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.fp16 = types.SimpleNamespace(launches=0)
 
 
 def flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout, G,

@@ -216,11 +216,16 @@ size are the launcher's ``DS_PROCESS_ID`` and ``DS_NUM_PROCESSES`` where
 it set them (a fleet of full replicas runs without a process group),
 else the process group's.
 
+Above one ``model`` or ``expert`` rank (and under a pipeline, above
+one stage) 1-bit Adam compresses each rank's own part of the model over
+its data group, with the compression's scales taken over the whole
+model (:mod:`~deepspeed_tpu_torch.runtime.fp16.onebit_adam`), and
+``sparse_gradients`` exchanges a vocab-parallel embedding's rows, ids
+in the rank's vocab range, over ``data``.
+
 Not in this slice (each refused where asked for, with its ROADMAP item):
-offload above one rank (A9), ZeRO-3 and 1-bit Adam
-under a pipeline (A13 remainder), 1-bit Adam and ``sparse_gradients``
-above one model or expert rank (A18), and what does not compose with
-``seq`` yet (A19).
+offload above one rank (A9), MoE under a pipeline (which the JAX package
+has no path for) and what does not compose with ``seq`` yet (A19).
 """
 
 import dataclasses
@@ -419,8 +424,6 @@ class DeepSpeedEngine:
                 "ZeRO-Offload with the host state sharded over "
                 "data-parallel ranks is not ported yet (ROADMAP A9); it "
                 "runs at one rank")
-        if self._tp:
-            self._refuse_tp(optimizer)
         if seq:
             self._refuse_seq_config(optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
@@ -630,21 +633,6 @@ class DeepSpeedEngine:
                 f"({SEQ_ITEM})")
 
     # ------------------------------------------------ tensor parallelism
-    def _refuse_tp(self, client_optimizer):
-        """What this slice does not compose with ``model`` or ``expert``
-        above one rank, each naming ROADMAP A18."""
-        name = (type(client_optimizer).__name__.lower()
-                if client_optimizer is not None
-                else (self._config.optimizer_name or "").lower())
-        if name == C.ONEBIT_ADAM_OPTIMIZER:
-            raise NotImplementedError(
-                "OneBitAdam above one model or expert rank is not ported "
-                "yet (ROADMAP A18)")
-        if self._config.sparse_gradients_enabled:
-            raise NotImplementedError(
-                "sparse_gradients above one model or expert rank is not "
-                "ported yet (ROADMAP A18)")
-
     def _tp_setup(self, model, params0):
         """Under ``model`` or ``expert`` above 1: this rank's slices of
         the whole tree ``params0`` by the model's ``partition_specs()``
@@ -1951,17 +1939,54 @@ class DeepSpeedEngine:
         resilience), so the anomaly guard sees the step as the JAX
         engine's does."""
         g = self._acc if self._acc is not None else self._grad
-        loss = torch.stack(self._losses).float().mean()
-        if self.mesh is not None:
-            loss = comm.pmean(loss, DATA_AXIS, self.mesh)
+        loss = self._compressed_loss()
         self._step_loss = loss
         mean_loss = (self._fetch_step_scalars([loss])[0] if self._skip_bad
                      else None)
-        self.optimizer.compressed_update(self.opt_state, self.master, g,
-                                         self.optimizer.hyperparams(),
-                                         mesh=self.mesh)
+        axes = self._onebit_scale_axes()
+        self.optimizer.compressed_update(
+            self.opt_state, self.master, g, self.optimizer.hyperparams(),
+            mesh=self.mesh, scale_axes=axes,
+            weights=self._onebit_weights() if axes else None)
         self._refresh_params()
         return False, mean_loss
+
+    def _compressed_loss(self):
+        """The compressed step's loss: the mean over the micro-batches,
+        averaged over the data-parallel ranks."""
+        loss = torch.stack(self._losses).float().mean()
+        if self.mesh is not None:
+            loss = comm.pmean(loss, DATA_AXIS, self.mesh)
+        return loss
+
+    def _onebit_scale_axes(self):
+        """The axes besides ``data`` whose ranks hold other parts of the
+        model (``model`` and ``expert`` above one rank): 1-bit Adam's
+        compression scales are taken over them too, so that a leaf held
+        by several of them (replicated over ``model``) gets the same
+        update on each.  None at one rank of each."""
+        if self.mesh is None:
+            return None
+        axes = tuple(ax for ax in (MODEL_AXIS, EXPERT_AXIS)
+                     if self.mesh.size(ax) > 1)
+        return axes or None
+
+    def _onebit_row_weights(self):
+        """1.0 on the rows of the master whose leaf this rank counts in
+        the whole model (a leaf replicated over ``model`` or ``expert``
+        at coordinate 0 of it), 0.0 elsewhere."""
+        if self._tp:
+            return self._norm_row_weights()
+        return torch.ones(self.master.shape[0], device=self.device)
+
+    def _onebit_weights(self):
+        """:meth:`_onebit_row_weights` for every element of the flat
+        master, made once: the weights of the compression's scales
+        above one rank of :meth:`_onebit_scale_axes`."""
+        if getattr(self, "_onebit_w", None) is None:
+            self._onebit_w = self._onebit_row_weights().repeat_interleave(
+                LANES)
+        return self._onebit_w
 
     def _dense_step(self):
         """The exchange, the checks, the clip and the update of a step;
@@ -2514,7 +2539,10 @@ class DeepSpeedEngine:
         rank-local buffer (1-bit Adam's error feedback, stored ``[dp,
         ...]``) takes this rank's row, or restarts from zero, with a
         warning, where the checkpoint's data-parallel degree differs (as
-        the JAX engine does)."""
+        the JAX engine does).  Above one ``model``, ``expert`` or
+        ``pipe`` rank the file holds coordinate 0's buffers only (the
+        JAX engine's are the whole model's): they restart from zero,
+        with a warning."""
         local = self._rank_local_fields()
         for name, leaf in state_fields(self.opt_state).items():
             key = f".{name}"
@@ -2523,7 +2551,13 @@ class DeepSpeedEngine:
                                       f"opt/{key}")
             if name in local:
                 arr = np.asarray(host[key], np.float32)
-                if arr.shape == (self.dp_world_size, *leaf.shape):
+                if self._onebit_scale_axes():
+                    logger.warning(
+                        f"optimizer state {key}: this rank's error feedback "
+                        f"covers its own part of the model, which the "
+                        f"checkpoint does not hold; resetting to zeros")
+                    leaf.zero_()
+                elif arr.shape == (self.dp_world_size, *leaf.shape):
                     leaf.copy_(torch.from_numpy(arr[self.dp_rank]))
                 else:
                     logger.warning(

@@ -26,6 +26,16 @@ the moments in the master's flat layout, and this rank's error buffers,
 elements of the flat buffer.  Both error buffers persist across steps;
 a checkpoint stacks every rank's, ``[dp, ...]``, as the JAX engine
 stores them.
+
+Above one rank of ``model``, ``expert`` or ``pipe`` each rank's flat
+buffer is its own part of the model (its Megatron slices, its experts,
+its stage), and the compressed all-reduce runs over its data group on
+that part, with the error buffers of that part.  The JAX engine
+compresses the whole model's buffer, whose scales are the whole
+buffer's RMS; here the scales are the RMS over the whole model too
+(summed over those axes, a replicated or tied leaf counted once), so
+that every copy of a leaf gets the same update.  The server chunks are
+each rank's, so the result is close to the JAX engine's, not equal.
 """
 
 from dataclasses import dataclass
@@ -91,9 +101,11 @@ class OnebitAdam:
         return step >= self.freeze_step
 
     def update(self, state, flat_master, flat_grads, hp, segments=None,
-               shard=None):
+               shard=None, tensor_reduce=None):
         """The warmup (dense) update, in place: Adam without bias
-        correction, the error buffers untouched.
+        correction, the error buffers untouched.  Elementwise, so a
+        tensor-parallel rank's slices take it unchanged
+        (``tensor_reduce`` is Lamb's).
 
         The frozen ``exp_avg_sq`` is what accumulated by ``freeze_step``:
         with beta2 = 0.999 only ``1 - 0.999^t`` of the second moment, so
@@ -110,17 +122,24 @@ class OnebitAdam:
         return p, state
 
     def compressed_update(self, state, flat_master, local_grads, hp,
-                          mesh=None):
+                          mesh=None, scale_axes=None, weights=None):
         """The compressed-phase update, in place, from this rank's local
         gradient: the rank's momentum, its 1-bit consensus over the
         ``data`` axis of ``mesh`` (a collective: every rank calls it),
-        and the step on the frozen variance."""
+        and the step on the frozen variance.  Above one rank of another
+        axis that splits the model (``scale_axes``: ``model``,
+        ``expert``, ``pipe``) the consensus runs over this rank's data
+        group on its own part of the model, with the compression's
+        scales taken over the whole model (``weights``, one a flat
+        element: 1 where this rank counts the element's leaf, see
+        :func:`~deepspeed_tpu_torch.comm.compression.compressed_allreduce`)."""
         lr, beta1, wd = hp["lr"], hp["beta1"], hp["weight_decay"]
         m_local = beta1 * state.exp_avg + (1.0 - beta1) * local_grads.float()
         m_bar, we, se = compressed_allreduce(
             m_local.reshape(-1), state.worker_error, state.server_error,
             DATA_AXIS, mesh=mesh if mesh is not None
-            else Mesh({DATA_AXIS: 1}))
+            else Mesh({DATA_AXIS: 1}), scale_axes=scale_axes,
+            weights=weights)
         state.exp_avg.copy_(m_bar.view(state.exp_avg.shape))
         state.worker_error.copy_(we)
         state.server_error.copy_(se)

@@ -68,7 +68,22 @@ equal model coordinate (each model rank sends its own copy of the
 boundary activation), a tied param's copies are summed over the stages
 of one data and model coordinate, and the step's stats all-reduce runs
 over ``pipe``, ``data`` and ``model``.  MoE blocks under the pipeline
-engine (the ``expert`` axis) are ROADMAP A18.
+engine (the ``expert`` axis) raise: the JAX package has no such path
+(``MOE_PIPE_ITEM``).
+
+ZeRO-3 (JAX: inherited from its ``DeepSpeedEngine``): each stage's
+flat master is partitioned over its data group, and the stage's
+compute params are gathered before a forward instruction that finds
+them freed, and freed once no micro-batch is in flight (a micro-batch
+in flight holds them in its graph, so a backward always finds them):
+after a backward that leaves none, after the step and after an
+evaluation.  The tied copies' gradients are summed
+over their stages (``ReduceTiedGrads``) before the reduce-scatter.
+1-bit Adam (stage 0): the compressed step exchanges each stage's
+momentum over its data group after ``ReduceTiedGrads``, with the
+compression's scales over every stage (a tied param counted once), so
+the tied copies stay equal; its error buffers are each stage's and
+rank's.
 
 Checkpoints are the JAX package's files for the whole tree: each
 stage's leaves are joined over ``model``, the stages' rows are gathered
@@ -94,7 +109,6 @@ from ...utils.distributed import get_rank, get_world_size, init_distributed
 from ...utils.params import tree_leaves
 from ..config import get_mesh_config, get_pipeline_config
 from ..config_utils import load_config_json
-from ..constants import ONEBIT_ADAM_OPTIMIZER
 from ..dataloader import RepeatingLoader
 from ..engine import DeepSpeedEngine
 from ..utils import tree_path_key
@@ -117,7 +131,8 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
            torch.bool)
 _COMM = (SendActivation, RecvActivation, SendGrad, RecvGrad)
-REMAINDER = "ROADMAP A13 remainder"
+# MoE under a pipeline: absent from the JAX package, re-filed in ROADMAP
+MOE_PIPE_ITEM = "ROADMAP A21"
 
 
 class InterleavedSchedule(PipeSchedule):
@@ -303,23 +318,27 @@ class PipelineEngine(DeepSpeedEngine):
     def _refuse(self):
         """The combinations not ported under a pipeline, each naming its
         item."""
-        if self.zero_stage >= 3:
-            raise NotImplementedError(f"ZeRO-3 under the pipeline engine is "
-                                      f"not ported yet ({REMAINDER})")
-        name = (type(self._client_optimizer).__name__.lower()
-                if self._client_optimizer is not None
-                else (self._config.optimizer_name or "").lower())
-        if name == ONEBIT_ADAM_OPTIMIZER:
-            raise NotImplementedError(f"OneBitAdam under the pipeline engine "
-                                      f"is not ported yet ({REMAINDER})")
         if self._offload and self.pipe_world_size > 1:
             raise NotImplementedError(
                 "ZeRO-Offload above one rank is not ported yet (ROADMAP "
                 "A9); it runs at one rank")
         if self.mesh is not None and self.mesh.size(EXPERT_AXIS) > 1:
             raise NotImplementedError(
-                "MoE under the pipeline engine (an expert axis above 1) is "
-                "not ported yet (ROADMAP A18)")
+                f"MoE under the pipeline engine (an expert axis above 1) "
+                f"is not ported: the JAX package has no such path, its "
+                f"PipelineModule carries no MoE aux loss across stages "
+                f"({MOE_PIPE_ITEM})")
+
+    def _resolve_comm_overlap(self, zc, client_optimizer):
+        """The instruction stream exchanges the gradient at its own
+        instructions, so the bucketed exchange (``overlap_comm``), whose
+        hooks follow the base engine's backward, stays off; ``true``
+        raises."""
+        if zc.overlap_comm is True:
+            raise ValueError("zero_optimization.overlap_comm: true but the "
+                             "bucketed exchange does not run under the "
+                             "pipeline engine")
+        return False, "the pipeline engine exchanges at ReduceGrads"
 
     def _stage_params(self, seed):
         """Partition the layers, place this rank's logical stages, set up
@@ -414,6 +433,42 @@ class PipelineEngine(DeepSpeedEngine):
     def _defer_exchange(self):
         return bool(self._cross_tied)
 
+    def _release_compute(self):
+        """ZeRO-3: the stage's compute params are freed once no
+        micro-batch is in flight (after a backward that leaves none, and
+        after the step); a micro-batch in flight holds them in its graph,
+        and gathering them again would write under it."""
+        if getattr(self, "_live", None):
+            return
+        super()._release_compute()
+
+    def _compressed_loss(self):
+        """1-bit Adam's compressed step: the last stage's mean loss on
+        every stage (a sum over ``pipe``), averaged over ``data``."""
+        if self.pipe_world_size == 1:
+            return super()._compressed_loss()
+        loss = (torch.stack(self._losses).float().mean() if self._losses
+                else torch.zeros((), dtype=torch.float32,
+                                 device=self.device))
+        loss = comm.psum(loss, PIPE_AXIS, self.mesh)
+        return comm.pmean(loss, DATA_AXIS, self.mesh)
+
+    def _onebit_scale_axes(self):
+        axes = super()._onebit_scale_axes() or ()
+        if self.pipe_world_size > 1:
+            axes = (PIPE_AXIS, *axes)
+        return axes or None
+
+    def _onebit_row_weights(self):
+        """The base weights, with the rows of a tied copy whose owning
+        layer is on another stage at 0: a tied param counts once."""
+        w = super()._onebit_row_weights().clone()
+        for key in self._cross_tied:
+            if self._tied_owner[key] != self.stage_id:
+                r0, r1 = self._tied_rows()[key]
+                w[r0:r1] = 0.0
+        return w
+
     def _is_writer(self):
         return (self.dp_rank == 0 and self.stage_id == 0
                 and self._tp_coords == (0, 0))
@@ -506,6 +561,8 @@ class PipelineEngine(DeepSpeedEngine):
                 loss = comm.psum(loss, PIPE_AXIS, self.mesh)
             if self.mesh is not None and self.dp_world_size > 1:
                 loss = comm.pmean(loss, DATA_AXIS, self.mesh)
+        if self._stage3:
+            self._release_compute()
         return loss
 
     # ------------------------------------------------------- interpreter
@@ -610,6 +667,8 @@ class PipelineEngine(DeepSpeedEngine):
         entry = self._live[b]
         micro, logical = self._work(b, entry)
         self._fwd_count += 1
+        if self._stage3:
+            self._gather_compute()
         lo, hi = self.parts[logical], self.parts[logical + 1]
         kw = {"deterministic": not self._train}
         if self._train:
@@ -879,7 +938,14 @@ class PipelineEngine(DeepSpeedEngine):
     def _params_to_host(self):
         if self.pipe_world_size == 1:
             return super()._params_to_host()
-        _, parts = tree_leaves(self.flat.unflatten_params(self._compute))
+        if self._stage3:
+            # no persistent compute params: the master's cast
+            with torch.no_grad():
+                flat = self.flat.canonical_master(self.master).to(
+                    self.compute_dtype)
+        else:
+            flat = self._compute
+        _, parts = tree_leaves(self.flat.unflatten_params(flat))
         local = torch.cat([p.detach().reshape(-1) for p in parts])
         if self._tp:
             local = self._tp_gather_flat(local)

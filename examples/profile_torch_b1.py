@@ -15,7 +15,7 @@ fused-QKV views) with dropout 0.1 and without, the serve bucket s=1024
 
     python3 examples/profile_torch_b1.py [--min-blocks 3 4] [--out PATH]
 
-Times are device ms per launch (``chip_smoke.device_ms``: median of 20
+Times are device ms per launch (``chip_smoke.device_ms``: median of 10
 runs of 10 launches between CUDA events).  Prints one JSON object (also
 written to ``--out PATH``) with the card's name and power limit.
 """

@@ -17,7 +17,7 @@ s = kv_len = 128 at d=128.
 
     python3 examples/profile_torch_b3.py [--narrow-rows 0 160] [--out PATH]
 
-Times are device ms per launch (``chip_smoke.device_ms``: median of 20
+Times are device ms per launch (``chip_smoke.device_ms``: median of 10
 runs of 10 launches between CUDA events).  Prints one JSON object (also
 written to ``--out PATH``) with the card's name and power limit.
 """

@@ -3,7 +3,8 @@
 for the PyTorch/CUDA port.
 
 Builds ``csrc/sparse_attention/flash_block_sparse_agg.cu`` with
-``-Xptxas -v`` and reports each kernel's registers and spills.  Then
+``-Xptxas -v`` and reports each kernel's registers and spills, the fp16
+ones of the library built apart (``-DDS_AGG_FP16``) too.  Then
 builds copies of the source in which the bf16 kernels' bound of blocks
 an SM at head_dim 64 (``kAggMinBlocks64Fwd``, ``kAggMinBlocks64Dq`` and
 ``kAggMinBlocks64Dkv``, all at once) takes each value of
@@ -20,7 +21,7 @@ backward.
 
     python3 examples/profile_torch_b6.py [--min-blocks 2 3 4] [--out PATH]
 
-Times are device ms per launch (``chip_smoke.device_ms``: median of 20
+Times are device ms per launch (``chip_smoke.device_ms``: median of 10
 runs of 10 launches between CUDA events).  Prints one JSON object (also
 written to ``--out PATH``) with the card's name and power limit.
 """
@@ -59,7 +60,7 @@ def use(lib_path):
     for fn, n_ptr in zip(fns, (9, 11, 12)):
         fn.argtypes = [i32, i32] + [ptr] * n_ptr + [i32] * 7 + tail
         fn.restype = ctypes.c_int
-    fbs._agg_kernels = lambda: fns
+    fbs._agg_kernels = lambda dtype: fns
 
 
 def check(label):
@@ -118,7 +119,11 @@ def main():
               "source_min_blocks": dict(BOUNDS.findall(text)),
               "variants": {"source": {
                   "registers_spills": op_builder.ptxas_usage(
-                      SOURCE, libs["source"])}}}
+                      SOURCE, libs["source"])}},
+              # the source's fp16 kernels, the library built apart
+              "fp16_registers_spills": op_builder.ptxas_usage(
+                  SOURCE, build / "source_fp16.so",
+                  op_builder.DEFINES["flash_block_sparse_agg_fp16"])}
     for n in args.min_blocks:
         src = build / f"min_blocks_{n}.cu"
         src.write_text(BOUNDS.sub(rf"constexpr int \1 = {n};", text))

@@ -6,6 +6,9 @@ data parallelism on the PyTorch/CUDA port, one process a rank.
     torchrun --nproc-per-node 4 examples/train_torch_tp.py --model 2 --data 2
     torchrun --nproc-per-node 4 examples/train_torch_tp.py --pipe 2 --model 2
     torchrun --nproc-per-node 4 examples/train_torch_tp.py --experts 8 --expert-axis 4
+    torchrun --nproc-per-node 4 examples/train_torch_tp.py --sparse --model 2 --data 2
+    torchrun --nproc-per-node 4 examples/train_torch_tp.py --bert --optimizer onebit --data 2 --model 2
+    torchrun --nproc-per-node 4 examples/train_torch_tp.py --pipe 2 --data 2 --zero 3
     torchrun --nproc-per-node 2 examples/train_torch_tp.py --model 2 --cpu
 
 Each process joins the ``torch.distributed`` world that torchrun
@@ -20,7 +23,13 @@ slices by the engine; the global batch is ``--batch`` rows of token ids
 from ``--batch-seed``, the same every step, each data rank taking its
 rows (at ``--pipe`` > 1, ``examples/train_torch_pipe.py``'s
 ``PipelineModule`` on ``--micro-batches`` micro-batches).  Lamb for the
-dense model, Adam for MoE, ZeRO-2, lr 1e-4.
+dense model, Adam for MoE, ZeRO-2, lr 1e-4; ``--optimizer onebit`` is
+OneBitAdam (lr 1e-5, ``--freeze-step``, ZeRO 0) and ``--zero`` another
+stage.  ``--sparse``: GPT-2-medium at seq 4096 (global batch 2) with
+block-sparse attention (Fixed unidirectional, 256-row blocks, a global
+pattern for each of four groups of heads, so a model rank runs its
+heads' rows of the layout); ``--bert``: BERT-large pretraining at seq
+128, global batch 64 (MLM 20 a row and NSP, no padding).
 
 Rank 0 prints one JSON line: the mesh, the losses (``--steps`` untimed
 steps, then the timed ones), step ms (median of ``--timed`` steps
@@ -57,7 +66,30 @@ from deepspeed_tpu_torch.utils.distributed import (  # noqa: E402
 import train_torch_pipe as pipe_example  # noqa: E402
 
 
+SPARSE_LAYOUT = dict(block=256, different_layout_per_head=True,
+                     num_local_blocks=4, num_global_blocks=1,
+                     num_different_global_patterns=4,
+                     attention="unidirectional")
+BERT_PRED = 20
+
+
 def model_config(args):
+    if args.bert:
+        from deepspeed_tpu_torch.models.bert import BertConfig
+        if args.cpu:
+            return BertConfig(vocab_size=256, hidden_size=64,
+                              num_hidden_layers=args.layers or 4,
+                              num_attention_heads=4, intermediate_size=128,
+                              max_position_embeddings=64,
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0,
+                              max_predictions_per_seq=BERT_PRED)
+        cfg = BertConfig.bert_large(
+            vocab_size=30528, max_position_embeddings=args.seq or 128,
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+            max_predictions_per_seq=BERT_PRED)
+        cfg.num_hidden_layers = args.layers or cfg.num_hidden_layers
+        return cfg
     if args.cpu:
         base = dict(vocab_size=256, hidden_size=64, num_layers=4,
                     num_heads=4, max_position_embeddings=32)
@@ -66,29 +98,84 @@ def model_config(args):
                     num_heads=16, max_position_embeddings=1024)
     if args.layers:
         base["num_layers"] = args.layers
+    if args.seq:
+        base["max_position_embeddings"] = args.seq
     moe = (dict(moe_experts=args.experts, moe_every=2, moe_k=2,
                 moe_capacity_factor=1.25) if args.experts else {})
+    sparse = {}
+    if args.sparse:
+        from deepspeed_tpu_torch.ops.sparse_attention import \
+            FixedSparsityConfig
+        layout = dict(SPARSE_LAYOUT, block=64 if args.cpu else 256)
+        sparse = dict(attn_impl="sparse", sparsity_config=FixedSparsityConfig(
+            num_heads=base["num_heads"], **layout))
     return GPT2Config(embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0,
-                      **base, **moe)
+                      **base, **moe, **sparse)
+
+
+def kind(args):
+    """The model a line is of, for matching a reference line."""
+    return "bert" if args.bert else "gpt2-sparse" if args.sparse else "gpt2"
 
 
 def ds_config(args, micro, acc):
+    if args.optimizer == "onebit":
+        # no bias correction in the warmup: a first step moves every
+        # weight by about 3·lr, which at 1e-4 sends BERT-large's loss
+        # from 11.25 to 13.87 on one card (H100); 1e-5 keeps the
+        # compared warmup losses out of that jump
+        opt = {"type": "OneBitAdam",
+               "params": {"lr": 1e-5, "freeze_step": args.freeze_step}}
+    else:
+        opt = {"type": args.optimizer or ("Adam" if args.experts
+                                          else "Lamb"),
+               "params": {"lr": 1e-4}}
+    zero = args.zero if args.zero is not None else (
+        0 if args.optimizer == "onebit" else 2)
     return {"train_micro_batch_size_per_gpu": micro,
             "gradient_accumulation_steps": acc, "steps_per_print": 10 ** 9,
-            "optimizer": {"type": "Adam" if args.experts else "Lamb",
-                          "params": {"lr": 1e-4}},
-            "zero_optimization": {"stage": 2},
+            "optimizer": opt, "zero_optimization": {"stage": zero},
             "bf16": {"enabled": not args.cpu}}
+
+
+def bert_batches(args, cfg, dp_rank):
+    """This data rank's rows of one bing_bert batch: token ids, token
+    types 0 then 1 by halves, exactly ``BERT_PRED`` MLM labels a row,
+    NSP labels, no padding."""
+    rng = np.random.default_rng(args.batch_seed)
+    s = cfg.max_position_embeddings
+    ids = rng.integers(0, cfg.vocab_size, size=(args.batch, s))
+    labels = np.full((args.batch, s), -100, np.int64)
+    for r in range(args.batch):
+        pos = rng.permutation(s)[:BERT_PRED]
+        labels[r, pos] = ids[r, pos]
+    batch = {"input_ids": ids,
+             "token_type_ids": np.repeat((np.arange(s) >= s // 2)[None],
+                                         args.batch, 0).astype(np.int64),
+             "masked_lm_labels": labels,
+             "next_sentence_labels": rng.integers(0, 2, size=(args.batch,))}
+    per = args.batch // args.data
+    return [{k: v[dp_rank * per:(dp_rank + 1) * per]
+             for k, v in batch.items()}]
 
 
 def build(args, cfg, mesh, device):
     """The engine and this rank's micro-batches of the global batch."""
     seq = cfg.max_position_embeddings
+    dp_rank = mesh.index("data")
+    if args.bert:
+        from deepspeed_tpu_torch.models.bert import (BertForPreTraining,
+                                                     random_params as bp)
+        engine, *_ = tds.initialize(
+            model=BertForPreTraining(cfg), model_parameters=bp(cfg,
+                                                               args.seed),
+            config=ds_config(args, args.batch // args.data, 1), mesh=mesh,
+            device=device)
+        return engine, bert_batches(args, cfg, dp_rank)
     batches = pipe_example.token_batches(
         cfg.vocab_size, args.batch, seq,
         args.micro_batches if args.pipe > 1 else 1, args.batch_seed)
     params = random_params(cfg, args.seed)
-    dp_rank = mesh.index("data")
     if args.pipe > 1:
         model = pipe_example.gpt2_pipeline_module(cfg)
         params = pipe_example.pipe_params_from_gpt2(params)
@@ -105,16 +192,20 @@ def build(args, cfg, mesh, device):
     return engine, batches
 
 
-def reference_losses(path, cfg, n):
-    """The first ``n`` losses of the one-rank run of this model in the
-    JSON-lines file ``path`` (None where it has none)."""
+def reference_losses(path, args, cfg, n):
+    """The first ``n`` losses of the one-rank run of this model (and
+    optimizer) in the JSON-lines file ``path`` (None where it has
+    none)."""
     if not path or not os.path.exists(path):
         return None
     ref = None
     with open(path) as f:
         for line in f:
             r = json.loads(line)
-            if r.get("world") == 1 and r.get("experts") == cfg.moe_experts:
+            if (r.get("world") == 1
+                    and r.get("experts") == getattr(cfg, "moe_experts", 0)
+                    and r.get("kind", "gpt2") == kind(args)
+                    and r.get("optimizer") == args.optimizer):
                 ref = r["losses"][:n]
     return ref
 
@@ -129,6 +220,18 @@ def main(argv=None):
     parser.add_argument("--experts", type=int, default=0,
                         help="routed experts in every second block")
     parser.add_argument("--expert-axis", type=int, default=1)
+    parser.add_argument("--sparse", action="store_true",
+                        help="GPT-2 with block-sparse attention (seq 4096 "
+                        "unless --seq)")
+    parser.add_argument("--bert", action="store_true",
+                        help="BERT-large pretraining at seq 128")
+    parser.add_argument("--optimizer", choices=("lamb", "adam", "onebit"),
+                        default=None, help="default: Lamb, Adam for MoE")
+    parser.add_argument("--freeze-step", type=int, default=2,
+                        help="OneBitAdam's dense steps")
+    parser.add_argument("--zero", type=int, default=None,
+                        help="ZeRO stage (default 2, 0 for OneBitAdam)")
+    parser.add_argument("--seq", type=int, default=None)
     parser.add_argument("--layers", type=int, default=None)
     parser.add_argument("--batch", type=int, default=8,
                         help="global batch rows")
@@ -147,6 +250,12 @@ def main(argv=None):
                         help="the losses' tolerance against --reference")
     parser.add_argument("--out", help="also append the JSON line here")
     args = parser.parse_args(argv)
+    if args.sparse and not args.seq:
+        args.seq = 256 if args.cpu else 4096
+    if args.sparse and not args.cpu and args.batch == 8:
+        args.batch = 2      # chip_smoke.py's sparse train cell
+    if args.bert and not args.cpu and args.batch == 8:
+        args.batch = 64
 
     device = "cpu" if args.cpu else None
     init_distributed(device=device)
@@ -196,17 +305,21 @@ def main(argv=None):
         ranks = [rank]
     if get_rank() != 0:
         return 0
-    result = {"world": get_world_size(), "mesh": dims,
-              "experts": cfg.moe_experts, "global_batch": args.batch,
+    result = {"world": get_world_size(), "mesh": dims, "kind": kind(args),
+              "optimizer": args.optimizer,
+              "zero": engine.zero_stage,
+              "experts": getattr(cfg, "moe_experts", 0),
+              "global_batch": args.batch,
               "seq": cfg.max_position_embeddings,
-              "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+              "layers": getattr(cfg, "num_layers", None)
+              or cfg.num_hidden_layers, "hidden": cfg.hidden_size,
               "vocab": cfg.vocab_size,
               "dtype": "fp32" if args.cpu else "bf16",
               "whole_parameters": whole_params, "losses": losses,
               "step_ms": step_ms,
               "step_ms_median": float(np.median(step_ms)) if step_ms
               else None, "ranks": ranks}
-    ref = reference_losses(args.reference, cfg, args.steps)
+    ref = reference_losses(args.reference, args, cfg, args.steps)
     if ref is not None and get_world_size() > 1:
         rel = np.abs(np.asarray(losses[:len(ref)]) - ref) / np.abs(ref)
         result.update(reference_losses=ref,

@@ -824,12 +824,14 @@ def sparse_layouts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("name", sorted(sparse_layouts()))
 def test_block_sparse_kernels_match_plain(cuda_device, dtype, name):
     """B5a and B5b against their plain versions on fused-QKV views: out
-    and lse (fp32 2e-5, bf16 2e-2), the gradients (5e-4 / 1e-2) from the
+    and lse (fp32 2e-5, bf16 and fp16 2e-2), the gradients (5e-4 / 1e-2)
+    from the
     kernel's own out and lse; rows with no active block give exactly
     zero out and dq; a second backward is bitwise equal; each wrapper
     counts one launch per call."""
@@ -898,8 +900,9 @@ def agg_layouts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("name", sorted(agg_layouts()))
 def test_super_tile_kernels_match_plain_and_b5(cuda_device, dtype, name):
     """B6a, B6b and B6c against their plain versions on fused-QKV views
@@ -1383,9 +1386,13 @@ def test_block_sparse_wrappers_raise_on_what_the_kernels_do_not_take(
     q = torch.zeros(1, 64, 2, 32, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fbs.flash_block_sparse_fwd(q, q, q, layout)
-    q = torch.zeros(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    q = torch.zeros(1, 64, 2, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64"):
         fbs.flash_block_sparse_fwd(q, q, q, layout)
+    q = torch.zeros(1, 64, 2, 64, device=cuda_device, dtype=torch.float16)
+    before = fbs.flash_block_sparse_fwd.fp16.launches
+    fbs.flash_block_sparse_fwd(q, q, q, layout)
+    assert fbs.flash_block_sparse_fwd.fp16.launches == before + 1
     q = torch.zeros(1, 64, 2, 64, device=cuda_device)
     for G in (3, 0):              # does not divide the 4 blocks, or < 1
         with pytest.raises(ValueError, match="aggregation factor"):

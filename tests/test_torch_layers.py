@@ -385,12 +385,14 @@ class _FakeCudaTensor:
     (_FakeCudaTensor(), True, None, "gather"),
     (_FakeCudaTensor(), False, "never", "gather"),
     (_FakeCudaTensor(head_dim=32), False, None, "raises"),
-    (_FakeCudaTensor(dtype=torch.float16), False, None, "raises"),
+    (_FakeCudaTensor(dtype=torch.float16), False, None, "kernel"),
     (_FakeCudaTensor(head_dim=32), False, "never", "gather"),
     (_FakeCudaTensor(head_dim=32), True, None, "gather"),
-    (_FakeCudaTensor(is_cuda=False), False, None, "gather")],
+    (_FakeCudaTensor(is_cuda=False), False, None, "gather"),
+    (_FakeCudaTensor(dtype=torch.float64), False, None, "raises")],
     ids=["card", "card_d128_fp32", "key_padding", "env_never", "head_dim_32",
-         "fp16", "head_dim_32_env_never", "head_dim_32_key_padding", "cpu"])
+         "fp16", "head_dim_32_env_never", "head_dim_32_key_padding", "cpu",
+         "float64"])
 def test_sparse_core_dispatch(monkeypatch, caplog, tensor, kpm, env, want):
     """The JAX layer's rule in the port's terms: the gather path takes a
     call with a key-padding mask or on the CPU; any other call is the
@@ -414,19 +416,21 @@ def test_sparse_core_dispatch(monkeypatch, caplog, tensor, kpm, env, want):
 
 
 def test_sparse_core_fp16_names_its_roadmap_item(monkeypatch):
-    """The dense kernels take fp16, the sparse ones do not: fp16 on the
-    card never reaches B5/B6, and the refusal names the ROADMAP item for
-    fp16 B5/B6."""
+    """fp16 on the card takes the block-sparse kernels, as fp32 and bf16
+    do (ROADMAP B item 10, done): the sparse core resolves it to
+    "kernel", the kernels' dtype code is 2, and only a type no kernel
+    takes (float64) still raises, naming the gather path's switch."""
     from deepspeed_tpu_torch.ops.sparse_attention import \
         flash_block_sparse as fbs
 
     monkeypatch.delenv("DS_SPARSE_FLASH", raising=False)
     fp16 = _FakeCudaTensor(dtype=torch.float16)
-    assert not fbs.kernel_takes(fp16)
+    assert fbs.kernel_takes(fp16)
     assert fbs.kernel_takes(_FakeCudaTensor(dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match=fbs.FP16_ITEM):
-        tl.sparse_core(fp16, False)
-    assert torch.float16 not in fbs._DTYPE_CODES
+    assert tl.sparse_core(fp16, False) == "kernel"
+    assert fbs._DTYPE_CODES[torch.float16] == 2
+    with pytest.raises(NotImplementedError, match="DS_SPARSE_FLASH"):
+        tl.sparse_core(_FakeCudaTensor(dtype=torch.float64), False)
 
 
 def test_sparse_layer_needs_a_config_and_ring_still_raises():

@@ -319,15 +319,24 @@ def test_pipeline_block_fills_the_module_defaults(caplog):
     assert "interleave=2 ignored" in caplog.text
 
 
-@pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 3}}, "A13 remainder"),
-    ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
-     "A13 remainder"),
-])
-def test_unported_combinations_raise_naming_their_item(extra, item):
+# the ids are the ones these cases had while they held ZeRO-3 and
+# OneBitAdam's refusals, which tests/test_torch_pipe_zero3.py now holds
+# to the JAX engine
+@pytest.mark.parametrize("extra,dims,item", [
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True}},
+     {"pipe": 2}, "A9"),
+    ({}, {"pipe": 2, "expert": 2}, "A21"),
+], ids=["extra0-A13 remainder", "extra1-A13 remainder"])
+def test_unported_combinations_raise_naming_their_item(extra, dims, item):
+    """What stays refused under a pipeline, before any collective:
+    offload above one rank (A9), and MoE under a pipeline, which the JAX
+    package has no path for (A21)."""
+    from deepspeed_tpu_torch.parallel import Mesh
+
     mod = PipelineModule(W.linear_specs(4), loss_fn=W.mse_loss)
     with pytest.raises(NotImplementedError, match=item):
-        tds.initialize(model=mod, config=W.config(**extra), device="cpu")
+        tds.initialize(model=mod, config=W.config(**extra), device="cpu",
+                       mesh=Mesh(dims))
 
 
 def test_dropout_streams_replay_under_remat():

@@ -27,7 +27,8 @@ so these run at tiny widths).
   loaded at model 2, then two steps as the JAX engine takes them.
 - In one process: ``tp_slice`` / ``tp_gather`` round trips over GPT-2,
   BERT and MoE trees, the per-head QKV cut against a contiguous one,
-  the refusals (ROADMAP A18, A9) and a strided all-reduce buffer.
+  the refusals that remain (ROADMAP A21, A9) and the combinations A18
+  ported, and a strided all-reduce buffer.
 """
 
 import jax
@@ -311,10 +312,14 @@ def test_qkv_is_cut_by_heads_inside_q_k_and_v():
 @pytest.mark.parametrize("case", ["sparse", "onebit", "sparse_gradients",
                                   "moe_pipe", "offload", "overlap"])
 def test_what_tp_does_not_compose_raises_naming_its_item(case):
-    """Each combination this slice leaves out raises naming ROADMAP A18
-    (offload above one rank keeps A9; ``overlap_comm: true`` above one
-    model rank gets the JAX engine's message, and ``"auto"`` takes the
-    fused exchange there); none needs a process group to refuse."""
+    """What the model axis does not compose with raises naming its item
+    (offload above one rank: A9; MoE under a pipeline, absent from the
+    JAX package: A21; ``overlap_comm: true`` above one model rank gets
+    the JAX engine's message, and ``"auto"`` takes the fused exchange
+    there), none needing a process group.  The sparse core, OneBitAdam
+    and ``sparse_gradients`` compose since A18: they build at model 2
+    (their parity is tests/test_torch_tp_sparse.py and
+    tests/test_torch_tp_onebit.py)."""
     from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
         FixedSparsityConfig
 
@@ -325,15 +330,15 @@ def test_what_tp_does_not_compose_raises_naming_its_item(case):
         part = params_from_numpy(tp_slice(
             layer.init(0), TransformerLayer.partition_specs(),
             {MODEL: 0, EXPERT: 0}, {MODEL: 2}), "cpu")
-        with current_mesh(Mesh({"model": 2})), \
-                pytest.raises(NotImplementedError, match="A18"):
-            layer.attention_core(part, torch.zeros(1, 32, 64))
+        with current_mesh(Mesh({"model": 2})):
+            ctx = layer.attention_core(part, torch.zeros(1, 32, 64))
+        assert ctx.shape == (1, 32, 32)
         return
     if case == "moe_pipe":
         from deepspeed_tpu_torch import initialize
 
         module, _ = W.pipe_module()
-        with pytest.raises(NotImplementedError, match="A18"):
+        with pytest.raises(NotImplementedError, match="A21"):
             initialize(model=module, model_parameters=W.pipe_params(),
                        config=W.pipe_config(),
                        mesh=Mesh({"pipe": 2, "expert": 2}), device="cpu")
@@ -354,10 +359,19 @@ def test_what_tp_does_not_compose_raises_naming_its_item(case):
             W.engine(model, params, dict(W.config(W.ADAM, dp=2), **extra),
                      Mesh({"data": 2, "model": 2}))
         return
-    with pytest.raises(NotImplementedError,
-                       match="A9" if case == "offload" else "A18"):
-        W.engine(model, params, dict(W.config(W.ADAM), **extra),
-                 Mesh({"model": 2}))
+    if case == "offload":
+        with pytest.raises(NotImplementedError, match="A9"):
+            W.engine(model, params, dict(W.config(W.ADAM), **extra),
+                     Mesh({"model": 2}))
+        return
+    eng = W.engine(model, params, dict(W.config(W.ADAM, clip=0.0), **extra),
+                   Mesh({"model": 2}))
+    assert eng.mp_world_size == 2
+    if case == "onebit":
+        assert type(eng.optimizer).__name__ == "OnebitAdam"
+        assert eng._onebit_scale_axes() == ("model",)
+    else:
+        assert eng.sparse_gradients_enabled()
 
 
 def test_regions_hand_nccl_a_contiguous_buffer():

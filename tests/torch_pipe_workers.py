@@ -367,3 +367,73 @@ def offload_refused(rank, world, seed):
         return str(e)
     return None
 
+
+
+# ------------------------------------- ZeRO-3 and 1-bit Adam under a pipe
+# Adam's eps at 1e-3 (as ``CLIP_ADAM``): the frozen variance of a 3-step
+# warmup is ~0.3% of the second moment, which would send the tiny stack
+# off in steps of up to lr·m/eps with a small eps
+ONEBIT = {"type": "OneBitAdam",
+          "params": {"lr": 1e-3, "freeze_step": 3, "eps": 1e-3}}
+ONEBIT_STEPS = 6
+
+
+def counted_train(eng, data, steps):
+    """Losses, and each step's collectives by verb (calls, bytes)."""
+    mine = rows(data, eng.dp_rank, eng.dp_world_size)
+    losses, calls = [], []
+    for _ in range(steps):
+        comm.counter.reset()
+        losses.append(float(eng.train_batch(iter(mine))))
+        calls.append((dict(comm.counter.calls), dict(comm.counter.bytes)))
+    return losses, calls
+
+
+def tied_rows(eng):
+    """The stage's master rows of each tied copy."""
+    return {key: eng.master[r0:r1].numpy().copy()
+            for key, (r0, r1) in eng._tied_rows().items()}
+
+
+def zero3_onebit_world(rank, world, seed, lin, gpt, save_dir):
+    """``{pipe: 2, data: 2}``: ZeRO-3 (and ZeRO-2 beside it) on the
+    linear stack and on the tied GPT-like stack with a binding clip, a
+    ZeRO-3 checkpoint to ``save_dir``; OneBitAdam through
+    ``freeze_step`` on the tied stack."""
+    mesh = make_mesh({PIPE_AXIS: 2, "data": 2})
+    lin_data, tok_data = linear_data(), token_data()
+    out = {}
+    for stage in (2, 3):
+        eng = engine(linear_specs(), lin,
+                     config(2, zero_optimization={"stage": stage}), mesh)
+        out[f"lin_z{stage}"] = {"losses": train(eng, lin_data),
+                                "master": stage_state(eng)["master"]}
+        eng = engine(gpt_like_specs(), gpt,
+                     config(2, zero_optimization={"stage": stage},
+                            gradient_clipping=CLIP, optimizer=CLIP_ADAM),
+                     mesh, loss=xent_loss, partition_method="uniform")
+        out[f"tied_z{stage}"] = {"losses": train(eng, tok_data),
+                                 "master": stage_state(eng)["master"],
+                                 "defer": eng._defer_exchange()}
+        if stage == 3:
+            # between steps no compute params are held
+            out["tied_z3"]["compute_bytes"] = \
+                eng._compute.untyped_storage().nbytes()
+            out["tied_z3"]["shard_rows"] = int(eng.master.shape[0])
+            out["tied_z3"]["stage_rows"] = int(eng.flat.flat_shape[0])
+            eng.save_checkpoint(save_dir, sync=True)
+            eng.wait_checkpoint(save_dir)
+            out["tied_z3"]["eval"] = float(eng.eval_batch(
+                iter(rows(tok_data, eng.dp_rank, 2))))
+    eng = engine(gpt_like_specs(), gpt,
+                 config(2, zero_optimization={"stage": 0}, optimizer=ONEBIT),
+                 mesh, loss=xent_loss, partition_method="uniform")
+    losses, calls = counted_train(eng, tok_data, ONEBIT_STEPS)
+    st = eng.opt_state
+    out["onebit"] = {"losses": losses, "calls": calls,
+                     "tied": tied_rows(eng),
+                     "master": eng.master.numpy().copy(),
+                     "n_local": eng.master.numel(),
+                     "errors": (tuple(st.worker_error.shape),
+                                tuple(st.server_error.shape))}
+    return out

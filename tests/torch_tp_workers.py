@@ -256,3 +256,150 @@ def moe_world(rank, world, seed):
                      "master": whole_master(eng),
                      "replicated": replicated_leaves(eng)}
     return out
+
+
+# ------------------------------ the sparse core, 1-bit Adam and
+# sparse_gradients above one model rank
+SPARSE_SEQ = 64
+# one global pattern a head: a per-head layout, which each model rank
+# cuts to its heads' rows
+SPARSE_LAYOUT = dict(num_heads=TINY["num_heads"], block=8,
+                     different_layout_per_head=True, num_local_blocks=4,
+                     num_global_blocks=1, num_different_global_patterns=4,
+                     attention="unidirectional")
+ONEBIT = {"type": "OneBitAdam", "params": {"lr": 1e-3, "freeze_step": 3}}
+ONEBIT_STEPS = 6
+
+
+def sparse_gpt2(**kw):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    return gpt2(attn_impl="sparse",
+                sparsity_config=FixedSparsityConfig(**SPARSE_LAYOUT), **kw)
+
+
+def sparse_batches(n, seed=1, rows=ROWS):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, TINY["vocab_size"],
+                                       size=(rows, SPARSE_SEQ))
+             .astype(np.int32)} for _ in range(n)]
+
+
+def sparse_model2_world(rank, world, seed):
+    """Sparse GPT-2 with a per-head layout at ``{model: 2}``: dropout 0
+    (against the JAX engine) and 0.1 (against the port at one rank)."""
+    mesh = make_mesh({"model": world})
+    model, params = sparse_gpt2()
+    eng = engine(model, params, config(ADAM), mesh)
+    out = {"sparse": {"losses": train(eng, sparse_batches(STEPS)),
+                      "master": whole_master(eng)}}
+    # the layouts the layer ran: the rank's heads' rows of the per-head
+    # layout, cut once and cached beside the whole one
+    cache = model.layer._layout_cache
+    out["layouts"] = {str(k): np.asarray(v) for k, v in cache.items()}
+    model, params = sparse_gpt2(**DROPOUT)
+    eng = engine(model, params, config(ADAM), mesh)
+    out["dropout"] = train(eng, sparse_batches(STEPS))
+    return out
+
+
+class TinyVocabModel:
+    """An embedding cut over ``model`` by vocab rows and a linear
+    readout: the smallest model whose vocab-parallel embedding gradient
+    is row-sparse, ids in each rank's vocab range (the JAX tests'
+    ``TinyEmbModel`` with a partition spec)."""
+
+    VOCAB, HID, SEQ = 64, 8, 4
+
+    def init(self, seed):
+        rng = np.random.default_rng(seed)
+        return {"emb": (rng.normal(size=(self.VOCAB, self.HID)) * 0.1)
+                .astype(np.float32),
+                "w": (rng.normal(size=(self.HID,)) * 0.1).astype(np.float32)}
+
+    def partition_specs(self, mesh=None):
+        from deepspeed_tpu_torch.utils.params import MODEL
+        return {"emb": (MODEL, None), "w": (None,)}
+
+    def sparse_gradient_paths(self):
+        return ("emb",)
+
+    def apply(self, params, batch, rng=None, train=True, **kw):
+        import torch
+        from deepspeed_tpu_torch.models.layers import \
+            vocab_parallel_embedding
+        x = vocab_parallel_embedding(params["emb"], batch["input_ids"])
+        return torch.mean((x @ params["w"] - batch["y"]) ** 2)
+
+
+def vocab_batches(n, rows=ROWS * 2):
+    rng = np.random.default_rng(0)
+    return [{"input_ids": rng.integers(0, TinyVocabModel.VOCAB,
+                                       size=(rows, TinyVocabModel.SEQ))
+             .astype(np.int32),
+             "y": rng.normal(size=(rows, TinyVocabModel.SEQ))
+             .astype(np.float32)} for _ in range(n)]
+
+
+def vocab_config(dp):
+    return {"train_batch_size": ROWS * 2,
+            "train_micro_batch_size_per_gpu": ROWS * 2 // dp,
+            "steps_per_print": 10 ** 9,
+            "optimizer": {"type": "Adam", "params": {"lr": 0.01}},
+            "sparse_gradients": True, "zero_optimization": {"stage": 0}}
+
+
+def counted_train(eng, batches, steps):
+    """Losses, and each step's collectives by verb (calls, bytes)."""
+    from deepspeed_tpu_torch import comm
+    dp, r = eng.dp_world_size, eng.dp_rank
+    it = iter([rank_rows(b, r, dp) for b in batches])
+    losses, calls = [], []
+    for _ in range(steps):
+        comm.counter.reset()
+        losses.append(float(eng.train_batch(it)))
+        calls.append((dict(comm.counter.calls), dict(comm.counter.bytes)))
+    return losses, calls
+
+
+def onebit_sparse_grad_world(rank, world, seed, save_dir):
+    """``{data: 2, model: 2}``: GPT-2 under OneBitAdam through
+    ``freeze_step`` (then saved to ``save_dir`` and loaded into a fresh
+    engine), and the vocab-parallel embedding under
+    ``sparse_gradients``."""
+    mesh = make_mesh({"data": 2, "model": 2})
+    model, params = gpt2()
+    eng = engine(model, params, config(ONEBIT, stage=0, dp=2, clip=0.0),
+                 mesh)
+    losses, calls = counted_train(eng, gpt2_batches(ONEBIT_STEPS),
+                                  ONEBIT_STEPS)
+    st = eng.opt_state
+    out = {"onebit": {"losses": losses, "calls": calls,
+                      "master": whole_master(eng),
+                      "replicated": replicated_leaves(eng),
+                      "n_local": eng.master.numel(),
+                      "errors": (tuple(st.worker_error.shape),
+                                 tuple(st.server_error.shape))}}
+    eng.save_checkpoint(save_dir, sync=True)
+    eng.wait_checkpoint(save_dir)
+    model, params = gpt2()
+    fresh = engine(model, params, config(ONEBIT, stage=0, dp=2, clip=0.0),
+                   mesh)
+    fresh.load_checkpoint(save_dir, strict=True)
+    # unpadded: 1-bit Adam writes into the flat buffers' padding, which
+    # a checkpoint does not hold (ROADMAP C's caveat)
+    out["onebit"]["loaded"] = {
+        "master_equal": bool(np.array_equal(whole_master(fresh),
+                                            whole_master(eng))),
+        "moments_equal": bool(np.array_equal(
+            fresh._gather_unpadded(fresh.opt_state.exp_avg),
+            eng._gather_unpadded(st.exp_avg))),
+        "errors_zero": not bool(fresh.opt_state.worker_error.any()
+                                or fresh.opt_state.server_error.any()),
+        "errors_were_set": bool(st.worker_error.any())}
+    vocab = TinyVocabModel()
+    eng = engine(vocab, vocab.init(0), vocab_config(2), mesh)
+    losses, calls = counted_train(eng, vocab_batches(4), 4)
+    out["sparse_grad"] = {"losses": losses, "calls": calls,
+                          "master": whole_master(eng),
+                          "paths": eng.sparse_gradient_paths()}
+    return out
