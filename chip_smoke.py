@@ -261,7 +261,9 @@ failure raises, so the script exits non-zero:
               timed steps;
 29. offload parity cpu — 2 layers at GPT-2-medium width, fp32, fp32
               streamed offload in 1 MB chunks: 10 steps on the card
-              within rtol 1e-3 of the CPU's;
+              (on ``{data: 1}`` in a NCCL world of one: the partitioned
+              offload path of data-parallel ranks) within rtol 1e-3 of
+              the CPU's;
 30. dp       — ``torch.distributed`` on NCCL at world size 1 through a
               ``file://`` store under ``build/`` (the NCCL version
               printed); phase 6's GPT-2-medium and phase 12's BERT-large
@@ -396,7 +398,12 @@ failure raises, so the script exits non-zero:
               bitwise; ZeRO-3 under the one-stage ``PipelineEngine``,
               bitwise phase 33's ZeRO-2 pipeline, no compute params held
               between steps; OneBitAdam under it within
-              ``A18_ONEBIT_RTOL`` of the engine's.
+              ``A18_ONEBIT_RTOL`` of the engine's;
+41. offload dp cpu — ZeRO-Offload above one rank: the tiny GPT-2 at
+              dp=2 on two gloo CPU processes under the streamed Adam,
+              DeepSpeedCPUAdam and Lamb: each rank's host master its
+              half of the rows, losses and master bitwise dp=2's
+              without offload, losses within rtol 1e-5 of one rank's.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -414,6 +421,7 @@ network; imports nothing of JAX.
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -3938,25 +3946,67 @@ def phase_offload_parity(card, results, train_launches):
     return total
 
 
-def host_memory_rates(nbytes=1 << 30):
-    """The host's memory rate between pinned buffers in two multithreaded
-    torch passes, median of 3 each: one ``copy_`` (bytes read and
-    written) and one ``torch.add(a, b, out=c)`` (two reads, one write).
-    Both also read each line they write before writing it, which a pass
-    that writes what it read (Adam's p, m and v) does not pay."""
-    a = torch.ones(nbytes // 4, pin_memory=True)
-    b = torch.ones_like(a, pin_memory=True)
-    c = torch.empty_like(a, pin_memory=True)
+# Adam's host traffic without its arithmetic: p, m and v read and
+# written in place, g read (28 bytes a parameter), built and run as the
+# host kernel is (its g++ flags, an OpenMP team of its size)
+HOST_RMW_SRC = r"""
+#include <omp.h>
+extern "C" void rmw_pass(float* p, float* m, float* v, const float* g,
+                         long long n, int threads) {
+  int team = threads > 0 ? threads : omp_get_max_threads();
+#pragma omp parallel for simd schedule(static) num_threads(team)
+  for (long long i = 0; i < n; ++i) {
+    float gi = g[i];
+    p[i] += gi;
+    m[i] += gi;
+    v[i] += gi;
+  }
+}
+"""
+
+
+def host_rmw_pass():
+    """The C entry of ``HOST_RMW_SRC``, built into ``build/`` with
+    ``op_builder.GXX_FLAGS``."""
+    src = op_builder.BUILD_DIR / "host_rmw_probe.cpp"
+    lib = src.with_suffix(".so")
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(HOST_RMW_SRC)
+    subprocess.run([op_builder.find_gxx(), *op_builder.GXX_FLAGS, "-o",
+                    str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).rmw_pass
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
+    fn.restype = None
+    return fn
+
+
+def host_memory_rates(p, m, v, g, threads):
+    """The host's memory rate over the host kernel's own buffers (which
+    it changes), median of 3 passes each, both on ``threads`` threads
+    (0: OpenMP's choice, as the kernel makes it; torch then takes every
+    CPU this process may run on): the compiled read-modify-write pass
+    of ``HOST_RMW_SRC`` (28 bytes a parameter) and torch's in-place
+    ``p.add_(g)`` (12).  Neither writes a line it has not read, as the
+    kernel writes none."""
+    team = threads or len(os.sched_getaffinity(0))
+    n = p.numel()
+    rmw = host_rmw_pass()
+    ptrs = [t.data_ptr() for t in (p, m, v, g)]
+    probes = (("rmw", lambda: rmw(*ptrs, n, threads), 28 * n),
+              ("add_", lambda: p.add_(g), 12 * n))
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(team)
     out = {}
-    for name, fn, moved in (("copy", lambda: c.copy_(a), 2 * nbytes),
-                            ("add", lambda: torch.add(a, b, out=c),
-                             3 * nbytes)):
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        out[name] = moved / statistics.median(times)
+    try:
+        for name, fn, moved in probes:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            out[name] = moved / statistics.median(times)
+    finally:
+        torch.set_num_threads(torch_threads)
     return out
 
 
@@ -3966,10 +4016,10 @@ def check_host_kernel(engine, results):
     p, m and v within ``ADAM_RTOL``/``ADAM_ATOL``; its time, the plain
     version's, ``torch._fused_adamw_``'s on the copies (where this torch
     has a CPU one) and the bound: 28 bytes a parameter (p, m and v read
-    and written, g read) over the host's memory rate, the largest this
-    run reached: a pinned ``copy_``, a pinned ``add``, or the fused
-    AdamW call over the same 28 bytes a parameter, so that no call
-    beats the bound."""
+    and written, g read) over the host's memory rate, the larger of the
+    two probes of :func:`host_memory_rates`, run last, on the engine's
+    buffers, on the kernel's team.  The kernel is not one of them: where
+    it beats both, its share of the bound is above 1."""
     engine._sync_host()
     p, m, v = (t.view(-1) for t in (engine.master, engine.opt_state.exp_avg,
                                     engine.opt_state.exp_avg_sq))
@@ -3992,7 +4042,6 @@ def check_host_kernel(engine, results):
           and torch.allclose(v, copies[2], rtol=ADAM_RTOL, atol=1e-8),
           f"ds_adam_step: max abs error {err} against the plain version")
     n = p.numel()
-    rates = host_memory_rates()
     library_s = None
     fused = getattr(torch, "_fused_adamw_", None)
     if fused is not None:
@@ -4003,14 +4052,20 @@ def check_host_kernel(engine, results):
                   beta2=args[2], weight_decay=args[4], eps=args[3],
                   amsgrad=False, maximize=False)
             library_s = time.perf_counter() - t0
-            rates["fused_adamw"] = 28 * n / library_s
         except (RuntimeError, TypeError) as e:  # not in this torch build
             print(f"host kernel: torch._fused_adamw_ on the CPU: {e}")
+    threads = cpu_adam.host_threads()
+    rates = host_memory_rates(p, m, v, g, threads)
+    bound_s = 28 * n / max(rates.values())
     row = {"kernel_ms": 1e3 * kernel_s, "plain_ms": 1e3 * plain_s,
            "library_ms": None if library_s is None else 1e3 * library_s,
-           "bound_ms": 1e3 * 28 * n / max(rates.values()),
-           "bound_by": "bytes", "max_abs_err": err, "params": n,
-           "host_bytes_per_s": rates, "host_cpus": os.cpu_count()}
+           "bound_ms": 1e3 * bound_s, "bound_by": "bytes",
+           "bound_share": bound_s / kernel_s, "max_abs_err": err,
+           "params": n, "host_bytes_per_s": rates,
+           "kernel_bytes_per_s": 28 * n / kernel_s,
+           "host_threads": threads,
+           "omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
+           "host_cpus": os.cpu_count()}
     print(f"host kernel ds_adam_step on {n} parameters: {json.dumps(row)}")
     results["host_kernel"] = row
     return row
@@ -4161,7 +4216,10 @@ def phase_offload_parity_cpu(results):
     master's 10-step update on the card within ``MASTER_UPDATE_RTOL``
     of the CPU's (the norm of their difference over the norm of the
     CPU's update), which an update that did not run on the card fails
-    by 1."""
+    by 1.  The card's engine trains on ``make_mesh({"data": 1})`` in a
+    NCCL world of one (:func:`nccl_world_of_one`), so its host state
+    and its params' all-gather take the partitioned offload path of
+    data-parallel ranks; the CPU's has no mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPT2Config(hidden_size=1024, num_heads=16, num_layers=2,
@@ -4175,21 +4233,34 @@ def phase_offload_parity_cpu(results):
               "zero_optimization": dict(OFFLOAD, offload_chunk_mb=1)}
     out, masters, launches, schedule = {}, {}, None, None
     for where, device in (("card", DEVICE), ("cpu", torch.device("cpu"))):
-        engine, *_ = deepspeed_tpu_torch.initialize(
-            model=GPT2LMHead(cfg), model_parameters=params,
-            config=dict(config), device=device)
-        start = engine.master.clone()
+        store_dir = None
         if where == "card":
-            schedule = engine.host_stream_schedule()
-            torch.cuda.synchronize()
-            reset_launches()
-        out[where] = [float(engine.train_batch(iter([bt])))
-                      for bt in batches]
-        if where == "card":
-            torch.cuda.synchronize()
-            launches = read_launches()
-        masters[where] = engine.master.clone()
-        del engine
+            store_dir, _ = nccl_world_of_one("offload parity cpu")
+        try:
+            engine, *_ = deepspeed_tpu_torch.initialize(
+                model=GPT2LMHead(cfg), model_parameters=params,
+                config=dict(config), device=device,
+                mesh=make_mesh({DATA_AXIS: 1}) if store_dir else None)
+            if where == "card":
+                check(engine._partitioned and engine.master.shape[0]
+                      == engine.flat.shard_rows,
+                      "offload parity cpu: the card's engine is not on the "
+                      "partitioned offload path")
+            start = engine.master.clone()
+            if where == "card":
+                schedule = engine.host_stream_schedule()
+                torch.cuda.synchronize()
+                reset_launches()
+            out[where] = [float(engine.train_batch(iter([bt])))
+                          for bt in batches]
+            if where == "card":
+                torch.cuda.synchronize()
+                launches = read_launches()
+            masters[where] = engine.master.clone()
+            del engine
+        finally:
+            if store_dir is not None:
+                nccl_teardown(store_dir)
     card, cpu = out["card"], out["cpu"]
     moved = masters["cpu"] - start
     diff = masters["card"] - masters["cpu"]
@@ -4279,6 +4350,30 @@ def dp_cpu_rank(rank, store, out_dir):
     os._exit(0)
 
 
+def run_gloo_ranks(target, label, out_dir):
+    """``target(rank, store, out_dir)`` on ``DP_CPU_WORLD`` spawned
+    processes; fails the phase if one fails or outlasts
+    ``DP_CPU_TIMEOUT_S`` (every one is stopped by then)."""
+    store = os.path.join(out_dir, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, store, out_dir),
+                         daemon=True) for r in range(DP_CPU_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_CPU_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * DP_CPU_WORLD,
+          f"{label}: the gloo ranks exited with {codes}")
+
+
 def dp_cpu_check(results):
     """dp=2 on two gloo CPU processes of this machine's torch against one
     CPU rank on the same global batches: losses to rtol 1e-5 and the
@@ -4286,24 +4381,7 @@ def dp_cpu_check(results):
     ``DP_CPU_TIMEOUT_S`` fails the phase."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=build_dir())
     try:
-        store = os.path.join(out_dir, "store")
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=dp_cpu_rank, args=(r, store, out_dir),
-                             daemon=True) for r in range(DP_CPU_WORLD)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + DP_CPU_TIMEOUT_S
-        try:
-            for p in procs:
-                p.join(max(0.0, deadline - time.monotonic()))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-        codes = [p.exitcode for p in procs]
-        check(codes == [0] * DP_CPU_WORLD,
-              f"dp cpu: the gloo ranks exited with {codes}")
+        run_gloo_ranks(dp_cpu_rank, "dp cpu", out_dir)
         ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"))
                  for r in range(DP_CPU_WORLD)]
         engine = dp_cpu_engine(None, 1)
@@ -4328,6 +4406,104 @@ def dp_cpu_check(results):
           f"rank {want}, master update rel err {update_rel:.3g}")
     results["dp_cpu"] = {"dp2": got, "one_rank": want,
                          "master_update_rel_err": update_rel}
+
+
+# (row, optimizer) of phase 41: the streamed update, the host kernel and
+# the one-shot update
+OFFLOAD_DP_ROWS = (("streamed Adam", "Adam"), ("CPUAdam", "CPUAdam"),
+                   ("Lamb", "Lamb"))
+
+
+def offload_dp_engine(mesh, world, optimizer, offload):
+    """Phase 41's engine: :func:`dp_cpu_engine`'s tiny GPT-2 on the CPU
+    under ZeRO-2 with ``optimizer``, clipping 1.0, no accumulation, with
+    or without ``cpu_offload``, for the global micro-batch of
+    ``DP_CPU_MICRO`` x 2 rows over ``world`` ranks."""
+    cfg = GPT2Config(**DP_CPU_MODEL)
+    micro = DP_CPU_MICRO * DP_CPU_WORLD // world
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=random_params(cfg, SEED),
+        config={"train_batch_size": micro * world,
+                "train_micro_batch_size_per_gpu": micro,
+                "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+                "optimizer": {"type": optimizer, "params": {"lr": 3e-3}},
+                "zero_optimization": {"stage": 2, "cpu_offload": offload}},
+        mesh=mesh, device="cpu")
+    return engine
+
+
+def offload_dp_rank(rank, store, out_dir):
+    """One gloo rank of phase 41: each row's ``DP_CPU_STEPS`` steps on
+    its rows of :func:`dp_cpu_batches` under offload and without it,
+    the losses, the gathered master and the host master's rows into
+    ``out_dir``; it leaves as :func:`dp_cpu_rank` does."""
+    torch.set_num_threads(1)
+    init_distributed(init_method=f"file://{store}", world_size=DP_CPU_WORLD,
+                     rank=rank, device="cpu", timeout=60, verbose=False)
+    mesh = make_mesh({DATA_AXIS: DP_CPU_WORLD})
+    per = DP_CPU_MICRO
+    out = {}
+    for name, opt in OFFLOAD_DP_ROWS:
+        for offload in (True, False):
+            engine = offload_dp_engine(mesh, DP_CPU_WORLD, opt, offload)
+            it = iter([{"input_ids": b[rank * per:(rank + 1) * per]}
+                       for b in dp_cpu_batches()])
+            losses = [float(engine.train_batch(it))
+                      for _ in range(DP_CPU_STEPS)]
+            out[(name, offload)] = {
+                "losses": losses,
+                "master": engine.flat.gather_master_unpadded(engine.master),
+                "host_rows": (engine.master.shape[0], engine.flat.shard_rows,
+                              engine.segments.rows)}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    os._exit(0)
+
+
+def phase_offload_dp_cpu(results):
+    """41. ZeRO-Offload above one rank: :func:`offload_dp_engine` at dp=2
+    on two gloo CPU processes for the streamed Adam, DeepSpeedCPUAdam
+    (the host kernel) and Lamb (the one-shot update): each rank's host
+    master holds its half of the rows; under offload the losses and the
+    gathered master are bitwise dp=2's without it, and the losses within
+    rtol 1e-5 of one rank's under offload on the global batches."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_offload_dp_",
+                               dir=build_dir())
+    try:
+        run_gloo_ranks(offload_dp_rank, "offload dp cpu", out_dir)
+        ranks = []
+        for r in range(DP_CPU_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    receipt = {}
+    for name, opt in OFFLOAD_DP_ROWS:
+        label = f"offload dp cpu ({name})"
+        got, plain = ranks[0][(name, True)], ranks[0][(name, False)]
+        engine = offload_dp_engine(None, 1, opt, True)
+        it = iter([{"input_ids": b} for b in dp_cpu_batches()])
+        want = [float(engine.train_batch(it)) for _ in range(DP_CPU_STEPS)]
+        del engine
+        rows, shard, whole = got["host_rows"]
+        check(ranks[1][(name, True)]["losses"] == got["losses"]
+              and np.array_equal(ranks[1][(name, True)]["master"],
+                                 got["master"]),
+              f"{label}: the two ranks disagree")
+        check(rows == shard and DP_CPU_WORLD * shard == whole,
+              f"{label}: the host master holds {rows} rows, the shard "
+              f"{shard} of {whole}")
+        check(got["losses"] == plain["losses"]
+              and np.array_equal(got["master"], plain["master"]),
+              f"{label}: offload at dp=2 is not bitwise the run without it")
+        check(np.allclose(got["losses"], want, rtol=1e-5, atol=0),
+              f"{label}: dp=2 losses {got['losses']} vs one rank's {want}")
+        receipt[name] = {"dp2": got["losses"], "one_rank": want,
+                         "host_rows": rows, "rows": whole}
+    print(f"offload dp cpu (2 gloo ranks, tiny GPT-2, ZeRO-2 offload, clip "
+          f"1.0, fp32; torch {torch.__version__}): {json.dumps(receipt)}")
+    results["offload_dp_cpu"] = receipt
 
 
 def exchange_times(engine):
@@ -6196,6 +6372,10 @@ def main(argv=None):
     # pipeline engine, at one rank on NCCL
     a18_launches = phase_a18(card, results)
     lap("a18")
+    # 41. ZeRO-Offload above one rank: dp=2 on two gloo CPU processes,
+    # bitwise the run without offload, against one rank
+    phase_offload_dp_cpu(results)
+    lap("offload_dp_cpu")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,

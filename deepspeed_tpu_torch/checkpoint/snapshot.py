@@ -114,7 +114,6 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
         if dtype_name is not None:
             model_dtypes[key] = dtype_name
 
-    flat = engine.flat
     optim_states = {"master": engine._gather_unpadded(engine.master)}
     local = engine._rank_local_fields()
     for name, leaf in state_fields(engine.opt_state).items():
@@ -130,7 +129,7 @@ def capture_engine_snapshot(engine, tag, client_state=None, save_latest=True):
             # host step counter: the JAX package's i32 scalar
             optim_states[key] = np.asarray(leaf, np.int32)
     for name, buf in getattr(engine, "_qres", {}).items():
-        optim_states[f"qres/{name}"] = flat.gather_master_unpadded(buf)
+        optim_states[f"qres/{name}"] = engine._gather_unpadded(buf)
 
     meta = {
         "global_steps": engine.global_steps,

@@ -265,7 +265,7 @@ def main(argv=None):
             f"world_size {plan.world_size} over {n0} process(es), "
             f"{per_failure} device(s) charged per failure")
 
-    def spawn_env(local_rank, slot, n_procs):
+    def spawn_env(local_rank, slot, n_procs, n_local):
         env = os.environ.copy()
         for name in _STALE_TORCHRUN_ENV:
             env.pop(name, None)
@@ -285,6 +285,9 @@ def main(argv=None):
         # (torchrun's LOCAL_RANK for scripts written for torchrun)
         env[ENV_LOCAL_RANK] = str(slot)
         env[ENV_TORCH_LOCAL_RANK] = str(slot)
+        # the ranks that share this host (torchrun's name): the host Adam
+        # kernel splits the host's CPUs over them
+        env["LOCAL_WORLD_SIZE"] = str(n_local)
         if elastic is not None:
             # the planned world size + normalized schedule travel to the
             # child: scripts size their mesh from the former, the
@@ -296,7 +299,7 @@ def main(argv=None):
     def spawn_fleet(slots, n_procs, restart=None):
         fleet = []
         for local_rank, slot in enumerate(slots):
-            env = spawn_env(local_rank, slot, n_procs)
+            env = spawn_env(local_rank, slot, n_procs, len(slots))
             cmd = [sys.executable, "-u", args.training_script,
                    *args.script_args]
             logger.info(

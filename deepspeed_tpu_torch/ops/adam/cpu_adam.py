@@ -10,7 +10,10 @@ with g++ and OpenMP at first use) updates them in place, its output
 pointers equal to its inputs (each element is read before it is
 written).  The engine brings the gradient to the host first (cast to
 fp32 on the card, copied into a pinned buffer, and waited for) and the
-new params back after.
+new params back after.  Above one data rank each rank's buffers are its
+rows of the flat layout, and each rank's kernel runs on its own share
+of the host's CPUs (:func:`host_threads`): several ranks on one host
+would otherwise each start a team as large as the host.
 
 The params go back as the engine's other offload paths send them: the
 fp32 master (4 bytes a parameter) up through the chunk stream, cast on
@@ -26,6 +29,7 @@ the training path never runs it.
 """
 
 import ctypes
+import os
 import time
 
 import numpy as np
@@ -39,9 +43,33 @@ def _kernel():
     fn = lib.ds_adam_step
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + \
-            [ctypes.c_float] * 7 + [ctypes.c_int]
+            [ctypes.c_float] * 7 + [ctypes.c_int] * 2
         fn.restype = None
     return fn
+
+
+def host_threads(env=None, cpus=None, host_cpus=None):
+    """The kernel's OpenMP team.  0 (OpenMP's own choice:
+    ``OMP_NUM_THREADS``, else every CPU) for the one rank of a host, and
+    where ``OMP_NUM_THREADS`` is set to more than 1 (1 is what torchrun
+    sets in every rank when it starts several, so that value is taken
+    for its and not the user's).  Else, where several ranks share the
+    host (``LOCAL_WORLD_SIZE``, which torchrun and the port's launcher
+    set), the rank's CPUs (``cpus``: its affinity): split evenly over
+    the local ranks when the rank may run on every CPU of the host
+    (``host_cpus``), all of them when it was pinned to a set of its
+    own.  Split beat torchrun's 1 and every CPU in each rank on the
+    card's host (PERF.md)."""
+    env = os.environ if env is None else env
+    local = int(env.get("LOCAL_WORLD_SIZE", "1") or 1)
+    omp = env.get("OMP_NUM_THREADS", "").strip()
+    if local <= 1 or (omp.isdigit() and int(omp) > 1):
+        return 0
+    cpus = len(os.sched_getaffinity(0)) if cpus is None else cpus
+    host_cpus = os.cpu_count() if host_cpus is None else host_cpus
+    if cpus < host_cpus:
+        return cpus
+    return max(1, cpus // local)
 
 
 def _host_f32(t, name):
@@ -53,11 +81,13 @@ def _host_f32(t, name):
 
 
 def ds_adam_step(p, m, v, g, lr, beta1, beta2, eps, weight_decay, bc1, bc2,
-                 adamw):
+                 adamw, threads=None):
     """One Adam(W) step of the host kernel over ``p``, ``m``, ``v`` in
     place, with the gradient ``g`` (each a contiguous fp32 host tensor
-    of one size).  Counts its launch in ``ds_adam_step.launches`` and its
-    host seconds in ``ds_adam_step.seconds``."""
+    of one size), on ``threads`` OpenMP threads (None:
+    :func:`host_threads`; 0: OpenMP's choice).  Counts its launch in
+    ``ds_adam_step.launches`` and its host seconds in
+    ``ds_adam_step.seconds``."""
     n = p.numel()
     if not (m.numel() == v.numel() == g.numel() == n):
         raise ValueError("ds_adam_step: p, m, v and g differ in size")
@@ -67,7 +97,7 @@ def ds_adam_step(p, m, v, g, lr, beta1, beta2, eps, weight_decay, bc1, bc2,
     ds_adam_step.launches += 1
     t0 = time.perf_counter()
     fn(*ptrs[:3], *ptrs, n, lr, beta1, beta2, eps, weight_decay, bc1, bc2,
-       int(bool(adamw)))
+       int(bool(adamw)), host_threads() if threads is None else threads)
     ds_adam_step.seconds += time.perf_counter() - t0
 
 
@@ -129,10 +159,13 @@ class DeepSpeedCPUAdam:
                 "beta2": float(g["betas"][1]),
                 "weight_decay": float(g["weight_decay"])}
 
-    def update(self, state, flat_master, flat_grads, hp, segments=None):
+    def update(self, state, flat_master, flat_grads, hp, segments=None,
+               shard=None, tensor_reduce=None):
         """One step on host tensors, in place: the master and the moments
         in ``state`` are overwritten.  A gradient that is not a
-        contiguous fp32 host tensor is copied into one."""
+        contiguous fp32 host tensor is copied into one.  Adam is
+        elementwise, so it runs on a rank's rows (``shard``) and slices
+        unchanged (``tensor_reduce`` is Lamb's)."""
         g = flat_grads
         if g.device.type != "cpu" or g.dtype != torch.float32 \
                 or not g.is_contiguous():

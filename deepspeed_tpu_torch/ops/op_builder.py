@@ -16,7 +16,8 @@ build raises with nvcc's stderr; there is no fallback.
 
 The host kernel of ``DeepSpeedCPUAdam`` (``csrc/adam/cpu_adam.cpp``,
 ``HOST_SOURCES``) is built the same way with ``g++`` and the JAX
-builder's first tier of flags (``GXX_FLAGS``), into the same directory;
+builder's first tier of flags plus ``-fno-math-errno`` (``GXX_FLAGS``),
+into the same directory;
 its name also hashes the compiler's version and the host CPU's model,
 since ``-march=native`` code belongs to the CPU that built it.  A failed
 ``g++`` build raises with its stderr: there is no tier of weaker flags.
@@ -53,10 +54,11 @@ SOURCES = {
 DEFINES = {"flash_block_sparse_agg_fp16": ("-DDS_AGG_FP16",)}
 
 # host (g++) library name -> source under csrc/, and the JAX builder's
-# first-tier flags (deepspeed_tpu/ops/op_builder.py: jit_build)
+# first-tier flags (deepspeed_tpu/ops/op_builder.py: jit_build) with
+# -fno-math-errno, without which sqrtf keeps the Adam loop scalar
 HOST_SOURCES = {"cpu_adam": "adam/cpu_adam.cpp"}
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native",
-             "-fopenmp")
+             "-fopenmp", "-fno-math-errno")
 
 _lock = threading.Lock()
 _loaded = {}

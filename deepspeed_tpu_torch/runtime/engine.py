@@ -77,6 +77,16 @@ does (a compute param written from outside is healed).
 into a pinned host buffer, which the stream reads back chunk by chunk
 with the state (``train_batch`` only, the flat Adam only, no
 accumulation: the JAX package's refusals).
+Above one data rank (ZeRO-1/2/3, on every mesh: ``data``, ``model``
+and ``expert``, each pipeline stage over its data group, ``seq``) each
+host buffer holds the rank's rows of the flat layout, as the master
+does without offload: the stage-2 reduce-scatter leaves the rank's
+gradient rows on the card, the update (streamed, one-shot or the host
+kernel's) runs on them, and the new compute rows are cast on the card
+and all-gathered over the data group, the partitioned step's one
+all-gather.  The clip norm, the overflow flag and Lamb's per-tensor
+norms are the partitioned step's, global through the stats all-reduce
+and the row shard's sums.
 
 Checkpoints are the JAX package's files
 (:mod:`deepspeed_tpu_torch.checkpoint`): ``save_checkpoint`` gathers the
@@ -129,8 +139,8 @@ forward and freed after its backward (at one rank it is the master's
 cast, so the step is bitwise ZeRO-2's); with it each ``ag_group`` is
 gathered when the model first reads it, freed after the forward's last
 use and gathered again in the backward, whose reduce-scatter it is.
-Under ``cpu_offload`` at one rank the compute params are cast from the
-host master before each forward.
+Under ``cpu_offload`` the compute params are cast from the host master
+before each forward (the rank's rows, all-gathered above one rank).
 
 1-bit Adam (``"type": "OneBitAdam"``, JAX ``:3412-3440``,
 :mod:`~deepspeed_tpu_torch.runtime.fp16.onebit_adam`): dense Adam until
@@ -182,7 +192,7 @@ already the ``seq`` sum.  Checkpoints are the whole tree, written by
 ``seq`` rank 0 of data rank 0.  Not composed with ``seq`` yet, each
 raising with ``SEQ_ITEM`` (ROADMAP A19): another attention core than
 the ring, a pipe or expert axis above 1, MoE blocks, ``OneBitAdam`` and
-``sparse_gradients``; offload keeps its refusal above one rank (A9).
+``sparse_gradients``.
 
 Telemetry (the ``telemetry`` and ``tensorboard`` blocks and
 ``wall_clock_breakdown``, JAX ``:675-800``, ``:3600-4009``): the
@@ -224,8 +234,8 @@ model (:mod:`~deepspeed_tpu_torch.runtime.fp16.onebit_adam`), and
 in the rank's vocab range, over ``data``.
 
 Not in this slice (each refused where asked for, with its ROADMAP item):
-offload above one rank (A9), MoE under a pipeline (which the JAX package
-has no path for) and what does not compose with ``seq`` yet (A19).
+MoE under a pipeline (which the JAX package has no path for) and what
+does not compose with ``seq`` yet (A19).
 """
 
 import dataclasses
@@ -419,11 +429,6 @@ class DeepSpeedEngine:
         self._offload = zc.cpu_offload
         self._sparse_paths = self._configure_sparse_gradients(model)
         self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
-        if self._offload and (dp > 1 or self._tp or seq):
-            raise NotImplementedError(
-                "ZeRO-Offload with the host state sharded over "
-                "data-parallel ranks is not ported yet (ROADMAP A9); it "
-                "runs at one rank")
         if seq:
             self._refuse_seq_config(optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
@@ -472,7 +477,7 @@ class DeepSpeedEngine:
                               allgather_bucket_size=zc.allgather_bucket_size)
         self.flat = FlatParamCoordinator(
             params0, stage=self.zero_stage, dp_size=dp, dp_rank=self.dp_rank,
-            mesh=None if self._offload else mesh, plan=plan)
+            mesh=mesh, plan=plan, device=self.device)
         self.segments = self.flat.segments
         self._partitioned = self.flat.partitioned
         self._row_shard = self.flat.row_shard()
@@ -998,7 +1003,9 @@ class DeepSpeedEngine:
         pinned on the card's host, zero-initialized there (every flat
         optimizer here is zeros plus a step count); the residuals of
         error feedback; the fp32 host gradient of ``offload_gradients``
-        and of the host optimizer; and the chunk stream."""
+        and of the host optimizer; and the chunk stream.  Every buffer
+        holds this rank's rows (``flat.shard_shape``), and the stream
+        walks them."""
         zc = self._config.zero_config
         name = getattr(self.optimizer, "name", "")
         pin = self.device.type == "cuda"
@@ -1061,11 +1068,11 @@ class DeepSpeedEngine:
         # in them; other optimizers (Lamb's per-tensor norms) take the
         # whole state in one job, the one-shot update
         self._stream = HostStream(
-            self.segments.rows,
+            self.flat.shard_rows,
             chunk_rows if name in ("adam", "cpu_adam") else None, depth,
             self.device)
         self._host_state_bytes = qstate.host_state_bytes_per_step(
-            self.segments.rows, self.segments.shape[1], self._quant,
+            self.flat.shard_rows, LANES, self._quant,
             n_flat_leaves=len(self._flat_fields))
         logger.info("ZeRO-Offload: host state %s, %s update, schedule %s",
                     self.host_state_dtype(),
@@ -1109,8 +1116,9 @@ class DeepSpeedEngine:
             self._stream.sync_host()
 
     def _offload_update(self, g):
-        """The update under offload, the gradient ``g`` on the card
-        already unscaled and clipped."""
+        """The update under offload, the gradient ``g`` (this rank's
+        rows when partitioned) on the card already unscaled and
+        clipped."""
         hp = self.optimizer.hyperparams()
         if getattr(self.optimizer, "name", "") == "cpu_adam":
             self._stream.spill(g, self._host_grad)
@@ -1132,6 +1140,8 @@ class DeepSpeedEngine:
             stream.spill(g, self._host_grad)
             host["grad"] = self._host_grad
         quant, step0 = self._quant, self.opt_state.step
+        shard = self._shard_kwargs()
+        out = None if self._stage3 else self._compute_rows()
 
         def chunk(k, r0, rc, v):
             pm = (quant.load(v["master"], v.get("res/master")) if quant
@@ -1140,7 +1150,10 @@ class DeepSpeedEngine:
                       else v[f] for f in self._flat_fields}
             st = dataclasses.replace(self.opt_state, **leaves)
             gc = v["grad"] if "grad" in v else g[r0:r0 + rc]
-            self.optimizer.update(st, pm, gc, hp, segments=self.segments)
+            # Adam is elementwise; Lamb's one job is the rank's whole
+            # rows, whose per-tensor sums the shard reduces
+            self.optimizer.update(st, pm, gc, hp, segments=self.segments,
+                                  **shard)
             if quant is not None:
                 for slot, name in enumerate(["master", *self._flat_fields]):
                     val = pm if name == "master" else getattr(st, name)
@@ -1150,22 +1163,43 @@ class DeepSpeedEngine:
                     v[name].copy_(q)
                     if r is not None:
                         v["res/" + name].copy_(r)
-            if not self._stage3:
+            if out is not None:
                 # the folded param cast, from the stored master (ZeRO-3
                 # casts before the next forward instead)
-                self._compute[r0:r0 + rc].copy_(v["master"])
+                out[r0:r0 + rc].copy_(v["master"])
 
         stream.run(host, chunk, writes)
         self.opt_state.step = step0 + 1
+        if out is not None:
+            self._gather_compute_rows(out)
+
+    def _compute_rows(self):
+        """This rank's rows of the compute buffer, where the offload
+        update writes its compute params (the whole buffer when the
+        master is whole)."""
+        row0 = self.flat.row0
+        return self._compute[row0:row0 + self.flat.shard_rows]
+
+    def _gather_compute_rows(self, rows):
+        """The compute params from every rank's ``rows`` (one in-place
+        all-gather in the compute dtype, as the partitioned step without
+        offload makes)."""
+        if self._partitioned:
+            comm.all_gather(rows, DATA_AXIS, mesh=self.mesh,
+                            out=self._compute)
 
     def _params_from_host(self):
         """The compute params as the cast of the host master, streamed up
         in chunks and cast on the card (for DeepSpeedCPUAdam this beat a
-        cast on the host and a 2-byte copy: ``ops/adam/cpu_adam.py``)."""
+        cast on the host and a 2-byte copy: ``ops/adam/cpu_adam.py``),
+        this rank's rows all-gathered when partitioned."""
+        out = self._compute_rows()
+
         def cast(k, r0, rc, v):
-            self._compute[r0:r0 + rc].copy_(v["master"])
+            out[r0:r0 + rc].copy_(v["master"])
 
         self._stream.run({"master": self.master}, cast)
+        self._gather_compute_rows(out)
 
     # -------------------------------------------------------- resilience
     def _build_telemetry(self):
@@ -2014,19 +2048,26 @@ class DeepSpeedEngine:
                 # writes the compute params chunk by chunk
                 self._offload_update(g)
             else:
-                shard = ({"shard": self._row_shard}
-                         if self._partitioned else {})
-                if self._tp:
-                    shard["tensor_reduce"] = self._tensor_reduce()
                 self.optimizer.update(self.opt_state, self.master, g,
                                       self.optimizer.hyperparams(),
-                                      segments=self.segments, **shard)
+                                      segments=self.segments,
+                                      **self._shard_kwargs())
         if not self._offload or overflow or self._stage3:
             # after a skipped step too: the compute params are the
             # master's cast, whatever wrote into them (an offload
             # update writes them chunk by chunk itself)
             self._refresh_params()
         return overflow, mean_loss
+
+    def _shard_kwargs(self):
+        """The optimizer's arguments for a rank's rows: its
+        :class:`~deepspeed_tpu_torch.ops.op_common.RowShard` (ZeRO-1/2/3)
+        and, under tensor parallelism, the whole-tensor reduction (both
+        read by Lamb's per-tensor norms only)."""
+        shard = {"shard": self._row_shard} if self._partitioned else {}
+        if self._tp:
+            shard["tensor_reduce"] = self._tensor_reduce()
+        return shard
 
     def _step_stats(self, flag, g, clip):
         """``(overflow flag, mean loss, global norm or None)`` of the
@@ -2529,8 +2570,8 @@ class DeepSpeedEngine:
                 val = torch.from_numpy(np.asarray(values[name], np.float32))
                 res = (val - val.to(buf.dtype).float()).numpy()
             else:
-                res = np.zeros(sum(self.segments.sizes), np.float32)
-            self.flat.scatter_master_from_unpadded(res, out=buf)
+                res = np.zeros(self._param_count(), np.float32)
+            self._scatter_unpadded(res, out=buf)
 
     def _restore_opt_state(self, host):
         """Fill the optimizer state from ``{field path key: array}``

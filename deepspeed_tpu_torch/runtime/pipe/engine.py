@@ -84,6 +84,9 @@ momentum over its data group after ``ReduceTiedGrads``, with the
 compression's scales over every stage (a tied param counted once), so
 the tied copies stay equal; its error buffers are each stage's and
 rank's.
+ZeRO-Offload: each stage's host master and optimizer state are its
+data rank's rows of the stage's layout, updated at ``OptimizerStep`` by
+the base engine's offload step over the stage's data group.
 
 Checkpoints are the JAX package's files for the whole tree: each
 stage's leaves are joined over ``model``, the stages' rows are gathered
@@ -316,12 +319,8 @@ class PipelineEngine(DeepSpeedEngine):
         return self.mesh.size(PIPE_AXIS) if self.mesh is not None else 1
 
     def _refuse(self):
-        """The combinations not ported under a pipeline, each naming its
-        item."""
-        if self._offload and self.pipe_world_size > 1:
-            raise NotImplementedError(
-                "ZeRO-Offload above one rank is not ported yet (ROADMAP "
-                "A9); it runs at one rank")
+        """What the pipeline engine refuses: MoE, which the JAX package
+        has no pipeline path for."""
         if self.mesh is not None and self.mesh.size(EXPERT_AXIS) > 1:
             raise NotImplementedError(
                 f"MoE under the pipeline engine (an expert axis above 1) "

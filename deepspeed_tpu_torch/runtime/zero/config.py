@@ -3,8 +3,8 @@
 Parses and validates every key of the block as the JAX package does,
 in its order, so a bad config raises the same error class naming the
 same key in both packages.  The port's engine runs stages 0 to 3 at any
-data-parallel degree, with ``cpu_offload`` (ROADMAP A9) at stages 2 and
-3 at one rank; ``overlap_comm`` (default ``"auto"``) picks the bucketed
+data-parallel degree, with ``cpu_offload`` on every mesh (above one
+data rank each rank's host state is its rows); ``overlap_comm`` (default ``"auto"``) picks the bucketed
 exchange of ``reduce_bucket_size`` buckets and ``allgather_bucket_size``
 groups wherever the JAX package does (ROADMAP A8).
 

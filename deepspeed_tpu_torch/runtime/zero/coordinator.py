@@ -41,7 +41,12 @@ master and the optimizer state are host buffers in their storage dtype,
 one per family (:meth:`host_buffer`, :meth:`flatten_to_host`,
 :meth:`alloc_host_grads`): pinned when the engine trains on the card,
 allocated pinned and filled in place (pinning a filled tensor would
-hold two copies), plain CPU tensors when it trains on the CPU.  The
+hold two copies), plain CPU tensors when it trains on the CPU.  Each
+holds this rank's rows (:attr:`shard_shape`: the whole layout when the
+master is whole), so the ranks of a data group together hold one copy
+of the state, as the JAX engine's ``P("data")`` host sharding does; a
+gather stages host rows through ``device`` for the collective, a chunk
+at a time, into a host buffer.  The
 JAX package splits them into row groups under XLA's per-host-buffer
 bound; the port has no such bound and keeps one group.
 """
@@ -55,14 +60,20 @@ from ...parallel.mesh import DATA_AXIS
 from ...utils.params import tree_from_leaves, tree_leaves
 
 
+# every rank's rows of one chunk of a host gather, staged on the card
+HOST_GATHER_BYTES = 64 << 20
+
+
 class FlatParamCoordinator:
     """The flat layout of a param tree.  ``mesh`` (with ``dp_size``
     ranks on its ``data`` axis, this one ``dp_rank``) partitions the
     master and the optimizer state at stages 1 and 2."""
 
     def __init__(self, params_template, stage=0, dp_size=1, dp_rank=0,
-                 mesh=None, plan=None):
+                 mesh=None, plan=None, device=None):
         self.stage = stage
+        # where a partitioned gather runs (NCCL moves device memory only)
+        self.device = torch.device(device or "cpu")
         self.dp_size = dp_size
         self.dp_rank = dp_rank
         self.mesh = mesh
@@ -118,14 +129,16 @@ class FlatParamCoordinator:
             host[self.row0:self.row0 + self.shard_rows]).to(device)
 
     def host_buffer(self, dtype, pin):
-        """A zero host buffer in the flat layout (``pin``: page-locked,
-        for copies to and from the card without a staging copy)."""
-        return torch.zeros(self.flat_shape, dtype=dtype, pin_memory=pin)
+        """A zero host buffer of this rank's rows of the flat layout
+        (``pin``: page-locked, for copies to and from the card without a
+        staging copy)."""
+        return torch.zeros(self.shard_shape, dtype=dtype, pin_memory=pin)
 
     def flatten_to_host(self, params, dtype, pin):
-        """The master as a host buffer in storage ``dtype``, allocated
-        once and filled leaf by leaf in place (a cast to bf16 rounds to
-        nearest, as numpy's ``astype`` does in the JAX package)."""
+        """This rank's rows of the master as a host buffer in storage
+        ``dtype``, allocated once and filled in place from the leaves
+        that reach them (a cast to bf16 rounds to nearest, as numpy's
+        ``astype`` does in the JAX package)."""
         _, leaves = tree_leaves(params)
         if len(leaves) != self.segments.num_segments:
             raise ValueError(f"the tree has {len(leaves)} leaves but the "
@@ -133,17 +146,24 @@ class FlatParamCoordinator:
                              f"{self.segments.num_segments}")
         host = self.host_buffer(dtype, pin)
         flat = host.view(-1)
+        lo = self.row0 * LANES
+        hi = lo + flat.numel()
         with torch.no_grad():
             for leaf, ro, n in zip(leaves, self.segments.row_offsets,
                                    self.segments.sizes):
+                start = ro * LANES
+                a, b = max(start, lo), min(start + n, hi)
+                if a >= b:
+                    continue
                 src = (leaf.detach().float().cpu()
                        if isinstance(leaf, torch.Tensor)
                        else torch.from_numpy(np.asarray(leaf, np.float32)))
-                flat[ro * LANES:ro * LANES + n].copy_(src.reshape(-1))
+                flat[a - lo:b - lo].copy_(src.reshape(-1)[a - start:b - start])
         return host
 
     def alloc_host_grads(self, pin):
-        """The fp32 host gradient buffer of ``offload_gradients``."""
+        """The fp32 host gradient buffer of ``offload_gradients`` (this
+        rank's rows)."""
         return self.host_buffer(torch.float32, pin)
 
     def unflatten_params(self, flat):
@@ -168,22 +188,42 @@ class FlatParamCoordinator:
         """The whole master (any buffer in its layout, every rank's rows
         gathered when partitioned: a collective) in the canonical layout
         of the compute params, on its device."""
-        if self.partitioned:
-            master = comm.all_gather(master.detach(), DATA_AXIS,
-                                     mesh=self.mesh)
+        if self.partitioned and self.dp_size > 1:
+            master = (self._gather_host_rows(master.detach())
+                      if master.device.type == "cpu" else
+                      comm.all_gather(master.detach(), DATA_AXIS,
+                                      mesh=self.mesh))
         if self.plan is None:
             return master
         return self.plan.canonical_from_storage(master)
+
+    def _gather_host_rows(self, rows):
+        """Every rank's ``rows`` (host buffers of the ranks' rows) as one
+        host buffer of the whole layout, gathered a chunk of
+        ``HOST_GATHER_BYTES`` at a time through :attr:`device`, so the
+        card never holds more than one chunk of every rank's rows (a
+        collective)."""
+        out = torch.empty(self.flat_shape, dtype=rows.dtype)
+        ranks = out.view(self.dp_size, self.shard_rows, LANES)
+        step = max(1, HOST_GATHER_BYTES // (
+            self.dp_size * LANES * rows.element_size()))
+        for r0 in range(0, self.shard_rows, step):
+            rc = min(step, self.shard_rows - r0)
+            got = comm.all_gather(rows[r0:r0 + rc].to(self.device),
+                                  DATA_AXIS, mesh=self.mesh)
+            ranks[:, r0:r0 + rc].copy_(got.view(self.dp_size, rc, LANES))
+        return out
 
     def gather_master_unpadded(self, master):
         """Concatenated true-sized 1-D fp32 host copy (checkpoint
         format) of ``master`` or any buffer in its layout: the segments
         are gathered on the buffer's device, then copied to the host
-        once (a host buffer's are read where they are, with no round
-        trip through the card; a bf16 one is upcast exactly).  The array
-        owns its memory: no later step writes it.  Partitioned, ``master``
-        is this rank's rows: every rank gathers the whole buffer first
-        (a collective: every rank calls it)."""
+        once (a whole host buffer's are read where they are, with no
+        round trip through the card; a bf16 one is upcast exactly).  The
+        array owns its memory: no later step writes it.  Partitioned,
+        ``master`` is this rank's rows: every rank gathers the whole
+        buffer first, on the card, or on the host for host rows (a
+        collective: every rank calls it)."""
         view = self.canonical_master(master).detach().reshape(-1)
         parts = [view[ro * LANES:ro * LANES + n] for ro, n in
                  zip(self.segments.row_offsets, self.segments.sizes)]
@@ -211,8 +251,8 @@ class FlatParamCoordinator:
 
     def scatter_master_from_unpadded(self, unpadded, out):
         """Write the 1-D unpadded fp32 ``unpadded`` into ``out``, a
-        buffer in this layout on the engine's device (this rank's rows of
-        it when partitioned), padding zero (the JAX coordinator's
+        buffer in this layout on the engine's device or on the host (this
+        rank's rows of it when partitioned), padding zero (the JAX coordinator's
         ``scatter_master_from_unpadded``, in place).  Returns ``out``."""
         full = self.storage_from_canonical(self.repad_unpadded(unpadded))
         with torch.no_grad():

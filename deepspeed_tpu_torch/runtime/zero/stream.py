@@ -61,8 +61,9 @@ def chunk_rows_for(chunk_mb):
 class HostStream:
     """The chunk loop between pinned host buffers and the card.
 
-    ``rows`` is the flat layout's row count, ``chunk_rows`` the rows of
-    a chunk (None: one chunk), ``depth`` the chunks in flight.  With
+    ``rows`` is the row count of the host buffers (the rank's rows of
+    the flat layout above one data rank), ``chunk_rows`` the rows of a
+    chunk (None: one chunk), ``depth`` the chunks in flight.  With
     ``timing`` set, every copy and every run is timed with CUDA events
     and :meth:`timing_report` reads them (after a sync)."""
 

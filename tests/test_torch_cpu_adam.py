@@ -10,8 +10,17 @@ the op builder with g++) against the JAX package's.
 - the engine on CPUAdam, with and without ``cpu_offload``, matches the
   JAX CPUAdam engine (``tests/unit/test_cpu_adam.py:57``) at rtol 1e-5;
 - the build keys on its source and flags, raises with g++'s stderr, and
-  the kernel refuses what is not a contiguous fp32 host tensor.
+  the kernel refuses what is not a contiguous fp32 host tensor;
+- g++ vectorizes the update loop with the build's flags (its
+  ``-fopt-info-vec-optimized`` report names the loop's line), and the
+  kernel is bitwise the JAX build on one thread and on several;
+- the OpenMP team is the host's CPUs split over the ranks that share the
+  host (``LOCAL_WORLD_SIZE``), a pinned rank's own CPUs, and OpenMP's
+  own choice for one rank or a team set in ``OMP_NUM_THREADS``.
 """
+
+import re
+import subprocess
 
 import jax
 import numpy as np
@@ -130,6 +139,55 @@ def test_engine_matches_the_jax_cpu_adam_engine(one_thread, offload):
     if offload:
         assert engine.host_stream_schedule() is None
         assert engine.master.device.type == "cpu"
+
+
+def test_the_update_loop_is_vectorized(tmp_path):
+    """g++ places an OpenMP simd loop's report on its first statement:
+    a report on a line of the loop (its ``for`` to its closing brace)."""
+    src = op_builder.CSRC_DIR / op_builder.HOST_SOURCES["cpu_adam"]
+    lines = src.read_text().splitlines()
+    first = next(i for i, line in enumerate(lines, 1)
+                 if line.strip().startswith("for (long long i = 0;"))
+    last = next(i for i in range(first, len(lines) + 1)
+                if lines[i - 1] == "  }")
+    out = subprocess.run(
+        [op_builder.find_gxx(), *op_builder.GXX_FLAGS,
+         "-fopt-info-vec-optimized", "-o", str(tmp_path / "adam.so"),
+         str(src)], capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    at = [int(n) for n in re.findall(
+        r"cpu_adam\.cpp:(\d+):\d+: optimized: loop vectorized", out.stderr)]
+    assert any(first <= n <= last for n in at), out.stderr
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_team_sizes_are_bitwise_the_jax_build(threads):
+    n = 256 * 1024 + 5
+    p, m, v, g = arrays(n, 7)
+    hp = (1e-3, 0.9, 0.999, 0.0, 1 - 0.9 ** 2, 1 - 0.999 ** 2, 1e-8)
+    want = _host_adam(p, m, v, g, *hp[:6], hp[6], 1)
+    tp, tm, tv, tg = (torch.from_numpy(x.copy()) for x in (p, m, v, g))
+    cpu_adam.ds_adam_step(tp, tm, tv, tg, hp[0], hp[1], hp[2], hp[6],
+                          hp[3], hp[4], hp[5], 1, threads=threads)
+    for got, ref in zip((tp, tm, tv), want):
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_host_threads_split_the_host_over_its_ranks():
+    def team(env, cpus=32, host_cpus=32):
+        return cpu_adam.host_threads(env, cpus=cpus, host_cpus=host_cpus)
+
+    assert team({}) == 0
+    assert team({"LOCAL_WORLD_SIZE": "1"}) == 0
+    # torchrun's OMP_NUM_THREADS=1 under several ranks is overridden
+    assert team({"LOCAL_WORLD_SIZE": "4", "OMP_NUM_THREADS": "1"}) == 8
+    assert team({"LOCAL_WORLD_SIZE": "3"}) == 10
+    assert team({"LOCAL_WORLD_SIZE": "128"}) == 1
+    # a team the user set is OpenMP's to take
+    assert team({"LOCAL_WORLD_SIZE": "4", "OMP_NUM_THREADS": "6"}) == 0
+    # a rank pinned to CPUs of its own keeps them all
+    assert team({"LOCAL_WORLD_SIZE": "4"}, cpus=8) == 8
+    assert cpu_adam.host_threads({"LOCAL_WORLD_SIZE": "2"}) >= 1
 
 
 def test_host_library_path_follows_source_and_flags(tmp_path, monkeypatch):

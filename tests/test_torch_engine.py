@@ -284,21 +284,21 @@ def test_flat_gradient_dtype_follows_the_jax_rule(bf16, acc, grad_dtype,
     pytest.param({"optimizer": {"type": "Sgd", "params": {}}}, ValueError,
                  "sgd", id="change4-ValueError-sgd"),
     pytest.param({"zero_optimization": {"stage": 2, "cpu_offload": True},
-                  "mesh": {"data": 2}}, NotImplementedError, "A9",
+                  "mesh": {"data": 2}}, RuntimeError, "process group",
                  id="change5-NotImplementedError-A9"),
     pytest.param({"zero_optimization": {"stage": 2, "overlap_comm": True},
                   "mesh": {"data": 2}}, RuntimeError, "process group",
                  id="change6-RuntimeError-process-group")])
 def test_unported_options_raise(change, error, match):
-    """Options the port does not have raise, naming their ROADMAP item:
-    offload above one data-parallel rank (A9; a ``mesh`` here, handed to
-    ``initialize``).  The ids keep the refusals these cases once were:
-    fp16 (A4) builds an engine whose compute params and flat gradient
-    are fp16, with the JAX package's dynamic scale; ZeRO-3, alone and
-    under offload, and 1-bit Adam (A8, A14) build and train; the bucketed
-    ``overlap_comm`` at two ranks (A8) builds its bucket plan and goes on
-    to its first collective, which a mesh without a process group
-    cannot make."""
+    """Options the port once refused.  The ids keep the refusals these
+    cases once were: fp16 (A4) builds an engine whose compute params and
+    flat gradient are fp16, with the JAX package's dynamic scale;
+    ZeRO-3, alone and under offload, and 1-bit Adam (A8, A14) build and
+    train; the bucketed ``overlap_comm`` at two ranks (A8) builds its
+    bucket plan, and offload at two ranks (A9) its host shards, and each
+    goes on to its first collective, which a mesh without a process
+    group cannot make (a ``mesh`` here, handed to ``initialize``;
+    ``tests/test_torch_offload_dp.py`` trains offload on gloo ranks)."""
     change = dict(change)
     kw = {"mesh": Mesh(change.pop("mesh"))} if "mesh" in change else {}
     config = dict(ds_config("Adam", 1, 0.0), **change)

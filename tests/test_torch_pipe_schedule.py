@@ -324,16 +324,29 @@ def test_pipeline_block_fills_the_module_defaults(caplog):
 # to the JAX engine
 @pytest.mark.parametrize("extra,dims,item", [
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}},
-     {"pipe": 2}, "A9"),
+     {"pipe": 2}, None),
     ({}, {"pipe": 2, "expert": 2}, "A21"),
 ], ids=["extra0-A13 remainder", "extra1-A13 remainder"])
-def test_unported_combinations_raise_naming_their_item(extra, dims, item):
-    """What stays refused under a pipeline, before any collective:
-    offload above one rank (A9), and MoE under a pipeline, which the JAX
-    package has no path for (A21)."""
+def test_unported_combinations_raise_naming_their_item(extra, dims, item,
+                                                       monkeypatch):
+    """What stays refused under a pipeline, before any collective: MoE
+    under a pipeline, which the JAX package has no path for (A21).
+    Offload under a pipe of 2, refused until A9 was ported, builds: the
+    stage's host master is its own layers' rows (the construction's one
+    collective, the pipe group's barrier, is stubbed: there is no
+    process group here; tests/test_torch_offload_dp.py trains it)."""
+    from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.parallel import Mesh
 
     mod = PipelineModule(W.linear_specs(4), loss_fn=W.mse_loss)
+    if item is None:
+        monkeypatch.setattr(comm, "barrier", lambda *a, **k: None)
+        eng, *_ = tds.initialize(model=mod, config=W.config(**extra),
+                                 device="cpu", mesh=Mesh(dims))
+        assert eng.stage_layers == [0, 1] and eng.master.device.type == "cpu"
+        assert tuple(eng.master.shape) == eng.flat.shard_shape
+        assert sum(eng.segments.sizes) == 2 * (W.HIDDEN + 1) * W.HIDDEN
+        return
     with pytest.raises(NotImplementedError, match=item):
         tds.initialize(model=mod, config=W.config(**extra), device="cpu",
                        mesh=Mesh(dims))

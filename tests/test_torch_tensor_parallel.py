@@ -313,13 +313,14 @@ def test_qkv_is_cut_by_heads_inside_q_k_and_v():
                                   "moe_pipe", "offload", "overlap"])
 def test_what_tp_does_not_compose_raises_naming_its_item(case):
     """What the model axis does not compose with raises naming its item
-    (offload above one rank: A9; MoE under a pipeline, absent from the
-    JAX package: A21; ``overlap_comm: true`` above one model rank gets
-    the JAX engine's message, and ``"auto"`` takes the fused exchange
-    there), none needing a process group.  The sparse core, OneBitAdam
-    and ``sparse_gradients`` compose since A18: they build at model 2
-    (their parity is tests/test_torch_tp_sparse.py and
-    tests/test_torch_tp_onebit.py)."""
+    (MoE under a pipeline, absent from the JAX package: A21;
+    ``overlap_comm: true`` above one model rank gets the JAX engine's
+    message, and ``"auto"`` takes the fused exchange there), none
+    needing a process group.  The sparse core, OneBitAdam and
+    ``sparse_gradients`` compose since A18, and offload since A9: they
+    build at model 2, offload with the rank's slices in host memory
+    (their parity is tests/test_torch_tp_sparse.py,
+    tests/test_torch_tp_onebit.py and tests/test_torch_offload_dp.py)."""
     from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
         FixedSparsityConfig
 
@@ -360,9 +361,12 @@ def test_what_tp_does_not_compose_raises_naming_its_item(case):
                      Mesh({"data": 2, "model": 2}))
         return
     if case == "offload":
-        with pytest.raises(NotImplementedError, match="A9"):
-            W.engine(model, params, dict(W.config(W.ADAM), **extra),
-                     Mesh({"model": 2}))
+        eng = W.engine(model, params, dict(W.config(W.ADAM), **extra),
+                       Mesh({"model": 2}))
+        whole = W.engine(model, params, dict(W.config(W.ADAM), **extra))
+        assert eng.mp_world_size == 2 and eng.master.device.type == "cpu"
+        assert tuple(eng.master.shape) == eng.flat.shard_shape
+        assert sum(eng.segments.sizes) < sum(whole.segments.sizes)
         return
     eng = W.engine(model, params, dict(W.config(W.ADAM, clip=0.0), **extra),
                    Mesh({"model": 2}))

@@ -431,9 +431,13 @@ def test_stage3_unmet_requirements_raise_loudly():
     with pytest.raises(ValueError, match="Adam"):
         _port({"stage": 3, "overlap_comm": True}, mesh2,
               optimizer={"type": "Lamb", "params": {"lr": 1e-3}})
-    # offload above one rank keeps its refusal
-    with pytest.raises(NotImplementedError, match="A9"):
-        _port({"stage": 3, "cpu_offload": True}, mesh2)
+    # offload above one rank (refused until A9 was ported) builds: its
+    # host master is the rank's half of the rows, and ZeRO-3 gathers no
+    # compute params before the first forward
+    engine, *_ = _port({"stage": 3, "cpu_offload": True}, mesh2)
+    assert engine.master.device.type == "cpu"
+    assert 2 * engine.master.shape[0] == engine.segments.rows
+    assert engine._compute.untyped_storage().nbytes() == 0
 
 
 def test_overlap_off_keeps_the_fused_layout():

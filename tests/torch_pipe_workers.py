@@ -357,15 +357,21 @@ def pipe4_world(rank, world, seed, lin, gpt, carry, port_dir):
     return out
 
 
-def offload_refused(rank, world, seed):
-    """ZeRO-Offload under a pipe of 2 keeps its A9 refusal."""
+def offload_pipe2(rank, world, seed):
+    """The linear stack at pipe 2 under ZeRO-2 with and without
+    ``cpu_offload``: each run's losses, the stage's master and the host
+    master's shape."""
     mesh = make_mesh({PIPE_AXIS: 2})
-    try:
-        engine(linear_specs(), None, config(
-            zero_optimization={"stage": 2, "cpu_offload": True}), mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    out = {}
+    for offload in (False, True):
+        eng = engine(linear_specs(), None, config(zero_optimization={
+            "stage": 2, "cpu_offload": offload}), mesh)
+        out[offload] = {"losses": train(eng, linear_data()),
+                        "master": eng.flat.gather_master_unpadded(
+                            eng.master),
+                        "host": (eng.master.device.type,
+                                 tuple(eng.master.shape))}
+    return out
 
 
 
