@@ -45,8 +45,10 @@ failure raises, so the script exits non-zero:
               ``reference_attention``'s (the dispatch's other path,
               behind ``FLASH_MIN_ROWS``), ``scaled_dot_product_attention``'s
               (a yardstick the port never calls) and the card's bound;
-3. backward — B2a+B2b and B3 (the backward kernels) and B4 (in-kernel
-              dropout) vs ``flash_attention_bwd_reference`` with the
+3. backward — B2a+B2b and B3 (the backward kernels) and B4 (the
+              attention-dropout keep mask, drawn once per forward into
+              packed bits that B1-B3 read) vs
+              ``flash_attention_bwd_reference`` with the
               ``philox_keep_mask`` mask, fp32 (TF32 off) and bf16: the
               buckets on fused-QKV views, causal and not, a fully masked
               batch row (exactly zero grads, also at s=1024), masked keys
@@ -55,7 +57,13 @@ failure raises, so the script exits non-zero:
               under dropout, d=128 (at s=1024 on fused-QKV views),
               dropout 0.1; two runs bitwise equal; B4's mask read back
               from the fp32 and the bf16 B1 equal to the plain version's
-              with a binomial keep rate; B1+B4 (two runs bitwise
+              with a binomial keep rate; B4's words bitwise
+              ``philox_keep_bits``'s at the train attention, at BERT's
+              shape, at kv_len 201 and causal on a head range; B4's
+              device time alone at the train and BERT attentions beside
+              the chains' cost of dropout (B4 -> B1 -> B2a -> B2b and
+              B4 -> B1 -> B3, with less without), the plain version's
+              and the bound from the kernel's SASS count; B1+B4 (two runs bitwise
               equal), B2a and B2b again at GPT-2-medium's training
               attention (b=8, s=1024, bf16, dropout 0.1), B3 at the
               train-parity phase's, and B1+B3 at the BERT train phase's
@@ -159,7 +167,7 @@ failure raises, so the script exits non-zero:
               for phase 20;
 
 16. fp16 kernel — B1, B2a, B2b and B3 in fp16 (the tensor-core kernels'
-              fp16 instantiations), B4 through dropout 0.1, against their
+              fp16 instantiations), on B4's bits at dropout 0.1, against their
               plain versions: B1+B2a+B2b at GPT-2-medium's training
               attention (fused QKV views) and B1+B3 at BERT's (b=64,
               s=128, key mask), at bf16's tolerances; device times beside
@@ -203,7 +211,7 @@ failure raises, so the script exits non-zero:
 21. remat    — phase 6's GPT-2-medium under the
               ``activation_checkpointing`` config block, 5 steps each on
               one batch: (a) remat alone, losses and the master after
-              every step bitwise the run without it, B1 (B4 inside)
+              every step bitwise the run without it, B1 and B4's draw
               twice a layer a step (forward and recompute); (b) with
               ``loss_chunk`` 128, the first loss within rtol 1e-5 of the
               full-logits one; (c) with ``cpu_checkpointing`` too,
@@ -238,7 +246,8 @@ failure raises, so the script exits non-zero:
               last ragged), 5 steps each: losses and master bitwise the
               run without offload, prefetch depth 1 against 2 bitwise,
               the bf16 SR host state at depth 1 against 2 bitwise; B1,
-              B2a, B2b and B4 a step as phase 6; every host buffer
+              B2a, B2b and B4 (draws and applied masks) a step as phase
+              6; every host buffer
               pinned;
 27. offload large — bench.py's GPT-2-large offload leg
               (``bench.py:514-526``: 36 layers, hidden 1280, seq 1024,
@@ -304,8 +313,9 @@ failure raises, so the script exits non-zero:
               ``models/gpt2.py`` engine's on the same weights and
               micro-batches, the executed stream its
               ``schedule_trace``; then at dropout 0.1, 1 warm-up and 3
-              timed steps: 24 B1, B2a and B2b launches a micro-batch and
-              B4 in every one of them, step ms, MFU, peak memory; then a
+              timed steps: 24 B1, B2a, B2b and B4 launches a micro-batch,
+              B4's mask applied by every one of the others, step ms, MFU,
+              peak memory; then a
               tiny GPT-2 at pipe 2 and at pipe 2 with interleave 2 on
               two gloo CPU processes against one stage (losses to rtol
               1e-5);
@@ -314,8 +324,8 @@ failure raises, so the script exits non-zero:
               heads, bf16, dropout 0.1, causal) and B3 at BERT's (b=64,
               s=128, a key mask) called on heads [0, 8), [8, 16) and
               [4, 8) with their head offset: out, lse, dq, dk and dv
-              BITWISE the whole call's heads (B4 counts the global
-              head), and B5 (BigBird, 256-row blocks) and B6 (Fixed,
+              BITWISE the whole call's heads (B4's counter counts the
+              global head), and B5 (BigBird, 256-row blocks) and B6 (Fixed,
               128-row blocks) on per-head layouts at b=2, s=4096, the
               same head ranges on their rows of the layout, bitwise
               too; (b) one full-width GPT-2-medium layer (bf16,
@@ -391,7 +401,8 @@ failure raises, so the script exits non-zero:
               on: every verdict ok or pending, the final one ok with 2
               voters, and the replicas' losses and state fingerprints
               bitwise equal at every step; the replicas' B1 (a, b), B2a,
-              B2b and B4 (b) launches join the kernels line;
+              B2b and B4 (b: draws and applied masks) launches join the
+              kernels line;
 39. a18      — on NCCL at world size 1, phase 33's GPT-2-medium (dropout
               0, 4 micro-batches): OneBitAdam (freeze 2, 2 + 2 steps) on
               the engine without a mesh and on ``{data: 1, model: 1}``,
@@ -430,6 +441,7 @@ import multiprocessing
 import os
 import pickle
 import random
+import re
 import shutil
 import signal
 import statistics
@@ -438,6 +450,7 @@ import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -804,17 +817,26 @@ def seed_words(seed):
                         device=DEVICE)
 
 
+def draw_bits(q, k, causal, rate, seed):
+    """B4's keep bits of a ``[b, s, h, d]`` call (None without dropout)."""
+    if not rate:
+        return None
+    b, s, h, _ = q.shape
+    return fa.draw_keep_bits(seed, b, h, s, k.shape[1], rate, causal)
+
+
 def kernel_chain(q, k, v, dout, mask, causal, rate, seed, fused):
-    """out, lse by B1 and dq, dk, dv by B3 or by B2a then B2b."""
-    out, lse = flash_attention_fwd(q, k, v, mask, causal, rate, seed)
+    """B4's keep bits drawn once, out, lse by B1 and dq, dk, dv by B3 or
+    by B2a then B2b, all three on those bits."""
+    bits = draw_bits(q, k, causal, rate, seed)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal, rate,
+                                   keep_bits=bits)
+    args = (q, k, v, out, lse, dout, mask, causal, rate)
     if fused:
-        grads = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask,
-                                          causal, rate, seed)
+        grads = flash_attention_bwd_fused(*args, keep_bits=bits)
     else:
-        dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal,
-                                    rate, seed)
-        grads = (dq,) + flash_attention_bwd_dkv(q, k, v, out, lse, dout,
-                                                mask, causal, rate, seed)
+        grads = (flash_attention_bwd_dq(*args, keep_bits=bits),) \
+            + flash_attention_bwd_dkv(*args, keep_bits=bits)
     return (out, lse) + tuple(grads)
 
 
@@ -942,6 +964,51 @@ def check_keep_mask(card, results):
             "sigmas": abs(rate - p_keep) / sigma}
 
 
+# B4's words against philox_keep_bits: (label, b, h, s, kv_len, causal,
+# head_offset, total_heads)
+KEEP_BITS_CASES = (
+    ("train", *TRAIN_ATTN[:3], TRAIN_ATTN[2], True, 0, None),
+    ("bert_key_mask", BERT_BATCH, 16, BERT_SEQ, BERT_SEQ, False, 0, None),
+    ("kv201", 1, 8, 100, 201, False, 0, None),
+    ("causal_head_range", 2, 4, 300, 333, True, 4, 12))
+
+
+def check_keep_bits(card, results):
+    """B4's packed words equal ``philox_keep_bits``'s bitwise: at the
+    train attention, at BERT's shape (whose key mask B4 does not read:
+    B1-B3 apply it), at kv_len not a multiple of 32, and causal on a head
+    range (heads 4..7 of 12); two draws are equal, another seed differs.
+    Returns the number of differing words (0)."""
+    rows = []
+    for i, (label, b, h, s, kv_len, causal, h0, total) in enumerate(
+            KEEP_BITS_CASES):
+        seed = seed_words(SEED + 400 + i)
+        bits = fa.draw_keep_bits(seed, b, h, s, kv_len, DROPOUT, causal, h0,
+                                 total)
+        again = fa.draw_keep_bits(seed, b, h, s, kv_len, DROPOUT, causal,
+                                  h0, total)
+        other = fa.draw_keep_bits(seed_words(SEED + 500 + i), b, h, s,
+                                  kv_len, DROPOUT, causal, h0, total)
+        heads = fa.drop_heads(b, h, h0, total, DEVICE)
+        plain = fa.philox_keep_bits(seed, b * h, s, kv_len, DROPOUT, heads,
+                                    causal)
+        differ = int((bits != plain).sum())
+        check(differ == 0 and torch.equal(bits, again)
+              and not torch.equal(bits, other),
+              f"B4 {label}: {differ} words differ from philox_keep_bits")
+        rows.append({"case": label, "b": b, "h": h, "s": s,
+                     "kv_len": kv_len, "causal": causal, "head_offset": h0,
+                     "total_heads": total, "words": bits.numel(),
+                     "differing_words": differ})
+        print(f"B4 keep bits {label} (b={b} h={h} s={s} kv_len={kv_len} "
+              f"causal={causal} heads {h0}..{h0 + h - 1} of {total or h}): "
+              f"{bits.numel()} words bitwise philox_keep_bits, two draws "
+              f"equal [{card}]")
+        del bits, again, other, plain
+    results["keep_bits"] = rows
+    return sum(r["differing_words"] for r in rows)
+
+
 def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
                       max_err):
     """B1 with B4, then B2a and B2b, at the train phase's attention
@@ -986,6 +1053,189 @@ def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
     return errs
 
 
+# B4's SASS by the pipe that issues each instruction on sm_90: integer
+# multiply-adds (IMAD*) on the FMA pipe, logic, compares, selects, shifts
+# and adds on the ALU pipe, each at 64 results a clock a SM (CUDA C++
+# Programming Guide, arithmetic throughput of compute capability 9.0);
+# the warp-uniform ones (U*) on the uniform datapath.  The SM's four
+# schedulers issue one warp instruction a clock each, 128 results.  A
+# draw's work is the forward slice of its Philox multiplies (0xD2511F53
+# and 0xCD9E8D57, signed as cuobjdump prints them): every instruction
+# that reads what one of them made, so not the loop control, the
+# addresses, the stores or the masks' own arithmetic.
+PHILOX_MULTIPLIERS = ("-0x2daee0ad", "-0x326172a9")
+SASS_NOT_DRAWN = ("BRA", "BSSY", "BSYNC", "EXIT", "NOP", "WARPSYNC", "ST",
+                  "LD", "RED", "ATOM", "ULD", "UST")
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]+)\*/\s*(@!?(?:PT|P\d|UPT|UP\d)\s+)?"
+                       r"([A-Z0-9_.]+)\s*([^;]*);")
+SASS_REGISTER = re.compile(r"^[-!~|]*(R\d+|RZ|P\d|PT|PR|UR\d+|URZ)"
+                           r"((?:\.\w+)*)")
+
+
+def sass_registers(operand):
+    """The registers an SASS operand names: ``R8.64`` is R8 and R9,
+    ``PR`` every predicate; ``[]`` for an immediate or a constant."""
+    m = SASS_REGISTER.match(operand.strip())
+    if not m or m.group(1) in ("RZ", "PT", "URZ"):
+        return []
+    name = m.group(1)
+    if name == "PR":
+        return [f"P{i}" for i in range(7)]
+    if name[0] == "R" and ".64" in m.group(2):
+        return [name, f"R{int(name[1:]) + 1}"]
+    return [name]
+
+
+def sass_draw_counts(body, draws):
+    """Counts the draw instructions of one pass of B4's word loop,
+    ``body`` its ``(guard, opcode, operands)`` in order, holding
+    ``draws`` draws: the forward slice of the Philox multiplies, by pipe.
+    The destinations are the first operand (two registers for
+    ``IMAD.WIDE``) and the predicates right after it; the rest and the
+    guard are sources.  Returns the slice's instructions, its FMA-pipe
+    and ALU-pipe ones and its multiplies and logic ops, each a draw, and
+    the issue slots a draw needs at 64 a clock a SM, the largest of the
+    FMA pipe's, the ALU pipe's and half the total (the dispatch: uniform
+    instructions take a scheduler's slot but neither pipe), with the
+    term that sets it."""
+    made = set()
+    drawn = []
+    for guard, op, args in body:
+        ops = [a.strip() for a in args.split(",")]
+        dests = list(sass_registers(ops[0]))
+        if op.startswith(("IMAD.WIDE", "UIMAD.WIDE")) and dests:
+            reg = dests[0].rstrip("0123456789")
+            dests.append(f"{reg}{int(dests[0][len(reg):]) + 1}")
+        rest = ops[1:]
+        while rest and re.match(r"^(P\d|PT)$", rest[0]):
+            dests += sass_registers(rest.pop(0))
+        sources = [r for a in rest for r in sass_registers(a)]
+        sources += sass_registers(guard.strip().lstrip("@")) if guard else []
+        seed = op.startswith(("IMAD.WIDE", "UIMAD.WIDE")) and any(
+            c in ops for c in PHILOX_MULTIPLIERS)
+        if not op.startswith(SASS_NOT_DRAWN) and (
+                seed or made.intersection(sources)):
+            drawn.append(op)
+            made.update(dests)
+        else:
+            made.difference_update(dests)
+    fma = sum(o.startswith("IMAD") for o in drawn) / draws
+    uniform = sum(o.startswith("U") for o in drawn) / draws
+    alu = len(drawn) / draws - fma - uniform
+    terms = {"FMA pipe": fma, "ALU pipe": alu,
+             "dispatch": len(drawn) / draws / 2}
+    pipe = max(terms, key=terms.get)
+    return {"draw_instructions": len(drawn) / draws, "fma_pipe": fma,
+            "alu_pipe": alu, "uniform": uniform,
+            "imad_wide": sum(o.startswith("IMAD.WIDE") for o in drawn) / draws,
+            "lop3": sum(o.startswith("LOP3") for o in drawn) / draws,
+            "isetp": sum(o.startswith("ISETP") for o in drawn) / draws,
+            "slots_per_draw": terms[pipe], "bound_pipe": pipe}
+
+
+def keep_bits_sass():
+    """The instructions of B4's word loop in the built kernel: in the
+    16-byte-store instantiation's SASS (``cuobjdump -sass`` of the
+    ``flash_dropout`` library) the innermost backward branch whose body
+    holds the most wide multiplies (``IMAD.WIDE``) is the loop over a
+    row's words, four words of 8 draws each unrolled.  Returns the loop's
+    instruction count and ``sass_draw_counts`` of its body."""
+    cuobjdump = Path(op_builder.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run(
+        [str(cuobjdump), "-sass", str(op_builder.library_path(
+            "flash_dropout"))], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    kernel = [part for part in text.split("Function : ")[1:]
+              if "keep_bits_kernelILi4E" in part.split()[0]]
+    check(len(kernel) == 1, "B4: the 16-byte-store kernel is not in the "
+          "library's SASS")
+    ins = [(int(m.group(1), 16), m.group(2) or "", m.group(3), m.group(4))
+           for m in map(SASS_LINE.match, kernel[0].splitlines()) if m]
+    loops = []
+    for addr, _, op, args in ins:
+        target = re.match(r"0x([0-9a-f]+)", args.strip())
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            body = [i[1:] for i in ins
+                    if int(target.group(1), 16) <= i[0] <= addr]
+            loops.append((-sum(o.startswith("IMAD.WIDE") for _, o, _ in body),
+                          len(body), body))
+    check(bool(loops), "B4: no loop in the kernel's SASS")
+    # the innermost of the loops that hold every draw (the row loop
+    # around it adds a few address multiplies)
+    most = min(n for n, _, _ in loops)
+    size, body = min((size, body) for n, size, body in loops
+                     if n <= 0.9 * most)
+    return {"loop_instructions": size, **sass_draw_counts(body, 4 * 8)}
+
+
+def keep_bits_bound(b, h, s, kv_len, causal, sass, clock_mhz):
+    """B4's bound at a call's shape: the draws its data needs (one per
+    group of 4 keys that holds a visible one) times the issue slots a
+    draw needs on its busiest pipe (``keep_bits_sass``) over 132 SMs x 64
+    results a clock at ``clock_mhz``, against the packed mask's bytes
+    written once over the HBM rate; the larger, and which it is."""
+    rows = torch.arange(s, dtype=torch.float64)
+    lim = torch.clamp(rows + 1, max=kv_len) if causal else \
+        torch.full_like(rows, kv_len)
+    draws = b * h * float(torch.ceil(lim / 4).sum())
+    ops_ms = draws * sass["slots_per_draw"] / (132 * 64 * clock_mhz * 1e6) \
+        * 1e3
+    bytes_ms = b * h * s * fa.keep_words(kv_len) * 4 / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", draws)
+
+
+def time_keep_bits(q, k, v, dout, seed, g):
+    """B4 alone (device times) at the train attention (q, k: b=8, h=16,
+    s=1024, causal) and at BERT's (b=64, h=16, s=128, a key mask), beside
+    the cost of dropout in each main path's chain (B1 -> B2a -> B2b,
+    B1 -> B3, with dropout less without: B4's draw and the masks'
+    reads), the plain ``philox_keep_bits``, and the bound from the
+    kernel's own SASS count at the card's maximum SM clock."""
+    b, s, h, d = q.shape
+    sass = keep_bits_sass()
+    clock_mhz = float(clocks_line().split(",")[1].split()[0])
+    times = device_times(lambda: fa.draw_keep_bits(seed, b, h, s, s,
+                                                   DROPOUT, True))
+    bound, by, draws = keep_bits_bound(b, h, s, s, True, sass, clock_mhz)
+
+    def chain(rate):
+        return lambda: kernel_chain(q, k, v, dout, None, True, rate, seed,
+                                    False)
+
+    with_dropout = device_ms(chain(DROPOUT), calls=5, repeats=10)
+    without = device_ms(chain(0.0), calls=5, repeats=10)
+    bb, bs = BERT_BATCH, BERT_SEQ
+    qb, kb, vb, db = (torch.randn(bb, bs, h, d, generator=g).to(
+        DEVICE, torch.bfloat16) for _ in range(4))
+    mask = torch.ones(bb, bs, device=DEVICE)
+    bert_times = device_times(lambda: fa.draw_keep_bits(
+        seed, bb, h, bs, bs, DROPOUT, False))
+    bert_bound, bert_by, _ = keep_bits_bound(bb, h, bs, bs, False, sass,
+                                             clock_mhz)
+
+    def bert_chain(rate):
+        return lambda: kernel_chain(qb, kb, vb, db, mask, False, rate, seed,
+                                    True)
+
+    bert_with = device_ms(bert_chain(DROPOUT), calls=5, repeats=10)
+    bert_without = device_ms(bert_chain(0.0), calls=5, repeats=10)
+    return {
+        "kernel_ms": statistics.median(times), "kernel_ms_min": min(times),
+        "kernel_ms_max": max(times), "draws": draws,
+        "chain_dropout_ms": with_dropout - without, "chain_ms": with_dropout,
+        "chain_no_dropout_ms": without,
+        "plain_ms": device_ms(lambda: fa.philox_keep_bits(
+            seed, b * h, s, s, DROPOUT, causal=True), calls=1, repeats=3,
+            warmup=1),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "sass": sass, "clock_max_mhz": clock_mhz,
+        "bert_kernel_ms": statistics.median(bert_times),
+        "bert_bound_ms": bert_bound, "bert_bound_by": bert_by,
+        "bert_chain_dropout_ms": bert_with - bert_without,
+        "bert_chain_ms": bert_with, "bert_chain_no_dropout_ms": bert_without}
+
+
 def time_backward(card, results, max_err):
     """Checks the kernels at GPT-2-medium's training attention (b=8,
     h=16, s=1024, d=64, causal, bf16, fused QKV views, dropout 0.1)
@@ -1003,6 +1253,8 @@ def time_backward(card, results, max_err):
     seed = seed_words(SEED + 6)
     out, lse = flash_attention_fwd(q, k, v, None, True, DROPOUT, seed)
     args = (q, k, v, out, lse, dout, None, True, DROPOUT, seed)
+    # the kernels alone are timed on the forward's one draw of B4
+    bits = draw_bits(q, k, True, DROPOUT, seed)
 
     def plain_bwd():
         keep, inv_keep = plain_keep(q, k, DROPOUT, seed)
@@ -1035,7 +1287,7 @@ def time_backward(card, results, max_err):
     for kind, fn in (("dq", flash_attention_bwd_dq),
                      ("dkv", flash_attention_bwd_dkv)):
         bound, by = backward_bound(kind, q, k, None, True)
-        times = device_times(lambda: fn(*args, delta=delta))
+        times = device_times(lambda: fn(*args, delta=delta, keep_bits=bits))
         timings[kind] = {"kernel_ms": statistics.median(times),
                          "kernel_ms_min": min(times),
                          "kernel_ms_max": max(times),
@@ -1047,7 +1299,7 @@ def time_backward(card, results, max_err):
     fwd_bound, fwd_by = attention_bound(q, k, None, True)
     fwd_clocks = {"before": clocks_line()}
     fwd_times = device_times(lambda: flash_attention_fwd(
-        q, k, v, None, True, DROPOUT, seed))
+        q, k, v, None, True, DROPOUT, keep_bits=bits))
     fwd_times0 = device_times(lambda: flash_attention_fwd(q, k, v, None,
                                                           True))
     fwd_clocks["after"] = clocks_line()
@@ -1066,22 +1318,8 @@ def time_backward(card, results, max_err):
             qt, kt, vt, is_causal=True, dropout_p=DROPOUT)),
         "bound_ms": fwd_bound, "bound_by": fwd_by, "clocks": fwd_clocks}
 
-    def chain(rate):
-        return lambda: kernel_chain(q, k, v, dout, None, True, rate, seed,
-                                    False)
-
-    with_dropout = device_ms(chain(DROPOUT), calls=5, repeats=10)
-    without = device_ms(chain(0.0), calls=5, repeats=10)
-    draws = h * visible_pairs(q, k, None, True) / 4
-    # per draw: 10 Philox rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 adds,
-    # then 4 compares, on the CUDA cores
-    b4_bound = draws * 104 / PEAK_FLOPS[torch.float32] * 1e3
-    timings["dropout"] = {
-        "kernel_ms": with_dropout - without, "chain_ms": with_dropout,
-        "chain_no_dropout_ms": without,
-        "plain_ms": device_ms(lambda: philox_keep_mask(
-            seed, b * h, s, s, DROPOUT), calls=1, repeats=3, warmup=1),
-        "bound_ms": b4_bound, "bound_by": "operations", "library_ms": None}
+    del bits
+    timings["dropout"] = time_keep_bits(q, k, v, dout, seed, g)
     clocks["after"] = clocks_line()
     timings["clocks"] = clocks
     for name, row in timings.items():
@@ -1130,14 +1368,15 @@ def time_backward(card, results, max_err):
     return timings
 
 
-def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed, delta=None):
-    """B2a then B2b on one Δ, as ``flash_attention_bwd`` runs them (Δ
-    computed here when not given)."""
+def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed, delta=None,
+            keep_bits=None):
+    """B2a then B2b on one Δ and one set of keep bits, as
+    ``flash_attention_bwd`` runs them (Δ computed here when not given)."""
     delta = fa._delta(out, dout) if delta is None else delta
     return (flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal,
-                                   rate, seed, delta),
+                                   rate, seed, delta, keep_bits=keep_bits),
             flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask, causal,
-                                    rate, seed, delta))
+                                    rate, seed, delta, keep_bits=keep_bits))
 
 
 def check_b3_bert_scale(card, results, max_err):
@@ -1181,7 +1420,9 @@ def check_b3_bert_scale(card, results, max_err):
                                        f"{label} {name}: {m}")
             errs[f"{label}_{name}"] = float((got.float() - want.float())
                                             .abs().max())
-        args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+        # the backward kernels alone: on the forward's one draw of B4
+        bits = draw_bits(q, k, False, DROPOUT, seed)
+        args = (q, k, v, out, lse, dout, mask, False, DROPOUT, None)
         delta = fa._delta(out, dout)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -1191,11 +1432,13 @@ def check_b3_bert_scale(card, results, max_err):
         dispatch[label] = {
             "b": b, "s": s, "kv_len": BERT_SEQ,
             "b3_ms": device_ms(lambda: flash_attention_bwd_fused(
-                *args, delta=delta)),
-            "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta)),
+                *args, delta=delta, keep_bits=bits)),
+            "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta,
+                                               keep_bits=bits)),
             "b3_ms_with_delta": device_ms(lambda: flash_attention_bwd_fused(
-                *args)),
-            "b2_ms_with_delta": device_ms(lambda: b2_pair(*args)),
+                *args, keep_bits=bits)),
+            "b2_ms_with_delta": device_ms(lambda: b2_pair(
+                *args, keep_bits=bits)),
             "library_ms": device_ms(lambda: torch.autograd.grad(
                 o_sdpa, (qt, kt, vt), dot, retain_graph=True)),
             "bound_ms": bound, "bound_by": by,
@@ -1216,7 +1459,7 @@ def check_b3_bert_scale(card, results, max_err):
             fwd_bound, fwd_by = attention_bound(q, k, mask, False)
             b1_row = {
                 "kernel_ms": device_ms(lambda: flash_attention_fwd(
-                    q, k, v, mask, False, DROPOUT, seed)),
+                    q, k, v, mask, False, DROPOUT, keep_bits=bits)),
                 "plain_ms": device_ms(lambda: flash_attention_reference(
                     q, k, v, mask, False, keep, inv_keep), calls=2,
                     repeats=5),
@@ -1261,7 +1504,7 @@ def phase_backward(card, results):
     print("backward: fp32 with TF32 off, grads to 5e-4 (the flash tests' "
           "grad tolerance); bf16 grads to 1e-2 (dS and P rounded to bf16 "
           "after fp32 sums taken in another order); out/lse as B1")
-    max_err = {"b2": 0.0, "b3": 0.0, "dropout": 0.0}
+    max_err = {"b2": 0.0, "b3": 0.0, "dropout": 0.0, "keep_bits": 0.0}
     for i, (label, b, h, s, kv_len, d, causal, kind, fused_views, rate) in \
             enumerate(backward_cases()):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1285,6 +1528,7 @@ def phase_backward(card, results):
                     max_err["dropout"] = max(max_err["dropout"], err)
             results["backward"].append(row)
     check_keep_mask(card, results)
+    max_err["keep_bits"] = float(check_keep_bits(card, results))
     timings = time_backward(card, results, max_err)
     check_b3_bert_scale(card, results, max_err)
     return max_err, timings
@@ -1392,10 +1636,13 @@ def phase_parity(model, params, results):
 
 
 # ------------------------------------------------------------------- train
+# "B4" counts the keep-mask kernel's draws (one per dropout forward),
+# "B4 applied" the B1-B3 launches that applied its mask
 KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
                    "B2b": flash_attention_bwd_dkv,
                    "B3": flash_attention_bwd_fused,
-                   "B4": fa.in_kernel_dropout,
+                   "B4": fa.draw_keep_bits,
+                   "B4 applied": fa.in_kernel_dropout,
                    "B5a": fbs.flash_block_sparse_fwd,
                    "B5b": fbs.flash_block_sparse_bwd,
                    "B6a": fbs.flash_block_sparse_agg_fwd,
@@ -1404,9 +1651,10 @@ KERNEL_COUNTERS = {"B1": flash_attention_fwd, "B2a": flash_attention_bwd_dq,
 
 
 # the fp16 launches of every kernel, counted again beside their
-# all-dtype counts
-FP16_COUNTERS = {f"{name} fp16": KERNEL_COUNTERS[name].fp16
-                 for name in KERNEL_COUNTERS}
+# all-dtype counts (B4's draw is the same kernel for every dtype)
+FP16_COUNTERS = {f"{name} fp16": counter.fp16
+                 for name, counter in KERNEL_COUNTERS.items()
+                 if hasattr(counter, "fp16")}
 
 
 def reset_launches():
@@ -1506,10 +1754,14 @@ def phase_train(card, results):
     losses, step_s, launches = run_steps("train", engine, batch, 2, 5)
     steps, layers = 7, cfg.num_layers
     check(launches["B1"] == launches["B2a"] == launches["B2b"]
-          == layers * steps and launches["B4"] == 3 * layers * steps
-          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
+          == launches["B4"] == layers * steps
+          and launches["B4 applied"] == 3 * layers * steps
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4",
+                                       "B4 applied")),
           f"train: launches {launches}, expected {layers * steps} of "
-          f"B1/B2a/B2b (s={s} takes B2, not B3) and 3x that of B4")
+          f"B1/B2a/B2b (s={s} takes B2, not B3) and of B4's draw (one a "
+          f"layer forward: no backward kernel draws), and 3x that "
+          f"applying its mask")
     samples_s = b / step_s
     flops = gpt2_model_flops_per_sample(cfg, s)
     receipt = {
@@ -2345,8 +2597,9 @@ def phase_bert_train(card, results):
     """Trains :func:`bert_train_setup`'s BERT-large: 2 warm-up and 5
     timed steps.  Each step launches B1 in every layer (the last at the
     21 gathered rows against 128 keys) and one backward a layer, B3
-    where ``use_fused_backward`` takes it, else B2a+B2b; B4 inside every
-    one of those launches."""
+    where ``use_fused_backward`` takes it, else B2a+B2b; one B4 draw a
+    layer (the forward's), whose mask every one of those launches
+    applies."""
     engine, cfg, batch = bert_train_setup()
     losses, step_s, launches = run_steps("bert train", engine, batch, 2, 5)
     steps, layers = 7, cfg.num_hidden_layers
@@ -2355,7 +2608,8 @@ def phase_bert_train(card, results):
              + fa.use_fused_backward(64, BERT_PRED + 1, BERT_SEQ,
                                      torch.bfloat16))
     want = {"B1": layers, "B3": fused, "B2a": layers - fused,
-            "B2b": layers - fused, "B4": 2 * layers + (layers - fused)}
+            "B2b": layers - fused, "B4": layers,
+            "B4 applied": 2 * layers + (layers - fused)}
     check(all(launches[name] == n * steps for name, n in want.items())
           and only_launched(launches, tuple(want)),
           f"bert train: launches {launches}, expected {want} a step")
@@ -2536,11 +2790,12 @@ def timed_steps(engine, n):
 
 def check_step_launches(label, launches, steps, layers):
     n = layers * steps
-    check(launches["B1"] == launches["B2a"] == launches["B2b"] == n
-          and launches["B4"] == 3 * n
-          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
+    check(launches["B1"] == launches["B2a"] == launches["B2b"]
+          == launches["B4"] == n and launches["B4 applied"] == 3 * n
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4",
+                                       "B4 applied")),
           f"{label}: launches {launches}, expected {n} of B1/B2a/B2b and "
-          f"{3 * n} of B4")
+          f"of B4's draw, {3 * n} applying its mask")
 
 
 def check_checkpoint_files(tag_dir, engine, params_at_save):
@@ -2751,7 +3006,7 @@ def phase_fp16_kernel(card, results):
     errs, timing = {}, {}
     bf16_times = results["backward_timing"]
 
-    # GPT-2-medium's training attention: B1, B2a, B2b (B4 inside)
+    # GPT-2-medium's training attention: B1, B2a, B2b on B4's bits
     b, h, s, d = TRAIN_ATTN
     g = torch.Generator().manual_seed(SEED + 30)
     qkv = torch.randn(b, s, 3, h, d, generator=g).to(DEVICE, f16)
@@ -2766,10 +3021,12 @@ def phase_fp16_kernel(card, results):
     torch.testing.assert_close(lse, ref_lse, atol=BF16_LSE_TOL,
                                rtol=BF16_LSE_TOL)
     del ref_out, ref_lse
-    args = (q, k, v, out, lse, dout, None, True, DROPOUT, seed)
+    # the kernels alone are timed on the forward's one draw of B4
+    bits = draw_bits(q, k, True, DROPOUT, seed)
+    args = (q, k, v, out, lse, dout, None, True, DROPOUT, None)
     delta = fa._delta(out, dout)
-    grads = (flash_attention_bwd_dq(*args, delta=delta),) \
-        + flash_attention_bwd_dkv(*args, delta=delta)
+    grads = (flash_attention_bwd_dq(*args, delta=delta, keep_bits=bits),) \
+        + flash_attention_bwd_dkv(*args, delta=delta, keep_bits=bits)
     ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, None, True,
                                         keep, inv_keep)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
@@ -2795,7 +3052,7 @@ def phase_fp16_kernel(card, results):
     timing["B1"] = {
         "shape": "b=8 h=16 s=1024 d=64 causal, dropout 0.1",
         "kernel_ms": device_ms(lambda: flash_attention_fwd(
-            q, k, v, None, True, DROPOUT, seed)),
+            q, k, v, None, True, DROPOUT, keep_bits=bits)),
         "bf16_kernel_ms": bf16_times["fwd_train"]["kernel_ms"],
         "plain_ms": device_ms(lambda: flash_attention_reference(
             q, k, v, None, True, *plain_keep(q, k, DROPOUT, seed)),
@@ -2808,7 +3065,8 @@ def phase_fp16_kernel(card, results):
         bound, by = backward_bound(kind, q, k, None, True)
         timing[name] = {
             "shape": "b=8 h=16 s=1024 d=64 causal, dropout 0.1, one Δ",
-            "kernel_ms": device_ms(lambda: fn(*args, delta=delta)),
+            "kernel_ms": device_ms(lambda: fn(*args, delta=delta,
+                                              keep_bits=bits)),
             "bf16_kernel_ms": bf16_times[kind]["kernel_ms"],
             "plain_ms": bwd_plain, "library_ms": sdpa_bwd,
             "bound_ms": bound, "bound_by": by}
@@ -2820,16 +3078,16 @@ def phase_fp16_kernel(card, results):
     with_dropout = device_ms(chain(DROPOUT), calls=5, repeats=10)
     without = device_ms(chain(0.0), calls=5, repeats=10)
     timing["B4"] = {
-        "shape": "B1+B2a+B2b with dropout 0.1 less without",
+        "shape": "B4 -> B1 -> B2a -> B2b with dropout 0.1 less without",
         "kernel_ms": with_dropout - without,
-        "bf16_kernel_ms": bf16_times["dropout"]["kernel_ms"],
+        "bf16_kernel_ms": bf16_times["dropout"]["chain_dropout_ms"],
         "plain_ms": bf16_times["dropout"]["plain_ms"],
         "library_ms": None, "bound_ms": bf16_times["dropout"]["bound_ms"],
-        "bound_by": "operations"}
+        "bound_by": bf16_times["dropout"]["bound_by"]}
     check_fp16_nonfinite("train", q, k, v, None, True, dout, seed, False)
-    del qkv, q, k, v, dout, out, lse, qt, kt, vt, dot, delta
+    del qkv, q, k, v, dout, out, lse, qt, kt, vt, dot, delta, bits
 
-    # BERT's attention: B1 and B3 (B4 inside); B2a+B2b beside B3
+    # BERT's attention: B1 and B3 on B4's bits; B2a+B2b beside B3
     bb, bs = BERT_BATCH, BERT_SEQ
     mask = torch.ones(bb, bs, device=DEVICE)
     q, k, v, dout = (torch.randn(bb, bs, h, d, generator=g).to(DEVICE, f16)
@@ -2848,7 +3106,8 @@ def phase_fp16_kernel(card, results):
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         fp16_compare(f"bert B3 {name}", got, want, gtol, errs, "B3")
     del ref, ref_out
-    args = (q, k, v, out, lse, dout, mask, False, DROPOUT, seed)
+    bits = draw_bits(q, k, False, DROPOUT, seed)
+    args = (q, k, v, out, lse, dout, mask, False, DROPOUT, None)
     delta = fa._delta(out, dout)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -2859,9 +3118,10 @@ def phase_fp16_kernel(card, results):
     timing["B3"] = {
         "shape": "b=64 h=16 s=128 d=64, key mask, dropout 0.1, one Δ",
         "kernel_ms": device_ms(lambda: flash_attention_bwd_fused(
-            *args, delta=delta)),
+            *args, delta=delta, keep_bits=bits)),
         "bf16_kernel_ms": results["b3_bert"]["kernel_ms"],
-        "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta)),
+        "b2_ms": device_ms(lambda: b2_pair(*args, delta=delta,
+                                           keep_bits=bits)),
         "plain_ms": device_ms(lambda: flash_attention_bwd_reference(
             q, k, v, out, lse, dout, mask, False, keep, inv_keep),
             calls=2, repeats=5),
@@ -2873,7 +3133,7 @@ def phase_fp16_kernel(card, results):
     timing["B1_bert"] = {
         "shape": "b=64 h=16 s=128 d=64, key mask, dropout 0.1",
         "kernel_ms": device_ms(lambda: flash_attention_fwd(
-            q, k, v, mask, False, DROPOUT, seed)),
+            q, k, v, mask, False, DROPOUT, keep_bits=bits)),
         "bf16_kernel_ms": results["b1_bert"]["kernel_ms"],
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, dropout_p=DROPOUT)),
@@ -2886,7 +3146,7 @@ def phase_fp16_kernel(card, results):
           f"{t['b2_ms']:.5f} ms")
     check_fp16_nonfinite("bert", q, k, v, mask, False, dout, seed, True)
     errs["B4"] = max(errs.values())
-    del q, k, v, dout, out, lse, qt, kt, vt, dot, delta
+    del q, k, v, dout, out, lse, qt, kt, vt, dot, delta, bits
     # B5a-B6c in fp16 beside bf16 (their errors are phases 8 and 11's)
     timing.update(time_fp16_sparse(card, results))
     print(f"fp16 kernels: tolerances out {tol}, lse {BF16_LSE_TOL}, grads "
@@ -3104,22 +3364,24 @@ def fp16_receipt(card, label, engine, trace, losses, step_s, launches,
     return receipt
 
 
-def check_all_fp16(label, launches, want):
+def check_all_fp16(label, launches, want, draws=0):
     """Every attention launch in ``want`` ({name: count}) came to that
-    count, all of them fp16, and nothing else launched."""
-    names = tuple(want) + tuple(f"{n} fp16" for n in want)
+    count, all of them fp16, B4 drew ``draws`` times, and nothing else
+    launched."""
+    names = tuple(want) + tuple(f"{n} fp16" for n in want) + ("B4",)
     check(all(launches[n] == c and launches[f"{n} fp16"] == c
               for n, c in want.items())
-          and only_launched(launches, names),
-          f"{label}: launches {launches}, expected {want}, all fp16")
+          and launches["B4"] == draws and only_launched(launches, names),
+          f"{label}: launches {launches}, expected {want}, all fp16, and "
+          f"{draws} B4 draws")
 
 
 def phase_fp16_train(card, results):
     """17. :func:`train_setup`'s GPT-2-medium (phase 6's configuration) in
     fp16 under ``FP16_SCALER``: steps until the scale settles, then 2
     warm-up and 5 timed steps; finite, falling losses, one fp16 B1, B2a
-    and B2b (and three B4) a layer a step and no bf16 or fp32 attention
-    launch; step ms, MFU and peak memory beside phase 6's."""
+    and B2b a layer a step, each applying the mask of the layer's one B4
+    draw, and no bf16 or fp32 attention launch; step ms, MFU and peak memory beside phase 6's."""
     b, _, s, _ = TRAIN_ATTN
     engine, cfg, batch = train_setup(FP16_TRAIN_CONFIG)
     check(engine.compute_dtype == torch.float16, "fp16 train: not fp16")
@@ -3128,7 +3390,7 @@ def phase_fp16_train(card, results):
     steps, layers = 7, cfg.num_layers
     n = layers * steps
     check_all_fp16("fp16 train", launches,
-                   {"B1": n, "B2a": n, "B2b": n, "B4": 3 * n})
+                   {"B1": n, "B2a": n, "B2b": n, "B4 applied": 3 * n}, n)
     results["fp16_train"] = fp16_receipt(
         card, "fp16 train (GPT-2-medium, 24 layers, seq 1024, batch 8, "
         "fp16, Lamb, ZeRO-2, dropout 0.1)", engine, trace, losses, step_s,
@@ -3143,7 +3405,8 @@ def phase_fp16_bert_train(card, results):
     """18. :func:`bert_train_setup`'s BERT-large (phase 12's
     configuration) in fp16 under ``FP16_SCALER``: steps until the scale
     settles, then 2 warm-up and 5 timed steps; finite, falling losses,
-    one fp16 B1 and one fp16 B3 (B4 in both) a layer a step and no other
+    one fp16 B1 and one fp16 B3 (both applying the layer's one B4 draw) a
+    layer a step and no other
     attention launch; step ms, MFU and peak memory beside phase 12's."""
     engine, cfg, batch = bert_train_setup(FP16_TRAIN_CONFIG)
     check(engine.compute_dtype == torch.float16, "fp16 bert: not fp16")
@@ -3157,7 +3420,7 @@ def phase_fp16_bert_train(card, results):
           "fp16 bert train: the fp16 rule does not take B3 at BERT's shapes")
     n = layers * steps
     check_all_fp16("fp16 bert train", launches,
-                   {"B1": n, "B3": n, "B4": 2 * n})
+                   {"B1": n, "B3": n, "B4 applied": 2 * n}, n)
     results["fp16_bert_train"] = fp16_receipt(
         card, "fp16 bert train (BERT-large, 24 layers, seq 128, batch 64, "
         "MLM gather 20 + NSP, fp16, Lamb, ZeRO-2, dropout 0.1)", engine,
@@ -3493,9 +3756,11 @@ def phase_remat(card, results):
                    lambda e: masters.append(e.master.to("cpu", copy=True)))
     base_peak = fwd_bwd_peak(engine, batch)
     release(engine)
-    # seq 1024 takes B2a+B2b; B4 is inside B1, B2a and B2b
+    # seq 1024 takes B2a+B2b; B4 draws in the forward and the recompute,
+    # and B1 (twice), B2a and B2b apply its mask
     remat_launches = {name: k * layers * REMAT_STEPS for name, k in
-                      (("B1", 2), ("B2a", 1), ("B2b", 1), ("B4", 4))}
+                      (("B1", 2), ("B2a", 1), ("B2b", 1), ("B4", 2),
+                       ("B4 applied", 4))}
     receipts, total = {}, {}
     b = TRAIN_ATTN[0]
     receipts["none"] = train_receipt(card, "remat: none (batch 8)", base, 1,
@@ -3588,7 +3853,8 @@ def phase_bert_pld(card, results):
     n = layers * 7
     bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
     expect_launches("bert pld", run[2],
-                    dict(bwd, B1=2 * n, B4=2 * n + n * (1 if fused else 2)))
+                    dict(bwd, B1=2 * n, B4=2 * n, **{
+                        "B4 applied": 2 * n + n * (1 if fused else 2)}))
     total = dict(run[2])
     receipt = train_receipt(
         card, "bert pld (BERT-large, remat, PLD theta 0.5 gamma 0.001)", run,
@@ -3667,7 +3933,8 @@ def phase_squad(card, results):
     fused = fa.use_fused_backward(64, SQUAD_SEQ, SQUAD_SEQ, torch.bfloat16)
     bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
     expect_launches("squad", run[2],
-                    dict(bwd, B1=n, B4=n * (2 if fused else 3)))
+                    dict(bwd, B1=n, B4=n,
+                         **{"B4 applied": n * (2 if fused else 3)}))
     flops = 3 * (layers * bert_layer_flops(cfg, SQUAD_SEQ, SQUAD_SEQ)
                  + 2 * SQUAD_SEQ * cfg.hidden_size * 2)
     results["squad"] = train_receipt(
@@ -3705,7 +3972,8 @@ def phase_mnli(card, results):
     fused = fa.use_fused_backward(64, MNLI_SEQ, MNLI_SEQ, torch.bfloat16)
     bwd = {"B3": n} if fused else {"B2a": n, "B2b": n}
     expect_launches("mnli", run[2],
-                    dict(bwd, B1=n, B4=n * (2 if fused else 3)))
+                    dict(bwd, B1=n, B4=n,
+                         **{"B4 applied": n * (2 if fused else 3)}))
     h = cfg.hidden_size
     flops = 3 * (layers * bert_layer_flops(cfg, MNLI_SEQ, MNLI_SEQ)
                  + 2 * h * h + 2 * h * MNLI_LABELS)
@@ -3839,7 +4107,7 @@ def phase_remat_parity(results):
               f"dropout bitwise the run without it: {same}")
     torch.cuda.synchronize()
     launches = read_launches()
-    check(only_launched(launches, ("B1", "B3", "B4"))
+    check(only_launched(launches, ("B1", "B3", "B4", "B4 applied"))
           and launches["B1"] > 0 and launches["B3"] > 0,
           f"remat parity: launches {launches}, expected B1 and B3 only")
     results["remat_parity"] = dict(report, launches=launches)
@@ -3909,7 +4177,7 @@ def phase_offload_parity(card, results, train_launches):
     batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, size=(b, s))}
     want = {k: train_launches[k] // 7 * OFFLOAD_STEPS
-            for k in ("B1", "B2a", "B2b", "B4")}
+            for k in ("B1", "B2a", "B2b", "B4", "B4 applied")}
     runs = (("none", {"stage": 2}),
             ("fp32 depth 2", OFFLOAD),
             ("fp32 depth 1", dict(OFFLOAD, offload_prefetch_depth=1)),
@@ -5091,11 +5359,13 @@ def phase_pipe(card, results):
     per_step = layers * M
     check(all(math.isfinite(x) for x in losses), f"pipe: losses {losses}")
     check(launches["B1"] == launches["B2a"] == launches["B2b"]
-          == per_step * steps and launches["B4"] == 3 * per_step * steps
-          and only_launched(launches, ("B1", "B2a", "B2b", "B4")),
-          f"pipe: launches {launches}, expected {layers} of B1/B2a/B2b a "
-          f"micro-batch ({per_step * steps} in {steps} steps) and 3x that "
-          f"of B4")
+          == launches["B4"] == per_step * steps
+          and launches["B4 applied"] == 3 * per_step * steps
+          and only_launched(launches, ("B1", "B2a", "B2b", "B4",
+                                       "B4 applied")),
+          f"pipe: launches {launches}, expected {layers} of B1/B2a/B2b and "
+          f"of B4's draw a micro-batch ({per_step * steps} in {steps} "
+          f"steps) and 3x that applying its mask")
     b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
     samples_s = b / step_s
     flops = gpt2_model_flops_per_sample(cfg, s)
@@ -5631,7 +5901,8 @@ def ring_case(label, causal, padded, seed):
     check(plain_calls[0] == 0, f"ring {label}: {plain_calls[0]} plain-"
           f"version calls on the card")
     check(all(launches[name] == pairs for name in ("B1", "B2a", "B2b"))
-          and launches["B3"] == 0 and launches["B4"] == 0,
+          and launches["B3"] == 0 and launches["B4"] == 0
+          and launches["B4 applied"] == 0,
           f"ring {label}: launches {launches}, expected {pairs} each of "
           f"B1, B2a and B2b and no B3 or B4")
     one = one_run()
@@ -6138,8 +6409,9 @@ def phase_fleet_train(run_dir, proc, t0):
           f"fleet train: fingerprints differ {finals[0]['fingerprints']} "
           f"{finals[1]['fingerprints']}")
     launches = {name: sum(f["launches"][name] for f in finals)
-                for name in ("B1", "B2a", "B2b", "B3", "B4")}
-    check(all(launches[k] > 0 for k in ("B1", "B2a", "B2b", "B4")),
+                for name in ("B1", "B2a", "B2b", "B3", "B4", "B4 applied")}
+    check(all(launches[k] > 0 for k in ("B1", "B2a", "B2b", "B4",
+                                        "B4 applied")),
           f"fleet train: launches {launches}")
     return {"seconds": seconds, "losses": finals[0]["losses"],
             "fingerprints": finals[0]["fingerprints"],
@@ -6427,9 +6699,9 @@ def main(argv=None):
         kernel_entry("flash_attention_bwd_fused (B3)",
                      CSRC + "flash_attention_bwd.cu", REF + ":378",
                      launches["B3"], bwd_err["b3"], b3),
-        kernel_entry("in-kernel dropout (B4)", CSRC + "flash_dropout.cuh",
-                     REF + ":145", launches["B4"], bwd_err["dropout"],
-                     bwd_timings["dropout"]),
+        kernel_entry("attention-dropout keep mask (B4)",
+                     CSRC + "flash_dropout.cu", REF + ":145", launches["B4"],
+                     bwd_err["keep_bits"], bwd_timings["dropout"]),
         kernel_entry("flash_block_sparse_fwd (B5a)", AGG_SOURCE,
                      SPARSE_REF + ":213", launches["B5a"], sparse_err["fwd"],
                      sparse_timings["fwd"]),
@@ -6454,6 +6726,21 @@ def main(argv=None):
     for entry, name in zip(kernels, ("B1", "B2a", "B2b", "B3", "B4", "B5a",
                                      "B5b", "B6a", "B6b", "B6c")):
         row = fp16_timing[name]
+        if name == "B4":
+            # one draw serves every dtype: beside it, the B1-B3 launches
+            # that applied its mask and dropout's cost in the chains
+            dropout = bwd_timings["dropout"]
+            entry.update(applied_launches=launches["B4 applied"],
+                         applied_fp16_launches=launches["B4 applied fp16"],
+                         dropout_max_abs_err=bwd_err["dropout"],
+                         chain_dropout_ms=dropout["chain_dropout_ms"],
+                         bert_ms=dropout["bert_kernel_ms"],
+                         bert_chain_dropout_ms=dropout[
+                             "bert_chain_dropout_ms"],
+                         bound_pipe=dropout["sass"]["bound_pipe"],
+                         fp16_chain_dropout_ms=row["kernel_ms"],
+                         fp16_dropout_max_abs_err=fp16_err[name])
+            continue
         entry.update(fp16_launches=launches[f"{name} fp16"],
                      fp16_max_abs_err=fp16_err[name],
                      fp16_ms=row["kernel_ms"],

@@ -1,5 +1,6 @@
 // Flash-attention backward for NVIDIA Hopper (built for sm_90a): three
-// kernels, each with in-kernel dropout (B4, flash_dropout.cuh).
+// kernels, each applying attention dropout from B4's packed keep mask
+// (flash_dropout.cu, drawn once by the forward).
 //
 // Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py:
 //   B2a `_bwd_dq_kernel`    (:263, launched at :691)
@@ -14,8 +15,8 @@
 // from the forward's logsumexp, with S scaled and masked to NEG_INF as in
 // the forward (so masked keys and fully masked rows give P = 0 and
 // exactly zero gradients); dP = dO·Vᵀ; under dropout the kept P and dP
-// scaled by 1/keep and the dropped ones zero, with the mask regenerated
-// from the forward's seed; dS = P∘(dP − Δ) rounded to the storage dtype;
+// scaled by 1/keep and the dropped ones zero, with the forward's mask
+// read from B4's bits; dS = P∘(dP − Δ) rounded to the storage dtype;
 // dq = dS·K·(1/√d), dk = dSᵀ·Q·(1/√d), dv = P_keptᵀ·dO with P_kept
 // rounded to the storage dtype.  Δ = rowsum(dO∘O) comes in precomputed,
 // as the JAX package computes it outside Pallas (:638-639).  Accumulation
@@ -58,19 +59,19 @@
 //   as they stand: dv += P_keptᵀ·dO and dk += dSᵀ·Q, with dO and Q read
 //   by ldmatrix.trans.  lse and Δ are per column here and come in with
 //   the tile.
-// - Dropout: the keep bits of the next 64x64 tile are drawn into a
-//   shared-memory bitmask before the products of the current one, one
-//   thread per (row, 32-key word) (8 draws, one store); each fragment
-//   element reads its bit (B2b transposed).  One draw per 4 elements per
-//   kernel, with B1's counter.
+// - Dropout: the keep bits of a 64x64 tile (two 32-key words of each of
+//   its 64 rows, read from B4's packed mask) come in by 4-byte cp.async
+//   in the same commit group as the tile, into a two-stage shared
+//   bitmask; each fragment element reads its bit (B2b transposed).  No
+//   kernel here draws.
 // - A tile is computed in two 32-row chunks; at head_dim 128 the block's
 //   own A fragments are re-read from shared memory by ldmatrix for every
 //   use, to keep the accumulators in registers.
 // Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): B2a 168 a
-// thread at d=64 (no spill; three blocks an SM), 244 at d=128 (no
-// spill); B2b 168 at d=64 with 72 bytes spilled (bounded to three blocks
-// an SM, which measured 5% faster than 251 registers without a spill),
-// 255 at d=128 with 16 bytes spilled.
+// thread at d=64 with 8 bytes spilled (three blocks an SM), 244 at
+// d=128 (no spill); B2b 168 at d=64 with 52 bytes spilled (bounded to
+// three blocks an SM, which measured 5% faster than 251 registers
+// without a spill), 255 at d=128 with 12 bytes spilled.
 //
 // The fp32 B2a and B2b keep the earlier scalar design: the only
 // tensor-core product for fp32 operands is TF32, which misses the fp32
@@ -91,8 +92,8 @@
 // atomic touches a value:
 // - Q, dO, K and V come in once by cp.async into padded bf16 tiles (rows
 //   past s and kv_len zero), the key mask and, under dropout, the keep
-//   bits of every (row, 32-key word) beside them (one Philox draw per 4
-//   keys, B1's counter).
+//   bits of every (row, 32-key word) beside them (4-byte cp.async of B4's
+//   words).
 // - Score pass, warps owning 16 query rows each: S = Q·Kᵀ and dP = dO·Vᵀ
 //   on mma.sync in 32-key chunks; on the C fragments the element test
 //   (key mask, causal, the kv_len and s edges: P = 0 there, also in a
@@ -129,15 +130,12 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
-#include "flash_dropout.cuh"
 #include "flash_mma.cuh"
 
 namespace {
 
 using ds_flash::from_float;
 using ds_flash::kNegInf;
-using ds_flash::keep_bits4;
-using ds_flash::lane_or;
 using ds_flash::lane_sum;
 using ds_flash::round_to;
 using ds_flash::to_float;
@@ -151,21 +149,22 @@ struct Strides {
   int64_t q[3], k[3], v[3], o[3], dq[3], dkv[3];
 };
 
+// B4's keep bits of one head (null: no dropout), `words` int32 words a
+// row, and the scale of a kept element
 struct Dropout {
-  uint32_t k0, k1;  // seed words
-  uint32_t thresh;
+  const uint32_t* bits;
+  int words;
   float inv_keep;
   bool on;
 };
 
-__device__ __forceinline__ Dropout read_dropout(const int* seed,
-                                                uint32_t thresh,
-                                                float inv_keep) {
+__device__ __forceinline__ Dropout read_dropout(const uint32_t* keep_bits,
+                                                int keep_words, int bh,
+                                                int s, float inv_keep) {
   Dropout dr;
-  dr.on = seed != nullptr;
-  dr.k0 = dr.on ? static_cast<uint32_t>(seed[0]) : 0u;
-  dr.k1 = dr.on ? static_cast<uint32_t>(seed[1]) : 0u;
-  dr.thresh = thresh;
+  dr.on = keep_bits != nullptr;
+  dr.bits = dr.on ? keep_bits + (int64_t)bh * s * keep_words : nullptr;
+  dr.words = keep_words;
   dr.inv_keep = inv_keep;
   return dr;
 }
@@ -190,9 +189,8 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
                         const float* __restrict__ kv_mask,
                         T* __restrict__ dq, int heads, int s, int kv_len,
                         Strides st, float scale, int causal,
-                        const int* __restrict__ seed, uint32_t thresh,
-                        float inv_keep,
-                        int drop_h0, int drop_heads) {
+                        const uint32_t* __restrict__ keep_bits,
+                        int keep_words, float inv_keep) {
   constexpr int TPR = D / kEpt;  // threads per query row
   constexpr int THREADS = kDqRows * TPR;
   constexpr int ROW = TPR * kSeg;
@@ -210,9 +208,7 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
   const int qi = q0 + row;
   const bool q_valid = qi < s;
   const int qr_i = q_valid ? qi : 0;
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
 
   float qr[kEpt], dor[kEpt], acc[kEpt];
   load_seg(qr, q + b * st.q[0] + qr_i * st.q[1] + h * st.q[2] + part * kEpt,
@@ -252,18 +248,9 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
     }
     __syncthreads();
 
-    // keep bits of this row's 32 keys, drawn by the row's TPR threads
-    uint32_t keep = 0xffffffffu;
-    if (dr.on) {
-      uint32_t bits = 0u;
-#pragma unroll
-      for (int u = 0; u < kDqKeys / 4 / TPR; ++u) {
-        const int g = part * (kDqKeys / 4 / TPR) + u;
-        bits |= keep_bits4(dr.k0, dr.k1, dbh, qi, (k0 >> 2) + g, dr.thresh)
-                << (4 * g);
-      }
-      keep = lane_or<TPR>(bits);
-    }
+    // keep bits of this row's 32 keys: one word of B4's mask
+    const uint32_t keep =
+        dr.on ? dr.bits[(int64_t)qr_i * dr.words + (k0 >> 5)] : 0xffffffffu;
 
 #pragma unroll 4
     for (int j = 0; j < kDqKeys; ++j) {
@@ -323,9 +310,8 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
                          const float* __restrict__ kv_mask,
                          T* __restrict__ dk, T* __restrict__ dv, int heads,
                          int s, int kv_len, Strides st, float scale,
-                         int causal, const int* __restrict__ seed,
-                         uint32_t thresh, float inv_keep,
-                        int drop_h0, int drop_heads) {
+                         int causal, const uint32_t* __restrict__ keep_bits,
+                         int keep_words, float inv_keep) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kKvKeys * TPR;
   constexpr int ROW = TPR * kSeg;
@@ -347,9 +333,7 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
   const int kj_i = k_valid ? kj : 0;
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
   const bool key_visible = k_valid && (!mrow || mrow[kj_i] > 0.f);
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
 
   float kr[kEpt], vr[kEpt], dka[kEpt], dva[kEpt];
   load_seg(kr, k + b * st.k[0] + kj_i * st.k[1] + h * st.k[2] + part * kEpt,
@@ -385,15 +369,13 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
       delta_s[tid] = i < s ? delta[(int64_t)bh * s + i] : 0.f;
     }
     if (dr.on) {
-      for (int e = tid; e < kKvRows * kKvWords; e += THREADS) keep_s[e] = 0u;
-      __syncthreads();
-      // the tile's keep bits: one Philox draw per (row, 4 keys)
-      for (int e = tid; e < kKvRows * (kKvKeys / 4); e += THREADS) {
-        const int r = e / (kKvKeys / 4);
-        const int g = e - r * (kKvKeys / 4);
-        const uint32_t bits = keep_bits4(dr.k0, dr.k1, dbh, i0 + r,
-                                         (k0 >> 2) + g, dr.thresh);
-        atomicOr(&keep_s[r * kKvWords + (g >> 3)], bits << (4 * (g & 7)));
+      // the tile's keep bits: words of B4's mask, 0 past s and kv_len
+      for (int e = tid; e < kKvRows * kKvWords; e += THREADS) {
+        const int i = i0 + e / kKvWords;
+        const int w = (k0 >> 5) + e % kKvWords;
+        keep_s[e] = i < s && w < dr.words
+                        ? dr.bits[(int64_t)i * dr.words + w]
+                        : 0u;
       }
     }
     __syncthreads();
@@ -463,12 +445,12 @@ using bf16 = __nv_bfloat16;
 using ds_flash::c_to_a;
 using ds_flash::cp_async_commit;
 using ds_flash::cp_async_wait;
-using ds_flash::draw_keep_tile;
 using ds_flash::ex2_approx;
 using ds_flash::kMmaThreads;
 using ds_flash::kMmaTileRows;
 using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
+using ds_flash::load_keep_tile_async;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
 using ds_flash::mma16;
@@ -507,9 +489,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                             const float* __restrict__ kv_mask,
                             T* __restrict__ dq, int heads, int s,
                             int kv_len, Strides st, float scale, int causal,
-                            const int* __restrict__ seed, uint32_t thresh,
-                            float inv_keep,
-                        int drop_h0, int drop_heads) {
+                            const uint32_t* __restrict__ keep_bits,
+                            int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -531,9 +512,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   // the last query blocks first: under `causal` they walk the most
   // tiles, and the card starts blocks in grid order
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
 
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
@@ -554,6 +533,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
       load_row_async(mask_s + stage * kMmaTileRows, mrow, kt, kv_len, tid);
     else if (tid < kMmaTileRows)
       mask_s[stage * kMmaTileRows + tid] = kt + tid < kv_len ? 1.f : 0.f;
+    // the tile's keep bits: words 2j, 2j+1 of the block's rows
+    if (dr.on)
+      load_keep_tile_async(bits_s + stage * kBitWords, dr.bits, dr.words, q0,
+                           s, 2 * j, tid);
   };
   load_tile_async<D>(q_s, q + b * st.q[0] + h * st.q[2], st.q[1], q0, s,
                      tid);
@@ -561,7 +544,6 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                      tid);
   issue(0);
   cp_async_commit();
-  if (dr.on) draw_keep_tile(bits_s, tid, dr.k0, dr.k1, dbh, q0, 0, dr.thresh);
 
   // lse (in log2 units) and Δ of the thread's rows g and g+8
   float lse2[2], dlt[2];
@@ -583,9 +565,6 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) issue(j + 1);
     cp_async_commit();
-    if (dr.on && j + 1 < n_tiles)
-      draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
-                     dbh, q0, (j + 1) * kMmaTileRows, dr.thresh);
     cp_async_wait<1>();  // tile j (and at j = 0 the block's Q, dO) is in
     __syncthreads();
     if (j == 0) {
@@ -695,9 +674,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                              T* __restrict__ dk, T* __restrict__ dv,
                              int heads, int s, int kv_len, Strides st,
                              float scale, int causal,
-                             const int* __restrict__ seed, uint32_t thresh,
-                             float inv_keep,
-                        int drop_h0, int drop_heads) {
+                             const uint32_t* __restrict__ keep_bits,
+                             int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -718,9 +696,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int k0 = blockIdx.x * kMmaTileRows;
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
 
   const T* qbase = q + b * st.q[0] + h * st.q[2];
   const T* obase = dout + b * st.o[0] + h * st.o[2];
@@ -739,6 +715,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                        tid);
     load_row_async(lse_s + stage * kMmaTileRows, lrow, i0, s, tid);
     load_row_async(dlt_s + stage * kMmaTileRows, drow, i0, s, tid);
+    // the tile's keep bits: the block's two words of the tile's rows
+    if (dr.on)
+      load_keep_tile_async(bits_s + stage * kBitWords, dr.bits, dr.words, i0,
+                           s, k0 >> 5, tid);
   };
   load_tile_async<D>(k_s, k + b * st.k[0] + h * st.k[2], st.k[1], k0, kv_len,
                      tid);
@@ -746,8 +726,6 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                      tid);
   if (n_tiles > 0) issue(0);
   cp_async_commit();
-  if (dr.on && n_tiles > 0)
-    draw_keep_tile(bits_s, tid, dr.k0, dr.k1, dbh, i_begin, k0, dr.thresh);
 
   // whether the thread's keys g and g+8 are visible at all
   bool key_vis[2];
@@ -769,9 +747,6 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) issue(j + 1);
     cp_async_commit();
-    if (dr.on && j + 1 < n_tiles)
-      draw_keep_tile(bits_s + ((j + 1) & 1) * kBitWords, tid, dr.k0, dr.k1,
-                     dbh, i_begin + (j + 1) * kMmaTileRows, k0, dr.thresh);
     cp_async_wait<1>();  // tile j (and at j = 0 the block's K, V) is in
     __syncthreads();
     if (j == 0) {
@@ -907,9 +882,8 @@ __global__ void __launch_bounds__(kFusedThreads)
                            T* __restrict__ dq, T* __restrict__ dk,
                            T* __restrict__ dv, int heads, int s, int kv_len,
                            Strides st, float scale, int causal,
-                           const int* __restrict__ seed, uint32_t thresh,
-                           float inv_keep,
-                        int drop_h0, int drop_heads) {
+                           const uint32_t* __restrict__ keep_bits,
+                           int keep_words, float inv_keep) {
   constexpr int KROW = D + 1;  // padded: threads walking keys hit all banks
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -927,9 +901,7 @@ __global__ void __launch_bounds__(kFusedThreads)
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
 
   for (int e = tid; e < s * D; e += kFusedThreads) {
@@ -952,19 +924,10 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
   for (int j = tid; j < kv_len; j += kFusedThreads)
     mask_s[j] = mrow ? mrow[j] : 1.f;
+  // the head's keep bits: B4's words, [s, words] as they lie
   if (dr.on)
-    for (int e = tid; e < s * words; e += kFusedThreads) keep_s[e] = 0u;
+    for (int e = tid; e < s * words; e += kFusedThreads) keep_s[e] = dr.bits[e];
   __syncthreads();
-
-  if (dr.on) {
-    const int groups = (kv_len + 3) / 4;
-    for (int e = tid; e < s * groups; e += kFusedThreads) {
-      const int i = e / groups;
-      const int g = e - i * groups;
-      const uint32_t bits = keep_bits4(dr.k0, dr.k1, dbh, i, g, dr.thresh);
-      atomicOr(&keep_s[i * words + (g >> 3)], bits << (4 * (g & 7)));
-    }
-  }
 
   // pass 1: P = exp(S - lse) into the tile
   for (int e = tid; e < s * kv_len; e += kFusedThreads) {
@@ -1089,9 +1052,9 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
                                T* __restrict__ dq, T* __restrict__ dk,
                                T* __restrict__ dv, int heads, int s,
                                int kv_len, Strides st, float scale,
-                               int causal, const int* __restrict__ seed,
-                               uint32_t thresh, float inv_keep,
-                        int drop_h0, int drop_heads) {
+                               int causal,
+                               const uint32_t* __restrict__ keep_bits,
+                               int keep_words, float inv_keep) {
   constexpr int ROW = MmaTile<D>::kRow;
   constexpr int CH = MmaTile<D>::kChunks;
   constexpr int KC = kMmaChunk;
@@ -1118,9 +1081,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const Dropout dr = read_dropout(seed, thresh, inv_keep);
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
+  const Dropout dr = read_dropout(keep_bits, keep_words, bh, s, inv_keep);
 
   // Q, dO, K and V by cp.async, zero past s and kv_len
   auto load = [&](T* dst, const T* src, int64_t stride, int n,
@@ -1137,24 +1098,14 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
   load(o_s, dout + b * st.o[0] + h * st.o[2], st.o[1], rows, s);
   load(k_s, k + b * st.k[0] + h * st.k[2], st.k[1], keys, kv_len);
   load(v_s, v + b * st.v[0] + h * st.v[2], st.v[1], keys, kv_len);
+  // the head's keep bits: B4's words, [s, words] as they lie
+  if (dr.on)
+    for (int e = tid; e < s * words; e += THREADS)
+      ds_flash::cp_async4(bits_s + e, dr.bits + e, true);
   cp_async_commit();
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
   for (int j = tid; j < keys; j += THREADS)
     mask_s[j] = j < kv_len ? (mrow ? mrow[j] : 1.f) : 0.f;
-  if (dr.on) {
-    // one thread per (row, 32-key word): a draw per 4 keys below kv_len
-    for (int e = tid; e < s * words; e += THREADS) {
-      const int i = e / words;
-      const int w = e - i * words;
-      uint32_t word = 0u;
-#pragma unroll
-      for (int gq = 0; gq < 8; ++gq)
-        if (32 * w + 4 * gq < kv_len)
-          word |= keep_bits4(dr.k0, dr.k1, dbh, i, 8 * w + gq, dr.thresh)
-                  << (4 * gq);
-      bits_s[e] = word;
-    }
-  }
   cp_async_wait<0>();
   __syncthreads();
 
@@ -1326,10 +1277,9 @@ struct Args {
   Strides st;
   float scale;
   int causal;
-  const int* seed;
-  uint32_t thresh;
+  const uint32_t* keep_bits;
+  int keep_words;
   float inv_keep;
-  int drop_h0, drop_heads;
   cudaStream_t stream;
 };
 
@@ -1358,8 +1308,8 @@ int launch_dq(const Args& a) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
-        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
-        a.inv_keep, a.drop_h0, a.drop_heads);
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.keep_bits,
+        a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1369,8 +1319,8 @@ int launch_dq(const Args& a) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
-        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh,
-        a.inv_keep, a.drop_h0, a.drop_heads);
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.keep_bits,
+        a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1389,8 +1339,7 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.seed, a.thresh, a.inv_keep,
-        a.drop_h0, a.drop_heads);
+        a.causal, a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1401,8 +1350,7 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.seed, a.thresh, a.inv_keep,
-        a.drop_h0, a.drop_heads);
+        a.causal, a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1421,8 +1369,8 @@ int launch_fused_mma(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-      a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep,
-        a.drop_h0, a.drop_heads);
+      a.kv_len, a.st, a.scale, a.causal, a.keep_bits, a.keep_words,
+      a.inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1445,8 +1393,8 @@ int launch_fused(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-        a.kv_len, a.st, a.scale, a.causal, a.seed, a.thresh, a.inv_keep,
-        a.drop_h0, a.drop_heads);
+        a.kv_len, a.st, a.scale, a.causal, a.keep_bits, a.keep_words,
+      a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1481,20 +1429,17 @@ extern "C" int64_t ds_flash_attention_bwd_fused_smem(int dtype, int head_dim,
 // of that dtype with the last dim contiguous; `strides` points to 18
 // host int64 element strides: (batch, seq, head) of q, k, v, dout, dq and
 // of dk/dv (which share them).  lse and delta are contiguous fp32
-// [b·h, s]; kv_mask is [batch, kv_len] fp32 or null; `seed` null (no
-// dropout) or two int32 words in device memory, with `thresh` and
-// `inv_keep` the dropout threshold and scale; the keep bits of head h of
-// batch b are those of head b·drop_heads + drop_h0 + h of the Philox
-// counter (0 and heads for a whole call; a tensor-parallel rank's first
-// head and the model's head count for its range).  Launches on `stream`,
+// [b·h, s]; kv_mask is [batch, kv_len] fp32 or null; `keep_bits` null (no
+// dropout) or B4's packed keep mask of the forward (flash_dropout.cu),
+// contiguous int32 [b·h, s, keep_words] words with keep_words =
+// ceil(kv_len/32), and `inv_keep` the dropout scale.  Launches on `stream`,
 // does not synchronise, allocates nothing, and returns the CUDA error.
 extern "C" int ds_flash_attention_bwd(
     int which, int dtype, int head_dim, const void* q, const void* k,
     const void* v, const void* dout, const void* lse, const void* delta,
     const void* kv_mask, void* dq, void* dk, void* dv, int batch, int heads,
     int s, int kv_len, const int64_t* strides, float scale, int causal,
-    const void* seed, uint32_t thresh, float inv_keep, int drop_h0,
-    int drop_heads, void* stream) {
+    const void* keep_bits, int keep_words, float inv_keep, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -1520,11 +1465,9 @@ extern "C" int ds_flash_attention_bwd(
   }
   a.scale = scale;
   a.causal = causal;
-  a.seed = static_cast<const int*>(seed);
-  a.thresh = thresh;
+  a.keep_bits = static_cast<const uint32_t*>(keep_bits);
+  a.keep_words = keep_words;
   a.inv_keep = inv_keep;
-  a.drop_h0 = drop_h0;
-  a.drop_heads = drop_heads;
   a.stream = static_cast<cudaStream_t>(stream);
   if (which < kDq || which > kFused) return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a);

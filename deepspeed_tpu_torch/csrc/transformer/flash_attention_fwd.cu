@@ -7,9 +7,10 @@
 // fp32 running max, sum and accumulator, the running max floored at
 // MAX_FLOOR (a row whose every key is masked gives out = 0 and lse =
 // MAX_FLOOR), P cast to the storage dtype before the P·V product, and out
-// in the storage dtype plus an fp32 logsumexp.  With a seed it applies
-// attention dropout in the kernel (B4, flash_dropout.cuh): l sums the
-// undropped P, and the P·V product takes the kept P scaled by 1/keep.
+// in the storage dtype plus an fp32 logsumexp.  Given B4's keep bits
+// (flash_dropout.cu, drawn once per forward) it applies attention dropout:
+// l sums the undropped P, and the P·V product takes the kept P scaled by
+// 1/keep.
 // The kernel reads q, k and v ([b, s, h, d], last dim contiguous) through
 // their strides, so the caller's fused-QKV views need no transpose copy,
 // and it masks ragged s and kv_len itself (no divisibility requirement).
@@ -49,10 +50,10 @@
 // - P·V: the kept P times 1/keep is rounded to bf16 and repacked from
 //   the C fragments into the A fragments of the next product (c_to_a),
 //   never through shared memory; O += P·V with V read by ldmatrix.trans.
-// - Dropout: the keep bits of the next tile are drawn into a shared
-//   bitmask before the products of this one (one thread per (row, 32-key
-//   word), no atomics), and only for the groups of 4 keys that hold a
-//   visible one: one draw per 4 visible elements, B4's counter unchanged.
+// - Dropout: the keep bits of a tile (two 32-key words of each of its 64
+//   rows, read from B4's packed mask) come in by 4-byte cp.async in the
+//   same commit group as its K/V tile, into a two-stage shared bitmask;
+//   the kernel draws nothing.
 // - Epilogue: out = acc / l (l = 0 divides by 1) is staged in the warp's
 //   own rows of the Q tile and written with 16-byte stores; lse is
 //   m + log l, or exactly MAX_FLOOR for a row that saw no key.
@@ -63,10 +64,11 @@
 //   48 KB.  A block owns its rows and no atomics touch a value, so two
 //   runs are bitwise equal.
 // - The kernel is instantiated with and without dropout, so a call
-//   without a seed draws and tests no keep bits.
+//   without keep bits loads and tests none.
 // Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): at head_dim
-// 64 163 a thread without dropout (three blocks an SM) and 128 with it
-// (four blocks), at 128 209 and 231 (two blocks), no spill.
+// 64 160 a thread without dropout (three blocks an SM) and 128 with it
+// (four blocks, 4 bytes spilled), at 128 212 and 219 (two blocks), no
+// spill.
 // `examples/profile_torch_b1.py` prints these counts and times the
 // bound at other block counts side by side (PERF.md §6).
 //
@@ -95,7 +97,6 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
-#include "flash_dropout.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -119,8 +120,8 @@ __global__ void __launch_bounds__(kThreads)
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                      int64_t v_sh, float scale, int causal,
-                     const int* __restrict__ seed, uint32_t thresh,
-                     float inv_keep, int drop_h0, int drop_heads) {
+                     const uint32_t* __restrict__ keep_bits, int keep_words,
+                     float inv_keep) {
   constexpr int DH = D / 2;       // head_dim elements each thread owns
   constexpr int HALF = DH + 4;    // padded half row: halves in other banks
   constexpr int ROW = 2 * HALF;   // padded K/V row in shared memory
@@ -134,14 +135,14 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
   const int q0 = blockIdx.x * kBlockQ;
   const int qi = q0 + row;
   const bool q_valid = qi < s;
-  // dropout seed words (B4); no seed means every key is kept
-  const uint32_t sk0 = seed ? static_cast<uint32_t>(seed[0]) : 0u;
-  const uint32_t sk1 = seed ? static_cast<uint32_t>(seed[1]) : 0u;
+  // this row's words of B4's keep bits; none means every key is kept
+  const uint32_t* keep_row =
+      keep_bits ? keep_bits + ((int64_t)bh * s + (q_valid ? qi : 0)) *
+                                  keep_words
+                : nullptr;
 
   float qr[DH];
   float acc[DH];
@@ -208,19 +209,8 @@ __global__ void __launch_bounds__(kThreads)
       tile_max = fmaxf(tile_max, x);
     }
 
-    // keep bits of this row's 32 keys: each thread of the pair draws the
-    // Philox words of its 16 columns, the pair ORs them together
-    uint32_t keep = 0xffffffffu;
-    if (seed) {
-      uint32_t bits = 0u;
-#pragma unroll
-      for (int u = 0; u < kBlockK / 8; ++u) {
-        const int g = half * (kBlockK / 8) + u;
-        bits |= ds_flash::keep_bits4(sk0, sk1, dbh, qi, (k0 >> 2) + g, thresh)
-                << (4 * g);
-      }
-      keep = ds_flash::lane_or<2>(bits);
-    }
+    // keep bits of this row's 32 keys: one word of B4's mask
+    const uint32_t keep = keep_row ? keep_row[k0 >> 5] : 0xffffffffu;
 
     const float m_new = fmaxf(fmaxf(m, tile_max), kMaxFloor);
     const float corr = expf(m - m_new);
@@ -269,13 +259,13 @@ using bf16 = __nv_bfloat16;
 using ds_flash::c_to_a;
 using ds_flash::cp_async_commit;
 using ds_flash::cp_async_wait;
-using ds_flash::draw_keep_tile_visible;
 using ds_flash::ex2_approx;
 using ds_flash::kMmaThreads;
 using ds_flash::kMmaTileRows;
 using ds_flash::ldsm_a;
 using ds_flash::ldsm_b;
 using ds_flash::ldsm_bt;
+using ds_flash::load_keep_tile_async;
 using ds_flash::load_row_async;
 using ds_flash::load_tile_async;
 using ds_flash::mma16;
@@ -297,16 +287,17 @@ constexpr int fwd_mma_smem_bytes() {
 }
 
 // Blocks an SM the launch bound asks for at head_dim 64, without and with
-// dropout (two at 128).  With dropout four blocks (128 registers a
-// thread) hide the Philox draws best; without, the products and
-// exponentials run faster at 163 registers, three blocks
-// (`examples/profile_torch_b1.py` times both at each count).
+// dropout (two at 128).  With dropout (the keep bits read, no longer
+// drawn) four blocks at 128 registers a thread still measured 1.5%
+// faster than three at 162 on GPT-2's training attention; without, the
+// products and exponentials run faster at 160 registers, three blocks
+// (`examples/profile_torch_b1.py` times both at each count; PERF.md §6).
 constexpr int kMinBlocks64 = 3;
 constexpr int kMinBlocks64Dropout = 4;
 
 // T: the 16-bit element type, bf16 or fp16 (the same design; only the
-// `mma.sync` form and the roundings to T differ).  kDrop: dropout on (a
-// seed is given); without it the kernel draws and tests no keep bits.
+// `mma.sync` form and the roundings to T differ).  kDrop: dropout on (keep
+// bits are given); without it the kernel loads and tests no keep bits.
 template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(
     kMmaThreads, D == 64 ? (kDrop ? kMinBlocks64Dropout : kMinBlocks64) : 2)
@@ -318,8 +309,8 @@ __global__ void __launch_bounds__(
                          int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_ss, int64_t k_sh, int64_t v_sb,
                          int64_t v_ss, int64_t v_sh, float scale, int causal,
-                         const int* __restrict__ seed, uint32_t thresh,
-                         float inv_keep, int drop_h0, int drop_heads) {
+                         const uint32_t* __restrict__ keep_bits,
+                         int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* q_s = reinterpret_cast<T*>(fwd_smem);
@@ -336,14 +327,12 @@ __global__ void __launch_bounds__(
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  // B4's counter head: this head's place in the whole call's heads
-  const uint32_t dbh = static_cast<uint32_t>(b * drop_heads + drop_h0 + h);
   // the last query tiles first: under `causal` they walk the most key
   // tiles, and the card starts blocks in grid order
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaTileRows;
   const int wq0 = q0 + wr;  // the warp's first row
-  const uint32_t sk0 = kDrop ? static_cast<uint32_t>(seed[0]) : 0u;
-  const uint32_t sk1 = kDrop ? static_cast<uint32_t>(seed[1]) : 0u;
+  const uint32_t* head_bits =
+      kDrop ? keep_bits + (int64_t)bh * s * keep_words : nullptr;
 
   const T* kbase = k + b * k_sb + h * k_sh;
   const T* vbase = v + b * v_sb + h * v_sh;
@@ -361,15 +350,14 @@ __global__ void __launch_bounds__(
                        tid);
     // the tile's key mask, 0 past kv_len
     if (mrow) load_row_async(mask_s + stage * kKeys, mrow, kt, kv_len, tid);
-  };
-  auto draw = [&](int j) {
-    draw_keep_tile_visible(bits_s + (j & 1) * kBitWords, tid, sk0, sk1, dbh,
-                           q0, j * kKeys, thresh, s, kv_len, causal);
+    // the tile's keep bits: words 2j, 2j+1 of the block's rows
+    if (kDrop)
+      load_keep_tile_async(bits_s + stage * kBitWords, head_bits, keep_words,
+                           q0, s, 2 * j, tid);
   };
   load_tile_async<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, s, tid);
   issue(0);
   cp_async_commit();
-  if (kDrop) draw(0);
 
   const float scale2 = scale * kLog2e;
   // the thread's rows are wq0 + g (hh = 0) and wq0 + g + 8 (hh = 1); m in
@@ -386,7 +374,6 @@ __global__ void __launch_bounds__(
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) issue(j + 1);
     cp_async_commit();
-    if (kDrop && j + 1 < n_tiles) draw(j + 1);
     cp_async_wait<1>();  // tile j (and at j = 0 the block's Q) is in
     __syncthreads();
     if (j == 0) {
@@ -540,13 +527,12 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* out, void* lse, int batch, int heads, int s, int kv_len,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-           int64_t v_sh, float scale, int causal, const int* seed,
-           uint32_t thresh, float inv_keep, int drop_h0, int drop_heads,
-           cudaStream_t stream) {
+           int64_t v_sh, float scale, int causal, const uint32_t* keep_bits,
+           int keep_words, float inv_keep, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value ||
                 std::is_same<T, __half>::value) {
     constexpr int kSmem = fwd_mma_smem_bytes<D>();
-    auto kernel = seed ? flash_fwd_mma_kernel<T, D, true>
+    auto kernel = keep_bits ? flash_fwd_mma_kernel<T, D, true>
                        : flash_fwd_mma_kernel<T, D, false>;
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -557,7 +543,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        seed, thresh, inv_keep, drop_h0, drop_heads);
+        keep_bits, keep_words, inv_keep);
   } else {
     // fp32: the scalar design
     const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
@@ -566,7 +552,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        seed, thresh, inv_keep, drop_h0, drop_heads);
+        keep_bits, keep_words, inv_keep);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -579,27 +565,25 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 // 16-byte aligned with batch, seq and head strides multiples of 8 (the
 // 16-byte cp.async copies).  kv_mask is [batch, kv_len]
 // fp32 (1 keeps a key) or null; out is a contiguous [b, s, h, d] of the
-// input dtype and lse a contiguous fp32 [b·h, s].  `seed` is null (no
-// dropout) or two int32 seed words in device memory; `thresh` and
-// `inv_keep` are the dropout threshold and scale; the keep bits of head
-// h of batch b are those of head b·drop_heads + drop_h0 + h of the
-// Philox counter (drop_h0 = 0, drop_heads = heads for a whole call; a
-// tensor-parallel rank passes its first head and the model's head
-// count).  Launches on `stream`,
+// input dtype and lse a contiguous fp32 [b·h, s].  `keep_bits` is null (no
+// dropout) or B4's packed keep mask (flash_dropout.cu), contiguous int32
+// [b·h, s, keep_words] words with keep_words = ceil(kv_len/32), and
+// `inv_keep` the dropout scale.  Launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int ds_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const void* kv_mask, void* out, void* lse, int batch, int heads, int s,
     int kv_len, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    float scale, int causal, const void* seed, uint32_t thresh,
-    float inv_keep, int drop_h0, int drop_heads, void* stream) {
+    float scale, int causal, const void* keep_bits, int keep_words,
+    float inv_keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_FLASH_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, kv_mask, out, lse, batch, heads, s, kv_len,   \
                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
-                      scale, causal, static_cast<const int*>(seed), thresh,  \
-                      inv_keep, drop_h0, drop_heads, st)
+                      scale, causal,                                          \
+                      static_cast<const uint32_t*>(keep_bits), keep_words,    \
+                      inv_keep, st)
   if (dtype == 0 && head_dim == 64) DS_FLASH_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 128) DS_FLASH_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) DS_FLASH_LAUNCH(__nv_bfloat16, 64);

@@ -53,13 +53,6 @@ __device__ __forceinline__ float lane_sum(float x) {
   return x;
 }
 
-template <int N>
-__device__ __forceinline__ uint32_t lane_or(uint32_t x) {
-#pragma unroll
-  for (int m = 1; m < N; m <<= 1) x |= __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
 // ------------------------------------------------------------------------
 // Tile steps of the block-sparse kernels (B5 sparse_attention/
 // flash_block_sparse.cu, B6 sparse_attention/flash_block_sparse_agg.cu).

@@ -23,9 +23,9 @@
 //   and the loads are free of bank conflicts; `ldsm_a`, `ldsm_b` and
 //   `ldsm_bt` give each lane its fragment of such a tile, and `OwnRows`
 //   holds a warp's A fragments of the 16 rows of a block-owned tile.
-// - The keep-bit drawers of the in-kernel dropout (B4): the 64x64 keep
-//   bits of a score tile into a shared-memory bitmask, one thread per
-//   (row, 32-column word), up to 8 Philox draws and one plain store each.
+// - The keep-bit loader of the attention dropout: the 64x64 keep bits of
+//   a score tile, read from B4's packed mask (flash_dropout.cu) into a
+//   shared-memory bitmask by 4-byte cp.async, one word a thread.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -42,8 +42,6 @@
 #include <stdint.h>
 
 #include <type_traits>
-
-#include "flash_dropout.cuh"
 
 namespace ds_flash {
 
@@ -278,47 +276,20 @@ struct OwnRows {
 };
 
 // ------------------------------------------------------------ keep bits
-// The keep bits of score rows row0 .. row0+63 and columns col0 ..
-// col0+63 (col0 a multiple of 4) of head `bh`: bits[2r + w] bit c is 1
-// iff (row0 + r, col0 + 32w + c) is kept.  One thread per (row, word):
-// 8 Philox draws (flash_dropout.cuh, counter (bh, row, col >> 2, 0)) and
-// one store.  Threads 0-127 take part.
-__device__ __forceinline__ void draw_keep_tile(uint32_t* bits, int tid,
-                                               uint32_t k0, uint32_t k1,
-                                               uint32_t bh, int row0,
-                                               int col0, uint32_t thresh) {
+// The keep bits of score rows row0 .. row0+63 and words word0, word0+1
+// (keys 32·word0 .. 32·word0+63) of one head's part `head_bits` of B4's
+// packed mask (flash_dropout.cu: `words` int32 words a row) into the
+// shared-memory bitmask `bits` by cp.async: bits[2r + w] is word word0 +
+// w of row row0 + r, 0 for a row at or past `rows` or a word at or past
+// `words`.  One 4-byte copy a thread; threads 0-127 take part.
+__device__ __forceinline__ void load_keep_tile_async(
+    uint32_t* bits, const uint32_t* head_bits, int words, int row0,
+    int rows, int word0, int tid) {
   if (tid < 2 * kMmaTileRows) {
-    const int r = tid >> 1;
-    const int w = tid & 1;
-    const uint32_t g0 = (static_cast<uint32_t>(col0) >> 2) + 8 * w;
-    uint32_t word = 0u;
-#pragma unroll
-    for (int g = 0; g < 8; ++g)
-      word |= keep_bits4(k0, k1, bh, row0 + r, g0 + g, thresh) << (4 * g);
-    bits[tid] = word;
-  }
-}
-
-// The same bits where a row sees only some keys (the forward, B1): row
-// row0 + r draws only the groups of 4 columns that hold a column below
-// its limit, which is 0 for a row at or past `rows`, else `cols`, and
-// under `causal` at most the row's own index + 1.  A skipped group's
-// bits are 0, and its P is 0 whatever they are: one draw per 4 visible
-// elements, none for a group with no visible element.
-__device__ __forceinline__ void draw_keep_tile_visible(
-    uint32_t* bits, int tid, uint32_t k0, uint32_t k1, uint32_t bh,
-    int row0, int col0, uint32_t thresh, int rows, int cols, bool causal) {
-  if (tid < 2 * kMmaTileRows) {
-    const int row = row0 + (tid >> 1);
-    const int c0 = col0 + 32 * (tid & 1);
-    const int lim = row >= rows ? 0 : causal ? min(cols, row + 1) : cols;
-    const uint32_t g0 = static_cast<uint32_t>(c0) >> 2;
-    uint32_t word = 0u;
-#pragma unroll
-    for (int g = 0; g < 8; ++g)
-      if (c0 + 4 * g < lim)
-        word |= keep_bits4(k0, k1, bh, row, g0 + g, thresh) << (4 * g);
-    bits[tid] = word;
+    const int r = row0 + (tid >> 1);
+    const int w = word0 + (tid & 1);
+    const bool ok = r < rows && w < words;
+    cp_async4(bits + tid, head_bits + (ok ? (int64_t)r * words + w : 0), ok);
   }
 }
 

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "flash_attention_fwd": "transformer/flash_attention_fwd.cu",
     "flash_attention_bwd": "transformer/flash_attention_bwd.cu",
+    "flash_dropout": "transformer/flash_dropout.cu",
     "flash_block_sparse": "sparse_attention/flash_block_sparse.cu",
     "flash_block_sparse_agg": "sparse_attention/flash_block_sparse_agg.cu",
     # the same source's fp16 kernels, a library of their own so that the
@@ -173,7 +174,10 @@ def kernel_name(mangled):
     """A short name for a mangled kernel of the port: the kernel's own
     name, the storage type of a scalar kernel (and ``_fp16`` for a
     tensor-core kernel's fp16 instantiation; its bf16 one has none), the
-    head_dim, and the B3's warps a block or B1's dropout instantiation."""
+    head_dim, and the B3's warps a block or B1's dropout instantiation;
+    B4's keep-bit kernel is named by the words a store writes."""
+    if "keep_bits_kernel" in mangled:
+        return "keep_bits_kernel_v" + re.search(r"ILi(\d+)E", mangled).group(1)
     end = mangled.index("_kernel") + len("_kernel")
     start = max(mangled.rfind(prefix, 0, end)
                 for prefix in ("agg_", "fbs_", "flash_fwd", "flash_bwd"))

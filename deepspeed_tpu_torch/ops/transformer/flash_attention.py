@@ -12,23 +12,28 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 - B3 ``flash_attention_bwd.cu``: dq, dk and dv from one score pass, for
   shapes whose whole sequence fits a block's shared memory (bf16 and fp16
   on the tensor cores, ``mma.sync``; fp32 scalar);
-- B4 ``flash_dropout.cuh``: attention dropout inside B1–B3, with a keep
-  mask regenerated from a counter-based Philox keyed on two seed words
-  and counting ELEMENTS (b·h, q row, k col >> 2), so every kernel draws
-  the same bits whatever its tiling.  A call on a range of the heads
-  (a tensor-parallel rank's, ``head_offset`` into ``total_heads``)
+- B4 ``flash_dropout.cu``: the attention-dropout keep mask of a whole
+  call, drawn ONCE per forward into packed bits (int32 words ``[b·h, s,
+  ceil(kv_len/32)]``, :func:`draw_keep_bits`) that B1, B2a, B2b and B3
+  read; none of them draws.  The draw is a counter-based Philox keyed on
+  two seed words and counting ELEMENTS (b·h, q row, k col >> 2), so the
+  bits do not depend on any kernel's tiling.  A call on a range of the
+  heads (a tensor-parallel rank's, ``head_offset`` into ``total_heads``)
   counts with the GLOBAL head, b·total_heads + head_offset + j, so the
   ranks of a sharded run drop exactly the entries of the whole call.
 
 Each wrapper launches its kernel for CUDA tensors or raises, and runs the
 plain version (:func:`flash_attention_reference`,
-:func:`flash_attention_bwd_reference`, :func:`philox_keep_mask`) for CPU
+:func:`flash_attention_bwd_reference`, :func:`philox_keep_bits`) for CPU
 tensors; a CPU run and a card run with one seed drop the same entries.
-Each wrapper counts its launches in ``.launches``, and its fp16 launches
-again in ``.fp16.launches`` (B4: ``in_kernel_dropout.fp16``), so a run
-can show that an fp16 path took the fp16 kernels.
+Each wrapper counts its launches in ``.launches``, and B1–B3 their fp16
+launches again in ``.fp16.launches``, so a run can show that an fp16
+path took the fp16 kernels.  ``in_kernel_dropout`` counts the B1–B3
+launches that applied a keep mask (``.fp16`` the fp16 ones), and
+``draw_keep_bits.launches`` B4's draws.
 :class:`FlashAttention` is the ``torch.autograd.Function``: its forward
-runs B1 and its backward B3 or B2a+B2b.
+draws the bits with B4 and runs B1, and its backward runs B3 or B2a+B2b
+on the same bits.
 
 Layout is the JAX package's: q ``[b, s, h, d]``, k and v
 ``[b, kv_len, h, d]``, ``kv_mask`` ``[b, kv_len]`` with 1 at visible keys.
@@ -65,7 +70,7 @@ _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# launches of B1, B2a, B2b or B3 that drew the B4 keep mask (and of
+# launches of B1, B2a, B2b or B3 that applied B4's keep mask (and of
 # those, the fp16 ones)
 in_kernel_dropout = types.SimpleNamespace(
     launches=0, fp16=types.SimpleNamespace(launches=0))
@@ -131,12 +136,11 @@ def drop_heads(b, h, head_offset=0, total_heads=None, device=None):
 
 
 def philox_keep_mask(seed, bh, s, kv_len, rate, heads=None):
-    """Plain version of B4: the bool keep mask ``[bh, s, kv_len]`` the
-    kernels draw for seed words ``seed`` (two int32, on any device; the
-    mask comes back on that device): an element is kept iff its
-    :func:`philox_bits` are at least ``thresh``.  ``heads`` (int64
-    ``[bh]``, :func:`drop_heads`) are the counter words of the b·h rows,
-    ``0 .. bh-1`` by default."""
+    """The bool keep mask ``[bh, s, kv_len]`` of seed words ``seed`` (two
+    int32, on any device; the mask comes back on that device): an element
+    is kept iff its :func:`philox_bits` are at least ``thresh``.
+    ``heads`` (int64 ``[bh]``, :func:`drop_heads`) are the counter words
+    of the b·h rows, ``0 .. bh-1`` by default."""
     thresh, _ = dropout_thresh(rate)
     dev = seed.device
     heads = torch.arange(bh, device=dev) if heads is None else heads
@@ -144,13 +148,45 @@ def philox_keep_mask(seed, bh, s, kv_len, rate, heads=None):
                        kv_len) >= thresh
 
 
-def _keep_and_scale(seed, dropout_rate, b, h, s, kv_len, head_offset=0,
-                    total_heads=None):
-    if not dropout_rate:
-        return None, 1.0
-    heads = drop_heads(b, h, head_offset, total_heads, seed.device)
-    return (philox_keep_mask(seed, b * h, s, kv_len, dropout_rate, heads)
-            .view(b, h, s, kv_len), dropout_thresh(dropout_rate)[1])
+def keep_words(kv_len):
+    """int32 words a row of B4's packed keep mask holds."""
+    return (kv_len + 31) // 32
+
+
+def pack_keep_bits(mask):
+    """A bool mask ``[bh, s, kv_len]`` as B4's int32 words ``[bh, s,
+    ceil(kv_len/32)]``: bit c of word w of a row is element 32w + c."""
+    bh, s, kv_len = mask.shape
+    n = keep_words(kv_len)
+    cols = torch.nn.functional.pad(mask, (0, 32 * n - kv_len))
+    shifts = torch.arange(32, device=mask.device, dtype=torch.int64)
+    words = (cols.view(bh, s, n, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def unpack_keep_bits(bits, kv_len):
+    """B4's int32 words ``[bh, s, words]`` as the bool keep mask ``[bh, s,
+    kv_len]``."""
+    bh, s, n = bits.shape
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    cols = (bits.to(torch.int64)[..., None] >> shifts) & 1
+    return cols.view(bh, s, 32 * n)[..., :kv_len].bool()
+
+
+def philox_keep_bits(seed, bh, s, kv_len, rate, heads=None, causal=False):
+    """Plain version of B4: the packed keep bits ``[bh, s,
+    ceil(kv_len/32)]`` (int32, on the seed's device) of
+    :func:`philox_keep_mask`'s mask, with the bits of every group of 4
+    columns that holds no visible element 0, as the kernel leaves them:
+    under ``causal`` row i sees columns 0 .. i, so group g is drawn iff
+    4g <= i.  Bitwise the kernel's words."""
+    mask = philox_keep_mask(seed, bh, s, kv_len, rate, heads)
+    if causal:
+        dev = seed.device
+        groups = torch.arange(kv_len, device=dev) // 4
+        mask &= groups[None, :] <= torch.arange(s, device=dev)[:, None] // 4
+    return pack_keep_bits(mask)
 
 
 # ----------------------------------------------------------- plain versions
@@ -218,14 +254,33 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
 
 
 # ----------------------------------------------------------------- kernels
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# ds_flash_attention_fwd(dtype, head_dim, q, k, v, kv_mask, out, lse,
+# batch, heads, s, kv_len, 9 strides, scale, causal, keep_bits,
+# keep_words, inv_keep, stream)
+FWD_ARGTYPES = ([_I32, _I32] + [_PTR] * 6 + [_I32] * 4 + [_I64] * 9
+                + [ctypes.c_float, _I32, _PTR, _I32, ctypes.c_float, _PTR])
+# ds_flash_attention_bwd(which, dtype, head_dim, q, k, v, dout, lse,
+# delta, kv_mask, dq, dk, dv, batch, heads, s, kv_len, strides, scale,
+# causal, keep_bits, keep_words, inv_keep, stream)
+BWD_ARGTYPES = ([_I32] * 3 + [_PTR] * 10 + [_I32] * 4
+                + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, _I32,
+                   _PTR, _I32, ctypes.c_float, _PTR])
+
+
 def _fwd_kernel():
-    lib = op_builder.load("flash_attention_fwd")
-    fn = lib.ds_flash_attention_fwd
+    fn = op_builder.load("flash_attention_fwd").ds_flash_attention_fwd
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 4 + [i64] * 9
-                       + [ctypes.c_float, i32, ptr, ctypes.c_uint32,
-                          ctypes.c_float, i32, i32, ptr])
+        fn.argtypes = FWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _keep_kernel():
+    fn = op_builder.load("flash_dropout").ds_flash_keep_bits
+    if fn.argtypes is None:
+        fn.argtypes = ([_PTR, _PTR] + [_I32] * 5
+                       + [ctypes.c_uint32, _I32, _I32, _PTR])
         fn.restype = ctypes.c_int
     return fn
 
@@ -234,14 +289,10 @@ def _bwd_kernel():
     lib = op_builder.load("flash_attention_bwd")
     fn = lib.ds_flash_attention_bwd
     if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i32] * 3 + [ptr] * 10 + [i32] * 4
-                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                          i32, ptr, ctypes.c_uint32, ctypes.c_float, i32,
-                          i32, ptr])
+        fn.argtypes = BWD_ARGTYPES
         fn.restype = ctypes.c_int
         smem = lib.ds_flash_attention_bwd_fused_smem
-        smem.argtypes = [i32, i32, i32, i32]
+        smem.argtypes = [_I32] * 4
         smem.restype = ctypes.c_int64
     return fn
 
@@ -351,20 +402,96 @@ def _total_heads(h, head_offset, total_heads):
     return total
 
 
-def _check_seed(seed, dropout_rate, device):
-    if not dropout_rate:
-        return
+def _check_rate(dropout_rate):
     if not 0.0 < dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got "
                          f"{dropout_rate}")
+
+
+def _check_seed(seed, device):
     if seed is None:
         raise ValueError("dropout_rate > 0 needs a dropout seed (two int32 "
-                         "words)")
+                         "words) or its keep bits")
     if (seed.dtype != torch.int32 or seed.numel() != 2
             or seed.device != device):
         raise ValueError(f"the dropout seed must be two int32 words on "
                          f"{device}, got {seed.dtype} {tuple(seed.shape)} "
                          f"on {seed.device}")
+
+
+def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
+                   head_offset=0, total_heads=None):
+    """B4: the keep bits of a ``[b, s, h, *]`` attention call with
+    ``kv_len`` keys at ``dropout_rate``, int32 ``[b·h, s,
+    ceil(kv_len/32)]`` on the seed's device (bit c of word w of a row is
+    1 iff key 32w + c is kept), drawn from the two int32 seed words
+    ``seed``; under ``causal`` the groups of 4 keys a row cannot see are
+    not drawn and their bits are 0.  ``head_offset`` and ``total_heads``
+    place the heads in a whole call's (a tensor-parallel rank's range).
+
+    A CPU seed takes :func:`philox_keep_bits`.  A CUDA seed launches the
+    Hopper kernel (``flash_dropout.cu``) or raises, and adds one to
+    ``draw_keep_bits.launches``."""
+    _check_rate(dropout_rate)
+    _check_seed(seed, None if seed is None else seed.device)
+    total = _total_heads(h, head_offset, total_heads)
+    if seed.device.type == "cpu":
+        return philox_keep_bits(
+            seed, b * h, s, kv_len, dropout_rate,
+            drop_heads(b, h, head_offset, total, seed.device), causal)
+    if seed.device.type != "cuda":
+        raise ValueError(f"the keep-bit kernel runs on cuda or cpu seeds, "
+                         f"got {seed.device}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"batch*heads={b * h} exceeds the kernel grid "
+                         f"({_MAX_GRID_Y})")
+    bits = torch.empty((b * h, s, keep_words(kv_len)), dtype=torch.int32,
+                       device=seed.device)
+    with torch.cuda.device(seed.device):
+        stream = torch.cuda.current_stream(seed.device).cuda_stream
+        rc = _keep_kernel()(bits.data_ptr(), seed.data_ptr(), b, h, s,
+                            kv_len, int(bool(causal)),
+                            dropout_thresh(dropout_rate)[0], head_offset,
+                            total, stream)
+    if rc != 0:
+        raise RuntimeError(f"keep-bit kernel launch failed: CUDA error {rc}")
+    draw_keep_bits.launches += 1
+    return bits
+
+
+draw_keep_bits.launches = 0
+
+
+def _keep_bits_arg(q, kv_len, causal, dropout_rate, seed, keep_bits,
+                   head_offset, total_heads):
+    """The keep bits a kernel applies: None without dropout, else
+    ``keep_bits`` as given (checked) or, without them, B4's draw from
+    ``seed``."""
+    if not dropout_rate:
+        return None
+    _check_rate(dropout_rate)
+    b, s, h, _ = q.shape
+    if keep_bits is None:
+        _check_seed(seed, q.device)
+        return draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal,
+                              head_offset, total_heads)
+    shape = (b * h, s, keep_words(kv_len))
+    if (keep_bits.dtype != torch.int32 or tuple(keep_bits.shape) != shape
+            or not keep_bits.is_contiguous() or keep_bits.device != q.device):
+        raise ValueError(f"keep_bits must be contiguous int32 {shape} on "
+                         f"{q.device}, got {keep_bits.dtype} "
+                         f"{tuple(keep_bits.shape)} on {keep_bits.device}")
+    return keep_bits
+
+
+def _plain_keep(keep_bits, dropout_rate, b, h, kv_len):
+    """The bool keep mask ``[b, h, s, kv_len]`` and scale the plain
+    versions take from the keep bits."""
+    if keep_bits is None:
+        return None, 1.0
+    s = keep_bits.shape[1]
+    return (unpack_keep_bits(keep_bits, kv_len).view(b, h, s, kv_len),
+            dropout_thresh(dropout_rate)[1])
 
 
 def _check_cuda(q, k, v, kv_mask, extra=()):
@@ -396,17 +523,17 @@ def _mask_arg(kv_mask):
     return None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
 
 
-def _dropout_args(seed, dropout_rate):
-    if not dropout_rate:
+def _dropout_args(keep_bits, dropout_rate):
+    if keep_bits is None:
         return None, 0, 1.0
-    thresh, inv_keep = dropout_thresh(dropout_rate)
-    return seed.data_ptr(), thresh, inv_keep
+    return (keep_bits.data_ptr(), keep_bits.shape[-1],
+            dropout_thresh(dropout_rate)[1])
 
 
 def _count_launch(wrapper, dropout_rate, dtype):
-    """One more launch of ``wrapper``'s kernel, and of B4 inside it under
-    dropout, each counted again under ``.fp16`` for an fp16 launch;
-    called only after the launch succeeded."""
+    """One more launch of ``wrapper``'s kernel, and of a mask-applying
+    launch under dropout, each counted again under ``.fp16`` for an fp16
+    launch; called only after the launch succeeded."""
     counters = [wrapper] + ([in_kernel_dropout] if dropout_rate else [])
     for counter in counters:
         counter.launches += 1
@@ -416,36 +543,37 @@ def _count_launch(wrapper, dropout_rate, dtype):
 
 def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                         dropout_rate=0.0, seed=None, head_offset=0,
-                        total_heads=None):
-    """Flash-attention forward (B1, with B4 when ``dropout_rate`` > 0 and
-    ``seed`` holds the two int32 seed words); returns ``(out, lse)``.
-    ``head_offset`` and ``total_heads`` place q's heads in a whole call's
-    (a tensor-parallel rank's range): B4 then draws the whole call's keep
-    bits of those heads.
+                        total_heads=None, keep_bits=None):
+    """Flash-attention forward (B1); returns ``(out, lse)``.  With
+    ``dropout_rate`` > 0 it applies the keep bits ``keep_bits``, or,
+    without them, first draws them by :func:`draw_keep_bits` from
+    ``seed`` (two int32 seed words).  ``head_offset`` and ``total_heads``
+    place q's heads in a whole call's (a tensor-parallel rank's range):
+    B4 then draws the whole call's keep bits of those heads.
 
-    CPU tensors take :func:`flash_attention_reference` with the
-    :func:`philox_keep_mask` mask.  CUDA tensors launch the Hopper kernel
+    CPU tensors take :func:`flash_attention_reference` with the bits'
+    mask.  CUDA tensors launch the Hopper kernel
     (bf16 and fp16 on the tensor cores, fp32 scalar; head_dim 64 or 128)
     or raise, also on bf16 or fp16 views that :func:`mma_aligned`
     refuses.  Every launch adds one to ``flash_attention_fwd.launches``
     (an fp16 one also to ``flash_attention_fwd.fp16.launches``)."""
     _check(q, k, v, kv_mask)
-    _check_seed(seed, dropout_rate, q.device)
     b, s, h, d = q.shape
     kv_len = k.shape[1]
-    total = _total_heads(h, head_offset, total_heads)
+    if q.device.type != "cpu":
+        _check_cuda(q, k, v, kv_mask)
+        check_fwd_views(q, k, v)
+    keep_bits = _keep_bits_arg(q, kv_len, causal, dropout_rate, seed,
+                               keep_bits, head_offset, total_heads)
     if q.device.type == "cpu":
-        keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, kv_len,
-                                         head_offset, total)
-        return flash_attention_reference(q, k, v, kv_mask, causal, keep,
-                                         inv_keep)
-    _check_cuda(q, k, v, kv_mask)
-    check_fwd_views(q, k, v)
+        return flash_attention_reference(
+            q, k, v, kv_mask, causal,
+            *_plain_keep(keep_bits, dropout_rate, b, h, kv_len))
     mask = _mask_arg(kv_mask)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     fn = _fwd_kernel()
-    seed_ptr, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    bits_ptr, words, inv_keep = _dropout_args(keep_bits, dropout_rate)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
@@ -454,8 +582,8 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                1.0 / math.sqrt(d), int(bool(causal)), seed_ptr, thresh,
-                inv_keep, head_offset, total, stream)
+                1.0 / math.sqrt(d), int(bool(causal)), bits_ptr, words,
+                inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -474,7 +602,7 @@ def _delta(out, dout):
 
 
 def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, delta, dq, dk, dv, head_offset=0, total_heads=None):
+                keep_bits, delta, dq, dk, dv):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
     if q.dtype in MMA_DTYPES and not mma_aligned(q, k, v, dout):
@@ -498,8 +626,7 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], *grads_q.stride()[:3], *grads_kv.stride()[:3])
     fn = _bwd_kernel()
-    seed_ptr, thresh, inv_keep = _dropout_args(seed, dropout_rate)
-    total = _total_heads(h, head_offset, total_heads)
+    bits_ptr, words, inv_keep = _dropout_args(keep_bits, dropout_rate)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -507,15 +634,17 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), ptr(mask), ptr(dq), ptr(dk), ptr(dv), b, h,
                 s, kv_len, strides, 1.0 / math.sqrt(d), int(bool(causal)),
-                seed_ptr, thresh, inv_keep, head_offset, total, stream)
+                bits_ptr, words, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward ({which}) kernel "
                            f"launch failed: CUDA error {rc}")
 
 
-def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate, seed):
+def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed,
+                keep_bits, head_offset, total_heads):
+    """dO, lse and the keep bits, checked (and the bits drawn from the
+    seed where not given)."""
     _check(q, k, v, kv_mask)
-    _check_seed(seed, dropout_rate, q.device)
     b, s, h, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out and dO must be {tuple(q.shape)}, got "
@@ -530,77 +659,85 @@ def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate, seed):
             dout = dout.contiguous()
         _check_cuda(q, k, v, kv_mask, extra=(dout, out))
         lse = lse.contiguous()
-    return dout, lse
+    keep_bits = _keep_bits_arg(q, k.shape[1], causal, dropout_rate, seed,
+                               keep_bits, head_offset, total_heads)
+    return dout, lse, keep_bits
 
 
-def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed,
-               head_offset=0, total_heads=None):
-    b, s, h, _ = q.shape
-    keep, inv_keep = _keep_and_scale(seed, dropout_rate, b, h, s, k.shape[1],
-                                     head_offset,
-                                     _total_heads(h, head_offset, total_heads))
-    return flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask,
-                                         causal, keep, inv_keep)
+def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
+               keep_bits):
+    b, _, h, _ = q.shape
+    return flash_attention_bwd_reference(
+        q, k, v, out, lse, dout, kv_mask, causal,
+        *_plain_keep(keep_bits, dropout_rate, b, h, k.shape[1]))
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
                            causal=False, dropout_rate=0.0, seed=None,
-                           delta=None, head_offset=0, total_heads=None):
+                           delta=None, head_offset=0, total_heads=None,
+                           keep_bits=None):
     """B2a: dq ``[b, s, h, d]``.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``)
     or raise.  ``delta``, Δ = rowsum(dO∘O) as fp32 ``[b·h, s]``, is
     computed from out and dO when not given (:func:`flash_attention_bwd`
-    computes it once for B2a and B2b)."""
-    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
-                            seed)
+    computes it once for B2a and B2b).  Under dropout it applies the
+    forward's ``keep_bits``, or without them draws them from ``seed``
+    first, as :func:`flash_attention_fwd`."""
+    dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
+                                       causal, dropout_rate, seed, keep_bits,
+                                       head_offset, total_heads)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed, head_offset, total_heads)[0]
+                          dropout_rate, keep_bits)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, _delta(out, dout) if delta is None else delta, dq,
-                None, None, head_offset, total_heads)
+                keep_bits, _delta(out, dout) if delta is None else delta, dq,
+                None, None)
     _count_launch(flash_attention_bwd_dq, dropout_rate, q.dtype)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
                             causal=False, dropout_rate=0.0, seed=None,
-                            delta=None, head_offset=0, total_heads=None):
+                            delta=None, head_offset=0, total_heads=None,
+                            keep_bits=None):
     """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]``.  CPU tensors take
     the plain version; CUDA tensors launch the kernel
-    (``flash_attention_bwd_dkv.launches``) or raise.  ``delta`` as for
-    :func:`flash_attention_bwd_dq`."""
-    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
-                            seed)
+    (``flash_attention_bwd_dkv.launches``) or raise.  ``delta`` and
+    ``keep_bits`` as for :func:`flash_attention_bwd_dq`."""
+    dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
+                                       causal, dropout_rate, seed, keep_bits,
+                                       head_offset, total_heads)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed, head_offset, total_heads)[1:]
+                          dropout_rate, keep_bits)[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, _delta(out, dout) if delta is None else delta, None,
-                dk, dv, head_offset, total_heads)
+                keep_bits, _delta(out, dout) if delta is None else delta,
+                None, dk, dv)
     _count_launch(flash_attention_bwd_dkv, dropout_rate, q.dtype)
     return dk, dv
 
 
 def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
                               causal=False, dropout_rate=0.0, seed=None,
-                              delta=None, head_offset=0, total_heads=None):
+                              delta=None, head_offset=0, total_heads=None,
+                              keep_bits=None):
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
     (``flash_attention_bwd_fused.launches``: bf16 and fp16 on the tensor
     cores, with a ValueError naming B3 on views :func:`mma_aligned`
     refuses;
     fp32 scalar) or raise, also when the shape does not fit
-    (:func:`fused_backward_fits`).  ``delta`` as for
+    (:func:`fused_backward_fits`).  ``delta`` and ``keep_bits`` as for
     :func:`flash_attention_bwd_dq`."""
-    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
-                            seed)
+    dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
+                                       causal, dropout_rate, seed, keep_bits,
+                                       head_offset, total_heads)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, seed, head_offset, total_heads)
+                          dropout_rate, keep_bits)
     d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
     if not fused_backward_fits(d, s, kv_len, q.dtype):
         raise ValueError(f"the fused backward needs "
@@ -611,8 +748,8 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                seed, _delta(out, dout) if delta is None else delta, dq, dk,
-                dv, head_offset, total_heads)
+                keep_bits, _delta(out, dout) if delta is None else delta, dq,
+                dk, dv)
     _count_launch(flash_attention_bwd_fused, dropout_rate, q.dtype)
     return dq, dk, dv
 
@@ -625,53 +762,57 @@ for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
                         dropout_rate=0.0, seed=None, head_offset=0,
-                        total_heads=None):
+                        total_heads=None, keep_bits=None):
     """Flash-attention backward: ``(dq, dk, dv)`` from the forward's out
     and lse.  CUDA tensors run B3 where :func:`use_fused_backward` takes
-    it, else B2a then B2b, which share one Δ and one fp32 key mask; CPU
-    tensors run the plain version."""
-    dout, lse = _bwd_inputs(q, k, v, out, lse, dout, kv_mask, dropout_rate,
-                            seed)
+    it, else B2a then B2b, which share one Δ, one fp32 key mask and one
+    set of keep bits (drawn once from ``seed`` where ``keep_bits`` is not
+    given); CPU tensors run the plain version."""
+    dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
+                                       causal, dropout_rate, seed, keep_bits,
+                                       head_offset, total_heads)
     if q.device.type == "cuda" and not use_fused_backward(
             q.shape[-1], q.shape[1], k.shape[1], q.dtype):
         kv_mask = _mask_arg(kv_mask)
         delta = _delta(out, dout)
         dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask, causal,
-                                    dropout_rate, seed, delta, head_offset,
-                                    total_heads)
+                                    dropout_rate, None, delta,
+                                    keep_bits=keep_bits)
         dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask,
-                                         causal, dropout_rate, seed, delta,
-                                         head_offset, total_heads)
+                                         causal, dropout_rate, None, delta,
+                                         keep_bits=keep_bits)
         return dq, dk, dv
     return flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask,
-                                     causal, dropout_rate, seed, None,
-                                     head_offset, total_heads)
+                                     causal, dropout_rate, None, None,
+                                     keep_bits=keep_bits)
 
 
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, kv_mask, seed, causal,
     dropout_rate, head_offset, total_heads)`` -> out ``[b, s, h, d]``.
-    The forward runs B1 (with B4 under dropout) and saves q, k, v, out,
-    lse and the seed; the backward runs B3 or B2a+B2b, regenerating the
-    keep mask from the seed (of the global heads, for a rank's range).
-    kv_mask and the seed get no gradient."""
+    Under dropout the forward draws the call's keep bits once with B4
+    (of the global heads, for a rank's range), runs B1 on them and saves
+    q, k, v, out, lse and the bits (no seed); the backward runs B3 or
+    B2a+B2b on those bits and draws nothing.  kv_mask and the seed get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask=None, seed=None, causal=False,
                 dropout_rate=0.0, head_offset=0, total_heads=None):
+        _check(q, k, v, kv_mask)
+        keep_bits = _keep_bits_arg(q, k.shape[1], causal, dropout_rate, seed,
+                                   None, head_offset, total_heads)
         out, lse = flash_attention_fwd(q, k, v, kv_mask, causal,
-                                       dropout_rate, seed, head_offset,
-                                       total_heads)
-        ctx.save_for_backward(q, k, v, out, lse, kv_mask, seed)
+                                       dropout_rate, keep_bits=keep_bits)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask, keep_bits)
         ctx.causal = causal
         ctx.dropout_rate = dropout_rate
-        ctx.heads = (head_offset, total_heads)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, kv_mask, seed = ctx.saved_tensors
+        q, k, v, out, lse, kv_mask, keep_bits = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask,
-                                         ctx.causal, ctx.dropout_rate, seed,
-                                         *ctx.heads)
+                                         ctx.causal, ctx.dropout_rate,
+                                         keep_bits=keep_bits)
         return dq, dk, dv, None, None, None, None, None, None

@@ -10,8 +10,9 @@ against the plain version (bf16 out to 2e-2, lse to 1e-4, the masked
 row, dropout), and times them side by side on one card, in turns
 (forward order, then backward), at the shapes B1's main paths give it:
 GPT-2-medium's training attention (b=8, h=16, s=1024, d=64, causal,
-fused-QKV views) with dropout 0.1 and without, the serve bucket s=1024
-(b=1) and BERT's b=64, s=128 with a key mask and dropout 0.1.
+fused-QKV views) with dropout 0.1 (on keep bits B4 drew once, outside
+the timed runs) and without, the serve bucket s=1024 (b=1) and BERT's
+b=64, s=128 with a key mask and dropout 0.1.
 
     python3 examples/profile_torch_b1.py [--min-blocks 3 4] [--out PATH]
 
@@ -43,10 +44,7 @@ BOUNDS = re.compile(r"constexpr int (kMinBlocks64(?:Dropout)?) = (\d+);")
 def use(lib_path):
     """Points the forward wrapper at ``lib_path``'s kernel."""
     fn = ctypes.CDLL(str(lib_path)).ds_flash_attention_fwd
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = ([i32, i32] + [ptr] * 6 + [i32] * 4 + [i64] * 9
-                   + [ctypes.c_float, i32, ptr, ctypes.c_uint32,
-                      ctypes.c_float, ptr])
+    fn.argtypes = fa.FWD_ARGTYPES
     fn.restype = ctypes.c_int
     fa._fwd_kernel = lambda: fn
 
@@ -113,13 +111,16 @@ def main():
     bert = cs.make_case(cs.BERT_BATCH, 16, cs.BERT_SEQ, cs.BERT_SEQ, 64,
                         "none", False, torch.bfloat16, 1)[:3] + (
         torch.ones(cs.BERT_BATCH, cs.BERT_SEQ, device=cs.DEVICE),)
+    # B1 alone: each shape's keep bits drawn once by B4, outside the runs
+    train_bits = cs.draw_bits(train[0], train[1], True, cs.DROPOUT, seed)
+    bert_bits = cs.draw_bits(bert[0], bert[1], False, cs.DROPOUT, seed)
     shapes = {
         "train_dropout": lambda: fa.flash_attention_fwd(
-            *train, None, True, cs.DROPOUT, seed),
+            *train, None, True, cs.DROPOUT, keep_bits=train_bits),
         "train": lambda: fa.flash_attention_fwd(*train, None, True),
         "serve_s1024": lambda: fa.flash_attention_fwd(*serve, True),
         "bert_dropout": lambda: fa.flash_attention_fwd(
-            *bert, False, cs.DROPOUT, seed)}
+            *bert, False, cs.DROPOUT, keep_bits=bert_bits)}
     result["clocks_before"] = cs.clocks_line()
     for name in list(libs) + list(libs)[::-1]:
         use(libs[name])

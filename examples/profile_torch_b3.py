@@ -53,10 +53,7 @@ SHAPES = {"bert_b64_s128": (cs.BERT_BATCH, cs.BERT_SEQ, cs.BERT_SEQ, 64),
 def use(lib_path):
     """Points the backward wrappers at ``lib_path``'s kernels."""
     fn = ctypes.CDLL(str(lib_path)).ds_flash_attention_bwd
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([i32] * 3 + [ptr] * 10 + [i32] * 4
-                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                      i32, ptr, ctypes.c_uint32, ctypes.c_float, ptr])
+    fn.argtypes = fa.BWD_ARGTYPES
     fn.restype = ctypes.c_int
     fa._bwd_kernel = lambda: fn
 
@@ -125,22 +122,23 @@ def main():
         dout = torch.randn(b, s, 16, d, generator=g).to(cs.DEVICE,
                                                         torch.bfloat16)
         mask = torch.ones(b, kv_len, device=cs.DEVICE)
+        # the backward kernels alone: on keep bits B4 drew once
+        bits = cs.draw_bits(q, k, False, cs.DROPOUT, seed)
         out, lse = fa.flash_attention_fwd(q, k, v, mask, False, cs.DROPOUT,
-                                          seed)
-        args_ = (q, k, v, out, lse, dout, mask, False, cs.DROPOUT, seed)
-        cases[label] = (args_, fa._delta(out, dout))
+                                          keep_bits=bits)
+        args_ = (q, k, v, out, lse, dout, mask, False, cs.DROPOUT, None)
+        cases[label] = (args_, fa._delta(out, dout), bits)
     use(libs["source"])
-    result["b2_ms"] = {label: cs.device_ms(lambda: (
-        fa.flash_attention_bwd_dq(*a, delta=delta),
-        fa.flash_attention_bwd_dkv(*a, delta=delta)))
-        for label, (a, delta) in cases.items()}
+    result["b2_ms"] = {label: cs.device_ms(lambda: cs.b2_pair(
+        *a, delta=delta, keep_bits=bits))
+        for label, (a, delta, bits) in cases.items()}
     result["clocks_before"] = cs.clocks_line()
     for name in list(libs) + list(libs)[::-1]:
         use(libs[name])
-        for label, (a, delta) in cases.items():
+        for label, (a, delta, bits) in cases.items():
             result["variants"][name].setdefault(label, []).append(
                 cs.device_ms(lambda: fa.flash_attention_bwd_fused(
-                    *a, delta=delta)))
+                    *a, delta=delta, keep_bits=bits)))
     result["clocks_after"] = cs.clocks_line()
     text = json.dumps(result)
     print(text)

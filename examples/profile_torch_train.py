@@ -44,7 +44,8 @@ Step wall time is a host clock around ``train_batch`` calls that end in
 busy time is the sum of the card's kernel and copy times that
 ``torch.profiler`` records over 2 more steps; idle share is
 1 - busy / wall.  Busy time is split by kernel family: the flash kernels
-B1 (forward), B2a and B2b (backward), B3 (fused backward), the
+B1 (forward), B2a and B2b (backward), B3 (fused backward), B4 (the
+dropout keep mask's draw), the
 block-sparse kernels B5a (forward) and B5b (its dq and its dk/dv
 kernel; in bf16 these are B6a's, B6b's and B6c's tensor-core kernels at
 G = 1, counted as B5's in the ``--sparse`` step, which launches no B6),
@@ -112,6 +113,7 @@ FAMILIES = (("B1 flash forward", ("flash_fwd",)),
             ("B2a flash dq", ("flash_bwd_dq",)),
             ("B2b flash dk/dv", ("flash_bwd_dkv",)),
             ("B3 flash fused backward", ("flash_bwd_fused",)),
+            ("B4 keep-mask draw", ("keep_bits_kernel",)),
             ("B6a super-tile forward", ("agg_fwd",)),
             ("B6b super-tile dq", ("agg_bwd_dq",)),
             ("B6c super-tile dk/dv", ("agg_bwd_dkv",)),
@@ -131,13 +133,10 @@ B5_AT_G1 = {"B6a super-tile forward": "B5a sparse flash forward",
             "B6c super-tile dk/dv": "B5b sparse flash dk/dv"}
 
 # --mode -> the kernel libraries of its attention
-LIBRARIES = {"gpt2": ("flash_attention_fwd", "flash_attention_bwd"),
-             "sparse": ("flash_block_sparse_agg",),
-             "bert": ("flash_attention_fwd", "flash_attention_bwd"),
-             "bert-sparse": ("flash_block_sparse_agg",),
-             "offload": ("flash_attention_fwd", "flash_attention_bwd"),
-             "zero3": ("flash_attention_fwd", "flash_attention_bwd"),
-             "onebit": ("flash_attention_fwd", "flash_attention_bwd")}
+DENSE = ("flash_dropout", "flash_attention_fwd", "flash_attention_bwd")
+LIBRARIES = {"gpt2": DENSE, "sparse": ("flash_block_sparse_agg",),
+             "bert": DENSE, "bert-sparse": ("flash_block_sparse_agg",),
+             "offload": DENSE, "zero3": DENSE, "onebit": DENSE}
 
 
 def family(name, mode):

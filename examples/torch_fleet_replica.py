@@ -83,7 +83,8 @@ TINY = dict(vocab_size=256, hidden_size=32, num_layers=2, num_heads=2,
 # the kernels whose launches a replica reports
 COUNTERS = {"B1": fa.flash_attention_fwd, "B2a": fa.flash_attention_bwd_dq,
             "B2b": fa.flash_attention_bwd_dkv,
-            "B3": fa.flash_attention_bwd_fused, "B4": fa.in_kernel_dropout}
+            "B3": fa.flash_attention_bwd_fused, "B4": fa.draw_keep_bits,
+            "B4 applied": fa.in_kernel_dropout}
 # the tiny model's elastic schedule: global batch 8 on 1, 2 or 4 ranks
 ELASTIC = {"enabled": True, "max_train_batch_size": 8,
            "micro_batch_sizes": [2, 4], "min_gpus": 1, "max_gpus": 4,

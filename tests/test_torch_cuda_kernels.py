@@ -545,6 +545,73 @@ def test_keep_mask_drawn_by_b1_equals_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,kv_len,causal,h0,total", [
+    (8, 16, 1024, 1024, True, 0, None),     # GPT-2's training attention
+    (64, 16, 128, 128, False, 0, None),     # BERT's
+    (1, 8, 100, 201, False, 0, None),       # 7 words a row: word stores
+    (2, 2, 300, 300, True, 2, 6),           # a head range of 6 heads
+    (1, 4, 65, 65, True, 0, None),
+    (1, 4, 128, 256, True, 0, None)],
+    ids=["train", "bert", "kv201", "head_range", "s65", "causal_kv_gt_s"])
+def test_keep_bits_kernel_equals_plain(cuda_device, b, h, s, kv_len, causal,
+                                       h0, total):
+    """B4's words equal ``philox_keep_bits``'s bitwise (kv_len not a
+    multiple of 32, causal, a head offset into more heads), two draws are
+    equal, and each draw adds one to the kernel's count."""
+    seed = torch.tensor([s, 7 * kv_len + 1], dtype=torch.int32,
+                        device=cuda_device)
+    before = fa.draw_keep_bits.launches
+    bits = fa.draw_keep_bits(seed, b, h, s, kv_len, 0.1, causal, h0, total)
+    again = fa.draw_keep_bits(seed, b, h, s, kv_len, 0.1, causal, h0, total)
+    assert fa.draw_keep_bits.launches == before + 2
+    heads = fa.drop_heads(b, h, h0, total, cuda_device)
+    plain = fa.philox_keep_bits(seed, b * h, s, kv_len, 0.1, heads, causal)
+    assert bits.dtype == torch.int32 and bits.shape == plain.shape
+    assert torch.equal(bits, plain) and torch.equal(bits, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("s,causal", [(128, False), (256, True)],
+                         ids=["s128", "s256_causal"])
+def test_kernels_given_the_bits_equal_the_seed_alone(cuda_device, dtype, s,
+                                                     causal):
+    """B1, B2a+B2b and B3 (where it fits) given B4's bits give bitwise the
+    outputs they give from the seed alone (where each wrapper draws
+    first); the backward kernels given the bits draw nothing."""
+    q, k, v, mask = make_inputs(s + causal, 2, s, s, 4, 64)
+    t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    dout = torch.randn(2, s, 4, 64, generator=torch.Generator()
+                       .manual_seed(s)).to(cuda_device, dtype)
+    seed = torch.tensor([s, 5], dtype=torch.int32, device=cuda_device)
+    bits = fa.draw_keep_bits(seed, 2, 4, s, s, 0.1, causal)
+    out, lse = flash_attention_fwd(*t, m, causal, 0.1, seed)
+    out_b, lse_b = flash_attention_fwd(*t, m, causal, 0.1, keep_bits=bits)
+    assert torch.equal(out, out_b) and torch.equal(lse, lse_b)
+    args = (*t, out, lse, dout, m, causal, 0.1)
+    fused = fa.fused_backward_fits(64, s, s, dtype)
+
+    def backward(**kw):
+        grads = [(flash_attention_bwd_dq(*args, **kw),)
+                 + flash_attention_bwd_dkv(*args, **kw)]
+        if fused:
+            grads.append(flash_attention_bwd_fused(*args, **kw))
+        return grads
+
+    draws = fa.draw_keep_bits.launches
+    by_bits = backward(keep_bits=bits)
+    assert fa.draw_keep_bits.launches == draws
+    by_seed = backward(seed=seed)
+    assert fa.draw_keep_bits.launches == draws + len(by_seed) + 1
+    for grads_b, grads_s in zip(by_bits, by_seed):
+        for g, g2 in zip(grads_b, grads_s):
+            assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("telemetry", [False, True],
                          ids=["telemetry_off", "telemetry_on"])
 def test_train_batch_syncs_only_at_the_print_cadence(cuda_device, telemetry,
@@ -1490,7 +1557,7 @@ def test_sparse_train_batch_launches_b5_and_never_syncs(cuda_device):
 def remat_counters():
     return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
             fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_fused,
-            fa.in_kernel_dropout)
+            fa.in_kernel_dropout, fa.draw_keep_bits)
 
 
 @pytest.mark.cuda
@@ -1498,9 +1565,10 @@ def remat_counters():
 def test_remat_recomputes_b1_and_is_bitwise_the_run_without(cuda_device,
                                                             seq):
     """GPT-2 in bf16 with dropout 0.1 through the ``activation_checkpointing``
-    block: each layer's B1 (with B4 inside) launches twice a step, in
-    the forward and in the recompute, and its backward once; the losses
-    and the master equal the run without remat bit for bit."""
+    block: each layer's B1 and B4's draw launch twice a step, in the
+    forward and in the recompute, and its backward once, drawing
+    nothing; the losses and the master equal the run without remat bit
+    for bit."""
     config = dict(vocab_size=512, hidden_size=128, num_layers=2,
                   num_heads=2, max_position_embeddings=512)
     ds = {"train_batch_size": 2, "steps_per_print": 10 ** 9,
@@ -1526,8 +1594,9 @@ def test_remat_recomputes_b1_and_is_bitwise_the_run_without(cuda_device,
     fused = fa.use_fused_backward(64, seq, seq, torch.bfloat16)
     n = 2 * 3    # layers x steps
     bwd = [0, 0, n] if fused else [n, n, 0]
-    assert runs[0][2] == [n] + bwd + [n * (1 + (1 if fused else 2))]
-    assert runs[1][2] == [2 * n] + bwd + [n * (2 + (1 if fused else 2))]
+    assert runs[0][2] == [n] + bwd + [n * (1 + (1 if fused else 2)), n]
+    assert runs[1][2] == [2 * n] + bwd + [n * (2 + (1 if fused else 2)),
+                                          2 * n]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
 

@@ -210,12 +210,13 @@ def test_backward_ragged_matches_jnp_reference(causal):
 
 
 def test_cpu_wrappers_count_no_launch():
-    """The launch counters of B1, B2a, B2b, B3 and B4 move only where a
-    kernel launched: the CPU path, dropout included, runs the plain
-    versions and leaves every count as it was."""
+    """The launch counters of B1, B2a, B2b, B3 and B4 (its draws and the
+    launches that apply its mask) move only where a kernel launched: the
+    CPU path, dropout included, runs the plain versions and leaves every
+    count as it was."""
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
                 tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_fused,
-                tfa.in_kernel_dropout)
+                tfa.in_kernel_dropout, tfa.draw_keep_bits)
     before = [c.launches for c in counters]
     q, k, v, mask = (None if x is None else torch.from_numpy(x)
                      for x in make_inputs(5, 2, 64, 64, 2, 64, True))

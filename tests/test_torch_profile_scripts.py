@@ -71,7 +71,12 @@ def test_every_mode_names_the_libraries_of_its_attention():
      "flash_bwd_fused_mma_kernel_fp16_d64_w8"),
     ("_ZN35_INTERNAL_b0bd14b_22_flash_attention_fwd_cu_ba3050c620"
      "flash_fwd_mma_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_",
-     "flash_fwd_mma_kernel_d64_dropout")])
+     "flash_fwd_mma_kernel_d64_dropout"),
+    # B4's two instantiations: 16-byte and 4-byte stores
+    ("_ZN49_GLOBAL__N__144c4ef6_16_flash_dropout_cu_64144bac16"
+     "keep_bits_kernelILi4EEEvPjPKiiiiiijii", "keep_bits_kernel_v4"),
+    ("_ZN49_GLOBAL__N__144c4ef6_16_flash_dropout_cu_64144bac16"
+     "keep_bits_kernelILi1EEEvPjPKiiiiiijii", "keep_bits_kernel_v1")])
 def test_kernel_name_keeps_the_kernels_own_name(mangled, name):
     assert op_builder.kernel_name(mangled) == name
 
