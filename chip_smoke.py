@@ -414,7 +414,17 @@ failure raises, so the script exits non-zero:
               dp=2 on two gloo CPU processes under the streamed Adam,
               DeepSpeedCPUAdam and Lamb: each rank's host master its
               half of the rows, losses and master bitwise dp=2's
-              without offload, losses within rtol 1e-5 of one rank's.
+              without offload, losses within rtol 1e-5 of one rank's;
+42. seq compose — sequence parallelism through the gather cores, four
+              shards in one process at b=2 h=16 s=4096 d=64 bf16: (a)
+              GPT-2-medium causal attention at dropout 0.1, B4's words
+              of each shard at its query-row offset bitwise its rows of
+              one call's; (b) BERT-large bidirectional with padding;
+              (c) the sparse GPT-2 layout (block 256, B5) and the sparse
+              BERT layout (block 128, G = 4, B6); each against one call
+              and the fp32 plain version (phase 36's rule), with the
+              forward and backward ms of the gather core, one call and
+              (dense) the ring, and the kernels each shard launched.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -485,6 +495,7 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     flash_attention_bwd_fused, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference, philox_keep_mask)
 from deepspeed_tpu_torch.models import moe
+from deepspeed_tpu_torch.ops.transformer import gather_attention as ga
 from deepspeed_tpu_torch.ops.transformer.ring_attention import (
     ring_flash_attention_local, visible_keys)
 from deepspeed_tpu_torch.models.layers import (TransformerLayer, dense,
@@ -1031,7 +1042,8 @@ def check_train_shape(card, q, k, v, out, lse, dout, seed, plain_bwd,
     errs = {"out": float((out.float() - ref_out.float()).abs().max()),
             "lse": float((lse - ref_lse).abs().max())}
     del ref_out, ref_lse
-    args = (q, k, v, out, lse, dout, None, True, DROPOUT, seed)
+    args = (q, k, v, out, lse, dout, None, True, DROPOUT,
+            draw_bits(q, k, True, DROPOUT, seed))
     grads = (flash_attention_bwd_dq(*args),) + flash_attention_bwd_dkv(*args)
     for name, g, r in zip(("dq", "dk", "dv"), grads, plain_bwd()):
         check(bool(torch.isfinite(g.float()).all()),
@@ -1252,7 +1264,7 @@ def time_backward(card, results, max_err):
     dout = torch.randn(b, s, h, d, generator=g).to(DEVICE, torch.bfloat16)
     seed = seed_words(SEED + 6)
     out, lse = flash_attention_fwd(q, k, v, None, True, DROPOUT, seed)
-    args = (q, k, v, out, lse, dout, None, True, DROPOUT, seed)
+    args = (q, k, v, out, lse, dout, None, True, DROPOUT)
     # the kernels alone are timed on the forward's one draw of B4
     bits = draw_bits(q, k, True, DROPOUT, seed)
 
@@ -1282,7 +1294,7 @@ def time_backward(card, results, max_err):
     # flash_attention_bwd computes it once for both
     delta = fa._delta(out, dout)
     out0, lse0 = flash_attention_fwd(q, k, v, None, True)
-    no_drop = (q, k, v, out0, lse0, dout, None, True, 0.0, None)
+    no_drop = (q, k, v, out0, lse0, dout, None, True, 0.0)
     delta0 = fa._delta(out0, dout)
     for kind, fn in (("dq", flash_attention_bwd_dq),
                      ("dkv", flash_attention_bwd_dkv)):
@@ -1349,7 +1361,7 @@ def time_backward(card, results, max_err):
     a3 = (q3, k3, v3, o3, l3, do3, None, True)
     bound, by = backward_bound("fused", q3, k3, None, True)
     row = {"fused_ms": device_ms(lambda: flash_attention_bwd_fused(*a3)),
-           "b2_ms": device_ms(lambda: b2_pair(*a3, 0.0, None)),
+           "b2_ms": device_ms(lambda: b2_pair(*a3)),
            "plain_ms": device_ms(lambda: flash_attention_bwd_reference(*a3),
                                  calls=2, repeats=5),
            "bound_ms": bound, "bound_by": by}
@@ -1368,15 +1380,15 @@ def time_backward(card, results, max_err):
     return timings
 
 
-def b2_pair(q, k, v, out, lse, dout, mask, causal, rate, seed, delta=None,
-            keep_bits=None):
+def b2_pair(q, k, v, out, lse, dout, mask, causal, rate=0.0, keep_bits=None,
+            delta=None, q_offset=0):
     """B2a then B2b on one Δ and one set of keep bits, as
     ``flash_attention_bwd`` runs them (Δ computed here when not given)."""
     delta = fa._delta(out, dout) if delta is None else delta
     return (flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal,
-                                   rate, seed, delta, keep_bits=keep_bits),
+                                   rate, keep_bits, delta, q_offset),
             flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask, causal,
-                                    rate, seed, delta, keep_bits=keep_bits))
+                                    rate, keep_bits, delta, q_offset))
 
 
 def check_b3_bert_scale(card, results, max_err):
@@ -1422,7 +1434,7 @@ def check_b3_bert_scale(card, results, max_err):
                                             .abs().max())
         # the backward kernels alone: on the forward's one draw of B4
         bits = draw_bits(q, k, False, DROPOUT, seed)
-        args = (q, k, v, out, lse, dout, mask, False, DROPOUT, None)
+        args = (q, k, v, out, lse, dout, mask, False, DROPOUT)
         delta = fa._delta(out, dout)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -3023,7 +3035,7 @@ def phase_fp16_kernel(card, results):
     del ref_out, ref_lse
     # the kernels alone are timed on the forward's one draw of B4
     bits = draw_bits(q, k, True, DROPOUT, seed)
-    args = (q, k, v, out, lse, dout, None, True, DROPOUT, None)
+    args = (q, k, v, out, lse, dout, None, True, DROPOUT)
     delta = fa._delta(out, dout)
     grads = (flash_attention_bwd_dq(*args, delta=delta, keep_bits=bits),) \
         + flash_attention_bwd_dkv(*args, delta=delta, keep_bits=bits)
@@ -3107,7 +3119,7 @@ def phase_fp16_kernel(card, results):
         fp16_compare(f"bert B3 {name}", got, want, gtol, errs, "B3")
     del ref, ref_out
     bits = draw_bits(q, k, False, DROPOUT, seed)
-    args = (q, k, v, out, lse, dout, mask, False, DROPOUT, None)
+    args = (q, k, v, out, lse, dout, mask, False, DROPOUT)
     delta = fa._delta(out, dout)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -5414,14 +5426,16 @@ def tp_heads_check(label, bwd, shape, causal, mask):
                        dtype=torch.bfloat16)
     seed = torch.tensor([SEED + 34, 17], dtype=torch.int32, device=DEVICE)
     out, lse = flash_attention_fwd(q, k, v, mask, causal, DROPOUT, seed)
-    grads = bwd(q, k, v, out, lse, dout, mask, causal, DROPOUT, seed, 0, h)
+    bits = fa.draw_keep_bits(seed, b, h, s, s, DROPOUT, causal)
+    grads = bwd(q, k, v, out, lse, dout, mask, causal, DROPOUT, bits)
     lse = lse.view(b, h, s)
     for h0, h1 in TP_HEAD_RANGES:
         n, heads = h1 - h0, slice(h0, h1)
         part = [t[:, :, heads] for t in (q, k, v)]
         o, l = flash_attention_fwd(*part, mask, causal, DROPOUT, seed, h0, h)
         got = bwd(*part, o, l, dout[:, :, heads], mask, causal, DROPOUT,
-                  seed, h0, h)
+                  fa.draw_keep_bits(seed, b, n, s, s, DROPOUT, causal, h0,
+                                    h))
         check(torch.equal(o, out[:, :, heads])
               and torch.equal(l.view(b, n, s), lse[:, heads])
               and all(torch.equal(a, w[:, :, heads])
@@ -5471,16 +5485,16 @@ def tp_sparse_heads_check(label, layout, G, causal):
             "ranges": [list(r) for r in TP_HEAD_RANGES], "bitwise": True}
 
 
-def tp_b2(q, k, v, out, lse, dout, mask, causal, rate, seed, h0, h):
+def tp_b2(q, k, v, out, lse, dout, mask, causal, rate, bits):
     dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal, rate,
-                                seed, None, h0, h)
+                                bits)
     return (dq, *flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask,
-                                         causal, rate, seed, None, h0, h))
+                                         causal, rate, bits))
 
 
-def tp_b3(q, k, v, out, lse, dout, mask, causal, rate, seed, h0, h):
+def tp_b3(q, k, v, out, lse, dout, mask, causal, rate, bits):
     return flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
-                                     rate, seed, None, h0, h)
+                                     rate, bits)
 
 
 def sharded_layer(layer, ranks, x, seed):
@@ -5975,6 +5989,193 @@ def phase_ring(card, results):
           "d=64 bf16, forward and backward, against one FlashAttention "
           "call):", json.dumps(receipt))
     results["ring"] = receipt
+    return launches
+
+
+# ------------------------------------------------------- seq compose
+def fwd_bwd_ms(run):
+    """``(forward ms, backward ms)`` of an attention ``run(grad)``: the
+    forward alone and the forward with its backward, timed apart."""
+    fwd = device_ms(lambda: run(False), calls=1, repeats=3, warmup=1)
+    both = device_ms(lambda: run(True), calls=1, repeats=3, warmup=1)
+    return fwd, both - fwd
+
+
+def attention_runs(q, k, v, dout, **fns):
+    """``{name: run(grad)}`` of each attention ``fn(q, k, v)``: its out,
+    and with ``grad`` its dq, dk, dv for ``dout``."""
+    def make(fn):
+        def run(grad=True):
+            qkv = [x.clone().requires_grad_(grad) for x in (q, k, v)]
+            out = fn(*qkv)
+            if not grad:
+                return [out]
+            return [out.detach(), *torch.autograd.grad(out, qkv, dout)]
+        return run
+    return {name: make(fn) for name, fn in fns.items()}
+
+
+def seq_errors(label, got, one, plain):
+    """The gather core's and one call's max errors against the fp32
+    plain version, each output within ``RING_ERR_FACTOR`` of one call's
+    (phase 36's rule)."""
+    errs = {}
+    for name, x, y, ref in zip(("out", "dq", "dk", "dv"), got, one, plain):
+        e_got = (x.float() - ref).abs().max().item()
+        e_one = (y.float() - ref).abs().max().item()
+        errs[name] = {"gather": e_got, "one_call": e_one}
+        check(e_got <= RING_ERR_FACTOR * e_one,
+              f"seq {label}: {name} error {e_got} against the fp32 plain "
+              f"version exceeds {RING_ERR_FACTOR} x one call's {e_one}")
+    return errs
+
+
+def seq_dense_case(label, causal, padded, rate, seed):
+    """The dense gather core of ``RING_SHARDS`` shards in one process
+    (B1, B4 and B2a+B2b at each shard's query-row offset) against one
+    FlashAttention call and the ring at GPT-2-medium's attention in
+    bf16; B4's words of each shard bitwise its rows of one call's."""
+    b, h, s, d = RING_ATTN
+    n = RING_SHARDS
+    sl = s // n
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=g, device=DEVICE)
+                     .to(torch.bfloat16) for _ in range(4))
+    kpm = torch.zeros((b, s), device=DEVICE)
+    if padded:
+        kpm[:, s - s // n + 100:] = -1e9
+    mask = visible_keys(kpm)
+    words = seed_words(seed) if rate else None
+    keep, inv_keep = None, 1.0
+    if rate:
+        whole = fa.draw_keep_bits(words, b, h, s, s, rate, causal)
+        for r in range(n):
+            kv_len = (r + 1) * sl if causal else s
+            part = fa.draw_keep_bits(words, b, h, sl, kv_len, rate, causal,
+                                     q_offset=r * sl)
+            rows = whole[:, r * sl:(r + 1) * sl]
+            check(torch.equal(part, rows[..., :part.shape[-1]])
+                  and not rows[..., part.shape[-1]:].any(),
+                  f"seq {label}: B4's words at offset {r * sl} are not "
+                  f"the rows of one call's")
+        keep = fa.unpack_keep_bits(whole, s).view(b, h, s, s)
+        inv_keep = fa.dropout_thresh(rate)[1]
+        del whole
+    runs = attention_runs(
+        q, k, v, dout,
+        gather=lambda *x: ga.gather_flash_attention_local(
+            *x, n, causal, kpm, rate, words),
+        one=lambda *x: fa.FlashAttention.apply(*x, mask, words, causal,
+                                               rate, 0, None),
+        ring=lambda *x: ring_flash_attention_local(
+            *x, n, causal=causal, key_padding_mask=kpm))
+    plain_calls, restore = ring_plain_calls()
+    reset_launches()
+    try:
+        got = runs["gather"]()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        restore()
+    check(plain_calls[0] == 0, f"seq {label}: {plain_calls[0]} plain-"
+          f"version calls on the card")
+    check(launches["B1"] == n and launches["B2a"] == n
+          and launches["B2b"] == n and launches["B3"] == 0
+          and launches["B4"] == (n if rate else 0)
+          and launches["B4 applied"] == (3 * n if rate else 0),
+          f"seq {label}: launches {launches}, expected {n} each of B1, "
+          f"B2a, B2b{' and B4' if rate else ''} and no B3")
+    one = runs["one"]()
+    f32 = [x.float() for x in (q, k, v, dout)]
+    po, plse = flash_attention_reference(*f32[:3], mask, causal, keep,
+                                         inv_keep)
+    plain = [po, *flash_attention_bwd_reference(*f32[:3], po, plse, f32[3],
+                                                mask, causal, keep,
+                                                inv_keep)]
+    del po, plse, f32, keep
+    errs = seq_errors(label, got, one, plain)
+    del got, one, plain
+    times = {name: fwd_bwd_ms(run) for name, run in runs.items()}
+    return dict(launches), {
+        "label": label, "causal": causal, "padded": padded,
+        "dropout": rate, "shards": n, "errors": errs,
+        "b4_words_bitwise": bool(rate),
+        **{f"{name}_fwd_ms": t[0] for name, t in times.items()},
+        **{f"{name}_bwd_ms": t[1] for name, t in times.items()}}
+
+
+def seq_sparse_case(label, layout_kw, causal, seed):
+    """The sparse gather core of ``RING_SHARDS`` shards (each its block
+    rows of the whole layout at its offset: B5 at G = 1, B6 where G
+    divides the rows) against one call at the sparse training
+    attention in bf16."""
+    b, h, s, d = SPARSE_ATTN
+    n = RING_SHARDS
+    layout = FixedSparsityConfig(**layout_kw).make_layout(s)
+    G = ga.seq_sparse_factor(layout, s, n)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=g, device=DEVICE)
+                     .to(torch.bfloat16) for _ in range(4))
+    runs = attention_runs(
+        q, k, v, dout,
+        gather=lambda *x: ga.gather_block_sparse_attention_local(
+            *x, layout, n, causal),
+        one=lambda *x: fbs.flash_block_sparse_attention(*x, layout, causal))
+    reset_launches()
+    got = runs["gather"]()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    names = ("B5a", "B5b") if G == 1 else ("B6a", "B6b", "B6c")
+    others = ("B6a", "B6b", "B6c") if G == 1 else ("B5a", "B5b")
+    check(all(launches[x] == n for x in names)
+          and not any(launches[x] for x in others),
+          f"seq {label}: launches {launches}, expected {n} each of "
+          f"{names} (G = {G})")
+    one = runs["one"]()
+    f32 = [x.float() for x in (q, k, v, dout)]
+    po, plse = fbs.flash_block_sparse_reference(*f32[:3], layout, causal)
+    plain = [po, *fbs.flash_block_sparse_bwd_reference(
+        *f32[:3], po, plse, f32[3], layout, causal)]
+    del po, plse, f32
+    errs = seq_errors(label, got, one, plain)
+    del got, one, plain
+    times = {name: fwd_bwd_ms(run) for name, run in runs.items()}
+    return dict(launches), {
+        "label": label, "causal": causal, "G": G,
+        "block": layout_kw["block"], "shards": n, "errors": errs,
+        **{f"{name}_fwd_ms": t[0] for name, t in times.items()},
+        **{f"{name}_bwd_ms": t[1] for name, t in times.items()}}
+
+
+def phase_seq_compose(card, results):
+    """42. seq compose: the dense and sparse gather cores at N = 4 in one
+    process (GPT-2-medium causal attention with dropout, BERT-large
+    bidirectional with padding, the sparse GPT-2 and BERT layouts)
+    against one call, with the ring beside the dense cases."""
+    t0 = time.monotonic()
+    launches, rows = {}, []
+    cases = [(seq_dense_case, ("a gpt2 causal dropout", True, False,
+                               DROPOUT, SEED + 42)),
+             (seq_dense_case, ("b bert padded", False, True, 0.0,
+                               SEED + 43)),
+             (seq_sparse_case, ("c sparse gpt2", SPARSE_LAYOUT, True,
+                                SEED + 44)),
+             (seq_sparse_case, ("c sparse bert", BERT_SPARSE_LAYOUT, False,
+                                SEED + 45))]
+    for fn, args in cases:
+        got, row = fn(*args)
+        for name, count in got.items():
+            launches[name] = launches.get(name, 0) + count
+        rows.append(row)
+        print(f"seq compose {row['label']}: " + ", ".join(
+            f"{key} {row[key]:.4f}" for key in row if key.endswith("_ms"))
+            + f" [{card}]")
+    receipt = {"card": card, "cases": rows,
+               "seconds": time.monotonic() - t0}
+    print("seq compose receipt (one-process gather cores of 4 shards, "
+          "b=2 h=16 s=4096 d=64 bf16, against one call):",
+          json.dumps(receipt))
+    results["seq_compose"] = receipt
     return launches
 
 
@@ -6648,6 +6849,10 @@ def main(argv=None):
     # bitwise the run without offload, against one rank
     phase_offload_dp_cpu(results)
     lap("offload_dp_cpu")
+    # 42. seq compose: the dense and sparse gather cores at their
+    # query-row offsets, four shards in one process
+    seq_launches = phase_seq_compose(card, results)
+    lap("seq_compose")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -6671,7 +6876,8 @@ def main(argv=None):
              "onebit": onebit_launches, "pipe": pipe_launches,
              "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
              "telemetry": telemetry_launches,
-             "fleet_integrity": fleet38_launches, "a18": a18_launches}
+             "fleet_integrity": fleet38_launches, "a18": a18_launches,
+             "seq_compose": seq_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches + fleet_b1 + fleet38_b1

@@ -55,7 +55,8 @@ kernel.  It counts ``send`` and ``recv`` calls and bytes.
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, get_current_mesh
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS,
+                             get_current_mesh, sequence_is_whole)
 
 # torch 2.13 renamed the two flat-buffer collectives
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
@@ -364,6 +365,16 @@ class _GatherFrom(torch.autograd.Function):
         return grad.chunk(n, dim=ctx.dim)[me].contiguous(), None, None, None
 
 
+class _GatherSum(_GatherFrom):
+    @staticmethod
+    def backward(ctx, grad):
+        n = axis_size(ctx.axis_name, ctx.mesh)
+        parts = torch.stack(grad.chunk(n, dim=ctx.dim))
+        mine = reduce_scatter(parts, ctx.axis_name, mesh=ctx.mesh,
+                              tiled=False)
+        return mine, None, None, None
+
+
 def copy_to(x, axis_name, mesh=None):
     """Identity forward; the gradient sum-allreduced over ``axis_name``
     backward (Megatron's ``copy_to_model_parallel_region``): ``x`` is the
@@ -390,6 +401,18 @@ def gather_from(x, axis_name, dim=-1, mesh=None):
     return _GatherFrom.apply(x, axis_name, dim % x.dim(), mesh)
 
 
+def gather_seq(x, dim=1, mesh=None, axis_name=SEQ_AXIS):
+    """``x``'s chunks of every ``seq`` rank joined along ``dim`` (rank
+    order) forward; backward the gradient summed over the axis and cut to
+    this rank's chunk (a reduce-scatter), since every rank uses the whole
+    and each use sends its part of the gradient back to the chunk's
+    owner.  ``x`` itself at one rank."""
+    trivial, mesh = _trivial(axis_name, mesh)
+    if trivial:
+        return x
+    return _GatherSum.apply(x, axis_name, dim % x.dim(), mesh)
+
+
 def data_parallel_mean_count(count):
     """A loss's normaliser made global: ``max(total, 1) / n``, where
     ``total`` is ``count`` (this rank's number of counted items, a
@@ -400,11 +423,14 @@ def data_parallel_mean_count(count):
     batch is; where every rank counts the same, the mean count is the
     count itself.  Under ``seq`` each rank counts its chunk's items and
     its loss is a partial sum: the ``seq`` ranks' losses (and gradients)
-    summed, then averaged over ``data``, give the global mean.  Without
-    a mesh, or at one data and one seq rank, this is
-    ``count.clamp_min(1)``."""
+    summed, then averaged over ``data``, give the global mean; where
+    every ``seq`` rank holds the whole sequence
+    (:func:`~deepspeed_tpu_torch.parallel.mesh.whole_sequence`) the sum
+    runs over ``data`` alone.  Without a mesh, or at one rank of the
+    axes summed, this is ``count.clamp_min(1)``."""
     mesh = get_current_mesh()
-    if mesh is None or mesh.size((DATA_AXIS, SEQ_AXIS)) == 1:
+    axes = DATA_AXIS if sequence_is_whole() else (DATA_AXIS, SEQ_AXIS)
+    if mesh is None or mesh.size(axes) == 1:
         return count.clamp_min(1)
-    total = psum(count.float(), (DATA_AXIS, SEQ_AXIS), mesh)
+    total = psum(count.float(), axes, mesh)
     return total.clamp_min(1) / mesh.size(DATA_AXIS)

@@ -100,9 +100,10 @@ struct Strides {
 struct Layout {
   const int* lut;   // [H, nb, kmax] active key blocks of a q block
   const int* cnt;   // [H, nb]
-  const int* tlut;  // [H, nb, qmax] q blocks that attend a key block
-  const int* tcnt;  // [H, nb]
+  const int* tlut;  // [H, nbk, qmax] q blocks that attend a key block
+  const int* tcnt;  // [H, nbk]
   int layout_heads, nb, blk, kmax, qmax;
+  int nbk;    // key blocks (nb for a whole call; a chunk's rows see all)
   int parts;  // 64-row parts of one layout block
 };
 
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(2 * kRows)
     fbs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ out,
                    float* __restrict__ lse, Layout lay, int heads, int s,
-                   Strides st, float scale, int causal) {
+                   Strides st, float scale, int causal, int q_off) {
   constexpr int TPR = 2;          // threads per query row
   constexpr int SEG = D / TPR;    // head_dim elements each thread owns
   constexpr int THREADS = TPR * kRows;
@@ -151,8 +152,9 @@ __global__ void __launch_bounds__(2 * kRows)
   for (int t = 0; t < n_active; ++t) {
     const int kb0 = row_lut[t] * lay.blk;
     const int key_lim = kb0 + lay.blk;
-    // causal: rows q0 .. q_end-1 see no key past q_end-1
-    const int k_end = causal ? min(key_lim, q_end) : key_lim;
+    // causal: rows q0 .. q_end-1 (global q_off + q0 ..) see no key past
+    // q_off+q_end-1
+    const int k_end = causal ? min(key_lim, q_off + q_end) : key_lim;
     for (int k0 = kb0; k0 < k_end; k0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
       load_tile_pair<T, TPR, SEG>(k_s, v_s, kbase, st.k[1], vbase, st.v[1],
@@ -161,7 +163,7 @@ __global__ void __launch_bounds__(2 * kRows)
       // keys past the layout block's end belong to another tile
       ds_flash::sparse_fwd_tile<T, TPR, SEG>(
           k_s, v_s, seg, qr, acc, m, l, scale, [&](int j) {
-            return k0 + j < key_lim && (!causal || qi >= k0 + j);
+            return k0 + j < key_lim && (!causal || q_off + qi >= k0 + j);
           });
     }
   }
@@ -183,7 +185,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dq,
                       Layout lay, int heads, int s, Strides st, float scale,
-                      int causal) {
+                      int causal, int q_off) {
   constexpr int TPR = D / kEpt;  // threads per query row
   constexpr int THREADS = kRows * TPR;
   __shared__ __align__(16) float k_s[SpTile<TPR, kEpt>::kFloats];
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
   for (int t = 0; t < n_active; ++t) {
     const int kb0 = row_lut[t] * lay.blk;
     const int key_lim = kb0 + lay.blk;
-    const int k_end = causal ? min(key_lim, q_end) : key_lim;
+    const int k_end = causal ? min(key_lim, q_off + q_end) : key_lim;
     for (int k0 = kb0; k0 < k_end; k0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
       load_tile_pair<T, TPR, kEpt>(k_s, v_s, kbase, st.k[1], vbase,
@@ -230,7 +232,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
       __syncthreads();
       ds_flash::sparse_dq_tile<T, TPR, kEpt>(
           k_s, v_s, part, qr, dor, acc, lse_i, delta_i, scale, [&](int j) {
-            return k0 + j < key_lim && (!causal || qi >= k0 + j);
+            return k0 + j < key_lim && (!causal || q_off + qi >= k0 + j);
           });
     }
   }
@@ -250,7 +252,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dk,
                        T* __restrict__ dv, Layout lay, int heads, int s,
-                       Strides st, float scale, int causal) {
+                       Strides st, float scale, int causal, int q_off) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kRows * TPR;
   __shared__ __align__(16) float q_s[SpTile<TPR, kEpt>::kFloats];
@@ -280,16 +282,17 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
 #pragma unroll
   for (int e = 0; e < kEpt; ++e) dka[e] = dva[e] = 0.f;
 
-  const int n_active = lay.tcnt[lh * lay.nb + kb];
-  const int* col_lut = lay.tlut + ((int64_t)lh * lay.nb + kb) * lay.qmax;
+  const int n_active = lay.tcnt[lh * lay.nbk + kb];
+  const int* col_lut = lay.tlut + ((int64_t)lh * lay.nbk + kb) * lay.qmax;
   const T* qbase = q + b * st.q[0] + h * st.q[2];
   const T* obase = dout + b * st.o[0] + h * st.o[2];
 
   for (int t = 0; t < n_active; ++t) {
     const int qb0 = col_lut[t] * lay.blk;
     const int i_end = qb0 + lay.blk;
-    // causal: rows before k0 see none of this block's keys
-    const int i_begin = causal ? max(qb0, k0) : qb0;
+    // causal: rows before global row k0 (local k0 - q_off) see none of
+    // this block's keys
+    const int i_begin = causal ? max(qb0, k0 - q_off) : qb0;
     for (int i0 = i_begin; i0 < i_end; i0 += kSpTile) {
       __syncthreads();  // every thread is done with the previous tile
       load_tile_pair<T, TPR, kEpt>(q_s, o_s, qbase, st.q[1], obase, st.o[1],
@@ -301,7 +304,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
           q_s, o_s, lse_s, delta_s, part, kr, vr, dka, dva, scale,
           [&](int r) {
             const int i = i0 + r;
-            return k_valid && i < i_end && (!causal || i >= kj);
+            return k_valid && i < i_end && (!causal || q_off + i >= kj);
           });
     }
   }
@@ -325,7 +328,7 @@ struct Args {
   int batch, heads, s;
   Strides st;
   float scale;
-  int causal;
+  int causal, q_off;
   cudaStream_t stream;
 };
 
@@ -336,7 +339,7 @@ int launch_fwd(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out),
       static_cast<float*>(a.lse_out), a.lay, a.heads, a.s, a.st, a.scale,
-      a.causal);
+      a.causal, a.q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,15 +351,17 @@ int launch_bwd(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.lay, a.heads, a.s, a.st, a.scale, a.causal);
+      static_cast<T*>(a.dq), a.lay, a.heads, a.s, a.st, a.scale, a.causal,
+      a.q_off);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  fbs_bwd_dkv_kernel<T, D><<<grid, threads, 0, a.stream>>>(
+  const dim3 kv_grid(a.lay.nbk * a.lay.parts, a.batch * a.heads);
+  fbs_bwd_dkv_kernel<T, D><<<kv_grid, threads, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.lay, a.heads, a.s,
-      a.st, a.scale, a.causal);
+      a.st, a.scale, a.causal, a.q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,6 +374,7 @@ int launch(bool backward, const Args& a) {
 // flash_block_sparse_agg.cu at G = 1, so bf16 here is refused
 int dispatch(bool backward, int dtype, int head_dim, const Args& a) {
   if (a.lay.blk <= 0 || a.lay.nb <= 0 || a.lay.nb * a.lay.blk != a.s ||
+      a.lay.nbk <= 0 || a.q_off < 0 || a.q_off % a.lay.blk != 0 ||
       a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(backward, a);
@@ -378,7 +384,7 @@ int dispatch(bool backward, int dtype, int head_dim, const Args& a) {
 
 Layout make_layout(const void* lut, const void* cnt, const void* tlut,
                    const void* tcnt, int layout_heads, int nb, int s,
-                   int kmax, int qmax) {
+                   int kv_len, int kmax, int qmax) {
   Layout lay;
   lay.lut = static_cast<const int*>(lut);
   lay.cnt = static_cast<const int*>(cnt);
@@ -387,6 +393,7 @@ Layout make_layout(const void* lut, const void* cnt, const void* tlut,
   lay.layout_heads = layout_heads;
   lay.nb = nb;
   lay.blk = nb > 0 ? s / nb : 0;
+  lay.nbk = lay.blk > 0 ? kv_len / lay.blk : 0;
   lay.kmax = kmax;
   lay.qmax = qmax;
   lay.parts = (lay.blk + kRows - 1) / kRows;
@@ -402,22 +409,26 @@ Layout make_layout(const void* lut, const void* cnt, const void* tlut,
 // v.  out is a contiguous [b, s, h, d] of the input dtype and lse a
 // contiguous fp32 [b·h, s].  lut [H, nb, kmax] and cnt [H, nb] are int32
 // in device memory (build_block_luts); H = layout_heads is 1 or `heads`;
-// s = nb·blk.
+// s = nb·blk.  A sequence-parallel rank's chunk passes its nb block rows
+// of the layout against `kv_len` gathered keys (k and v [b, kv_len, h,
+// d]), its first global row `q_off` (a multiple of blk), which the
+// causal test counts; a whole call passes kv_len = s and q_off = 0.
 // Launches on `stream`, does not synchronise, allocates nothing, and
 // returns cudaGetLastError().
 extern "C" int ds_flash_block_sparse_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     void* out, void* lse, const void* lut, const void* cnt, int batch,
     int heads, int s, int nb, int layout_heads, int kmax,
-    const int64_t* strides, float scale, int causal, void* stream) {
+    const int64_t* strides, float scale, int causal, int kv_len, int q_off,
+    void* stream) {
   Args a = {};
   a.q = q;
   a.k = k;
   a.v = v;
   a.out = out;
   a.lse_out = lse;
-  a.lay = make_layout(lut, cnt, nullptr, nullptr, layout_heads, nb, s, kmax,
-                      0);
+  a.lay = make_layout(lut, cnt, nullptr, nullptr, layout_heads, nb, s,
+                      kv_len, kmax, 0);
   a.batch = batch;
   a.heads = heads;
   a.s = s;
@@ -428,6 +439,7 @@ extern "C" int ds_flash_block_sparse_fwd(
   }
   a.scale = scale;
   a.causal = causal;
+  a.q_off = q_off;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(false, dtype, head_dim, a);
 }
@@ -436,8 +448,9 @@ extern "C" int ds_flash_block_sparse_fwd(
 // call returns cudaErrorInvalidValue (it runs on ds_fbs_agg_bwd_dq and
 // ds_fbs_agg_bwd_dkv at G = 1).  As above, with
 // dout [b, s, h, d] (last dim contiguous), lse and delta contiguous fp32
-// [b·h, s], tlut [H, nb, qmax] and tcnt [H, nb] the transposed look-up
-// table, and `strides` 18 host int64 element strides: (batch, seq, head)
+// [b·h, s], tlut [H, kv_len/blk, qmax] and tcnt [H, kv_len/blk] the
+// transposed look-up table (dk and dv [b, kv_len, h, d], a chunk's
+// partials), and `strides` 18 host int64 element strides: (batch, seq, head)
 // of q, k, v, dout, dq and of dk/dv (which share them).
 extern "C" int ds_flash_block_sparse_bwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -445,7 +458,7 @@ extern "C" int ds_flash_block_sparse_bwd(
     void* dv, const void* lut, const void* cnt, const void* tlut,
     const void* tcnt, int batch, int heads, int s, int nb, int layout_heads,
     int kmax, int qmax, const int64_t* strides, float scale, int causal,
-    void* stream) {
+    int kv_len, int q_off, void* stream) {
   Args a = {};
   a.q = q;
   a.k = k;
@@ -456,7 +469,8 @@ extern "C" int ds_flash_block_sparse_bwd(
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.lay = make_layout(lut, cnt, tlut, tcnt, layout_heads, nb, s, kmax, qmax);
+  a.lay = make_layout(lut, cnt, tlut, tcnt, layout_heads, nb, s, kv_len,
+                      kmax, qmax);
   a.batch = batch;
   a.heads = heads;
   a.s = s;
@@ -470,6 +484,7 @@ extern "C" int ds_flash_block_sparse_bwd(
   }
   a.scale = scale;
   a.causal = causal;
+  a.q_off = q_off;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(true, dtype, head_dim, a);
 }

@@ -172,6 +172,14 @@ struct Part {
     g_lo = (r0 - base) / lay.blk;
     g_hi = (r_end - 1 - base) / lay.blk;
   }
+  // the same rows d further on (a chunk's rows at their global place)
+  __device__ Part shifted(int d) const {
+    Part r = *this;
+    r.base += d;
+    r.r0 += d;
+    r.r_end += d;
+    return r;
+  }
 };
 
 // ----------------------------------------------------------------- B6a
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(2 * kRows)
     agg_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ out,
                    float* __restrict__ lse, SuperLayout lay, int heads, int s,
-                   Strides st, float scale, int causal) {
+                   Strides st, float scale, int causal, int q_off) {
   constexpr int TPR = 2;         // threads per query row
   constexpr int SEG = D / TPR;   // head_dim elements each thread owns
   constexpr int THREADS = TPR * kRows;
@@ -224,8 +232,9 @@ __global__ void __launch_bounds__(2 * kRows)
     const uint32_t mine = (bits >> (my_g * lay.G)) & g_mask;
     const uint32_t block_cols = cols_of_rows(bits, lay.G, p.g_lo, p.g_hi);
     const int key_lim = c_base + lay.n;
-    // causal: rows r0 .. r_end-1 see no key past r_end-1
-    const int k_end = causal ? min(key_lim, p.r_end) : key_lim;
+    // causal: rows r0 .. r_end-1 (global q_off + r0 ..) see no key past
+    // q_off+r_end-1
+    const int k_end = causal ? min(key_lim, q_off + p.r_end) : key_lim;
     for (int k0 = c_base; k0 < k_end; k0 += kSpTile) {
       const int c_lo = (k0 - c_base) / lay.blk;
       const int c_hi = (min(k0 + kSpTile, key_lim) - 1 - c_base) / lay.blk;
@@ -240,7 +249,8 @@ __global__ void __launch_bounds__(2 * kRows)
       __syncthreads();
       ds_flash::sparse_fwd_tile<T, TPR, SEG>(
           k_s, v_s, seg, qr, acc, m, l, scale, [&](int j) {
-            return ((mine >> col_s[j]) & 1u) && (!causal || qi >= k0 + j);
+            return ((mine >> col_s[j]) & 1u) &&
+                   (!causal || q_off + qi >= k0 + j);
           });
     }
   }
@@ -262,7 +272,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dq,
                       SuperLayout lay, int heads, int s, Strides st,
-                      float scale, int causal) {
+                      float scale, int causal, int q_off) {
   constexpr int TPR = D / kEpt;  // threads per query row
   constexpr int THREADS = kRows * TPR;
   __shared__ __align__(16) float k_s[SpTile<TPR, kEpt>::kFloats];
@@ -309,7 +319,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
     const uint32_t mine = (bits >> (my_g * lay.G)) & g_mask;
     const uint32_t block_cols = cols_of_rows(bits, lay.G, p.g_lo, p.g_hi);
     const int key_lim = c_base + lay.n;
-    const int k_end = causal ? min(key_lim, p.r_end) : key_lim;
+    const int k_end = causal ? min(key_lim, q_off + p.r_end) : key_lim;
     for (int k0 = c_base; k0 < k_end; k0 += kSpTile) {
       const int c_lo = (k0 - c_base) / lay.blk;
       const int c_hi = (min(k0 + kSpTile, key_lim) - 1 - c_base) / lay.blk;
@@ -324,7 +334,8 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
       __syncthreads();
       ds_flash::sparse_dq_tile<T, TPR, kEpt>(
           k_s, v_s, part, qr, dor, acc, lse_i, delta_i, scale, [&](int j) {
-            return ((mine >> col_s[j]) & 1u) && (!causal || qi >= k0 + j);
+            return ((mine >> col_s[j]) & 1u) &&
+                   (!causal || q_off + qi >= k0 + j);
           });
     }
   }
@@ -345,7 +356,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dk,
                        T* __restrict__ dv, SuperLayout lay, int heads, int s,
-                       Strides st, float scale, int causal) {
+                       Strides st, float scale, int causal, int q_off) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kRows * TPR;
   __shared__ __align__(16) float q_s[SpTile<TPR, kEpt>::kFloats];
@@ -391,8 +402,9 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
     const uint32_t mine = rows_of_cols(bits, lay.G, my_g, my_g);
     const uint32_t block_rows = rows_of_cols(bits, lay.G, p.g_lo, p.g_hi);
     const int i_end = r_base + lay.n;
-    // causal: rows before r0 see none of this block's keys
-    const int i_begin = causal ? max(r_base, p.r0) : r_base;
+    // causal: rows before global row r0 (local r0 - q_off) see none of
+    // this block's keys
+    const int i_begin = causal ? max(r_base, p.r0 - q_off) : r_base;
     for (int i0 = i_begin; i0 < i_end; i0 += kSpTile) {
       const int g_lo = (i0 - r_base) / lay.blk;
       const int g_hi = (min(i0 + kSpTile, i_end) - 1 - r_base) / lay.blk;
@@ -411,7 +423,7 @@ __global__ void __launch_bounds__(kRows * (D / kEpt))
           q_s, o_s, lse_s, delta_s, part, kr, vr, dka, dva, scale,
           [&](int r) {
             return k_valid && ((mine >> row_s[r]) & 1u) &&
-                   (!causal || i0 + r >= kj);
+                   (!causal || q_off + i0 + r >= kj);
           });
     }
   }
@@ -523,8 +535,9 @@ struct TileWalk {
   const int* mask;  // and of smask (stmask)
   int n_active;
   const SuperLayout& lay;
-  const Part& p;
+  Part p;      // the block's own rows (keys), at their global place
   int causal;
+  int x_shift;  // what takes the other side's rows to their global place
   int t = 0, j = 0;  // the next candidate: super-tile t, tile j
 
   // Whether the tile [x0, x_end) of the super-tile at `ob` holds an
@@ -571,7 +584,8 @@ struct TileWalk {
         const int x0 = ob + j * kMmaTileRows;
         const int x_end = min(x0 + kMmaTileRows, ob + lay.n);
         bool full;
-        if (classify(bits, ob, x0, x_end, full)) {
+        if (classify(bits, ob + x_shift, x0 + x_shift, x_end + x_shift,
+                     full)) {
           o = OtherTile{x0, ob, ob + lay.n, bits, full};
           ++j;
           return true;
@@ -597,7 +611,7 @@ __global__ void __launch_bounds__(kMmaThreads,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, SuperLayout lay,
                        const int* __restrict__ order, int heads, int s,
-                       Strides st, float scale, int causal) {
+                       Strides st, float scale, int causal, int q_off) {
   using Tile = MmaTile<D>;
   constexpr int KN = kMmaTileRows;  // keys per streamed tile
   constexpr float kLn2 = 0.6931471805599453f;
@@ -619,8 +633,8 @@ __global__ void __launch_bounds__(kMmaThreads,
   const int64_t row_off = (int64_t)own.lh * lay.ns + own.tile;
   const int n_active = lay.cnt[row_off];
   TileWalk<true> walk{lay.lut + row_off * lay.width,
-                      lay.mask + row_off * lay.width, n_active, lay, p,
-                      causal};
+                      lay.mask + row_off * lay.width, n_active, lay,
+                      p.shifted(q_off), causal, 0};
 
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
@@ -707,7 +721,7 @@ __global__ void __launch_bounds__(kMmaThreads,
           const int x = cur.x0 + 8 * n + 2 * t + (e & 1);
           const bool vis =
               x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
-              (!causal || row[hh] >= x);
+              (!causal || q_off + row[hh] >= x);
           if (!vis) sc[n][e] = kNegInf;
         }
       }
@@ -817,7 +831,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
                           const float* __restrict__ delta,
                           T* __restrict__ dq, SuperLayout lay,
                           const int* __restrict__ order, int heads, int s,
-                          Strides st, float scale, int causal) {
+                          Strides st, float scale, int causal, int q_off) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char agg_smem[];
@@ -839,7 +853,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
   const int64_t row_off = (int64_t)own.lh * lay.ns + own.tile;
   TileWalk<true> walk{lay.lut + row_off * lay.width,
                       lay.mask + row_off * lay.width, lay.cnt[row_off], lay,
-                      p, causal};
+                      p.shifted(q_off), causal, 0};
 
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
@@ -937,7 +951,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dq : 1)
           const bool vis =
               cur.full ||
               (x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
-               (!causal || row[hh] >= x));
+               (!causal || q_off + row[hh] >= x));
           const float pr =
               vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
           sc[n][e] = pr * (dp[n][e] - dlt[hh]);
@@ -993,7 +1007,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
                            T* __restrict__ dk, T* __restrict__ dv,
                            SuperLayout lay, const int* __restrict__ order,
                            int heads, int s, Strides st, float scale,
-                           int causal) {
+                           int causal, int q_off) {
   using Tile = MmaTile<D>;
   constexpr int KC = kMmaChunk;
   extern __shared__ __align__(16) unsigned char agg_smem[];
@@ -1017,7 +1031,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
   const int64_t col_off = (int64_t)own.lh * lay.ns + own.tile;
   TileWalk<false> walk{lay.lut + col_off * lay.width,
                        lay.mask + col_off * lay.width, lay.cnt[col_off], lay,
-                       p, causal};
+                       p, causal, q_off};
 
   const T* qbase = q + b * st.q[0] + h * st.q[2];
   const T* obase = dout + b * st.o[0] + h * st.o[2];
@@ -1121,7 +1135,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? kAggMinBlocks64Dkv : 1)
           const bool vis =
               cur.full ||
               (x < cur.x_lim && ((sel[hh] >> ((x - cur.ob) / lay.blk)) & 1u) &&
-               (!causal || x >= key[hh]));
+               (!causal || q_off + x >= key[hh]));
           const float pr =
               vis ? ex2_approx(fmaf(sc[n][e], scale2, nl[col])) : 0.f;
           sc[n][e] = pr;
@@ -1177,9 +1191,10 @@ struct Args {
   const int* order;  // the 16-bit kernels' launch order
   SuperLayout lay;
   int batch, heads, s;
+  int own;  // the length the tables' super-rows cut: s, or kv_len (B6c)
   Strides st;
   float scale;
-  int causal;
+  int causal, q_off;
   cudaStream_t stream;
 };
 
@@ -1210,7 +1225,7 @@ int launch_mma(Kind kind, const Args& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
     agg_fwd_mma_kernel<T, D><<<grid, kMmaThreads, fwd_bytes, a.stream>>>(
         q, k, v, static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
-        l, a.order, a.heads, a.s, a.st, a.scale, a.causal);
+        l, a.order, a.heads, a.s, a.st, a.scale, a.causal, a.q_off);
   } else if (kind == kDq) {
     err = cudaFuncSetAttribute(agg_bwd_dq_mma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1218,7 +1233,7 @@ int launch_mma(Kind kind, const Args& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
     agg_bwd_dq_mma_kernel<T, D><<<grid, kMmaThreads, bytes, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<T*>(a.grad), l, a.order,
-        a.heads, a.s, a.st, a.scale, a.causal);
+        a.heads, a.s, a.st, a.scale, a.causal, a.q_off);
   } else {
     err = cudaFuncSetAttribute(agg_bwd_dkv_mma_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1227,7 +1242,7 @@ int launch_mma(Kind kind, const Args& a) {
     agg_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, bytes, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<T*>(a.grad),
         static_cast<T*>(a.dv), l, a.order, a.heads, a.s, a.st, a.scale,
-        a.causal);
+        a.causal, a.q_off);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1242,19 +1257,19 @@ int launch_scalar(Kind kind, const Args& a) {
   if (kind == kFwd) {
     agg_fwd_kernel<float, D><<<grid, 2 * kRows, 0, a.stream>>>(
         q, k, v, static_cast<float*>(a.out), static_cast<float*>(a.lse_out),
-        a.lay, a.heads, a.s, a.st, a.scale, a.causal);
+        a.lay, a.heads, a.s, a.st, a.scale, a.causal, a.q_off);
   } else if (kind == kDq) {
     agg_bwd_dq_kernel<float, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
         q, k, v, static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<float*>(a.grad), a.lay, a.heads, a.s, a.st, a.scale,
-        a.causal);
+        a.causal, a.q_off);
   } else {
     agg_bwd_dkv_kernel<float, D><<<grid, kRows * (D / kEpt), 0, a.stream>>>(
         q, k, v, static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<float*>(a.grad), static_cast<float*>(a.dv), a.lay,
-        a.heads, a.s, a.st, a.scale, a.causal);
+        a.heads, a.s, a.st, a.scale, a.causal, a.q_off);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1262,7 +1277,8 @@ int launch_scalar(Kind kind, const Args& a) {
 int dispatch(Kind kind, int dtype, int head_dim, const Args& a) {
   const SuperLayout& l = a.lay;
   if (l.G < 1 || l.G * l.G > 32 || l.blk <= 0 || l.ns <= 0 ||
-      l.ns * l.n != a.s || a.batch * a.heads > 65535)
+      l.ns * l.n != a.own || a.q_off < 0 || a.q_off % l.n != 0 ||
+      a.batch * a.heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   // Built twice (op_builder): without DS_AGG_FP16 the fp32 and bf16
   // kernels, with it the fp16 ones, so the two builds of the tensor-core
@@ -1283,7 +1299,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
                const void* cnt, const void* mask, int batch, int heads,
                int s, int ns, int layout_heads, int G, int width,
                const int64_t* strides, int n_strides, float scale,
-               int causal, void* stream) {
+               int causal, int own, int q_off, void* stream) {
   Args a = {};
   a.q = q;
   a.k = k;
@@ -1295,18 +1311,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
   l.layout_heads = layout_heads;
   l.ns = ns;
   l.G = G;
-  l.blk = (ns > 0 && G > 0) ? s / (ns * G) : 0;
+  l.blk = (ns > 0 && G > 0) ? own / (ns * G) : 0;
   l.width = width;
   l.n = G * l.blk;
   l.parts = (l.n + kRows - 1) / kRows;
   a.batch = batch;
   a.heads = heads;
   a.s = s;
+  a.own = own;
   int64_t* dst[5] = {a.st.q, a.st.k, a.st.v, a.st.o, a.st.grad};
   for (int t = 0; t < n_strides / 3; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   a.scale = scale;
   a.causal = causal;
+  a.q_off = q_off;
   a.stream = static_cast<cudaStream_t>(stream);
   return a;
 }
@@ -1323,8 +1341,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
 // launch order in device memory (build_launch_order's dq order); the
 // 16-bit kernels read it, the fp32 one launches in grid order.  16-bit rows
 // must be 16-byte aligned with strides that are multiples of 8 elements
-// (the wrapper checks).  Launches on `stream`, does not synchronise,
-// allocates nothing, and returns cudaGetLastError().
+// (the wrapper checks).  A sequence-parallel rank's chunk passes its
+// rows' tables (s = its rows, ns its super q-rows) against its gathered
+// keys (k and v [b, kv_len, h, d], kv_len the tables' key columns) and
+// its first global row q_off (a multiple of G·blk), which the causal
+// tests count; a whole call passes q_off = 0.  Launches on `stream`, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int ds_fbs_agg_fwd(int dtype, int head_dim, const void* q,
                               const void* k, const void* v, void* out,
                               void* lse, const void* slut, const void* scnt,
@@ -1332,10 +1354,10 @@ extern "C" int ds_fbs_agg_fwd(int dtype, int head_dim, const void* q,
                               int batch, int heads, int s, int ns,
                               int layout_heads, int G, int tmax,
                               const int64_t* strides, float scale, int causal,
-                              void* stream) {
+                              int q_off, void* stream) {
   Args a = make_args(q, k, v, slut, scnt, smask, batch, heads, s, ns,
-                     layout_heads, G, tmax, strides, 9, scale, causal,
-                     stream);
+                     layout_heads, G, tmax, strides, 9, scale, causal, s,
+                     q_off, stream);
   a.order = static_cast<const int*>(order);
   a.out = out;
   a.lse_out = lse;
@@ -1359,10 +1381,10 @@ extern "C" int ds_fbs_agg_bwd_dq(int dtype, int head_dim, const void* q,
                                  int batch, int heads, int s, int ns,
                                  int layout_heads, int G, int tmax,
                                  const int64_t* strides, float scale,
-                                 int causal, void* stream) {
+                                 int causal, int q_off, void* stream) {
   Args a = make_args(q, k, v, slut, scnt, smask, batch, heads, s, ns,
-                     layout_heads, G, tmax, strides, 15, scale, causal,
-                     stream);
+                     layout_heads, G, tmax, strides, 15, scale, causal, s,
+                     q_off, stream);
   a.order = static_cast<const int*>(order);
   a.dout = dout;
   a.lse = lse;
@@ -1371,9 +1393,11 @@ extern "C" int ds_fbs_agg_bwd_dq(int dtype, int head_dim, const void* q,
   return dispatch(kDq, dtype, head_dim, a);
 }
 
-// B6c: dk and dv [b, s, h, d] (sharing the strides given as the fifth
-// triple) over the transposed tables stlut/stcnt/stmask ([H, ns, qmax],
-// [H, ns], [H, ns, qmax]) and their own launch order.  Otherwise as
+// B6c: dk and dv [b, kv_len, h, d] (sharing the strides given as the
+// fifth triple; a chunk's partials; kv_len the keys the transposed
+// tables' ns super key columns cut) over the transposed tables
+// stlut/stcnt/stmask ([H, ns, qmax], [H, ns], [H, ns, qmax], ns the super
+// key columns of kv_len) and their own launch order.  Otherwise as
 // ds_fbs_agg_bwd_dq.
 extern "C" int ds_fbs_agg_bwd_dkv(int dtype, int head_dim, const void* q,
                                   const void* k, const void* v,
@@ -1384,10 +1408,11 @@ extern "C" int ds_fbs_agg_bwd_dkv(int dtype, int head_dim, const void* q,
                                   int batch, int heads, int s, int ns,
                                   int layout_heads, int G, int qmax,
                                   const int64_t* strides, float scale,
-                                  int causal, void* stream) {
+                                  int causal, int kv_len, int q_off,
+                                  void* stream) {
   Args a = make_args(q, k, v, stlut, stcnt, stmask, batch, heads, s, ns,
                      layout_heads, G, qmax, strides, 15, scale, causal,
-                     stream);
+                     kv_len, q_off, stream);
   a.order = static_cast<const int*>(order);
   a.dout = dout;
   a.lse = lse;

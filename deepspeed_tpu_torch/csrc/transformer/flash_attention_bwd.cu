@@ -188,7 +188,7 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
                         const float* __restrict__ delta,
                         const float* __restrict__ kv_mask,
                         T* __restrict__ dq, int heads, int s, int kv_len,
-                        Strides st, float scale, int causal,
+                        Strides st, float scale, int causal, int q_offset,
                         const uint32_t* __restrict__ keep_bits,
                         int keep_words, float inv_keep) {
   constexpr int TPR = D / kEpt;  // threads per query row
@@ -224,8 +224,9 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
-  // causal: rows q0 .. q0+kDqRows-1 see no key past q0+kDqRows-1
-  const int k_end = causal ? min(kv_len, q0 + kDqRows) : kv_len;
+  // causal: rows q0 .. q0+kDqRows-1 (global rows q_offset + q0 ..) see
+  // no key past q_offset+q0+kDqRows-1
+  const int k_end = causal ? min(kv_len, q_offset + q0 + kDqRows) : kv_len;
 
   for (int k0 = 0; k0 < k_end; k0 += kDqKeys) {
     __syncthreads();  // every thread is done with the previous tile
@@ -274,7 +275,8 @@ __global__ void __launch_bounds__(kDqRows * (D / kEpt))
       }
       sp = lane_sum<TPR>(sp);
       dp = lane_sum<TPR>(dp);
-      const bool visible = mask_s[j] > 0.f && (!causal || qi >= k0 + j);
+      const bool visible =
+          mask_s[j] > 0.f && (!causal || q_offset + qi >= k0 + j);
       const float p = expf((visible ? sp * scale : kNegInf) - lse_i);
       if (dr.on) dp = (keep >> j) & 1u ? dp * dr.inv_keep : 0.f;
       const float ds = round_to<T>(p * (dp - delta_i));
@@ -310,7 +312,8 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
                          const float* __restrict__ kv_mask,
                          T* __restrict__ dk, T* __restrict__ dv, int heads,
                          int s, int kv_len, Strides st, float scale,
-                         int causal, const uint32_t* __restrict__ keep_bits,
+                         int causal, int q_offset,
+                         const uint32_t* __restrict__ keep_bits,
                          int keep_words, float inv_keep) {
   constexpr int TPR = D / kEpt;  // threads per key
   constexpr int THREADS = kKvKeys * TPR;
@@ -345,8 +348,9 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
 
   const T* qbase = q + b * st.q[0] + h * st.q[2];
   const T* obase = dout + b * st.o[0] + h * st.o[2];
-  // causal: rows before k0 see none of this block's keys
-  const int i_begin = causal ? min(k0, s) : 0;
+  // causal: rows before global row k0 (local k0 - q_offset) see none of
+  // this block's keys
+  const int i_begin = causal ? min(max(k0 - q_offset, 0), s) : 0;
 
   for (int i0 = i_begin; i0 < s; i0 += kKvRows) {
     __syncthreads();  // every thread is done with the previous tile
@@ -403,7 +407,8 @@ __global__ void __launch_bounds__(kKvKeys * (D / kEpt))
       }
       sp = lane_sum<TPR>(sp);
       dp = lane_sum<TPR>(dp);
-      const bool visible = key_visible && i < s && (!causal || i >= kj);
+      const bool visible =
+          key_visible && i < s && (!causal || q_offset + i >= kj);
       const float p = expf((visible ? sp * scale : kNegInf) - lse_s[r]);
       float pv = p;
       if (dr.on) {
@@ -489,6 +494,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                             const float* __restrict__ kv_mask,
                             T* __restrict__ dq, int heads, int s,
                             int kv_len, Strides st, float scale, int causal,
+                            int q_offset,
                             const uint32_t* __restrict__ keep_bits,
                             int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
@@ -517,8 +523,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const T* kbase = k + b * st.k[0] + h * st.k[2];
   const T* vbase = v + b * st.v[0] + h * st.v[2];
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
-  // causal: rows q0 .. q0+63 see no key past q0+63
-  const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
+  // causal: rows q0 .. q0+63 (global rows q_offset + q0 ..) see no key
+  // past q_offset+q0+63
+  const int k_end =
+      causal ? min(kv_len, q_offset + q0 + kMmaTileRows) : kv_len;
   const int n_tiles = (k_end + kMmaTileRows - 1) / kMmaTileRows;
 
   auto issue = [&](int j) {
@@ -620,7 +628,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
           const int hh = e >> 1;
           const int jj = kt0 + kl + (e & 1);
           const bool vis = ((e & 1) ? mk.y : mk.x) > 0.f &&
-                           (!causal || q0 + wr + g + 8 * hh >= jj);
+                           (!causal || q_offset + q0 + wr + g + 8 * hh >= jj);
           const float p =
               vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
           float d = dp[n][e];
@@ -673,7 +681,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                              const float* __restrict__ kv_mask,
                              T* __restrict__ dk, T* __restrict__ dv,
                              int heads, int s, int kv_len, Strides st,
-                             float scale, int causal,
+                             float scale, int causal, int q_offset,
                              const uint32_t* __restrict__ keep_bits,
                              int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
@@ -702,8 +710,9 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
   const T* obase = dout + b * st.o[0] + h * st.o[2];
   const float* lrow = lse + (int64_t)bh * s;
   const float* drow = delta + (int64_t)bh * s;
-  // causal: rows before k0 see none of this block's keys
-  const int i_begin = causal ? min(k0, s) : 0;
+  // causal: rows before global row k0 (local k0 - q_offset) see none of
+  // this block's keys
+  const int i_begin = causal ? min(max(k0 - q_offset, 0), s) : 0;
   const int n_tiles = (s - i_begin + kMmaTileRows - 1) / kMmaTileRows;
 
   auto issue = [&](int j) {
@@ -805,7 +814,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
           const int kl = wk + g + 8 * hh;  // key in the block
           const int i = i0 + rl + col;
           const bool vis =
-              key_vis[hh] && i < s && (!causal || i >= k0 + kl);
+              key_vis[hh] && i < s && (!causal || q_offset + i >= k0 + kl);
           const float p =
               vis ? ex2_approx(fmaf(sc[n][e], scale2, nl[col])) : 0.f;
           float d = dp[n][e];
@@ -881,7 +890,7 @@ __global__ void __launch_bounds__(kFusedThreads)
                            const float* __restrict__ kv_mask,
                            T* __restrict__ dq, T* __restrict__ dk,
                            T* __restrict__ dv, int heads, int s, int kv_len,
-                           Strides st, float scale, int causal,
+                           Strides st, float scale, int causal, int q_offset,
                            const uint32_t* __restrict__ keep_bits,
                            int keep_words, float inv_keep) {
   constexpr int KROW = D + 1;  // padded: threads walking keys hit all banks
@@ -938,7 +947,7 @@ __global__ void __launch_bounds__(kFusedThreads)
     float sp = 0.f;
 #pragma unroll 16
     for (int d = 0; d < D; ++d) sp = fmaf(qr[d], kr[d], sp);
-    const bool visible = mask_s[j] > 0.f && (!causal || i >= j);
+    const bool visible = mask_s[j] > 0.f && (!causal || q_offset + i >= j);
     t_s[e] = expf((visible ? sp * scale : kNegInf) - lse_s[i]);
   }
   __syncthreads();
@@ -1052,7 +1061,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
                                T* __restrict__ dq, T* __restrict__ dk,
                                T* __restrict__ dv, int heads, int s,
                                int kv_len, Strides st, float scale,
-                               int causal,
+                               int causal, int q_offset,
                                const uint32_t* __restrict__ keep_bits,
                                int keep_words, float inv_keep) {
   constexpr int ROW = MmaTile<D>::kRow;
@@ -1164,7 +1173,7 @@ __global__ void __launch_bounds__(32 * NW, NW == 8 ? 1 : (D == 64 ? 3 : 2))
           const int hh = e >> 1;
           const int j = kl + (e & 1);
           const bool vis = ((e & 1) ? mk.y : mk.x) > 0.f && row[hh] < s &&
-                           (!causal || row[hh] >= j);
+                           (!causal || q_offset + row[hh] >= j);
           const float p =
               vis ? ex2_approx(fmaf(sc[n][e], scale2, -lse2[hh])) : 0.f;
           float d = dp[n][e];
@@ -1276,7 +1285,7 @@ struct Args {
   int batch, heads, s, kv_len;
   Strides st;
   float scale;
-  int causal;
+  int causal, q_offset;
   const uint32_t* keep_bits;
   int keep_words;
   float inv_keep;
@@ -1308,8 +1317,8 @@ int launch_dq(const Args& a) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
-        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.keep_bits,
-        a.keep_words, a.inv_keep);
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.q_offset,
+        a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1319,8 +1328,8 @@ int launch_dq(const Args& a) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
-        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.keep_bits,
-        a.keep_words, a.inv_keep);
+        a.heads, a.s, a.kv_len, a.st, a.scale, a.causal, a.q_offset,
+        a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1339,7 +1348,7 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.keep_bits, a.keep_words, a.inv_keep);
+        a.causal, a.q_offset, a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   } else {
     // fp32: the scalar design
@@ -1350,7 +1359,7 @@ int launch_dkv(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.s, a.kv_len, a.st, a.scale,
-        a.causal, a.keep_bits, a.keep_words, a.inv_keep);
+        a.causal, a.q_offset, a.keep_bits, a.keep_words, a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1369,7 +1378,8 @@ int launch_fused_mma(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-      a.kv_len, a.st, a.scale, a.causal, a.keep_bits, a.keep_words,
+      a.kv_len, a.st, a.scale, a.causal, a.q_offset, a.keep_bits,
+      a.keep_words,
       a.inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1393,7 +1403,8 @@ int launch_fused(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<const float*>(a.kv_mask), static_cast<T*>(a.dq),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.heads, a.s,
-        a.kv_len, a.st, a.scale, a.causal, a.keep_bits, a.keep_words,
+        a.kv_len, a.st, a.scale, a.causal, a.q_offset, a.keep_bits,
+      a.keep_words,
       a.inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1432,14 +1443,18 @@ extern "C" int64_t ds_flash_attention_bwd_fused_smem(int dtype, int head_dim,
 // [b·h, s]; kv_mask is [batch, kv_len] fp32 or null; `keep_bits` null (no
 // dropout) or B4's packed keep mask of the forward (flash_dropout.cu),
 // contiguous int32 [b·h, s, keep_words] words with keep_words =
-// ceil(kv_len/32), and `inv_keep` the dropout scale.  Launches on `stream`,
-// does not synchronise, allocates nothing, and returns the CUDA error.
+// ceil(kv_len/32), and `inv_keep` the dropout scale.  `q_offset` is the
+// global row of q's row 0 (a sequence-parallel chunk against the
+// gathered keys, whose dk/dv are that chunk's partials): under `causal`
+// row i sees keys 0 .. q_offset + i.  Launches on `stream`, does not
+// synchronise, allocates nothing, and returns the CUDA error.
 extern "C" int ds_flash_attention_bwd(
     int which, int dtype, int head_dim, const void* q, const void* k,
     const void* v, const void* dout, const void* lse, const void* delta,
     const void* kv_mask, void* dq, void* dk, void* dv, int batch, int heads,
     int s, int kv_len, const int64_t* strides, float scale, int causal,
-    const void* keep_bits, int keep_words, float inv_keep, void* stream) {
+    int q_offset, const void* keep_bits, int keep_words, float inv_keep,
+    void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -1465,6 +1480,7 @@ extern "C" int ds_flash_attention_bwd(
   }
   a.scale = scale;
   a.causal = causal;
+  a.q_offset = q_offset;
   a.keep_bits = static_cast<const uint32_t*>(keep_bits);
   a.keep_words = keep_words;
   a.inv_keep = inv_keep;

@@ -34,7 +34,8 @@
 // - K/V: cp.async brings each 64-key tile into padded shared-memory tiles
 //   two stages deep (tile j+1 in flight while tile j is computed), with
 //   the tile's key mask beside it.  Under `causal` the loop stops at the
-//   diagonal tile (the JAX `needed` test at :228).
+//   diagonal tile (the JAX `needed` test at :228), counted from the
+//   rows' global position q_offset + i (a sequence-parallel chunk).
 // - Scores: per tile each warp computes S = Q·Kᵀ as 16x64 fp32 C
 //   fragments with `mma.sync.m16n8k16` (bf16 operands, fp32
 //   accumulators), K read by ldmatrix.  The per-element causal, kv_len
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, int heads, int s, int kv_len,
                      int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                      int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                     int64_t v_sh, float scale, int causal,
+                     int64_t v_sh, float scale, int causal, int q_offset,
                      const uint32_t* __restrict__ keep_bits, int keep_words,
                      float inv_keep) {
   constexpr int DH = D / 2;       // head_dim elements each thread owns
@@ -161,8 +162,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* kbase = k + b * k_sb + h * k_sh;
   const T* vbase = v + b * v_sb + h * v_sh;
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
-  // causal: rows q0 .. q0+kBlockQ-1 see no key past q0+kBlockQ-1
-  const int k_end = causal ? min(kv_len, q0 + kBlockQ) : kv_len;
+  // causal: rows q0 .. q0+kBlockQ-1 (global rows q_offset + q0 ..) see
+  // no key past q_offset+q0+kBlockQ-1
+  const int k_end = causal ? min(kv_len, q_offset + q0 + kBlockQ) : kv_len;
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // every thread is done with the previous tile
@@ -203,7 +205,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       // a + b == b + a exactly, so both threads of the row get one score
       part += __shfl_xor_sync(0xffffffffu, part, 1);
-      const bool visible = mask_s[j] > 0.f && (!causal || qi >= k0 + j);
+      const bool visible =
+          mask_s[j] > 0.f && (!causal || q_offset + qi >= k0 + j);
       const float x = visible ? part * scale : kNegInf;
       sc[j] = x;
       tile_max = fmaxf(tile_max, x);
@@ -309,6 +312,7 @@ __global__ void __launch_bounds__(
                          int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_ss, int64_t k_sh, int64_t v_sb,
                          int64_t v_ss, int64_t v_sh, float scale, int causal,
+                         int q_offset,
                          const uint32_t* __restrict__ keep_bits,
                          int keep_words, float inv_keep) {
   using Tile = MmaTile<D>;
@@ -337,8 +341,10 @@ __global__ void __launch_bounds__(
   const T* kbase = k + b * k_sb + h * k_sh;
   const T* vbase = v + b * v_sb + h * v_sh;
   const float* mrow = kv_mask ? kv_mask + (int64_t)b * kv_len : nullptr;
-  // causal: rows q0 .. q0+63 see no key past q0+63
-  const int k_end = causal ? min(kv_len, q0 + kMmaTileRows) : kv_len;
+  // causal: rows q0 .. q0+63 (global rows q_offset + q0 ..) see no key
+  // past q_offset+q0+63
+  const int k_end =
+      causal ? min(kv_len, q_offset + q0 + kMmaTileRows) : kv_len;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
   auto issue = [&](int j) {
@@ -405,7 +411,8 @@ __global__ void __launch_bounds__(
     // the element test only where the tile holds a key hidden from one of
     // the warp's rows: the diagonal tile, the tile that crosses kv_len,
     // every tile under a key mask
-    if (mrow || kt0 + kKeys > kv_len || (causal && kt0 + kKeys - 1 > wq0)) {
+    if (mrow || kt0 + kKeys > kv_len ||
+        (causal && kt0 + kKeys - 1 > q_offset + wq0)) {
       const float* mt = mask_s + (j & 1) * kKeys;
 #pragma unroll
       for (int n = 0; n < kKeys / 8; ++n) {
@@ -415,7 +422,7 @@ __global__ void __launch_bounds__(
           const int key = kt0 + kl;
           const int row = wq0 + g + 8 * (e >> 1);
           const bool vis = (mrow ? mt[kl] > 0.f : key < kv_len) &&
-                           (!causal || row >= key);
+                           (!causal || q_offset + row >= key);
           if (!vis) sc[n][e] = kNegInf;
         }
       }
@@ -527,8 +534,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* out, void* lse, int batch, int heads, int s, int kv_len,
            int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
            int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-           int64_t v_sh, float scale, int causal, const uint32_t* keep_bits,
-           int keep_words, float inv_keep, cudaStream_t stream) {
+           int64_t v_sh, float scale, int causal, int q_offset,
+           const uint32_t* keep_bits, int keep_words, float inv_keep,
+           cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value ||
                 std::is_same<T, __half>::value) {
     constexpr int kSmem = fwd_mma_smem_bytes<D>();
@@ -543,7 +551,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        keep_bits, keep_words, inv_keep);
+        q_offset, keep_bits, keep_words, inv_keep);
   } else {
     // fp32: the scalar design
     const dim3 grid((s + kBlockQ - 1) / kBlockQ, batch * heads);
@@ -552,7 +560,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
         static_cast<const T*>(v), static_cast<const float*>(kv_mask),
         static_cast<T*>(out), static_cast<float*>(lse), heads, s, kv_len,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-        keep_bits, keep_words, inv_keep);
+        q_offset, keep_bits, keep_words, inv_keep);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -568,20 +576,23 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 // input dtype and lse a contiguous fp32 [b·h, s].  `keep_bits` is null (no
 // dropout) or B4's packed keep mask (flash_dropout.cu), contiguous int32
 // [b·h, s, keep_words] words with keep_words = ceil(kv_len/32), and
-// `inv_keep` the dropout scale.  Launches on `stream`,
-// does not synchronise, allocates nothing, and returns cudaGetLastError().
+// `inv_keep` the dropout scale.  `q_offset` is the global row of q's row
+// 0 (a sequence-parallel rank's chunk against the gathered keys): under
+// `causal` row i sees keys 0 .. q_offset + i; 0 is a whole call.
+// Launches on `stream`, does not synchronise, allocates nothing, and
+// returns cudaGetLastError().
 extern "C" int ds_flash_attention_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     const void* kv_mask, void* out, void* lse, int batch, int heads, int s,
     int kv_len, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-    float scale, int causal, const void* keep_bits, int keep_words,
-    float inv_keep, void* stream) {
+    float scale, int causal, int q_offset, const void* keep_bits,
+    int keep_words, float inv_keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DS_FLASH_LAUNCH(T, D)                                                 \
   return launch<T, D>(q, k, v, kv_mask, out, lse, batch, heads, s, kv_len,   \
                       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,   \
-                      scale, causal,                                          \
+                      scale, causal, q_offset,                                \
                       static_cast<const uint32_t*>(keep_bits), keep_words,    \
                       inv_keep, st)
   if (dtype == 0 && head_dim == 64) DS_FLASH_LAUNCH(float, 64);

@@ -33,9 +33,11 @@
 // - one warp per item, an item being 32 consecutive rows of one head
 //   (lane = row), and under `causal` the pair of row blocks rb and
 //   RB−1−rb, whose visible words add up to about one full row each: every
-//   warp has the same work, and a word is visible to every lane of a
-//   32-row block or to none (a row block starts at a multiple of 32), so
-//   warps do not diverge on the skip;
+//   warp has the same work (also for a chunk whose first row is row0 >
+//   0: each row sees row0 more), and a word is visible to every lane of
+//   a 32-row block or to none (a row block starts at a multiple of 32,
+//   and so does a chunk of a 32-row multiple), so warps do not diverge
+//   on the skip;
 // - each lane walks its row's words in order, draws the 8 groups of a
 //   visible word (a word that crosses the diagonal or kv_len is drawn
 //   whole and its invisible groups masked to 0: at most 7 extra draws a
@@ -144,7 +146,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     keep_bits_kernel(uint32_t* __restrict__ bits,
                      const int* __restrict__ seed, int heads, int s,
                      int kv_len, int words, int causal, uint32_t thresh,
-                     int drop_h0, int drop_heads) {
+                     int drop_h0, int drop_heads, int row0) {
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int row_blocks = (s + 31) / 32;
@@ -174,8 +176,10 @@ __global__ void __launch_bounds__(32 * kWarps)
   for (int blk = 0; blk < n_blocks; ++blk) {
     const int row = 32 * (blk ? second : item) + lane;
     if (row >= s) continue;
-    const int lim = causal ? min(kv_len, row + 1) : kv_len;
-    const uint32_t x0 = static_cast<uint32_t>(row) ^ key.k0[0];
+    // the counter's row word and the causal limit are the global row
+    const int grow = row0 + row;
+    const int lim = causal ? min(kv_len, grow + 1) : kv_len;
+    const uint32_t x0 = static_cast<uint32_t>(grow) ^ key.k0[0];
     uint32_t* out = bits + ((int64_t)bh * s + row) * words;
     for (int w = 0; w < words; w += V) {
       if constexpr (V == 4) {
@@ -201,13 +205,17 @@ __global__ void __launch_bounds__(32 * kWarps)
 // batch b are those of head b·drop_heads + drop_h0 + h of the Philox
 // counter (drop_h0 = 0, drop_heads = heads for a whole call; a
 // tensor-parallel rank passes its first head and the model's head count).
-// Under `causal` row i sees columns 0 .. i.  Launches on `stream`, does
-// not synchronise, allocates nothing, and returns the CUDA error.
+// Row i of `bits` is the global row row0 + i (0 for a whole call; a
+// sequence-parallel rank passes its chunk's first row): the Philox
+// counter's row word is row0 + i, and under `causal` the row sees columns
+// 0 .. row0 + i, so a chunk's words are those rows of a whole call's.
+// Launches on `stream`, does not synchronise, allocates nothing, and
+// returns the CUDA error.
 extern "C" int ds_flash_keep_bits(void* bits, const void* seed, int batch,
                                   int heads, int s, int kv_len, int causal,
                                   uint32_t thresh, int drop_h0,
-                                  int drop_heads, void* stream) {
-  if (batch <= 0 || heads <= 0 || s <= 0 || kv_len <= 0 ||
+                                  int drop_heads, int row0, void* stream) {
+  if (batch <= 0 || heads <= 0 || s <= 0 || kv_len <= 0 || row0 < 0 ||
       batch * heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int words = (kv_len + 31) / 32;
@@ -220,10 +228,10 @@ extern "C" int ds_flash_keep_bits(void* bits, const void* seed, int batch,
   if (words % 4 == 0)
     keep_bits_kernel<4><<<grid, 32 * kWarps, 0, st>>>(
         out, sd, heads, s, kv_len, words, causal, thresh, drop_h0,
-        drop_heads);
+        drop_heads, row0);
   else
     keep_bits_kernel<1><<<grid, 32 * kWarps, 0, st>>>(
         out, sd, heads, s, kv_len, words, causal, thresh, drop_h0,
-        drop_heads);
+        drop_heads, row0);
   return static_cast<int>(cudaGetLastError());
 }

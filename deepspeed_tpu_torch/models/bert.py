@@ -46,33 +46,38 @@ over the ranks' slices of the logits (an eval call that returns them
 gathers them whole); the layers are Megatron shards; the rest,
 the QA and classifier heads included, is replicated.
 
-Sequence parallelism (the current mesh's ``seq`` axis, ``attn_impl=
-"ring"``): the model takes its data rank's whole rows and encodes its
-own chunk (:func:`~.layers.seq_chunk`) with the position and token-type
+Sequence parallelism (the current mesh's ``seq`` axis, any attention
+core): the model takes its data rank's whole rows and encodes its own
+chunk (:func:`~.layers.seq_chunk`) with the position and token-type
 rows of its global positions; the key-padding chunk rotates with K/V
-in the ring.  The MLM head scores, of the first ``max_predictions_per_seq``
+in the ring and is gathered with them in the dense and sparse cores.  The MLM head scores, of the first ``max_predictions_per_seq``
 labelled positions of the WHOLE row (the JAX model's ``top_k``), those
 that fall in the rank's chunk (a row's later labels are dropped
 globally, not per chunk), and the count sums over ``data`` × ``seq``.
 Only ``seq`` rank 0 holds position 0: it alone computes the pooler and
 the NSP head, and the other ranks add nothing to the loss or to their
-gradients.  The fine-tuning heads read the whole sequence (QA's span
-softmax) or the pooled row, and raise above one ``seq`` rank
-(``SEQ_ITEM``).
+gradients.  The QA head gathers its ``[b, s/N]`` start and end logits
+over ``seq`` (the gradient of the whole summed back to each chunk's
+owner) and every rank scores the whole span softmax over the global
+count, so the ranks' losses sum to the loss once.  The classifier
+takes the pooled first row from ``seq`` rank 0 on every rank (its
+gradient summed back to rank 0's trunk alone) and scores it the same
+way.  Eval calls return the whole logits on every rank.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import comm
 from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
-                    gather_from)
+                    gather_from, gather_seq)
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, cross_entropy_with_logits, dense,
                      dropout, gelu, generator, layer_norm, mix_seed,
-                     refuse_seq, seq_chunk, seq_offset, seq_stream_seed,
+                     seq_chunk, seq_offset, seq_stream_seed,
                      vocab_parallel_cross_entropy, vocab_parallel_embedding)
 
 # the sub-stream of a layer's seed that draws its PLD keep (the JAX
@@ -291,10 +296,15 @@ class BertModel:
         def run_layer(lp, x, i, positions=None):
             layer_rng = (generator(drop_rng, i + 1, x.device) if train
                          else None)
+            # under seq the dense core's seed words come from the stream
+            # before the seq mixing, the same on every seq rank
+            seed_rng = (generator(rng, i + 1, x.device)
+                        if train and axis_size(SEQ_AXIS) > 1 else None)
             return self.layer.apply(lp, x, key_padding_mask=attention_mask,
                                     rng=layer_rng,
                                     deterministic=deterministic,
-                                    positions=positions)
+                                    positions=positions,
+                                    attn_seed_rng=seed_rng)
 
         ck_layer = ds_ckpt.checkpoint_wrapper(run_layer) if c.remat else None
         last = c.num_hidden_layers - 1
@@ -448,12 +458,11 @@ class BertForQuestionAnsweringTPU(nn.Module):
                 "qa_outputs": draw.dense(self.config.hidden_size, 2)}
 
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
-        refuse_seq("the QA span head (its softmax runs over the whole "
-                   "sequence)")
         seq_out, _ = self.bert.encode(
             params["bert"], batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"), rng=rng, deterministic=not train)
-        logits = dense(params["qa_outputs"], seq_out)   # [b, s, 2]
+        # [b, s, 2]; under seq the chunks' logits gathered whole
+        logits = gather_seq(dense(params["qa_outputs"], seq_out), dim=1)
         start_logits, end_logits = logits[..., 0], logits[..., 1]
         given = ("start_positions" in batch) + ("end_positions" in batch)
         if given == 0:
@@ -508,10 +517,17 @@ class BertForSequenceClassificationTPU(nn.Module):
 
     def apply(self, params, batch, rng=None, train=True, pld_theta=None):
         c = self.config
-        refuse_seq("the sequence classification head")
-        _, pooled = self.bert.encode(
+        seq_out, pooled = self.bert.encode(
             params["bert"], batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"), rng=rng, deterministic=not train)
+        n = axis_size(SEQ_AXIS)
+        if n > 1:
+            if pooled is None:
+                # a zero stand-in on the rank's trunk: its backward runs
+                # through the layers, whose gather cores are collectives
+                # (rank 0's rows attend to this rank's keys)
+                pooled = seq_out[:, 0] * 0.0
+            pooled = _FromSeqRank0.apply(pooled)
         if rng is not None and train:
             pooled = dropout(generator(rng, c.num_hidden_layers + 1,
                                        pooled.device),
@@ -522,5 +538,23 @@ class BertForSequenceClassificationTPU(nn.Module):
         labels = batch["labels"]
         if labels.is_floating_point():
             preds = logits[..., 0] if logits.shape[-1] == 1 else logits
-            return ((preds.float() - labels.float()) ** 2).mean()
+            # each seq rank scores the same rows: count them once
+            return ((preds.float() - labels.float()) ** 2).mean() / n
         return cross_entropy_with_logits(logits, labels)
+
+
+class _FromSeqRank0(torch.autograd.Function):
+    """``seq`` rank 0's tensor on every ``seq`` rank (a sum in which the
+    others add zeros); backward, the ranks' gradients summed into rank
+    0's, the others' inputs getting none."""
+
+    @staticmethod
+    def forward(ctx, x):
+        first = axis_index(SEQ_AXIS) == 0
+        return comm.psum(x if first else torch.zeros_like(x), SEQ_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = comm.psum(grad.contiguous(), SEQ_AXIS)
+        return total if axis_index(SEQ_AXIS) == 0 else \
+            torch.zeros_like(total)

@@ -30,8 +30,9 @@ each rank's ``[b, s, V/m]`` slice of the logits, and the loss (whole or
 chunked) takes the cross entropy over the slices without gathering them;
 an eval call that returns logits gathers them whole.
 
-Sequence parallelism (the current mesh's ``seq`` axis, ``attn_impl=
-"ring"``): the model takes its data rank's whole ``[b, s]`` ids and
+Sequence parallelism (the current mesh's ``seq`` axis, any attention
+core: the ring, or the gather form of the dense and sparse cores): the
+model takes its data rank's whole ``[b, s]`` ids and
 cuts its own chunk (:func:`~.layers.seq_chunk`), so positions and
 labels are global by construction: the labels are shifted over the
 whole sequence before the cut (the last position of chunk r is
@@ -39,9 +40,9 @@ labelled with the first token of chunk r+1, the global last with
 -100), the ``wpe`` rows are the chunk's global positions, and the loss
 (whole or chunked) is the chunk's partial sum over the global count
 (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`).  An eval
-call that returns logits gathers them over ``seq`` too.  MoE blocks and
-any other attention core above one ``seq`` rank raise naming
-``SEQ_ITEM``.
+call that returns logits gathers them over ``seq`` too.  MoE blocks
+route whole sequences (:mod:`.moe`): each rank dispatches its chunk's
+tokens and the aux loss counts once.
 """
 
 import logging
@@ -51,12 +52,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..comm import copy_to, data_parallel_mean_count, gather_from
+from ..comm import axis_size, copy_to, data_parallel_mean_count, gather_from
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, dropout, generator, layer_norm,
-                     refuse_seq, seq_chunk, seq_offset, seq_stream_seed,
+                     seq_chunk, seq_offset, seq_stream_seed,
                      vocab_parallel_cross_entropy, vocab_parallel_embedding,
                      vocab_parallel_nll_sum)
 from .moe import MoETransformerLayer
@@ -234,9 +235,10 @@ class GPT2LMHead(nn.Module):
         """Random numpy params (:func:`random_params`)."""
         return random_params(self.config, seed)
 
-    def block(self, lp, x, rng=None, deterministic=True):
+    def block(self, lp, x, rng=None, deterministic=True, attn_seed_rng=None):
         """One pre-LN transformer block (``TransformerLayer.apply``)."""
-        return self.layer.apply(lp, x, rng=rng, deterministic=deterministic)
+        return self.layer.apply(lp, x, rng=rng, deterministic=deterministic,
+                                attn_seed_rng=attn_seed_rng)
 
     def hidden(self, params, input_ids, rng=None, deterministic=True):
         """Trunk + final layernorm -> [b, s, hidden] (under ``seq``, this
@@ -245,25 +247,29 @@ class GPT2LMHead(nn.Module):
         stream i+1 is layer i's generator, built inside the (possibly
         recomputed) layer so a recompute draws the forward's masks."""
         c = self.config
-        if c.moe_experts:
-            refuse_seq("a MoE model (its routing groups are whole "
-                       "sequences)")
         ids = seq_chunk(input_ids)
         p0 = seq_offset(input_ids.shape[1])
         x = vocab_parallel_embedding(params["wte"], ids) \
             + params["wpe"][None, p0:p0 + ids.shape[1]]
         train = rng is not None and not deterministic
-        rng = seq_stream_seed(rng)
+        # the layers' streams before and after the seq mixing: under seq
+        # the dense core draws its seed words from the first, every seq
+        # rank alike
+        step_rng, rng = rng, seq_stream_seed(rng)
+        seq = axis_size(SEQ_AXIS) > 1
         if train:
             x = dropout(generator(rng, 0, x.device), x, c.embd_dropout,
                         deterministic)
 
         def run_layer(lp, x, i):
             layer_rng = generator(rng, i + 1, x.device) if train else None
+            seed_rng = (generator(step_rng, i + 1, x.device)
+                        if train and seq else None)
             if is_moe_layer(c, i):
                 return self.moe_layer.apply(lp, x, rng=layer_rng,
-                                            deterministic=deterministic)
-            return self.block(lp, x, layer_rng, deterministic)
+                                            deterministic=deterministic,
+                                            attn_seed_rng=seed_rng)
+            return self.block(lp, x, layer_rng, deterministic, seed_rng)
 
         ck_layer = ds_ckpt.checkpoint_wrapper(run_layer) if c.remat else None
         aux = []

@@ -24,14 +24,19 @@ added once.  Every rank of a data coordinate draws the same dropout
 streams, and the flash kernels drop the entries of the rank's GLOBAL
 heads, so a sharded layer drops what the whole layer drops.
 
-Sequence parallelism (the current mesh's ``seq`` axis): a layer with
-``attn_impl="ring"`` takes this rank's chunk of the sequence and runs
-ring attention over the axis (on its heads under ``model``); every
-other part of the layer is per position and runs on the chunk as it is.
-A model cuts its chunk with :func:`seq_chunk` and draws its dropout
-streams from :func:`seq_stream_seed`, so each chunk drops its own
-entries.  Any other core above one ``seq`` rank would attend over the
-chunk only, and raises (``SEQ_ITEM``).
+Sequence parallelism (the current mesh's ``seq`` axis): a layer takes
+this rank's chunk of the sequence; ``attn_impl="ring"`` runs ring
+attention over the axis, the dense (``"auto"``) and sparse cores their
+gather form (:mod:`~deepspeed_tpu_torch.ops.transformer.gather_attention`:
+K/V gathered, the kernels on the chunk's rows at their query-row
+offset, the dk/dv partials reduce-scattered), on its heads under
+``model``; every other part of the layer is per position and runs on
+the chunk as it is.  A model cuts its chunk with :func:`seq_chunk` and
+draws its dropout streams from :func:`seq_stream_seed`, so each chunk
+drops its own entries; the dense core's in-kernel dropout draws its seed
+words from the layer's stream before that mixing (``attn_seed_rng``,
+the same on every seq rank), so each chunk draws its rows of one whole
+call's keep bits.
 """
 
 import functools
@@ -43,23 +48,24 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
-                    pmax, reduce_from)
+                    gather_seq, pmax, reduce_from)
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from ..utils.params import MODEL, QKV
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
 from ..ops.sparse_attention.flash_block_sparse import (
     flash_block_sparse_attention, kernel_takes)
-from ..ops.transformer.attention import (MIN_DROPOUT,
-                                         dot_product_attention,
+from ..ops.transformer.attention import (MIN_DROPOUT, dot_product_attention,
+                                         dropout_active, dropout_seed,
                                          key_padding_to_additive)
+from ..ops.transformer.gather_attention import (
+    gather_attention, gather_block_sparse_attention, seq_rows,
+    seq_sparse_factor)
 from ..ops.transformer.ring_attention import ring_attention
 
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
-# the ROADMAP item that ports what does not compose with seq above 1
-SEQ_ITEM = "ROADMAP A19"
 # the sub-stream under a step's seed from which seq rank r > 0 draws
 # its chunk's dropout (rank 0 draws the seed's own streams)
 SEQ_STREAM = 0x5E9 << 20
@@ -80,19 +86,22 @@ def generator(seed, index, device):
     return torch.Generator(device=device).manual_seed(mix_seed(seed, index))
 
 
-def recomputed(block, rng=None):
+def recomputed(block, *rngs):
     """``block`` recomputed in backward (``torch.utils.checkpoint``,
     non-reentrant) instead of keeping its activations.  Its draws from the
-    generator ``rng`` are replayed: each call notes the generator's state
-    before the forward runs the block, and the recompute starts from that
-    state, so it draws the same dropout masks and B4 seed words
-    (``torch.utils.checkpoint`` restores only the global RNG states)."""
+    generators ``rngs`` (None entries skipped) are replayed: each call
+    notes their states before the forward runs the block, and the
+    recompute starts from those states, so it draws the same dropout
+    masks and B4 seed words (``torch.utils.checkpoint`` restores only the
+    global RNG states)."""
+    gens = [g for g in rngs if g is not None]
+
     def call(*args):
-        state = None if rng is None else rng.get_state()
+        states = [g.get_state() for g in gens]
 
         def replay(*a):
-            if state is not None:
-                rng.set_state(state)
+            for g, state in zip(gens, states):
+                g.set_state(state)
             return block(*a)
 
         return checkpoint(replay, *args, use_reentrant=False)
@@ -125,15 +134,6 @@ def seq_stream_seed(seed):
     r = axis_index(SEQ_AXIS)
     return seed if seed is None or r == 0 else mix_seed(seed,
                                                         SEQ_STREAM + r)
-
-
-def refuse_seq(what):
-    """Raise for ``what`` above one ``seq`` rank, naming its item."""
-    if axis_size(SEQ_AXIS) > 1:
-        raise NotImplementedError(
-            f"{what} above one seq rank is not ported yet ({SEQ_ITEM}); "
-            f"sequence parallelism runs the ring attention core "
-            f"(attn_impl='ring')")
 
 
 def dense(params, x):
@@ -225,16 +225,22 @@ class TransformerLayer:
     regions, ``layers.py:291-305``): ``attn_dropout_checkpoint`` the
     attention block (QKV, B1, attention output and its dropout),
     ``gelu_checkpoint`` the MLP block, ``normalize_invertible`` each
-    layernorm.  Not ported yet, and refused: any core but the ring above
-    one ``seq`` rank (``SEQ_ITEM``).  Under a ``model`` axis the params
+    layernorm.  Under a ``model`` axis the params
     are the rank's slices (:meth:`partition_specs`) and the layer is its
     Megatron shard (see the module docstring): the sparse core runs the
     rank's heads on their rows of a per-head layout, and the sparse and
     ring cores' context dropout cuts the whole layer's mask to them;
-    under ``seq`` the input is this rank's chunk of the sequence.
-    ``apply(..., positions=...)`` computes the layer at a few gathered
-    rows only (BERT's last layer under the MLM gather; the dense core
-    only, so never with the ring, as in the JAX layer)."""
+    under ``seq`` the input is this rank's chunk of the sequence and
+    every core attends over the whole sequence (the ring, or the gather
+    form of the dense and sparse cores).  ``apply(..., positions=...)``
+    computes the layer at a few gathered rows only (BERT's last layer
+    under the MLM gather; the dense core only, so never with the ring, as
+    in the JAX layer; under ``seq`` the rows are the chunk's, against the
+    gathered keys)."""
+
+    # right on a chunk of the sequence under ``seq`` (a pipeline layer's
+    # declaration, runtime/pipe/module.py)
+    seq_parallel = True
 
     def __init__(self, hidden_size, heads, intermediate_size=None,
                  causal=False, attn_dropout_ratio=0.1,
@@ -375,20 +381,60 @@ class TransformerLayer:
                           deterministic, h0=0):
         """The sparse core on [b, s, heads, head_dim] views (this rank's
         heads ``[h0, h0 + heads)`` under ``model``, with their rows of a
-        per-head layout), and the attention dropout on its context."""
+        per-head layout), and the attention dropout on its context.
+        Under ``seq`` the views are this rank's chunk: the layout is the
+        whole sequence's and the rank runs its block rows of it against
+        the gathered K/V (the flash kernels' gather core, or the gather
+        path on K/V gathered with their gradient)."""
         b, s = q.shape[:2]
         kpm_add = self._additive_key_padding(mask, key_padding_mask, b, s)
-        layout = self._sparse_layout(s, h0, q.shape[2])
+        n = axis_size(SEQ_AXIS)
+        layout = self._sparse_layout(s * n, h0, q.shape[2])
         causal_sp = self.causal or getattr(
             self.sparsity_config, "attention",
             "bidirectional") == "unidirectional"
-        if sparse_core(q, kpm_add is not None) == "kernel":
-            ctx = flash_block_sparse_attention(q, k, v, layout,
-                                               causal=causal_sp)
+        kernel = sparse_core(q, kpm_add is not None) == "kernel"
+        if n == 1:
+            if kernel:
+                ctx = flash_block_sparse_attention(q, k, v, layout,
+                                                   causal=causal_sp)
+            else:
+                ctx = block_sparse_attention(q, k, v, layout,
+                                             causal=causal_sp,
+                                             key_padding_mask=kpm_add)
+            return self._context_dropout(ctx, attn_rng, deterministic, h0)
+        r = axis_index(SEQ_AXIS)
+        rows = seq_rows(layout, n, r)
+        if kernel:
+            ctx = gather_block_sparse_attention(
+                q, k, v, rows, seq_sparse_factor(layout, s * n, n),
+                causal_sp)
         else:
-            ctx = block_sparse_attention(q, k, v, layout, causal=causal_sp,
-                                         key_padding_mask=kpm_add)
+            if kpm_add is not None:
+                kpm_add = gather_seq(kpm_add.detach(), dim=1)
+            ctx = block_sparse_attention(
+                q, gather_seq(k), gather_seq(v), rows, causal=causal_sp,
+                key_padding_mask=kpm_add, q_offset=r * s)
         return self._context_dropout(ctx, attn_rng, deterministic, h0)
+
+    def _gather_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
+                          deterministic, h0=0, positions=False,
+                          seed_rng=None):
+        """The dense core above one ``seq`` rank: this rank's rows (its
+        chunk, or the gathered ``positions`` rows) against the K/V
+        gathered over the axis, attention dropout inside the kernels from
+        seed words drawn from ``seed_rng`` (else ``attn_rng``)."""
+        kpm_add = self._additive_key_padding(mask, key_padding_mask,
+                                             *k.shape[:2])
+        drop = dropout_active(self.attn_dropout_ratio, attn_rng,
+                              deterministic)
+        return gather_attention(
+            q, k, v, causal=self.causal, key_padding_mask=kpm_add,
+            dropout_rate=self.attn_dropout_ratio if drop else 0.0,
+            seed=dropout_seed(attn_rng if seed_rng is None else seed_rng,
+                              q.device) if drop else None,
+            head_offset=h0, total_heads=self.heads,
+            q_offset=0 if positions else None)
 
     def _ring_attention(self, q, k, v, mask, key_padding_mask, attn_rng,
                         deterministic, h0=0):
@@ -402,18 +448,19 @@ class TransformerLayer:
         return self._context_dropout(ctx, attn_rng, deterministic, h0)
 
     def attention_core(self, params, y, mask=None, key_padding_mask=None,
-                       attn_rng=None, deterministic=True, positions=None):
+                       attn_rng=None, deterministic=True, positions=None,
+                       attn_seed_rng=None):
         """Fused-QKV attention -> [b, s, h] context.  q, k and v are
         strided views of the one [b, s, 3, heads, head_dim] projection,
-        which the flash kernels read as they are.
+        which the flash kernels read as they are.  ``attn_seed_rng``:
+        the generator the dense core under ``seq`` draws its in-kernel
+        dropout's seed words from (default ``attn_rng``).
 
         ``positions`` [b, K] (int64): queries, and so output rows, only at
         those positions, with keys and values over the whole sequence;
         the dense bidirectional core only.  Returns [b, K, h]."""
-        if self.attn_impl != "ring":
-            refuse_seq(f"the {self.attn_impl!r} attention core (it would "
-                       f"attend over this rank's chunk only)")
         b, s = y.shape[:2]
+        seq = axis_size(SEQ_AXIS) > 1
         heads, h0 = self.local_heads(params)
         h = heads * self.head_dim   # this rank's width of the context
         y = copy_to(y, MODEL_AXIS)
@@ -429,6 +476,12 @@ class TransformerLayer:
                                                       self.head_dim)
             kv = (y @ w[:, h:] + bias[h:]).reshape(b, s, 2, heads,
                                                    self.head_dim)
+            if seq:
+                return self._gather_attention(
+                    q, kv[:, :, 0], kv[:, :, 1], mask, key_padding_mask,
+                    attn_rng, deterministic, h0, positions=True,
+                    seed_rng=attn_seed_rng).reshape(
+                        b, n, h)
             ctx = dot_product_attention(
                 q, kv[:, :, 0], kv[:, :, 1], mask=mask,
                 key_padding_mask=key_padding_mask, causal=False,
@@ -448,6 +501,11 @@ class TransformerLayer:
                 qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
                 key_padding_mask, attn_rng, deterministic,
                 h0).reshape(b, s, h)
+        if seq:
+            return self._gather_attention(
+                qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask,
+                key_padding_mask, attn_rng, deterministic, h0,
+                seed_rng=attn_seed_rng).reshape(b, s, h)
         ctx = dot_product_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask=mask,
             key_padding_mask=key_padding_mask, causal=self.causal,
@@ -457,12 +515,15 @@ class TransformerLayer:
         return ctx.reshape(b, s, h)
 
     def apply(self, params, x, mask=None, key_padding_mask=None, rng=None,
-              deterministic=True, positions=None):
+              deterministic=True, positions=None, attn_seed_rng=None):
         """x: [batch, seq, hidden]; ``mask`` additive [batch, 1, 1, seq]
         or ``key_padding_mask`` [batch, seq] with 1 at visible tokens (the
         flash kernels' fused form); ``rng`` a ``torch.Generator`` on
         x's device, drawn by the attention, attention-output and MLP
-        dropouts in that order.  ``positions`` [b, K]: outputs only at
+        dropouts in that order; under ``seq``, ``attn_seed_rng`` (the
+        layer's stream before the seq mixing, the same on every seq rank)
+        gives the dense core's in-kernel dropout its seed words, so the
+        chunks drop the rows of one call.  ``positions`` [b, K]: outputs only at
         those rows (queries gathered, keys and values over the whole
         sequence, the residuals, MLP and layernorms on the K rows), for a
         last layer whose head reads few positions; returns [b, K,
@@ -477,7 +538,8 @@ class TransformerLayer:
                                       key_padding_mask=key_padding_mask,
                                       attn_rng=rng,
                                       deterministic=deterministic,
-                                      positions=positions)
+                                      positions=positions,
+                                      attn_seed_rng=attn_seed_rng)
             return dropout(rng, row_dense(params["attn_out"], ctx), rate,
                            deterministic)
 
@@ -490,7 +552,8 @@ class TransformerLayer:
             return layer_norm(p, y, self.layer_norm_eps)
 
         if self.attn_dropout_checkpoint:
-            attention_block = recomputed(attention_block, rng)
+            attention_block = recomputed(attention_block, rng,
+                                         attn_seed_rng)
         if self.gelu_checkpoint:
             mlp_block = recomputed(mlp_block, rng)
         if self.normalize_invertible:

@@ -24,6 +24,15 @@ its slice of the dispatch tensor, and one sum over ``expert``
 outputs.  The experts' gradients stay on their rank; the router's come
 out the same on every rank (the combine tensor's gradient is summed
 over ``expert`` by :func:`~deepspeed_tpu_torch.comm.copy_to`).
+
+Under ``seq`` (a rank holds a chunk of each sequence) the routing groups
+stay whole sequences, as in the JAX package: the gate probabilities are
+gathered over ``seq`` (:func:`~deepspeed_tpu_torch.comm.gather_seq`,
+whose backward sends each rank's part of their gradient to the chunk's
+owner), every rank routes the whole sequence alike (capacity over the
+whole S, slots in the sequence's order), and each dispatches and
+combines its own tokens only.  The whole sequence's aux loss is counted
+once, at ``seq`` rank 0 (the engine sums the ranks' losses).
 """
 
 import math
@@ -32,8 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..comm import axis_index, copy_to, reduce_from
-from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS
+from ..comm import axis_index, axis_size, copy_to, gather_seq, reduce_from
+from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS
 from ..utils.params import EXPERT, MODEL
 from .layers import (TransformerLayer, dropout, gelu, layer_norm, recomputed,
                      row_dense)
@@ -131,12 +140,19 @@ class MoEFFN:
         return max(8, ((cap + 7) // 8) * 8)
 
     def apply(self, params, x):
-        S = x.shape[1]
-        C = self.capacity(S)
+        n = axis_size(SEQ_AXIS)
+        sl = x.shape[1]
+        C = self.capacity(sl * n)
         logits = x.float() @ params["router"]["kernel"].float()
-        probs = torch.softmax(logits, dim=-1)
+        probs = gather_seq(torch.softmax(logits, dim=-1))
         dispatch, combine, aux = route(probs, self.k, C)
         aux = aux.mean()
+        if n > 1:
+            # this rank's tokens; the whole sequence's aux counted once
+            r = axis_index(SEQ_AXIS)
+            dispatch = dispatch[:, r * sl:(r + 1) * sl]
+            combine = combine[:, r * sl:(r + 1) * sl]
+            aux = aux if r == 0 else aux * 0.0
         # this rank's experts
         n_local = params["fc1"]["kernel"].shape[0]
         e0 = axis_index(EXPERT_AXIS) * n_local if \
@@ -209,14 +225,15 @@ class MoETransformerLayer:
         return specs
 
     def apply(self, params, x, key_padding_mask=None, rng=None,
-              deterministic=True):
+              deterministic=True, attn_seed_rng=None):
         rate = self.hidden_dropout_ratio
 
         def attention_block(y):
             ctx = self.attn.attention_core(params, y,
                                            key_padding_mask=key_padding_mask,
                                            attn_rng=rng,
-                                           deterministic=deterministic)
+                                           deterministic=deterministic,
+                                           attn_seed_rng=attn_seed_rng)
             return dropout(rng, row_dense(params["attn_out"], ctx), rate,
                            deterministic)
 
@@ -228,7 +245,8 @@ class MoETransformerLayer:
             return layer_norm(p, y, self.layer_norm_eps)
 
         if self.attn_dropout_checkpoint:
-            attention_block = recomputed(attention_block, rng)
+            attention_block = recomputed(attention_block, rng,
+                                         attn_seed_rng)
         if self.gelu_checkpoint:
             moe_block = recomputed(moe_block, rng)
         if self.normalize_invertible:

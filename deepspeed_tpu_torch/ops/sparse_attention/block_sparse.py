@@ -24,7 +24,9 @@ def layout_gather_indices(layout):
     """Static per-(head, q-block) active key-block indices.
 
     Returns ``(indices, valid)`` with shapes ``[h, nb, kmax]``: ``indices``
-    padded with 0, ``valid`` marking real entries (numpy, host-side)."""
+    padded with 0, ``valid`` marking real entries (numpy, host-side).  A
+    sequence-parallel rank's ``[h, nb/N, nb]`` rows of a layout give their
+    rows' entries."""
     layout = np.asarray(layout)
     h, nb, _ = layout.shape
     counts = layout.sum(-1)
@@ -41,7 +43,7 @@ def layout_gather_indices(layout):
 
 def block_sparse_attention(q, k, v, layout, causal=False,
                            key_padding_mask=None, attn_mask=None,
-                           rpe=None, scale=None):
+                           rpe=None, scale=None, q_offset=0):
     """softmax((QKᵀ)·scale + masks)V restricted to a block layout.
 
     Args:
@@ -56,6 +58,11 @@ def block_sparse_attention(q, k, v, layout, causal=False,
         attn_mask: additive ``[seq, seq]``.
         rpe: additive relative-position bias ``[heads, seq, seq]``.
         scale: defaults to 1/sqrt(head_dim).
+        q_offset: a sequence-parallel rank's chunk: q holds rows
+            ``q_offset ..`` of the sequence, ``layout`` its ``[H, nb/N,
+            nb]`` block rows of the whole sequence's layout, k, v and the
+            key-padding mask the whole (gathered) sequence; ``attn_mask``
+            and ``rpe`` stay the whole sequence's.
 
     Rows with no visible key give zero output, and the row max is taken
     out of the gradient, as in the JAX function."""
@@ -65,10 +72,14 @@ def block_sparse_attention(q, k, v, layout, causal=False,
         layout = np.broadcast_to(layout, (h,) + layout.shape[1:])
     if layout.shape[0] != h:
         raise ValueError(f"layout heads {layout.shape[0]} != {h}")
-    nb = layout.shape[1]
+    nb, nbk = layout.shape[1:]
     if s % nb != 0:
         raise ValueError(f"seq {s} not divisible into {nb} blocks")
     blk = s // nb
+    if k.shape[1] != nbk * blk or q_offset % blk:
+        raise ValueError(f"a layout of {nb} x {nbk} blocks of {blk} takes "
+                         f"{nbk * blk} keys and a block-aligned q_offset, "
+                         f"got {k.shape[1]} and {q_offset}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
 
@@ -77,9 +88,9 @@ def block_sparse_attention(q, k, v, layout, causal=False,
     idx = torch.from_numpy(indices.astype(np.int64)).to(dev)
     head = torch.arange(h, device=dev)[:, None, None]
 
-    # [b, s, h, d] -> [b, h, nb, blk, d]
+    # [b, n·blk, h, d] -> [b, h, n, blk, d]
     def to_blocks(x):
-        return x.reshape(b, nb, blk, h, d).permute(0, 3, 1, 2, 4)
+        return x.reshape(b, -1, blk, h, d).permute(0, 3, 1, 2, 4)
 
     qb, kb, vb = to_blocks(q), to_blocks(k), to_blocks(v)
     # active key/value blocks per (head, q-block): [b, h, nb, kmax, blk, d]
@@ -91,7 +102,8 @@ def block_sparse_attention(q, k, v, layout, causal=False,
                           kg.float()) * scale
 
     # element positions for masking
-    qpos = np.arange(nb)[:, None] * blk + np.arange(blk)[None, :]  # [nb, blk]
+    qpos = (q_offset + np.arange(nb)[:, None] * blk
+            + np.arange(blk)[None, :])                       # [nb, blk]
     kpos = indices[..., None].astype(np.int64) * blk + np.arange(blk)
 
     visible = np.broadcast_to(valid[..., None], kpos.shape)  # [h,nb,kmax,blk]

@@ -88,7 +88,8 @@ def _check_cuda(q, k, v, kv_mask, extra=()):
 
 # -------------------------------------------------------------- host tables
 def build_block_luts(layout):
-    """Host-side look-up tables from a ``[H, nb, nb]`` 0/1 layout.
+    """Host-side look-up tables from a ``[H, nb, nb]`` 0/1 layout (or a
+    sequence-parallel rank's ``[H, nb/N, nb]`` rows of one).
 
     Returns ``(lut, cnt, tlut, tcnt)``:
       - ``lut[h, qb, t]``: t-th active key block of query block qb
@@ -97,20 +98,19 @@ def build_block_luts(layout):
         (``tcnt[h, kb]`` valid entries): the transposed layout, for dk/dv.
     """
     layout = np.asarray(layout) != 0
-    h, nb, nb2 = layout.shape
-    assert nb == nb2, f"layout must be square, got {layout.shape}"
+    h, nb, nbk = layout.shape
     kmax = max(1, int(layout.sum(-1).max()))
     qmax = max(1, int(layout.sum(-2).max()))
     lut = np.zeros((h, nb, kmax), np.int32)
     cnt = np.zeros((h, nb), np.int32)
-    tlut = np.zeros((h, nb, qmax), np.int32)
-    tcnt = np.zeros((h, nb), np.int32)
+    tlut = np.zeros((h, nbk, qmax), np.int32)
+    tcnt = np.zeros((h, nbk), np.int32)
     for hi in range(h):
         for qb in range(nb):
             cols = np.nonzero(layout[hi, qb])[0]
             lut[hi, qb, :len(cols)] = cols
             cnt[hi, qb] = len(cols)
-        for kb in range(nb):
+        for kb in range(nbk):
             rows = np.nonzero(layout[hi, :, kb])[0]
             tlut[hi, kb, :len(rows)] = rows
             tcnt[hi, kb] = len(rows)
@@ -131,11 +131,11 @@ def build_super_luts(layout, G):
         each super key column (for dk/dv), with the same bit convention.
     """
     layout = np.asarray(layout) != 0
-    h, nb, nb2 = layout.shape
-    assert nb == nb2 and nb % G == 0 and G * G <= 32
-    ns = nb // G
-    patch = layout.reshape(h, ns, G, ns, G)          # [h, sq, rg, sk, cg]
-    active = patch.any(axis=(2, 4))                  # [h, ns, ns]
+    h, nb, nbk = layout.shape
+    assert nb % G == 0 and nbk % G == 0 and G * G <= 32
+    ns, nsk = nb // G, nbk // G
+    patch = layout.reshape(h, ns, G, nsk, G)         # [h, sq, rg, sk, cg]
+    active = patch.any(axis=(2, 4))                  # [h, ns, nsk]
     bitval = (1 << (np.arange(G)[:, None] * G
                     + np.arange(G)[None, :])).astype(np.int64)
     bits = (patch.transpose(0, 1, 3, 2, 4) * bitval).sum((-1, -2))
@@ -144,16 +144,16 @@ def build_super_luts(layout, G):
     slut = np.zeros((h, ns, tmax), np.int32)
     scnt = np.zeros((h, ns), np.int32)
     smask = np.zeros((h, ns, tmax), np.int32)
-    stlut = np.zeros((h, ns, qmax), np.int32)
-    stcnt = np.zeros((h, ns), np.int32)
-    stmask = np.zeros((h, ns, qmax), np.int32)
+    stlut = np.zeros((h, nsk, qmax), np.int32)
+    stcnt = np.zeros((h, nsk), np.int32)
+    stmask = np.zeros((h, nsk, qmax), np.int32)
     for hi in range(h):
         for sq in range(ns):
             cols = np.nonzero(active[hi, sq])[0]
             slut[hi, sq, :len(cols)] = cols
             scnt[hi, sq] = len(cols)
             smask[hi, sq, :len(cols)] = bits[hi, sq, cols]
-        for sk in range(ns):
+        for sk in range(nsk):
             rows = np.nonzero(active[hi, :, sk])[0]
             stlut[hi, sk, :len(rows)] = rows
             stcnt[hi, sk] = len(rows)
@@ -164,7 +164,7 @@ def build_super_luts(layout, G):
 MMA_TILE = 64   # rows (or keys) of a part and of a streamed tile, bf16 B6b/B6c
 
 
-def super_tile_visits(layout, G, blk, causal):
+def super_tile_visits(layout, G, blk, causal, q_offset=0):
     """The 64-wide tiles the bf16 B6b and B6c visit, as a bool array
     ``[H, ns, ns, parts, parts]``: entry ``[h, sq, sk, p, j]`` is whether
     rows ``64p .. 64p+63`` of super q-row ``sq`` and keys ``64j ..
@@ -172,14 +172,17 @@ def super_tile_visits(layout, G, blk, causal):
     ``n = G·blk``) hold a visible pair, causal included.  B6b's block
     (sq, p) walks the tiles j of its active super-tiles that this marks,
     B6c's block (sk, j) the tiles p; a tile marked False is skipped, and
-    a super-tile with no active sub-block has none marked."""
+    a super-tile with no active sub-block has none marked.  A
+    sequence-parallel rank's rows ``[H, nb/N, nb]`` of a layout count
+    their causal pairs from their global row ``q_offset``."""
     active = np.asarray(layout) != 0
-    H, nb = active.shape[:2]
+    H, nb, nbk = active.shape
     _check_factor(nb, G)
-    ns, n = nb // G, G * blk
+    _check_factor(nbk, G)
+    ns, nsk, n = nb // G, nbk // G, G * blk
     parts = -(-n // MMA_TILE)
     # [H, sq, sk, rg, cg]: sub-block (rg, cg) of super-tile (sq, sk)
-    bits = active.reshape(H, ns, G, ns, G).transpose(0, 1, 3, 2, 4)
+    bits = active.reshape(H, ns, G, nsk, G).transpose(0, 1, 3, 2, 4)
     lo = MMA_TILE * np.arange(parts)
     hi = np.minimum(lo + MMA_TILE, n) - 1
     g_lo = blk * np.arange(G)
@@ -192,14 +195,16 @@ def super_tile_visits(layout, G, blk, causal):
            & overlap[:, None, :, None] & overlap[None, :, None, :])
     if causal:
         # the part's last row in group rg at or past the tile's first key
-        # in group cg: (sq − sk)·n + last[p, rg] − first[j, cg] >= 0
-        step = (np.arange(ns)[:, None] - np.arange(ns)[None, :]) * n
+        # in group cg: q_offset + (sq − sk)·n + last[p, rg] − first[j, cg]
+        # >= 0
+        step = q_offset + (np.arange(ns)[:, None]
+                           - np.arange(nsk)[None, :]) * n
         vis &= (step[:, :, None, None, None, None]
                 + last[:, None, :, None] - first[None, :, None, :]) >= 0
     return vis.any(axis=(-1, -2))
 
 
-def build_launch_order(layout, G, blk, causal):
+def build_launch_order(layout, G, blk, causal, q_offset=0):
     """The launch orders of the bf16 B6b and B6c: ``(dq_order,
     dkv_order)``, int32 permutations of the ``H·ns·parts`` units ``lh·
     ns·parts + tile·parts + part`` (a 64-row part of a super q-row for
@@ -208,7 +213,7 @@ def build_launch_order(layout, G, blk, causal):
     (:func:`super_tile_visits`), the most first, ties by unit.  The card
     starts blocks in grid order, so the longest start first and the
     short ones fill in behind them."""
-    visits = super_tile_visits(layout, G, blk, causal)
+    visits = super_tile_visits(layout, G, blk, causal, q_offset)
     dq_tiles = visits.sum(axis=(2, 4))     # [H, sq, p]
     dkv_tiles = visits.sum(axis=(1, 3))    # [H, sk, j]
     return tuple(np.argsort(-tiles.ravel(), kind="stable").astype(np.int32)
@@ -256,6 +261,7 @@ class _DeviceLuts:
             torch.from_numpy(a).to(device) for a in arrays)
         self.active = torch.from_numpy(np.asarray(layout) != 0).to(device)
         self.layout_heads, self.nb, self.kmax = arrays[0].shape
+        self.nbk = arrays[2].shape[1]
         self.qmax = arrays[2].shape[-1]
         self._layout = np.asarray(layout) != 0   # a copy: the cache holds
         self._device = device                    # no reference to the key
@@ -276,16 +282,18 @@ class _DeviceLuts:
                 tmax=arrays[0].shape[2], qmax=arrays[3].shape[2])
         return tables
 
-    def launch_order(self, G, blk, causal):
+    def launch_order(self, G, blk, causal, q_offset=0):
         """``(dq_order, dkv_order)`` of :func:`build_launch_order` on this
-        device, built and copied at the first call for (G, blk, causal):
-        the tile counts depend on the block rows as well as the layout."""
-        key = (G, blk, bool(causal))
+        device, built and copied at the first call for (G, blk, causal,
+        q_offset): the tile counts depend on the block rows and the rows'
+        global place as well as the layout."""
+        key = (G, blk, bool(causal), int(q_offset) if causal else 0)
         orders = self._orders.get(key)
         if orders is None:
             orders = self._orders[key] = tuple(
                 torch.from_numpy(a).to(self._device)
-                for a in build_launch_order(self._layout, G, blk, causal))
+                for a in build_launch_order(self._layout, G, blk, causal,
+                                            key[3]))
         return orders
 
 
@@ -317,36 +325,42 @@ def device_luts(layout, device):
 
 
 # ----------------------------------------------------------- plain versions
-def expand_layout(layout, s, causal, device, G=1):
-    """``(visible [H, s, s], row_active [H, s])`` bool tensors: the
+def expand_layout(layout, s, causal, device, G=1, q_offset=0):
+    """``(visible [H, s, kv_len], row_active [H, s])`` bool tensors: the
     element pairs inside active tiles (under the causal mask), and the
     query rows whose softmax state a kernel opens: for B5 (``G`` 1) the
     rows whose layout block has an active tile, for B6 the rows whose
-    super-row of ``G`` layout blocks has one.  The layout comes from
+    super-row of ``G`` layout blocks has one.  ``s`` is the query rows
+    (``nb·blk`` of an ``[H, nb, nbk]`` layout, kv_len = ``nbk·blk``); a
+    sequence-parallel rank's rows of a layout are the global rows from
+    ``q_offset``, which the causal mask counts.  The layout comes from
     :func:`device_luts`, so a repeated call copies nothing to the
     device."""
     active = device_luts(layout, device).active
-    H, nb = active.shape[:2]
+    H, nb, nbk = active.shape
     blk = s // nb
     visible = active.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
     if causal:
-        pos = torch.arange(s, device=device)
-        visible = visible & (pos[:, None] >= pos[None, :])
-    row_active = active.reshape(H, nb // G, G * nb).any(-1) \
+        rows = torch.arange(q_offset, q_offset + s, device=device)
+        cols = torch.arange(nbk * blk, device=device)
+        visible = visible & (rows[:, None] >= cols[None, :])
+    row_active = active.reshape(H, nb // G, G * nbk).any(-1) \
         .repeat_interleave(G * blk, 1)
     return visible, row_active
 
 
 def _masked_scores(q, k, visible):
-    """Scaled fp32 ``[b, h, s, s]`` scores, NEG_INF outside ``visible``."""
+    """Scaled fp32 ``[b, h, s, kv_len]`` scores, NEG_INF outside
+    ``visible``."""
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / math.sqrt(q.shape[-1]))
     return torch.where(visible[None], sc, NEG_INF)
 
 
-def _reference(q, k, v, layout, causal, G):
+def _reference(q, k, v, layout, causal, G, q_offset=0):
     b, s, h, _ = q.shape
-    visible, row_active = expand_layout(layout, s, causal, q.device, G)
+    visible, row_active = expand_layout(layout, s, causal, q.device, G,
+                                        q_offset)
     sc = _masked_scores(q, k, visible)
     m = sc.amax(dim=-1, keepdim=True).clamp_min(MAX_FLOOR)
     p = torch.exp(sc - m)
@@ -359,39 +373,45 @@ def _reference(q, k, v, layout, causal, G):
     return out.to(q.dtype), lse.expand(b, h, s).reshape(b * h, s)
 
 
-def flash_block_sparse_reference(q, k, v, layout, causal=False):
+def flash_block_sparse_reference(q, k, v, layout, causal=False, q_offset=0):
     """Dense plain-PyTorch version of B5a with its exact rules: scores in
     fp32, NEG_INF outside the active tiles and above the diagonal under
     ``causal``, the row max floored at MAX_FLOOR (so a tile the causal
     mask empties adds exp(NEG_INF − m) = 0), l == 0 dividing by 1, P
     cast to the storage dtype before the fp32-accumulated P·V.  A query
     block with no active tile gives out = 0 and lse = NEG_INF (the
-    kernel's untouched running max).  O(s²) memory.  Returns
-    ``(out [b, s, h, d], lse [b·h, s])``."""
-    return _reference(q, k, v, layout, causal, 1)
+    kernel's untouched running max).  O(s²) memory.  A
+    sequence-parallel rank's rows ``[H, nb/N, nb]`` of a layout take its
+    chunk of q against the gathered k and v, its rows counted from the
+    global row ``q_offset``.  Returns ``(out [b, s, h, d], lse [b·h,
+    s])``."""
+    return _reference(q, k, v, layout, causal, 1, q_offset)
 
 
-def flash_block_sparse_agg_reference(q, k, v, layout, G, causal=False):
+def flash_block_sparse_agg_reference(q, k, v, layout, G, causal=False,
+                                     q_offset=0):
     """Dense plain-PyTorch version of B6a, what the TPU's
     ``_fbs_attention_agg`` computes at aggregation factor ``G``: B5a's
     rules, except for the lse of a row that sees no pair.  The TPU's
     super-tile kernel floors the running max of every row of a super-row
     that has an active super-tile, so such a row has lse = MAX_FLOOR
     even where its own layout block has no active tile; only the rows of
-    a super-row with none keep NEG_INF.  Out is 0 for both."""
-    return _reference(q, k, v, layout, causal, G)
+    a super-row with none keep NEG_INF.  Out is 0 for both.  ``q_offset``
+    as for :func:`flash_block_sparse_reference`."""
+    return _reference(q, k, v, layout, causal, G, q_offset)
 
 
 def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
-                                     causal=False):
+                                     causal=False, q_offset=0):
     """Dense plain-PyTorch version of B5b: P = exp(S − lse) over the
     visible pairs of active tiles, dP = dO·Vᵀ, Δ = rowsum(dO∘O), dS =
     P∘(dP − Δ) in the storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv =
-    Pᵀ·dO with P in the storage dtype.  Returns ``(dq, dk, dv)`` in the
-    input dtype."""
+    Pᵀ·dO with P in the storage dtype; ``q_offset`` as for
+    :func:`flash_block_sparse_reference` (dk and dv are then the chunk's
+    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    visible, _ = expand_layout(layout, s, causal, q.device)
+    visible, _ = expand_layout(layout, s, causal, q.device, 1, q_offset)
     # outside the active tiles P is 0 whatever lse holds (a row with no
     # active tile has lse = NEG_INF, and NEG_INF − NEG_INF is 0)
     p = torch.where(visible[None],
@@ -407,14 +427,14 @@ def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
 
 
 def flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout, layout,
-                                         G, causal=False):
+                                         G, causal=False, q_offset=0):
     """Dense plain-PyTorch version of B6b (dq) and B6c (dk, dv), what
     the TPU's ``_fbs_bwd_agg`` computes: B5b's arithmetic, since P is 0
     outside the visible pairs whatever lse a pairless row holds, so the
     factor ``G`` changes no gradient.  Returns ``(dq, dk, dv)``."""
     _check_factor(np.asarray(layout).shape[1], G)
     return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
-                                            causal)
+                                            causal, q_offset)
 
 
 # ----------------------------------------------------------------- kernels
@@ -424,12 +444,23 @@ def _kernels():
     if fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_int64)
+        # ... strides, scale, causal, kv_len, q_off, stream
         fwd.argtypes = ([i32, i32] + [ptr] * 7 + [i32] * 6
-                        + [strides, ctypes.c_float, i32, ptr])
+                        + [strides, ctypes.c_float, i32, i32, i32, ptr])
         bwd.argtypes = ([i32, i32] + [ptr] * 13 + [i32] * 7
-                        + [strides, ctypes.c_float, i32, ptr])
+                        + [strides, ctypes.c_float, i32, i32, i32, ptr])
         fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ds_fbs_agg_fwd / _bwd_dq / _bwd_dkv: dtype, head_dim, their pointers,
+# batch, heads, s, ns, layout heads, G, width, strides, scale, causal,
+# (B6c: kv_len,) q_off, stream
+_AGG_TAIL = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, _I]
+AGG_ARGTYPES = tuple([_I, _I] + [_P] * n + [_I] * 7 + _AGG_TAIL + extra
+                     for n, extra in ((9, [_I, _P]), (11, [_I, _P]),
+                                      (12, [_I, _I, _P])))
 
 
 def _agg_kernels(dtype):
@@ -442,35 +473,45 @@ def _agg_kernels(dtype):
                     lib.ds_fbs_agg_bwd_dkv)
     if fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
-        fwd.argtypes = [i32, i32] + [ptr] * 9 + [i32] * 7 + tail
-        dq.argtypes = [i32, i32] + [ptr] * 11 + [i32] * 7 + tail
-        dkv.argtypes = [i32, i32] + [ptr] * 12 + [i32] * 7 + tail
+        fwd.argtypes, dq.argtypes, dkv.argtypes = AGG_ARGTYPES
         fwd.restype = dq.restype = dkv.restype = ctypes.c_int
     return fwd, dq, dkv
 
 
-def _check(q, k, v, layout):
+def _check(q, k, v, layout, q_offset=0):
     """Shapes and the layout, for any device; returns the layout as a
-    numpy array (the caller's own array when it already is one)."""
+    numpy array (the caller's own array when it already is one).  Self
+    attention takes an ``[H, nb, nb]`` layout and q, k, v of one length;
+    a sequence-parallel rank's chunk takes its ``[H, nb/N, nb]`` rows of
+    one, its q rows against the gathered k and v, from the global row
+    ``q_offset`` (a multiple of the block)."""
     if q.dim() != 4:
         raise ValueError("block-sparse flash attention takes [b, s, h, d] "
                          "q, k, v")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"k and v must match q {tuple(q.shape)} (self-"
-                         f"attention); got {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    b, s, h, d = q.shape
+    kv_len = k.shape[1] if k.dim() == 4 else -1
+    if k.shape != (b, kv_len, h, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [b, kv_len, h, d] matching q "
+                         f"{tuple(q.shape)} (self-attention, or a chunk's "
+                         f"rows against the gathered keys); got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if not isinstance(layout, np.ndarray):
         layout = np.asarray(layout)
-    _, s, h, _ = q.shape
-    if layout.ndim != 3 or layout.shape[1] != layout.shape[2]:
+    if layout.ndim != 3:
         raise ValueError(f"layout must be [H, nb, nb], got {layout.shape}")
-    nb = layout.shape[1]
+    nb, nbk = layout.shape[1:]
     if s % nb != 0:
         raise ValueError(f"seq {s} not divisible into {nb} blocks")
+    blk = s // nb
+    if nbk * blk != kv_len or q_offset < 0 or q_offset % blk \
+            or (nbk == nb and q_offset):
+        raise ValueError(f"a layout of {nb} x {nbk} blocks of {blk} takes "
+                         f"{nbk * blk} keys (self-attention at {nb} x {nb}) "
+                         f"and a block-aligned q_offset; got {kv_len} keys, "
+                         f"q_offset {q_offset}")
     if layout.shape[0] not in (1, h):
         raise ValueError(f"layout heads {layout.shape[0]} incompatible "
                          f"with {h} heads")
@@ -533,7 +574,7 @@ def kernel_takes(q):
             and q.shape[-1] in HEAD_DIMS)
 
 
-def flash_block_sparse_fwd(q, k, v, layout, causal=False):
+def flash_block_sparse_fwd(q, k, v, layout, causal=False, q_offset=0):
     """Block-sparse flash forward (B5a); returns ``(out, lse)``.
 
     CPU tensors take :func:`flash_block_sparse_reference`.  CUDA tensors
@@ -541,17 +582,20 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
     the tensor-core super-tile forward at G = 1 (a super-tile is one layout
     block, whose lse rule is B5's) in :func:`build_launch_order`'s dq
     order, with a ValueError naming B5a on views ``mma_aligned`` refuses;
-    fp32 the scalar kernel of ``flash_block_sparse.cu``.  Every launch
-    adds one to ``flash_block_sparse_fwd.launches`` and moves no B6
-    counter."""
-    layout = _check(q, k, v, layout)
+    fp32 the scalar kernel of ``flash_block_sparse.cu``.  A
+    sequence-parallel rank's chunk passes its rows of the layout, its q
+    against the gathered k and v, and its first global row ``q_offset``.
+    Every launch adds one to ``flash_block_sparse_fwd.launches`` and
+    moves no B6 counter."""
+    layout = _check(q, k, v, layout, q_offset)
     if q.device.type == "cpu":
-        return flash_block_sparse_reference(q, k, v, layout, causal)
+        return flash_block_sparse_reference(q, k, v, layout, causal,
+                                            q_offset)
     _check_cuda(q, k, v, None)
     if q.dtype != torch.float32:
         _mma_views("B5a", q, k, v)
         out, lse = _agg_fwd(q, k, v, layout, 1, causal,
-                            "flash_block_sparse_fwd")
+                            "flash_block_sparse_fwd", q_offset)
         _count_launch(flash_block_sparse_fwd, q.dtype)
         return out, lse
     b, s, h, d = q.shape
@@ -567,13 +611,14 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False):
                  v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  luts.lut.data_ptr(), luts.cnt.data_ptr(), b, h, s, luts.nb,
                  luts.layout_heads, luts.kmax, strides, 1.0 / math.sqrt(d),
-                 int(bool(causal)), stream)
+                 int(bool(causal)), k.shape[1], int(q_offset), stream)
     _launched(rc, "flash_block_sparse_fwd")
     _count_launch(flash_block_sparse_fwd, q.dtype)
     return out, lse
 
 
-def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
+def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False,
+                           q_offset=0):
     """Block-sparse flash backward (B5b): ``(dq, dk, dv)`` from the
     forward's out and lse.
 
@@ -584,29 +629,32 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
     super-tile kernels at G = 1 (a super-tile is one layout block, whose
     lse rule is B5's), in :func:`build_launch_order`'s order, with a
     ValueError naming B5b on views ``mma_aligned`` refuses; fp32 runs the
-    scalar kernels of ``flash_block_sparse.cu``.  No atomics: two runs
-    give bitwise-equal gradients."""
-    layout = _check(q, k, v, layout)
+    scalar kernels of ``flash_block_sparse.cu``.  ``q_offset`` as for
+    :func:`flash_block_sparse_fwd` (dk and dv ``[b, kv_len, h, d]`` are
+    then the chunk's partials).  No atomics: two runs give bitwise-equal
+    gradients."""
+    layout = _check(q, k, v, layout, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout,
-                                                layout, causal)
+                                                layout, causal, q_offset)
     _check_cuda(q, k, v, None, extra=(dout, out))
     if q.dtype != torch.float32:
         _mma_views("B5b", q, k, v, dout)
         delta = _delta(out, dout)
         name = "flash_block_sparse_bwd"
-        dq = _agg_dq(q, k, v, lse, dout, delta, layout, 1, causal, name)
+        dq = _agg_dq(q, k, v, lse, dout, delta, layout, 1, causal, name,
+                     q_offset)
         dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, 1, causal,
-                          name)
+                          name, q_offset)
         _count_launch(flash_block_sparse_bwd, q.dtype)
         return dq, dk, dv
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
     delta = _delta(out, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3])
@@ -619,7 +667,8 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False):
                  dv.data_ptr(), luts.lut.data_ptr(), luts.cnt.data_ptr(),
                  luts.tlut.data_ptr(), luts.tcnt.data_ptr(), b, h, s,
                  luts.nb, luts.layout_heads, luts.kmax, luts.qmax, strides,
-                 1.0 / math.sqrt(d), int(bool(causal)), stream)
+                 1.0 / math.sqrt(d), int(bool(causal)), k.shape[1],
+                 int(q_offset), stream)
     _launched(rc, "flash_block_sparse_bwd")
     _count_launch(flash_block_sparse_bwd, q.dtype)
     return dq, dk, dv
@@ -648,11 +697,15 @@ class FlashBlockSparse(torch.autograd.Function):
 
 
 # ------------------------------------------------------ super-tile kernels
-def _agg_setup(q, k, v, layout, G):
+def _agg_setup(q, k, v, layout, G, q_offset=0):
     """The checks every super-tile wrapper makes; returns the layout as
     a numpy array."""
-    layout = _check(q, k, v, layout)
+    layout = _check(q, k, v, layout, q_offset)
     _check_factor(layout.shape[1], G)
+    _check_factor(layout.shape[2], G)
+    if q_offset % (G * (q.shape[1] // layout.shape[1])):
+        raise ValueError(f"q_offset {q_offset} is not on a super-row of "
+                         f"{G} blocks")
     return layout
 
 
@@ -677,21 +730,21 @@ def _mma_views(name, q, k, v, dout=None):
             f"of 8 elements; got strides {[t.stride() for t in tensors]}")
 
 
-def _agg_order(layout, q, G, causal):
+def _agg_order(layout, q, G, causal, q_offset=0):
     """The launch orders for ``q``'s block rows on ``q``'s device
     (``layout`` as :func:`_agg_setup` returns it)."""
     return device_luts(layout, q.device).launch_order(
-        G, q.shape[1] // layout.shape[1], causal)
+        G, q.shape[1] // layout.shape[1], causal, q_offset)
 
 
-def _agg_fwd(q, k, v, layout, G, causal, name):
+def _agg_fwd(q, k, v, layout, G, causal, name, q_offset=0):
     """Launches the super-tile forward kernel at factor ``G`` (B6a's, and
     the bf16 B5a's at G = 1) on checked CUDA tensors, in B6b's launch
     order (the two visit the same tiles); returns ``(out, lse)``.  Counts
     nothing: the caller's wrapper does."""
     b, s, h, d = q.shape
     st = device_luts(layout, q.device).super_tables(G)
-    order = _agg_order(layout, q, G, causal)[0]
+    order = _agg_order(layout, q, G, causal, q_offset)[0]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(
@@ -702,13 +755,15 @@ def _agg_fwd(q, k, v, layout, G, causal, name):
         rc = fwd(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                  st.slut.data_ptr(), st.scnt.data_ptr(), st.smask.data_ptr(),
-                 order.data_ptr(), *_agg_common(q, st, G), st.tmax, strides,
-                 1.0 / math.sqrt(d), int(bool(causal)), stream)
+                 order.data_ptr(), *_agg_common(q, st, G), st.tmax,
+                 strides, 1.0 / math.sqrt(d), int(bool(causal)),
+                 int(q_offset), stream)
     _launched(rc, name)
     return out, lse
 
 
-def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
+def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False,
+                               q_offset=0):
     """Super-tile flash forward (B6a) at aggregation factor ``G``;
     returns ``(out, lse)``.
 
@@ -716,15 +771,17 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False):
     tensors launch the Hopper kernel (head_dim 64 or 128) or raise: bf16
     and fp16 the tensor-core kernel in B6b's launch order
     (:func:`build_launch_order`; the two visit the same tiles), with a ValueError naming B6a on views
-    ``mma_aligned`` refuses; fp32 the scalar one.  Every launch adds one
-    to ``flash_block_sparse_agg_fwd.launches``."""
-    layout = _agg_setup(q, k, v, layout, G)
+    ``mma_aligned`` refuses; fp32 the scalar one.  ``q_offset`` as for
+    :func:`flash_block_sparse_fwd`, on a super-row.  Every launch adds
+    one to ``flash_block_sparse_agg_fwd.launches``."""
+    layout = _agg_setup(q, k, v, layout, G, q_offset)
     if q.device.type == "cpu":
-        return flash_block_sparse_agg_reference(q, k, v, layout, G, causal)
+        return flash_block_sparse_agg_reference(q, k, v, layout, G, causal,
+                                                q_offset)
     _check_cuda(q, k, v, None)
     _mma_views("B6a", q, k, v)
     out, lse = _agg_fwd(q, k, v, layout, G, causal,
-                        "flash_block_sparse_agg_fwd")
+                        "flash_block_sparse_agg_fwd", q_offset)
     _count_launch(flash_block_sparse_agg_fwd, q.dtype)
     return out, lse
 
@@ -735,13 +792,13 @@ def _agg_bwd_strides(q, k, v, dout, grad):
         *dout.stride()[:3], *grad.stride()[:3])
 
 
-def _agg_dq(q, k, v, lse, dout, delta, layout, G, causal, name):
+def _agg_dq(q, k, v, lse, dout, delta, layout, G, causal, name, q_offset=0):
     """Launches the super-tile dq kernel at factor ``G`` (B6b's, and the
     bf16 B5b's at G = 1) on checked CUDA tensors; returns dq.  Counts
     nothing: the caller's wrapper does."""
     d = q.shape[-1]
     st = device_luts(layout, q.device).super_tables(G)
-    order = _agg_order(layout, q, G, causal)[0]
+    order = _agg_order(layout, q, G, causal, q_offset)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _, fn, _ = _agg_kernels(q.dtype)
     with torch.cuda.device(q.device):
@@ -752,37 +809,39 @@ def _agg_dq(q, k, v, lse, dout, delta, layout, G, causal, name):
                 st.scnt.data_ptr(), st.smask.data_ptr(), order.data_ptr(),
                 *_agg_common(q, st, G), st.tmax,
                 _agg_bwd_strides(q, k, v, dout, dq), 1.0 / math.sqrt(d),
-                int(bool(causal)), stream)
+                int(bool(causal)), int(q_offset), stream)
     _launched(rc, name)
     return dq
 
 
-def _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal, name):
+def _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal, name,
+             q_offset=0):
     """Launches the super-tile dk/dv kernel at factor ``G`` (B6c's, and
     the bf16 B5b's at G = 1) over the transposed tables; returns
-    ``(dk, dv)``.  Counts nothing."""
+    ``(dk, dv)``, each ``[b, kv_len, h, d]``.  Counts nothing."""
     d = q.shape[-1]
     st = device_luts(layout, q.device).super_tables(G)
-    order = _agg_order(layout, q, G, causal)[1]
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    order = _agg_order(layout, q, G, causal, q_offset)[1]
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     _, _, fn = _agg_kernels(q.dtype)
+    b, s, h, _ = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 st.stlut.data_ptr(), st.stcnt.data_ptr(),
-                st.stmask.data_ptr(), order.data_ptr(),
-                *_agg_common(q, st, G), st.qmax,
+                st.stmask.data_ptr(), order.data_ptr(), b, h, s,
+                st.stcnt.shape[1], st.slut.shape[0], G, st.qmax,
                 _agg_bwd_strides(q, k, v, dout, dk), 1.0 / math.sqrt(d),
-                int(bool(causal)), stream)
+                int(bool(causal)), k.shape[1], int(q_offset), stream)
     _launched(rc, name)
     return dk, dv
 
 
 def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
-                                  causal=False, delta=None):
+                                  causal=False, delta=None, q_offset=0):
     """Super-tile dq (B6b) from the forward's out and lse; ``delta``,
     Δ as fp32 ``[b·h, s]``, is computed when not given.
 
@@ -790,37 +849,37 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
     tensors launch the Hopper kernel or raise: bf16 and fp16 the
     tensor-core kernel in :func:`build_launch_order`'s order (and a
     ValueError naming B6b on views ``mma_aligned`` refuses), fp32 the
-    scalar one.  Every launch adds one to
-    ``flash_block_sparse_agg_bwd_dq.launches``."""
-    layout = _agg_setup(q, k, v, layout, G)
+    scalar one.  ``q_offset`` as for :func:`flash_block_sparse_agg_fwd`.
+    Every launch adds one to ``flash_block_sparse_agg_bwd_dq.launches``."""
+    layout = _agg_setup(q, k, v, layout, G, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_bwd_reference(
-            q, k, v, out, lse, dout, layout, G, causal)[0]
+            q, k, v, out, lse, dout, layout, G, causal, q_offset)[0]
     _check_cuda(q, k, v, None, extra=(dout, out))
     _mma_views("B6b", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
     dq = _agg_dq(q, k, v, lse, dout, delta, layout, G, causal,
-                 "flash_block_sparse_agg_bwd_dq")
+                 "flash_block_sparse_agg_bwd_dq", q_offset)
     _count_launch(flash_block_sparse_agg_bwd_dq, q.dtype)
     return dq
 
 
 def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
-                                   causal=False, delta=None):
+                                   causal=False, delta=None, q_offset=0):
     """Super-tile dk and dv (B6c) over the transposed super-tile table;
     returns ``(dk, dv)``.  As :func:`flash_block_sparse_agg_bwd_dq` (the
     ValueError names B6c), with ``flash_block_sparse_agg_bwd_dkv.launches``."""
-    layout = _agg_setup(q, k, v, layout, G)
+    layout = _agg_setup(q, k, v, layout, G, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_bwd_reference(
-            q, k, v, out, lse, dout, layout, G, causal)[1:]
+            q, k, v, out, lse, dout, layout, G, causal, q_offset)[1:]
     _check_cuda(q, k, v, None, extra=(dout, out))
     _mma_views("B6c", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
     dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal,
-                      "flash_block_sparse_agg_bwd_dkv")
+                      "flash_block_sparse_agg_bwd_dkv", q_offset)
     _count_launch(flash_block_sparse_agg_bwd_dkv, q.dtype)
     return dk, dv
 
@@ -833,19 +892,21 @@ for _wrapper in (flash_block_sparse_fwd, flash_block_sparse_bwd,
 
 
 def flash_block_sparse_agg_bwd(q, k, v, out, lse, dout, layout, G,
-                               causal=False):
+                               causal=False, q_offset=0):
     """``(dq, dk, dv)`` by B6b then B6c, with Δ computed once for both;
     the plain version once for CPU tensors."""
-    layout = _agg_setup(q, k, v, layout, G)
+    layout = _agg_setup(q, k, v, layout, G, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
         return flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout,
-                                                    layout, G, causal)
+                                                    layout, G, causal,
+                                                    q_offset)
     delta = _delta(out, dout)
     dq = flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
-                                       causal, delta)
+                                       causal, delta, q_offset)
     return (dq,) + flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout,
-                                                  layout, G, causal, delta)
+                                                  layout, G, causal, delta,
+                                                  q_offset)
 
 
 class FlashBlockSparseAgg(torch.autograd.Function):
@@ -869,6 +930,14 @@ class FlashBlockSparseAgg(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def sparse_factor(layout, s, q_agg="auto"):
+    """The aggregation factor G of a ``[H, nb, nb]`` layout over a
+    length-``s`` sequence, as :func:`flash_block_sparse_attention`
+    resolves ``q_agg`` (the JAX package's rule)."""
+    nb = np.asarray(layout).shape[1]
+    return _pick_q_agg(s // nb, nb, q_agg)
+
+
 def flash_block_sparse_attention(q, k, v, layout, causal=False,
                                  q_agg="auto"):
     """Block-sparse flash attention on ``[b, s, h, d]`` inputs,
@@ -882,8 +951,7 @@ def flash_block_sparse_attention(q, k, v, layout, causal=False,
     tiles, ``G > 1`` the B6 kernels on G×G super-tiles; on the card a
     call launches the kernels it resolves to or raises."""
     layout = _check(q, k, v, layout)
-    nb = layout.shape[1]
-    G = _pick_q_agg(q.shape[1] // nb, nb, q_agg)
+    G = sparse_factor(layout, q.shape[1], q_agg)
     if G > 1:
         return FlashBlockSparseAgg.apply(q, k, v, layout, G, bool(causal))
     return FlashBlockSparse.apply(q, k, v, layout, bool(causal))

@@ -135,16 +135,18 @@ def drop_heads(b, h, head_offset=0, total_heads=None, device=None):
             + torch.arange(h, device=device)[None, :]).reshape(-1)
 
 
-def philox_keep_mask(seed, bh, s, kv_len, rate, heads=None):
+def philox_keep_mask(seed, bh, s, kv_len, rate, heads=None, q_offset=0):
     """The bool keep mask ``[bh, s, kv_len]`` of seed words ``seed`` (two
     int32, on any device; the mask comes back on that device): an element
     is kept iff its :func:`philox_bits` are at least ``thresh``.
     ``heads`` (int64 ``[bh]``, :func:`drop_heads`) are the counter words
-    of the b·h rows, ``0 .. bh-1`` by default."""
+    of the b·h rows, ``0 .. bh-1`` by default; row i is the global row
+    ``q_offset + i`` (a sequence-parallel chunk's rows of a whole call)."""
     thresh, _ = dropout_thresh(rate)
     dev = seed.device
     heads = torch.arange(bh, device=dev) if heads is None else heads
-    return philox_bits(seed, heads, torch.arange(s, device=dev), 0,
+    return philox_bits(seed, heads,
+                       torch.arange(q_offset, q_offset + s, device=dev), 0,
                        kv_len) >= thresh
 
 
@@ -174,30 +176,36 @@ def unpack_keep_bits(bits, kv_len):
     return cols.view(bh, s, 32 * n)[..., :kv_len].bool()
 
 
-def philox_keep_bits(seed, bh, s, kv_len, rate, heads=None, causal=False):
+def philox_keep_bits(seed, bh, s, kv_len, rate, heads=None, causal=False,
+                     q_offset=0):
     """Plain version of B4: the packed keep bits ``[bh, s,
     ceil(kv_len/32)]`` (int32, on the seed's device) of
     :func:`philox_keep_mask`'s mask, with the bits of every group of 4
     columns that holds no visible element 0, as the kernel leaves them:
-    under ``causal`` row i sees columns 0 .. i, so group g is drawn iff
-    4g <= i.  Bitwise the kernel's words."""
-    mask = philox_keep_mask(seed, bh, s, kv_len, rate, heads)
+    under ``causal`` row i (the global row ``q_offset + i``) sees columns
+    0 .. q_offset + i, so group g is drawn iff 4g <= q_offset + i.  A
+    chunk's words are its rows of a whole call's, cut to its
+    ``ceil(kv_len/32)`` words.  Bitwise the kernel's words."""
+    mask = philox_keep_mask(seed, bh, s, kv_len, rate, heads, q_offset)
     if causal:
         dev = seed.device
         groups = torch.arange(kv_len, device=dev) // 4
-        mask &= groups[None, :] <= torch.arange(s, device=dev)[:, None] // 4
+        rows = torch.arange(q_offset, q_offset + s, device=dev)
+        mask &= groups[None, :] <= rows[:, None] // 4
     return pack_keep_bits(mask)
 
 
 # ----------------------------------------------------------- plain versions
-def _scores(q, k, kv_mask, causal):
-    """Scaled fp32 [b, h, s, kv_len] scores, masked to NEG_INF."""
+def _scores(q, k, kv_mask, causal, q_offset=0):
+    """Scaled fp32 [b, h, s, kv_len] scores, masked to NEG_INF; under
+    ``causal`` row i is the global row ``q_offset + i``."""
     s, kv_len, d = q.shape[1], k.shape[1], q.shape[-1]
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / math.sqrt(d))
     if causal:
-        visible = (torch.arange(s, device=q.device)[:, None]
-                   >= torch.arange(kv_len, device=q.device)[None, :])
+        rows = torch.arange(q_offset, q_offset + s, device=q.device)
+        visible = rows[:, None] >= torch.arange(kv_len,
+                                                device=q.device)[None, :]
         sc = torch.where(visible[None, None], sc, NEG_INF)
     if kv_mask is not None:
         sc = torch.where(kv_mask.float()[:, None, None, :] > 0.0, sc, NEG_INF)
@@ -205,16 +213,19 @@ def _scores(q, k, kv_mask, causal):
 
 
 def flash_attention_reference(q, k, v, kv_mask=None, causal=False,
-                              keep=None, inv_keep=1.0):
+                              keep=None, inv_keep=1.0, q_offset=0):
     """Dense plain-PyTorch version of B1, with its exact masking
     semantics (port of ``_jnp_flash_reference``): scores in fp32, masked
     scores ``NEG_INF``, the row max floored at ``MAX_FLOOR``, l summing
     the undropped P, the kept P (``keep`` ``[b, h, s, kv_len]``, scaled by
     ``inv_keep``) cast to the storage dtype before the fp32-accumulated
     P·V, normalized after, as the TPU and Hopper kernels do.
-    O(s·kv_len) memory.  Returns ``(out [b, s, h, d], lse [b·h, s])``."""
+    O(s·kv_len) memory.  ``q_offset`` is the global row of q's row 0 (a
+    sequence-parallel chunk against the gathered keys): under ``causal``
+    row i sees keys 0 .. q_offset + i.  Returns ``(out [b, s, h, d], lse
+    [b·h, s])``."""
     b, s, h, _ = q.shape
-    sc = _scores(q, k, kv_mask, causal)
+    sc = _scores(q, k, kv_mask, causal, q_offset)
     m = sc.amax(dim=-1, keepdim=True).clamp_min(MAX_FLOOR)
     p = torch.exp(sc - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -228,16 +239,18 @@ def flash_attention_reference(q, k, v, kv_mask=None, causal=False,
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
-                                  causal=False, keep=None, inv_keep=1.0):
+                                  causal=False, keep=None, inv_keep=1.0,
+                                  q_offset=0):
     """Dense plain-PyTorch version of B2a/B2b and B3: P = exp(S − lse)
     from the forward's lse, dP = dO·Vᵀ, both masked and scaled by the
     keep mask under dropout, Δ = rowsum(dO∘O), dS = P∘(dP − Δ) in the
     storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv = P_keptᵀ·dO with
-    P_kept in the storage dtype.  Returns ``(dq, dk, dv)`` in the input
-    dtype."""
+    P_kept in the storage dtype; ``q_offset`` as in
+    :func:`flash_attention_reference` (dk and dv are then the chunk's
+    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    p = torch.exp(_scores(q, k, kv_mask, causal)
+    p = torch.exp(_scores(q, k, kv_mask, causal, q_offset)
                   - lse.view(b, h, s, 1))
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     p_v = p
@@ -256,16 +269,17 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
 # ----------------------------------------------------------------- kernels
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # ds_flash_attention_fwd(dtype, head_dim, q, k, v, kv_mask, out, lse,
-# batch, heads, s, kv_len, 9 strides, scale, causal, keep_bits,
-# keep_words, inv_keep, stream)
+# batch, heads, s, kv_len, 9 strides, scale, causal, q_offset,
+# keep_bits, keep_words, inv_keep, stream)
 FWD_ARGTYPES = ([_I32, _I32] + [_PTR] * 6 + [_I32] * 4 + [_I64] * 9
-                + [ctypes.c_float, _I32, _PTR, _I32, ctypes.c_float, _PTR])
+                + [ctypes.c_float, _I32, _I32, _PTR, _I32, ctypes.c_float,
+                   _PTR])
 # ds_flash_attention_bwd(which, dtype, head_dim, q, k, v, dout, lse,
 # delta, kv_mask, dq, dk, dv, batch, heads, s, kv_len, strides, scale,
-# causal, keep_bits, keep_words, inv_keep, stream)
+# causal, q_offset, keep_bits, keep_words, inv_keep, stream)
 BWD_ARGTYPES = ([_I32] * 3 + [_PTR] * 10 + [_I32] * 4
                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, _I32,
-                   _PTR, _I32, ctypes.c_float, _PTR])
+                   _I32, _PTR, _I32, ctypes.c_float, _PTR])
 
 
 def _fwd_kernel():
@@ -280,7 +294,7 @@ def _keep_kernel():
     fn = op_builder.load("flash_dropout").ds_flash_keep_bits
     if fn.argtypes is None:
         fn.argtypes = ([_PTR, _PTR] + [_I32] * 5
-                       + [ctypes.c_uint32, _I32, _I32, _PTR])
+                       + [ctypes.c_uint32, _I32, _I32, _I32, _PTR])
         fn.restype = ctypes.c_int
     return fn
 
@@ -420,14 +434,17 @@ def _check_seed(seed, device):
 
 
 def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
-                   head_offset=0, total_heads=None):
+                   head_offset=0, total_heads=None, q_offset=0):
     """B4: the keep bits of a ``[b, s, h, *]`` attention call with
     ``kv_len`` keys at ``dropout_rate``, int32 ``[b·h, s,
     ceil(kv_len/32)]`` on the seed's device (bit c of word w of a row is
     1 iff key 32w + c is kept), drawn from the two int32 seed words
     ``seed``; under ``causal`` the groups of 4 keys a row cannot see are
     not drawn and their bits are 0.  ``head_offset`` and ``total_heads``
-    place the heads in a whole call's (a tensor-parallel rank's range).
+    place the heads in a whole call's (a tensor-parallel rank's range),
+    and ``q_offset`` the rows (a sequence-parallel rank's chunk, rows
+    ``q_offset .. q_offset + s - 1`` of the whole call): the bits are
+    then exactly those heads' and rows' bits of the whole call.
 
     A CPU seed takes :func:`philox_keep_bits`.  A CUDA seed launches the
     Hopper kernel (``flash_dropout.cu``) or raises, and adds one to
@@ -435,10 +452,12 @@ def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
     _check_rate(dropout_rate)
     _check_seed(seed, None if seed is None else seed.device)
     total = _total_heads(h, head_offset, total_heads)
+    _check_offset(q_offset)
     if seed.device.type == "cpu":
         return philox_keep_bits(
             seed, b * h, s, kv_len, dropout_rate,
-            drop_heads(b, h, head_offset, total, seed.device), causal)
+            drop_heads(b, h, head_offset, total, seed.device), causal,
+            q_offset)
     if seed.device.type != "cuda":
         raise ValueError(f"the keep-bit kernel runs on cuda or cpu seeds, "
                          f"got {seed.device}")
@@ -452,7 +471,7 @@ def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
         rc = _keep_kernel()(bits.data_ptr(), seed.data_ptr(), b, h, s,
                             kv_len, int(bool(causal)),
                             dropout_thresh(dropout_rate)[0], head_offset,
-                            total, stream)
+                            total, int(q_offset), stream)
     if rc != 0:
         raise RuntimeError(f"keep-bit kernel launch failed: CUDA error {rc}")
     draw_keep_bits.launches += 1
@@ -462,26 +481,37 @@ def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
 draw_keep_bits.launches = 0
 
 
-def _keep_bits_arg(q, kv_len, causal, dropout_rate, seed, keep_bits,
-                   head_offset, total_heads):
+def _keep_bits_arg(q, kv_len, dropout_rate, keep_bits):
     """The keep bits a kernel applies: None without dropout, else
-    ``keep_bits`` as given (checked) or, without them, B4's draw from
-    ``seed``."""
+    ``keep_bits`` (B4's words of the forward), checked."""
     if not dropout_rate:
         return None
     _check_rate(dropout_rate)
     b, s, h, _ = q.shape
-    if keep_bits is None:
-        _check_seed(seed, q.device)
-        return draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal,
-                              head_offset, total_heads)
     shape = (b * h, s, keep_words(kv_len))
+    if keep_bits is None:
+        raise ValueError(f"dropout_rate {dropout_rate} needs the call's keep "
+                         f"bits (draw_keep_bits): int32 {shape}")
     if (keep_bits.dtype != torch.int32 or tuple(keep_bits.shape) != shape
             or not keep_bits.is_contiguous() or keep_bits.device != q.device):
         raise ValueError(f"keep_bits must be contiguous int32 {shape} on "
                          f"{q.device}, got {keep_bits.dtype} "
                          f"{tuple(keep_bits.shape)} on {keep_bits.device}")
     return keep_bits
+
+
+def _forward_bits(q, kv_len, causal, dropout_rate, seed, keep_bits,
+                  head_offset, total_heads, q_offset):
+    """The forward's keep bits: ``keep_bits`` as given, or B4's draw from
+    ``seed`` where they are not."""
+    if dropout_rate and keep_bits is None:
+        _check_rate(dropout_rate)
+        _check_seed(seed, q.device)
+        b, s, h, _ = q.shape
+        keep_bits = draw_keep_bits(seed, b, h, s, kv_len, dropout_rate,
+                                   causal, head_offset, total_heads,
+                                   q_offset)
+    return _keep_bits_arg(q, kv_len, dropout_rate, keep_bits)
 
 
 def _plain_keep(keep_bits, dropout_rate, b, h, kv_len):
@@ -541,15 +571,23 @@ def _count_launch(wrapper, dropout_rate, dtype):
             counter.fp16.launches += 1
 
 
+def _check_offset(q_offset):
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
 def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                         dropout_rate=0.0, seed=None, head_offset=0,
-                        total_heads=None, keep_bits=None):
+                        total_heads=None, keep_bits=None, q_offset=0):
     """Flash-attention forward (B1); returns ``(out, lse)``.  With
     ``dropout_rate`` > 0 it applies the keep bits ``keep_bits``, or,
     without them, first draws them by :func:`draw_keep_bits` from
     ``seed`` (two int32 seed words).  ``head_offset`` and ``total_heads``
     place q's heads in a whole call's (a tensor-parallel rank's range):
     B4 then draws the whole call's keep bits of those heads.
+    ``q_offset`` is the global row of q's row 0 (a sequence-parallel
+    rank's chunk against the gathered keys): under ``causal`` row i sees
+    keys 0 .. q_offset + i, and B4 draws those rows of the whole call.
 
     CPU tensors take :func:`flash_attention_reference` with the bits'
     mask.  CUDA tensors launch the Hopper kernel
@@ -560,15 +598,16 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
     _check(q, k, v, kv_mask)
     b, s, h, d = q.shape
     kv_len = k.shape[1]
+    _check_offset(q_offset)
     if q.device.type != "cpu":
         _check_cuda(q, k, v, kv_mask)
         check_fwd_views(q, k, v)
-    keep_bits = _keep_bits_arg(q, kv_len, causal, dropout_rate, seed,
-                               keep_bits, head_offset, total_heads)
+    keep_bits = _forward_bits(q, kv_len, causal, dropout_rate, seed,
+                              keep_bits, head_offset, total_heads, q_offset)
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, kv_mask, causal,
-            *_plain_keep(keep_bits, dropout_rate, b, h, kv_len))
+            *_plain_keep(keep_bits, dropout_rate, b, h, kv_len), q_offset)
     mask = _mask_arg(kv_mask)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -582,8 +621,8 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                1.0 / math.sqrt(d), int(bool(causal)), bits_ptr, words,
-                inv_keep, stream)
+                1.0 / math.sqrt(d), int(bool(causal)), int(q_offset),
+                bits_ptr, words, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
@@ -602,7 +641,7 @@ def _delta(out, dout):
 
 
 def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
-                keep_bits, delta, dq, dk, dv):
+                keep_bits, delta, dq, dk, dv, q_offset=0):
     b, s, h, d = q.shape
     kv_len = k.shape[1]
     if q.dtype in MMA_DTYPES and not mma_aligned(q, k, v, dout):
@@ -634,18 +673,18 @@ def _launch_bwd(which, q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), ptr(mask), ptr(dq), ptr(dk), ptr(dv), b, h,
                 s, kv_len, strides, 1.0 / math.sqrt(d), int(bool(causal)),
-                bits_ptr, words, inv_keep, stream)
+                int(q_offset), bits_ptr, words, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward ({which}) kernel "
                            f"launch failed: CUDA error {rc}")
 
 
-def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed,
-                keep_bits, head_offset, total_heads):
-    """dO, lse and the keep bits, checked (and the bits drawn from the
-    seed where not given)."""
+def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
+                keep_bits, q_offset):
+    """dO, lse and the keep bits, checked."""
     _check(q, k, v, kv_mask)
     b, s, h, _ = q.shape
+    _check_offset(q_offset)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out and dO must be {tuple(q.shape)}, got "
                          f"{tuple(out.shape)} and {tuple(dout.shape)}")
@@ -659,85 +698,82 @@ def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate, seed,
             dout = dout.contiguous()
         _check_cuda(q, k, v, kv_mask, extra=(dout, out))
         lse = lse.contiguous()
-    keep_bits = _keep_bits_arg(q, k.shape[1], causal, dropout_rate, seed,
-                               keep_bits, head_offset, total_heads)
+    keep_bits = _keep_bits_arg(q, k.shape[1], dropout_rate, keep_bits)
     return dout, lse, keep_bits
 
 
 def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
-               keep_bits):
+               keep_bits, q_offset):
     b, _, h, _ = q.shape
     return flash_attention_bwd_reference(
         q, k, v, out, lse, dout, kv_mask, causal,
-        *_plain_keep(keep_bits, dropout_rate, b, h, k.shape[1]))
+        *_plain_keep(keep_bits, dropout_rate, b, h, k.shape[1]), q_offset)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
-                           causal=False, dropout_rate=0.0, seed=None,
-                           delta=None, head_offset=0, total_heads=None,
-                           keep_bits=None):
+                           causal=False, dropout_rate=0.0, keep_bits=None,
+                           delta=None, q_offset=0):
     """B2a: dq ``[b, s, h, d]``.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (``flash_attention_bwd_dq.launches``)
     or raise.  ``delta``, Δ = rowsum(dO∘O) as fp32 ``[b·h, s]``, is
     computed from out and dO when not given (:func:`flash_attention_bwd`
     computes it once for B2a and B2b).  Under dropout it applies the
-    forward's ``keep_bits``, or without them draws them from ``seed``
-    first, as :func:`flash_attention_fwd`."""
+    forward's ``keep_bits`` (:func:`draw_keep_bits`), its one dropout
+    input.  ``q_offset`` as for :func:`flash_attention_fwd`."""
     dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
-                                       causal, dropout_rate, seed, keep_bits,
-                                       head_offset, total_heads)
+                                       causal, dropout_rate, keep_bits,
+                                       q_offset)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, keep_bits)[0]
+                          dropout_rate, keep_bits, q_offset)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 keep_bits, _delta(out, dout) if delta is None else delta, dq,
-                None, None)
+                None, None, q_offset)
     _count_launch(flash_attention_bwd_dq, dropout_rate, q.dtype)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
-                            causal=False, dropout_rate=0.0, seed=None,
-                            delta=None, head_offset=0, total_heads=None,
-                            keep_bits=None):
-    """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]``.  CPU tensors take
+                            causal=False, dropout_rate=0.0, keep_bits=None,
+                            delta=None, q_offset=0):
+    """B2b: ``(dk, dv)``, each ``[b, kv_len, h, d]`` (a chunk's partials
+    at ``q_offset`` > 0 or q shorter than the keys).  CPU tensors take
     the plain version; CUDA tensors launch the kernel
-    (``flash_attention_bwd_dkv.launches``) or raise.  ``delta`` and
-    ``keep_bits`` as for :func:`flash_attention_bwd_dq`."""
+    (``flash_attention_bwd_dkv.launches``) or raise.  ``delta``,
+    ``keep_bits`` and ``q_offset`` as for :func:`flash_attention_bwd_dq`."""
     dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
-                                       causal, dropout_rate, seed, keep_bits,
-                                       head_offset, total_heads)
+                                       causal, dropout_rate, keep_bits,
+                                       q_offset)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, keep_bits)[1:]
+                          dropout_rate, keep_bits, q_offset)[1:]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 keep_bits, _delta(out, dout) if delta is None else delta,
-                None, dk, dv)
+                None, dk, dv, q_offset)
     _count_launch(flash_attention_bwd_dkv, dropout_rate, q.dtype)
     return dk, dv
 
 
 def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
-                              causal=False, dropout_rate=0.0, seed=None,
-                              delta=None, head_offset=0, total_heads=None,
-                              keep_bits=None):
+                              causal=False, dropout_rate=0.0, keep_bits=None,
+                              delta=None, q_offset=0):
     """B3: ``(dq, dk, dv)`` from one score pass.  CPU tensors take the
     plain version; CUDA tensors launch the kernel
     (``flash_attention_bwd_fused.launches``: bf16 and fp16 on the tensor
     cores, with a ValueError naming B3 on views :func:`mma_aligned`
     refuses;
     fp32 scalar) or raise, also when the shape does not fit
-    (:func:`fused_backward_fits`).  ``delta`` and ``keep_bits`` as for
-    :func:`flash_attention_bwd_dq`."""
+    (:func:`fused_backward_fits`).  ``delta``, ``keep_bits`` and
+    ``q_offset`` as for :func:`flash_attention_bwd_dq`."""
     dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
-                                       causal, dropout_rate, seed, keep_bits,
-                                       head_offset, total_heads)
+                                       causal, dropout_rate, keep_bits,
+                                       q_offset)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, keep_bits)
+                          dropout_rate, keep_bits, q_offset)
     d, s, kv_len = q.shape[-1], q.shape[1], k.shape[1]
     if not fused_backward_fits(d, s, kv_len, q.dtype):
         raise ValueError(f"the fused backward needs "
@@ -749,7 +785,7 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("fused", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 keep_bits, _delta(out, dout) if delta is None else delta, dq,
-                dk, dv)
+                dk, dv, q_offset)
     _count_launch(flash_attention_bwd_fused, dropout_rate, q.dtype)
     return dq, dk, dv
 
@@ -761,30 +797,28 @@ for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_mask=None, causal=False,
-                        dropout_rate=0.0, seed=None, head_offset=0,
-                        total_heads=None, keep_bits=None):
+                        dropout_rate=0.0, keep_bits=None, q_offset=0):
     """Flash-attention backward: ``(dq, dk, dv)`` from the forward's out
     and lse.  CUDA tensors run B3 where :func:`use_fused_backward` takes
-    it, else B2a then B2b, which share one Δ, one fp32 key mask and one
-    set of keep bits (drawn once from ``seed`` where ``keep_bits`` is not
-    given); CPU tensors run the plain version."""
+    it, else B2a then B2b, which share one Δ, one fp32 key mask and the
+    forward's keep bits; CPU tensors run the plain version.  ``q_offset``
+    as for :func:`flash_attention_fwd`."""
     dout, lse, keep_bits = _bwd_inputs(q, k, v, out, lse, dout, kv_mask,
-                                       causal, dropout_rate, seed, keep_bits,
-                                       head_offset, total_heads)
+                                       causal, dropout_rate, keep_bits,
+                                       q_offset)
     if q.device.type == "cuda" and not use_fused_backward(
             q.shape[-1], q.shape[1], k.shape[1], q.dtype):
         kv_mask = _mask_arg(kv_mask)
         delta = _delta(out, dout)
         dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask, causal,
-                                    dropout_rate, None, delta,
-                                    keep_bits=keep_bits)
+                                    dropout_rate, keep_bits, delta, q_offset)
         dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask,
-                                         causal, dropout_rate, None, delta,
-                                         keep_bits=keep_bits)
+                                         causal, dropout_rate, keep_bits,
+                                         delta, q_offset)
         return dq, dk, dv
     return flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask,
-                                     causal, dropout_rate, None, None,
-                                     keep_bits=keep_bits)
+                                     causal, dropout_rate, keep_bits, None,
+                                     q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -800,8 +834,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, kv_mask=None, seed=None, causal=False,
                 dropout_rate=0.0, head_offset=0, total_heads=None):
         _check(q, k, v, kv_mask)
-        keep_bits = _keep_bits_arg(q, k.shape[1], causal, dropout_rate, seed,
-                                   None, head_offset, total_heads)
+        keep_bits = _forward_bits(q, k.shape[1], causal, dropout_rate, seed,
+                                  None, head_offset, total_heads, 0)
         out, lse = flash_attention_fwd(q, k, v, kv_mask, causal,
                                        dropout_rate, keep_bits=keep_bits)
         ctx.save_for_backward(q, k, v, out, lse, kv_mask, keep_bits)
@@ -814,5 +848,5 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, kv_mask, keep_bits = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_mask,
                                          ctx.causal, ctx.dropout_rate,
-                                         keep_bits=keep_bits)
+                                         keep_bits)
         return dq, dk, dv, None, None, None, None, None, None

@@ -172,6 +172,27 @@ def get_current_mesh():
     return _CURRENT_MESH
 
 
+# True inside a block where every ``seq`` rank holds the whole sequence,
+# not its chunk (the pipeline engine's last stage gathers its output for
+# ``loss_fn``): the losses' normalisers then count over ``data`` alone
+_WHOLE_SEQUENCE = False
+
+
+@contextlib.contextmanager
+def whole_sequence():
+    """Every ``seq`` rank holds the whole sequence inside the block."""
+    global _WHOLE_SEQUENCE
+    prev, _WHOLE_SEQUENCE = _WHOLE_SEQUENCE, True
+    try:
+        yield
+    finally:
+        _WHOLE_SEQUENCE = prev
+
+
+def sequence_is_whole():
+    return _WHOLE_SEQUENCE
+
+
 def mesh_axis_sizes(mesh, keep_trivial=False):
     """{axis_name: size}; size-1 axes dropped unless ``keep_trivial``."""
     if keep_trivial:

@@ -176,8 +176,8 @@ package.
 Sequence parallelism (a ``seq`` axis above 1, JAX ``engine.py:214-217``
 for the sizes): the data world is world / (model·pipe·seq·expert); the
 ``seq`` ranks of one data coordinate take the same rows, and the model
-(``attn_impl="ring"``) cuts its own chunk and runs ring attention over
-the axis.  Each ``seq`` rank's loss is a partial sum over the global
+cuts its own chunk and runs its attention core over the axis (the ring,
+or the gather form of the dense and sparse cores).  Each ``seq`` rank's loss is a partial sum over the global
 count (:func:`~deepspeed_tpu_torch.comm.data_parallel_mean_count`), so
 its gradient is summed over ``seq``: ZeRO-1/2/3 reduce-scatter the
 flat gradient over ``data`` and then all-reduce the shard over ``seq``
@@ -189,10 +189,16 @@ runs over ``data`` × ``seq`` (× ``model`` × ``expert``): the loss sums
 the ``seq`` ranks' partials, and the overflow flag and the norm's
 square count at ``seq`` coordinate 0 only, where the gradient is
 already the ``seq`` sum.  Checkpoints are the whole tree, written by
-``seq`` rank 0 of data rank 0.  Not composed with ``seq`` yet, each
-raising with ``SEQ_ITEM`` (ROADMAP A19): another attention core than
-the ring, a pipe or expert axis above 1, MoE blocks, ``OneBitAdam`` and
-``sparse_gradients``.
+``seq`` rank 0 of data rank 0.  ``seq`` composes with ``expert`` (MoE
+blocks route whole sequences), with the pipeline engine
+(:mod:`~deepspeed_tpu_torch.runtime.pipe.engine`), with 1-bit Adam
+(the compressed phase sums the gradient over ``seq`` before the
+compressed exchange over ``data``) and with ``sparse_gradients`` (the
+rows the chunks' ids touch are exchanged over ``data`` × ``seq``).  A
+model without an attention core of the port's (no ``config.attn_impl``),
+or a pipeline with a layer that does not declare ``seq_parallel``,
+would run replicated over ``seq`` or on its chunk alone and is refused
+(``SEQ_MODEL_ITEM``, ROADMAP A22).
 
 Telemetry (the ``telemetry`` and ``tensorboard`` blocks and
 ``wall_clock_breakdown``, JAX ``:675-800``, ``:3600-4009``): the
@@ -234,8 +240,8 @@ model (:mod:`~deepspeed_tpu_torch.runtime.fp16.onebit_adam`), and
 in the rank's vocab range, over ``data``.
 
 Not in this slice (each refused where asked for, with its ROADMAP item):
-MoE under a pipeline (which the JAX package has no path for) and what
-does not compose with ``seq`` yet (A19).
+MoE under a pipeline (which the JAX package has no path for) and a
+model without the port's attention core above one ``seq`` rank (A22).
 """
 
 import dataclasses
@@ -255,7 +261,7 @@ from ..checkpoint.constants import (CLIENT_STATE_PKL, LATEST_FILE,
 from ..checkpoint.manager import CheckpointManager, drain_inflight
 from ..checkpoint.snapshot import capture_engine_snapshot, state_fields
 from ..checkpoint.writer import CheckpointCorruptionError, CheckpointError
-from ..models.layers import SEQ_ITEM, mix_seed
+from ..models.layers import mix_seed
 from ..ops.adam import cpu_adam
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
@@ -300,6 +306,10 @@ from .zero.overlap import BucketedExchange, Zero3Params
 from .zero.stream import HostStream, chunk_rows_for
 
 logger = logging.getLogger(__name__)
+
+# the ROADMAP item that would run a model without the port's attention
+# cores replicated over seq
+SEQ_MODEL_ITEM = "ROADMAP A22"
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -429,8 +439,6 @@ class DeepSpeedEngine:
         self._offload = zc.cpu_offload
         self._sparse_paths = self._configure_sparse_gradients(model)
         self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
-        if seq:
-            self._refuse_seq_config(optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -599,43 +607,19 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------ sequence parallelism
     def _refuse_seq_mesh(self, mesh, model):
-        """What this slice does not compose with ``seq`` above one rank,
-        read off the mesh and the model, each naming ``SEQ_ITEM``: the
-        model must run the ring core (any other would attend over a
-        rank's chunk only, and a model without attention would be
-        counted once a seq rank)."""
-        for ax in (PIPE_AXIS, EXPERT_AXIS):
-            if mesh.size(ax) > 1:
-                raise NotImplementedError(
-                    f"a seq axis with a {ax} axis above 1 is not ported "
-                    f"yet ({SEQ_ITEM})")
+        """A model above one ``seq`` rank must cut its own chunk and run
+        one of the port's attention cores over the axis (``config.
+        attn_impl``: the ring, the dense or the sparse core); one without
+        would be counted once a seq rank, and is refused naming
+        ``SEQ_MODEL_ITEM`` (the pipeline engine checks its layers
+        instead)."""
         mcfg = getattr(model, "config", None)
-        impl = getattr(mcfg, "attn_impl", None)
-        if impl != "ring":
+        if getattr(mcfg, "attn_impl", None) is None:
             raise NotImplementedError(
-                f"a seq axis above 1 trains a model whose attention core "
-                f"is the ring (attn_impl='ring'), not {impl!r}: other "
-                f"cores are not ported to sequence parallelism yet "
-                f"({SEQ_ITEM})")
-        if getattr(mcfg, "moe_experts", 0):
-            raise NotImplementedError(
-                f"MoE blocks above one seq rank are not ported yet "
-                f"({SEQ_ITEM})")
-
-    def _refuse_seq_config(self, client_optimizer):
-        """The config's knobs that do not compose with ``seq`` yet, each
-        naming ``SEQ_ITEM``."""
-        name = (type(client_optimizer).__name__.lower()
-                if client_optimizer is not None
-                else (self._config.optimizer_name or "").lower())
-        if name == C.ONEBIT_ADAM_OPTIMIZER:
-            raise NotImplementedError(
-                f"OneBitAdam above one seq rank is not ported yet "
-                f"({SEQ_ITEM})")
-        if self._config.sparse_gradients_enabled:
-            raise NotImplementedError(
-                f"sparse_gradients above one seq rank is not ported yet "
-                f"({SEQ_ITEM})")
+                f"a seq axis above 1 trains a model that cuts its sequence "
+                f"over the axis (a GPT-2 or BERT of the port: config."
+                f"attn_impl); {type(model).__name__} would run replicated "
+                f"over seq, which is not ported yet ({SEQ_MODEL_ITEM})")
 
     # ------------------------------------------------ tensor parallelism
     def _tp_setup(self, model, params0):
@@ -1900,7 +1884,10 @@ class DeepSpeedEngine:
         through all-reduces.  A leaf whose gradient has more non-zero
         rows than the budget (a tied head: its gradient is dense) is
         poisoned with NaN on every rank, so the step fails loudly
-        instead of training on truncated gradients."""
+        instead of training on truncated gradients.  Above one ``seq``
+        rank every exchange runs over ``data`` × ``seq``: a rank's rows
+        are those its chunk's ids touch."""
+        axes = self._grad_axes
         view = g.view(-1)
         bounds, dense_from = [], 0
         _, leaves = tree_leaves(self.flat.unflatten_params(g))
@@ -1913,15 +1900,15 @@ class DeepSpeedEngine:
             dense_from = ro + self.segments.row_counts[i]
             csr, dropped = CSRTensor.from_dense(
                 leaf, max_rows=self._step_tokens, return_dropped=True)
-            summed = csr_allreduce(csr, DATA_AXIS, self.mesh)
-            dropped = comm.psum(dropped.float(), DATA_AXIS, self.mesh)
+            summed = csr_allreduce(csr, axes, self.mesh)
+            dropped = comm.psum(dropped.float(), axes, self.mesh)
             leaf.copy_(summed + torch.where(dropped > 0, float("nan"),
                                             0.0).to(summed.dtype))
         bounds.append((dense_from * LANES, view.numel()))
         for lo, hi in bounds:
             if hi > lo:
                 part = view[lo:hi]
-                comm.psum(part, DATA_AXIS, self.mesh, out=part)
+                comm.psum(part, axes, self.mesh, out=part)
         return g
 
     def is_gradient_accumulation_boundary(self):
@@ -1973,6 +1960,10 @@ class DeepSpeedEngine:
         resilience), so the anomaly guard sees the step as the JAX
         engine's does."""
         g = self._acc if self._acc is not None else self._grad
+        if self.sp_world_size > 1:
+            # the seq ranks' partial gradients: their sum is the data
+            # rank's, which the compressed exchange takes over data
+            comm.psum(g, SEQ_AXIS, self.mesh, out=g)
         loss = self._compressed_loss()
         self._step_loss = loss
         mean_loss = (self._fetch_step_scalars([loss])[0] if self._skip_bad
@@ -1987,9 +1978,12 @@ class DeepSpeedEngine:
 
     def _compressed_loss(self):
         """The compressed step's loss: the mean over the micro-batches,
-        averaged over the data-parallel ranks."""
+        the seq ranks' partials summed, averaged over the data-parallel
+        ranks."""
         loss = torch.stack(self._losses).float().mean()
         if self.mesh is not None:
+            if self.sp_world_size > 1:
+                loss = comm.psum(loss, SEQ_AXIS, self.mesh)
             loss = comm.pmean(loss, DATA_AXIS, self.mesh)
         return loss
 

@@ -71,6 +71,29 @@ over ``pipe``, ``data`` and ``model``.  MoE blocks under the pipeline
 engine (the ``expert`` axis) raise: the JAX package has no such path
 (``MOE_PIPE_ITEM``).
 
+Pipe × seq: a stage's ``seq`` ranks hold chunks of the sequence: the
+first stage cuts its chunk of the micro-batch's inputs (dim 1, rank r
+of N positions ``[r·s/N, (r+1)·s/N)``), and the layers run on the
+chunk, so each must declare ``seq_parallel`` (per position, or the
+port's attention cores over the axis under the current mesh: see
+:mod:`.module`); a module with one that does not is refused
+(``SEQ_MODEL_ITEM``).  Point-to-point pairs the ranks of equal ``seq``
+coordinate (the pipe groups are per coordinate of every other axis, as
+are the tied copies').  The last stage gathers its output over ``seq``
+(:func:`~deepspeed_tpu_torch.comm.gather_seq`, whose backward sends
+each chunk its gradient) and hands ``loss_fn`` the whole sequence and
+the whole labels, as the JAX pipeline does, with the losses'
+normalisers counting over ``data`` alone
+(:func:`~deepspeed_tpu_torch.parallel.mesh.whole_sequence`); every seq
+rank takes 1/N of that loss, so the ranks' parts summed over ``seq``
+are the loss and their gradients the whole one.  The gradient is
+summed over ``seq`` by the base engine's exchange, and the step's stats
+all-reduce runs over ``pipe`` × ``data`` × ``seq``, the flag and the
+norm counted at ``seq`` coordinate 0.  Each chunk draws its dropout
+streams from a ``seq`` sub-stream, and the attention cores' in-kernel
+dropout its seed words from the stream before it
+(``attn_seed_rng``), the same on every seq rank.
+
 ZeRO-3 (JAX: inherited from its ``DeepSpeedEngine``): each stage's
 flat master is partitioned over its data group, and the stage's
 compute params are gathered before a forward instruction that finds
@@ -105,15 +128,15 @@ import torch
 import torch.distributed as dist
 
 from ... import comm
-from ...models.layers import mix_seed
-from ...parallel.mesh import DATA_AXIS, EXPERT_AXIS, PIPE_AXIS, Mesh, \
-    current_mesh, make_mesh
+from ...models.layers import SEQ_STREAM, mix_seed
+from ...parallel.mesh import (DATA_AXIS, EXPERT_AXIS, PIPE_AXIS, SEQ_AXIS,
+                              Mesh, current_mesh, make_mesh, whole_sequence)
 from ...utils.distributed import get_rank, get_world_size, init_distributed
 from ...utils.params import tree_leaves
 from ..config import get_mesh_config, get_pipeline_config
 from ..config_utils import load_config_json
 from ..dataloader import RepeatingLoader
-from ..engine import DeepSpeedEngine
+from ..engine import SEQ_MODEL_ITEM, DeepSpeedEngine
 from ..utils import tree_path_key
 from .module import PipelineModule, split_batch, stage_generator
 from .schedule import (BackwardPass, DataParallelSchedule, ForwardPass,
@@ -328,6 +351,22 @@ class PipelineEngine(DeepSpeedEngine):
                 f"PipelineModule carries no MoE aux loss across stages "
                 f"({MOE_PIPE_ITEM})")
 
+    def _refuse_seq_mesh(self, mesh, model):
+        """A stage's layers run on its ``seq`` rank's chunk of the
+        sequence: a module with a layer that does not declare
+        ``seq_parallel`` (:meth:`PipelineModule.seq_unready`) would run
+        it on the chunk alone, and is refused naming
+        ``SEQ_MODEL_ITEM``."""
+        unready = self.pipe_module.seq_unready()
+        if unready:
+            raise NotImplementedError(
+                f"a seq axis above 1 runs each pipeline layer on its "
+                f"rank's chunk of the sequence; layers {unready} do not "
+                f"declare seq_parallel = True (per position, or the "
+                f"port's attention cores over seq), and a pipeline that "
+                f"runs them on the whole sequence is not ported yet "
+                f"({SEQ_MODEL_ITEM})")
+
     def _resolve_comm_overlap(self, zc, client_optimizer):
         """The instruction stream exchanges the gradient at its own
         instructions, so the bucketed exchange (``overlap_comm``), whose
@@ -443,14 +482,21 @@ class PipelineEngine(DeepSpeedEngine):
 
     def _compressed_loss(self):
         """1-bit Adam's compressed step: the last stage's mean loss on
-        every stage (a sum over ``pipe``), averaged over ``data``."""
+        every stage (a sum over ``pipe``, and the chunks' parts over
+        ``seq``), averaged over ``data``."""
         if self.pipe_world_size == 1:
             return super()._compressed_loss()
         loss = (torch.stack(self._losses).float().mean() if self._losses
                 else torch.zeros((), dtype=torch.float32,
                                  device=self.device))
-        loss = comm.psum(loss, PIPE_AXIS, self.mesh)
+        loss = comm.psum(loss, self._loss_axes(), self.mesh)
         return comm.pmean(loss, DATA_AXIS, self.mesh)
+
+    def _loss_axes(self):
+        """The axes the last stage's loss is summed over to every rank:
+        ``pipe``, and ``seq`` above one rank (its chunks' parts)."""
+        return (PIPE_AXIS, SEQ_AXIS) if self.sp_world_size > 1 \
+            else PIPE_AXIS
 
     def _onebit_scale_axes(self):
         axes = super()._onebit_scale_axes() or ()
@@ -557,7 +603,9 @@ class PipelineEngine(DeepSpeedEngine):
             loss = (torch.stack(self._eval_losses).float().mean()
                     if self._eval_losses else zero)
             if self.mesh is not None and self.pipe_world_size > 1:
-                loss = comm.psum(loss, PIPE_AXIS, self.mesh)
+                loss = comm.psum(loss, self._loss_axes(), self.mesh)
+            elif self.mesh is not None and self.sp_world_size > 1:
+                loss = comm.psum(loss, SEQ_AXIS, self.mesh)
             if self.mesh is not None and self.dp_world_size > 1:
                 loss = comm.pmean(loss, DATA_AXIS, self.mesh)
         if self._stage3:
@@ -650,17 +698,49 @@ class PipelineEngine(DeepSpeedEngine):
         entry = self._entry(b)
         _, logical = self._work(b, entry)
         if logical == 0:
-            entry["x"] = self._to_device(inputs)
+            entry["x"] = self._seq_chunk(self._to_device(inputs))
         if logical == self.pipe_world_size * self.interleave - 1:
             entry["labels"] = self._to_device(labels)
 
-    def _stream_seed(self, micro, logical):
+    def _seq_chunk(self, x):
+        """This ``seq`` rank's chunk (dim 1) of every tensor of ``x``;
+        ``x`` itself at one rank."""
+        n = self.sp_world_size
+        if n == 1:
+            return x
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._seq_chunk(t) for t in x)
+        if isinstance(x, dict):
+            return {k: self._seq_chunk(t) for k, t in x.items()}
+        sl = x.shape[1] // n
+        if x.shape[1] % n:
+            raise ValueError(f"a sequence of {x.shape[1]} positions does "
+                             f"not split over {n} seq ranks")
+        return x[:, self.sp_rank * sl:(self.sp_rank + 1) * sl]
+
+    def _stream_seed(self, micro, logical, seq=True):
+        """The stage's dropout stream for ``micro`` (with ``seq``, this
+        seq rank's sub-stream of it)."""
         seed = mix_seed(self._batch_seed, micro)
         if self.pipe_world_size > 1:
             seed = mix_seed(seed, logical)
         if self.dp_rank:
             seed = mix_seed(seed, self.dp_rank)
+        if seq and self.sp_rank:
+            seed = mix_seed(seed, SEQ_STREAM + self.sp_rank)
         return seed
+
+    def _whole_output(self, y):
+        """The last stage's output ``y`` (a tensor or a tuple, list or
+        dict of them) gathered over ``seq`` along dim 1; ``y`` itself at
+        one rank."""
+        if isinstance(y, (tuple, list)):
+            return type(y)(self._whole_output(t) for t in y)
+        if isinstance(y, dict):
+            return {k: self._whole_output(t) for k, t in y.items()}
+        if not torch.is_tensor(y) or y.dim() < 2:
+            return y
+        return comm.gather_seq(y, dim=1, mesh=self.mesh)
 
     def _forward(self, b):
         entry = self._live[b]
@@ -673,10 +753,21 @@ class PipelineEngine(DeepSpeedEngine):
         if self._train:
             kw["rng"] = stage_generator(self._stream_seed(micro, logical),
                                         entry["x"])
+            if self.sp_world_size > 1:
+                kw["attn_seed_rng"] = stage_generator(
+                    self._stream_seed(micro, logical, seq=False), entry["x"])
         y = self.pipe_module.apply_range(self.params, lo, hi, entry["x"],
                                          **kw)
         if logical == self.pipe_world_size * self.interleave - 1:
-            loss = self.pipe_module.loss_fn(y, entry["labels"])
+            if self.sp_world_size > 1:
+                # the whole sequence's loss on every seq rank, each rank
+                # its 1/N part of it
+                with whole_sequence():
+                    loss = self.pipe_module.loss_fn(self._whole_output(y),
+                                                    entry["labels"])
+                loss = loss / self.sp_world_size
+            else:
+                loss = self.pipe_module.loss_fn(y, entry["labels"])
             if self._train:
                 entry["loss"] = loss
                 self._losses.append(loss.detach())
@@ -854,7 +945,10 @@ class PipelineEngine(DeepSpeedEngine):
         loss = torch.stack(self._losses).float().mean() if last else zero
         sq = self._norm_sq(g) if clip > 0.0 else zero
         bad = zero + float(getattr(self, "_boundary_mismatch", False))
-        stats = comm.psum(torch.stack([flag, loss, sq, bad]),
+        # the gradient is the seq ranks' sum already: the flag and the
+        # norm count at seq coordinate 0, the loss sums the chunks' parts
+        seq0 = float(self.sp_rank == 0)
+        stats = comm.psum(torch.stack([flag * seq0, loss, sq * seq0, bad]),
                           self._stats_axes, self.mesh)
         if self._check_boundaries:
             self._check_boundaries = False

@@ -20,9 +20,23 @@ Layer contract: a built layer is either
 
 ``apply`` gets only the keyword arguments its signature takes, of
 ``rng`` (a ``torch.Generator`` on the activations' device, shared by the
-layers of one stage and drawn in layer order) and ``deterministic``.
-The final ``loss_fn(outputs, labels)`` maps the last layer's output and
-the batch labels to a scalar loss.
+layers of one stage and drawn in layer order), ``deterministic`` and,
+above one ``seq`` rank, ``attn_seed_rng`` (the stage's stream before the
+seq mixing, from which the port's dense attention core draws its
+in-kernel dropout's seed words).  The final ``loss_fn(outputs, labels)``
+maps the last layer's output and the batch labels to a scalar loss.
+
+Above one ``seq`` rank each stage runs its layers on the rank's chunk
+of the sequence (dim 1), so every layer must declare it is right there:
+a class attribute ``seq_parallel = True`` (or the attribute on a plain
+callable, or on a tied use's ``forward_fn``), meaning its output at a
+position depends on its input at that position alone, or that it mixes
+positions only through the port's attention cores over ``seq``, as
+:class:`~deepspeed_tpu_torch.models.layers.TransformerLayer` does.  A
+layer that reads positions (a position table) must take its chunk's
+global ones (:func:`~deepspeed_tpu_torch.models.layers.seq_offset`)
+before it declares so.  The engine refuses a module with a layer that
+does not (:meth:`PipelineModule.seq_unready`).
 
 Layer seeds: with ``seed_layers`` layer ``i`` draws from ``base_seed +
 i`` (through ``seed_fn``), else from stream ``i`` of the engine's seed
@@ -163,6 +177,21 @@ class PipelineModule:
     @property
     def layers(self):
         return [self.layer(i) for i in range(self.num_layers)]
+
+    def seq_unready(self):
+        """``"index: name"`` of each layer that does not declare
+        ``seq_parallel`` (at a tied use with a ``forward_fn``, the
+        function must)."""
+        out = []
+        for idx, spec in enumerate(self.layer_specs):
+            target = self._forward_fns.get(idx)
+            if target is None:
+                target = (spec.typename if isinstance(spec, LayerSpec)
+                          else spec)
+            if not getattr(target, "seq_parallel", False):
+                name = getattr(target, "__name__", type(target).__name__)
+                out.append(f"{idx}: {name}")
+        return out
 
     def has_params(self, idx):
         layer = self.layer(idx)
@@ -347,8 +376,8 @@ class PipelineModule:
         """Layers ``[start, stop)``; with ``activation_checkpoint_interval``
         (or ``interval``) > 0 each run of that many layers is recomputed
         in backward instead of keeping its activations (:func:`recomputed`,
-        which replays the ``rng`` generator, so the recompute draws the
-        forward's dropout masks)."""
+        which replays the ``rng`` and ``attn_seed_rng`` generators, so the
+        recompute draws the forward's dropout masks)."""
         interval = (self.activation_checkpoint_interval if interval is None
                     else interval)
         if interval <= 0:
@@ -363,10 +392,10 @@ class PipelineModule:
                 return x
             return run
 
-        rng = kw.get("rng")
-        rng = rng if isinstance(rng, torch.Generator) else None
+        gens = [g for g in (kw.get("rng"), kw.get("attn_seed_rng"))
+                if isinstance(g, torch.Generator)]
         for lo in range(start, stop, interval):
-            x = recomputed(chunk(lo, min(lo + interval, stop)), rng)(x)
+            x = recomputed(chunk(lo, min(lo + interval, stop)), *gens)(x)
         return x
 
     def sequential_apply(self, params, batch, rng=None, train=False, **kw):

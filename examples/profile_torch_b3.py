@@ -68,9 +68,11 @@ def check(label):
         dout = torch.randn(b, s, 16, 64, generator=torch.Generator()
                            .manual_seed(i)).to(cs.DEVICE, torch.bfloat16)
         seed = cs.seed_words(i)
-        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, rate, seed)
+        bits = fa.draw_keep_bits(seed, b, 16, s, kv_len, rate, causal)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, rate,
+                                          keep_bits=bits)
         got = fa.flash_attention_bwd_fused(q, k, v, out, lse, dout, mask,
-                                           causal, rate, seed)
+                                           causal, rate, bits)
         keep, inv_keep = cs.plain_keep(q, k, rate, seed)
         ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
                                                causal, keep, inv_keep)
@@ -126,7 +128,7 @@ def main():
         bits = cs.draw_bits(q, k, False, cs.DROPOUT, seed)
         out, lse = fa.flash_attention_fwd(q, k, v, mask, False, cs.DROPOUT,
                                           keep_bits=bits)
-        args_ = (q, k, v, out, lse, dout, mask, False, cs.DROPOUT, None)
+        args_ = (q, k, v, out, lse, dout, mask, False, cs.DROPOUT)
         cases[label] = (args_, fa._delta(out, dout), bits)
     use(libs["source"])
     result["b2_ms"] = {label: cs.device_ms(lambda: cs.b2_pair(

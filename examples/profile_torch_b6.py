@@ -55,10 +55,8 @@ def use(lib_path):
     """Points the super-tile wrappers at ``lib_path``'s kernels."""
     lib = ctypes.CDLL(str(lib_path))
     fns = (lib.ds_fbs_agg_fwd, lib.ds_fbs_agg_bwd_dq, lib.ds_fbs_agg_bwd_dkv)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, i32, ptr]
-    for fn, n_ptr in zip(fns, (9, 11, 12)):
-        fn.argtypes = [i32, i32] + [ptr] * n_ptr + [i32] * 7 + tail
+    for fn, argtypes in zip(fns, fbs.AGG_ARGTYPES):
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     fbs._agg_kernels = lambda dtype: fns
 

@@ -1,13 +1,27 @@
 #!/usr/bin/env python3
-"""GPT-2 with sequence parallelism (ring attention over the ``seq``
-axis), composed with data and tensor parallelism, on the PyTorch/CUDA
+"""GPT-2 (or BERT) with sequence parallelism over the ``seq`` axis,
+composed with data, tensor and expert parallelism, on the PyTorch/CUDA
 port, one process a rank.
 
     torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 4
     torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 2 --data 2
     torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 2 --model 2
+    torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 4 --core dense
+    torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 4 --bert-sparse
+    torchrun --nproc-per-node 4 examples/train_torch_ring.py --seq 2 --expert 2 --moe 4
     torchrun --nproc-per-node 1 examples/train_torch_ring.py --dense
     torchrun --nproc-per-node 2 examples/train_torch_ring.py --seq 2 --cpu
+
+``--core`` picks the attention core over ``seq``: ``ring`` (the
+default), or ``dense`` and ``sparse``, the gather cores (K/V gathered,
+the kernels at each chunk's query-row offset); ``--dense`` is the dense
+core at one rank.  ``--bert-sparse`` trains BERT-large pretraining with
+the sparse core (Fixed bidirectional 128-row blocks, one layout a head:
+chip_smoke's ``BERT_SPARSE_LAYOUT``, G = 4) on MLM batches of 640
+labelled positions a row, no padding; ``--moe E`` gives GPT-2 E experts
+in every second block (top-2), sharded over ``--expert``.  The port's
+runner (``python3 -m deepspeed_tpu_torch.launcher.runner``) launches it
+the same way, one rank a card.
 
 Each process joins the ``torch.distributed`` world that torchrun
 describes (NCCL with one card a rank, or gloo with ``--cpu``) and builds
@@ -50,8 +64,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import deepspeed_tpu_torch as tds  # noqa: E402
 from deepspeed_tpu_torch import comm  # noqa: E402
+from deepspeed_tpu_torch.models.bert import (  # noqa: E402
+    BertConfig, BertForPreTraining)
+from deepspeed_tpu_torch.models.bert import \
+    random_params as bert_params  # noqa: E402
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config,  # noqa: E402
                                              GPT2LMHead, random_params)
+from deepspeed_tpu_torch.ops.sparse_attention import \
+    FixedSparsityConfig  # noqa: E402
 from deepspeed_tpu_torch.parallel import make_mesh  # noqa: E402
 from deepspeed_tpu_torch.utils.distributed import (  # noqa: E402
     get_rank, get_world_size, init_distributed)
@@ -59,6 +79,8 @@ import train_torch_pipe as pipe_example  # noqa: E402
 
 
 def model_config(args):
+    if args.bert_sparse:
+        return bert_config(args)
     if args.cpu:
         base = dict(vocab_size=256, hidden_size=64, num_layers=2,
                     num_heads=4)
@@ -67,10 +89,63 @@ def model_config(args):
                     num_heads=16)
     if args.layers:
         base["num_layers"] = args.layers
+    sparse = {}
+    if args.core == "sparse":
+        sparse["sparsity_config"] = FixedSparsityConfig(
+            num_heads=base["num_heads"], block=16 if args.cpu else 256,
+            num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional")
+    moe = (dict(moe_experts=args.moe, moe_every=2, moe_k=2) if args.moe
+           else {})
     return GPT2Config(embd_dropout=0.0, attn_dropout=0.0, resid_dropout=0.0,
                       max_position_embeddings=args.seq_len,
-                      attn_impl="auto" if args.dense else "ring",
-                      remat=args.remat, **base)
+                      attn_impl="auto" if args.dense else (
+                          "auto" if args.core == "dense" else args.core),
+                      remat=args.remat, **base, **sparse, **moe)
+
+
+def bert_config(args):
+    """BERT-large (or a tiny BERT with ``--cpu``) with the sparse core at
+    dropout 0."""
+    if args.cpu:
+        base = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=256)
+        block = 16
+    else:
+        base = dict(vocab_size=30528, hidden_size=1024,
+                    num_hidden_layers=24, num_attention_heads=16,
+                    intermediate_size=4096)
+        block = 128
+    if args.layers:
+        base["num_hidden_layers"] = args.layers
+    layout = FixedSparsityConfig(
+        num_heads=base["num_attention_heads"], block=block,
+        different_layout_per_head=True, num_local_blocks=4,
+        num_global_blocks=1, attention="bidirectional",
+        num_different_global_patterns=4)
+    return BertConfig(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      max_position_embeddings=args.seq_len,
+                      max_predictions_per_seq=args.seq_len * 5 // 32,
+                      attn_impl="sparse", sparsity_config=layout, **base)
+
+
+def bert_batch(cfg, rows, seq_len, seed):
+    """MLM + NSP rows: ids, token types, ``max_predictions_per_seq``
+    labelled positions a row, no padding."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, size=(rows, seq_len))
+    labels = np.full((rows, seq_len), -100, np.int64)
+    for r in range(rows):
+        pos = rng.permutation(seq_len)[:cfg.max_predictions_per_seq]
+        labels[r, pos] = ids[r, pos]
+    return {"input_ids": torch.from_numpy(ids),
+            "token_type_ids": torch.from_numpy(
+                (np.arange(seq_len)[None] >= seq_len // 2)
+                .repeat(rows, 0).astype(np.int64)),
+            "masked_lm_labels": torch.from_numpy(labels),
+            "next_sentence_labels": torch.from_numpy(
+                rng.integers(0, 2, size=rows))}
 
 
 def ds_config(args):
@@ -81,10 +156,10 @@ def ds_config(args):
             "bf16": {"enabled": not args.cpu}}
 
 
-def reference_losses(path, rows, seq_len, n):
-    """The first ``n`` losses of a one-rank run on ``rows`` rows of
-    ``seq_len`` positions in the JSON-lines file ``path`` (None where it
-    has none)."""
+def reference_losses(path, rows, seq_len, n, model="gpt2", moe=0):
+    """The first ``n`` losses of a one-rank run of ``model`` (with
+    ``moe`` experts) on ``rows`` rows of ``seq_len`` positions in the
+    JSON-lines file ``path`` (None where it has none)."""
     if not path or not os.path.exists(path):
         return None
     ref = None
@@ -92,7 +167,9 @@ def reference_losses(path, rows, seq_len, n):
         for line in f:
             r = json.loads(line)
             if (r.get("world") == 1 and r.get("global_batch") == rows
-                    and r.get("seq") == seq_len):
+                    and r.get("seq") == seq_len
+                    and r.get("model", "gpt2") == model
+                    and r.get("moe", 0) == moe):
                 ref = r["losses"][:n]
     return ref
 
@@ -104,8 +181,15 @@ def main(argv=None):
     parser.add_argument("--seq", type=int, default=1)
     parser.add_argument("--data", type=int, default=1)
     parser.add_argument("--model", type=int, default=1)
+    parser.add_argument("--expert", type=int, default=1)
+    parser.add_argument("--core", choices=("ring", "dense", "sparse"),
+                        default="ring", help="the attention core over seq")
     parser.add_argument("--dense", action="store_true",
                         help="the dense attention core (one rank)")
+    parser.add_argument("--bert-sparse", action="store_true",
+                        help="BERT-large pretraining, the sparse core")
+    parser.add_argument("--moe", type=int, default=0,
+                        help="experts in every second GPT-2 block")
     parser.add_argument("--remat", action="store_true",
                         help="recompute every layer in backward")
     parser.add_argument("--layers", type=int, default=None)
@@ -131,18 +215,23 @@ def main(argv=None):
 
     device = "cpu" if args.cpu else None
     init_distributed(device=device)
-    dims = {"data": args.data, "seq": args.seq, "model": args.model}
+    dims = {"data": args.data, "seq": args.seq, "model": args.model,
+            "expert": args.expert}
     mesh = make_mesh(dims) if get_world_size() > 1 else None
     cfg = model_config(args)
     rows = args.micro_batch * args.data
-    (ids, _), = pipe_example.token_batches(cfg.vocab_size, rows,
-                                           args.seq_len, 1, args.batch_seed)
     dp_rank = mesh.index("data") if mesh is not None else 0
-    batches = [{"input_ids": ids[dp_rank * args.micro_batch:
-                                 (dp_rank + 1) * args.micro_batch]}]
-    engine, *_ = tds.initialize(model=GPT2LMHead(cfg),
-                                model_parameters=random_params(cfg,
-                                                               args.seed),
+    mine = slice(dp_rank * args.micro_batch, (dp_rank + 1) * args.micro_batch)
+    if args.bert_sparse:
+        batch = bert_batch(cfg, rows, args.seq_len, args.batch_seed)
+        batches = [{k: v[mine] for k, v in batch.items()}]
+        model, params = BertForPreTraining(cfg), bert_params(cfg, args.seed)
+    else:
+        (ids, _), = pipe_example.token_batches(
+            cfg.vocab_size, rows, args.seq_len, 1, args.batch_seed)
+        batches = [{"input_ids": ids[mine]}]
+        model, params = GPT2LMHead(cfg), random_params(cfg, args.seed)
+    engine, *_ = tds.initialize(model=model, model_parameters=params,
                                 config=ds_config(args), mesh=mesh,
                                 device=device)
     cuda = engine.device.type == "cuda"
@@ -186,16 +275,20 @@ def main(argv=None):
     if get_rank() != 0:
         return 0
     result = {"world": get_world_size(), "mesh": dims,
-              "attn_impl": cfg.attn_impl, "remat": cfg.remat,
+              "model": "bert" if args.bert_sparse else "gpt2",
+              "moe": args.moe, "attn_impl": cfg.attn_impl,
+              "remat": getattr(cfg, "remat", False),
               "global_batch": rows, "seq": args.seq_len,
-              "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+              "layers": getattr(cfg, "num_layers", None)
+              or cfg.num_hidden_layers, "hidden": cfg.hidden_size,
               "vocab": cfg.vocab_size,
               "dtype": "fp32" if args.cpu else "bf16",
               "parameters": engine._param_count(), "losses": losses,
               "step_ms": step_ms,
               "step_ms_median": float(np.median(step_ms)) if step_ms
               else None, "ranks": ranks}
-    ref = reference_losses(args.reference, rows, args.seq_len, args.steps)
+    ref = reference_losses(args.reference, rows, args.seq_len, args.steps,
+                           result["model"], args.moe)
     if ref is not None and get_world_size() > 1:
         rel = np.abs(np.asarray(losses[:len(ref)]) - ref) / np.abs(ref)
         result.update(reference_losses=ref,

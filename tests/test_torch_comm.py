@@ -151,9 +151,10 @@ def test_mesh_grid_mpu_interface():
             grid.get_model_parallel_rank()) == (1, 1, 0)
     with pytest.raises(ValueError, match="need 2 processes"):
         make_mesh({"seq": 2, "data": 1})
-    # a seq axis trains a model with the ring core; one without attention
-    # would be counted once a seq rank, and is refused naming A19
-    with pytest.raises(NotImplementedError, match="A19"):
+    # a seq axis trains a model that cuts its sequence (the port's
+    # GPT-2 and BERT, any attention core); one without would run
+    # replicated over seq, which is not ported: refused naming A22
+    with pytest.raises(NotImplementedError, match="A22"):
         tds.initialize(model=SimpleModel(W.HIDDEN), config=base_config(),
                        mesh=Mesh({"seq": 2, "data": 2}), device="cpu")
 

@@ -176,15 +176,26 @@ def test_engine_syncs_once_per_prefill_and_decode_iteration(
     engine.close()
 
 
+def keep_bits_of(seed, q, k, causal, rate, head_offset=0, total_heads=None):
+    """B4's bits of a call (None without dropout): the backward wrappers'
+    one dropout input."""
+    if not rate:
+        return None
+    b, s, h, _ = q.shape
+    return fa.draw_keep_bits(seed, b, h, s, k.shape[1], rate, causal,
+                             head_offset, total_heads)
+
+
 def backward_by_kernels(path, q, k, v, out, lse, dout, mask, causal, rate,
                         seed):
+    bits = keep_bits_of(seed, q, k, causal, rate)
     if path == "b3":
         return flash_attention_bwd_fused(q, k, v, out, lse, dout, mask,
-                                         causal, rate, seed)
+                                         causal, rate, bits)
     dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, mask, causal, rate,
-                                seed)
+                                bits)
     return (dq,) + flash_attention_bwd_dkv(q, k, v, out, lse, dout, mask,
-                                           causal, rate, seed)
+                                           causal, rate, bits)
 
 
 @pytest.mark.cuda
@@ -326,11 +337,12 @@ def check_b3_case(cuda_device, name, dtype):
     out, lse = flash_attention_fwd(q, k, v, mask, causal, rate, seed)
     counters = (flash_attention_bwd_dq, flash_attention_bwd_dkv,
                 flash_attention_bwd_fused, fa.in_kernel_dropout)
+    bits = keep_bits_of(seed, q, k, causal, rate)
     before = [c.launches for c in counters]
     grads = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
-                                      rate, seed)
+                                      rate, bits)
     again = flash_attention_bwd_fused(q, k, v, out, lse, dout, mask, causal,
-                                      rate, seed)
+                                      rate, bits)
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [
         0, 0, 2, 2 if rate else 0]
@@ -578,9 +590,10 @@ def test_keep_bits_kernel_equals_plain(cuda_device, b, h, s, kv_len, causal,
                          ids=["s128", "s256_causal"])
 def test_kernels_given_the_bits_equal_the_seed_alone(cuda_device, dtype, s,
                                                      causal):
-    """B1, B2a+B2b and B3 (where it fits) given B4's bits give bitwise the
-    outputs they give from the seed alone (where each wrapper draws
-    first); the backward kernels given the bits draw nothing."""
+    """B1 given B4's bits gives bitwise the outputs it gives from the seed
+    alone (where it draws first); B2a+B2b and B3 (where it fits), whose
+    one dropout input is the bits, give bitwise the same grads on bits
+    drawn again from the seed, and draw nothing themselves."""
     q, k, v, mask = make_inputs(s + causal, 2, s, s, 4, 64)
     t = [torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v)]
     m = torch.from_numpy(mask).to(cuda_device)
@@ -604,8 +617,8 @@ def test_kernels_given_the_bits_equal_the_seed_alone(cuda_device, dtype, s,
     draws = fa.draw_keep_bits.launches
     by_bits = backward(keep_bits=bits)
     assert fa.draw_keep_bits.launches == draws
-    by_seed = backward(seed=seed)
-    assert fa.draw_keep_bits.launches == draws + len(by_seed) + 1
+    by_seed = backward(keep_bits=keep_bits_of(seed, t[0], t[1], causal, 0.1))
+    assert fa.draw_keep_bits.launches == draws + 1
     for grads_b, grads_s in zip(by_bits, by_seed):
         for g, g2 in zip(grads_b, grads_s):
             assert torch.equal(g, g2)
@@ -1404,8 +1417,8 @@ def test_bf16_b5a_raises_on_misaligned_views_and_the_scalar_entry_refuses_bf16(
     fwd, _ = fbs._kernels()
     rc = fwd(1, d, k.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), luts.lut.data_ptr(), luts.cnt.data_ptr(), b, h,
-             s, luts.nb, luts.layout_heads, luts.kmax, strides, 0.125, 0,
-             torch.cuda.current_stream().cuda_stream)
+             s, luts.nb, luts.layout_heads, luts.kmax, strides, 0.125, 0, s,
+             0, torch.cuda.current_stream().cuda_stream)
     assert rc == 1
 
 
@@ -1788,15 +1801,14 @@ def test_head_ranges_draw_the_whole_calls_heads(cuda_device, dtype, path,
     rate = 0.1
 
     def bwd(q_, k_, v_, out, lse, do, h0=0, total=None):
+        bits = keep_bits_of(seed, q_, k_, path != "fused", rate, h0, total)
         if path == "fused":
             return flash_attention_bwd_fused(q_, k_, v_, out, lse, do, m,
-                                             False, rate, seed, None, h0,
-                                             total)
+                                             False, rate, bits)
         dq = flash_attention_bwd_dq(q_, k_, v_, out, lse, do, m, True,
-                                    rate, seed, None, h0, total)
+                                    rate, bits)
         return (dq, *flash_attention_bwd_dkv(q_, k_, v_, out, lse, do, m,
-                                             True, rate, seed, None, h0,
-                                             total))
+                                             True, rate, bits))
 
     causal = path != "fused"
     out, lse = flash_attention_fwd(*t, m, causal, rate, seed)
@@ -1886,3 +1898,130 @@ def test_ring_schedule_matches_one_flash_call(cuda_device, monkeypatch,
         ring_err = (got.float() - ref).abs().max().item()
         one_err = (want.float() - ref).abs().max().item()
         assert ring_err <= 2 * one_err + 1e-3, (label, ring_err, one_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,masked,rate", [(True, False, 0.1),
+                                                (False, True, 0.1),
+                                                (True, True, 0.0)],
+                         ids=["causal-dropout", "padded-dropout",
+                              "causal-padded"])
+def test_gather_core_matches_one_call(cuda_device, dtype, causal, masked,
+                                      rate):
+    """The dense gather core of 4 seq shards in one process (B1, B4 and
+    B3 or B2a+B2b at each shard's query-row offset) against one call on
+    the whole sequence: B4's words of each shard are bitwise its rows of
+    the whole call's (and the plain version's), out and grads within the
+    ring test's tolerances (fp32) or as close to the plain version as the
+    one call (bf16)."""
+    from deepspeed_tpu_torch.ops.transformer import gather_attention as ga
+    from deepspeed_tpu_torch.ops.transformer.ring_attention import \
+        visible_keys
+    n, b, s, h, d = 4, 2, 512, 4, 64
+    sl = s // n
+    g = torch.Generator().manual_seed(int(causal) + 2 * int(masked))
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                            dtype)
+                     for _ in range(4))
+    kpm = None
+    if masked:
+        kpm = torch.zeros(b, s)
+        kpm[:, 3 * s // 4 + 5:] = -1e9
+        kpm = kpm.to(cuda_device)
+    seed = torch.tensor([7, -3], dtype=torch.int32, device=cuda_device)
+    if rate:
+        whole = fa.draw_keep_bits(seed, b, h, s, s, rate, causal)
+        for r in range(n):
+            kv_len = (r + 1) * sl if causal else s
+            part = fa.draw_keep_bits(seed, b, h, sl, kv_len, rate, causal,
+                                     q_offset=r * sl)
+            rows = whole[:, r * sl:(r + 1) * sl]
+            assert torch.equal(part, rows[..., :part.shape[-1]])
+            assert not rows[..., part.shape[-1]:].any()
+            assert torch.equal(part.cpu(), fa.philox_keep_bits(
+                seed.cpu(), b * h, sl, kv_len, rate, causal=causal,
+                q_offset=r * sl))
+    counters = (flash_attention_fwd, fa.draw_keep_bits)
+    before = [c.launches for c in counters]
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ga.gather_flash_attention_local(*qkv, n, causal, kpm, rate,
+                                          seed if rate else None)
+    got = [out.detach()] + list(torch.autograd.grad(out, qkv, dout))
+    assert [c.launches - x for c, x in zip(counters, before)] == \
+        [n, n if rate else 0]
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    one = fa.FlashAttention.apply(*qkv, visible_keys(kpm),
+                                  seed if rate else None, causal, rate, 0,
+                                  None)
+    want = [one.detach()] + list(torch.autograd.grad(one, qkv, dout))
+    if dtype == torch.float32:
+        for label, x, y, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                                    (2e-5, 5e-4, 5e-4, 5e-4)):
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol,
+                                       msg=lambda m: f"{label}: {m}")
+        return
+    for label, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        # the shards' partial dk, dv are rounded to bf16 before their fp32
+        # sum: within a few bf16 ulps of the one call
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= 3e-2 * max(1.0, y.float().abs().max().item()), \
+            (label, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["fixed_uni_b5", "fixed_bi_b6",
+                                  "bigbird_b6", "variable_uni_b6"])
+def test_sparse_gather_core_matches_one_call(cuda_device, dtype, kind):
+    """The block-sparse gather core of 4 seq shards (each its block rows
+    of the whole layout at its query-row offset; B5 at G = 1, B6 at G =
+    4) against one call on the whole sequence."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        VariableSparsityConfig
+    from deepspeed_tpu_torch.ops.transformer import gather_attention as ga
+    n, b, s, h, d, blk = 4, 1, 1024, 4, 64, 64
+    if kind == "fixed_uni_b5":
+        cfg, causal, q_agg = FixedSparsityConfig(
+            num_heads=h, block=blk, attention="unidirectional"), True, "never"
+    elif kind == "fixed_bi_b6":
+        cfg, causal, q_agg = FixedSparsityConfig(num_heads=h,
+                                                 block=blk), False, "auto"
+    elif kind == "bigbird_b6":
+        cfg, causal, q_agg = BigBirdSparsityConfig(num_heads=h,
+                                                   block=blk), False, "auto"
+    else:
+        cfg, causal, q_agg = VariableSparsityConfig(
+            num_heads=h, block=blk, attention="unidirectional"), True, "auto"
+    layout = cfg.make_layout(s)
+    G = ga.seq_sparse_factor(layout, s, n, q_agg)
+    assert G == (1 if kind.endswith("b5") else 4)
+    g = torch.Generator().manual_seed(len(kind))
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g).to(cuda_device,
+                                                            dtype)
+                     for _ in range(4))
+    names = (("flash_block_sparse_fwd", "flash_block_sparse_bwd") if G == 1
+             else ("flash_block_sparse_agg_fwd",
+                   "flash_block_sparse_agg_bwd_dq",
+                   "flash_block_sparse_agg_bwd_dkv"))
+    counters = [getattr(fbs, x) for x in names]
+    before = [c.launches for c in counters]
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ga.gather_block_sparse_attention_local(*qkv, layout, n, causal,
+                                                 q_agg)
+    got = [out.detach()] + list(torch.autograd.grad(out, qkv, dout))
+    assert [c.launches - x for c, x in zip(counters, before)] == \
+        [n] * len(names)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    one = fbs.flash_block_sparse_attention(*qkv, layout, causal, q_agg)
+    want = [one.detach()] + list(torch.autograd.grad(one, qkv, dout))
+    for label, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=5e-4, atol=5e-4,
+                                       msg=lambda m: f"{label}: {m}")
+        else:
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= 3e-2 * max(1.0, y.float().abs().max().item()), \
+                (label, err)

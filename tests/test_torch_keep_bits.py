@@ -99,11 +99,12 @@ def test_threshold_is_the_jax_packages():
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_wrappers_with_the_bits_equal_the_seed_alone(causal):
-    """B1, B2a, B2b, B3 and the backward dispatch give bitwise the same
-    out, lse and grads given the forward's bits as given the seed alone,
-    and the same as the plain versions with the full
-    ``philox_keep_mask`` mask (the mask every kernel drew before B4 drew
-    once); a CPU draw launches nothing."""
+    """B1 gives bitwise the same out and lse given the forward's bits as
+    given the seed alone; B2a, B2b, B3 and the backward dispatch take the
+    bits as their one dropout input (bits drawn again from the seed are
+    the forward's; none under dropout raises); all equal the plain
+    versions with the full ``philox_keep_mask`` mask (the mask every
+    kernel drew before B4 drew once); a CPU draw launches nothing."""
     rate, seed = 0.2, seed_words(11, 12)
     b, s, kv_len, h = 2, 72, 72, 3
     q, k, v, mask, dout = inputs(5 + causal, b, s, kv_len, h)
@@ -122,8 +123,16 @@ def test_wrappers_with_the_bits_equal_the_seed_alone(causal):
     args = (q, k, v, out, lse, dout, mask, causal, rate)
     ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
                                            causal, full, inv_keep)
-    by_seed = (fa.flash_attention_bwd_dq(*args, seed),) \
-        + fa.flash_attention_bwd_dkv(*args, seed)
+    # the keep bits are the backward's one dropout input: drawn again from
+    # the seed, they are the forward's; without them it raises
+    again = fa.draw_keep_bits(seed, b, h, s, kv_len, rate, causal)
+    assert torch.equal(again, bits)
+    for bwd in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_fused, fa.flash_attention_bwd):
+        with pytest.raises(ValueError, match="keep bits"):
+            bwd(*args)
+    by_seed = (fa.flash_attention_bwd_dq(*args, again),) \
+        + fa.flash_attention_bwd_dkv(*args, again)
     for grads in (by_seed,
                   (fa.flash_attention_bwd_dq(*args, keep_bits=bits),)
                   + fa.flash_attention_bwd_dkv(*args, keep_bits=bits),

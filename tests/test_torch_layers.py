@@ -435,8 +435,9 @@ def test_sparse_core_fp16_names_its_roadmap_item(monkeypatch):
 
 def test_sparse_layer_needs_a_config_and_ring_still_raises():
     """The sparse core needs its config; the ring core is ported (A10)
-    and builds, while any other core above one seq rank raises naming
-    A19 before any collective (it would attend over a chunk only)."""
+    and builds; the dense core above one seq rank runs its gather form
+    (A19, done), so on a seq mesh of one process it reaches its K/V
+    all-gather, which that mesh has no group for."""
     from deepspeed_tpu_torch.models.layers import TransformerLayer
     from deepspeed_tpu_torch.parallel import Mesh, current_mesh
 
@@ -450,7 +451,7 @@ def test_sparse_layer_needs_a_config_and_ring_still_raises():
     params = {k: {n: torch.from_numpy(a) for n, a in v.items()}
               for k, v in dense.init(0).items()}
     with current_mesh(Mesh({"seq": 2})):
-        with pytest.raises(NotImplementedError, match="A19"):
+        with pytest.raises(RuntimeError, match="process group"):
             dense.attention_core(params, torch.zeros(1, 8, 64))
 
 

@@ -21,8 +21,8 @@ than XLA), as the tensor-parallel tests hold them.
   ``attn_impl="ring"``.
 - The data 2 × seq 2 checkpoint, loaded at one rank in the port and in
   the JAX package: master bitwise the ranks' gathered one.
-- In this process: each combination that does not compose with ``seq``
-  yet raises naming ROADMAP A19.
+- In this process: each combination ROADMAP A19 refused builds on a
+  ``seq`` mesh (it is trained in ``tests/test_torch_seq_compose.py``).
 
 The JAX engines on these meshes are compiled afresh, bypassing the
 persistent compilation cache the conftest sets: on this jaxlib the
@@ -198,12 +198,13 @@ def test_checkpoint_at_data2_seq2_loads_at_one_rank_and_in_jax(ref):
     np.testing.assert_array_equal(jax_master(jeng), want)
 
 
-def _refused(mesh, model_params, cfg):
+def _builds_to_its_first_collective(mesh, model_params, cfg):
+    """``initialize`` on a mesh without process groups gets past every
+    check and stops at its first collective."""
     model, params = model_params
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(RuntimeError, match="process group"):
         tds.initialize(model=model, model_parameters=params, config=cfg,
                        mesh=mesh, device="cpu")
-    return str(e.value)
 
 
 ONEBIT = {"type": "OneBitAdam", "params": {"lr": 1e-3, "freeze_step": 2}}
@@ -213,11 +214,12 @@ ONEBIT = {"type": "OneBitAdam", "params": {"lr": 1e-3, "freeze_step": 2}}
     "dense_core", "sparse_core", "pipe", "expert", "moe", "onebit",
     "sparse_gradients"])
 def test_what_does_not_compose_with_seq_raises_naming_a19(case):
-    """Each combination raises at ``initialize``, before any collective,
-    naming A19.  Offload above one rank, refused until A9 was ported,
-    builds its host shards at ``{data: 2, seq: 2}`` and goes on to its
-    first collective, which this mesh has no group for
-    (``tests/test_torch_offload_dp.py`` trains it on gloo ranks)."""
+    """Every combination A19 refused composes with ``seq`` since its
+    slice (``tests/test_torch_seq_compose.py`` trains each on gloo ranks
+    against the JAX engine): at ``initialize`` on a ``seq`` mesh of one
+    process each gets past every check and stops at its first
+    collective, which this mesh has no group for; so does offload above
+    one rank (A9, ``tests/test_torch_offload_dp.py``)."""
     d2s2 = Mesh({"data": 2, "seq": 2})
     cfg = W.config(W.ADAM, dp=2)
     if case in ("dense_core", "sparse_core"):
@@ -230,25 +232,37 @@ def test_what_does_not_compose_with_seq_raises_naming_a19(case):
             kw["sparsity_config"] = FixedSparsityConfig(num_heads=4,
                                                         block=16)
         model = GPT2LMHead(GPT2Config(**kw))
-        msg = _refused(d2s2, (model, None), cfg)
-    elif case in ("pipe", "expert"):
-        msg = _refused(Mesh({case: 2, "seq": 2}), W.gpt2(), W.config(W.ADAM))
+        _builds_to_its_first_collective(d2s2, (model, None), cfg)
+    elif case == "pipe":
+        from deepspeed_tpu_torch.runtime.pipe import PipelineModule
+
+        from .torch_pipe_workers import gpt_like_specs, xent_loss
+        module = PipelineModule(gpt_like_specs(), loss_fn=xent_loss,
+                                partition_method="uniform")
+        _builds_to_its_first_collective(
+            Mesh({"pipe": 2, "seq": 2}), (module, None),
+            {"train_micro_batch_size_per_gpu": 2,
+             "gradient_accumulation_steps": 2,
+             "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})
+    elif case == "expert":
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+        model = GPT2LMHead(GPT2Config(**dict(W.TINY, attn_impl="ring",
+                                             moe_experts=4)))
+        _builds_to_its_first_collective(Mesh({"expert": 2, "seq": 2}),
+                                        (model, None), W.config(W.ADAM))
     elif case == "moe":
         from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
         model = GPT2LMHead(GPT2Config(**dict(W.TINY, attn_impl="ring",
                                              moe_experts=4)))
-        msg = _refused(d2s2, (model, None), cfg)
+        _builds_to_its_first_collective(d2s2, (model, None), cfg)
     elif case == "onebit":
-        msg = _refused(d2s2, W.gpt2(), W.config(ONEBIT, stage=0, dp=2))
-    else:
-        msg = _refused(d2s2, W.gpt2(), W.config(W.ADAM, stage=0, dp=2,
-                                                sparse_gradients=True))
-    assert "A19" in msg
-    if case == "onebit":
+        _builds_to_its_first_collective(d2s2, W.gpt2(),
+                                        W.config(ONEBIT, stage=0, dp=2))
         offload = W.config(W.ADAM, dp=2,
                            zero_optimization={"stage": 2,
                                               "cpu_offload": True})
-        model, params = W.gpt2()
-        with pytest.raises(RuntimeError, match="process group"):
-            tds.initialize(model=model, model_parameters=params,
-                           config=offload, mesh=d2s2, device="cpu")
+        _builds_to_its_first_collective(d2s2, W.gpt2(), offload)
+    else:
+        _builds_to_its_first_collective(
+            d2s2, W.gpt2(), W.config(W.ADAM, stage=0, dp=2,
+                                     sparse_gradients=True))

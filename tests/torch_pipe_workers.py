@@ -37,6 +37,8 @@ HALF = {"bf16": {"bf16": {"enabled": True}},
 
 
 class Linear:
+    seq_parallel = True   # per position
+
     def __init__(self, in_dim, out_dim, act=True):
         self.in_dim, self.out_dim, self.act = in_dim, out_dim, act
 
@@ -55,6 +57,8 @@ class Linear:
 class Embed:
     """Embedding with a per-use bias: the table is tied, the bias not."""
 
+    seq_parallel = True   # per position
+
     def __init__(self, vocab, hidden):
         self.vocab, self.hidden = vocab, hidden
 
@@ -70,6 +74,9 @@ class Embed:
 
 def lm_head(params, x):
     return x @ params["table"].T + params["bias"][:1][0]
+
+
+lm_head.seq_parallel = True   # per position
 
 
 class SplitCarry:
