@@ -424,7 +424,29 @@ failure raises, so the script exits non-zero:
               BERT layout (block 128, G = 4, B6); each against one call
               and the fp32 plain version (phase 36's rule), with the
               forward and backward ms of the gather core, one call and
-              (dense) the ring, and the kernels each shard launched.
+              (dense) the ring, and the kernels each shard launched;
+43. profiling — the profiling subsystem: (1) the FLOPs each of B1, B2a,
+              B2b, B3, B4, B5a, B5b, B6a, B6b and B6c registers with a
+              counting flops profiler at a launch equal, exactly, to the
+              profiler's count of its plain version on the same card
+              tensors (bf16, s=128: causal, a key mask, dropout; a
+              causal layout in 64-row blocks at s=256, G = 1 and 2);
+              (2) phase 6's GPT-2-medium with ``flops_profiler`` at step
+              2, the memory and comm ledgers, watermarks at every step
+              and telemetry: three losses bitwise those without them;
+              (3) the profile's matmul FLOPs equal to bench.py's
+              analytic count plus the attention terms the plain
+              versions add (the whole score matrix, and the backward's
+              recomputed scores), to 0.5%; (4) the profile printed:
+              total, elementwise share, FLOPs by scope and the largest
+              elementwise ops; (5) each step's watermark peak equal to
+              ``max_memory_allocated`` read after it, and ledger entries
+              for the forward, backward and apply and a short serve's
+              prefill buckets and decode (B1 at the buckets); (6)
+              ``wall_breakdown`` of the run without profiling, a scratch
+              engine, and the MFU of the profiled step's FLOPs over its
+              ``train_step`` time.  Its B1-B6 count checks join the
+              kernels line (``profile_count_cases``).
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -503,6 +525,10 @@ from deepspeed_tpu_torch.models.layers import (TransformerLayer, dense,
 from deepspeed_tpu_torch.ops.transformer.attention import dropout_seed
 from deepspeed_tpu_torch.parallel import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
                                           make_mesh)
+from deepspeed_tpu_torch.profiling import wall_breakdown
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import FlopCounter
+from deepspeed_tpu_torch.profiling.utilization import (H100_SXM,
+                                                       chip_peak_tflops)
 from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
 from deepspeed_tpu_torch.telemetry import read_events, validate_event
 from deepspeed_tpu_torch.telemetry import report as telemetry_report
@@ -511,10 +537,12 @@ from deepspeed_tpu_torch.utils.params import (MODEL, params_from_numpy,
                                               tp_slice, tree_leaves)
 
 DEVICE = torch.device("cuda")
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float32: 67e12}
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the one
+# table the profiler's MFU reads too (profiling/utilization.py)
+HBM_BYTES_PER_S = H100_SXM["hbm_gbps"] * 1e9
+PEAK_FLOPS = {torch.bfloat16: H100_SXM["peak_tflops"] * 1e12,
+              torch.float16: H100_SXM["peak_tflops"] * 1e12,
+              torch.float32: H100_SXM["peak_tflops_fp32"] * 1e12}
 # fp16 rounds where bf16 does (P before P·V, the outputs), with three
 # more mantissa bits: held to bf16's bounds
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -6666,6 +6694,301 @@ def phase_fleet_integrity(card, results, params):
         for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
 
 
+# ------------------------------------------------------------- profiling
+# B1-B6's count check: small shapes on the card (dense at s=128, where
+# B3 fits; sparse at s=256 in 64-row blocks, G = 1 and G = 2)
+PROFILE_ATTN = (2, 2, 128, 64)
+PROFILE_SPARSE = dict(num_heads=2, block=64, num_local_blocks=2)
+PROFILE_STEP = 2
+# the reconciliation's tolerance: the profiler's matmul FLOPs against the
+# analytic count plus the attention terms the plain versions add
+PROFILE_RTOL = 5e-3
+
+
+def count_pair(name, launch, plain):
+    """``(registered, profiled)``: the count the wrapper ``launch()``
+    adds for kernel ``name`` under a counting profiler (its launch on
+    card tensors), and the profiler's count of ``plain()``, the plain
+    version on the same tensors (run on the card, for the comparison)."""
+    launched = FlopCounter()
+    with launched.count("launch"):
+        launch()
+    ref = FlopCounter()
+    with ref.count("plain"):
+        plain()
+    torch.cuda.synchronize()
+    return launched.kernels.get(name, {}).get("flops"), ref.flops
+
+
+def profile_kernel_counts():
+    """Check 1: every kernel's registered count equals its plain
+    version's, bf16, causal / key mask / dropout (B1-B4) and one layout
+    at G = 1 (B5) and G = 2 (B6).  Returns ``{name: cases}``."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 430)
+    b, h, s, d = PROFILE_ATTN
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE, dtype=bf)
+
+    q, k, v, dout = (rnd(b, s, h, d) for _ in range(4))
+    mask = torch.ones(b, s, device=DEVICE)
+    mask[1, 3 * s // 4:] = 0
+    seed = torch.tensor([11, 13], dtype=torch.int32, device=DEVICE)
+    pairs = []
+    for label, causal, kv_mask, rate in (
+            ("causal", True, None, 0.0), ("key mask", False, mask, 0.0),
+            ("causal dropout", True, None, DROPOUT),
+            ("key mask dropout", False, mask, DROPOUT)):
+        bits = (fa.draw_keep_bits(seed, b, h, s, s, rate, causal)
+                if rate else None)
+        if rate:
+            pairs.append(("B4", label, count_pair(
+                "B4", lambda: fa.draw_keep_bits(seed, b, h, s, s, rate,
+                                                causal),
+                lambda: fa._keep_plain(seed, b, h, s, s, rate, causal, 0, h,
+                                       0))))
+        out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, causal, rate,
+                                          keep_bits=bits)
+        pairs.append(("B1", label, count_pair(
+            "B1", lambda: fa.flash_attention_fwd(q, k, v, kv_mask, causal,
+                                                 rate, keep_bits=bits),
+            lambda: fa._fwd_plain(q, k, v, kv_mask, causal, rate, bits, 0))))
+        for name, fn, which in (("B2a", flash_attention_bwd_dq, "dq"),
+                                ("B2b", flash_attention_bwd_dkv, "dkv"),
+                                ("B3", flash_attention_bwd_fused, "fused")):
+            pairs.append((name, label, count_pair(
+                name, lambda: fn(q, k, v, out, lse, dout, kv_mask, causal,
+                                 rate, bits),
+                lambda: fa._bwd_plain(q, k, v, out, lse, dout, kv_mask,
+                                      causal, rate, bits, 0, which))))
+    ss = 2 * s
+    q, k, v, dout = (rnd(b, ss, h, d) for _ in range(4))
+    layout = FixedSparsityConfig(**PROFILE_SPARSE).make_layout(ss)
+    out, lse = fbs.flash_block_sparse_fwd(q, k, v, layout, True)
+    sparse = [
+        ("B5a", lambda: fbs.flash_block_sparse_fwd(q, k, v, layout, True),
+         lambda: fbs.flash_block_sparse_reference(q, k, v, layout, True)),
+        ("B5b", lambda: fbs.flash_block_sparse_bwd(q, k, v, out, lse, dout,
+                                                   layout, True),
+         lambda: fbs.flash_block_sparse_bwd_reference(q, k, v, out, lse,
+                                                      dout, layout, True)),
+        ("B6a", lambda: fbs.flash_block_sparse_agg_fwd(q, k, v, layout, 2,
+                                                       True),
+         lambda: fbs.flash_block_sparse_agg_reference(q, k, v, layout, 2,
+                                                      True)),
+        ("B6b", lambda: fbs.flash_block_sparse_agg_bwd_dq(
+            q, k, v, out, lse, dout, layout, 2, True),
+         lambda: fbs.flash_block_sparse_agg_bwd_dq_reference(
+            q, k, v, out, lse, dout, layout, 2, True)),
+        ("B6c", lambda: fbs.flash_block_sparse_agg_bwd_dkv(
+            q, k, v, out, lse, dout, layout, 2, True),
+         lambda: fbs.flash_block_sparse_agg_bwd_dkv_reference(
+            q, k, v, out, lse, dout, layout, 2, True))]
+    for name, launch, plain in sparse:
+        pairs.append((name, "causal layout G=1" if name[1] == "5"
+                      else "causal layout G=2",
+                      count_pair(name, launch, plain)))
+    bad = [(n, lab, got, want) for n, lab, (got, want) in pairs
+           if got is None or got != want]
+    check(not bad, f"profiling: kernel counts differ from their plain "
+          f"versions' (name, case, registered, plain): {bad}")
+    cases = {}
+    for name, label, (got, _) in pairs:
+        cases.setdefault(name, []).append({"case": label, "flops": got})
+    return cases
+
+
+def profiling_config(run_dir):
+    """Phase 6's config with the flops profiler at step 2, the memory and
+    comm ledgers, watermarks at every step and telemetry into
+    ``run_dir``."""
+    return dict(TRAIN_CONFIG, steps_per_print=1,
+                flops_profiler={"enabled": True,
+                                "profile_step": PROFILE_STEP},
+                profiling={"memory_ledger": True, "memory_watermarks": True,
+                           "comm_ledger": True},
+                telemetry={"enabled": True, "run_dir": run_dir})
+
+
+def three_steps(engine, batch):
+    """Three ``train_batch`` steps: the losses and, after each,
+    ``torch.cuda.max_memory_allocated()``."""
+    losses, peaks = [], []
+    for _ in range(3):
+        losses.append(float(engine.train_batch(iter([batch]))))
+        peaks.append(torch.cuda.max_memory_allocated())
+    return losses, peaks
+
+
+def profile_serve(cfg):
+    """A short serve of GPT-2-medium (phase 6's weights, bf16) with the
+    memory ledger on: two prompts in two prefill buckets, 4 tokens each.
+    Returns (the ledger's entries, B1's launches)."""
+    engine = InferenceEngine(
+        GPT2LMHead(GPT2Config.gpt2_medium()),
+        setup_weights("train", random_params, cfg),
+        config=dict(serve_config("bfloat16", 64),
+                    profiling={"memory_ledger": True}))
+    rng = np.random.default_rng(SEED + 431)
+    for i, n in enumerate((100, 300)):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(),
+                      max_new_tokens=4, request_id=f"p{i}")
+    flash_attention_fwd.launches = 0
+    out = engine.run()
+    torch.cuda.synchronize()
+    launches = flash_attention_fwd.launches
+    check(all(len(r["tokens"]) == 4 for r in out.values()),
+          f"profiling serve: {out}")
+    entries = engine.memory_ledger.entries()
+    receipt = engine.serving_receipt()
+    engine.close()
+    check(receipt["programs_compiled"] == len(entries) == 3,
+          f"profiling serve: ledger entries {sorted(entries)}")
+    return entries, launches
+
+
+def phase_profiling(card, results):
+    """43. profiling: B1-B6's counts equal their plain versions'
+    (:func:`profile_kernel_counts`); phase 6's GPT-2-medium with the flops
+    profiler at step 2, the memory and comm ledgers and watermarks on,
+    three steps bitwise the run without them; the profile's matmul FLOPs
+    reconciled with the analytic count; the profile printed (total,
+    elementwise share, top modules and ops); watermark peaks equal to
+    ``max_memory_allocated`` at each step and the ledger's entries (the
+    train's forward, backward and apply, and a serve's prefill buckets
+    and decode); the wall breakdown of the run without profiling, its
+    scratch engine, and the MFU of the profiled step's FLOPs over its
+    ``train_step`` time."""
+    t0 = time.monotonic()
+    cases = profile_kernel_counts()
+    t_counts = time.monotonic() - t0
+    run_dir = tempfile.mkdtemp(prefix="ds_profiling_")
+    try:
+        reset_launches()
+        engine, cfg, batch = train_setup(config=profiling_config(run_dir))
+        losses, peaks = three_steps(engine, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        prof = engine.flops_profiler.profile
+        counter = engine.flops_profiler.counter
+        memory = engine.memory_ledger.entries()
+        comm_entries = engine.comm_ledger.entries()
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        events = read_events(run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    layers = cfg.num_layers
+    check(launches["B1"] == launches["B2a"] == launches["B2b"]
+          == launches["B4"] == 3 * layers,
+          f"profiling: launches {launches} in 3 steps of {layers} layers")
+    plain_engine, _, _ = train_setup()
+    plain_losses, _ = three_steps(plain_engine, batch)
+    check(losses == plain_losses, f"profiling: losses with the profiler "
+          f"{losses} are not bitwise those without it {plain_losses}")
+    check(prof is not None and prof.flops > 0, "profiling: no profile at "
+          f"step {PROFILE_STEP}")
+    # check 3: the matmul FLOPs against bench.py's analytic count, which
+    # takes causal attention at half the score work; the plain versions
+    # of B1 (QK, PV), B2a (QK, dP, dq) and B2b (QK, dP, dk, dv) compute
+    # the whole [s, s] matrix, 18 s^2 H a sample and layer, against the
+    # analytic 6 s^2 H: 12 s^2 H more
+    b, _, s, _ = TRAIN_ATTN
+    hid = cfg.hidden_size
+    analytic = gpt2_model_flops_per_sample(cfg, s) * b
+    attention_extra = 12 * b * layers * s * s * hid
+    expect = analytic + attention_extra
+    rel = abs(prof.matmul_flops - expect) / expect
+    check(rel <= PROFILE_RTOL, f"profiling: matmul FLOPs "
+          f"{prof.matmul_flops} against analytic {analytic} + attention "
+          f"{attention_extra} = {expect}: rel {rel:.2e}")
+    kernel_flops = {n: r["flops"] for n, r in prof.kernels.items()}
+    check(sorted(kernel_flops) == ["B1", "B2a", "B2b", "B4"]
+          and all(r["launches"] == layers for r in prof.kernels.values()),
+          f"profiling: the profiled step's kernels {prof.kernels}")
+    # check 4: the printed profile
+    # FLOPs by module kind over the 24 layers: attention and MLP blocks,
+    # the rest of a layer (norms, residuals), and the top level
+    # (embedding, LM head, loss, optimizer step)
+    by_kind = {}
+    for scope, fl in prof.by_scope.items():
+        tail = scope.split("/")[-1]
+        kind = (tail if tail in ("attention", "mlp") else
+                "layer norms and residuals" if tail.startswith("layer_")
+                else scope)
+        by_kind[kind] = by_kind.get(kind, 0) + fl
+    ops = sorted(((op, fl) for op, fl in counter.by_op.items()
+                  if op not in ("mm", "bmm", "addmm")),
+                 key=lambda kv: -kv[1])[:8]
+    top = prof.scopes()[:6]
+    elem_share = prof.elementwise_flops / prof.flops
+    # check 5: memory
+    marks = [e for e in events if e["type"] == "memory"
+             and e["data"]["kind"] == "watermark"]
+    check([m["step"] for m in marks] == [1, 2, 3]
+          and [m["data"]["peak_bytes_in_use"] for m in marks] == peaks,
+          f"profiling: watermark peaks "
+          f"{[(m['step'], m['data']['peak_bytes_in_use']) for m in marks]}"
+          f" against max_memory_allocated {peaks}")
+    check(all(memory.get(n) for n in ("forward", "backward",
+                                      "apply_update")),
+          f"profiling: train ledger entries {memory}")
+    serve_memory, serve_b1 = profile_serve(cfg)
+    check(serve_b1 > 0 and serve_memory.get("serve_decode")
+          and any(n.startswith("serve_prefill_") and e
+                  for n, e in serve_memory.items()),
+          f"profiling: serve ledger {serve_memory}, B1 launches {serve_b1}")
+    # check 6: the wall breakdown of the scratch engine and the MFU
+    wall = wall_breakdown(plain_engine, batch, steps=3, warmup=1,
+                          scan_steps=3)
+    del plain_engine
+    torch.cuda.empty_cache()
+    peak = chip_peak_tflops(0, torch.bfloat16) * 1e12
+    mfu = prof.flops / (wall["train_step"] / 1e3) / peak
+    analytic_mfu = analytic / (wall["train_step"] / 1e3) / peak
+    check(all(math.isfinite(v) and v >= 0 for k, v in wall.items()
+              if not k.endswith("_derived")) and 0 < mfu < 1,
+          f"profiling: wall {wall}, MFU {mfu}")
+    receipt = {
+        "card": card, "losses": losses, "profile_step": PROFILE_STEP,
+        "flops": prof.flops, "matmul_flops": prof.matmul_flops,
+        "elementwise_flops": prof.elementwise_flops,
+        "elementwise_share": elem_share, "by_phase": prof.by_phase,
+        "kernel_flops": kernel_flops, "analytic_flops": analytic,
+        "attention_extra_flops": attention_extra, "matmul_rel_gap": rel,
+        "by_kind": by_kind, "top_scopes": top, "top_elementwise_ops": ops,
+        "profiled_step_wall_ms": prof.wall_ms,
+        "profiled_step_mfu": prof.mfu(), "wall_breakdown_ms": wall,
+        "mfu": mfu, "analytic_mfu": analytic_mfu,
+        "watermark_peaks": peaks, "memory_ledger": memory,
+        "serve_memory_ledger": serve_memory, "comm_ledger": comm_entries,
+        "kernel_count_cases": cases, "count_check_seconds": t_counts,
+        "seconds": time.monotonic() - t0}
+    print(f"profiling (GPT-2-medium, seq {s}, batch {b}, bf16, Lamb, "
+          f"ZeRO-2, dropout {DROPOUT}; step {PROFILE_STEP}) [{card}]: "
+          f"{prof.flops / 1e12:.4f} TFLOP a step, matmul "
+          f"{prof.matmul_flops / 1e12:.4f}, elementwise and reductions "
+          f"{prof.elementwise_flops / 1e12:.4f} ({100 * elem_share:.2f}%); "
+          f"matmul vs analytic + attention terms rel {rel:.2e}; by kind "
+          + ", ".join(f"{k} {v / 1e12:.4f}" for k, v in sorted(
+              by_kind.items(), key=lambda kv: -kv[1]))
+          + "; top scopes " + ", ".join(f"{k} {v / 1e12:.4f}"
+                                         for k, v in top)
+          + "; top elementwise ops " + ", ".join(
+              f"{k} {v / 1e9:.2f} G" for k, v in ops))
+    print(f"profiling wall breakdown ms [{card}]: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in wall.items())
+        + f"; MFU {mfu:.4f} (analytic FLOPs {analytic_mfu:.4f}); the "
+        f"profiled step itself {prof.wall_ms:.1f} ms")
+    print("profiling receipt:", json.dumps(receipt, default=str))
+    results["profiling"] = receipt
+    launches = dict(launches)
+    launches["B1"] += serve_b1
+    return launches, cases
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6853,6 +7176,10 @@ def main(argv=None):
     # query-row offsets, four shards in one process
     seq_launches = phase_seq_compose(card, results)
     lap("seq_compose")
+    # 43. profiling: B1-B6 counted as their plain versions, phase 6's
+    # GPT-2-medium profiled at step 2 with the memory and comm ledgers
+    profiling_launches, count_cases = phase_profiling(card, results)
+    lap("profiling")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -6877,7 +7204,7 @@ def main(argv=None):
              "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
              "telemetry": telemetry_launches,
              "fleet_integrity": fleet38_launches, "a18": a18_launches,
-             "seq_compose": seq_launches}
+             "seq_compose": seq_launches, "profiling": profiling_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches + fleet_b1 + fleet38_b1
@@ -6931,6 +7258,10 @@ def main(argv=None):
                     B6c=agg_err["dkv_fp16"])
     for entry, name in zip(kernels, ("B1", "B2a", "B2b", "B3", "B4", "B5a",
                                      "B5b", "B6a", "B6b", "B6c")):
+        # phase 43: the count each launch registers with the flops
+        # profiler equals its plain version's (checked case by case)
+        entry.update(profile_count_cases=len(count_cases[name]),
+                     profile_counts_equal=True)
         row = fp16_timing[name]
         if name == "B4":
             # one draw serves every dtype: beside it, the B1-B3 launches

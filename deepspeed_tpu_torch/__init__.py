@@ -21,16 +21,43 @@ steps.  ``checkpointing`` is activation checkpointing, the reference's
 ``deepspeed.checkpointing`` (``configure``, ``checkpoint``).
 ``PipelineModule`` (with ``LayerSpec`` and ``TiedLayerSpec``) trains a
 layer sequence split into stages, one process a stage over the mesh's
-``pipe`` axis (``runtime/pipe``).
+``pipe`` axis (``runtime/pipe``).  ``profiling`` counts a step's FLOPs
+(the ``flops_profiler`` block), measures its memory and records its
+collectives (the ``profiling`` block); ``ds_report_torch``
+(:mod:`.env_report`) reports the toolchain and which kernels build.
+
+The top-level surface is the JAX package's (``deepspeed_tpu/__init__.py``):
+``initialize``, ``add_config_arguments``, ``get_sparse_attention_config``,
+``init_distributed``, ``log_dist`` and ``logger``, ``DeepSpeedConfig``,
+the mesh axis names and topologies, and the ``comm``, ``elasticity``,
+``telemetry`` and ``checkpoint`` subpackages.
 """
 
 from . import checkpoint  # noqa: F401
+from . import comm  # noqa: F401
+from . import elasticity  # noqa: F401
+from . import telemetry  # noqa: F401
+from .parallel import (CANONICAL_AXES, DATA_AXIS, EXPERT_AXIS,  # noqa: F401
+                       MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, MeshGrid,
+                       PipeDataParallelTopology,
+                       PipeModelDataParallelTopology, ProcessTopology,
+                       make_mesh)
 from .runtime.activation_checkpointing import checkpointing  # noqa: F401
+from .runtime.config import DeepSpeedConfig  # noqa: F401
+from .utils.distributed import init_distributed  # noqa: F401
+from .utils.logging import log_dist, logger  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["InferenceEngine", "LayerSpec", "PipelineModule", "TiedLayerSpec",
-           "checkpoint", "checkpointing", "initialize", "__version__"]
+__all__ = ["CANONICAL_AXES", "DATA_AXIS", "DeepSpeedConfig", "EXPERT_AXIS",
+           "InferenceEngine", "LayerSpec", "MODEL_AXIS", "MeshGrid",
+           "PIPE_AXIS", "PipeDataParallelTopology",
+           "PipeModelDataParallelTopology", "PipelineModule",
+           "ProcessTopology", "SEQ_AXIS", "TiedLayerSpec",
+           "add_config_arguments", "checkpoint", "checkpointing", "comm",
+           "elasticity", "get_sparse_attention_config", "init_distributed",
+           "initialize", "log_dist", "logger", "make_mesh", "telemetry",
+           "__version__"]
 
 
 def initialize(*args, **kwargs):
@@ -39,6 +66,36 @@ def initialize(*args, **kwargs):
     from .runtime.engine import initialize as _initialize
 
     return _initialize(*args, **kwargs)
+
+
+def add_config_arguments(parser):
+    """Add --deepspeed / --deepspeed_config args (reference
+    ``__init__.py:193``)."""
+    from .runtime.arguments import add_config_arguments as _add
+
+    return _add(parser)
+
+
+def get_sparse_attention_config(config, num_heads):
+    """Json config (dict or path) → live ``SparsityConfig`` for model
+    construction (JAX ``__init__.py:38-58``): the ``sparse_attention``
+    section as :class:`DeepSpeedConfig` parses it
+    (:func:`~deepspeed_tpu_torch.runtime.config.get_sparse_attention`),
+    built into the layout object models take as ``sparsity_config=...``;
+    callable before ``initialize()``, since the model is built first.
+    None without the section."""
+    import json as _json
+
+    from .ops.sparse_attention import build_sparsity_config
+    from .runtime.config import get_sparse_attention
+
+    if isinstance(config, str):
+        with open(config) as f:
+            config = _json.load(f)
+    section = get_sparse_attention(config)
+    if section is None:
+        return None
+    return build_sparsity_config(section, num_heads)
 
 
 def __getattr__(name):

@@ -89,18 +89,25 @@ class _Requests:
 class CommCounter:
     """Collectives issued by this process, by verb: ``calls[verb]`` and
     ``bytes[verb]`` (the larger of the input and the output buffer, so
-    the whole flat buffer for a reduce-scatter and for an all-gather)."""
+    the whole flat buffer for a reduce-scatter and for an all-gather).
+    Each call is also handed to every callable in ``listeners`` as
+    ``(verb, nbytes, group_size)``: the comm ledger
+    (:class:`~deepspeed_tpu_torch.profiling.comm.CommLedger`) records a
+    phase's collectives so."""
 
     def __init__(self):
+        self.listeners = []
         self.reset()
 
     def reset(self):
         self.calls = {}
         self.bytes = {}
 
-    def add(self, verb, nbytes):
+    def add(self, verb, nbytes, group=1):
         self.calls[verb] = self.calls.get(verb, 0) + 1
         self.bytes[verb] = self.bytes.get(verb, 0) + int(nbytes)
+        for listen in self.listeners:
+            listen(verb, int(nbytes), int(group))
 
 
 counter = CommCounter()
@@ -121,14 +128,14 @@ def _axis(axis_name, mesh):
 
 
 def _all_reduce(x, axis_name, mesh, op, out, verb):
-    group, _ = _axis(axis_name, mesh)
+    group, n = _axis(axis_name, mesh)
     if out is None:
         # contiguous: NCCL refuses a strided buffer (an einsum's output)
         out = x.clone(memory_format=torch.contiguous_format)
     elif out is not x:
         out.copy_(x)
     if group is not None:
-        counter.add(verb, out.numel() * out.element_size())
+        counter.add(verb, out.numel() * out.element_size(), n)
         dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -149,7 +156,8 @@ def pmean(x, axis_name, mesh=None, out=None):
 def psum_group(x, group):
     """Sum-allreduce of ``x`` in place over a process group that is no
     mesh axis (the pipeline's tied-parameter copies)."""
-    counter.add("psum", x.numel() * x.element_size())
+    counter.add("psum", x.numel() * x.element_size(),
+                dist.get_world_size(group))
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -185,7 +193,7 @@ def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, mesh=None,
     if group is None:
         out.copy_(x.view(shape))
     else:
-        counter.add("reduce_scatter", x.numel() * x.element_size())
+        counter.add("reduce_scatter", x.numel() * x.element_size(), n)
         handle = _reduce_scatter(out, x, op=dist.ReduceOp.SUM, group=group,
                                  async_op=async_op)
     out = out if tiled else out.view(x.shape[1:])
@@ -210,7 +218,7 @@ def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None,
     if group is None:
         out.copy_(x.view(shape))
     else:
-        counter.add("all_gather", out.numel() * out.element_size())
+        counter.add("all_gather", out.numel() * out.element_size(), n)
         handle = _all_gather(out.view(-1), x.view(-1), group=group,
                              async_op=async_op)
     return (out, handle) if async_op else out
@@ -228,7 +236,7 @@ def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None,
     unchanged until then.  A pair with this rank's own index is a local
     copy.  The peer must make the matching calls in the same order, with
     buffers of the same shape and dtype."""
-    group, _ = _axis(axis_name, mesh)
+    group, n = _axis(axis_name, mesh)
     mesh = mesh if mesh is not None else get_current_mesh()
     me = mesh.index(axis_name)
     local = [t for t, i in sends if i == me]
@@ -236,14 +244,14 @@ def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None,
     for t, i in sends:
         if i != me:
             t = t.contiguous()
-            counter.add("send", t.numel() * t.element_size())
+            counter.add("send", t.numel() * t.element_size(), n)
             ops.append(dist.P2POp(dist.isend, t, mesh.peer(axis_name, i),
                                   group))
     for buf, i in recvs:
         if i == me:
             buf.copy_(local.pop(0))
         else:
-            counter.add("recv", buf.numel() * buf.element_size())
+            counter.add("recv", buf.numel() * buf.element_size(), n)
             ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis_name, i),
                                   group))
     handle = _Done()
@@ -293,7 +301,7 @@ def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True,
     if group is None:
         recv.copy_(parts)
     else:
-        counter.add("all_to_all", parts.numel() * parts.element_size())
+        counter.add("all_to_all", parts.numel() * parts.element_size(), n)
         dist.all_to_all_single(recv, parts, group=group)
     if not tiled:
         return torch.stack([recv[i, 0] for i in range(n)], dim=concat_axis)

@@ -28,8 +28,12 @@ decode iteration and, on the ``steps_per_print`` cadence, folds the
 recomputed weight fingerprint into that iteration's next-token fetch,
 so it adds no host sync; the host scalar then goes to the vote.
 
-Not ported in this slice: memory/comm ledgers, program dumps and
-verification, the comm/overlap/attribution receipts (A12's remainder).
+The memory ledger (JAX ``:103-130``; the ``profiling`` block,
+:mod:`~deepspeed_tpu_torch.profiling.memory`) measures the decode step's
+and each prefill bucket's first call, and ``serving_receipt`` counts
+the entry points recorded (``programs_compiled``).  Not ported in this
+slice: the comm ledger's serving receipt, program dumps and
+verification, the overlap/attribution receipts (ROADMAP A12).
 """
 
 import logging
@@ -38,6 +42,9 @@ import time
 import torch
 
 from ..ops.transformer.flash_attention import flash_attention_fwd
+from ..profiling.comm import SERVE_DECODE_PROGRAM
+from ..profiling.config import DeepSpeedProfilingConfig
+from ..profiling.memory import MemoryLedger
 from ..runtime import constants as C
 from ..telemetry import events as TEL
 from ..telemetry.config import DeepSpeedTelemetryConfig
@@ -54,6 +61,14 @@ from .resilience import drain_deadline_secs
 from .scheduler import ContinuousBatchScheduler, Request
 
 logger = logging.getLogger(__name__)
+
+# the decode step's ledger name (the JAX package's)
+DECODE_PROGRAM = SERVE_DECODE_PROGRAM
+
+
+def prefill_program_name(bucket):
+    """The ledger name of a prefill bucket's entry point."""
+    return f"serve_prefill_{int(bucket)}"
 
 
 class InferenceEngine:
@@ -115,6 +130,15 @@ class InferenceEngine:
         self.telemetry = TelemetryManager(self.telemetry_config,
                                           rank=fleet_identity()[0],
                                           device=self.device)
+        profiling_config = DeepSpeedProfilingConfig(param_dict)
+        self.memory_ledger = MemoryLedger(
+            enabled=profiling_config.memory_ledger_enabled(
+                self.telemetry.enabled),
+            telemetry=self.telemetry, device=self.device)
+        self._decode = self.memory_ledger.wrap(DECODE_PROGRAM, self._decode)
+        self._prefills = {
+            bucket: self.memory_ledger.wrap(prefill_program_name(bucket), fn)
+            for bucket, fn in self._prefills.items()}
         self.decode_iterations = 0
         # the serving observability plane: lifecycle tracing, occupancy
         # windows, SLO/goodput accounting.  Always built — every hook is
@@ -458,6 +482,7 @@ class InferenceEngine:
             "tokens_per_second_per_chip": (
                 self.generated_tokens / wall if wall else None),
             "flash_fwd_launches": flash_attention_fwd.launches,
+            "programs_compiled": len(self.memory_ledger.entries()),
         }
         obs = self.observability.receipt()
         receipt.update(obs)

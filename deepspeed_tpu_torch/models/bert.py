@@ -73,6 +73,7 @@ from .. import comm
 from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
                     gather_from, gather_seq)
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from ..profiling.flops_profiler.profiler import named_scope
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, cross_entropy_with_logits, dense,
@@ -313,8 +314,9 @@ class BertModel:
             if ck_layer is not None and ds_ckpt.should_checkpoint_layer(
                     i, c.num_hidden_layers):
                 fn = ck_layer
-            y = fn(params["encoder"][f"layer_{i}"], x, i,
-                   final_positions if i == last else None)
+            with named_scope(f"layer_{i}"):
+                y = fn(params["encoder"][f"layer_{i}"], x, i,
+                       final_positions if i == last else None)
             if pld:
                 # keep the layer with probability θ (jax.random.bernoulli:
                 # a uniform below θ), else pass its input through

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..comm import axis_size, copy_to, data_parallel_mean_count, gather_from
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from ..profiling.flops_profiler.profiler import named_scope
 from ..runtime.activation_checkpointing import checkpointing as ds_ckpt
 from ..utils.params import MODEL
 from .layers import (TransformerLayer, dropout, generator, layer_norm,
@@ -278,7 +279,10 @@ class GPT2LMHead(nn.Module):
             if ck_layer is not None and ds_ckpt.should_checkpoint_layer(
                     i, c.num_layers):
                 fn = ck_layer
-            x = fn(params["blocks"][f"layer_{i}"], x, i)
+            # the JAX model's scope names (the flops profiler's table)
+            with named_scope(f"layer_{i}_moe" if is_moe_layer(c, i)
+                             else f"layer_{i}"):
+                x = fn(params["blocks"][f"layer_{i}"], x, i)
             if is_moe_layer(c, i):
                 x, a = x
                 aux.append(a)

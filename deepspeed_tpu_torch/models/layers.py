@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from ..comm import (axis_index, axis_size, copy_to, data_parallel_mean_count,
                     gather_seq, pmax, reduce_from)
 from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from ..profiling.flops_profiler.profiler import named_scope
 from ..utils.params import MODEL, QKV
 from ..ops.op_common import random_keep
 from ..ops.sparse_attention.block_sparse import block_sparse_attention
@@ -534,19 +535,21 @@ class TransformerLayer:
         rate = self.hidden_dropout_ratio
 
         def attention_block(y):
-            ctx = self.attention_core(params, y, mask=mask,
-                                      key_padding_mask=key_padding_mask,
-                                      attn_rng=rng,
-                                      deterministic=deterministic,
-                                      positions=positions,
-                                      attn_seed_rng=attn_seed_rng)
-            return dropout(rng, row_dense(params["attn_out"], ctx), rate,
-                           deterministic)
+            with named_scope("attention"):
+                ctx = self.attention_core(params, y, mask=mask,
+                                          key_padding_mask=key_padding_mask,
+                                          attn_rng=rng,
+                                          deterministic=deterministic,
+                                          positions=positions,
+                                          attn_seed_rng=attn_seed_rng)
+                return dropout(rng, row_dense(params["attn_out"], ctx), rate,
+                               deterministic)
 
         def mlp_block(y):
-            z = gelu(dense(params["fc1"], copy_to(y, MODEL_AXIS)))
-            return dropout(rng, row_dense(params["fc2"], z), rate,
-                           deterministic)
+            with named_scope("mlp"):
+                z = gelu(dense(params["fc1"], copy_to(y, MODEL_AXIS)))
+                return dropout(rng, row_dense(params["fc2"], z), rate,
+                               deterministic)
 
         def ln(p, y):
             return layer_norm(p, y, self.layer_norm_eps)

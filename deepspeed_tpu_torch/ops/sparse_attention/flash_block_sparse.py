@@ -41,8 +41,12 @@ that sees no pair, which B6 gives as the TPU's super-tile kernels do
 Each wrapper launches its kernel for CUDA tensors or raises, counts the
 launch in ``.launches`` (an fp16 one again in ``.fp16.launches``), and
 runs the plain version (:func:`flash_block_sparse_reference` and
-:func:`flash_block_sparse_bwd_reference`, or their ``_agg`` forms) for
-CPU tensors.  Layout is the JAX package's: q, k, v ``[b, s, h, d]``, read
+:func:`flash_block_sparse_bwd_reference`, or their ``_agg`` forms, B6b's
+and B6c's :func:`flash_block_sparse_agg_bwd_dq_reference` and
+:func:`flash_block_sparse_agg_bwd_dkv_reference`) for CPU tensors; with
+a flops profiler counting, a launch also adds its plain version's count
+on the same inputs
+(:func:`~deepspeed_tpu_torch.profiling.flops_profiler.kernel_launch`).  Layout is the JAX package's: q, k, v ``[b, s, h, d]``, read
 through their strides, so views of a fused QKV projection go in as they
 are.  lse is fp32 ``[b·h, s]`` (the TPU kernel's ``[b·h, 1, s]`` without
 the singleton axis).  No dropout and no key mask inside, as on the TPU:
@@ -66,6 +70,7 @@ import numpy as np
 import torch
 
 from .. import op_builder
+from ...profiling.flops_profiler.profiler import kernel_launch
 from ..transformer.flash_attention import HEAD_DIMS, MAX_FLOOR, NEG_INF
 from ..transformer.flash_attention import _check_cuda as _check_dense_cuda
 from ..transformer.flash_attention import mma_aligned
@@ -401,16 +406,10 @@ def flash_block_sparse_agg_reference(q, k, v, layout, G, causal=False,
     return _reference(q, k, v, layout, causal, G, q_offset)
 
 
-def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
-                                     causal=False, q_offset=0):
-    """Dense plain-PyTorch version of B5b: P = exp(S − lse) over the
-    visible pairs of active tiles, dP = dO·Vᵀ, Δ = rowsum(dO∘O), dS =
-    P∘(dP − Δ) in the storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv =
-    Pᵀ·dO with P in the storage dtype; ``q_offset`` as for
-    :func:`flash_block_sparse_reference` (dk and dv are then the chunk's
-    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
+def _sparse_bwd_scores(q, k, v, out, lse, dout, layout, causal, q_offset):
+    """B5b's shared terms: P (0 outside the visible pairs) and dS in the
+    storage dtype, as fp32 ``[b, h, s, kv_len]``."""
     b, s, h, d = q.shape
-    scale = 1.0 / math.sqrt(d)
     visible, _ = expand_layout(layout, s, causal, q.device, 1, q_offset)
     # outside the active tiles P is 0 whatever lse holds (a row with no
     # active tile has lse = NEG_INF, and NEG_INF − NEG_INF is 0)
@@ -420,10 +419,32 @@ def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
     ds = (p * (dp - delta)).to(q.dtype).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return p, ds
+
+
+def _sparse_dq(q, k, ds):
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+            * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def _sparse_dkv(q, k, v, dout, p, ds):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dout.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
+                                     causal=False, q_offset=0):
+    """Dense plain-PyTorch version of B5b: P = exp(S − lse) over the
+    visible pairs of active tiles, dP = dO·Vᵀ, Δ = rowsum(dO∘O), dS =
+    P∘(dP − Δ) in the storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv =
+    Pᵀ·dO with P in the storage dtype; ``q_offset`` as for
+    :func:`flash_block_sparse_reference` (dk and dv are then the chunk's
+    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
+    p, ds = _sparse_bwd_scores(q, k, v, out, lse, dout, layout, causal,
+                               q_offset)
+    return (_sparse_dq(q, k, ds),) + _sparse_dkv(q, k, v, dout, p, ds)
 
 
 def flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout, layout,
@@ -435,6 +456,29 @@ def flash_block_sparse_agg_bwd_reference(q, k, v, out, lse, dout, layout,
     _check_factor(np.asarray(layout).shape[1], G)
     return flash_block_sparse_bwd_reference(q, k, v, out, lse, dout, layout,
                                             causal, q_offset)
+
+
+def flash_block_sparse_agg_bwd_dq_reference(q, k, v, out, lse, dout, layout,
+                                            G, causal=False, q_offset=0):
+    """Plain version of B6b: dq of
+    :func:`flash_block_sparse_agg_bwd_reference`, bitwise, from its own
+    score pass (as B6b recomputes P and dP)."""
+    _check_factor(np.asarray(layout).shape[1], G)
+    _, ds = _sparse_bwd_scores(q, k, v, out, lse, dout, layout, causal,
+                               q_offset)
+    return _sparse_dq(q, k, ds)
+
+
+def flash_block_sparse_agg_bwd_dkv_reference(q, k, v, out, lse, dout,
+                                             layout, G, causal=False,
+                                             q_offset=0):
+    """Plain version of B6c: ``(dk, dv)`` of
+    :func:`flash_block_sparse_agg_bwd_reference`, bitwise, from its own
+    score pass."""
+    _check_factor(np.asarray(layout).shape[1], G)
+    p, ds = _sparse_bwd_scores(q, k, v, out, lse, dout, layout, causal,
+                               q_offset)
+    return _sparse_dkv(q, k, v, dout, p, ds)
 
 
 # ----------------------------------------------------------------- kernels
@@ -597,6 +641,8 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False, q_offset=0):
         out, lse = _agg_fwd(q, k, v, layout, 1, causal,
                             "flash_block_sparse_fwd", q_offset)
         _count_launch(flash_block_sparse_fwd, q.dtype)
+        kernel_launch("B5a", flash_block_sparse_reference, q, k, v, layout,
+                      causal, q_offset)
         return out, lse
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
@@ -614,6 +660,8 @@ def flash_block_sparse_fwd(q, k, v, layout, causal=False, q_offset=0):
                  int(bool(causal)), k.shape[1], int(q_offset), stream)
     _launched(rc, "flash_block_sparse_fwd")
     _count_launch(flash_block_sparse_fwd, q.dtype)
+    kernel_launch("B5a", flash_block_sparse_reference, q, k, v, layout,
+                  causal, q_offset)
     return out, lse
 
 
@@ -648,6 +696,8 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False,
         dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, 1, causal,
                           name, q_offset)
         _count_launch(flash_block_sparse_bwd, q.dtype)
+        kernel_launch("B5b", flash_block_sparse_bwd_reference, q, k, v, out,
+                      lse, dout, layout, causal, q_offset)
         return dq, dk, dv
     b, s, h, d = q.shape
     luts = device_luts(layout, q.device)
@@ -671,6 +721,8 @@ def flash_block_sparse_bwd(q, k, v, out, lse, dout, layout, causal=False,
                  int(q_offset), stream)
     _launched(rc, "flash_block_sparse_bwd")
     _count_launch(flash_block_sparse_bwd, q.dtype)
+    kernel_launch("B5b", flash_block_sparse_bwd_reference, q, k, v, out, lse,
+                  dout, layout, causal, q_offset)
     return dq, dk, dv
 
 
@@ -783,6 +835,8 @@ def flash_block_sparse_agg_fwd(q, k, v, layout, G, causal=False,
     out, lse = _agg_fwd(q, k, v, layout, G, causal,
                         "flash_block_sparse_agg_fwd", q_offset)
     _count_launch(flash_block_sparse_agg_fwd, q.dtype)
+    kernel_launch("B6a", flash_block_sparse_agg_reference, q, k, v, layout,
+                  G, causal, q_offset)
     return out, lse
 
 
@@ -854,14 +908,16 @@ def flash_block_sparse_agg_bwd_dq(q, k, v, out, lse, dout, layout, G,
     layout = _agg_setup(q, k, v, layout, G, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
-        return flash_block_sparse_agg_bwd_reference(
-            q, k, v, out, lse, dout, layout, G, causal, q_offset)[0]
+        return flash_block_sparse_agg_bwd_dq_reference(
+            q, k, v, out, lse, dout, layout, G, causal, q_offset)
     _check_cuda(q, k, v, None, extra=(dout, out))
     _mma_views("B6b", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
     dq = _agg_dq(q, k, v, lse, dout, delta, layout, G, causal,
                  "flash_block_sparse_agg_bwd_dq", q_offset)
     _count_launch(flash_block_sparse_agg_bwd_dq, q.dtype)
+    kernel_launch("B6b", flash_block_sparse_agg_bwd_dq_reference, q, k, v,
+                  out, lse, dout, layout, G, causal, q_offset)
     return dq
 
 
@@ -873,14 +929,16 @@ def flash_block_sparse_agg_bwd_dkv(q, k, v, out, lse, dout, layout, G,
     layout = _agg_setup(q, k, v, layout, G, q_offset)
     dout, lse = _check_bwd(q, out, lse, dout)
     if q.device.type == "cpu":
-        return flash_block_sparse_agg_bwd_reference(
-            q, k, v, out, lse, dout, layout, G, causal, q_offset)[1:]
+        return flash_block_sparse_agg_bwd_dkv_reference(
+            q, k, v, out, lse, dout, layout, G, causal, q_offset)
     _check_cuda(q, k, v, None, extra=(dout, out))
     _mma_views("B6c", q, k, v, dout)
     delta = _delta(out, dout) if delta is None else delta
     dk, dv = _agg_dkv(q, k, v, lse, dout, delta, layout, G, causal,
                       "flash_block_sparse_agg_bwd_dkv", q_offset)
     _count_launch(flash_block_sparse_agg_bwd_dkv, q.dtype)
+    kernel_launch("B6c", flash_block_sparse_agg_bwd_dkv_reference, q, k, v,
+                  out, lse, dout, layout, G, causal, q_offset)
     return dk, dv
 
 

@@ -24,11 +24,15 @@ Port of ``deepspeed_tpu/ops/transformer/flash_attention.py``.  Kernels
 
 Each wrapper launches its kernel for CUDA tensors or raises, and runs the
 plain version (:func:`flash_attention_reference`,
-:func:`flash_attention_bwd_reference`, :func:`philox_keep_bits`) for CPU
-tensors; a CPU run and a card run with one seed drop the same entries.
-Each wrapper counts its launches in ``.launches``, and B1–B3 their fp16
-launches again in ``.fp16.launches``, so a run can show that an fp16
-path took the fp16 kernels.  ``in_kernel_dropout`` counts the B1–B3
+:func:`flash_attention_bwd_dq_reference` for B2a,
+:func:`flash_attention_bwd_dkv_reference` for B2b,
+:func:`flash_attention_bwd_reference` for B3, :func:`philox_keep_bits`)
+for CPU tensors; a CPU run and a card run with one seed drop the same
+entries.  Each wrapper counts its launches in ``.launches``, and B1–B3
+their fp16 launches again in ``.fp16.launches``, so a run can show that
+an fp16 path took the fp16 kernels; with a flops profiler counting, a
+launch also adds its plain version's count on the same inputs
+(:func:`~deepspeed_tpu_torch.profiling.flops_profiler.kernel_launch`).  ``in_kernel_dropout`` counts the B1–B3
 launches that applied a keep mask (``.fp16`` the fp16 ones), and
 ``draw_keep_bits.launches`` B4's draws.
 :class:`FlashAttention` is the ``torch.autograd.Function``: its forward
@@ -51,6 +55,7 @@ import types
 import torch
 
 from .. import op_builder
+from ...profiling.flops_profiler.profiler import kernel_launch
 
 NEG_INF = -1e30
 # Running-max floor: keeps exp(NEG_INF - m) == 0 even for rows where every
@@ -238,18 +243,11 @@ def flash_attention_reference(q, k, v, kv_mask=None, causal=False,
     return out.to(q.dtype), lse
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
-                                  causal=False, keep=None, inv_keep=1.0,
-                                  q_offset=0):
-    """Dense plain-PyTorch version of B2a/B2b and B3: P = exp(S − lse)
-    from the forward's lse, dP = dO·Vᵀ, both masked and scaled by the
-    keep mask under dropout, Δ = rowsum(dO∘O), dS = P∘(dP − Δ) in the
-    storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv = P_keptᵀ·dO with
-    P_kept in the storage dtype; ``q_offset`` as in
-    :func:`flash_attention_reference` (dk and dv are then the chunk's
-    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
+def _bwd_scores(q, k, v, out, lse, dout, kv_mask, causal, keep, inv_keep,
+                q_offset):
+    """The backward's shared terms: P_kept (the kept P, scaled) and dS in
+    the storage dtype, as fp32 ``[b, h, s, kv_len]``."""
     b, s, h, d = q.shape
-    scale = 1.0 / math.sqrt(d)
     p = torch.exp(_scores(q, k, kv_mask, causal, q_offset)
                   - lse.view(b, h, s, 1))
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
@@ -259,11 +257,56 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
         dp = torch.where(keep, dp * inv_keep, 0.0)
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
     ds = (p * (dp - delta)).to(q.dtype).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return p_v, ds
+
+
+def _dq(q, k, ds):
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+            * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def _dkv(q, k, v, dout, p_v, ds):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
     dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(v.dtype).float(),
                       dout.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, kv_mask=None,
+                                  causal=False, keep=None, inv_keep=1.0,
+                                  q_offset=0):
+    """Dense plain-PyTorch version of B3 (and of B2a and B2b together):
+    P = exp(S − lse) from the forward's lse, dP = dO·Vᵀ, both masked and
+    scaled by the keep mask under dropout, Δ = rowsum(dO∘O), dS =
+    P∘(dP − Δ) in the storage dtype, dq = dS·K/√d, dk = dSᵀ·Q/√d, dv =
+    P_keptᵀ·dO with P_kept in the storage dtype; ``q_offset`` as in
+    :func:`flash_attention_reference` (dk and dv are then the chunk's
+    partials).  Returns ``(dq, dk, dv)`` in the input dtype."""
+    p_v, ds = _bwd_scores(q, k, v, out, lse, dout, kv_mask, causal, keep,
+                          inv_keep, q_offset)
+    return (_dq(q, k, ds),) + _dkv(q, k, v, dout, p_v, ds)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, lse, dout, kv_mask=None,
+                                     causal=False, keep=None, inv_keep=1.0,
+                                     q_offset=0):
+    """Plain version of B2a: dq of :func:`flash_attention_bwd_reference`,
+    bitwise, from its own score pass (as B2a recomputes P and dP)."""
+    _, ds = _bwd_scores(q, k, v, out, lse, dout, kv_mask, causal, keep,
+                        inv_keep, q_offset)
+    return _dq(q, k, ds)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, out, lse, dout, kv_mask=None,
+                                      causal=False, keep=None, inv_keep=1.0,
+                                      q_offset=0):
+    """Plain version of B2b: ``(dk, dv)`` of
+    :func:`flash_attention_bwd_reference`, bitwise, from its own score
+    pass (as B2b recomputes P and dP)."""
+    p_v, ds = _bwd_scores(q, k, v, out, lse, dout, kv_mask, causal, keep,
+                          inv_keep, q_offset)
+    return _dkv(q, k, v, dout, p_v, ds)
 
 
 # ----------------------------------------------------------------- kernels
@@ -454,10 +497,8 @@ def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
     total = _total_heads(h, head_offset, total_heads)
     _check_offset(q_offset)
     if seed.device.type == "cpu":
-        return philox_keep_bits(
-            seed, b * h, s, kv_len, dropout_rate,
-            drop_heads(b, h, head_offset, total, seed.device), causal,
-            q_offset)
+        return _keep_plain(seed, b, h, s, kv_len, dropout_rate, causal,
+                           head_offset, total, q_offset)
     if seed.device.type != "cuda":
         raise ValueError(f"the keep-bit kernel runs on cuda or cpu seeds, "
                          f"got {seed.device}")
@@ -475,10 +516,20 @@ def draw_keep_bits(seed, b, h, s, kv_len, dropout_rate, causal=False,
     if rc != 0:
         raise RuntimeError(f"keep-bit kernel launch failed: CUDA error {rc}")
     draw_keep_bits.launches += 1
+    kernel_launch("B4", _keep_plain, seed, b, h, s, kv_len, dropout_rate,
+                  causal, head_offset, total, q_offset)
     return bits
 
 
 draw_keep_bits.launches = 0
+
+
+def _keep_plain(seed, b, h, s, kv_len, dropout_rate, causal, head_offset,
+                total, q_offset):
+    """B4's plain version as the wrapper calls it, on the seed's device."""
+    return philox_keep_bits(
+        seed, b * h, s, kv_len, dropout_rate,
+        drop_heads(b, h, head_offset, total, seed.device), causal, q_offset)
 
 
 def _keep_bits_arg(q, kv_len, dropout_rate, keep_bits):
@@ -605,9 +656,8 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
     keep_bits = _forward_bits(q, kv_len, causal, dropout_rate, seed,
                               keep_bits, head_offset, total_heads, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, kv_mask, causal,
-            *_plain_keep(keep_bits, dropout_rate, b, h, kv_len), q_offset)
+        return _fwd_plain(q, k, v, kv_mask, causal, dropout_rate, keep_bits,
+                          q_offset)
     mask = _mask_arg(kv_mask)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -627,7 +677,18 @@ def flash_attention_fwd(q, k, v, kv_mask=None, causal=False,
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
                            f"error {rc}")
     _count_launch(flash_attention_fwd, dropout_rate, q.dtype)
+    kernel_launch("B1", _fwd_plain, q, k, v, kv_mask, causal, dropout_rate,
+                  keep_bits, q_offset)
     return out, lse
+
+
+def _fwd_plain(q, k, v, kv_mask, causal, dropout_rate, keep_bits, q_offset):
+    """B1's plain version as the wrapper calls it."""
+    b, _, h, _ = q.shape
+    kv_len = k.shape[1]
+    return flash_attention_reference(
+        q, k, v, kv_mask, causal,
+        *_plain_keep(keep_bits, dropout_rate, b, h, kv_len), q_offset)
 
 _WHICH = {"dq": 0, "dkv": 1, "fused": 2}
 
@@ -703,11 +764,16 @@ def _bwd_inputs(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
 
 
 def _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal, dropout_rate,
-               keep_bits, q_offset):
+               keep_bits, q_offset, which="fused"):
+    """The plain version of B2a (``which`` "dq"), B2b ("dkv") or B3
+    ("fused"), as the wrappers call it."""
     b, _, h, _ = q.shape
-    return flash_attention_bwd_reference(
-        q, k, v, out, lse, dout, kv_mask, causal,
-        *_plain_keep(keep_bits, dropout_rate, b, h, k.shape[1]), q_offset)
+    ref = {"dq": flash_attention_bwd_dq_reference,
+           "dkv": flash_attention_bwd_dkv_reference,
+           "fused": flash_attention_bwd_reference}[which]
+    return ref(q, k, v, out, lse, dout, kv_mask, causal,
+               *_plain_keep(keep_bits, dropout_rate, b, h, k.shape[1]),
+               q_offset)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
@@ -725,12 +791,14 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=None,
                                        q_offset)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, keep_bits, q_offset)[0]
+                          dropout_rate, keep_bits, q_offset, "dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("dq", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 keep_bits, _delta(out, dout) if delta is None else delta, dq,
                 None, None, q_offset)
     _count_launch(flash_attention_bwd_dq, dropout_rate, q.dtype)
+    kernel_launch("B2a", _bwd_plain, q, k, v, out, lse, dout, kv_mask, causal,
+                  dropout_rate, keep_bits, q_offset, "dq")
     return dq
 
 
@@ -747,13 +815,15 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, kv_mask=None,
                                        q_offset)
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, out, lse, dout, kv_mask, causal,
-                          dropout_rate, keep_bits, q_offset)[1:]
+                          dropout_rate, keep_bits, q_offset, "dkv")
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("dkv", q, k, v, lse, dout, kv_mask, causal, dropout_rate,
                 keep_bits, _delta(out, dout) if delta is None else delta,
                 None, dk, dv, q_offset)
     _count_launch(flash_attention_bwd_dkv, dropout_rate, q.dtype)
+    kernel_launch("B2b", _bwd_plain, q, k, v, out, lse, dout, kv_mask,
+                  causal, dropout_rate, keep_bits, q_offset, "dkv")
     return dk, dv
 
 
@@ -787,6 +857,8 @@ def flash_attention_bwd_fused(q, k, v, out, lse, dout, kv_mask=None,
                 keep_bits, _delta(out, dout) if delta is None else delta, dq,
                 dk, dv, q_offset)
     _count_launch(flash_attention_bwd_fused, dropout_rate, q.dtype)
+    kernel_launch("B3", _bwd_plain, q, k, v, out, lse, dout, kv_mask, causal,
+                  dropout_rate, keep_bits, q_offset)
     return dq, dk, dv
 
 

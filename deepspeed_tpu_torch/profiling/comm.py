@@ -1,27 +1,277 @@
-"""The per-rank step-latency exchange (port of the file-based half of
-``deepspeed_tpu/profiling/comm.py:471-534``; its HLO ``CommLedger`` is
-ROADMAP A12's).
+"""Communication observability: the per-phase collective ledger and the
+per-rank step-latency exchange (port of
+``deepspeed_tpu/profiling/comm.py``).
 
-Each rank publishes its step-latency ring's snapshot to
-``<run_dir>/latency-rank<k>.json`` at the print cadence and reads the
-fleet's back; :func:`fleet_skew` turns the per-rank p50s into a
-slowest-vs-median ratio, which the engine holds to
-``resilience.straggler_factor``.  The files are the JAX package's, so
-either package reads the other's.  Stdlib-only: no device access.
+- :class:`CommLedger` — the JAX ledger walks each compiled program's
+  optimized HLO for its collectives; the port has no HLO, so it takes
+  its records from the collective call sites themselves:
+  :class:`~deepspeed_tpu_torch.comm.CommCounter` sees every collective
+  the port issues (its verb, payload bytes and group size), and the
+  ledger listens to it while an engine phase runs for the first time
+  (the training engine's ``fwd_bwd`` micro-batch and its
+  ``apply_update`` step).  Each phase becomes one entry with the JAX
+  entry fields — ``collectives``, ``payload_bytes``, ``wire_bytes``,
+  ``ops[op].{count, payload_bytes, wire_bytes, max_group}`` under the
+  HLO op names (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+  ``all-to-all``, ``collective-permute``), ``host_transfers`` and
+  ``host_transfer_bytes`` (the offload stream's copies) — emitted as a
+  ``comm``/``program`` event and ``comm/program/<name>/*`` gauges.  The
+  JAX entry's ``overlap`` summary is not computed (ROADMAP A12).
+- **Wire-bytes model** (:func:`predicted_wire_bytes`): per participant,
+  ring-algorithm accounting over a group of size *g* — all-gather moves
+  ``(g-1)/g`` of its gathered output, reduce-scatter ``(g-1)/g`` of its
+  full input, all-reduce twice the all-gather, a permute exactly its
+  payload, all-to-all ``(g-1)/g`` of its payload.
+- **Per-rank skew exchange** (:func:`publish_rank_latency` /
+  :func:`read_fleet_latencies` / :func:`fleet_skew`): each rank
+  publishes its step-latency ring's snapshot to
+  ``<run_dir>/latency-rank<k>.json`` at the print cadence and reads the
+  fleet's back; :func:`fleet_skew` turns the per-rank p50s into a
+  slowest-vs-median ratio, which the engine holds to
+  ``resilience.straggler_factor``.  The files are the JAX package's, so
+  either package reads the other's.
 """
 
+import json
 import os
+import threading
 import time
 
 from ..resilience.integrity import atomic_publish_json, read_fleet_json_files
 
-LATENCY_FILE_PREFIX = "latency-rank"
-LATENCY_FILE_SUFFIX = ".json"
+# the collective op names (the JAX ledger's HLO mnemonics)
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
+                  "collective-permute", "all-to-all")
+# the port's counter verbs (comm.counter) -> the op each one is
+VERB_OPS = {"psum": "all-reduce", "pmean": "all-reduce",
+            "pmax": "all-reduce", "pmin": "all-reduce",
+            "all_reduce": "all-reduce", "all_gather": "all-gather",
+            "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+            "send": "collective-permute"}
 
-# ``comm`` event kinds (telemetry/events.py EVENT_COMM)
+# comm-event kinds (the ``kind`` data key of EVENT_COMM)
+KIND_PROGRAM = "program"
 KIND_LATENCY = "latency"
 KIND_SKEW = "skew"
 
+LATENCY_FILE_PREFIX = "latency-rank"
+LATENCY_FILE_SUFFIX = ".json"
+
+
+def predicted_wire_bytes(op, out_bytes, group):
+    """Ring-algorithm wire bytes per participant for one collective.
+
+    ``out_bytes`` is the op's RESULT size; reduce-scatter's logical
+    payload is its full input (``out_bytes * group``).  Integer math —
+    exact when the payload divides by the group, floor otherwise."""
+    g = max(int(group), 1)
+    if g == 1:
+        return 0
+    if op == "all-reduce":
+        return 2 * out_bytes * (g - 1) // g
+    if op == "all-gather":
+        return out_bytes * (g - 1) // g
+    if op == "reduce-scatter":
+        return out_bytes * (g - 1)
+    if op == "collective-permute":
+        return out_bytes
+    if op == "all-to-all":
+        return out_bytes * (g - 1) // g
+    return 0
+
+
+def collective_record(verb, nbytes, group):
+    """``{op, out_bytes, group, wire_bytes}`` of one call the counter
+    saw, or None for a verb that is no collective (a ``recv``: its
+    permute counts at the send).  ``nbytes`` is the counter's buffer
+    size: the full input of a reduce-scatter (its result is 1/group of
+    it), the result of every other verb."""
+    op = VERB_OPS.get(verb)
+    if op is None:
+        return None
+    g = max(int(group), 1)
+    out_bytes = int(nbytes) // g if op == "reduce-scatter" else int(nbytes)
+    return {"op": op, "out_bytes": out_bytes, "group": g,
+            "wire_bytes": predicted_wire_bytes(op, out_bytes, g)}
+
+
+def collective_summary(ops):
+    """Aggregate collective records into one ledger entry::
+
+        {"collectives": N, "payload_bytes": ..., "wire_bytes": ...,
+         "ops": {op: {"count", "payload_bytes", "wire_bytes",
+                      "max_group"}}}
+
+    ``payload_bytes`` is the logical payload (full input for
+    reduce-scatter, the stated result for everything else)."""
+    entry = {"collectives": 0, "payload_bytes": 0, "wire_bytes": 0,
+             "ops": {}}
+    for rec in ops:
+        payload = rec["out_bytes"]
+        if rec["op"] == "reduce-scatter":
+            payload = rec["out_bytes"] * rec["group"]
+        bucket = entry["ops"].setdefault(
+            rec["op"], {"count": 0, "payload_bytes": 0, "wire_bytes": 0,
+                        "max_group": 0})
+        bucket["count"] += 1
+        bucket["payload_bytes"] += payload
+        bucket["wire_bytes"] += rec["wire_bytes"]
+        bucket["max_group"] = max(bucket["max_group"], rec["group"])
+        entry["collectives"] += 1
+        entry["payload_bytes"] += payload
+        entry["wire_bytes"] += rec["wire_bytes"]
+    return entry
+
+
+# the serving engine's decode step: the "step" of a serve the way
+# train_step is the step of a training run
+SERVE_DECODE_PROGRAM = "serve_decode"
+
+
+def step_program_weights(available, grad_accumulation_steps=1,
+                         prefer=None):
+    """``(program_label, [(name, multiplicity), ...])`` pricing ONE
+    optimizer step over the recorded program set ``available``: a fused
+    program (``train_step``, ``train_step_compressed`` or
+    ``serve_decode``; ``prefer`` first) is the step where present, else
+    the step-wise programs weighted by the micro-batch multiplicity
+    (``fwd_bwd``·acc + ``accum``·(acc-1) + ``apply_update`` +
+    ``cast_params``).  ``(None, [])`` when nothing is priced yet."""
+    fused_order = ("train_step", "train_step_compressed",
+                   SERVE_DECODE_PROGRAM)
+    if prefer is not None:
+        fused_order = (prefer,) + tuple(f for f in fused_order
+                                        if f != prefer)
+    for fused in fused_order:
+        if fused in available:
+            return fused, [(fused, 1)]
+    acc = max(int(grad_accumulation_steps), 1)
+    weights = [(name, mult) for name, mult in
+               (("fwd_bwd", acc), ("accum", acc - 1),
+                ("apply_update", 1), ("cast_params", 1))
+               if mult > 0 and name in available]
+    return ("stepwise", weights) if weights else (None, [])
+
+
+# ---------------------------------------------------------------------------
+# CommLedger: per-phase collective accounting
+# ---------------------------------------------------------------------------
+
+class CommLedger:
+    """Per-engine ledger of the collectives each phase issues.
+
+    :meth:`begin` / :meth:`end` bracket the FIRST run of a phase: in
+    between, every collective the port's ``comm`` module issues in this
+    process is recorded (a listener on its counter); :meth:`end` turns
+    them into the phase's entry and emits it.  A phase already recorded
+    costs nothing."""
+
+    def __init__(self, enabled=True, telemetry=None, mesh_axes=None):
+        self.enabled = bool(enabled)
+        self.telemetry = telemetry
+        # {axis: size} recorded into every program event
+        self.mesh_axes = dict(mesh_axes or {})
+        self._lock = threading.Lock()
+        self._entries = {}
+        self._open = None
+
+    def recording(self, name):
+        """Whether ``begin(name)`` would record (an enabled ledger, a
+        phase not yet recorded, none open)."""
+        return (self.enabled and self._open is None
+                and str(name) not in self._entries)
+
+    def begin(self, name):
+        if not self.recording(name):
+            return False
+        from .. import comm
+
+        records = []
+
+        def listen(verb, nbytes, group):
+            rec = collective_record(verb, nbytes, group)
+            if rec is not None:
+                records.append(rec)
+
+        self._open = (str(name), records, listen)
+        comm.counter.listeners.append(listen)
+        return True
+
+    def end(self, name, host_transfers=0, host_transfer_bytes=0):
+        """Close the phase ``name`` opened by :meth:`begin` and record it."""
+        if self._open is None or self._open[0] != str(name):
+            return None
+        from .. import comm
+
+        _, records, listen = self._open
+        self._open = None
+        comm.counter.listeners.remove(listen)
+        return self.record(name, records, host_transfers,
+                           host_transfer_bytes)
+
+    def record(self, name, ops, host_transfers=0, host_transfer_bytes=0):
+        """Record one phase's collective records (``collective_record``
+        dicts) and its host transfers."""
+        entry = collective_summary(ops)
+        entry["host_transfers"] = int(host_transfers)
+        entry["host_transfer_bytes"] = int(host_transfer_bytes)
+        with self._lock:
+            self._entries[str(name)] = json.loads(json.dumps(entry))
+            n_programs = len(self._entries)
+        tel = self.telemetry
+        if tel is not None and getattr(tel, "enabled", False):
+            from ..telemetry import events as TEL
+
+            tel.emit(TEL.EVENT_COMM, kind=KIND_PROGRAM, program=str(name),
+                     mesh=self.mesh_axes, **entry)
+            for field in ("collectives", "payload_bytes", "wire_bytes",
+                          "host_transfer_bytes"):
+                tel.gauge(f"comm/program/{name}/{field}").set(
+                    float(entry[field]))
+            tel.gauge("comm/programs").set(float(n_programs))
+        return entry
+
+    def entry(self, name):
+        with self._lock:
+            e = self._entries.get(str(name))
+        return json.loads(json.dumps(e)) if e else None
+
+    def entries(self):
+        with self._lock:
+            names = list(self._entries)
+        return {n: self.entry(n) for n in names}
+
+    def wire_bytes(self, name):
+        e = self.entry(name)
+        return e["wire_bytes"] if e else None
+
+    def step_entry(self, grad_accumulation_steps=1, prefer=None):
+        """Aggregate ``{program, collectives, payload_bytes,
+        wire_bytes}`` for ONE optimizer step (the step-wise phases
+        weighted by their multiplicity, :func:`step_program_weights`).
+        None when nothing has been recorded yet."""
+        with self._lock:
+            names = set(self._entries)
+        program, weights = step_program_weights(
+            names, grad_accumulation_steps, prefer=prefer)
+        if program is None:
+            return None
+        totals = {"program": program, "collectives": 0,
+                  "payload_bytes": 0, "wire_bytes": 0}
+        for name, mult in weights:
+            e = self.entry(name)
+            for field in ("collectives", "payload_bytes", "wire_bytes"):
+                totals[field] += e[field] * mult
+        return totals
+
+    def step_wire_bytes(self, grad_accumulation_steps=1, prefer=None):
+        e = self.step_entry(grad_accumulation_steps, prefer=prefer)
+        return e["wire_bytes"] if e else None
+
+
+# ---------------------------------------------------------------------------
+# Per-rank latency exchange (file-based; print-cadence only)
+# ---------------------------------------------------------------------------
 
 def latency_filename(rank):
     return f"{LATENCY_FILE_PREFIX}{rank}{LATENCY_FILE_SUFFIX}"

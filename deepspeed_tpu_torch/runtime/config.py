@@ -41,6 +41,8 @@ from ..elasticity import (compute_elastic_config, elasticity_enabled,
                           ensure_immutable_elastic_config)
 from ..elasticity import constants as EC
 from ..elasticity.config import ElasticityConfigError
+from ..profiling.config import (DeepSpeedFlopsProfilerConfig,
+                                DeepSpeedProfilingConfig)
 from ..resilience.config import DeepSpeedResilienceConfig
 from ..telemetry.config import DeepSpeedTelemetryConfig
 from . import constants as C
@@ -335,6 +337,8 @@ class DeepSpeedConfig:
         self.checkpoint_config = DeepSpeedCheckpointConfig(param_dict)
         self.resilience_config = DeepSpeedResilienceConfig(param_dict)
         self.telemetry_config = DeepSpeedTelemetryConfig(param_dict)
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(param_dict)
+        self.profiling_config = DeepSpeedProfilingConfig(param_dict)
         tb = param_dict.get(C.TENSORBOARD, {}) or {}
         self.tensorboard_enabled = bool(get_scalar_param(
             tb, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT))

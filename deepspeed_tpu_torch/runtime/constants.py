@@ -207,9 +207,33 @@ SECTION_KEYS = {
     "tensorboard": ("enabled", "job_name", "output_path"),
 }
 # blocks the port parses but does not implement yet -> ROADMAP item
-UNPORTED_SECTIONS = {
-    "compilation": "A16", "flops_profiler": "A16", "profiling": "A12/A16",
-}
+UNPORTED_SECTIONS = {"compilation": "A16"}
+
+#############################################
+# Profiling: the ``profiling`` block (the JAX package's :439-470; the
+# reference-parity ``flops_profiler`` block keeps its shape in
+# profiling/config.py).  Each knob is true, false or "auto" (follows
+# telemetry.enabled)
+#############################################
+PROFILING = "profiling"
+# per-entry-point device-memory ledger (profiling/memory.MemoryLedger):
+# the bytes in use at entry, the peak during and the bytes held after
+# the first call of each engine entry point, as ``memory`` events
+PROFILING_MEMORY_LEDGER = "memory_ledger"
+PROFILING_MEMORY_LEDGER_DEFAULT = "auto"
+# live device-memory watermark gauges/events at the steps_per_print
+# cadence (torch.cuda.memory_stats summed over the local cards)
+PROFILING_MEMORY_WATERMARKS = "memory_watermarks"
+PROFILING_MEMORY_WATERMARKS_DEFAULT = "auto"
+# per-phase collective ledger (profiling/comm.CommLedger): the
+# collectives each engine phase issues at its first step, with payload
+# and ring-model wire bytes, as ``comm`` events
+PROFILING_COMM_LEDGER = "comm_ledger"
+PROFILING_COMM_LEDGER_DEFAULT = "auto"
+# the JAX package's per-program HLO dump: parsed, no effect here yet
+# (ROADMAP A12); "true" warns
+PROFILING_PROGRAM_DUMP = "program_dump"
+PROFILING_PROGRAM_DUMP_DEFAULT = "auto"
 
 #############################################
 # Telemetry (``deepspeed_tpu_torch/telemetry``, the JAX package's

@@ -210,6 +210,20 @@ dir; host spans time the batch fetch, the dispatch, the fetches and the
 checkpoint snapshot; a trigger file starts a ``torch.profiler`` device
 trace.  None of it adds a host sync.
 
+Profiling (the ``flops_profiler`` and ``profiling`` blocks, JAX
+``:674-678``, ``:716-760``, ``:1595-1677``, ``:3946-3950``;
+:mod:`deepspeed_tpu_torch.profiling`): the flops profiler counts the
+``profile_step``-th step as it runs (its first micro-batch's forward and
+backward times the accumulation steps, and the optimizer step; the
+kernels as their plain versions count) and logs the profile; the memory
+ledger measures the first call of the forward, the backward and the
+optimizer apply; the comm ledger records the collectives of the first
+``fwd_bwd`` micro-batch and ``apply_update`` step, with the offload
+stream's host copies; watermark events ride the print cadence.  The
+profiled step and the ledgers' first calls synchronize the card; no
+other step does.  The pipeline engine runs its own schedule and is not
+profiled.
+
 The fleet integrity plane (``resilience.integrity``, JAX ``:842-968``,
 ``:1140-1290``; :mod:`deepspeed_tpu_torch.resilience.integrity`): with
 telemetry's run dir as the exchange medium, each rank publishes a
@@ -269,6 +283,10 @@ from ..ops.op_common import LANES
 from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS,
                              SEQ_AXIS, Mesh, current_mesh, make_mesh)
 from ..profiling import comm as comm_prof
+from ..profiling.comm import CommLedger
+from ..profiling.flops_profiler import FlopsProfiler
+from ..profiling.memory import (KIND_WATERMARK, MemoryLedger,
+                                device_memory_summary)
 from ..profiling.step_profiler import StepLatencyRing
 from ..resilience import integrity as integ
 from ..resilience.constants import (FleetIntegrityError,
@@ -1209,12 +1227,133 @@ class DeepSpeedEngine:
         self.telemetry = TelemetryManager(
             self.telemetry_config, rank=rank, monitor=self.monitor,
             device=self.device)
+        self._build_profiling()
         self.telemetry.emit(
             TEL.EVENT_RUN_START, step=0, world_size=get_world_size(),
             dp=self.dp_world_size,
             precision=("fp16" if cfg.fp16_enabled else
                        "bf16" if cfg.bf16_enabled else "fp32"),
             zero_stage=self.zero_stage)
+
+    def _build_profiling(self):
+        """The flops profiler, the memory and comm ledgers and the
+        watermarks (JAX ``engine.py:674-678``, ``:716-760``), from the
+        ``flops_profiler`` and ``profiling`` blocks and telemetry: the
+        profiler counts the step ``profile_step`` as it runs; the memory
+        ledger measures the first call of the forward, the backward and
+        the optimizer apply; the comm ledger records the collectives of
+        the first ``fwd_bwd`` micro-batch and the first
+        ``apply_update``; watermarks ride the print cadence.  None of it
+        adds a host sync outside those first calls and the profiled
+        step."""
+        cfg = self._config
+        self.flops_profiler = (FlopsProfiler(self)
+                               if cfg.flops_profiler_config.enabled else None)
+        # profile_train_step's request to count the next step
+        self._flops_request = False
+        self.profiling_config = pc = cfg.profiling_config
+        tel = self.telemetry.enabled
+        self.comm_ledger = CommLedger(
+            enabled=pc.comm_ledger_enabled(tel), telemetry=self.telemetry,
+            mesh_axes=({ax: n for ax, n in self.mesh.shape.items() if n > 1}
+                       if self.mesh is not None else {}))
+        self.memory_ledger = MemoryLedger(
+            enabled=pc.memory_ledger_enabled(tel), telemetry=self.telemetry,
+            device=self.device)
+        self._memory_watermarks = pc.memory_watermarks_enabled(tel)
+        if pc.program_dump is True:
+            logger.warning("profiling.program_dump: the per-program HLO "
+                           "dump has no PyTorch form yet (ROADMAP A12); "
+                           "nothing is dumped")
+        # the ledger's entry points, as instance attributes over the
+        # methods (the disabled ledger hands the methods back)
+        wrap = self.memory_ledger.wrap
+        self._loss = wrap("forward", self._loss)
+        self._run_backward = wrap("backward", self._run_backward)
+        self._dense_step = wrap("apply_update", self._dense_step)
+        self._compressed_step = wrap("apply_update_compressed",
+                                     self._compressed_step)
+        if self._offload:
+            self._register_host_buffers()
+
+    def _host_buffer_families(self):
+        """{family: [host buffers]} of the offload state (JAX
+        ``engine.py:1595-1623``): the master, each flat optimizer field,
+        the host gradient, the error-feedback residuals."""
+        families = {"master": [self.master]}
+        for f in self._flat_fields:
+            families[f"opt/{f}"] = [getattr(self.opt_state, f)]
+        if self._host_grad is not None:
+            families["grads"] = [self._host_grad]
+        for name, buf in self._qres.items():
+            families[f"qres/{name}"] = [buf]
+        return families
+
+    def _register_host_buffers(self):
+        """Feed the memory ledger's host-buffer registry from the offload
+        state and publish it (JAX ``engine.py:1625-1650``)."""
+        registry = self.memory_ledger.host_buffers
+        for family, bufs in self._host_buffer_families().items():
+            registry.register(family, len(bufs),
+                              sum(b.nbytes for b in bufs), bufs[0].dtype)
+        self.memory_ledger.record_host_buffers(
+            bytes_per_step=self.host_state_bytes_per_step())
+
+    def _sample_memory_watermarks(self):
+        """Live device-memory watermarks and the host-buffer bytes at the
+        print cadence (JAX ``engine.py:1652-1677``): allocator counters
+        read on the host, no sync."""
+        if not self._memory_watermarks or not self.telemetry.enabled:
+            return
+        summary = device_memory_summary()
+        if summary["reporting"]:
+            self.telemetry.gauge("memory/device_bytes_in_use").set(
+                float(summary["bytes_in_use"]))
+            self.telemetry.gauge("memory/device_peak_bytes_in_use").set(
+                float(summary["peak_bytes_in_use"]))
+            self.telemetry.gauge("memory/device_bytes_limit").set(
+                float(summary["bytes_limit"]))
+        self.telemetry.emit(
+            TEL.EVENT_MEMORY, step=self.global_steps, kind=KIND_WATERMARK,
+            bytes_in_use=summary["bytes_in_use"],
+            peak_bytes_in_use=summary["peak_bytes_in_use"],
+            bytes_limit=summary["bytes_limit"],
+            devices=summary["devices"], reporting=summary["reporting"],
+            host_buffer_bytes=self.memory_ledger.host_buffers.total_bytes())
+
+    def _flops_armed(self):
+        """Whether the step about to run is the flops profiler's: the
+        ``profile_step``-th (once), or the one
+        :meth:`~deepspeed_tpu_torch.profiling.flops_profiler.FlopsProfiler.profile_train_step`
+        asked for."""
+        fp = self.flops_profiler
+        return fp is not None and (self._flops_request or (
+            fp.profile is None and self.global_steps + 1
+            == self._config.flops_profiler_config.profile_step))
+
+    def _profiling_micro_begin(self):
+        """A micro-batch's forward starts: the first of a step opens the
+        profiled step and the comm ledger's ``fwd_bwd`` phase."""
+        if self.micro_steps % self.gradient_accumulation_steps():
+            return
+        if self._flops_armed() and not self.flops_profiler.active:
+            self.flops_profiler.begin_step()
+        self.comm_ledger.begin("fwd_bwd")
+
+    def _profiling_micro_end(self):
+        """A micro-batch's backward returned."""
+        if self.flops_profiler is not None and self.flops_profiler.active:
+            self.flops_profiler.end_micro_batch()
+        self.comm_ledger.end("fwd_bwd")
+
+    def _host_transfers(self):
+        s = getattr(self, "_stream", None) if self._offload else None
+        return (s.transfers, s.transfer_bytes) if s is not None else (0, 0)
+
+    def _print_flops_profile(self):
+        fc = self._config.flops_profiler_config
+        self.flops_profiler.end_step().print(
+            top_modules=fc.top_modules, module_depth=fc.module_depth)
 
     def _telemetry_anomaly(self, step, kind, detail):
         """Anomaly-guard event sink (JAX ``engine.py:1098-1106``): each
@@ -1730,6 +1869,7 @@ class DeepSpeedEngine:
         if self._sparse_paths and isinstance(batch, dict) \
                 and "input_ids" in batch:
             self._step_tokens += int(np.prod(np.shape(batch["input_ids"])))
+        self._profiling_micro_begin()
         timed = self._stepwise_timed()
         if timed:
             self.timers("forward").start(sync=False)
@@ -1781,7 +1921,19 @@ class DeepSpeedEngine:
         timed = self._stepwise_timed()
         if timed:
             self.timers("backward").start(sync=False)
-        scaled = self._scaled_loss(loss)
+        self._run_backward(self._scaled_loss(loss))
+        self._profiling_micro_end()
+        if timed:
+            self.timers("backward").stop(sync=False)
+        self._losses.append(loss.detach())
+        self.micro_steps += 1
+        self.global_samples += (self.train_micro_batch_size_per_gpu()
+                                * self.dp_world_size)
+        return loss
+
+    def _run_backward(self, scaled):
+        """The backward of the scaled loss into the flat gradient, with
+        the bucketed exchange around it, then :meth:`_after_backward`."""
         # with accumulation the rank's rows sum the micro-batches (the
         # step zeroes them)
         accumulate = self.gradient_accumulation_steps() > 1
@@ -1799,13 +1951,6 @@ class DeepSpeedEngine:
             else:
                 scaled.backward()
         self._after_backward()
-        if timed:
-            self.timers("backward").stop(sync=False)
-        self._losses.append(loss.detach())
-        self.micro_steps += 1
-        self.global_samples += (self.train_micro_batch_size_per_gpu()
-                                * self.dp_world_size)
-        return loss
 
     def _scaled_loss(self, loss):
         """The fp32 loss × the loss scale / (accumulation steps ×
@@ -1933,6 +2078,12 @@ class DeepSpeedEngine:
         timed = self._stepwise_timed()
         if timed:
             self.timers("step").start(sync=False)
+        profiled = (self.flops_profiler is not None
+                    and self.flops_profiler.active)
+        if profiled:
+            self.flops_profiler.begin_apply()
+        host0 = self._host_transfers()
+        self.comm_ledger.begin("apply_update")
         with torch.no_grad():
             if self._onebit_compressing():
                 overflow, mean_loss = self._compressed_step()
@@ -1945,6 +2096,11 @@ class DeepSpeedEngine:
             if self._partitioned and self.gradient_accumulation_steps() > 1:
                 self._gshard.zero_()
             self._step_tokens = 0
+        host1 = self._host_transfers()
+        self.comm_ledger.end("apply_update", host1[0] - host0[0],
+                             host1[1] - host0[1])
+        if profiled:
+            self._print_flops_profile()
         self._after_step(overflow, mean_loss)
         if timed:
             self.timers("step").stop(sync=False)
@@ -2155,6 +2311,7 @@ class DeepSpeedEngine:
                 "Train/Samples/loss_scale": scale,
             }, skipped=self._skipped)
             self._sample_comm_skew()
+            self._sample_memory_watermarks()
         self._losses = []
         self._step_beat()
         if self._integrity is not None:

@@ -65,7 +65,10 @@ class HostStream:
     the flat layout above one data rank), ``chunk_rows`` the rows of a
     chunk (None: one chunk), ``depth`` the chunks in flight.  With
     ``timing`` set, every copy and every run is timed with CUDA events
-    and :meth:`timing_report` reads them (after a sync)."""
+    and :meth:`timing_report` reads them (after a sync).  ``transfers``
+    and ``transfer_bytes`` count every host<->card copy issued (each
+    family's chunk each way, each spilled chunk), for the comm ledger's
+    ``host_transfer_bytes``."""
 
     def __init__(self, rows, chunk_rows, depth, device):
         self.device = torch.device(device)
@@ -73,6 +76,8 @@ class HostStream:
         self.depth = max(1, min(int(depth), len(self.jobs)))
         self.cuda = self.device.type == "cuda"
         self._done = None  # the last host write of the copy streams
+        self.transfers = 0
+        self.transfer_bytes = 0
         self.timing = False
         self._timed = []
         if self.cuda:
@@ -96,6 +101,10 @@ class HostStream:
         if self._done is not None:
             self._done.synchronize()
 
+    def _moved(self, t):
+        self.transfers += 1
+        self.transfer_bytes += t.nbytes
+
     def _event(self, stream):
         ev = torch.cuda.Event(enable_timing=self.timing)
         ev.record(stream)
@@ -111,9 +120,12 @@ class HostStream:
         if not self.cuda:
             for k, (r0, rc) in enumerate(self.jobs):
                 views = {n: h[r0:r0 + rc].clone() for n, h in host.items()}
+                for v in views.values():
+                    self._moved(v)
                 fn(k, r0, rc, views)
                 for n in writes:
                     host[n][r0:r0 + rc].copy_(views[n])
+                    self._moved(views[n])
             return
         cur = torch.cuda.current_stream(self.device)
         slots = [{n: torch.empty((self.chunk_rows, LANES), dtype=h.dtype,
@@ -147,6 +159,7 @@ class HostStream:
                 for name, h in host.items():
                     slot[name][:rc].copy_(h[r0:r0 + rc], non_blocking=True)
                     timed["bytes_h2d"] += h[r0:r0 + rc].nbytes
+                    self._moved(h[r0:r0 + rc])
                 fetched[k] = self._event(self.h2d)
                 if t0 is not None:
                     timed["h2d"].append((t0, fetched[k]))
@@ -166,6 +179,7 @@ class HostStream:
                         host[name][r0:r0 + rc].copy_(slot[name][:rc],
                                                      non_blocking=True)
                         timed["bytes_d2h"] += slot[name][:rc].nbytes
+                        self._moved(slot[name][:rc])
                     freed[k] = self._event(self.d2h)
                     if t0 is not None:
                         timed["d2h"].append((t0, freed[k]))
@@ -185,6 +199,7 @@ class HostStream:
         ``offload_gradients``."""
         if not self.cuda:
             dst.copy_(src)
+            self._moved(dst)
             return
         cur = torch.cuda.current_stream(self.device)
         for r0, rc in self.jobs:
@@ -194,6 +209,7 @@ class HostStream:
             with torch.cuda.stream(self.d2h):
                 self.d2h.wait_event(cast)
                 dst[r0:r0 + rc].copy_(part, non_blocking=True)
+                self._moved(dst[r0:r0 + rc])
                 self._done = self._event(self.d2h)
 
     def timing_report(self):

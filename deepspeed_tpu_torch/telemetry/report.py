@@ -599,7 +599,7 @@ def comm_summary(records):
 
 
 def format_comm_section(records):
-    out = ["comm programs (compile-time collective receipts):"]
+    out = ["comm programs (per-phase collective receipts):"]
     out.extend(comm_program_table(records))
     out.append("")
     out.append("per-step cross-rank latency (skew = slowest/median):")

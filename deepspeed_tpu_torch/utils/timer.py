@@ -15,17 +15,12 @@ import time
 
 import torch
 
-from .distributed import get_rank
+from .logging import log_dist
+
+__all__ = ["SynchronizedWallClockTimer", "ThroughputTimer", "device_fence",
+           "log_dist"]
 
 logger = logging.getLogger(__name__)
-
-
-def log_dist(message, ranks=None, level=logging.INFO):
-    """Log ``message`` only on the listed ranks (``[-1]`` or None: all)."""
-    rank = get_rank()
-    ranks = list(ranks) if ranks is not None else []
-    if not ranks or -1 in ranks or rank in ranks:
-        logger.log(level, f"[Rank {rank}] {message}")
 
 
 def device_fence(device=None):
@@ -97,20 +92,17 @@ class SynchronizedWallClockTimer:
 
     @staticmethod
     def memory_usage():
-        """Allocation stats summed over ALL local cards (device 0 alone
+        """Allocation stats summed over ALL local cards (card 0 alone
         understates a multi-card host's footprint): bytes allocated now,
-        the peak since the last reset and the cards' total memory."""
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if not n:
+        the peak since the last reset and the cards' total memory
+        (:func:`~deepspeed_tpu_torch.profiling.memory.device_memory_summary`,
+        the one implementation)."""
+        from ..profiling import memory as mem
+
+        summary = mem.device_memory_summary()
+        if not summary["reporting"]:
             return "mem stats unavailable (no CUDA device)"
-        gib = 1024.0 ** 3
-        allocated = sum(torch.cuda.memory_allocated(i) for i in range(n))
-        peak = sum(torch.cuda.max_memory_allocated(i) for i in range(n))
-        limit = sum(torch.cuda.get_device_properties(i).total_memory
-                    for i in range(n))
-        return (f"mem allocated {allocated / gib:.4f} GB peak "
-                f"{peak / gib:.4f} GB limit {limit / gib:.4f} GB across "
-                f"{n}/{n} local device(s)")
+        return mem.format_memory_summary(summary)
 
     def log(self, names, normalizer=1.0, reset=True, memory_breakdown=False,
             ranks=None):
@@ -125,7 +117,7 @@ class SynchronizedWallClockTimer:
                 string += f" | {name}: {elapsed_time:.2f}"
         if memory_breakdown:
             string += " | " + self.memory_usage()
-        log_dist(string, ranks=ranks)
+        log_dist(string, ranks=ranks, logger=logger)
 
 
 class ThroughputTimer:

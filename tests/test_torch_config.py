@@ -188,18 +188,30 @@ def test_unported_blocks_warn_naming_their_roadmap_item(caplog):
     ``ring_attention`` block (A10) logs at info that it has no effect,
     since ``attn_impl="ring"`` and the mesh's seq axis select the ring.
     The ``telemetry`` and ``tensorboard`` blocks (A12) are ported: set
-    and on, they are parsed and warn nothing."""
+    and on, they are parsed and warn nothing; so are the
+    ``flops_profiler`` and ``profiling`` blocks (A16, A12's profiling
+    block), while ``compilation`` still warns, naming A16."""
     with caplog.at_level(logging.WARNING):
         cfg = DeepSpeedConfig({"train_batch_size": 8,
-                               "flops_profiler": {"enabled": True},
+                               "compilation": {"cache": True},
+                               "flops_profiler": {"enabled": True,
+                                                  "profile_step": 2},
+                               "profiling": {"memory_ledger": True,
+                                             "memory_watermarks": True,
+                                             "comm_ledger": True},
                                "tensorboard": {"enabled": True,
                                                "job_name": "unit"},
                                "telemetry": {"enabled": True,
                                              "run_dir": "/tmp/t",
                                              "trace": True},
                                "mesh": {"data": 2}})
-    assert "flops_profiler" in caplog.text
+    assert "'compilation'" in caplog.text
     assert "A16" in caplog.text
+    assert "flops_profiler" not in caplog.text
+    assert "profiling" not in caplog.text
+    assert cfg.flops_profiler_config.enabled
+    assert cfg.flops_profiler_config.profile_step == 2
+    assert cfg.profiling_config.comm_ledger is True
     assert "tensorboard" not in caplog.text and "A12" not in caplog.text
     assert "telemetry" not in caplog.text
     assert cfg.tensorboard_enabled and cfg.tensorboard_job_name == "unit"
