@@ -315,7 +315,10 @@ failure raises, so the script exits non-zero:
               ``schedule_trace``; then at dropout 0.1, 1 warm-up and 3
               timed steps: 24 B1, B2a, B2b and B4 launches a micro-batch,
               B4's mask applied by every one of the others, step ms, MFU,
-              peak memory; then a
+              peak memory, and (ROADMAP A23) the memory ledger's
+              forward, backward and apply entries and the flops
+              profile of the warm-up batch (its matmul FLOPs against
+              phase 43's analytic count); then a
               tiny GPT-2 at pipe 2 and at pipe 2 with interleave 2 on
               two gloo CPU processes against one stage (losses to rtol
               1e-5);
@@ -446,7 +449,21 @@ failure raises, so the script exits non-zero:
               ``wall_breakdown`` of the run without profiling, a scratch
               engine, and the MFU of the profiled step's FLOPs over its
               ``train_step`` time.  Its B1-B6 count checks join the
-              kernels line (``profile_count_cases``).
+              kernels line (``profile_count_cases``);
+44. overlap  — the overlap and attribution plane: (a) phase 6's
+              GPT-2-medium 4 steps with telemetry at every step, the
+              comm ledger and ``program_dump`` into a run dir: losses
+              and launches bitwise a run with the comm ledger and the
+              dump off, the same host syncs in steps 2-4 (counted), the
+              overlap, comm and attribution receipts finite (no wire on
+              one card, overlap fraction 1, roofline compute below the
+              measured step, the phases summing to it), the ten aten ops
+              (or kernels) with the most io bytes in ``fwd_bwd``, and
+              ``python -m deepspeed_tpu_torch.profiling.doctor`` on the
+              run dir exiting 0; (b) the same model under ``cpu_offload``
+              with the streamed Adam update, 3 steps: the declared
+              host-stream node's seconds (its bytes at 64 GB/s) beside
+              ``HostStream.timing_report``'s H2D and D2H ms.
 
 Phases 9, 10, 13 and 14 go through the layer, whose ``q_agg="auto"``
 follows the JAX package: G = 1 at 256-row layout blocks (the work-list
@@ -5378,7 +5395,11 @@ def phase_pipe(card, results):
           f"pipe: losses {got} vs the GPT-2 engine's {want} (rel {rel})")
     check(all(a > b for a, b in zip(got, got[1:])),
           f"pipe: the losses {got} do not fall step by step")
-    engine, cfg, batches = pipe_setup(DROPOUT, pipeline=True)
+    # A23: the memory ledger and the flops profiler under the pipeline
+    # engine, both on the warm-up batch (the timed steps run as before)
+    engine, cfg, batches = pipe_setup(DROPOUT, pipeline=True, base=dict(
+        TRAIN_CONFIG, flops_profiler={"enabled": True, "profile_step": 1},
+        profiling={"memory_ledger": True}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -5393,9 +5414,26 @@ def phase_pipe(card, results):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     params = sum(engine.segments.sizes)
+    memory = engine.memory_ledger.entries()
+    prof = engine.flops_profiler.profile
     release(engine)
     del engine
     steps, layers = warmup + timed, cfg.num_layers
+    b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
+    # phase 43's reconciliation: the analytic count plus the plain
+    # versions' whole score matrices, over the batch's 8 rows
+    want_matmul = (gpt2_model_flops_per_sample(cfg, s) * b
+                   + 12 * b * layers * s * s * cfg.hidden_size)
+    matmul_rel = abs(prof.matmul_flops - want_matmul) / want_matmul
+    check(sorted(n for n, e in memory.items() if e)
+          == ["apply_update", "backward", "forward"]
+          and prof is not None and matmul_rel <= PROFILE_RTOL
+          and sorted(prof.kernels) == ["B1", "B2a", "B2b", "B4"]
+          and all(r["launches"] == layers * M
+                  for r in prof.kernels.values()),
+          f"pipe (A23): memory ledger {sorted(memory)}, flops profile "
+          f"matmul {prof and prof.matmul_flops} against {want_matmul} "
+          f"(rel {matmul_rel:.2e}), kernels {prof and prof.kernels}")
     per_step = layers * M
     check(all(math.isfinite(x) for x in losses), f"pipe: losses {losses}")
     check(launches["B1"] == launches["B2a"] == launches["B2b"]
@@ -5406,11 +5444,15 @@ def phase_pipe(card, results):
           f"pipe: launches {launches}, expected {layers} of B1/B2a/B2b and "
           f"of B4's draw a micro-batch ({per_step * steps} in {steps} "
           f"steps) and 3x that applying its mask")
-    b, s = TRAIN_ATTN[0], TRAIN_ATTN[2]
     samples_s = b / step_s
     flops = gpt2_model_flops_per_sample(cfg, s)
     receipt = {
         "card": card, "stages": 1, "micro_batches": M,
+        "a23": {"memory_ledger": memory, "profile_flops": prof.flops,
+                "profile_matmul_flops": prof.matmul_flops,
+                "analytic_matmul_flops": want_matmul,
+                "matmul_rel_gap": matmul_rel,
+                "profile_kernels": prof.kernels},
         "micro_batch": b // M, "global_batch": b, "seq": s,
         "layers": layers, "dropout": DROPOUT, "losses": losses,
         "step_ms": 1e3 * step_s, "samples_per_s": samples_s,
@@ -6989,6 +7031,219 @@ def phase_profiling(card, results):
     return launches, cases
 
 
+OVERLAP_STEPS = 4
+OVERLAP_OFFLOAD_STEPS = 3
+# the host methods that wait for the card (a blocking fetch or a sync)
+SYNC_METHODS = ((torch.Tensor, "item"), (torch.Tensor, "tolist"),
+                (torch.Tensor, "__float__"), (torch.Tensor, "__int__"),
+                (torch.Tensor, "__bool__"), (torch.cuda, "synchronize"))
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Count the calls of :data:`SYNC_METHODS` in the body:
+    ``{name: calls}``."""
+    counts, saved = {}, []
+    for owner, name in SYNC_METHODS:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        setattr(owner, name, counted)
+    try:
+        yield counts
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def overlap_config(run_dir, plane):
+    """Phase 6's config with telemetry at every step into ``run_dir``;
+    ``plane``: the comm ledger and ``program_dump`` on (else off)."""
+    return dict(TRAIN_CONFIG, steps_per_print=1,
+                telemetry={"enabled": True, "run_dir": run_dir},
+                profiling={"comm_ledger": plane, "program_dump": plane})
+
+
+def overlap_train(run_dir, plane):
+    """:data:`OVERLAP_STEPS` steps of phase 6's GPT-2-medium: the losses,
+    the launches, the host syncs of the steps after the first, the ring's
+    latency snapshot and the engine (closed)."""
+    engine, cfg, batch = train_setup(config=overlap_config(run_dir, plane))
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [engine.train_batch(iter([batch]))]
+    with counted_syncs() as syncs:
+        for _ in range(OVERLAP_STEPS - 1):
+            losses.append(engine.train_batch(iter([batch])))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    snap = engine._step_latencies.latency_snapshot()
+    engine.close()
+    return engine, cfg, [float(x) for x in losses], launches, syncs, snap
+
+
+def finite(x):
+    return x is not None and math.isfinite(x)
+
+
+def overlap_offload(cfg):
+    """Phase 6's model under ``cpu_offload`` with the streamed Adam
+    update, :data:`OVERLAP_OFFLOAD_STEPS` steps, the host stream timed
+    after the first: the losses, the stream's timing report, the
+    declared host-stream nodes of ``apply_update`` and the engine's host
+    receipts."""
+    b = TRAIN_ATTN[0]
+    weights = setup_weights("train", random_params, cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2LMHead(cfg), model_parameters=weights,
+        config=dict(OFFLOAD_CONFIG, train_batch_size=b,
+                    zero_optimization=OFFLOAD,
+                    profiling={"comm_ledger": True}))
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=(b, TRAIN_ATTN[2]))}
+    offload_losses = [float(engine.train_batch(iter([batch])))]
+    torch.cuda.synchronize()
+    engine.host_stream.timing = True
+    for _ in range(OVERLAP_OFFLOAD_STEPS - 1):
+        offload_losses.append(float(engine.train_batch(iter([batch]))))
+    torch.cuda.synchronize()
+    timing = engine.host_stream.timing_report()
+    stream_node = [n for n in engine.comm_ledger.entry("apply_update")
+                   ["overlap"]["nodes"] if n["source"] == "declared"]
+    host = {"host_state_bytes_per_step": engine.host_state_bytes_per_step(),
+            "schedule": engine.host_stream_schedule(),
+            "offload_attribution": engine.attribution_receipt()}
+    release(engine)
+    del engine
+    return offload_losses, timing, stream_node, host
+
+
+def phase_overlap(card, results):
+    """44. overlap: (a) the plane on phase 6's GPT-2-medium, against the
+    run without it, and the doctor on its run dir; (b) the declared host
+    stream under ``cpu_offload`` beside the stream's measured copies."""
+    t0 = time.monotonic()
+    run_dir = tempfile.mkdtemp(prefix="ds_overlap_")
+    plain_dir = tempfile.mkdtemp(prefix="ds_overlap_plain_")
+    doc = None
+    try:
+        engine, cfg, losses, launches, syncs, snap = overlap_train(
+            run_dir, True)
+        receipts = {"comm": engine.comm_receipt(),
+                    "overlap": engine.overlap_receipt(),
+                    "attribution": engine.attribution_receipt(),
+                    "context": engine.program_verify_context(),
+                    "driver_bracket_s": engine.driver_seconds_per_step()}
+        entries = engine.comm_ledger.entries()
+        release(engine)
+        del engine
+        _, _, plain_losses, plain_launches, plain_syncs, plain_snap = \
+            overlap_train(plain_dir, False)
+        torch.cuda.empty_cache()
+        leg_a_s = time.monotonic() - t0
+        # the doctor reads the finished run dir while (b) runs (no
+        # timing of (a) is taken under it)
+        t_doc = t1 = time.monotonic()
+        doc = subprocess.Popen(
+            [sys.executable, "-m", "deepspeed_tpu_torch.profiling.doctor",
+             run_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        # (b) the declared host stream under the streamed offload update
+        offload_losses, timing, stream_node, host = overlap_offload(cfg)
+        leg_b_s = time.monotonic() - t1
+        doc_out, doc_err = doc.communicate(timeout=120)
+        doctor_s = time.monotonic() - t_doc
+        dumped = sorted(os.listdir(os.path.join(run_dir, "programs")))
+    finally:
+        if doc is not None and doc.poll() is None:
+            doc.kill()
+            doc.wait()
+        shutil.rmtree(run_dir, ignore_errors=True)
+        shutil.rmtree(plain_dir, ignore_errors=True)
+    check(losses == plain_losses, f"overlap: losses with the plane "
+          f"{losses} are not bitwise those without it {plain_losses}")
+    check(launches == plain_launches and launches["B1"]
+          == OVERLAP_STEPS * cfg.num_layers,
+          f"overlap: launches {launches} against {plain_launches}")
+    check(syncs == plain_syncs, f"overlap: host syncs of steps 2-"
+          f"{OVERLAP_STEPS} {syncs} against {plain_syncs} without the plane")
+    check(doc.returncode == 0, f"overlap: the doctor exited "
+          f"{doc.returncode}: {doc_err[-2000:]}")
+    check(dumped == ["apply_update.json", "fwd_bwd.json"],
+          f"overlap: program dumps {dumped}")
+    att, ovr = receipts["attribution"], receipts["overlap"]
+    phases = att["phases"]
+    fb = entries["fwd_bwd"]["overlap"]
+    apply = entries["apply_update"]["overlap"]
+    check(ovr["wire_seconds"] == 0.0 and ovr["overlap_fraction"] == 1.0
+          and receipts["comm"]["wire_bytes"] == 0,
+          f"overlap: one card moves no wire: {ovr}, {receipts['comm']}")
+    check(all(finite(v) for v in phases.values())
+          and finite(att["measured_step_seconds"])
+          and 0 < phases["compute"] < att["measured_step_seconds"]
+          and math.isclose(sum(phases.values()),
+                           att["measured_step_seconds"], rel_tol=1e-9),
+          f"overlap: attribution {att}")
+    top = sorted(fb["op_bytes"].items(), key=lambda kv: -kv[1])[:10]
+    ratio = snap["p50"] / plain_snap["p50"]
+    b = TRAIN_ATTN[0]
+    timed = OVERLAP_OFFLOAD_STEPS - 1
+    check(len(stream_node) == 1 and timing is not None
+          and timing["runs"] >= timed
+          and all(math.isfinite(x) for x in offload_losses),
+          f"overlap offload: nodes {stream_node}, timing {timing}, losses "
+          f"{offload_losses}")
+    node = stream_node[0]
+    # a step's copies (the stream's runs of the timed steps, summed)
+    copies_ms = (timing["h2d_ms"] + timing["d2h_ms"]) / timed
+    receipt = {
+        "card": card, "losses": losses, "plain_losses": plain_losses,
+        "launches": launches, "syncs_steps_2_on": syncs,
+        "ring_p50_s": snap["p50"], "plain_ring_p50_s": plain_snap["p50"],
+        "ring_p50_ratio": ratio, "receipts": receipts,
+        "fwd_bwd": {k: v for k, v in fb.items() if k != "nodes"},
+        "apply_update": {k: v for k, v in apply.items() if k != "nodes"},
+        "top_fwd_bwd_op_bytes": top, "doctor_seconds": doctor_s,
+        "doctor_stdout": doc_out, "programs": dumped,
+        "offload": dict(host, losses=offload_losses, node=node,
+                        timing=timing, copies_ms_per_step=copies_ms,
+                        predicted_ms=1e3 * node["seconds"],
+                        exposed_ms=1e3 * (node["seconds"]
+                                          - node["hidden_seconds"])),
+        "leg_a_seconds": leg_a_s, "leg_b_seconds": leg_b_s,
+        "seconds": time.monotonic() - t0}
+    print(f"overlap (GPT-2-medium, seq {TRAIN_ATTN[2]}, batch {b}, bf16, "
+          f"Lamb, ZeRO-2, dropout {DROPOUT}) [{card}]: receipts "
+          + json.dumps({k: receipts[k] for k in ("comm", "overlap",
+                                                 "attribution")}))
+    print(f"overlap fwd_bwd roofline: compute "
+          f"{1e3 * fb['compute_seconds']:.3f} ms, critical path "
+          f"{1e3 * fb['critical_path_seconds']:.3f} ms, "
+          f"{fb['instructions']} ops dispatched; apply_update compute "
+          f"{1e3 * apply['compute_seconds']:.3f} ms; measured step p50 "
+          f"{1e3 * att['measured_step_seconds']:.2f} ms (ring p50 with / "
+          f"without the plane {ratio:.4f}); top fwd_bwd io bytes: "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in top))
+    print(f"overlap offload (streamed Adam, chunk {OFFLOAD_CHUNK_MB} MB, "
+          f"schedule {host['schedule']}) [{card}]: host-stream node "
+          f"{host['host_state_bytes_per_step'] / 1e9:.3f} GB a step, "
+          f"predicted {1e3 * node['seconds']:.2f} ms at "
+          f"{H100_SXM['host_gbps']} GB/s (exposed "
+          f"{receipt['offload']['exposed_ms']:.2f} ms); measured H2D "
+          f"{timing['h2d_ms'] / timed:.2f} + D2H "
+          f"{timing['d2h_ms'] / timed:.2f} = {copies_ms:.2f} ms a step "
+          f"({timing['runs']} stream runs), stream wall "
+          f"{timing['wall_ms'] / timed:.2f} ms")
+    print("overlap doctor:", doc_out.strip().replace("\n", " | "))
+    print("overlap receipt:", json.dumps(receipt, default=str))
+    results["overlap"] = receipt
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, max_err, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7180,6 +7435,10 @@ def main(argv=None):
     # GPT-2-medium profiled at step 2 with the memory and comm ledgers
     profiling_launches, count_cases = phase_profiling(card, results)
     lap("profiling")
+    # 44. overlap: the overlap and attribution plane on phase 6's
+    # GPT-2-medium (and its doctor), the declared host stream under offload
+    overlap_launches = phase_overlap(card, results)
+    lap("overlap")
 
     paths = {"train": train_launches, "train_parity": parity_launches,
              "sparse_train": sparse_launches,
@@ -7204,7 +7463,8 @@ def main(argv=None):
              "tp": tp_launches, "moe": moe_launches, "ring": ring_launches,
              "telemetry": telemetry_launches,
              "fleet_integrity": fleet38_launches, "a18": a18_launches,
-             "seq_compose": seq_launches, "profiling": profiling_launches}
+             "seq_compose": seq_launches, "profiling": profiling_launches,
+             "overlap": overlap_launches}
     launches = {name: sum(path[name] for path in paths.values())
                 for name in (*KERNEL_COUNTERS, *FP16_COUNTERS)}
     launches["B1"] += serve_launches + fleet_b1 + fleet38_b1

@@ -50,6 +50,11 @@ send to each other in the same step cannot deadlock.  With
 ``async_op=True`` it returns a handle instead of waiting, so the ring
 posts the next key/value chunk before it launches the current pair's
 kernel.  It counts ``send`` and ``recv`` calls and bytes.
+
+The counter also tells its trackers whether a call was asynchronous,
+and when its handle was waited for: the overlap model prices the compute
+dispatched between a call's issue and its wait as the window that hides
+it.
 """
 
 import torch
@@ -86,6 +91,21 @@ class _Requests:
         return True
 
 
+class _Watched:
+    """An asynchronous call's handle whose ``wait`` also tells the
+    counter's trackers that the call completed (after the wait)."""
+
+    def __init__(self, handle, on_wait):
+        self.handle = handle
+        self.on_wait = on_wait
+
+    def wait(self):
+        out = self.handle.wait()
+        for done in self.on_wait:
+            done()
+        return out
+
+
 class CommCounter:
     """Collectives issued by this process, by verb: ``calls[verb]`` and
     ``bytes[verb]`` (the larger of the input and the output buffer, so
@@ -93,21 +113,40 @@ class CommCounter:
     Each call is also handed to every callable in ``listeners`` as
     ``(verb, nbytes, group_size)``: the comm ledger
     (:class:`~deepspeed_tpu_torch.profiling.comm.CommLedger`) records a
-    phase's collectives so."""
+    phase's collectives so.  Every callable in ``trackers`` gets
+    ``(verb, nbytes, group_size, async_op)`` and may return a callable,
+    which runs when the call's handle is waited for (:meth:`watch`): the
+    overlap model (:mod:`~deepspeed_tpu_torch.profiling.overlap`) places
+    a call's issue and its wait in the step's dispatch order so."""
 
     def __init__(self):
         self.listeners = []
+        self.trackers = []
         self.reset()
 
     def reset(self):
         self.calls = {}
         self.bytes = {}
 
-    def add(self, verb, nbytes, group=1):
+    def add(self, verb, nbytes, group=1, async_op=False):
+        """Count one call; returns the trackers' wait callbacks (an
+        empty list for a blocking call, or without trackers)."""
         self.calls[verb] = self.calls.get(verb, 0) + 1
         self.bytes[verb] = self.bytes.get(verb, 0) + int(nbytes)
         for listen in self.listeners:
             listen(verb, int(nbytes), int(group))
+        on_wait = []
+        for track in self.trackers:
+            done = track(verb, int(nbytes), int(group), bool(async_op))
+            if done is not None and async_op:
+                on_wait.append(done)
+        return on_wait
+
+    @staticmethod
+    def watch(handle, on_wait):
+        """``handle``, whose ``wait`` runs ``on_wait`` after it (itself
+        when there is nothing to run)."""
+        return _Watched(handle, on_wait) if on_wait else handle
 
 
 counter = CommCounter()
@@ -193,9 +232,11 @@ def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, mesh=None,
     if group is None:
         out.copy_(x.view(shape))
     else:
-        counter.add("reduce_scatter", x.numel() * x.element_size(), n)
-        handle = _reduce_scatter(out, x, op=dist.ReduceOp.SUM, group=group,
-                                 async_op=async_op)
+        on_wait = counter.add("reduce_scatter", x.numel() * x.element_size(),
+                              n, async_op)
+        handle = counter.watch(_reduce_scatter(
+            out, x, op=dist.ReduceOp.SUM, group=group, async_op=async_op),
+            on_wait)
     out = out if tiled else out.view(x.shape[1:])
     return (out, handle) if async_op else out
 
@@ -218,9 +259,11 @@ def all_gather(x, axis_name, axis=0, tiled=True, mesh=None, out=None,
     if group is None:
         out.copy_(x.view(shape))
     else:
-        counter.add("all_gather", out.numel() * out.element_size(), n)
-        handle = _all_gather(out.view(-1), x.view(-1), group=group,
-                             async_op=async_op)
+        on_wait = counter.add("all_gather", out.numel() * out.element_size(),
+                              n, async_op)
+        handle = counter.watch(_all_gather(out.view(-1), x.view(-1),
+                                           group=group, async_op=async_op),
+                               on_wait)
     return (out, handle) if async_op else out
 
 
@@ -240,18 +283,20 @@ def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None,
     mesh = mesh if mesh is not None else get_current_mesh()
     me = mesh.index(axis_name)
     local = [t for t, i in sends if i == me]
-    ops = []
+    ops, on_wait = [], []
     for t, i in sends:
         if i != me:
             t = t.contiguous()
-            counter.add("send", t.numel() * t.element_size(), n)
+            on_wait += counter.add("send", t.numel() * t.element_size(), n,
+                                   async_op)
             ops.append(dist.P2POp(dist.isend, t, mesh.peer(axis_name, i),
                                   group))
     for buf, i in recvs:
         if i == me:
             buf.copy_(local.pop(0))
         else:
-            counter.add("recv", buf.numel() * buf.element_size(), n)
+            on_wait += counter.add("recv", buf.numel() * buf.element_size(),
+                                   n, async_op)
             ops.append(dist.P2POp(dist.irecv, buf, mesh.peer(axis_name, i),
                                   group))
     handle = _Done()
@@ -259,7 +304,8 @@ def send_recv(sends=(), recvs=(), axis_name=PIPE_AXIS, mesh=None,
         if group is None:
             raise RuntimeError(f"point-to-point on axis {axis_name!r} "
                                f"needs its process group")
-        handle = _Requests(dist.batch_isend_irecv(ops))
+        handle = counter.watch(_Requests(dist.batch_isend_irecv(ops)),
+                               on_wait)
     if async_op:
         return handle
     handle.wait()

@@ -31,9 +31,21 @@ so it adds no host sync; the host scalar then goes to the vote.
 The memory ledger (JAX ``:103-130``; the ``profiling`` block,
 :mod:`~deepspeed_tpu_torch.profiling.memory`) measures the decode step's
 and each prefill bucket's first call, and ``serving_receipt`` counts
-the entry points recorded (``programs_compiled``).  Not ported in this
-slice: the comm ledger's serving receipt, program dumps and
-verification, the overlap/attribution receipts (ROADMAP A12).
+the entry points recorded (``programs_compiled``).  The comm ledger
+(JAX ``:100-110``, ``:496-540``) records the first decode iteration as
+the ``serve_decode`` program, with its overlap summary (the roofline
+compute of what it dispatches: :mod:`~deepspeed_tpu_torch.profiling.overlap`);
+``comm_receipt``, ``overlap_receipt`` and ``attribution_receipt`` price
+one decode iteration, and ``profiling.program_dump`` writes the program
+to the run dir's ``programs/`` for the doctor.  Each iteration's wall
+time (host preparation, launches and the token fetch) feeds a latency
+ring, the measured side of the attribution, and its host bracket (up to
+the last launch) the driver phase, charged as in the training engine:
+what the bracket took beyond the predicted device time.  The print
+cadence adds the ``comm``/``latency`` snapshot, the
+``serving/attribution/*`` gauges and an ``attribution`` record, host
+arithmetic only.  Not ported: the DSP6xx program verification (ROADMAP
+A12 step 6).
 """
 
 import logging
@@ -42,16 +54,18 @@ import time
 import torch
 
 from ..ops.transformer.flash_attention import flash_attention_fwd
-from ..profiling.comm import SERVE_DECODE_PROGRAM
+from ..profiling.comm import SERVE_DECODE_PROGRAM, CommLedger
 from ..profiling.config import DeepSpeedProfilingConfig
 from ..profiling.memory import MemoryLedger
+from ..profiling.step_profiler import StepLatencyRing
+from ..profiling.verify import ProgramDumper
 from ..runtime import constants as C
 from ..telemetry import events as TEL
 from ..telemetry.config import DeepSpeedTelemetryConfig
 from ..telemetry.manager import TelemetryManager
 from ..utils.device import resolve_device
 from ..utils.distributed import fleet_identity
-from ..utils.params import params_from_numpy
+from ..utils.params import params_from_numpy, tree_leaves
 from .config import DeepSpeedInferenceConfig
 from .kv_cache import BlockAllocator, init_kv_cache
 from .model import build_decode, build_prefill
@@ -135,6 +149,21 @@ class InferenceEngine:
             enabled=profiling_config.memory_ledger_enabled(
                 self.telemetry.enabled),
             telemetry=self.telemetry, device=self.device)
+        ledger_on = profiling_config.comm_ledger_enabled(
+            self.telemetry.enabled)
+        dump_on = (profiling_config.program_dump_enabled(ledger_on)
+                   and bool(self.telemetry.run_dir))
+        self.comm_ledger = CommLedger(
+            enabled=ledger_on or dump_on, telemetry=self.telemetry,
+            device=self.device)
+        self.comm_ledger.overlap_context_fn = self.program_verify_context
+        if dump_on:
+            self.comm_ledger.dumper = ProgramDumper(
+                self.telemetry.run_dir, rank=fleet_identity()[0])
+        # each decode iteration's wall time and its host bracket (the
+        # attribution's measured side and driver phase)
+        self._step_latencies = StepLatencyRing()
+        self._driver_latencies = StepLatencyRing()
         self._decode = self.memory_ledger.wrap(DECODE_PROGRAM, self._decode)
         self._prefills = {
             bucket: self.memory_ledger.wrap(prefill_program_name(bucket), fn)
@@ -306,6 +335,7 @@ class InferenceEngine:
         attached, the cadence iterations fold the recomputed weight
         fingerprint into that same fetch."""
         sched = self.scheduler
+        t_prep = time.monotonic()
         tables = self._host_view("tables")
         ctx_lens = self._host_view("ctx_lens")
         tokens = self._host_view("tokens")
@@ -327,6 +357,7 @@ class InferenceEngine:
             if (self.decode_iterations + 1) % self.steps_per_print == 0:
                 fp_dev = self._health.fingerprint_device()
         t0 = time.monotonic()
+        self.comm_ledger.begin(DECODE_PROGRAM)
         next_dev = self._decode(self.params, self._k_cache, self._v_cache,
                                 self._to_device("tables"),
                                 self._to_device("ctx_lens"),
@@ -335,10 +366,13 @@ class InferenceEngine:
             # the fingerprint (below 2^32) rides the token fetch
             next_dev = torch.cat([next_dev.to(torch.int64).reshape(-1),
                                   fp_dev.reshape(1)])
+        self.comm_ledger.end(DECODE_PROGRAM)
+        self._driver_latencies.record(time.monotonic() - t_prep)
         next_tokens = next_dev.tolist()  # the iteration's one host sync
         if fp_dev is not None:
             self._pending_fingerprint = next_tokens.pop()
         now = time.monotonic()
+        self._step_latencies.record(now - t_prep)
         self.decode_iterations += 1
         for request in before:
             request.generated.append(int(next_tokens[request.slot]))
@@ -350,11 +384,12 @@ class InferenceEngine:
         self.observability.note_decode(before, now - t0)
 
     def _sample_telemetry(self):
-        """Print-cadence sampling (JAX ``engine.py:341-364``, without its
-        comm and attribution gauges): queue and occupancy gauges, one
-        ``queue`` record, and the observability window's
-        ``decode_window`` and ``slo`` records — host arithmetic on
-        fetched numbers, no sync."""
+        """Print-cadence sampling (JAX ``engine.py:341-364``): queue and
+        occupancy gauges, one ``queue`` record, the observability
+        window's ``decode_window`` and ``slo`` records, the decode
+        latency snapshot (the doctor's measured side) and the
+        attribution gauges and record — host arithmetic on fetched
+        numbers, no sync."""
         if not self.telemetry.enabled:
             return
         sched = self.scheduler
@@ -372,6 +407,31 @@ class InferenceEngine:
             free_blocks=self.allocator.free_blocks,
             reserved_tokens=sched.reserved_tokens())
         self.observability.export_serving_window()
+        snap = self._step_latencies.latency_snapshot()
+        if snap["n"]:
+            from ..profiling import comm as comm_prof
+
+            for key in ("last", "mean", "p50", "p95", "max"):
+                self.telemetry.gauge(
+                    f"comm/latency/{key}_secs").set(snap[key])
+            self.telemetry.emit(TEL.EVENT_COMM, step=self.decode_iterations,
+                                kind=comm_prof.KIND_LATENCY, **snap)
+        receipt = self.attribution_receipt()
+        if receipt is not None:
+            self.telemetry.gauge(
+                "serving/attribution/predicted_step_seconds").set(
+                    float(receipt["predicted_step_seconds"]))
+            if receipt["measured_step_seconds"] is not None:
+                for phase, val in receipt["phases"].items():
+                    if val is not None:
+                        self.telemetry.gauge(
+                            f"serving/attribution/{phase}_seconds").set(
+                                float(val))
+                self.telemetry.gauge(
+                    "serving/attribution/measured_step_seconds").set(
+                        float(receipt["measured_step_seconds"]))
+                self.telemetry.emit(TEL.EVENT_ATTRIBUTION,
+                                    step=self.decode_iterations, **receipt)
 
     def _sample_integrity(self):
         """Print-cadence health sample (JAX ``engine.py:386-396``): hand
@@ -446,6 +506,61 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # receipts
     # ------------------------------------------------------------------
+    def comm_receipt(self):
+        """Collective receipt of ONE decode iteration (count, payload and
+        wire bytes; JAX ``engine.py:496``); None until the first decode
+        was recorded or with the ledger off."""
+        return self.comm_ledger.step_entry(1, prefer=DECODE_PROGRAM)
+
+    def overlap_receipt(self):
+        """Exposed-wire verdict of the decode program; None until it is
+        recorded."""
+        return self.comm_ledger.step_overlap(1, prefer=DECODE_PROGRAM)
+
+    def attribution_receipt(self):
+        """Reconciled budget of one decode iteration (compute, exposed
+        wire, host driver) beside the measured p50 of the iteration's
+        wall time (JAX ``engine.py:507``).  The driver phase is the host
+        bracket's min over the window beyond the predicted device time,
+        as in :meth:`~deepspeed_tpu_torch.runtime.engine.DeepSpeedEngine.attribution_receipt`:
+        a host-paced decode shows it large."""
+        from ..profiling import attribution as attr_prof
+
+        if not self.comm_ledger.enabled:
+            return None
+        entries = self.comm_ledger.overlap_entries()
+        budget = attr_prof.step_budget(entries, 1, prefer=DECODE_PROGRAM)
+        if budget is None:
+            return None
+        vals = self._driver_latencies.recent()
+        bracket = float(min(vals)) if vals else 0.0
+        budget = attr_prof.step_budget(
+            entries, 1, prefer=DECODE_PROGRAM,
+            driver_seconds=max(0.0, bracket
+                               - budget["predicted_step_seconds"]))
+        snap = self._step_latencies.latency_snapshot()
+        receipt = attr_prof.reconcile(budget,
+                                      snap["p50"] if snap["n"] else None)
+        receipt["driver_bracket_seconds"] = bracket
+        return receipt
+
+    def program_verify_context(self):
+        """The context of the ``programs/`` sidecars (JAX
+        ``engine.py:523``): one replica (a 1-wide data axis), the
+        weights' bytes, no host stream and no bucketed exchange."""
+        return {
+            "mesh_axes": {"data": 1},
+            "data_axis": "data",
+            "param_bytes": int(sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(self.params)[1])),
+            "host_state_wire_bytes": None,
+            "host_stream_schedule": None,
+            "collective_schedule": None,
+            "device_kind": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda"
+                            else self.device.type),
+        }
+
     def serving_receipt(self):
         """Aggregate serve metrics over every finished request, the
         observability plane's occupancy/SLO receipt (goodput re-based

@@ -15,8 +15,17 @@ per-rank step-latency exchange (port of
   HLO op names (``all-reduce``, ``all-gather``, ``reduce-scatter``,
   ``all-to-all``, ``collective-permute``), ``host_transfers`` and
   ``host_transfer_bytes`` (the offload stream's copies) — emitted as a
-  ``comm``/``program`` event and ``comm/program/<name>/*`` gauges.  The
-  JAX entry's ``overlap`` summary is not computed (ROADMAP A12).
+  ``comm``/``program`` event and ``comm/program/<name>/*`` gauges.
+  While a phase records, a dispatch pricer
+  (:class:`~.overlap.DispatchPricer`) also prices what it dispatches,
+  and the entry carries the JAX ``overlap`` summary
+  (:func:`~.overlap.analyze_dispatch`: roofline compute, the classified
+  wire nodes, ``exposed_wire_seconds``, ``overlap_fraction``), its
+  ``p2p_transfers`` and ``p2p_transfer_bytes``, and the
+  ``exposed_wire_seconds`` and ``overlap_fraction`` gauges;
+  :meth:`CommLedger.step_overlap` sums a step's.  With a
+  :class:`~.verify.ProgramDumper` attached each recorded phase also
+  lands in ``<run_dir>/programs/`` with its untruncated summary.
 - **Wire-bytes model** (:func:`predicted_wire_bytes`): per participant,
   ring-algorithm accounting over a group of size *g* — all-gather moves
   ``(g-1)/g`` of its gathered output, reduce-scatter ``(g-1)/g`` of its
@@ -37,7 +46,10 @@ import os
 import threading
 import time
 
+import torch
+
 from ..resilience.integrity import atomic_publish_json, read_fleet_json_files
+from ..utils.logging import logger
 
 # the collective op names (the JAX ledger's HLO mnemonics)
 COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter",
@@ -158,19 +170,30 @@ def step_program_weights(available, grad_accumulation_steps=1,
 # ---------------------------------------------------------------------------
 
 class CommLedger:
-    """Per-engine ledger of the collectives each phase issues.
+    """Per-engine ledger of the collectives each phase issues and of the
+    phase's overlap summary.
 
     :meth:`begin` / :meth:`end` bracket the FIRST run of a phase: in
     between, every collective the port's ``comm`` module issues in this
-    process is recorded (a listener on its counter); :meth:`end` turns
-    them into the phase's entry and emits it.  A phase already recorded
-    costs nothing."""
+    process is recorded (a listener on its counter), and a
+    :class:`~.overlap.DispatchPricer` prices the phase's ops and places
+    its collectives among them; :meth:`end` turns them into the phase's
+    entry and emits it.  A phase already recorded costs nothing.
+    ``device`` is the engine's (the pricer prices its ops only)."""
 
-    def __init__(self, enabled=True, telemetry=None, mesh_axes=None):
+    def __init__(self, enabled=True, telemetry=None, mesh_axes=None,
+                 device=None):
         self.enabled = bool(enabled)
         self.telemetry = telemetry
         # {axis: size} recorded into every program event
         self.mesh_axes = dict(mesh_axes or {})
+        self.device = torch.device(device) if device is not None else None
+        # optional callable -> {"host_state_wire_bytes",
+        # "host_stream_schedule", "collective_schedule", "device_kind"}:
+        # the engine's program_verify_context, read when a phase ends
+        self.overlap_context_fn = None
+        # optional ProgramDumper: each recorded phase also lands on disk
+        self.dumper = None
         self._lock = threading.Lock()
         self._entries = {}
         self._open = None
@@ -185,6 +208,7 @@ class CommLedger:
         if not self.recording(name):
             return False
         from .. import comm
+        from .overlap import DispatchPricer
 
         records = []
 
@@ -193,8 +217,11 @@ class CommLedger:
             if rec is not None:
                 records.append(rec)
 
-        self._open = (str(name), records, listen)
+        pricer = DispatchPricer(self.device.type if self.device is not None
+                                else "cpu")
+        self._open = (str(name), records, listen, pricer)
         comm.counter.listeners.append(listen)
+        pricer.start()
         return True
 
     def end(self, name, host_transfers=0, host_transfer_bytes=0):
@@ -203,18 +230,72 @@ class CommLedger:
             return None
         from .. import comm
 
-        _, records, listen = self._open
+        _, records, listen, pricer = self._open
         self._open = None
+        pricer.stop()
         comm.counter.listeners.remove(listen)
         return self.record(name, records, host_transfers,
-                           host_transfer_bytes)
+                           host_transfer_bytes, dispatch=pricer.records())
 
-    def record(self, name, ops, host_transfers=0, host_transfer_bytes=0):
+    def _context(self):
+        if self.overlap_context_fn is None:
+            return {}
+        try:
+            return self.overlap_context_fn() or {}
+        except Exception as e:   # observability never takes a step down
+            logger.debug("comm ledger: overlap context unavailable: %s", e)
+            return {}
+
+    def _overlap_summary(self, name, dispatch, ctx):
+        """The untruncated overlap summary of one recorded phase (JAX
+        ``comm.py:289``), with the engine's declared schedules gated to
+        the programs they belong to; None on any failure."""
+        from . import overlap as overlap_prof
+
+        try:
+            is_update = str(name) in overlap_prof.UPDATE_PROGRAMS
+            is_exchange = str(name) in overlap_prof.EXCHANGE_PROGRAMS
+            n_devices = 1
+            for size in self.mesh_axes.values():
+                n_devices *= size
+            return overlap_prof.analyze_dispatch(
+                dispatch, total_devices=n_devices,
+                device_kind=ctx.get("device_kind") or "",
+                declared_host_wire_bytes=(
+                    int(ctx.get("host_state_wire_bytes") or 0)
+                    if is_update else 0),
+                declared_host_stream=(ctx.get("host_stream_schedule")
+                                      if is_update else None),
+                declared_collective_schedule=(
+                    ctx.get("collective_schedule") if is_exchange
+                    else None),
+                max_nodes=None)
+        except Exception as e:   # pragma: no cover - fail-soft by design
+            logger.debug("comm ledger: overlap analysis failed for %r: "
+                         "%s", name, e)
+            return None
+
+    def record(self, name, ops, host_transfers=0, host_transfer_bytes=0,
+               dispatch=None):
         """Record one phase's collective records (``collective_record``
-        dicts) and its host transfers."""
+        dicts), its host transfers and, given the pricer's ``dispatch``
+        records, its overlap summary."""
         entry = collective_summary(ops)
         entry["host_transfers"] = int(host_transfers)
         entry["host_transfer_bytes"] = int(host_transfer_bytes)
+        full = None
+        ctx = {}
+        if dispatch is not None:
+            ctx = self._context()
+            full = self._overlap_summary(name, dispatch, ctx)
+        if full is not None:
+            for field in ("p2p_transfers", "p2p_transfer_bytes"):
+                entry[field] = full["hlo_transfer_summary"][field]
+            # events and gauges carry the first 32 nodes (the JAX cap);
+            # the totals and buckets cover every node
+            entry["overlap"] = dict(
+                full, nodes=full["nodes"][:32],
+                nodes_truncated=max(len(full["nodes"]) - 32, 0))
         with self._lock:
             self._entries[str(name)] = json.loads(json.dumps(entry))
             n_programs = len(self._entries)
@@ -228,7 +309,14 @@ class CommLedger:
                           "host_transfer_bytes"):
                 tel.gauge(f"comm/program/{name}/{field}").set(
                     float(entry[field]))
+            if full is not None:
+                tel.gauge(f"comm/program/{name}/exposed_wire_seconds").set(
+                    float(full["exposed_wire_seconds"]))
+                tel.gauge(f"comm/program/{name}/overlap_fraction").set(
+                    float(full["overlap_fraction"]))
             tel.gauge("comm/programs").set(float(n_programs))
+        if self.dumper is not None and full is not None:
+            self.dumper.dump(name, entry, full, ctx)
         return entry
 
     def entry(self, name):
@@ -241,6 +329,26 @@ class CommLedger:
             names = list(self._entries)
         return {n: self.entry(n) for n in names}
 
+    def _names(self, with_overlap=False):
+        """Recorded program names (``with_overlap``: those carrying an
+        overlap summary), for :func:`step_program_weights`."""
+        with self._lock:
+            return {n for n, e in self._entries.items()
+                    if e is not None
+                    and (not with_overlap or e.get("overlap"))}
+
+    def overlap_entries(self):
+        """``{name: {"overlap": summary}}`` without the per-node lists:
+        what the attribution step budget reads, at the print cadence."""
+        out = {}
+        with self._lock:
+            for name, e in self._entries.items():
+                if e is not None and e.get("overlap"):
+                    slim = {k: v for k, v in e["overlap"].items()
+                            if k not in ("nodes", "op_bytes")}
+                    out[name] = {"overlap": json.loads(json.dumps(slim))}
+        return out
+
     def wire_bytes(self, name):
         e = self.entry(name)
         return e["wire_bytes"] if e else None
@@ -250,10 +358,8 @@ class CommLedger:
         wire_bytes}`` for ONE optimizer step (the step-wise phases
         weighted by their multiplicity, :func:`step_program_weights`).
         None when nothing has been recorded yet."""
-        with self._lock:
-            names = set(self._entries)
         program, weights = step_program_weights(
-            names, grad_accumulation_steps, prefer=prefer)
+            self._names(), grad_accumulation_steps, prefer=prefer)
         if program is None:
             return None
         totals = {"program": program, "collectives": 0,
@@ -267,6 +373,28 @@ class CommLedger:
     def step_wire_bytes(self, grad_accumulation_steps=1, prefer=None):
         e = self.step_entry(grad_accumulation_steps, prefer=prefer)
         return e["wire_bytes"] if e else None
+
+    def step_overlap(self, grad_accumulation_steps=1, prefer=None):
+        """``{program, wire_seconds, exposed_wire_seconds,
+        overlap_fraction}`` for ONE optimizer step from the recorded
+        phases' overlap summaries (the resolution of
+        :meth:`step_entry`).  None until a phase with a summary has
+        been recorded."""
+        program, weights = step_program_weights(
+            self._names(with_overlap=True), grad_accumulation_steps,
+            prefer=prefer)
+        if program is None:
+            return None
+        entries = self.overlap_entries()
+        wire = exposed = 0.0
+        for name, mult in weights:
+            ov = entries[name]["overlap"]
+            wire += ov["wire_seconds"] * mult
+            exposed += ov["exposed_wire_seconds"] * mult
+        return {"program": program, "wire_seconds": wire,
+                "exposed_wire_seconds": exposed,
+                "overlap_fraction": (1.0 - exposed / wire) if wire > 0
+                else 1.0}
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,14 @@ class DeepSpeedProfilingConfig:
             return bool(telemetry_enabled)
         return bool(self.memory_ledger)
 
+    def program_dump_enabled(self, comm_ledger_enabled):
+        """Whether each recorded phase lands under the run dir's
+        ``programs/``: "auto" follows the comm ledger, whose records the
+        dump writes."""
+        if self.program_dump == "auto":
+            return bool(comm_ledger_enabled)
+        return bool(self.program_dump)
+
     def memory_watermarks_enabled(self, telemetry_enabled):
         # watermark output is gauges/events: without telemetry there is
         # no sink, so "true" still requires telemetry to matter

@@ -236,6 +236,9 @@ def aten_flops(func, args, kwargs, out):
 
 # the profiler counting in this process (one at a time)
 _ACTIVE = [None]
+# callables ``(name, plain, args, kwargs)`` told of every kernel launch:
+# the overlap model's pricer while it records a phase
+_LAUNCH_PRICERS = []
 
 
 class _CountingMode(TorchDispatchMode):
@@ -276,7 +279,11 @@ def kernel_launch(name, plain, *args, **kwargs):
     profiler counts its plain version ``plain(*args, **kwargs)``: the
     plain version runs on ``meta`` copies of the tensors (shapes only)
     inside the counting mode.  Called by every kernel wrapper after its
-    CUDA launch; returns at once when no profiler is counting."""
+    CUDA launch; returns at once when no profiler is counting.  The
+    overlap model's pricer, while it records, prices the launch too
+    (:func:`~deepspeed_tpu_torch.profiling.overlap.launch_cost`)."""
+    for price in _LAUNCH_PRICERS:
+        price(name, plain, args, kwargs)
     prof = _ACTIVE[0]
     if prof is None or not prof.counting:
         return None
@@ -710,7 +717,9 @@ class FlopsProfiler:
         wall_ms = (time.perf_counter() - self._t0) * 1e3
         self.active = False
         eng = self.engine
-        acc = eng.gradient_accumulation_steps()
+        # the counted forward-backward's runs in the step: one per
+        # micro-batch, or one for a pipeline's whole batch
+        acc = eng._fwd_bwd_multiplicity()
         c = self.counter
         scopes, matmul, kernels = self._micro or (dict(c.by_scope),
                                                   c.matmul_flops, c.kernels)

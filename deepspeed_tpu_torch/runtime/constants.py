@@ -230,8 +230,9 @@ PROFILING_MEMORY_WATERMARKS_DEFAULT = "auto"
 # and ring-model wire bytes, as ``comm`` events
 PROFILING_COMM_LEDGER = "comm_ledger"
 PROFILING_COMM_LEDGER_DEFAULT = "auto"
-# the JAX package's per-program HLO dump: parsed, no effect here yet
-# (ROADMAP A12); "true" warns
+# each recorded phase's ledger entry, context and untruncated overlap
+# summary as <run_dir>/programs/<name>.json (profiling/verify), for the
+# doctor; "auto" follows the comm ledger
 PROFILING_PROGRAM_DUMP = "program_dump"
 PROFILING_PROGRAM_DUMP_DEFAULT = "auto"
 

@@ -219,10 +219,25 @@ kernels as their plain versions count) and logs the profile; the memory
 ledger measures the first call of the forward, the backward and the
 optimizer apply; the comm ledger records the collectives of the first
 ``fwd_bwd`` micro-batch and ``apply_update`` step, with the offload
-stream's host copies; watermark events ride the print cadence.  The
-profiled step and the ledgers' first calls synchronize the card; no
-other step does.  The pipeline engine runs its own schedule and is not
-profiled.
+stream's host copies, and prices what they dispatch into the JAX overlap
+summary (:mod:`~deepspeed_tpu_torch.profiling.overlap`); watermark
+events ride the print cadence.  The profiled step and the ledgers' first
+calls synchronize the card; no other step does.  The pipeline engine
+records its whole first batch as ``fwd_bwd`` (ROADMAP A23,
+:mod:`~deepspeed_tpu_torch.runtime.pipe.engine`).
+
+The overlap and attribution plane (JAX ``:729-760``, ``:1302-1413``,
+``:3883``): :meth:`comm_receipt`, :meth:`overlap_receipt` and
+:meth:`attribution_receipt` price one step from the recorded phases,
+:meth:`driver_seconds_per_step` is the host bracket of ``train_batch``
+(batch fetch to the step's last launch, the blocking fetches excluded,
+min over the window), and the print cadence emits an ``attribution``
+record and the ``attribution/*`` gauges with no added sync.  The driver
+phase is the bracket's excess over the predicted device time (a
+deviation from the JAX package, where it is the bracket itself: see
+:meth:`attribution_receipt`).  ``profiling.program_dump`` writes each
+recorded phase to ``<run_dir>/programs/`` (:mod:`~deepspeed_tpu_torch.profiling.verify`)
+for ``python -m deepspeed_tpu_torch.profiling.doctor``.
 
 The fleet integrity plane (``resilience.integrity``, JAX ``:842-968``,
 ``:1140-1290``; :mod:`deepspeed_tpu_torch.resilience.integrity`): with
@@ -288,6 +303,8 @@ from ..profiling.flops_profiler import FlopsProfiler
 from ..profiling.memory import (KIND_WATERMARK, MemoryLedger,
                                 device_memory_summary)
 from ..profiling.step_profiler import StepLatencyRing
+from ..profiling.utilization import chip_specs
+from ..profiling.verify import ProgramDumper
 from ..resilience import integrity as integ
 from ..resilience.constants import (FleetIntegrityError,
                                     TrainingDivergedError)
@@ -456,7 +473,8 @@ class DeepSpeedEngine:
         self._stage3 = self.zero_stage >= 3
         self._offload = zc.cpu_offload
         self._sparse_paths = self._configure_sparse_gradients(model)
-        self._comm_overlap, _ = self._resolve_comm_overlap(zc, optimizer)
+        self._comm_overlap, self._comm_overlap_reason = \
+            self._resolve_comm_overlap(zc, optimizer)
         self.device = resolve_device(device, "DeepSpeedEngine")
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -1253,18 +1271,31 @@ class DeepSpeedEngine:
         self._flops_request = False
         self.profiling_config = pc = cfg.profiling_config
         tel = self.telemetry.enabled
+        ledger_on = pc.comm_ledger_enabled(tel)
+        # the program dump writes what the comm ledger records, so an
+        # explicit program_dump with the ledger off still records
+        dump_on = (pc.program_dump_enabled(ledger_on)
+                   and bool(self.telemetry.run_dir))
         self.comm_ledger = CommLedger(
-            enabled=pc.comm_ledger_enabled(tel), telemetry=self.telemetry,
+            enabled=ledger_on or dump_on, telemetry=self.telemetry,
             mesh_axes=({ax: n for ax, n in self.mesh.shape.items() if n > 1}
-                       if self.mesh is not None else {}))
+                       if self.mesh is not None else {}),
+            device=self.device)
+        # the overlap summary reads the declared schedules when a phase
+        # ends (the offload stream is built by then)
+        self.comm_ledger.overlap_context_fn = self.program_verify_context
+        if dump_on:
+            self.comm_ledger.dumper = ProgramDumper(
+                self.telemetry.run_dir, rank=fleet_identity()[0])
         self.memory_ledger = MemoryLedger(
             enabled=pc.memory_ledger_enabled(tel), telemetry=self.telemetry,
             device=self.device)
         self._memory_watermarks = pc.memory_watermarks_enabled(tel)
-        if pc.program_dump is True:
-            logger.warning("profiling.program_dump: the per-program HLO "
-                           "dump has no PyTorch form yet (ROADMAP A12); "
-                           "nothing is dumped")
+        # host seconds of a train_batch from the batch fetch to its last
+        # launch, less the blocking fetches in it (the attribution's
+        # driver bracket)
+        self._driver_latencies = StepLatencyRing()
+        self._fetch_secs = 0.0
         # the ledger's entry points, as instance attributes over the
         # methods (the disabled ledger hands the methods back)
         wrap = self.memory_ledger.wrap
@@ -1341,10 +1372,11 @@ class DeepSpeedEngine:
         self.comm_ledger.begin("fwd_bwd")
 
     def _profiling_micro_end(self):
-        """A micro-batch's backward returned."""
+        """A micro-batch's backward returned: the comm ledger's pricer
+        (entered last) closes first."""
+        self.comm_ledger.end("fwd_bwd")
         if self.flops_profiler is not None and self.flops_profiler.active:
             self.flops_profiler.end_micro_batch()
-        self.comm_ledger.end("fwd_bwd")
 
     def _host_transfers(self):
         s = getattr(self, "_stream", None) if self._offload else None
@@ -1585,11 +1617,13 @@ class DeepSpeedEngine:
         ``scalars`` and, when one is due, the state fingerprint (float64
         holds both exactly).  Returns the scalars as host floats."""
         fp = self._integrity_fingerprint_device()
+        t_fetch = time.perf_counter()
         with self.telemetry.span("device_get", step=self.global_steps + 1):
             vals = torch.stack(scalars)
             if fp is not None:
                 vals = torch.cat([vals.double(), fp.double().reshape(1)])
             fetched = vals.tolist()
+        self._fetch_secs += time.perf_counter() - t_fetch
         if fp is not None:
             self._pending_fingerprint = (self.global_steps,
                                          int(fetched.pop()))
@@ -1701,6 +1735,157 @@ class DeepSpeedEngine:
                 f"{skew['slowest']:.4f}s vs fleet median "
                 f"{skew['median']:.4f}s (x{skew['ratio']:.2f} >= "
                 f"straggler_factor {factor:g})")
+
+    # ------------------------------------------- receipts and attribution
+    def _fwd_bwd_multiplicity(self):
+        """How many times the recorded (and flops-counted) ``fwd_bwd``
+        phase runs in one step: one per micro-batch."""
+        return self.gradient_accumulation_steps()
+
+    def comm_wire_bytes_per_step(self):
+        """Predicted collective wire bytes of one optimizer step (the
+        comm ledger's recorded phases, JAX ``engine.py:1302``); None
+        until they are recorded or with the ledger off."""
+        return self.comm_ledger.step_wire_bytes(self._fwd_bwd_multiplicity())
+
+    def comm_receipt(self):
+        """``{program, collectives, payload_bytes, wire_bytes}`` of one
+        optimizer step (JAX ``engine.py:1310``); None when unrecorded."""
+        return self.comm_ledger.step_entry(self._fwd_bwd_multiplicity())
+
+    def overlap_receipt(self):
+        """``{program, wire_seconds, exposed_wire_seconds,
+        overlap_fraction}`` of one optimizer step from the recorded
+        phases' overlap summaries (JAX ``engine.py:1320``): which of the
+        predicted wire seconds the step pays as latency.  None until a
+        phase is recorded or with the ledger off."""
+        return self.comm_ledger.step_overlap(self._fwd_bwd_multiplicity())
+
+    def driver_seconds_per_step(self):
+        """Host driver seconds of a step: the bracket from the batch
+        fetch to the step's last launch, the blocking fetches excluded,
+        as the MIN over the recent window (JAX ``engine.py:1331``: the
+        first steps' recordings and syncs sit inside the bracket, and a
+        slow input pipeline raises every sample).  0.0 until a
+        ``train_batch`` has run."""
+        vals = self._driver_latencies.recent()
+        return float(min(vals)) if vals else 0.0
+
+    def attribution_receipt(self):
+        """Reconciled step-time attribution (JAX ``engine.py:1343``,
+        :mod:`~deepspeed_tpu_torch.profiling.attribution`): the predicted
+        budget of one step — roofline compute, exposed collective and
+        point-to-point wire, the declared host stream (from the comm
+        ledger's overlap summaries) and the driver — beside the measured
+        p50 of the step-latency ring, the residual as ``unexplained``.
+
+        The driver phase differs from the JAX package's: eager PyTorch
+        launches every kernel from the host, so on a device-paced step
+        the host's bracket (:meth:`driver_seconds_per_step`) runs under
+        the device's work, where the JAX engine's one program a step
+        keeps it short.  The phase is what the bracket took beyond the
+        predicted device time, ``max(0, bracket - (compute + exposed
+        wire))``: near 0 for a device-paced step, the host's excess for
+        a host-paced one.  Host arithmetic on recorded floats: no sync.
+        With a flops profile, ``flops_check`` holds its FLOPs at the
+        card's peak against the roofline compute term.  None until a
+        phase with an overlap summary is recorded, or with the ledger
+        off."""
+        from ..profiling import attribution as attr_prof
+
+        if not self.comm_ledger.enabled:
+            return None
+        entries = self.comm_ledger.overlap_entries()
+        acc = self._fwd_bwd_multiplicity()
+        budget = attr_prof.step_budget(entries, acc)
+        if budget is None:
+            return None
+        bracket = self.driver_seconds_per_step()
+        budget = attr_prof.step_budget(
+            entries, acc, driver_seconds=max(
+                0.0, bracket - budget["predicted_step_seconds"]))
+        snap = self._step_latencies.latency_snapshot()
+        receipt = attr_prof.reconcile(budget,
+                                      snap["p50"] if snap["n"] else None)
+        receipt["driver_bracket_seconds"] = bracket
+        prof = (self.flops_profiler.profile
+                if self.flops_profiler is not None else None)
+        if prof is not None and prof.flops:
+            specs = chip_specs(self._device_kind())
+            receipt["flops_check"] = attr_prof.flops_cross_check(
+                budget, prof.flops, specs["peak_tflops"] * 1e12)
+        return receipt
+
+    def _sample_attribution(self):
+        """``attribution/*`` gauges and one ``attribution`` event at the
+        print cadence (JAX ``engine.py:1384``): host arithmetic on
+        recorded floats, no added sync."""
+        if not self.telemetry.enabled:
+            return
+        receipt = self.attribution_receipt()
+        if receipt is None or receipt["measured_step_seconds"] is None:
+            return
+        from ..profiling import attribution as attr_prof
+
+        for phase in attr_prof.PHASES:
+            val = receipt["phases"].get(phase)
+            if val is not None:
+                self.telemetry.gauge(f"attribution/{phase}_seconds").set(
+                    float(val))
+        self.telemetry.gauge("attribution/predicted_step_seconds").set(
+            float(receipt["predicted_step_seconds"]))
+        self.telemetry.gauge("attribution/measured_step_seconds").set(
+            float(receipt["measured_step_seconds"]))
+        self.telemetry.gauge("attribution/unexplained_fraction").set(
+            float(receipt["step_unexplained_fraction"]))
+        self.telemetry.emit(TEL.EVENT_ATTRIBUTION, step=self.global_steps,
+                            **receipt)
+
+    def _device_kind(self):
+        return (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else self.device.type)
+
+    def declared_collective_schedule(self):
+        """The bucketed exchange's declared schedule for the overlap
+        model (JAX ``engine.py:2174-2212``): wherever the bucketed
+        exchange is supported, its bucket geometry with ``overlap``
+        saying whether it runs (the fused control declares what the
+        buckets could have hidden), and the fp32 flat payloads of each
+        side; None where it is unsupported."""
+        if self.flat.plan is not None:
+            plan = self.flat.plan
+        elif self._comm_overlap_reason is None:
+            zc = self._config.zero_config
+            plan = BucketPlan(
+                list(self.segments.sizes), dp=self.dp_world_size,
+                reduce_bucket_size=zc.reduce_bucket_size,
+                allgather_bucket_size=zc.allgather_bucket_size)
+        else:
+            return None
+        sched = dict(plan.schedule(), overlap=bool(self._comm_overlap))
+        sched["grad_bytes"] = int(plan.rows * LANES * 4)
+        sched["gather_bytes"] = int(plan.rows * LANES * 4)
+        if self.zero_stage >= 3:
+            sched["param_gathers"] = True
+            sched["gather_bytes"] = int(2 * plan.rows * LANES * 4)
+        return sched
+
+    def program_verify_context(self):
+        """The context the overlap model prices a phase against, also
+        written into the ``programs/`` sidecars (JAX ``engine.py:1413``,
+        its overlap half): the mesh, the flat fp32 master's bytes, the
+        offload stream's bytes a step and schedule, the bucketed
+        exchange's declared schedule and the card."""
+        return {
+            "mesh_axes": ({ax: n for ax, n in self.mesh.shape.items()}
+                          if self.mesh is not None else {}),
+            "data_axis": DATA_AXIS,
+            "param_bytes": int(np.prod(self.flat.flat_shape)) * 4,
+            "host_state_wire_bytes": self.host_state_bytes_per_step(),
+            "host_stream_schedule": self.host_stream_schedule(),
+            "collective_schedule": self.declared_collective_schedule(),
+            "device_kind": self._device_kind(),
+        }
 
     def _step_beat(self):
         """One completed step: the watchdog's heartbeat (which feeds the
@@ -2290,9 +2475,11 @@ class DeepSpeedEngine:
         if self.global_steps % self.steps_per_print() == 0:
             if mean_loss is None:
                 # the print cadence's one host sync
+                t_fetch = time.perf_counter()
                 with self.telemetry.span("device_get",
                                          step=self.global_steps):
                     mean_loss = float(self._step_loss)
+                self._fetch_secs += time.perf_counter() - t_fetch
             lr = self.get_lr()[0]
             scale = (float(self._scale_state.cur_scale)
                      if self._config.fp16_enabled else 1.0)
@@ -2311,6 +2498,7 @@ class DeepSpeedEngine:
                 "Train/Samples/loss_scale": scale,
             }, skipped=self._skipped)
             self._sample_comm_skew()
+            self._sample_attribution()
             self._sample_memory_watermarks()
         self._losses = []
         self._step_beat()
@@ -2362,6 +2550,7 @@ class DeepSpeedEngine:
         timed = self.wall_clock_breakdown()
         self.tput_timer.start()
         t_host0 = time.perf_counter()
+        self._fetch_secs = 0.0
         if timed:
             self.timers("train_batch").start(sync=True)
         with self.telemetry.span("batch_fetch", step=self.global_steps + 1):
@@ -2375,6 +2564,10 @@ class DeepSpeedEngine:
             self.step()
         finally:
             self._in_train_batch = False
+        # the driver bracket: batch fetch to the step's last launch, the
+        # blocking fetches excluded (their wait is device time)
+        self._driver_latencies.record(
+            time.perf_counter() - t_host0 - self._fetch_secs)
         if timed:
             self.timers("train_batch").stop(sync=True)
             self._timed_steps += 1

@@ -116,6 +116,18 @@ stage's leaves are joined over ``model``, the stages' rows are gathered
 to global rank 0, which writes them, and every rank reads its own
 leaves back (its slices of them), so a checkpoint moves between stage
 counts, model degrees and the two packages.
+
+Profiling (ROADMAP A23; the ``flops_profiler`` and ``profiling``
+blocks): the memory ledger measures each stage's first forward and
+backward instruction and its first optimizer apply; the comm ledger
+records the first batch's schedule up to ``OptimizerStep`` as
+``fwd_bwd`` (the point-to-point transfers, as ``p2p_transfer`` nodes of
+its overlap summary, and the tied copies' all-reduce) and the step as
+``apply_update``, the JAX pipeline's two programs, so the receipts
+(``comm_receipt``, ``overlap_receipt``, ``attribution_receipt``) count
+``fwd_bwd`` once a step; the flops profiler counts the ``profile_step``-th
+batch's instructions, each stage its own layers; the driver bracket
+runs from the batch's start to its step's last launch.
 """
 
 import bisect
@@ -297,6 +309,10 @@ class PipelineEngine(DeepSpeedEngine):
                          device=device)
         self.micro_batches = self.gradient_accumulation_steps()
         self._check_boundaries = True
+        # the memory ledger's stage entry points (the base engine's wrap
+        # its loss and backward, which the schedule does not call)
+        self._forward = self.memory_ledger.wrap("forward", self._forward)
+        self._backward = self.memory_ledger.wrap("backward", self._backward)
         if self.mesh is not None and self.pipe_world_size > 1:
             # the pipe group's first collective comes before any
             # point-to-point batch, which NCCL needs of a new group
@@ -571,10 +587,20 @@ class PipelineEngine(DeepSpeedEngine):
             data_iter = self._train_iter
         self.tput_timer.start()
         t_host0 = time.perf_counter()
+        self._fetch_secs = 0.0
         self._losses = []
         self._batch_seed = mix_seed(self._config.seed, self.micro_steps)
-        self._run(self._schedule("train", self.micro_batches, self.stage_id),
-                  data_iter, train=True)
+        if self._flops_armed() and not self.flops_profiler.active:
+            self.flops_profiler.begin_step()
+        # the whole batch up to OptimizerStep is one fwd_bwd phase
+        self.comm_ledger.begin("fwd_bwd")
+        try:
+            self._run(self._schedule("train", self.micro_batches,
+                                     self.stage_id), data_iter, train=True)
+        finally:
+            self._end_fwd_bwd()
+        self._driver_latencies.record(
+            time.perf_counter() - t_host0 - self._fetch_secs)
         self.tput_timer.stop()
         if self.telemetry.enabled:
             # the train engine's per-step telemetry (JAX
@@ -652,6 +678,7 @@ class PipelineEngine(DeepSpeedEngine):
         elif isinstance(cmd, ReduceGrads):
             pass  # the data-parallel exchange opens the step below
         elif isinstance(cmd, OptimizerStep):
+            self._end_fwd_bwd()
             M = self.micro_batches
             self.micro_steps += M
             self.global_samples += (self.train_micro_batch_size_per_gpu()
@@ -659,6 +686,17 @@ class PipelineEngine(DeepSpeedEngine):
             self.step()
         else:
             raise NotImplementedError(f"unknown instruction {cmd!r}")
+
+    def _end_fwd_bwd(self):
+        """The batch's forward-backward ends: the comm ledger's pricer
+        (entered last) closes, then the flops profiler's count of it."""
+        self.comm_ledger.end("fwd_bwd")
+        if self.flops_profiler is not None and self.flops_profiler.active:
+            self.flops_profiler.end_micro_batch()
+
+    def _fwd_bwd_multiplicity(self):
+        # the recorded fwd_bwd is the whole batch: once a step
+        return 1
 
     def _work(self, b, entry):
         """``(micro-batch, logical stage)`` of buffer ``b``: from the

@@ -18,8 +18,8 @@ per-rank event streams (``events-rank*.jsonl``) and metric snapshots
   rank;
 - with ``--comm``, the communication section: the per-program collective
   table (count / payload bytes / predicted wire bytes / exposed wire
-  seconds from the comm
-  ledger's compile-time HLO walk), a per-step cross-rank latency table
+  seconds from the comm ledger's phase records and overlap summaries),
+  a per-step cross-rank latency table
   with a slowest-vs-median skew column, and the straggler verdicts;
 - with ``--prometheus``, a Prometheus text-exposition dump of the merged
   metric snapshots (for scraping a finished or running job's artifacts);
@@ -29,10 +29,12 @@ per-rank event streams (``events-rank*.jsonl``) and metric snapshots
 - with ``--json``, a machine-readable report document — summary, comm,
   elastic sections, plus the merged event list under ``events``.
 
-The step-time attribution doctor (``--doctor``) and the serving section's
-tail-request decomposition read ``profiling/doctor.py``, which is not
-ported yet (ROADMAP A16): each prints one line saying so.  The JAX
-CLI's ``--diff`` of two bench records has no port counterpart.
+With ``--doctor``, the step-time attribution section: the reconciled
+per-rank phase table and straggler explanation of
+``profiling/doctor.py``, from the run's ``programs/`` sidecars
+(``profiling.program_dump``); the serving section's tail-request
+decomposition is the doctor's too.  The JAX CLI's ``--diff`` of two
+bench records has no port counterpart.
 
 Stdlib-only: runs anywhere the artifacts are mounted, no torch required.
 """
@@ -331,49 +333,16 @@ def serving_resilience_summary(records):
     return lines
 
 
-# what --doctor and the serving tail decomposition print until the
-# attribution doctor is ported
-DOCTOR_UNPORTED = ("not ported yet: the step-time attribution doctor "
-                   "(profiling/doctor.py) is ROADMAP A16")
-
-
-def serving_traces(records):
-    """trace id -> joined lifecycle view from the schema-versioned
-    EVENT_SERVING phase records (the JAX package's
-    ``profiling/doctor.py:133``).  A requeued request (replica death)
-    contributes ONE entry — the records share the trace id minted at
-    submit — with the LAST life's admit/first_token (the life that
-    actually delivered) and the requeue count."""
-    traces = {}
-    for rec in records:
-        if rec.get("type") != ev.EVENT_SERVING:
-            continue
-        data = rec.get("data", {})
-        trace = data.get("trace")
-        if not trace:
-            continue
-        t = traces.setdefault(trace, {"trace": trace, "kinds": [],
-                                      "requeues": 0})
-        kind = data.get("kind")
-        t["kinds"].append(kind)
-        if kind == "requeue":
-            t["requeues"] += 1
-        elif kind in ("finish", "deadline", "shed"):
-            t["terminal"] = kind
-            t[kind] = data
-        elif kind in ("submit", "admit", "first_token"):
-            t[kind] = data    # last life wins on requeue
-        if "request" in data:
-            t["request"] = data["request"]
-    return traces
-
-
 def format_serving_section(records, run_dir=None):
     """The serving observability section (``report --serving``): the
     per-trace request timeline, the cadence occupancy windows, SLO
     attainment and shed/degrade/requeue accounting.  Built from the
     schema-versioned EVENT_SERVING lifecycle records the observability
-    plane emits."""
+    plane emits; the tail request's decomposition is the doctor's
+    (``profiling/doctor.py``)."""
+    from ..profiling.doctor import (format_serving_tail, serving_traces,
+                                    serving_tail_decomposition)
+
     out = ["serving (request traces / occupancy / SLO):"]
     aligned = align_records(records)
     traces = serving_traces(records)
@@ -455,7 +424,7 @@ def format_serving_section(records, run_dir=None):
             f"{k}={counts[k]}" for k in sorted(counts)))
     # -- doctor tail decomposition ----------------------------------------
     if run_dir is not None:
-        out.append(f"  tail-request decomposition: {DOCTOR_UNPORTED}")
+        out.extend(format_serving_tail(serving_tail_decomposition(run_dir)))
     return out
 
 
@@ -470,18 +439,23 @@ def comm_program_table(records):
     if not progs:
         return ["  (no comm program events — enable profiling.comm_ledger)"]
     lines = [f"  {'program':<24} {'rank':<10} {'colls':>5} "
-             f"{'payload':>10} {'wire/step':>10}  ops"]
+             f"{'payload':>10} {'wire/step':>10} {'exposed (overlap)':>18}"
+             f"  ops"]
     for (stream, program) in sorted(progs):
         d = progs[(stream, program)]
         ops = d.get("ops", {}) or {}
         ops_s = " ".join(f"{op}:{ops[op].get('count', 0)}"
                          f"(g{ops[op].get('max_group', 1)})"
                          for op in sorted(ops)) or "-"
+        ov = d.get("overlap")
+        exposed = ("-" if not ov else
+                   f"{ov['exposed_wire_seconds'] * 1e3:.3f}ms "
+                   f"({ov['overlap_fraction']:.0%})")
         lines.append(
             f"  {program:<24} {stream:<10} "
             f"{d.get('collectives', 0):>5} "
             f"{_fmt_bytes(d.get('payload_bytes')):>10} "
-            f"{_fmt_bytes(d.get('wire_bytes')):>10}  {ops_s}")
+            f"{_fmt_bytes(d.get('wire_bytes')):>10} {exposed:>18}  {ops_s}")
     return lines
 
 
@@ -561,6 +535,9 @@ def measured_latencies(records, window=MEASURED_LATENCY_WINDOW):
             for stream, vals in by_stream.items()}
 
 
+_STEPWISE_PROGRAMS = ("fwd_bwd", "apply_update")
+
+
 def comm_summary(records):
     """Predicted-vs-measured closing lines: the step program's predicted
     wire bytes next to each rank's measured p50 step latency (median of
@@ -568,6 +545,7 @@ def comm_summary(records):
     lines = []
     wire = {}
     exposure = {}
+    stepwise = {}
     measured = measured_latencies(records)
     for rec in records:
         data = rec.get("data", {})
@@ -585,6 +563,23 @@ def comm_summary(records):
             wire[stream] = data.get("wire_bytes")
             if data.get("overlap"):
                 exposure[stream] = data["overlap"]
+        elif (data.get("kind") == "program"
+              and data.get("program") in _STEPWISE_PROGRAMS):
+            # the port's step-wise phases: one step is their sum (one
+            # micro-batch's fwd_bwd)
+            stepwise.setdefault(stream, {})[data["program"]] = data
+    for stream, progs in stepwise.items():
+        if stream in wire:
+            continue
+        wire[stream] = sum(int(d.get("wire_bytes") or 0)
+                           for d in progs.values())
+        ovs = [d["overlap"] for d in progs.values() if d.get("overlap")]
+        if ovs:
+            w = sum(o["wire_seconds"] for o in ovs)
+            x = sum(o["exposed_wire_seconds"] for o in ovs)
+            exposure[stream] = {"exposed_wire_seconds": x,
+                                "overlap_fraction": (1.0 - x / w) if w > 0
+                                else 1.0}
     for stream in sorted(set(wire) | set(measured)):
         w, m = wire.get(stream), measured.get(stream)
         ov = exposure.get(stream)
@@ -610,19 +605,34 @@ def format_comm_section(records):
     return out
 
 
-def doctor_verdict():
-    """The step-time attribution doctor's verdict: ``{"error": ...}``
-    until ``profiling/doctor.py`` is ported (ROADMAP A16)."""
-    return {"error": DOCTOR_UNPORTED}
+def doctor_verdict(run_dir, grad_accumulation_steps=1):
+    """The step-time attribution doctor's verdict for ``run_dir``
+    (``profiling/doctor.py``), or ``{"error": ...}`` when the run never
+    dumped its programs: the report section says why instead of
+    vanishing.  ``grad_accumulation_steps`` (CLI: ``--grad-accum``)
+    weights step-wise program sets."""
+    try:
+        from ..profiling.doctor import doctor_run_dir
+
+        return doctor_run_dir(
+            run_dir, grad_accumulation_steps=grad_accumulation_steps)
+    except (FileNotFoundError, OSError, ValueError, ImportError) as e:
+        return {"error": str(e)}
 
 
 def format_doctor_section(verdict):
-    return ["step-time attribution (doctor):",
-            f"  unavailable: {verdict['error']}"]
+    out = ["step-time attribution (doctor):"]
+    if verdict.get("error"):
+        out.append(f"  unavailable: {verdict['error']}")
+        return out
+    from ..profiling.doctor import format_verdict
+
+    out.extend(format_verdict(verdict))
+    return out
 
 
 def generate_report(run_dir, strict=False, comm=False, doctor=False,
-                    serving=False):
+                    serving=False, grad_accumulation_steps=1):
     """Full text report for ``run_dir``; returns (text, events)."""
     records = ev.read_events(run_dir, strict=strict)
     problems = []
@@ -661,7 +671,8 @@ def generate_report(run_dir, strict=False, comm=False, doctor=False,
         out.extend(format_comm_section(records))
     if doctor:
         out.append("")
-        out.extend(format_doctor_section(doctor_verdict()))
+        out.extend(format_doctor_section(doctor_verdict(
+            run_dir, grad_accumulation_steps=grad_accumulation_steps)))
     out.append("")
     out.append("metrics:")
     out.extend(format_metrics(load_metrics(run_dir)))
@@ -678,7 +689,8 @@ def generate_report(run_dir, strict=False, comm=False, doctor=False,
 REPORT_JSON_SCHEMA_VERSION = 1
 
 
-def report_json(run_dir, strict=False, doctor=False):
+def report_json(run_dir, strict=False, doctor=False,
+                grad_accumulation_steps=1):
     """Machine-readable report document: summary / comm / elastic
     sections (+ the doctor verdict with ``doctor=True``) so CI and the
     bench harness consume verdicts without scraping text.  The merged
@@ -742,7 +754,8 @@ def report_json(run_dir, strict=False, doctor=False):
         "events": records,
     }
     if doctor:
-        doc["doctor"] = doctor_verdict()
+        doc["doctor"] = doctor_verdict(
+            run_dir, grad_accumulation_steps=grad_accumulation_steps)
     return doc
 
 
@@ -775,8 +788,12 @@ def main(argv=None):
                           "collective-bytes table, per-step cross-rank "
                           "skew, straggler verdicts")
     rep.add_argument("--doctor", action="store_true",
-                     help="the step-time attribution doctor (not ported "
-                          "yet: ROADMAP A16; prints one line)")
+                     help="include the step-time attribution doctor "
+                          "section (needs the run's programs/ sidecars: "
+                          "profiling.program_dump)")
+    rep.add_argument("--grad-accum", type=int, default=1,
+                     help="micro-batch multiplicity for the doctor's "
+                          "step-wise program sets")
     rep.add_argument("--serving", action="store_true",
                      help="include the serving observability section: "
                           "request-trace timeline, occupancy windows, "
@@ -792,12 +809,14 @@ def main(argv=None):
         return 0
     if args.as_json:
         doc = report_json(args.run_dir, strict=args.strict,
-                          doctor=args.doctor)
+                          doctor=args.doctor,
+                          grad_accumulation_steps=args.grad_accum)
         json.dump(doc, sys.stdout, indent=1)
         sys.stdout.write("\n")
         return 0
     text, records = generate_report(args.run_dir, strict=args.strict,
                                     comm=args.comm, doctor=args.doctor,
-                                    serving=args.serving)
+                                    serving=args.serving,
+                                    grad_accumulation_steps=args.grad_accum)
     sys.stdout.write(text)
     return 0 if records else 1
